@@ -10,8 +10,11 @@ Phases, in order:
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 and bf16, at the main path's shapes and at ragged ones, and
      time kernel, plain version and the one-call PyTorch yardstick
-     (`F.layer_norm`, `F.scaled_dot_product_attention` — timed only,
-     the port never calls them);
+     (`F.layer_norm`, `F.scaled_dot_product_attention` and its
+     backward, `torch.optim.Adam(fused=True).step()` — timed only, the
+     port never calls them). Fused Adam runs at the LM's block run (4
+     blocks x 16 leaves, 3.16 M elements) and must be bit-equal to its
+     plain version;
   3. scoring: `TransformerLM(vocab 512, d_model 256, 4 layers, 8 heads,
      ff x4, max_len 512)` with random weights from a numpy seed loaded
      through `from_jax_params`, `output()` at B=16, T=512 on the card,
@@ -21,8 +24,15 @@ Phases, in order:
      requests (seeded prompt lengths 16-300, 64 tokens) and 4 sampled
      ones (temperature 0.8, top_p 0.9); every greedy stream must equal
      the port's `generate()` on the card;
+  5. training: the same LM (random weights, unscaled head) `fit` with
+     Adam(1e-3) on windows of T = 511 from a seeded period-64 token
+     cycle, one-hot next-token labels: (a) 3 steps at B=8 on the card
+     and on the CPU from identical params, loss per step and every
+     param held card against CPU; (b) 20 timed steps at B=16 on the
+     card, the loss must fall; the backward and Adam kernels must have
+     launched;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-and 4, each > 0), the card's name and power limit, and last
+to 5, each > 0), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result.
 """
@@ -44,11 +54,25 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # peak rates (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, fp32
 # (CUDA cores) and bf16 (tensor cores) operations/s
 HBM_BPS = 3.35e12
+SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's 1.98 GHz boost clock
 PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
 
 LN_TOL = {"float32": 1e-5, "bfloat16": 2 ** -4}        # 1 bf16 ulp at |y|<16
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2 ** -5}     # 1 bf16 ulp at |o|<4
+# flash backward: fp32 sums over up to 512 keys/queries in another
+# order than the plain einsums; bf16: 2 ulp of the largest |value|
+# (each side rounds its own fp32 sum once)
+BWD_ATOL_F32 = 1e-4
 OUTPUT_ATOL = 1e-4    # softmax probs, card vs CPU, fp32 (TF32 off)
+# training, card vs CPU (fp32, TF32 off): loss per step relative, and
+# each param's relative Frobenius difference after the steps. The key
+# bias attn_bk has a gradient that is zero up to rounding (softmax is
+# shift invariant per query row), so Adam moves it by noise of up to
+# lr (1-b1)/sqrt(1-b2) a step (Kingma & Ba, 2.1) on each side: it is
+# held to twice that bound per step instead.
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_PARAM_RTOL = 1e-3
+ADAM_STEP_MAX = 1e-3 * 0.1 / 0.001 ** 0.5
 
 LM = dict(vocab=512, d_model=256, n_layers=4, n_heads=8, ff=4, max_len=512)
 
@@ -56,6 +80,7 @@ LM = dict(vocab=512, d_model=256, n_layers=4, n_heads=8, ff=4, max_len=512)
 # ------------------------------------------------------------------ helpers
 class Failures(list):
     def check(self, ok: bool, what: str):
+        ok = bool(ok)
         if not ok:
             self.append(what)
             print(f"FAIL: {what}", flush=True)
@@ -65,7 +90,12 @@ class Failures(list):
 def timer(device, fn, iters=20, warmup=3, flush=None):
     """Median ms of `fn()` over `iters` calls; CUDA events on the card,
     each launch after a write of `flush` (a buffer larger than L2) so the
-    inputs come cold from device memory, as the model's layers find them."""
+    inputs come cold from device memory, as the model's layers find them.
+    A ~1 ms device spin (`torch.cuda._sleep`) goes first, so the host
+    has queued the events and the launch before the card reaches them:
+    the events then time the device work, not the host's launch
+    overhead (a wrapper that spends longer on the host than its kernel
+    takes would otherwise be timed by its host side)."""
     import torch
     for _ in range(warmup):
         fn()
@@ -79,6 +109,7 @@ def timer(device, fn, iters=20, warmup=3, flush=None):
     torch.cuda.synchronize()
     pairs = []
     for _ in range(iters):
+        torch.cuda._sleep(SPIN_CYCLES)
         if flush is not None:
             flush.add_(1)
         a = torch.cuda.Event(enable_timing=True)
@@ -95,6 +126,35 @@ def bound(nbytes: float, ops: float, dtype: str):
     t_bytes = nbytes / HBM_BPS * 1e3
     t_ops = ops / PEAK_OPS[dtype] * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bwd_tol(dtype: str, ref_maxabs: float) -> float:
+    if dtype == "float32":
+        return BWD_ATOL_F32
+    return float(2 * 2.0 ** (np.floor(np.log2(max(ref_maxabs, 2 ** -60)))
+                             - 7))
+
+
+def block_shapes(cfg):
+    """The leaf shapes of the LM's run of transformer blocks (16 per
+    block), the run one fused-Adam launch updates."""
+    d = cfg["d_model"]
+    ff = d * cfg["ff"]
+    one = [(d, d)] * 4 + [(d,)] * 8 + [(d, ff), (ff,), (ff, d), (d,)]
+    return one * cfg["n_layers"]
+
+
+def lm_corpus(cfg, n: int, seed: int, period: int = 64):
+    """n training windows of length max_len - 1 from a seeded
+    period-`period` token cycle (float-carried ids, as `fit` takes
+    them) with one-hot next-token labels."""
+    rng = np.random.default_rng(seed)
+    V, T = cfg["vocab"], cfg["max_len"] - 1
+    pattern = rng.choice(V, period, replace=False)
+    tokens = np.tile(pattern, (n + T) // period + 2)
+    X = np.stack([tokens[i:i + T] for i in range(n)])
+    Y = np.stack([tokens[i + 1:i + T + 1] for i in range(n)])
+    return X.astype(np.float32), np.eye(V, dtype=np.float32)[Y]
 
 
 def random_lm_params(cfg, seed: int, head_scale: float):
@@ -231,11 +291,35 @@ def phase_kernels(device, report, fails, small=False):
                                    shape=[B, T, H, Dh], max_abs_err=e,
                                    lse_err=el, tol=FLASH_TOL[dt_name],
                                    ok=ok))
+                do = rnd((B, T, H, Dh), dt)
+                delta = fa.attention_delta(do, o)
+                bwd = (q, k, v, do, lse, delta, causal)
+                dq = fa.flash_attention_bwd_dq(*bwd)
+                dq0 = fa.flash_attention_bwd_dq_plain(*bwd)
+                dk, dv = fa.flash_attention_bwd_dkv(*bwd)
+                dk0, dv0 = fa.flash_attention_bwd_dkv_plain(*bwd)
+                bwd_errs = {}
+                for name, pairs in (
+                        ("flash_attention_bwd_dq", [(dq, dq0)]),
+                        ("flash_attention_bwd_dkv", [(dk, dk0), (dv, dv0)])):
+                    e_b = max((a.float() - b.float()).abs().max().item()
+                              for a, b in pairs)
+                    ref = max(b.float().abs().max().item() for _, b in pairs)
+                    tol = bwd_tol(dt_name, ref)
+                    ok = fails.check(
+                        e_b <= tol, f"{name} {case} {dt_name} causal="
+                        f"{causal} {[B, T, H, Dh]}: max_abs_err {e_b} "
+                        f"(tol {tol}, max |ref| {ref})")
+                    checks.append(dict(kernel=name, case=case, dtype=dt_name,
+                                       causal=causal, shape=[B, T, H, Dh],
+                                       max_abs_err=e_b, max_abs_ref=ref,
+                                       tol=tol, ok=ok))
+                    bwd_errs[name] = e_b
                 if case != "main" or not causal:
                     continue
                 es_ = q.element_size()
-                nbytes = 4 * B * T * H * Dh * es_ + B * H * T * 4
-                ops = 4.0 * Dh * B * H * T * (T + 1) / 2
+                bthd, bht = B * T * H * Dh, B * H * T
+                pairs_ = B * H * T * (T + 1) / 2     # visible (q, k) pairs
                 qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
                 timings[("flash_attention_fwd", dt_name)] = dict(
                     shape=[B, T, H, Dh], max_abs_err=e,
@@ -247,7 +331,39 @@ def phase_kernels(device, report, fails, small=False):
                                      F.scaled_dot_product_attention(
                                          qt, kt, vt, is_causal=True),
                                      flush=flush),
-                    bound=bound(nbytes, ops, dt_name))
+                    bound=bound(4 * bthd * es_ + bht * 4, 4.0 * Dh * pairs_,
+                                dt_name))
+                # yardstick: SDPA's backward (dq, dk and dv in one call)
+                ql, kl, vl = (a.detach().requires_grad_() for a in (qt, kt, vt))
+                ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
+                dol = do.transpose(1, 2)
+                lib_bwd = timer(device, lambda: torch.autograd.grad(
+                    ol, (ql, kl, vl), dol, retain_graph=True), flush=flush)
+                del ol
+                timings[("flash_attention_bwd_dq", dt_name)] = dict(
+                    shape=[B, T, H, Dh],
+                    max_abs_err=bwd_errs["flash_attention_bwd_dq"],
+                    ms=timer(device, lambda: fa.flash_attention_bwd_dq(*bwd),
+                             flush=flush),
+                    plain_ms=timer(device, lambda:
+                                   fa.flash_attention_bwd_dq_plain(*bwd),
+                                   iters=10, flush=flush),
+                    library_ms=lib_bwd,
+                    bound=bound(5 * bthd * es_ + 2 * bht * 4,
+                                6.0 * Dh * pairs_, dt_name))
+                timings[("flash_attention_bwd_dkv", dt_name)] = dict(
+                    shape=[B, T, H, Dh],
+                    max_abs_err=bwd_errs["flash_attention_bwd_dkv"],
+                    ms=timer(device, lambda: fa.flash_attention_bwd_dkv(*bwd),
+                             flush=flush),
+                    plain_ms=timer(device, lambda:
+                                   fa.flash_attention_bwd_dkv_plain(*bwd),
+                                   iters=10, flush=flush),
+                    library_ms=lib_bwd,
+                    bound=bound(6 * bthd * es_ + 2 * bht * 4,
+                                8.0 * Dh * pairs_, dt_name))
+    timings.update(_adam_checks(device, checks, fails, flush, rnd,
+                                dict(LM, d_model=64) if small else LM))
     if device.type == "cuda":
         torch.cuda.synchronize()
     report["kernel_checks"] = checks
@@ -258,6 +374,53 @@ def phase_kernels(device, report, fails, small=False):
               f"{t['plain_ms']:.4f} ms, library {t['library_ms']} ms, bound "
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), max_abs_err "
               f"{t['max_abs_err']:.3g}", flush=True)
+    return timings
+
+
+def _adam_checks(device, checks, fails, flush, rnd, cfg):
+    """Fused Adam at the LM's block run against its plain version:
+    bit-equal with fp32 grads and with bf16 grads (upcast on load);
+    timed beside `torch.optim.Adam(fused=True).step()` on the same
+    tensors."""
+    import torch
+    from deeplearning4j_tpu_torch.common.updaters import Adam
+    from deeplearning4j_tpu_torch.kernels import fused_adam as fad
+    shapes = block_shapes(cfg)
+    n = int(sum(np.prod(s) for s in shapes))
+    upd, step = Adam(1e-3), 9
+    timings = {}
+    for g_name, g_dt in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        p = [rnd(s, torch.float32, 0.05) for s in shapes]
+        g = [rnd(s, g_dt, 1e-3) for s in shapes]
+        m = [rnd(s, torch.float32, 1e-4) for s in shapes]
+        v = [rnd(s, torch.float32, 1e-6).abs() for s in shapes]
+        pa, ma, va = ([t.clone() for t in ts] for ts in (p, m, v))
+        fad.adam_update_packed(upd, pa, g, ma, va, step)
+        fad.adam_update_plain(upd, p, g, m, v, step)
+        err = max((a - b).abs().max().item()
+                  for a, b in zip(pa + ma + va, p + m + v))
+        ok = fails.check(err == 0, f"fused_adam grads {g_name} [{n}] "
+                         f"({len(shapes)} leaves): max_abs_err {err} "
+                         f"(must be bit-equal)")
+        checks.append(dict(kernel="fused_adam", case="lm_block_run",
+                           dtype=g_name, shape=[n], leaves=len(shapes),
+                           max_abs_err=err, tol=0.0, ok=ok))
+        if g_name != "float32":
+            continue
+        params = [torch.nn.Parameter(t.clone()) for t in p]
+        for q_, g_ in zip(params, g):
+            q_.grad = g_.clone()
+        opt = torch.optim.Adam(params, lr=1e-3,
+                               fused=device.type == "cuda")
+        timings[("fused_adam", g_name)] = dict(
+            shape=[n], max_abs_err=err,
+            ms=timer(device, lambda: fad.adam_update_packed(
+                upd, pa, g, ma, va, step), flush=flush),
+            plain_ms=timer(device, lambda: fad.adam_update_plain(
+                upd, p, g, m, v, step), flush=flush),
+            library_ms=timer(device, opt.step, flush=flush),
+            bound=bound(7 * 4 * n, 10.0 * n, "float32"))
     return timings
 
 
@@ -358,6 +521,92 @@ def phase_serving(device, report, fails, net, n_greedy, n_sampled, n_tok,
     return launches
 
 
+# ------------------------------------------------------ phase 5: training
+def _fit_steps(net, X, Y, B):
+    """One `fit` step per B-row batch, in order; the loss of each."""
+    import torch
+    losses = []
+    for i in range(0, len(X), B):
+        net.fit(X[i:i + B], Y[i:i + B], batch_size=B, shuffle=False)
+        losses.append(net.score_value)
+    if net.device.type == "cuda":
+        torch.cuda.synchronize()
+    return losses
+
+
+def phase_training(device, report, fails, cfg, B_check, n_check, B, n_steps):
+    """(a) card against CPU over n_check steps from identical params;
+    (b) n_steps timed steps on the card, the loss must fall. Returns the
+    launch counts of (b)."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    params = random_lm_params(cfg, seed=4321, head_scale=1.0)
+    X, Y = lm_corpus(cfg, B_check * n_check, seed=5)
+    card = build_lm(cfg, device, params)
+    t0 = time.perf_counter()
+    l_card = _fit_steps(card, X, Y, B_check)
+    card_s = time.perf_counter() - t0
+    cpu = build_lm(cfg, "cpu", params)
+    t0 = time.perf_counter()
+    l_cpu = _fit_steps(cpu, X, Y, B_check)
+    cpu_s = time.perf_counter() - t0
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    fails.check(loss_err <= TRAIN_LOSS_RTOL and all(np.isfinite(l_card)),
+                f"training loss card vs CPU rel err {loss_err} (tol "
+                f"{TRAIN_LOSS_RTOL}): card {l_card}, CPU {l_cpu}")
+    pc, pp = to_jax_params(card), to_jax_params(cpu)
+    worst, worst_bk = (0.0, ""), 0.0
+    for lk, lp in pp.items():
+        for name, want in lp.items():
+            diff = pc[lk][name] - want
+            if name == "attn_bk":
+                worst_bk = max(worst_bk, float(np.abs(diff).max()))
+                continue
+            rel = float(np.linalg.norm(diff) / np.linalg.norm(want))
+            worst = max(worst, (rel, f"{lk}/{name}"))
+    bk_tol = 2 * n_check * ADAM_STEP_MAX
+    fails.check(worst[0] <= TRAIN_PARAM_RTOL and worst_bk <= bk_tol,
+                f"training params card vs CPU: worst rel Frobenius "
+                f"{worst[0]} at {worst[1]} (tol {TRAIN_PARAM_RTOL}), "
+                f"attn_bk max abs {worst_bk} (tol {bk_tol})")
+
+    X, Y = lm_corpus(cfg, B * (n_steps + 1), seed=6)
+    net = build_lm(cfg, device, params)
+    _fit_steps(net, X[:B], Y[:B], B)                   # warm
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = _fit_steps(net, X[B:], Y[B:], B)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    T = cfg["max_len"] - 1
+    fails.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"training loss did not fall: {losses[0]} -> {losses[-1]}")
+    report["training"] = dict(
+        check=dict(B=B_check, T=T, steps=n_check, loss_card=l_card,
+                   loss_cpu=l_cpu, loss_max_rel_err=loss_err,
+                   param_worst_rel_frobenius=worst[0],
+                   param_worst_at=worst[1], attn_bk_max_abs=worst_bk,
+                   card_s=card_s, cpu_s=cpu_s),
+        timed=dict(B=B, T=T, steps=n_steps, wall_s=wall,
+                   ms_per_step=wall / n_steps * 1e3,
+                   tokens_per_s=B * T * n_steps / wall,
+                   loss_first=losses[0], loss_last=losses[-1],
+                   peak_mem_gb=(torch.cuda.max_memory_allocated() / 2 ** 30
+                                if device.type == "cuda" else None),
+                   launches=launches))
+    print(f"[training] card vs CPU {n_check} steps at [{B_check}, {T}]: loss "
+          f"max rel err {loss_err:.3g}, worst param rel Frobenius "
+          f"{worst[0]:.3g} ({worst[1]}), attn_bk max abs {worst_bk:.3g}; "
+          f"{n_steps} steps at [{B}, {T}] on {device}: "
+          f"{wall / n_steps * 1e3:.2f} ms/step, "
+          f"{B * T * n_steps / wall:.0f} tokens/s, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, launches {launches}", flush=True)
+    return launches
+
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=8):
     rows = []
@@ -393,10 +642,50 @@ def _profiled(fn):
     return _profile_summary(prof, wall)
 
 
+def _train_step_phases(net, X, Y, repeats=5):
+    """Median ms of the parts of one `fit` step (as `_fit_step` runs
+    them), each ended by a synchronize, so a part counts the longer of
+    its host and its device work: batch (iterator slice, id checks,
+    host-to-device copies), forward + loss, backward, update."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import as_iterator
+    rows = []
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        marks = [time.perf_counter()]
+
+        def mark():
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+        ds = next(iter(as_iterator(X, Y, batch_size=len(X), shuffle=False)))
+        x, y = net._features(ds.features), net._labels(ds.labels)
+        mark()
+        params = list(net.parameters())
+        try:
+            for p in params:
+                p.requires_grad_(True)
+            loss = net._loss_fn(x, y)
+            mark()
+            loss.backward()
+            mark()
+            net._apply_updates(net.iteration_count)
+            mark()
+        finally:
+            for p in params:
+                p.requires_grad_(False)
+                p.grad = None
+        rows.append(np.diff(marks) * 1e3)
+    med = np.median(rows, axis=0)
+    return dict(zip(("batch_ms", "forward_loss_ms", "backward_ms",
+                     "update_ms"), map(float, med)))
+
+
 def profile_paths(device):
     """Where the time goes: torch.profiler over (1) `output()` on
-    [16, 512] ids, (2) one 8-wide admission wave of 128-token prompts and
-    (3) 32 decode dispatches of the paged engine with 8 active slots.
+    [16, 512] ids, (2) one 8-wide admission wave of 128-token prompts,
+    (3) 32 decode dispatches of the paged engine with 8 active slots and
+    (4) one `fit` step (Adam) on [16, 511] windows, with the step's
+    parts timed apart (`_train_step_phases`).
     Per path: host wall ms, summed device ms of the kernels seen (one
     stream, so kernels do not overlap), busy share = device / wall,
     launches, and the kernels with the most device time."""
@@ -417,10 +706,17 @@ def profile_paths(device):
         lambda: eng.admit_many(reqs))
     out["serving_decode_32_dispatches_8_slots"] = _profiled(
         lambda: [eng.step() for _ in range(32)])
+    X, Y = lm_corpus(LM, 32, seed=6)
+    train = build_lm(LM, device, random_lm_params(LM, 4321, 1.0))
+    train.fit(X[:16], Y[:16], batch_size=16, shuffle=False)        # warm
+    out["training_step_16x511"] = _profiled(
+        lambda: train.fit(X[16:], Y[16:], batch_size=16, shuffle=False))
+    out["training_step_16x511"]["phases"] = _train_step_phases(
+        train, X[16:], Y[16:])
     for k, v in out.items():
         print(f"[profile] {k}: wall {v['wall_ms']:.3f} ms, device "
               f"{v['device_ms']:.3f} ms, busy {v['busy_share']:.3f}, "
-              f"launches {v['launches']}", flush=True)
+              f"launches {v['launches']}", v.get("phases", ""), flush=True)
     return out
 
 
@@ -434,6 +730,14 @@ KERNEL_META = {
     "flash_attention_fwd": (
         "deeplearning4j_tpu_torch/kernels/csrc/flash_attention.cu",
         "deeplearning4j_tpu/kernels/flash_attention.py:87"),
+    "flash_attention_bwd_dq": (
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+        "deeplearning4j_tpu/kernels/flash_attention.py:265"),
+    "flash_attention_bwd_dkv": (
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+        "deeplearning4j_tpu/kernels/flash_attention.py:307"),
+    "fused_adam": ("deeplearning4j_tpu_torch/kernels/csrc/fused_adam.cu",
+                   "deeplearning4j_tpu/kernels/fused_adam.py:78"),
 }
 
 
@@ -468,6 +772,10 @@ def run(device, *, small=False, kernels_only=False):
                        8 if small else 64, (3, 60) if small else (16, 300))
             for k in launches:
                 launches[k] += (l4 or {}).get(k, 0)
+        l5 = phase("training", phase_training, device, report, fails, cfg,
+                   *((2, 2, 2, 4) if small else (8, 3, 16, 20)))
+        for k in launches:
+            launches[k] += (l5 or {}).get(k, 0)
         for k, n in launches.items():
             fails.check(n > 0, f"kernel {k} never launched on the main path")
     kernels = []

@@ -1,16 +1,25 @@
-"""Flash-attention forward: CUDA kernel + plain version.
+"""Flash attention: the forward and the two backward CUDA kernels, each
+with its plain version, and the autograd function around them.
 
 Counterpart of `deeplearning4j_tpu/kernels/flash_attention.py`
-`flash_attention` (forward only: `_flash_fwd_kernel` :87 in finalize
-mode). The CUDA source is `csrc/flash_attention.cu`; its note gives the
-bound and the design. Training (the two backward kernels) and the ring
-carry mode are later slices of the port.
+`flash_attention` (a `jax.custom_vjp`): the forward `_flash_fwd_kernel`
+:87 in finalize mode (`csrc/flash_attention.cu`), and the backward
+`_flash_bwd_dq_kernel` :265 and `_flash_bwd_dkv_kernel` :307
+(`csrc/flash_attention_bwd.cu`). Each source's note gives its bound and
+its design. `_FlashAttentionFn` is the custom_vjp: the forward kernel
+saves (q, k, v, o, lse), the backward launches the dQ and the dK/dV
+kernels. Unlike the JAX package, the backward takes the kernels at
+every sequence length (its `_PALLAS_BWD_MIN_T` crossover to XLA was
+measured on a TPU). The ring carry mode is a later slice.
 
 Semantics (the Pallas kernel's): q, k, v [B, T, H, D]; scores
 `(q * 1/sqrt(D)) k^T` in fp32; causal mask `k_pos <= q_pos` and the
 ragged tail masked with -1e30 (not -inf: a masked score contributes
 exp(-1e30 - m) == 0); o [B, Tq, H, D] in q's dtype and
-lse = m + log(max(l, 1e-20)) [B, H, Tq] in fp32.
+lse = m + log(max(l, 1e-20)) [B, H, Tq] in fp32. The backward
+recomputes p = exp((q·k)·scale − lse) under the same masks, with
+Δ = rowsum(dO∘O) [B, H, Tq] (`attention_delta`, a torch op as it is a
+jnp einsum in JAX); dq/dk/dv come out in the inputs' dtype.
 """
 
 from __future__ import annotations
@@ -64,6 +73,17 @@ def _lib():
     return fn
 
 
+def _bwd_lib(name: str):
+    fn = getattr(build.load("flash_attention_bwd"), name)
+    if fn.argtypes is None:
+        P, I = ctypes.c_void_p, ctypes.c_int
+        outs = [P] if name.endswith("_dq") else [P, P]
+        fn.argtypes = [I, I, P, P, P, P, P, P, *outs, I, I, I, I, I,
+                       ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P]
+        fn.restype = ctypes.c_int
+    return fn
+
+
 def _check(q, k, v):
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("q, k, v must be [B, T, H, D]")
@@ -107,7 +127,134 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
     return o, lse
 
 
+# ----------------------------------------------------------------- backward
+def attention_delta(do, o):
+    """Δ [B, H, T] = Σ_d dO·O in fp32 — the per-row term both backward
+    kernels read (the JAX `attention_delta`)."""
+    return torch.einsum("bthd,bthd->bht", do.float(), o.float())
+
+
+def _probs(q, k, lse, causal):
+    """p = exp(s − lse) [B, H, Tq, Tk] with s = (q·k)·scale under the
+    kernels' masks (-1e30) — recomputed from lse, as the kernels do."""
+    Tq, Tk, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(D)
+    if causal:
+        qpos = torch.arange(Tq, device=q.device)[:, None]
+        kpos = torch.arange(Tk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+    return torch.exp(s - lse[..., None])
+
+
+def _dscores(q, k, v, do, lse, delta, causal):
+    p = _probs(q, k, lse, causal)
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
+                                 causal: bool = False):
+    """Plain version of the dQ kernel: dQ = scale·Σ_k dS·K, [B, Tq, H, D]
+    in q's dtype."""
+    _, ds = _dscores(q, k, v, do, lse, delta, causal)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * _scale(q.shape[-1])
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                  causal: bool = False):
+    """Plain version of the dK/dV kernel: (dK = scale·Σ_q dSᵀ·Q,
+    dV = Σ_q Pᵀ·dO), [B, Tk, H, D] each in k's dtype."""
+    p, ds = _dscores(q, k, v, do, lse, delta, causal)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * _scale(q.shape[-1])
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _check_bwd(q, k, v, do, lse, delta):
+    _check(q, k, v)
+    B, Tq, H, _ = q.shape
+    if do.shape != q.shape or do.dtype != q.dtype or do.device != q.device:
+        raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q")
+    for name, t in (("lse", lse), ("delta", delta)):
+        if (t.shape != (B, H, Tq) or t.dtype != torch.float32
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(f"{name} must be a contiguous fp32 "
+                             f"[{B}, {H}, {Tq}] on q's device")
+
+
+def _bwd_strides(q, k, v, do):
+    return (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, do)
+                                      for i in range(3)))
+
+
+def _contig_last(do):
+    # autograd may hand over a gradient whose head dim is strided; the
+    # kernels read every tensor through its strides but need D
+    # contiguous, so only then is a copy made
+    return do if do.stride(-1) == 1 else do.contiguous()
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
+    """dQ [B, Tq, H, D]. CUDA tensors launch the kernel; CPU tensors
+    take the plain version."""
+    if not K.on_cuda(q, k, v, do, lse, delta):
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    do = _contig_last(do)
+    _check_bwd(q, k, v, do, lse, delta)
+    B, Tq, H, D = q.shape
+    dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
+    status = _bwd_lib("dl4j_flash_attention_bwd_dq")(
+        K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k), K.ptr(v),
+        K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dq), B, Tq, k.shape[1],
+        H, D, _bwd_strides(q, k, v, do), _scale(D), K.stream_of(q))
+    K.check_status("flash_attention_bwd_dq", status)
+    K.LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
+    """(dK, dV) [B, Tk, H, D]. CUDA tensors launch the kernel; CPU
+    tensors take the plain version."""
+    if not K.on_cuda(q, k, v, do, lse, delta):
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    do = _contig_last(do)
+    _check_bwd(q, k, v, do, lse, delta)
+    B, Tq, H, D = q.shape
+    Tk = k.shape[1]
+    dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=k.device)
+    dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=v.device)
+    status = _bwd_lib("dl4j_flash_attention_bwd_dkv")(
+        K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k), K.ptr(v),
+        K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dk), K.ptr(dv), B, Tq,
+        Tk, H, D, _bwd_strides(q, k, v, do), _scale(D), K.stream_of(q))
+    K.check_status("flash_attention_bwd_dkv", status)
+    K.LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+class _FlashAttentionFn(torch.autograd.Function):
+    """The port's custom_vjp: forward kernel, then the dQ and dK/dV
+    kernels (plain versions on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal):
+        o, lse = flash_attention_fwd(q, k, v, causal)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal = bool(causal)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        delta = attention_delta(do, o)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         ctx.causal)
+        return dq, dk, dv, None
+
+
 def flash_attention(q, k, v, causal: bool = False):
-    """[B, T, H, D] x3 -> [B, T, H, D] (the JAX `flash_attention`
-    forward; block sizes are the kernel's own 64x64 tiles)."""
-    return flash_attention_fwd(q, k, v, causal)[0]
+    """[B, T, H, D] x3 -> [B, T, H, D] (the JAX `flash_attention`; block
+    sizes are the kernels' own 64x64 tiles), differentiable."""
+    return _FlashAttentionFn.apply(q, k, v, causal)

@@ -1,4 +1,5 @@
-"""LayerNorm and residual+LayerNorm forward: CUDA kernel + plain version.
+"""LayerNorm and residual+LayerNorm: CUDA forward kernel + plain
+version, and the autograd functions around them.
 
 Counterpart of `deeplearning4j_tpu/kernels/layernorm.py` (`layer_norm`,
 `residual_layer_norm`, kernels `_ln_kernel` :55 and
@@ -6,12 +7,18 @@ Counterpart of `deeplearning4j_tpu/kernels/layernorm.py` (`layer_norm`,
 note gives the bound (device-memory bytes) and the design (one block
 per row, the row staged once in shared memory).
 
+The backward (`_LayerNormFn`, `_ResidualLayerNormFn`) is
+`ln_bwd_math` in plain PyTorch ops on every device: the JAX custom_vjp
+(`_ln_bwd` :165, `_res_ln_bwd` :211, `_ln_bwd_math` :123) computes it
+with jnp too, not with a Pallas kernel. It reads the fp32 `mean`/`rstd`
+the forward saved; the residual form sends `ds = gs + dLN(gy)` to both
+legs.
+
 Semantics (the Pallas kernel's): row statistics in fp32 over the last
 axis with the POPULATION variance, `rstd = 1/sqrt(var + eps)`; the
 normalised row is rounded to `x.dtype` before `* gamma + beta`, each
 step in `x.dtype`. The forward returns the fp32 `mean`/`rstd` [R, 1]
-as the JAX forward saves them (the backward kernels of a later port
-read them).
+as the JAX forward saves them.
 """
 
 from __future__ import annotations
@@ -113,11 +120,6 @@ def layer_norm_fwd(x, gamma, beta, eps: float = 1e-5):
     return y, mean, rstd
 
 
-def layer_norm(x, gamma, beta, eps: float = 1e-5):
-    """[..., D] -> [..., D] (the JAX `layer_norm` signature)."""
-    return layer_norm_fwd(x, gamma, beta, eps)[0]
-
-
 def residual_layer_norm_fwd(x, h, gamma, beta, eps: float = 1e-5):
     """Fused ``s = x + h; y = LayerNorm(s)`` -> (s, y, mean, rstd)."""
     if not K.on_cuda(x, h, gamma, beta):
@@ -128,7 +130,70 @@ def residual_layer_norm_fwd(x, h, gamma, beta, eps: float = 1e-5):
     return s, y, mean, rstd
 
 
+# ---------------------------------------------------------------- backward
+def ln_bwd_math(gy, gamma, x32, mean, rstd, out_dtype):
+    """Analytic LayerNorm backward from the saved fp32 statistics
+    (the JAX `_ln_bwd_math`): dx = rstd·(ĝ − mean(ĝ) − x̂·mean(ĝ·x̂))
+    with ĝ = gy·gamma, dγ = Σ gy·x̂ and dβ = Σ gy, reduced in fp32.
+    gy/x32 are [R, D]."""
+    xhat = (x32 - mean) * rstd
+    gy32 = gy.float()
+    g32 = gy32 * gamma.float()
+    gmean = g32.mean(dim=-1, keepdim=True)
+    gxmean = (g32 * xhat).mean(dim=-1, keepdim=True)
+    dx = (rstd * (g32 - gmean - xhat * gxmean)).to(out_dtype)
+    return dx, (gy32 * xhat).sum(dim=0), gy32.sum(dim=0)
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """y = LayerNorm(x): the forward kernel (or its plain version on the
+    CPU), the backward `ln_bwd_math`."""
+
+    @staticmethod
+    def forward(ctx, x, gamma, beta, eps):
+        y, mean, rstd = layer_norm_fwd(x, gamma, beta, eps)
+        ctx.save_for_backward(x, gamma, mean, rstd)
+        return y
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, gamma, mean, rstd = ctx.saved_tensors
+        D = x.shape[-1]
+        dx, dgamma, dbeta = ln_bwd_math(gy.reshape(-1, D), gamma,
+                                        x.reshape(-1, D).float(), mean,
+                                        rstd, x.dtype)
+        return (dx.reshape(x.shape), dgamma.to(gamma.dtype),
+                dbeta.to(gamma.dtype), None)
+
+
+class _ResidualLayerNormFn(torch.autograd.Function):
+    """(s, y) = (x + h, LayerNorm(x + h)): the fused forward kernel, the
+    backward `ds = gs + dLN(gy)` into both x and h."""
+
+    @staticmethod
+    def forward(ctx, x, h, gamma, beta, eps):
+        s, y, mean, rstd = residual_layer_norm_fwd(x, h, gamma, beta, eps)
+        ctx.save_for_backward(s, gamma, mean, rstd)
+        return s, y
+
+    @staticmethod
+    def backward(ctx, gs, gy):
+        s, gamma, mean, rstd = ctx.saved_tensors
+        D = s.shape[-1]
+        dln, dgamma, dbeta = ln_bwd_math(gy.reshape(-1, D), gamma,
+                                         s.reshape(-1, D).float(), mean,
+                                         rstd, s.dtype)
+        ds = gs + dln.reshape(s.shape)
+        return (ds, ds, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype),
+                None)
+
+
+def layer_norm(x, gamma, beta, eps: float = 1e-5):
+    """[..., D] -> [..., D] (the JAX `layer_norm` signature),
+    differentiable."""
+    return _LayerNormFn.apply(x, gamma, beta, eps)
+
+
 def residual_layer_norm(x, h, gamma, beta, eps: float = 1e-5):
-    """(s, y) — the JAX `residual_layer_norm` signature."""
-    s, y, _, _ = residual_layer_norm_fwd(x, h, gamma, beta, eps)
-    return s, y
+    """(s, y) — the JAX `residual_layer_norm` signature, differentiable."""
+    return _ResidualLayerNormFn.apply(x, h, gamma, beta, eps)

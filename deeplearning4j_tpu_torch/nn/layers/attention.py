@@ -28,9 +28,9 @@ class MultiHeadAttention(Layer):
         if d % n_heads:
             raise ValueError(f"model dim {d} must divide n_heads {n_heads}")
         self.n_in, self.n_heads, self.causal = d, int(n_heads), causal
-        # None or True: the flash kernel wrapper (the CUDA kernel on the
-        # card, its plain version on the CPU); False: the plain -inf
-        # masked softmax path
+        # None or True: flash attention (the CUDA forward and backward
+        # kernels on the card, their plain versions on the CPU); False:
+        # the plain -inf masked softmax, differentiated by autograd
         self.use_flash = use_flash
         for name in _NAMES:
             setattr(self, name, new_param((d, d), "cpu"))

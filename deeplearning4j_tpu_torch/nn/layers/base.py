@@ -1,6 +1,8 @@
-"""Minimal layer base (counterpart of `deeplearning4j_tpu/nn/layers/base.py`
-for the inference path): an `nn.Module` with JAX-named parameters and a
-loader for the JAX package's per-layer param dicts."""
+"""Minimal layer base (counterpart of `deeplearning4j_tpu/nn/layers/base.py`):
+an `nn.Module` with JAX-named parameters, a loader for the JAX
+package's per-layer param dicts, and the per-layer training config the
+container reads: `updater` (None: the container's `Sgd(1e-3)` default,
+as in JAX) and the l1/l2 coefficients (only zero is ported)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,11 @@ import numpy as np
 import torch
 from torch import nn
 
+
 class Layer(nn.Module):
+    updater = None
+    l1 = l2 = l1_bias = l2_bias = 0.0
+
     def jax_param_map(self) -> Dict[str, torch.Tensor]:
         """{JAX param name: this layer's tensor} — the keys the JAX
         layer's `init_params` uses. Layers without params return {}."""
@@ -33,6 +39,9 @@ class Layer(nn.Module):
 
 
 def new_param(shape, device, dtype=torch.float32):
+    """A parameter that takes no gradient outside `fit` (the container
+    turns gradients on for the train step only, so inference builds no
+    autograd graph)."""
     return nn.Parameter(torch.zeros(shape, device=device, dtype=dtype),
                         requires_grad=False)
 

@@ -1,11 +1,13 @@
-"""Dense and Embedding layers (counterpart of
+"""Dense and Embedding layers and the output-layer loss (counterpart of
 `deeplearning4j_tpu/nn/layers/feedforward.py`: `DenseLayer` :35,
-`EmbeddingLayer` :169). Param names and layouts are the JAX package's:
-W is [n_in, n_out] and is used as ``x @ W``."""
+`BaseOutputLayerMixin` :83, `EmbeddingLayer` :169). Param names and
+layouts are the JAX package's: W is [n_in, n_out] and is used as
+``x @ W``."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.common.activations import get_activation
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, new_param, xavier_
@@ -32,9 +34,21 @@ class DenseLayer(Layer):
         return self.activation(self.pre_output(x))
 
 
+class BaseOutputLayerMixin:
+    """Loss plumbing of the output layers: the loss of `pre_output(x)`
+    under the layer's activation (`self.loss`)."""
+
+    def compute_loss(self, x, labels, mask=None):
+        return self.loss(labels, self.pre_output(x), self.activation,
+                         mask=mask)
+
+
 class EmbeddingLayer(Layer):
     """Index -> vector lookup with a bias `b` (the JAX layer's). Ids stay
-    integer end to end (a float round trip collapses ids above 2^24)."""
+    integer end to end (a float round trip collapses ids above 2^24);
+    `fit` converts float-carried ids on the host. The lookup is
+    `F.embedding`, whose gradient into W on CUDA sums by sorted index
+    (deterministic) rather than with atomics."""
 
     def __init__(self, n_in: int, n_out: int):
         super().__init__()
@@ -52,4 +66,4 @@ class EmbeddingLayer(Layer):
         # gather clamps or fills instead): clamp, and let the entry
         # points validate ids on the host
         idx = x.long().clamp(0, self.n_in - 1)
-        return self.W[idx] + self.b
+        return F.embedding(idx, self.W) + self.b

@@ -10,9 +10,10 @@ from deeplearning4j_tpu_torch.nn.layers.base import Layer, new_param
 
 
 class LayerNormalization(Layer):
-    """Layer norm over the last axis with gamma/beta. The forward goes
-    through the LayerNorm kernel wrapper (`kernels/layernorm.py`): the
-    CUDA kernel on the card, its plain version on the CPU."""
+    """Layer norm over the last axis with gamma/beta, through the
+    LayerNorm autograd function (`kernels/layernorm.py`): the CUDA
+    forward kernel on the card, its plain version on the CPU, and the
+    analytic backward from the saved statistics."""
 
     def __init__(self, n_out: int, eps: float = 1e-5):
         super().__init__()

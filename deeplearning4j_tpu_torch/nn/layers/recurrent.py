@@ -4,8 +4,12 @@
 
 from __future__ import annotations
 
+from deeplearning4j_tpu_torch.common.losses import get_loss
 from deeplearning4j_tpu_torch.nn.layers.base import Layer
-from deeplearning4j_tpu_torch.nn.layers.feedforward import DenseLayer
+from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+    BaseOutputLayerMixin,
+    DenseLayer,
+)
 
 
 class BaseRecurrentLayer(Layer):
@@ -19,9 +23,12 @@ class BaseRecurrentLayer(Layer):
         raise NotImplementedError
 
 
-class RnnOutputLayer(DenseLayer):
+class RnnOutputLayer(DenseLayer, BaseOutputLayerMixin):
     """Dense projection at every timestep, then the activation (softmax
-    over the vocabulary for the LM)."""
+    over the vocabulary for the LM); the loss (mcxent by default) takes
+    the fused `log_softmax(preout)` path under softmax."""
 
-    def __init__(self, n_in: int, n_out: int, *, activation="softmax"):
+    def __init__(self, n_in: int, n_out: int, *, activation="softmax",
+                 loss="mcxent"):
         super().__init__(n_in, n_out, activation=activation)
+        self.loss = get_loss(loss)

@@ -3,9 +3,10 @@
 :33, `TransformerEncoderBlock` :103, `stream_budget` :348).
 
 Block: h = x + MHA(LN1(x)); out = h + FFN(LN2(h)). The full-sequence
-forward (`_forward_impl`, the scoring path) runs LN1 through the
-LayerNorm kernel, attention through the flash kernel and the residual
-add + LN2 through the fused residual+LayerNorm kernel. The streaming
+forward (`_forward_impl`, the scoring and training path) runs LN1
+through the LayerNorm kernel, attention through the flash kernels and
+the residual add + LN2 through the fused residual+LayerNorm kernel, each
+an autograd function. The streaming
 paths (KV-cache carry and paged decode) share `_stream_tail`, which
 uses the plain residual add and the LayerNorm kernel — the JAX package
 keeps the fused residual form off the decode path too.

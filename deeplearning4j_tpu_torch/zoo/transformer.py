@@ -17,6 +17,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.common.updaters import Adam
 from deeplearning4j_tpu_torch.nn.layers import (
     EmbeddingLayer,
     PositionalEncodingLayer,
@@ -29,9 +30,11 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 class TransformerLM:
     """Embedding -> sinusoidal positions -> `n_layers` causal pre-LN
-    blocks -> per-position softmax over the vocabulary; the JAX zoo
-    model's constructor arguments and layer order (training-only
-    arguments — remat, sequence_parallel — belong to a later slice)."""
+    blocks -> per-position softmax over the vocabulary with the mcxent
+    loss; the JAX zoo model's constructor arguments, layer order and
+    updater (`Adam(1e-3)` on every layer, the JAX conf's global
+    `.updater(...)`). remat and sequence_parallel belong to a later
+    slice."""
 
     def __init__(self, vocab_size: int, *, d_model: int = 128,
                  n_layers: int = 2, n_heads: int = 8, ff_multiplier: int = 4,
@@ -60,6 +63,7 @@ class TransformerLM:
                                             else int(seed))
         layers = self.layers()
         for layer in layers:
+            layer.updater = Adam(1e-3)
             if hasattr(layer, "init_weights"):
                 layer.init_weights(gen)
         return MultiLayerNetwork(layers, device=device)

@@ -32,8 +32,10 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert out.returncode == 0, out.stderr
     res = json.loads(out.stdout.strip().splitlines()[-1])
     for mod in ("kernels.layernorm", "kernels.flash_attention",
-                "kernels.build", "nn.multilayer", "zoo.transformer",
-                "serving.engine", "serving.server", "util.jax_params"):
+                "kernels.fused_adam", "kernels.build", "common.updaters",
+                "common.losses", "datasets.iterator", "nn.multilayer",
+                "zoo.transformer", "serving.engine", "serving.server",
+                "util.jax_params"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 
