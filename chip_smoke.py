@@ -13,8 +13,14 @@ Phases, in order:
      (`F.layer_norm`, `F.scaled_dot_product_attention` and its
      backward, `torch.optim.Adam(fused=True).step()` — timed only, the
      port never calls them). Fused Adam runs at the LM's block run (4
-     blocks x 16 leaves, 3.16 M elements) and must be bit-equal to its
-     plain version;
+     blocks x 16 leaves, 3.16 M elements, one launch) and at the
+     long-context LM's (8 blocks, 128 leaves, two launches) and must be
+     bit-equal to its plain version. Phase 6's shapes are checked too:
+     LayerNorm and residual LayerNorm at [16384, 512], the flash
+     forward, dQ and dK/dV at the ring's chunk [8, 512, 8, 64]. The
+     carry fold runs at that chunk (a diag fold, a visible fold, a
+     chain of the two) and ragged (Tq 300, Tk 200, D 32 and 128); no
+     one PyTorch call computes it, so it has no yardstick;
   3. scoring: `TransformerLM(vocab 512, d_model 256, 4 layers, 8 heads,
      ff x4, max_len 512)` with random weights from a numpy seed loaded
      through `from_jax_params`, `output()` at B=16, T=512 on the card,
@@ -31,8 +37,22 @@ Phases, in order:
      param held card against CPU; (b) 20 timed steps at B=16 on the
      card, the loss must fall; the backward and Adam kernels must have
      launched;
+  6. sequence-parallel training: the repo's long-context LM config
+     (`deeplearning4j_tpu/bench.py:769-773`: vocab 512, d_model 512, 8
+     layers, 8 heads, ff x4, max_len 2048) with
+     `sequence_parallel="ring"` under `sequence_sharding` of a 4-way
+     `seq` mesh that repeats the card (T_local = 512): (a) `output()`
+     at [8, 2048] in the context against the same net's local
+     `output()` (and the Ulysses setting likewise), the ring forward
+     launching the carry kernel 10 times a layer; (b) ring against
+     local from identical params: dq, dk, dv of the ring attention
+     against the local flash attention at [8, 2048, 8, 64], every
+     leaf's gradient of one backward, then 3 `fit` steps at B=8, loss
+     per step and every param; (c) 10 timed steps each, ring and local: ms/step,
+     tokens/s, peak memory; the loss must fall. Adam runs at 1e-4 here
+     (`LONG_LR` says why);
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 5, each > 0), the card's name and power limit, and last
+to 6, each > 0), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result.
 """
@@ -64,6 +84,12 @@ FLASH_TOL = {"float32": 2e-5, "bfloat16": 2 ** -5}     # 1 bf16 ulp at |o|<4
 # (each side rounds its own fp32 sum once)
 BWD_ATOL_F32 = 1e-4
 OUTPUT_ATOL = 1e-4    # softmax probs, card vs CPU, fp32 (TF32 off)
+# carry fold against its plain version: the state is unnormalised, so
+# its scale grows with the chunk (l up to Tk, acc up to l * max|v|);
+# each of m, l and acc is held to 2e-5 of max(1, its own largest
+# |value|), for fp32 and bf16 inputs alike (both sides upcast the
+# inputs and compute the fp32 state, so they differ by fp32 rounding)
+CARRY_RTOL = 2e-5
 # training, card vs CPU (fp32, TF32 off): loss per step relative, and
 # each param's relative Frobenius difference after the steps. The key
 # bias attn_bk has a gradient that is zero up to rounding (softmax is
@@ -72,9 +98,35 @@ OUTPUT_ATOL = 1e-4    # softmax probs, card vs CPU, fp32 (TF32 off)
 # held to twice that bound per step instead.
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_PARAM_RTOL = 1e-3
-ADAM_STEP_MAX = 1e-3 * 0.1 / 0.001 ** 0.5
+# ring against local gradients on one batch (fp32, TF32 off), relative
+# Frobenius: dq, dk, dv of the attention alone, and every leaf of the
+# LM's backward but attn_bk (its true gradient is zero, so each side
+# returns its own rounding noise; dK reaches attn_Wk's gradient and
+# the attention-level check). Both sides sum the same terms in
+# another order, so these are far tighter than the param limit above:
+# a dK or dV off by a scale would fail them, where Adam's steps (about
+# lr * sign(g) each) would not show it
+ATTN_GRAD_RTOL = 1e-5
+GRAD_RTOL = 1e-4
+
+
+def adam_step_max(lr=1e-3):
+    """lr (1 - b1) / sqrt(1 - b2), the bound on one Adam step above."""
+    return lr * 0.1 / 0.001 ** 0.5
+
 
 LM = dict(vocab=512, d_model=256, n_layers=4, n_heads=8, ff=4, max_len=512)
+# the long-context config (deeplearning4j_tpu/bench.py:769-773), trained
+# at T = max_len on a 4-way ring
+LM_LONG = dict(vocab=512, d_model=512, n_layers=8, n_heads=8, ff=4,
+               max_len=2048)
+SEQ_P = 4
+# Adam's rate for the long-context training: at the zoo's 1e-3 this LM
+# (pre-LN blocks, no final LayerNorm, no warmup) diverges in its first
+# 10 steps, on the ring and locally alike (measured 12.24 -> 36.70 at
+# [8, 2048] on an H100, 10.8 -> 30.4 at [2, 256] on a CPU); at 1e-4 the
+# loss falls
+LONG_LR = 1e-4
 
 
 # ------------------------------------------------------------------ helpers
@@ -144,12 +196,12 @@ def block_shapes(cfg):
     return one * cfg["n_layers"]
 
 
-def lm_corpus(cfg, n: int, seed: int, period: int = 64):
-    """n training windows of length max_len - 1 from a seeded
-    period-`period` token cycle (float-carried ids, as `fit` takes
-    them) with one-hot next-token labels."""
+def lm_corpus(cfg, n: int, seed: int, period: int = 64, T=None):
+    """n training windows of length T (default max_len - 1) from a
+    seeded period-`period` token cycle (float-carried ids, as `fit`
+    takes them) with one-hot next-token labels."""
     rng = np.random.default_rng(seed)
-    V, T = cfg["vocab"], cfg["max_len"] - 1
+    V, T = cfg["vocab"], T or cfg["max_len"] - 1
     pattern = rng.choice(V, period, replace=False)
     tokens = np.tile(pattern, (n + T) // period + 2)
     X = np.stack([tokens[i:i + T] for i in range(n)])
@@ -187,14 +239,39 @@ def random_lm_params(cfg, seed: int, head_scale: float):
     return params
 
 
-def build_lm(cfg, device, params):
+def build_lm(cfg, device, params, sequence_parallel=None, lr=None):
+    """The zoo TransformerLM with `params` loaded; `lr` replaces the
+    learning rate of its Adam(1e-3) on every layer."""
+    from deeplearning4j_tpu_torch.common.updaters import Adam
     from deeplearning4j_tpu_torch.util.jax_params import from_jax_params
     from deeplearning4j_tpu_torch.zoo.transformer import TransformerLM
     net = TransformerLM(cfg["vocab"], d_model=cfg["d_model"],
                         n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
-                        ff_multiplier=cfg["ff"],
-                        max_len=cfg["max_len"]).init(device=device)
+                        ff_multiplier=cfg["ff"], max_len=cfg["max_len"],
+                        sequence_parallel=sequence_parallel).init(
+                            device=device)
+    if lr is not None:
+        for layer in net.layers:
+            layer.updater = Adam(lr)
     return from_jax_params(net, params)
+
+
+def param_diff(got, want):
+    """Worst relative Frobenius difference over every param but the
+    `attn_bk`s, as ((rel, "layer/name")), and the largest |difference|
+    of an `attn_bk` (held to Adam's step bound instead)."""
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    pg, pw = to_jax_params(got), to_jax_params(want)
+    worst, worst_bk = (0.0, ""), 0.0
+    for lk, lp in pw.items():
+        for name, w in lp.items():
+            diff = pg[lk][name] - w
+            if name == "attn_bk":
+                worst_bk = max(worst_bk, float(np.abs(diff).max()))
+                continue
+            rel = float(np.linalg.norm(diff) / np.linalg.norm(w))
+            worst = max(worst, (rel, f"{lk}/{name}"))
+    return worst, worst_bk
 
 
 # ------------------------------------------------------------ phase 1: build
@@ -222,11 +299,17 @@ def phase_kernels(device, report, fails, small=False):
             device, dtype)
 
     main_rows = 16 * 512 if not small else 64
+    # "long": phase 6's rows (B * T of the long-context LM, d_model);
+    # "ring_chunk": its ring chunk [B, T / P, H, D]
+    long_rows, long_d = ((8 * LM_LONG["max_len"], LM_LONG["d_model"])
+                         if not small else (128, 64))
     ln_cases = [("main", main_rows, 256), ("ragged", 1000, 257),
-                ("odd", 37, 33)]
+                ("odd", 37, 33), ("long", long_rows, long_d)]
     fl_cases = ([("main", 16, 512, 8, 32), ("ragged", 2, 300, 4, 64),
-                 ("wide", 2, 300, 2, 128)] if not small else
-                [("main", 2, 70, 2, 32)])
+                 ("wide", 2, 300, 2, 128),
+                 ("ring_chunk", 8, LM_LONG["max_len"] // SEQ_P, 8, 64)]
+                if not small else
+                [("main", 2, 70, 2, 32), ("ring_chunk", 2, 32, 2, 64)])
     checks, timings = [], {}
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
@@ -362,8 +445,14 @@ def phase_kernels(device, report, fails, small=False):
                     library_ms=lib_bwd,
                     bound=bound(6 * bthd * es_ + 2 * bht * 4,
                                 8.0 * Dh * pairs_, dt_name))
+        timings.update(_carry_checks(device, checks, fails, flush, rnd,
+                                     dt_name, dt, small))
     timings.update(_adam_checks(device, checks, fails, flush, rnd,
-                                dict(LM, d_model=64) if small else LM))
+                                dict(LM, d_model=64) if small else LM,
+                                "lm_block_run", timed=True))
+    _adam_checks(device, checks, fails, flush, rnd,
+                 dict(LM_LONG, d_model=32) if small else LM_LONG,
+                 "long_block_run", timed=False)
     if device.type == "cuda":
         torch.cuda.synchronize()
     report["kernel_checks"] = checks
@@ -377,15 +466,94 @@ def phase_kernels(device, report, fails, small=False):
     return timings
 
 
-def _adam_checks(device, checks, fails, flush, rnd, cfg):
-    """Fused Adam at the LM's block run against its plain version:
-    bit-equal with fp32 grads and with bf16 grads (upcast on load);
-    timed beside `torch.optim.Adam(fused=True).step()` on the same
-    tensors."""
+def _carry_checks(device, checks, fails, flush, rnd, dt_name, dt, small):
+    """The carry fold against its plain version at the ring's chunk
+    shape ([8, 512, 8, 64]: B, T_local, H, D of phase 6): a diag fold
+    from the fresh state, a visible fold from a seeded one, and a chain
+    of the two; a ragged visible fold (Tq 300, Tk 200) at D = 32 and
+    128. Times the main visible and diag folds (in place, so the timed
+    state keeps folding). No one PyTorch call computes an unnormalised
+    fold, so there is no library yardstick."""
     import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    main = (2, 64, 2, 32) if small else (8, 512, 8, 64)
+    ragged = [(2, 30, 20, 2, 32)] if small else [(2, 300, 200, 4, 32),
+                                                 (2, 300, 200, 4, 128)]
+
+    def fresh(B, Tq, H, D):
+        return [torch.full((B, H, Tq), fa.NEG_INF, device=device),
+                torch.zeros((B, H, Tq), device=device),
+                torch.zeros((B, H, Tq, D), device=device)]
+
+    def seeded(B, Tq, H, D):
+        return [rnd((B, H, Tq), torch.float32, 1.0, 2.0),
+                rnd((B, H, Tq), torch.float32, 1.0).abs() + 1.0,
+                rnd((B, H, Tq, D), torch.float32)]
+
+    def check(case, q, folds, state):
+        """Run `folds` [(k, v, diag)] through the kernel and the plain
+        version from copies of `state`; hold m, l and acc each to
+        CARRY_RTOL of its own scale; return the worst error."""
+        st, ref = [t.clone() for t in state], [t.clone() for t in state]
+        for k, v, diag in folds:
+            fa.flash_attention_carry(q, k, v, *st, diag=diag)
+            fa.flash_attention_carry_plain(q, k, v, *ref, diag)
+        errs = [(a - b).abs().max().item() for a, b in zip(st, ref)]
+        tols = [CARRY_RTOL * max(1.0, b.abs().max().item()) for b in ref]
+        diags = [d for _, _, d in folds]
+        ok = fails.check(all(e <= t for e, t in zip(errs, tols)),
+                         f"flash_attention_carry {case} {dt_name} "
+                         f"diag={diags} q {list(q.shape)}: max_abs_err "
+                         f"m, l, acc {errs} (tol {tols})")
+        checks.append(dict(kernel="flash_attention_carry", case=case,
+                           dtype=dt_name, diag=diags, shape=list(q.shape),
+                           tk=[k.shape[1] for k, _, _ in folds],
+                           max_abs_err=max(errs), max_abs_err_m_l_acc=errs,
+                           tol_m_l_acc=tols, ok=ok))
+        return max(errs)
+
+    B, T, H, D = main
+    q, k, v, k2, v2 = (rnd((B, T, H, D), dt) for _ in range(5))
+    e_diag = check("main", q, [(k, v, True)], fresh(B, T, H, D))
+    e_vis = check("main", q, [(k2, v2, False)], seeded(B, T, H, D))
+    check("chain", q, [(k, v, True), (k2, v2, False)], fresh(B, T, H, D))
+    for Bq, Tq, Tk, Hq, Dq in ragged:
+        qr = rnd((Bq, Tq, Hq, Dq), dt)
+        kr, vr = (rnd((Bq, Tk, Hq, Dq), dt) for _ in range(2))
+        check("ragged", qr, [(kr, vr, False)], seeded(Bq, Tq, Hq, Dq))
+    es = q.element_size()
+    state_bytes = 2 * (2 * B * H * T * 4 + B * H * T * D * 4)  # r + w
+    timings = {}
+    for name, diag, err, pairs in (
+            ("flash_attention_carry", False, e_vis, B * H * T * T),
+            ("flash_attention_carry_diag", True, e_diag,
+             B * H * T * (T + 1) / 2)):
+        st, ref = seeded(B, T, H, D), seeded(B, T, H, D)
+        timings[(name, dt_name)] = dict(
+            shape=[B, T, H, D], max_abs_err=err,
+            ms=timer(device, lambda: fa.flash_attention_carry(
+                q, k, v, *st, diag=diag), flush=flush),
+            plain_ms=timer(device, lambda: fa.flash_attention_carry_plain(
+                q, k, v, *ref, diag), iters=10, flush=flush),
+            library_ms=None,
+            bound=bound(3 * B * T * H * D * es + state_bytes,
+                        4.0 * D * pairs, dt_name))
+    return timings
+
+
+def _adam_checks(device, checks, fails, flush, rnd, cfg, case, timed):
+    """Fused Adam at the block run of `cfg` against its plain version:
+    bit-equal with fp32 grads and with bf16 grads (upcast on load), in
+    as many launches as its leaves need (`MAX_LEAVES` a launch); with
+    `timed`, timed beside `torch.optim.Adam(fused=True).step()` on the
+    same tensors."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
     from deeplearning4j_tpu_torch.common.updaters import Adam
     from deeplearning4j_tpu_torch.kernels import fused_adam as fad
     shapes = block_shapes(cfg)
+    want_launches = (-(-len(shapes) // fad.MAX_LEAVES)
+                     if device.type == "cuda" else 0)
     n = int(sum(np.prod(s) for s in shapes))
     upd, step = Adam(1e-3), 9
     timings = {}
@@ -396,17 +564,21 @@ def _adam_checks(device, checks, fails, flush, rnd, cfg):
         m = [rnd(s, torch.float32, 1e-4) for s in shapes]
         v = [rnd(s, torch.float32, 1e-6).abs() for s in shapes]
         pa, ma, va = ([t.clone() for t in ts] for ts in (p, m, v))
+        n0 = K.LAUNCHES["fused_adam"]
         fad.adam_update_packed(upd, pa, g, ma, va, step)
+        launches = K.LAUNCHES["fused_adam"] - n0
         fad.adam_update_plain(upd, p, g, m, v, step)
         err = max((a - b).abs().max().item()
                   for a, b in zip(pa + ma + va, p + m + v))
-        ok = fails.check(err == 0, f"fused_adam grads {g_name} [{n}] "
-                         f"({len(shapes)} leaves): max_abs_err {err} "
-                         f"(must be bit-equal)")
-        checks.append(dict(kernel="fused_adam", case="lm_block_run",
-                           dtype=g_name, shape=[n], leaves=len(shapes),
+        ok = fails.check(err == 0 and launches == want_launches,
+                         f"fused_adam {case} grads {g_name} [{n}] "
+                         f"({len(shapes)} leaves, {launches} launches, want "
+                         f"{want_launches}): max_abs_err {err} (must be "
+                         f"bit-equal)")
+        checks.append(dict(kernel="fused_adam", case=case, dtype=g_name,
+                           shape=[n], leaves=len(shapes), launches=launches,
                            max_abs_err=err, tol=0.0, ok=ok))
-        if g_name != "float32":
+        if g_name != "float32" or not timed:
             continue
         params = [torch.nn.Parameter(t.clone()) for t in p]
         for q_, g_ in zip(params, g):
@@ -540,7 +712,6 @@ def phase_training(device, report, fails, cfg, B_check, n_check, B, n_steps):
     launch counts of (b)."""
     import torch
     from deeplearning4j_tpu_torch import kernels as K
-    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
     params = random_lm_params(cfg, seed=4321, head_scale=1.0)
     X, Y = lm_corpus(cfg, B_check * n_check, seed=5)
     card = build_lm(cfg, device, params)
@@ -555,17 +726,8 @@ def phase_training(device, report, fails, cfg, B_check, n_check, B, n_steps):
     fails.check(loss_err <= TRAIN_LOSS_RTOL and all(np.isfinite(l_card)),
                 f"training loss card vs CPU rel err {loss_err} (tol "
                 f"{TRAIN_LOSS_RTOL}): card {l_card}, CPU {l_cpu}")
-    pc, pp = to_jax_params(card), to_jax_params(cpu)
-    worst, worst_bk = (0.0, ""), 0.0
-    for lk, lp in pp.items():
-        for name, want in lp.items():
-            diff = pc[lk][name] - want
-            if name == "attn_bk":
-                worst_bk = max(worst_bk, float(np.abs(diff).max()))
-                continue
-            rel = float(np.linalg.norm(diff) / np.linalg.norm(want))
-            worst = max(worst, (rel, f"{lk}/{name}"))
-    bk_tol = 2 * n_check * ADAM_STEP_MAX
+    worst, worst_bk = param_diff(card, cpu)
+    bk_tol = 2 * n_check * adam_step_max()
     fails.check(worst[0] <= TRAIN_PARAM_RTOL and worst_bk <= bk_tol,
                 f"training params card vs CPU: worst rel Frobenius "
                 f"{worst[0]} at {worst[1]} (tol {TRAIN_PARAM_RTOL}), "
@@ -605,6 +767,204 @@ def phase_training(device, report, fails, cfg, B_check, n_check, B, n_steps):
           f"{B * T * n_steps / wall:.0f} tokens/s, loss {losses[0]:.4f} -> "
           f"{losses[-1]:.4f}, launches {launches}", flush=True)
     return launches
+
+
+# ----------------------------------------- phase 6: sequence-parallel training
+def _rel(got, want):
+    """Relative Frobenius difference ||got - want|| / ||want||."""
+    return float((got - want).norm() / want.norm())
+
+
+def _leaf_grads(net, X, Y):
+    """{"layer/name": gradient} of every leaf for one backward of the
+    loss on (X, Y), as `fit` takes it; no update."""
+    params = list(net.parameters())
+    try:
+        for p in params:
+            p.requires_grad_(True)
+        net._loss_fn(net._features(X), net._labels(Y)).backward()
+        return {f"{i}/{n}": t.grad.detach().clone()
+                for i, layer in enumerate(net.layers)
+                for n, t in layer.jax_param_map().items()}
+    finally:
+        for p in params:
+            p.requires_grad_(False)
+            p.grad = None
+
+
+def _ring_attention_grads(device, mesh, B, T, H, Dh):
+    """{o, dq, dk, dv: relative Frobenius difference} of the causal
+    flash ring over `mesh` against the local flash attention, on one
+    seeded [B, T, H, Dh] batch and output gradient."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        flash_attention)
+    from deeplearning4j_tpu_torch.parallel import sequence_parallel_attention
+    gen = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn((B, T, H, Dh), generator=gen).to(device)
+                   for _ in range(4))
+    sides = []
+    for fn in (lambda *a: sequence_parallel_attention(
+                   *a, mesh, causal=True, use_flash=True),
+               lambda *a: flash_attention(*a, True)):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*leaves)
+        o.backward(do)
+        sides.append([o.detach()] + [t.grad for t in leaves])
+    return {n: _rel(a, b) for n, a, b in zip(("o", "dq", "dk", "dv"),
+                                             *sides)}
+
+
+def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
+    """(a) ring (and Ulysses) `output()` in the context against the same
+    net's local `output()`; (b) n_check `fit` steps ring against local
+    from identical params; (c) n_steps timed steps of each, the ring
+    loss must fall. Returns the launch counts of the timed ring steps."""
+    import contextlib
+
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, make_mesh, sequence_sharding)
+    on_card = device.type == "cuda"
+
+    def sync():
+        if on_card:
+            torch.cuda.synchronize()
+
+    P, T, L = SEQ_P, cfg["max_len"], cfg["n_layers"]
+    mesh = make_mesh(MeshSpec.of(seq=P), devices=[device] * P)
+    per_fwd = L * P * (P + 1) // 2      # causal: the diag + past chunks
+    out = dict(B=B, T=T, P=P, T_local=T // P, layers=L,
+               carry_launches_per_forward=per_fwd)
+
+    # (a) scoring through the ring and Ulysses
+    params = random_lm_params(cfg, seed=2468, head_scale=4.0)
+    ids = np.random.default_rng(9).integers(0, cfg["vocab"], (B, T))
+    errs = {}
+    for sp in ("ring", "ulysses"):
+        net = build_lm(cfg, device, params, sequence_parallel=sp)
+        K.reset_launches()
+        with sequence_sharding(mesh):
+            got = net.output(ids)
+        sync()
+        launches = dict(K.LAUNCHES)
+        want = net.output(ids)                # no context: the local path
+        errs[sp] = (got - want).abs().max().item()
+        fails.check(tuple(got.shape) == (B, T, cfg["vocab"])
+                    and bool(torch.isfinite(got).all())
+                    and errs[sp] <= OUTPUT_ATOL,
+                    f"{sp} output() vs local: shape {tuple(got.shape)}, "
+                    f"max_abs_err {errs[sp]} (tol {OUTPUT_ATOL})")
+        if sp == "ring" and on_card:
+            fails.check(launches["flash_attention_carry"] == per_fwd
+                        and launches["flash_attention_fwd"] == 0,
+                        f"ring output(): {launches} (want "
+                        f"flash_attention_carry == {per_fwd})")
+        out[f"{sp}_output"] = dict(max_abs_err_vs_local=errs[sp],
+                                   launches=launches)
+        del net, got, want
+
+    # (b) ring against local training
+    params = random_lm_params(cfg, seed=8642, head_scale=1.0)
+    X, Y = lm_corpus(cfg, B * n_check, seed=7, T=T)
+    ring = build_lm(cfg, device, params, sequence_parallel="ring",
+                    lr=LONG_LR)
+    local = build_lm(cfg, device, params, lr=LONG_LR)
+    # the gradients first: the attention's alone, then the LM's leaves
+    H = cfg["n_heads"]
+    attn = _ring_attention_grads(device, mesh, B, T, H, cfg["d_model"] // H)
+    fails.check(all(r <= ATTN_GRAD_RTOL for r in attn.values()),
+                f"ring attention vs local flash attention at "
+                f"{[B, T, H, cfg['d_model'] // H]}: relative Frobenius "
+                f"{attn} (tol {ATTN_GRAD_RTOL})")
+    with sequence_sharding(mesh):
+        g_ring = _leaf_grads(ring, X[:B], Y[:B])
+    g_local = _leaf_grads(local, X[:B], Y[:B])
+    grad_rel = {k: _rel(g_ring[k], w) for k, w in g_local.items()
+                if not k.endswith("/attn_bk")}
+    worst_g = max(grad_rel.items(), key=lambda kv: kv[1])
+    bad = {k: r for k, r in grad_rel.items() if not r <= GRAD_RTOL}
+    fails.check(not bad, f"ring gradients vs local: relative Frobenius "
+                f"over {GRAD_RTOL}: {bad}")
+    del g_ring, g_local
+    with sequence_sharding(mesh):
+        l_ring = _fit_steps(ring, X, Y, B)
+    l_local = _fit_steps(local, X, Y, B)
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_ring, l_local))
+    worst, worst_bk = param_diff(ring, local)
+    bk_tol = 2 * n_check * adam_step_max(LONG_LR)
+    fails.check(loss_err <= TRAIN_LOSS_RTOL and all(np.isfinite(l_ring)),
+                f"ring training loss vs local rel err {loss_err} (tol "
+                f"{TRAIN_LOSS_RTOL}): ring {l_ring}, local {l_local}")
+    fails.check(worst[0] <= TRAIN_PARAM_RTOL and worst_bk <= bk_tol,
+                f"ring training params vs local: worst rel Frobenius "
+                f"{worst[0]} at {worst[1]} (tol {TRAIN_PARAM_RTOL}), "
+                f"attn_bk max abs {worst_bk} (tol {bk_tol})")
+    out["check"] = dict(attention_grad_rel_frobenius=attn,
+                        grad_worst_rel_frobenius=worst_g[1],
+                        grad_worst_at=worst_g[0],
+                        steps=n_check, loss_ring=l_ring, loss_local=l_local,
+                        loss_max_rel_err=loss_err,
+                        param_worst_rel_frobenius=worst[0],
+                        param_worst_at=worst[1], attn_bk_max_abs=worst_bk)
+    del ring, local
+
+    # (c) timed: ring, then local, each after one warm step
+    X, Y = lm_corpus(cfg, B * (n_steps + 1), seed=8, T=T)
+    ring_launches = {}
+    for arm in ("ring", "local"):
+        net = build_lm(cfg, device, params,
+                       sequence_parallel="ring" if arm == "ring" else None,
+                       lr=LONG_LR)
+        ctx = (sequence_sharding(mesh) if arm == "ring"
+               else contextlib.nullcontext())
+        with ctx:
+            _fit_steps(net, X[:B], Y[:B], B)
+            if on_card:
+                torch.cuda.reset_peak_memory_stats()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            losses = _fit_steps(net, X[B:], Y[B:], B)
+            wall = time.perf_counter() - t0
+            launches = dict(K.LAUNCHES)
+        fails.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                    f"{arm} training loss did not fall: {losses[0]} -> "
+                    f"{losses[-1]}")
+        out[arm] = dict(steps=n_steps, wall_s=wall,
+                        ms_per_step=wall / n_steps * 1e3,
+                        tokens_per_s=B * T * n_steps / wall,
+                        loss_first=losses[0], loss_last=losses[-1],
+                        peak_mem_gb=(torch.cuda.max_memory_allocated()
+                                     / 2 ** 30 if on_card else None),
+                        launches=launches)
+        if arm == "ring":
+            ring_launches = launches
+        del net
+    if on_card:
+        want = n_steps * per_fwd
+        fails.check(all(ring_launches[k] == want for k in (
+            "flash_attention_carry", "flash_attention_bwd_dq",
+            "flash_attention_bwd_dkv"))
+            and ring_launches["flash_attention_fwd"] == 0,
+            f"ring training launches {ring_launches} (want {want} carry, "
+            f"dQ and dK/dV launches)")
+    report["sequence_parallel"] = out
+    r, lo = out["ring"], out["local"]
+    print(f"[sequence_parallel] seq={P} ring over [{B}, {T}] on {device}: "
+          f"output() vs local {errs['ring']:.3g} (ulysses "
+          f"{errs['ulysses']:.3g}); attention vs local "
+          f"{', '.join(f'{k} {r:.3g}' for k, r in attn.items())}, worst "
+          f"leaf gradient {worst_g[1]:.3g} ({worst_g[0]}); {n_check} "
+          f"steps ring vs local loss "
+          f"rel err {loss_err:.3g}, worst param {worst[0]:.3g} "
+          f"({worst[1]}), attn_bk {worst_bk:.3g}; ring "
+          f"{r['ms_per_step']:.2f} ms/step {r['tokens_per_s']:.0f} tok/s "
+          f"peak {r['peak_mem_gb']} GB, local {lo['ms_per_step']:.2f} "
+          f"ms/step {lo['tokens_per_s']:.0f} tok/s peak {lo['peak_mem_gb']} "
+          f"GB; ring loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}, "
+          f"launches {ring_launches}", flush=True)
+    return ring_launches
 
 
 # ------------------------------------------------- --profile: time breakdown
@@ -683,9 +1043,10 @@ def _train_step_phases(net, X, Y, repeats=5):
 def profile_paths(device):
     """Where the time goes: torch.profiler over (1) `output()` on
     [16, 512] ids, (2) one 8-wide admission wave of 128-token prompts,
-    (3) 32 decode dispatches of the paged engine with 8 active slots and
+    (3) 32 decode dispatches of the paged engine with 8 active slots,
     (4) one `fit` step (Adam) on [16, 511] windows, with the step's
-    parts timed apart (`_train_step_phases`).
+    parts timed apart (`_train_step_phases`), and (5) one long-context
+    `fit` step at [8, 2048] through the 4-way ring and (6) locally.
     Per path: host wall ms, summed device ms of the kernels seen (one
     stream, so kernels do not overlap), busy share = device / wall,
     launches, and the kernels with the most device time."""
@@ -713,6 +1074,21 @@ def profile_paths(device):
         lambda: train.fit(X[16:], Y[16:], batch_size=16, shuffle=False))
     out["training_step_16x511"]["phases"] = _train_step_phases(
         train, X[16:], Y[16:])
+    del train
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, make_mesh, sequence_sharding)
+    mesh = make_mesh(MeshSpec.of(seq=SEQ_P), devices=[device] * SEQ_P)
+    T = LM_LONG["max_len"]
+    X, Y = lm_corpus(LM_LONG, 16, seed=8, T=T)
+    long = build_lm(LM_LONG, device, random_lm_params(LM_LONG, 8642, 1.0),
+                    sequence_parallel="ring", lr=LONG_LR)
+    with sequence_sharding(mesh):
+        long.fit(X[:8], Y[:8], batch_size=8, shuffle=False)      # warm
+        out[f"training_step_ring_8x{T}"] = _profiled(
+            lambda: long.fit(X[8:], Y[8:], batch_size=8, shuffle=False))
+    long.fit(X[:8], Y[:8], batch_size=8, shuffle=False)          # warm
+    out[f"training_step_local_8x{T}"] = _profiled(
+        lambda: long.fit(X[8:], Y[8:], batch_size=8, shuffle=False))
     for k, v in out.items():
         print(f"[profile] {k}: wall {v['wall_ms']:.3f} ms, device "
               f"{v['device_ms']:.3f} ms, busy {v['busy_share']:.3f}, "
@@ -730,6 +1106,9 @@ KERNEL_META = {
     "flash_attention_fwd": (
         "deeplearning4j_tpu_torch/kernels/csrc/flash_attention.cu",
         "deeplearning4j_tpu/kernels/flash_attention.py:87"),
+    "flash_attention_carry": (
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention.cu",
+        "deeplearning4j_tpu/kernels/flash_attention.py:87 (carry mode)"),
     "flash_attention_bwd_dq": (
         "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
         "deeplearning4j_tpu/kernels/flash_attention.py:265"),
@@ -776,6 +1155,13 @@ def run(device, *, small=False, kernels_only=False):
                    *((2, 2, 2, 4) if small else (8, 3, 16, 20)))
         for k in launches:
             launches[k] += (l5 or {}).get(k, 0)
+        long_cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2,
+                         max_len=64) if small else LM_LONG)
+        l6 = phase("sequence_parallel", phase_sequence_parallel, device,
+                   report, fails, long_cfg,
+                   *((2, 2, 3) if small else (8, 3, 10)))
+        for k in launches:
+            launches[k] += (l6 or {}).get(k, 0)
         for k, n in launches.items():
             fails.check(n > 0, f"kernel {k} never launched on the main path")
     kernels = []

@@ -19,8 +19,9 @@ import ctypes
 import torch
 
 LAUNCHES = {"layer_norm": 0, "residual_layer_norm": 0,
-            "flash_attention_fwd": 0, "flash_attention_bwd_dq": 0,
-            "flash_attention_bwd_dkv": 0, "fused_adam": 0}
+            "flash_attention_fwd": 0, "flash_attention_carry": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "fused_adam": 0}
 
 
 def reset_launches():

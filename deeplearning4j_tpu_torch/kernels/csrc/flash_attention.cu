@@ -1,14 +1,23 @@
-// Flash-attention forward for Hopper (sm_90a).
+// Flash-attention forward for Hopper (sm_90a), in its two modes.
 //
-// Replaces the Pallas TPU kernel `_flash_fwd_kernel` in finalize mode
-// (deeplearning4j_tpu/kernels/flash_attention.py:87, driven by
-// `flash_attention` -> `_flash_forward` -> `_fwd_pallas_call`).
-//
-// Computes, per (batch, head): o = softmax(q k^T / sqrt(D)) v with the
-// online (streaming) softmax in fp32, the causal mask k_pos <= q_pos and
-// the ragged key tail masked with -1e30 (the JAX kernel's value), and
-// lse = m + log(l). Emits o [B, Tq, H, D] in the input dtype and lse
-// [B, H, Tq] in fp32.
+// Replaces the Pallas TPU kernel `_flash_fwd_kernel`
+// (deeplearning4j_tpu/kernels/flash_attention.py:87, through
+// `_fwd_pallas_call`):
+// - finalize (`flash_attention` -> `_flash_forward`): per (batch, head),
+//   o = softmax(q k^T / sqrt(D)) v with the online (streaming) softmax in
+//   fp32, the causal mask k_pos <= q_pos and the ragged key tail masked
+//   with -1e30 (the JAX kernel's value), and lse = m + log(l). Emits
+//   o [B, Tq, H, D] in the input dtype and lse [B, H, Tq] in fp32.
+// - carry (`flash_attention_carry`, carry=True, finalize=False): the
+//   ring-attention fold. The running state is seeded from m, l [B, H, Tq]
+//   and the unnormalised acc [B, H, Tq, D] (all fp32), one K/V chunk is
+//   folded in with the same online softmax (`diag` is the causal mask
+//   between local positions), and (m, l, acc) is written back IN PLACE:
+//   each block reads its own rows before the first __syncthreads of the
+//   k loop and writes them after the last, and no other block touches
+//   them. A first fold from m = -1e30 gives corr = exp(-1e30 - m_new)
+//   = 0, as in JAX; -inf must never be fed in (-inf - -inf is NaN).
+//   Tq may differ from Tk when not `diag`.
 //
 // Bound: at the slice's shapes (T = 512, D = 32..128) the work is
 // 4 * D FLOPs per visible (q, k) pair against 4 reads/writes of a
@@ -20,7 +29,10 @@
 // (m, l, acc) in registers. The TPU's sequential k grid dimension
 // becomes the loop inside the block; causal tiles wholly above the
 // diagonal are skipped. q/k/v are read through their [B, T, H, D]
-// strides (the last dim contiguous), with no transpose copy.
+// strides (the last dim contiguous), with no transpose copy. The carry
+// mode is the same kernel (template flag CARRY): only the state's seed
+// and its write-back differ, so its bound and design are the same; it
+// adds a read and a write of the fp32 state, 8 (D + 2) bytes per row.
 //
 // Thread layout (256 threads): thread (ty, tx) = (tid / 16, tid % 16)
 // owns q rows ty + 16 i (i < 4), score columns tx + 16 j (j < 4) and
@@ -46,14 +58,21 @@ constexpr size_t smem_bytes() {
           (size_t)BQ * (BK + 1));
 }
 
-template <typename T, int D, bool CAUSAL>
+// Strides (in elements) of q [B, Tq, H, D], k and v [B, Tk, H, D]: batch,
+// time, head for each; the D axis is contiguous.
+struct Strides {
+  long long qb, qt, qh, kb, kt, kh, vb, vt, vh;
+};
+
+// Finalize: o, lse are written, the state pointers are unused. Carry:
+// st_m, st_l [B, H, Tq] and st_acc [B, H, Tq, D] (contiguous fp32) are
+// read as the seed and overwritten with the folded state; o, lse unused.
+template <typename T, int D, bool CAUSAL, bool CARRY>
 __global__ void __launch_bounds__(NT)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int H, int Tq, int Tk,
-                     long long sqb, long long sqt, long long sqh,
-                     long long skb, long long skt, long long skh,
-                     long long svb, long long svt, long long svh,
+                     float* __restrict__ lse, float* st_m, float* st_l,
+                     float* st_acc, int H, int Tq, int Tk, Strides sd,
                      float scale) {
   extern __shared__ float smem[];
   float* Qs = smem;                 // [BQ][D]   q * scale, fp32
@@ -72,22 +91,33 @@ __global__ void __launch_bounds__(NT)
   const int ty = tid >> 4;
   const int tx = tid & 15;
 
-  const T* qp = q + bb * sqb + hh * sqh;
-  const T* kp = k + bb * skb + hh * skh;
-  const T* vp = v + bb * svb + hh * svh;
+  const T* qp = q + bb * sd.qb + hh * sd.qh;
+  const T* kp = k + bb * sd.kb + hh * sd.kh;
+  const T* vp = v + bb * sd.vb + hh * sd.vh;
+  // row (b, h, t) of the [B, H, Tq] state / lse layout is row0 + t
+  const long long row0 = ((long long)bb * H + hh) * Tq;
 
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int r = idx / D, d = idx % D, t = q0 + r;
-    Qs[idx] = t < Tq ? __fmul_rn(Cvt<T>::to_f(qp[t * sqt + d]), scale) : 0.f;
+    Qs[idx] = t < Tq ? __fmul_rn(Cvt<T>::to_f(qp[t * sd.qt + d]), scale) : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][DPT];
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
+    const int t = q0 + ty + 16 * i;
+    if (CARRY && t < Tq) {
+      m[i] = st_m[row0 + t];
+      l[i] = st_l[row0 + t];
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+      for (int c = 0; c < DPT; ++c)
+        acc[i][c] = st_acc[(row0 + t) * D + tx + 16 * c];
+    } else {
+      m[i] = kNegInf;
+      l[i] = 0.f;
+#pragma unroll
+      for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
+    }
   }
 
   int n_k = (Tk + BK - 1) / BK;
@@ -103,8 +133,8 @@ __global__ void __launch_bounds__(NT)
       const int r = idx / D, d = idx % D, t = k0 + r;
       float kv = 0.f, vv = 0.f;
       if (t < Tk) {
-        kv = Cvt<T>::to_f(kp[t * skt + d]);
-        vv = Cvt<T>::to_f(vp[t * svt + d]);
+        kv = Cvt<T>::to_f(kp[t * sd.kt + d]);
+        vv = Cvt<T>::to_f(vp[t * sd.vt + d]);
       }
       Ks[r * (D + 1) + d] = kv;
       Vs[idx] = vv;
@@ -180,58 +210,80 @@ __global__ void __launch_bounds__(NT)
   for (int i = 0; i < RPT; ++i) {
     const int t = q0 + ty + 16 * i;
     if (t >= Tq) continue;
+    if (CARRY) {
+#pragma unroll
+      for (int c = 0; c < DPT; ++c)
+        st_acc[(row0 + t) * D + tx + 16 * c] = acc[i][c];
+      if (tx == 0) {
+        st_m[row0 + t] = m[i];
+        st_l[row0 + t] = l[i];
+      }
+      continue;
+    }
     const float ls = fmaxf(l[i], 1e-20f);
     T* orow = o + (((long long)bb * Tq + t) * H + hh) * D;
 #pragma unroll
     for (int c = 0; c < DPT; ++c)
       orow[tx + 16 * c] = Cvt<T>::from_f(acc[i][c] / ls);
-    if (tx == 0) lse[((long long)bb * H + hh) * Tq + t] = m[i] + logf(ls);
+    if (tx == 0) lse[row0 + t] = m[i] + logf(ls);
   }
 }
 
-template <typename T, int D, bool CAUSAL>
-int launch(const void* q, const void* k, const void* v, void* o, float* lse,
-           int B, int Tq, int Tk, int H, const long long* st, float scale,
-           cudaStream_t stream) {
-  auto kern = flash_fwd_kernel<T, D, CAUSAL>;
+// What one launch needs, passed down the dispatch by reference.
+struct Launch {
+  const void *q, *k, *v;
+  void* o;
+  float *lse, *m, *l, *acc;
+  int B, Tq, Tk, H;
+  Strides sd;
+  float scale;
+  cudaStream_t stream;
+};
+
+template <typename T, int D, bool CAUSAL, bool CARRY>
+int launch(const Launch& a) {
+  auto kern = flash_fwd_kernel<T, D, CAUSAL, CARRY>;
   const size_t smem = smem_bytes<D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((Tq + BQ - 1) / BQ, H, B);
-  kern<<<grid, NT, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, lse, H, Tq, Tk, st[0],
-      st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8], scale);
+  dim3 grid((a.Tq + BQ - 1) / BQ, a.H, a.B);
+  kern<<<grid, NT, smem, a.stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, a.lse, a.m, a.l,
+      a.acc, a.H, a.Tq, a.Tk, a.sd, a.scale);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
-int dispatch_causal(int causal, const void* q, const void* k, const void* v,
-                    void* o, float* lse, int B, int Tq, int Tk, int H,
-                    const long long* st, float scale, cudaStream_t stream) {
-  return causal ? launch<T, D, true>(q, k, v, o, lse, B, Tq, Tk, H, st,
-                                     scale, stream)
-                : launch<T, D, false>(q, k, v, o, lse, B, Tq, Tk, H, st,
-                                      scale, stream);
+template <typename T, int D, bool CARRY>
+int dispatch_causal(int causal, const Launch& a) {
+  return causal ? launch<T, D, true, CARRY>(a) : launch<T, D, false, CARRY>(a);
 }
 
-template <typename T>
-int dispatch_d(int D, int causal, const void* q, const void* k, const void* v,
-               void* o, float* lse, int B, int Tq, int Tk, int H,
-               const long long* st, float scale, cudaStream_t stream) {
+template <typename T, bool CARRY>
+int dispatch_d(int D, int causal, const Launch& a) {
   switch (D) {
     case 32:
-      return dispatch_causal<T, 32>(causal, q, k, v, o, lse, B, Tq, Tk, H,
-                                    st, scale, stream);
+      return dispatch_causal<T, 32, CARRY>(causal, a);
     case 64:
-      return dispatch_causal<T, 64>(causal, q, k, v, o, lse, B, Tq, Tk, H,
-                                    st, scale, stream);
+      return dispatch_causal<T, 64, CARRY>(causal, a);
     case 128:
-      return dispatch_causal<T, 128>(causal, q, k, v, o, lse, B, Tq, Tk, H,
-                                     st, scale, stream);
+      return dispatch_causal<T, 128, CARRY>(causal, a);
     default:
       return (int)cudaErrorInvalidValue;
   }
+}
+
+template <bool CARRY>
+int dispatch(int dtype, int D, int causal, const Launch& a) {
+  if (a.B <= 0 || a.Tq <= 0 || a.H <= 0) return 0;
+  if (a.Tk <= 0) return (int)cudaErrorInvalidValue;
+  if (dtype == kF32) return dispatch_d<float, CARRY>(D, causal, a);
+  if (dtype == kBF16) return dispatch_d<__nv_bfloat16, CARRY>(D, causal, a);
+  return (int)cudaErrorInvalidValue;
+}
+
+Strides strides_of(const long long* st) {
+  return Strides{st[0], st[1], st[2], st[3], st[4], st[5], st[6], st[7], st[8]};
 }
 
 }  // namespace
@@ -247,14 +299,24 @@ extern "C" int dl4j_flash_attention_fwd(int dtype, int causal, const void* q,
                                         float* lse, int B, int Tq, int Tk,
                                         int H, int D, const long long* strides,
                                         float scale, void* stream) {
-  if (B <= 0 || Tq <= 0 || H <= 0) return 0;
-  if (Tk <= 0) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == dl4j::kF32)
-    return dl4j::dispatch_d<float>(D, causal, q, k, v, o, lse, B, Tq, Tk, H,
-                                   strides, scale, st);
-  if (dtype == dl4j::kBF16)
-    return dl4j::dispatch_d<__nv_bfloat16>(D, causal, q, k, v, o, lse, B, Tq,
-                                           Tk, H, strides, scale, st);
-  return (int)cudaErrorInvalidValue;
+  dl4j::Launch a{q,  k,  v,  o,  lse, nullptr, nullptr, nullptr,
+                 B,  Tq, Tk, H,  dl4j::strides_of(strides), scale,
+                 (cudaStream_t)stream};
+  return dl4j::dispatch<false>(dtype, D, causal, a);
+}
+
+// The carry fold: q, k, v as above; m, l a contiguous [B, H, Tq] fp32 and
+// acc a contiguous [B, H, Tq, D] fp32 hold the running state and are
+// updated IN PLACE. `diag` masks k_pos > q_pos between local positions
+// (the caller guarantees Tq == Tk then). Returns cudaGetLastError().
+extern "C" int dl4j_flash_attention_carry(int dtype, int diag, const void* q,
+                                          const void* k, const void* v,
+                                          float* m, float* l, float* acc,
+                                          int B, int Tq, int Tk, int H, int D,
+                                          const long long* strides,
+                                          float scale, void* stream) {
+  dl4j::Launch a{q,  k,  v,  nullptr, nullptr, m, l, acc,
+                 B,  Tq, Tk, H,       dl4j::strides_of(strides), scale,
+                 (cudaStream_t)stream};
+  return dl4j::dispatch<true>(dtype, D, diag, a);
 }

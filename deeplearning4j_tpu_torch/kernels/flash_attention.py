@@ -1,5 +1,6 @@
-"""Flash attention: the forward and the two backward CUDA kernels, each
-with its plain version, and the autograd function around them.
+"""Flash attention: the forward in its two modes and the two backward
+CUDA kernels, each with its plain version, and the autograd function
+around them.
 
 Counterpart of `deeplearning4j_tpu/kernels/flash_attention.py`
 `flash_attention` (a `jax.custom_vjp`): the forward `_flash_fwd_kernel`
@@ -10,7 +11,10 @@ its design. `_FlashAttentionFn` is the custom_vjp: the forward kernel
 saves (q, k, v, o, lse), the backward launches the dQ and the dK/dV
 kernels. Unlike the JAX package, the backward takes the kernels at
 every sequence length (its `_PALLAS_BWD_MIN_T` crossover to XLA was
-measured on a TPU). The ring carry mode is a later slice.
+measured on a TPU). `flash_attention_carry` runs the forward kernel in
+carry mode (the JAX `flash_attention_carry` :245): it folds one K/V
+chunk into a running (m, l, acc) state, the step of the ring attention
+in `parallel/ring.py`.
 
 Semantics (the Pallas kernel's): q, k, v [B, T, H, D]; scores
 `(q * 1/sqrt(D)) k^T` in fp32; causal mask `k_pos <= q_pos` and the
@@ -62,12 +66,33 @@ def flash_attention_plain(q, k, v, causal: bool = False):
     return o.to(q.dtype), lse
 
 
+def flash_attention_carry_plain(q, k, v, m, l, acc, diag: bool):
+    """Plain version of the carry fold (see `flash_attention_carry`):
+    materialises the chunk's [Tq, Tk] scores. Updates m, l, acc in place
+    and returns them."""
+    Tq, Tk, D = q.shape[1], k.shape[1], q.shape[-1]
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * _scale(D), k.float())
+    if diag:
+        qpos = torch.arange(Tq, device=q.device)[:, None]
+        kpos = torch.arange(Tk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+    m_new = torch.maximum(m, s.max(dim=-1).values)
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l.mul_(corr).add_(p.sum(dim=-1))
+    acc.mul_(corr[..., None]).add_(
+        torch.einsum("bhqk,bkhd->bhqd", p, v.float()))
+    m.copy_(m_new)
+    return m, l, acc
+
+
 # --------------------------------------------------------------- the kernel
-def _lib():
-    fn = build.load("flash_attention").dl4j_flash_attention_fwd
+def _lib(name: str = "dl4j_flash_attention_fwd"):
+    fn = getattr(build.load("flash_attention"), name)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [I, I, P, P, P, P, P, I, I, I, I, I,
+        outs = [P, P] if name.endswith("_fwd") else [P, P, P]
+        fn.argtypes = [I, I, P, P, P, *outs, I, I, I, I, I,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
@@ -125,6 +150,51 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
     K.check_status("flash_attention_fwd", status)
     K.LAUNCHES["flash_attention_fwd"] += 1
     return o, lse
+
+
+def _check_carry(q, k, v, m, l, acc, diag):
+    if diag and q.shape[1] != k.shape[1]:
+        raise ValueError(f"a diag fold needs Tq == Tk; got q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    B, Tq, H, D = q.shape
+    for name, t, shape in (("m", m, (B, H, Tq)), ("l", l, (B, H, Tq)),
+                           ("acc", acc, (B, H, Tq, D))):
+        if (tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != q.device):
+            raise ValueError(f"{name} must be fp32 {list(shape)} on q's "
+                             f"device; got {t.dtype} {tuple(t.shape)}")
+
+
+def flash_attention_carry(q, k, v, m, l, acc, *, diag: bool):
+    """Fold one K/V chunk into a running online-softmax state (the JAX
+    `flash_attention_carry`). q [B, Tq, H, D]; k, v [B, Tk, H, D] (Tk may
+    differ from Tq unless `diag`); m, l [B, H, Tq] fp32 (running max and
+    denominator, start at m = -1e30, l = 0, never -inf); acc
+    [B, H, Tq, D] fp32, the unnormalised output. `diag` masks
+    k_pos > q_pos between local positions (the diagonal chunk of a
+    causal ring); fully visible chunks pass diag=False, fully masked
+    ones are not folded. Unlike the JAX function, the state is updated
+    IN PLACE (each CUDA block owns its rows) and returned. CUDA tensors
+    launch the kernel; CPU tensors take the plain version."""
+    _check_carry(q, k, v, m, l, acc, diag)
+    if not K.on_cuda(q, k, v, m, l, acc):
+        return flash_attention_carry_plain(q, k, v, m, l, acc, diag)
+    _check(q, k, v)
+    for name, t in (("m", m), ("l", l), ("acc", acc)):
+        if not t.is_contiguous():
+            raise ValueError(f"carry state {name} must be contiguous")
+    B, Tq, H, D = q.shape
+    strides = (ctypes.c_longlong * 9)(
+        q.stride(0), q.stride(1), q.stride(2),
+        k.stride(0), k.stride(1), k.stride(2),
+        v.stride(0), v.stride(1), v.stride(2))
+    status = _lib("dl4j_flash_attention_carry")(
+        K.dtype_code(q), int(bool(diag)), K.ptr(q), K.ptr(k), K.ptr(v),
+        K.ptr(m), K.ptr(l), K.ptr(acc), B, Tq, k.shape[1], H, D, strides,
+        _scale(D), K.stream_of(q))
+    K.check_status("flash_attention_carry", status)
+    K.LAUNCHES["flash_attention_carry"] += 1
+    return m, l, acc
 
 
 # ----------------------------------------------------------------- backward

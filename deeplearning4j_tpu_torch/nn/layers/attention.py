@@ -1,37 +1,72 @@
 """Multi-head attention (counterpart of
 `deeplearning4j_tpu/nn/layers/attention.py`: `forward` :336,
 `forward_with_cache` :199, `_attend_cached` :226,
-`forward_with_paged_cache` :246).
+`forward_with_paged_cache` :246, `_warn_sp_fallback` :106).
 
 Params "Wq", "Wk", "Wv", "Wo" ([d, d], used as ``x @ W``) and biases
 "bq".."bo" (the JAX layer's default `has_bias=True`; identity
 activation). Heads split the model dim as [B, T, H, Dh], the JAX layout.
+
+`sequence_parallel="ring"|"ulysses"` makes the full-sequence forward
+run ring or Ulysses attention over the mesh of an active
+`parallel.sequence_sharding(mesh)` context (the config names only the
+strategy; the mesh is runtime state). Without a context the local path
+runs and a one-time warning says so, as in JAX.
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, new_param, xavier_
+from deeplearning4j_tpu_torch.parallel import (
+    current_sequence_mesh,
+    sequence_parallel_attention,
+    ulysses_parallel_attention,
+)
 
 _NAMES = ("Wq", "Wk", "Wv", "Wo")
+_SP_FALLBACK_WARNED = set()
+
+
+def _warn_sp_fallback(layer_name, reason):
+    """One-time notice when a layer configured for sequence parallelism
+    takes the local-attention path, so silence cannot read as 'SP is
+    on'."""
+    key = (layer_name, reason)
+    if key not in _SP_FALLBACK_WARNED:
+        _SP_FALLBACK_WARNED.add(key)
+        logging.getLogger(__name__).warning(
+            "layer %s has sequence_parallel configured but fell back to "
+            "local attention: %s — sequence-parallel memory/perf benefits "
+            "do NOT apply to this forward", layer_name, reason)
 
 
 class MultiHeadAttention(Layer):
     def __init__(self, n_in: int, n_heads: int = 4, *, causal: bool = False,
-                 use_flash: Optional[bool] = None):
+                 use_flash: Optional[bool] = None,
+                 sequence_parallel: Optional[str] = None,
+                 name: Optional[str] = None):
         super().__init__()
+        self.name = name
         d = int(n_in)
         if d % n_heads:
             raise ValueError(f"model dim {d} must divide n_heads {n_heads}")
         self.n_in, self.n_heads, self.causal = d, int(n_heads), causal
         # None or True: flash attention (the CUDA forward and backward
-        # kernels on the card, their plain versions on the CPU); False:
-        # the plain -inf masked softmax, differentiated by autograd
+        # kernels on the card, their plain versions on the CPU; under
+        # sequence parallelism the flash ring with the carry kernel);
+        # False: the plain -inf masked softmax (or the plain ring),
+        # differentiated by autograd
         self.use_flash = use_flash
+        if sequence_parallel not in (None, "ring", "ulysses"):
+            raise ValueError(f"sequence_parallel must be None, 'ring' or "
+                             f"'ulysses'; got {sequence_parallel!r}")
+        self.sequence_parallel = sequence_parallel
         for name in _NAMES:
             setattr(self, name, new_param((d, d), "cpu"))
             setattr(self, "b" + name[1:], new_param((d,), "cpu"))
@@ -71,6 +106,25 @@ class MultiHeadAttention(Layer):
     # ------------------------------------------------------ full sequence
     def forward(self, x):
         q, k, v = self._qkv(x)
+        if self.sequence_parallel:
+            ctx = current_sequence_mesh()
+            if ctx is None:
+                _warn_sp_fallback(
+                    self.name or type(self).__name__,
+                    "no sequence_sharding(mesh) context active — wrap "
+                    "fit/output in `with sequence_sharding(mesh):`")
+            else:
+                mesh, axis = ctx
+                flash = self.use_flash is not False
+                if self.sequence_parallel == "ring":
+                    o = sequence_parallel_attention(
+                        q, k, v, mesh, seq_axis=axis, causal=self.causal,
+                        use_flash=flash)
+                else:
+                    o = ulysses_parallel_attention(
+                        q, k, v, mesh, axis_name=axis, causal=self.causal,
+                        use_flash=flash)
+                return self._out(o)
         if self.use_flash is not False:
             return self._out(flash_attention(q, k, v, self.causal))
         s = torch.einsum("bqhd,bkhd->bhqk", q, k) * self.scale

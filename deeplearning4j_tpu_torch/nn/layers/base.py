@@ -2,7 +2,8 @@
 an `nn.Module` with JAX-named parameters, a loader for the JAX
 package's per-layer param dicts, and the per-layer training config the
 container reads: `updater` (None: the container's `Sgd(1e-3)` default,
-as in JAX) and the l1/l2 coefficients (only zero is ported)."""
+as in JAX) and the l1/l2 coefficients (only zero is ported). `name` is
+the JAX layer's optional name, used in messages."""
 
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ from torch import nn
 
 
 class Layer(nn.Module):
+    name = None
     updater = None
     l1 = l2 = l1_bias = l2_bias = 0.0
 

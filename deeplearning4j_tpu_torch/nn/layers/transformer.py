@@ -74,14 +74,17 @@ class PositionalEncodingLayer(BaseRecurrentLayer):
 class TransformerEncoderBlock(BaseRecurrentLayer):
     def __init__(self, n_in: int, n_heads: int = 8, ff_multiplier: int = 4,
                  *, causal: bool = False, use_flash: Optional[bool] = None,
-                 cache_len: int = 512):
+                 cache_len: int = 512, sequence_parallel: Optional[str] = None):
         super().__init__()
         d = int(n_in)
         self.n_in, self.n_heads = d, int(n_heads)
         self.ff_multiplier, self.causal = int(ff_multiplier), causal
         self.cache_len = int(cache_len)
+        # "ring"|"ulysses": the attention's full-sequence forward runs
+        # sequence-parallel under `parallel.sequence_sharding(mesh)`
         self.attn = MultiHeadAttention(d, n_heads, causal=causal,
-                                       use_flash=use_flash)
+                                       use_flash=use_flash,
+                                       sequence_parallel=sequence_parallel)
         self.ln1 = LayerNormalization(d)
         self.ln2 = LayerNormalization(d)
         ff = d * self.ff_multiplier

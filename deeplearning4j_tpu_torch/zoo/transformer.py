@@ -33,15 +33,19 @@ class TransformerLM:
     blocks -> per-position softmax over the vocabulary with the mcxent
     loss; the JAX zoo model's constructor arguments, layer order and
     updater (`Adam(1e-3)` on every layer, the JAX conf's global
-    `.updater(...)`). remat and sequence_parallel belong to a later
-    slice."""
+    `.updater(...)`). `sequence_parallel="ring"|"ulysses"` goes to every
+    block: inside `parallel.sequence_sharding(mesh)`, `fit` and
+    `output()` run their attention sequence-parallel over the mesh.
+    remat belongs to a later slice."""
 
     def __init__(self, vocab_size: int, *, d_model: int = 128,
                  n_layers: int = 2, n_heads: int = 8, ff_multiplier: int = 4,
-                 max_len: int = 512, seed: int = 123):
+                 max_len: int = 512, sequence_parallel: Optional[str] = None,
+                 seed: int = 123):
         self.vocab_size, self.d_model = int(vocab_size), int(d_model)
         self.n_layers, self.n_heads = int(n_layers), int(n_heads)
         self.ff_multiplier, self.max_len = int(ff_multiplier), int(max_len)
+        self.sequence_parallel = sequence_parallel
         self.seed = seed
 
     def layers(self):
@@ -50,7 +54,8 @@ class TransformerLM:
         for _ in range(self.n_layers):
             out.append(TransformerEncoderBlock(
                 self.d_model, self.n_heads, self.ff_multiplier, causal=True,
-                cache_len=self.max_len))
+                cache_len=self.max_len,
+                sequence_parallel=self.sequence_parallel))
         out.append(RnnOutputLayer(self.d_model, self.vocab_size))
         return out
 

@@ -35,7 +35,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "kernels.fused_adam", "kernels.build", "common.updaters",
                 "common.losses", "datasets.iterator", "nn.multilayer",
                 "zoo.transformer", "serving.engine", "serving.server",
-                "util.jax_params"):
+                "util.jax_params", "parallel.mesh", "parallel.context",
+                "parallel.ring", "parallel.ulysses"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 
