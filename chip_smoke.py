@@ -7,6 +7,10 @@
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
      nvcc (one process per source, all at once) and print the seconds;
+     check with `cuobjdump -sass` that every instance of the two flash
+     backward kernels (fp32 and bf16, D 32/64/128, causal or not) runs
+     tensor-core instructions (HMMA or HGMMA), and print each one's
+     registers, stack and local memory (`cuobjdump -res-usage`);
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 and bf16, at the main path's shapes and at ragged ones, and
      time kernel, plain version and the one-call PyTorch yardstick
@@ -17,7 +21,10 @@ Phases, in order:
      long-context LM's (8 blocks, 128 leaves, two launches) and must be
      bit-equal to its plain version. Phase 6's shapes are checked too:
      LayerNorm and residual LayerNorm at [16384, 512], the flash
-     forward, dQ and dK/dV at the ring's chunk [8, 512, 8, 64]. The
+     forward, dQ and dK/dV at the ring's chunk [8, 512, 8, 64], where
+     dQ and dK/dV are also timed, diagonal (causal) and visible, beside
+     SDPA's backward, and at the local attention [8, 2048, 8, 64]; dQ
+     and dK/dV also run at Tq != Tk. The
      carry fold runs at that chunk (a diag fold, a visible fold, a
      chain of the two) and ragged (Tq 300, Tk 200, D 32 and 128); no
      one PyTorch call computes it, so it has no yardstick;
@@ -61,6 +68,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -72,10 +80,14 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 OUT_DIR = os.path.join(HERE, "chiprun_out")
 
 # peak rates (NVIDIA H100 SXM data sheet, dense): HBM bytes/s, fp32
-# (CUDA cores) and bf16 (tensor cores) operations/s
+# (CUDA cores) and bf16 (tensor cores) operations/s, and fp32-accurate
+# products on the tensor cores as 3xTF32 (three TF32 products each, at
+# the data sheet's 495 TFLOP/s TF32): the least time an fp32 flash
+# kernel needs, since its products can run there
 HBM_BPS = 3.35e12
 SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's 1.98 GHz boost clock
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12}
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
+FLASH_RATE = {"float32": "tf32x3", "bfloat16": "bfloat16"}
 
 LN_TOL = {"float32": 1e-5, "bfloat16": 2 ** -4}        # 1 bf16 ulp at |y|<16
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2 ** -5}     # 1 bf16 ulp at |o|<4
@@ -275,12 +287,95 @@ def param_diff(got, want):
 
 
 # ------------------------------------------------------------ phase 1: build
-def phase_build(report):
+# a backward kernel's mangled name: kind, dtype (f = float), D, causal
+_BWD_KERNEL = re.compile(
+    r"flash_bwd_(dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
+# `cuobjdump -sass`: a function's heading; `cuobjdump -res-usage`: a
+# function's heading and, on the next line, its "KEY:value" resources
+_SASS_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)", re.M)
+_RES_FUNCTION = re.compile(r"^\s*Function\s+(\S+):\s*\n(.*)$", re.M)
+_MMA_OPS = ("HMMA", "HGMMA")
+
+
+def _bwd_instances(names):
+    """{(kind, dtype, D, causal): mangled name} of the backward kernels
+    among `names`."""
+    out = {}
+    for fn in names:
+        m = _BWD_KERNEL.search(fn)
+        if m:
+            kind, dt, D, causal = m.groups()
+            out[(kind, "float32" if dt == "f" else "bfloat16", int(D),
+                 causal == "1")] = fn
+    return out
+
+
+def mma_counts(sass_text: str):
+    """{mangled kernel name: {"HMMA": n, "HGMMA": n}}: the tensor-core
+    instructions in each function of a `cuobjdump -sass` listing."""
+    heads = list(_SASS_FUNCTION.finditer(sass_text))
+    out = {}
+    for i, m in enumerate(heads):
+        end = heads[i + 1].start() if i + 1 < len(heads) else len(sass_text)
+        body = sass_text[m.end():end]
+        out[m.group(1)] = {op: len(re.findall(rf"\b{op}\.", body))
+                           for op in _MMA_OPS}
+    return out
+
+
+def res_usage(text: str):
+    """{mangled kernel name: {"REG": n, "STACK": bytes, "LOCAL": bytes,
+    ...}} from a `cuobjdump -res-usage` listing: registers a thread,
+    and its stack frame and local memory (where spills go)."""
+    return {m.group(1): {k: int(v) for k, v in
+                         re.findall(r"([A-Z_]+(?:\[\d+\])?):(\d+)",
+                                    m.group(2))}
+            for m in _RES_FUNCTION.finditer(text)}
+
+
+def _cuobjdump(flag: str, lib) -> str:
+    from deeplearning4j_tpu_torch.kernels import build
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    proc = subprocess.run([tool, flag, str(lib)], capture_output=True,
+                          text=True, timeout=300)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump {flag} {lib}: {proc.stderr}")
+    return proc.stdout
+
+
+def phase_build(report, fails):
     from deeplearning4j_tpu_torch.kernels import build
     t0 = time.perf_counter()
     paths = build.build_all()
     report["build_s"] = time.perf_counter() - t0
     print(f"[build] {sorted(paths)} in {report['build_s']:.2f} s", flush=True)
+    # the backward kernels must run on the tensor cores: every bf16 and
+    # fp32 instance of both has HMMA (mma.sync) or HGMMA (wgmma) in its
+    # SASS; registers, stack and local memory are reported beside
+    lib = paths["flash_attention_bwd"]
+    counts = mma_counts(_cuobjdump("-sass", lib))
+    usage = res_usage(_cuobjdump("-res-usage", lib))
+    rows = []
+    for (kind, dt, D, causal), fn in sorted(_bwd_instances(counts).items()):
+        use = usage.get(fn, {})
+        rows.append(dict(kernel=f"flash_attention_bwd_{kind}", dtype=dt, D=D,
+                         causal=causal, **counts[fn], registers=use.get("REG"),
+                         stack=use.get("STACK"), local=use.get("LOCAL")))
+    report["bwd_sass"] = rows
+    for kind in ("dq", "dkv"):
+        for dt in ("float32", "bfloat16"):
+            mine = [r for r in rows
+                    if r["kernel"].endswith(f"_{kind}") and r["dtype"] == dt]
+            fails.check(len(mine) == 6 and all(
+                r["HMMA"] + r["HGMMA"] > 0 for r in mine),
+                f"SASS of flash_bwd_{kind}_kernel {dt}: want HMMA/HGMMA in "
+                f"all 6 instances (D 32/64/128, causal or not), got "
+                f"{[(r['D'], r['causal'], r['HMMA'], r['HGMMA']) for r in mine]}")
+    for r in rows:
+        print(f"[build] {r['kernel']} {r['dtype']} D={r['D']} causal="
+              f"{r['causal']}: HMMA {r['HMMA']}, HGMMA {r['HGMMA']}, "
+              f"registers {r['registers']}, stack {r['stack']} B, local "
+              f"{r['local']} B", flush=True)
 
 
 # ---------------------------------------------------- phase 2: kernel checks
@@ -305,11 +400,18 @@ def phase_kernels(device, report, fails, small=False):
                          if not small else (128, 64))
     ln_cases = [("main", main_rows, 256), ("ragged", 1000, 257),
                 ("odd", 37, 33), ("long", long_rows, long_d)]
+    # "long": phase 6's local attention [B, T, H, D], checked only
     fl_cases = ([("main", 16, 512, 8, 32), ("ragged", 2, 300, 4, 64),
                  ("wide", 2, 300, 2, 128),
-                 ("ring_chunk", 8, LM_LONG["max_len"] // SEQ_P, 8, 64)]
+                 ("ring_chunk", 8, LM_LONG["max_len"] // SEQ_P, 8, 64),
+                 ("long", 8, LM_LONG["max_len"], LM_LONG["n_heads"],
+                  LM_LONG["d_model"] // LM_LONG["n_heads"])]
                 if not small else
-                [("main", 2, 70, 2, 32), ("ring_chunk", 2, 32, 2, 64)])
+                [("main", 2, 70, 2, 32), ("ring_chunk", 2, 32, 2, 64),
+                 ("long", 1, 160, 2, 64)])
+    bwd_ragged = ([("ragged_tq_tk", 2, 300, 200, 4, 64),
+                   ("ragged_tq_tk", 2, 200, 300, 2, 128)]
+                  if not small else [("ragged_tq_tk", 1, 40, 24, 2, 32)])
     checks, timings = [], {}
     for dt_name, dt in (("float32", torch.float32),
                         ("bfloat16", torch.bfloat16)):
@@ -377,27 +479,12 @@ def phase_kernels(device, report, fails, small=False):
                 do = rnd((B, T, H, Dh), dt)
                 delta = fa.attention_delta(do, o)
                 bwd = (q, k, v, do, lse, delta, causal)
-                dq = fa.flash_attention_bwd_dq(*bwd)
-                dq0 = fa.flash_attention_bwd_dq_plain(*bwd)
-                dk, dv = fa.flash_attention_bwd_dkv(*bwd)
-                dk0, dv0 = fa.flash_attention_bwd_dkv_plain(*bwd)
-                bwd_errs = {}
-                for name, pairs in (
-                        ("flash_attention_bwd_dq", [(dq, dq0)]),
-                        ("flash_attention_bwd_dkv", [(dk, dk0), (dv, dv0)])):
-                    e_b = max((a.float() - b.float()).abs().max().item()
-                              for a, b in pairs)
-                    ref = max(b.float().abs().max().item() for _, b in pairs)
-                    tol = bwd_tol(dt_name, ref)
-                    ok = fails.check(
-                        e_b <= tol, f"{name} {case} {dt_name} causal="
-                        f"{causal} {[B, T, H, Dh]}: max_abs_err {e_b} "
-                        f"(tol {tol}, max |ref| {ref})")
-                    checks.append(dict(kernel=name, case=case, dtype=dt_name,
-                                       causal=causal, shape=[B, T, H, Dh],
-                                       max_abs_err=e_b, max_abs_ref=ref,
-                                       tol=tol, ok=ok))
-                    bwd_errs[name] = e_b
+                bwd_errs = _bwd_checks(bwd, case, dt_name, checks, fails)
+                if case == "ring_chunk":     # diag and visible chunks
+                    timings.update(_bwd_timings(
+                        device, flush, bwd, bwd_errs, dt_name,
+                        ("ring_chunk_diag" if causal
+                         else "ring_chunk_visible",)))
                 if case != "main" or not causal:
                     continue
                 es_ = q.element_size()
@@ -415,36 +502,17 @@ def phase_kernels(device, report, fails, small=False):
                                          qt, kt, vt, is_causal=True),
                                      flush=flush),
                     bound=bound(4 * bthd * es_ + bht * 4, 4.0 * Dh * pairs_,
-                                dt_name))
-                # yardstick: SDPA's backward (dq, dk and dv in one call)
-                ql, kl, vl = (a.detach().requires_grad_() for a in (qt, kt, vt))
-                ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=True)
-                dol = do.transpose(1, 2)
-                lib_bwd = timer(device, lambda: torch.autograd.grad(
-                    ol, (ql, kl, vl), dol, retain_graph=True), flush=flush)
-                del ol
-                timings[("flash_attention_bwd_dq", dt_name)] = dict(
-                    shape=[B, T, H, Dh],
-                    max_abs_err=bwd_errs["flash_attention_bwd_dq"],
-                    ms=timer(device, lambda: fa.flash_attention_bwd_dq(*bwd),
-                             flush=flush),
-                    plain_ms=timer(device, lambda:
-                                   fa.flash_attention_bwd_dq_plain(*bwd),
-                                   iters=10, flush=flush),
-                    library_ms=lib_bwd,
-                    bound=bound(5 * bthd * es_ + 2 * bht * 4,
-                                6.0 * Dh * pairs_, dt_name))
-                timings[("flash_attention_bwd_dkv", dt_name)] = dict(
-                    shape=[B, T, H, Dh],
-                    max_abs_err=bwd_errs["flash_attention_bwd_dkv"],
-                    ms=timer(device, lambda: fa.flash_attention_bwd_dkv(*bwd),
-                             flush=flush),
-                    plain_ms=timer(device, lambda:
-                                   fa.flash_attention_bwd_dkv_plain(*bwd),
-                                   iters=10, flush=flush),
-                    library_ms=lib_bwd,
-                    bound=bound(6 * bthd * es_ + 2 * bht * 4,
-                                8.0 * Dh * pairs_, dt_name))
+                                FLASH_RATE[dt_name]))
+                timings.update(_bwd_timings(device, flush, bwd, bwd_errs,
+                                            dt_name, ()))
+        # the backward kernels alone at Tq != Tk, both ways round
+        for case, B, Tq, Tk, H, Dh in bwd_ragged:
+            q, do = (rnd((B, Tq, H, Dh), dt) for _ in range(2))
+            k, v = (rnd((B, Tk, H, Dh), dt) for _ in range(2))
+            for causal in (True, False):
+                o, lse = fa.flash_attention_fwd(q, k, v, causal)
+                _bwd_checks((q, k, v, do, lse, fa.attention_delta(do, o),
+                             causal), case, dt_name, checks, fails)
         timings.update(_carry_checks(device, checks, fails, flush, rnd,
                                      dt_name, dt, small))
     timings.update(_adam_checks(device, checks, fails, flush, rnd,
@@ -456,7 +524,7 @@ def phase_kernels(device, report, fails, small=False):
     if device.type == "cuda":
         torch.cuda.synchronize()
     report["kernel_checks"] = checks
-    report["kernel_timings"] = {f"{k[0]}/{k[1]}": v
+    report["kernel_timings"] = {"/".join(k): v
                                 for k, v in timings.items()}
     for k, t in report["kernel_timings"].items():
         print(f"[kernels] {k} {t['shape']}: kernel {t['ms']:.4f} ms, plain "
@@ -464,6 +532,74 @@ def phase_kernels(device, report, fails, small=False):
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), max_abs_err "
               f"{t['max_abs_err']:.3g}", flush=True)
     return timings
+
+
+def _bwd_checks(bwd, case, dt_name, checks, fails):
+    """The dQ and dK/dV kernels on `bwd` = (q, k, v, do, lse, delta,
+    causal) against their plain versions, each held to `bwd_tol` of its
+    largest |value|; returns {kernel: max_abs_err}."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    q, k, causal = bwd[0], bwd[1], bwd[-1]
+    dq = fa.flash_attention_bwd_dq(*bwd)
+    dq0 = fa.flash_attention_bwd_dq_plain(*bwd)
+    dk, dv = fa.flash_attention_bwd_dkv(*bwd)
+    dk0, dv0 = fa.flash_attention_bwd_dkv_plain(*bwd)
+    errs = {}
+    for name, pairs in (
+            ("flash_attention_bwd_dq", [(dq, dq0)]),
+            ("flash_attention_bwd_dkv", [(dk, dk0), (dv, dv0)])):
+        e_b = max((a.float() - b.float()).abs().max().item()
+                  for a, b in pairs)
+        ref = max(b.float().abs().max().item() for _, b in pairs)
+        tol = bwd_tol(dt_name, ref)
+        ok = fails.check(
+            e_b <= tol, f"{name} {case} {dt_name} causal={causal} q "
+            f"{list(q.shape)} Tk {k.shape[1]}: max_abs_err {e_b} (tol "
+            f"{tol}, max |ref| {ref})")
+        checks.append(dict(kernel=name, case=case, dtype=dt_name,
+                           causal=causal, shape=list(q.shape),
+                           tk=k.shape[1], max_abs_err=e_b, max_abs_ref=ref,
+                           tol=tol, ok=ok))
+        errs[name] = e_b
+    return errs
+
+
+def _bwd_timings(device, flush, bwd, errs, dt_name, tag):
+    """Times of the dQ and dK/dV kernels on `bwd` = (q, k, v, do, lse,
+    delta, causal), beside their plain versions and the yardstick, SDPA's
+    backward (dq, dk and dv in one call) at the same shape; keyed
+    (kernel, dtype, *tag)."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do, _, _, causal = bwd
+    B, T, H, Dh = q.shape
+    es = q.element_size()
+    bthd, bht = B * T * H * Dh, B * H * T
+    pairs = B * H * T * (T + 1) / 2 if causal else B * H * T * T
+    ql, kl, vl = (a.transpose(1, 2).detach().requires_grad_()
+                  for a in (q, k, v))
+    ol = F.scaled_dot_product_attention(ql, kl, vl, is_causal=causal)
+    dol = do.transpose(1, 2)
+    lib_bwd = timer(device, lambda: torch.autograd.grad(
+        ol, (ql, kl, vl), dol, retain_graph=True), flush=flush)
+    del ol
+    out = {}
+    for name, fn, plain, nbytes, flops in (
+            ("flash_attention_bwd_dq", fa.flash_attention_bwd_dq,
+             fa.flash_attention_bwd_dq_plain, 5 * bthd * es + 2 * bht * 4,
+             6.0 * Dh * pairs),
+            ("flash_attention_bwd_dkv", fa.flash_attention_bwd_dkv,
+             fa.flash_attention_bwd_dkv_plain, 6 * bthd * es + 2 * bht * 4,
+             8.0 * Dh * pairs)):
+        out[(name, dt_name, *tag)] = dict(
+            shape=[B, T, H, Dh], causal=causal, max_abs_err=errs[name],
+            ms=timer(device, lambda: fn(*bwd), flush=flush),
+            plain_ms=timer(device, lambda: plain(*bwd), iters=10,
+                           flush=flush),
+            library_ms=lib_bwd,
+            bound=bound(nbytes, flops, FLASH_RATE[dt_name]))
+    return out
 
 
 def _carry_checks(device, checks, fails, flush, rnd, dt_name, dt, small):
@@ -537,7 +673,7 @@ def _carry_checks(device, checks, fails, flush, rnd, dt_name, dt, small):
                 q, k, v, *ref, diag), iters=10, flush=flush),
             library_ms=None,
             bound=bound(3 * B * T * H * D * es + state_bytes,
-                        4.0 * D * pairs, dt_name))
+                        4.0 * D * pairs, FLASH_RATE[dt_name]))
     return timings
 
 
@@ -1135,7 +1271,7 @@ def run(device, *, small=False, kernels_only=False):
             return None
 
     if device.type == "cuda":
-        phase("build", phase_build, report)
+        phase("build", phase_build, report, fails)
     timings = phase("kernels", phase_kernels, device, report, fails,
                     small) or {}
     if not kernels_only:

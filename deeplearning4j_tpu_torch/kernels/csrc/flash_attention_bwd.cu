@@ -1,5 +1,5 @@
-// Flash-attention backward for Hopper (sm_90a): the dQ kernel and the
-// dK/dV kernel.
+// Flash-attention backward for Hopper (sm_90a) on the tensor cores: the
+// dQ kernel and the dK/dV kernel.
 //
 // Replaces the Pallas TPU kernels `_flash_bwd_dq_kernel`
 // (deeplearning4j_tpu/kernels/flash_attention.py:265, driven by
@@ -16,39 +16,84 @@
 // causal masking k_pos <= q_pos; tiles wholly on the masked side of the
 // diagonal are skipped, as the Pallas kernels skip them.
 //
-// Bound: per visible (q, k) pair dQ does 6 * D FLOPs (s, dp, dq) and
-// dK/dV 8 * D (s, dp, dv, dk) against a handful of [B, T, H, D] reads
-// and writes, so at T = 512 the arithmetic bounds both. Like the
-// forward, these first kernels run it on the fp32 CUDA cores (no
-// mma/wgmma yet), with the fp32 sums in registers.
+// Bound: per visible (q, k) pair dQ does 6 D FLOPs (s, dp, dq) and dK/dV
+// 8 D (s, dp, dv, dk). At [16, 512, 8, 32] causal that is 3.2 and 4.3
+// GFLOP against 42 and 50 MB (fp32; half in bf16) of reads and writes:
+// in bf16 the bytes bound both (6.4 and 7.7 us at 3.35 TB/s, against
+// 3.3 and 4.4 us of operations at 989 TFLOP/s); in fp32 the operations
+// do (19 and 26 us at 165 TFLOP/s, the 3xTF32 rate: 495 / 3).
 //
-// Design: the TPU's sequential minor grid dimension becomes a loop
-// inside the block, and the split of the JAX package is kept, so no
-// block writes what another writes: no atomics, and results do not
-// depend on scheduling.
+// Design: the TPU's sequential minor grid dimension becomes a loop inside
+// the block, and the JAX package's split is kept, so no block writes what
+// another writes: no atomics, and results do not depend on scheduling.
 //   dQ: one block per (batch, head, 64-row q tile). Q and dO stay in
-//       shared memory; the block walks the 64-row K/V tiles, builds the
-//       64x64 dS tile in shared memory and accumulates dQ in registers.
+//       shared memory; the block streams K/V tiles of BN rows.
 //   dK/dV: one block per (batch, head, 64-row k tile). K and V stay in
-//       shared memory; the block walks the q tiles, builds P^T and dS^T
-//       tiles and accumulates dK and dV in registers.
-// 256 threads as (ty, tx) = (tid / 16, tid % 16): a thread owns tile
-// rows ty + 16 i (i < 4), score columns tx + 16 j (j < 4) and feature
-// columns tx + 16 c (c < D / 16). Every staged row is padded to D + 1
-// (or 65) floats so the 16 lanes that read 16 rows at one column hit 16
-// banks. Tensors are read through their [B, T, H, D] strides (D
-// contiguous); outputs are contiguous [B, T, H, D] in the input dtype.
+//       shared memory; the block streams Q/dO/lse/delta tiles of BN rows.
+// BN is 64, or 32 at D = 128 so the accumulators fit in registers. 4
+// warps a block; each owns 16 rows of the block's tile and computes, for
+// each streamed tile, its 16 x BN strip of S and dP (first products,
+// A = its rows of the stationary tile, B = the streamed tile), then P and
+// dS in fp32 registers, then the second products into its 16 x D
+// accumulators (dQ; or dK and dV), A = dS or P, B = the streamed tile
+// again. Every product stays inside one warp, and P and dS never touch
+// shared memory:
+//   bf16: mma.sync m16n8k16 (fp32 accumulators). The accumulator layout
+//     of two neighbouring 8-column tiles of S/dP is the A layout of one
+//     16-deep step of the second product, so P and dS are rounded to bf16
+//     and packed in registers. Fragments come through ldmatrix (.trans
+//     for the second products' B, which is [k][n] in shared memory).
+//   fp32: 3xTF32 on mma.sync m16n8k8: each operand x = hi + lo, both
+//     cvt.rna TF32, and a . b = lo.hi + hi.lo + hi.hi in fp32. A thread
+//     holds accumulator columns 2t, 2t+1 of an 8-column tile but the A
+//     fragment wants columns t, t+4; the second products take the
+//     contraction in that permuted order instead (column 2t as k = t,
+//     2t+1 as k = t+4) and read B's rows 2t, 2t+1 to match, so no shuffle
+//     and no shared memory is needed.
+// Staging: every tile lands through cp.async (16 bytes a thread, zero
+// fill past the ragged edge) in dynamic shared memory in the input dtype;
+// the streamed tiles sit in a two-stage ring, the next one loading while
+// the current one computes. A staged row is padded by 16 bytes, which
+// puts the 8 rows of an ldmatrix and the lanes of the scalar TF32
+// fragment loads (pitch = D + 4 floats: bank 4g + t, or 8t + g for the
+// permuted B) on distinct banks.
+// Grid: (head, batch, tile), tiles slowest. With causal masking a block's
+// work grows with its tile's distance from the end of the diagonal (the
+// last q tile walks every k tile; the first k tile every q tile), so
+// the heaviest tiles are handed out first and the light ones fill the
+// tail; in the other order the long causal launches lose about a third
+// of their time to that tail (PERF.md).
+// Registers a thread (sm_90a, `cuobjdump -res-usage` of the built
+// library, as chip_smoke.py phase 1 prints them): fp32 dK/dV 166-168
+// (D 32) and 244-255 (D 64, 128),
+// fp32 dQ 154-223, bf16 dK/dV 136-241, bf16 dQ 107-166; no instance has
+// a stack frame or local memory, so nothing spills. Shared memory a block:
+// (2 * 64 + 4 * BN) * pitch * sizeof(T), 104 KB for fp32 at D = 64, so
+// two blocks (8 warps) an SM in fp32 at D = 64.
+//
+// Rounding against the plain version (fp32 einsums of the same inputs):
+// fp32 products are 3xTF32, within about 1e-6 of fp32 each, not bit-equal
+// (1xTF32 would be off by about 1e-3). The tensor cores round their fp32
+// accumulation toward zero, so the long sums of the second products go
+// through fresh per-tile partials added in fp32 (`WarpMma<float>::xb`);
+// the results are within 1.4e-5 of the plain version at T = 512 (values
+// up to 8), under the 1e-4 tolerance. In bf16, S and dP are exact
+// products summed in fp32, but P and dS are rounded to bf16 before the
+// second products, as FlashAttention-2 does: within 1 bf16 ulp of the
+// plain version's result. exp is ex2.approx of a log2e-scaled argument.
+// Sums run in another order than the plain einsums.
 
 #include "common.cuh"
+#include "mma.cuh"
 
 namespace dl4j {
 namespace {
 
-constexpr int BQ = 64;
-constexpr int BK = 64;
-constexpr int NT = 256;
-constexpr int R = 4;  // tile rows (and score columns) per thread
+constexpr int NW = 4;        // warps a block
+constexpr int NT = 32 * NW;  // threads a block
+constexpr int BM = 16 * NW;  // rows of the block's own tile
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
 struct BwdArgs {
   const void* q;
@@ -66,250 +111,385 @@ struct BwdArgs {
   float scale;
 };
 
-// stage rows [t0, t0 + 64) of one (batch, head) of `src` as fp32 into a
-// [64][D + 1] tile, zeros past `len`
+// rows of the streamed tile
+template <int D>
+__host__ __device__ constexpr int stream_rows() {
+  return D == 128 ? 32 : 64;
+}
+
+// pitch (elements) of a staged [rows][D] tile: 16 bytes of padding
 template <typename T, int D>
-__device__ __forceinline__ void stage(float* dst, const T* src, long long st,
-                                      int t0, int len) {
-  for (int idx = threadIdx.x; idx < 64 * D; idx += NT) {
-    const int r = idx / D, d = idx % D, t = t0 + r;
-    dst[r * (D + 1) + d] = t < len ? Cvt<T>::to_f(src[t * st + d]) : 0.f;
+__host__ __device__ constexpr int pitch() {
+  return D + 16 / (int)sizeof(T);
+}
+
+// stage rows [t0, t0 + ROWS) of one (batch, head) of `src` (row stride
+// `st`) into dst [ROWS][pitch] through cp.async; rows past `len` are zero
+template <typename T, int D, int ROWS>
+__device__ __forceinline__ void load_rows(T* dst, const T* src, long long st,
+                                          int t0, int len) {
+  constexpr int EPC = 16 / (int)sizeof(T);  // elements a 16-byte chunk
+  constexpr int CPR = D / EPC;              // chunks a row
+  constexpr int P = pitch<T, D>();
+  static_assert(ROWS * CPR % NT == 0, "whole chunks for every thread");
+#pragma unroll
+  for (int it = 0; it < ROWS * CPR / NT; ++it) {
+    const int i = it * NT + threadIdx.x;
+    const int r = i / CPR, c = i % CPR, t = t0 + r;
+    const bool ok = t < len;
+    cp_async_16(dst + r * P + c * EPC, ok ? src + t * st + c * EPC : src, ok);
   }
 }
 
+template <typename T>
+__device__ __forceinline__ void store2(T* p, float a, float b);
+template <>
+__device__ __forceinline__ void store2<float>(float* p, float a, float b) {
+  *reinterpret_cast<float2*>(p) = make_float2(a, b);
+}
+template <>
+__device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
+                                                      float a, float b) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(a, b);
+}
+
+// One warp's products. `A` points at the warp's first row of a staged
+// tile, `B` at a staged tile; both [rows][P] in shared memory.
+//   abt: acc[N/8][4] += A[16 x D] . B[N x D]^T  (S, dP and their transposes)
+//   xb:  acc[D/8][4] += X[16 x N] . B[N x D]    (X = P or dS, in the
+//        accumulator layout abt leaves it in)
+template <typename T>
+struct WarpMma;
+
+template <>
+struct WarpMma<__nv_bfloat16> {
+  using T = __nv_bfloat16;
+
+  template <int D, int N, int P>
+  static __device__ __forceinline__ void abt(float (&acc)[N / 8][4],
+                                             const T* A, const T* B,
+                                             int lane) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      uint32_t a[4];
+      ldmatrix_x4(a, A + (lane & 15) * P + kk * 16 + (lane >> 4) * 8);
+#pragma unroll
+      for (int np = 0; np < N / 16; ++np) {
+        // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
+        // (n 8-15, k 8-15) of this 16 x 16 block of B
+        uint32_t b[4];
+        ldmatrix_x4(b, B + (np * 16 + (lane & 7) + (lane >> 4) * 8) * P +
+                           kk * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(acc[2 * np], a, b[0], b[1]);
+        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
+      }
+    }
+  }
+
+  template <int D, int N, int P>
+  static __device__ __forceinline__ void xb(float (&acc)[D / 8][4],
+                                            const float (&x)[N / 8][4],
+                                            const T* B, int lane) {
+#pragma unroll
+    for (int kk = 0; kk < N / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
+                             pack_bf16(x[2 * kk][2], x[2 * kk][3]),
+                             pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
+                             pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
+#pragma unroll
+      for (int dp = 0; dp < D / 16; ++dp) {
+        // transposed matrices (k 0-7, n 0-7), (k 8-15, n 0-7),
+        // (k 0-7, n 8-15), (k 8-15, n 8-15) of B [k][n]
+        uint32_t b[4];
+        ldmatrix_x4_trans(b, B + (kk * 16 + (lane & 7) +
+                                  ((lane >> 3) & 1) * 8) * P +
+                                 dp * 16 + (lane >> 4) * 8);
+        mma_bf16(acc[2 * dp], a, b[0], b[1]);
+        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+      }
+    }
+  }
+};
+
+template <>
+struct WarpMma<float> {
+  template <int D, int N, int P>
+  static __device__ __forceinline__ void abt(float (&acc)[N / 8][4],
+                                             const float* A, const float* B,
+                                             int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const float* ap = A + g * P + kk * 8 + t;
+      const Tf32Pair a0 = split_tf32(ap[0]), a1 = split_tf32(ap[8 * P]),
+                     a2 = split_tf32(ap[4]), a3 = split_tf32(ap[8 * P + 4]);
+      const uint32_t hi[4] = {a0.hi, a1.hi, a2.hi, a3.hi};
+      const uint32_t lo[4] = {a0.lo, a1.lo, a2.lo, a3.lo};
+#pragma unroll
+      for (int n = 0; n < N / 8; ++n) {
+        const float* bp = B + (n * 8 + g) * P + kk * 8 + t;
+        mma_3xtf32(acc[n], hi, lo, split_tf32(bp[0]), split_tf32(bp[4]));
+      }
+    }
+  }
+
+  // The tensor cores round their fp32 sums toward zero, so a sum chained
+  // over every streamed tile would drift by up to an ulp a step. Each
+  // tile's sum starts from zero instead, C 8-column tiles at a time, and
+  // is added to acc with an ordinary (round-to-nearest) fp32 add.
+  template <int D, int N, int P>
+  static __device__ __forceinline__ void xb(float (&acc)[D / 8][4],
+                                            const float (&x)[N / 8][4],
+                                            const float* B, int lane) {
+    const int g = lane >> 2, t = lane & 3;
+    constexpr int C = D == 128 ? 2 : 4;
+#pragma unroll
+    for (int c0 = 0; c0 < D / 8; c0 += C) {
+      float part[C][4];
+#pragma unroll
+      for (int dn = 0; dn < C; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) part[dn][e] = 0.f;
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        // x's columns 2t, 2t+1 of tile j enter as k = t, t + 4
+        const Tf32Pair a0 = split_tf32(x[j][0]), a1 = split_tf32(x[j][2]),
+                       a2 = split_tf32(x[j][1]), a3 = split_tf32(x[j][3]);
+        const uint32_t hi[4] = {a0.hi, a1.hi, a2.hi, a3.hi};
+        const uint32_t lo[4] = {a0.lo, a1.lo, a2.lo, a3.lo};
+#pragma unroll
+        for (int dn = 0; dn < C; ++dn) {
+          const float* bp = B + (j * 8 + 2 * t) * P + (c0 + dn) * 8 + g;
+          mma_3xtf32(part[dn], hi, lo, split_tf32(bp[0]),
+                     split_tf32(bp[P]));
+        }
+      }
+#pragma unroll
+      for (int dn = 0; dn < C; ++dn)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c0 + dn][e] += part[dn][e];
+    }
+  }
+};
+
 // ------------------------------------------------------------------ dQ
-template <int D>
+template <typename T, int D>
 constexpr size_t dq_smem_bytes() {
-  return sizeof(float) * (4 * (size_t)64 * (D + 1) + (size_t)BQ * (BK + 1));
+  return sizeof(T) * (size_t)(2 * BM + 4 * stream_rows<D>()) * pitch<T, D>();
 }
 
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(NT) flash_bwd_dq_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                // [BQ][D+1]
-  float* dOs = Qs + BQ * (D + 1);  // [BQ][D+1]
-  float* Ks = dOs + BQ * (D + 1);  // [BK][D+1]
-  float* Vs = Ks + BK * (D + 1);   // [BK][D+1]
-  float* dSs = Vs + BK * (D + 1);  // [BQ][BK+1]
-  constexpr int DPT = D / 16;
+  constexpr int BN = stream_rows<D>(), P = pitch<T, D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Qs = reinterpret_cast<T*>(smem);  // [BM][P]
+  T* dOs = Qs + BM * P;                // [BM][P]
+  T* Ks = dOs + BM * P;                // [2][BN][P]
+  T* Vs = Ks + 2 * BN * P;             // [2][BN][P]
 
-  const int q0 = blockIdx.x * BQ, hh = blockIdx.y, bb = blockIdx.z;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  // tiles are the slowest grid axis; with causal masking the heaviest
+  // q tiles (the last) are handed out first
+  const int tile = CAUSAL ? gridDim.z - 1 - blockIdx.z : blockIdx.z;
+  const int q0 = tile * BM, hh = blockIdx.x, bb = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const T* qp = (const T*)a.q + bb * a.sq[0] + hh * a.sq[2];
   const T* kp = (const T*)a.k + bb * a.sk[0] + hh * a.sk[2];
   const T* vp = (const T*)a.v + bb * a.sv[0] + hh * a.sv[2];
-  const T* dp_ = (const T*)a.dout + bb * a.sd[0] + hh * a.sd[2];
+  const T* dop = (const T*)a.dout + bb * a.sd[0] + hh * a.sd[2];
   const long long row0 = ((long long)bb * a.H + hh) * a.Tq;
 
-  stage<T, D>(Qs, qp, a.sq[1], q0, a.Tq);
-  stage<T, D>(dOs, dp_, a.sd[1], q0, a.Tq);
-  float lse[R], dlt[R], acc[R][DPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int t = q0 + ty + 16 * i;
-    lse[i] = t < a.Tq ? a.lse[row0 + t] : 0.f;
-    dlt[i] = t < a.Tq ? a.delta[row0 + t] : 0.f;
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) acc[i][c] = 0.f;
-  }
-
-  int n_k = (a.Tk + BK - 1) / BK;
+  int n_k = (a.Tk + BN - 1) / BN;
   if (CAUSAL) {
-    const int last = (q0 + BQ - 1) / BK;  // tiles past the diagonal skip
+    const int last = (q0 + BM - 1) / BN;  // tiles past the diagonal skip
     n_k = n_k < last + 1 ? n_k : last + 1;
   }
+  load_rows<T, D, BM>(Qs, qp, a.sq[1], q0, a.Tq);
+  load_rows<T, D, BM>(dOs, dop, a.sd[1], q0, a.Tq);
+  load_rows<T, D, BN>(Ks, kp, a.sk[1], 0, a.Tk);
+  load_rows<T, D, BN>(Vs, vp, a.sv[1], 0, a.Tk);
+  cp_async_commit();
+
+  // this thread's two q rows, and their lse (log2 scale) and delta
+  const int r[2] = {q0 + 16 * warp + g, q0 + 16 * warp + g + 8};
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    lse2[i] = r[i] < a.Tq ? a.lse[row0 + r[i]] * kLog2e : 0.f;
+    dlt[i] = r[i] < a.Tq ? a.delta[row0 + r[i]] : 0.f;
+  }
+  const float sl2 = a.scale * kLog2e;
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+
   for (int kt = 0; kt < n_k; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();  // Q/dO staged; the previous tile's reads finished
-    stage<T, D>(Ks, kp, a.sk[1], k0, a.Tk);
-    stage<T, D>(Vs, vp, a.sv[1], k0, a.Tk);
-    __syncthreads();
-
-    float s[R][R], dp[R][R];
-#pragma unroll
-    for (int i = 0; i < R; ++i)
-#pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float qv[R], ov[R], kv[R], vv[R];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        qv[i] = Qs[(ty + 16 * i) * (D + 1) + d];
-        ov[i] = dOs[(ty + 16 * i) * (D + 1) + d];
-        kv[i] = Ks[(tx + 16 * i) * (D + 1) + d];
-        vv[i] = Vs[(tx + 16 * i) * (D + 1) + d];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int qpos = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int kpos = k0 + tx + 16 * j;
-        const bool valid = kpos < a.Tk && (!CAUSAL || kpos <= qpos);
-        const float sc = valid ? s[i][j] * a.scale : kNegInf;
-        const float p = expf(sc - lse[i]);
-        dSs[(ty + 16 * i) * (BK + 1) + tx + 16 * j] = p * (dp[i][j] - dlt[i]);
-      }
+    const int st = kt & 1, k0 = kt * BN;
+    if (kt + 1 < n_k) {  // the next tile loads while this one computes
+      load_rows<T, D, BN>(Ks + (st ^ 1) * BN * P, kp, a.sk[1], k0 + BN, a.Tk);
+      load_rows<T, D, BN>(Vs + (st ^ 1) * BN * P, vp, a.sv[1], k0 + BN, a.Tk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* Kt = Ks + st * BN * P;
+    const T* Vt = Vs + st * BN * P;
 
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float kv[DPT];
+    float s[BN / 8][4], dp[BN / 8][4];
 #pragma unroll
-      for (int c = 0; c < DPT; ++c) kv[c] = Ks[kk * (D + 1) + tx + 16 * c];
+    for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float ds = dSs[(ty + 16 * i) * (BK + 1) + kk];
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    WarpMma<T>::template abt<D, BN, P>(s, Qs + 16 * warp * P, Kt, lane);
+    WarpMma<T>::template abt<D, BN, P>(dp, dOs + 16 * warp * P, Vt, lane);
 #pragma unroll
-        for (int c = 0; c < DPT; ++c) acc[i][c] = fmaf(ds, kv[c], acc[i][c]);
+    for (int n = 0; n < BN / 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = e >> 1, kpos = k0 + n * 8 + 2 * t + (e & 1);
+        const bool valid = kpos < a.Tk && (!CAUSAL || kpos <= r[i]);
+        const float p =
+            ex2(valid ? fmaf(s[n][e], sl2, -lse2[i]) : kNegInf);
+        s[n][e] = p * (dp[n][e] - dlt[i]);  // ds
       }
-    }
+    WarpMma<T>::template xb<D, BN, P>(acc, s, Kt, lane);
+    __syncthreads();  // every warp is done with this stage
   }
 
   T* dq = (T*)a.dq;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int t = q0 + ty + 16 * i;
-    if (t >= a.Tq) continue;
-    T* row = dq + (((long long)bb * a.Tq + t) * a.H + hh) * D;
+  for (int i = 0; i < 2; ++i) {
+    if (r[i] >= a.Tq) continue;
+    T* row = dq + (((long long)bb * a.Tq + r[i]) * a.H + hh) * D + 2 * t;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c)
-      row[tx + 16 * c] = Cvt<T>::from_f(acc[i][c] * a.scale);
+    for (int n = 0; n < D / 8; ++n)
+      store2<T>(row + n * 8, acc[n][2 * i] * a.scale,
+                acc[n][2 * i + 1] * a.scale);
   }
 }
 
 // --------------------------------------------------------------- dK/dV
-template <int D>
+template <typename T, int D>
 constexpr size_t dkv_smem_bytes() {
-  return sizeof(float) * (4 * (size_t)64 * (D + 1) +
-                          2 * (size_t)BK * (BQ + 1) + 2 * (size_t)BQ);
+  return sizeof(T) * (size_t)(2 * BM + 4 * stream_rows<D>()) * pitch<T, D>() +
+         sizeof(float) * 4 * (size_t)stream_rows<D>();
 }
 
 template <typename T, int D, bool CAUSAL>
 __global__ void __launch_bounds__(NT) flash_bwd_dkv_kernel(BwdArgs a) {
-  extern __shared__ float smem[];
-  float* Ks = smem;                // [BK][D+1]
-  float* Vs = Ks + BK * (D + 1);   // [BK][D+1]
-  float* Qs = Vs + BK * (D + 1);   // [BQ][D+1]
-  float* dOs = Qs + BQ * (D + 1);  // [BQ][D+1]
-  float* Ps = dOs + BQ * (D + 1);  // [BK][BQ+1]  p^T
-  float* dSs = Ps + BK * (BQ + 1); // [BK][BQ+1]  ds^T
-  float* lse_s = dSs + BK * (BQ + 1);
-  float* dlt_s = lse_s + BQ;
-  constexpr int DPT = D / 16;
+  constexpr int BN = stream_rows<D>(), P = pitch<T, D>();
+  extern __shared__ __align__(16) unsigned char smem[];
+  T* Ks = reinterpret_cast<T*>(smem);  // [BM][P]
+  T* Vs = Ks + BM * P;                 // [BM][P]
+  T* Qs = Vs + BM * P;                 // [2][BN][P]
+  T* dOs = Qs + 2 * BN * P;            // [2][BN][P]
+  float* lse_s = reinterpret_cast<float*>(dOs + 2 * BN * P);  // [2][BN]
+  float* dlt_s = lse_s + 2 * BN;                              // [2][BN]
 
-  const int k0 = blockIdx.x * BK, hh = blockIdx.y, bb = blockIdx.z;
-  const int ty = threadIdx.x >> 4, tx = threadIdx.x & 15;
+  // tiles are the slowest grid axis: with causal masking the heaviest
+  // k tiles (the first) are handed out first
+  const int k0 = blockIdx.z * BM, hh = blockIdx.x, bb = blockIdx.y;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
   const T* qp = (const T*)a.q + bb * a.sq[0] + hh * a.sq[2];
   const T* kp = (const T*)a.k + bb * a.sk[0] + hh * a.sk[2];
   const T* vp = (const T*)a.v + bb * a.sv[0] + hh * a.sv[2];
-  const T* dp_ = (const T*)a.dout + bb * a.sd[0] + hh * a.sd[2];
+  const T* dop = (const T*)a.dout + bb * a.sd[0] + hh * a.sd[2];
   const long long row0 = ((long long)bb * a.H + hh) * a.Tq;
 
-  stage<T, D>(Ks, kp, a.sk[1], k0, a.Tk);
-  stage<T, D>(Vs, vp, a.sv[1], k0, a.Tk);
-  float dk[R][DPT], dv[R][DPT];
-#pragma unroll
-  for (int i = 0; i < R; ++i)
-#pragma unroll
-    for (int c = 0; c < DPT; ++c) dk[i][c] = dv[i][c] = 0.f;
-
-  const int n_q = (a.Tq + BQ - 1) / BQ;
+  const int n_q = (a.Tq + BN - 1) / BN;
   // causal: q tiles whose last row lies before this k tile skip
-  const int qt0 = CAUSAL ? k0 / BQ : 0;
+  const int qt0 = CAUSAL ? k0 / BN : 0;
+  auto load_q_tile = [&](int stage, int qt) {
+    const int q0 = qt * BN;
+    load_rows<T, D, BN>(Qs + stage * BN * P, qp, a.sq[1], q0, a.Tq);
+    load_rows<T, D, BN>(dOs + stage * BN * P, dop, a.sd[1], q0, a.Tq);
+    if (threadIdx.x < 2 * BN) {
+      const int i = threadIdx.x % BN, q = q0 + i;
+      const float* src = threadIdx.x < BN ? a.lse : a.delta;
+      float* dst = (threadIdx.x < BN ? lse_s : dlt_s) + stage * BN + i;
+      cp_async_4(dst, q < a.Tq ? src + row0 + q : src, q < a.Tq);
+    }
+  };
+  // a causal k tile past every query has no work: it stages nothing (no
+  // copy left in flight at exit) and writes zeros
+  if (qt0 < n_q) {
+    load_rows<T, D, BM>(Ks, kp, a.sk[1], k0, a.Tk);
+    load_rows<T, D, BM>(Vs, vp, a.sv[1], k0, a.Tk);
+    load_q_tile(0, qt0);
+  }
+  cp_async_commit();
+
+  // this thread's two k rows
+  const int r[2] = {k0 + 16 * warp + g, k0 + 16 * warp + g + 8};
+  const float sl2 = a.scale * kLog2e;
+  float dk[D / 8][4], dv[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+
   for (int qt = qt0; qt < n_q; ++qt) {
-    const int q0 = qt * BQ;
-    __syncthreads();  // K/V staged; the previous tile's reads finished
-    stage<T, D>(Qs, qp, a.sq[1], q0, a.Tq);
-    stage<T, D>(dOs, dp_, a.sd[1], q0, a.Tq);
-    if (threadIdx.x < BQ) {
-      const int t = q0 + threadIdx.x;
-      lse_s[threadIdx.x] = t < a.Tq ? a.lse[row0 + t] : 0.f;
-      dlt_s[threadIdx.x] = t < a.Tq ? a.delta[row0 + t] : 0.f;
+    const int st = (qt - qt0) & 1, q0 = qt * BN;
+    if (qt + 1 < n_q) {  // the next tile loads while this one computes
+      load_q_tile(st ^ 1, qt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
+    const T* Qt = Qs + st * BN * P;
+    const T* dOt = dOs + st * BN * P;
+    const float* lse_t = lse_s + st * BN;
+    const float* dlt_t = dlt_s + st * BN;
 
-    // transposed tiles: rows are keys (ty + 16 i), columns queries
-    float s[R][R], dp[R][R];
+    // transposed tiles: rows are this warp's keys, columns the queries
+    float s[BN / 8][4], dp[BN / 8][4];
 #pragma unroll
-    for (int i = 0; i < R; ++i)
+    for (int n = 0; n < BN / 8; ++n)
 #pragma unroll
-      for (int j = 0; j < R; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      float kv[R], vv[R], qv[R], ov[R];
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    WarpMma<T>::template abt<D, BN, P>(s, Ks + 16 * warp * P, Qt, lane);
+    WarpMma<T>::template abt<D, BN, P>(dp, Vs + 16 * warp * P, dOt, lane);
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        kv[i] = Ks[(ty + 16 * i) * (D + 1) + d];
-        vv[i] = Vs[(ty + 16 * i) * (D + 1) + d];
-        qv[i] = Qs[(tx + 16 * i) * (D + 1) + d];
-        ov[i] = dOs[(tx + 16 * i) * (D + 1) + d];
-      }
+    for (int n = 0; n < BN / 8; ++n) {
+      const int c = n * 8 + 2 * t;  // this thread's columns c, c + 1
+      const float2 l2 = *reinterpret_cast<const float2*>(lse_t + c);
+      const float2 d2 = *reinterpret_cast<const float2*>(dlt_t + c);
 #pragma unroll
-      for (int i = 0; i < R; ++i)
-#pragma unroll
-        for (int j = 0; j < R; ++j) {
-          s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
-          dp[i][j] = fmaf(ov[j], vv[i], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int kpos = k0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < R; ++j) {
-        const int c = tx + 16 * j, qpos = q0 + c;
+      for (int e = 0; e < 4; ++e) {
+        const int qpos = q0 + c + (e & 1), kpos = r[e >> 1];
         const bool valid = qpos < a.Tq && (!CAUSAL || kpos <= qpos);
-        const float sc = valid ? s[i][j] * a.scale : kNegInf;
-        const float p = expf(sc - lse_s[c]);
-        Ps[(ty + 16 * i) * (BQ + 1) + c] = p;
-        dSs[(ty + 16 * i) * (BQ + 1) + c] = p * (dp[i][j] - dlt_s[c]);
+        const float lse = e & 1 ? l2.y : l2.x, dlt = e & 1 ? d2.y : d2.x;
+        const float p =
+            ex2(valid ? fmaf(s[n][e], sl2, -lse * kLog2e) : kNegInf);
+        s[n][e] = p;
+        dp[n][e] = p * (dp[n][e] - dlt);  // ds
       }
     }
-    __syncthreads();
-
-#pragma unroll 4
-    for (int qq = 0; qq < BQ; ++qq) {
-      float ov[DPT], qv[DPT];
-#pragma unroll
-      for (int c = 0; c < DPT; ++c) {
-        ov[c] = dOs[qq * (D + 1) + tx + 16 * c];
-        qv[c] = Qs[qq * (D + 1) + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const float p = Ps[(ty + 16 * i) * (BQ + 1) + qq];
-        const float ds = dSs[(ty + 16 * i) * (BQ + 1) + qq];
-#pragma unroll
-        for (int c = 0; c < DPT; ++c) {
-          dv[i][c] = fmaf(p, ov[c], dv[i][c]);
-          dk[i][c] = fmaf(ds, qv[c], dk[i][c]);
-        }
-      }
-    }
+    WarpMma<T>::template xb<D, BN, P>(dv, s, dOt, lane);
+    WarpMma<T>::template xb<D, BN, P>(dk, dp, Qt, lane);
+    __syncthreads();  // every warp is done with this stage
   }
 
   T* dkp = (T*)a.dk;
   T* dvp = (T*)a.dv;
 #pragma unroll
-  for (int i = 0; i < R; ++i) {
-    const int t = k0 + ty + 16 * i;
-    if (t >= a.Tk) continue;
-    const long long off = (((long long)bb * a.Tk + t) * a.H + hh) * D;
+  for (int i = 0; i < 2; ++i) {
+    if (r[i] >= a.Tk) continue;
+    const long long off = (((long long)bb * a.Tk + r[i]) * a.H + hh) * D +
+                          2 * t;
 #pragma unroll
-    for (int c = 0; c < DPT; ++c) {
-      dkp[off + tx + 16 * c] = Cvt<T>::from_f(dk[i][c] * a.scale);
-      dvp[off + tx + 16 * c] = Cvt<T>::from_f(dv[i][c]);
+    for (int n = 0; n < D / 8; ++n) {
+      store2<T>(dkp + off + n * 8, dk[n][2 * i] * a.scale,
+                dk[n][2 * i + 1] * a.scale);
+      store2<T>(dvp + off + n * 8, dv[n][2 * i], dv[n][2 * i + 1]);
     }
   }
 }
@@ -321,12 +501,13 @@ template <Which W, typename T, int D, bool C>
 int launch(const BwdArgs& a, int B, cudaStream_t stream) {
   auto kern = W == kDQ ? flash_bwd_dq_kernel<T, D, C>
                        : flash_bwd_dkv_kernel<T, D, C>;
-  const size_t smem = W == kDQ ? dq_smem_bytes<D>() : dkv_smem_bytes<D>();
+  const size_t smem =
+      W == kDQ ? dq_smem_bytes<T, D>() : dkv_smem_bytes<T, D>();
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  const int tiles = W == kDQ ? (a.Tq + BQ - 1) / BQ : (a.Tk + BK - 1) / BK;
-  dim3 grid(tiles, a.H, B);
+  const int tiles = ((W == kDQ ? a.Tq : a.Tk) + BM - 1) / BM;
+  dim3 grid(a.H, B, tiles);
   kern<<<grid, NT, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -347,13 +528,28 @@ int by_d(int D, int causal, const BwdArgs& a, int B, cudaStream_t s) {
   }
 }
 
+// cp.async moves 16 bytes at a time: every row start must be 16-byte
+// aligned, so the pointers and the {b, t, h} strides in bytes
+bool aligned16(const BwdArgs& a, int elem) {
+  const void* ptrs[4] = {a.q, a.k, a.v, a.dout};
+  const long long* strides[4] = {a.sq, a.sk, a.sv, a.sd};
+  for (int i = 0; i < 4; ++i) {
+    if ((uintptr_t)ptrs[i] % 16) return false;
+    for (int j = 0; j < 3; ++j)
+      if (strides[i][j] * elem % 16) return false;
+  }
+  return true;
+}
+
 template <Which W>
 int run(int dtype, int causal, const BwdArgs& a, int B, int D, void* stream) {
   if (B <= 0 || a.H <= 0 || a.Tq <= 0 || a.Tk <= 0) return 0;
   cudaStream_t s = (cudaStream_t)stream;
+  if (dtype != kF32 && dtype != kBF16) return (int)cudaErrorInvalidValue;
+  if (!aligned16(a, dtype == kF32 ? 4 : 2))
+    return (int)cudaErrorMisalignedAddress;
   if (dtype == kF32) return by_d<W, float>(D, causal, a, B, s);
-  if (dtype == kBF16) return by_d<W, __nv_bfloat16>(D, causal, a, B, s);
-  return (int)cudaErrorInvalidValue;
+  return by_d<W, __nv_bfloat16>(D, causal, a, B, s);
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v,
@@ -373,11 +569,12 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
 }  // namespace dl4j
 
 // q/dout [B, Tq, H, D] and k/v [B, Tk, H, D] in `dtype`, addressed
-// through their batch/time/head strides (in elements, D contiguous):
-// strides = {q: b, t, h, k: b, t, h, v: b, t, h, dout: b, t, h}. lse and
-// delta are contiguous [B, H, Tq] fp32. dq is a contiguous
-// [B, Tq, H, D], dk/dv contiguous [B, Tk, H, D], in `dtype`. D must be
-// 32, 64 or 128. Each returns cudaGetLastError() after its launch.
+// through their batch/time/head strides (in elements, D contiguous, every
+// row 16-byte aligned): strides = {q: b, t, h, k: b, t, h, v: b, t, h,
+// dout: b, t, h}. lse and delta are contiguous [B, H, Tq] fp32. dq is a
+// contiguous [B, Tq, H, D], dk/dv contiguous [B, Tk, H, D], in `dtype`.
+// D must be 32, 64 or 128. Each returns cudaGetLastError() after its
+// launch, or the error that kept it from launching.
 extern "C" int dl4j_flash_attention_bwd_dq(
     int dtype, int causal, const void* q, const void* k, const void* v,
     const void* dout, const float* lse, const float* delta, void* dq, int B,

@@ -258,11 +258,16 @@ def _bwd_strides(q, k, v, do):
                                       for i in range(3)))
 
 
-def _contig_last(do):
-    # autograd may hand over a gradient whose head dim is strided; the
-    # kernels read every tensor through its strides but need D
-    # contiguous, so only then is a copy made
-    return do if do.stride(-1) == 1 else do.contiguous()
+def _kernel_layout(t):
+    # the backward kernels read every tensor through its strides but stage
+    # rows with 16-byte copies: D contiguous and every row 16-byte aligned.
+    # Autograd may hand over a gradient whose head dim is strided, and a
+    # view may start off alignment; only then is a copy made
+    es = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * es % 16 == 0 for s in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
@@ -270,7 +275,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     take the plain version."""
     if not K.on_cuda(q, k, v, do, lse, delta):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
-    do = _contig_last(do)
+    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
     _check_bwd(q, k, v, do, lse, delta)
     B, Tq, H, D = q.shape
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
@@ -288,7 +293,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     tensors take the plain version."""
     if not K.on_cuda(q, k, v, do, lse, delta):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
-    do = _contig_last(do)
+    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
     _check_bwd(q, k, v, do, lse, delta)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]

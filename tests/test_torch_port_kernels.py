@@ -184,6 +184,59 @@ def test_plain_flash_causal_matches_masked_softmax():
                                atol=FLASH_ATOL)
 
 
+# ------------------------------- chip_smoke's build reports (text only)
+_RES_USAGE = """\
+Fatbin elf code:
+================
+arch = sm_90a
+Resource usage:
+ Common:
+  GLOBAL:0
+ Function _ZN4dl4j12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64ELb1EEEvNS0_7BwdArgsE:
+  REG:168 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:1024 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function _ZN4dl4j12_GLOBAL__N_120flash_bwd_dkv_kernelI13__nv_bfloat16Li128ELb0EEEvNS0_7BwdArgsE:
+  REG:255 STACK:24 SHARED:0 LOCAL:8 CONSTANT[0]:1024 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+
+_SASS = """\
+\tcode for sm_90a
+\t\tFunction : _ZN4dl4j12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64ELb1EEEvNS0_7BwdArgsE
+        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+        /*0110*/                   HMMA.1688.F32.TF32 R4, R8, R14, R4 ;
+        /*0120*/                   FFMA R1, R2, R3, R1 ;
+\t\tFunction : _ZN4dl4j12_GLOBAL__N_116flash_fwd_kernelIfLi64ELb1ELb1EEEvv
+        /*0100*/                   FFMA R1, R2, R3, R1 ;
+\t\tFunction : wgmma_user
+        /*0100*/                   HGMMA.64x64x16.F32.BF16 R24, gdesc[UR4], R24 ;
+"""
+
+
+def test_res_usage_reads_registers_and_spills():
+    import chip_smoke
+    usage = chip_smoke.res_usage(_RES_USAGE)
+    dq, dkv = usage.values()
+    assert list(usage) == [
+        "_ZN4dl4j12_GLOBAL__N_119flash_bwd_dq_kernelIfLi64ELb1EEEvNS0_"
+        "7BwdArgsE",
+        "_ZN4dl4j12_GLOBAL__N_120flash_bwd_dkv_kernelI13__nv_bfloat16Li128"
+        "ELb0EEEvNS0_7BwdArgsE"]
+    assert (dq["REG"], dq["STACK"], dq["LOCAL"]) == (168, 0, 0)
+    assert (dkv["REG"], dkv["STACK"], dkv["LOCAL"]) == (255, 24, 8)
+    assert dkv["CONSTANT[0]"] == 1024
+    assert chip_smoke._bwd_instances(usage) == {
+        ("dq", "float32", 64, True): list(usage)[0],
+        ("dkv", "bfloat16", 128, False): list(usage)[1]}
+
+
+def test_mma_counts_per_sass_function():
+    import chip_smoke
+    counts = chip_smoke.mma_counts(_SASS)
+    assert list(counts.values()) == [{"HMMA": 2, "HGMMA": 0},
+                                     {"HMMA": 0, "HGMMA": 0},
+                                     {"HMMA": 0, "HGMMA": 1}]
+    assert chip_smoke.mma_counts("no functions here") == {}
+
+
 # --------------------------------------------------- on the card (skip here)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),

@@ -231,16 +231,33 @@ def test_training_wrappers_never_launch_or_build_on_cpu(monkeypatch):
     assert all(n == 0 for n in K.LAUNCHES.values())
 
 
+def test_kernel_layout_copies_only_what_the_kernels_cannot_stage():
+    """The backward kernels stage rows with 16-byte copies: a tensor with
+    D contiguous and 16-byte aligned rows is passed as it is; a strided
+    head dim or a view that starts off alignment is copied."""
+    from deeplearning4j_tpu_torch.kernels.flash_attention import (
+        _kernel_layout)
+    x = torch.zeros(2, 8, 3, 32)
+    assert _kernel_layout(x) is x
+    assert _kernel_layout(x[:, 4:]).data_ptr() == x[:, 4:].data_ptr()
+    for bad in (x.transpose(-1, -2).contiguous().transpose(-1, -2),
+                torch.zeros(x.numel() + 1)[1:].view(x.shape)):
+        out = _kernel_layout(bad)
+        assert out.data_ptr() != bad.data_ptr() and out.is_contiguous()
+        assert torch.equal(out, bad)
+
+
 # --------------------------------------------------- on the card (skip here)
 @pytest.mark.cuda
+@pytest.mark.parametrize("Tq,Tk", [(300, 300), (300, 200), (200, 300)])
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4),
                                         (torch.bfloat16, 2 ** -5)])
-def test_cuda_flash_backward_kernels_match_plain(D, dtype, atol):
+def test_cuda_flash_backward_kernels_match_plain(D, dtype, atol, Tq, Tk):
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     q, k, v, do = (torch.from_numpy(a).to("cuda", dtype)
-                   for a in _flash_case(2, 300, 3, D, 60))
+                   for a in _flash_case(2, Tq, 3, D, 60, Tk))
     for causal in (True, False):
         o, lse = flash_attention_fwd(q, k, v, causal)
         delta = attention_delta(do, o)
