@@ -7,8 +7,9 @@
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
      nvcc (one process per source, all at once) and print the seconds;
-     check with `cuobjdump -sass` that every instance of the two flash
-     backward kernels (fp32 and bf16, D 32/64/128, causal or not) runs
+     check with `cuobjdump -sass` that every instance of the flash
+     kernels (the backward's dQ and dK/dV and the forward's finalize and
+     carry modes; fp32 and bf16, D 32/64/128, causal or not) runs
      tensor-core instructions (HMMA or HGMMA), and print each one's
      registers, stack and local memory (`cuobjdump -res-usage`);
   2. hold each kernel against its plain PyTorch version on the card, in
@@ -19,15 +20,19 @@ Phases, in order:
      port never calls them). Fused Adam runs at the LM's block run (4
      blocks x 16 leaves, 3.16 M elements, one launch) and at the
      long-context LM's (8 blocks, 128 leaves, two launches) and must be
-     bit-equal to its plain version. Phase 6's shapes are checked too:
-     LayerNorm and residual LayerNorm at [16384, 512], the flash
+     bit-equal to its plain version. LayerNorm also runs at a width
+     past a warp's registers ([64, 2304]). Phase 6's shapes are checked
+     too: LayerNorm and residual LayerNorm at [16384, 512], the flash
      forward, dQ and dK/dV at the ring's chunk [8, 512, 8, 64], where
      dQ and dK/dV are also timed, diagonal (causal) and visible, beside
-     SDPA's backward, and at the local attention [8, 2048, 8, 64]; dQ
-     and dK/dV also run at Tq != Tk. The
+     SDPA's backward, and at the local attention [8, 2048, 8, 64],
+     where the causal forward, dQ and dK/dV are timed beside SDPA and
+     its backward; dQ and dK/dV also run at Tq != Tk. The
      carry fold runs at that chunk (a diag fold, a visible fold, a
      chain of the two) and ragged (Tq 300, Tk 200, D 32 and 128); no
-     one PyTorch call computes it, so it has no yardstick;
+     one PyTorch call computes it, so it has no yardstick. The forward
+     (with its backward) and a chain of two carry folds also run on
+     q, k, v views that start off 16-byte alignment;
   3. scoring: `TransformerLM(vocab 512, d_model 256, 4 layers, 8 heads,
      ff x4, max_len 512)` with random weights from a numpy seed loaded
      through `from_jax_params`, `output()` at B=16, T=512 on the card,
@@ -290,6 +295,9 @@ def param_diff(got, want):
 # a backward kernel's mangled name: kind, dtype (f = float), D, causal
 _BWD_KERNEL = re.compile(
     r"flash_bwd_(dq|dkv)_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
+# a forward kernel's: dtype, D, causal (diag in carry mode), carry
+_FWD_KERNEL = re.compile(
+    r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])ELb([01])E")
 # `cuobjdump -sass`: a function's heading; `cuobjdump -res-usage`: a
 # function's heading and, on the next line, its "KEY:value" resources
 _SASS_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)", re.M)
@@ -306,6 +314,21 @@ def _bwd_instances(names):
         if m:
             kind, dt, D, causal = m.groups()
             out[(kind, "float32" if dt == "f" else "bfloat16", int(D),
+                 causal == "1")] = fn
+    return out
+
+
+def _fwd_instances(names):
+    """{(mode, dtype, D, causal): mangled name} of the forward kernel's
+    instances among `names`; mode "fwd" (finalize) or "carry", where
+    causal is the diag mask."""
+    out = {}
+    for fn in names:
+        m = _FWD_KERNEL.search(fn)
+        if m:
+            dt, D, causal, carry = m.groups()
+            out[("carry" if carry == "1" else "fwd",
+                 "float32" if dt == "f" else "bfloat16", int(D),
                  causal == "1")] = fn
     return out
 
@@ -343,39 +366,52 @@ def _cuobjdump(flag: str, lib) -> str:
     return proc.stdout
 
 
+def _sass_rows(lib, instances, prefix):
+    """One row per instance of a library's kernels (`instances` finds
+    them by their mangled names): its tensor-core instructions (HMMA for
+    mma.sync, HGMMA for wgmma) and its registers, stack and local memory
+    (where spills go)."""
+    counts = mma_counts(_cuobjdump("-sass", lib))
+    usage = res_usage(_cuobjdump("-res-usage", lib))
+    rows = []
+    for (kind, dt, D, causal), fn in sorted(instances(counts).items()):
+        use = usage.get(fn, {})
+        rows.append(dict(kernel=prefix + kind, dtype=dt, D=D, causal=causal,
+                         **counts[fn], registers=use.get("REG"),
+                         stack=use.get("STACK"), local=use.get("LOCAL")))
+    return rows
+
+
 def phase_build(report, fails):
     from deeplearning4j_tpu_torch.kernels import build
     t0 = time.perf_counter()
     paths = build.build_all()
     report["build_s"] = time.perf_counter() - t0
     print(f"[build] {sorted(paths)} in {report['build_s']:.2f} s", flush=True)
-    # the backward kernels must run on the tensor cores: every bf16 and
-    # fp32 instance of both has HMMA (mma.sync) or HGMMA (wgmma) in its
-    # SASS; registers, stack and local memory are reported beside
-    lib = paths["flash_attention_bwd"]
-    counts = mma_counts(_cuobjdump("-sass", lib))
-    usage = res_usage(_cuobjdump("-res-usage", lib))
-    rows = []
-    for (kind, dt, D, causal), fn in sorted(_bwd_instances(counts).items()):
-        use = usage.get(fn, {})
-        rows.append(dict(kernel=f"flash_attention_bwd_{kind}", dtype=dt, D=D,
-                         causal=causal, **counts[fn], registers=use.get("REG"),
-                         stack=use.get("STACK"), local=use.get("LOCAL")))
-    report["bwd_sass"] = rows
-    for kind in ("dq", "dkv"):
-        for dt in ("float32", "bfloat16"):
-            mine = [r for r in rows
-                    if r["kernel"].endswith(f"_{kind}") and r["dtype"] == dt]
-            fails.check(len(mine) == 6 and all(
-                r["HMMA"] + r["HGMMA"] > 0 for r in mine),
-                f"SASS of flash_bwd_{kind}_kernel {dt}: want HMMA/HGMMA in "
-                f"all 6 instances (D 32/64/128, causal or not), got "
-                f"{[(r['D'], r['causal'], r['HMMA'], r['HGMMA']) for r in mine]}")
-    for r in rows:
-        print(f"[build] {r['kernel']} {r['dtype']} D={r['D']} causal="
-              f"{r['causal']}: HMMA {r['HMMA']}, HGMMA {r['HGMMA']}, "
-              f"registers {r['registers']}, stack {r['stack']} B, local "
-              f"{r['local']} B", flush=True)
+    # the flash kernels must run on the tensor cores: every bf16 and fp32
+    # instance (D 32/64/128, causal or not) of the backward's two kernels
+    # and of the forward's two modes has HMMA (mma.sync) or HGMMA (wgmma)
+    # in its SASS; registers, stack and local memory are reported beside
+    for key, lib, instances, prefix, kinds in (
+            ("bwd_sass", "flash_attention_bwd", _bwd_instances,
+             "flash_attention_bwd_", ("dq", "dkv")),
+            ("fwd_sass", "flash_attention", _fwd_instances,
+             "flash_attention_", ("fwd", "carry"))):
+        rows = report[key] = _sass_rows(paths[lib], instances, prefix)
+        for kind in kinds:
+            for dt in ("float32", "bfloat16"):
+                mine = [r for r in rows
+                        if r["kernel"] == prefix + kind and r["dtype"] == dt]
+                fails.check(len(mine) == 6 and all(
+                    r["HMMA"] + r["HGMMA"] > 0 for r in mine),
+                    f"SASS of {prefix}{kind} {dt}: want HMMA/HGMMA in all "
+                    f"6 instances (D 32/64/128, causal or not), got "
+                    f"{[(r['D'], r['causal'], r['HMMA'], r['HGMMA']) for r in mine]}")
+        for r in rows:
+            print(f"[build] {r['kernel']} {r['dtype']} D={r['D']} causal="
+                  f"{r['causal']}: HMMA {r['HMMA']}, HGMMA {r['HGMMA']}, "
+                  f"registers {r['registers']}, stack {r['stack']} B, local "
+                  f"{r['local']} B", flush=True)
 
 
 # ---------------------------------------------------- phase 2: kernel checks
@@ -398,17 +434,22 @@ def phase_kernels(device, report, fails, small=False):
     # "ring_chunk": its ring chunk [B, T / P, H, D]
     long_rows, long_d = ((8 * LM_LONG["max_len"], LM_LONG["d_model"])
                          if not small else (128, 64))
+    # "wide": a row wider than a warp keeps in registers (a block a row)
     ln_cases = [("main", main_rows, 256), ("ragged", 1000, 257),
-                ("odd", 37, 33), ("long", long_rows, long_d)]
-    # "long": phase 6's local attention [B, T, H, D], checked only
+                ("odd", 37, 33), ("long", long_rows, long_d),
+                ("wide", 64, 2304)]
+    # "long": phase 6's local attention [B, T, H, D]; "misaligned": q, k
+    # and v are views that start off 16-byte alignment (the wrappers copy
+    # them for the kernels' 16-byte row copies)
     fl_cases = ([("main", 16, 512, 8, 32), ("ragged", 2, 300, 4, 64),
                  ("wide", 2, 300, 2, 128),
                  ("ring_chunk", 8, LM_LONG["max_len"] // SEQ_P, 8, 64),
                  ("long", 8, LM_LONG["max_len"], LM_LONG["n_heads"],
-                  LM_LONG["d_model"] // LM_LONG["n_heads"])]
+                  LM_LONG["d_model"] // LM_LONG["n_heads"]),
+                 ("misaligned", 2, 300, 4, 64)]
                 if not small else
                 [("main", 2, 70, 2, 32), ("ring_chunk", 2, 32, 2, 64),
-                 ("long", 1, 160, 2, 64)])
+                 ("long", 1, 160, 2, 64), ("misaligned", 1, 40, 2, 32)])
     bwd_ragged = ([("ragged_tq_tk", 2, 300, 200, 4, 64),
                    ("ragged_tq_tk", 2, 200, 300, 2, 128)]
                   if not small else [("ragged_tq_tk", 1, 40, 24, 2, 32)])
@@ -461,6 +502,8 @@ def phase_kernels(device, report, fails, small=False):
                             "float32"))
         for case, B, T, H, Dh in fl_cases:
             q, k, v = (rnd((B, T, H, Dh), dt) for _ in range(3))
+            if case == "misaligned":
+                q, k, v = (off_alignment(a) for a in (q, k, v))
             for causal in (True, False):
                 o, lse = fa.flash_attention_fwd(q, k, v, causal)
                 o0, lse0 = fa.flash_attention_plain(q, k, v, causal)
@@ -485,26 +528,12 @@ def phase_kernels(device, report, fails, small=False):
                         device, flush, bwd, bwd_errs, dt_name,
                         ("ring_chunk_diag" if causal
                          else "ring_chunk_visible",)))
-                if case != "main" or not causal:
-                    continue
-                es_ = q.element_size()
-                bthd, bht = B * T * H * Dh, B * H * T
-                pairs_ = B * H * T * (T + 1) / 2     # visible (q, k) pairs
-                qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
-                timings[("flash_attention_fwd", dt_name)] = dict(
-                    shape=[B, T, H, Dh], max_abs_err=e,
-                    ms=timer(device, lambda: fa.flash_attention_fwd(
-                        q, k, v, True), flush=flush),
-                    plain_ms=timer(device, lambda: fa.flash_attention_plain(
-                        q, k, v, True), iters=10, flush=flush),
-                    library_ms=timer(device, lambda:
-                                     F.scaled_dot_product_attention(
-                                         qt, kt, vt, is_causal=True),
-                                     flush=flush),
-                    bound=bound(4 * bthd * es_ + bht * 4, 4.0 * Dh * pairs_,
-                                FLASH_RATE[dt_name]))
-                timings.update(_bwd_timings(device, flush, bwd, bwd_errs,
-                                            dt_name, ()))
+                if causal and case in ("main", "long"):
+                    tag = () if case == "main" else (case,)
+                    timings[("flash_attention_fwd", dt_name, *tag)] = (
+                        _fwd_timing(device, flush, q, k, v, e, dt_name))
+                    timings.update(_bwd_timings(device, flush, bwd, bwd_errs,
+                                                dt_name, tag))
         # the backward kernels alone at Tq != Tk, both ways round
         for case, B, Tq, Tk, H, Dh in bwd_ragged:
             q, do = (rnd((B, Tq, H, Dh), dt) for _ in range(2))
@@ -532,6 +561,37 @@ def phase_kernels(device, report, fails, small=False):
               f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), max_abs_err "
               f"{t['max_abs_err']:.3g}", flush=True)
     return timings
+
+
+def off_alignment(t):
+    """A view holding t's values that starts one element past a 16-byte
+    boundary, so none of its rows is 16-byte aligned."""
+    import torch
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    return view
+
+
+def _fwd_timing(device, flush, q, k, v, err, dt_name):
+    """The causal forward kernel's time on q, k, v beside its plain
+    version and the yardstick, SDPA (o only) at the same shape."""
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    B, T, H, Dh = q.shape
+    bthd, bht = B * T * H * Dh, B * H * T
+    pairs = B * H * T * (T + 1) / 2           # visible (q, k) pairs
+    qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+    return dict(
+        shape=[B, T, H, Dh], max_abs_err=err,
+        ms=timer(device, lambda: fa.flash_attention_fwd(q, k, v, True),
+                 flush=flush),
+        plain_ms=timer(device, lambda: fa.flash_attention_plain(
+            q, k, v, True), iters=10, flush=flush),
+        library_ms=timer(device, lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True), flush=flush),
+        bound=bound(4 * bthd * q.element_size() + bht * 4, 4.0 * Dh * pairs,
+                    FLASH_RATE[dt_name]))
 
 
 def _bwd_checks(bwd, case, dt_name, checks, fails):
@@ -657,6 +717,12 @@ def _carry_checks(device, checks, fails, flush, rnd, dt_name, dt, small):
         qr = rnd((Bq, Tq, Hq, Dq), dt)
         kr, vr = (rnd((Bq, Tk, Hq, Dq), dt) for _ in range(2))
         check("ragged", qr, [(kr, vr, False)], seeded(Bq, Tq, Hq, Dq))
+    # q, k, v as views off 16-byte alignment: a diag fold, then a visible
+    Bq, Tq, _, Hq, Dq = ragged[0]
+    qm, km, vm, km2, vm2 = (off_alignment(rnd((Bq, Tq, Hq, Dq), dt))
+                            for _ in range(5))
+    check("misaligned", qm, [(km, vm, True), (km2, vm2, False)],
+          fresh(Bq, Tq, Hq, Dq))
     es = q.element_size()
     state_bytes = 2 * (2 * B * H * T * 4 + B * H * T * D * 4)  # r + w
     timings = {}
@@ -1104,7 +1170,7 @@ def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
 
 
 # ------------------------------------------------- --profile: time breakdown
-def _profile_summary(prof, wall_ms, top=8):
+def _profile_summary(prof, wall_ms, top=12):
     rows = []
     for ev in prof.key_averages():
         # device-side kernel events only: a CPU op (aten::mm) also

@@ -1,7 +1,8 @@
 // Tensor-core and asynchronous-copy helpers for sm_90a (inline PTX):
 // cp.async with zero fill, ldmatrix, mma.sync for bf16 (m16n8k16) and
 // TF32 (m16n8k8), the hi + lo TF32 split of an fp32 value that 3xTF32
-// products are built from (CUTLASS's OpMultiplyAddFastF32), and ex2.
+// products are built from (CUTLASS's OpMultiplyAddFastF32), the same
+// split into two bf16 values, and ex2.
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 /
 // m16n8k8"), with g = lane / 4 and t = lane % 4:
@@ -128,6 +129,19 @@ __device__ __forceinline__ float ex2(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// two floats x = hi + lo + O(2^-17 |x|), hi and lo both bf16, each pair
+// packed as pack_bf16 packs it: two bf16 products, hi.b + lo.b, carry
+// an fp32 operand to about 16 bits where one bf16 product carries 8
+struct Bf16Pair {
+  uint32_t hi, lo;
+};
+__device__ __forceinline__ Bf16Pair split_bf16(float c0, float c1) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(c0, c1);
+  const float2 hf = __bfloat1622float2(h);
+  return {*reinterpret_cast<const uint32_t*>(&h),
+          pack_bf16(c0 - hf.x, c1 - hf.y)};
 }
 
 }  // namespace dl4j

@@ -6,15 +6,25 @@ Counterpart of `deeplearning4j_tpu/kernels/flash_attention.py`
 `flash_attention` (a `jax.custom_vjp`): the forward `_flash_fwd_kernel`
 :87 in finalize mode (`csrc/flash_attention.cu`), and the backward
 `_flash_bwd_dq_kernel` :265 and `_flash_bwd_dkv_kernel` :307
-(`csrc/flash_attention_bwd.cu`). Each source's note gives its bound and
-its design. `_FlashAttentionFn` is the custom_vjp: the forward kernel
-saves (q, k, v, o, lse), the backward launches the dQ and the dK/dV
-kernels. Unlike the JAX package, the backward takes the kernels at
-every sequence length (its `_PALLAS_BWD_MIN_T` crossover to XLA was
-measured on a TPU). `flash_attention_carry` runs the forward kernel in
-carry mode (the JAX `flash_attention_carry` :245): it folds one K/V
-chunk into a running (m, l, acc) state, the step of the ring attention
-in `parallel/ring.py`.
+(`csrc/flash_attention_bwd.cu`). All three run on the tensor cores
+(`mma.sync`: bf16, and 3xTF32 for fp32) on the tiles of
+`csrc/flash_tiles.cuh`; each source's note gives its bound and its
+design. `_FlashAttentionFn` is the custom_vjp: the forward kernel saves
+(q, k, v, o, lse), the backward launches the dQ and the dK/dV kernels.
+Unlike the JAX package, the backward takes the kernels at every
+sequence length (its `_PALLAS_BWD_MIN_T` crossover to XLA was measured
+on a TPU). `flash_attention_carry` runs the forward kernel in carry mode
+(the JAX `flash_attention_carry` :245): it folds one K/V chunk into a
+running (m, l, acc) state, the step of the ring attention in
+`parallel/ring.py`; in bf16 it carries P as a bf16 hi + lo pair, so the
+fp32 state keeps fp32's accuracy.
+
+Layout: every kernel reads q, k, v (and dO) through their [B, T, H, D]
+strides and stages rows with 16-byte copies, so the head dim must be
+contiguous and every row 16-byte aligned. `_kernel_layout` copies a
+tensor only when it is not (a strided head dim, a view that starts off
+alignment); the projections of the attention layer and the ring's
+sequence shards pass through as they are.
 
 Semantics (the Pallas kernel's): q, k, v [B, T, H, D]; scores
 `(q * 1/sqrt(D)) k^T` in fp32; causal mask `k_pos <= q_pos` and the
@@ -130,11 +140,24 @@ def _check(q, k, v):
     K.dtype_code(q)
 
 
+def _kernel_layout(t):
+    # the kernels read every tensor through its strides but stage
+    # rows with 16-byte copies: D contiguous and every row 16-byte aligned.
+    # Autograd may hand over a gradient whose head dim is strided, and a
+    # view may start off alignment; only then is a copy made
+    es = t.element_size()
+    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and all(s * es % 16 == 0 for s in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def flash_attention_fwd(q, k, v, causal: bool = False):
     """(o, lse). CUDA tensors launch the kernel; CPU tensors take the
     plain version."""
     if not K.on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal)
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
     _check(q, k, v)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
@@ -179,6 +202,7 @@ def flash_attention_carry(q, k, v, m, l, acc, *, diag: bool):
     _check_carry(q, k, v, m, l, acc, diag)
     if not K.on_cuda(q, k, v, m, l, acc):
         return flash_attention_carry_plain(q, k, v, m, l, acc, diag)
+    q, k, v = (_kernel_layout(t) for t in (q, k, v))
     _check(q, k, v)
     for name, t in (("m", m), ("l", l), ("acc", acc)):
         if not t.is_contiguous():
@@ -256,18 +280,6 @@ def _check_bwd(q, k, v, do, lse, delta):
 def _bwd_strides(q, k, v, do):
     return (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, do)
                                       for i in range(3)))
-
-
-def _kernel_layout(t):
-    # the backward kernels read every tensor through its strides but stage
-    # rows with 16-byte copies: D contiguous and every row 16-byte aligned.
-    # Autograd may hand over a gradient whose head dim is strided, and a
-    # view may start off alignment; only then is a copy made
-    es = t.element_size()
-    if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s * es % 16 == 0 for s in t.stride()[:-1])):
-        return t
-    return t.clone(memory_format=torch.contiguous_format)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):

@@ -4,8 +4,12 @@ version, and the autograd functions around them.
 Counterpart of `deeplearning4j_tpu/kernels/layernorm.py` (`layer_norm`,
 `residual_layer_norm`, kernels `_ln_kernel` :55 and
 `_residual_ln_kernel` :67). The CUDA source is `csrc/layernorm.cu`; its
-note gives the bound (device-memory bytes) and the design (one block
-per row, the row staged once in shared memory).
+note gives the bound (device-memory bytes) and the design. Launch
+geometry, chosen in the C entry by the width D: up to 1024 a warp owns a
+row and keeps it in registers (8 warps a block, at most 8 blocks an SM,
+the warps striding over the rows), with 16-byte loads when D and the
+pointers allow them and scalar loads on a ragged width; wider rows, up
+to `MAX_D`, take a block each with the row staged in shared memory.
 
 The backward (`_LayerNormFn`, `_ResidualLayerNormFn`) is
 `ln_bwd_math` in plain PyTorch ops on every device: the JAX custom_vjp
@@ -30,7 +34,7 @@ import torch
 from deeplearning4j_tpu_torch import kernels as K
 from deeplearning4j_tpu_torch.kernels import build
 
-MAX_D = 12288        # the row lives in 48 KB of shared memory
+MAX_D = 12288        # a wide row lives in 48 KB of shared memory
 
 
 # ------------------------------------------------------------ plain versions

@@ -237,6 +237,58 @@ def test_mma_counts_per_sass_function():
     assert chip_smoke.mma_counts("no functions here") == {}
 
 
+_FWD = "_ZN4dl4j12_GLOBAL__N_116flash_fwd_kernelI{}Li{}ELb{}ELb{}EEEvNS0_7FwdArgsE"
+_FWD_F32_CAUSAL = _FWD.format("f", 64, 1, 0)
+_FWD_BF16_CARRY = _FWD.format("13__nv_bfloat16", 128, 0, 1)
+
+_FWD_RES_USAGE = f"""\
+Resource usage:
+ Function {_FWD_F32_CAUSAL}:
+  REG:154 STACK:0 SHARED:0 LOCAL:0 CONSTANT[0]:1032 TEXTURE:0 SURFACE:0 SAMPLER:0
+ Function {_FWD_BF16_CARRY}:
+  REG:232 STACK:16 SHARED:0 LOCAL:16 CONSTANT[0]:1032 TEXTURE:0 SURFACE:0 SAMPLER:0
+"""
+
+_FWD_SASS = f"""\
+\t\tFunction : {_FWD_F32_CAUSAL}
+        /*0100*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;
+\t\tFunction : {_FWD_BF16_CARRY}
+        /*0100*/                   HMMA.16816.F32.BF16 R4, R8, R12, R4 ;
+        /*0110*/                   HMMA.16816.F32.BF16 R4, R8, R14, R4 ;
+        /*0120*/                   HMMA.16816.F32.BF16 R6, R8, R16, R6 ;
+"""
+
+
+def test_fwd_instances_read_the_forward_mangled_names():
+    import chip_smoke
+    usage = chip_smoke.res_usage(_FWD_RES_USAGE)
+    assert chip_smoke._fwd_instances(usage) == {
+        ("fwd", "float32", 64, True): _FWD_F32_CAUSAL,
+        ("carry", "bfloat16", 128, False): _FWD_BF16_CARRY}
+    # neither kernel's pattern takes the other's names
+    assert chip_smoke._bwd_instances(usage) == {}
+    assert chip_smoke._fwd_instances(chip_smoke.res_usage(_RES_USAGE)) == {}
+    # the legacy listing's forward (no mma) is still found, to be failed
+    assert list(chip_smoke._fwd_instances(chip_smoke.mma_counts(_SASS))) == [
+        ("carry", "float32", 64, True)]
+
+
+def test_sass_rows_join_mma_counts_and_resources(monkeypatch):
+    import chip_smoke
+    listings = {"-sass": _FWD_SASS, "-res-usage": _FWD_RES_USAGE}
+    monkeypatch.setattr(chip_smoke, "_cuobjdump",
+                        lambda flag, lib: listings[flag])
+    rows = chip_smoke._sass_rows("lib.so", chip_smoke._fwd_instances,
+                                 "flash_attention_")
+    assert rows == [
+        dict(kernel="flash_attention_carry", dtype="bfloat16", D=128,
+             causal=False, HMMA=3, HGMMA=0, registers=232, stack=16,
+             local=16),
+        dict(kernel="flash_attention_fwd", dtype="float32", D=64,
+             causal=True, HMMA=1, HGMMA=0, registers=154, stack=0,
+             local=0)]
+
+
 # --------------------------------------------------- on the card (skip here)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-5),
