@@ -3,6 +3,8 @@
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain checks
     python3 chip_smoke.py --profile       # torch.profiler breakdown only
+    python3 chip_smoke.py --warmup-trial  # long-context LM: Adam(1e-3)
+                                          # with and without a warmup
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -19,8 +21,9 @@ Phases, in order:
      backward, `torch.optim.Adam(fused=True).step()` — timed only, the
      port never calls them). Fused Adam runs at the LM's block run (4
      blocks x 16 leaves, 3.16 M elements, one launch) and at the
-     long-context LM's (8 blocks, 128 leaves, two launches) and must be
-     bit-equal to its plain version. LayerNorm also runs at a width
+     long-context LM's (8 blocks, 128 leaves, two launches), with fp32
+     and with bf16 gradients (`mixed_bf16`'s), and must be bit-equal to
+     its plain version; both are timed at the LM's run. LayerNorm also runs at a width
      past a warp's registers ([64, 2304]). Phase 6's shapes are checked
      too: LayerNorm and residual LayerNorm at [16384, 512], the flash
      forward, dQ and dK/dV at the ring's chunk [8, 512, 8, 64], where
@@ -48,7 +51,13 @@ Phases, in order:
      and on the CPU from identical params, loss per step and every
      param held card against CPU; (b) 20 timed steps at B=16 on the
      card, the loss must fall; the backward and Adam kernels must have
-     launched;
+     launched; (c) the same under `dtype_policy="mixed_bf16"` (bf16
+     compute on an fp32 master): 3 steps card against CPU, step 0's
+     loss within 1e-2; 20 timed steps on the (b) windows, the loss must
+     fall and end within 5% of (b)'s initial loss of (b)'s final loss,
+     params and Adam's m and v fp32 after it, and every kernel's bf16
+     instance launched (fused Adam's with bf16 gradients) and no fp32
+     one;
   6. sequence-parallel training: the repo's long-context LM config
      (`deeplearning4j_tpu/bench.py:769-773`: vocab 512, d_model 512, 8
      layers, 8 heads, ff x4, max_len 2048) with
@@ -61,8 +70,10 @@ Phases, in order:
      against the local flash attention at [8, 2048, 8, 64], every
      leaf's gradient of one backward, then 3 `fit` steps at B=8, loss
      per step and every param; (c) 10 timed steps each, ring and local: ms/step,
-     tokens/s, peak memory; the loss must fall. Adam runs at 1e-4 here
-     (`LONG_LR` says why);
+     tokens/s, peak memory; the loss must fall; (d) the local arm again
+     under `mixed_bf16`, with (c)'s gates against the fp32 local arm and
+     phase 5's launch and master checks. Adam runs at `LONG_LR` here
+     (its note says why);
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
 to 6, each > 0), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
@@ -127,8 +138,28 @@ ATTN_GRAD_RTOL = 1e-5
 GRAD_RTOL = 1e-4
 
 
-def adam_step_max(lr=1e-3):
-    """lr (1 - b1) / sqrt(1 - b2), the bound on one Adam step above."""
+# mixed_bf16 (phases 5-6): step 0's loss card against CPU (both bf16,
+# with GEMM and softmax sums in another order on each side), and the
+# band of a mixed run's final loss around the fp32 arm's: 5% of the
+# fp32 arm's initial loss (the JAX package's documented band,
+# deeplearning4j_tpu tests/test_dtype_policy.py:170-186,
+# docs/PRECISION.md)
+MIXED = "mixed_bf16"
+MIXED_STEP0_RTOL = 1e-2
+MIXED_BAND = 0.05
+# the kernel instances a mixed_bf16 `fit` must launch, each in bf16
+# (fused Adam's: bf16 gradients onto the fp32 params and moments)
+MIXED_KERNELS = ("layer_norm", "residual_layer_norm", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "fused_adam")
+
+
+def adam_step_max(lr=1e-3, steps=1):
+    """lr (1 - b1) / sqrt(1 - b2), the bound on one Adam step above, at
+    the largest rate of the first `steps` steps (`lr` may be a
+    schedule)."""
+    if hasattr(lr, "value_at"):
+        lr = max(float(lr.value_at(s)) for s in range(steps))
     return lr * 0.1 / 0.001 ** 0.5
 
 
@@ -139,10 +170,12 @@ LM_LONG = dict(vocab=512, d_model=512, n_layers=8, n_heads=8, ff=4,
                max_len=2048)
 SEQ_P = 4
 # Adam's rate for the long-context training: at the zoo's 1e-3 this LM
-# (pre-LN blocks, no final LayerNorm, no warmup) diverges in its first
-# 10 steps, on the ring and locally alike (measured 12.24 -> 36.70 at
-# [8, 2048] on an H100, 10.8 -> 30.4 at [2, 256] on a CPU); at 1e-4 the
-# loss falls
+# (pre-LN blocks, no final LayerNorm) diverges in its first 10 steps, on
+# the ring and locally alike (measured 12.24 -> 36.70 at [8, 2048] on an
+# H100, 10.8 -> 30.4 at [2, 256] on a CPU); at 1e-4 the loss falls. A
+# linear warmup to 1e-3 does not stop it (`--warmup-trial`: with
+# WarmupCosineSchedule(1e-3, W, 40) for W = 5, 10 and 20 the loss climbs
+# once the rate passes about 5e-4, in fp32 and in mixed_bf16)
 LONG_LR = 1e-4
 
 
@@ -256,9 +289,11 @@ def random_lm_params(cfg, seed: int, head_scale: float):
     return params
 
 
-def build_lm(cfg, device, params, sequence_parallel=None, lr=None):
-    """The zoo TransformerLM with `params` loaded; `lr` replaces the
-    learning rate of its Adam(1e-3) on every layer."""
+def build_lm(cfg, device, params, sequence_parallel=None, lr=None,
+             dtype_policy=None):
+    """The zoo TransformerLM with `params` loaded; `lr` (a rate or a
+    schedule) replaces the learning rate of its Adam(1e-3) on every
+    layer; `dtype_policy` goes to `init`."""
     from deeplearning4j_tpu_torch.common.updaters import Adam
     from deeplearning4j_tpu_torch.util.jax_params import from_jax_params
     from deeplearning4j_tpu_torch.zoo.transformer import TransformerLM
@@ -266,7 +301,7 @@ def build_lm(cfg, device, params, sequence_parallel=None, lr=None):
                         n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
                         ff_multiplier=cfg["ff"], max_len=cfg["max_len"],
                         sequence_parallel=sequence_parallel).init(
-                            device=device)
+                            device=device, dtype_policy=dtype_policy)
     if lr is not None:
         for layer in net.layers:
             layer.updater = Adam(lr)
@@ -780,21 +815,27 @@ def _adam_checks(device, checks, fails, flush, rnd, cfg, case, timed):
         checks.append(dict(kernel="fused_adam", case=case, dtype=g_name,
                            shape=[n], leaves=len(shapes), launches=launches,
                            max_abs_err=err, tol=0.0, ok=ok))
-        if g_name != "float32" or not timed:
+        if not timed:
             continue
-        params = [torch.nn.Parameter(t.clone()) for t in p]
-        for q_, g_ in zip(params, g):
-            q_.grad = g_.clone()
-        opt = torch.optim.Adam(params, lr=1e-3,
-                               fused=device.type == "cuda")
-        timings[("fused_adam", g_name)] = dict(
-            shape=[n], max_abs_err=err,
-            ms=timer(device, lambda: fad.adam_update_packed(
-                upd, pa, g, ma, va, step), flush=flush),
-            plain_ms=timer(device, lambda: fad.adam_update_plain(
-                upd, p, g, m, v, step), flush=flush),
-            library_ms=timer(device, opt.step, flush=flush),
-            bound=bound(7 * 4 * n, 10.0 * n, "float32"))
+        # bytes: p, m, v read and written in fp32, the grads read once
+        t = dict(shape=[n], max_abs_err=err,
+                 ms=timer(device, lambda: fad.adam_update_packed(
+                     upd, pa, g, ma, va, step), flush=flush),
+                 plain_ms=timer(device, lambda: fad.adam_update_plain(
+                     upd, p, g, m, v, step), flush=flush),
+                 library_ms=None,
+                 bound=bound((6 * 4 + g[0].element_size()) * n, 10.0 * n,
+                             "float32"))
+        if g_name == "float32":
+            # torch's fused Adam takes grads in the params' dtype only, so
+            # the bf16-grad instance has no one-call yardstick
+            params = [torch.nn.Parameter(t_.clone()) for t_ in p]
+            for q_, g_ in zip(params, g):
+                q_.grad = g_.clone()
+            opt = torch.optim.Adam(params, lr=1e-3,
+                                   fused=device.type == "cuda")
+            t["library_ms"] = timer(device, opt.step, flush=flush)
+        timings[("fused_adam", g_name)] = t
     return timings
 
 
@@ -908,12 +949,77 @@ def _fit_steps(net, X, Y, B):
     return losses
 
 
-def phase_training(device, report, fails, cfg, B_check, n_check, B, n_steps):
-    """(a) card against CPU over n_check steps from identical params;
-    (b) n_steps timed steps on the card, the loss must fall. Returns the
-    launch counts of (b)."""
+def _timed_fit(net, X, Y, B, ctx=None):
+    """One warm step on X[:B], then the rest of X timed, inside `ctx`:
+    ms/step, tokens/s, the losses, peak memory, and the launches (the
+    counts are zeroed just before the timed steps and read just after),
+    by kernel and by kernel and dtype."""
+    import contextlib
+
     import torch
     from deeplearning4j_tpu_torch import kernels as K
+    on_card = net.device.type == "cuda"
+    with ctx or contextlib.nullcontext():
+        _fit_steps(net, X[:B], Y[:B], B)                  # warm
+        if on_card:
+            torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        t0 = time.perf_counter()
+        losses = _fit_steps(net, X[B:], Y[B:], B)
+        wall = time.perf_counter() - t0
+        launches = dict(K.LAUNCHES)
+        by_dtype = dict(sorted(K.LAUNCHES_BY_DTYPE.items()))
+    n = len(losses)
+    return dict(steps=n, wall_s=wall, ms_per_step=wall / n * 1e3,
+                tokens_per_s=B * X.shape[1] * n / wall,
+                loss_first=losses[0], loss_last=losses[-1], losses=losses,
+                peak_mem_gb=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if on_card else None),
+                launches=launches, launches_by_dtype=by_dtype)
+
+
+def _master_is_fp32(net) -> bool:
+    """Params and updater state all fp32 (the mixed policy's master)."""
+    import torch
+    return (all(p.dtype == torch.float32 for p in net.parameters())
+            and all(t.dtype == torch.float32
+                    for lst in net.updater_state.values()
+                    for st in lst.values() for t in st.values()))
+
+
+def _mixed_checks(fails, what, mixed, fp32, net, on_card):
+    """A mixed_bf16 timed arm against its fp32 arm: the loss falls and
+    ends within MIXED_BAND of the fp32 arm's initial loss of the fp32
+    arm's final loss; the master stays fp32; every MIXED_KERNELS bf16
+    instance launched and no fp32 one."""
+    losses = mixed["losses"]
+    fails.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                f"{what} mixed_bf16 loss did not fall: {losses[0]} -> "
+                f"{losses[-1]}")
+    gap = abs(mixed["loss_last"] - fp32["loss_last"])
+    fails.check(gap <= MIXED_BAND * fp32["loss_first"],
+                f"{what} mixed_bf16 final loss {mixed['loss_last']} vs fp32 "
+                f"{fp32['loss_last']}: gap {gap} over {MIXED_BAND} x the "
+                f"fp32 initial loss {fp32['loss_first']}")
+    fails.check(_master_is_fp32(net),
+                f"{what} mixed_bf16: params or Adam state left fp32")
+    if on_card:
+        got = mixed["launches_by_dtype"]
+        missing = [k for k in MIXED_KERNELS if not got.get(f"{k}/bfloat16")]
+        fp32_launches = {k: n for k, n in got.items()
+                         if k.endswith("/float32")}
+        fails.check(not missing and not fp32_launches,
+                    f"{what} mixed_bf16 launches {got}: bf16 instances "
+                    f"missing {missing}, fp32 launched {fp32_launches}")
+    return gap
+
+
+def phase_training(device, report, fails, cfg, B_check, n_check, B, n_steps):
+    """(a) card against CPU over n_check steps from identical params;
+    (b) n_steps timed steps on the card, the loss must fall; (c) both
+    again under mixed_bf16 (step 0's loss card against CPU; the timed
+    arm against (b)). Returns the launch counts of (b) and (c)'s timed
+    steps."""
     params = random_lm_params(cfg, seed=4321, head_scale=1.0)
     X, Y = lm_corpus(cfg, B_check * n_check, seed=5)
     card = build_lm(cfg, device, params)
@@ -934,41 +1040,59 @@ def phase_training(device, report, fails, cfg, B_check, n_check, B, n_steps):
                 f"training params card vs CPU: worst rel Frobenius "
                 f"{worst[0]} at {worst[1]} (tol {TRAIN_PARAM_RTOL}), "
                 f"attn_bk max abs {worst_bk} (tol {bk_tol})")
+    del card, cpu
+
+    # (c, first half) mixed_bf16, card against CPU from the same params
+    m_card = _fit_steps(build_lm(cfg, device, params, dtype_policy=MIXED),
+                        X, Y, B_check)
+    m_cpu = _fit_steps(build_lm(cfg, "cpu", params, dtype_policy=MIXED),
+                       X, Y, B_check)
+    m_step0 = abs(m_card[0] - m_cpu[0]) / abs(m_cpu[0])
+    fails.check(m_step0 <= MIXED_STEP0_RTOL and all(np.isfinite(m_card)),
+                f"mixed_bf16 training step 0 loss card vs CPU rel err "
+                f"{m_step0} (tol {MIXED_STEP0_RTOL}): card {m_card}, CPU "
+                f"{m_cpu}")
 
     X, Y = lm_corpus(cfg, B * (n_steps + 1), seed=6)
-    net = build_lm(cfg, device, params)
-    _fit_steps(net, X[:B], Y[:B], B)                   # warm
-    if device.type == "cuda":
-        torch.cuda.reset_peak_memory_stats()
-    K.reset_launches()
-    t0 = time.perf_counter()
-    losses = _fit_steps(net, X[B:], Y[B:], B)
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
     T = cfg["max_len"] - 1
+    timed = _timed_fit(build_lm(cfg, device, params), X, Y, B)
+    losses = timed["losses"]
     fails.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
                 f"training loss did not fall: {losses[0]} -> {losses[-1]}")
+    net = build_lm(cfg, device, params, dtype_policy=MIXED)
+    mixed = _timed_fit(net, X, Y, B)
+    gap = _mixed_checks(fails, "training", mixed, timed, net,
+                        device.type == "cuda")
+    del net
     report["training"] = dict(
         check=dict(B=B_check, T=T, steps=n_check, loss_card=l_card,
                    loss_cpu=l_cpu, loss_max_rel_err=loss_err,
                    param_worst_rel_frobenius=worst[0],
                    param_worst_at=worst[1], attn_bk_max_abs=worst_bk,
                    card_s=card_s, cpu_s=cpu_s),
-        timed=dict(B=B, T=T, steps=n_steps, wall_s=wall,
-                   ms_per_step=wall / n_steps * 1e3,
-                   tokens_per_s=B * T * n_steps / wall,
-                   loss_first=losses[0], loss_last=losses[-1],
-                   peak_mem_gb=(torch.cuda.max_memory_allocated() / 2 ** 30
-                                if device.type == "cuda" else None),
-                   launches=launches))
+        timed=dict(B=B, T=T, **timed),
+        mixed=dict(check=dict(B=B_check, T=T, steps=n_check,
+                              loss_card=m_card, loss_cpu=m_cpu,
+                              step0_rel_err=m_step0),
+                   timed=dict(B=B, T=T, **mixed),
+                   final_loss_gap_vs_fp32=gap))
     print(f"[training] card vs CPU {n_check} steps at [{B_check}, {T}]: loss "
           f"max rel err {loss_err:.3g}, worst param rel Frobenius "
           f"{worst[0]:.3g} ({worst[1]}), attn_bk max abs {worst_bk:.3g}; "
           f"{n_steps} steps at [{B}, {T}] on {device}: "
-          f"{wall / n_steps * 1e3:.2f} ms/step, "
-          f"{B * T * n_steps / wall:.0f} tokens/s, loss {losses[0]:.4f} -> "
-          f"{losses[-1]:.4f}, launches {launches}", flush=True)
-    return launches
+          f"{timed['ms_per_step']:.2f} ms/step, "
+          f"{timed['tokens_per_s']:.0f} tokens/s, peak "
+          f"{timed['peak_mem_gb']} GB, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, launches {timed['launches']}", flush=True)
+    print(f"[training] mixed_bf16: step 0 card vs CPU rel err "
+          f"{m_step0:.3g}; {n_steps} steps {mixed['ms_per_step']:.2f} "
+          f"ms/step, {mixed['tokens_per_s']:.0f} tokens/s, peak "
+          f"{mixed['peak_mem_gb']} GB, loss {mixed['loss_first']:.4f} -> "
+          f"{mixed['loss_last']:.4f} (fp32 {losses[-1]:.4f}, gap "
+          f"{gap:.4f}), launches by dtype {mixed['launches_by_dtype']}",
+          flush=True)
+    return {k: timed["launches"][k] + mixed["launches"][k]
+            for k in timed["launches"]}
 
 
 # ----------------------------------------- phase 6: sequence-parallel training
@@ -1020,10 +1144,9 @@ def _ring_attention_grads(device, mesh, B, T, H, Dh):
 def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
     """(a) ring (and Ulysses) `output()` in the context against the same
     net's local `output()`; (b) n_check `fit` steps ring against local
-    from identical params; (c) n_steps timed steps of each, the ring
-    loss must fall. Returns the launch counts of the timed ring steps."""
-    import contextlib
-
+    from identical params; (c) n_steps timed steps of each, the loss must
+    fall; (d) the local arm's timed steps under mixed_bf16, held to (c)'s
+    local arm. Returns the launch counts of the timed steps."""
     import torch
     from deeplearning4j_tpu_torch import kernels as K
     from deeplearning4j_tpu_torch.parallel import (
@@ -1095,7 +1218,7 @@ def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
     l_local = _fit_steps(local, X, Y, B)
     loss_err = max(abs(a - b) / abs(b) for a, b in zip(l_ring, l_local))
     worst, worst_bk = param_diff(ring, local)
-    bk_tol = 2 * n_check * adam_step_max(LONG_LR)
+    bk_tol = 2 * n_check * adam_step_max(LONG_LR, n_check)
     fails.check(loss_err <= TRAIN_LOSS_RTOL and all(np.isfinite(l_ring)),
                 f"ring training loss vs local rel err {loss_err} (tol "
                 f"{TRAIN_LOSS_RTOL}): ring {l_ring}, local {l_local}")
@@ -1112,37 +1235,27 @@ def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
                         param_worst_at=worst[1], attn_bk_max_abs=worst_bk)
     del ring, local
 
-    # (c) timed: ring, then local, each after one warm step
+    # (c) timed: ring, then local, each after one warm step; (d) the
+    # local arm under mixed_bf16
     X, Y = lm_corpus(cfg, B * (n_steps + 1), seed=8, T=T)
-    ring_launches = {}
-    for arm in ("ring", "local"):
+    for arm in ("ring", "local", "local_mixed"):
         net = build_lm(cfg, device, params,
                        sequence_parallel="ring" if arm == "ring" else None,
-                       lr=LONG_LR)
-        ctx = (sequence_sharding(mesh) if arm == "ring"
-               else contextlib.nullcontext())
-        with ctx:
-            _fit_steps(net, X[:B], Y[:B], B)
-            if on_card:
-                torch.cuda.reset_peak_memory_stats()
-            K.reset_launches()
-            t0 = time.perf_counter()
-            losses = _fit_steps(net, X[B:], Y[B:], B)
-            wall = time.perf_counter() - t0
-            launches = dict(K.LAUNCHES)
-        fails.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
-                    f"{arm} training loss did not fall: {losses[0]} -> "
-                    f"{losses[-1]}")
-        out[arm] = dict(steps=n_steps, wall_s=wall,
-                        ms_per_step=wall / n_steps * 1e3,
-                        tokens_per_s=B * T * n_steps / wall,
-                        loss_first=losses[0], loss_last=losses[-1],
-                        peak_mem_gb=(torch.cuda.max_memory_allocated()
-                                     / 2 ** 30 if on_card else None),
-                        launches=launches)
-        if arm == "ring":
-            ring_launches = launches
+                       lr=LONG_LR,
+                       dtype_policy=MIXED if arm == "local_mixed" else None)
+        out[arm] = _timed_fit(net, X, Y, B, sequence_sharding(mesh)
+                              if arm == "ring" else None)
+        if arm == "local_mixed":
+            out["mixed_final_loss_gap_vs_local"] = _mixed_checks(
+                fails, "local long-context", out[arm], out["local"], net,
+                on_card)
+        else:
+            losses = out[arm]["losses"]
+            fails.check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+                        f"{arm} training loss did not fall: {losses[0]} -> "
+                        f"{losses[-1]}")
         del net
+    ring_launches = out["ring"]["launches"]
     if on_card:
         want = n_steps * per_fwd
         fails.check(all(ring_launches[k] == want for k in (
@@ -1152,7 +1265,7 @@ def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
             f"ring training launches {ring_launches} (want {want} carry, "
             f"dQ and dK/dV launches)")
     report["sequence_parallel"] = out
-    r, lo = out["ring"], out["local"]
+    r, lo, mx = out["ring"], out["local"], out["local_mixed"]
     print(f"[sequence_parallel] seq={P} ring over [{B}, {T}] on {device}: "
           f"output() vs local {errs['ring']:.3g} (ulysses "
           f"{errs['ulysses']:.3g}); attention vs local "
@@ -1166,7 +1279,15 @@ def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
           f"ms/step {lo['tokens_per_s']:.0f} tok/s peak {lo['peak_mem_gb']} "
           f"GB; ring loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}, "
           f"launches {ring_launches}", flush=True)
-    return ring_launches
+    print(f"[sequence_parallel] local mixed_bf16 over [{B}, {T}]: "
+          f"{mx['ms_per_step']:.2f} ms/step {mx['tokens_per_s']:.0f} tok/s "
+          f"peak {mx['peak_mem_gb']} GB, loss {mx['loss_first']:.4f} -> "
+          f"{mx['loss_last']:.4f} (fp32 local {lo['loss_first']:.4f} -> "
+          f"{lo['loss_last']:.4f}), launches by dtype "
+          f"{mx['launches_by_dtype']}", flush=True)
+    return {k: sum(out[a]["launches"][k] for a in ("ring", "local",
+                                                    "local_mixed"))
+            for k in ring_launches}
 
 
 # ------------------------------------------------- --profile: time breakdown
@@ -1184,11 +1305,33 @@ def _profile_summary(prof, wall_ms, top=12):
             rows.append((ev.key, dev_us / 1e3, ev.count))
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    groups = {}
+    for name, ms, _ in rows:
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
     return dict(wall_ms=wall_ms, device_ms=device_ms,
                 busy_share=device_ms / wall_ms if wall_ms else None,
                 launches=int(sum(r[2] for r in rows)),
+                groups_ms=dict(sorted(groups.items(), key=lambda g: -g[1])),
                 top=[dict(name=n[:90], ms=ms, count=c)
                      for n, ms, c in rows[:top]])
+
+
+def _kernel_group(name: str) -> str:
+    """The part of a step a kernel event belongs to, from its name: the
+    port's own kernels by their entry names, library GEMMs by cuBLAS's
+    and CUTLASS's names, the rest elementwise and reductions."""
+    n = name.lower()
+    for key, group in (("flash_fwd", "flash forward"),
+                       ("flash_bwd_dq", "flash dQ"),
+                       ("flash_bwd_dkv", "flash dK/dV"),
+                       ("ln_warp", "layernorm"), ("ln_block", "layernorm"),
+                       ("adam_kernel", "fused adam")):
+        if key in n:
+            return group
+    if any(k in n for k in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
+        return "gemm"
+    return "other"
 
 
 def _profiled(fn):
@@ -1291,10 +1434,60 @@ def profile_paths(device):
     long.fit(X[:8], Y[:8], batch_size=8, shuffle=False)          # warm
     out[f"training_step_local_8x{T}"] = _profiled(
         lambda: long.fit(X[8:], Y[8:], batch_size=8, shuffle=False))
+    del long
+    # the same two training steps under mixed_bf16
+    X, Y = lm_corpus(LM, 32, seed=6)
+    train = build_lm(LM, device, random_lm_params(LM, 4321, 1.0),
+                     dtype_policy=MIXED)
+    train.fit(X[:16], Y[:16], batch_size=16, shuffle=False)        # warm
+    out["training_step_16x511_mixed"] = _profiled(
+        lambda: train.fit(X[16:], Y[16:], batch_size=16, shuffle=False))
+    del train
+    X, Y = lm_corpus(LM_LONG, 16, seed=8, T=T)
+    long = build_lm(LM_LONG, device, random_lm_params(LM_LONG, 8642, 1.0),
+                    lr=LONG_LR, dtype_policy=MIXED)
+    long.fit(X[:8], Y[:8], batch_size=8, shuffle=False)          # warm
+    out[f"training_step_local_8x{T}_mixed"] = _profiled(
+        lambda: long.fit(X[8:], Y[8:], batch_size=8, shuffle=False))
     for k, v in out.items():
+        groups = ", ".join(f"{g} {ms:.3f}" for g, ms in v["groups_ms"].items())
         print(f"[profile] {k}: wall {v['wall_ms']:.3f} ms, device "
               f"{v['device_ms']:.3f} ms, busy {v['busy_share']:.3f}, "
-              f"launches {v['launches']}", v.get("phases", ""), flush=True)
+              f"launches {v['launches']}; device ms by part: {groups}",
+              v.get("phases", ""), flush=True)
+    return out
+
+
+# ---------------------------------------- --warmup-trial: long-context lr
+def warmup_trial(device, steps=40, warmups=(5, 10, 20)):
+    """The long-context LM's local arm (phase 6's params and windows) at
+    the zoo's Adam(1e-3), constant and under `WarmupCosineSchedule(1e-3,
+    W, steps)` for each W, `steps` steps each at [8, 2048], in fp32 and
+    under mixed_bf16: the loss of every step, its largest value, and
+    whether it ended below where it began."""
+    from deeplearning4j_tpu_torch.common.schedules import WarmupCosineSchedule
+    B, T = 8, LM_LONG["max_len"]
+    params = random_lm_params(LM_LONG, seed=8642, head_scale=1.0)
+    X, Y = lm_corpus(LM_LONG, B * steps, seed=8, T=T)
+    rates = [("adam_1e-3", 1e-3)] + [
+        (f"warmup_cosine_W{w}", WarmupCosineSchedule(1e-3, w, steps))
+        for w in warmups]
+    out = {}
+    for policy in (None, MIXED):
+        for name, lr in rates:
+            net = build_lm(LM_LONG, device, params, lr=lr,
+                           dtype_policy=policy)
+            t0 = time.perf_counter()
+            losses = _fit_steps(net, X, Y, B)
+            key = f"{name}/{policy or 'float32'}"
+            out[key] = dict(losses=losses, first=losses[0],
+                            max=max(losses), last=losses[-1],
+                            fell=bool(losses[-1] < losses[0]),
+                            seconds=time.perf_counter() - t0)
+            print(f"[warmup_trial] {key}: loss {losses[0]:.4f} -> "
+                  f"{losses[-1]:.4f}, max {max(losses):.4f}; every 5th: "
+                  f"{[round(x, 3) for x in losses[::5]]}", flush=True)
+            del net
     return out
 
 
@@ -1401,6 +1594,9 @@ def main(argv):
     t0 = time.perf_counter()
     if "--profile" in argv:
         report, fails = {"profile": profile_paths(device)}, Failures()
+        report["kernels"] = []
+    elif "--warmup-trial" in argv:
+        report, fails = {"warmup_trial": warmup_trial(device)}, Failures()
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

@@ -9,7 +9,11 @@ version on the card.
 
 `LAUNCHES` counts kernel launches per wrapper (plain-version calls do
 not count), so a run can show that its main path went through the
-kernels; `reset_launches()` zeroes it.
+kernels; `LAUNCHES_BY_DTYPE` splits the same launches by the dtype of
+the instance, keyed "<kernel>/<dtype>" (the inputs' dtype; fused Adam's
+is the gradients', its params and moments being fp32). Both are counted
+by `count_launch`, the one call a wrapper makes where it launches;
+`reset_launches()` zeroes both.
 """
 
 from __future__ import annotations
@@ -24,9 +28,20 @@ LAUNCHES = {"layer_norm": 0, "residual_layer_norm": 0,
             "fused_adam": 0}
 
 
+LAUNCHES_BY_DTYPE = {}
+
+
 def reset_launches():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+    LAUNCHES_BY_DTYPE.clear()
+
+
+def count_launch(name: str, dtype: torch.dtype, n: int = 1):
+    """Count `n` launches of kernel `name`'s `dtype` instance."""
+    LAUNCHES[name] += n
+    key = f"{name}/{str(dtype).removeprefix('torch.')}"
+    LAUNCHES_BY_DTYPE[key] = LAUNCHES_BY_DTYPE.get(key, 0) + n
 
 
 # dtype codes shared with csrc/*.cu

@@ -171,7 +171,7 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
                     K.ptr(v), K.ptr(o), K.ptr(lse), B, Tq, Tk, H, D,
                     strides, _scale(D), K.stream_of(q))
     K.check_status("flash_attention_fwd", status)
-    K.LAUNCHES["flash_attention_fwd"] += 1
+    K.count_launch("flash_attention_fwd", q.dtype)
     return o, lse
 
 
@@ -217,7 +217,7 @@ def flash_attention_carry(q, k, v, m, l, acc, *, diag: bool):
         K.ptr(m), K.ptr(l), K.ptr(acc), B, Tq, k.shape[1], H, D, strides,
         _scale(D), K.stream_of(q))
     K.check_status("flash_attention_carry", status)
-    K.LAUNCHES["flash_attention_carry"] += 1
+    K.count_launch("flash_attention_carry", q.dtype)
     return m, l, acc
 
 
@@ -296,7 +296,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
         K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dq), B, Tq, k.shape[1],
         H, D, _bwd_strides(q, k, v, do), _scale(D), K.stream_of(q))
     K.check_status("flash_attention_bwd_dq", status)
-    K.LAUNCHES["flash_attention_bwd_dq"] += 1
+    K.count_launch("flash_attention_bwd_dq", q.dtype)
     return dq
 
 
@@ -316,7 +316,7 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
         K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dk), K.ptr(dv), B, Tq,
         Tk, H, D, _bwd_strides(q, k, v, do), _scale(D), K.stream_of(q))
     K.check_status("flash_attention_bwd_dkv", status)
-    K.LAUNCHES["flash_attention_bwd_dkv"] += 1
+    K.count_launch("flash_attention_bwd_dkv", q.dtype)
     return dk, dv
 
 

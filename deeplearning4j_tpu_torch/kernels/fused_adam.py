@@ -115,4 +115,5 @@ def adam_update_packed(updater: Adam, params: Sequence[torch.Tensor],
                     f32(updater.beta2), f32(1 - updater.beta2),
                     f32(updater.epsilon), n_sm, K.stream_of(params[keep[0]]))
     K.check_status("fused_adam", status)
-    K.LAUNCHES["fused_adam"] += -(-n // MAX_LEAVES)
+    K.count_launch("fused_adam", grads[keep[0]].dtype,
+                   -(-n // MAX_LEAVES))

@@ -120,7 +120,7 @@ def layer_norm_fwd(x, gamma, beta, eps: float = 1e-5):
         return layer_norm_plain(x, gamma, beta, eps)
     _check(x, gamma, beta)
     _, y, mean, rstd = _launch(x, None, gamma, beta, eps)
-    K.LAUNCHES["layer_norm"] += 1
+    K.count_launch("layer_norm", x.dtype)
     return y, mean, rstd
 
 
@@ -130,7 +130,7 @@ def residual_layer_norm_fwd(x, h, gamma, beta, eps: float = 1e-5):
         return residual_layer_norm_plain(x, h, gamma, beta, eps)
     _check(x, gamma, beta, h)
     s, y, mean, rstd = _launch(x, h, gamma, beta, eps)
-    K.LAUNCHES["residual_layer_norm"] += 1
+    K.count_launch("residual_layer_norm", x.dtype)
     return s, y, mean, rstd
 
 

@@ -22,7 +22,11 @@ from typing import Optional
 import torch
 
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, new_param, xavier_
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    Layer,
+    init_weight_,
+    new_param,
+)
 from deeplearning4j_tpu_torch.parallel import (
     current_sequence_mesh,
     sequence_parallel_attention,
@@ -85,9 +89,11 @@ class MultiHeadAttention(Layer):
             m["b" + name[1:]] = getattr(self, "b" + name[1:])
         return m
 
-    def init_weights(self, gen: torch.Generator):
+    def init_weights(self, gen: torch.Generator, owner: Layer = None):
+        """Draw Wq, Wk, Wv, Wo by the `weight_init` of `owner` (a block
+        that holds this attention; this layer by default)."""
         for name in _NAMES:
-            xavier_(getattr(self, name), gen)
+            init_weight_(owner or self, getattr(self, name), gen)
 
     def _project(self, x, name):
         return torch.matmul(x, getattr(self, name)) + getattr(

@@ -3,7 +3,9 @@ an `nn.Module` with JAX-named parameters, a loader for the JAX
 package's per-layer param dicts, and the per-layer training config the
 container reads: `updater` (None: the container's `Sgd(1e-3)` default,
 as in JAX) and the l1/l2 coefficients (only zero is ported). `name` is
-the JAX layer's optional name, used in messages."""
+the JAX layer's optional name, used in messages. `weight_init` and
+`dist` choose how `init_weights` draws the layer's weight matrices
+(`common/weights.py`; Xavier by default, as the zoo configures it)."""
 
 from __future__ import annotations
 
@@ -13,11 +15,15 @@ import numpy as np
 import torch
 from torch import nn
 
+from deeplearning4j_tpu_torch.common.weights import WeightInit, init_weights
+
 
 class Layer(nn.Module):
     name = None
     updater = None
     l1 = l2 = l1_bias = l2_bias = 0.0
+    weight_init = WeightInit.XAVIER
+    dist = None
 
     def jax_param_map(self) -> Dict[str, torch.Tensor]:
         """{JAX param name: this layer's tensor} — the keys the JAX
@@ -48,10 +54,11 @@ def new_param(shape, device, dtype=torch.float32):
                         requires_grad=False)
 
 
-def xavier_(t: torch.Tensor, gen: torch.Generator):
-    """Xavier-normal init drawn on the CPU from `gen` (reproducible across
-    devices), copied into `t`."""
-    fan_in, fan_out = t.shape[0], t.shape[-1]
-    std = (2.0 / (fan_in + fan_out)) ** 0.5
+def init_weight_(layer: Layer, t: torch.Tensor, gen: torch.Generator):
+    """Fill the [fan_in, fan_out] weight `t` by `layer.weight_init`, drawn
+    on the CPU from `gen` (reproducible across devices)."""
+    w = init_weights(gen, t.shape, layer.weight_init, fan_in=t.shape[0],
+                     fan_out=t.shape[-1], distribution=layer.dist,
+                     dtype=t.dtype)
     with torch.no_grad():
-        t.copy_(torch.randn(tuple(t.shape), generator=gen) * std)
+        t.copy_(w)

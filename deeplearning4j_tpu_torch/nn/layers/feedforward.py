@@ -10,7 +10,11 @@ import torch
 import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.common.activations import get_activation
-from deeplearning4j_tpu_torch.nn.layers.base import Layer, new_param, xavier_
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    Layer,
+    init_weight_,
+    new_param,
+)
 
 
 class DenseLayer(Layer):
@@ -25,7 +29,7 @@ class DenseLayer(Layer):
         return {"W": self.W, "b": self.b}
 
     def init_weights(self, gen: torch.Generator):
-        xavier_(self.W, gen)
+        init_weight_(self, self.W, gen)
 
     def pre_output(self, x):
         return torch.matmul(x, self.W) + self.b

@@ -22,7 +22,7 @@ import torch
 from deeplearning4j_tpu_torch.common.activations import get_activation
 from deeplearning4j_tpu_torch.kernels.layernorm import residual_layer_norm
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
-from deeplearning4j_tpu_torch.nn.layers.base import new_param, xavier_
+from deeplearning4j_tpu_torch.nn.layers.base import init_weight_, new_param
 from deeplearning4j_tpu_torch.nn.layers.normalization import LayerNormalization
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
 
@@ -103,9 +103,9 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         return m
 
     def init_weights(self, gen: torch.Generator):
-        self.attn.init_weights(gen)
-        xavier_(self.ff_W1, gen)
-        xavier_(self.ff_W2, gen)
+        self.attn.init_weights(gen, owner=self)
+        init_weight_(self, self.ff_W1, gen)
+        init_weight_(self, self.ff_W2, gen)
 
     def _ffn(self, h):
         h = self.ff_act(torch.matmul(h, self.ff_W1) + self.ff_b1)

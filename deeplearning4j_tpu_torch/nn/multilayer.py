@@ -17,12 +17,26 @@ step. Maximal runs of at least `MIN_RUN` structurally identical layers
 (the LM's blocks; never the output layer) are the JAX package's packed
 runs: an Adam run is ONE fused-Adam update, and so is each Adam layer
 outside a run (the JAX package updates those per leaf with the same
-arithmetic). Updates happen in place.
+arithmetic). Every other rule updates per leaf. Updates happen in
+place.
+
+Dtype policy (`nd/dtype.py`, the JAX `self.dtype`): under a mixed
+policy such as `mixed_bf16` each step makes ONE compute-dtype copy of
+every floating param, outside the differentiated function, and runs
+`fit`'s forward, `score()` and `output()` on those copies through
+`torch.func.functional_call` (the JAX container casts the param tree
+once and differentiates the cast tree, :509-514). So the gradients are
+bf16 (a shared param's too: one copy, one bf16 accumulation), the
+params and the updater state stay the fp32 master, and the updater
+upcasts each gradient (:466-468). Token ids pass uncast (:227-231). The
+output layer sees `cast_output(h)` and `cast_output(y)`, and its params
+are the copies rounded to bf16 and upcast again (:347-350), so the loss
+is fp32; `output()` runs every layer in bf16 and returns fp32.
 
 Not ported yet, and refused rather than ignored: steps_per_execution >
-1, masks, non-zero l1/l2, updater rules other than Sgd and Adam,
-learning-rate schedules. Truncated BPTT and the line-search solvers
-have no setting in the port at all.
+1, masks, non-zero l1/l2, and ring or Ulysses attention under a mixed
+policy. Truncated BPTT and the line-search solvers have no setting in
+the port at all.
 """
 
 from __future__ import annotations
@@ -37,6 +51,8 @@ from deeplearning4j_tpu_torch.common.updaters import Adam, Sgd
 from deeplearning4j_tpu_torch.datasets.iterator import as_iterator
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.kernels.fused_adam import adam_update_packed
+from deeplearning4j_tpu_torch.nd.dtype import DataTypePolicy, resolve_policy
+from deeplearning4j_tpu_torch.parallel import current_sequence_mesh
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     BaseOutputLayerMixin,
     EmbeddingLayer,
@@ -64,11 +80,26 @@ def layer_signature(layer):
     return type(layer).__name__, conf, repr(upd), shapes
 
 
+def _check_policy(policy: DataTypePolicy) -> DataTypePolicy:
+    """The policies the port runs: fp32 master params and fp32 outputs,
+    compute in fp32 or bf16 (the kernels' two dtypes)."""
+    if (policy.param_dtype != torch.float32
+            or policy.output_dtype != torch.float32
+            or policy.compute_dtype not in (torch.float32, torch.bfloat16)):
+        raise NotImplementedError(
+            f"dtype policy {policy.to_dict()} is not ported: the port keeps "
+            f"fp32 params and outputs and computes in float32 or bfloat16")
+    return policy
+
+
 class MultiLayerNetwork(nn.Module):
-    def __init__(self, layers: List[nn.Module], *, device="cuda"):
+    def __init__(self, layers: List[nn.Module], *, device="cuda",
+                 dtype_policy=None):
         super().__init__()
         self.layers = nn.ModuleList(layers)
-        self.dtype = torch.float32     # the fp32 policy (mixed_bf16: later)
+        # DL4J_DTYPE_POLICY env > explicit arg > process default
+        # (the port's container has no configuration object)
+        self.dtype = _check_policy(resolve_policy(dtype_policy))
         self.device = resolve_device(device)
         super().to(self.device)
         self.iteration_count = 0
@@ -97,7 +128,8 @@ class MultiLayerNetwork(nn.Module):
         return layer.updater or Sgd(1e-3)
 
     def init_carries(self, batch: int) -> Dict[str, object]:
-        return {str(i): layer.init_carry(batch, self.dtype, self.device)
+        return {str(i): layer.init_carry(batch, self.dtype.compute_dtype,
+                                         self.device)
                 for i, layer in enumerate(self.layers)
                 if isinstance(layer, BaseRecurrentLayer)}
 
@@ -109,13 +141,17 @@ class MultiLayerNetwork(nn.Module):
         / prefill): recurrent layers run `forward_with_carry` from
         `carries[str(i)]` (their fresh carry when absent). Returns
         (h, new_carries)."""
+        if not isinstance(self.layers[0], EmbeddingLayer):
+            # token ids pass uncast: a bf16 round corrupts ids above 256
+            x = self.dtype.cast_compute(x)
         h = x
         new_carries = {}
         for i, layer in enumerate(self.layers[:upto]):
             if carries is not None and isinstance(layer, BaseRecurrentLayer):
                 carry = carries.get(str(i))
                 if carry is None:
-                    carry = layer.init_carry(h.shape[0], self.dtype,
+                    carry = layer.init_carry(h.shape[0],
+                                             self.dtype.compute_dtype,
                                              self.device)
                 h, new_carries[str(i)] = layer.forward_with_carry(h, carry)
             else:
@@ -128,12 +164,54 @@ class MultiLayerNetwork(nn.Module):
         serving. Returns (h, new_carries)."""
         return self._forward(x, carries)
 
+    @torch.no_grad()
     def output(self, x):
         """Forward pass to the final activation (the JAX `output`, no
-        mask): token ids [B, T] -> [B, T, V] softmax for the LM."""
-        x = torch.as_tensor(x, device=self.device)
-        h, _ = self._forward_core(x)
-        return h.float()
+        mask): token ids [B, T] -> [B, T, V] softmax for the LM, in the
+        output dtype (fp32). Arrays take `fit`'s feature path (float-
+        carried ids are checked and made int64); tensors pass as they
+        are."""
+        x = (x.to(self.device) if isinstance(x, torch.Tensor)
+             else self._features(x))
+        return self.dtype.cast_output(
+            self._policy_call(lambda: self._forward(x)[0]))
+
+    # --------------------------------------------------- the dtype policy
+    def forward(self, fn, *args):
+        """`fn(*args)`: the module call `torch.func.functional_call`
+        makes, so `_policy_call` can run any of the container's own
+        functions with the params swapped for their compute copies."""
+        return fn(*args)
+
+    def _compute_copies(self, requires_grad: bool) -> Dict[str, torch.Tensor]:
+        """One compute-dtype copy of each floating param, keyed by its
+        qualified name (a param shared by two layers is one entry)."""
+        cd = self.dtype.compute_dtype
+        return {n: p.detach().to(cd).requires_grad_(requires_grad)
+                for n, p in self.named_parameters() if p.is_floating_point()}
+
+    def _policy_call(self, fn, *args, copies=None, output_params=False):
+        """`fn(*args)` under the policy. Not mixed: as is, on the fp32
+        params. Mixed: on `copies` (fresh ones without grad when None),
+        installed for the call; with `output_params` the output layer's
+        copies enter upcast to the output dtype, as the loss takes them."""
+        if not self.dtype.is_mixed:
+            return fn(*args)
+        if current_sequence_mesh() is not None and any(
+                getattr(m, "sequence_parallel", None) for m in self.modules()):
+            raise NotImplementedError(
+                "ring and Ulysses attention under a mixed dtype policy are "
+                "not ported yet; train them under float32")
+        if copies is None:
+            copies = self._compute_copies(requires_grad=False)
+        installed = dict(copies)
+        if output_params:
+            prefix = f"layers.{len(self.layers) - 1}."
+            for n, t in copies.items():
+                if n.startswith(prefix):
+                    installed[n] = self.dtype.cast_output(t)
+        return torch.func.functional_call(self, installed, (fn, *args),
+                                          strict=False)
 
     # --------------------------------------------------------------- loss
     def _loss_fn(self, x, y):
@@ -149,7 +227,9 @@ class MultiLayerNetwork(nn.Module):
                 raise NotImplementedError(
                     "l1/l2 regularization is not ported yet")
         h, _ = self._forward(x, upto=len(self.layers) - 1)
-        return out.compute_loss(h, y)
+        # the loss stays in the output dtype (identity when not mixed)
+        h, y = self.dtype.cast_output(h), self.dtype.cast_output(y)
+        return self.dtype.cast_output(out.compute_loss(h, y))
 
     # ------------------------------------------------------------ updates
     def _packed_runs(self) -> List[List[int]]:
@@ -177,19 +257,24 @@ class MultiLayerNetwork(nn.Module):
                               if i not in in_run and layer.jax_param_map()])
 
     @torch.no_grad()
-    def _apply_updates(self, step: int):
-        """One update of every param from its `.grad` (the JAX
-        `_apply_updates`): an Adam group is one fused-Adam call over all
-        its leaves (one kernel launch on the card); any other rule
-        applies per leaf. Grads are upcast to the param dtype."""
+    def _apply_updates(self, step: int, grads=None):
+        """One update of every param (the JAX `_apply_updates`) from
+        `grads` ({id(param): gradient}; None: each param's `.grad`; a
+        param without one gets a zero gradient in the compute dtype): an
+        Adam group is one fused-Adam call over all its leaves (one kernel
+        launch on the card, bf16 gradients onto the fp32 state under
+        mixed_bf16); any other rule applies per leaf. Grads are upcast to
+        the param dtype."""
+        cd = self.dtype.compute_dtype
         for group in self._update_groups():
             updater = self.updater_of(self.layers[group[0]])
             ps, gs, states = [], [], []
             for i in group:
                 for name, p in self.layers[i].jax_param_map().items():
+                    g = p.grad if grads is None else grads.get(id(p))
                     ps.append(p)
-                    gs.append(torch.zeros_like(p) if p.grad is None
-                              else p.grad)
+                    gs.append(torch.zeros_like(p, dtype=cd) if g is None
+                              else g)
                     states.append(self.updater_state[str(i)][name])
             if type(updater) is Adam:
                 adam_update_packed(updater, ps, gs,
@@ -216,27 +301,42 @@ class MultiLayerNetwork(nn.Module):
                 raise ValueError(f"token ids must be in [0, {first.n_in}); "
                                  f"got [{x.min()}, {x.max()}]")
             return torch.as_tensor(x.astype(np.int64), device=self.device)
-        return torch.as_tensor(x, dtype=self.dtype, device=self.device)
-
-    def _labels(self, y) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(y), dtype=self.dtype,
+        return torch.as_tensor(x, dtype=self.dtype.param_dtype,
                                device=self.device)
 
-    def _fit_step(self, x, y):
-        """forward + loss + backward + update on one minibatch; params
-        take gradients for this step only."""
+    def _labels(self, y) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(y), dtype=self.dtype.output_dtype,
+                               device=self.device)
+
+    def _loss_and_grads(self, x, y):
+        """The loss on one minibatch and {id(param): gradient}. fp32: the
+        params take gradients for this call only. Mixed: the gradients
+        of this step's compute copies (bf16), the params untouched."""
+        if self.dtype.is_mixed:
+            copies = self._compute_copies(requires_grad=True)
+            loss = self._policy_call(self._loss_fn, x, y, copies=copies,
+                                     output_params=True)
+            loss.backward()
+            return loss.detach(), {id(p): copies[n].grad
+                                   for n, p in self.named_parameters()
+                                   if n in copies}
         params = list(self.parameters())
         try:
             for p in params:
                 p.requires_grad_(True)
             loss = self._loss_fn(x, y)
             loss.backward()
-            self._apply_updates(self.iteration_count)
+            return loss.detach(), {id(p): p.grad for p in params}
         finally:
             for p in params:
                 p.requires_grad_(False)
                 p.grad = None
-        self.score_value = float(loss.detach())
+
+    def _fit_step(self, x, y):
+        """forward + loss + backward + update on one minibatch."""
+        loss, grads = self._loss_and_grads(x, y)
+        self._apply_updates(self.iteration_count, grads)
+        self.score_value = float(loss)
         self.iteration_count += 1
 
     def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
@@ -270,5 +370,6 @@ class MultiLayerNetwork(nn.Module):
         minibatch's score without one."""
         if dataset is None:
             return self.score_value
-        return float(self._loss_fn(self._features(dataset.features),
-                                   self._labels(dataset.labels)))
+        return float(self._policy_call(
+            self._loss_fn, self._features(dataset.features),
+            self._labels(dataset.labels), output_params=True))

@@ -45,6 +45,7 @@ from deeplearning4j_tpu_torch.serving.paged import (
     blocks_needed,
 )
 from deeplearning4j_tpu_torch.zoo.transformer import (
+    check_decode_policy,
     check_ids,
     get_prefill_bucketed,
     gumbel_noise,
@@ -91,6 +92,7 @@ class PagedDecodeEngine:
         if net.device != self.device:
             raise ValueError(f"net lives on {net.device}, engine asked for "
                              f"{self.device}: move the net with .to()")
+        check_decode_policy(net)
         self.net = net
         self.n_slots = int(n_slots)
         if self.n_slots < 1:

@@ -99,9 +99,9 @@ class PagedKVPool:
             layer = net.layers[i]
             shape = (self.n_blocks, self.block_len, layer.n_heads,
                      layer.n_in // layer.n_heads)
-            self.kv.append(tuple(torch.zeros(shape, dtype=net.dtype,
-                                             device=net.device)
-                                 for _ in range(2)))
+            self.kv.append(tuple(
+                torch.zeros(shape, dtype=net.dtype.compute_dtype,
+                            device=net.device) for _ in range(2)))
         self.allocator = BlockAllocator(self.n_blocks)
 
     @property

@@ -7,7 +7,9 @@ the Gumbel-max draw ``argmax(filtered_logits + g)`` with `g` made on the
 host by a `torch.Generator` seeded from (request seed, emit index), so
 token t of a stream depends only on its seed and t — never on what else
 is batched with it — in `generate()` and in the serving engine alike.
-Greedy decoding is the bit-level contract with the JAX package.
+Greedy decoding is the bit-level contract with the JAX package; sampled
+decoding's is distributional (each token's marginal is the softmax of
+the filtered logits, as `jax.random.categorical` draws it).
 """
 
 from __future__ import annotations
@@ -59,11 +61,14 @@ class TransformerLM:
         out.append(RnnOutputLayer(self.d_model, self.vocab_size))
         return out
 
-    def init(self, seed: Optional[int] = None, *,
-             device="cuda") -> MultiLayerNetwork:
+    def init(self, seed: Optional[int] = None, *, device="cuda",
+             dtype_policy=None) -> MultiLayerNetwork:
         """A net with Xavier-normal weights drawn from a CPU
         `torch.Generator` seeded with `seed` (not the JAX package's
-        threefry draws: load those with `util.jax_params.from_jax_params`)."""
+        threefry draws: load those with `util.jax_params.from_jax_params`).
+        `dtype_policy` (a `nd.dtype.DataTypePolicy`, a preset name such
+        as "mixed_bf16", or None) goes to the container, where
+        ``DL4J_DTYPE_POLICY`` overrides it."""
         gen = torch.Generator().manual_seed(self.seed if seed is None
                                             else int(seed))
         layers = self.layers()
@@ -71,7 +76,17 @@ class TransformerLM:
             layer.updater = Adam(1e-3)
             if hasattr(layer, "init_weights"):
                 layer.init_weights(gen)
-        return MultiLayerNetwork(layers, device=device)
+        return MultiLayerNetwork(layers, device=device,
+                                 dtype_policy=dtype_policy)
+
+
+def check_decode_policy(net):
+    """Decoding (generate() and serving) runs the fp32 policy only;
+    mixed serving is not ported yet and is refused, not ignored."""
+    if net.dtype.is_mixed:
+        raise NotImplementedError(
+            f"decoding under the {net.dtype.name} dtype policy is not "
+            f"ported yet; decode a float32 net")
 
 
 def check_cache_budget(net, prompt_len: int, n_tokens: int):
@@ -170,6 +185,7 @@ def generate(net: MultiLayerNetwork, prompt_ids, n_tokens: int, *,
     prompt_np = np.asarray(prompt_ids).astype(np.int64)
     if prompt_np.ndim != 2 or prompt_np.shape[1] == 0:
         raise ValueError(f"prompt_ids must be [B, T>0]; got {prompt_np.shape}")
+    check_decode_policy(net)
     B, P = prompt_np.shape
     vocab = net.layers[-1].n_out
     check_ids(prompt_np, vocab)

@@ -36,7 +36,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "common.losses", "datasets.iterator", "nn.multilayer",
                 "zoo.transformer", "serving.engine", "serving.server",
                 "util.jax_params", "parallel.mesh", "parallel.context",
-                "parallel.ring", "parallel.ulysses"):
+                "parallel.ring", "parallel.ulysses", "common.schedules",
+                "common.activations", "common.weights",
+                "common.distributions", "nd.dtype"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 

@@ -142,7 +142,7 @@ def test_all_masked_loss_divides_by_one_and_aliases():
     assert isinstance(get_loss("negativeloglikelihood"),
                       LossNegativeLogLikelihood)
     with pytest.raises(ValueError):
-        get_loss("hinge")
+        get_loss("no_such_loss")
 
 
 # --------------------------------------------------------------- iterator
@@ -279,8 +279,10 @@ def test_fit_refuses_what_is_not_ported():
         net.fit(x + V, y)                         # and in range
     with pytest.raises(NotImplementedError):
         net.fit(DataSet(x, y, labels_mask=np.ones(x.shape, np.float32)))
+    # a learning rate is a number or a `Schedule`; another object that
+    # happens to have `value_at` is refused
     net.layers[-1].updater = Adam(learning_rate=_Schedule())
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError):
         net.fit(x, y)
     assert net.score(DataSet(x, y)) > 0
 
