@@ -3,6 +3,7 @@
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain checks
     python3 chip_smoke.py --profile       # torch.profiler breakdown only
+                                          # (with a restore + a fit step)
     python3 chip_smoke.py --warmup-trial  # long-context LM: Adam(1e-3)
                                           # with and without a warmup
 
@@ -74,8 +75,27 @@ Phases, in order:
      under `mixed_bf16`, with (c)'s gates against the fp32 local arm and
      phase 5's launch and master checks. Adam runs at `LONG_LR` here
      (its note says why);
+  7. the ModelSerializer bridge (`util/serializer.py`): (a) the net of
+     phase 3's LM built from the JAX-written `configuration.json`
+     (tests/fixtures/bridge/lm_config.json), whose `to_dict()` and text
+     it must write back unchanged; (b) phase 3's params, 3 `fit` steps at
+     B=8 (T = 511), `write_model` and `restore_model(device="cuda")`:
+     params, Adam's m and v and the counters bit-equal, `output()` at
+     [16, 512] bit-equal, greedy `generate()` of 4 prompts x 32 tokens
+     token-equal, then 3 more steps on both nets with equal losses and
+     params (bit for bit; else within TRAIN_LOSS_RTOL and GRAD_RTOL,
+     naming the kernels that are not deterministic); the zip's bytes
+     and the write and restore seconds are printed; (c) the same from
+     the JAX `mixed_bf16` configuration: the restored policy is mixed,
+     the master fp32, and the steps launch each kernel's bf16 instance
+     and no fp32 one; (d) the JAX-written zip of a small LM
+     (tests/fixtures/bridge/lm_small.zip) restored on the card:
+     `output()` within OUTPUT_ATOL of JAX's stored probabilities, greedy
+     tokens equal to JAX's, and one more step from JAX's Adam state
+     within GOLDEN_LOSS_ATOL in loss and GOLDEN_SUM_RTOL in each leaf's
+     sum and sum of squares;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 6, each > 0), the card's name and power limit, and last
+to 7, each > 0), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result.
 """
@@ -1290,6 +1310,318 @@ def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
             for k in ring_launches}
 
 
+# ---------------------------------------------------------- phase 7: bridge
+BRIDGE = os.path.join(HERE, "tests", "fixtures", "bridge")
+# (d): the JAX-written zip's next step, card against JAX: the loss to
+# this absolute difference, and each leaf's float64 sum and sum of
+# squares to this relative one; `attn_bk` (whose gradient is zero up to
+# rounding, so each side takes its own Adam noise step) to the bound
+# that two steps of at most `adam_step_max()` each allow
+GOLDEN_LOSS_ATOL = 1e-4
+GOLDEN_SUM_RTOL = 1e-4
+
+
+def _trees_equal(a, b) -> bool:
+    """Two nested {key: array} trees with the same keys and bit-equal
+    arrays."""
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_trees_equal(a[k], b[k]) for k in a)
+    return np.array_equal(a, b)
+
+
+def _nondeterministic_kernels(device, cfg, B, T):
+    """Each kernel of phase 7's fp32 path run twice on the same inputs at
+    the path's shapes: the names of those whose two results differ."""
+    import torch
+    from deeplearning4j_tpu_torch.common.updaters import Adam
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    from deeplearning4j_tpu_torch.kernels import fused_adam as fad
+    from deeplearning4j_tpu_torch.kernels import layernorm as ln
+    gen = torch.Generator().manual_seed(3)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen).to(device)
+    D, H = cfg["d_model"], cfg["n_heads"]
+    x, h, g, b = rnd(B * T, D), rnd(B * T, D), rnd(D), rnd(D)
+    q, k, v, do = (rnd(B, T, H, D // H) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    bwd = (q, k, v, do, lse, fa.attention_delta(do, o), True)
+    shapes = block_shapes(cfg)
+    p0, g0, m0 = ([rnd(*s) * 0.05 for s in shapes] for _ in range(3))
+    v0 = [rnd(*s).abs() * 1e-4 for s in shapes]
+
+    def adam():
+        p, m, v = ([t.clone() for t in ts] for ts in (p0, m0, v0))
+        fad.adam_update_packed(Adam(1e-3), p, g0, m, v, 9)
+        return p + m + v
+    runs = {
+        "layer_norm": lambda: ln.layer_norm_fwd(x, g, b),
+        "residual_layer_norm": lambda: ln.residual_layer_norm_fwd(x, h, g,
+                                                                  b),
+        "flash_attention_fwd": lambda: fa.flash_attention_fwd(q, k, v, True),
+        "flash_attention_bwd_dq": lambda: (fa.flash_attention_bwd_dq(*bwd),),
+        "flash_attention_bwd_dkv": lambda: fa.flash_attention_bwd_dkv(*bwd),
+        "fused_adam": adam,
+    }
+    return [name for name, fn in runs.items()
+            if not all(torch.equal(a, c) for a, c in zip(fn(), fn()))]
+
+
+def _round_trip(device, fails, tag, conf_text, params, X, Y, B, n_steps,
+                tmp):
+    """Build a net from `conf_text` (its `to_dict()` must equal the
+    text's), load `params`, fit `n_steps` at B, write the zip and restore
+    it on `device`; params, updater state and counters must be bit-equal.
+    Returns (source, restored, row of numbers)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.jax_params import (
+        from_jax_params, to_jax_params, to_jax_updater_state)
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    conf = MultiLayerConfiguration.from_json(conf_text)
+    fails.check(conf.to_dict() == json.loads(conf_text)
+                and conf.to_json(indent=2) == conf_text,
+                f"bridge {tag}: the configuration does not write back the "
+                f"JAX text")
+    src = from_jax_params(MultiLayerNetwork(conf, device=device), params)
+    losses = _fit_steps(src, X[:B * n_steps], Y[:B * n_steps], B)
+    path = os.path.join(tmp, f"{tag}.zip")
+    t0 = time.perf_counter()
+    ModelSerializer.write_model(src, path)
+    write_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    dst = ModelSerializer.restore_model(path, device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state_equal = (_trees_equal(to_jax_params(dst), to_jax_params(src))
+                   and _trees_equal(to_jax_updater_state(dst),
+                                    to_jax_updater_state(src)))
+    counts = ((dst.iteration_count, dst.epoch_count)
+              == (src.iteration_count, src.epoch_count) == (n_steps,
+                                                            n_steps))
+    fails.check(state_equal and counts,
+                f"bridge {tag}: restored params/m/v bit-equal {state_equal}"
+                f", counters {(dst.iteration_count, dst.epoch_count)} vs "
+                f"{(src.iteration_count, src.epoch_count)}")
+    return src, dst, dict(zip_bytes=os.path.getsize(path), write_s=write_s,
+                          restore_s=restore_s, losses_before=losses,
+                          state_bit_equal=state_equal)
+
+
+def _resume_pair(device, fails, tag, src, dst, X, Y, B, cfg):
+    """The same steps on the source net and on the restored one: equal
+    losses and params, bit for bit where the kernels are deterministic,
+    else within TRAIN_LOSS_RTOL and GRAD_RTOL, naming the kernels that
+    are not."""
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    la = _fit_steps(src, X, Y, B)
+    lb = _fit_steps(dst, X, Y, B)
+    pa, pb = to_jax_params(src), to_jax_params(dst)
+    row = dict(losses_source=la, losses_restored=lb,
+               bit_equal=la == lb and _trees_equal(pa, pb))
+    if not row["bit_equal"]:
+        loss_err = max(abs(a - b) / abs(a) for a, b in zip(la, lb))
+        worst, worst_bk = param_diff(dst, src)
+        bk_tol = 2 * len(la) * adam_step_max()
+        row.update(loss_rel_err=loss_err, param_worst_rel=worst[0],
+                   param_worst_at=worst[1], attn_bk_max_abs=worst_bk,
+                   nondeterministic=_nondeterministic_kernels(
+                       device, cfg, B, X.shape[1]))
+        fails.check(loss_err <= TRAIN_LOSS_RTOL and worst[0] <= GRAD_RTOL
+                    and worst_bk <= bk_tol,
+                    f"bridge {tag}: resumed steps differ: loss rel err "
+                    f"{loss_err}, worst param rel {worst}, attn_bk max abs "
+                    f"{worst_bk} (tol {bk_tol}); kernels not deterministic: "
+                    f"{row['nondeterministic']}")
+    return row
+
+
+def check_jax_fixture(device, fails):
+    """(d) The JAX-written zip and golden (tests/fixtures/bridge) on
+    `device`: `output()` on the stored ids within OUTPUT_ATOL of JAX's
+    probabilities, greedy tokens equal, and one more `fit` step from
+    JAX's Adam state: the loss within GOLDEN_LOSS_ATOL, each leaf's sum
+    and sum of squares within GOLDEN_SUM_RTOL (attn_bk: the Adam-noise
+    bound). Returns (row, launches of the net's calls)."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo.transformer import generate
+    g = np.load(os.path.join(BRIDGE, "lm_small_golden.npz"))
+    net = ModelSerializer.restore_model(os.path.join(BRIDGE, "lm_small.zip"),
+                                        device=device)
+    K.reset_launches()
+    err = (net.output(g["ids"]).cpu() - torch.from_numpy(g["probs"])
+           ).abs().max().item()
+    tokens = generate(net, g["prompts"], g["tokens"].shape[1],
+                      temperature=0)
+    V = net.layers[-1].n_out
+    net.fit(g["step_x"], np.eye(V, dtype=np.float32)[g["step_y"]],
+            batch_size=len(g["step_x"]), shuffle=False)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    loss_err = abs(net.score_value - float(g["loss"]))
+    bk_step = 2 * adam_step_max()          # each side's step at most one
+    worst, worst_bk = (0.0, ""), (0.0, "")
+    for lk, lp in to_jax_params(net).items():
+        for name, a in lp.items():
+            a = a.astype(np.float64)
+            s, ss = a.sum(), (a * a).sum()
+            s0, ss0 = float(g[f"sum/{lk}/{name}"]), float(
+                g[f"sumsq/{lk}/{name}"])
+            if name == "attn_bk":
+                # sum: n steps of bk_step; sum of squares: bk_step times
+                # sum |a + a0| <= sqrt(n ss) + sqrt(n ss0)
+                n = a.size
+                r = max(abs(s - s0) / (n * bk_step), abs(ss - ss0) / (
+                    bk_step * (np.sqrt(n * ss) + np.sqrt(n * ss0))))
+                worst_bk = max(worst_bk, (float(r), f"{lk}/{name}"))
+                continue
+            r = max(abs(s - s0) / abs(s0), abs(ss - ss0) / abs(ss0))
+            worst = max(worst, (float(r), f"{lk}/{name}"))
+    tokens_equal = bool(np.array_equal(tokens, g["tokens"]))
+    fails.check(err <= OUTPUT_ATOL, f"bridge JAX zip: output() max_abs_err "
+                f"{err} vs JAX (tol {OUTPUT_ATOL})")
+    fails.check(tokens_equal, f"bridge JAX zip: greedy tokens {tokens} vs "
+                f"JAX {g['tokens']}")
+    fails.check(net.iteration_count == int(g["iteration_count"])
+                and loss_err <= GOLDEN_LOSS_ATOL,
+                f"bridge JAX zip: next step loss {net.score_value} vs JAX "
+                f"{float(g['loss'])} (tol {GOLDEN_LOSS_ATOL}), iteration "
+                f"{net.iteration_count}")
+    fails.check(worst[0] <= GOLDEN_SUM_RTOL and worst_bk[0] <= 1.0,
+                f"bridge JAX zip: leaf sums after the step: worst rel "
+                f"{worst} (tol {GOLDEN_SUM_RTOL}), attn_bk over its bound "
+                f"{worst_bk}")
+    return dict(output_max_abs_err=err, tokens_equal=tokens_equal,
+                loss=net.score_value, loss_jax=float(g["loss"]),
+                loss_abs_err=loss_err, leaf_sum_worst_rel=worst[0],
+                leaf_sum_worst_at=worst[1], attn_bk_share_of_bound=worst_bk[0],
+                greedy_margin_jax=float(g["margin"])), launches
+
+
+def phase_bridge(device, report, fails, small=False):
+    """The ModelSerializer bridge on `device`: (a) the net from the JAX
+    `configuration.json` of the smoke LM (phase 3's config); (b) phase
+    3's params, 3 `fit` steps, write, restore, bit-equal state,
+    `output()` and greedy decoding, then 3 more steps on both; (c) the
+    same from the mixed_bf16 configuration, bf16 kernels only; (d) the
+    JAX-written zip against JAX's golden. Returns the launches of
+    (b)-(d), each counted from zero just before it."""
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.zoo.transformer import (
+        TransformerLM, generate)
+    if small:
+        cfg, B, n, T_out, n_prompts, n_tok = (
+            dict(LM, n_layers=2, max_len=128), 2, 2, 40, 2, 8)
+        lm = TransformerLM(cfg["vocab"], d_model=cfg["d_model"],
+                           n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
+                           ff_multiplier=cfg["ff"], max_len=cfg["max_len"])
+        conf = lm.conf()
+        text = conf.to_json(indent=2)
+        conf.dtype_policy = MIXED
+        text_mixed = conf.to_json(indent=2)
+    else:
+        cfg, B, n, T_out, n_prompts, n_tok = LM, 8, 3, 512, 4, 32
+        with open(os.path.join(BRIDGE, "lm_config.json")) as f:
+            text = f.read()
+        with open(os.path.join(BRIDGE, "lm_config_mixed_bf16.json")) as f:
+            text_mixed = f.read()
+    params = random_lm_params(cfg, seed=1234, head_scale=4.0)
+    X, Y = lm_corpus(cfg, 2 * B * n, seed=12)
+    launches = {k: 0 for k in KERNEL_META}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts.get(k, 0)
+    rows = {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        # (a) + (b)
+        K.reset_launches()
+        src, dst, row = _round_trip(device, fails, "fp32", text, params, X,
+                                    Y, B, n, tmp)
+        rng = np.random.default_rng(13)
+        ids = rng.integers(0, cfg["vocab"], (16 if not small else 2, T_out))
+        out_equal = bool(torch.equal(src.output(ids), dst.output(ids)))
+        prompts = rng.integers(0, cfg["vocab"], (n_prompts, 64 if not small
+                                                 else 12))
+        tok_equal = bool(np.array_equal(
+            generate(src, prompts, n_tok, temperature=0),
+            generate(dst, prompts, n_tok, temperature=0)))
+        fails.check(out_equal, "bridge fp32: output() of the restored net "
+                    "is not bit-equal")
+        fails.check(tok_equal, "bridge fp32: greedy tokens of the restored "
+                    "net differ")
+        row.update(output_bit_equal=out_equal, greedy_tokens_equal=tok_equal,
+                   resume=_resume_pair(device, fails, "fp32", src, dst,
+                                       X[B * n:], Y[B * n:], B, cfg))
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        add(K.LAUNCHES)
+        rows["fp32"] = row
+        del src, dst
+        # (c) mixed_bf16
+        K.reset_launches()
+        src, dst, row = _round_trip(device, fails, "mixed_bf16", text_mixed,
+                                    params, X, Y, B, n, tmp)
+        fails.check(src.dtype.name == dst.dtype.name == MIXED,
+                    f"bridge mixed: policies {src.dtype.name}, "
+                    f"{dst.dtype.name}")
+        row["resume"] = _resume_pair(device, fails, "mixed_bf16", src, dst,
+                                     X[B * n:], Y[B * n:], B, cfg)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        by_dtype = dict(sorted(K.LAUNCHES_BY_DTYPE.items()))
+        add(K.LAUNCHES)
+        fails.check(_master_is_fp32(src) and _master_is_fp32(dst),
+                    "bridge mixed: params or Adam state left fp32")
+        if device.type == "cuda":
+            missing = [k for k in MIXED_KERNELS
+                       if not by_dtype.get(f"{k}/bfloat16")]
+            f32 = {k: v for k, v in by_dtype.items()
+                   if k.endswith("/float32")}
+            fails.check(not missing and not f32,
+                        f"bridge mixed: launches {by_dtype}: bf16 instances "
+                        f"missing {missing}, fp32 launched {f32}")
+        row["launches_by_dtype"] = by_dtype
+        rows["mixed_bf16"] = row
+        del src, dst
+    # (d) the JAX-written zip
+    rows["jax_zip"], counts = check_jax_fixture(device, fails)
+    add(counts)
+    report["bridge"] = dict(B=B, T=X.shape[1], steps=n, **rows,
+                            launches=launches)
+    for tag in ("fp32", "mixed_bf16"):
+        r = rows[tag]
+        print(f"[bridge] {tag}: zip {r['zip_bytes']} bytes, write "
+              f"{r['write_s']:.3f} s, restore {r['restore_s']:.3f} s on "
+              f"{device}; state bit-equal {r['state_bit_equal']}, resumed "
+              f"steps bit-equal {r['resume']['bit_equal']} (losses "
+              f"{r['resume']['losses_source']} vs "
+              f"{r['resume']['losses_restored']})", flush=True)
+    r = rows["fp32"]
+    print(f"[bridge] fp32: output() bit-equal {r['output_bit_equal']}, "
+          f"greedy tokens equal {r['greedy_tokens_equal']}; mixed launches "
+          f"by dtype {rows['mixed_bf16']['launches_by_dtype']}", flush=True)
+    d = rows["jax_zip"]
+    print(f"[bridge] JAX zip: output() max_abs_err {d['output_max_abs_err']:.3g}"
+          f", tokens equal {d['tokens_equal']}, next step loss "
+          f"{d['loss']:.6f} vs JAX {d['loss_jax']:.6f}, leaf sums worst rel "
+          f"{d['leaf_sum_worst_rel']:.3g} ({d['leaf_sum_worst_at']}), "
+          f"attn_bk {d['attn_bk_share_of_bound']:.3g} of its bound; "
+          f"launches {launches}", flush=True)
+    return launches
+
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=12):
     rows = []
@@ -1391,8 +1723,9 @@ def profile_paths(device):
     (3) 32 decode dispatches of the paged engine with 8 active slots,
     (4) one `fit` step (Adam) on [16, 511] windows, with the step's
     parts timed apart (`_train_step_phases`), and (5) one long-context
-    `fit` step at [8, 2048] through the 4-way ring and (6) locally.
-    Per path: host wall ms, summed device ms of the kernels seen (one
+    `fit` step at [8, 2048] through the 4-way ring and (6) locally,
+    and (7) `restore_model` of the LM's zip followed by one `fit` step
+    at [8, 511]. Per path: host wall ms, summed device ms of the kernels seen (one
     stream, so kernels do not overlap), busy share = device / wall,
     launches, and the kernels with the most device time."""
     from deeplearning4j_tpu_torch.serving import PagedDecodeEngine
@@ -1449,6 +1782,20 @@ def profile_paths(device):
     long.fit(X[:8], Y[:8], batch_size=8, shuffle=False)          # warm
     out[f"training_step_local_8x{T}_mixed"] = _profiled(
         lambda: long.fit(X[8:], Y[8:], batch_size=8, shuffle=False))
+    # (7) the bridge: restore the smoke LM's zip, then one `fit` step
+    import tempfile
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    X, Y = lm_corpus(LM, 16, seed=6)
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        path = os.path.join(tmp, "lm.zip")
+        ModelSerializer.write_model(
+            build_lm(LM, device, random_lm_params(LM, 1234, 4.0)), path)
+        ModelSerializer.restore_model(path, device=device).fit(
+            X[:8], Y[:8], batch_size=8, shuffle=False)          # warm
+        out["bridge_restore_and_step_8x511"] = _profiled(
+            lambda: ModelSerializer.restore_model(path, device=device).fit(
+                X[8:], Y[8:], batch_size=8, shuffle=False))
     for k, v in out.items():
         groups = ", ".join(f"{g} {ms:.3f}" for g, ms in v["groups_ms"].items())
         print(f"[profile] {k}: wall {v['wall_ms']:.3f} ms, device "
@@ -1557,6 +1904,9 @@ def run(device, *, small=False, kernels_only=False):
                    *((2, 2, 3) if small else (8, 3, 10)))
         for k in launches:
             launches[k] += (l6 or {}).get(k, 0)
+        l7 = phase("bridge", phase_bridge, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l7 or {}).get(k, 0)
         for k, n in launches.items():
             fails.check(n > 0, f"kernel {k} never launched on the main path")
     kernels = []

@@ -1,8 +1,8 @@
 """PyTorch/CUDA port of deeplearning4j_tpu (Hopper, sm_90a).
 
-Mirrors the JAX package's layout (`kernels/`, `nn/layers/`,
-`nn/multilayer.py`, `zoo/transformer.py`, `serving/`) so every
-counterpart is easy to find. The port imports `torch` and never `jax`
+Mirrors the JAX package's layout (`kernels/`, `nn/layers/`, `nn/conf/`,
+`nn/multilayer.py`, `zoo/transformer.py`, `serving/`,
+`util/serializer.py`) so every counterpart is easy to find. The port imports `torch` and never `jax`
 or anything from `deeplearning4j_tpu`.
 
 Device rule: entry points take an explicit `device=` that defaults to

@@ -1,5 +1,5 @@
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
-from deeplearning4j_tpu_torch.nn.layers.base import Layer
+from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     DenseLayer,
     EmbeddingLayer,
@@ -21,5 +21,5 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
 __all__ = ["BaseRecurrentLayer", "DenseLayer", "EmbeddingLayer", "Layer",
            "LayerNormalization", "MultiHeadAttention",
            "PositionalEncodingLayer", "RnnOutputLayer",
-           "TransformerEncoderBlock", "layer_norm_reference",
-           "stream_budget"]
+           "TransformerEncoderBlock", "layer_from_dict",
+           "layer_norm_reference", "stream_budget"]

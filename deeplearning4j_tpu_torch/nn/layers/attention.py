@@ -5,7 +5,10 @@
 
 Params "Wq", "Wk", "Wv", "Wo" ([d, d], used as ``x @ W``) and biases
 "bq".."bo" (the JAX layer's default `has_bias=True`; identity
-activation). Heads split the model dim as [B, T, H, Dh], the JAX layout.
+activation, applied after Wo as in JAX). Heads split the model dim as
+[B, T, H, Dh], the JAX layout. `attention_dropout` acts only while
+training and is refused in `fit`; `n_out` other than `n_in` is not
+ported.
 
 `sequence_parallel="ring"|"ulysses"` makes the full-sequence forward
 run ring or Ulysses attention over the mesh of an active
@@ -17,15 +20,16 @@ runs and a one-time warning says so, as in JAX.
 from __future__ import annotations
 
 import logging
-from typing import Optional
 
 import torch
 
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
     init_weight_,
     new_param,
+    register_layer,
 )
 from deeplearning4j_tpu_torch.parallel import (
     current_sequence_mesh,
@@ -50,33 +54,56 @@ def _warn_sp_fallback(layer_name, reason):
             "do NOT apply to this forward", layer_name, reason)
 
 
+@register_layer
 class MultiHeadAttention(Layer):
-    def __init__(self, n_in: int, n_heads: int = 4, *, causal: bool = False,
-                 use_flash: Optional[bool] = None,
-                 sequence_parallel: Optional[str] = None,
-                 name: Optional[str] = None):
-        super().__init__()
-        self.name = name
-        d = int(n_in)
-        if d % n_heads:
-            raise ValueError(f"model dim {d} must divide n_heads {n_heads}")
-        self.n_in, self.n_heads, self.causal = d, int(n_heads), causal
-        # None or True: flash attention (the CUDA forward and backward
-        # kernels on the card, their plain versions on the CPU; under
-        # sequence parallelism the flash ring with the carry kernel);
-        # False: the plain -inf masked softmax (or the plain ring),
-        # differentiated by autograd
-        self.use_flash = use_flash
-        if sequence_parallel not in (None, "ring", "ulysses"):
+    layer_name = "multi_head_attention"
+    FIELDS = (("n_in", 0), ("n_out", 0), ("n_heads", 4), ("causal", False),
+              ("has_bias", True), ("attention_dropout", None),
+              ("use_flash", None), ("sequence_parallel", None))
+    DEFAULT_ACTIVATION = "identity"
+
+    def __init__(self, n_in: int = 0, n_heads: int = 4, **config):
+        super().__init__(n_in=n_in, n_heads=n_heads, **config)
+        # use_flash None or True: flash attention (the CUDA forward and
+        # backward kernels on the card, their plain versions on the CPU;
+        # under sequence parallelism the flash ring with the carry
+        # kernel); False: the plain -inf masked softmax (or the plain
+        # ring), differentiated by autograd
+        if self.sequence_parallel not in (None, "ring", "ulysses"):
             raise ValueError(f"sequence_parallel must be None, 'ring' or "
-                             f"'ulysses'; got {sequence_parallel!r}")
-        self.sequence_parallel = sequence_parallel
+                             f"'ulysses'; got {self.sequence_parallel!r}")
+        self._build()
+
+    def _build(self):
+        d, self.n_heads = int(self.n_in), int(self.n_heads)
+        self.n_in = d
+        if not d or getattr(self, "Wq", None) is not None:
+            return
+        if self.n_out not in (0, d):
+            raise NotImplementedError(
+                f"MultiHeadAttention n_out={self.n_out} != n_in={d} is not "
+                f"ported (ROADMAP Queue 1 item 5)")
+        if d % self.n_heads:
+            raise ValueError(f"model dim {d} must divide n_heads "
+                             f"{self.n_heads}")
         for name in _NAMES:
             setattr(self, name, new_param((d, d), "cpu"))
-            setattr(self, "b" + name[1:], new_param((d,), "cpu"))
+            setattr(self, "b" + name[1:],
+                    new_param((d,), "cpu") if self.has_bias else None)
         # 1/sqrt(Dh) rounded as the JAX layer computes it (in fp32)
         self.scale = float(1.0 / torch.sqrt(
             torch.tensor(float(self.head_dim), dtype=torch.float32)))
+
+    def set_n_in(self, input_type, override=True):
+        if override or not self.n_in:
+            self.n_in = input_type.size
+        if not self.n_out:
+            self.n_out = self.n_in
+        self._build()
+
+    def get_output_type(self, input_type):
+        return InputType.recurrent(self.n_out or self.n_in,
+                                   getattr(input_type, "timesteps", None))
 
     @property
     def head_dim(self):
@@ -86,18 +113,20 @@ class MultiHeadAttention(Layer):
         m = {}
         for name in _NAMES:
             m[name] = getattr(self, name)
-            m["b" + name[1:]] = getattr(self, "b" + name[1:])
+            if self.has_bias:
+                m["b" + name[1:]] = getattr(self, "b" + name[1:])
         return m
 
     def init_weights(self, gen: torch.Generator, owner: Layer = None):
         """Draw Wq, Wk, Wv, Wo by the `weight_init` of `owner` (a block
-        that holds this attention; this layer by default)."""
+        that holds this attention; this layer by default). The biases
+        stay zero, as the JAX layer makes them."""
         for name in _NAMES:
             init_weight_(owner or self, getattr(self, name), gen)
 
     def _project(self, x, name):
-        return torch.matmul(x, getattr(self, name)) + getattr(
-            self, "b" + name[1:])
+        z = torch.matmul(x, getattr(self, name))
+        return z + getattr(self, "b" + name[1:]) if self.has_bias else z
 
     def heads(self, z):
         b, t, d = z.shape
@@ -107,7 +136,8 @@ class MultiHeadAttention(Layer):
         return tuple(self.heads(self._project(x, n)) for n in ("Wq", "Wk", "Wv"))
 
     def _out(self, o):
-        return self._project(o.reshape(o.shape[0], o.shape[1], -1), "Wo")
+        return self.activation(
+            self._project(o.reshape(o.shape[0], o.shape[1], -1), "Wo"))
 
     # ------------------------------------------------------ full sequence
     def forward(self, x):

@@ -14,15 +14,18 @@ keeps the fused residual form off the decode path too.
 
 from __future__ import annotations
 
-from typing import Optional
-
 import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.common.activations import get_activation
 from deeplearning4j_tpu_torch.kernels.layernorm import residual_layer_norm
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
-from deeplearning4j_tpu_torch.nn.layers.base import init_weight_, new_param
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+from deeplearning4j_tpu_torch.nn.layers.base import (
+    init_weight_,
+    new_param,
+    register_layer,
+)
 from deeplearning4j_tpu_torch.nn.layers.normalization import LayerNormalization
 from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
 
@@ -37,17 +40,33 @@ def sinusoid_table(T: int, D: int) -> np.ndarray:
     return table
 
 
+@register_layer
 class PositionalEncodingLayer(BaseRecurrentLayer):
     """Adds the parameter-free sinusoidal signal to [B, T, D]. The carry
     is the stream's position offset (a host int)."""
 
-    def __init__(self, n_out: int, max_len: int = 2048):
-        super().__init__()
-        self.n_out, self.max_len = int(n_out), int(max_len)
-        self.register_buffer(
-            "table", torch.from_numpy(sinusoid_table(self.max_len,
-                                                     self.n_out)),
-            persistent=False)
+    layer_name = "positional_encoding"
+    FIELDS = (("n_out", 0), ("max_len", 2048))
+    DEFAULT_ACTIVATION = "identity"
+
+    def __init__(self, n_out: int = 0, max_len: int = 2048, **config):
+        super().__init__(n_out=n_out, max_len=max_len, **config)
+        self._build()
+
+    def _build(self):
+        self.n_out, self.max_len = int(self.n_out), int(self.max_len)
+        t = getattr(self, "table", None)
+        if self.n_out and (t is None or tuple(t.shape) != (self.max_len,
+                                                            self.n_out)):
+            self.register_buffer(
+                "table", torch.from_numpy(sinusoid_table(self.max_len,
+                                                         self.n_out)),
+                persistent=False)
+
+    def set_n_in(self, input_type, override=True):
+        if override or not self.n_out:
+            self.n_out = input_type.size
+        self._build()
 
     def forward(self, x):
         T = x.shape[1]
@@ -71,20 +90,42 @@ class PositionalEncodingLayer(BaseRecurrentLayer):
         return x + self.table[idx][:, None, :].to(x.dtype)
 
 
+@register_layer
 class TransformerEncoderBlock(BaseRecurrentLayer):
-    def __init__(self, n_in: int, n_heads: int = 8, ff_multiplier: int = 4,
-                 *, causal: bool = False, use_flash: Optional[bool] = None,
-                 cache_len: int = 512, sequence_parallel: Optional[str] = None):
-        super().__init__()
-        d = int(n_in)
-        self.n_in, self.n_heads = d, int(n_heads)
-        self.ff_multiplier, self.causal = int(ff_multiplier), causal
-        self.cache_len = int(cache_len)
+    """`ff_activation` (gelu by default) is looked up at each call, as the
+    JAX block does. `bias_init` leaves the block's biases at zero, as in
+    JAX, whose block fills none of them with it. `attention_dropout`
+    and `remat` are carried: the first acts only while training and is
+    refused in `fit`, the second changes memory, not numbers."""
+
+    layer_name = "transformer_encoder"
+    FIELDS = (("n_in", 0), ("n_heads", 8), ("ff_multiplier", 4),
+              ("causal", False), ("attention_dropout", None),
+              ("ff_activation", "gelu"), ("use_flash", None),
+              ("sequence_parallel", None), ("cache_len", 512),
+              ("remat", False))
+    DEFAULT_ACTIVATION = "identity"
+
+    def __init__(self, n_in: int = 0, n_heads: int = 8,
+                 ff_multiplier: int = 4, **config):
+        super().__init__(n_in=n_in, n_heads=n_heads,
+                         ff_multiplier=ff_multiplier, **config)
+        if self.sequence_parallel not in (None, "ring", "ulysses"):
+            raise ValueError(f"sequence_parallel must be None, 'ring' or "
+                             f"'ulysses'; got {self.sequence_parallel!r}")
+        self._build()
+
+    def _build(self):
+        d = self.n_in = int(self.n_in)
+        self.n_heads, self.cache_len = int(self.n_heads), int(self.cache_len)
+        self.ff_multiplier = int(self.ff_multiplier)
+        if not d or getattr(self, "attn", None) is not None:
+            return
         # "ring"|"ulysses": the attention's full-sequence forward runs
         # sequence-parallel under `parallel.sequence_sharding(mesh)`
-        self.attn = MultiHeadAttention(d, n_heads, causal=causal,
-                                       use_flash=use_flash,
-                                       sequence_parallel=sequence_parallel)
+        self.attn = MultiHeadAttention(
+            d, self.n_heads, causal=self.causal, use_flash=self.use_flash,
+            sequence_parallel=self.sequence_parallel)
         self.ln1 = LayerNormalization(d)
         self.ln2 = LayerNormalization(d)
         ff = d * self.ff_multiplier
@@ -92,7 +133,15 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         self.ff_b1 = new_param((ff,), "cpu")
         self.ff_W2 = new_param((ff, d), "cpu")
         self.ff_b2 = new_param((d,), "cpu")
-        self.ff_act = get_activation("gelu")
+
+    def set_n_in(self, input_type, override=True):
+        if override or not self.n_in:
+            self.n_in = input_type.size
+        self._build()
+
+    def get_output_type(self, input_type):
+        return InputType.recurrent(self.n_in,
+                                   getattr(input_type, "timesteps", None))
 
     def jax_param_map(self):
         m = {f"attn_{k}": v for k, v in self.attn.jax_param_map().items()}
@@ -108,7 +157,8 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         init_weight_(self, self.ff_W2, gen)
 
     def _ffn(self, h):
-        h = self.ff_act(torch.matmul(h, self.ff_W1) + self.ff_b1)
+        act = get_activation(self.ff_activation)
+        h = act(torch.matmul(h, self.ff_W1) + self.ff_b1)
         return torch.matmul(h, self.ff_W2) + self.ff_b2
 
     # ------------------------------------------------------ full sequence

@@ -33,10 +33,20 @@ output layer sees `cast_output(h)` and `cast_output(y)`, and its params
 are the copies rounded to bf16 and upcast again (:347-350), so the loss
 is fp32; `output()` runs every layer in bf16 and returns fp32.
 
+Configuration (`nn/conf/builder.py`): a net is built from a
+`MultiLayerConfiguration` (the JAX constructor, :95) or from a layer
+list, and keeps the configuration as `.conf`, which
+`util/serializer.py` writes. Input preprocessors run before their
+layer, as in JAX; none is ported yet, so a configuration with one
+builds and its forward raises.
+
 Not ported yet, and refused rather than ignored: steps_per_execution >
-1, masks, non-zero l1/l2, and ring or Ulysses attention under a mixed
-policy. Truncated BPTT and the line-search solvers have no setting in
-the port at all.
+1, masks, ring or Ulysses attention under a mixed policy, and, in
+`fit` and `score` (`_check_trainable`), every configured field that
+acts only in training: dropout, attention dropout, weight noise,
+constraints, non-zero l1/l2, `max_norm`, gradient normalization,
+truncated BPTT, `pretrain`, a line-search `optimization_algo` and
+diagnostics.
 """
 
 from __future__ import annotations
@@ -52,6 +62,11 @@ from deeplearning4j_tpu_torch.datasets.iterator import as_iterator
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.kernels.fused_adam import adam_update_packed
 from deeplearning4j_tpu_torch.nd.dtype import DataTypePolicy, resolve_policy
+from deeplearning4j_tpu_torch.nn.conf.builder import (
+    BackpropType,
+    GradientNormalization,
+    MultiLayerConfiguration,
+)
 from deeplearning4j_tpu_torch.parallel import current_sequence_mesh
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     BaseOutputLayerMixin,
@@ -93,13 +108,27 @@ def _check_policy(policy: DataTypePolicy) -> DataTypePolicy:
 
 
 class MultiLayerNetwork(nn.Module):
-    def __init__(self, layers: List[nn.Module], *, device="cuda",
-                 dtype_policy=None):
+    def __init__(self, conf_or_layers, *, device="cuda", dtype_policy=None):
+        """A net from a `MultiLayerConfiguration` (its layers become the
+        net's, as in JAX, and the conf stays as `.conf`) or from a list
+        of layer modules (a `.conf` is made from them, so the net can be
+        written). A conf whose layers already belong to a net is copied
+        first, so two nets never share params. Params are zeros (LayerNorm
+        gains ones) until `init` draws them or a loader fills them."""
         super().__init__()
-        self.layers = nn.ModuleList(layers)
-        # DL4J_DTYPE_POLICY env > explicit arg > process default
-        # (the port's container has no configuration object)
-        self.dtype = _check_policy(resolve_policy(dtype_policy))
+        if isinstance(conf_or_layers, MultiLayerConfiguration):
+            conf = conf_or_layers
+            if any(getattr(l, "_in_net", False) for l in conf.layers):
+                conf = MultiLayerConfiguration.from_dict(conf.to_dict())
+        else:
+            conf = MultiLayerConfiguration(layers=list(conf_or_layers))
+        for layer in conf.layers:
+            layer._in_net = True
+        self.conf = conf
+        self.layers = nn.ModuleList(conf.layers)
+        # DL4J_DTYPE_POLICY env > explicit arg > conf.dtype_policy >
+        # process default
+        self.dtype = _check_policy(resolve_policy(dtype_policy, conf))
         self.device = resolve_device(device)
         super().to(self.device)
         self.iteration_count = 0
@@ -111,6 +140,17 @@ class MultiLayerNetwork(nn.Module):
             str(i): {name: self.updater_of(layer).init_state(t)
                      for name, t in layer.jax_param_map().items()}
             for i, layer in enumerate(self.layers) if layer.jax_param_map()}
+
+    def init(self, seed: Optional[int] = None) -> "MultiLayerNetwork":
+        """Draw every layer's params, in layer order, from one CPU
+        `torch.Generator` seeded with `seed` (default `conf.seed`); the
+        JAX package's draws are threefry bits, which this does not
+        reproduce (load those with `util.jax_params`)."""
+        gen = torch.Generator().manual_seed(
+            self.conf.seed if seed is None else int(seed))
+        for layer in self.layers:
+            layer.init_weights(gen)
+        return self
 
     def to(self, device):
         """Move every parameter, buffer and updater state to `device`
@@ -146,7 +186,10 @@ class MultiLayerNetwork(nn.Module):
             x = self.dtype.cast_compute(x)
         h = x
         new_carries = {}
+        pre = self.conf.input_preprocessors
         for i, layer in enumerate(self.layers[:upto]):
+            if i in pre:
+                h = pre[i].pre_process(h)
             if carries is not None and isinstance(layer, BaseRecurrentLayer):
                 carry = carries.get(str(i))
                 if carry is None:
@@ -222,14 +265,44 @@ class MultiLayerNetwork(nn.Module):
         if not isinstance(out, BaseOutputLayerMixin):
             raise ValueError(f"the last layer ({type(out).__name__}) has no "
                              f"loss; fit needs an output layer")
-        for layer in self.layers:
-            if layer.l1 or layer.l2 or layer.l1_bias or layer.l2_bias:
-                raise NotImplementedError(
-                    "l1/l2 regularization is not ported yet")
+        self._check_trainable()
         h, _ = self._forward(x, upto=len(self.layers) - 1)
         # the loss stays in the output dtype (identity when not mixed)
         h, y = self.dtype.cast_output(h), self.dtype.cast_output(y)
         return self.dtype.cast_output(out.compute_loss(h, y))
+
+    def _check_trainable(self):
+        """Refuse the configured fields that act in training and are not
+        ported: `fit` and `score` would silently compute something else.
+        Each is inert at inference, so `output()`, `generate()` and
+        serving accept them (a zip trained with dropout can be served)."""
+        c, bad = self.conf, []
+        if c.max_norm is not None:
+            bad.append("max_norm")
+        gn = GradientNormalization(c.gradient_normalization)
+        if gn != GradientNormalization.NONE:
+            bad.append(f"gradient_normalization {gn.value}")
+        if BackpropType(c.backprop_type) == BackpropType.TRUNCATED_BPTT:
+            bad.append("backprop_type tbptt")
+        if c.pretrain:
+            bad.append("pretrain")
+        if c.optimization_algo != "sgd":
+            bad.append(f"optimization_algo {c.optimization_algo}")
+        if c.diagnostics is not None:
+            bad.append("diagnostics")
+        for i, layer in enumerate(self.layers):
+            for f in ("dropout", "attention_dropout", "weight_noise"):
+                if getattr(layer, f, None) is not None:
+                    bad.append(f"layer {i} {f}")
+            if layer.constraints:
+                bad.append(f"layer {i} constraints")
+            for f in ("l1", "l2", "l1_bias", "l2_bias"):
+                if getattr(layer, f):
+                    bad.append(f"layer {i} {f} (l1/l2 regularization)")
+        if bad:
+            raise NotImplementedError(
+                f"not ported yet for training: {', '.join(bad)} (ROADMAP "
+                f"Queue 1 items 5, 6 and 10)")
 
     # ------------------------------------------------------------ updates
     def _packed_runs(self) -> List[List[int]]:

@@ -1,5 +1,7 @@
 """Carry a JAX net's parameters and training state into a ported net,
-and back.
+and back, inside one process (the tests, which load both packages).
+Between processes, and onto a machine without JAX, the carrier is the
+model zip (`util/serializer.py`).
 
 `params` is a JAX net's `net.params` converted to numpy, keyed
 ``{"<layer index>": {name: array}}`` with the JAX names and layouts

@@ -20,6 +20,12 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.common.updaters import Adam
+from deeplearning4j_tpu_torch.common.weights import WeightInit
+from deeplearning4j_tpu_torch.nn.conf.builder import (
+    MultiLayerConfiguration,
+    NeuralNetConfiguration,
+)
+from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
     EmbeddingLayer,
     PositionalEncodingLayer,
@@ -33,51 +39,62 @@ from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 class TransformerLM:
     """Embedding -> sinusoidal positions -> `n_layers` causal pre-LN
     blocks -> per-position softmax over the vocabulary with the mcxent
-    loss; the JAX zoo model's constructor arguments, layer order and
-    updater (`Adam(1e-3)` on every layer, the JAX conf's global
-    `.updater(...)`). `sequence_parallel="ring"|"ulysses"` goes to every
-    block: inside `parallel.sequence_sharding(mesh)`, `fit` and
-    `output()` run their attention sequence-parallel over the mesh.
-    remat belongs to a later slice."""
+    loss. `conf()` is the JAX zoo model's configuration (:76-109), built
+    with the port's builder: the same arguments, layer order, global
+    `Adam(1e-3)` and Xavier init, and the same `to_dict()`.
+    `sequence_parallel="ring"|"ulysses"` goes to every block: inside
+    `parallel.sequence_sharding(mesh)`, `fit` and `output()` run their
+    attention sequence-parallel over the mesh. `remat` and
+    `remat_policy` are carried in the configuration (they change memory,
+    not numbers; the port does not rematerialize)."""
 
     def __init__(self, vocab_size: int, *, d_model: int = 128,
                  n_layers: int = 2, n_heads: int = 8, ff_multiplier: int = 4,
-                 max_len: int = 512, sequence_parallel: Optional[str] = None,
-                 seed: int = 123):
+                 max_len: int = 512, remat: bool = False,
+                 remat_policy: Optional[str] = None,
+                 sequence_parallel: Optional[str] = None, seed: int = 123):
         self.vocab_size, self.d_model = int(vocab_size), int(d_model)
         self.n_layers, self.n_heads = int(n_layers), int(n_heads)
         self.ff_multiplier, self.max_len = int(ff_multiplier), int(max_len)
+        self.remat, self.remat_policy = remat, remat_policy
         self.sequence_parallel = sequence_parallel
         self.seed = seed
 
-    def layers(self):
-        out = [EmbeddingLayer(self.vocab_size, self.d_model),
-               PositionalEncodingLayer(self.d_model, self.max_len)]
+    def conf(self) -> MultiLayerConfiguration:
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed).updater(Adam(1e-3))
+             .weight_init(WeightInit.XAVIER)
+             .list()
+             .layer(EmbeddingLayer(n_in=self.vocab_size, n_out=self.d_model))
+             .layer(PositionalEncodingLayer(max_len=self.max_len)))
         for _ in range(self.n_layers):
-            out.append(TransformerEncoderBlock(
-                self.d_model, self.n_heads, self.ff_multiplier, causal=True,
-                cache_len=self.max_len,
+            b.layer(TransformerEncoderBlock(
+                n_heads=self.n_heads, ff_multiplier=self.ff_multiplier,
+                causal=True, remat=self.remat,
+                remat_policy=self.remat_policy, cache_len=self.max_len,
                 sequence_parallel=self.sequence_parallel))
-        out.append(RnnOutputLayer(self.d_model, self.vocab_size))
-        return out
+        b.layer(RnnOutputLayer(n_out=self.vocab_size, activation="softmax",
+                               loss="mcxent"))
+        b.set_input_type(InputType.recurrent(self.vocab_size))
+        return b.build()
+
+    def layers(self):
+        """The configuration's layers (params zero until drawn or
+        loaded)."""
+        return self.conf().layers
 
     def init(self, seed: Optional[int] = None, *, device="cuda",
              dtype_policy=None) -> MultiLayerNetwork:
         """A net with Xavier-normal weights drawn from a CPU
-        `torch.Generator` seeded with `seed` (not the JAX package's
-        threefry draws: load those with `util.jax_params.from_jax_params`).
-        `dtype_policy` (a `nd.dtype.DataTypePolicy`, a preset name such
-        as "mixed_bf16", or None) goes to the container, where
-        ``DL4J_DTYPE_POLICY`` overrides it."""
-        gen = torch.Generator().manual_seed(self.seed if seed is None
-                                            else int(seed))
-        layers = self.layers()
-        for layer in layers:
-            layer.updater = Adam(1e-3)
-            if hasattr(layer, "init_weights"):
-                layer.init_weights(gen)
-        return MultiLayerNetwork(layers, device=device,
-                                 dtype_policy=dtype_policy)
+        `torch.Generator` seeded with `seed` (default: the model's seed;
+        not the JAX package's threefry draws: load those with
+        `util.jax_params.from_jax_params`). `dtype_policy` (a
+        `nd.dtype.DataTypePolicy`, a preset name such as "mixed_bf16", or
+        None) goes to the container, where ``DL4J_DTYPE_POLICY``
+        overrides it."""
+        return MultiLayerNetwork(self.conf(), device=device,
+                                 dtype_policy=dtype_policy).init(
+            self.seed if seed is None else seed)
 
 
 def check_decode_policy(net):

@@ -38,7 +38,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "util.jax_params", "parallel.mesh", "parallel.context",
                 "parallel.ring", "parallel.ulysses", "common.schedules",
                 "common.activations", "common.weights",
-                "common.distributions", "nd.dtype"):
+                "common.distributions", "nd.dtype", "fault.errors",
+                "fault.state", "nn.conf.inputs", "nn.conf.dropout",
+                "nn.conf.weightnoise", "nn.conf.constraints",
+                "nn.conf.preprocessors", "nn.conf.builder", "nn.layers.base",
+                "util.serializer"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 
