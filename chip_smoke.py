@@ -25,7 +25,9 @@ Phases, in order:
      long-context LM's (8 blocks, 128 leaves, two launches), with fp32
      and with bf16 gradients (`mixed_bf16`'s), and must be bit-equal to
      its plain version; both are timed at the LM's run. LayerNorm also runs at a width
-     past a warp's registers ([64, 2304]). Phase 6's shapes are checked
+     past a warp's registers ([64, 2304]) and at phase 8's decode rows
+     ([8, 256]: 8 slots; [32, 256]: 8 slots x a 4-position speculative
+     score), timed there too. Phase 6's shapes are checked
      too: LayerNorm and residual LayerNorm at [16384, 512], the flash
      forward, dQ and dK/dV at the ring's chunk [8, 512, 8, 64], where
      dQ and dK/dV are also timed, diagonal (causal) and visible, beside
@@ -94,8 +96,30 @@ Phases, in order:
      tokens equal to JAX's, and one more step from JAX's Adam state
      within GOLDEN_LOSS_ATOL in loss and GOLDEN_SUM_RTOL in each leaf's
      sum and sum of squares;
+  8. serving features on phase 3's LM and params (8 slots, block_len
+     16), each arm beside its vanilla fp32 run in the same call for
+     tok/s, greedy streams held by margin (`zoo.transformer.
+     stream_agreement`: equal, or first apart at a near-tie of the
+     reference, whose top-1/top-2 gap is at most the largest difference
+     between one 4-wide score and 4 single-token decodes measured on the
+     card for that arm; near-ties are reported): (1) `mixed_bf16`, phase
+     4's 24 greedy requests x 64 tokens through the server, streams
+     against mixed `generate()`, teacher-forced probabilities within
+     MIXED_DECODE_ATOL of the fp32 net's, only bf16 kernel instances
+     launched (LayerNorm's), the bf16 pool's bytes against fp32's;
+     (2) int8 weights: the tree's weight bytes against fp32's, streams
+     against int8 `generate()`, teacher-forced top-1 agreement with fp32
+     >= INT8_TOP1_MIN and its largest probability error; (3) speculative
+     decoding at k = 4 with drafting kept on: the n-gram proposer on
+     prompts cut from `lm_corpus`'s seeded cycle and the truncated
+     drafter (half the blocks) on phase 4's prompts, streams against the
+     non-speculative engine's, acceptance, tokens per dispatch and tok/s;
+     and `spec_sampled` (acceptance, streams in the vocab and of the
+     right length); (4) shared prefixes: a 256-token prefix and 16
+     distinct suffixes, registered (streams against private ones, blocks
+     saved, forks) and through the radix cache (hits, evictions);
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 7, each > 0), the card's name and power limit, and last
+to 8, each > 0), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result.
 """
@@ -489,10 +513,13 @@ def phase_kernels(device, report, fails, small=False):
     # "ring_chunk": its ring chunk [B, T / P, H, D]
     long_rows, long_d = ((8 * LM_LONG["max_len"], LM_LONG["d_model"])
                          if not small else (128, 64))
-    # "wide": a row wider than a warp keeps in registers (a block a row)
+    # "wide": a row wider than a warp keeps in registers (a block a row);
+    # "decode" / "decode_k": phase 8's serving rows, S = 8 slots and
+    # S x K = 32 positions of a speculative score, at d_model 256
     ln_cases = [("main", main_rows, 256), ("ragged", 1000, 257),
                 ("odd", 37, 33), ("long", long_rows, long_d),
-                ("wide", 64, 2304)]
+                ("wide", 64, 2304), ("decode", 8, 256),
+                ("decode_k", 32, 256)]
     # "long": phase 6's local attention [B, T, H, D]; "misaligned": q, k
     # and v are views that start off 16-byte alignment (the wrappers copy
     # them for the kernels' 16-byte row copies)
@@ -534,6 +561,18 @@ def phase_kernels(device, report, fails, small=False):
                 checks.append(dict(kernel=name, case=case, dtype=dt_name,
                                    shape=[R, D], max_abs_err=e,
                                    tol=LN_TOL[dt_name], ok=ok))
+            if case in ("decode", "decode_k"):
+                ln_bytes = 2 * R * D * es + 2 * D * es + 2 * R * 4
+                timings[("layer_norm", dt_name, case)] = dict(
+                    shape=[R, D], max_abs_err=err,
+                    ms=timer(device, lambda: ln.layer_norm_fwd(x, g, b),
+                             flush=flush),
+                    plain_ms=timer(device,
+                                   lambda: ln.layer_norm_plain(x, g, b),
+                                   flush=flush),
+                    library_ms=timer(device, lambda: F.layer_norm(
+                        x, (D,), g, b, 1e-5), flush=flush),
+                    bound=bound(ln_bytes, 8.0 * R * D, "float32"))
             if case != "main":
                 continue
             ln_bytes = 2 * R * D * es + 2 * D * es + 2 * R * 4
@@ -1622,6 +1661,300 @@ def phase_bridge(device, report, fails, small=False):
     return launches
 
 
+# ------------------------------------------- phase 8: serving features
+# mixed_bf16 decoding against the fp32 net, by teacher forcing: a logit
+# of the smoke LM (|logit| < 32, head scaled by 4) rounded to bf16 moves
+# by up to 2^-4, a probability by up to p(1-p) times the accumulated
+# logit error; the stated bound is 2^-3
+MIXED_DECODE_ATOL = 2.0 ** -3
+INT8_TOP1_MIN = 0.95
+SPEC_K = 4
+
+
+def _serve(net, reqs, n_tok, warm_len, **kw):
+    """One warmed server over `reqs` ([(prompt, {generate_async
+    kwargs})]): (token lists, wall seconds, launches by kernel and by
+    dtype of the run, the engine). The launch counts start at 0 just
+    before the requests are submitted."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.serving import GenerationServer
+    max_len = net.layers[1].max_len
+    bl = 16
+    n_slots = kw.pop("n_slots", 8)
+    prefixes = kw.pop("prefixes", ())
+    srv = GenerationServer(net, n_slots=n_slots, block_len=bl,
+                           n_blocks=n_slots * (max_len // bl) + 1,
+                           device=net.device, **kw)
+    for p in prefixes:
+        srv.register_prefix(p)
+    srv.warmup(warm_len, 4)
+    K.reset_launches()
+    srv.start()
+    try:
+        t0 = time.perf_counter()
+        streams = [srv.generate_async(p, n_tok, **a) for p, a in reqs]
+        out = [s.result(timeout=600).tolist() for s in streams]
+        wall = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    if net.device.type == "cuda":
+        torch.cuda.synchronize()
+    return (out, wall, dict(K.LAUNCHES),
+            dict(sorted(K.LAUNCHES_BY_DTYPE.items())), srv.engine)
+
+
+def _wide_vs_single(net, prompts, K=SPEC_K, **kw):
+    """The largest probability difference between one K-wide score and K
+    single-token decodes on the same pool, in an engine of `kw`'s
+    configuration over `prompts` (the batch-variance of this card's
+    matmuls at the serving shapes)."""
+    import torch
+    from deeplearning4j_tpu_torch.serving import PagedDecodeEngine
+    max_len = net.layers[1].max_len
+    eng = PagedDecodeEngine(net, n_slots=len(prompts), block_len=16,
+                            n_blocks=len(prompts) * (max_len // 16) + 1,
+                            device=net.device, **kw)
+    eng.admit_many([dict(prompt_ids=p, n_tokens=K + 1) for p in prompts])
+    S = eng.n_slots
+    rng = np.random.default_rng(3)
+    token_mat = np.concatenate(
+        [eng.last_token[:, None], rng.integers(0, eng.vocab, (S, K - 1))], 1)
+    n_valid = np.full(S, K)
+    eng._grow_block_tables({s: K for s in range(S)})
+    saved = [(k.clone(), v.clone()) for k, v in eng.pool.kv]
+    with torch.no_grad(), eng._weights():
+        wide = eng._score(token_mat, eng.pos, n_valid)
+        for (k, v), (k0, v0) in zip(eng.pool.kv, saved):
+            k.copy_(k0)
+            v.copy_(v0)
+        pos = torch.as_tensor(eng.pos, device=net.device)
+        bt = torch.as_tensor(eng.block_tables, device=net.device)
+        single = torch.stack([eng._walk(
+            eng._plan, torch.as_tensor(token_mat[:, j], device=net.device),
+            pos + j, bt) for j in range(K)], dim=1)
+    return float((wide - single).abs().max())
+
+
+def _agreement(net, prompts, want, got, eps, quantize=None):
+    """Greedy streams by margin (`zoo.transformer.stream_agreement`):
+    (indices that disagree, near-ties of the references)."""
+    from deeplearning4j_tpu_torch.zoo.transformer import (
+        stream_agreement, teacher_forced_probs)
+    bad, ties = [], 0
+    for i, (p, w, g) in enumerate(zip(prompts, want, got)):
+        r = stream_agreement(w, g, teacher_forced_probs(
+            net, p, w, quantize=quantize), eps)
+        ties += r["near_ties"]
+        if not r["ok"]:
+            bad.append(i)
+    return bad, ties
+
+
+def tf(net, prompt, tokens, quantize=None):
+    """The decode path's teacher-forced probabilities (numpy)."""
+    from deeplearning4j_tpu_torch.zoo.transformer import teacher_forced_probs
+    return teacher_forced_probs(net, prompt, tokens, quantize=quantize)
+
+
+def _generate_each(net, prompts, n_tok, **kw):
+    from deeplearning4j_tpu_torch.zoo.transformer import generate
+    return [generate(net, np.asarray(p)[None], n_tok, temperature=0,
+                     **kw)[0].tolist() for p in prompts]
+
+
+def phase_serving_features(device, report, fails, cfg, small=False):
+    """Phase 8 on `device`, phase 3's LM and params: (1) `mixed_bf16`
+    serving, (2) int8 weights, (3) speculative decoding (n-gram on cyclic
+    prompts, the truncated drafter on random ones, sampled), (4) shared
+    prefixes, registered and radix, each beside its vanilla fp32 run in
+    this call. Returns the launches of the served runs."""
+    from deeplearning4j_tpu_torch.nd import quant
+    params = random_lm_params(cfg, seed=1234, head_scale=4.0)
+    net = build_lm(cfg, device, params)
+    mixed = build_lm(cfg, device, params, dtype_policy=MIXED)
+    V = cfg["vocab"]
+    # phase 4's traffic: its 24 greedy prompts (seed 11, lengths
+    # 16-300), 64 tokens each
+    n_req, n_tok, n_extra, lo_hi = ((6, 8, 2, (3, 60)) if small
+                                    else (24, 64, 4, (16, 300)))
+    n_slots = 4 if small else 8
+    rng = np.random.default_rng(11)
+    lens = rng.integers(lo_hi[0], lo_hi[1] + 1, n_req + n_extra)
+    prompts = [rng.integers(0, V, n) for n in lens][:n_req]
+    lens = lens[:n_req]
+    greedy = [(p, {}) for p in prompts]
+    rng = np.random.default_rng(808)
+    warm = int(max(lens))
+    rows, launches = {}, {}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] = launches.get(k, 0) + n
+
+    def serve(n, reqs, name, **kw):
+        out, wall, counts, by_dtype, eng = _serve(
+            n, reqs, n_tok, kw.pop("warm_len", warm), n_slots=n_slots, **kw)
+        add(counts)
+        tok = sum(len(t) for t in out)
+        row = dict(tokens=tok, wall_s=wall, tokens_per_s=tok / wall,
+                   launches=counts, launches_by_dtype=by_dtype)
+        rows[name] = row
+        return out, row, eng
+
+    # the vanilla fp32 runs of the three traffic sets
+    van, van_row, _ = serve(net, greedy, "vanilla_fp32")
+    eps32 = _wide_vs_single(net, prompts[:n_slots])
+    bad, ties = _agreement(net, prompts, _generate_each(net, prompts, n_tok),
+                           van, eps32)
+    fails.check(not bad, f"serving_features vanilla: streams {bad} differ "
+                         f"from generate()")
+    van_row.update(eps=eps32, near_ties=ties)
+
+    # (1) mixed_bf16
+    ref = _generate_each(mixed, prompts, n_tok)
+    got, row, eng = serve(mixed, greedy, "mixed_bf16")
+    eps = _wide_vs_single(mixed, prompts[:n_slots])
+    bad, ties = _agreement(mixed, prompts, ref, got, eps)
+    err = max(float(np.abs(tf(mixed, p, w) - tf(net, p, w)).max())
+              for p, w in zip(prompts, ref))
+    f32 = {k: v for k, v in row["launches_by_dtype"].items()
+           if k.endswith("/float32")}
+    fails.check(not bad, f"serving_features mixed: streams {bad} differ "
+                         f"from mixed generate()")
+    fails.check(err <= MIXED_DECODE_ATOL,
+                f"serving_features mixed: teacher-forced probs "
+                f"{err} from fp32 (tol {MIXED_DECODE_ATOL})")
+    if device.type == "cuda":
+        fails.check(row["launches_by_dtype"].get("layer_norm/bfloat16", 0)
+                    > 0 and not f32,
+                    f"serving_features mixed: launches by dtype "
+                    f"{row['launches_by_dtype']}")
+    fp32_pool = 2 * eng.pool.nbytes
+    row.update(eps=eps, near_ties=ties, probs_max_err_vs_fp32=err,
+               pool_bytes=eng.pool.nbytes, pool_bytes_fp32=fp32_pool,
+               pool_dtype=str(eng.pool.kv[0][0].dtype),
+               speedup_vs_vanilla=row["tokens_per_s"]
+               / van_row["tokens_per_s"])
+    fails.check(eng.pool.kv[0][0].dtype == mixed.dtype.compute_dtype,
+                "serving_features mixed: pool not bf16")
+
+    # (2) int8 weights
+    q = quant.serving_params(net, "int8")
+    fp = quant.serving_params(net, None)
+    mm = quant.quantized_weight_keys(net)
+    mm_bytes = [quant.weight_bytes({lk: {k: t.params[lk][k] for k in ks}
+                                    for lk, ks in mm.items()})
+                for t in (q, fp)]
+    ref = _generate_each(net, prompts, n_tok, quantize="int8")
+    got, row, _ = serve(net, greedy, "int8", quantize="int8")
+    eps = _wide_vs_single(net, prompts[:n_slots], quantize="int8")
+    bad, ties = _agreement(net, prompts, ref, got, eps, quantize="int8")
+    agree = errs = 0.0
+    n_pos = 0
+    for p, w in zip(prompts, van):
+        a, b = tf(net, p, w, quantize="int8"), tf(net, p, w)
+        agree += float((a.argmax(-1) == b.argmax(-1)).sum())
+        n_pos += len(w)
+        errs = max(errs, float(np.abs(a - b).max()))
+    top1 = agree / n_pos
+    fails.check(not bad, f"serving_features int8: streams {bad} differ "
+                         f"from int8 generate()")
+    fails.check(top1 >= INT8_TOP1_MIN, f"serving_features int8: top-1 "
+                                       f"agreement {top1} with fp32")
+    row.update(eps=eps, near_ties=ties, weight_bytes=quant.weight_bytes(
+        q.params), weight_bytes_fp32=quant.weight_bytes(fp.params),
+        matmul_weight_bytes=mm_bytes[0], matmul_weight_bytes_fp32=mm_bytes[1],
+        top1_agreement_vs_fp32=top1, probs_max_err_vs_fp32=errs,
+        speedup_vs_vanilla=row["tokens_per_s"] / van_row["tokens_per_s"])
+
+    # (3) speculative decoding, k = SPEC_K, drafting kept on (floor 0)
+    X, _ = lm_corpus(cfg, n_req, seed=8, T=int(max(lens)))
+    cyc = [X[i, :n].astype(np.int64) for i, n in enumerate(lens)]
+    cyc_van, cyc_row, _ = serve(net, [(p, {}) for p in cyc], "vanilla_cyclic")
+    spec_kw = dict(speculative=SPEC_K, spec_accept_floor=0.0)
+    for name, reqs, base, base_row, kw in (
+            ("spec_ngram", [(p, {}) for p in cyc], cyc_van, cyc_row, {}),
+            ("spec_truncated", greedy, van, van_row,
+             dict(spec_draft_layers=cfg["n_layers"] // 2))):
+        got, row, eng = serve(net, reqs, name, **spec_kw, **kw)
+        ps = [p for p, _ in reqs]
+        bad, ties = _agreement(net, ps, base, got, eps32)
+        fails.check(not bad, f"serving_features {name}: streams {bad} "
+                             f"differ from the non-speculative engine's")
+        row.update(near_ties=ties, eps=eps32,
+                   accept_rate=(eng.spec_accepted_total
+                                / max(1, eng.spec_proposed_total)),
+                   proposed=eng.spec_proposed_total,
+                   accepted=eng.spec_accepted_total,
+                   proposed_by=dict(eng.spec_proposed_by),
+                   accepted_by=dict(eng.spec_accepted_by),
+                   tokens_per_dispatch=(eng.spec_emitted_total
+                                        / max(1, eng.spec_dispatches_total)),
+                   draft_dispatches=eng.spec_draft_dispatches_total,
+                   speedup_vs_vanilla=row["tokens_per_s"]
+                   / base_row["tokens_per_s"])
+        fails.check(eng.spec_dispatches_total > 0,
+                    f"serving_features {name}: no speculative dispatch")
+    sampled = [(p, dict(temperature=0.8, top_p=0.9, rng=700 + i))
+               for i, p in enumerate(prompts)]
+    _, s_van_row, _ = serve(net, sampled, "vanilla_sampled")
+    got, row, eng = serve(net, sampled, "spec_sampled", spec_sampled=True,
+                          **spec_kw)
+    fails.check(all(len(t) == n_tok and 0 <= min(t) and max(t) < V
+                    for t in got),
+                "serving_features spec_sampled: streams out of vocab or of "
+                "the wrong length")
+    row.update(accept_rate=(eng.spec_accepted_total
+                            / max(1, eng.spec_proposed_total)),
+               proposed=eng.spec_proposed_total,
+               tokens_per_dispatch=(eng.spec_emitted_total
+                                    / max(1, eng.spec_dispatches_total)),
+               speedup_vs_vanilla=row["tokens_per_s"]
+               / s_van_row["tokens_per_s"])
+
+    # (4) shared prefixes: one long system prompt, distinct suffixes
+    n_pre = 16 if small else 256
+    prefix = rng.integers(0, V, n_pre)
+    sfx = rng.integers(8, 41, n_slots * 2)
+    pre_prompts = [np.concatenate([prefix, rng.integers(0, V, n)])
+                   for n in sfx]
+    pre_reqs = [(p, {}) for p in pre_prompts]
+    pwarm = int(max(len(p) for p in pre_prompts))
+    private, p_row, _ = serve(net, pre_reqs, "vanilla_prefix",
+                              warm_len=pwarm)
+    for name, kw in (("prefix_registered", dict(prefixes=[prefix])),
+                     ("prefix_radix", dict(prefix_cache="radix"))):
+        got, row, eng = serve(net, pre_reqs, name, warm_len=pwarm, **kw)
+        bad, ties = _agreement(net, pre_prompts, private, got, eps32)
+        fails.check(not bad, f"serving_features {name}: streams {bad} "
+                             f"differ from the private ones")
+        fails.check(eng.prefix_hits_total > 0,
+                    f"serving_features {name}: no prefix hit")
+        row.update(near_ties=ties, eps=eps32, hits=eng.prefix_hits_total,
+                   tokens_saved=eng.prefix_tokens_saved_total,
+                   blocks_saved=eng.prefix_tokens_saved_total // 16,
+                   forks=eng.prefix_forks_total,
+                   radix_hit_tokens=eng.radix_hit_tokens_total,
+                   radix_evictions=eng.radix_evictions_total,
+                   speedup_vs_vanilla=row["tokens_per_s"]
+                   / p_row["tokens_per_s"])
+    report["serving_features"] = dict(
+        n_slots=n_slots, block_len=16, requests=n_req, n_tokens=n_tok,
+        prefix_len=n_pre, spec_k=SPEC_K, arms=rows, launches=launches)
+    for name, r in rows.items():
+        extra = {k: v for k, v in r.items()
+                 if k not in ("launches", "launches_by_dtype", "tokens",
+                              "wall_s")}
+        print(f"[serving_features] {name} on {device}: {r['tokens']} tokens "
+              f"in {r['wall_s']:.3f} s; {json.dumps(extra, default=str)}",
+              flush=True)
+    print(f"[serving_features] mixed_bf16 launches by dtype "
+          f"{rows['mixed_bf16']['launches_by_dtype']}; phase launches "
+          f"{launches}", flush=True)
+    return launches
+
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=12):
     rows = []
@@ -1721,6 +2054,8 @@ def profile_paths(device):
     """Where the time goes: torch.profiler over (1) `output()` on
     [16, 512] ids, (2) one 8-wide admission wave of 128-token prompts,
     (3) 32 decode dispatches of the paged engine with 8 active slots,
+    and the same under `mixed_bf16` and with int8 weights, and 8
+    speculative (k = 4) dispatches,
     (4) one `fit` step (Adam) on [16, 511] windows, with the step's
     parts timed apart (`_train_step_phases`), and (5) one long-context
     `fit` step at [8, 2048] through the 4-way ring and (6) locally,
@@ -1745,6 +2080,22 @@ def profile_paths(device):
         lambda: eng.admit_many(reqs))
     out["serving_decode_32_dispatches_8_slots"] = _profiled(
         lambda: [eng.step() for _ in range(32)])
+    # phase 8's decode modes: mixed_bf16, int8, and k=4 speculation
+    mixed = build_lm(LM, device, random_lm_params(LM, 1234, 4.0),
+                     dtype_policy=MIXED)
+    for tag, n, kw, n_disp in (
+            ("mixed_bf16", mixed, {}, 32), ("int8", net,
+                                            dict(quantize="int8"), 32),
+            ("spec_k4", net, dict(speculative=4), 8)):
+        e = PagedDecodeEngine(n, n_slots=8, block_len=16,
+                              n_blocks=8 * 32 + 1, device=device, **kw)
+        e.admit_many(reqs)                            # warm
+        while e.active.any():
+            e.step()
+        e.admit_many(reqs)
+        out[f"serving_decode_{n_disp}_dispatches_8_slots_{tag}"] = \
+            _profiled(lambda: [e.step() for _ in range(n_disp)])
+    del mixed
     X, Y = lm_corpus(LM, 32, seed=6)
     train = build_lm(LM, device, random_lm_params(LM, 4321, 1.0))
     train.fit(X[:16], Y[:16], batch_size=16, shuffle=False)        # warm
@@ -1907,6 +2258,10 @@ def run(device, *, small=False, kernels_only=False):
         l7 = phase("bridge", phase_bridge, device, report, fails, small)
         for k in launches:
             launches[k] += (l7 or {}).get(k, 0)
+        l8 = phase("serving_features", phase_serving_features, device,
+                   report, fails, cfg, small)
+        for k in launches:
+            launches[k] += (l8 or {}).get(k, 0)
         for k, n in launches.items():
             fails.check(n > 0, f"kernel {k} never launched on the main path")
     kernels = []

@@ -1,7 +1,8 @@
 """Multi-head attention (counterpart of
 `deeplearning4j_tpu/nn/layers/attention.py`: `forward` :336,
 `forward_with_cache` :199, `_attend_cached` :226,
-`forward_with_paged_cache` :246, `_warn_sp_fallback` :106).
+`forward_with_paged_cache` :246, `forward_with_paged_cache_multi` :290,
+`_warn_sp_fallback` :106).
 
 Params "Wq", "Wk", "Wv", "Wo" ([d, d], used as ``x @ W``) and biases
 "bq".."bo" (the JAX layer's default `has_bias=True`; identity
@@ -24,6 +25,7 @@ import logging
 import torch
 
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
+from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
@@ -109,6 +111,9 @@ class MultiHeadAttention(Layer):
     def head_dim(self):
         return self.n_in // self.n_heads
 
+    def quantizable_weights(self):
+        return _NAMES
+
     def jax_param_map(self):
         m = {}
         for name in _NAMES:
@@ -125,8 +130,16 @@ class MultiHeadAttention(Layer):
             init_weight_(owner or self, getattr(self, name), gen)
 
     def _project(self, x, name):
-        z = torch.matmul(x, getattr(self, name))
-        return z + getattr(self, "b" + name[1:]) if self.has_bias else z
+        z = quant.matmul(x, quant.weight(self, name))
+        return (z + quant.weight(self, "b" + name[1:]) if self.has_bias
+                else z)
+
+    def _scale_in(self, dtype):
+        """1/sqrt(Dh) in `dtype`, computed in it as JAX does (a python
+        float for fp32, the fp32 value the layer keeps)."""
+        if dtype == torch.float32:
+            return self.scale
+        return 1.0 / torch.tensor(float(self.head_dim), dtype=dtype).sqrt()
 
     def heads(self, z):
         b, t, d = z.shape
@@ -195,7 +208,8 @@ class MultiHeadAttention(Layer):
         [B, L, H, Dh]; every slot past a row's `q_pos` [B, T] is masked
         with -inf. Shared by the monolithic and the paged decode paths."""
         L = k_seq.shape[1]
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k_seq.to(q.dtype)) * self.scale
+        s = (torch.einsum("bqhd,bkhd->bhqk", q, k_seq.to(q.dtype))
+             * self._scale_in(q.dtype))
         valid = (torch.arange(L, device=q.device)[None, None, :]
                  <= q_pos[:, :, None])                        # [B, T, L]
         s = s.masked_fill(~valid[:, None], float("-inf"))
@@ -227,3 +241,31 @@ class MultiHeadAttention(Layer):
         k_seq = k_pool[block_table].reshape(S, -1, *k_pool.shape[2:])
         v_seq = v_pool[block_table].reshape(S, -1, *v_pool.shape[2:])
         return self._attend_cached(q, k_seq, v_seq, pos[:, None])
+
+    def forward_with_paged_cache_multi(self, x, k_pool, v_pool, block_table,
+                                       pos, n_valid):
+        """K consecutive tokens per slot over the paged pool (the
+        speculative score and the shared-prefix suffix extension): `x`
+        [S, K, D] at positions `pos[s] .. pos[s] + K - 1`, of which the
+        first `n_valid[s]` are real. The block index clamps to the last
+        table entry before the lookup, and dead lanes (j >= n_valid)
+        write into garbage block 0, where colliding writes do no harm:
+        that block is never read unmasked. Lane j attends over positions
+        <= pos + j, so its output is the single-token path's up to the
+        batch-variance of the matmuls. The pools are updated in place.
+        Returns y [S, K, D]."""
+        if not self.causal:
+            raise ValueError("paged KV-cache decoding requires causal=True")
+        S, K, bl = x.shape[0], x.shape[1], k_pool.shape[1]
+        q, k, v = self._qkv(x)
+        j = torch.arange(K, device=x.device)[None, :]
+        posj = pos[:, None] + j                                 # [S, K]
+        bi = torch.clamp(posj // bl, max=block_table.shape[1] - 1)
+        blk = torch.gather(block_table, 1, bi)
+        blk = torch.where(j < n_valid[:, None], blk, torch.zeros_like(blk))
+        off = posj % bl
+        k_pool[blk, off] = k.to(k_pool.dtype)
+        v_pool[blk, off] = v.to(v_pool.dtype)
+        k_seq = k_pool[block_table].reshape(S, -1, *k_pool.shape[2:])
+        v_seq = v_pool[block_table].reshape(S, -1, *v_pool.shape[2:])
+        return self._attend_cached(q, k_seq, v_seq, posj)

@@ -191,6 +191,13 @@ class Layer(nn.Module):
         layer's `init_params` uses. Layers without params return {}."""
         return {}
 
+    def quantizable_weights(self):
+        """JAX keys of the params that serve as per-output-channel int8
+        (`nd.quant.quantize_net_params`): the matmul weights a layer
+        reads through `nd.quant.matmul`. None by default; biases and
+        norm gains stay floating."""
+        return ()
+
     def init_weights(self, gen: torch.Generator):
         """Draw this layer's params from `gen` (none by default)."""
 

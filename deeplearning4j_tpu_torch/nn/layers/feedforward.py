@@ -9,6 +9,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType,
     InputTypeRecurrent,
@@ -65,9 +66,12 @@ class DenseLayer(_WeightAndBias):
     def get_output_type(self, input_type):
         return InputType.feed_forward(self.n_out)
 
+    def quantizable_weights(self):
+        return ("W",)
+
     def pre_output(self, x):
-        z = torch.matmul(x, self.W)
-        return z + self.b if self.has_bias else z
+        z = quant.matmul(x, quant.weight(self, "W"))
+        return z + quant.weight(self, "b") if self.has_bias else z
 
     def forward(self, x):
         return self.activation(self.pre_output(x))
@@ -101,6 +105,9 @@ class EmbeddingLayer(_WeightAndBias):
         super().__init__(n_in=n_in, n_out=n_out, **config)
         self._build()
 
+    def quantizable_weights(self):
+        return ("W",)
+
     def set_n_in(self, input_type, override=True):
         recurrent = isinstance(input_type, InputTypeRecurrent)
         if override or not self.n_in:
@@ -123,5 +130,11 @@ class EmbeddingLayer(_WeightAndBias):
         idx = x.long().clamp(0, self.n_in - 1)
         if idx.ndim == 2 and idx.shape[-1] == 1 and not self.time_series_input:
             idx = idx[:, 0]
-        z = F.embedding(idx, self.W)
-        return self.activation(z + self.b if self.has_bias else z)
+        W = quant.weight(self, "W")
+        if isinstance(W, quant.QuantizedTensor):
+            # gather the int8 rows, then scale (exact per column)
+            z = W.q[idx].to(W.scale.dtype) * W.scale[0]
+        else:
+            z = F.embedding(idx, W)
+        return self.activation(z + quant.weight(self, "b") if self.has_bias
+                               else z)

@@ -6,6 +6,7 @@ from __future__ import annotations
 import torch
 
 from deeplearning4j_tpu_torch.kernels.layernorm import layer_norm
+from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputTypeConvolutional
 from deeplearning4j_tpu_torch.nn.layers.base import (
     Layer,
@@ -52,8 +53,9 @@ class LayerNormalization(Layer):
         return {"gamma": self.gamma, "beta": self.beta}
 
     def forward(self, x):
-        return self.activation(layer_norm(x.contiguous(), self.gamma,
-                                          self.beta, float(self.eps)))
+        return self.activation(layer_norm(
+            x.contiguous(), quant.weight(self, "gamma"),
+            quant.weight(self, "beta"), float(self.eps)))
 
 
 def layer_norm_reference(x, gamma, beta, eps):

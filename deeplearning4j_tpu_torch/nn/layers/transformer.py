@@ -1,6 +1,7 @@
 """Positional encoding and the pre-LN transformer block (counterpart of
 `deeplearning4j_tpu/nn/layers/transformer.py`: `PositionalEncodingLayer`
-:33, `TransformerEncoderBlock` :103, `stream_budget` :348).
+:33, `TransformerEncoderBlock` :103, `forward_paged_multi` :296,
+`stream_budget` :348).
 
 Block: h = x + MHA(LN1(x)); out = h + FFN(LN2(h)). The full-sequence
 forward (`_forward_impl`, the scoring and training path) runs LN1
@@ -19,6 +20,7 @@ import torch
 
 from deeplearning4j_tpu_torch.common.activations import get_activation
 from deeplearning4j_tpu_torch.kernels.layernorm import residual_layer_norm
+from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers.base import (
@@ -84,10 +86,14 @@ class PositionalEncodingLayer(BaseRecurrentLayer):
         return x + self.table[start:start + T].to(x.dtype), int(carry) + T
 
     def forward_at_positions(self, x, positions):
-        """Per-slot signal for paged decode: `x` [S, 1, D], `positions`
-        [S] (int64). Positions past max_len clamp, as XLA's gather does."""
+        """Per-slot signal for paged decode: `x` [S, T, D], `positions`
+        [S] (one token a slot) or [S, T] (int64). Positions past max_len
+        clamp, as XLA's gather does."""
         idx = positions.clamp(0, self.max_len - 1)
-        return x + self.table[idx][:, None, :].to(x.dtype)
+        rows = self.table[idx]
+        if rows.ndim == 2:
+            rows = rows[:, None, :]
+        return x + rows.to(x.dtype)
 
 
 @register_layer
@@ -151,6 +157,10 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
                  ff_b2=self.ff_b2)
         return m
 
+    def quantizable_weights(self):
+        return ("attn_Wq", "attn_Wk", "attn_Wv", "attn_Wo", "ff_W1",
+                "ff_W2")
+
     def init_weights(self, gen: torch.Generator):
         self.attn.init_weights(gen, owner=self)
         init_weight_(self, self.ff_W1, gen)
@@ -158,8 +168,9 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
 
     def _ffn(self, h):
         act = get_activation(self.ff_activation)
-        h = act(torch.matmul(h, self.ff_W1) + self.ff_b1)
-        return torch.matmul(h, self.ff_W2) + self.ff_b2
+        W = quant.weight
+        h = act(quant.matmul(h, W(self, "ff_W1")) + W(self, "ff_b1"))
+        return quant.matmul(h, W(self, "ff_W2")) + W(self, "ff_b2")
 
     # ------------------------------------------------------ full sequence
     def forward(self, x):
@@ -169,7 +180,8 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         h = self.ln1(x)
         h = self.attn.forward(h)
         x, h = residual_layer_norm(x.contiguous(), h.contiguous(),
-                                   self.ln2.gamma, self.ln2.beta,
+                                   quant.weight(self.ln2, "gamma"),
+                                   quant.weight(self.ln2, "beta"),
                                    self.ln2.eps)
         return x + self._ffn(h)
 
@@ -199,6 +211,18 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         h = self.ln1(x)
         h = self.attn.forward_with_paged_cache(h, k_pool, v_pool,
                                                block_table, pos)
+        return self._stream_tail(x, h)
+
+    def forward_paged_multi(self, x, k_pool, v_pool, block_table, pos,
+                            n_valid):
+        """K-position paged step (the speculative score, the suffix
+        extension): `x` [S, K, D] at positions `pos[s] ..`, `n_valid`
+        [S] real lanes a slot (`MultiHeadAttention.
+        forward_with_paged_cache_multi`); the rest is `_stream_tail`.
+        Returns y."""
+        h = self.ln1(x)
+        h = self.attn.forward_with_paged_cache_multi(
+            h, k_pool, v_pool, block_table, pos, n_valid)
         return self._stream_tail(x, h)
 
     def _stream_tail(self, x, h):

@@ -33,6 +33,14 @@ output layer sees `cast_output(h)` and `cast_output(y)`, and its params
 are the copies rounded to bf16 and upcast again (:347-350), so the loss
 is fp32; `output()` runs every layer in bf16 and returns fp32.
 
+Params version: `params_version` counts the writes of the params
+(`_apply_updates`, `init`, `to`, `load_state_dict`, and through
+`params_changed()` `util.jax_params` loading and `restore_model`). The
+serving tree (`nd.quant.serving_params`: int8 weights, the
+compute-dtype copies under a mixed policy) is cached on it, so decoding
+after a `fit` reads the new weights. Code that writes a param in place
+by hand calls `params_changed()`.
+
 Configuration (`nn/conf/builder.py`): a net is built from a
 `MultiLayerConfiguration` (the JAX constructor, :95) or from a layer
 list, and keeps the configuration as `.conf`, which
@@ -134,6 +142,7 @@ class MultiLayerNetwork(nn.Module):
         self.iteration_count = 0
         self.epoch_count = 0
         self.score_value = float("nan")
+        self.params_version = 0
         # {"<layer>": {param name: updater state}}, keyed like the JAX
         # net's `updater_state` (Adam: {"m", "v"}; Sgd: {})
         self.updater_state: Dict[str, Dict[str, Dict[str, torch.Tensor]]] = {
@@ -150,13 +159,25 @@ class MultiLayerNetwork(nn.Module):
             self.conf.seed if seed is None else int(seed))
         for layer in self.layers:
             layer.init_weights(gen)
+        self.params_changed()
         return self
+
+    def params_changed(self):
+        """Note a write of the params: caches keyed on `params_version`
+        (the serving trees) rebuild at their next use."""
+        self.params_version += 1
+
+    def load_state_dict(self, *args, **kwargs):
+        out = super().load_state_dict(*args, **kwargs)
+        self.params_changed()
+        return out
 
     def to(self, device):
         """Move every parameter, buffer and updater state to `device`
         (resolved like an entry point's `device=`)."""
         self.device = resolve_device(device)
         super().to(self.device)
+        self.params_changed()
         self.updater_state = {
             lk: {pk: {sk: t.to(self.device) for sk, t in st.items()}
                  for pk, st in lst.items()}
@@ -358,6 +379,7 @@ class MultiLayerNetwork(nn.Module):
                 upd, new = updater.apply(g.to(p.dtype), st, step)
                 p.sub_(upd.to(p.dtype))
                 st.update(new)
+        self.params_changed()
 
     # ---------------------------------------------------------------- fit
     def _features(self, x) -> torch.Tensor:

@@ -8,6 +8,7 @@ from deeplearning4j_tpu_torch.serving.paged import (
     GARBAGE_BLOCK,
     BlockAllocator,
     PagedKVPool,
+    RadixPrefixCache,
     blocks_needed,
 )
 from deeplearning4j_tpu_torch.serving.server import (
@@ -19,6 +20,7 @@ from deeplearning4j_tpu_torch.serving.server import (
 )
 
 __all__ = ["GARBAGE_BLOCK", "BlockAllocator", "GenerationServer",
-           "PagedDecodeEngine", "PagedKVPool", "ServerDrainingError",
+           "PagedDecodeEngine", "PagedKVPool", "RadixPrefixCache",
+           "ServerDrainingError",
            "ServerStoppedError", "ShedError", "TokenStream", "blocks_needed",
            "bucket_len"]

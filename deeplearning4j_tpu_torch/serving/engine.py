@@ -10,19 +10,47 @@ to one power-of-two bucket — with the KV-cache carries
 scatters each sequence's cache into its pool blocks and samples its
 first token.
 
-Block allocation is incremental: admission grants the prompt's blocks;
-`step()` grows a slot's table as its position crosses block boundaries,
-and under pool pressure preempts the lowest-progress slot into
-`drain_preempted()` for requeue (the JAX engine's `allocation="upfront"`
-A/B baseline is not ported).
+Block allocation is incremental by default: admission grants the
+prompt's blocks; `step()` grows a slot's table as its position crosses
+block boundaries, and under pool pressure preempts the lowest-progress
+slot into `drain_preempted()` for requeue. `allocation="upfront"`
+grants a request's whole budget at admission (the A/B baseline).
+
+Weights and dtypes: every dispatch reads the net's serving tree,
+resolved per dispatch from the cache keyed on the params version
+(`nd.quant.serving_params`): int8 matmul weights under
+`quantize="int8"`, the compute-dtype copies under `mixed_bf16`, so a
+`fit()` between dispatches serves the new weights. The pool and the
+carries are in the compute dtype; probabilities leave the output layer
+in fp32.
+
+Shared prefixes: `register_prefix` prefills a prompt prefix once into
+pinned pool blocks; an admission whose prompt starts with it maps those
+blocks copy-on-write (refcounted grants), forks a partly filled tail
+block before its first write, and extends the suffix with one
+K-position score (`zoo.transformer.paged_score_forward`); a prompt
+equal to the prefix samples its first token from the stored
+probabilities. `prefix_cache="radix"` adds a radix tree
+(`serving.paged.RadixPrefixCache`) that dedups block-aligned prefixes
+across every admission and evicts LRU leaves under pool pressure,
+never a block a live slot holds.
+
+Speculative decoding (`speculative=k`): an n-gram proposer over each
+slot's history, and with `spec_draft_layers` the first blocks of the
+same net as a greedy drafter, propose up to k-1 tokens; one K-position
+score verifies them. Greedy slots keep the longest prefix the target's
+argmax agrees with; sampled slots ride at depth 1 with their vanilla
+draw, or with `spec_sampled=True` take drafts under rejection sampling
+(`zoo.transformer.rejection_sample_drafts`).
 
 Decode-parity contract: for the same prompt the greedy stream equals
-`generate()`'s. Sampled token t of a request is the Gumbel-max draw with
-noise seeded by (request seed, t) (`zoo.transformer.gumbel_noise`), so a
-stream does not depend on what else is in flight, across preemption
-included. Speculative decoding, shared prefixes (CoW / radix), int8
-weights and the handoff export/adopt are later slices; the constructor
-takes none of their arguments.
+`generate()`'s (`generate(quantize=...)` for int8), by margin where a
+K-wide score and single-token decodes differ in rounding
+(`zoo.transformer.stream_agreement`). Sampled token t of a request is
+the Gumbel-max draw with noise seeded by (request seed, t), so a stream
+does not depend on what else is in flight, across preemption included.
+The handoff export/adopt, the goodput ledger and the SLO, trace and
+metrics mirrors are later slices.
 """
 
 from __future__ import annotations
@@ -33,6 +61,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.layers import (
     BaseRecurrentLayer,
     PositionalEncodingLayer,
@@ -42,13 +71,15 @@ from deeplearning4j_tpu_torch.nn.layers import (
 from deeplearning4j_tpu_torch.serving.paged import (
     GARBAGE_BLOCK,
     PagedKVPool,
+    RadixPrefixCache,
     blocks_needed,
 )
 from deeplearning4j_tpu_torch.zoo.transformer import (
-    check_decode_policy,
     check_ids,
     get_prefill_bucketed,
     gumbel_noise,
+    paged_score_forward,
+    rejection_sample_drafts,
     sample_ids,
 )
 
@@ -61,17 +92,27 @@ def bucket_len(n: int, cap: int) -> int:
     return min(b, cap)
 
 
+def _request_fields(r: dict):
+    """(seed, emit offset, temperature, top_p) of a request dict."""
+    p = r.get("top_p")
+    return (int(r.get("rng") or 0), int(r.get("emit_start") or 0),
+            float(r.get("temperature") or 0.0), 1.0 if p is None else p)
+
+
 class Slot:
     """Host mirror of one serving slot's in-flight sequence."""
 
-    __slots__ = ("request_id", "blocks", "emitted", "emit_base")
+    __slots__ = ("request_id", "blocks", "emitted", "emit_base", "history")
 
-    def __init__(self, request_id, blocks, emit_base=0):
+    def __init__(self, request_id, blocks, emit_base=0, history=None):
         self.request_id = request_id
         self.blocks = blocks
         self.emitted = 0
         # tokens emitted in EARLIER admissions of a requeued continuation
         self.emit_base = emit_base
+        # prompt + emitted tokens: the n-gram proposer's history (kept
+        # only under speculation)
+        self.history: List[int] = history if history is not None else []
 
     @property
     def progress(self) -> int:
@@ -87,25 +128,61 @@ class PagedDecodeEngine:
 
     def __init__(self, net, *, n_slots: int = 8, n_blocks: int = 64,
                  block_len: int = 16, top_k: Optional[int] = None,
-                 steps_per_dispatch: int = 1, device="cuda"):
+                 steps_per_dispatch: int = 1,
+                 quantize: Optional[str] = None,
+                 allocation: str = "incremental",
+                 speculative: Optional[int] = None,
+                 spec_max_ngram: int = 3,
+                 spec_sampled: bool = False,
+                 spec_draft_layers: Optional[int] = None,
+                 prefix_cache: str = "registered", device="cuda"):
         self.device = resolve_device(device)
         if net.device != self.device:
             raise ValueError(f"net lives on {net.device}, engine asked for "
                              f"{self.device}: move the net with .to()")
-        check_decode_policy(net)
         self.net = net
         self.n_slots = int(n_slots)
-        if self.n_slots < 1:
-            raise ValueError(f"n_slots must be >= 1; got {n_slots}")
         self.steps_per_dispatch = int(steps_per_dispatch)
         if self.steps_per_dispatch < 1:
             raise ValueError(
                 f"steps_per_dispatch must be >= 1; got {steps_per_dispatch}")
-        self.vocab = net.layers[-1].n_out
         self.top_k = None if top_k is None else int(top_k)
-        if self.top_k is not None and not 1 <= self.top_k <= self.vocab:
-            raise ValueError(f"top_k must be in [1, vocab={self.vocab}]; "
-                             f"got {top_k}")
+        if self.n_slots < 1:
+            raise ValueError(f"n_slots must be >= 1; got {n_slots}")
+        if allocation not in ("incremental", "upfront"):
+            raise ValueError(
+                f"allocation must be 'incremental' or 'upfront'; "
+                f"got {allocation!r}")
+        self.allocation = allocation
+        self.quantize = quantize
+        if speculative is not None:
+            speculative = int(speculative)
+            if speculative < 2:
+                raise ValueError(
+                    f"speculative (the draft depth k) must be >= 2 — "
+                    f"k=1 is ordinary decode; got {speculative}")
+        self.spec_k = speculative
+        self.spec_max_ngram = int(spec_max_ngram)
+        self.spec_sampled = bool(spec_sampled)
+        if self.spec_sampled and self.spec_k is None:
+            raise ValueError(
+                "spec_sampled=True without speculative=k — there is "
+                "no draft depth to rejection-sample over")
+        if spec_draft_layers is not None:
+            spec_draft_layers = int(spec_draft_layers)
+            if self.spec_k is None:
+                raise ValueError(
+                    "spec_draft_layers without speculative=k — the "
+                    "drafter only feeds speculative dispatches")
+        self.spec_draft_layers = spec_draft_layers
+        if prefix_cache not in ("registered", "radix"):
+            raise ValueError(
+                f"prefix_cache must be 'registered' or 'radix'; "
+                f"got {prefix_cache!r}")
+        self.prefix_cache_mode = prefix_cache
+        # build (and validate) the serving tree now, not inside the
+        # first live dispatch; dispatches resolve it from the cache
+        quant.serving_params(net, quantize)
         budget = stream_budget(net.layers)
         if budget is None:
             raise ValueError("net has no bounded stream budget (no "
@@ -116,10 +193,23 @@ class PagedDecodeEngine:
                 f"block_len {block_len} must divide the stream budget "
                 f"{budget}: the gathered page view must have the "
                 f"monolithic cache's length for decode parity")
+        self.vocab = net.layers[-1].n_out
+        if self.top_k is not None and not 1 <= self.top_k <= self.vocab:
+            raise ValueError(f"top_k must be in [1, vocab={self.vocab}]; "
+                             f"got {top_k}")
         self.max_blocks = budget // int(block_len)
         self.max_total_tokens = budget
+        if self.spec_k is not None and self.spec_k > budget:
+            raise ValueError(
+                f"speculative depth {self.spec_k} exceeds the stream "
+                f"budget {budget} — no slot could ever take a full-"
+                f"depth dispatch")
         self.pool = PagedKVPool(net, n_blocks, block_len)
         self.block_len = int(block_len)
+        if net.conf.input_preprocessors:
+            raise ValueError(
+                "paged decode does not support input preprocessors "
+                f"(found at {sorted(net.conf.input_preprocessors)})")
         self._plan: List[Tuple] = []
         pool_j = 0
         for i, layer in enumerate(net.layers):
@@ -133,6 +223,25 @@ class PagedDecodeEngine:
                                  "carries state but has no paged path")
             else:
                 self._plan.append(("plain", i))
+        # the truncated drafter's walk: the same plan with only the
+        # first `spec_draft_layers` blocks (layer i's K/V depends only
+        # on layers < i, so the slot's pages are its cache too)
+        self._draft_plan: Optional[List[Tuple]] = None
+        if self.spec_draft_layers is not None:
+            n_layers = sum(1 for e in self._plan if e[0] == "block")
+            if not 1 <= self.spec_draft_layers < n_layers:
+                raise ValueError(
+                    f"spec_draft_layers must be in [1, {n_layers - 1}] "
+                    f"(a strict truncation of the {n_layers}-block "
+                    f"target); got {self.spec_draft_layers}")
+            kept = 0
+            self._draft_plan = []
+            for e in self._plan:
+                if e[0] == "block":
+                    if kept >= self.spec_draft_layers:
+                        continue
+                    kept += 1
+                self._draft_plan.append(e)
         S = self.n_slots
         self.block_tables = np.zeros((S, self.max_blocks), np.int64)
         self.pos = np.zeros(S, np.int64)
@@ -144,11 +253,39 @@ class PagedDecodeEngine:
         self.temp = np.zeros(S, np.float32)
         self.top_p = np.ones(S, np.float32)
         self.slots: List[Optional[Slot]] = [None] * S
+        # registered prefixes: key (token tuple) -> {tokens, len, blocks,
+        # probs}; the registry holds one reference on each block
+        self._prefixes: Dict[tuple, dict] = {}
+        self.prefix_pinned_blocks = 0
+        self._radix: Optional[RadixPrefixCache] = (
+            RadixPrefixCache(self.pool.allocator, self.block_len)
+            if prefix_cache == "radix" else None)
+        self.radix_hit_tokens_total = 0
+        self.radix_evictions_total = 0
         self.block_grants_total = 0
         self.evict_requeue_total = 0
+        self.spec_dispatches_total = 0
+        self.spec_proposed_total = 0
+        self.spec_accepted_total = 0
+        self.spec_emitted_total = 0
+        self.spec_proposed_by: Dict[str, int] = {"ngram": 0, "truncated": 0}
+        self.spec_accepted_by: Dict[str, int] = {"ngram": 0, "truncated": 0}
+        self.spec_draft_dispatches_total = 0
+        self.prefix_hits_total = 0
+        self.prefix_tokens_saved_total = 0
+        self.prefix_forks_total = 0
         self._preempted: List[dict] = []
 
     # ------------------------------------------------------------ queries
+    @property
+    def _params(self) -> quant.ServingTree:
+        """The serving tree every dispatch reads, resolved per dispatch
+        (a cache lookup unless the params changed since)."""
+        return quant.serving_params(self.net, self.quantize)
+
+    def _weights(self):
+        return quant.installed(self._params.installable)
+
     @property
     def free_slots(self) -> int:
         return sum(1 for s in self.slots if s is None)
@@ -161,16 +298,101 @@ class PagedDecodeEngine:
     def free_blocks(self) -> int:
         return self.pool.free_blocks
 
-    def can_admit(self, prompt_len: int) -> bool:
-        """A free slot and the prompt's blocks are available now."""
+    @property
+    def has_prefixes(self) -> bool:
+        return bool(self._prefixes)
+
+    def _admit_blocks(self, prompt_len: int, n_tokens: int) -> int:
+        """Blocks an admission grants now: the prompt's (incremental) or
+        the whole request's (upfront)."""
+        if self.allocation == "incremental":
+            return blocks_needed(prompt_len, self.block_len)
+        return blocks_needed(prompt_len + n_tokens, self.block_len)
+
+    def _match_prefix(self, prompt) -> Optional[dict]:
+        """The longest registered prefix of `prompt`, or None."""
+        best = None
+        # a snapshot: submitter threads call this through check_budget
+        # while the scheduler applies registrations
+        for e in list(self._prefixes.values()):
+            P = e["len"]
+            if P > prompt.shape[0] or (best is not None
+                                       and P <= best["len"]):
+                continue
+            if np.array_equal(np.asarray(prompt[:P], np.int64),
+                              e["tokens"]):
+                best = e
+        return best
+
+    def _cow_fresh_blocks(self, entry: dict, map_tokens: int) -> int:
+        """Fresh blocks a CoW admission mapping `map_tokens` positions
+        allocates: the map minus the shared blocks, plus the forked tail
+        when the prefix ends mid-block."""
+        nb_sh = blocks_needed(entry["len"], self.block_len)
+        fork = 0 if entry["len"] % self.block_len == 0 else 1
+        return blocks_needed(map_tokens, self.block_len) - nb_sh + fork
+
+    def _reclaimable_blocks(self) -> int:
+        """The free list plus what evicting the unpinned radix tree
+        would return."""
+        extra = (self._radix.evictable_blocks
+                 if self._radix is not None else 0)
+        return self.pool.free_blocks + extra
+
+    def _match_radix(self, prompt) -> Optional[dict]:
+        """The longest block-aligned radix-cached prefix of `prompt` as a
+        CoW entry (no stored probs: the match stays below the full
+        prompt, so the suffix extension samples the first token)."""
+        if self._radix is None:
+            return None
+        P = int(prompt.shape[0])
+        matched, blocks = self._radix.match(prompt)
+        if matched >= P:
+            matched -= self.block_len
+            blocks = blocks[:-1]
+        if matched <= 0:
+            return None
+        return dict(tokens=np.asarray(prompt[:matched], np.int64),
+                    len=matched, blocks=blocks, probs=None, radix=True)
+
+    def _alloc_admit(self, n: int) -> Optional[List[int]]:
+        """Admission allocation: on exhaustion evict radix LRU leaves
+        (cache-only references, never a live slot's) until it fits."""
+        got = self.pool.allocator.allocate(n)
+        while got is None and self._radix is not None:
+            if not self._radix.evict_lru():
+                break
+            self.radix_evictions_total += 1
+            got = self.pool.allocator.allocate(n)
+        return got
+
+    def can_admit(self, prompt_len: int, n_tokens: int = 1,
+                  prompt_ids=None) -> bool:
+        """A free slot and the blocks the admission grants are available
+        now (a prompt that rides a prefix is charged its fresh blocks)."""
         if not any(s is None for s in self.slots):
             return False
-        return blocks_needed(prompt_len, self.block_len) <= self.free_blocks
+        if prompt_ids is not None and (self._prefixes
+                                       or self._radix is not None):
+            prompt = np.asarray(prompt_ids)
+            entry = self._match_prefix(prompt)
+            if entry is None:
+                entry = self._match_radix(prompt)
+            if entry is not None:
+                map_tokens = (prompt_len if self.allocation == "incremental"
+                              else prompt_len + n_tokens)
+                return (self._cow_fresh_blocks(entry, map_tokens)
+                        <= self._reclaimable_blocks())
+        return (self._admit_blocks(prompt_len, n_tokens)
+                <= self._reclaimable_blocks())
 
-    def check_budget(self, prompt_len: int, n_tokens: int):
+    def check_budget(self, prompt_len: int, n_tokens: int, prompt_ids=None):
         """Reject requests that can NEVER be admitted: over the
         per-sequence budget, or needing more blocks at the end than the
-        pool can ever free (a request must be able to finish alone)."""
+        pool can ever free (a request must be able to finish alone;
+        blocks pinned by registered prefixes never free). With
+        `prompt_ids`, a request riding a registered prefix is charged
+        only its fresh blocks."""
         if n_tokens < 1:
             raise ValueError(f"n_tokens must be >= 1; got {n_tokens}")
         total = prompt_len + n_tokens
@@ -178,15 +400,23 @@ class PagedDecodeEngine:
             raise ValueError(
                 f"prompt ({prompt_len}) + n_tokens ({n_tokens}) = {total} "
                 f"exceeds the per-sequence page budget "
-                f"{self.max_total_tokens}; this request can never be "
-                f"admitted")
-        usable = self.pool.n_blocks - 1
+                f"{self.max_total_tokens} (max_blocks {self.max_blocks} x "
+                f"block_len {self.block_len}); this request can never be "
+                f"admitted — rebuild the model with a larger max_len")
+        usable = self.pool.n_blocks - 1 - self.prefix_pinned_blocks
         needed = blocks_needed(total, self.block_len)
+        if prompt_ids is not None and self._prefixes:
+            entry = self._match_prefix(np.asarray(prompt_ids))
+            if entry is not None:
+                needed = self._cow_fresh_blocks(entry, total)
         if needed > usable:
             raise ValueError(
                 f"request needs {needed} pool blocks but the pool only "
                 f"has {usable} usable (n_blocks {self.pool.n_blocks} incl. "
-                f"the garbage block); it can never be admitted")
+                f"the reserved garbage block and "
+                f"{self.prefix_pinned_blocks} pinned by registered "
+                f"prefixes); it can never be admitted — grow n_blocks or "
+                f"shorten the request")
 
     # ----------------------------------------------------------- sampling
     def _noise(self, seeds, emit_idx, temps) -> Optional[torch.Tensor]:
@@ -206,6 +436,68 @@ class PagedDecodeEngine:
         return sample_ids(probs, torch.as_tensor(temps, device=dev),
                           self.top_k, torch.as_tensor(top_ps, device=dev),
                           noise, greedy_only=noise is None)
+
+    # ------------------------------------------------- shared prefixes
+    @torch.no_grad()
+    def register_prefix(self, token_ids) -> tuple:
+        """Prefill a shared prompt prefix ONCE into dedicated pool blocks
+        pinned by the registry; later admissions whose prompt starts
+        with it map those blocks copy-on-write. Idempotent per id
+        sequence; returns the registry key. Raises when the pool cannot
+        host the prefix now."""
+        prompt = np.asarray(token_ids)
+        if prompt.ndim == 2 and prompt.shape[0] == 1:
+            prompt = prompt[0]
+        if prompt.ndim != 1 or prompt.size == 0:
+            raise ValueError(
+                f"prefix must be a non-empty 1-D id sequence; got "
+                f"shape {prompt.shape}")
+        prompt = prompt.astype(np.int64)
+        check_ids(prompt, self.vocab)
+        P = int(prompt.shape[0])
+        if P >= self.max_total_tokens:
+            raise ValueError(
+                f"prefix of {P} tokens leaves no room to generate "
+                f"under the {self.max_total_tokens}-token page budget")
+        key = tuple(int(t) for t in prompt)
+        if key in self._prefixes:
+            return key
+        nb = blocks_needed(P, self.block_len)
+        blocks = self.pool.allocator.allocate(nb)
+        if blocks is None:
+            raise ValueError(
+                f"pool cannot host a {nb}-block prefix right now "
+                f"({self.pool.free_blocks} free) — register prefixes "
+                f"before admitting traffic, or grow n_blocks")
+        try:
+            Pb = bucket_len(P, self.max_total_tokens)
+            prompts = np.zeros((1, Pb), np.int64)
+            prompts[0, :P] = prompt
+            dev = self.device
+            with self._weights():
+                probs, carries = get_prefill_bucketed(self.net)(
+                    torch.as_tensor(prompts, device=dev),
+                    self.net.init_carries(1),
+                    torch.as_tensor([P - 1], device=dev))
+            rows = np.full((1, self.max_blocks), GARBAGE_BLOCK, np.int64)
+            rows[0, :nb] = blocks
+            self._scatter_carries(carries, rows, 1)
+        except Exception:
+            self.pool.allocator.free(blocks)
+            raise
+        self._prefixes[key] = dict(tokens=prompt, len=P, blocks=blocks,
+                                   probs=probs[0])
+        self.prefix_pinned_blocks += nb
+        self.block_grants_total += nb
+        return key
+
+    def release_prefix(self, key: tuple):
+        """Unpin a registered prefix: the registry's references drop;
+        blocks still mapped by in-flight slots stay granted until those
+        slots release."""
+        entry = self._prefixes.pop(tuple(key))
+        self.pool.allocator.free(entry["blocks"])
+        self.prefix_pinned_blocks -= len(entry["blocks"])
 
     # ---------------------------------------------------------- admission
     def admit_many(self, requests: List[dict]):
@@ -228,26 +520,51 @@ class PagedDecodeEngine:
                 prompt = prompt.astype(np.int64)
                 check_ids(prompt, self.vocab)
                 P, n_tokens = int(prompt.shape[0]), int(r["n_tokens"])
-                self.check_budget(P, n_tokens)
+                self.check_budget(P, n_tokens, prompt_ids=prompt)
                 slot = next((i for i, s in enumerate(self.slots)
                              if s is None
                              and all(i != w["slot"] for w in wave)), None)
                 if slot is None:
                     break
-                nb = blocks_needed(P, self.block_len)
-                blocks = self.pool.allocator.allocate(nb)
-                if blocks is None:
-                    break
-                wave.append(dict(blocks=blocks, grants=nb, slot=slot,
-                                 prompt=prompt, n_tokens=n_tokens, r=r))
+                entry = self._match_prefix(prompt)
+                if entry is None:
+                    entry = self._match_radix(prompt)
+                if entry is None:
+                    nb = self._admit_blocks(P, n_tokens)
+                    blocks = self._alloc_admit(nb)
+                    if blocks is None:
+                        break
+                    w = dict(blocks=blocks, grants=nb, entry=None, fork=None)
+                else:
+                    w = self._cow_admit_blocks(entry, P, n_tokens)
+                    if w is None:
+                        break
+                w.update(slot=slot, prompt=prompt, n_tokens=n_tokens, r=r)
+                wave.append(w)
             if not wave:
                 return []
             results = {}
-            self._admit_wave(wave, results)
+            norm = [w for w in wave if w["entry"] is None]
+            cow = [w for w in wave if w["entry"] is not None]
+            with torch.no_grad(), self._weights():
+                if norm:
+                    self._admit_wave(norm, results)
+                if cow:
+                    self._admit_wave_shared(cow, results)
+            if self._radix is not None:
+                # the admitted prompts' full blocks feed the tree (the
+                # partial tail block, still being written, never does)
+                for w in wave:
+                    slot = self.slots[w["slot"]]
+                    n_full = len(w["prompt"]) // self.block_len
+                    if slot is not None and n_full:
+                        self._radix.insert(w["prompt"],
+                                           slot.blocks[:n_full])
             return [results[w["slot"]] for w in wave]
         except Exception:
             # blocks of a failed wave that no Slot took over go back to
-            # the pool (otherwise the pool would shrink for good)
+            # the pool (a CoW entry's list mixes fresh blocks and shared
+            # references; `free` drops one reference of each)
             for w in wave:
                 s = self.slots[w["slot"]]
                 if s is None or s.blocks is not w["blocks"]:
@@ -256,6 +573,50 @@ class PagedDecodeEngine:
                     except ValueError:
                         pass   # already back in the pool
             raise
+
+    def _cow_admit_blocks(self, entry: dict, prompt_len: int,
+                          n_tokens: int) -> Optional[dict]:
+        """Grants of a shared-prefix admission: one reference on each
+        shared block (taken before the fresh allocation, which may evict
+        radix leaves), the fresh remainder, and when the prefix ends
+        mid-block the fork of its tail into a fresh block (this slot's
+        reference on the shared tail drops; the cache keeps its own).
+        None when the pool cannot cover the fresh blocks now."""
+        alloc = self.pool.allocator
+        bl = self.block_len
+        P = entry["len"]
+        nb_sh = blocks_needed(P, bl)
+        map_tokens = (prompt_len if self.allocation == "incremental"
+                      else prompt_len + n_tokens)
+        n_fresh = self._cow_fresh_blocks(entry, map_tokens)
+        alloc.share(entry["blocks"][:nb_sh])
+        fresh = [] if n_fresh == 0 else self._alloc_admit(n_fresh)
+        if fresh is None:
+            alloc.free(entry["blocks"][:nb_sh])
+            return None
+        if P % bl == 0:
+            blocks = list(entry["blocks"][:nb_sh]) + fresh
+            fork = None
+        else:
+            src, dst = entry["blocks"][nb_sh - 1], fresh[0]
+            alloc.free([src])
+            fork = (src, dst)
+            blocks = list(entry["blocks"][:nb_sh - 1]) + [dst] + fresh[1:]
+        return dict(blocks=blocks, grants=n_fresh, entry=entry, fork=fork)
+
+    def _scatter_carries(self, carries, rows, k2):
+        """Write each row's monolithic K/V cache into its pool blocks
+        (`rows` [k2, max_blocks]; unowned entries point at the garbage
+        block)."""
+        bl = self.block_len
+        rows_t = torch.as_tensor(rows, device=self.device)
+        for (k_pool, v_pool), li in zip(self.pool.kv, self.pool.layer_indices):
+            k_cache, v_cache, _ = carries[str(li)]
+            C = k_cache.shape[1]
+            flat = rows_t[:, :C // bl].reshape(-1)
+            shape = (k2 * (C // bl), bl) + tuple(k_cache.shape[2:])
+            k_pool[flat] = k_cache.reshape(shape).to(k_pool.dtype)
+            v_pool[flat] = v_cache.reshape(shape).to(v_pool.dtype)
 
     def _admit_wave(self, wave, results):
         k = len(wave)
@@ -280,8 +641,6 @@ class PagedDecodeEngine:
         probs, carries = get_prefill_bucketed(self.net)(
             torch.as_tensor(prompts, device=dev),
             self.net.init_carries(k2), torch.as_tensor(last_idx, device=dev))
-
-        bl = self.block_len
         rows = np.full((k2, self.max_blocks), GARBAGE_BLOCK, np.int64)
         seeds = np.zeros(k2, np.int64)
         emit0 = np.zeros(k2, np.int64)
@@ -289,32 +648,84 @@ class PagedDecodeEngine:
         top_ps = np.ones(k2, np.float32)
         for j, w in enumerate(wave):
             rows[j, :len(w["blocks"])] = w["blocks"]
-            r = w["r"]
-            seeds[j] = int(r.get("rng") or 0)
-            emit0[j] = int(r.get("emit_start") or 0)
-            temps[j] = r.get("temperature") or 0.0
-            p = r.get("top_p")
-            top_ps[j] = 1.0 if p is None else p
-        rows_t = torch.as_tensor(rows, device=dev)
-        # scatter each row's monolithic cache into its pool blocks, in
-        # place; unowned table entries point at the garbage block
-        for (k_pool, v_pool), li in zip(self.pool.kv, self.pool.layer_indices):
-            k_cache, v_cache, _ = carries[str(li)]
-            C = k_cache.shape[1]
-            flat = rows_t[:, :C // bl].reshape(-1)
-            shape = (k2 * (C // bl), bl) + tuple(k_cache.shape[2:])
-            k_pool[flat] = k_cache.reshape(shape).to(k_pool.dtype)
-            v_pool[flat] = v_cache.reshape(shape).to(v_pool.dtype)
+            seeds[j], emit0[j], temps[j], top_ps[j] = _request_fields(w["r"])
+        self._scatter_carries(carries, rows, k2)
         firsts = self._sample(probs, seeds, emit0, temps, top_ps).cpu().numpy()
         for j, w in enumerate(wave):
             self._finish_admission(w, int(firsts[j]), int(seeds[j]), results)
 
+    def _admit_wave_shared(self, wave, results):
+        """Shared-prefix (CoW) admission: fork the mid-block tails, then
+        ONE K-position score extends every hit past its shared region
+        (attending the shared blocks through the slot's table) and
+        samples the first tokens; a prompt equal to its prefix samples
+        from the prefix's stored probabilities, with no forward."""
+        pairs = [w["fork"] for w in wave if w["fork"] is not None]
+        if pairs:
+            self._run_fork(pairs)
+        for w in wave:
+            slot = w["slot"]
+            self.block_tables[slot] = GARBAGE_BLOCK
+            self.block_tables[slot, :len(w["blocks"])] = w["blocks"]
+            w["suffix"] = w["prompt"][w["entry"]["len"]:]
+        firsts, seed_of = {}, {}
+        S = self.n_slots
+        ext = [w for w in wave if w["suffix"].shape[0] > 0]
+        if ext:
+            K = bucket_len(max(int(w["suffix"].shape[0]) for w in ext),
+                           self.max_total_tokens)
+            token_mat = np.zeros((S, K), np.int64)
+            n_valid = np.zeros(S, np.int64)
+            pos = np.zeros(S, np.int64)
+            seeds = np.zeros(S, np.int64)
+            emit0 = np.zeros(S, np.int64)
+            temps = np.zeros(S, np.float32)
+            top_ps = np.ones(S, np.float32)
+            for w in ext:
+                s, Ts = w["slot"], int(w["suffix"].shape[0])
+                token_mat[s, :Ts] = w["suffix"]
+                n_valid[s] = Ts
+                pos[s] = w["entry"]["len"]
+                seeds[s], emit0[s], temps[s], top_ps[s] = _request_fields(
+                    w["r"])
+                seed_of[s] = int(seeds[s])
+            probs = self._score(token_mat, pos, n_valid)
+            last = probs[torch.arange(S, device=self.device),
+                         torch.as_tensor(np.maximum(n_valid - 1, 0),
+                                         device=self.device)]
+            chosen = self._sample(last, seeds, emit0, temps,
+                                  top_ps).cpu().numpy()
+            for w in ext:
+                firsts[w["slot"]] = int(chosen[w["slot"]])
+        exact = [w for w in wave if w["suffix"].shape[0] == 0]
+        if exact:
+            n = len(exact)
+            probs = torch.stack([w["entry"]["probs"] for w in exact])
+            seeds = np.zeros(n, np.int64)
+            emit0 = np.zeros(n, np.int64)
+            temps = np.zeros(n, np.float32)
+            top_ps = np.ones(n, np.float32)
+            for j, w in enumerate(exact):
+                seeds[j], emit0[j], temps[j], top_ps[j] = _request_fields(
+                    w["r"])
+                seed_of[w["slot"]] = int(seeds[j])
+            ids = self._sample(probs, seeds, emit0, temps,
+                               top_ps).cpu().numpy()
+            for j, w in enumerate(exact):
+                firsts[w["slot"]] = int(ids[j])
+        for w in wave:
+            self._finish_admission(w, firsts[w["slot"]], seed_of[w["slot"]],
+                                   results)
+
     def _finish_admission(self, w, first, seed, results):
+        """Slot bookkeeping of both admission paths."""
         slot, prompt, blocks = w["slot"], w["prompt"], w["blocks"]
         n_tokens, r = w["n_tokens"], w["r"]
-        emit0 = int(r.get("emit_start") or 0)
+        _, emit0, temp, top_p = _request_fields(r)
         done = n_tokens == 1
-        s = Slot(r.get("request_id"), blocks, emit_base=emit0)
+        s = Slot(r.get("request_id"), blocks, emit_base=emit0,
+                 history=([int(t) for t in prompt] + [first]
+                          if self.spec_k else None))
         s.emitted = 1
         self.slots[slot] = s
         self.block_tables[slot] = GARBAGE_BLOCK
@@ -324,11 +735,16 @@ class PagedDecodeEngine:
         self.emit_idx[slot] = emit0 + 1
         self.last_token[slot] = first
         self.seeds[slot] = seed
-        self.temp[slot] = r.get("temperature") or 0.0
-        p = r.get("top_p")
-        self.top_p[slot] = 1.0 if p is None else p
+        self.temp[slot] = temp
+        self.top_p[slot] = top_p
         self.active[slot] = not done
         self.block_grants_total += w["grants"]
+        entry = w["entry"]
+        if entry is not None:
+            self.prefix_hits_total += 1
+            self.prefix_tokens_saved_total += entry["len"]
+            if entry.get("radix"):
+                self.radix_hit_tokens_total += entry["len"]
         if done:
             self._release(slot)
         results[slot] = (slot, first, done)
@@ -360,8 +776,14 @@ class PagedDecodeEngine:
         return out
 
     def _allocate_under_pressure(self, s: int, n: int):
+        """`n` blocks for slot `s`: radix LRU leaves go first, then the
+        lowest-progress slot is preempted; None when `s` itself lost."""
         got = self.pool.allocator.allocate(n)
         while got is None:
+            if self._radix is not None and self._radix.evict_lru():
+                self.radix_evictions_total += 1
+                got = self.pool.allocator.allocate(n)
+                continue
             victim = self._lowest_progress_active()
             self._preempt(victim)
             if victim == s:
@@ -369,15 +791,20 @@ class PagedDecodeEngine:
             got = self.pool.allocator.allocate(n)
         return got
 
-    def _grow_block_tables(self):
-        """Grant every active slot the blocks its next write window
-        `[pos, pos + min(J, remaining))` crosses into."""
+    def _grow_block_tables(self, tokens_by_slot=None):
+        """Before a dispatch: grant every active slot the blocks its
+        write window `[pos, pos + tokens)` crosses into (tokens: `min(J,
+        remaining)`, or `tokens_by_slot[s]`), and fork every window
+        block it does not own alone (refcount > 1) into a fresh one —
+        no dispatch writes a block another holder reads."""
         J = self.steps_per_dispatch
+        fork_pairs = []
         for s in range(self.n_slots):
             if not self.active[s] or self.slots[s] is None:
                 continue
             slot = self.slots[s]
-            tokens = min(J, int(self.remaining[s]))
+            tokens = (min(J, int(self.remaining[s])) if tokens_by_slot is None
+                      else int(tokens_by_slot.get(s, 0)))
             if tokens < 1:
                 continue
             needed = blocks_needed(int(self.pos[s]) + tokens, self.block_len)
@@ -389,12 +816,47 @@ class PagedDecodeEngine:
                 slot.blocks.extend(got)
                 self.block_tables[s, have:needed] = got
                 self.block_grants_total += len(got)
+            first_b = int(self.pos[s]) // self.block_len
+            last_b = (int(self.pos[s]) + tokens - 1) // self.block_len
+            for bi in range(first_b, min(last_b + 1, len(slot.blocks))):
+                src = slot.blocks[bi]
+                if self.pool.allocator.refcount(src) <= 1:
+                    continue
+                got = self._allocate_under_pressure(s, 1)
+                if got is None or self.slots[s] is None:
+                    break              # s lost the pool race mid-fork
+                dst = got[0]
+                fork_pairs.append((s, src, dst))
+                slot.blocks[bi] = dst
+                self.block_tables[s, bi] = dst
+                self.pool.allocator.free([src])
+                self.block_grants_total += 1
+        # a slot preempted after recording a fork has freed its target
+        # (maybe re-granted since): only live slots' forks run
+        fork_pairs = [(src, dst) for s, src, dst in fork_pairs
+                      if self.slots[s] is not None]
+        if fork_pairs:
+            self._run_fork(fork_pairs)
+
+    @torch.no_grad()
+    def _run_fork(self, pairs):
+        """Copy-on-write fork: copy pool blocks src -> dst in every
+        layer's K and V pool."""
+        dev = self.device
+        src = torch.as_tensor([p[0] for p in pairs], device=dev)
+        dst = torch.as_tensor([p[1] for p in pairs], device=dev)
+        for k_pool, v_pool in self.pool.kv:
+            k_pool[dst] = k_pool[src]
+            v_pool[dst] = v_pool[src]
+        self.prefix_forks_total += len(pairs)
 
     # ------------------------------------------------------------- decode
-    def _one_token(self, tok, pos, block_tables):
+    def _walk(self, plan, tok, pos, block_tables):
+        """One token a slot through `plan` (the net's walk or the
+        drafter's) over the pool: probs [S, V] in the output dtype."""
         layers = self.net.layers
         h = tok[:, None]
-        for entry in self._plan:
+        for entry in plan:
             kind, i = entry[0], entry[1]
             if kind == "plain":
                 h = layers[i](h)
@@ -404,16 +866,38 @@ class PagedDecodeEngine:
                 k_pool, v_pool = self.pool.kv[entry[2]]
                 h = layers[i].forward_paged(h, k_pool, v_pool, block_tables,
                                             pos)
-        return h[:, -1]                                  # [S, V] probs
+        return self.net.dtype.cast_output(h[:, -1])
+
+    def _score(self, token_mat, pos, n_valid):
+        """The K-position score over the pool (in place): probs
+        [S, K, V]."""
+        dev = self.device
+        return paged_score_forward(
+            self.net, self._plan, self.pool.kv,
+            torch.as_tensor(self.block_tables, device=dev),
+            torch.as_tensor(token_mat, device=dev),
+            torch.as_tensor(pos, device=dev),
+            torch.as_tensor(n_valid, device=dev))
 
     @torch.no_grad()
-    def step(self) -> Tuple[Dict[int, List[int]], List[int]]:
+    def step(self, *, speculate: Optional[bool] = None,
+             proposers: Optional[tuple] = None
+             ) -> Tuple[Dict[int, List[int]], List[int]]:
         """One dispatch: every active slot advances up to
-        `steps_per_dispatch` tokens. A slot that finishes mid-chunk keeps
-        decoding (into its own pages or the garbage block) and its extra
-        tokens are dropped on the host. Returns ({slot: [tokens]},
-        [slots finished and released])."""
-        self._grow_block_tables()
+        `steps_per_dispatch` tokens, or with `speculative=k` (and
+        `speculate` not False) up to k tokens through one K-position
+        score (`_spec_step`; `proposers` restricts the draft backends).
+        A slot that finishes mid-chunk keeps decoding (into its own pages
+        or the garbage block) and its extra tokens are dropped on the
+        host. Returns ({slot: [tokens]}, [slots finished and
+        released])."""
+        if speculate is None:
+            speculate = self.spec_k is not None
+        if speculate and self.spec_k:
+            return self._spec_step(proposers=proposers)
+        if (self.allocation == "incremental" or self._prefixes
+                or self._radix is not None):
+            self._grow_block_tables()
         if not self.active.any():
             return {}, []
         dev = self.device
@@ -423,12 +907,13 @@ class PagedDecodeEngine:
         pos = torch.as_tensor(self.pos, device=dev)
         temps = np.where(self.active, self.temp, 0.0).astype(np.float32)
         out = []
-        for j in range(J):
-            probs = self._one_token(tok, pos, bt)
-            tok = self._sample(probs, self.seeds, self.emit_idx + j, temps,
-                               self.top_p)
-            out.append(tok)
-            pos = pos + 1
+        with self._weights():
+            for j in range(J):
+                probs = self._walk(self._plan, tok, pos, bt)
+                tok = self._sample(probs, self.seeds, self.emit_idx + j,
+                                   temps, self.top_p)
+                out.append(tok)
+                pos = pos + 1
         toks = torch.stack(out).cpu().numpy()                   # [J, S]
         valids = np.arange(J)[:, None] < self.remaining[None, :]
         taken = valids.sum(axis=0)
@@ -447,9 +932,182 @@ class PagedDecodeEngine:
             i = int(i)
             emitted[i] = [int(t) for t in toks[valids[:, i], i]]
             self.slots[i].emitted += int(taken[i])
+            if self.spec_k:
+                self.slots[i].history.extend(emitted[i])
             if self.remaining[i] <= 0:
                 finished.append(i)
                 self._release(i)
+        return emitted, finished
+
+    # ------------------------------------------------- speculative decode
+    def _propose(self, s: int, max_draft: int) -> List[int]:
+        """The n-gram proposer over slot `s`'s history (prompt +
+        emitted): the continuation after the most recent earlier
+        occurrence of the current suffix n-gram (longest n first, up to
+        `spec_max_ngram`), preferring an occurrence with a full-depth
+        continuation; nothing matched proposes nothing."""
+        if max_draft <= 0:
+            return []
+        hist = self.slots[s].history
+        L = len(hist)
+        if L < 2:
+            return []
+        h = np.asarray(hist, np.int64)
+        for n in range(min(self.spec_max_ngram, L - 1), 0, -1):
+            suffix = h[L - n:]
+            win = np.lib.stride_tricks.sliding_window_view(h[:L - 1], n)
+            hits = np.flatnonzero((win == suffix).all(axis=1))
+            if hits.size:
+                full = hits[hits + n + max_draft <= L]
+                i = int(full[-1]) if full.size else int(hits[-1])
+                cont = h[i + n:i + n + max_draft]
+                if cont.size:
+                    return [int(t) for t in cont]
+        return []
+
+    def _run_draft(self, trunc_slots):
+        """One truncated-layer draft pass over `trunc_slots` ([(slot,
+        depth)], windows already granted and forked): k-1 greedy
+        micro-steps of the drafter's walk, writing draft K/V into each
+        slot's not-yet-committed window, which the verify score of the
+        same `_spec_step` rewrites before anything reads it. A slot
+        writes only its depth-1 steps (its later rows point at the
+        garbage block), so no step passes its window. Returns the
+        [k-1, S] draft matrix (rows of other slots are garbage)."""
+        S, K, dev = self.n_slots, self.spec_k, self.device
+        depth = np.zeros(S, np.int64)
+        for s, d in trunc_slots:
+            depth[s] = d
+        tok = torch.as_tensor(self.last_token, device=dev)
+        pos = torch.as_tensor(self.pos, device=dev)
+        drafts = []
+        with self._weights():
+            for j in range(K - 1):
+                live = (j < depth - 1)[:, None]
+                bt = torch.as_tensor(
+                    np.where(live, self.block_tables, GARBAGE_BLOCK),
+                    device=dev)
+                tok = torch.argmax(self._walk(self._draft_plan, tok, pos, bt),
+                                   dim=-1)
+                drafts.append(tok)
+                pos = pos + 1
+        self.spec_draft_dispatches_total += 1
+        return torch.stack(drafts).cpu().numpy()
+
+    def _spec_step(self, proposers: Optional[tuple] = None
+                   ) -> Tuple[Dict[int, List[int]], List[int]]:
+        """One speculative dispatch: drafts of up to k-1 tokens a slot,
+        ONE k-position score of [last_token, d1, ..., d_{k-1}], and per
+        greedy slot the longest draft prefix the target's argmax agrees
+        with, then the target's own token (so the stream is the target's
+        greedy stream). Sampled slots ride at depth 1 with their vanilla
+        draw, or with `spec_sampled` take drafts under rejection
+        sampling. Rejected lanes' K/V sits past the advanced `pos` and is
+        rewritten before it is read. Emits 1..k tokens a slot."""
+        if not self.active.any():
+            return {}, []
+        K, S = self.spec_k, self.n_slots
+        allow_ngram = proposers is None or "ngram" in proposers
+        allow_trunc = (self._draft_plan is not None
+                       and (proposers is None or "truncated" in proposers))
+        token_mat = np.zeros((S, K), np.int64)
+        n_valid = np.zeros(S, np.int64)
+        by_proposer: Dict[int, str] = {}
+        trunc_slots: List[Tuple[int, int]] = []
+        for s in np.flatnonzero(self.active):
+            s = int(s)
+            token_mat[s, 0] = self.last_token[s]
+            if self.temp[s] > 0 and not self.spec_sampled:
+                n_valid[s] = 1          # sampling has no greedy oracle
+                continue
+            depth = int(min(K, self.remaining[s]))
+            draft = self._propose(s, depth - 1) if allow_ngram else []
+            if draft:
+                by_proposer[s] = "ngram"
+                n_valid[s] = 1 + len(draft)
+                token_mat[s, 1:1 + len(draft)] = draft
+            elif allow_trunc and depth >= 2:
+                trunc_slots.append((s, depth))
+                n_valid[s] = depth
+            else:
+                n_valid[s] = 1
+        if trunc_slots:
+            # grant and fork the drafting slots' whole windows first: the
+            # draft writes into them
+            self._grow_block_tables(dict(trunc_slots))
+            trunc_slots = [(s, d) for s, d in trunc_slots
+                           if self.slots[s] is not None and self.active[s]]
+        if trunc_slots:
+            drafts = self._run_draft(trunc_slots)
+            for s, d in trunc_slots:
+                by_proposer[s] = "truncated"
+                token_mat[s, 1:d] = drafts[:d - 1, s]
+        # grant (and fork) each slot's write window before the score
+        self._grow_block_tables(
+            {int(s): int(n_valid[s]) for s in np.flatnonzero(self.active)})
+        n_valid = np.where(self.active, n_valid, 0)
+        if not self.active.any():
+            return {}, []
+        greedy_only = not bool((self.temp[self.active] > 0).any())
+        use_rs = self.spec_sampled and not greedy_only
+        dev = self.device
+        with self._weights():
+            probs = self._score(token_mat, self.pos, n_valid)
+        greedy_mat = torch.argmax(probs, dim=-1).cpu().numpy()
+        if use_rs:
+            n_acc, final = rejection_sample_drafts(
+                probs, torch.as_tensor(token_mat, device=dev),
+                torch.as_tensor(n_valid, device=dev), self.seeds,
+                self.emit_idx, torch.as_tensor(self.temp, device=dev),
+                torch.as_tensor(self.top_p, device=dev), self.top_k)
+            n_acc, final = n_acc.cpu().numpy(), final.cpu().numpy()
+        elif not greedy_only:
+            last = probs[torch.arange(S, device=dev),
+                         torch.as_tensor(np.maximum(n_valid - 1, 0),
+                                         device=dev)]
+            chosen = self._sample(last, self.seeds, self.emit_idx,
+                                  np.where(self.active, self.temp, 0.0),
+                                  self.top_p).cpu().numpy()
+        self.spec_dispatches_total += 1
+        emitted: Dict[int, List[int]] = {}
+        finished = []
+        for s in np.flatnonzero(self.active):
+            s = int(s)
+            v = int(n_valid[s])
+            if self.temp[s] > 0:
+                if use_rs:
+                    acc = min(int(n_acc[s]), v - 1)
+                    toks = [int(token_mat[s, j])
+                            for j in range(1, 1 + acc)] + [int(final[s])]
+                else:
+                    toks = [int(chosen[s])]
+            else:
+                row = greedy_mat[s]
+                toks = [int(row[0])]
+                for j in range(1, v):
+                    if int(token_mat[s, j]) != toks[-1]:
+                        break
+                    toks.append(int(row[j]))
+            if v > 1:
+                self.spec_proposed_total += v - 1
+                self.spec_accepted_total += len(toks) - 1
+                prop = by_proposer.get(s)
+                if prop is not None:
+                    self.spec_proposed_by[prop] += v - 1
+                    self.spec_accepted_by[prop] += len(toks) - 1
+            n = len(toks)
+            self.spec_emitted_total += n
+            self.pos[s] += n
+            self.emit_idx[s] += n
+            self.remaining[s] -= n
+            self.last_token[s] = toks[-1]
+            slot = self.slots[s]
+            slot.emitted += n
+            slot.history.extend(toks)
+            emitted[s] = toks
+            if self.remaining[s] <= 0:
+                finished.append(s)
+                self._release(s)
         return emitted, finished
 
     # ------------------------------------------------------------- evict

@@ -8,9 +8,19 @@ iteration reaps cancellations, admits a FIFO wave of queued prompts
 into free slots, advances every active slot one dispatch, streams the
 new tokens and retires finished sequences. Pool-pressure preemptions
 requeue at the head of the line as continuations (prompt + emitted).
-`max_queue` sheds with `ShedError`. SLO shedding, tracing, metrics,
-prefix registration and speculation are later slices; the constructor
-takes none of their arguments.
+`max_queue` sheds with `ShedError`.
+
+The engine's options pass through (`quantize`, `allocation`,
+`speculative` and its `spec_*`, `prefix_cache`). `register_prefix`
+applies directly before `start()` and through a control queue the
+scheduler drains on a running server. Speculation is governed per
+dispatch: an acceptance-rate EWMA turns drafting off below
+`spec_accept_floor` and a probe dispatch every `spec_probe_every`
+re-measures (`_spec_policy`); with the truncated drafter configured, a
+collapsed n-gram EWMA hands drafting to the drafter alone
+(`_spec_proposers`). SLO shedding (`slo_ttft_s`), tracing and the
+metrics mirrors are later slices; the constructor takes none of their
+arguments.
 """
 
 from __future__ import annotations
@@ -150,11 +160,42 @@ class GenerationServer:
     def __init__(self, net, *, n_slots: int = 8, n_blocks: int = 64,
                  block_len: int = 16, top_k: Optional[int] = None,
                  steps_per_dispatch: int = 1,
-                 max_queue: Optional[int] = None, device="cuda"):
+                 max_queue: Optional[int] = None,
+                 quantize: Optional[str] = None,
+                 allocation: str = "incremental",
+                 speculative: Optional[int] = None,
+                 spec_accept_floor: float = 0.3,
+                 spec_probe_every: int = 50,
+                 spec_sampled: bool = False,
+                 spec_draft_layers: Optional[int] = None,
+                 prefix_cache: str = "registered", device="cuda"):
         self.engine = PagedDecodeEngine(
             net, n_slots=n_slots, n_blocks=n_blocks, block_len=block_len,
             top_k=top_k, steps_per_dispatch=steps_per_dispatch,
+            quantize=quantize, allocation=allocation,
+            speculative=speculative, spec_sampled=spec_sampled,
+            spec_draft_layers=spec_draft_layers, prefix_cache=prefix_cache,
             device=device)
+        # speculation policy: drafting pays a k-wide score, so it stays
+        # on only while the acceptance EWMA is at or above the floor; a
+        # probe dispatch every `spec_probe_every` re-measures
+        self.spec_accept_floor = float(spec_accept_floor)
+        self.spec_probe_every = max(1, int(spec_probe_every))
+        self._spec_accept_ewma: Optional[float] = None
+        self._spec_tpd_ewma: Optional[float] = None
+        self._spec_disabled = False
+        self._spec_probe_in = 0
+        self._spec_proposed_seen = 0
+        self._spec_accepted_seen = 0
+        self._spec_emitted_seen = 0
+        self._spec_dispatches_seen = 0
+        # per-proposer EWMAs: a collapsed n-gram cache hands drafting to
+        # the truncated drafter instead of disabling speculation
+        self._spec_prop_ewma = {"ngram": None, "truncated": None}
+        self._spec_prop_seen = {"ngram": (0, 0), "truncated": (0, 0)}
+        # prefix registrations from other threads, applied by the
+        # scheduler (the engine is single-threaded)
+        self._control: "queue.Queue" = queue.Queue()
         self.max_queue = max_queue
         self._queue: "queue.Queue" = queue.Queue()
         self._pending: List = []
@@ -197,26 +238,89 @@ class GenerationServer:
         n_b = min(n_tokens, eng.max_total_tokens - pl)
         if n_b < 1:
             pl, n_b = pl - 1, 1
-        for k in widths:
-            for sampled_head in (False, True):
-                reqs = [dict(prompt_ids=np.zeros(pl, np.int64), n_tokens=n_b)
-                        for _ in range(k)]
-                if sampled_head:
-                    reqs[0].update(temperature=1.0, rng=0)
-                admitted = eng.admit_many(reqs)
-                while eng.active.any():
-                    eng.step()
-                eng.drain_preempted()
-                for slot, _, done in admitted:
-                    if not done and eng.slots[slot] is not None:
-                        eng.evict(slot)
-                if len(admitted) < k:
-                    _log.warning("warmup admitted %d of a width-%d wave "
-                                 "(pool %d blocks)", len(admitted), k,
-                                 eng.pool.n_blocks)
-        eng.block_grants_total = 0
-        eng.evict_requeue_total = 0
+        # the zero prompts must neither ride nor seed the prefix caches;
+        # every other decode mode is driven once below
+        saved = eng._prefixes, eng._radix
+        eng._prefixes, eng._radix = {}, None
+        try:
+            for k in widths:
+                for sampled_head in (False, True):
+                    reqs = [dict(prompt_ids=np.zeros(pl, np.int64),
+                                 n_tokens=n_b) for _ in range(k)]
+                    if sampled_head:
+                        reqs[0].update(temperature=1.0, rng=0)
+                    admitted = eng.admit_many(reqs)
+                    spec = None if eng.spec_k is None else False
+                    while eng.active.any():
+                        eng.step(speculate=spec)
+                        spec = None     # a chunked, then a spec dispatch
+                    eng.drain_preempted()
+                    for slot, _, done in admitted:
+                        if not done and eng.slots[slot] is not None:
+                            eng.evict(slot)
+                    if len(admitted) < k:
+                        _log.warning("warmup admitted %d of a width-%d "
+                                     "wave (pool %d blocks)",
+                                     len(admitted), k, eng.pool.n_blocks)
+        finally:
+            eng._prefixes, eng._radix = saved
+        for name in ("block_grants_total", "evict_requeue_total",
+                     "prefix_forks_total", "prefix_hits_total",
+                     "prefix_tokens_saved_total", "radix_hit_tokens_total",
+                     "radix_evictions_total", "spec_dispatches_total",
+                     "spec_proposed_total", "spec_accepted_total",
+                     "spec_emitted_total", "spec_draft_dispatches_total"):
+            setattr(eng, name, 0)
+        eng.spec_proposed_by = {"ngram": 0, "truncated": 0}
+        eng.spec_accepted_by = {"ngram": 0, "truncated": 0}
         return self
+
+    # ------------------------------------------------------ shared prefix
+    def register_prefix(self, token_ids, *,
+                        timeout: Optional[float] = 600.0) -> tuple:
+        """Prefill a shared prompt prefix into the pool once
+        (`PagedDecodeEngine.register_prefix`). Before `start()` it
+        applies directly; on a running server it goes through the
+        control queue the scheduler drains, and this call blocks until
+        it is applied. Returns the registry key."""
+        if self._stopped:
+            raise RuntimeError("GenerationServer is stopped")
+        if not self._running:
+            return self.engine.register_prefix(token_ids)
+        fut: Future = Future()
+        self._control.put(("register_prefix", token_ids, fut))
+        # a stop() between the checks above and the put has already
+        # drained the queue: drain once more so the future resolves
+        if self._stopped or not self._running:
+            self._fail_control()
+        return fut.result(timeout)
+
+    def _drain_control(self) -> bool:
+        progressed = False
+        while True:
+            try:
+                op, arg, fut = self._control.get_nowait()
+            except queue.Empty:
+                return progressed
+            progressed = True
+            try:
+                if op != "register_prefix":
+                    raise ValueError(f"unknown control op {op!r}")
+                fut.set_result(self.engine.register_prefix(arg))
+            except Exception as e:  # noqa: BLE001 — surfaced to the caller
+                if not fut.done():
+                    fut.set_exception(e)
+
+    def _fail_control(self):
+        while True:
+            try:
+                _, _, fut = self._control.get_nowait()
+            except queue.Empty:
+                return
+            if not fut.done():
+                fut.set_exception(RuntimeError(
+                    "GenerationServer stopped before the control request "
+                    "was applied"))
 
     # ------------------------------------------------------------ submit
     def generate_async(self, prompt_ids, n_tokens: int, *,
@@ -241,7 +345,8 @@ class GenerationServer:
                              f"sequence; got shape {prompt.shape}")
         prompt = prompt.astype(np.int64)
         check_ids(prompt, self.engine.vocab)
-        self.engine.check_budget(int(prompt.shape[0]), int(n_tokens))
+        self.engine.check_budget(int(prompt.shape[0]), int(n_tokens),
+                                 prompt_ids=prompt)
         if top_p is not None and not 0.0 < float(top_p) <= 1.0:
             raise ValueError(f"top_p must be in (0, 1]; got {top_p}")
         if temperature < 0:
@@ -299,7 +404,7 @@ class GenerationServer:
 
     def _schedule_once(self) -> bool:
         eng = self.engine
-        progressed = False
+        progressed = self._drain_control()
         # ------------------------------------------------ cancellations
         for slot, (req, _) in list(self._slot2req.items()):
             if req.stream.cancelled:
@@ -333,7 +438,21 @@ class GenerationServer:
             self._pending.append(item)
         while self._pending:
             head = self._pending[0][0]
-            if not eng.can_admit(len(head.prompt) + head.emitted):
+            prefixed = eng.has_prefixes or eng._radix is not None
+            head_ids = head.effective_prompt() if prefixed else None
+            if not eng.can_admit(len(head.prompt) + head.emitted,
+                                 head.n_left, prompt_ids=head_ids):
+                # a head that can never be admitted sheds rather than
+                # wedge the FIFO queue behind it
+                try:
+                    eng.check_budget(len(head.prompt) + head.emitted,
+                                     head.n_left,
+                                     prompt_ids=head.effective_prompt())
+                except ValueError as e:
+                    self._pending.pop(0)
+                    head.stream._fail(ShedError(str(e)))
+                    progressed = True
+                    continue
                 break                     # FIFO: never leapfrog the head
             wave = []
             for item in self._pending:
@@ -362,7 +481,9 @@ class GenerationServer:
             progressed = True
         # -------------------------------------------------------- decode
         if eng.active.any():
-            emitted, finished = eng.step()
+            emitted, finished = eng.step(speculate=self._spec_policy(),
+                                         proposers=self._spec_proposers())
+            self._spec_update()
             now = time.monotonic()
             preempted = eng.drain_preempted()
             if preempted:
@@ -376,6 +497,79 @@ class GenerationServer:
                 req.stream._finish()
             progressed = True
         return progressed
+
+    # ------------------------------------------------ speculative policy
+    def _spec_policy(self) -> Optional[bool]:
+        """Whether the next dispatch drafts: None (the engine's default)
+        without speculation, True while it is healthy; while the
+        acceptance EWMA sits under the floor, False except for one probe
+        every `spec_probe_every`."""
+        if not self.engine.spec_k:
+            return None
+        if not self._spec_disabled:
+            return True
+        self._spec_probe_in -= 1
+        if self._spec_probe_in <= 0:
+            self._spec_probe_in = self.spec_probe_every
+            return True                      # probe dispatch
+        return False
+
+    def _spec_proposers(self) -> Optional[tuple]:
+        """("truncated",) when the drafter is configured and the n-gram
+        proposer's own EWMA fell under the floor while the drafter's did
+        not; None (every proposer) otherwise."""
+        eng = self.engine
+        if not eng.spec_k or eng._draft_plan is None:
+            return None
+        ng = self._spec_prop_ewma["ngram"]
+        tr = self._spec_prop_ewma["truncated"]
+        if ng is not None and ng < self.spec_accept_floor \
+                and (tr is None or tr >= self.spec_accept_floor):
+            return ("truncated",)
+        return None
+
+    def _spec_update(self):
+        """Fold the engine's speculative counters since the last call
+        into the acceptance EWMAs (alpha 0.2) and flip the latch. A
+        dispatch that drafted nothing counts as acceptance 0: it paid
+        the k-wide score for one token a slot."""
+        eng = self.engine
+        if not eng.spec_k:
+            return
+        d_prop = eng.spec_proposed_total - self._spec_proposed_seen
+        d_acc = eng.spec_accepted_total - self._spec_accepted_seen
+        d_emit = eng.spec_emitted_total - self._spec_emitted_seen
+        d_disp = eng.spec_dispatches_total - self._spec_dispatches_seen
+        self._spec_proposed_seen = eng.spec_proposed_total
+        self._spec_accepted_seen = eng.spec_accepted_total
+        self._spec_emitted_seen = eng.spec_emitted_total
+        self._spec_dispatches_seen = eng.spec_dispatches_total
+        if d_disp < 1:
+            return                           # a chunked dispatch
+        rate = d_acc / d_prop if d_prop > 0 else 0.0
+        self._spec_accept_ewma = (
+            rate if self._spec_accept_ewma is None
+            else 0.8 * self._spec_accept_ewma + 0.2 * rate)
+        self._spec_tpd_ewma = (
+            d_emit / d_disp if self._spec_tpd_ewma is None
+            else 0.8 * self._spec_tpd_ewma + 0.2 * d_emit / d_disp)
+        if not self._spec_disabled \
+                and self._spec_accept_ewma < self.spec_accept_floor:
+            self._spec_disabled = True
+            self._spec_probe_in = self.spec_probe_every
+        elif self._spec_disabled \
+                and self._spec_accept_ewma >= self.spec_accept_floor:
+            self._spec_disabled = False
+        for prop in ("ngram", "truncated"):
+            pp, pa = self._spec_prop_seen[prop]
+            tot_p = eng.spec_proposed_by[prop]
+            tot_a = eng.spec_accepted_by[prop]
+            self._spec_prop_seen[prop] = (tot_p, tot_a)
+            if tot_p - pp > 0:
+                r = (tot_a - pa) / (tot_p - pp)
+                prev = self._spec_prop_ewma[prop]
+                self._spec_prop_ewma[prop] = (
+                    r if prev is None else 0.8 * prev + 0.2 * r)
 
     # --------------------------------------------------------- lifecycle
     def start(self):
@@ -435,6 +629,7 @@ class GenerationServer:
             req.stream._fail(RuntimeError(
                 "GenerationServer stopped before this request was admitted"))
         self._pending.clear()
+        self._fail_control()
 
     def __enter__(self):
         return self.start()

@@ -42,6 +42,7 @@ def from_jax_params(model, params: Mapping[str, Mapping[str, np.ndarray]]):
     extra = keys - {str(i) for i in range(len(model.layers))}
     if extra:
         raise KeyError(f"params for layers the model lacks: {sorted(extra)}")
+    model.params_changed()
     return model
 
 

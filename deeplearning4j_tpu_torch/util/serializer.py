@@ -206,6 +206,7 @@ class ModelSerializer:
         with torch.no_grad():
             for _, t, arr in pairs:
                 t.copy_(torch.from_numpy(arr))
+        model.params_changed()
         model.iteration_count = meta.get("iteration_count", 0)
         model.epoch_count = meta.get("epoch_count", 0)
         return model.to(dev)

@@ -1,6 +1,8 @@
 """TransformerLM and its decoding (counterpart of
 `deeplearning4j_tpu/zoo/transformer.py`: `TransformerLM` :76,
-`filter_logits` :133, `get_prefill_bucketed` :178, `generate` :336).
+`filter_logits` :133, `get_prefill` :157, `get_prefill_bucketed` :178,
+`paged_score_forward` :207, `rejection_sample_drafts` :252, `generate`
+:336).
 
 Sampling cannot reproduce JAX's threefry bits. Here a sampled token is
 the Gumbel-max draw ``argmax(filtered_logits + g)`` with `g` made on the
@@ -9,7 +11,23 @@ token t of a stream depends only on its seed and t — never on what else
 is batched with it — in `generate()` and in the serving engine alike.
 Greedy decoding is the bit-level contract with the JAX package; sampled
 decoding's is distributional (each token's marginal is the softmax of
-the filtered logits, as `jax.random.categorical` draws it).
+the filtered logits, as `jax.random.categorical` draws it). Rejection
+sampling draws from two more streams of (seed, t), each its own
+generator seed (`_sub_seed`): the acceptance uniform (1) and the
+resample's Gumbel noise (2), as JAX's `fold_in(·, 1)` and `fold_in(·,
+2)`; neither repeats the vanilla (seed, t) draw.
+
+Decoding runs under the dtype policy and `quantize=`: the weights are
+the net's serving tree (`nd.quant.serving`: int8, or the compute-dtype
+copies of `mixed_bf16`), the KV caches are in the compute dtype, and
+the probabilities leave the output layer in the output dtype (fp32),
+as in `output()`.
+
+Greedy parity across PyTorch and XLA, and between one K-wide score and
+K single-token decodes, is not bit-equality: neither cuBLAS nor the CPU
+matmul is batch-invariant. `stream_agreement` holds two greedy streams
+to agreement by margin instead: equal, or first apart at a near-tie of
+the reference's probabilities.
 """
 
 from __future__ import annotations
@@ -20,6 +38,7 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch.common.updaters import Adam
+from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.common.weights import WeightInit
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     MultiLayerConfiguration,
@@ -97,15 +116,6 @@ class TransformerLM:
             self.seed if seed is None else seed)
 
 
-def check_decode_policy(net):
-    """Decoding (generate() and serving) runs the fp32 policy only;
-    mixed serving is not ported yet and is refused, not ignored."""
-    if net.dtype.is_mixed:
-        raise NotImplementedError(
-            f"decoding under the {net.dtype.name} dtype policy is not "
-            f"ported yet; decode a float32 net")
-
-
 def check_cache_budget(net, prompt_len: int, n_tokens: int):
     budget = stream_budget(net.layers)
     total = prompt_len + n_tokens
@@ -151,13 +161,34 @@ def _mix(seed: int, t: int) -> int:
     return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
 
 
-def gumbel_noise(seed: int, t: int, vocab: int) -> torch.Tensor:
-    """Gumbel(0, 1) noise [vocab] for token `t` of the stream seeded
-    `seed`, drawn on the CPU from a `torch.Generator`."""
-    g = torch.Generator().manual_seed(_mix(seed, t))
+def _sub_seed(seed: int, t: int, sub: int) -> int:
+    """Generator seed of sub-stream `sub` of (seed, t)."""
+    return _mix(_mix(seed, t), sub)
+
+
+def _gumbel(gen_seed: int, vocab: int) -> torch.Tensor:
+    g = torch.Generator().manual_seed(gen_seed)
     u = torch.rand(vocab, generator=g, dtype=torch.float64)
     u = u.clamp(1e-12, 1.0 - 1e-12)
     return (-torch.log(-torch.log(u))).float()
+
+
+def gumbel_noise(seed: int, t: int, vocab: int) -> torch.Tensor:
+    """Gumbel(0, 1) noise [vocab] for token `t` of the stream seeded
+    `seed`, drawn on the CPU from a `torch.Generator`."""
+    return _gumbel(_mix(seed, t), vocab)
+
+
+def accept_uniform(seed: int, t: int) -> float:
+    """U[0, 1) of the acceptance test at token `t` (sub-stream 1)."""
+    g = torch.Generator().manual_seed(_sub_seed(seed, t, 1))
+    return float(torch.rand(1, generator=g, dtype=torch.float64))
+
+
+def resample_noise(seed: int, t: int, vocab: int) -> torch.Tensor:
+    """Gumbel noise [vocab] of the resample at token `t` (sub-stream
+    2)."""
+    return _gumbel(_sub_seed(seed, t, 2), vocab)
 
 
 def sample_ids(probs, temp, top_k, top_p, noise, greedy_only=False):
@@ -175,34 +206,126 @@ def sample_ids(probs, temp, top_k, top_p, noise, greedy_only=False):
     return torch.where(temp > 0, sampled, greedy_ids)
 
 
+def get_prefill(net: MultiLayerNetwork):
+    """Prompt prefill: `x` [B, P] -> (next-token probs [B, V] in the
+    output dtype, filled carries). Runs on the weights installed by the
+    caller (`nd.quant.serving`)."""
+    def prefill(x, carries):
+        h, new_carries = net._forward_core(x, carries=carries)
+        return net.dtype.cast_output(h[:, -1]), new_carries
+    return prefill
+
+
 def get_prefill_bucketed(net: MultiLayerNetwork):
     """Mixed-length prefill: `x` [B, Pb] prompts RIGHT-padded to a shared
     bucket, `last_idx` [B] each row's last real position. Returns (probs
-    [B, V] at last_idx, filled carries). Right padding is sound because
-    the blocks are causal and every later read past a row's position is
-    masked."""
+    [B, V] at last_idx, in the output dtype, filled carries). Right
+    padding is sound because the blocks are causal and every later read
+    past a row's position is masked."""
     def prefill(x, carries, last_idx):
         h, new_carries = net._forward_core(x, carries=carries)
         rows = torch.arange(h.shape[0], device=h.device)
-        return h[rows, last_idx], new_carries
+        return net.dtype.cast_output(h[rows, last_idx]), new_carries
     return prefill
+
+
+def paged_score_forward(net: MultiLayerNetwork, plan, kv, block_tables,
+                        token_mat, pos, n_valid):
+    """The K-position score over the paged pool: `token_mat` [S, K] holds
+    K consecutive tokens a slot at positions `pos[s] .. pos[s] + K - 1`,
+    `n_valid` [S] its real lanes (0: the slot sits out; its writes go to
+    the garbage block). `plan` is the engine's layer walk, `kv` its
+    (k_pool, v_pool) list, written in place. Returns probs [S, K, V] in
+    the output dtype: probs[s, j] is the next-token distribution after
+    token j, per lane the single-token decode's up to the matmuls'
+    batch-variance. Runs on the weights installed by the caller."""
+    layers = net.layers
+    K = token_mat.shape[1]
+    positions = pos[:, None] + torch.arange(K, device=pos.device)[None, :]
+    h = token_mat
+    for entry in plan:
+        kind, i = entry[0], entry[1]
+        if kind == "plain":
+            h = layers[i](h)
+        elif kind == "pos":
+            h = layers[i].forward_at_positions(h, positions)
+        else:
+            k_pool, v_pool = kv[entry[2]]
+            h = layers[i].forward_paged_multi(h, k_pool, v_pool,
+                                              block_tables, pos, n_valid)
+    return net.dtype.cast_output(h)
+
+
+def rejection_sample_drafts(probs, token_mat, n_valid, seeds, emit_idx,
+                            temp, top_p, top_k):
+    """Speculative rejection sampling over point-mass drafts (JAX :252):
+    draft d at lane j+1 is accepted with probability q_t(d), where q_t is
+    the target's filtered, tempered distribution after lane j
+    (`filter_logits(log(p) / T, top_k, top_p)`); at the first rejection
+    the token is resampled from q_t with d masked out, and when every
+    draft survives the bonus token is drawn from the last lane. Each
+    emitted token is then marginally a vanilla sample from q_t, and
+    E[accepted at lane j] = q_t(d). A zero-support draft is always
+    rejected (u < 0 never holds).
+
+    `probs` [S, K, V] (`paged_score_forward`), `token_mat` [S, K] (lanes
+    1 .. n_valid-1 are drafts), `n_valid` [S]; `seeds` and `emit_idx`
+    are host int arrays [S]: lane j of slot s draws its acceptance
+    uniform from sub-stream 1 and its resample noise from sub-stream 2
+    of (seeds[s], emit_idx[s] + j). `temp`, `top_p` [S] tensors on
+    probs' device; rows with temp 0 run at a guard temperature and are
+    ignored by the caller. Returns (n_acc [S], final [S]): the leading
+    accepted drafts and the token at lane n_acc."""
+    S, K, V = probs.shape
+    dev = probs.device
+    safe_t = torch.where(temp > 0, temp, torch.ones_like(temp))
+    logits = torch.log(probs.float().clamp_min(1e-9)) / safe_t[:, None, None]
+    logits = filter_logits(logits, top_k,
+                           None if top_p is None else top_p[:, None, None])
+    qt = torch.softmax(logits, dim=-1)
+    u = torch.tensor([[accept_uniform(int(seeds[s]), int(emit_idx[s]) + j)
+                       for j in range(K - 1)] for s in range(S)],
+                     dtype=torch.float64).reshape(S, K - 1)
+    noise = torch.stack([torch.stack([
+        resample_noise(int(seeds[s]), int(emit_idx[s]) + j, V)
+        for j in range(K)]) for s in range(S)]).to(dev)       # [S, K, V]
+    drafts = token_mat[:, 1:]
+    p_acc = torch.gather(qt[:, :-1, :], 2, drafts[..., None])[..., 0]
+    lane_ok = (torch.arange(K - 1, device=dev)[None, :]
+               < (n_valid[:, None] - 1))
+    acc = (u.to(dev) < p_acc.double()) & lane_ok
+    n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
+    lane = n_acc.clamp(0, K - 1)
+    final_logits = torch.gather(
+        logits, 1, lane[:, None, None].expand(S, 1, V))[:, 0]
+    rejected = n_acc < (n_valid - 1).clamp_min(0)
+    rej_tok = torch.gather(token_mat, 1,
+                           (n_acc + 1).clamp(0, K - 1)[:, None])[:, 0]
+    mask = (torch.nn.functional.one_hot(rej_tok, V).bool()
+            & rejected[:, None])
+    final_logits = final_logits.masked_fill(mask, float("-inf"))
+    lane_noise = torch.gather(
+        noise, 1, lane[:, None, None].expand(S, 1, V))[:, 0]
+    final = torch.argmax(final_logits + lane_noise, dim=-1)
+    return n_acc, final
 
 
 @torch.no_grad()
 def generate(net: MultiLayerNetwork, prompt_ids, n_tokens: int, *,
              temperature: float = 1.0, top_k: Optional[int] = None,
-             top_p: Optional[float] = None, rng: Optional[int] = None):
+             top_p: Optional[float] = None, rng: Optional[int] = None,
+             quantize: Optional[str] = None):
     """Autoregressive decoding with per-layer KV caches: one prefill over
     the prompt, then one forward per token (a Python loop — PyTorch runs
     eagerly). `prompt_ids` [B, T] ints -> [B, n_tokens] ids (numpy).
     `temperature=0` is greedy argmax; otherwise row b samples with seed
     ``rng + b`` (default rng 0) — the engine's per-request seed scheme,
     so a one-row sampled `generate` and a served request with the same
-    seed draw the same noise."""
+    seed draw the same noise. `quantize="int8"` decodes from the net's
+    cached int8 serving tree (`nd.quant`); the params are untouched."""
     prompt_np = np.asarray(prompt_ids).astype(np.int64)
     if prompt_np.ndim != 2 or prompt_np.shape[1] == 0:
         raise ValueError(f"prompt_ids must be [B, T>0]; got {prompt_np.shape}")
-    check_decode_policy(net)
     B, P = prompt_np.shape
     vocab = net.layers[-1].n_out
     check_ids(prompt_np, vocab)
@@ -217,17 +340,55 @@ def generate(net: MultiLayerNetwork, prompt_ids, n_tokens: int, *,
     temp = torch.full((B,), float(temperature), device=dev)
     top_p_t = torch.full((B,), 1.0 if top_p is None else float(top_p),
                          device=dev)
-    probs, carries = net._forward_core(
-        torch.as_tensor(prompt_np, device=dev), carries=net.init_carries(B))
-    probs = probs[:, -1]
+    prefill = get_prefill(net)
     out = []
-    for t in range(n_tokens):
-        noise = None if greedy else torch.stack(
-            [gumbel_noise(seed0 + b, t, vocab) for b in range(B)]).to(dev)
-        nxt = sample_ids(probs, temp, top_k, top_p_t, noise,
-                         greedy_only=greedy)
-        out.append(nxt)
-        if t + 1 < n_tokens:
-            h, carries = net._forward_core(nxt[:, None], carries=carries)
-            probs = h[:, -1]
+    with quant.serving(net, quantize):
+        probs, carries = prefill(torch.as_tensor(prompt_np, device=dev),
+                                 net.init_carries(B))
+        for t in range(n_tokens):
+            noise = None if greedy else torch.stack(
+                [gumbel_noise(seed0 + b, t, vocab) for b in range(B)]).to(dev)
+            nxt = sample_ids(probs, temp, top_k, top_p_t, noise,
+                             greedy_only=greedy)
+            out.append(nxt)
+            if t + 1 < n_tokens:
+                probs, carries = prefill(nxt[:, None], carries)
     return torch.stack(out, dim=1).cpu().numpy()
+
+
+# ------------------------------------------------------ parity by margin
+@torch.no_grad()
+def teacher_forced_probs(net: MultiLayerNetwork, prompt, tokens, *,
+                         quantize: Optional[str] = None) -> np.ndarray:
+    """The decode path's next-token probabilities [n, V] (output dtype)
+    at the positions that predict each of `tokens`, with `prompt` and
+    `tokens[:-1]` fed in: one cached-prefill forward on the serving
+    weights."""
+    prompt = np.asarray(prompt, np.int64).reshape(-1)
+    tokens = np.asarray(tokens, np.int64).reshape(-1)
+    seq = np.concatenate([prompt, tokens[:-1]])[None]
+    with quant.serving(net, quantize):
+        h, _ = net._forward_core(torch.as_tensor(seq, device=net.device),
+                                 carries=net.init_carries(1))
+    h = net.dtype.cast_output(h[0])
+    return h[len(prompt) - 1:].float().cpu().numpy()
+
+
+def stream_agreement(ref, got, ref_probs, eps: float) -> dict:
+    """Two greedy streams held by margin: `ok` when `got` equals `ref`
+    at every position up to the first difference and that position is a
+    near-tie of the reference, i.e. its top-1/top-2 gap in `ref_probs`
+    ([n, V], the reference's teacher-forced probabilities) is at most
+    `eps`, the largest probability difference measured between the two
+    paths (past a difference the streams no longer share a context).
+    `near_ties` counts the reference's positions with gap <= eps."""
+    ref = np.asarray(ref).reshape(-1)
+    got = np.asarray(got).reshape(-1)
+    top = np.sort(np.asarray(ref_probs, np.float64), axis=-1)
+    gaps = (top[:, -1] - top[:, -2])[:len(ref)]
+    near = gaps <= eps
+    diff = np.flatnonzero(ref[:len(got)] != got[:len(ref)])
+    first = int(diff[0]) if diff.size else None
+    ok = len(got) == len(ref) and (first is None or bool(near[first]))
+    return dict(ok=ok, first_diff=first, near_ties=int(near.sum()),
+                min_gap=float(gaps.min()) if gaps.size else None)

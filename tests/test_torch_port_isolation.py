@@ -42,7 +42,7 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "fault.state", "nn.conf.inputs", "nn.conf.dropout",
                 "nn.conf.weightnoise", "nn.conf.constraints",
                 "nn.conf.preprocessors", "nn.conf.builder", "nn.layers.base",
-                "util.serializer"):
+                "util.serializer", "nd.quant", "serving.paged"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 

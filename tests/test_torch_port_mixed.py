@@ -3,8 +3,11 @@ the JAX package's policy (`deeplearning4j_tpu/nd/dtype.py`, mirrored
 after `tests/test_dtype_policy.py`): the policy seams and resolution,
 the structure of a mixed step (bf16 gradients onto an fp32 master,
 fp32 loss and `output()`, the output layer's params rounded to bf16 and
-upcast, token ids uncast), the refusals, and the tiny TransformerLM
-trained mixed, port (CPU) against JAX (CPU).
+upcast, token ids uncast), the refusals, the tiny TransformerLM
+trained mixed, port (CPU) against JAX (CPU), and mixed decoding
+(`generate()`, the engine and the server) against JAX's: teacher-forced
+probabilities within DECODE_ATOL = 2^-5 (bf16 logits a ulp apart; more
+in `tests/test_torch_port_mixed_decode.py`) and greedy streams by margin.
 
 Tolerances: LayerNorm's bf16 backward (dx, dγ, dβ, plain and residual)
 within one bf16 ulp of the largest |value| of JAX's custom_vjp (both
@@ -28,9 +31,16 @@ from deeplearning4j_tpu.kernels.layernorm import (
     residual_layer_norm as jax_res_ln,
 )
 from deeplearning4j_tpu.nd import dtype as jdt
+from deeplearning4j_tpu.nn.layers.recurrent import (
+    BaseRecurrentLayer as JaxRecurrent,
+)
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
 from deeplearning4j_tpu.optimize.listeners import TrainingListener
-from deeplearning4j_tpu.zoo.transformer import TransformerLM as JaxLM
+from deeplearning4j_tpu.serving import PagedDecodeEngine as JaxEngine
+from deeplearning4j_tpu.zoo.transformer import (
+    TransformerLM as JaxLM,
+    generate as jax_generate,
+)
 from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.kernels.layernorm import (
     layer_norm,
@@ -52,10 +62,16 @@ from deeplearning4j_tpu_torch.util.jax_params import (
     from_jax_params,
     to_numpy_params,
 )
-from deeplearning4j_tpu_torch.zoo.transformer import TransformerLM, generate
+from deeplearning4j_tpu_torch.zoo.transformer import (
+    TransformerLM,
+    generate,
+    stream_agreement,
+    teacher_forced_probs,
+)
 
 V, D, LAYERS, HEADS, MAXLEN, B, STEPS = 64, 32, 2, 2, 17, 2, 4
 STEP0_RTOL, BAND = 1e-2, 0.05
+DECODE_ATOL = 2.0 ** -5
 
 
 @pytest.fixture(autouse=True)
@@ -300,21 +316,77 @@ def test_layer_norm_bf16_backward_matches_jax(residual):
         _bf16_close(leaf.grad, w)
 
 
-# ----------------------------------------------------------- refusals
-def test_generate_refuses_a_mixed_policy(jax_params):
-    net = port_lm(jax_params)
-    with pytest.raises(NotImplementedError, match="mixed_bf16"):
-        generate(net, np.zeros((1, 3), np.int64), 2, temperature=0)
+# ------------------------------------------------------- mixed decoding
+def _jax_mixed_net(jax_params):
+    conf = JaxLM(vocab_size=V, d_model=D, n_layers=LAYERS, n_heads=HEADS,
+                 max_len=MAXLEN, seed=5).conf()
+    jnet = JaxNet(conf, dtype_policy="mixed_bf16").init(5)
+    jnet.params = jax.tree.map(jnp.asarray, jax_params)
+    return jnet
 
 
-def test_serving_refuses_a_mixed_policy(jax_params):
-    net = port_lm(jax_params)
-    with pytest.raises(NotImplementedError, match="mixed_bf16"):
-        PagedDecodeEngine(net, n_slots=2, n_blocks=9, block_len=4,
-                          device="cpu")
-    with pytest.raises(NotImplementedError, match="mixed_bf16"):
-        GenerationServer(net, n_slots=2, n_blocks=9, block_len=4,
-                         device="cpu")
+def _jax_probs(jnet, prompt, tokens):
+    seq = np.concatenate([prompt, tokens[:-1]])[None]
+    carries = {str(i): layer.init_carry(1, jnet.dtype.compute_dtype)
+               for i, layer in enumerate(jnet.layers)
+               if isinstance(layer, JaxRecurrent)}
+    h = jnet._forward_core(jnet.params, jnet.net_state, seq, train=False,
+                           rng=None, carries=carries)[0]
+    return np.asarray(h[0, len(prompt) - 1:].astype(np.float32), np.float64)
+
+
+def _agree_with_jax(net, jnet, prompts, want, streams):
+    """Teacher-forced probabilities within DECODE_ATOL of JAX's on JAX's
+    tokens, and every stream equal to JAX's by margin."""
+    probs = [_jax_probs(jnet, p, t) for p, t in zip(prompts, want)]
+    eps = max(float(np.abs(teacher_forced_probs(net, p, t) - jp).max())
+              for p, t, jp in zip(prompts, want, probs))
+    assert eps <= DECODE_ATOL, eps
+    for stream_set in streams:
+        for t, g, jp in zip(want, stream_set, probs):
+            r = stream_agreement(t, g, jp, eps)
+            assert r["ok"], r
+
+
+def test_generate_decodes_a_mixed_policy_like_jax(jax_params):
+    """Mixed `generate()` holds to JAX's mixed `generate()` (the port
+    used to refuse a mixed policy here)."""
+    net, jnet = port_lm(jax_params), _jax_mixed_net(jax_params)
+    prompts = np.random.default_rng(8).integers(0, V, (2, 4))
+    want = np.asarray(jax_generate(jnet, prompts, 8, temperature=0))
+    got = generate(net, prompts, 8, temperature=0)
+    _agree_with_jax(net, jnet, prompts, want, [got])
+
+
+def test_serving_decodes_a_mixed_policy_like_jax(jax_params):
+    """The mixed engine and server hold to the JAX mixed engine, on a
+    bf16 pool (the port used to refuse a mixed policy here)."""
+    net, jnet = port_lm(jax_params), _jax_mixed_net(jax_params)
+    prompts = np.random.default_rng(9).integers(0, V, (3, 4))
+    # MAXLEN 17 pages only in blocks of 1 or 17: one block a stream
+    jeng = JaxEngine(jnet, n_slots=4, n_blocks=5, block_len=MAXLEN)
+    admitted = jeng.admit_many([dict(prompt_ids=p, n_tokens=8)
+                                for p in prompts])
+    jout = {s: [f] for s, f, _ in admitted}
+    while jeng.active.any():
+        for s, toks in jeng.step()[0].items():
+            jout[s].extend(toks)
+    want = np.asarray([jout[s] for s, _, _ in admitted])
+    eng = PagedDecodeEngine(net, n_slots=4, n_blocks=5, block_len=MAXLEN,
+                            device="cpu")
+    assert eng.pool.kv[0][0].dtype == torch.bfloat16
+    admitted = eng.admit_many([dict(prompt_ids=p, n_tokens=8)
+                               for p in prompts])
+    out = {s: [f] for s, f, _ in admitted}
+    while eng.active.any():
+        for s, toks in eng.step()[0].items():
+            out[s].extend(toks)
+    with GenerationServer(net, n_slots=2, n_blocks=3, block_len=MAXLEN,
+                          device="cpu") as srv:
+        served = [s.result(timeout=60) for s in
+                  [srv.generate_async(p, 8) for p in prompts]]
+    _agree_with_jax(net, jnet, prompts, want,
+                    [[out[s] for s, _, _ in admitted], served])
 
 
 @pytest.mark.parametrize("sp", ["ring", "ulysses"])
