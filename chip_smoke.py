@@ -24,7 +24,13 @@ Phases, in order:
      blocks x 16 leaves, 3.16 M elements, one launch) and at the
      long-context LM's (8 blocks, 128 leaves, two launches), with fp32
      and with bf16 gradients (`mixed_bf16`'s), and must be bit-equal to
-     its plain version; both are timed at the LM's run. LayerNorm also runs at a width
+     its plain version; both are timed at the LM's run. The threefry
+     kernels (`csrc/threefry.cu`) must be bit-equal to their plain
+     versions: dropout in fp32 and bf16 at [16, 511, 256] with p = 0.9,
+     at a ragged length and on an offset view, and the raw words against
+     `threefry_bits_plain` (an index range past 2^32 too); dropout is timed
+     beside `F.dropout` (Philox bits: the same work, another draw), the
+     words with no yardstick. LayerNorm also runs at a width
      past a warp's registers ([64, 2304]) and at phase 8's decode rows
      ([8, 256]: 8 slots; [32, 256]: 8 slots x a 4-position speculative
      score), timed there too. Phase 6's shapes are checked
@@ -118,8 +124,30 @@ Phases, in order:
      right length); (4) shared prefixes: a 256-token prefix and 16
      distinct suffixes, registered (streams against private ones, blocks
      saved, forks) and through the radix cache (hits, evictions);
+  9. regularized training, each arm beside its twin: (a) phase 3's LM
+     with `Dropout(0.9)` on the blocks, l2 1e-4 and elementwise gradient
+     clipping at 1.0, fp32 and `mixed_bf16`: 3 steps at [8, 511] card
+     against CPU from the same params and threefry keys (phase 5's
+     gates), then 20 timed steps at [16, 511] beside the undropped twin;
+     flash, both LayerNorms, fused Adam and dropout must launch; (b) the
+     per-leaf arm (`clip_l2_per_layer` 1.0, `max_norm` 1.0, a
+     MaxNormConstraint(1.0) on the output layer and GaussianNoise(0.05)
+     on its input, `DropConnect(0.95)` and attention dropout 0.9 on the
+     blocks): 3 steps at [2, 511] card against CPU; no packed run, so no
+     fused-Adam launch, and no flash launch (the masked softmax carries
+     the attention dropout); (c) the long-context LM under `mixed_bf16`:
+     `Dropout(0.9)`, 10 timed steps beside the undropped twin; ring and
+     Ulysses (4-way mesh on the card) against local mixed over 3 steps
+     (step 0 within 1e-2, every step within 5% of the initial loss) and
+     `output()` within MIXED_DECODE_ATOL; (d) `TransformerClassifier` at
+     the LM's width (8 classes, dropout 0.9, AVG pooling, Adam 3e-5) on
+     padded batches with seeded lengths 16-511 and the features mask: 3
+     steps at B=8 card against CPU, 20 timed at B=16, then `evaluate()`
+     and `evaluate_roc_multi_class()` of 256 held-out sequences, the
+     card net against its CPU copy (equal counts, or apart only at
+     near-ties of the CPU's probabilities);
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 8, each > 0), the card's name and power limit, and last
+to 9, each > 0), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result.
 """
@@ -146,7 +174,15 @@ OUT_DIR = os.path.join(HERE, "chiprun_out")
 # kernel needs, since its products can run there
 HBM_BPS = 3.35e12
 SPIN_CYCLES = 2_000_000      # ~1 ms at the H100's 1.98 GHz boost clock
-PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3}
+PEAK_OPS = {"float32": 67e12, "bfloat16": 989e12, "tf32x3": 495e12 / 3,
+            # 32-bit integer operations on the CUDA cores: 64 INT32 lanes
+            # an SM (Hopper architecture white paper) x 132 SMs x the
+            # 1.98 GHz boost clock
+            "int32": 64 * 132 * 1.98e9}
+# integer operations a threefry word costs: 20 rounds of add, rotate and
+# xor, 5 key injections of two adds each (one with a round constant),
+# the key's parity word and the index split (csrc/threefry.cu)
+THREEFRY_OPS = 80
 FLASH_RATE = {"float32": "tf32x3", "bfloat16": "bfloat16"}
 
 LN_TOL = {"float32": 1e-5, "bfloat16": 2 ** -4}        # 1 bf16 ulp at |y|<16
@@ -641,6 +677,8 @@ def phase_kernels(device, report, fails, small=False):
     timings.update(_adam_checks(device, checks, fails, flush, rnd,
                                 dict(LM, d_model=64) if small else LM,
                                 "lm_block_run", timed=True))
+    timings.update(_dropout_checks(device, checks, fails, flush, rnd,
+                                   small))
     _adam_checks(device, checks, fails, flush, rnd,
                  dict(LM_LONG, d_model=32) if small else LM_LONG,
                  "long_block_run", timed=False)
@@ -895,6 +933,80 @@ def _adam_checks(device, checks, fails, flush, rnd, cfg, case, timed):
                                    fused=device.type == "cuda")
             t["library_ms"] = timer(device, opt.step, flush=flush)
         timings[("fused_adam", g_name)] = t
+    return timings
+
+
+def _dropout_checks(device, checks, fails, flush, rnd, small):
+    """The threefry kernels against their plain versions, bit for bit:
+    dropout (fp32 and bf16) at the smoke LM's residual [16, 511, 256]
+    with p = 0.9, at a ragged length and on an offset view, and the raw
+    words (an index range past 2^32 too) against `threefry_bits_plain`;
+    timed at [16, 511, 256] beside `F.dropout` (Philox bits, not
+    JAX's: the same work, another draw)."""
+    import torch
+    import torch.nn.functional as F
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.common import prng
+    from deeplearning4j_tpu_torch.kernels import dropout as kd
+    key = prng.fold_in(prng.fold_in(prng.key(12346), 3), 2)
+    main = (16, 511, 256) if not small else (2, 31, 16)
+    timings = {}
+    for dt_name, dt in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        cases = [("main", rnd(main, dt), 0.9),
+                 ("ragged", rnd((3, 1001), dt), 0.8),
+                 ("offset_view", rnd((5, 4099), dt)[1:, 3:4000], 0.5)]
+        for case, x, p in cases:
+            n0 = K.LAUNCHES["dropout"]
+            y = kd.dropout_fwd(x, key, p)
+            launched = K.LAUNCHES["dropout"] - n0
+            y0 = kd.dropout_plain(x, key, p)
+            err = (y.float() - y0.float()).abs().max().item()
+            equal = bool(torch.equal(y, y0))
+            ok = fails.check(
+                equal and launched == (device.type == "cuda"),
+                f"dropout {case} {dt_name} {list(x.shape)} p={p}: "
+                f"bit-equal {equal}, max_abs_err {err}, launches "
+                f"{launched}")
+            checks.append(dict(kernel="dropout", case=case, dtype=dt_name,
+                               shape=list(x.shape), p=p, max_abs_err=err,
+                               tol=0.0, ok=ok))
+            if case != "main" or dt_name != "float32":
+                continue
+            n = x.numel()
+            timings[("dropout", dt_name)] = dict(
+                shape=list(x.shape), max_abs_err=err,
+                ms=timer(device, lambda: kd.dropout_fwd(x, key, p),
+                         flush=flush),
+                plain_ms=timer(device, lambda: kd.dropout_plain(x, key, p),
+                               flush=flush),
+                library_ms=timer(device, lambda: F.dropout(
+                    x, 1 - p, training=True), flush=flush),
+                # x read and y written once; the mask is recomputed in
+                # the backward, never stored
+                bound=bound(2 * n * x.element_size(), THREEFRY_OPS * n,
+                            "int32"))
+    for case, n, offset in (("main", int(np.prod(main)), 0),
+                            ("high_word", 4099, 2 ** 32 - 1000)):
+        w = kd.threefry_bits(key, n, device, offset)
+        w0 = kd.threefry_bits_plain(key, n, device, offset)
+        err = int((w - w0).abs().max().item())
+        ok = fails.check(bool(torch.equal(w, w0)),
+                         f"threefry_bits {case} [{n}] offset {offset}: "
+                         f"max abs difference {err}")
+        checks.append(dict(kernel="threefry_bits", case=case,
+                           dtype="uint32", shape=[n], offset=offset,
+                           max_abs_err=err, tol=0, ok=ok))
+        if case == "main":
+            timings[("threefry_bits", "float32")] = dict(
+                shape=[n], max_abs_err=err,
+                ms=timer(device, lambda: kd.threefry_bits(key, n, device),
+                         flush=flush),
+                plain_ms=timer(device, lambda: kd.threefry_bits_plain(key, n,
+                                                               device),
+                               flush=flush),
+                library_ms=None,
+                bound=bound(4 * n, THREEFRY_OPS * n, "int32"))
     return timings
 
 
@@ -1955,6 +2067,458 @@ def phase_serving_features(device, report, fails, cfg, small=False):
     return launches
 
 
+
+# ------------------------------------------------ phase 9: regularized
+# the classifier of arm (d): the smoke LM's width, 8 classes
+CLS = dict(LM, classes=8)
+# (d) held-out examples for evaluate() and evaluate_roc_multi_class()
+N_EVAL = 256
+# Adam's rate for the classifier: at the zoo's 1e-3 its loss jumps after
+# the first step in both packages (measured on a CPU at vocab 64, d_model
+# 256, 2 blocks, [16, 63]: the port 3.31 -> 14.66, the JAX package 4.02
+# -> 7.83, with or without dropout); at full width on a CPU over (d)'s
+# 21 batches, 3e-4 climbs to 13.3, 1e-4 wanders between 2.5 and 5.6, and
+# 3e-5 falls from 5.31 to 2.09. Its single-batch losses are noisy (the
+# batches' lengths differ), so (d) holds the mean of the last 5 timed
+# steps below the mean of the first 5
+CLS_LR = 3e-5
+CLS_LOSS_WINDOW = 5
+# the fields of arm (a) (the blocks' residual dropout, l2 on every layer,
+# elementwise clipping: every run still packs) and of arm (b) (per-layer
+# clipping and max_norm keep JAX from packing, so fused Adam must not
+# launch; DropConnect, attention dropout, a max-norm constraint on the
+# output layer, and Gaussian noise on its input, whose normal draw takes
+# the threefry words kernel)
+ARM_A = dict(dropout=0.9, l2=1e-4, gn="clip_elementwise_absolute_value",
+             gn_threshold=1.0)
+ARM_B = dict(gn="clip_l2_per_layer", gn_threshold=1.0, max_norm=1.0,
+             out_constraint=1.0, drop_connect=0.95, attention_dropout=0.9,
+             out_noise=0.05)
+# the kernels a regularized LM step must launch, each more than once
+REG_LM_KERNELS = ("layer_norm", "residual_layer_norm", "flash_attention_fwd",
+                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                  "fused_adam", "dropout")
+
+
+def regularize(net, *, dropout=None, l2=None, gn=None, gn_threshold=1.0,
+               max_norm=None, out_constraint=None, drop_connect=None,
+               attention_dropout=None, out_noise=None):
+    """Set training fields on a built net, as a configuration would:
+    `Dropout(dropout)`, `DropConnect(drop_connect)` and
+    `attention_dropout` on every transformer block, `l2` on every layer
+    with params, the gradient normalization and `max_norm` on the
+    configuration, a `MaxNormConstraint(out_constraint)` on the output
+    layer and `GaussianNoise(out_noise)` on its input."""
+    from deeplearning4j_tpu_torch.nn.conf.constraints import (
+        MaxNormConstraint)
+    from deeplearning4j_tpu_torch.nn.conf.dropout import (
+        Dropout, GaussianNoise)
+    from deeplearning4j_tpu_torch.nn.conf.weightnoise import DropConnect
+    from deeplearning4j_tpu_torch.nn.layers import TransformerEncoderBlock
+    for layer in net.layers:
+        if isinstance(layer, TransformerEncoderBlock):
+            if dropout is not None:
+                layer.dropout = Dropout(dropout)
+            if drop_connect is not None:
+                layer.weight_noise = DropConnect(drop_connect)
+            if attention_dropout is not None:
+                layer.attention_dropout = attention_dropout
+        if l2 is not None and layer.jax_param_map():
+            layer.l2 = l2
+    if gn is not None:
+        net.conf.gradient_normalization = gn
+        net.conf.gradient_normalization_threshold = gn_threshold
+    if max_norm is not None:
+        net.conf.max_norm = max_norm
+    out = net.layers[-1]
+    if out_constraint is not None:
+        out.constraints = [MaxNormConstraint(out_constraint)]
+    if out_noise is not None:
+        out.dropout = GaussianNoise(out_noise)
+    return net
+
+
+def _card_vs_cpu(fails, what, card, cpu, l_card, l_cpu, n_check, mixed):
+    """Phase 5's gates: fp32, the loss per step within TRAIN_LOSS_RTOL and
+    every param within TRAIN_PARAM_RTOL (attn_bk to Adam's step bound);
+    mixed_bf16, step 0's loss within MIXED_STEP0_RTOL."""
+    if mixed:
+        err = abs(l_card[0] - l_cpu[0]) / abs(l_cpu[0])
+        fails.check(err <= MIXED_STEP0_RTOL and all(np.isfinite(l_card)),
+                    f"{what} mixed_bf16 step 0 loss card vs CPU rel err "
+                    f"{err} (tol {MIXED_STEP0_RTOL}): card {l_card}, CPU "
+                    f"{l_cpu}")
+        return dict(loss_card=l_card, loss_cpu=l_cpu, step0_rel_err=err)
+    err = max(abs(a - b) / abs(b) for a, b in zip(l_card, l_cpu))
+    fails.check(err <= TRAIN_LOSS_RTOL and all(np.isfinite(l_card)),
+                f"{what} loss card vs CPU rel err {err} (tol "
+                f"{TRAIN_LOSS_RTOL}): card {l_card}, CPU {l_cpu}")
+    worst, worst_bk = param_diff(card, cpu)
+    bk_tol = 2 * n_check * adam_step_max()
+    fails.check(worst[0] <= TRAIN_PARAM_RTOL and worst_bk <= bk_tol,
+                f"{what} params card vs CPU: worst rel Frobenius "
+                f"{worst[0]} at {worst[1]} (tol {TRAIN_PARAM_RTOL}), "
+                f"attn_bk max abs {worst_bk} (tol {bk_tol})")
+    return dict(loss_card=l_card, loss_cpu=l_cpu, loss_max_rel_err=err,
+                param_worst_rel_frobenius=worst[0], param_worst_at=worst[1],
+                attn_bk_max_abs=worst_bk)
+
+
+def _launched(fails, what, launches, kernels, absent=()):
+    """Every kernel of `kernels` launched, none of `absent`."""
+    fails.check(all(launches.get(k, 0) > 0 for k in kernels)
+                and not any(launches.get(k, 0) for k in absent),
+                f"{what} launches {launches}: want {list(kernels)} > 0 and "
+                f"{list(absent)} == 0")
+
+
+def _falls(fails, what, losses, window=1):
+    """The mean of the last `window` losses below the mean of the first
+    `window`, every loss finite."""
+    first, last = np.mean(losses[:window]), np.mean(losses[-window:])
+    fails.check(all(np.isfinite(losses)) and last < first,
+                f"{what} loss did not fall: {first} -> {last} (means of "
+                f"{window}: {losses})")
+
+
+def _reg_arm_a(device, fails, cfg, B_check, n_check, B, n_steps, on_card):
+    """(a) the smoke LM with ARM_A's fields, fp32 and mixed_bf16: card
+    against CPU over n_check steps from identical params and keys, then
+    n_steps timed steps beside the undropped twin."""
+    params = random_lm_params(cfg, seed=1357, head_scale=1.0)
+    X, Y = lm_corpus(cfg, B_check * n_check, seed=11)
+    out, launches = {}, {}
+    for tag, policy in (("fp32", None), ("mixed", MIXED)):
+        card = regularize(build_lm(cfg, device, params, dtype_policy=policy),
+                          **ARM_A)
+        cpu = regularize(build_lm(cfg, "cpu", params, dtype_policy=policy),
+                         **ARM_A)
+        l_card = _fit_steps(card, X, Y, B_check)
+        l_cpu = _fit_steps(cpu, X, Y, B_check)
+        out[f"{tag}_check"] = _card_vs_cpu(
+            fails, f"regularized LM {tag}", card, cpu, l_card, l_cpu,
+            n_check, policy is not None)
+        del card, cpu
+    Xt, Yt = lm_corpus(cfg, B * (n_steps + 1), seed=12)
+    for tag, policy in (("fp32", None), ("mixed", MIXED)):
+        out[f"{tag}_twin"] = _timed_fit(build_lm(cfg, device, params,
+                                                 dtype_policy=policy),
+                                        Xt, Yt, B)
+        net = regularize(build_lm(cfg, device, params, dtype_policy=policy),
+                         **ARM_A)
+        out[f"{tag}_timed"] = t = _timed_fit(net, Xt, Yt, B)
+        _falls(fails, f"regularized LM {tag}", t["losses"])
+        if on_card:
+            _launched(fails, f"regularized LM {tag}", t["launches"],
+                      REG_LM_KERNELS)
+        if policy is not None:
+            out["mixed_final_loss_gap_vs_fp32"] = _mixed_checks(
+                fails, "regularized LM", t, out["fp32_timed"], net, on_card)
+        launches = {k: launches.get(k, 0) + n
+                    for k, n in t["launches"].items()}
+        del net
+    return out, launches
+
+
+def _reg_arm_b(device, fails, cfg, B_check, n_check, on_card):
+    """(b) ARM_B's per-leaf fields: no packed run, so no fused Adam; the
+    plain masked-softmax attention carries the attention dropout (no
+    flash launch); card against CPU over n_check steps."""
+    from deeplearning4j_tpu_torch import kernels as K
+    params = random_lm_params(cfg, seed=9753, head_scale=1.0)
+    X, Y = lm_corpus(cfg, B_check * n_check, seed=13)
+    card = regularize(build_lm(cfg, device, params), **ARM_B)
+    cpu = regularize(build_lm(cfg, "cpu", params), **ARM_B)
+    runs = card._packed_runs()
+    fails.check(runs == [], f"per-leaf arm packs runs {runs}")
+    K.reset_launches()
+    t0 = time.perf_counter()
+    l_card = _fit_steps(card, X, Y, B_check)
+    card_ms = (time.perf_counter() - t0) / n_check * 1e3
+    launches = dict(K.LAUNCHES)
+    l_cpu = _fit_steps(cpu, X, Y, B_check)
+    out = _card_vs_cpu(fails, "per-leaf arm", card, cpu, l_card, l_cpu,
+                       n_check, False)
+    if on_card:
+        _launched(fails, "per-leaf arm", launches,
+                  ("layer_norm", "residual_layer_norm", "dropout",
+                   "threefry_bits"),
+                  absent=("fused_adam", "flash_attention_fwd",
+                          "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv"))
+    out.update(B=B_check, T=X.shape[1], ms_per_step=card_ms,
+               launches=launches, packed_runs=runs)
+    return out, launches
+
+
+def _reg_arm_c(device, fails, cfg, B, n_check, n_steps, on_card):
+    """(c) the long-context LM under mixed_bf16: Dropout(0.9) on the
+    blocks, n_steps timed beside the undropped twin; then ring and
+    Ulysses (the 4-way seq mesh on the one card) against the local path,
+    n_check steps each from identical params, and `output()` in the
+    context."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, make_mesh, sequence_sharding)
+    T = cfg["max_len"]
+    params = random_lm_params(cfg, seed=8642, head_scale=1.0)
+    Xt, Yt = lm_corpus(cfg, B * (n_steps + 1), seed=14, T=T)
+    out, launches = {}, {}
+    for arm, drop in (("twin", None), ("dropout", 0.9)):
+        net = regularize(build_lm(cfg, device, params, lr=LONG_LR,
+                                  dtype_policy=MIXED), dropout=drop)
+        out[arm] = t = _timed_fit(net, Xt, Yt, B)
+        _falls(fails, f"long-context mixed {arm}", t["losses"])
+        if on_card and drop is not None:
+            got = t["launches_by_dtype"]
+            want = [f"{k}/bfloat16" for k in MIXED_KERNELS + ("dropout",)]
+            fails.check(all(got.get(k) for k in want)
+                        and not any(k.endswith("/float32") for k in got),
+                        f"long-context mixed dropout launches {got}: want "
+                        f"{want} and no fp32 instance")
+        launches = {k: launches.get(k, 0) + n
+                    for k, n in t["launches"].items()}
+        del net
+    mesh = make_mesh(MeshSpec.of(seq=SEQ_P), devices=[device] * SEQ_P)
+    X, Y = lm_corpus(cfg, B * n_check, seed=15, T=T)
+    ids = X[:B].astype(np.int64)
+    local = build_lm(cfg, device, params, lr=LONG_LR, dtype_policy=MIXED)
+    want_out = local.output(ids)
+    l_local = _fit_steps(local, X, Y, B)
+    out["local_losses"] = l_local
+    del local
+    for sp in ("ring", "ulysses"):
+        net = build_lm(cfg, device, params, sequence_parallel=sp,
+                       lr=LONG_LR, dtype_policy=MIXED)
+        K.reset_launches()
+        with sequence_sharding(mesh):
+            got_out = net.output(ids)
+            l_sp = _fit_steps(net, X, Y, B)
+        sp_launches = dict(K.LAUNCHES)
+        by_dtype = dict(sorted(K.LAUNCHES_BY_DTYPE.items()))
+        err = (got_out - want_out).abs().max().item()
+        step0 = abs(l_sp[0] - l_local[0]) / l_local[0]
+        gap = max(abs(a - b) for a, b in zip(l_sp, l_local))
+        fails.check(err <= MIXED_DECODE_ATOL
+                    and bool(torch.isfinite(got_out).all()),
+                    f"{sp} mixed output() vs local mixed max_abs_err {err} "
+                    f"(tol {MIXED_DECODE_ATOL})")
+        fails.check(step0 <= MIXED_STEP0_RTOL
+                    and gap <= MIXED_BAND * l_local[0],
+                    f"{sp} mixed training vs local mixed: step 0 rel err "
+                    f"{step0} (tol {MIXED_STEP0_RTOL}), largest gap {gap} "
+                    f"(tol {MIXED_BAND} x {l_local[0]}): {l_sp} vs "
+                    f"{l_local}")
+        fails.check(_master_is_fp32(net), f"{sp} mixed: master not fp32")
+        if on_card and sp == "ring":
+            fails.check(by_dtype.get("flash_attention_carry/bfloat16", 0) > 0
+                        and not by_dtype.get("flash_attention_carry/float32"),
+                        f"ring mixed launches by dtype {by_dtype}")
+        out[sp] = dict(output_max_abs_err_vs_local=err, losses=l_sp,
+                       step0_rel_err=step0, largest_loss_gap=gap,
+                       launches_by_dtype=by_dtype)
+        launches = {k: launches.get(k, 0) + n
+                    for k, n in sp_launches.items()}
+        del net
+    return out, launches
+
+
+def classifier_data(cfg, n, seed, T=None):
+    """Padded token windows for the classifier: n sequences of seeded
+    lengths 16..T (T = max_len - 1), 0 past each length, the features
+    mask, and one-hot labels by a rule the model can learn: a class-c
+    sequence draws each token from class c's band of the vocabulary with
+    probability 0.7, else from the whole vocabulary."""
+    rng = np.random.default_rng(seed)
+    V, C = cfg["vocab"], cfg["classes"]
+    T = T or cfg["max_len"] - 1
+    lengths = rng.integers(min(16, T), T + 1, n)
+    mask = (np.arange(T)[None, :] < lengths[:, None]).astype(np.float32)
+    cls = rng.integers(0, C, n)
+    band = (V - 1) // C
+    own = 1 + cls[:, None] * band + rng.integers(0, band, (n, T))
+    ids = np.where(rng.random((n, T)) < 0.7, own,
+                   rng.integers(1, V, (n, T))) * mask
+    return (ids.astype(np.float32), mask,
+            np.eye(C, dtype=np.float32)[cls])
+
+
+def build_classifier(cfg, device, seed=77):
+    """The zoo TransformerClassifier (dropout 0.9, AVG pooling) with
+    weights from a CPU generator seeded with `seed` and Adam(CLS_LR)."""
+    from deeplearning4j_tpu_torch.common.updaters import Adam
+    from deeplearning4j_tpu_torch.zoo.transformer import (
+        TransformerClassifier)
+    net = TransformerClassifier(
+        cfg["vocab"], cfg["classes"], d_model=cfg["d_model"],
+        n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
+        ff_multiplier=cfg["ff"], max_len=cfg["max_len"], dropout=0.9,
+        pooling="avg").init(seed, device=device)
+    for layer in net.layers:
+        layer.updater = Adam(CLS_LR)
+    return net
+
+
+def _ds_steps(net, X, M, Y, B):
+    """One `fit` step per B-row padded batch (a `DataSet` with its
+    features mask), in order; the loss of each."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    losses = []
+    for i in range(0, len(X), B):
+        net.fit(DataSet(X[i:i + B], Y[i:i + B], features_mask=M[i:i + B]),
+                batch_size=B)
+        losses.append(net.score_value)
+    if net.device.type == "cuda":
+        torch.cuda.synchronize()
+    return losses
+
+
+def _reg_arm_d(device, fails, cfg, B_check, n_check, B, n_steps, n_eval,
+               on_card):
+    """(d) the TransformerClassifier on padded batches with its features
+    mask: card against CPU over n_check steps, n_steps timed, then
+    `evaluate()` and `evaluate_roc_multi_class()` on n_eval held-out
+    sequences, the trained card net against its copy on the CPU."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.util.jax_params import (
+        from_jax_params, to_jax_params)
+    X, M, Y = classifier_data(cfg, B_check * n_check, seed=21)
+    card, cpu = build_classifier(cfg, device), build_classifier(cfg, "cpu")
+    l_card = _ds_steps(card, X, M, Y, B_check)
+    l_cpu = _ds_steps(cpu, X, M, Y, B_check)
+    out = dict(check=_card_vs_cpu(fails, "classifier", card, cpu, l_card,
+                                  l_cpu, n_check, False))
+    del card, cpu
+    Xt, Mt, Yt = classifier_data(cfg, B * (n_steps + 1), seed=22)
+    net = build_classifier(cfg, device)
+    _ds_steps(net, Xt[:B], Mt[:B], Yt[:B], B)                  # warm
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    losses = _ds_steps(net, Xt[B:], Mt[B:], Yt[B:], B)
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    _falls(fails, "classifier", losses, min(CLS_LOSS_WINDOW,
+                                            len(losses) // 2 or 1))
+    if on_card:
+        _launched(fails, "classifier", launches,
+                  ("layer_norm", "residual_layer_norm", "fused_adam",
+                   "dropout"),
+                  absent=("flash_attention_fwd",))
+    out["timed"] = dict(B=B, T=Xt.shape[1], steps=n_steps, wall_s=wall,
+                        ms_per_step=wall / n_steps * 1e3,
+                        tokens_per_s=float(Mt[B:].sum()) / wall,
+                        loss_first=losses[0], loss_last=losses[-1],
+                        losses=losses, launches=launches,
+                        peak_mem_gb=(torch.cuda.max_memory_allocated()
+                                     / 2 ** 30 if on_card else None))
+    # evaluation: the trained net on the card and its copy on the CPU
+    Xe, Me, Ye = classifier_data(cfg, n_eval, seed=23)
+    ds = DataSet(Xe, Ye, features_mask=Me)
+    twin = from_jax_params(build_classifier(cfg, "cpu"), to_jax_params(net))
+    t0 = time.perf_counter()
+    e_card, r_card = net.evaluate(ds), net.evaluate_roc_multi_class(ds)
+    eval_s = time.perf_counter() - t0
+    e_cpu, r_cpu = twin.evaluate(ds), twin.evaluate_roc_multi_class(ds)
+    p_card = net.output(Xe, mask=Me).cpu().numpy()
+    p_cpu = twin.output(Xe, mask=Me).numpy()
+    top2 = np.sort(p_cpu, -1)[:, -2:]
+    margin = top2[:, 1] - top2[:, 0]
+    apart = np.flatnonzero(p_card.argmax(-1) != p_cpu.argmax(-1))
+    near_ties = [int(i) for i in apart if margin[i] <= 2 * OUTPUT_ATOL]
+    same_counts = np.array_equal(e_card.confusion.matrix,
+                                 e_cpu.confusion.matrix)
+    fails.check(same_counts or len(near_ties) == len(apart),
+                f"classifier evaluate() card vs CPU: confusion matrices "
+                f"differ at examples {apart.tolist()}, of which near-ties "
+                f"(top-2 margin <= {2 * OUTPUT_ATOL}) {near_ties}")
+    auc_err = max(abs(r_card.calculate_auc(c) - r_cpu.calculate_auc(c))
+                  for c in range(cfg["classes"]))
+    prob_err = float(np.abs(p_card - p_cpu).max())
+    fails.check(auc_err <= 1e-3 and prob_err <= OUTPUT_ATOL,
+                f"classifier card vs CPU: AUC max abs err {auc_err} (tol "
+                f"1e-3), probabilities max_abs_err {prob_err} (tol "
+                f"{OUTPUT_ATOL})")
+    out["evaluate"] = dict(n=n_eval, accuracy_card=e_card.accuracy(),
+                           accuracy_cpu=e_cpu.accuracy(),
+                           same_counts=bool(same_counts),
+                           examples_apart=apart.tolist(),
+                           near_ties=near_ties,
+                           average_auc_card=r_card.calculate_average_auc(),
+                           auc_max_abs_err=auc_err,
+                           prob_max_abs_err=prob_err, card_s=eval_s)
+    return out, launches
+
+
+def phase_regularized(device, report, fails, small=False):
+    """Phase 9: training with what a real configuration sets, arms
+    (a)-(d) (each beside its twin in this call). Returns the launch
+    counts of the arms' card runs."""
+    on_card = device.type == "cuda"
+    cfg = dict(LM, n_layers=2, max_len=64) if small else LM
+    long_cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
+                if small else LM_LONG)
+    cls_cfg = dict(CLS, n_layers=2, max_len=64, vocab=64) if small else CLS
+    out, total = {}, {}
+
+    def add(launches):
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+
+    t0 = time.perf_counter()
+    out["a"], l = _reg_arm_a(device, fails, cfg,
+                             *((2, 2, 2, 3) if small else (8, 3, 16, 20)),
+                             on_card)
+    add(l)
+    out["b"], l = _reg_arm_b(device, fails, cfg, 2, 2 if small else 3,
+                             on_card)
+    add(l)
+    out["c"], l = _reg_arm_c(device, fails, long_cfg,
+                             *((2, 2, 3) if small else (8, 3, 10)), on_card)
+    add(l)
+    out["d"], l = _reg_arm_d(device, fails, cls_cfg,
+                             *((2, 2, 4, 3, 16) if small
+                               else (8, 3, 16, 20, N_EVAL)), on_card)
+    add(l)
+    out["seconds"] = time.perf_counter() - t0
+    report["regularized"] = out
+    a, b, c, d = out["a"], out["b"], out["c"], out["d"]
+    for tag in ("fp32", "mixed"):
+        tw, tm = a[f"{tag}_twin"], a[f"{tag}_timed"]
+        print(f"[regularized] (a) smoke LM {tag} [{tm['steps']} steps, "
+              f"B 16]: {tm['ms_per_step']:.2f} ms/step vs undropped twin "
+              f"{tw['ms_per_step']:.2f} ms/step (+"
+              f"{tm['ms_per_step'] - tw['ms_per_step']:.2f}), "
+              f"{tm['tokens_per_s']:.0f} tok/s, loss "
+              f"{tm['loss_first']:.4f} -> {tm['loss_last']:.4f}; card vs "
+              f"CPU {a[f'{tag}_check']}; launches {tm['launches']}",
+              flush=True)
+    print(f"[regularized] (b) per-leaf arm: card vs CPU loss rel err "
+          f"{b['loss_max_rel_err']:.3g}, worst param "
+          f"{b['param_worst_rel_frobenius']:.3g} ({b['param_worst_at']}), "
+          f"{b['ms_per_step']:.2f} ms/step at [{b['B']}, {b['T']}], packed "
+          f"runs {b['packed_runs']}, launches {b['launches']}", flush=True)
+    print(f"[regularized] (c) long-context mixed: dropout "
+          f"{c['dropout']['ms_per_step']:.2f} ms/step vs twin "
+          f"{c['twin']['ms_per_step']:.2f}, loss "
+          f"{c['dropout']['loss_first']:.4f} -> "
+          f"{c['dropout']['loss_last']:.4f}; ring vs local step 0 "
+          f"{c['ring']['step0_rel_err']:.3g}, output "
+          f"{c['ring']['output_max_abs_err_vs_local']:.3g}; ulysses step 0 "
+          f"{c['ulysses']['step0_rel_err']:.3g}, output "
+          f"{c['ulysses']['output_max_abs_err_vs_local']:.3g}", flush=True)
+    print(f"[regularized] (d) classifier: card vs CPU {d['check']}; "
+          f"{d['timed']['ms_per_step']:.2f} ms/step, loss "
+          f"{d['timed']['loss_first']:.4f} -> {d['timed']['loss_last']:.4f};"
+          f" evaluate {d['evaluate']}", flush=True)
+    return total
+
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=12):
     rows = []
@@ -2210,6 +2774,13 @@ KERNEL_META = {
         "deeplearning4j_tpu/kernels/flash_attention.py:307"),
     "fused_adam": ("deeplearning4j_tpu_torch/kernels/csrc/fused_adam.cu",
                    "deeplearning4j_tpu/kernels/fused_adam.py:78"),
+    # no Pallas kernel: XLA's fusion of the threefry draw into its use
+    "dropout": ("deeplearning4j_tpu_torch/kernels/csrc/threefry.cu",
+                "deeplearning4j_tpu/nn/conf/dropout.py:63 "
+                "(jax.random.bernoulli, an XLA fusion)"),
+    "threefry_bits": ("deeplearning4j_tpu_torch/kernels/csrc/threefry.cu",
+                      "deeplearning4j_tpu/nn/conf/dropout.py:117 "
+                      "(jax.random.normal's bits, an XLA fusion)"),
 }
 
 
@@ -2262,6 +2833,10 @@ def run(device, *, small=False, kernels_only=False):
                    report, fails, cfg, small)
         for k in launches:
             launches[k] += (l8 or {}).get(k, 0)
+        l9 = phase("regularized", phase_regularized, device, report, fails,
+                   small)
+        for k in launches:
+            launches[k] += (l9 or {}).get(k, 0)
         for k, n in launches.items():
             fails.check(n > 0, f"kernel {k} never launched on the main path")
     kernels = []

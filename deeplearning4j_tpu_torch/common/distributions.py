@@ -3,10 +3,14 @@
 Uniform, Binomial, Constant, LogNormal, TruncatedNormal, Orthogonal,
 with the JAX package's dict serde.
 
-Samples are drawn on the CPU from an explicit `torch.Generator`, so a
-seed gives the same weights on every device. The JAX package draws
-threefry bits; the two packages share the distributions, not the
-draws.
+Weight-init samples are drawn on the CPU from an explicit
+`torch.Generator`, so a seed gives the same weights on every device;
+the JAX package draws threefry bits, so the two packages share these
+distributions, not the draws. Weight noise is different:
+`sample_key(key, shape, dtype, device)` draws JAX's own bits from a
+threefry key (`common/prng.py`), the key-based `sample` of
+`NormalDistribution` and `UniformDistribution` (JAX :32-50). The other
+distributions have no key-based draw in the port.
 """
 
 from __future__ import annotations
@@ -15,12 +19,22 @@ import dataclasses
 
 import torch
 
+from deeplearning4j_tpu_torch.common import prng
+
 
 class Distribution:
     name = "base"
 
     def sample(self, gen: torch.Generator, shape, dtype=torch.float32):
         raise NotImplementedError
+
+    # the distributions whose `sample_key` is ported
+    KEYED = False
+
+    def sample_key(self, key, shape, dtype=torch.float32, device="cpu"):
+        raise NotImplementedError(
+            f"a threefry-keyed draw from {type(self).__name__} is not "
+            f"ported (ROADMAP Queue 1 item 6)")
 
     def to_dict(self):
         d = {"distribution": self.name}
@@ -44,6 +58,15 @@ class NormalDistribution(Distribution):
     def sample(self, gen, shape, dtype=torch.float32):
         return self.mean + self.std * _normal(gen, shape, dtype)
 
+    KEYED = True
+
+    def sample_key(self, key, shape, dtype=torch.float32, device="cpu"):
+        """JAX's ``mean + std * jax.random.normal(key, shape, dtype)``,
+        the floats entering in `dtype`."""
+        z = prng.normal(key, shape, dtype, device)
+        return (torch.tensor(self.mean, dtype=dtype, device=z.device)
+                + torch.tensor(self.std, dtype=dtype, device=z.device) * z)
+
 
 @dataclasses.dataclass(eq=False)
 class UniformDistribution(Distribution):
@@ -54,6 +77,13 @@ class UniformDistribution(Distribution):
     def sample(self, gen, shape, dtype=torch.float32):
         u = torch.rand(tuple(shape), generator=gen, dtype=dtype)
         return self.lower + (self.upper - self.lower) * u
+
+    KEYED = True
+
+    def sample_key(self, key, shape, dtype=torch.float32, device="cpu"):
+        """JAX's ``jax.random.uniform(key, shape, dtype, lower, upper)``."""
+        return prng.uniform(key, shape, dtype, self.lower, self.upper,
+                            device)
 
 
 @dataclasses.dataclass(eq=False)

@@ -132,6 +132,13 @@ def installed(tree: Optional[Dict]):
         _INSTALLED.reset(token)
 
 
+def overlaid(entries: Dict):
+    """Context manager: `entries` ({(id(module), attribute): weight})
+    installed over the current tree for the block (the container's
+    weight noise while training)."""
+    return installed({**(_INSTALLED.get() or {}), **entries})
+
+
 # ------------------------------------------------------- net-level trees
 def quantized_weight_keys(net) -> Dict[str, list]:
     """{layer key: [param key, ...]} of every weight the net's layers

@@ -1,14 +1,30 @@
-"""Parameter constraints as configuration (counterpart of
-`deeplearning4j_tpu/nn/conf/constraints.py`): the four constraints with
-their serde. The projections are not ported yet (ROADMAP Queue 1
-item 5); they act only after an update, so the container refuses them
-in `fit`."""
+"""Parameter constraints (counterpart of
+`deeplearning4j_tpu/nn/conf/constraints.py` :38-130): the four
+constraints, their serde and their projections, which the container
+applies to a layer's params after every update.
+
+Norms reduce over every axis but the last (the output axis), as
+``sqrt(sum(w * w) + 1e-8)``; a 1-D param's norm is over its one axis.
+By default only weight-like params are constrained: a bias-like name
+(`is_bias_param`) or "gamma" passes unless `apply_to_bias`. The names
+are matched exactly as JAX matches them, so a transformer block's
+prefixed "attn_bq" or "ln1_gamma" counts as weight-like there and here.
+"""
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch
+
 _CONSTRAINT_REGISTRY = {}
+_EPS = 1e-8
+
+
+def is_bias_param(name: str) -> bool:
+    """Bias-like param names: "b", names ending in "b" or starting with
+    "b", and BN's "beta" (the JAX `is_bias_param`)."""
+    return name == "beta" or name.endswith("b") or name.startswith("b")
 
 
 def register_constraint(cls):
@@ -18,6 +34,24 @@ def register_constraint(cls):
 
 class LayerConstraint:
     kind = "base"
+    apply_to_bias: bool = False
+
+    def apply(self, w):
+        raise NotImplementedError
+
+    def apply_params(self, params: dict) -> dict:
+        out = {}
+        for name, w in params.items():
+            is_bias = is_bias_param(name) or name == "gamma"
+            if (is_bias and not self.apply_to_bias) or w.ndim < 1:
+                out[name] = w
+            else:
+                out[name] = self.apply(w)
+        return out
+
+    def _norms(self, w):
+        dims = tuple(range(w.ndim - 1)) if w.ndim > 1 else (0,)
+        return torch.sqrt((w * w).sum(dim=dims, keepdim=True) + _EPS)
 
     def to_dict(self):
         d = {"kind": self.kind}
@@ -41,6 +75,9 @@ class MaxNormConstraint(LayerConstraint):
     max_norm: float = 2.0
     apply_to_bias: bool = False
 
+    def apply(self, w):
+        return w * torch.clamp(self.max_norm / self._norms(w), max=1.0)
+
 
 @register_constraint
 @dataclasses.dataclass(eq=False)
@@ -51,6 +88,11 @@ class MinMaxNormConstraint(LayerConstraint):
     rate: float = 1.0
     apply_to_bias: bool = False
 
+    def apply(self, w):
+        n = self._norms(w)
+        target = torch.clamp(n, self.min_norm, self.max_norm)
+        return w * (self.rate * (target / n) + (1.0 - self.rate))
+
 
 @register_constraint
 @dataclasses.dataclass(eq=False)
@@ -58,9 +100,15 @@ class UnitNormConstraint(LayerConstraint):
     kind = "unit_norm"
     apply_to_bias: bool = False
 
+    def apply(self, w):
+        return w / self._norms(w)
+
 
 @register_constraint
 @dataclasses.dataclass(eq=False)
 class NonNegativeConstraint(LayerConstraint):
     kind = "non_negative"
     apply_to_bias: bool = True
+
+    def apply(self, w):
+        return torch.clamp(w, min=0.0)

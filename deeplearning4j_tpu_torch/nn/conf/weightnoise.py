@@ -1,19 +1,30 @@
-"""Weight noise as configuration (counterpart of
-`deeplearning4j_tpu/nn/conf/weightnoise.py`): DropConnect and
-WeightNoise with their serde. The noise itself is not ported yet
-(ROADMAP Queue 1 item 5); it acts only while training, so the
-container refuses it in `fit`."""
+"""Weight noise (counterpart of `deeplearning4j_tpu/nn/conf/
+weightnoise.py` :36-105): DropConnect and WeightNoise, their serde, and
+`apply_params(key, params)`, which the container calls on a layer's
+params right before its forward while training, so autograd sees the
+noised weights.
+
+Param i of the layer's params in sorted-name order takes the key
+`fold_in(key, i)`; bias-like params (`constraints.is_bias_param`) pass
+unchanged unless `apply_to_bias`. `DropConnect` is the dropout kernel
+on the weight (`kernels/dropout.py`); `WeightNoise` draws from its
+distribution's `sample_key` (normal and uniform are ported; the
+container refuses the others by name).
+"""
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Optional
 
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.common.distributions import (
     Distribution,
     NormalDistribution,
     distribution_from_dict,
 )
+from deeplearning4j_tpu_torch.kernels.dropout import dropout
+from deeplearning4j_tpu_torch.nn.conf.constraints import is_bias_param
 
 _WEIGHT_NOISE_REGISTRY = {}
 
@@ -25,6 +36,19 @@ def register_weight_noise(cls):
 
 class IWeightNoise:
     kind = "base"
+    apply_to_bias: bool = False
+
+    def apply(self, key, name: str, w):
+        raise NotImplementedError
+
+    def apply_params(self, key, params: dict) -> dict:
+        out = {}
+        for i, (name, w) in enumerate(sorted(params.items())):
+            if is_bias_param(name) and not self.apply_to_bias:
+                out[name] = w
+            else:
+                out[name] = self.apply(prng.fold_in(key, i), name, w)
+        return out
 
     def to_dict(self):
         d = {"kind": self.kind}
@@ -52,6 +76,9 @@ class DropConnect(IWeightNoise):
     p: float = 0.5
     apply_to_bias: bool = False
 
+    def apply(self, key, name, w):
+        return dropout(w, key, self.p)
+
 
 @register_weight_noise
 @dataclasses.dataclass(eq=False)
@@ -64,3 +91,7 @@ class WeightNoise(IWeightNoise):
     def __post_init__(self):
         if self.dist is None:
             self.dist = NormalDistribution(0.0, 0.01)
+
+    def apply(self, key, name, w):
+        noise = self.dist.sample_key(key, w.shape, w.dtype, w.device)
+        return w + noise if self.additive else w * noise

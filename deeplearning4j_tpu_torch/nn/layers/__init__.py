@@ -2,11 +2,17 @@ from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     DenseLayer,
+    DropoutLayer,
     EmbeddingLayer,
+    OutputLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     LayerNormalization,
     layer_norm_reference,
+)
+from deeplearning4j_tpu_torch.nn.layers.pooling import (
+    GlobalPoolingLayer,
+    PoolingType,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     BaseRecurrentLayer,
@@ -18,8 +24,9 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
     stream_budget,
 )
 
-__all__ = ["BaseRecurrentLayer", "DenseLayer", "EmbeddingLayer", "Layer",
-           "LayerNormalization", "MultiHeadAttention",
-           "PositionalEncodingLayer", "RnnOutputLayer",
+__all__ = ["BaseRecurrentLayer", "DenseLayer", "DropoutLayer",
+           "EmbeddingLayer", "GlobalPoolingLayer", "Layer",
+           "LayerNormalization", "MultiHeadAttention", "OutputLayer",
+           "PoolingType", "PositionalEncodingLayer", "RnnOutputLayer",
            "TransformerEncoderBlock", "layer_from_dict",
            "layer_norm_reference", "stream_budget"]

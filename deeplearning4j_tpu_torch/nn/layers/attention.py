@@ -7,9 +7,9 @@
 Params "Wq", "Wk", "Wv", "Wo" ([d, d], used as ``x @ W``) and biases
 "bq".."bo" (the JAX layer's default `has_bias=True`; identity
 activation, applied after Wo as in JAX). Heads split the model dim as
-[B, T, H, Dh], the JAX layout. `attention_dropout` acts only while
-training and is refused in `fit`; `n_out` other than `n_in` is not
-ported.
+[B, T, H, Dh], the JAX layout. A padding mask or `attention_dropout` in
+training takes the plain masked softmax, as in JAX; `n_out` other than
+`n_in` is not ported.
 
 `sequence_parallel="ring"|"ulysses"` makes the full-sequence forward
 run ring or Ulysses attention over the mesh of an active
@@ -24,6 +24,7 @@ import logging
 
 import torch
 
+from deeplearning4j_tpu_torch.kernels.dropout import dropout
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
@@ -153,9 +154,24 @@ class MultiHeadAttention(Layer):
             self._project(o.reshape(o.shape[0], o.shape[1], -1), "Wo"))
 
     # ------------------------------------------------------ full sequence
-    def forward(self, x):
+    def forward(self, x, *, train=False, rng=None, mask=None):
+        return self.attend(self.apply_input_dropout(x, train, rng), train,
+                           rng, mask, self.attention_dropout)
+
+    def attend(self, x, train, rng, mask, attention_dropout):
+        """Attention over the whole sequence of `x` (the JAX `forward`
+        :336-419 after its input dropout). Flash attention (or the
+        ring/Ulysses schedule inside `sequence_sharding`) only on the
+        plain path: no padding mask and no attention dropout in
+        training. Otherwise the -inf masked softmax: `mask` [B, T] masks
+        the keys where it is 0 (a query row with every key masked is
+        NaN, as in JAX), and `attention_dropout` (a retain probability)
+        drops softmax weights under the same key `rng` as the layer's
+        input dropout."""
         q, k, v = self._qkv(x)
-        if self.sequence_parallel:
+        drop = train and attention_dropout is not None
+        plain = mask is None and not drop
+        if self.sequence_parallel and plain:
             ctx = current_sequence_mesh()
             if ctx is None:
                 _warn_sp_fallback(
@@ -174,15 +190,28 @@ class MultiHeadAttention(Layer):
                         q, k, v, mesh, axis_name=axis, causal=self.causal,
                         use_flash=flash)
                 return self._out(o)
-        if self.use_flash is not False:
+        if self.sequence_parallel and not plain:
+            reasons = []
+            if mask is not None:
+                reasons.append("padding mask present (ring/ulysses paths "
+                               "are mask-free)")
+            if drop:
+                reasons.append("attention_dropout active in training")
+            _warn_sp_fallback(self.name or type(self).__name__,
+                              "; ".join(reasons))
+        if self.use_flash is not False and plain:
             return self._out(flash_attention(q, k, v, self.causal))
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * self.scale
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k) * self._scale_in(q.dtype)
         T = x.shape[1]
         if self.causal:
             keep = torch.ones((T, T), dtype=torch.bool,
                               device=x.device).tril()
             s = s.masked_fill(~keep, float("-inf"))
+        if mask is not None:
+            s = s.masked_fill(~(mask[:, None, None, :] > 0), float("-inf"))
         w = torch.softmax(s, dim=-1)
+        if drop and rng is not None:
+            w = dropout(w, rng, float(attention_dropout))
         return self._out(torch.einsum("bhqk,bkhd->bqhd", w, v))
 
     # ------------------------------------------------------ cached decode

@@ -17,6 +17,15 @@ construction or in `set_n_in` (n_in inference in `ListBuilder.build`).
 They are zeros until `init_weights` draws them (`weight_init` and
 `dist` through `common/weights.py`, biases filled with `bias_init`
 where the JAX layer fills them) or a loader copies them in.
+
+Training hooks (the JAX `Layer` :186-259): a layer's `forward(x, *,
+train, rng, mask)` takes the threefry key `rng` (`common/prng.py`) the
+container folds for it and the [B, T] padding mask; `forward_mask`
+propagates the mask to the next layer; `apply_input_dropout` applies
+`dropout` (an `IDropout`, or a float RETAIN probability: >= 1 is a
+no-op) while training; `apply_weight_noise`, `apply_constraints` and
+`regularization_score` act on a `{JAX name: tensor}` dict, as the JAX
+hooks act on the layer's param dict.
 """
 
 from __future__ import annotations
@@ -46,9 +55,11 @@ from deeplearning4j_tpu_torch.common.updaters import (
     updater_from_dict,
 )
 from deeplearning4j_tpu_torch.common.weights import WeightInit, init_weights
+from deeplearning4j_tpu_torch.kernels.dropout import dropout
 from deeplearning4j_tpu_torch.nn.conf.constraints import (
     LayerConstraint,
     constraint_from_dict,
+    is_bias_param,
 )
 from deeplearning4j_tpu_torch.nn.conf.dropout import (
     IDropout,
@@ -173,6 +184,63 @@ class Layer(nn.Module):
     def get_output_type(self, input_type: InputType) -> InputType:
         return input_type
 
+    # --------------------------------------------------- training hooks
+    def forward_mask(self, mask):
+        """The mask the next layer sees (the JAX `forward_mask`):
+        unchanged by default."""
+        return mask
+
+    def apply_input_dropout(self, x, train: bool, key):
+        """`dropout` on x while training (the JAX `apply_input_dropout`,
+        :192-201): an `IDropout` applies itself; a float is the retain
+        probability of plain inverted dropout."""
+        if not train or self.dropout is None or key is None:
+            return x
+        if isinstance(self.dropout, IDropout):
+            return self.dropout.apply(key, x)
+        return dropout(x, key, float(self.dropout))
+
+    def apply_weight_noise(self, params: Dict[str, torch.Tensor],
+                           train: bool, key):
+        """The params the forward uses while training (:226-230)."""
+        if not train or self.weight_noise is None or key is None \
+                or not params:
+            return params
+        return self.weight_noise.apply_params(key, params)
+
+    def apply_constraints(self, params: Dict[str, torch.Tensor]):
+        """The params after this layer's constraints (:232-240)."""
+        if not self.constraints or not params:
+            return params
+        cs = (self.constraints if isinstance(self.constraints, (list, tuple))
+              else [self.constraints])
+        for c in cs:
+            params = c.apply_params(params)
+        return params
+
+    def regularization_score(self, params: Dict[str, torch.Tensor]):
+        """The l1/l2 penalty of these params (:242-259): weight-like ones
+        take l1/l2, bias-like ones l1_bias/l2_bias, "gamma", "mean" and
+        "var" none; ``l1 * sum|w| + 0.5 * l2 * sum(w^2)``, summed in the
+        params' dtype."""
+        score = 0.0
+        for name, value in params.items():
+            if name in ("gamma", "mean", "var"):
+                continue
+            if is_bias_param(name):
+                l1c, l2c = self.l1_bias, self.l2_bias
+            else:
+                l1c, l2c = self.l1, self.l2
+            if l1c:
+                # |w| whose gradient at 0 is +1, as JAX's abs has it
+                # (torch's abs has 0 there, and zero-initialised biases
+                # start exactly at 0)
+                score = score + l1c * torch.where(value >= 0, value,
+                                                  -value).sum()
+            if l2c:
+                score = score + 0.5 * l2c * (value * value).sum()
+        return score
+
     # ------------------------------------------------------------- serde
     def to_dict(self) -> dict:
         d = {"layer_name": self.layer_name}
@@ -190,6 +258,18 @@ class Layer(nn.Module):
         """{JAX param name: this layer's tensor} — the keys the JAX
         layer's `init_params` uses. Layers without params return {}."""
         return {}
+
+    def param_slots(self):
+        """{JAX param name: (module, attribute)}: where each tensor of
+        `jax_param_map()` is registered (a sublayer's for a prefixed
+        name), the address `nd.quant.weight` reads it under."""
+        where = {}
+        for mod in self.modules():
+            for attr, t in mod._parameters.items():
+                if t is not None:
+                    where[id(t)] = (mod, attr)
+        return {name: where[id(t)]
+                for name, t in self.jax_param_map().items()}
 
     def quantizable_weights(self):
         """JAX keys of the params that serve as per-output-channel int8

@@ -1,14 +1,18 @@
-"""Dense and Embedding layers and the output-layer loss (counterpart of
-`deeplearning4j_tpu/nn/layers/feedforward.py`: `DenseLayer` :35,
-`BaseOutputLayerMixin` :83, `EmbeddingLayer` :169). Param names and
-layouts are the JAX package's: W is [n_in, n_out] and is used as
-``x @ W``; `b` exists when `has_bias` and starts at `bias_init`."""
+"""Dense, output, dropout and embedding layers and the output-layer loss
+(counterpart of `deeplearning4j_tpu/nn/layers/feedforward.py`:
+`DenseLayer` :35, `BaseOutputLayerMixin` :83, `OutputLayer` :95,
+`DropoutLayer` :150, `EmbeddingLayer` :169). Param names and layouts
+are the JAX package's: W is [n_in, n_out] and is used as ``x @ W``; `b`
+exists when `has_bias` and starts at `bias_init`. Dense-based layers
+(and the loss) apply their input dropout while training; the embedding
+applies none, as in JAX."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.common.losses import get_loss
 from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType,
@@ -73,17 +77,53 @@ class DenseLayer(_WeightAndBias):
         z = quant.matmul(x, quant.weight(self, "W"))
         return z + quant.weight(self, "b") if self.has_bias else z
 
-    def forward(self, x):
+    def forward(self, x, *, train=False, rng=None, mask=None):
+        x = self.apply_input_dropout(x, train, rng)
         return self.activation(self.pre_output(x))
 
 
 class BaseOutputLayerMixin:
     """Loss plumbing of the output layers: the loss of `pre_output(x)`
-    under the layer's activation (`self.loss`)."""
+    under the layer's activation (`self.loss`), after the layer's input
+    dropout while training; `mask` is the label mask."""
 
-    def compute_loss(self, x, labels, mask=None):
+    def compute_loss(self, x, labels, mask=None, *, train=False, rng=None):
+        x = self.apply_input_dropout(x, train, rng)
         return self.loss(labels, self.pre_output(x), self.activation,
                          mask=mask)
+
+
+@register_layer
+class OutputLayer(DenseLayer, BaseOutputLayerMixin):
+    """Dense projection, activation (softmax by default) and loss (mcxent
+    by default) for [B, n_in] inputs."""
+
+    layer_name = "output"
+    FIELDS = DenseLayer.FIELDS + (("loss", None),)
+    DEFAULT_ACTIVATION = "softmax"
+
+    def __init__(self, n_in: int = 0, n_out: int = 0, **config):
+        super().__init__(n_in, n_out, **config)
+        self.loss = get_loss(self.loss if self.loss is not None
+                             else "mcxent")
+
+
+@register_layer
+class DropoutLayer(Layer):
+    """Dropout alone (reference `DropoutLayer.java`): `dropout` (a retain
+    probability, 0.5 by default, or an `IDropout`) on the input while
+    training, then the activation (identity by default)."""
+
+    layer_name = "dropout_layer"
+    DEFAULT_ACTIVATION = "identity"
+
+    def __init__(self, **config):
+        super().__init__(**config)
+        if self.dropout is None:
+            self.dropout = 0.5
+
+    def forward(self, x, *, train=False, rng=None, mask=None):
+        return self.activation(self.apply_input_dropout(x, train, rng))
 
 
 @register_layer
@@ -121,7 +161,7 @@ class EmbeddingLayer(_WeightAndBias):
             return InputType.recurrent(self.n_out, input_type.timesteps)
         return InputType.feed_forward(self.n_out)
 
-    def forward(self, x):
+    def forward(self, x, *, train=False, rng=None, mask=None):
         if x.is_floating_point():
             raise TypeError("EmbeddingLayer takes integer token ids")
         # an out-of-range id is a device-side assert on CUDA (XLA's

@@ -52,7 +52,7 @@ class LayerNormalization(Layer):
     def jax_param_map(self):
         return {"gamma": self.gamma, "beta": self.beta}
 
-    def forward(self, x):
+    def forward(self, x, *, train=False, rng=None, mask=None):
         return self.activation(layer_norm(
             x.contiguous(), quant.weight(self, "gamma"),
             quant.weight(self, "beta"), float(self.eps)))

@@ -23,7 +23,7 @@ class BaseRecurrentLayer(Layer):
     def init_carry(self, batch: int, dtype, device):
         raise NotImplementedError
 
-    def forward_with_carry(self, x, carry):
+    def forward_with_carry(self, x, carry, mask=None):
         raise NotImplementedError
 
 

@@ -7,7 +7,9 @@ Block: h = x + MHA(LN1(x)); out = h + FFN(LN2(h)). The full-sequence
 forward (`_forward_impl`, the scoring and training path) runs LN1
 through the LayerNorm kernel, attention through the flash kernels and
 the residual add + LN2 through the fused residual+LayerNorm kernel, each
-an autograd function. The streaming
+an autograd function; in training the block's dropouts run the dropout
+kernel. A padding mask or attention dropout moves the attention to its
+plain masked softmax (flash is the plain path only). The streaming
 paths (KV-cache carry and paged decode) share `_stream_tail`, which
 uses the plain residual add and the LayerNorm kernel — the JAX package
 keeps the fused residual form off the decode path too.
@@ -18,6 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.common.activations import get_activation
 from deeplearning4j_tpu_torch.kernels.layernorm import residual_layer_norm
 from deeplearning4j_tpu_torch.nd import quant
@@ -70,7 +73,7 @@ class PositionalEncodingLayer(BaseRecurrentLayer):
             self.n_out = input_type.size
         self._build()
 
-    def forward(self, x):
+    def forward(self, x, *, train=False, rng=None, mask=None):
         T = x.shape[1]
         rows = (self.table[:T] if T <= self.max_len else
                 torch.from_numpy(sinusoid_table(T, self.n_out)).to(x.device))
@@ -79,7 +82,7 @@ class PositionalEncodingLayer(BaseRecurrentLayer):
     def init_carry(self, batch, dtype, device):
         return 0
 
-    def forward_with_carry(self, x, carry: int):
+    def forward_with_carry(self, x, carry: int, mask=None):
         T = x.shape[1]
         # dynamic_slice semantics: the start clamps to [0, max_len - T]
         start = max(0, min(int(carry), self.max_len - T))
@@ -100,9 +103,10 @@ class PositionalEncodingLayer(BaseRecurrentLayer):
 class TransformerEncoderBlock(BaseRecurrentLayer):
     """`ff_activation` (gelu by default) is looked up at each call, as the
     JAX block does. `bias_init` leaves the block's biases at zero, as in
-    JAX, whose block fills none of them with it. `attention_dropout`
-    and `remat` are carried: the first acts only while training and is
-    refused in `fit`, the second changes memory, not numbers."""
+    JAX, whose block fills none of them with it. `dropout` drops the
+    attention's and the FFN's outputs and `attention_dropout` the
+    softmax weights, while training; `remat` is carried (it changes
+    memory, not numbers)."""
 
     layer_name = "transformer_encoder"
     FIELDS = (("n_in", 0), ("n_heads", 8), ("ff_multiplier", 4),
@@ -173,17 +177,26 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         return quant.matmul(h, W(self, "ff_W2")) + W(self, "ff_b2")
 
     # ------------------------------------------------------ full sequence
-    def forward(self, x):
-        return self._forward_impl(x)
+    def forward(self, x, *, train=False, rng=None, mask=None):
+        return self._forward_impl(x, train, rng, mask)
 
-    def _forward_impl(self, x):
+    def _forward_impl(self, x, train=False, rng=None, mask=None):
+        """The JAX `_forward_impl` (:201-232): the block's key folds to 1
+        for the attention (its attention dropout), 2 for the dropout of
+        the attention's output and 3 for the FFN's; both dropouts are
+        the block's `dropout`, and the fused residual+LayerNorm takes
+        the dropped attention output."""
+        def fold(i):
+            return None if rng is None else prng.fold_in(rng, i)
+
         h = self.ln1(x)
-        h = self.attn.forward(h)
+        h = self.attn.attend(h, train, fold(1), mask, self.attention_dropout)
+        h = self.apply_input_dropout(h, train, fold(2))
         x, h = residual_layer_norm(x.contiguous(), h.contiguous(),
                                    quant.weight(self.ln2, "gamma"),
                                    quant.weight(self.ln2, "beta"),
                                    self.ln2.eps)
-        return x + self._ffn(h)
+        return x + self.apply_input_dropout(self._ffn(h), train, fold(3))
 
     # ---------------------------------------------------------- streaming
     def init_carry(self, batch, dtype, device):
@@ -192,8 +205,15 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         return (torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(shape, dtype=dtype, device=device), 0)
 
-    def forward_with_carry(self, x, carry):
-        """KV-cache streaming step; carry = (k_cache, v_cache, pos)."""
+    def forward_with_carry(self, x, carry, mask=None):
+        """KV-cache streaming step; carry = (k_cache, v_cache, pos). A
+        padding mask is refused, as JAX's block refuses it (:267-275): a
+        masked token's K/V would enter the cache."""
+        if mask is not None:
+            raise ValueError(
+                "TransformerEncoderBlock cannot stream (forward_with_carry) "
+                "with a padding mask: masked tokens' K/V would enter the "
+                "cache; strip padding before streaming")
         return self._carry_impl(x, carry)
 
     def _carry_impl(self, x, carry):

@@ -1,3 +1,7 @@
-from deeplearning4j_tpu_torch.zoo.transformer import TransformerLM, generate
+from deeplearning4j_tpu_torch.zoo.transformer import (
+    TransformerClassifier,
+    TransformerLM,
+    generate,
+)
 
-__all__ = ["TransformerLM", "generate"]
+__all__ = ["TransformerClassifier", "TransformerLM", "generate"]

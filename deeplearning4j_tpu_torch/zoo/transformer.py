@@ -1,5 +1,6 @@
-"""TransformerLM and its decoding (counterpart of
-`deeplearning4j_tpu/zoo/transformer.py`: `TransformerLM` :76,
+"""TransformerClassifier, TransformerLM and the LM's decoding
+(counterpart of `deeplearning4j_tpu/zoo/transformer.py`:
+`TransformerClassifier` :31, `TransformerLM` :76,
 `filter_logits` :133, `get_prefill` :157, `get_prefill_bucketed` :178,
 `paged_score_forward` :207, `rejection_sample_drafts` :252, `generate`
 :336).
@@ -47,12 +48,70 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
 from deeplearning4j_tpu_torch.nn.layers import (
     EmbeddingLayer,
+    GlobalPoolingLayer,
+    OutputLayer,
+    PoolingType,
     PositionalEncodingLayer,
     RnnOutputLayer,
     TransformerEncoderBlock,
     stream_budget,
 )
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+
+class TransformerClassifier:
+    """Token ids -> embedding + sinusoidal positions -> `n_layers`
+    bidirectional pre-LN blocks (with `dropout` on their attention and
+    FFN outputs while training) -> global pooling over time (AVG by
+    default; the features mask keeps padding out) -> softmax over
+    `num_classes` with the mcxent loss. `conf()` is the JAX zoo model's
+    configuration (:31-73) with the same `to_dict()`; `init(device=)`
+    follows `TransformerLM.init`. Train it on padded batches with a
+    `DataSet` that carries the features mask."""
+
+    def __init__(self, vocab_size: int, num_classes: int, *,
+                 d_model: int = 128, n_layers: int = 2, n_heads: int = 8,
+                 ff_multiplier: int = 4, max_len: int = 512,
+                 dropout: Optional[float] = None,
+                 pooling: PoolingType = PoolingType.AVG, remat: bool = False,
+                 remat_policy: Optional[str] = None,
+                 sequence_parallel: Optional[str] = None, seed: int = 123):
+        self.vocab_size, self.num_classes = int(vocab_size), int(num_classes)
+        self.d_model, self.n_layers = int(d_model), int(n_layers)
+        self.n_heads, self.ff_multiplier = int(n_heads), int(ff_multiplier)
+        self.max_len, self.dropout = int(max_len), dropout
+        self.pooling = PoolingType(pooling)
+        self.remat, self.remat_policy = remat, remat_policy
+        self.sequence_parallel = sequence_parallel
+        self.seed = seed
+
+    def conf(self) -> MultiLayerConfiguration:
+        b = (NeuralNetConfiguration.builder()
+             .seed(self.seed).updater(Adam(1e-3))
+             .weight_init(WeightInit.XAVIER)
+             .list()
+             .layer(EmbeddingLayer(n_in=self.vocab_size, n_out=self.d_model))
+             .layer(PositionalEncodingLayer(max_len=self.max_len)))
+        for _ in range(self.n_layers):
+            b.layer(TransformerEncoderBlock(
+                n_heads=self.n_heads, ff_multiplier=self.ff_multiplier,
+                dropout=self.dropout, remat=self.remat,
+                remat_policy=self.remat_policy,
+                sequence_parallel=self.sequence_parallel))
+        b.layer(GlobalPoolingLayer(pooling_type=self.pooling))
+        b.layer(OutputLayer(n_out=self.num_classes, activation="softmax",
+                            loss="mcxent"))
+        b.set_input_type(InputType.recurrent(self.vocab_size))
+        return b.build()
+
+    def init(self, seed: Optional[int] = None, *, device="cuda",
+             dtype_policy=None) -> MultiLayerNetwork:
+        """A net with Xavier-normal weights from a CPU `torch.Generator`
+        seeded with `seed` (default: the model's seed), as
+        `TransformerLM.init` draws them."""
+        return MultiLayerNetwork(self.conf(), device=device,
+                                 dtype_policy=dtype_policy).init(
+            self.seed if seed is None else seed)
 
 
 class TransformerLM:

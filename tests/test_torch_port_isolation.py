@@ -42,7 +42,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "fault.state", "nn.conf.inputs", "nn.conf.dropout",
                 "nn.conf.weightnoise", "nn.conf.constraints",
                 "nn.conf.preprocessors", "nn.conf.builder", "nn.layers.base",
-                "util.serializer", "nd.quant", "serving.paged"):
+                "util.serializer", "nd.quant", "serving.paged",
+                "common.prng", "kernels.dropout", "optimize.gradients",
+                "optimize.listeners", "eval.evaluation", "eval.roc",
+                "eval.regression", "nn.layers.pooling"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 

@@ -3,8 +3,10 @@ the JAX package's policy (`deeplearning4j_tpu/nd/dtype.py`, mirrored
 after `tests/test_dtype_policy.py`): the policy seams and resolution,
 the structure of a mixed step (bf16 gradients onto an fp32 master,
 fp32 loss and `output()`, the output layer's params rounded to bf16 and
-upcast, token ids uncast), the refusals, the tiny TransformerLM
-trained mixed, port (CPU) against JAX (CPU), and mixed decoding
+upcast, token ids uncast), the refusals, ring and Ulysses attention
+under the mixed policy against the local mixed path, the tiny
+TransformerLM trained mixed, port (CPU) against JAX (CPU), and mixed
+decoding
 (`generate()`, the engine and the server) against JAX's: teacher-forced
 probabilities within DECODE_ATOL = 2^-5 (bf16 logits a ulp apart; more
 in `tests/test_torch_port_mixed_decode.py`) and greedy streams by margin.
@@ -224,10 +226,10 @@ def test_output_layer_uses_its_params_rounded_to_bf16_then_fp32(jax_params):
     W = out.W.detach().clone()
     seen, orig = {}, out.compute_loss
 
-    def spy(h, labels, mask=None):
+    def spy(h, labels, mask=None, **kw):
         seen.update(W=out.W.detach().clone(), b=out.b.detach().clone(),
                     h=h.dtype, y=labels.dtype)
-        loss = orig(h, labels, mask)
+        loss = orig(h, labels, mask, **kw)
         seen["loss"] = loss.dtype
         return loss
     out.compute_loss = spy
@@ -391,17 +393,27 @@ def test_serving_decodes_a_mixed_policy_like_jax(jax_params):
 
 @pytest.mark.parametrize("sp", ["ring", "ulysses"])
 def test_sequence_parallel_refuses_a_mixed_policy(jax_params, sp):
-    net = port_lm(jax_params, sequence_parallel=sp)
-    x, y = corpus(4, n=B)
+    """Ring and Ulysses attention run under `mixed_bf16` now (the name
+    is the refusal this replaced): inside `sequence_sharding` of a 2-way
+    mesh, `output()` and two `fit` steps of the mixed net follow the
+    same net's local mixed run within the mixed band (the bf16 attention
+    sums run per shard in another order), and the params stay fp32."""
+    x, y = corpus(4, n=2 * B)
+    ids = x[:B].astype(np.int64)
     mesh = make_mesh(MeshSpec.of(seq=2), devices=["cpu"] * 2)
+    local = port_lm(jax_params, sequence_parallel=sp)
+    want_out = local.output(ids)
+    want = fit_steps(local, x, y)
+    net = port_lm(jax_params, sequence_parallel=sp)
     with sequence_sharding(mesh):
-        with pytest.raises(NotImplementedError, match="Ulysses"):
-            net.fit(x, y, batch_size=B)
-        with pytest.raises(NotImplementedError, match="Ulysses"):
-            net.output(x.astype(np.int64))
-    # outside a mesh context the layers run local attention, mixed
-    net.fit(x, y, batch_size=B)
-    assert np.isfinite(net.score_value)
+        got_out = net.output(ids)
+        got = fit_steps(net, x, y)
+    assert got_out.dtype == torch.float32
+    assert (got_out - want_out).abs().max().item() <= DECODE_ATOL
+    assert abs(got[0] - want[0]) <= STEP0_RTOL * want[0]
+    for g, w in zip(got, want):
+        assert abs(g - w) <= BAND * want[0], (got, want)
+    assert all(p.dtype == torch.float32 for p in net.parameters())
 
 
 # ------------------------------------------------- mixed against JAX

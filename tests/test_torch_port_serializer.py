@@ -14,9 +14,10 @@ blocks, 2 heads of 32, ff x4, max_len 64).
   whose gradient is zero up to rounding, held to twice Adam's step bound
   lr (1-b1)/sqrt(1-b2) per step (the other rules move it less).
 - Corrupt, truncated, newer and ComputationGraph zips fail as JAX's
-  restore fails; a failed write leaves the target as it was; every field
-  the port does not train with is refused in `fit` and accepted by
-  `output()`.
+  restore fails; a failed write leaves the target as it was; every
+  field that acts only in training is accepted by `output()`, and in
+  `fit` trains as JAX's does or, where the port does not train with it
+  yet, is refused.
 """
 
 import io
@@ -25,6 +26,7 @@ import os
 import zipfile
 from types import SimpleNamespace
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -479,23 +481,50 @@ def _refuse(net, field):
     setters[field]()
 
 
-REFUSED = ["dropout", "idropout", "attention_dropout", "weight_noise",
-           "constraints", "l1", "l2", "l1_bias", "l2_bias", "max_norm",
-           "gradient_normalization", "backprop_type", "pretrain",
-           "optimization_algo", "diagnostics"]
+# the fields this file once refused in `fit` that train now, each held
+# to JAX's `fit` below; and those `fit` still refuses
+PORTED = ["dropout", "idropout", "attention_dropout", "weight_noise",
+          "constraints", "l1", "l2", "l1_bias", "l2_bias", "max_norm",
+          "gradient_normalization"]
+REFUSED = ["backprop_type", "pretrain", "optimization_algo", "diagnostics"]
 
 
-@pytest.mark.parametrize("field", REFUSED)
+@pytest.mark.parametrize("field", PORTED + REFUSED)
 def test_unported_fields_refused_in_fit_accepted_by_output(field):
+    """Every field is inert in `output()`. A field of REFUSED is refused
+    in `fit`; a field of PORTED trains (the test keeps the name it had
+    when all of them were refused): two steps of the port net and of
+    the JAX net built from the port's configuration JSON, from the same
+    params, within this file's training tolerances."""
     ref = TransformerLM(**SMALL).init(device="cpu")
     net = TransformerLM(**SMALL).init(device="cpu")
     _refuse(net, field)
     ids = np.random.default_rng(8).integers(0, V, (2, 12))
     assert torch.equal(net.output(ids), ref.output(ids))
-    x, y = windows(9, B)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        net.fit(x, y, batch_size=B)
-    assert net.iteration_count == 0
+    x, y = windows(9, 2 * B)
+    if field in REFUSED:
+        with pytest.raises(NotImplementedError, match="not ported"):
+            net.fit(x, y, batch_size=B)
+        assert net.iteration_count == 0
+        return
+    jnet = JaxNet(JaxConf.from_json(net.conf.to_json())).init()
+    jnet.params = {k: {n: jnp.asarray(a) for n, a in v.items()}
+                   for k, v in to_jax_params(net).items()}
+    losses = []
+    for i in range(0, 2 * B, B):
+        jnet.fit(x[i:i + B], y[i:i + B], batch_size=B, shuffle=False)
+        net.fit(x[i:i + B], y[i:i + B], batch_size=B, shuffle=False)
+        losses.append((net.score_value, jnet.score_value))
+    np.testing.assert_allclose(*zip(*losses), rtol=LOSS_RTOL)
+    got = to_jax_params(net)
+    for lk, lp in to_numpy_params(jnet.params).items():
+        for name, w in lp.items():
+            diff = got[lk][name] - w
+            if name == "attn_bk":
+                assert np.abs(diff).max() <= 2 * 2 * ADAM_STEP_MAX
+                continue
+            assert np.linalg.norm(diff) <= PARAM_RTOL * np.linalg.norm(w), (
+                lk, name)
 
 
 def test_inert_fields_train_and_preprocessors_refuse_their_forward():

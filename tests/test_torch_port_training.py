@@ -269,16 +269,16 @@ def test_fit_refuses_what_is_not_ported():
         net.fit(x, y, steps_per_execution=2)
     with pytest.raises(NotImplementedError):
         net.fit(ArrayDataSetIterator(x, y), data_format="NCW")
-    net.layers[0].l2 = 1e-4
-    with pytest.raises(NotImplementedError):
-        net.fit(x, y)
+    net.layers[0].l2 = 1e-4              # l2 trains now (its parity with
+    net.fit(x, y)                        # JAX: test_torch_port_regularization)
     net.layers[0].l2 = 0.0
     with pytest.raises(ValueError):
         net.fit(x + 0.5, y)                       # ids must be whole
     with pytest.raises(ValueError):
         net.fit(x + V, y)                         # and in range
-    with pytest.raises(NotImplementedError):
-        net.fit(DataSet(x, y, labels_mask=np.ones(x.shape, np.float32)))
+    # a label mask trains too (test_torch_port_masks holds it to JAX)
+    net.fit(DataSet(x, y, labels_mask=np.ones(x.shape, np.float32)))
+    assert np.isfinite(net.score_value)
     # a learning rate is a number or a `Schedule`; another object that
     # happens to have `value_at` is refused
     net.layers[-1].updater = Adam(learning_rate=_Schedule())
