@@ -3,7 +3,8 @@
     python3 chip_smoke.py                 # every phase (needs one CUDA card)
     python3 chip_smoke.py --kernels-only  # build + kernel-vs-plain checks
     python3 chip_smoke.py --profile       # torch.profiler breakdown only
-                                          # (with a restore + a fit step)
+                                          # (with a restore + a fit step,
+                                          # and ResNet-50 fit steps)
     python3 chip_smoke.py --warmup-trial  # long-context LM: Adam(1e-3)
                                           # with and without a warmup
 
@@ -146,10 +147,32 @@ Phases, in order:
      and `evaluate_roc_multi_class()` of 256 held-out sequences, the
      card net against its CPU copy (equal counts, or apart only at
      near-ties of the CPU's probabilities);
+ 10. ResNet-50 and the ComputationGraph (`phase_resnet`): (a) the zoo
+     ResNet-50 at full width and depth as the JAX benchmark's
+     accelerator setting trains it (224x224x3, 1000 classes,
+     Nesterovs(0.005, 0.9), l2 1e-4, weights from the zoo's seed): 3
+     steps at batch 2 on the card and on the CPU (fp32, TF32 off), the
+     loss of each step and inference `output()` within 1e-4, params and
+     running statistics (whole tree) within 1e-3 and Nesterov's v within
+     0.1; then 20 timed steps after 3 warm-up ones at batch 128 on one
+     repeated batch resident on the card, fp32 and mixed_bf16 (ms/step,
+     images/s, peak memory, the loss must fall, mixed's step 0 within
+     1e-2 of fp32's and its final loss in phase 5's band), and
+     `output()` of the batch under both policies; (b) the JAX-written
+     graph zip (tests/fixtures/bridge/resnet_small.zip: two bottleneck
+     blocks) restored on the card against JAX's stored outputs and next
+     step, running statistics included, then 3 steps and a write and
+     restore, bit-equal; (c) the smoke LM's layer list built with
+     `graph_builder`, `score()` and 3 Adam steps against the layer list
+     from the same params, fp32 and mixed_bf16, each kernel of GRAPH_
+     KERNELS launched from the graph (fused Adam through its packed run);
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 9, each > 0), the card's name and power limit, and last
+to 10, each > 0), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
-the last line. Without CUDA it exits 2 and prints no result.
+the last line. Without CUDA it exits 2 and prints no result. It turns
+TF32 off for matmuls and convolutions (PyTorch lets cuDNN run fp32
+convolutions in TF32 by default) and leaves
+`torch.backends.cudnn.benchmark` at its default (off).
 """
 
 from __future__ import annotations
@@ -2519,6 +2542,438 @@ def phase_regularized(device, report, fails, small=False):
     return total
 
 
+# ------------------------------------- phase 10: ResNet-50 and the graph
+# ResNet-50 as the JAX benchmark's accelerator setting trains it
+# (deeplearning4j_tpu/bench.py:244-271): 224x224x3, 1000 classes, batch
+# 128, the zoo's configuration (l2 1e-4, WeightInit.RELU) with the
+# benchmark's Nesterovs(0.005, 0.9) override (:250-259), one repeated
+# batch of standard-normal images with one-hot labels, resident on the
+# card. Weights are the port's own draws from the zoo's seed.
+RESNET = dict(size=224, classes=1000, B=128, steps=20, warmup=3,
+              B_check=2, n_check=3)
+# the CPU rehearsal: 64x64 (at 32x32 and batch 2 the last stage's
+# BatchNorm sees 2 values a channel, and one step at RESNET_LR takes the
+# loss from 7.2 to 1.0e13 in the JAX package and from 9.0 to 4.8e9 in
+# the port, CPU)
+RESNET_SMALL = dict(size=64, classes=10, B=2, steps=2, warmup=1,
+                    B_check=2, n_check=2)
+RESNET_LR = 0.005
+# card against CPU (fp32, TF32 off). ResNet-50's training at batch 2 is
+# chaotic: the CPU against itself, with 1e-7 relative noise on the
+# images, moves the first gradient by 2.8% (whole tree) and, after 3
+# steps at RESNET_LR, the params by 3.8%, the running statistics by
+# 3.1% and Nesterov's v by 118% (measured on the CPU of an H100 host;
+# the card against the CPU: 2.3%, 3.7%, 3.1%, 117%). So step 0's loss is held
+# to TRAIN_LOSS_RTOL, and every later loss, the params, the running
+# statistics and v after the steps to RESNET_NOISE_FACTOR times the
+# CPU's own distance to its noisy twin (plus TRAIN_LOSS_RTOL of the
+# loss); inference `output()` is held at equal weights (the card net's,
+# copied to the CPU) to OUTPUT_ATOL.
+RESNET_NOISE = 1e-7
+RESNET_NOISE_FACTOR = 3.0
+# (c): the kernels the LM's graph must launch
+GRAPH_KERNELS = ("layer_norm", "residual_layer_norm", "flash_attention_fwd",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                 "fused_adam")
+
+
+def resnet_images(n: int, size: int, classes: int, seed: int):
+    """n standard-normal NHWC images and one-hot labels (numpy)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((n, size, size, 3), dtype=np.float32)
+    return x, np.eye(classes, dtype=np.float32)[rng.integers(0, classes, n)]
+
+
+def build_resnet(device, size, classes, dtype_policy=None):
+    """The zoo ResNet-50 with every layer's updater Nesterovs(RESNET_LR,
+    0.9), weights drawn from the zoo's seed (the same on any device)."""
+    from deeplearning4j_tpu_torch.common.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    model = ResNet50(num_classes=classes, height=size, width=size)
+    conf = model.conf()
+    for node in conf.nodes.values():
+        if node.layer is not None:
+            node.layer.updater = Nesterovs(RESNET_LR, 0.9)
+    return ComputationGraph(conf, device=device,
+                            dtype_policy=dtype_policy).init(model.seed)
+
+
+def _tree_rel(got, want):
+    """Whole-tree relative Frobenius difference of two {key: {name:
+    array}} trees, and the worst leaf's (rel, "key/name")."""
+    num = den = 0.0
+    worst = (0.0, "")
+    for lk, lv in want.items():
+        for name, w in lv.items():
+            d = float(np.sum((got[lk][name].astype(np.float64) - w) ** 2))
+            s = float(np.sum(w.astype(np.float64) ** 2))
+            num, den = num + d, den + s
+            worst = max(worst, (float(np.sqrt(d / max(s, 1e-30))),
+                                f"{lk}/{name}"))
+    return float(np.sqrt(num / max(den, 1e-30))), worst
+
+
+def _velocity(net):
+    """Nesterov's v as a {key: {name: array}} tree."""
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_updater_state
+    return {lk: {pk: st["v"] for pk, st in lv.items()}
+            for lk, lv in to_jax_updater_state(net).items()}
+
+
+def _resnet_card_vs_cpu(device, fails, size, classes, B, n):
+    """`n` fit steps at B from the same weights on `device`, on the CPU
+    and on the CPU with RESNET_NOISE on the images: step 0's loss card
+    against CPU within TRAIN_LOSS_RTOL; the later losses, the params,
+    the BatchNorm running statistics and Nesterov's v (whole tree)
+    within RESNET_NOISE_FACTOR of the CPU's distance to its noisy twin;
+    inference `output()` of the card net against its params and state
+    on the CPU within OUTPUT_ATOL."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.jax_params import (
+        to_jax_params, to_jax_state)
+    X, Y = resnet_images(B * n, size, classes, seed=21)
+    noisy = X * (1 + RESNET_NOISE * np.random.default_rng(9).standard_normal(
+        X.shape, dtype=np.float32))
+    nets, losses, secs = [], [], []
+    for dev, XX in ((device, X), ("cpu", X), ("cpu", noisy)):
+        net = build_resnet(dev, size, classes)
+        t0 = time.perf_counter()
+        ls = []
+        for i in range(0, B * n, B):
+            net.fit(DataSet(XX[i:i + B], Y[i:i + B]), batch_size=B)
+            ls.append(net.score_value)
+        secs.append(time.perf_counter() - t0)
+        nets.append(net)
+        losses.append(ls)
+    card, cpu, twin = nets
+    step0 = abs(losses[0][0] - losses[1][0]) / abs(losses[1][0])
+    fails.check(step0 <= TRAIN_LOSS_RTOL and all(np.isfinite(losses[0])),
+                f"resnet step 0 loss card vs CPU rel err {step0} (tol "
+                f"{TRAIN_LOSS_RTOL}): card {losses[0]}, CPU {losses[1]}")
+    rows = {}
+    for name, get in (("params", to_jax_params), ("state", to_jax_state),
+                      ("v", _velocity)):
+        got, want, ref = get(card), get(cpu), get(twin)
+        rows[name] = (*_tree_rel(got, want), _tree_rel(ref, want)[0])
+    for i, (a, b, c) in enumerate(zip(*losses)):
+        rows[f"loss_{i}"] = (abs(a - b), None, abs(c - b))
+    for name, (rel, _, self_rel) in rows.items():
+        if name == "loss_0":
+            continue
+        tol = RESNET_NOISE_FACTOR * self_rel + (
+            TRAIN_LOSS_RTOL * abs(losses[1][int(name[5:])])
+            if name.startswith("loss") else 0.0)
+        fails.check(rel <= tol, f"resnet card vs CPU {name} after {n} "
+                    f"steps: {rel} over {RESNET_NOISE_FACTOR} x the CPU's "
+                    f"distance to its noisy twin {self_rel} (tol {tol})")
+    twin_of_card = ComputationGraph(card.conf, device="cpu")
+    twin_of_card.load_state_dict({k: v.cpu()
+                                  for k, v in card.state_dict().items()})
+    x, _ = resnet_images(B, size, classes, seed=22)
+    out = card.output(x)
+    out_err = (out.cpu() - twin_of_card.output(x)).abs().max().item()
+    fails.check(out_err <= OUTPUT_ATOL and tuple(out.shape) == (B, classes)
+                and bool(torch.isfinite(out).all()),
+                f"resnet output() card vs CPU at the card's weights "
+                f"max_abs_err {out_err} (tol {OUTPUT_ATOL}), shape "
+                f"{tuple(out.shape)}")
+    # a random ResNet's softmax saturates; its pooled features do not
+    feat = card.feed_forward(x)["avgpool"].cpu()
+    ref = twin_of_card.feed_forward(x)["avgpool"]
+    feat_err = ((feat - ref).abs().max() / ref.abs().max()).item()
+    fails.check(feat_err <= OUTPUT_ATOL,
+                f"resnet pooled features card vs CPU at the card's weights: "
+                f"max err {feat_err} of the largest (tol {OUTPUT_ATOL})")
+    return dict(B=B, steps=n, loss_card=losses[0], loss_cpu=losses[1],
+                loss_cpu_noisy=losses[2], step0_rel_err=step0,
+                output_max_abs_err=out_err, features_max_rel_err=feat_err,
+                distances={k: dict(card_vs_cpu=v[0], worst_leaf=v[1],
+                                   cpu_vs_noisy_cpu=v[2])
+                           for k, v in rows.items()},
+                card_s=secs[0], cpu_s=secs[1])
+
+
+def _resnet_timed(device, size, classes, B, steps, warmup, policy=None):
+    """`warmup` then `steps` timed `fit` steps of one repeated batch on
+    the device (the data resident there, as the JAX benchmark's), then
+    inference `output()` of the batch: ms/step, images/s, peak memory,
+    the losses and launches of the timed steps, and output()'s ms and
+    images/s."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    net = build_resnet(device, size, classes, dtype_policy=policy)
+    x, y = resnet_images(B, size, classes, seed=23)
+    ds = DataSet(torch.from_numpy(x).to(device),
+                 torch.from_numpy(y).to(device))
+    losses = []
+    for _ in range(warmup):
+        net.fit(ds, batch_size=B)
+        losses.append(net.score_value)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        net.fit(ds, batch_size=B)
+        losses.append(net.score_value)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
+    out_ms = timer(device, lambda: net.output(ds.features), iters=5,
+                   warmup=2)
+    del net
+    return dict(B=B, size=size, steps=steps, warmup=warmup,
+                ms_per_step=wall / steps * 1e3,
+                images_per_s=B * steps / wall, peak_mem_gb=peak,
+                losses=losses, loss_first=losses[0], loss_last=losses[-1],
+                output_ms=out_ms, output_images_per_s=B / out_ms * 1e3,
+                launches=launches)
+
+
+def _graph_fixture(device, fails, tmp):
+    """(b) The JAX-written graph zip (tests/fixtures/bridge/
+    resnet_small.zip) on `device`: `output()` of the stored images within
+    OUTPUT_ATOL of JAX's (inference reads the restored running
+    statistics), one more `fit` step against JAX's golden (loss within
+    GOLDEN_LOSS_ATOL, each param's and each running statistic's sum and
+    sum of squares within GOLDEN_SUM_RTOL of its scale), 3 more steps,
+    then a write and restore: params, running state, v, counters and
+    `output()` bit-equal."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.util.jax_params import (
+        to_jax_params, to_jax_state, to_jax_updater_state)
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    g = np.load(os.path.join(BRIDGE, "resnet_small_golden.npz"))
+    net = ModelSerializer.restore_model(
+        os.path.join(BRIDGE, "resnet_small.zip"), device=device)
+    err = (net.output(g["x"]).cpu() - torch.from_numpy(g["probs"])
+           ).abs().max().item()
+    B = len(g["step_x"])
+    net.fit(DataSet(g["step_x"], g["step_y"]), batch_size=B)
+    loss = net.score_value
+    loss_err = abs(loss - float(g["loss"]))
+    worst = (0.0, "")
+    for tag, tree in (("param", to_jax_params(net)),
+                      ("state", to_jax_state(net))):
+        for lk, lv in tree.items():
+            for name, a in lv.items():
+                a = a.astype(np.float64)
+                k = f"{tag}/{lk}/{name}"
+                s0, ss0 = float(g[f"sum/{k}"]), float(g[f"sumsq/{k}"])
+                scale = np.sqrt(a.size * ss0) or 1.0
+                r = max(abs(a.sum() - s0) / scale,
+                        abs((a * a).sum() - ss0) / max(ss0, 1e-30))
+                worst = max(worst, (float(r), k))
+    fails.check(err <= OUTPUT_ATOL, f"graph bridge: JAX zip output() "
+                f"max_abs_err {err} (tol {OUTPUT_ATOL})")
+    fails.check(net.iteration_count == int(g["iteration_count"])
+                and loss_err <= GOLDEN_LOSS_ATOL,
+                f"graph bridge: next step loss {loss} vs JAX "
+                f"{float(g['loss'])} (tol {GOLDEN_LOSS_ATOL})")
+    fails.check(worst[0] <= GOLDEN_SUM_RTOL, f"graph bridge: sums after "
+                f"the step, worst {worst} (tol {GOLDEN_SUM_RTOL})")
+    size = g["x"].shape[1]
+    X, Y = resnet_images(3 * B, size, g["probs"].shape[1], seed=24)
+    for i in range(0, 3 * B, B):
+        net.fit(DataSet(X[i:i + B], Y[i:i + B]), batch_size=B)
+    path = os.path.join(tmp, "graph.zip")
+    ModelSerializer.write_model(net, path)
+    back = ModelSerializer.restore_model(path, device=device)
+    equal = (_trees_equal(to_jax_params(back), to_jax_params(net))
+             and _trees_equal(to_jax_state(back), to_jax_state(net))
+             and _trees_equal(to_jax_updater_state(back),
+                              to_jax_updater_state(net))
+             and (back.iteration_count, back.epoch_count)
+             == (net.iteration_count, net.epoch_count)
+             and bool(torch.equal(back.output(g["x"]), net.output(g["x"]))))
+    fails.check(equal, "graph bridge: the port's graph zip does not restore "
+                "bit-equal (params, running state, v, counters, output)")
+    return dict(output_max_abs_err=err, loss=loss,
+                loss_jax=float(g["loss"]), loss_abs_err=loss_err,
+                sums_worst=worst[0], sums_worst_at=worst[1],
+                round_trip_bit_equal=equal, zip_bytes=os.path.getsize(path))
+
+
+def graph_lm(cfg, device, params, dtype_policy=None):
+    """The smoke LM's layer list built with `graph_builder` as a chain of
+    layer nodes named by the layer's index (so its trees are keyed as the
+    MultiLayerNetwork's), with `params` loaded."""
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.jax_params import from_jax_params
+    from deeplearning4j_tpu_torch.zoo.transformer import TransformerLM
+    conf = TransformerLM(cfg["vocab"], d_model=cfg["d_model"],
+                         n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
+                         ff_multiplier=cfg["ff"],
+                         max_len=cfg["max_len"]).conf()
+    g = NeuralNetConfiguration.builder().seed(conf.seed).graph_builder()
+    g.add_inputs("ids")
+    prev = "ids"
+    for i, layer in enumerate(conf.layers):
+        g.add_layer(str(i), layer, prev)
+        prev = str(i)
+    g.set_outputs(prev)
+    net = ComputationGraph(g.build(), device=device,
+                           dtype_policy=dtype_policy)
+    return from_jax_params(net, params)
+
+
+def _graph_lm_arm(device, fails, cfg, B, n, policy):
+    """(c) The LM as a graph against the LM as a layer list, from the
+    same params: `score()` and `n` Adam steps (losses, params); the
+    graph's launches, counted over its own calls."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    params = random_lm_params(cfg, seed=4321, head_scale=1.0)
+    X, Y = lm_corpus(cfg, B * (n + 1), seed=25)
+    mln = build_lm(cfg, device, params, dtype_policy=policy)
+    net = graph_lm(cfg, device, params, dtype_policy=policy)
+    test = DataSet(X[-B:], Y[-B:])
+    s_mln = mln.score(test)
+    K.reset_launches()
+    s_graph = net.score(test)
+
+    def steps(model):
+        losses = []
+        for i in range(0, B * n, B):
+            model.fit(DataSet(X[i:i + B], Y[i:i + B]), batch_size=B)
+            losses.append(model.score_value)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        return losses
+    l_graph = steps(net)
+    launches, by_dtype = dict(K.LAUNCHES), dict(K.LAUNCHES_BY_DTYPE)
+    l_mln = steps(mln)
+    tol = MIXED_STEP0_RTOL if policy else TRAIN_LOSS_RTOL
+    loss_err = max(abs(a - b) / abs(b)
+                   for a, b in zip([s_graph] + l_graph, [s_mln] + l_mln))
+    worst, worst_bk = param_diff(net, mln)
+    bk_tol = 2 * n * adam_step_max()
+    tag = policy or "float32"
+    fails.check(loss_err <= tol and all(np.isfinite(l_graph)),
+                f"graph LM {tag}: score and losses vs the layer list rel "
+                f"err {loss_err} (tol {tol}): {[s_graph] + l_graph} vs "
+                f"{[s_mln] + l_mln}")
+    fails.check(worst[0] <= TRAIN_PARAM_RTOL and worst_bk <= bk_tol,
+                f"graph LM {tag}: params vs the layer list worst rel "
+                f"{worst} (tol {TRAIN_PARAM_RTOL}), attn_bk {worst_bk}")
+    if device.type == "cuda":
+        missing = [k for k in GRAPH_KERNELS if not launches.get(k)]
+        fails.check(not missing, f"graph LM {tag}: kernels never launched "
+                    f"from ComputationGraph: {missing} ({launches})")
+    return dict(B=B, steps=n, score=s_graph, score_layer_list=s_mln,
+                losses=l_graph, losses_layer_list=l_mln,
+                loss_max_rel_err=loss_err, param_worst_rel=worst[0],
+                param_worst_at=worst[1], attn_bk_max_abs=worst_bk,
+                packed_runs=net._packed_runs(), launches=launches,
+                launches_by_dtype=by_dtype)
+
+
+def phase_resnet(device, report, fails, small=False):
+    """ResNet-50 and the ComputationGraph on `device`: (a) card against
+    CPU, fp32, then the timed steps and inference in fp32 and mixed_bf16
+    (the loss must fall; mixed's step 0 within MIXED_STEP0_RTOL of fp32's
+    and its final loss within MIXED_BAND of the fp32 arm's initial loss
+    of fp32's final loss); (b) the JAX-written graph zip and a round
+    trip; (c) the smoke LM as a graph against the layer list, fp32 and
+    mixed_bf16. `small` (the CPU rehearsal, RESNET_SMALL) keeps every
+    check but (a)'s falling and band gates. Returns the launches of (a)'s
+    timed steps and (b)-(c), each counted from zero just before it."""
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    c = RESNET_SMALL if small else RESNET
+    size, classes = c["size"], c["classes"]
+    lm_cfg = dict(LM, n_layers=2, max_len=64) if small else LM
+    total = {k: 0 for k in KERNEL_META}
+
+    def add(counts):
+        for k in total:
+            total[k] += counts.get(k, 0)
+    out = {}
+    t0 = time.perf_counter()
+    out["check"] = _resnet_card_vs_cpu(device, fails, size, classes,
+                                       c["B_check"], c["n_check"])
+    for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
+        out[tag] = _resnet_timed(device, size, classes, c["B"], c["steps"],
+                                 c["warmup"], policy)
+        add(out[tag]["launches"])
+        ls = out[tag]["losses"]
+        fails.check(all(np.isfinite(ls)) and (small or ls[-1] < ls[0]),
+                    f"resnet {tag} loss did not fall: {ls}")
+    f, m = out["float32"], out["mixed_bf16"]
+    step0 = abs(m["losses"][0] - f["losses"][0]) / abs(f["losses"][0])
+    gap = abs(m["loss_last"] - f["loss_last"])
+    # the band's gates hold at the benchmark's batch; the rehearsal's
+    # batch of 2 moves step 0 by 6% in bf16, and its losses bounce
+    fails.check(small or step0 <= MIXED_STEP0_RTOL,
+                f"resnet mixed_bf16 step 0 loss {m['losses'][0]} vs fp32 "
+                f"{f['losses'][0]}: rel {step0} (tol {MIXED_STEP0_RTOL})")
+    fails.check(small or gap <= MIXED_BAND * f["loss_first"],
+                f"resnet mixed_bf16 final loss {m['loss_last']} vs fp32 "
+                f"{f['loss_last']}: gap {gap} over {MIXED_BAND} x the fp32 "
+                f"initial loss {f['loss_first']}")
+    out["mixed_step0_rel"], out["mixed_final_gap"] = step0, gap
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        K.reset_launches()
+        out["graph_bridge"] = _graph_fixture(device, fails, tmp)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        add(K.LAUNCHES)
+    for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
+        out[f"graph_lm_{tag}"] = r = _graph_lm_arm(
+            device, fails, lm_cfg, 2 if small else 8, 3, policy)
+        add(r["launches"])
+    out["seconds"] = time.perf_counter() - t0
+    report["resnet"] = out
+    k = out["check"]
+    dist = ", ".join(f"{n} {d['card_vs_cpu']:.3g} (CPU vs noisy CPU "
+                     f"{d['cpu_vs_noisy_cpu']:.3g})"
+                     for n, d in k["distances"].items())
+    print(f"[resnet] card vs CPU {k['steps']} steps at [{k['B']}, {size}, "
+          f"{size}, 3]: step 0 loss rel err {k['step0_rel_err']:.3g}, "
+          f"output() at equal weights {k['output_max_abs_err']:.3g}, "
+          f"pooled features {k['features_max_rel_err']:.3g}; "
+          f"distances after the steps: {dist}; losses card "
+          f"{k['loss_card']}, CPU {k['loss_cpu']}", flush=True)
+    for tag in ("float32", "mixed_bf16"):
+        r = out[tag]
+        print(f"[resnet] {tag} [{r['B']}, {size}, {size}, 3], {r['steps']} "
+              f"steps after {r['warmup']}: {r['ms_per_step']:.2f} ms/step, "
+              f"{r['images_per_s']:.1f} images/s, peak {r['peak_mem_gb']} "
+              f"GB, loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}; "
+              f"output() {r['output_ms']:.2f} ms, "
+              f"{r['output_images_per_s']:.1f} images/s", flush=True)
+    b = out["graph_bridge"]
+    print(f"[resnet] (b) JAX graph zip: output() max_abs_err "
+          f"{b['output_max_abs_err']:.3g}, next step loss {b['loss']:.6f} vs "
+          f"JAX {b['loss_jax']:.6f}, sums worst {b['sums_worst']:.3g} "
+          f"({b['sums_worst_at']}); round trip bit-equal "
+          f"{b['round_trip_bit_equal']}", flush=True)
+    for tag in ("float32", "mixed_bf16"):
+        r = out[f"graph_lm_{tag}"]
+        print(f"[resnet] (c) LM as a graph, {tag}: vs the layer list loss "
+              f"rel {r['loss_max_rel_err']:.3g}, params worst "
+              f"{r['param_worst_rel']:.3g} ({r['param_worst_at']}); packed "
+              f"runs {r['packed_runs']}; launches {r['launches']}",
+              flush=True)
+    print(f"[resnet] phase seconds {out['seconds']:.1f}", flush=True)
+    return total
+
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=12):
     rows = []
@@ -2548,16 +3003,28 @@ def _profile_summary(prof, wall_ms, top=12):
 
 def _kernel_group(name: str) -> str:
     """The part of a step a kernel event belongs to, from its name: the
-    port's own kernels by their entry names, library GEMMs by cuBLAS's
-    and CUTLASS's names, the rest elementwise and reductions."""
+    port's own kernels by their entry names; cuDNN's convolutions (their
+    forward, data- and weight-gradient kernels, implicit GEMMs included)
+    and the layout transposes it may put around them; batch norm;
+    copies; library GEMMs by cuBLAS's and CUTLASS's names; the rest
+    elementwise and reductions."""
     n = name.lower()
     for key, group in (("flash_fwd", "flash forward"),
                        ("flash_bwd_dq", "flash dQ"),
                        ("flash_bwd_dkv", "flash dK/dV"),
                        ("ln_warp", "layernorm"), ("ln_block", "layernorm"),
-                       ("adam_kernel", "fused adam")):
+                       ("adam_kernel", "fused adam"),
+                       ("nchwtonhwc", "layout transposes"),
+                       ("nhwctonchw", "layout transposes")):
         if key in n:
             return group
+    if "batch_norm" in n or "batchnorm" in n or "bn_" in n:
+        return "batchnorm"
+    if any(k in n for k in ("conv", "fprop", "dgrad", "wgrad", "implicit",
+                            "cudnn", "winograd")):
+        return "conv"
+    if "memcpy" in n or "memset" in n or "copy" in n:
+        return "copies"
     if any(k in n for k in ("gemm", "xmma", "cutlass", "sm90_", "nvjet")):
         return "gemm"
     return "other"
@@ -2624,9 +3091,12 @@ def profile_paths(device):
     parts timed apart (`_train_step_phases`), and (5) one long-context
     `fit` step at [8, 2048] through the 4-way ring and (6) locally,
     and (7) `restore_model` of the LM's zip followed by one `fit` step
-    at [8, 511]. Per path: host wall ms, summed device ms of the kernels seen (one
-    stream, so kernels do not overlap), busy share = device / wall,
-    launches, and the kernels with the most device time."""
+    at [8, 511], and (8) one ResNet-50 `fit` step at phase 10's batch
+    128 of 224x224 images, fp32 and mixed_bf16. Per path: host wall ms,
+    summed device ms of the kernels seen (one stream, so kernels do not
+    overlap), busy share = device / wall, launches, device ms by part
+    (`_kernel_group`), and the kernels with the most device time."""
+    import torch
     from deeplearning4j_tpu_torch.serving import PagedDecodeEngine
     net = build_lm(LM, device, random_lm_params(LM, 1234, 4.0))
     rng = np.random.default_rng(3)
@@ -2711,6 +3181,21 @@ def profile_paths(device):
         out["bridge_restore_and_step_8x511"] = _profiled(
             lambda: ModelSerializer.restore_model(path, device=device).fit(
                 X[8:], Y[8:], batch_size=8, shuffle=False))
+    # (8) ResNet-50 (phase 10's configuration), one `fit` step at batch
+    # 128 on the resident batch, fp32 and mixed_bf16
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    c = RESNET
+    x, y = resnet_images(c["B"], c["size"], c["classes"], seed=23)
+    ds = DataSet(torch.from_numpy(x).to(device),
+                 torch.from_numpy(y).to(device))
+    for tag, policy in (("", None), ("_mixed", MIXED)):
+        net = build_resnet(device, c["size"], c["classes"],
+                           dtype_policy=policy)
+        for _ in range(2):
+            net.fit(ds, batch_size=c["B"])                        # warm
+        out[f"resnet50_step_{c['B']}x{c['size']}{tag}"] = _profiled(
+            lambda: net.fit(ds, batch_size=c["B"]))
+        del net
     for k, v in out.items():
         groups = ", ".join(f"{g} {ms:.3f}" for g, ms in v["groups_ms"].items())
         print(f"[profile] {k}: wall {v['wall_ms']:.3f} ms, device "
@@ -2837,6 +3322,9 @@ def run(device, *, small=False, kernels_only=False):
                    small)
         for k in launches:
             launches[k] += (l9 or {}).get(k, 0)
+        l10 = phase("resnet", phase_resnet, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l10 or {}).get(k, 0)
         for k, n in launches.items():
             fails.check(n > 0, f"kernel {k} never launched on the main path")
     kernels = []

@@ -1,7 +1,7 @@
 """PyTorch/CUDA port of deeplearning4j_tpu (Hopper, sm_90a).
 
 Mirrors the JAX package's layout (`kernels/`, `nn/layers/`, `nn/conf/`,
-`nn/multilayer.py`, `zoo/transformer.py`, `serving/`,
+`nn/multilayer.py`, `nn/graph.py`, `zoo/`, `serving/`,
 `util/serializer.py`) so every counterpart is easy to find. The port imports `torch` and never `jax`
 or anything from `deeplearning4j_tpu`.
 

@@ -73,11 +73,29 @@ def _check(params, grads, ms, vs):
             raise ValueError(f"leaf shapes differ: p {tuple(p.shape)}, g "
                              f"{tuple(g.shape)}, m {tuple(m.shape)}, "
                              f"v {tuple(v.shape)}")
+        if not _dense(p):
+            raise ValueError("fused Adam needs dense leaves")
         for t in (p, g, m, v):
-            if not t.is_contiguous():
-                raise ValueError("fused Adam needs contiguous leaves")
+            if t.stride() != p.stride():
+                raise ValueError("fused Adam needs g, m and v laid out as "
+                                 "their param")
             if t.device != p.device:
                 raise ValueError("leaves on different devices")
+
+
+def _dense(t: torch.Tensor) -> bool:
+    """True when `t` covers numel() consecutive elements from its
+    data_ptr() (contiguous, or a permutation of contiguous dims, as a
+    convolution's HWIO weight over OHWI memory is): the kernel walks
+    each leaf as flat memory, and an elementwise update does not care
+    in which order."""
+    dims = sorted((st, sz) for st, sz in zip(t.stride(), t.shape) if sz != 1)
+    expect = 1
+    for st, sz in dims:
+        if st != expect:
+            return False
+        expect *= sz
+    return True
 
 
 @torch.no_grad()

@@ -6,8 +6,8 @@ default :132-172, `mixed_bf16` :175, `policy_from_name` :197,
 A policy splits three dtypes: `param_dtype` (the master copy of the
 params and the updater state), `compute_dtype` (activations, the
 backward, and so the gradients) and `output_dtype` (the output layer's
-loss and `output()`). `mixed_bf16` is fp32 / bf16 / fp32. The container
-(`nn/multilayer.py`) makes one compute-dtype copy of each floating
+loss and `output()`). `mixed_bf16` is fp32 / bf16 / fp32. The containers
+(`nn/container.py`) make one compute-dtype copy of each floating
 param per step and differentiates that copy, so the gradients arrive in
 bf16 and the updater upcasts them onto the fp32 master; norm statistics
 stay fp32 inside the LayerNorm kernel. The casts are explicit (no

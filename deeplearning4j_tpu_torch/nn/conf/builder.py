@@ -3,7 +3,8 @@ of `deeplearning4j_tpu/nn/conf/builder.py`: `check_format_version` :31,
 `GradientNormalization` :70, `BackpropType` :81,
 `MultiLayerConfiguration` :87-190, `_policy_to_dict` :192,
 `infer_preprocessor` :254, `ListBuilder` :283-417,
-`NeuralNetConfiguration` :423-578).
+`NeuralNetConfiguration` :423-578; `graph_builder()` gives the
+`GraphBuilder` of `nn/graph.py`).
 
 The JSON form is the JAX package's key for key and in the same order,
 so a `configuration.json` written by either package builds the other's
@@ -14,7 +15,7 @@ defaults are the JAX layers'.
 The configuration carries every field, ported or not. Those the port
 does not run yet (gradient normalization, TBPTT, `max_norm`,
 `pretrain`, the line-search solvers, diagnostics) are inert at
-inference and refused by the container's `fit` (`nn/multilayer.py`).
+inference and refused by the containers' `fit` (`nn/container.py`).
 `diagnostics` travels as the JAX package's serde dict.
 """
 
@@ -521,3 +522,9 @@ class NeuralNetConfiguration:
 
     def list(self) -> ListBuilder:
         return ListBuilder(self)
+
+    def graph_builder(self):
+        """A `GraphBuilder` (`nn/graph.py`) over these global defaults:
+        the JAX `ComputationGraphConfiguration.graph_builder(self)`."""
+        from deeplearning4j_tpu_torch.nn.graph import GraphBuilder
+        return GraphBuilder(self)

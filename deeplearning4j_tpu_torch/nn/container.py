@@ -1,0 +1,612 @@
+"""What the two containers share (`nn/multilayer.py`'s MultiLayerNetwork
+and `nn/graph.py`'s ComputationGraph): params and state, the dtype
+policy, the loss's regularization, the update, the fit loop, scoring
+and evaluation.
+
+A container holds its layers in an `nn.ModuleList`, `layers`, beside
+`layer_keys`, the JAX net's key of each ("<i>" for a layer list, the
+node name in a graph), so `updater_state`, `net_state`, `param_table`
+and the carriers (`util/jax_params`, `util/serializer`) are keyed as
+the JAX net's trees. `fold_ids[key]` is the index the train step folds
+the layer's threefry key with (its position in a list, its node's
+position in the graph's topological order).
+
+Training (`_fit_step`) runs in the JAX train step's order: the forward
+to the output layers (each layer's weight noise installed for its
+forward), their losses plus the l1/l2 penalty, `backward()`, gradient
+normalization per layer, the updates, each layer's constraints, then
+`max_norm` over every param, and last the running state the forward
+computed (BatchNormalization's). Params take gradients only inside the
+step. The packed runs (`_packed_runs`: maximal runs of at least
+`MIN_RUN` structurally identical stateless layers with params, never an
+output layer) are the JAX package's: an Adam run is ONE fused-Adam
+update, and no run packs where the configuration keeps JAX from packing
+(`scan_stack.packable_runs`: a per-layer or per-param-type norm mode,
+`max_norm`, a constrained run, `scan_layers` off). Updates happen in
+place.
+
+Dtype policy (`nd/dtype.py`, the JAX `self.dtype`): under a mixed
+policy such as `mixed_bf16` each step makes ONE compute-dtype copy of
+every floating param, outside the differentiated function, and runs
+`fit`'s forward, `score()` and `output()` on those copies through
+`torch.func.functional_call` (the JAX containers cast the param tree
+once and differentiate the cast tree). So the gradients are bf16, the
+params and the updater state stay the fp32 master, and the updater
+upcasts each gradient. The output layers' params are the copies
+rounded to bf16 and upcast again, so the loss is fp32. Buffers (the
+running state) stay fp32.
+
+Params version: `params_version` counts the writes of the params
+(`_apply_updates`, `init`, `to`, `load_state_dict`, and through
+`params_changed()` the carriers). Caches keyed on it (the serving
+trees) rebuild at their next use. Running-state writes do not count:
+no cache reads the state.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import os
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from deeplearning4j_tpu_torch.common import prng
+from deeplearning4j_tpu_torch.common.updaters import Adam, Sgd
+from deeplearning4j_tpu_torch.datasets.iterator import as_iterator
+from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.kernels.fused_adam import adam_update_packed
+from deeplearning4j_tpu_torch.nd import quant
+from deeplearning4j_tpu_torch.nd.dtype import DataTypePolicy, resolve_policy
+from deeplearning4j_tpu_torch.nn.conf.builder import (
+    BackpropType,
+    GradientNormalization,
+)
+from deeplearning4j_tpu_torch.nn.conf.weightnoise import WeightNoise
+from deeplearning4j_tpu_torch.nn.layers.feedforward import EmbeddingLayer
+from deeplearning4j_tpu_torch.optimize.gradients import (
+    apply_gradient_normalization,
+    apply_max_norm_constraint,
+)
+from deeplearning4j_tpu_torch.optimize.listeners import ComposedListeners
+
+MIN_RUN = 2          # shortest run of identical layers that packs
+WEIGHT_NOISE_FOLD = 0x5EED   # a layer key's weight-noise fold (JAX's)
+# gradient-normalization modes that see the same numbers through a
+# packed run (elementwise, or none): the JAX `scan_stack.SAFE_PACK_GN`
+SAFE_PACK_GN = (GradientNormalization.NONE,
+                GradientNormalization.CLIP_ELEMENTWISE_ABSOLUTE_VALUE)
+
+
+def layer_signature(layer):
+    """Structural identity of a layer that can join a packed run (None
+    for one without params or with running state), as the JAX
+    `scan_stack.layer_signature` and `stackable` have it: its class, its
+    whole configuration (`to_dict()`: updater, dropout, weight noise,
+    constraints and all) and its params' names, shapes and dtypes."""
+    pmap = layer.jax_param_map()
+    if not pmap or layer.state_map():
+        return None
+    conf = json.dumps(layer.to_dict(), sort_keys=True, default=str)
+    shapes = tuple(sorted((k, tuple(t.shape), str(t.dtype))
+                          for k, t in pmap.items()))
+    return type(layer).__name__, conf, shapes
+
+
+def scan_enabled(conf) -> bool:
+    """The JAX `scan_stack.scan_enabled`: `scan_layers`, unless
+    `DL4J_SCAN_LAYERS` turns it off. Runs pack only where it holds."""
+    env = os.environ.get("DL4J_SCAN_LAYERS")
+    if env is not None and env.strip().lower() in ("0", "false", "off",
+                                                   "no"):
+        return False
+    return bool(getattr(conf, "scan_layers", True))
+
+
+def check_policy(policy: DataTypePolicy) -> DataTypePolicy:
+    """The policies the port runs: fp32 master params and fp32 outputs,
+    compute in fp32 or bf16 (the kernels' two dtypes)."""
+    if (policy.param_dtype != torch.float32
+            or policy.output_dtype != torch.float32
+            or policy.compute_dtype not in (torch.float32, torch.bfloat16)):
+        raise NotImplementedError(
+            f"dtype policy {policy.to_dict()} is not ported: the port keeps "
+            f"fp32 params and outputs and computes in float32 or bfloat16")
+    return policy
+
+
+class Container(nn.Module):
+    """The shared base; a subclass sets up `conf`, `layers`, `layer_keys`
+    and `fold_ids` through `_setup` and supplies the forward, the loss,
+    the candidate runs and the feature conversion."""
+
+    def _setup(self, conf, layers, keys, fold_ids, device, dtype_policy):
+        for layer in layers:
+            layer._in_net = True
+        self.conf = conf
+        self.layers = nn.ModuleList(layers)
+        self.layer_keys = list(keys)
+        self.fold_ids = dict(fold_ids)
+        # DL4J_DTYPE_POLICY env > explicit arg > conf.dtype_policy >
+        # process default
+        self.dtype = check_policy(resolve_policy(dtype_policy, conf))
+        self.device = resolve_device(device)
+        nn.Module.to(self, self.device)
+        self.iteration_count = 0
+        self.epoch_count = 0
+        self.listeners = []
+        self.score_value = float("nan")
+        self.params_version = 0
+        # {key: {param name: updater state}}, keyed like the JAX net's
+        # `updater_state` (Adam: {"m", "v"}; Sgd: {})
+        self.updater_state: Dict[str, Dict[str, Dict[str, torch.Tensor]]] = {
+            key: {name: self.updater_of(layer).init_state(t)
+                  for name, t in layer.jax_param_map().items()}
+            for key, layer in self.keyed() if layer.jax_param_map()}
+
+    def keyed(self):
+        return zip(self.layer_keys, self.layers)
+
+    @property
+    def net_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{key: {state name: buffer}} of the stateful layers, the JAX
+        net's `net_state` (BatchNormalization's running mean and var)."""
+        return {key: layer.state_map() for key, layer in self.keyed()
+                if layer.state_map()}
+
+    def init(self, seed: Optional[int] = None):
+        """Draw every layer's params, in layer order, from one CPU
+        `torch.Generator` seeded with `seed` (default `conf.seed`), and
+        reset the running state. The JAX package's draws are threefry
+        bits, which this does not reproduce (load those with
+        `util.jax_params`)."""
+        gen = torch.Generator().manual_seed(
+            self.conf.seed if seed is None else int(seed))
+        for layer in self.layers:
+            layer.init_weights(gen)
+        self.params_changed()
+        return self
+
+    def params_changed(self):
+        """Note a write of the params: caches keyed on `params_version`
+        (the serving trees) rebuild at their next use."""
+        self.params_version += 1
+
+    def load_state_dict(self, *args, **kwargs):
+        out = super().load_state_dict(*args, **kwargs)
+        self.params_changed()
+        return out
+
+    def to(self, device):
+        """Move every parameter, buffer and updater state to `device`
+        (resolved like an entry point's `device=`)."""
+        self.device = resolve_device(device)
+        nn.Module.to(self, self.device)
+        self.params_changed()
+        self.updater_state = {
+            lk: {pk: {sk: t.to(self.device) for sk, t in st.items()}
+                 for pk, st in lst.items()}
+            for lk, lst in self.updater_state.items()}
+        return self
+
+    def set_listeners(self, *listeners):
+        self.listeners = list(listeners)
+        return self
+
+    def add_listener(self, listener):
+        self.listeners.append(listener)
+        return self
+
+    @staticmethod
+    def updater_of(layer):
+        return layer.updater or Sgd(1e-3)
+
+    def num_params(self) -> int:
+        return sum(t.numel() for _, layer in self.keyed()
+                   for t in layer.jax_param_map().values())
+
+    def param_table(self) -> Dict[str, torch.Tensor]:
+        """{"<key>_<param>": tensor}, in the JAX names and layouts."""
+        return {f"{key}_{pk}": t for key, layer in self.keyed()
+                for pk, t in layer.jax_param_map().items()}
+
+    # ----------------------------------------------------------- forward
+    def _weight_noise(self, layer, train: bool, lrng):
+        """Context: `layer`'s weight noise installed over its params for
+        the block (the JAX `apply_weight_noise` before the layer's
+        forward, keyed `fold_in(layer key, 0x5EED)`); nothing outside
+        training or without noise."""
+        if not train or layer.weight_noise is None or lrng is None:
+            return contextlib.nullcontext()
+        params = layer.jax_param_map()
+        noised = layer.apply_weight_noise(
+            params, train, prng.fold_in(lrng, WEIGHT_NOISE_FOLD))
+        slots = layer.param_slots()
+        return quant.overlaid({(id(m), a): noised[n]
+                               for n, (m, a) in slots.items()
+                               if noised[n] is not params[n]})
+
+    def _call_layer(self, key, layer, h, *, train, rng, mask, new_state):
+        """`layer` on h with its key `fold_in(rng, fold id)` and weight
+        noise; a stateful layer in training leaves its next running
+        state in `new_state[key]`."""
+        lrng = None if rng is None else prng.fold_in(rng, self.fold_ids[key])
+        kw = {}
+        if new_state is not None and layer.state_map():
+            kw["new_state"] = new_state.setdefault(key, {})
+        with self._weight_noise(layer, train, lrng):
+            return layer(h, train=train, rng=lrng, mask=mask, **kw)
+
+    def _output_loss(self, key, layer, h, y, mask, *, train, rng):
+        """The output layer's loss in the output dtype (identity when not
+        mixed) on h, with its key and weight noise; `mask` is the label
+        mask."""
+        lrng = None if rng is None else prng.fold_in(rng, self.fold_ids[key])
+        h, y = self.dtype.cast_output(h), self.dtype.cast_output(y)
+        with self._weight_noise(layer, train, lrng):
+            return layer.compute_loss(h, y, mask=mask, train=train, rng=lrng)
+
+    def _mask(self, mask) -> Optional[torch.Tensor]:
+        """A features or label mask ([B, T] or [B], 1 where real) as fp32
+        on the net's device (None stays None)."""
+        if mask is None:
+            return None
+        if isinstance(mask, torch.Tensor):
+            return mask.to(self.device, torch.float32)
+        return torch.as_tensor(np.asarray(mask), dtype=torch.float32,
+                               device=self.device)
+
+    def _features_for(self, x, first) -> torch.Tensor:
+        """Features on the net's device for the layer `first` that takes
+        them. Token ids for an embedding may arrive float-carried (the
+        JAX fit takes `X.astype(np.float32)`): they are checked to be
+        whole and in range, then made int64 on the host."""
+        if isinstance(x, torch.Tensor):
+            return x.to(self.device)
+        x = np.asarray(x)
+        if isinstance(first, EmbeddingLayer):
+            if x.dtype.kind == "f" and not np.array_equal(x, np.round(x)):
+                raise ValueError("token ids must be whole numbers")
+            if x.size and (x.min() < 0 or x.max() >= first.n_in):
+                raise ValueError(f"token ids must be in [0, {first.n_in}); "
+                                 f"got [{x.min()}, {x.max()}]")
+            return torch.as_tensor(x.astype(np.int64), device=self.device)
+        return torch.as_tensor(x, dtype=self.dtype.param_dtype,
+                               device=self.device)
+
+    def _labels(self, y) -> torch.Tensor:
+        if isinstance(y, torch.Tensor):
+            return y.to(self.device, self.dtype.output_dtype)
+        return torch.as_tensor(np.asarray(y), dtype=self.dtype.output_dtype,
+                               device=self.device)
+
+    # --------------------------------------------------- the dtype policy
+    def forward(self, fn, *args):
+        """`fn(*args)`: the module call `torch.func.functional_call`
+        makes, so `_policy_call` can run any of the container's own
+        functions with the params swapped for their compute copies."""
+        return fn(*args)
+
+    def _compute_copies(self, requires_grad: bool) -> Dict[str, torch.Tensor]:
+        """One compute-dtype copy of each floating param, keyed by its
+        qualified name (a param shared by two layers is one entry); a
+        copy keeps its param's memory layout."""
+        cd = self.dtype.compute_dtype
+        return {n: p.detach().to(cd).requires_grad_(requires_grad)
+                for n, p in self.named_parameters() if p.is_floating_point()}
+
+    def _output_positions(self) -> List[int]:
+        """Positions in `layers` of the layers whose loss `fit` takes."""
+        raise NotImplementedError
+
+    def _policy_call(self, fn, *args, copies=None, output_params=False):
+        """`fn(*args)` under the policy. Not mixed: as is, on the fp32
+        params. Mixed: on `copies` (fresh ones without grad when None),
+        installed for the call; with `output_params` the output layers'
+        copies enter upcast to the output dtype, as the loss takes them.
+        Ring and Ulysses attention run on the installed bf16 copies as
+        the local path does (fp32 flash-ring state, fp32 backward sums,
+        results in the inputs' dtype)."""
+        if not self.dtype.is_mixed:
+            return fn(*args)
+        if copies is None:
+            copies = self._compute_copies(requires_grad=False)
+        installed = dict(copies)
+        if output_params:
+            prefixes = tuple(f"layers.{i}." for i in self._output_positions())
+            for n, t in copies.items():
+                if n.startswith(prefixes):
+                    installed[n] = self.dtype.cast_output(t)
+        return torch.func.functional_call(self, installed, (fn, *args),
+                                          strict=False)
+
+    # --------------------------------------------------------------- loss
+    def _regularization(self):
+        """The l1/l2 penalty of every layer's params (the JAX `_loss_fn`),
+        on the params in the compute dtype: JAX sums it over the cast
+        tree (the output layers' too, before their upcast)."""
+        cd, reg = self.dtype.compute_dtype, 0.0
+        for layer in self.layers:
+            if not (layer.l1 or layer.l2 or layer.l1_bias or layer.l2_bias):
+                continue
+            params = layer.jax_param_map()
+            if params:
+                reg = reg + layer.regularization_score(
+                    {k: t.to(cd) for k, t in params.items()})
+        return reg
+
+    def _refusals(self) -> List[str]:
+        """The configured fields that act in training and are not ported
+        (`fit` and `score` would silently compute something else). Each
+        is inert at inference, so `output()` accepts them."""
+        c, bad = self.conf, []
+        if BackpropType(c.backprop_type) == BackpropType.TRUNCATED_BPTT:
+            bad.append("backprop_type tbptt")
+        if getattr(c, "pretrain", False):
+            bad.append("pretrain")
+        if c.optimization_algo != "sgd":
+            bad.append(f"optimization_algo {c.optimization_algo}")
+        if c.diagnostics is not None:
+            bad.append("diagnostics")
+        for key, layer in self.keyed():
+            wn = layer.weight_noise
+            if isinstance(wn, WeightNoise) and not wn.dist.KEYED:
+                bad.append(f"layer {key} weight_noise over "
+                           f"{type(wn.dist).__name__}")
+        return bad
+
+    def _check_trainable(self):
+        bad = self._refusals()
+        if bad:
+            raise NotImplementedError(
+                f"not ported yet for training: {', '.join(bad)} (ROADMAP "
+                f"Queue 1 items 6 and 10)")
+
+    # ------------------------------------------------------------ updates
+    def _candidate_runs(self) -> List[List[int]]:
+        """Maximal runs (positions in `layers`) of >= MIN_RUN layers with
+        one `layer_signature`, as the JAX forward scans them."""
+        raise NotImplementedError
+
+    def _packed_runs(self) -> List[List[int]]:
+        """The candidate runs kept where JAX packs them
+        (`scan_stack.packable_runs`): none under a per-layer or
+        per-param-type gradient normalization, with `max_norm` or with
+        `scan_layers` off, and no run whose layers have constraints."""
+        c = self.conf
+        if (GradientNormalization(c.gradient_normalization)
+                not in SAFE_PACK_GN or c.max_norm is not None
+                or not scan_enabled(c)):
+            return []
+        return [r for r in self._candidate_runs()
+                if not self.layers[r[0]].constraints]
+
+    def _update_groups(self) -> List[List[int]]:
+        """Layers that share one update: each packed run, and each other
+        layer with params on its own, in layer order."""
+        runs = self._packed_runs()
+        in_run = {i for r in runs for i in r}
+        return sorted(runs + [[i] for i, layer in enumerate(self.layers)
+                              if i not in in_run and layer.jax_param_map()])
+
+    def _layer_tree(self, by_id) -> Dict[str, Dict[str, torch.Tensor]]:
+        """{layer key: {JAX name: by_id[id(param)]}} over the layers with
+        params (a missing gradient is a zero in the compute dtype)."""
+        cd = self.dtype.compute_dtype
+        tree = {}
+        for key, layer in self.keyed():
+            params = layer.jax_param_map()
+            if params:
+                tree[key] = {
+                    name: (by_id.get(id(p)) if by_id.get(id(p)) is not None
+                           else torch.zeros_like(p, dtype=cd))
+                    for name, p in params.items()}
+        return tree
+
+    def _normalize_gradients(self, grads):
+        """{id(param): gradient} after the configured gradient
+        normalization (per layer key, in the gradients' dtype)."""
+        c = self.conf
+        gn = GradientNormalization(c.gradient_normalization)
+        if gn == GradientNormalization.NONE:
+            return grads
+        tree = apply_gradient_normalization(
+            self._layer_tree(grads), gn, c.gradient_normalization_threshold)
+        return {id(p): tree[key][name]
+                for key, layer in self.keyed()
+                for name, p in layer.jax_param_map().items()}
+
+    @torch.no_grad()
+    def _apply_updates(self, step: int, grads=None):
+        """One update of every param (the JAX `_apply_updates`) from
+        `grads` ({id(param): gradient}; None: each param's `.grad`; a
+        param without one gets a zero gradient in the compute dtype): an
+        Adam run is one fused-Adam call over all its leaves (one kernel
+        launch on the card, bf16 gradients onto the fp32 state under
+        mixed_bf16); any other group applies its rule per leaf. Grads
+        are upcast to the param dtype. Then each layer's constraints and
+        `max_norm`, written into the params in place."""
+        cd = self.dtype.compute_dtype
+        for group in self._update_groups():
+            updater = self.updater_of(self.layers[group[0]])
+            ps, gs, states = [], [], []
+            for i in group:
+                key = self.layer_keys[i]
+                for name, p in self.layers[i].jax_param_map().items():
+                    g = p.grad if grads is None else grads.get(id(p))
+                    ps.append(p)
+                    gs.append(torch.zeros_like(p, dtype=cd) if g is None
+                              else g)
+                    states.append(self.updater_state[key][name])
+            if type(updater) is Adam and len(group) > 1:
+                adam_update_packed(updater, ps, gs,
+                                   [s["m"] for s in states],
+                                   [s["v"] for s in states], step)
+                continue
+            for p, g, st in zip(ps, gs, states):
+                upd, new = updater.apply(g.to(p.dtype), st, step)
+                p.sub_(upd.to(p.dtype))
+                st.update(new)
+        self._apply_constraints()
+        self.params_changed()
+
+    def _apply_constraints(self):
+        """Each layer's constraints, then the global `max_norm`, on the
+        updated params (in place)."""
+        trees = {}
+        for key, layer in self.keyed():
+            params = layer.jax_param_map()
+            if params:
+                trees[key] = layer.apply_constraints(dict(params))
+        if self.conf.max_norm is not None:
+            trees = apply_max_norm_constraint(trees, self.conf.max_norm)
+        for key, layer in self.keyed():
+            for name, p in layer.jax_param_map().items():
+                new = trees[key][name]
+                if new is not p:
+                    p.copy_(new)
+
+    @torch.no_grad()
+    def _commit_state(self, new_state):
+        """Write the running state a training forward computed (after
+        the step's update, as the JAX step returns it)."""
+        for key, layer in self.keyed():
+            st = new_state.get(key)
+            if st:
+                for name, buf in layer.state_map().items():
+                    buf.copy_(st[name])
+
+    # ---------------------------------------------------------------- fit
+    def _loss_and_grads(self, loss_fn):
+        """`loss_fn(new_state)`'s training loss on one minibatch,
+        {id(param): gradient} and the running state it computed. fp32:
+        the params take gradients for this call only. Mixed: the
+        gradients of this step's compute copies (bf16), the params
+        untouched."""
+        new_state = {}
+        if self.dtype.is_mixed:
+            copies = self._compute_copies(requires_grad=True)
+            loss = self._policy_call(loss_fn, new_state, copies=copies,
+                                     output_params=True)
+            loss.backward()
+            return loss.detach(), {id(p): copies[n].grad
+                                   for n, p in self.named_parameters()
+                                   if n in copies}, new_state
+        params = list(self.parameters())
+        try:
+            for p in params:
+                p.requires_grad_(True)
+            loss = loss_fn(new_state)
+            loss.backward()
+            return loss.detach(), {id(p): p.grad for p in params}, new_state
+        finally:
+            for p in params:
+                p.requires_grad_(False)
+                p.grad = None
+
+    def _step_key(self, iteration: int):
+        """The threefry key of training step `iteration`: JAX's
+        `fold_in(PRNGKey(seed + 1), iteration)`."""
+        return prng.fold_in(prng.key(self.conf.seed + 1), iteration)
+
+    def _fit_step(self, x, y, fmask=None, lmask=None):
+        """forward + loss + backward + gradient normalization + update +
+        constraints + running state on one minibatch."""
+        rng = self._step_key(self.iteration_count)
+        loss, grads, new_state = self._loss_and_grads(
+            lambda st: self._loss_fn(x, y, fmask, lmask, train=True,
+                                     rng=rng, new_state=st))
+        self._apply_updates(self.iteration_count,
+                            self._normalize_gradients(grads))
+        self._commit_state(new_state)
+        self.score_value = float(loss)
+        self.iteration_count += 1
+
+    def _fit_iterator(self, iterator, epochs: int):
+        """The fit loop (the JAX `fit`): one step per minibatch, with its
+        features and label masks; `iteration_count` is the updater's
+        step and the step key's fold. Listeners get `on_fit_start`,
+        `on_epoch_start`, `iteration_done` after each step (with the
+        step's iteration, before the count moves on), `on_epoch_end` and
+        `on_fit_end`."""
+        listeners = ComposedListeners(self.listeners)
+        listeners.on_fit_start(self)
+        for _ in range(int(epochs)):
+            listeners.on_epoch_start(self, self.epoch_count)
+            batches = iter(iterator)
+            while True:
+                t0 = time.perf_counter()
+                ds = next(batches, None)
+                if ds is None:
+                    break
+                etl_ms = (time.perf_counter() - t0) * 1e3
+                if ds.labels is None:
+                    raise ValueError("fit needs labels")
+                masks = {k: self._mask(m) for k, m in (
+                    ("fmask", ds.features_mask), ("lmask", ds.labels_mask))
+                    if m is not None}
+                self._fit_step(self._features(ds.features),
+                               self._labels(ds.labels), **masks)
+                listeners.iteration_done(
+                    self, self.iteration_count - 1, self.epoch_count,
+                    self.score_value,
+                    batch_size=int(np.shape(ds.features)[0]),
+                    etl_ms=etl_ms, batch=(ds.features, ds.labels,
+                                          ds.features_mask, ds.labels_mask))
+            listeners.on_epoch_end(self, self.epoch_count)
+            self.epoch_count += 1
+        listeners.on_fit_end(self)
+        return self
+
+    @staticmethod
+    def _check_steps_per_execution(steps_per_execution):
+        if int(steps_per_execution) != 1:
+            raise NotImplementedError(
+                "steps_per_execution > 1 (fused multi-step) is not ported")
+
+    # --------------------------------------------------------- evaluation
+    def _eval_output(self, features, features_mask):
+        raise NotImplementedError
+
+    def _evaluate_with(self, evaluator, iterator):
+        """Accumulate `evaluator.eval(labels, output, mask=labels mask)`
+        over the iterator (the JAX `_evaluate_with`): the output with the
+        features mask, batches of 128 from arrays."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        for ds in as_iterator(iterator, batch_size=128):
+            out = self._eval_output(ds.features, ds.features_mask)
+            kw = {}
+            meta = getattr(ds, "example_metadata", None)
+            if meta is not None and isinstance(evaluator, Evaluation):
+                kw["record_metadata"] = meta
+            evaluator.eval(ds.labels, out.cpu().numpy(),
+                           mask=ds.labels_mask, **kw)
+        return evaluator
+
+    def evaluate(self, iterator, labels_list=None, top_n: int = 1):
+        """Classification metrics (the JAX `evaluate`)."""
+        from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        return self._evaluate_with(
+            Evaluation(labels_names=labels_list, top_n=top_n), iterator)
+
+    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+        """Binary ROC over the iterator (the JAX `evaluate_roc`)."""
+        from deeplearning4j_tpu_torch.eval.roc import ROC
+        return self._evaluate_with(ROC(threshold_steps=threshold_steps),
+                                   iterator)
+
+    def evaluate_roc_multi_class(self, iterator, threshold_steps: int = 0):
+        """One-vs-all ROC per class (the JAX
+        `evaluate_roc_multi_class`)."""
+        from deeplearning4j_tpu_torch.eval.roc import ROCMultiClass
+        return self._evaluate_with(
+            ROCMultiClass(threshold_steps=threshold_steps), iterator)
+
+    def evaluate_regression(self, iterator):
+        from deeplearning4j_tpu_torch.eval.regression import (
+            RegressionEvaluation)
+        return self._evaluate_with(RegressionEvaluation(), iterator)

@@ -1,12 +1,21 @@
 from deeplearning4j_tpu_torch.nn.layers.attention import MultiHeadAttention
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
+from deeplearning4j_tpu_torch.nn.layers.convolution import (
+    ConvolutionLayer,
+    ConvolutionMode,
+    PoolingMode,
+    SubsamplingLayer,
+    ZeroPaddingLayer,
+)
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
+    ActivationLayer,
     DenseLayer,
     DropoutLayer,
     EmbeddingLayer,
     OutputLayer,
 )
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
+    BatchNormalization,
     LayerNormalization,
     layer_norm_reference,
 )
@@ -24,9 +33,11 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
     stream_budget,
 )
 
-__all__ = ["BaseRecurrentLayer", "DenseLayer", "DropoutLayer",
-           "EmbeddingLayer", "GlobalPoolingLayer", "Layer",
+__all__ = ["ActivationLayer", "BaseRecurrentLayer", "BatchNormalization",
+           "ConvolutionLayer", "ConvolutionMode", "DenseLayer",
+           "DropoutLayer", "EmbeddingLayer", "GlobalPoolingLayer", "Layer",
            "LayerNormalization", "MultiHeadAttention", "OutputLayer",
-           "PoolingType", "PositionalEncodingLayer", "RnnOutputLayer",
+           "PoolingMode", "PoolingType", "PositionalEncodingLayer",
+           "RnnOutputLayer", "SubsamplingLayer", "ZeroPaddingLayer",
            "TransformerEncoderBlock", "layer_from_dict",
            "layer_norm_reference", "stream_budget"]

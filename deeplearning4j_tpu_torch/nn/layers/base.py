@@ -18,6 +18,13 @@ They are zeros until `init_weights` draws them (`weight_init` and
 `dist` through `common/weights.py`, biases filled with `bias_init`
 where the JAX layer fills them) or a loader copies them in.
 
+State (the JAX `init_state`): running values that are not trained
+(BatchNormalization's mean and var) are module buffers, so they move
+with `.to(device)`; `state_map()` gives them under their JAX names and
+`load_jax_state` copies the JAX net's `net_state` entry in. A stateful
+layer's `forward` takes `new_state=`, a dict it fills in training with
+the values the container writes once the step's update is done.
+
 Training hooks (the JAX `Layer` :186-259): a layer's `forward(x, *,
 train, rng, mask)` takes the threefry key `rng` (`common/prng.py`) the
 container folds for it and the [B, T] padding mask; `forward_mask`
@@ -82,6 +89,26 @@ BASE_FIELDS = (
     ("l1_bias", 0.0), ("l2_bias", 0.0), ("updater", None),
     ("dropout", None), ("weight_noise", None), ("constraints", None),
     ("name", None), ("remat_policy", None))
+
+
+# JAX layers whose configuration is known but whose port waits for a
+# later slice (ROADMAP Queue 1 item 9): a configuration naming one is
+# refused by name when it is built
+NOT_PORTED = {
+    "convolution1d": "Convolution1DLayer", "subsampling1d":
+    "Subsampling1DLayer", "upsampling1d": "Upsampling1D", "upsampling2d":
+    "Upsampling2D", "zeropadding1d": "ZeroPadding1DLayer",
+    "space_to_depth": "SpaceToDepthLayer", "separable_convolution2d":
+    "SeparableConvolution2D", "lrn": "LocalResponseNormalization",
+    "lstm": "LSTM", "graves_lstm": "GravesLSTM",
+    "graves_bidirectional_lstm": "GravesBidirectionalLSTM",
+    "simple_rnn": "SimpleRnn", "last_time_step": "LastTimeStep",
+    "pool_helper": "PoolHelperLayer", "reshape": "ReshapeLayer",
+    "permute": "PermuteLayer", "loss": "LossLayer", "frozen":
+    "FrozenLayer", "mixture_of_experts": "MixtureOfExperts", "vae":
+    "VariationalAutoencoder", "yolo2_output": "Yolo2OutputLayer",
+    "rbm": "RBM", "autoencoder": "AutoEncoder", "center_loss_output":
+    "CenterLossOutputLayer"}
 
 
 def register_layer(cls):
@@ -281,25 +308,47 @@ class Layer(nn.Module):
     def init_weights(self, gen: torch.Generator):
         """Draw this layer's params from `gen` (none by default)."""
 
+    def state_map(self) -> Dict[str, torch.Tensor]:
+        """{JAX state name: buffer}: the values the JAX layer keeps in
+        `net_state` (its `init_state` keys); {} for a stateless layer."""
+        return {}
+
+    @torch.no_grad()
+    def load_jax_state(self, state: Dict[str, np.ndarray]):
+        _copy_named(self, self.state_map(), state, "state")
+
     @torch.no_grad()
     def load_jax_params(self, params: Dict[str, np.ndarray]):
-        targets = self.jax_param_map()
-        missing = set(targets) - set(params)
-        extra = set(params) - set(targets)
-        if missing or extra:
-            raise KeyError(f"{type(self).__name__}: missing {sorted(missing)}"
-                           f", unexpected {sorted(extra)}")
-        for name, t in targets.items():
-            arr = np.array(params[name])       # writable copy
-            if tuple(arr.shape) != tuple(t.shape):
-                raise ValueError(f"{type(self).__name__}.{name}: shape "
-                                 f"{arr.shape} != {tuple(t.shape)}")
-            t.copy_(torch.as_tensor(arr, dtype=t.dtype))
+        _copy_named(self, self.jax_param_map(), params, "params")
+
+
+def _copy_named(layer: Layer, targets: Dict[str, torch.Tensor],
+                arrays: Dict[str, np.ndarray], what: str):
+    """Copy `arrays` into `targets` by JAX name; the names must match
+    exactly, and each array's shape its tensor's (the JAX layout: a
+    tensor whose memory is laid out otherwise is still indexed as JAX
+    indexes it, so the copy keeps its strides)."""
+    missing = set(targets) - set(arrays)
+    extra = set(arrays) - set(targets)
+    if missing or extra:
+        raise KeyError(f"{type(layer).__name__} {what}: missing "
+                       f"{sorted(missing)}, unexpected {sorted(extra)}")
+    for name, t in targets.items():
+        arr = np.array(arrays[name])       # writable copy
+        if tuple(arr.shape) != tuple(t.shape):
+            raise ValueError(f"{type(layer).__name__}.{name}: shape "
+                             f"{arr.shape} != {tuple(t.shape)}")
+        t.copy_(torch.as_tensor(arr, dtype=t.dtype))
 
 
 def layer_from_dict(d: dict) -> Layer:
     d = dict(d)
-    cls = _LAYER_REGISTRY[d.pop("layer_name")]
+    name = d.pop("layer_name")
+    if name in NOT_PORTED:
+        raise NotImplementedError(
+            f"{NOT_PORTED[name]} ({name!r}) is not ported yet (ROADMAP "
+            f"Queue 1 item 9)")
+    cls = _LAYER_REGISTRY[name]
     names = {f for f, _ in cls.config_fields()}
     return cls(**{k: _decode(v) for k, v in d.items() if k in names})
 
@@ -312,11 +361,14 @@ def new_param(shape, device, dtype=torch.float32):
                         requires_grad=False)
 
 
-def init_weight_(layer: Layer, t: torch.Tensor, gen: torch.Generator):
-    """Fill the [fan_in, fan_out] weight `t` by `layer.weight_init`, drawn
-    on the CPU from `gen` (reproducible across devices)."""
-    w = init_weights(gen, t.shape, layer.weight_init, fan_in=t.shape[0],
-                     fan_out=t.shape[-1], distribution=layer.dist,
-                     dtype=t.dtype)
+def init_weight_(layer: Layer, t: torch.Tensor, gen: torch.Generator,
+                 fan_in=None, fan_out=None):
+    """Fill the weight `t` by `layer.weight_init`, drawn on the CPU from
+    `gen` (reproducible across devices). The fans default to a dense
+    [fan_in, fan_out] kernel's; a convolution passes its own."""
+    w = init_weights(gen, t.shape, layer.weight_init,
+                     fan_in=t.shape[0] if fan_in is None else fan_in,
+                     fan_out=t.shape[-1] if fan_out is None else fan_out,
+                     distribution=layer.dist, dtype=t.dtype)
     with torch.no_grad():
         t.copy_(w)

@@ -1,7 +1,7 @@
 """Dense, output, dropout and embedding layers and the output-layer loss
 (counterpart of `deeplearning4j_tpu/nn/layers/feedforward.py`:
 `DenseLayer` :35, `BaseOutputLayerMixin` :83, `OutputLayer` :95,
-`DropoutLayer` :150, `EmbeddingLayer` :169). Param names and layouts
+`ActivationLayer` :136, `DropoutLayer` :150, `EmbeddingLayer` :169). Param names and layouts
 are the JAX package's: W is [n_in, n_out] and is used as ``x @ W``; `b`
 exists when `has_bias` and starts at `bias_init`. Dense-based layers
 (and the loss) apply their input dropout while training; the embedding
@@ -106,6 +106,17 @@ class OutputLayer(DenseLayer, BaseOutputLayerMixin):
         super().__init__(n_in, n_out, **config)
         self.loss = get_loss(self.loss if self.loss is not None
                              else "mcxent")
+
+
+@register_layer
+class ActivationLayer(Layer):
+    """The activation alone (identity by default), no params."""
+
+    layer_name = "activation"
+    DEFAULT_ACTIVATION = "identity"
+
+    def forward(self, x, *, train=False, rng=None, mask=None):
+        return self.activation(x)
 
 
 @register_layer

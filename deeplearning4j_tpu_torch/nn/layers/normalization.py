@@ -1,9 +1,11 @@
-"""LayerNormalization (counterpart of
-`deeplearning4j_tpu/nn/layers/normalization.py:121-176`)."""
+"""BatchNormalization and LayerNormalization (counterpart of
+`deeplearning4j_tpu/nn/layers/normalization.py`: `BatchNormalization`
+:28-91, `LayerNormalization` :121-176)."""
 
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from deeplearning4j_tpu_torch.kernels.layernorm import layer_norm
 from deeplearning4j_tpu_torch.nd import quant
@@ -13,6 +15,105 @@ from deeplearning4j_tpu_torch.nn.layers.base import (
     new_param,
     register_layer,
 )
+
+
+@register_layer
+class BatchNormalization(Layer):
+    """Batch norm over every axis but the last (the features: [B, F],
+    [B, T, F] and NHWC alike), with gamma/beta params (none when
+    `lock_gamma_beta`) and the running `mean`/`var` as buffers, the JAX
+    layer's `net_state`.
+
+    Training normalizes with the batch statistics, which are computed in
+    fp32 whatever the activation dtype, the variance the POPULATION one
+    (`torch.var` defaults to correction=1). `forward` writes the running
+    update ``decay * old + (1 - decay) * batch`` into `new_state`; the
+    container stores it once the step's update is done, so a step that
+    runs the forward twice updates once. Inference normalizes with the
+    stored statistics. `F.batch_norm` (cuDNN's or PyTorch's kernel, the
+    library counterpart of JAX's XLA fusion) computes the normalization
+    from its input and the fp32 gamma/beta; it is never handed the
+    running buffers, which it would update with the unbiased variance
+    and `momentum = 1 - decay`. Under a mixed policy it reads bf16 and
+    writes bf16 with fp32 statistics inside, where JAX rounds the mean,
+    the inverse deviation and gamma/beta to bf16 first
+    (`(x - mean) * inv * gamma + beta` in bf16): the two agree within
+    the bf16 band, not bit for bit."""
+
+    layer_name = "batchnorm"
+    FIELDS = (("n_out", 0), ("decay", 0.9), ("eps", 1e-5),
+              ("gamma_init", 1.0), ("beta_init", 0.0),
+              ("lock_gamma_beta", False))
+    DEFAULT_ACTIVATION = "identity"
+
+    def __init__(self, **config):
+        super().__init__(**config)
+        self._build()
+
+    def _build(self):
+        self.n_out = int(self.n_out)
+        m = getattr(self, "mean", None)
+        if not self.n_out or (m is not None and m.shape[0] == self.n_out):
+            return
+        self.register_buffer("mean", torch.zeros(self.n_out))
+        self.register_buffer("var", torch.ones(self.n_out))
+        if self.lock_gamma_beta:
+            self.gamma = self.beta = None
+            return
+        self.gamma = new_param((self.n_out,), "cpu")
+        self.beta = new_param((self.n_out,), "cpu")
+        self.init_weights(None)
+
+    def set_n_in(self, input_type, override=True):
+        if override or not self.n_out:
+            if isinstance(input_type, InputTypeConvolutional):
+                self.n_out = input_type.channels
+            else:
+                self.n_out = (input_type.size if hasattr(input_type, "size")
+                              else input_type.arity())
+        self._build()
+
+    def jax_param_map(self):
+        if self.lock_gamma_beta or getattr(self, "gamma", None) is None:
+            return {}
+        return {"gamma": self.gamma, "beta": self.beta}
+
+    def state_map(self):
+        if getattr(self, "mean", None) is None:
+            return {}
+        return {"mean": self.mean, "var": self.var}
+
+    @torch.no_grad()
+    def init_weights(self, gen):
+        """gamma/beta from their init values, and a fresh running state
+        (mean 0, var 1), as the JAX `init_params` and `init_state`."""
+        self.mean.zero_()
+        self.var.fill_(1.0)
+        if not self.lock_gamma_beta:
+            self.gamma.fill_(self.gamma_init)
+            self.beta.fill_(self.beta_init)
+
+    def forward(self, x, *, train=False, rng=None, mask=None,
+                new_state=None):
+        dims = tuple(range(x.ndim - 1))
+        if train:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
+                if new_state is not None:
+                    d = self.decay
+                    new_state["mean"] = d * self.mean + (1 - d) * mean
+                    new_state["var"] = d * self.var + (1 - d) * var
+        gamma = beta = None
+        if not self.lock_gamma_beta:
+            gamma = quant.weight(self, "gamma").float()
+            beta = quant.weight(self, "beta").float()
+        # channels to axis 1: NHWC -> channels_last NCHW, [B, T, F] ->
+        # [B, F, T] (views)
+        xc = x.movedim(-1, 1) if x.ndim > 2 else x
+        y = F.batch_norm(xc, None if train else self.mean,
+                         None if train else self.var, gamma, beta,
+                         training=train, eps=float(self.eps))
+        return self.activation(y.movedim(1, -1) if x.ndim > 2 else y)
 
 
 @register_layer

@@ -1,10 +1,10 @@
-"""Global pooling over time (counterpart of
-`deeplearning4j_tpu/nn/layers/pooling.py` :22-90): MAX, AVG, SUM and
-PNORM over the T axis of [B, T, F], aware of the [B, T] padding mask
-(`MaskedReductionUtil` semantics): masked steps are -inf for MAX and
-weigh 0 in the sums, and AVG divides by ``max(sum(mask), 1)``. The mask
-stops here (`forward_mask` is None). Pooling over a CNN's spatial axes
-is a later slice (ROADMAP Queue 1 item 9): a 4-D input is refused.
+"""Global pooling (counterpart of `deeplearning4j_tpu/nn/layers/
+pooling.py` :22-90): MAX, AVG, SUM and PNORM over the T axis of
+[B, T, F], aware of the [B, T] padding mask (`MaskedReductionUtil`
+semantics: masked steps are -inf for MAX and weigh 0 in the sums, and
+AVG divides by ``max(sum(mask), 1)``), or over the spatial axes (1, 2)
+of an NHWC [B, H, W, C] input, unmasked, as in JAX. The mask stops here
+(`forward_mask` is None).
 """
 
 from __future__ import annotations
@@ -45,36 +45,34 @@ class GlobalPoolingLayer(Layer):
             return InputType.feed_forward(input_type.channels)
         return input_type
 
-    def _reduce(self, x, mask=None):
+    def _reduce(self, x, dims, mask=None):
         pt = self.pooling_type
         if mask is not None:
             m = mask[..., None]                           # [B, T, 1]
             if pt == PoolingType.MAX:
                 return torch.where(m > 0, x, torch.full_like(
-                    x, float("-inf"))).amax(dim=1)
+                    x, float("-inf"))).amax(dim=dims)
             if pt == PoolingType.SUM:
-                return (x * m).sum(dim=1)
+                return (x * m).sum(dim=dims)
             if pt == PoolingType.AVG:
-                denom = torch.clamp(m.sum(dim=1), min=1.0)
-                return (x * m).sum(dim=1) / denom
+                denom = torch.clamp(m.sum(dim=dims), min=1.0)
+                return (x * m).sum(dim=dims) / denom
             p = float(self.pnorm)
-            return ((x.abs() * m) ** p).sum(dim=1) ** (1.0 / p)
+            return ((x.abs() * m) ** p).sum(dim=dims) ** (1.0 / p)
         if pt == PoolingType.MAX:
-            return x.amax(dim=1)
+            return x.amax(dim=dims)
         if pt == PoolingType.SUM:
-            return x.sum(dim=1)
+            return x.sum(dim=dims)
         if pt == PoolingType.AVG:
-            return x.mean(dim=1)
+            return x.mean(dim=dims)
         p = float(self.pnorm)
-        return (x.abs() ** p).sum(dim=1) ** (1.0 / p)
+        return (x.abs() ** p).sum(dim=dims) ** (1.0 / p)
 
     def forward(self, x, *, train=False, rng=None, mask=None):
-        if x.ndim == 3:
-            return self._reduce(x, mask)
-        if x.ndim == 4:
-            raise NotImplementedError(
-                "global pooling over a CNN's spatial axes is not ported "
-                "(ROADMAP Queue 1 item 9)")
+        if x.ndim == 3:                 # [B, T, F]: over time
+            return self._reduce(x, 1, mask)
+        if x.ndim == 4:                 # NHWC: over H and W
+            return self._reduce(x, (1, 2))
         raise ValueError(f"GlobalPooling expects 3d or 4d input, got "
                          f"{tuple(x.shape)}")
 

@@ -2,22 +2,26 @@
 written without JAX (counterpart of `deeplearning4j_tpu/util/
 serializer.py:91-199`). The zip holds
 
-- configuration.json  (`MultiLayerConfiguration.to_json(indent=2)`)
-- params.npz          ("<layer>::<param>" keys, JAX names and layouts)
-- state.npz           (non-trained buffers; none of the ported layers
-                       has one, so it is written empty)
-- updater.npz         ("<layer>::<param>__<slot>", e.g. "2::ff_W1__m")
-- meta.json           (format_version, model_type, iteration_count,
-                       epoch_count, and a crc32 per array:
-                       "<section>::<key>" -> `fault/state.checksum_array`)
+- configuration.json  (the `MultiLayerConfiguration` or
+                       `ComputationGraphConfiguration`,
+                       `to_json(indent=2)`)
+- params.npz          ("<key>::<param>" keys, JAX names and layouts; the
+                       key is the layer index or the graph node name)
+- state.npz           (the running state, "<key>::mean"/"<key>::var"
+                       of each BatchNormalization; empty without one)
+- updater.npz         ("<key>::<param>__<slot>", e.g. "2::ff_W1__m")
+- meta.json           (format_version, model_type "MultiLayerNetwork" or
+                       "ComputationGraph", iteration_count, epoch_count,
+                       and a crc32 per array: "<section>::<key>" ->
+                       `fault/state.checksum_array`)
 
-so a zip either package writes restores in the other. Arrays are
-written as `np.savez` stores them: fp32, C order, from the fp32 master
-copy under a mixed policy.
+so a zip either package writes restores in the other, for both
+containers. Arrays are written as `np.savez` stores them: fp32, C
+order, in the JAX layout (a convolution's W as HWIO), from the fp32
+master copy under a mixed policy.
 
 Normalizers in the zip (`add_normalizer_to_model` :202) wait for
-`datasets/normalizers`, and `ComputationGraph` zips for the graph
-container (ROADMAP Queue 1 items 9-10).
+`datasets/normalizers` (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
@@ -37,6 +41,11 @@ from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.fault.errors import CheckpointCorruptError
 from deeplearning4j_tpu_torch.fault.state import checksum_array as _crc
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
+from deeplearning4j_tpu_torch.nn.container import Container
+from deeplearning4j_tpu_torch.nn.graph import (
+    ComputationGraph,
+    ComputationGraphConfiguration,
+)
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 FORMAT_VERSION = 1
@@ -96,6 +105,11 @@ def _unflatten_updater(flat: dict) -> dict:
     return out
 
 
+def _flat(tree: dict, section: str) -> Dict[str, np.ndarray]:
+    return {f"{lk}::{pk}": _host(t, f"{section} {lk}::{pk}")
+            for lk, lv in tree.items() for pk, t in lv.items()}
+
+
 def _check_array(arr: np.ndarray, t: torch.Tensor, what: str):
     if arr.dtype != np.float32 or tuple(arr.shape) != tuple(t.shape):
         raise ValueError(f"{what}: {arr.dtype} {arr.shape} where the "
@@ -104,7 +118,7 @@ def _check_array(arr: np.ndarray, t: torch.Tensor, what: str):
 
 class ModelSerializer:
     @staticmethod
-    def write_model(model: MultiLayerNetwork, path: Union[str, Path],
+    def write_model(model: Container, path: Union[str, Path],
                     save_updater: bool = True):
         """Atomic durable write: the zip is assembled at a same-directory
         tmp path, flushed and fsync'd, then renamed over the target, so a
@@ -112,10 +126,9 @@ class ModelSerializer:
         the tmp file goes whatever happens."""
         path = Path(path)
         path.parent.mkdir(parents=True, exist_ok=True)
-        params_flat = {f"{i}::{pk}": _host(t, f"param {i}::{pk}")
-                       for i, layer in enumerate(model.layers)
-                       for pk, t in layer.jax_param_map().items()}
-        state_flat: Dict[str, np.ndarray] = {}
+        params_flat = _flat({key: layer.jax_param_map()
+                             for key, layer in model.keyed()}, "param")
+        state_flat = _flat(model.net_state, "state")
         upd_flat = (_flatten_updater(model.updater_state) if save_updater
                     else {})
         checksums = {}
@@ -135,7 +148,7 @@ class ModelSerializer:
                         _save_npz(zf, "updater.npz", upd_flat)
                     zf.writestr("meta.json", json.dumps({
                         "format_version": FORMAT_VERSION,
-                        "model_type": "MultiLayerNetwork",
+                        "model_type": type(model).__name__,
                         "iteration_count": model.iteration_count,
                         "epoch_count": model.epoch_count,
                         "array_checksums": checksums,
@@ -149,18 +162,18 @@ class ModelSerializer:
 
     @staticmethod
     def restore_model(path: Union[str, Path], load_updater: bool = True, *,
-                      device="cuda") -> MultiLayerNetwork:
-        """The net of a model zip on `device`. Raises
-        `CheckpointCorruptError` where the JAX package's does (an
-        unreadable or truncated zip, a corrupt deflate stream, a bad
-        configuration, a crc mismatch), `NotImplementedError` for a
-        ComputationGraph zip, and KeyError or ValueError when the arrays
-        do not cover the configuration's params (or a stateful
-        updater's slots) exactly, in shape and in fp32. The net is built
-        and filled on the host after every check, then moved to the
-        device once. The updater state is
-        left fresh when the zip has none: a stateless rule (Sgd, NoOp)
-        writes no arrays, and neither does `save_updater=False`."""
+                      device="cuda") -> Container:
+        """The MultiLayerNetwork or ComputationGraph of a model zip on
+        `device`. Raises `CheckpointCorruptError` where the JAX
+        package's does (an unreadable or truncated zip, a corrupt
+        deflate stream, a bad configuration, a crc mismatch), and
+        KeyError or ValueError when the arrays do not cover the
+        configuration's params, running state (or a stateful updater's
+        slots) exactly, in shape and in fp32. The net is built and
+        filled on the host after every check, then moved to the device
+        once. The updater state is left fresh when the zip has none: a
+        stateless rule (Sgd, NoOp) writes no arrays, and neither does
+        `save_updater=False`."""
         try:
             zf_ctx = zipfile.ZipFile(path, "r")
         except (zipfile.BadZipFile, OSError) as e:
@@ -171,13 +184,11 @@ class ModelSerializer:
                 conf_json = json.loads(zf.read("configuration.json"))
                 meta = (json.loads(zf.read("meta.json"))
                         if "meta.json" in zf.namelist() else {})
-                if (meta.get("model_type") == "ComputationGraph"
-                        or conf_json.get("format", "").endswith(
-                            "ComputationGraphConfiguration")):
-                    raise NotImplementedError(
-                        f"{path}: ComputationGraph zips are not ported yet "
-                        f"(ROADMAP Queue 1 item 9)")
-                conf = MultiLayerConfiguration.from_dict(conf_json)
+                graph = (meta.get("model_type") == "ComputationGraph"
+                         or conf_json.get("format", "").endswith(
+                             "ComputationGraphConfiguration"))
+                conf = (ComputationGraphConfiguration if graph
+                        else MultiLayerConfiguration).from_dict(conf_json)
                 params_flat = _load_npz(zf, "params.npz")
                 state_flat = _load_npz(zf, "state.npz")
                 upd_flat = (_load_npz(zf, "updater.npz") if load_updater
@@ -192,12 +203,13 @@ class ModelSerializer:
         _verify(meta, "params", params_flat, path)
         _verify(meta, "state", state_flat, path)
         _verify(meta, "updater", upd_flat, path)
-        if state_flat:
-            raise KeyError(f"{path}: state arrays {sorted(state_flat)[:5]} "
-                           f"for layers the port has not ported")
         dev = resolve_device(device)
-        model = MultiLayerNetwork(conf, device="cpu")
-        pairs = _param_pairs(model, params_flat, path)
+        model = (ComputationGraph if graph else MultiLayerNetwork)(
+            conf, device="cpu")
+        pairs = _exact_pairs({key: layer.jax_param_map()
+                              for key, layer in model.keyed()},
+                             params_flat, "params", path)
+        pairs += _exact_pairs(model.net_state, state_flat, "state", path)
         if upd_flat:
             pairs += _updater_pairs(model, _unflatten_updater(upd_flat),
                                     path)
@@ -212,19 +224,20 @@ class ModelSerializer:
         return model.to(dev)
 
 
-def _param_pairs(model: MultiLayerNetwork, flat: dict, path):
-    """(key, param, array) for every param of the configuration; the
-    zip's keys must be exactly those."""
-    want = {f"{i}::{pk}": t for i, layer in enumerate(model.layers)
-            for pk, t in layer.jax_param_map().items()}
+def _exact_pairs(tree: dict, flat: dict, section: str, path):
+    """(key, tensor, array) for every tensor of `tree` ({key: {name:
+    tensor}}: the configuration's params or running state); the zip's
+    keys must be exactly those."""
+    want = {f"{lk}::{pk}": t for lk, lv in tree.items()
+            for pk, t in lv.items()}
     if set(want) != set(flat):
         raise KeyError(
-            f"{path}: params {sorted(set(flat) - set(want))} unexpected, "
+            f"{path}: {section} {sorted(set(flat) - set(want))} unexpected, "
             f"{sorted(set(want) - set(flat))} missing")
     return [(k, t, flat[k]) for k, t in want.items()]
 
 
-def _updater_pairs(model: MultiLayerNetwork, src: dict, path):
+def _updater_pairs(model: Container, src: dict, path):
     """(key, state tensor, array) for every slot of every stateful param:
     the zip must carry exactly the rule's slots; stateless params (no
     slots) keep their empty state."""

@@ -45,7 +45,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "util.serializer", "nd.quant", "serving.paged",
                 "common.prng", "kernels.dropout", "optimize.gradients",
                 "optimize.listeners", "eval.evaluation", "eval.roc",
-                "eval.regression", "nn.layers.pooling"):
+                "eval.regression", "nn.layers.pooling", "nn.container",
+                "nn.graph", "nn.conf.graph", "nn.layers.convolution",
+                "nn.layers.normalization", "zoo.base", "zoo.resnet50"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 

@@ -184,8 +184,18 @@ def test_global_pooling_matches_jax(pooling, masked):
 
 
 def test_global_pooling_refuses_cnn_inputs():
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        GlobalPoolingLayer()(torch.zeros(1, 2, 2, 3))
+    """The refusal of NHWC input is lifted: it pools over (H, W) as JAX
+    does, every pooling type; other ranks are still refused."""
+    x = np.random.default_rng(7).standard_normal((2, 3, 4, 5)).astype(
+        np.float32)
+    for pooling in ("max", "avg", "sum", "pnorm"):
+        jp, pp = (JaxPool(pooling_type=pooling, pnorm=3),
+                  GlobalPoolingLayer(pooling_type=pooling, pnorm=3))
+        want, _ = jp.forward({}, {}, jnp.asarray(x))
+        np.testing.assert_allclose(pp(torch.from_numpy(x)).numpy(),
+                                   np.asarray(want), atol=ATOL, rtol=ATOL)
+    with pytest.raises(ValueError, match="3d or 4d"):
+        GlobalPoolingLayer()(torch.zeros(1, 2, 2, 3, 1))
 
 
 # ------------------------------------------------------------ container

@@ -46,7 +46,7 @@ from deeplearning4j_tpu.zoo.transformer import TransformerLM as JaxLM
 from deeplearning4j_tpu_torch import kernels as K
 from deeplearning4j_tpu_torch.common import distributions as pdist
 from deeplearning4j_tpu_torch.common import prng
-from deeplearning4j_tpu_torch.nn import multilayer as pml
+from deeplearning4j_tpu_torch.nn import container as pcontainer
 from deeplearning4j_tpu_torch.nn.conf import constraints as pcons
 from deeplearning4j_tpu_torch.nn.conf import dropout as pdrop
 from deeplearning4j_tpu_torch.nn.conf import weightnoise as pwn
@@ -422,12 +422,12 @@ def test_fused_adam_packs_exactly_where_jax_packs(case, monkeypatch):
     from_jax_params(net, to_numpy_params(jnet.params))
     assert net._packed_runs() == want
     calls = []
-    orig = pml.adam_update_packed
+    orig = pcontainer.adam_update_packed
 
     def spy(updater, ps, *a):
         calls.append(len(ps))
         return orig(updater, ps, *a)
-    monkeypatch.setattr(pml, "adam_update_packed", spy)
+    monkeypatch.setattr(pcontainer, "adam_update_packed", spy)
     x, y = corpus(3, n=B)
     net.fit(x, y, batch_size=B)
     assert calls == [16 * len(run) for run in want]
