@@ -28,10 +28,12 @@ Phases, in order:
      its plain version; both are timed at the LM's run. The threefry
      kernels (`csrc/threefry.cu`) must be bit-equal to their plain
      versions: dropout in fp32 and bf16 at [16, 511, 256] with p = 0.9,
-     at a ragged length and on an offset view, and the raw words against
-     `threefry_bits_plain` (an index range past 2^32 too); dropout is timed
-     beside `F.dropout` (Philox bits: the same work, another draw), the
-     words with no yardstick. LayerNorm also runs at a width
+     at a ragged length and on an offset view, the raw words against
+     `threefry_bits_plain` (an index range past 2^32 too), and the
+     per-row-key words (`threefry_bits_rows`: 8 slots' keys, vocab 512
+     and a ragged 77) against theirs; dropout is timed beside
+     `F.dropout` (Philox bits: the same work, another draw), the words
+     with no yardstick. LayerNorm also runs at a width
      past a warp's registers ([64, 2304]) and at phase 8's decode rows
      ([8, 256]: 8 slots; [32, 256]: 8 slots x a 4-position speculative
      score), timed there too. Phase 6's shapes are checked
@@ -53,8 +55,12 @@ Phases, in order:
   4. serving: a `GenerationServer` (8 slots, block_len 16, pool for 8
      full-budget streams + the garbage block) after `warmup`, 24 greedy
      requests (seeded prompt lengths 16-300, 64 tokens) and 4 sampled
-     ones (temperature 0.8, top_p 0.9); every greedy stream must equal
-     the port's `generate()` on the card;
+     ones (temperature 0.8, top_p 0.9, JAX keys); every greedy stream
+     must equal the port's `generate()` on the card; the sampled streams,
+     and sampled `generate()` of the same prompts, are held by margin to
+     the CPU port's from the same keys (`sampled_margin`: equal, or first
+     apart where the CPU's noisy logits are within eps of a tie, eps the
+     largest log-probability difference card vs CPU), near-ties counted;
   5. training: the same LM (random weights, unscaled head) `fit` with
      Adam(1e-3) on windows of T = 511 from a seeded period-64 token
      cycle, one-hot next-token labels: (a) 3 steps at B=8 on the card
@@ -122,7 +128,9 @@ Phases, in order:
      drafter (half the blocks) on phase 4's prompts, streams against the
      non-speculative engine's, acceptance, tokens per dispatch and tok/s;
      and `spec_sampled` (acceptance, streams in the vocab and of the
-     right length); (4) shared prefixes: a 256-token prefix and 16
+     right length, held by margin to the CPU engine's from the same
+     keys, an acceptance or resample near-tie allowed at the first
+     difference); (4) shared prefixes: a 256-token prefix and 16
      distinct suffixes, registered (streams against private ones, blocks
      saved, forks) and through the radix cache (hits, evictions);
   9. regularized training, each arm beside its twin: (a) phase 3's LM
@@ -166,8 +174,28 @@ Phases, in order:
      `graph_builder`, `score()` and 3 Adam steps against the layer list
      from the same params, fp32 and mixed_bf16, each kernel of GRAPH_
      KERNELS launched from the graph (fused Adam through its packed run);
+     and the mixed step's BatchNorm in JAX's rounding order (bf16
+     elementwise ops) against the parent's `F.batch_norm`, A B B A on one
+     net: ms/step and one profiled step's kernel launches each;
+ 11. recurrent (`phase_recurrent`): `TextGenerationLSTM()` at the JAX
+     benchmark's char-RNN setting (vocab 77, two GravesLSTM(256), TBPTT
+     50; `deeplearning4j_tpu/bench.py:673-697`): (a) `init(seed)` on the
+     card and on the CPU (equal within 1e-6), 3 TBPTT iterations at
+     [4, 100] (two chunks each), fp32, loss and every param card vs CPU
+     within 1e-4, mixed_bf16's first loss within 1e-2 of fp32's, its
+     carries bf16; (b) 20 timed iterations of one repeated [64, 100]
+     batch, fp32 and mixed_bf16: ms/iteration, chars/s, peak memory, the
+     loss falling, and one profiled iteration's device kernel launches,
+     device ms, busy share and device ms by part; (c) the committed
+     char-LM (`init_pretrained(TEXT)`, sha256 checked): `output()` of 16
+     windows of 100 chars of SURVEY.md card vs CPU within 1e-5 with the
+     argmax accuracy equal window by window, `rnn_time_step` one char at
+     a time against `output()` within 1e-5, 200 greedy chars printed;
+     (d) a GravesBidirectionalLSTM -> LastTimeStep -> OutputLayer
+     classifier on padded batches with the features mask (one row all
+     padding) and a SimpleRnn net, 3 steps each card vs CPU within 1e-4;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 10, each > 0), the card's name and power limit, and last
+to 11, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
 TF32 off for matmuls and convolutions (PyTorch lets cuDNN run fp32
@@ -1030,6 +1058,32 @@ def _dropout_checks(device, checks, fails, flush, rnd, small):
                                flush=flush),
                 library_ms=None,
                 bound=bound(4 * n, THREEFRY_OPS * n, "int32"))
+    # per-row keys (the serving sampler's draw: 8 slots, each under its
+    # own request's key), at the smoke LM's vocab and a ragged one
+    keys = prng.fold_in_rows(
+        prng.keys_tensor([prng.key(100 + i) for i in range(8)]),
+        torch.arange(8) * 37).to(device)
+    for case, n in (("main", 512), ("ragged", 77)):
+        w = kd.threefry_bits_rows(keys, n)
+        w0 = kd.threefry_bits_rows_plain(keys, n)
+        err = int((w - w0).abs().max().item())
+        ok = fails.check(bool(torch.equal(w, w0)) and w.shape == (8, n),
+                         f"threefry_rows {case} [8, {n}]: max abs "
+                         f"difference {err}")
+        checks.append(dict(kernel="threefry_rows", case=case,
+                           dtype="uint32", shape=[8, n], max_abs_err=err,
+                           tol=0, ok=ok))
+        if case == "main":
+            timings[("threefry_rows", "float32")] = dict(
+                shape=[8, n], max_abs_err=err,
+                ms=timer(device, lambda: kd.threefry_bits_rows(keys, n),
+                         flush=flush),
+                plain_ms=timer(device, lambda: kd.threefry_bits_rows_plain(
+                    keys, n), flush=flush),
+                library_ms=None,
+                # the [8, 2] keys read, the words written once
+                bound=bound(8 * 8 + 4 * 8 * n, THREEFRY_OPS * 8 * n,
+                            "int32"))
     return timings
 
 
@@ -1058,6 +1112,115 @@ def phase_scoring(device, report, fails, cfg, B, T):
     print(f"[scoring] output() [{B}, {T}] on {device}: {ms:.3f} ms, "
           f"max_abs_err vs CPU {err:.3g}, launches {launches}", flush=True)
     return net, launches
+
+
+# -------------------------------------- sampled streams, card against CPU
+SAMPLED_NOISE_ATOL = 1e-5    # the Gumbel noise, card's logs against CPU's
+
+
+def cpu_twin(net):
+    """A copy of `net` (params, state, configuration) on the CPU."""
+    import copy
+    return copy.deepcopy(net).to("cpu")
+
+
+def engine_streams(net, reqs, n_tok, **engine_kw):
+    """Token lists of `reqs` ([(prompt, {temperature, top_p, rng})]) from
+    one PagedDecodeEngine of `engine_kw` on net's device, all admitted at
+    once and stepped with its default dispatch (a request's sampled
+    stream does not depend on the rest)."""
+    from deeplearning4j_tpu_torch.serving import PagedDecodeEngine
+    max_len = net.layers[1].max_len
+    eng = PagedDecodeEngine(net, n_slots=len(reqs), block_len=16,
+                            n_blocks=len(reqs) * (max_len // 16) + 1,
+                            device=net.device, **engine_kw)
+    admitted = eng.admit_many([dict(prompt_ids=p, n_tokens=n_tok, **a)
+                               for p, a in reqs])
+    out = {s: [int(f)] for s, f, _ in admitted}
+    while eng.active.any():
+        for s, toks in eng.step()[0].items():
+            out[s].extend(int(t) for t in toks)
+    return [out[s] for s, _, _ in admitted]
+
+
+def engine_noise(key, n, V):
+    """[n, V]: token t's Gumbel noise under `fold_in(key, t)`, the
+    engine's draw (on the CPU)."""
+    import torch
+    from deeplearning4j_tpu_torch.common import prng
+    from deeplearning4j_tpu_torch.zoo.transformer import request_key
+    kt = prng.keys_tensor([request_key(key)] * n)
+    return prng.gumbel_rows(prng.fold_in_rows(kt, torch.arange(n)), V)
+
+
+def generate_noise(key, n, V, B=1, row=0):
+    """[n, V]: row `row` of generate()'s [B, V] draw at each step (the
+    key split once a step)."""
+    import torch
+    from deeplearning4j_tpu_torch.common import prng
+    from deeplearning4j_tpu_torch.zoo.transformer import request_key
+    k, rows = request_key(key), []
+    for _ in range(n):
+        k, sub = prng.split(k)
+        rows.append(prng.gumbel(sub, (B, V))[row])
+    return torch.stack(rows)
+
+
+def _spec_near(key, t, logits_t, tokens, eps):
+    """A speculative token t decided at a near-tie: its acceptance
+    uniform (fold 1 of `fold_in(key, t)`) within eps of q_t(x) for x one
+    of the two streams' tokens (a flipped acceptance emits the draft on
+    one side), or its resample's noisy logits (fold 2) within eps of a
+    tie."""
+    import torch
+    from deeplearning4j_tpu_torch.common import prng
+    from deeplearning4j_tpu_torch.zoo.transformer import request_key
+    kt = prng.fold_in(request_key(key), t)
+    u = float(prng.uniform(prng.fold_in(kt, 1), ()))
+    q = torch.softmax(torch.as_tensor(logits_t), -1).numpy()
+    if any(abs(u - q[x]) <= eps for x in tokens):
+        return True
+    z = np.sort(logits_t + prng.gumbel(prng.fold_in(kt, 2),
+                                       (len(logits_t),)).numpy())
+    return bool(z[-1] - z[-2] <= eps)
+
+
+def sampled_margin(cpu_net, card_net, prompts, ref, got, noise_of, temp,
+                   top_p=None, spec_keys=None):
+    """Sampled streams by margin (`zoo.transformer.stream_agreement` on
+    noisy logits): `ref` the CPU port's streams, `got` the card's, from
+    the same keys. Token t's noisy logits are the CPU's
+    `filter_logits(log(p_t) / temp, top_p)` (teacher-forced) plus its
+    noise (`noise_of(i, n)`); a stream may first differ only where their
+    top-1/top-2 gap is within eps, the largest |log p| difference
+    between the card's and the CPU's teacher-forced probabilities over
+    temp, plus SAMPLED_NOISE_ATOL (speculative streams: also at
+    `_spec_near`). Returns (indices that disagree, near-ties, eps)."""
+    import torch
+    from deeplearning4j_tpu_torch.zoo.transformer import (
+        filter_logits, stream_agreement)
+    bad, ties, eps_max = [], 0, 0.0
+    for i, (p, r, g) in enumerate(zip(prompts, ref, got)):
+        lc = np.log(np.clip(tf(cpu_net, p, r), 1e-9, None))
+        lg = np.log(np.clip(tf(card_net, p, r), 1e-9, None))
+        eps = float(np.abs(lc - lg).max()) / temp + SAMPLED_NOISE_ATOL
+        eps_max = max(eps_max, eps)
+        logits = torch.as_tensor(lc / temp, dtype=torch.float32)
+        if top_p is not None:
+            logits = filter_logits(logits, None,
+                                   torch.full((len(lc), 1), float(top_p)))
+        logits = logits.numpy()
+        z = logits + noise_of(i, len(r)).numpy()
+        rep = stream_agreement(r, g, z, eps)
+        ties += rep["near_ties"]
+        ok = rep["ok"]
+        if (not ok and spec_keys is not None and len(g) == len(r)
+                and rep["first_diff"] is not None):
+            t = rep["first_diff"]
+            ok = _spec_near(spec_keys[i], t, logits[t], (r[t], g[t]), eps)
+        if not ok:
+            bad.append(i)
+    return bad, ties, eps_max
 
 
 # ------------------------------------------------------- phase 4: serving
@@ -1105,13 +1268,35 @@ def phase_serving(device, report, fails, net, n_greedy, n_sampled, n_tok,
             mismatched.append(i)
     sampled_ok = all(len(r) == n_tok and ((r >= 0) & (r < V)).all()
                      for r in results[n_greedy:])
-    sampled_match = sum(
-        np.array_equal(results[n_greedy + i], generate(
-            net, prompts[n_greedy + i][None], n_tok, temperature=0.8,
-            top_p=0.9, rng=100 + i)[0]) for i in range(n_sampled))
+    # sampled: the engine's and generate()'s streams against the CPU
+    # port's from the same keys, by margin
+    cpu = cpu_twin(net)
+    s_prompts = prompts[n_greedy:]
+    s_reqs = [(p, dict(temperature=0.8, top_p=0.9, rng=100 + i))
+              for i, p in enumerate(s_prompts)]
+    cpu_streams = engine_streams(cpu, s_reqs, n_tok)
+    bad_eng, ties_eng, eps_eng = sampled_margin(
+        cpu, net, s_prompts, cpu_streams,
+        [r.tolist() for r in results[n_greedy:]],
+        lambda i, n: engine_noise(100 + i, n, V), 0.8, 0.9)
+    gen_card = [generate(net, p[None], n_tok, temperature=0.8, top_p=0.9,
+                         rng=200 + i)[0].tolist()
+                for i, p in enumerate(s_prompts)]
+    gen_cpu = [generate(cpu, p[None], n_tok, temperature=0.8, top_p=0.9,
+                        rng=200 + i)[0].tolist()
+               for i, p in enumerate(s_prompts)]
+    bad_gen, ties_gen, eps_gen = sampled_margin(
+        cpu, net, s_prompts, gen_cpu, gen_card,
+        lambda i, n: generate_noise(200 + i, n, V), 0.8, 0.9)
+    sampled_match = sum(np.array_equal(a, b) for a, b in zip(
+        cpu_streams, results[n_greedy:]))
     fails.check(not mismatched,
                 f"greedy streams differ from generate(): {mismatched}")
     fails.check(sampled_ok, "sampled streams out of vocab or wrong length")
+    fails.check(not bad_eng, f"sampled engine streams card vs CPU apart "
+                f"beyond a near-tie: {bad_eng} (eps {eps_eng})")
+    fails.check(not bad_gen, f"sampled generate() card vs CPU apart "
+                f"beyond a near-tie: {bad_gen} (eps {eps_gen})")
     fails.check(all(len(r) == n_tok for r in results[:n_greedy]),
                 "greedy stream lengths")
     report["serving"] = dict(
@@ -1120,13 +1305,17 @@ def phase_serving(device, report, fails, net, n_greedy, n_sampled, n_tok,
         warmup_s=warm_s, wall_s=wall, tokens=n_total,
         tokens_per_s=n_total / wall, ttft_ms_p50=float(np.median(ttft)),
         ttft_ms_max=float(ttft[-1]), greedy_mismatched=mismatched,
-        sampled_equal_to_generate=int(sampled_match), launches=launches,
-        preempted=srv.engine.evict_requeue_total)
+        sampled_equal_to_cpu=int(sampled_match),
+        sampled_near_ties=dict(engine=int(ties_eng), generate=int(ties_gen)),
+        sampled_eps=dict(engine=eps_eng, generate=eps_gen),
+        launches=launches, preempted=srv.engine.evict_requeue_total)
     print(f"[serving] {len(streams)} requests x {n_tok} tokens on {device}: "
           f"{n_total / wall:.1f} tok/s, TTFT p50 {np.median(ttft):.1f} ms "
           f"max {ttft[-1]:.1f} ms (this card's own numbers), greedy "
-          f"mismatches {mismatched}, sampled == generate() "
-          f"{sampled_match}/{n_sampled}, launches {launches}", flush=True)
+          f"mismatches {mismatched}, sampled streams equal to the CPU "
+          f"port's {sampled_match}/{n_sampled} (near-ties: engine "
+          f"{ties_eng}, generate {ties_gen}), launches {launches}",
+          flush=True)
     return launches
 
 
@@ -2040,6 +2229,18 @@ def phase_serving_features(device, report, fails, cfg, small=False):
                     for t in got),
                 "serving_features spec_sampled: streams out of vocab or of "
                 "the wrong length")
+    cpu = cpu_twin(net)
+    cpu_got = engine_streams(cpu, sampled, n_tok, speculative=SPEC_K,
+                             spec_sampled=True)
+    s_prompts = [p for p, _ in sampled]
+    keys = [a["rng"] for _, a in sampled]
+    bad, ties, eps_s = sampled_margin(
+        cpu, net, s_prompts, cpu_got, got,
+        lambda i, n: engine_noise(keys[i], n, V), 0.8, 0.9, spec_keys=keys)
+    fails.check(not bad, f"serving_features spec_sampled card vs CPU apart "
+                f"beyond a near-tie: {bad} (eps {eps_s})")
+    row.update(card_vs_cpu_apart=bad, near_ties=ties, eps=eps_s,
+               equal_to_cpu=sum(a == b for a, b in zip(got, cpu_got)))
     row.update(accept_rate=(eng.spec_accepted_total
                             / max(1, eng.spec_proposed_total)),
                proposed=eng.spec_proposed_total,
@@ -2586,7 +2787,8 @@ def resnet_images(n: int, size: int, classes: int, seed: int):
 
 def build_resnet(device, size, classes, dtype_policy=None):
     """The zoo ResNet-50 with every layer's updater Nesterovs(RESNET_LR,
-    0.9), weights drawn from the zoo's seed (the same on any device)."""
+    0.9), JAX's weights for the zoo's seed (drawn on the device: card
+    and CPU agree to erfinv's last place)."""
     from deeplearning4j_tpu_torch.common.updaters import Nesterovs
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.zoo import ResNet50
@@ -2736,6 +2938,59 @@ def _resnet_timed(device, size, classes, B, steps, warmup, policy=None):
                 losses=losses, loss_first=losses[0], loss_last=losses[-1],
                 output_ms=out_ms, output_images_per_s=B / out_ms * 1e3,
                 launches=launches)
+
+
+def _mixed_bn_ab(device, size, classes, B, steps, warmup):
+    """The mixed_bf16 ResNet-50 step with BatchNormalization in JAX's
+    rounding order (this port's form: bf16 elementwise ops in PyTorch)
+    against the parent's form (`F.batch_norm` reading bf16, fp32 inside),
+    A, B, B, A on one net in one process: each arm's ms/step over
+    `steps` timed steps after `warmup`, and one profiled step's device
+    kernel launches and device ms."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.layers.normalization import (
+        BatchNormalization as BN)
+    jax_order = BN._normalize_rounded
+
+    def library(self, x, train, gamma, beta, dims, stats=None):
+        return self._normalize_library(x, train, gamma, beta)
+    arms = {"jax_order": jax_order, "library": library}
+    net = build_resnet(device, size, classes, dtype_policy=MIXED)
+    x, y = resnet_images(B, size, classes, seed=23)
+    ds = DataSet(torch.from_numpy(x).to(device),
+                 torch.from_numpy(y).to(device))
+    on_card = device.type == "cuda"
+    ms = {k: [] for k in arms}
+    prof = {}
+    try:
+        for name in ("jax_order", "library", "library", "jax_order"):
+            BN._normalize_rounded = arms[name]
+            for _ in range(warmup):
+                net.fit(ds, batch_size=B)
+            if on_card:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(steps):
+                net.fit(ds, batch_size=B)
+            if on_card:
+                torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) / steps * 1e3)
+            if on_card and name not in prof:
+                p = _profiled(lambda: net.fit(ds, batch_size=B))
+                prof[name] = dict(launches=p["launches"],
+                                  device_ms=p["device_ms"],
+                                  batchnorm_ms=p["groups_ms"].get(
+                                      "batchnorm", 0.0),
+                                  other_ms=p["groups_ms"].get("other", 0.0))
+    finally:
+        BN._normalize_rounded = jax_order
+    del net
+    return dict(B=B, steps=steps, warmup=warmup, order="A B B A",
+                ms_per_step={k: v for k, v in ms.items()},
+                ms_per_step_mean={k: float(np.mean(v))
+                                  for k, v in ms.items()},
+                profiled=prof)
 
 
 def _graph_fixture(device, fails, tmp):
@@ -2926,6 +3181,14 @@ def phase_resnet(device, report, fails, small=False):
                 f"{f['loss_last']}: gap {gap} over {MIXED_BAND} x the fp32 "
                 f"initial loss {f['loss_first']}")
     out["mixed_step0_rel"], out["mixed_final_gap"] = step0, gap
+    out["mixed_bn_ab"] = ab = _mixed_bn_ab(
+        device, size, classes, c["B"], max(1, c["steps"] // 2),
+        c["warmup"])
+    print(f"[resnet] mixed BatchNorm A/B ({ab['order']}, {ab['steps']} "
+          f"steps an arm at batch {ab['B']}): JAX's rounding order "
+          f"{ab['ms_per_step']['jax_order']} ms/step, the parent's "
+          f"F.batch_norm {ab['ms_per_step']['library']} ms/step; one "
+          f"profiled step: {ab['profiled']}", flush=True)
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
         K.reset_launches()
@@ -2971,6 +3234,370 @@ def phase_resnet(device, report, fails, small=False):
               f"runs {r['packed_runs']}; launches {r['launches']}",
               flush=True)
     print(f"[resnet] phase seconds {out['seconds']:.1f}", flush=True)
+    return total
+
+
+# ------------------------------------------------- phase 11: recurrent
+# the char-RNN of the JAX benchmark's configuration 2 (bench.py:673-697:
+# TextGenerationLSTM, vocab 77, two GravesLSTM(256), TBPTT 50, T 100)
+CHAR = dict(B_check=4, T=100, n_check=3, B=64, iters=20, warmup=2)
+CHAR_SMALL = dict(B_check=2, T=20, n_check=2, B=4, iters=3, warmup=1,
+                  hidden=16, tbptt=10)
+CHAR_TOL = 1e-4          # card vs CPU, fp32: loss and params (TF32 off)
+# RmsProp divides each gradient by its own running RMS, so a leaf whose
+# gradient is small (the peepholes) moves by about lr whatever rounding
+# made it: the CPU against itself with 1e-7 relative noise on the
+# weights moves 1_pF by 2.6e-4 after 3 iterations (CPU, H 256). The
+# zoo's RmsProp arm holds its params to CHAR_NOISE_FACTOR times the
+# CPU's distance to a twin with CHAR_NOISE on its initial weights (or
+# CHAR_TOL, the larger); an Sgd twin holds every param to CHAR_TOL.
+CHAR_NOISE, CHAR_NOISE_FACTOR, CHAR_SGD_LR = 1e-6, 3.0, 0.1
+CHAR_LM_ATOL = 1e-5      # the committed char-LM: card vs CPU, stream
+N_WINDOWS, N_GREEDY = 16, 200
+SURVEY = os.path.join(HERE, "SURVEY.md")
+
+
+def char_ids(n_chars: int, offset: int = 0):
+    """`n_chars` ids of SURVEY.md (a fixed text of the repo) under the
+    committed char-LM's charset (the unknown slot for the rest)."""
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    charset = TextGenerationLSTM.pretrained_charset()
+    with open(SURVEY, errors="ignore") as f:
+        text = f.read()[offset:offset + n_chars]
+    idx = {c: i for i, c in enumerate(charset)}
+    return np.asarray([idx.get(c, len(charset)) for c in text], np.int64)
+
+
+def char_windows(B: int, T: int, offset: int = 0):
+    """B windows of T one-hot chars and their next-char one-hot labels."""
+    ids = char_ids(B * T + 1, offset)
+    eye = np.eye(77, dtype=np.float32)
+    return eye[ids[:-1].reshape(B, T)], eye[ids[1:].reshape(B, T)]
+
+
+def _fit_losses(net, X, Y, B):
+    losses = []
+    for i in range(0, len(X), B):
+        net.fit(X[i:i + B], Y[i:i + B], batch_size=B, shuffle=False)
+        losses.append(net.score_value)
+    return losses
+
+
+def _params_rel_by_leaf(a, b):
+    """{"<key>_<param>": relative Frobenius difference} of two nets."""
+    pb = dict(b.param_table())
+    out = {}
+    for k, t in a.param_table().items():
+        w = pb[k].detach().cpu().double()
+        out[k] = float((t.detach().cpu().double() - w).norm()
+                       / w.norm().clamp_min(1e-30))
+    return out
+
+
+def _params_rel(a, b):
+    """The worst relative Frobenius difference between two nets' params,
+    as (rel, "<key>_<param>")."""
+    k, v = max(_params_rel_by_leaf(a, b).items(), key=lambda kv: kv[1])
+    return v, k
+
+
+def _char_card_vs_cpu(device, fails, c, small):
+    """(a) TextGenerationLSTM from `init(seed)` on the card and on the
+    CPU (the inits within 1e-6), then `n_check` TBPTT iterations at
+    [B_check, T] (two chunks each), fp32: under the zoo's RmsProp every
+    loss within CHAR_TOL and each param within the larger of CHAR_TOL and
+    CHAR_NOISE_FACTOR x the CPU's distance to its noisy twin; with
+    Sgd(CHAR_SGD_LR) on every layer, every loss and every param within
+    CHAR_TOL. mixed_bf16: bf16 carries, the first loss within
+    MIXED_STEP0_RTOL of the fp32 one."""
+    import torch
+    from deeplearning4j_tpu_torch.common.updaters import Sgd
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    kw = dict(hidden=c["hidden"], tbptt_length=c["tbptt"]) if small else {}
+    X, Y = char_windows(c["B_check"] * c["n_check"], c["T"])
+    out = {}
+
+    def pair(sgd):
+        nets = [TextGenerationLSTM(**kw).init(device=d)
+                for d in (device, "cpu", "cpu")]
+        if sgd:
+            for net in nets:
+                for layer in net.layers:
+                    layer.updater = Sgd(CHAR_SGD_LR)
+        with torch.no_grad():
+            g = torch.Generator().manual_seed(5)
+            for t in nets[2].parameters():
+                t.mul_(1 + CHAR_NOISE * torch.randn(t.shape, generator=g))
+        return nets
+    card, cpu, noisy = pair(False)
+    init_rel = _params_rel(card, cpu)
+    fails.check(init_rel[0] <= 1e-6, f"recurrent init(seed) card vs CPU: "
+                f"{init_rel[0]} at {init_rel[1]}")
+    arms = {}
+    for arm, nets in (("rmsprop", (card, cpu, noisy)),
+                      ("sgd", pair(True)[:2])):
+        ls = [_fit_losses(n, X, Y, c["B_check"]) for n in nets]
+        loss_err = max(abs(a - b) / abs(b) for a, b in zip(ls[0], ls[1]))
+        fails.check(loss_err <= CHAR_TOL and all(np.isfinite(ls[0])),
+                    f"recurrent {arm} TBPTT loss card vs CPU rel {loss_err}"
+                    f" (tol {CHAR_TOL}): {ls[0]} vs {ls[1]}")
+        d = _params_rel_by_leaf(nets[0], nets[1])
+        if arm == "rmsprop":
+            twin = _params_rel_by_leaf(nets[2], nets[1])
+            tol = {k: max(CHAR_TOL, CHAR_NOISE_FACTOR * twin[k]) for k in d}
+        else:
+            twin, tol = None, {k: CHAR_TOL for k in d}
+        bad = {k: (d[k], tol[k]) for k in d if d[k] > tol[k]}
+        fails.check(not bad, f"recurrent {arm} TBPTT params card vs CPU "
+                    f"over tolerance: {bad}")
+        worst = max(d.items(), key=lambda kv: kv[1])
+        arms[arm] = dict(loss_card=ls[0], loss_cpu=ls[1],
+                         loss_max_rel_err=loss_err, param_rel=d,
+                         param_worst=worst, twin_rel=twin)
+    mixed = TextGenerationLSTM(**kw).init(device=device, dtype_policy=MIXED)
+    carry = mixed.init_carries(2)
+    fails.check(all(t.dtype == mixed.dtype.compute_dtype
+                    for ca in carry.values() for t in ca),
+                f"recurrent mixed carries not bf16: "
+                f"{[t.dtype for ca in carry.values() for t in ca]}")
+    l0 = arms["rmsprop"]["loss_card"][0]
+    l_mixed = _fit_losses(mixed, X[:c["B_check"]], Y[:c["B_check"]],
+                          c["B_check"])
+    step0 = abs(l_mixed[0] - l0) / abs(l0)
+    fails.check(step0 <= MIXED_STEP0_RTOL, f"recurrent mixed_bf16 step 0 "
+                f"{l_mixed[0]} vs fp32 {l0}: rel {step0}")
+    out.update(init_max_rel=init_rel[0], arms=arms, mixed_step0=l_mixed[0],
+               mixed_step0_rel=step0, B=c["B_check"], T=c["T"],
+               iterations=c["n_check"])
+    return out
+
+
+def _char_timed(device, fails, c, policy, small):
+    """(b) `iters` TBPTT iterations of one repeated [B, T] batch after
+    `warmup`: ms/iteration, chars/s, peak memory, the losses, the port's
+    kernel launches, and one profiled iteration's device kernel launches
+    (the plain per-step loop's cost) and busy share."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    kw = dict(hidden=c["hidden"], tbptt_length=c["tbptt"]) if small else {}
+    net = TextGenerationLSTM(**kw).init(device=device, dtype_policy=policy)
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    X, Y = char_windows(c["B"], c["T"], offset=7)
+    ds = DataSet(torch.from_numpy(X).to(device), torch.from_numpy(Y).to(device))
+    losses = []
+    for _ in range(c["warmup"]):
+        net.fit(ds, batch_size=c["B"])
+        losses.append(net.score_value)
+    on_card = device.type == "cuda"
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for _ in range(c["iters"]):
+        net.fit(ds, batch_size=c["B"])
+        losses.append(net.score_value)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    prof = (_profiled(lambda: net.fit(ds, batch_size=c["B"]))
+            if on_card else None)
+    _falls(fails, f"recurrent {policy or 'float32'} timed", losses)
+    return dict(B=c["B"], T=c["T"], iters=c["iters"], warmup=c["warmup"],
+                ms_per_iter=wall / c["iters"] * 1e3,
+                chars_per_s=c["B"] * c["T"] * c["iters"] / wall,
+                peak_mem_gb=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if on_card else None),
+                losses=losses, loss_first=losses[0], loss_last=losses[-1],
+                launches=launches,
+                device_launches_per_iter=None if prof is None
+                else prof["launches"],
+                device_ms_per_iter=None if prof is None
+                else prof["device_ms"],
+                busy_share=None if prof is None else prof["busy_share"],
+                device_ms_by_part=None if prof is None
+                else prof["groups_ms"])
+
+
+def _char_lm(device, fails, small):
+    """(c) The committed char-LM: `init_pretrained(TEXT)` (sha256 checked)
+    on the card and on the CPU, `output()` of N_WINDOWS held-out windows
+    of 100 chars card vs CPU within CHAR_LM_ATOL with the argmax accuracy
+    equal window by window, `rnn_time_step` one char at a time over one
+    window against `output()`, and N_GREEDY greedy chars from a fixed
+    prompt (printed)."""
+    import torch
+    from deeplearning4j_tpu_torch.zoo import (
+        PretrainedType, TextGenerationLSTM)
+    model = TextGenerationLSTM()
+    t0 = time.perf_counter()
+    card = model.init_pretrained(PretrainedType.TEXT, device=device)
+    restore_s = time.perf_counter() - t0
+    cpu = model.init_pretrained(PretrainedType.TEXT, device="cpu")
+    n_win = 2 if small else N_WINDOWS
+    X, Y = char_windows(n_win, 100, offset=20000)
+    got = card.output(X).cpu().numpy()
+    want = cpu.output(X).numpy()
+    err = float(np.abs(got - want).max())
+    labels = Y.argmax(-1)
+    acc_card = (got.argmax(-1) == labels).mean(axis=1)
+    acc_cpu = (want.argmax(-1) == labels).mean(axis=1)
+    fails.check(err <= CHAR_LM_ATOL, f"char-LM output() card vs CPU "
+                f"{err} (tol {CHAR_LM_ATOL})")
+    fails.check(np.array_equal(acc_card, acc_cpu), f"char-LM accuracy per "
+                f"window card {acc_card} vs CPU {acc_cpu}")
+    card.rnn_clear_previous_state()
+    steps = torch.stack([card.rnn_time_step(X[:1, t]) for t in range(100)],
+                        dim=1).cpu().numpy()
+    stream_err = float(np.abs(steps - got[:1]).max())
+    fails.check(stream_err <= CHAR_LM_ATOL, f"char-LM rnn_time_step vs "
+                f"output() {stream_err} (tol {CHAR_LM_ATOL})")
+    charset = TextGenerationLSTM.pretrained_charset()
+    prompt = char_ids(40, offset=1000)
+    card.rnn_clear_previous_state()
+    eye = np.eye(77, dtype=np.float32)
+    probs = card.rnn_time_step(eye[prompt][None])[:, -1]
+    chars = []
+    for _ in range(20 if small else N_GREEDY):
+        nxt = int(probs.argmax(-1)[0])
+        chars.append(charset[nxt] if nxt < len(charset) else "?")
+        probs = card.rnn_time_step(eye[[nxt]])
+    text = "".join(chars)
+    print(f"[recurrent] (c) greedy from {''.join(charset[i] if i < len(charset) else '?' for i in prompt)!r}: {text!r}",
+          flush=True)
+    return dict(restore_s=restore_s, windows=n_win, max_abs_err=err,
+                accuracy_card=float(acc_card.mean()),
+                accuracy_cpu=float(acc_cpu.mean()),
+                stream_vs_output_max_abs_err=stream_err, greedy=text)
+
+
+def _small_recurrent_nets(device):
+    """(d) A GravesBidirectionalLSTM -> LastTimeStep -> OutputLayer
+    classifier and a SimpleRnn -> RnnOutputLayer net, small widths, from
+    one seed."""
+    from deeplearning4j_tpu_torch.common.updaters import RmsProp
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        GravesBidirectionalLSTM, LastTimeStep, OutputLayer, RnnOutputLayer,
+        SimpleRnn)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+
+    def base():
+        return (NeuralNetConfiguration.builder().seed(9)
+                .updater(RmsProp(1e-2)).list())
+    cls = (base().layer(GravesBidirectionalLSTM(n_out=32))
+           .layer(LastTimeStep()).layer(OutputLayer(n_out=5,
+                                                    activation="softmax"))
+           .set_input_type(InputType.recurrent(12)).build())
+    rnn = (base().layer(SimpleRnn(n_out=32))
+           .layer(RnnOutputLayer(n_out=12, activation="softmax"))
+           .set_input_type(InputType.recurrent(12)).build())
+    return (MultiLayerNetwork(cls, device=device).init(),
+            MultiLayerNetwork(rnn, device=device).init())
+
+
+def _small_recurrent_card_vs_cpu(device, fails):
+    """(d) Both small nets, 3 steps card against CPU within CHAR_TOL: the
+    classifier on padded batches (seeded lengths, one row all padding)
+    with the features mask, the SimpleRnn on dense sequences."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    rng = np.random.default_rng(31)
+    B, T = 8, 30
+    x = rng.standard_normal((3 * B, T, 12)).astype(np.float32)
+    lens = rng.integers(1, T + 1, 3 * B)
+    lens[1] = 0
+    mask = (np.arange(T)[None] < lens[:, None]).astype(np.float32)
+    y_cls = np.eye(5, dtype=np.float32)[rng.integers(0, 5, 3 * B)]
+    y_seq = np.eye(12, dtype=np.float32)[rng.integers(0, 12, (3 * B, T))]
+    out = {}
+    for name, which, y, m in (("bidirectional_last_step", 0, y_cls, mask),
+                              ("simple_rnn", 1, y_seq, None)):
+        nets = [_small_recurrent_nets(d)[which] for d in (device, "cpu")]
+        losses = []
+        for net in nets:
+            ls = []
+            for i in range(0, 3 * B, B):
+                net.fit(DataSet(x[i:i + B], y[i:i + B],
+                                None if m is None else m[i:i + B]))
+                ls.append(net.score_value)
+            losses.append(ls)
+        err = max(abs(a - b) / abs(b) for a, b in zip(*losses))
+        worst = _params_rel(*nets)
+        fails.check(err <= CHAR_TOL and worst[0] <= CHAR_TOL,
+                    f"recurrent (d) {name} card vs CPU: loss rel {err}, "
+                    f"params {worst[0]} at {worst[1]} (tol {CHAR_TOL})")
+        out[name] = dict(loss_card=losses[0], loss_cpu=losses[1],
+                         loss_max_rel_err=err, param_worst_rel=worst[0])
+    return out
+
+
+def phase_recurrent(device, report, fails, small=False):
+    """Phase 11 on `device`: (a) TextGenerationLSTM card against CPU from
+    `init(seed)`, (b) timed TBPTT fp32 and mixed_bf16, (c) the committed
+    char-LM, (d) the bidirectional classifier with masks and a SimpleRnn
+    net. Returns the port's kernel launches of (b)-(d) (the LSTM path
+    runs no kernel of its own; init draws its words with threefry_bits),
+    counted from zero just before each."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    c = CHAR_SMALL if small else CHAR
+    total = {k: 0 for k in KERNEL_META}
+    out = {}
+    t0 = time.perf_counter()
+    out["check"] = _char_card_vs_cpu(device, fails, c, small)
+    for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
+        K.reset_launches()
+        out[tag] = _char_timed(device, fails, c, policy, small)
+        for k in total:
+            total[k] += K.LAUNCHES.get(k, 0)
+    f, m = out["float32"], out["mixed_bf16"]
+    K.reset_launches()
+    out["char_lm"] = _char_lm(device, fails, small)
+    out["small_nets"] = _small_recurrent_card_vs_cpu(device, fails)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    for k in total:
+        total[k] += K.LAUNCHES.get(k, 0)
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t0
+    report["recurrent"] = out
+    a = out["check"]
+    for arm, r in a["arms"].items():
+        twin = ("" if r["twin_rel"] is None else
+                f", the CPU's noisy twin there "
+                f"{r['twin_rel'][r['param_worst'][0]]:.3g}")
+        print(f"[recurrent] (a) {arm}: card vs CPU {a['iterations']} TBPTT "
+              f"iterations at [{a['B']}, {a['T']}]: init max rel "
+              f"{a['init_max_rel']:.3g}, loss rel "
+              f"{r['loss_max_rel_err']:.3g}, params worst "
+              f"{r['param_worst'][1]:.3g} ({r['param_worst'][0]}){twin}",
+              flush=True)
+    print(f"[recurrent] (a) mixed step 0 rel {a['mixed_step0_rel']:.3g}",
+          flush=True)
+    for tag, r in (("float32", f), ("mixed_bf16", m)):
+        print(f"[recurrent] (b) {tag} [{r['B']}, {r['T']}] {r['iters']} "
+              f"iterations: {r['ms_per_iter']:.2f} ms/iteration, "
+              f"{r['chars_per_s']:.1f} chars/s, peak {r['peak_mem_gb']} GB, "
+              f"loss {r['loss_first']:.4f} -> {r['loss_last']:.4f}, device "
+              f"launches/iteration {r['device_launches_per_iter']}, device "
+              f"ms/iteration {r['device_ms_per_iter']}, busy "
+              f"{r['busy_share']}, by part {r['device_ms_by_part']}",
+              flush=True)
+    lm = out["char_lm"]
+    print(f"[recurrent] (c) char-LM restore {lm['restore_s']:.2f} s, "
+          f"output() of {lm['windows']} windows card vs CPU "
+          f"{lm['max_abs_err']:.3g}, accuracy {lm['accuracy_card']:.4f} "
+          f"(CPU {lm['accuracy_cpu']:.4f}), rnn_time_step vs output() "
+          f"{lm['stream_vs_output_max_abs_err']:.3g}", flush=True)
+    for name, r in out["small_nets"].items():
+        print(f"[recurrent] (d) {name}: loss rel {r['loss_max_rel_err']:.3g}"
+              f", params {r['param_worst_rel']:.3g}", flush=True)
+    print(f"[recurrent] launches {total}; phase seconds "
+          f"{out['seconds']:.1f}", flush=True)
     return total
 
 
@@ -3092,7 +3719,9 @@ def profile_paths(device):
     `fit` step at [8, 2048] through the 4-way ring and (6) locally,
     and (7) `restore_model` of the LM's zip followed by one `fit` step
     at [8, 511], and (8) one ResNet-50 `fit` step at phase 10's batch
-    128 of 224x224 images, fp32 and mixed_bf16. Per path: host wall ms,
+    128 of 224x224 images, fp32 and mixed_bf16, and (9) one char-RNN
+    TBPTT iteration at phase 11's [64, 100], fp32 and mixed_bf16. Per
+    path: host wall ms,
     summed device ms of the kernels seen (one stream, so kernels do not
     overlap), busy share = device / wall, launches, device ms by part
     (`_kernel_group`), and the kernels with the most device time."""
@@ -3196,6 +3825,19 @@ def profile_paths(device):
         out[f"resnet50_step_{c['B']}x{c['size']}{tag}"] = _profiled(
             lambda: net.fit(ds, batch_size=c["B"]))
         del net
+    # (9) the char-RNN (phase 11's TextGenerationLSTM), one TBPTT
+    # iteration at [64, 100] (two chunks), fp32 and mixed_bf16
+    from deeplearning4j_tpu_torch.zoo import TextGenerationLSTM
+    X, Y = char_windows(CHAR["B"], CHAR["T"], offset=7)
+    ds = DataSet(torch.from_numpy(X).to(device),
+                 torch.from_numpy(Y).to(device))
+    for tag, policy in (("", None), ("_mixed", MIXED)):
+        net = TextGenerationLSTM().init(device=device, dtype_policy=policy)
+        for _ in range(2):
+            net.fit(ds, batch_size=CHAR["B"])                      # warm
+        out[f"char_rnn_iteration_{CHAR['B']}x{CHAR['T']}{tag}"] = _profiled(
+            lambda: net.fit(ds, batch_size=CHAR["B"]))
+        del net
     for k, v in out.items():
         groups = ", ".join(f"{g} {ms:.3f}" for g, ms in v["groups_ms"].items())
         print(f"[profile] {k}: wall {v['wall_ms']:.3f} ms, device "
@@ -3266,6 +3908,12 @@ KERNEL_META = {
     "threefry_bits": ("deeplearning4j_tpu_torch/kernels/csrc/threefry.cu",
                       "deeplearning4j_tpu/nn/conf/dropout.py:117 "
                       "(jax.random.normal's bits, an XLA fusion)"),
+    # no Pallas kernel: the vmap of jax.random.categorical over the
+    # slots' keys, an XLA fusion
+    "threefry_rows": ("deeplearning4j_tpu_torch/kernels/csrc/threefry.cu",
+                      "deeplearning4j_tpu/serving/engine.py:525 "
+                      "(vmap(jax.random.categorical)'s bits, an XLA "
+                      "fusion)"),
 }
 
 
@@ -3290,6 +3938,7 @@ def run(device, *, small=False, kernels_only=False):
     if not kernels_only:
         cfg = dict(LM, n_layers=2, max_len=128) if small else LM
         B, T = (2, 40) if small else (16, 512)
+        l3 = l4 = None
         res = phase("scoring", phase_scoring, device, report, fails, cfg, B, T)
         if res is not None:
             net, l3 = res
@@ -3325,6 +3974,17 @@ def run(device, *, small=False, kernels_only=False):
         l10 = phase("resnet", phase_resnet, device, report, fails, small)
         for k in launches:
             launches[k] += (l10 or {}).get(k, 0)
+        l11 = phase("recurrent", phase_recurrent, device, report, fails,
+                    small)
+        for k in launches:
+            launches[k] += (l11 or {}).get(k, 0)
+        report["launches_by_phase"] = {
+            n: {k: v for k, v in l.items() if v}
+            for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
+                         ("7", l7), ("8", l8), ("9", l9), ("10", l10),
+                         ("11", l11)) if l}
+        print(f"[launches] by phase: {report['launches_by_phase']}",
+              flush=True)
         for k, n in launches.items():
             fails.check(n > 0, f"kernel {k} never launched on the main path")
     kernels = []

@@ -3,14 +3,12 @@
 Uniform, Binomial, Constant, LogNormal, TruncatedNormal, Orthogonal,
 with the JAX package's dict serde.
 
-Weight-init samples are drawn on the CPU from an explicit
-`torch.Generator`, so a seed gives the same weights on every device;
-the JAX package draws threefry bits, so the two packages share these
-distributions, not the draws. Weight noise is different:
-`sample_key(key, shape, dtype, device)` draws JAX's own bits from a
-threefry key (`common/prng.py`), the key-based `sample` of
-`NormalDistribution` and `UniformDistribution` (JAX :32-50). The other
-distributions have no key-based draw in the port.
+`sample(key, shape, dtype, device)` draws what the JAX distribution's
+`sample` draws from the same threefry key (`common/prng.py`): the bits
+exact, erfinv, erf and log within about 5e-6 relative, and the
+orthogonal draw's QR within its rounding (LAPACK or cuSOLVER here,
+XLA's Householder there). Weight init and weight noise both draw
+through it.
 """
 
 from __future__ import annotations
@@ -25,16 +23,8 @@ from deeplearning4j_tpu_torch.common import prng
 class Distribution:
     name = "base"
 
-    def sample(self, gen: torch.Generator, shape, dtype=torch.float32):
+    def sample(self, key, shape, dtype=torch.float32, device="cpu"):
         raise NotImplementedError
-
-    # the distributions whose `sample_key` is ported
-    KEYED = False
-
-    def sample_key(self, key, shape, dtype=torch.float32, device="cpu"):
-        raise NotImplementedError(
-            f"a threefry-keyed draw from {type(self).__name__} is not "
-            f"ported (ROADMAP Queue 1 item 6)")
 
     def to_dict(self):
         d = {"distribution": self.name}
@@ -45,8 +35,8 @@ class Distribution:
         return type(self) is type(other) and self.__dict__ == other.__dict__
 
 
-def _normal(gen, shape, dtype):
-    return torch.randn(tuple(shape), generator=gen, dtype=dtype)
+def _scalar(v, like):
+    return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
 @dataclasses.dataclass(eq=False)
@@ -55,17 +45,11 @@ class NormalDistribution(Distribution):
     std: float = 1.0
     name = "normal"
 
-    def sample(self, gen, shape, dtype=torch.float32):
-        return self.mean + self.std * _normal(gen, shape, dtype)
-
-    KEYED = True
-
-    def sample_key(self, key, shape, dtype=torch.float32, device="cpu"):
-        """JAX's ``mean + std * jax.random.normal(key, shape, dtype)``,
-        the floats entering in `dtype`."""
+    def sample(self, key, shape, dtype=torch.float32, device="cpu"):
+        """``mean + std * normal(key, shape, dtype)``, the floats entering
+        in `dtype`."""
         z = prng.normal(key, shape, dtype, device)
-        return (torch.tensor(self.mean, dtype=dtype, device=z.device)
-                + torch.tensor(self.std, dtype=dtype, device=z.device) * z)
+        return _scalar(self.mean, z) + _scalar(self.std, z) * z
 
 
 @dataclasses.dataclass(eq=False)
@@ -74,14 +58,7 @@ class UniformDistribution(Distribution):
     upper: float = 1.0
     name = "uniform"
 
-    def sample(self, gen, shape, dtype=torch.float32):
-        u = torch.rand(tuple(shape), generator=gen, dtype=dtype)
-        return self.lower + (self.upper - self.lower) * u
-
-    KEYED = True
-
-    def sample_key(self, key, shape, dtype=torch.float32, device="cpu"):
-        """JAX's ``jax.random.uniform(key, shape, dtype, lower, upper)``."""
+    def sample(self, key, shape, dtype=torch.float32, device="cpu"):
         return prng.uniform(key, shape, dtype, self.lower, self.upper,
                             device)
 
@@ -92,9 +69,12 @@ class BinomialDistribution(Distribution):
     probability: float = 0.5
     name = "binomial"
 
-    def sample(self, gen, shape, dtype=torch.float32):
-        u = torch.rand((self.trials,) + tuple(shape), generator=gen)
-        return (u < self.probability).sum(dim=0).to(dtype)
+    def sample(self, key, shape, dtype=torch.float32, device="cpu"):
+        """The sum over `trials` of ``bernoulli(key, p, (trials,) +
+        shape)``."""
+        draws = prng.bernoulli(key, self.probability,
+                               (self.trials,) + tuple(shape), device)
+        return draws.sum(dim=0).to(dtype)
 
 
 @dataclasses.dataclass(eq=False)
@@ -102,8 +82,9 @@ class ConstantDistribution(Distribution):
     value: float = 0.0
     name = "constant"
 
-    def sample(self, gen, shape, dtype=torch.float32):
-        return torch.full(tuple(shape), self.value, dtype=dtype)
+    def sample(self, key, shape, dtype=torch.float32, device="cpu"):
+        return torch.full(tuple(shape), self.value, dtype=dtype,
+                          device=device)
 
 
 @dataclasses.dataclass(eq=False)
@@ -112,8 +93,9 @@ class LogNormalDistribution(Distribution):
     std: float = 1.0
     name = "lognormal"
 
-    def sample(self, gen, shape, dtype=torch.float32):
-        return torch.exp(self.mean + self.std * _normal(gen, shape, dtype))
+    def sample(self, key, shape, dtype=torch.float32, device="cpu"):
+        z = prng.normal(key, shape, dtype, device)
+        return torch.exp(_scalar(self.mean, z) + _scalar(self.std, z) * z)
 
 
 @dataclasses.dataclass(eq=False)
@@ -124,10 +106,9 @@ class TruncatedNormalDistribution(Distribution):
     std: float = 1.0
     name = "truncated_normal"
 
-    def sample(self, gen, shape, dtype=torch.float32):
-        z = torch.empty(tuple(shape), dtype=dtype)
-        torch.nn.init.trunc_normal_(z, 0.0, 1.0, -2.0, 2.0, generator=gen)
-        return self.mean + self.std * z
+    def sample(self, key, shape, dtype=torch.float32, device="cpu"):
+        z = prng.truncated_normal(key, -2.0, 2.0, shape, dtype, device)
+        return _scalar(self.mean, z) + _scalar(self.std, z) * z
 
 
 @dataclasses.dataclass(eq=False)
@@ -135,9 +116,26 @@ class OrthogonalDistribution(Distribution):
     gain: float = 1.0
     name = "orthogonal"
 
-    def sample(self, gen, shape, dtype=torch.float32):
-        w = torch.empty(tuple(shape), dtype=dtype)
-        return torch.nn.init.orthogonal_(w, gain=self.gain, generator=gen)
+    def sample(self, key, shape, dtype=torch.float32, device="cpu"):
+        """`gain * jax.nn.initializers.orthogonal()(key, shape, dtype)`:
+        n = prod(shape[:-1]) rows, m = shape[-1] columns; Q of the QR of
+        ``normal(key, (max(n, m), min(n, m)))`` with its columns' signs
+        made those of R's diagonal, transposed when n < m."""
+        shape = tuple(shape)
+        if len(shape) < 2:
+            raise ValueError("orthogonal initializer requires at least a "
+                             "2D shape")
+        m = shape[-1]
+        n = 1
+        for d in shape[:-1]:
+            n *= d
+        z = prng.normal(key, (max(n, m), min(n, m)), dtype, device)
+        q, r = torch.linalg.qr(z.float())
+        q = (q * torch.sign(torch.diagonal(r))[None, :]).to(dtype)
+        if n < m:
+            q = q.T
+        q = q.reshape(shape)
+        return _scalar(self.gain, q) * (_scalar(1.0, q) * q)
 
 
 _DISTS = {

@@ -20,14 +20,26 @@ The JAX package has no module of its own for this: it calls
   mantissa); `bernoulli(key, p)` is ``uniform < float32(p)``;
 - `normal` is ``sqrt(2) * erfinv(u)`` with u uniform on
   ``[nextafter(-1, 0), 1)`` in the draw's dtype (XLA's erfinv and
-  torch's agree to about 4e-6 relative; the bits are exact).
+  torch's agree to about 4e-6 relative; the bits are exact);
+- `split(key, n)` hashes the counters ``(0, i)``, i < n, under the key
+  (the partitionable layout), so ``split(key, n)[i] == fold_in(key,
+  i)``;
+- `truncated_normal` is ``sqrt(2) * erfinv(u)`` with u uniform on
+  ``[erf(lower / sqrt 2), erf(upper / sqrt 2))``, clipped into the open
+  interval (`nextafter` of each bound);
+- `gumbel` is ``-log(-log(u))`` with u uniform on ``[tiny, 1)`` (JAX's
+  default "low" mode), and `categorical(key, logits)` is
+  ``argmax(gumbel(key, logits.shape) + logits)``.
 
 Keys live on the host as two Python ints, so deriving one (a fold per
 step, layer and param) costs no device work. Only `bits` and the draws
 built on it touch tensors: on a CUDA device `bits` is the
 `dl4j_threefry_bits` kernel (`kernels/dropout.py`); on the CPU its plain
 version (`kernels.dropout.threefry_bits_plain`), in int64 with
-``& 0xFFFFFFFF``.
+``& 0xFFFFFFFF``. `row_bits(keys, n)` hashes row s of a draw under key
+s of a [S, 2] key tensor (JAX's `vmap` of a draw over keys), one launch
+of `dl4j_threefry_bits_rows` for every row; the `*_rows` draws build on
+it.
 """
 
 from __future__ import annotations
@@ -104,11 +116,7 @@ def uniform(k: Key, shape, dtype=torch.float32, minval=0.0, maxval=1.0,
     rounded to `dtype`, ``u * (hi - lo) + lo`` rounded once (XLA fuses it
     into a multiply-add; float64 holds the product exactly), then
     clipped below at lo."""
-    f = _float_from_bits(bits(k, shape, device), dtype) - 1.0
-    lo = torch.tensor(minval, dtype=dtype, device=f.device)
-    hi = torch.tensor(maxval, dtype=dtype, device=f.device)
-    scaled = f.double() * (hi - lo).double() + lo.double()
-    return torch.maximum(lo, scaled.to(dtype))
+    return _uniform_from(bits(k, shape, device), dtype, minval, maxval)
 
 
 def bernoulli(k: Key, p: float, shape, device="cpu") -> torch.Tensor:
@@ -131,3 +139,98 @@ def normal(k: Key, shape, dtype=torch.float32, device="cpu"):
     u = uniform(k, shape, dtype, lo, 1.0, device)
     e = torch.erfinv(u.float()).to(dtype)
     return e * torch.tensor(math.sqrt(2.0), dtype=dtype)
+
+
+def split(k: Key, n: int = 2):
+    """`jax.random.split(k, n)` as a list of n keys."""
+    return [fold_in(k, i) for i in range(int(n))]
+
+
+def keys_tensor(keys, device="cpu") -> torch.Tensor:
+    """A [S, 2] int64 tensor of keys (values in [0, 2^32))."""
+    return torch.tensor([[int(a) & MASK, int(b) & MASK] for a, b in keys],
+                        dtype=torch.int64, device=device).reshape(-1, 2)
+
+
+def fold_in_rows(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """`vmap(fold_in)(keys, data)`: [S, 2] keys and [S] int data (on any
+    device) to [S, 2] keys, as int64 tensor ops."""
+    y0, y1 = threefry2x32(keys[:, 0], keys[:, 1],
+                          torch.zeros_like(data, dtype=torch.int64),
+                          data.to(torch.int64) & MASK)
+    return torch.stack([y0, y1], dim=1)
+
+
+def row_bits(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """`vmap(lambda k: bits(k, (n,)))(keys)`: [S, n] words, row s under
+    key s of the [S, 2] `keys`, on keys' device."""
+    from deeplearning4j_tpu_torch.kernels.dropout import threefry_bits_rows
+    return threefry_bits_rows(keys, int(n))
+
+
+def _uniform_from(b: torch.Tensor, dtype, minval, maxval):
+    f = _float_from_bits(b, dtype) - 1.0
+    lo = torch.as_tensor(minval, dtype=dtype, device=f.device)
+    hi = torch.as_tensor(maxval, dtype=dtype, device=f.device)
+    scaled = f.double() * (hi - lo).double() + lo.double()
+    return torch.maximum(lo, scaled.to(dtype))
+
+
+_TINY = {torch.float32: torch.finfo(torch.float32).tiny,
+         torch.bfloat16: torch.finfo(torch.bfloat16).tiny}
+
+
+def _gumbel_from(b: torch.Tensor, dtype) -> torch.Tensor:
+    u = _uniform_from(b, dtype, _TINY[dtype], 1.0)
+    return -torch.log(-torch.log(u))
+
+
+def gumbel(k: Key, shape, dtype=torch.float32, device="cpu"):
+    """`jax.random.gumbel(k, shape, dtype)` (mode "low"):
+    ``-log(-log(uniform(k, shape, dtype, tiny, 1)))``."""
+    return _gumbel_from(bits(k, shape, device), dtype)
+
+
+def categorical(k: Key, logits: torch.Tensor, axis: int = -1):
+    """`jax.random.categorical(k, logits, axis)`: the argmax over `axis`
+    of ``logits + gumbel(k, logits.shape)``, the noise in the logits'
+    dtype."""
+    g = gumbel(k, logits.shape, logits.dtype, logits.device)
+    return torch.argmax(logits + g, dim=axis)
+
+
+def uniform_rows(keys: torch.Tensor, n: int, dtype=torch.float32,
+                 minval=0.0, maxval=1.0) -> torch.Tensor:
+    """`vmap(lambda k: uniform(k, (n,), dtype, minval, maxval))(keys)`:
+    [S, n]."""
+    return _uniform_from(row_bits(keys, n), dtype, minval, maxval)
+
+
+def gumbel_rows(keys: torch.Tensor, n: int, dtype=torch.float32):
+    """`vmap(lambda k: gumbel(k, (n,), dtype))(keys)`: [S, n], every
+    row's words from one launch."""
+    return _gumbel_from(row_bits(keys, n), dtype)
+
+
+def categorical_rows(keys: torch.Tensor, logits: torch.Tensor):
+    """`vmap(categorical)(keys, logits)`: row s of `logits` [S, V] drawn
+    under key s of `keys` [S, 2], all rows' noise from one launch."""
+    g = gumbel_rows(keys, logits.shape[-1], logits.dtype)
+    return torch.argmax(logits + g, dim=-1)
+
+
+def truncated_normal(k: Key, lower: float, upper: float, shape,
+                     dtype=torch.float32, device="cpu") -> torch.Tensor:
+    """`jax.random.truncated_normal(k, lower, upper, shape, dtype)`: the
+    bounds in `dtype`, u uniform on [erf(lower / sqrt 2), erf(upper /
+    sqrt 2)), ``sqrt(2) * erfinv(u)`` clipped to the open interval."""
+    sqrt2 = torch.tensor(math.sqrt(2.0), dtype=dtype)
+    lo = torch.tensor(lower, dtype=dtype)
+    hi = torch.tensor(upper, dtype=dtype)
+    a = torch.erf((lo / sqrt2).float()).to(dtype)
+    b = torch.erf((hi / sqrt2).float()).to(dtype)
+    u = uniform(k, shape, dtype, a, b, device)
+    out = sqrt2.to(u.device) * torch.erfinv(u.float()).to(dtype)
+    inf = torch.tensor(float("inf"), dtype=dtype)
+    return out.clamp(float(torch.nextafter(lo, inf)),
+                     float(torch.nextafter(hi, -inf)))

@@ -18,6 +18,11 @@
 // about 5 ns per thousand elements against 2.4 ns for the bytes at
 // 3.35 TB/s. The rotations compile to one funnel shift each.
 //
+// `dl4j_threefry_bits_rows` is the same hash with a key per row: row s of
+// an [S, n] draw under key s (one launch draws every serving slot's
+// Gumbel noise, each under its own request's key). The same bound holds
+// per word; the [S, 2] keys add 8 bytes a row.
+//
 // Design: a grid-stride loop, one element an iteration, neighbouring
 // threads on neighbouring elements (coalesced loads and stores of any
 // alignment, so offset views and ragged lengths need no special path).
@@ -83,6 +88,19 @@ __global__ void __launch_bounds__(NT)
     out[i] = threefry_word(k0, k1, offset + (unsigned long long)i);
 }
 
+// Row s of [S, n] under key s: keys holds S (k0, k1) pairs.
+__global__ void __launch_bounds__(NT)
+    rows_kernel(const uint32_t* __restrict__ keys, long long n,
+                long long total, uint32_t* __restrict__ out) {
+  const long long stride = (long long)gridDim.x * NT;
+  for (long long i = (long long)blockIdx.x * NT + threadIdx.x; i < total;
+       i += stride) {
+    const long long s = i / n;
+    out[i] = threefry_word(keys[2 * s], keys[2 * s + 1],
+                           (unsigned long long)(i - s * n));
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(NT)
     dropout_kernel(const T* __restrict__ x, T* __restrict__ y, long long n,
@@ -115,6 +133,22 @@ extern "C" int dl4j_threefry_bits(unsigned k0, unsigned k1,
   if (n <= 0) return 0;
   dl4j::bits_kernel<<<dl4j::grid_for(n, n_sm), dl4j::NT, 0,
                       (cudaStream_t)stream>>>(k0, k1, offset, n,
+                                              (uint32_t*)out);
+  return (int)cudaGetLastError();
+}
+
+// Per-row keys: out[s * n + j] is the word of flat index j under key
+// (keys[2s], keys[2s + 1]), for s in [0, S) and j in [0, n) — JAX's
+// `vmap` of a draw over a batch of keys (the serving sampler's noise for
+// every slot, each slot under its own request's key, in one launch).
+// Returns cudaGetLastError() after the launch.
+extern "C" int dl4j_threefry_bits_rows(const void* keys, long long S,
+                                       long long n, void* out, int n_sm,
+                                       void* stream) {
+  if (S <= 0 || n <= 0) return 0;
+  const long long total = S * n;
+  dl4j::rows_kernel<<<dl4j::grid_for(total, n_sm), dl4j::NT, 0,
+                      (cudaStream_t)stream>>>((const uint32_t*)keys, n, total,
                                               (uint32_t*)out);
   return (int)cudaGetLastError();
 }

@@ -15,6 +15,9 @@ the design).
   [offset, offset + n) as int64 values in [0, 2^32) (the normal draws
   of `GaussianDropout`, `GaussianNoise` and `WeightNoise` build on
   them).
+- `threefry_bits_rows(keys, n)`: [S, n] words, row s under key s of
+  the [S, 2] key tensor (the `vmap` of a draw over keys: every serving
+  slot's sampling noise in one launch).
 - `dropout(x, key, p)`: ``where(uniform(key) < p, x / p_dt, 0)`` with
   p_dt p rounded to x's dtype, differentiable. The backward is the same
   kernel on the gradient under the same key, which recomputes the mask
@@ -23,7 +26,8 @@ the design).
 
 Dispatch as in every wrapper: a CUDA tensor (or device) launches the
 kernel or raises, a CPU one takes the plain version. `LAUNCHES` counts
-"dropout" and "threefry_bits" where the kernels launch.
+"dropout", "threefry_bits" and "threefry_rows" where the kernels
+launch.
 """
 
 from __future__ import annotations
@@ -44,6 +48,16 @@ def threefry_bits_plain(key, n: int, device, offset: int = 0):
     32 bits."""
     idx = torch.arange(offset, offset + n, dtype=torch.int64, device=device)
     y0, y1 = prng.threefry2x32(key[0], key[1], idx >> 32, idx & prng.MASK)
+    return y0 ^ y1
+
+
+def threefry_bits_rows_plain(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """Plain version of the per-row-key kernel on keys' device: [S, n]
+    int64 words, row s hashing the indices [0, n) under key s."""
+    idx = torch.arange(n, dtype=torch.int64, device=keys.device)[None, :]
+    k = keys.to(torch.int64) & prng.MASK
+    y0, y1 = prng.threefry2x32(k[:, :1], k[:, 1:], idx >> 32,
+                               idx & prng.MASK)
     return y0 ^ y1
 
 
@@ -69,6 +83,8 @@ def _lib():
         lib.dl4j_threefry_bits.argtypes = [U, U, ctypes.c_ulonglong, LL, P,
                                            I, P]
         lib.dl4j_threefry_bits.restype = I
+        lib.dl4j_threefry_bits_rows.argtypes = [P, LL, LL, P, I, P]
+        lib.dl4j_threefry_bits_rows.restype = I
         lib.dl4j_dropout.argtypes = [I, P, P, LL, U, U, F, F, I, P]
         lib.dl4j_dropout.restype = I
     return lib
@@ -94,6 +110,25 @@ def threefry_bits(key, n: int, device, offset: int = 0) -> torch.Tensor:
                                        n, K.ptr(out), _n_sm(device), stream)
     K.check_status("threefry_bits", status)
     K.count_launch("threefry_bits", torch.int32)
+    return out.to(torch.int64) & prng.MASK
+
+
+def threefry_bits_rows(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """[S, n] words, row s under key s of `keys` ([S, 2], values in
+    [0, 2^32)), int64 on keys' device: the kernel for a CUDA tensor, the
+    plain version for a CPU one."""
+    if not K.on_cuda(keys):
+        return threefry_bits_rows_plain(keys, n)
+    k = keys.to(torch.int64) & prng.MASK
+    k32 = torch.where(k >= 2 ** 31, k - 2 ** 32, k).to(torch.int32)
+    k32 = k32.contiguous()
+    S = k32.shape[0]
+    out = torch.empty((S, n), dtype=torch.int32, device=keys.device)
+    status = _lib().dl4j_threefry_bits_rows(K.ptr(k32), S, int(n),
+                                            K.ptr(out), _n_sm(keys.device),
+                                            K.stream_of(out))
+    K.check_status("threefry_rows", status)
+    K.count_launch("threefry_rows", torch.int32)
     return out.to(torch.int64) & prng.MASK
 
 

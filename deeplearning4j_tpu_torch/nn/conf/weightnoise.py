@@ -8,8 +8,7 @@ Param i of the layer's params in sorted-name order takes the key
 `fold_in(key, i)`; bias-like params (`constraints.is_bias_param`) pass
 unchanged unless `apply_to_bias`. `DropConnect` is the dropout kernel
 on the weight (`kernels/dropout.py`); `WeightNoise` draws from its
-distribution's `sample_key` (normal and uniform are ported; the
-container refuses the others by name).
+distribution's keyed `sample`, JAX's draw for every distribution.
 """
 
 from __future__ import annotations
@@ -93,5 +92,5 @@ class WeightNoise(IWeightNoise):
             self.dist = NormalDistribution(0.0, 0.01)
 
     def apply(self, key, name, w):
-        noise = self.dist.sample_key(key, w.shape, w.dtype, w.device)
+        noise = self.dist.sample(key, w.shape, w.dtype, w.device)
         return w + noise if self.additive else w * noise

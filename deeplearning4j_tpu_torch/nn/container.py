@@ -7,9 +7,10 @@ A container holds its layers in an `nn.ModuleList`, `layers`, beside
 `layer_keys`, the JAX net's key of each ("<i>" for a layer list, the
 node name in a graph), so `updater_state`, `net_state`, `param_table`
 and the carriers (`util/jax_params`, `util/serializer`) are keyed as
-the JAX net's trees. `fold_ids[key]` is the index the train step folds
-the layer's threefry key with (its position in a list, its node's
-position in the graph's topological order).
+the JAX net's trees. `fold_ids[key]` is the index `init(seed)` and the
+train step fold the layer's threefry key with (its position in a list,
+its node's position in the graph's topological order), so `init` draws
+JAX's weights and training JAX's masks.
 
 Training (`_fit_step`) runs in the JAX train step's order: the forward
 to the output layers (each layer's weight noise installed for its
@@ -66,7 +67,6 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
     BackpropType,
     GradientNormalization,
 )
-from deeplearning4j_tpu_torch.nn.conf.weightnoise import WeightNoise
 from deeplearning4j_tpu_torch.nn.layers.feedforward import EmbeddingLayer
 from deeplearning4j_tpu_torch.optimize.gradients import (
     apply_gradient_normalization,
@@ -159,15 +159,14 @@ class Container(nn.Module):
                 if layer.state_map()}
 
     def init(self, seed: Optional[int] = None):
-        """Draw every layer's params, in layer order, from one CPU
-        `torch.Generator` seeded with `seed` (default `conf.seed`), and
-        reset the running state. The JAX package's draws are threefry
-        bits, which this does not reproduce (load those with
-        `util.jax_params`)."""
-        gen = torch.Generator().manual_seed(
-            self.conf.seed if seed is None else int(seed))
-        for layer in self.layers:
-            layer.init_weights(gen)
+        """Draw every layer's params as the JAX `_init_trees` does: layer
+        `key` under ``fold_in(PRNGKey(seed), fold_ids[key])`` (its
+        position in a list, its node's in the graph's topological order;
+        `seed` defaults to `conf.seed`), and reset the running state. The
+        draws are made on the net's device."""
+        root = prng.key(self.conf.seed if seed is None else int(seed))
+        for key, layer in self.keyed():
+            layer.init_weights(prng.fold_in(root, self.fold_ids[key]))
         self.params_changed()
         return self
 
@@ -240,6 +239,17 @@ class Container(nn.Module):
             kw["new_state"] = new_state.setdefault(key, {})
         with self._weight_noise(layer, train, lrng):
             return layer(h, train=train, rng=lrng, mask=mask, **kw)
+
+    def _call_with_carry(self, key, layer, h, carry, *, train, rng, mask):
+        """A recurrent `layer` on h from `carry` (its fresh carry in h's
+        dtype when None), with its key and weight noise as in
+        `_call_layer`. Returns (y, new carry)."""
+        lrng = None if rng is None else prng.fold_in(rng, self.fold_ids[key])
+        if carry is None:
+            carry = layer.init_carry(h.shape[0], h.dtype, h.device)
+        with self._weight_noise(layer, train, lrng):
+            return layer.forward_with_carry(h, carry, mask, train=train,
+                                            rng=lrng)
 
     def _output_loss(self, key, layer, h, y, mask, *, train, rng):
         """The output layer's loss in the output dtype (identity when not
@@ -344,19 +354,12 @@ class Container(nn.Module):
         (`fit` and `score` would silently compute something else). Each
         is inert at inference, so `output()` accepts them."""
         c, bad = self.conf, []
-        if BackpropType(c.backprop_type) == BackpropType.TRUNCATED_BPTT:
-            bad.append("backprop_type tbptt")
         if getattr(c, "pretrain", False):
             bad.append("pretrain")
         if c.optimization_algo != "sgd":
             bad.append(f"optimization_algo {c.optimization_algo}")
         if c.diagnostics is not None:
             bad.append("diagnostics")
-        for key, layer in self.keyed():
-            wn = layer.weight_noise
-            if isinstance(wn, WeightNoise) and not wn.dist.KEYED:
-                bad.append(f"layer {key} weight_noise over "
-                           f"{type(wn.dist).__name__}")
         return bad
 
     def _check_trainable(self):
@@ -385,10 +388,11 @@ class Container(nn.Module):
         return [r for r in self._candidate_runs()
                 if not self.layers[r[0]].constraints]
 
-    def _update_groups(self) -> List[List[int]]:
-        """Layers that share one update: each packed run, and each other
-        layer with params on its own, in layer order."""
-        runs = self._packed_runs()
+    def _update_groups(self, packed: bool = True) -> List[List[int]]:
+        """Layers that share one update: each packed run (none when not
+        `packed`), and each other layer with params on its own, in layer
+        order."""
+        runs = self._packed_runs() if packed else []
         in_run = {i for r in runs for i in r}
         return sorted(runs + [[i] for i, layer in enumerate(self.layers)
                               if i not in in_run and layer.jax_param_map()])
@@ -421,7 +425,7 @@ class Container(nn.Module):
                 for name, p in layer.jax_param_map().items()}
 
     @torch.no_grad()
-    def _apply_updates(self, step: int, grads=None):
+    def _apply_updates(self, step: int, grads=None, packed: bool = True):
         """One update of every param (the JAX `_apply_updates`) from
         `grads` ({id(param): gradient}; None: each param's `.grad`; a
         param without one gets a zero gradient in the compute dtype): an
@@ -429,9 +433,11 @@ class Container(nn.Module):
         launch on the card, bf16 gradients onto the fp32 state under
         mixed_bf16); any other group applies its rule per leaf. Grads
         are upcast to the param dtype. Then each layer's constraints and
-        `max_norm`, written into the params in place."""
+        `max_norm`, written into the params in place. A truncated-BPTT
+        chunk updates unpacked (`packed=False`), as JAX's TBPTT step
+        does."""
         cd = self.dtype.compute_dtype
-        for group in self._update_groups():
+        for group in self._update_groups(packed):
             updater = self.updater_of(self.layers[group[0]])
             ps, gs, states = [], [], []
             for i in group:
@@ -515,16 +521,126 @@ class Container(nn.Module):
 
     def _fit_step(self, x, y, fmask=None, lmask=None):
         """forward + loss + backward + gradient normalization + update +
-        constraints + running state on one minibatch."""
+        constraints + running state on one minibatch (truncated BPTT
+        when configured and the features carry a time axis)."""
         rng = self._step_key(self.iteration_count)
-        loss, grads, new_state = self._loss_and_grads(
-            lambda st: self._loss_fn(x, y, fmask, lmask, train=True,
-                                     rng=rng, new_state=st))
-        self._apply_updates(self.iteration_count,
-                            self._normalize_gradients(grads))
-        self._commit_state(new_state)
-        self.score_value = float(loss)
+        T = self._tbptt_time(x)
+        if T is not None:
+            self.score_value = self._fit_tbptt(x, y, fmask, lmask, rng, T)
+        else:
+            loss, grads, new_state = self._loss_and_grads(
+                lambda st: self._loss_fn(x, y, fmask, lmask, train=True,
+                                         rng=rng, new_state=st))
+            self._apply_updates(self.iteration_count,
+                                self._normalize_gradients(grads))
+            self._commit_state(new_state)
+            self.score_value = float(loss)
         self.iteration_count += 1
+
+    # ------------------------------------------------------ truncated BPTT
+    def _is_tbptt(self) -> bool:
+        return (BackpropType(self.conf.backprop_type)
+                == BackpropType.TRUNCATED_BPTT)
+
+    def _tbptt_time(self, x) -> Optional[int]:
+        """The time extent truncated BPTT chunks, or None for a plain
+        step (not configured, or no [B, T, F] features)."""
+        raise NotImplementedError
+
+    def _recurrent_keys(self) -> List[str]:
+        from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+            BaseRecurrentLayer)
+        return [k for k, layer in self.keyed()
+                if isinstance(layer, BaseRecurrentLayer)]
+
+    def stream_budget(self) -> Optional[int]:
+        """The smallest KV-cache / positional length of the net's layers
+        (`nn.layers.stream_budget`), or None."""
+        from deeplearning4j_tpu_torch.nn.layers.transformer import (
+            stream_budget)
+        return stream_budget(list(self.layers))
+
+    def init_carries(self, batch: int) -> Dict[str, object]:
+        """Every recurrent layer's fresh carry in the compute dtype."""
+        layers = dict(self.keyed())
+        return {k: layers[k].init_carry(batch, self.dtype.compute_dtype,
+                                        self.device)
+                for k in self._recurrent_keys()}
+
+    def _fit_tbptt(self, x, y, fmask, lmask, rng, T: int) -> float:
+        """Truncated BPTT (the JAX `_fit_tbptt`, MultiLayerNetwork
+        :838-876 and ComputationGraph :1024-1066): the time axis in
+        chunks of `tbptt_fwd_length`, each chunk one step (its key
+        `fold_in(rng, s)` at chunk start s, ONE updater step at the same
+        iteration index for every chunk, updated unpacked), every
+        recurrent layer's carry threaded from chunk to chunk with its
+        gradient stopped. Returns the mean of the chunk losses."""
+        budget = self.stream_budget()
+        if budget is not None and T > budget:
+            raise ValueError(
+                f"TBPTT over a {T}-step sequence exceeds the bounded "
+                f"carry budget {budget} (min over transformer cache_len "
+                f"/ positional max_len): chunks past the budget would "
+                f"silently clamp into the KV cache. Shorten the "
+                f"sequences or rebuild with cache_len/max_len >= {T}.")
+        L = int(self.conf.tbptt_fwd_length)
+        carries = self.init_carries(self._batch_of(x))
+        total, n = 0.0, 0
+        for s in range(0, T, L):
+            xc, yc, fm, lm = self._chunk(x, y, fmask, lmask, s, L)
+            crng = prng.fold_in(rng, s)
+            stopped = _detach(carries)
+            out = {}
+            loss, grads, new_state = self._loss_and_grads(
+                lambda st: self._loss_fn(xc, yc, fm, lm, train=True,
+                                         rng=crng, new_state=st,
+                                         carries=stopped, carries_out=out))
+            self._apply_updates(self.iteration_count,
+                                self._normalize_gradients(grads),
+                                packed=False)
+            self._commit_state(new_state)
+            carries = {**carries, **out}
+            total += float(loss)
+            n += 1
+        return total / max(n, 1)
+
+    def _batch_of(self, x) -> int:
+        raise NotImplementedError
+
+    def _chunk(self, x, y, fmask, lmask, s: int, L: int):
+        raise NotImplementedError
+
+    # --------------------------------------------------- rnn streaming
+    def rnn_clear_previous_state(self):
+        """Forget the carries `rnn_time_step` keeps."""
+        self._rnn_carries = {}
+        self._rnn_stream_pos = 0
+
+    def _check_stream_budget(self, new_tokens: int):
+        """The JAX bounded-carry guard: streaming past a KV cache or a
+        positional table would silently clamp, so it raises."""
+        budget = self.stream_budget()
+        pos = getattr(self, "_rnn_stream_pos", 0)
+        if budget is not None and pos + new_tokens > budget:
+            raise ValueError(
+                f"rnn_time_step has streamed {pos} positions and this call "
+                f"adds {new_tokens}, exceeding the stream budget {budget} "
+                f"(min over transformer cache_len / positional max_len). "
+                f"Call rnn_clear_previous_state() to start a new sequence, "
+                f"or rebuild with a larger cache_len/max_len.")
+
+    def _stream(self, fn, batch: int, t_new: int):
+        """`fn(carries)` -> (out, new carries) from the kept carries
+        (fresh ones for the recurrent layers without one), under the
+        policy and without autograd; keeps the new carries."""
+        self._check_stream_budget(t_new)
+        carries = {**self.init_carries(batch),
+                   **getattr(self, "_rnn_carries", {})}
+        with torch.no_grad():
+            out, new = self._policy_call(fn, carries)
+        self._rnn_carries = {**carries, **new}
+        self._rnn_stream_pos = getattr(self, "_rnn_stream_pos", 0) + t_new
+        return out
 
     def _fit_iterator(self, iterator, epochs: int):
         """The fit loop (the JAX `fit`): one step per minibatch, with its
@@ -533,6 +649,12 @@ class Container(nn.Module):
         `on_epoch_start`, `iteration_done` after each step (with the
         step's iteration, before the count moves on), `on_epoch_end` and
         `on_fit_end`."""
+        if self._is_tbptt() and self.conf.optimization_algo != "sgd":
+            raise ValueError(
+                "optimization_algo=%r cannot be combined with truncated "
+                "BPTT: the line-search solvers optimize the full-sequence "
+                "loss and would ignore tbptt_fwd_length. Use SGD, or "
+                "standard backprop_type." % self.conf.optimization_algo)
         listeners = ComposedListeners(self.listeners)
         listeners.on_fit_start(self)
         for _ in range(int(epochs)):
@@ -610,3 +732,15 @@ class Container(nn.Module):
         from deeplearning4j_tpu_torch.eval.regression import (
             RegressionEvaluation)
         return self._evaluate_with(RegressionEvaluation(), iterator)
+
+
+def _detach(tree):
+    """The carries with every tensor detached (ints, such as a stream
+    position, pass)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.detach()
+    if isinstance(tree, dict):
+        return {k: _detach(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_detach(v) for v in tree)
+    return tree

@@ -25,10 +25,15 @@ mixed policy inputs are cast to the compute dtype unless an embedding
 takes them as ids (:477-482), the loss is fp32 and `output()` returns
 fp32.
 
-Not ported, and refused by name: TBPTT and `rnn_time_step`,
-`pretrain`, `steps_per_execution > 1`, the line-search solvers,
-diagnostics, `gradient_sharing` other than "dense" (in `fit` and
-`score`), and sequence parallelism inside a graph (when it is built).
+Recurrent nodes: `fit` takes truncated-BPTT steps over every [B, T, F]
+input when configured (the JAX `_fit_tbptt` :1024-1066), and
+`rnn_time_step` streams inference with every recurrent node's carry
+kept across calls (:1094-1150).
+
+Not ported, and refused by name: `pretrain`, `steps_per_execution >
+1`, the line-search solvers, diagnostics, `gradient_sharing` other than
+"dense" (in `fit` and `score`), and sequence parallelism inside a graph
+(when it is built).
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from deeplearning4j_tpu_torch.nn.layers.feedforward import (
     BaseOutputLayerMixin,
     EmbeddingLayer,
 )
+from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
 
 
 @dataclasses.dataclass
@@ -353,10 +359,12 @@ class ComputationGraph(Container):
 
     # ----------------------------------------------------------- forward
     def _forward_all(self, xs, *, train=False, rng=None, masks=None,
-                     stop_at_loss=False, new_state=None):
+                     stop_at_loss=False, new_state=None, carries=None):
         """Walk the topological order. Returns (activations by node,
         {output layer: (its input, its mask)} when `stop_at_loss`, masks
-        by node)."""
+        by node). With `carries` (a dict by node name, written in place)
+        the recurrent nodes run from their carries and leave the new
+        ones there."""
         masks = list(masks) if masks else [None] * len(xs)
         acts, mask_map, preouts = {}, {}, {}
         for i, name in enumerate(self.conf.network_inputs):
@@ -383,27 +391,37 @@ class ComputationGraph(Container):
             if stop_at_loss and name in self.output_layer_names:
                 preouts[name] = (h, mask)
                 continue
-            acts[name] = self._call_layer(name, node.layer, h, train=train,
-                                          rng=rng, mask=mask,
-                                          new_state=new_state)
+            if carries is not None and isinstance(node.layer,
+                                                  BaseRecurrentLayer):
+                acts[name], carries[name] = self._call_with_carry(
+                    name, node.layer, h, carries.get(name), train=train,
+                    rng=rng, mask=mask)
+            else:
+                acts[name] = self._call_layer(name, node.layer, h,
+                                              train=train, rng=rng,
+                                              mask=mask, new_state=new_state)
             mask_map[name] = node.layer.forward_mask(mask)
         return acts, preouts, mask_map
 
     def _loss_fn(self, xs, ys, fmasks=None, lmasks=None, *, train=False,
-                 rng=None, new_state=None):
+                 rng=None, new_state=None, carries=None, carries_out=None):
         """The sum of every output layer's loss on the forward to it, plus
         the l1/l2 penalty (the JAX `_loss_fn` without diagnostics or the
         MoE aux loss); an output's label mask defaults to the mask that
-        reached it."""
+        reached it. With `carries` (truncated BPTT) the recurrent nodes
+        run from them and leave their new carries in `carries_out`."""
         if not self.output_layer_names:
             raise ValueError("fit needs an output layer among the graph's "
                              "outputs")
         self._check_trainable()
         fmasks = _as_list(fmasks)
         lmasks = _as_list(lmasks) or [None] * len(ys)
+        c = None if carries is None else dict(carries)
         _, preouts, _ = self._forward_all(
             xs, train=train, rng=rng, masks=fmasks, stop_at_loss=True,
-            new_state=new_state)
+            new_state=new_state, carries=c)
+        if carries_out is not None and c is not None:
+            carries_out.update(c)
         total = 0.0
         for oi, name in enumerate(self.output_layer_names):
             h, mask = preouts[name]
@@ -525,13 +543,61 @@ class ComputationGraph(Container):
         return self.output(features, masks=None if features_mask is None
                            else [features_mask])
 
-    def rnn_time_step(self, *inputs, masks=None):
-        raise NotImplementedError("ComputationGraph.rnn_time_step is not "
-                                  "ported (ROADMAP Queue 1 item 6)")
+    # ----------------------------------------------------- truncated BPTT
+    def _tbptt_time(self, xs):
+        if not self._is_tbptt():
+            return None
+        ts = [int(x.shape[1]) for x in xs if x.ndim == 3]
+        return max(ts) if ts else None
 
-    def rnn_clear_previous_state(self):
-        raise NotImplementedError("ComputationGraph.rnn_clear_previous_state"
-                                  " is not ported (ROADMAP Queue 1 item 6)")
+    def _batch_of(self, xs) -> int:
+        return int(xs[0].shape[0])
+
+    def _chunk(self, xs, ys, fmasks, lmasks, s, L):
+        """Rank-3 inputs and labels chunk along time; other inputs (a
+        conv frame) pass whole."""
+        def cut(a):
+            return a if a is None or a.ndim != 3 else a[:, s:s + L]
+        fm = None if fmasks is None else [
+            None if m is None else m[:, s:s + L] for m in _as_list(fmasks)]
+        lm = None if lmasks is None else [
+            None if m is None else (m[:, s:s + L] if m.ndim >= 2 else m)
+            for m in _as_list(lmasks)]
+        return [cut(x) for x in xs], [cut(y) for y in ys], fm, lm
+
+    # ------------------------------------------------------ rnn streaming
+    def rnn_time_step(self, *inputs, masks=None):
+        """Streaming inference carrying every recurrent node's state
+        across calls (the JAX `rnn_time_step`): each input is [B, F] (one
+        step) or [B, T, F], or [B, T] token ids where an embedding over
+        a recurrent input takes it. A call with a one-step input returns
+        outputs without their time axis. One tensor for a one-output
+        graph, else a tuple, in the compute dtype."""
+        xs = self._features(list(inputs))
+        squeezed = [x.ndim == 2 and not self._ids_input(inp)
+                    for inp, x in zip(self.conf.network_inputs, xs)]
+        xs = [x[:, None, :] if sq else x for sq, x in zip(squeezed, xs)]
+        t_new = max([1] + [int(x.shape[1]) for inp, x in
+                           zip(self.conf.network_inputs, xs)
+                           if x.ndim == 3 or (x.ndim == 2
+                                              and self._ids_input(inp))])
+        masks = None if masks is None else [self._mask(m) for m in masks]
+
+        def fwd(carries):
+            c = dict(carries)
+            acts = self._forward_all(xs, masks=masks, carries=c)[0]
+            return [acts[n] for n in self.conf.network_outputs], c
+        outs = self._stream(fwd, int(xs[0].shape[0]), t_new)
+        outs = [h[:, -1, :] if any(squeezed) and h.ndim == 3 else h
+                for h in outs]
+        return outs[0] if len(outs) == 1 else tuple(outs)
+
+    def _ids_input(self, inp: str) -> bool:
+        """Whether a layer taking network input `inp` reads token ids
+        over a recurrent input (`time_series_input`)."""
+        return any(getattr(n.layer, "time_series_input", False)
+                   for n in self.conf.nodes.values()
+                   if n.layer is not None and inp in n.inputs)
 
     def pretrain(self, data, *, epochs: int = 1, batch_size: int = 32):
         raise NotImplementedError("ComputationGraph.pretrain is not ported "

@@ -24,8 +24,13 @@ from deeplearning4j_tpu_torch.nn.layers.pooling import (
     PoolingType,
 )
 from deeplearning4j_tpu_torch.nn.layers.recurrent import (
+    LSTM,
     BaseRecurrentLayer,
+    GravesBidirectionalLSTM,
+    GravesLSTM,
+    LastTimeStep,
     RnnOutputLayer,
+    SimpleRnn,
 )
 from deeplearning4j_tpu_torch.nn.layers.transformer import (
     PositionalEncodingLayer,
@@ -35,9 +40,11 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
 
 __all__ = ["ActivationLayer", "BaseRecurrentLayer", "BatchNormalization",
            "ConvolutionLayer", "ConvolutionMode", "DenseLayer",
-           "DropoutLayer", "EmbeddingLayer", "GlobalPoolingLayer", "Layer",
-           "LayerNormalization", "MultiHeadAttention", "OutputLayer",
-           "PoolingMode", "PoolingType", "PositionalEncodingLayer",
-           "RnnOutputLayer", "SubsamplingLayer", "ZeroPaddingLayer",
+           "DropoutLayer", "EmbeddingLayer", "GlobalPoolingLayer",
+           "GravesBidirectionalLSTM", "GravesLSTM", "LSTM", "LastTimeStep",
+           "Layer", "LayerNormalization", "MultiHeadAttention",
+           "OutputLayer", "PoolingMode", "PoolingType",
+           "PositionalEncodingLayer", "RnnOutputLayer", "SimpleRnn",
+           "SubsamplingLayer", "ZeroPaddingLayer",
            "TransformerEncoderBlock", "layer_from_dict",
            "layer_norm_reference", "stream_budget"]

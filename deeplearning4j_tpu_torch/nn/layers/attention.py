@@ -24,6 +24,7 @@ import logging
 
 import torch
 
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.kernels.dropout import dropout
 from deeplearning4j_tpu_torch.kernels.flash_attention import flash_attention
 from deeplearning4j_tpu_torch.nd import quant
@@ -123,12 +124,14 @@ class MultiHeadAttention(Layer):
                 m["b" + name[1:]] = getattr(self, "b" + name[1:])
         return m
 
-    def init_weights(self, gen: torch.Generator, owner: Layer = None):
-        """Draw Wq, Wk, Wv, Wo by the `weight_init` of `owner` (a block
-        that holds this attention; this layer by default). The biases
-        stay zero, as the JAX layer makes them."""
-        for name in _NAMES:
-            init_weight_(owner or self, getattr(self, name), gen)
+    def init_weights(self, key, owner: Layer = None):
+        """Draw Wq, Wk, Wv, Wo under `fold_in(key, 0..3)` by the
+        `weight_init` of `owner` (a block that holds this attention; this
+        layer by default). The biases stay zero, as the JAX layer makes
+        them."""
+        for i, name in enumerate(_NAMES):
+            init_weight_(owner or self, getattr(self, name),
+                         prng.fold_in(key, i))
 
     def _project(self, x, name):
         z = quant.matmul(x, quant.weight(self, name))

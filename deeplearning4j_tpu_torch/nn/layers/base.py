@@ -14,8 +14,9 @@ is the container's `Sgd(1e-3)` default, as in JAX.
 
 Params: a layer allocates its params once their shapes are known, at
 construction or in `set_n_in` (n_in inference in `ListBuilder.build`).
-They are zeros until `init_weights` draws them (`weight_init` and
-`dist` through `common/weights.py`, biases filled with `bias_init`
+They are zeros until `init_weights(key)` draws them as the JAX
+`init_params(key)` does (the same threefry splits and folds, `weight_init`
+and `dist` through `common/weights.py`, biases filled with `bias_init`
 where the JAX layer fills them) or a loader copies them in.
 
 State (the JAX `init_state`): running values that are not trained
@@ -100,9 +101,6 @@ NOT_PORTED = {
     "Upsampling2D", "zeropadding1d": "ZeroPadding1DLayer",
     "space_to_depth": "SpaceToDepthLayer", "separable_convolution2d":
     "SeparableConvolution2D", "lrn": "LocalResponseNormalization",
-    "lstm": "LSTM", "graves_lstm": "GravesLSTM",
-    "graves_bidirectional_lstm": "GravesBidirectionalLSTM",
-    "simple_rnn": "SimpleRnn", "last_time_step": "LastTimeStep",
     "pool_helper": "PoolHelperLayer", "reshape": "ReshapeLayer",
     "permute": "PermuteLayer", "loss": "LossLayer", "frozen":
     "FrozenLayer", "mixture_of_experts": "MixtureOfExperts", "vae":
@@ -305,8 +303,9 @@ class Layer(nn.Module):
         norm gains stay floating."""
         return ()
 
-    def init_weights(self, gen: torch.Generator):
-        """Draw this layer's params from `gen` (none by default)."""
+    def init_weights(self, key):
+        """Draw this layer's params under the threefry `key`, as the JAX
+        layer's `init_params(key)` (none by default)."""
 
     def state_map(self) -> Dict[str, torch.Tensor]:
         """{JAX state name: buffer}: the values the JAX layer keeps in
@@ -361,14 +360,14 @@ def new_param(shape, device, dtype=torch.float32):
                         requires_grad=False)
 
 
-def init_weight_(layer: Layer, t: torch.Tensor, gen: torch.Generator,
-                 fan_in=None, fan_out=None):
-    """Fill the weight `t` by `layer.weight_init`, drawn on the CPU from
-    `gen` (reproducible across devices). The fans default to a dense
-    [fan_in, fan_out] kernel's; a convolution passes its own."""
-    w = init_weights(gen, t.shape, layer.weight_init,
+def init_weight_(layer: Layer, t: torch.Tensor, key, fan_in=None,
+                 fan_out=None):
+    """Fill the weight `t` by `layer.weight_init` under the threefry
+    `key`, drawn on t's device. The fans default to a dense [fan_in,
+    fan_out] kernel's; a convolution passes its own."""
+    w = init_weights(key, t.shape, layer.weight_init,
                      fan_in=t.shape[0] if fan_in is None else fan_in,
                      fan_out=t.shape[-1] if fan_out is None else fan_out,
-                     distribution=layer.dist, dtype=t.dtype)
+                     distribution=layer.dist, dtype=t.dtype, device=t.device)
     with torch.no_grad():
         t.copy_(w)

@@ -173,9 +173,9 @@ class ConvolutionLayer(Layer):
             return {}
         return {"W": self.W, "b": self.b} if self.has_bias else {"W": self.W}
 
-    def init_weights(self, gen: torch.Generator):
+    def init_weights(self, key):
         kh, kw = self.kernel_size
-        init_weight_(self, self.W, gen, fan_in=self.n_in * kh * kw,
+        init_weight_(self, self.W, key, fan_in=self.n_in * kh * kw,
                      fan_out=self.n_out * kh * kw)
         if self.has_bias:
             with torch.no_grad():

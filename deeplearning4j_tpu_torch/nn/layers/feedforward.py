@@ -45,8 +45,8 @@ class _WeightAndBias(Layer):
             return {}
         return {"W": self.W, "b": self.b} if self.has_bias else {"W": self.W}
 
-    def init_weights(self, gen: torch.Generator):
-        init_weight_(self, self.W, gen)
+    def init_weights(self, key):
+        init_weight_(self, self.W, key)
         if self.has_bias:
             with torch.no_grad():
                 self.b.fill_(self.bias_init)

@@ -34,11 +34,13 @@ class BatchNormalization(Layer):
     library counterpart of JAX's XLA fusion) computes the normalization
     from its input and the fp32 gamma/beta; it is never handed the
     running buffers, which it would update with the unbiased variance
-    and `momentum = 1 - decay`. Under a mixed policy it reads bf16 and
-    writes bf16 with fp32 statistics inside, where JAX rounds the mean,
-    the inverse deviation and gamma/beta to bf16 first
-    (`(x - mean) * inv * gamma + beta` in bf16): the two agree within
-    the bf16 band, not bit for bit."""
+    and `momentum = 1 - decay`. That is the fp32 path. Under a mixed
+    policy (bf16 activations) the layer computes what JAX computes, in
+    JAX's order and dtype (:67-88): fp32 statistics of the fp32 view
+    (the batch's in training, the running ones at inference), ``inv =
+    1 / sqrt(var + eps)`` in fp32, then ``(x - mean.bf16) * inv.bf16``
+    and ``* gamma.bf16 + beta.bf16``, each product and sum rounded to
+    bf16 (`_normalize_rounded`, plain PyTorch elementwise ops)."""
 
     layer_name = "batchnorm"
     FIELDS = (("n_out", 0), ("decay", 0.9), ("eps", 1e-5),
@@ -84,7 +86,7 @@ class BatchNormalization(Layer):
         return {"mean": self.mean, "var": self.var}
 
     @torch.no_grad()
-    def init_weights(self, gen):
+    def init_weights(self, key):
         """gamma/beta from their init values, and a fresh running state
         (mean 0, var 1), as the JAX `init_params` and `init_state`."""
         self.mean.zero_()
@@ -96,24 +98,56 @@ class BatchNormalization(Layer):
     def forward(self, x, *, train=False, rng=None, mask=None,
                 new_state=None):
         dims = tuple(range(x.ndim - 1))
-        if train:
-            with torch.no_grad():
-                var, mean = torch.var_mean(x.float(), dim=dims, correction=0)
-                if new_state is not None:
-                    d = self.decay
-                    new_state["mean"] = d * self.mean + (1 - d) * mean
-                    new_state["var"] = d * self.var + (1 - d) * var
         gamma = beta = None
         if not self.lock_gamma_beta:
-            gamma = quant.weight(self, "gamma").float()
-            beta = quant.weight(self, "beta").float()
-        # channels to axis 1: NHWC -> channels_last NCHW, [B, T, F] ->
-        # [B, F, T] (views)
+            gamma = quant.weight(self, "gamma")
+            beta = quant.weight(self, "beta")
+        stats = {}
+        if x.dtype == torch.float32:
+            y = self._normalize_library(x, train, gamma, beta)
+        else:
+            y = self._normalize_rounded(x, train, gamma, beta, dims, stats)
+        if train and new_state is not None:
+            with torch.no_grad():
+                if stats:
+                    mean, var = stats["mean"], stats["var"]
+                else:
+                    var, mean = torch.var_mean(x.float(), dim=dims,
+                                               correction=0)
+                d = self.decay
+                new_state["mean"] = d * self.mean + (1 - d) * mean
+                new_state["var"] = d * self.var + (1 - d) * var
+        return self.activation(y)
+
+    def _normalize_library(self, x, train, gamma, beta):
+        """`F.batch_norm` with fp32 gamma/beta: channels to axis 1 (NHWC
+        -> channels_last NCHW, [B, T, F] -> [B, F, T], views)."""
+        if gamma is not None:
+            gamma, beta = gamma.float(), beta.float()
         xc = x.movedim(-1, 1) if x.ndim > 2 else x
         y = F.batch_norm(xc, None if train else self.mean,
                          None if train else self.var, gamma, beta,
                          training=train, eps=float(self.eps))
-        return self.activation(y.movedim(1, -1) if x.ndim > 2 else y)
+        return y.movedim(1, -1) if x.ndim > 2 else y
+
+    def _normalize_rounded(self, x, train, gamma, beta, dims, stats=None):
+        """JAX's normalization in x's dtype: the fp32 statistics (a
+        two-pass mean and population variance of the fp32 view, as
+        `jnp.var` takes it, differentiated through in training, and left
+        detached in `stats` for the running state), the fp32 inverse
+        deviation, then every elementwise step in x's dtype."""
+        if train:
+            mean = x.mean(dim=dims, dtype=torch.float32)
+            var = (x.float() - mean).square().mean(dim=dims)
+            if stats is not None:
+                stats.update(mean=mean.detach(), var=var.detach())
+        else:
+            mean, var = self.mean, self.var
+        inv = 1.0 / torch.sqrt(var + self.eps)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        if gamma is not None:
+            y = y * gamma.to(x.dtype) + beta.to(x.dtype)
+        return y
 
 
 @register_layer

@@ -82,7 +82,8 @@ class PositionalEncodingLayer(BaseRecurrentLayer):
     def init_carry(self, batch, dtype, device):
         return 0
 
-    def forward_with_carry(self, x, carry: int, mask=None):
+    def forward_with_carry(self, x, carry: int, mask=None, *, train=False,
+                           rng=None):
         T = x.shape[1]
         # dynamic_slice semantics: the start clamps to [0, max_len - T]
         start = max(0, min(int(carry), self.max_len - T))
@@ -165,10 +166,13 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         return ("attn_Wq", "attn_Wk", "attn_Wv", "attn_Wo", "ff_W1",
                 "ff_W2")
 
-    def init_weights(self, gen: torch.Generator):
-        self.attn.init_weights(gen, owner=self)
-        init_weight_(self, self.ff_W1, gen)
-        init_weight_(self, self.ff_W2, gen)
+    def init_weights(self, key):
+        """The JAX block's `init_params`: the attention under
+        `fold_in(key, 0)`, ff_W1 and ff_W2 under folds 11 and 12; the
+        LayerNorms and biases at their constants."""
+        self.attn.init_weights(prng.fold_in(key, 0), owner=self)
+        init_weight_(self, self.ff_W1, prng.fold_in(key, 11))
+        init_weight_(self, self.ff_W2, prng.fold_in(key, 12))
 
     def _ffn(self, h):
         act = get_activation(self.ff_activation)
@@ -205,24 +209,28 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         return (torch.zeros(shape, dtype=dtype, device=device),
                 torch.zeros(shape, dtype=dtype, device=device), 0)
 
-    def forward_with_carry(self, x, carry, mask=None):
+    def forward_with_carry(self, x, carry, mask=None, *, train=False,
+                           rng=None):
         """KV-cache streaming step; carry = (k_cache, v_cache, pos). A
         padding mask is refused, as JAX's block refuses it (:267-275): a
-        masked token's K/V would enter the cache."""
+        masked token's K/V would enter the cache. In training (truncated
+        BPTT) the residual and FFN dropouts apply under the block key's
+        folds 2 and 3, as on JAX's carry path (:317-335); the attention
+        dropout does not."""
         if mask is not None:
             raise ValueError(
                 "TransformerEncoderBlock cannot stream (forward_with_carry) "
                 "with a padding mask: masked tokens' K/V would enter the "
                 "cache; strip padding before streaming")
-        return self._carry_impl(x, carry)
+        return self._carry_impl(x, carry, train, rng)
 
-    def _carry_impl(self, x, carry):
+    def _carry_impl(self, x, carry, train=False, rng=None):
         k_cache, v_cache, pos = carry
         h = self.ln1(x)
         h, k_cache, v_cache = self.attn.forward_with_cache(
             h, k_cache, v_cache, pos)
-        return self._stream_tail(x, h), (k_cache, v_cache,
-                                         int(pos) + x.shape[1])
+        return (self._stream_tail(x, h, train, rng),
+                (k_cache, v_cache, int(pos) + x.shape[1]))
 
     def forward_paged(self, x, k_pool, v_pool, block_table, pos):
         """Paged decode step: attention reads/writes the shared pool (in
@@ -245,11 +253,15 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
             h, k_pool, v_pool, block_table, pos, n_valid)
         return self._stream_tail(x, h)
 
-    def _stream_tail(self, x, h):
-        """Post-attention half shared by both streaming paths: residual,
-        LN2, FFN, residual."""
-        x = x + h
-        return x + self._ffn(self.ln2(x))
+    def _stream_tail(self, x, h, train=False, rng=None):
+        """Post-attention half shared by both streaming paths: dropout,
+        residual, LN2, FFN, dropout, residual."""
+        def fold(i):
+            return None if rng is None else prng.fold_in(rng, i)
+
+        x = x + self.apply_input_dropout(h, train, fold(2))
+        return x + self.apply_input_dropout(self._ffn(self.ln2(x)), train,
+                                            fold(3))
 
 
 def stream_budget(layers):

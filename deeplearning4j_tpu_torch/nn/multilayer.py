@@ -37,11 +37,14 @@ list, and keeps the configuration as `.conf`, which
 layer, as in JAX; none is ported yet, so a configuration with one
 builds and its forward raises.
 
+Recurrent layers: `fit` takes truncated-BPTT steps when the
+configuration asks for them and the features are [B, T, F]
+(`nn/container.py` `_fit_tbptt`), and `rnn_time_step` streams inference
+with carries kept across calls (the JAX `rnn_time_step` :989-1024).
+
 Not ported yet, and refused rather than ignored: steps_per_execution >
 1, `data_format`, and, in `fit` and `score` (`_check_trainable`),
-truncated BPTT, `pretrain`, a line-search `optimization_algo`,
-diagnostics and `WeightNoise` over a distribution other than normal or
-uniform.
+`pretrain`, a line-search `optimization_algo` and diagnostics.
 """
 
 from __future__ import annotations
@@ -83,12 +86,6 @@ class MultiLayerNetwork(Container):
         self._setup(conf, conf.layers, [str(i) for i in range(n)],
                     {str(i): i for i in range(n)}, device, dtype_policy)
 
-    def init_carries(self, batch: int) -> Dict[str, object]:
-        return {str(i): layer.init_carry(batch, self.dtype.compute_dtype,
-                                         self.device)
-                for i, layer in enumerate(self.layers)
-                if isinstance(layer, BaseRecurrentLayer)}
-
     # ----------------------------------------------------------- forward
     def _forward(self, x, carries: Optional[Dict[str, object]] = None,
                  upto: Optional[int] = None, *, train: bool = False,
@@ -97,9 +94,10 @@ class MultiLayerNetwork(Container):
         """The forward through layers [0, upto). Without carries: each
         layer's full-sequence `forward` with its key `fold_in(rng, i)`
         (None without `rng`) and the mask the layers before it carried.
-        With carries (streaming decode / prefill): recurrent layers run
-        `forward_with_carry` from `carries[str(i)]` (their fresh carry
-        when absent). `collect` gets each layer's output appended;
+        With carries (streaming decode / prefill, truncated BPTT):
+        recurrent layers run `forward_with_carry` from `carries[str(i)]`
+        (their fresh carry when absent), with their keys and weight noise
+        in training. `collect` gets each layer's output appended;
         `new_state` the running state of the stateful layers in
         training. Returns (h, new_carries, mask)."""
         if not isinstance(self.layers[0], EmbeddingLayer):
@@ -112,13 +110,9 @@ class MultiLayerNetwork(Container):
             if i in pre:
                 h = pre[i].pre_process(h, mask)
             if carries is not None and isinstance(layer, BaseRecurrentLayer):
-                carry = carries.get(str(i))
-                if carry is None:
-                    carry = layer.init_carry(h.shape[0],
-                                             self.dtype.compute_dtype,
-                                             self.device)
-                h, new_carries[str(i)] = layer.forward_with_carry(
-                    h, carry, mask=mask)
+                h, new_carries[str(i)] = self._call_with_carry(
+                    str(i), layer, h, carries.get(str(i)), train=train,
+                    rng=rng, mask=mask)
             else:
                 h = self._call_layer(str(i), layer, h, train=train, rng=rng,
                                      mask=mask, new_state=new_state)
@@ -164,20 +158,25 @@ class MultiLayerNetwork(Container):
 
     # --------------------------------------------------------------- loss
     def _loss_fn(self, x, y, fmask=None, lmask=None, *, train=False,
-                 rng=None, new_state=None):
+                 rng=None, new_state=None, carries=None, carries_out=None):
         """The output layer's loss on the forward through the layers
         before it, plus the l1/l2 penalty (the JAX `_loss_fn` without
         diagnostics or the MoE aux loss). The label mask defaults to the
         mask the layers carried; the output layer's key is
-        `fold_in(rng, n - 1)`."""
+        `fold_in(rng, n - 1)`. With `carries` (truncated BPTT) the
+        recurrent layers run from them and leave their new carries in
+        `carries_out`."""
         out = self.layers[-1]
         if not isinstance(out, BaseOutputLayerMixin):
             raise ValueError(f"the last layer ({type(out).__name__}) has no "
                              f"loss; fit needs an output layer")
         self._check_trainable()
         n = len(self.layers)
-        h, _, mask = self._forward(x, upto=n - 1, train=train, rng=rng,
-                                   mask=fmask, new_state=new_state)
+        h, new_carries, mask = self._forward(
+            x, carries, upto=n - 1, train=train, rng=rng, mask=fmask,
+            new_state=new_state)
+        if carries_out is not None:
+            carries_out.update(new_carries)
         loss = self._output_loss(
             str(n - 1), out, h, y, lmask if lmask is not None else mask,
             train=train, rng=rng)
@@ -202,6 +201,39 @@ class MultiLayerNetwork(Container):
             i = j
         return runs
 
+    # ----------------------------------------------------- truncated BPTT
+    def _tbptt_time(self, x):
+        return (int(x.shape[1]) if self._is_tbptt() and x.ndim == 3
+                else None)
+
+    def _batch_of(self, x) -> int:
+        return int(x.shape[0])
+
+    def _chunk(self, x, y, fmask, lmask, s, L):
+        return (x[:, s:s + L], y[:, s:s + L] if y.ndim == 3 else y,
+                None if fmask is None else fmask[:, s:s + L],
+                None if lmask is None else
+                (lmask[:, s:s + L] if lmask.ndim >= 2 else lmask))
+
+    # ------------------------------------------------------ rnn streaming
+    def rnn_time_step(self, x):
+        """Streaming inference carrying every recurrent layer's state
+        across calls (the JAX `rnn_time_step`): [B, F] is one step (the
+        output loses its time axis), [B, T, F] a chunk; with an
+        embedding over a recurrent input the features are [B, T] token
+        ids. Returns the last layer's activation in the compute dtype.
+        `rnn_clear_previous_state()` starts a new sequence."""
+        x = self._inputs(x)
+        ids_input = bool(getattr(self.layers[0], "time_series_input",
+                                 False))
+        squeeze = x.ndim == 2 and not ids_input
+        if squeeze:
+            x = x[:, None, :]
+        t_new = int(x.shape[1]) if x.ndim in (2, 3) else 1
+        h = self._stream(lambda c: self._forward(x, c)[:2], int(x.shape[0]),
+                         t_new)
+        return h[:, -1, :] if squeeze and h.ndim == 3 else h
+
     # ---------------------------------------------------------------- fit
     def _features(self, x) -> torch.Tensor:
         return self._features_for(x, self.layers[0])
@@ -211,9 +243,9 @@ class MultiLayerNetwork(Container):
             steps_per_execution: int = 1):
         """Train (the JAX `fit`): `data` is an iterator of `DataSet`s, a
         `DataSet` (or a list of them), or a feature array with `labels`,
-        shuffled each epoch by JAX's stream. The port's net has no
-        truncated-BPTT or line-search-solver setting: it always takes
-        plain backprop steps."""
+        shuffled each epoch by JAX's stream. Under `backprop_type`
+        tbptt each [B, T, F] minibatch is one iteration of truncated-BPTT
+        chunks."""
         self._check_steps_per_execution(steps_per_execution)
         if data_format not in (None, "native"):
             raise NotImplementedError(f"data_format {data_format!r} is not "

@@ -47,8 +47,11 @@ Decode-parity contract: for the same prompt the greedy stream equals
 `generate()`'s (`generate(quantize=...)` for int8), by margin where a
 K-wide score and single-token decodes differ in rounding
 (`zoo.transformer.stream_agreement`). Sampled token t of a request is
-the Gumbel-max draw with noise seeded by (request seed, t), so a stream
-does not depend on what else is in flight, across preemption included.
+JAX's `categorical(fold_in(request key, t), logits)`: the request's
+key is JAX's (`rng` a [2] uint32 key, an int seed meaning
+`PRNGKey(seed)`, None the zero key), every slot's Gumbel noise comes
+from one launch of the per-row-key threefry kernel, and a stream does
+not depend on what else is in flight, across preemption included.
 The handoff export/adopt, the goodput ledger and the SLO, trace and
 metrics mirrors are later slices.
 """
@@ -60,6 +63,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.layers import (
@@ -77,9 +81,9 @@ from deeplearning4j_tpu_torch.serving.paged import (
 from deeplearning4j_tpu_torch.zoo.transformer import (
     check_ids,
     get_prefill_bucketed,
-    gumbel_noise,
     paged_score_forward,
     rejection_sample_drafts,
+    request_key,
     sample_ids,
 )
 
@@ -93,9 +97,9 @@ def bucket_len(n: int, cap: int) -> int:
 
 
 def _request_fields(r: dict):
-    """(seed, emit offset, temperature, top_p) of a request dict."""
+    """(key, emit offset, temperature, top_p) of a request dict."""
     p = r.get("top_p")
-    return (int(r.get("rng") or 0), int(r.get("emit_start") or 0),
+    return (request_key(r.get("rng")), int(r.get("emit_start") or 0),
             float(r.get("temperature") or 0.0), 1.0 if p is None else p)
 
 
@@ -124,7 +128,7 @@ class PagedDecodeEngine:
     """Continuous-batching decode over a `PagedKVPool`. Single-threaded:
     every method is called from one scheduler thread (serving/server.py)
     or directly by a test. `top_k` is engine-static; temperature, top_p
-    and the sampling seed are per request."""
+    and the sampling key are per request."""
 
     def __init__(self, net, *, n_slots: int = 8, n_blocks: int = 64,
                  block_len: int = 16, top_k: Optional[int] = None,
@@ -249,7 +253,7 @@ class PagedDecodeEngine:
         self.remaining = np.zeros(S, np.int64)
         self.emit_idx = np.zeros(S, np.int64)
         self.last_token = np.zeros(S, np.int64)
-        self.seeds = np.zeros(S, np.int64)
+        self.keys = np.zeros((S, 2), np.int64)
         self.temp = np.zeros(S, np.float32)
         self.top_p = np.ones(S, np.float32)
         self.slots: List[Optional[Slot]] = [None] * S
@@ -419,19 +423,19 @@ class PagedDecodeEngine:
                 f"shorten the request")
 
     # ----------------------------------------------------------- sampling
-    def _noise(self, seeds, emit_idx, temps) -> Optional[torch.Tensor]:
-        """Gumbel noise [S, V] on the device: rows with temp > 0 get
-        their request's (seed, emit index) draw, greedy rows zeros."""
+    def _noise(self, keys, emit_idx, temps) -> Optional[torch.Tensor]:
+        """Gumbel noise [S, V] on the device, row s JAX's
+        `gumbel(fold_in(keys[s], emit_idx[s]), (V,))`: the folds on the
+        host, every row's words in one launch of the per-row-key kernel.
+        None when no row samples."""
         if not (temps > 0).any():
             return None
-        noise = torch.zeros((len(seeds), self.vocab))
-        for s in np.flatnonzero(temps > 0):
-            noise[s] = gumbel_noise(int(seeds[s]), int(emit_idx[s]),
-                                    self.vocab)
-        return noise.to(self.device)
+        skeys = prng.fold_in_rows(torch.as_tensor(np.asarray(keys)),
+                                  torch.as_tensor(np.asarray(emit_idx)))
+        return prng.gumbel_rows(skeys.to(self.device), self.vocab)
 
-    def _sample(self, probs, seeds, emit_idx, temps, top_ps):
-        noise = self._noise(seeds, emit_idx, temps)
+    def _sample(self, probs, keys, emit_idx, temps, top_ps):
+        noise = self._noise(keys, emit_idx, temps)
         dev = self.device
         return sample_ids(probs, torch.as_tensor(temps, device=dev),
                           self.top_k, torch.as_tensor(top_ps, device=dev),
@@ -503,7 +507,8 @@ class PagedDecodeEngine:
     def admit_many(self, requests: List[dict]):
         """Admission wave over a FIFO prefix of `requests` (stops at slot
         or block capacity). Each dict: prompt_ids, n_tokens, and
-        optionally request_id, temperature, top_p, rng (an int seed) and
+        optionally request_id, temperature, top_p, rng (a [2] uint32 key or
+        an int seed, `request_key`) and
         emit_start (a requeued continuation's emitted count). Returns
         [(slot, first_token, done), ...] for the admitted prefix."""
         if not requests:
@@ -642,17 +647,17 @@ class PagedDecodeEngine:
             torch.as_tensor(prompts, device=dev),
             self.net.init_carries(k2), torch.as_tensor(last_idx, device=dev))
         rows = np.full((k2, self.max_blocks), GARBAGE_BLOCK, np.int64)
-        seeds = np.zeros(k2, np.int64)
+        keys = np.zeros((k2, 2), np.int64)
         emit0 = np.zeros(k2, np.int64)
         temps = np.zeros(k2, np.float32)
         top_ps = np.ones(k2, np.float32)
         for j, w in enumerate(wave):
             rows[j, :len(w["blocks"])] = w["blocks"]
-            seeds[j], emit0[j], temps[j], top_ps[j] = _request_fields(w["r"])
+            keys[j], emit0[j], temps[j], top_ps[j] = _request_fields(w["r"])
         self._scatter_carries(carries, rows, k2)
-        firsts = self._sample(probs, seeds, emit0, temps, top_ps).cpu().numpy()
+        firsts = self._sample(probs, keys, emit0, temps, top_ps).cpu().numpy()
         for j, w in enumerate(wave):
-            self._finish_admission(w, int(firsts[j]), int(seeds[j]), results)
+            self._finish_admission(w, int(firsts[j]), keys[j], results)
 
     def _admit_wave_shared(self, wave, results):
         """Shared-prefix (CoW) admission: fork the mid-block tails, then
@@ -668,7 +673,7 @@ class PagedDecodeEngine:
             self.block_tables[slot] = GARBAGE_BLOCK
             self.block_tables[slot, :len(w["blocks"])] = w["blocks"]
             w["suffix"] = w["prompt"][w["entry"]["len"]:]
-        firsts, seed_of = {}, {}
+        firsts, key_of = {}, {}
         S = self.n_slots
         ext = [w for w in wave if w["suffix"].shape[0] > 0]
         if ext:
@@ -677,7 +682,7 @@ class PagedDecodeEngine:
             token_mat = np.zeros((S, K), np.int64)
             n_valid = np.zeros(S, np.int64)
             pos = np.zeros(S, np.int64)
-            seeds = np.zeros(S, np.int64)
+            keys = np.zeros((S, 2), np.int64)
             emit0 = np.zeros(S, np.int64)
             temps = np.zeros(S, np.float32)
             top_ps = np.ones(S, np.float32)
@@ -686,14 +691,14 @@ class PagedDecodeEngine:
                 token_mat[s, :Ts] = w["suffix"]
                 n_valid[s] = Ts
                 pos[s] = w["entry"]["len"]
-                seeds[s], emit0[s], temps[s], top_ps[s] = _request_fields(
+                keys[s], emit0[s], temps[s], top_ps[s] = _request_fields(
                     w["r"])
-                seed_of[s] = int(seeds[s])
+                key_of[s] = keys[s]
             probs = self._score(token_mat, pos, n_valid)
             last = probs[torch.arange(S, device=self.device),
                          torch.as_tensor(np.maximum(n_valid - 1, 0),
                                          device=self.device)]
-            chosen = self._sample(last, seeds, emit0, temps,
+            chosen = self._sample(last, keys, emit0, temps,
                                   top_ps).cpu().numpy()
             for w in ext:
                 firsts[w["slot"]] = int(chosen[w["slot"]])
@@ -701,23 +706,23 @@ class PagedDecodeEngine:
         if exact:
             n = len(exact)
             probs = torch.stack([w["entry"]["probs"] for w in exact])
-            seeds = np.zeros(n, np.int64)
+            keys = np.zeros((n, 2), np.int64)
             emit0 = np.zeros(n, np.int64)
             temps = np.zeros(n, np.float32)
             top_ps = np.ones(n, np.float32)
             for j, w in enumerate(exact):
-                seeds[j], emit0[j], temps[j], top_ps[j] = _request_fields(
+                keys[j], emit0[j], temps[j], top_ps[j] = _request_fields(
                     w["r"])
-                seed_of[w["slot"]] = int(seeds[j])
-            ids = self._sample(probs, seeds, emit0, temps,
+                key_of[w["slot"]] = keys[j]
+            ids = self._sample(probs, keys, emit0, temps,
                                top_ps).cpu().numpy()
             for j, w in enumerate(exact):
                 firsts[w["slot"]] = int(ids[j])
         for w in wave:
-            self._finish_admission(w, firsts[w["slot"]], seed_of[w["slot"]],
+            self._finish_admission(w, firsts[w["slot"]], key_of[w["slot"]],
                                    results)
 
-    def _finish_admission(self, w, first, seed, results):
+    def _finish_admission(self, w, first, key, results):
         """Slot bookkeeping of both admission paths."""
         slot, prompt, blocks = w["slot"], w["prompt"], w["blocks"]
         n_tokens, r = w["n_tokens"], w["r"]
@@ -734,7 +739,7 @@ class PagedDecodeEngine:
         self.remaining[slot] = n_tokens - 1
         self.emit_idx[slot] = emit0 + 1
         self.last_token[slot] = first
-        self.seeds[slot] = seed
+        self.keys[slot] = key
         self.temp[slot] = temp
         self.top_p[slot] = top_p
         self.active[slot] = not done
@@ -910,7 +915,7 @@ class PagedDecodeEngine:
         with self._weights():
             for j in range(J):
                 probs = self._walk(self._plan, tok, pos, bt)
-                tok = self._sample(probs, self.seeds, self.emit_idx + j,
+                tok = self._sample(probs, self.keys, self.emit_idx + j,
                                    temps, self.top_p)
                 out.append(tok)
                 pos = pos + 1
@@ -1057,7 +1062,7 @@ class PagedDecodeEngine:
         if use_rs:
             n_acc, final = rejection_sample_drafts(
                 probs, torch.as_tensor(token_mat, device=dev),
-                torch.as_tensor(n_valid, device=dev), self.seeds,
+                torch.as_tensor(n_valid, device=dev), self.keys,
                 self.emit_idx, torch.as_tensor(self.temp, device=dev),
                 torch.as_tensor(self.top_p, device=dev), self.top_k)
             n_acc, final = n_acc.cpu().numpy(), final.cpu().numpy()
@@ -1065,7 +1070,7 @@ class PagedDecodeEngine:
             last = probs[torch.arange(S, device=dev),
                          torch.as_tensor(np.maximum(n_valid - 1, 0),
                                          device=dev)]
-            chosen = self._sample(last, self.seeds, self.emit_idx,
+            chosen = self._sample(last, self.keys, self.emit_idx,
                                   np.where(self.active, self.temp, 0.0),
                                   self.top_p).cpu().numpy()
         self.spec_dispatches_total += 1

@@ -326,11 +326,12 @@ class GenerationServer:
     def generate_async(self, prompt_ids, n_tokens: int, *,
                        temperature: float = 0.0,
                        top_p: Optional[float] = None,
-                       rng: Optional[int] = None,
+                       rng=None,
                        emit_start: int = 0) -> TokenStream:
         """Enqueue one request; returns its token stream. `rng` is the
-        sampling seed (an int); a sampled request without one draws a
-        fresh random seed."""
+        sampling key (a [2] uint32 key, or an int seed meaning
+        `PRNGKey(seed)`); a sampled request without one draws a fresh
+        random key, as the JAX server does."""
         if self._stopped:
             raise RuntimeError("GenerationServer is stopped")
         if self._draining:
@@ -352,7 +353,7 @@ class GenerationServer:
         if temperature < 0:
             raise ValueError(f"temperature must be >= 0; got {temperature}")
         if temperature > 0 and rng is None:
-            rng = int.from_bytes(os.urandom(7), "little")
+            rng = np.frombuffer(os.urandom(8), np.uint32).copy()
         fut: Future = Future()
         stream = TokenStream(fut, int(prompt.shape[0]), int(n_tokens),
                              on_close=self._stream_closed)

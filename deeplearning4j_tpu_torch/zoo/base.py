@@ -1,13 +1,28 @@
 """ZooModel template (counterpart of `deeplearning4j_tpu/zoo/base.py`):
-a model's configuration (`conf()`) and its net with weights drawn from
-the seed (`init()`). The port ships no weights and downloads nothing:
-`init_pretrained` refuses, and the JAX models' Keras-import hooks have
-no counterpart.
+a model's configuration (`conf()`), its net with weights drawn from the
+seed (`init()`), and the packaged checkpoints (`init_pretrained`, JAX
+:90-137).
+
+The port downloads nothing. A packaged checkpoint is a file the JAX
+package ships in `deeplearning4j_tpu/zoo/weights/`, read in place as a
+data file (no module of that package is imported): `MANIFEST.json`
+maps its name to its sha256 (and, for the char-LM, its charset), the
+hash is checked before anything is read, and the zip is restored
+through the port's own `util/serializer.py`. A type without a packaged
+file, or a Keras h5 payload, is refused by name.
 """
 
 from __future__ import annotations
 
+import hashlib
+import json
 from enum import Enum
+from pathlib import Path
+from typing import Optional
+
+# the JAX package's packaged weights, read as data
+WEIGHTS_DIR = (Path(__file__).resolve().parents[2] / "deeplearning4j_tpu"
+               / "zoo" / "weights")
 
 
 class PretrainedType(str, Enum):
@@ -18,7 +33,22 @@ class PretrainedType(str, Enum):
     TEXT = "text"
 
 
+def packaged_weight_entry(name: str) -> Optional[dict]:
+    """The manifest's entry for a packaged file (None when the file or
+    its entry is missing), as the JAX `packaged_weight_entry` reads it."""
+    f, mf = WEIGHTS_DIR / name, WEIGHTS_DIR / "MANIFEST.json"
+    if not (f.exists() and mf.exists()):
+        return None
+    manifest = json.loads(mf.read_text())
+    if "file" in manifest:      # the single-entry layout
+        manifest = {manifest["file"]: manifest}
+    return manifest.get(name)
+
+
 class ZooModel:
+    # {PretrainedType: file name in the JAX package's zoo/weights/}
+    packaged: dict = {}
+
     def __init__(self, num_classes: int = 1000, seed: int = 123, **kwargs):
         self.num_classes = num_classes
         self.seed = seed
@@ -30,9 +60,43 @@ class ZooModel:
     def init(self, device="cuda", dtype_policy=None):
         raise NotImplementedError
 
-    def init_pretrained(self, ptype: PretrainedType = PretrainedType.IMAGENET):
-        raise NotImplementedError(
-            f"{type(self).__name__}.init_pretrained: the port ships no "
-            f"weights and downloads nothing; restore a model zip "
-            f"(util/serializer.py) or load a JAX net's params "
-            f"(util/jax_params.py)")
+    def pretrained_path(self, ptype: PretrainedType) -> Optional[Path]:
+        name = self.packaged.get(PretrainedType(ptype))
+        return None if name is None else WEIGHTS_DIR / name
+
+    def pretrained_checksum(self, ptype: PretrainedType) -> Optional[str]:
+        name = self.packaged.get(PretrainedType(ptype))
+        entry = None if name is None else packaged_weight_entry(name)
+        return None if entry is None else entry.get("sha256")
+
+    def init_pretrained(self, ptype: PretrainedType = PretrainedType.IMAGENET,
+                        *, device="cuda"):
+        """The packaged checkpoint of `ptype` restored on `device`: its
+        sha256 (md5 for a 32-digit hash) checked against the manifest
+        first, an IOError on a mismatch, then `ModelSerializer.
+        restore_model` of the zip in place."""
+        from deeplearning4j_tpu_torch.device import resolve_device
+        ptype = PretrainedType(ptype)
+        path, expected = self.pretrained_path(ptype), None
+        if path is not None and path.exists():
+            expected = self.pretrained_checksum(ptype)
+        if not expected:
+            raise NotImplementedError(
+                f"{type(self).__name__}.init_pretrained: no weights for "
+                f"{ptype.value} — no packaged checkpoint with a manifest "
+                f"checksum in the JAX package's zoo/weights/, and the port "
+                f"downloads nothing (restore a model zip with "
+                f"util/serializer.py, or load a JAX net's params with "
+                f"util/jax_params.py)")
+        device = resolve_device(device)
+        algo = hashlib.md5 if len(expected) == 32 else hashlib.sha256
+        got = algo(path.read_bytes()).hexdigest()
+        if got != expected:
+            raise IOError(f"Checksum mismatch for {path}: {got} != "
+                          f"{expected}")
+        if path.suffix != ".zip":
+            raise NotImplementedError(
+                f"{path.name}: only ModelSerializer zips restore in the "
+                f"port (the Keras importer is not ported)")
+        from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+        return ModelSerializer.restore_model(path, device=device)

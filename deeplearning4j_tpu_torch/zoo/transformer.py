@@ -5,18 +5,16 @@
 `paged_score_forward` :207, `rejection_sample_drafts` :252, `generate`
 :336).
 
-Sampling cannot reproduce JAX's threefry bits. Here a sampled token is
-the Gumbel-max draw ``argmax(filtered_logits + g)`` with `g` made on the
-host by a `torch.Generator` seeded from (request seed, emit index), so
-token t of a stream depends only on its seed and t — never on what else
-is batched with it — in `generate()` and in the serving engine alike.
-Greedy decoding is the bit-level contract with the JAX package; sampled
-decoding's is distributional (each token's marginal is the softmax of
-the filtered logits, as `jax.random.categorical` draws it). Rejection
-sampling draws from two more streams of (seed, t), each its own
-generator seed (`_sub_seed`): the acceptance uniform (1) and the
-resample's Gumbel noise (2), as JAX's `fold_in(·, 1)` and `fold_in(·,
-2)`; neither repeats the vanilla (seed, t) draw.
+Sampling draws JAX's noise from JAX's keys (`common/prng.py`): a
+sampled token is `jax.random.categorical`'s ``argmax(filtered_logits +
+gumbel(key))``. `generate()` splits its key once a step, as the JAX
+decode scan does (:421-424), and draws the whole batch's [B, V] noise
+under the step's key; the serving engine draws row s under
+`fold_in(request key, emit index)`. Rejection sampling folds each
+lane's key further: 1 for the acceptance uniform, 2 for the resample
+(JAX :300-332). The bits are exact and the noise is within about 5e-6
+of JAX's (the logs), so a sampled stream equals JAX's up to near-ties
+of the noisy logits.
 
 Decoding runs under the dtype policy and `quantize=`: the weights are
 the net's serving tree (`nd.quant.serving`: int8, or the compute-dtype
@@ -38,6 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.common.updaters import Adam
 from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.common.weights import WeightInit
@@ -106,9 +105,9 @@ class TransformerClassifier:
 
     def init(self, seed: Optional[int] = None, *, device="cuda",
              dtype_policy=None) -> MultiLayerNetwork:
-        """A net with Xavier-normal weights from a CPU `torch.Generator`
-        seeded with `seed` (default: the model's seed), as
-        `TransformerLM.init` draws them."""
+        """The JAX model's net: Xavier-normal weights from JAX's keys
+        for `seed` (default: the model's seed), as `TransformerLM.init`
+        draws them."""
         return MultiLayerNetwork(self.conf(), device=device,
                                  dtype_policy=dtype_policy).init(
             self.seed if seed is None else seed)
@@ -163,10 +162,9 @@ class TransformerLM:
 
     def init(self, seed: Optional[int] = None, *, device="cuda",
              dtype_policy=None) -> MultiLayerNetwork:
-        """A net with Xavier-normal weights drawn from a CPU
-        `torch.Generator` seeded with `seed` (default: the model's seed;
-        not the JAX package's threefry draws: load those with
-        `util.jax_params.from_jax_params`). `dtype_policy` (a
+        """The JAX model's net: Xavier-normal weights drawn from JAX's
+        threefry keys for `seed` (default: the model's seed), on
+        `device`. `dtype_policy` (a
         `nd.dtype.DataTypePolicy`, a preset name such as "mixed_bf16", or
         None) goes to the container, where ``DL4J_DTYPE_POLICY``
         overrides it."""
@@ -212,48 +210,23 @@ def filter_logits(logits, top_k: Optional[int], top_p):
     return logits
 
 
-def _mix(seed: int, t: int) -> int:
-    """splitmix64 of (seed, t): the per-token generator seed."""
-    z = (int(seed) * 0x9E3779B97F4A7C15 + int(t) + 1) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & 0xFFFFFFFFFFFFFFFF
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & 0xFFFFFFFFFFFFFFFF
-    return (z ^ (z >> 31)) & 0x7FFFFFFFFFFFFFFF
-
-
-def _sub_seed(seed: int, t: int, sub: int) -> int:
-    """Generator seed of sub-stream `sub` of (seed, t)."""
-    return _mix(_mix(seed, t), sub)
-
-
-def _gumbel(gen_seed: int, vocab: int) -> torch.Tensor:
-    g = torch.Generator().manual_seed(gen_seed)
-    u = torch.rand(vocab, generator=g, dtype=torch.float64)
-    u = u.clamp(1e-12, 1.0 - 1e-12)
-    return (-torch.log(-torch.log(u))).float()
-
-
-def gumbel_noise(seed: int, t: int, vocab: int) -> torch.Tensor:
-    """Gumbel(0, 1) noise [vocab] for token `t` of the stream seeded
-    `seed`, drawn on the CPU from a `torch.Generator`."""
-    return _gumbel(_mix(seed, t), vocab)
-
-
-def accept_uniform(seed: int, t: int) -> float:
-    """U[0, 1) of the acceptance test at token `t` (sub-stream 1)."""
-    g = torch.Generator().manual_seed(_sub_seed(seed, t, 1))
-    return float(torch.rand(1, generator=g, dtype=torch.float64))
-
-
-def resample_noise(seed: int, t: int, vocab: int) -> torch.Tensor:
-    """Gumbel noise [vocab] of the resample at token `t` (sub-stream
-    2)."""
-    return _gumbel(_sub_seed(seed, t, 2), vocab)
+def request_key(rng):
+    """A threefry key as the JAX engine and `generate` take one: a [2]
+    uint32 key as is, an int seed as `PRNGKey(seed)`, None as the zero
+    key (`PRNGKey(0)`)."""
+    if rng is None:
+        return (0, 0)
+    if np.ndim(rng) == 0:
+        return prng.key(int(rng))
+    k0, k1 = (int(v) for v in np.asarray(rng).reshape(2))
+    return (k0 & prng.MASK, k1 & prng.MASK)
 
 
 def sample_ids(probs, temp, top_k, top_p, noise, greedy_only=False):
     """Next token per row of `probs` [S, V]: argmax where temp == 0 (the
     JAX greedy path), else the Gumbel-max draw from
-    ``filter_logits(log(clip(probs, 1e-9)) / temp)`` with `noise` [S, V].
+    ``filter_logits(log(clip(probs, 1e-9)) / temp)`` with `noise` [S, V]
+    (JAX's `categorical` when the noise is `prng.gumbel`'s).
     `temp`/`top_p` are [S] tensors on probs' device."""
     greedy_ids = torch.argmax(probs, dim=-1)
     if greedy_only:
@@ -315,7 +288,7 @@ def paged_score_forward(net: MultiLayerNetwork, plan, kv, block_tables,
     return net.dtype.cast_output(h)
 
 
-def rejection_sample_drafts(probs, token_mat, n_valid, seeds, emit_idx,
+def rejection_sample_drafts(probs, token_mat, n_valid, keys, emit_idx,
                             temp, top_p, top_k):
     """Speculative rejection sampling over point-mass drafts (JAX :252):
     draft d at lane j+1 is accepted with probability q_t(d), where q_t is
@@ -327,11 +300,14 @@ def rejection_sample_drafts(probs, token_mat, n_valid, seeds, emit_idx,
     E[accepted at lane j] = q_t(d). A zero-support draft is always
     rejected (u < 0 never holds).
 
+    Keys as JAX folds them: lane j of slot s is ``fold_in(keys[s],
+    emit_idx[s] + j)``, its acceptance uniform is drawn under that key's
+    fold 1 and the resample under the final lane's fold 2 (folds on the
+    host, each draw's rows in one launch of the per-row-key kernel).
+
     `probs` [S, K, V] (`paged_score_forward`), `token_mat` [S, K] (lanes
-    1 .. n_valid-1 are drafts), `n_valid` [S]; `seeds` and `emit_idx`
-    are host int arrays [S]: lane j of slot s draws its acceptance
-    uniform from sub-stream 1 and its resample noise from sub-stream 2
-    of (seeds[s], emit_idx[s] + j). `temp`, `top_p` [S] tensors on
+    1 .. n_valid-1 are drafts), `n_valid` [S]; `keys` [S, 2] and
+    `emit_idx` [S] are host int arrays. `temp`, `top_p` [S] tensors on
     probs' device; rows with temp 0 run at a guard temperature and are
     ignored by the caller. Returns (n_acc [S], final [S]): the leading
     accepted drafts and the token at lane n_acc."""
@@ -342,17 +318,19 @@ def rejection_sample_drafts(probs, token_mat, n_valid, seeds, emit_idx,
     logits = filter_logits(logits, top_k,
                            None if top_p is None else top_p[:, None, None])
     qt = torch.softmax(logits, dim=-1)
-    u = torch.tensor([[accept_uniform(int(seeds[s]), int(emit_idx[s]) + j)
-                       for j in range(K - 1)] for s in range(S)],
-                     dtype=torch.float64).reshape(S, K - 1)
-    noise = torch.stack([torch.stack([
-        resample_noise(int(seeds[s]), int(emit_idx[s]) + j, V)
-        for j in range(K)]) for s in range(S)]).to(dev)       # [S, K, V]
+    lanes = (torch.as_tensor(np.asarray(emit_idx))[:, None]
+             + torch.arange(K)[None, :])                          # [S, K]
+    pos_keys = prng.fold_in_rows(
+        torch.as_tensor(np.asarray(keys)).repeat_interleave(K, dim=0),
+        lanes.reshape(-1)).reshape(S, K, 2)
+    acc_keys = prng.fold_in_rows(pos_keys[:, :-1].reshape(-1, 2),
+                                 torch.ones(S * (K - 1), dtype=torch.int64))
+    u = prng.uniform_rows(acc_keys.to(dev), 1)[:, 0].reshape(S, K - 1)
     drafts = token_mat[:, 1:]
     p_acc = torch.gather(qt[:, :-1, :], 2, drafts[..., None])[..., 0]
     lane_ok = (torch.arange(K - 1, device=dev)[None, :]
                < (n_valid[:, None] - 1))
-    acc = (u.to(dev) < p_acc.double()) & lane_ok
+    acc = (u < p_acc) & lane_ok
     n_acc = torch.cumprod(acc.long(), dim=1).sum(dim=1)
     lane = n_acc.clamp(0, K - 1)
     final_logits = torch.gather(
@@ -363,9 +341,10 @@ def rejection_sample_drafts(probs, token_mat, n_valid, seeds, emit_idx,
     mask = (torch.nn.functional.one_hot(rej_tok, V).bool()
             & rejected[:, None])
     final_logits = final_logits.masked_fill(mask, float("-inf"))
-    lane_noise = torch.gather(
-        noise, 1, lane[:, None, None].expand(S, 1, V))[:, 0]
-    final = torch.argmax(final_logits + lane_noise, dim=-1)
+    lane_keys = pos_keys[torch.arange(S), lane.cpu()]
+    fin_keys = prng.fold_in_rows(lane_keys, torch.full((S,), 2,
+                                                       dtype=torch.int64))
+    final = prng.categorical_rows(fin_keys.to(dev), final_logits)
     return n_acc, final
 
 
@@ -377,11 +356,12 @@ def generate(net: MultiLayerNetwork, prompt_ids, n_tokens: int, *,
     """Autoregressive decoding with per-layer KV caches: one prefill over
     the prompt, then one forward per token (a Python loop — PyTorch runs
     eagerly). `prompt_ids` [B, T] ints -> [B, n_tokens] ids (numpy).
-    `temperature=0` is greedy argmax; otherwise row b samples with seed
-    ``rng + b`` (default rng 0) — the engine's per-request seed scheme,
-    so a one-row sampled `generate` and a served request with the same
-    seed draw the same noise. `quantize="int8"` decodes from the net's
-    cached int8 serving tree (`nd.quant`); the params are untouched."""
+    `temperature=0` is greedy argmax; otherwise each step splits the key
+    (`rng`: a [2] uint32 key, an int seed meaning `PRNGKey(seed)`, or
+    None for `PRNGKey(0)`, as in JAX) and draws the batch's token with
+    `categorical` under the step's subkey, as the JAX decode scan does.
+    `quantize="int8"` decodes from the net's cached int8 serving tree
+    (`nd.quant`); the params are untouched."""
     prompt_np = np.asarray(prompt_ids).astype(np.int64)
     if prompt_np.ndim != 2 or prompt_np.shape[1] == 0:
         raise ValueError(f"prompt_ids must be [B, T>0]; got {prompt_np.shape}")
@@ -395,7 +375,7 @@ def generate(net: MultiLayerNetwork, prompt_ids, n_tokens: int, *,
         raise ValueError(f"top_p must be in (0, 1]; got {top_p}")
     dev = net.device
     greedy = float(temperature) == 0.0
-    seed0 = 0 if rng is None else int(rng)
+    key = request_key(rng)
     temp = torch.full((B,), float(temperature), device=dev)
     top_p_t = torch.full((B,), 1.0 if top_p is None else float(top_p),
                          device=dev)
@@ -405,8 +385,10 @@ def generate(net: MultiLayerNetwork, prompt_ids, n_tokens: int, *,
         probs, carries = prefill(torch.as_tensor(prompt_np, device=dev),
                                  net.init_carries(B))
         for t in range(n_tokens):
-            noise = None if greedy else torch.stack(
-                [gumbel_noise(seed0 + b, t, vocab) for b in range(B)]).to(dev)
+            noise = None
+            if not greedy:
+                key, sub = prng.split(key)
+                noise = prng.gumbel(sub, (B, vocab), probs.dtype, dev)
             nxt = sample_ids(probs, temp, top_k, top_p_t, noise,
                              greedy_only=greedy)
             out.append(nxt)

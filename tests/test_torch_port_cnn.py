@@ -32,6 +32,7 @@ from deeplearning4j_tpu.nn.layers import normalization as jnorm
 from deeplearning4j_tpu.nn.layers import pooling as jpool
 from deeplearning4j_tpu.nn.multilayer import MultiLayerNetwork as JaxNet
 from deeplearning4j_tpu.util.serializer import ModelSerializer as JaxZip
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.common.updaters import Nesterovs
 from deeplearning4j_tpu_torch.kernels.fused_adam import _dense
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
@@ -162,7 +163,7 @@ def test_convolution_weight_is_hwio_over_channels_last_memory():
     assert Nesterovs(0.1).init_state(pl.W)["v"].stride() == pl.W.stride()
     assert pl.W.detach().to(torch.bfloat16).stride() == pl.W.stride()
     assert _dense(pl.W) and not _dense(torch.zeros(4, 6)[:, :3])
-    pl.init_weights(torch.Generator().manual_seed(0))
+    pl.init_weights(prng.key(0))
     std = float(pl.W.std())                   # RELU-less XAVIER default
     assert 0.5 < std / (2.0 / (3 * 15 + 8 * 15)) ** 0.5 < 1.5
 
@@ -283,7 +284,8 @@ def test_global_pooling_over_nhwc_matches_jax(pooling):
 
 
 @pytest.mark.parametrize("name", ["convolution1d", "lrn", "upsampling2d",
-                                  "separable_convolution2d", "lstm"])
+                                  "separable_convolution2d",
+                                  "zeropadding1d"])
 def test_unported_layers_are_refused_by_name(name):
     with pytest.raises(NotImplementedError, match="not ported"):
         layer_from_dict({"layer_name": name})

@@ -512,6 +512,10 @@ def test_graph_evaluate_matches_jax():
                                   "steps_per_execution", "rnn_time_step",
                                   "pretrain"])
 def test_unported_graph_features_are_refused_by_name(what):
+    """TBPTT and `rnn_time_step` are ported: on this feed-forward DAG
+    they do what JAX's graph does (a plain step on [B, F] features, a
+    one-step stream), from `init()`'s JAX weights; the rest is refused
+    by name."""
     conf = _jax_dag()
     if what == "tbptt":
         conf.backprop_type = type(conf.backprop_type)("tbptt")
@@ -520,6 +524,17 @@ def test_unported_graph_features_are_refused_by_name(what):
     net = ComputationGraph(ComputationGraphConfiguration.from_json(
         conf.to_json()), device="cpu").init()
     x, y = _dag_data(9, 4)
+    if what in ("tbptt", "rnn_time_step"):
+        jnet = JaxGraph(conf).init()
+        if what == "tbptt":
+            jnet.fit(x, y, batch_size=4)
+            net.fit(x, y, batch_size=4)
+            got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
+        else:
+            got = net.rnn_time_step(x).numpy()
+            want = np.asarray(jnet.rnn_time_step(x))
+        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+        return
     with pytest.raises(NotImplementedError, match="not ported"):
         if what == "steps_per_execution":
             net.fit(x, y, steps_per_execution=2)

@@ -47,7 +47,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "optimize.listeners", "eval.evaluation", "eval.roc",
                 "eval.regression", "nn.layers.pooling", "nn.container",
                 "nn.graph", "nn.conf.graph", "nn.layers.convolution",
-                "nn.layers.normalization", "zoo.base", "zoo.resnet50"):
+                "nn.layers.normalization", "zoo.base", "zoo.resnet50",
+                "nn.layers.recurrent", "zoo.textgenlstm"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 

@@ -43,6 +43,7 @@ from deeplearning4j_tpu.zoo.transformer import (
     TransformerLM as JaxLM,
     generate as jax_generate,
 )
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.datasets import DataSet
 from deeplearning4j_tpu_torch.kernels.layernorm import (
     layer_norm,
@@ -258,9 +259,8 @@ def test_output_and_score_are_fp32(jax_params):
 
 def test_float_carried_token_ids_above_256_survive():
     layers = [EmbeddingLayer(512, 8), RnnOutputLayer(8, 4)]
-    gen = torch.Generator().manual_seed(0)
-    for layer in layers:
-        layer.init_weights(gen)
+    for i, layer in enumerate(layers):
+        layer.init_weights(prng.key(i))
     net = MultiLayerNetwork(layers, device="cpu", dtype_policy="mixed_bf16")
     ids = np.asarray([[300, 301], [511, 2]], np.float32)
     assert torch.equal(net._features(ids),

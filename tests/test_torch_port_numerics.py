@@ -38,6 +38,7 @@ from deeplearning4j_tpu.zoo.transformer import TransformerLM as JaxLM
 from deeplearning4j_tpu_torch.common import activations as act
 from deeplearning4j_tpu_torch.common import distributions as dist
 from deeplearning4j_tpu_torch.common import losses as loss
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.common import schedules as sch
 from deeplearning4j_tpu_torch.common import updaters as upd
 from deeplearning4j_tpu_torch.common.weights import WeightInit, init_weights
@@ -264,9 +265,10 @@ def test_activation_helpers():
 
 # ------------------------------------------------------------ weight init
 def test_weight_init_scales_and_distributions():
-    """Shapes, fans and distributions (not threefry's values): each
-    scheme's sample standard deviation against its formula."""
-    g = torch.Generator().manual_seed(0)
+    """Shapes, fans and distributions: each scheme's sample standard
+    deviation against its formula (`tests/test_torch_port_keys.py` holds
+    the values to JAX's)."""
+    g = prng.key(0)
     fan_in, fan_out, shape = 300, 200, (300, 200)
     expect = {
         "xavier": (2 / (fan_in + fan_out)) ** 0.5,
@@ -310,7 +312,7 @@ def test_layers_draw_through_the_scheme():
     W = net.layers[2].ff_W1
     assert abs(float(W.std()) / (2 / (8 + 32)) ** 0.5 - 1) < 0.3
     net.layers[2].weight_init = WeightInit.ZERO
-    net.layers[2].init_weights(torch.Generator().manual_seed(1))
+    net.layers[2].init_weights(prng.key(1))
     assert float(net.layers[2].ff_W1.abs().sum()) == 0
     assert float(net.layers[2].attn.Wq.abs().sum()) == 0
 

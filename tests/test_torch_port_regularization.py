@@ -435,11 +435,9 @@ def test_fused_adam_packs_exactly_where_jax_packs(case, monkeypatch):
 
 
 def test_weight_noise_over_another_distribution_is_refused_by_name():
+    """Every distribution now has JAX's keyed draw, so nothing is
+    refused: multiplicative LogNormal weight noise on the output layer
+    trains as JAX's does."""
     jconf = lm_conf(_set_out("weight_noise", jwn.WeightNoise(
-        jdist.LogNormalDistribution(0.0, 0.1))))
-    net = MultiLayerNetwork(MultiLayerConfiguration.from_json(
-        jconf.to_json()), device="cpu")
-    x, y = corpus(3, n=B)
-    with pytest.raises(NotImplementedError, match="LogNormalDistribution"):
-        net.fit(x, y, batch_size=B)
-    assert net.output(x.astype(np.int64)).shape == (B, T, V)
+        jdist.LogNormalDistribution(0.0, 0.1), additive=False)))
+    assert_same_training(*train_both(jconf))

@@ -57,6 +57,7 @@ import deeplearning4j_tpu_torch.nn.conf.dropout as pdrop
 import deeplearning4j_tpu_torch.nn.conf.weightnoise as pwn
 import deeplearning4j_tpu_torch.nn.layers as pl
 import deeplearning4j_tpu_torch.util.serializer as port_serializer
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.fault.errors import CheckpointCorruptError
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     MultiLayerConfiguration,
@@ -222,7 +223,7 @@ def test_block_ff_activation_and_bias_init_match_jax():
     assert np.abs(gelu(torch.from_numpy(x)).numpy()
                   - np.asarray(want)).max() > 1e-2
     # bias_init: Dense and Embedding fill b with it, the block none
-    gen = torch.Generator().manual_seed(0)
+    gen = prng.key(0)
     for name in ("DenseLayer", "EmbeddingLayer"):
         jp = getattr(jl, name)(n_in=3, n_out=4, bias_init=0.1).init_params(
             jax.random.PRNGKey(0))
@@ -483,8 +484,8 @@ def _refuse(net, field):
 # to JAX's `fit` below; and those `fit` still refuses
 PORTED = ["dropout", "idropout", "attention_dropout", "weight_noise",
           "constraints", "l1", "l2", "l1_bias", "l2_bias", "max_norm",
-          "gradient_normalization"]
-REFUSED = ["backprop_type", "pretrain", "optimization_algo", "diagnostics"]
+          "gradient_normalization", "backprop_type"]
+REFUSED = ["pretrain", "optimization_algo", "diagnostics"]
 
 
 @pytest.mark.parametrize("field", PORTED + REFUSED)

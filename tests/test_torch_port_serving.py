@@ -230,10 +230,14 @@ class TestEngineParity:
             eng.step()
         assert eng.free_blocks == 15
 
-    def test_sampled_stream_deterministic_and_matches_generate(self, net,
-                                                               prompts):
-        def run(extra):
-            eng = engine(net, n_slots=4, n_blocks=16)
+    def test_sampled_stream_deterministic_and_matches_generate(
+            self, jnet, net, prompts):
+        """A sampled stream does not depend on what else is in flight,
+        and it is JAX's: token t drawn under `fold_in(PRNGKey(11), t)`,
+        as the JAX engine draws it (JAX's `generate` splits its key
+        instead, so the engine's stream is held to the JAX engine)."""
+        def run(extra, eng=None):
+            eng = eng or engine(net, n_slots=4, n_blocks=16)
             reqs = [dict(prompt_ids=prompts[0], n_tokens=8, temperature=0.8,
                          top_p=0.9, rng=11)]
             reqs += [dict(prompt_ids=p, n_tokens=8) for p in extra]
@@ -247,8 +251,14 @@ class TestEngineParity:
         batched = run(list(prompts[1:4]))
         assert len(alone) == 8 and all(0 <= t < V for t in alone)
         assert alone == batched
-        want = generate(net, prompts[:1], 8, temperature=0.8, top_p=0.9,
-                        rng=11)[0]
+        jeng = JaxEngine(jnet, n_slots=4, n_blocks=16, block_len=BL)
+        jeng_reqs = [dict(prompt_ids=prompts[0], n_tokens=8,
+                          temperature=0.8, top_p=0.9,
+                          rng=np.asarray([0, 11], np.uint32))]
+        (js, jfirst, _), = jeng.admit_many(jeng_reqs)
+        want = [int(jfirst)]
+        while jeng.active.any():
+            want.extend(int(t) for t in jeng.step()[0].get(js, []))
         np.testing.assert_array_equal(alone, want)
 
     def test_top_k_one_samples_the_argmax(self, net, prompts, ref_tokens):

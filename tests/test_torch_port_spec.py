@@ -444,14 +444,15 @@ def chi2_crit(df: int, q: float = 0.9999) -> float:
 def rs_case(top_k=None, top_p=None, draft_rank=2):
     """N_RS rows of one two-lane score: lane 0's probabilities (the
     target after the last token), lane 1's (the bonus lane), a draft of
-    the given rank, distinct seeds."""
+    the given rank, distinct keys (`PRNGKey(900 + row)`)."""
     rng = np.random.default_rng(13)
     p = rng.dirichlet(np.full(V, 0.4), 2).astype(np.float32)
     probs = torch.as_tensor(np.repeat(p[None], N_RS, 0))
     d = int(np.argsort(-p[0])[draft_rank])
     token_mat = torch.as_tensor(np.tile([3, d], (N_RS, 1)))
     n_acc, final = rejection_sample_drafts(
-        probs, token_mat, torch.full((N_RS,), 2), np.arange(N_RS) + 900,
+        probs, token_mat, torch.full((N_RS,), 2),
+        np.stack([np.zeros(N_RS, np.int64), np.arange(N_RS) + 900], 1),
         np.zeros(N_RS, np.int64), torch.full((N_RS,), TEMP),
         torch.full((N_RS,), 1.0 if top_p is None else top_p), top_k)
     logits = jnp.log(jnp.clip(jnp.asarray(p[0]), 1e-9, None)) / TEMP
