@@ -7,6 +7,8 @@
                                           # and ResNet-50 fit steps)
     python3 chip_smoke.py --warmup-trial  # long-context LM: Adam(1e-3)
                                           # with and without a warmup
+    python3 chip_smoke.py --zoo-lr-trial  # GoogLeNet and VGG16: the
+                                          # loss under four Nesterov rates
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -194,8 +196,37 @@ Phases, in order:
      (d) a GravesBidirectionalLSTM -> LastTimeStep -> OutputLayer
      classifier on padded batches with the features mask (one row all
      padding) and a SimpleRnn net, 3 steps each card vs CPU within 1e-4;
+ 12. the CNN zoo (`phase_cnn_zoo`, fp32 with TF32 off unless an arm is
+     mixed_bf16): (a) LeNet, the JAX benchmark's configuration 0
+     (`deeplearning4j_tpu/bench.py:643-668`): the packaged MNIST
+     checkpoint (`init_pretrained(MNIST)`, sha256 checked) on the 297
+     held-out digits of tests/fixtures/digits (the generator's recipe:
+     x / 16, bilinear to 28x28, `default_rng(0)` order), output() card
+     vs CPU within 1e-5, `evaluate()` accuracy equal and 0.9764 as the
+     manifest says; the fine-tune at batch 128, Adam(1e-3), over
+     distinct batches of the other 1500 digits: 3 steps card vs CPU
+     (fp32: losses within 1e-4, params within 3x the CPU's distance to a
+     twin with 1e-6 noise on its weights, an Sgd twin's params within
+     1e-4; mixed_bf16: losses within 1e-2), then 20 timed steps after 3
+     in each dtype (ms/step, images/s, peak memory) and the held-out
+     accuracy after them at least 0.95; (b) GoogLeNet at 224, 1000
+     classes, the zoo's Nesterovs(1e-2, 0.9) and l2 5e-4: 2 steps at
+     batch 2 card vs CPU from the card's `init(seed)` (losses within
+     1e-4, params within 1e-3 over the whole tree, output() within
+     1e-4), 20 timed steps after 3 at batch 128 on a repeated batch,
+     fp32 and mixed_bf16 (the loss falls, mixed's step 0 within 1e-2 of
+     fp32's); (c) VGG16 likewise at 224, 1 step at batch 2, timed at
+     batch 64, at Nesterovs(VGG_LR, 0.9) (its note says why); (d)
+     AlexNet 224, SimpleCNN 48, VGG19 224, InceptionResNetV1 160 (5/10/5
+     blocks) and FaceNet 96 at their constructor defaults: `init(seed)`
+     card vs CPU within 1e-6 of each tensor's largest value, output()
+     at batch 2 within 1e-4, one fit step's loss within 1e-4, the
+     embeddings' row norms 1 within 1e-5, 10 timed steps at batch 32;
+     (e) LRN (GoogLeNet's stem shapes) and CnnToFeedForward in bf16 card
+     vs CPU (`lrn_bf16_bound`; bit-equal). It prints `[cnn_zoo]` lines
+     and the phase's seconds;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 11, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
+to 12, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
 TF32 off for matmuls and convolutions (PyTorch lets cuDNN run fp32
@@ -1321,11 +1352,13 @@ def phase_serving(device, report, fails, net, n_greedy, n_sampled, n_tok,
 
 # ------------------------------------------------------ phase 5: training
 def _fit_steps(net, X, Y, B):
-    """One `fit` step per B-row batch, in order; the loss of each."""
+    """One `fit` step per B-row batch, in order (a `DataSet` each, which
+    neither container shuffles); the loss of each."""
     import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
     losses = []
     for i in range(0, len(X), B):
-        net.fit(X[i:i + B], Y[i:i + B], batch_size=B, shuffle=False)
+        net.fit(DataSet(X[i:i + B], Y[i:i + B]), batch_size=B)
         losses.append(net.score_value)
     if net.device.type == "cuda":
         torch.cuda.synchronize()
@@ -2833,7 +2866,6 @@ def _resnet_card_vs_cpu(device, fails, size, classes, B, n):
     on the CPU within OUTPUT_ATOL."""
     import torch
     from deeplearning4j_tpu_torch.datasets import DataSet
-    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
     from deeplearning4j_tpu_torch.util.jax_params import (
         to_jax_params, to_jax_state)
     X, Y = resnet_images(B * n, size, classes, seed=21)
@@ -2871,9 +2903,7 @@ def _resnet_card_vs_cpu(device, fails, size, classes, B, n):
         fails.check(rel <= tol, f"resnet card vs CPU {name} after {n} "
                     f"steps: {rel} over {RESNET_NOISE_FACTOR} x the CPU's "
                     f"distance to its noisy twin {self_rel} (tol {tol})")
-    twin_of_card = ComputationGraph(card.conf, device="cpu")
-    twin_of_card.load_state_dict({k: v.cpu()
-                                  for k, v in card.state_dict().items()})
+    twin_of_card = _copy_to(card, "cpu")
     x, _ = resnet_images(B, size, classes, seed=22)
     out = card.output(x)
     out_err = (out.cpu() - twin_of_card.output(x)).abs().max().item()
@@ -2902,7 +2932,7 @@ def _resnet_timed(device, size, classes, B, steps, warmup, policy=None):
     """`warmup` then `steps` timed `fit` steps of one repeated batch on
     the device (the data resident there, as the JAX benchmark's), then
     inference `output()` of the batch: ms/step, images/s, peak memory,
-    the losses and launches of the timed steps, and output()'s ms and
+    the losses and launches of the steps, and output()'s ms and
     images/s."""
     import torch
     from deeplearning4j_tpu_torch import kernels as K
@@ -2911,33 +2941,14 @@ def _resnet_timed(device, size, classes, B, steps, warmup, policy=None):
     x, y = resnet_images(B, size, classes, seed=23)
     ds = DataSet(torch.from_numpy(x).to(device),
                  torch.from_numpy(y).to(device))
-    losses = []
-    for _ in range(warmup):
-        net.fit(ds, batch_size=B)
-        losses.append(net.score_value)
-    on_card = device.type == "cuda"
-    if on_card:
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
     K.reset_launches()
-    t0 = time.perf_counter()
-    for _ in range(steps):
-        net.fit(ds, batch_size=B)
-        losses.append(net.score_value)
-    if on_card:
-        torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30 if on_card else None
-    out_ms = timer(device, lambda: net.output(ds.features), iters=5,
-                   warmup=2)
+    out = _timed_steps(device, net, [ds] * (warmup + steps), B, warmup)
+    out.update(size=size, launches=dict(K.LAUNCHES))
+    out["output_ms"] = timer(device, lambda: net.output(ds.features),
+                             iters=5, warmup=2)
+    out["output_images_per_s"] = B / out["output_ms"] * 1e3
     del net
-    return dict(B=B, size=size, steps=steps, warmup=warmup,
-                ms_per_step=wall / steps * 1e3,
-                images_per_s=B * steps / wall, peak_mem_gb=peak,
-                losses=losses, loss_first=losses[0], loss_last=losses[-1],
-                output_ms=out_ms, output_images_per_s=B / out_ms * 1e3,
-                launches=launches)
+    return out
 
 
 def _mixed_bn_ab(device, size, classes, B, steps, warmup):
@@ -3601,6 +3612,544 @@ def phase_recurrent(device, report, fails, small=False):
     return total
 
 
+# ------------------------------------------------- phase 12: the CNN zoo
+DIGITS = os.path.join(HERE, "tests", "fixtures", "digits", "digits_8x8.npz")
+N_HELD_OUT = 297          # the packaged LeNet's held-out digits
+LENET_ATOL = 1e-5         # LeNet output() card vs CPU, and the card's
+LENET_MIN_ACCURACY = 0.95  # held-out accuracy after the fine-tune
+# LeNet's fine-tune card vs CPU (fp32, TF32 off): the loss of each step
+# within ZOO_LOSS_ATOL (absolute; its losses are about 0.03-0.4). Adam
+# divides each gradient by its own RMS, so an element whose gradient is
+# zero up to rounding (a near-dead unit of the trained net) moves by
+# about lr either side whatever made it: the Adam arm's params are held
+# to ZOO_NOISE_FACTOR x the CPU's distance to a twin with ZOO_NOISE
+# relative noise on its restored weights (phase 11's rule), and an Sgd
+# twin (every layer at Sgd(ZOO_SGD_LR)) holds each param to
+# ZOO_SGD_RTOL. The distance saturates once every such element has
+# flipped: with 1e-6 weight noise the CPU's twin sits 3.92e-5 (whole
+# tree) from the CPU, as the card does (3.92e-5, H100); with 1e-7 noise
+# on the digits it sits only 2.4e-7 away (CPU, H100 host).
+ZOO_LOSS_ATOL = 1e-4
+ZOO_NOISE, ZOO_NOISE_FACTOR = 1e-6, 3.0
+ZOO_SGD_LR, ZOO_SGD_RTOL = 0.1, 1e-4
+# VGG16's timed steps train at Nesterovs(VGG_LR, 0.9): at the zoo's 1e-2
+# VGG16 diverges from its own init on the repeated batch (38.07 ->
+# 458.4 -> 2.6e9 -> nan at batch 64 on an H100; 42.7 -> 5.5e6 -> nan at
+# batch 4 on a CPU), in both dtypes; at 3e-3 and 1e-3 the loss falls
+# (`--zoo-lr-trial`, H100 80GB HBM3). GoogLeNet keeps the zoo's 1e-2.
+VGG_LR = 1e-3
+ZOO_INIT_RTOL = 1e-6      # init(seed) card vs CPU, of each tensor's largest
+EMBED_NORM_ATOL = 1e-5    # FaceNet's and InceptionResNetV1's embeddings
+# the phase at the JAX benchmark's and the zoo's sizes, and its CPU
+# rehearsal (every model shrunk in input size and depth where it has a
+# depth knob; the checks stay)
+ZOO = dict(lenet_B=128, n_check=3, warmup=3, steps=20, googlenet_B=128,
+           vgg_B=64, B_check=2, googlenet_check=2, vgg_check=1,
+           other_B=32, other_steps=10, googlenet={}, vgg={},
+           others={"AlexNet": {}, "SimpleCNN": {}, "VGG19": {},
+                   "InceptionResNetV1": {}, "FaceNetNN4Small2": {}})
+ZOO_SMALL = dict(lenet_B=16, n_check=2, warmup=1, steps=2, googlenet_B=2,
+                 vgg_B=2, B_check=2, googlenet_check=1, vgg_check=1,
+                 other_B=2, other_steps=1,
+                 googlenet=dict(height=64, width=64, num_classes=10),
+                 vgg=dict(height=32, width=32, num_classes=10),
+                 others={"AlexNet": dict(height=96, width=96),
+                         "SimpleCNN": dict(height=16, width=16),
+                         "VGG19": dict(height=32, width=32, num_classes=10),
+                         "InceptionResNetV1": dict(
+                             height=80, width=80, blocks35=1, blocks17=1,
+                             blocks8=1),
+                         "FaceNetNN4Small2": dict(height=64, width=64)})
+# LRN under mixed_bf16, card vs CPU port (and the port vs JAX in the
+# tests): both take the window as the difference of two bf16 cumsums,
+# each summed in its own order, so the window may be off by a few bf16
+# ulps of the row's largest cumsum S (LRN_WINDOW_ULPS of them), which
+# moves y by |y| beta alpha dW / k; the elementwise chain after it
+# (alpha win, k +, pow, the divide) rounds in bf16 on each side, up to
+# LRN_ROUND_ULPS of the row's largest |y| apart (2 measured against
+# JAX, CPU, channels 3-192)
+LRN_WINDOW_ULPS, LRN_ROUND_ULPS = 16, 4
+
+
+def bf16_ulp(a):
+    """One bf16 ulp at |a| (numpy, elementwise; 2^-133 at 0)."""
+    a = np.maximum(np.abs(np.asarray(a, np.float64)), 2.0 ** -126)
+    return 2.0 ** (np.floor(np.log2(a)) - 7)
+
+
+def lrn_bf16_bound(layer, x, y):
+    """The per-element bound above for `layer` (a LocalResponse-
+    Normalization) on bf16 input x (numpy fp32 view) with output y: the
+    window term at the row's largest cumsum S plus LRN_ROUND_ULPS ulps
+    of the row's largest |y|."""
+    x = np.asarray(x, np.float32)
+    S = np.cumsum(x.astype(np.float64) ** 2, axis=-1)[..., -1:]
+    dw = LRN_WINDOW_ULPS * bf16_ulp(S)
+    window = np.abs(y) * layer.beta * layer.alpha * dw / layer.k
+    row = np.abs(y).max(axis=-1, keepdims=True)
+    return window + LRN_ROUND_ULPS * bf16_ulp(row)
+
+
+def digits_28x28():
+    """The committed 8x8 digits (tests/fixtures/digits, scikit-learn's
+    `load_digits`) as the packaged LeNet's generator
+    (deeplearning4j_tpu/tests/make_zoo_pretrained.py) prepared them: x /
+    16, bilinear 8 -> 28 (`F.interpolate`, align_corners=False, within
+    3e-7 of `jax.image.resize`), in `default_rng(0).permutation` order,
+    the first N_HELD_OUT held out. Returns NHWC [N, 28, 28, 1] fp32 and
+    one-hot labels (numpy)."""
+    import torch
+    import torch.nn.functional as F
+    d = np.load(DIGITS)
+    x = torch.from_numpy(d["images"].astype(np.float32) / 16.0)[:, None]
+    x = F.interpolate(x, size=(28, 28), mode="bilinear",
+                      align_corners=False)[:, 0, :, :, None].numpy()
+    y = np.eye(10, dtype=np.float32)[d["target"]]
+    order = np.random.default_rng(0).permutation(len(x))
+    return x[order], y[order]
+
+
+def digit_batches(X, Y, B, n, seed):
+    """`n` batches of B distinct digits each, in a seeded order (a fresh
+    permutation of X at each pass), as (X, Y) of n * B rows, batch after
+    batch."""
+    rng = np.random.default_rng(seed)
+    idx = np.concatenate([rng.permutation(len(X))
+                          for _ in range(-(-n * B // len(X)))])[:n * B]
+    return X[idx], Y[idx]
+
+
+def _copy_to(net, device, dtype_policy=None):
+    """A twin of `net` on `device` (under `dtype_policy`, the
+    configuration's by default): its configuration, params, running
+    state and iteration count (a fresh updater state)."""
+    twin = type(net)(net.conf, device=device, dtype_policy=dtype_policy)
+    twin.load_state_dict({k: v.to(device) for k, v in
+                          net.state_dict().items()})
+    twin.iteration_count = net.iteration_count
+    return twin
+
+
+def _near_tie_rows(want, got, eps):
+    """Rows whose argmax differs, and whether each is a near-tie of
+    `want` (its top-2 gap within eps)."""
+    rows = np.nonzero(want.argmax(-1) != got.argmax(-1))[0]
+    top2 = np.sort(want[rows], axis=-1)[:, -2:]
+    return rows, bool(np.all(top2[:, 1] - top2[:, 0] <= eps))
+
+
+def _lenet_digits(device, fails, c, small):
+    """(a) The packaged LeNet on real digits: restored on the card and on
+    the CPU (sha256 checked), output() of the held-out digits within
+    LENET_ATOL, `evaluate()` accuracy equal on both sides and to the
+    manifest's; then the fine-tune at the JAX benchmark's accelerator
+    setting (batch 128, Adam(1e-3)) over distinct batches of the other
+    digits: `n_check` steps card vs CPU (fp32: `_lenet_twins`;
+    mixed_bf16: losses within MIXED_STEP0_RTOL), and
+    `steps` timed after `warmup` in each dtype, the held-out accuracy
+    after it at least LENET_MIN_ACCURACY (not in the `small` rehearsal,
+    whose two steps at batch 16 follow the restored net's first
+    oversized Adam step)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.zoo import LeNet, PretrainedType
+    from deeplearning4j_tpu_torch.zoo.base import packaged_weight_entry
+    X, Y = digits_28x28()
+    Xh, Yh, Xt, Yt = X[:N_HELD_OUT], Y[:N_HELD_OUT], X[N_HELD_OUT:], \
+        Y[N_HELD_OUT:]
+    manifest = packaged_weight_entry("lenet_mnist.zip")
+    model = LeNet()
+    t0 = time.perf_counter()
+    card = model.init_pretrained(PretrainedType.MNIST, device=device)
+    restore_s = time.perf_counter() - t0
+    cpu = model.init_pretrained(PretrainedType.MNIST, device="cpu")
+    got, want = card.output(Xh).cpu().numpy(), cpu.output(Xh).numpy()
+    err = float(np.abs(got - want).max())
+    acc = {name: net.evaluate(DataSet(Xh, Yh)).accuracy()
+           for name, net in (("card", card), ("cpu", cpu))}
+    rows, ties = _near_tie_rows(want, got, 2 * err)
+    fails.check(err <= LENET_ATOL, f"lenet digits output() card vs CPU "
+                f"{err} (tol {LENET_ATOL})")
+    fails.check(round(acc["cpu"], 4) == manifest["holdout_accuracy"]
+                and (acc["card"] == acc["cpu"] or ties),
+                f"lenet digits accuracy card {acc['card']} CPU {acc['cpu']}"
+                f" vs the manifest's {manifest['holdout_accuracy']}; rows "
+                f"apart {rows.tolist()} (near-ties {ties})")
+    out = dict(restore_s=restore_s, output_max_abs_err=err,
+               accuracy_card=acc["card"], accuracy_cpu=acc["cpu"],
+               rows_apart=rows.tolist(), sha256=manifest["sha256"],
+               iteration_restored=card.iteration_count)
+    B, n = c["lenet_B"], c["n_check"]
+    Xb, Yb = digit_batches(Xt, Yt, B, n, seed=12)
+    for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
+        nets = [_copy_to(card, device, policy), _copy_to(cpu, "cpu", policy)]
+        ls = [_fit_steps(net, Xb, Yb, B) for net in nets]
+        r = dict(loss_card=ls[0], loss_cpu=ls[1])
+        if policy:
+            e = max(abs(a - b) / abs(b) for a, b in zip(*ls))
+            fails.check(e <= MIXED_STEP0_RTOL and all(np.isfinite(ls[0])),
+                        f"lenet fine-tune mixed_bf16 losses card vs CPU rel "
+                        f"{e} (tol {MIXED_STEP0_RTOL}): {ls}")
+            r["loss_max_rel_err"] = e
+        else:
+            r.update(_lenet_twins(device, fails, card, cpu, Xb, Yb, B, ls,
+                                  nets))
+        out[f"check_{tag}"] = r
+        # the timed fine-tune: distinct batches resident on the card
+        net = nets[0]
+        X2, Y2 = (torch.from_numpy(a).to(device) for a in digit_batches(
+            Xt, Yt, B, c["warmup"] + c["steps"], seed=14))
+        data = [DataSet(X2[i:i + B], Y2[i:i + B])
+                for i in range(0, len(X2), B)]
+        out[tag] = t = _timed_steps(device, net, data, B, c["warmup"])
+        t["accuracy_after"] = net.evaluate(DataSet(Xh, Yh)).accuracy()
+        fails.check(small or t["accuracy_after"] >= LENET_MIN_ACCURACY,
+                    f"lenet {tag} held-out accuracy after the fine-tune "
+                    f"{t['accuracy_after']} (min {LENET_MIN_ACCURACY})")
+    return out
+
+
+def _lenet_twins(device, fails, card, cpu, X, Y, B, ls, nets):
+    """The fp32 fine-tune's gates: losses card vs CPU within
+    ZOO_LOSS_ATOL; the Adam arm's params within ZOO_NOISE_FACTOR x the
+    CPU's distance to its twin with ZOO_NOISE on the restored weights;
+    the Sgd twin's (card and CPU at Sgd(ZOO_SGD_LR)) losses likewise and
+    each param within ZOO_SGD_RTOL."""
+    import torch
+    from deeplearning4j_tpu_torch.common.updaters import Sgd
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    twin = _copy_to(cpu, "cpu")
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(5)
+        for t in twin.parameters():
+            t.mul_(1 + ZOO_NOISE * torch.randn(t.shape, generator=g))
+    l_twin = _fit_steps(twin, X, Y, B)
+    e = max(abs(a - b) for a, b in zip(ls[0], ls[1]))
+    d, worst = _tree_rel(to_jax_params(nets[0]), to_jax_params(nets[1]))
+    self_d = _tree_rel(to_jax_params(twin), to_jax_params(nets[1]))[0]
+    fails.check(e <= ZOO_LOSS_ATOL and all(np.isfinite(ls[0])),
+                f"lenet fine-tune losses card vs CPU {e} (tol "
+                f"{ZOO_LOSS_ATOL}): {ls}")
+    fails.check(d <= ZOO_NOISE_FACTOR * self_d,
+                f"lenet fine-tune params card vs CPU {d} (worst {worst}) "
+                f"over {ZOO_NOISE_FACTOR} x the CPU's distance to its "
+                f"noisy twin {self_d}")
+    sgd = [_copy_to(card, device), _copy_to(cpu, "cpu")]
+    for net in sgd:
+        for layer in net.layers:
+            layer.updater = Sgd(ZOO_SGD_LR)
+    l_sgd = [_fit_steps(net, X, Y, B) for net in sgd]
+    e_sgd = max(abs(a - b) for a, b in zip(*l_sgd))
+    leaves = _params_rel_by_leaf(*sgd)
+    bad = {k: v for k, v in leaves.items() if v > ZOO_SGD_RTOL}
+    fails.check(e_sgd <= ZOO_LOSS_ATOL and not bad,
+                f"lenet Sgd twin card vs CPU: losses {e_sgd} (tol "
+                f"{ZOO_LOSS_ATOL}), params over {ZOO_SGD_RTOL}: {bad}")
+    return dict(loss_max_abs_err=e, params_rel=d, params_worst=worst,
+                params_cpu_vs_noisy_cpu=self_d, loss_cpu_noisy=l_twin,
+                sgd_loss_max_abs_err=e_sgd,
+                sgd_params_worst=max(leaves.items(), key=lambda kv: kv[1]))
+
+
+def _timed_steps(device, net, data, B, warmup):
+    """`fit` of each DataSet of `data` (the first `warmup` untimed): ms per
+    timed step, images/s, peak memory and every loss."""
+    import torch
+    on_card = device.type == "cuda"
+    losses = []
+    for ds in data[:warmup]:
+        net.fit(ds, batch_size=B)
+        losses.append(net.score_value)
+    if on_card:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for ds in data[warmup:]:
+        net.fit(ds, batch_size=B)
+        losses.append(net.score_value)
+    if on_card:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = len(data) - warmup
+    return dict(B=B, steps=steps, warmup=warmup,
+                ms_per_step=wall / steps * 1e3,
+                images_per_s=B * steps / wall,
+                peak_mem_gb=(torch.cuda.max_memory_allocated() / 2 ** 30
+                             if on_card else None),
+                losses=losses, loss_first=losses[0], loss_last=losses[-1])
+
+
+def _zoo_model(name, kw):
+    from deeplearning4j_tpu_torch import zoo
+    return getattr(zoo, name)(**kw)
+
+
+def _zoo_init(model, device, lr=None, dtype_policy=None):
+    """`model.init()` on `device`, every layer at Nesterovs(lr, 0.9) when
+    `lr` is given."""
+    from deeplearning4j_tpu_torch.common.updaters import Nesterovs
+    net = model.init(device=device, dtype_policy=dtype_policy)
+    if lr is not None:
+        for layer in net.layers:
+            layer.updater = Nesterovs(lr, 0.9)
+    return net
+
+
+def _zoo_card_vs_cpu(device, fails, name, kw, B, n, lr=None):
+    """(b)-(c) The zoo model `name` drawn by `init(seed)` on the card and
+    copied to the CPU: the features before the output layer at those
+    weights within OUTPUT_ATOL of their largest |value| (a random net's
+    1000-way softmax saturates, its features do not), then `n` fit
+    steps at batch B of seeded images on each, every loss within
+    TRAIN_LOSS_RTOL, every param within TRAIN_PARAM_RTOL (whole tree)
+    and output() after the steps within OUTPUT_ATOL."""
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    model = _zoo_model(name, kw)
+    size, classes = model.height, model.num_classes
+    card = _zoo_init(model, device, lr)
+    cpu = _copy_to(card, "cpu")
+    X, Y = resnet_images(B * (n + 1), size, classes, seed=41)
+    f_card, f_cpu = (_penultimate(net, X[B * n:]) for net in (card, cpu))
+    f_err = float((f_card.cpu() - f_cpu).abs().max() / f_cpu.abs().max())
+    fails.check(f_err <= OUTPUT_ATOL, f"{name} features card vs CPU at "
+                f"init {f_err} of the largest (tol {OUTPUT_ATOL})")
+    ls = [_fit_steps(net, X[:B * n], Y[:B * n], B) for net in (card, cpu)]
+    e = max(abs(a - b) / abs(b) for a, b in zip(*ls))
+    d, worst = _tree_rel(to_jax_params(card), to_jax_params(cpu))
+    x = X[B * n:]
+    o_card = card.output(x).cpu().numpy()
+    o_err = float(np.abs(o_card - cpu.output(x).numpy()).max())
+    fails.check(e <= TRAIN_LOSS_RTOL and all(np.isfinite(ls[0])),
+                f"{name} losses card vs CPU rel {e} (tol "
+                f"{TRAIN_LOSS_RTOL}): {ls}")
+    fails.check(d <= TRAIN_PARAM_RTOL, f"{name} params card vs CPU {d} "
+                f"(worst leaf {worst}, tol {TRAIN_PARAM_RTOL})")
+    fails.check(o_err <= OUTPUT_ATOL and o_card.shape == (B, classes),
+                f"{name} output() card vs CPU {o_err} (tol {OUTPUT_ATOL})")
+    return dict(B=B, steps=n, size=size, features_max_rel_err=f_err,
+                loss_card=ls[0], loss_cpu=ls[1], loss_max_rel_err=e,
+                params_rel=d, params_worst=worst, output_max_abs_err=o_err)
+
+
+def _penultimate(net, x):
+    """The activation that enters the output layer: a graph's "avgpool"
+    node (GoogLeNet's global pooling), a layer list's last hidden layer
+    (VGG's fc2)."""
+    acts = net.feed_forward(x)
+    return acts["avgpool"] if isinstance(acts, dict) else acts[-2]
+
+
+def _zoo_timed_pair(device, fails, name, kw, B, c, small, lr=None):
+    """(b)-(c) `steps` timed fit steps after `warmup` on one repeated
+    batch resident on the card, fp32 and mixed_bf16, from the same
+    weights: the loss must fall and mixed's step 0 lie within
+    MIXED_STEP0_RTOL of fp32's (gates that hold at the phase's batch,
+    not at the `small` rehearsal's batch of 2)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    model = _zoo_model(name, kw)
+    x, y = resnet_images(B, model.height, model.num_classes, seed=43)
+    ds = DataSet(torch.from_numpy(x).to(device),
+                 torch.from_numpy(y).to(device))
+    out = {}
+    for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
+        net = _zoo_init(model, device, lr, policy)
+        out[tag] = _timed_steps(device, net, [ds] * (c["warmup"]
+                                                     + c["steps"]),
+                                B, c["warmup"])
+        del net
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        if not small:
+            _falls(fails, f"{name} {tag} timed", out[tag]["losses"])
+    f, m = out["float32"]["losses"][0], out["mixed_bf16"]["losses"][0]
+    out["mixed_step0_rel"] = step0 = abs(m - f) / abs(f)
+    fails.check(small or step0 <= MIXED_STEP0_RTOL, f"{name} mixed_bf16 "
+                f"step 0 {m} vs fp32 {f}: rel {step0} (tol "
+                f"{MIXED_STEP0_RTOL})")
+    return out
+
+
+def _zoo_other(device, fails, name, kw, c):
+    """(d) One of the five other models at its constructor defaults:
+    `init(seed)` card vs CPU within ZOO_INIT_RTOL of each tensor's
+    largest |value|, output() at batch B_check within OUTPUT_ATOL, one
+    fit step card vs CPU (loss within TRAIN_LOSS_RTOL), the embeddings'
+    row norms where the model has them, then `other_steps` timed steps
+    at batch other_B on the card."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    model = _zoo_model(name, kw)
+    size, classes, B = model.height, model.num_classes, c["B_check"]
+    t0 = time.perf_counter()
+    card = model.init(device=device)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    cpu = model.init(device="cpu")
+    pc, pp = to_jax_params(card), to_jax_params(cpu)
+    init_err = max(float(np.abs(pc[k][n] - a).max()
+                         / max(float(np.abs(a).max()), 1e-30))
+                   for k, lv in pp.items() for n, a in lv.items())
+    X, Y = resnet_images(2 * B, size, classes, seed=45)
+    o_card = card.output(X[:B]).cpu().numpy()
+    o_err = float(np.abs(o_card - cpu.output(X[:B]).numpy()).max())
+    r = dict(size=size, params=card.num_params(), init_s=init_s,
+             init_max_rel_err=init_err, output_max_abs_err=o_err)
+    if "embeddings" in getattr(card.conf, "nodes", {}):
+        emb = card.feed_forward(X[:B])["embeddings"].float()
+        norm_err = float((emb.norm(dim=-1) - 1).abs().max())
+        fails.check(norm_err <= EMBED_NORM_ATOL, f"{name} embeddings row "
+                    f"norms off 1 by {norm_err} (tol {EMBED_NORM_ATOL})")
+        r["embedding_norm_max_err"] = norm_err
+    ls = [_fit_steps(net, X[B:], Y[B:], B) for net in (card, cpu)]
+    e = abs(ls[0][0] - ls[1][0]) / abs(ls[1][0])
+    fails.check(init_err <= ZOO_INIT_RTOL, f"{name} init(seed) card vs CPU "
+                f"{init_err} of each tensor's largest (tol {ZOO_INIT_RTOL})")
+    fails.check(o_err <= OUTPUT_ATOL and o_card.shape == (B, classes),
+                f"{name} output() card vs CPU {o_err} (tol {OUTPUT_ATOL})")
+    fails.check(e <= TRAIN_LOSS_RTOL and np.isfinite(ls[0][0]),
+                f"{name} fit step card vs CPU rel {e} (tol "
+                f"{TRAIN_LOSS_RTOL}): {ls}")
+    r.update(loss_card=ls[0][0], loss_cpu=ls[1][0], loss_rel_err=e)
+    del cpu
+    Bt = c["other_B"]
+    x, y = resnet_images(Bt, size, classes, seed=46)
+    ds = DataSet(torch.from_numpy(x).to(device),
+                 torch.from_numpy(y).to(device))
+    t = _timed_steps(device, card, [ds] * (1 + c["other_steps"]), Bt, 1)
+    r.update(timed_B=Bt, timed_steps=t["steps"],
+             ms_per_step=t["ms_per_step"], images_per_s=t["images_per_s"],
+             peak_mem_gb=t["peak_mem_gb"])
+    del card
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return r
+
+
+def _zoo_bounds(device, fails):
+    """(e) LRN at GoogLeNet's two stem shapes and CnnToFeedForward at
+    LeNet's, bf16 (mixed_bf16's compute dtype), card vs CPU: LRN within
+    `lrn_bf16_bound`, the flatten bit-equal."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.conf.preprocessors import (
+        CnnToFeedForwardPreProcessor)
+    from deeplearning4j_tpu_torch.nn.layers import LocalResponseNormalization
+    out, rng = {}, np.random.default_rng(47)
+    lrn = LocalResponseNormalization()
+    for C in (64, 192):
+        x = (3 * rng.standard_normal((2, 56, 56, C))).astype(np.float32)
+        xb = torch.from_numpy(x).to(torch.bfloat16)
+        got = lrn(xb.to(device)).float().cpu().numpy()
+        want = lrn(xb).float().numpy()
+        bnd = lrn_bf16_bound(lrn, xb.float().numpy(), want)
+        over = float((np.abs(got - want) / bnd).max())
+        fails.check(over <= 1.0, f"LRN bf16 [2, 56, 56, {C}] card vs CPU "
+                    f"at {over} of the bound")
+        out[f"lrn_bf16_C{C}"] = dict(
+            max_abs_err=float(np.abs(got - want).max()),
+            share_of_bound=over)
+    pp = CnnToFeedForwardPreProcessor(4, 4, 50)
+    x = torch.from_numpy(rng.standard_normal((128, 4, 4, 50)).astype(
+        np.float32)).to(torch.bfloat16)
+    eq = bool(torch.equal(pp.pre_process(x.to(device)).cpu(),
+                          pp.pre_process(x)))
+    fails.check(eq, "CnnToFeedForward bf16 card vs CPU not bit-equal")
+    out["cnn_to_ff_bf16_bit_equal"] = eq
+    return out
+
+
+def phase_cnn_zoo(device, report, fails, small=False):
+    """Phase 12 on `device` (fp32 with TF32 off unless an arm says
+    mixed_bf16): (a) the packaged LeNet on real digits and its
+    fine-tune, (b) GoogLeNet and (c) VGG16 at full width and depth card
+    vs CPU and timed in both dtypes, (d) the five other CNNs at their
+    constructor defaults, (e) LRN and CnnToFeedForward in bf16 card vs
+    CPU. `small` (the CPU rehearsal, ZOO_SMALL) keeps every check.
+    Returns the port's kernel launches of the phase (init's
+    threefry_bits, the dense layers' dropout)."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    c = ZOO_SMALL if small else ZOO
+    out = {}
+    t0 = time.perf_counter()
+    K.reset_launches()
+    out["lenet"] = _lenet_digits(device, fails, c, small)
+    for name, B, n, key, lr in (
+            ("GoogLeNet", c["googlenet_B"], c["googlenet_check"],
+             "googlenet", None),
+            ("VGG16", c["vgg_B"], c["vgg_check"], "vgg", VGG_LR)):
+        out[name] = dict(
+            check=_zoo_card_vs_cpu(device, fails, name, c[key],
+                                   c["B_check"], n, lr),
+            **_zoo_timed_pair(device, fails, name, c[key], B, c, small, lr))
+    for name, kw in c["others"].items():
+        out[name] = _zoo_other(device, fails, name, kw, c)
+    out["bounds"] = _zoo_bounds(device, fails)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t0
+    report["cnn_zoo"] = out
+    le = out["lenet"]
+    print(f"[cnn_zoo] (a) LeNet restored in {le['restore_s']:.2f} s "
+          f"(sha256 {le['sha256'][:12]}..., iteration "
+          f"{le['iteration_restored']}): output() of {N_HELD_OUT} held-out "
+          f"digits card vs CPU {le['output_max_abs_err']:.3g}, accuracy "
+          f"card {le['accuracy_card']:.4f} CPU {le['accuracy_cpu']:.4f}; "
+          f"fine-tune check fp32 loss "
+          f"{le['check_float32']['loss_max_abs_err']:.3g}, params "
+          f"{le['check_float32']['params_rel']:.3g} (CPU vs noisy CPU "
+          f"{le['check_float32']['params_cpu_vs_noisy_cpu']:.3g}), Sgd twin "
+          f"loss {le['check_float32']['sgd_loss_max_abs_err']:.3g}, params "
+          f"worst {le['check_float32']['sgd_params_worst']}; mixed loss rel "
+          f"{le['check_mixed_bf16']['loss_max_rel_err']:.3g}", flush=True)
+    for tag in ("float32", "mixed_bf16"):
+        r = le[tag]
+        print(f"[cnn_zoo] (a) LeNet {tag} batch {r['B']}, {r['steps']} "
+              f"distinct batches after {r['warmup']}: {r['ms_per_step']:.3f}"
+              f" ms/step, {r['images_per_s']:.1f} images/s, peak "
+              f"{r['peak_mem_gb']} GB, loss {r['loss_first']:.4f} -> "
+              f"{r['loss_last']:.4f}, held-out accuracy after "
+              f"{r['accuracy_after']:.4f}", flush=True)
+    for name in ("GoogLeNet", "VGG16"):
+        r, k = out[name], out[name]["check"]
+        print(f"[cnn_zoo] ({'b' if name == 'GoogLeNet' else 'c'}) {name} "
+              f"{k['size']}x{k['size']} card vs CPU {k['steps']} steps at "
+              f"batch {k['B']}: features at init "
+              f"{k['features_max_rel_err']:.3g}, loss rel "
+              f"{k['loss_max_rel_err']:.3g}, params "
+              f"{k['params_rel']:.3g} (worst {k['params_worst'][1]} "
+              f"{k['params_worst'][0]:.3g}), output() "
+              f"{k['output_max_abs_err']:.3g}; mixed step 0 rel "
+              f"{r['mixed_step0_rel']:.3g}", flush=True)
+        for tag in ("float32", "mixed_bf16"):
+            t = r[tag]
+            print(f"[cnn_zoo] {name} {tag} batch {t['B']}, {t['steps']} "
+                  f"steps after {t['warmup']}: {t['ms_per_step']:.2f} "
+                  f"ms/step, {t['images_per_s']:.1f} images/s, peak "
+                  f"{t['peak_mem_gb']} GB, loss {t['loss_first']:.4f} -> "
+                  f"{t['loss_last']:.4f}", flush=True)
+    for name in c["others"]:
+        r = out[name]
+        print(f"[cnn_zoo] (d) {name} {r['size']}x{r['size']} "
+              f"({r['params']} params): init {r['init_s']:.2f} s, init card "
+              f"vs CPU {r['init_max_rel_err']:.3g}, output() "
+              f"{r['output_max_abs_err']:.3g}, fit step loss rel "
+              f"{r['loss_rel_err']:.3g}"
+              + (f", embedding norms {r['embedding_norm_max_err']:.3g}"
+                 if "embedding_norm_max_err" in r else "")
+              + f"; {r['timed_steps']} steps at batch {r['timed_B']}: "
+              f"{r['ms_per_step']:.2f} ms/step, {r['images_per_s']:.1f} "
+              f"images/s, peak {r['peak_mem_gb']} GB", flush=True)
+    print(f"[cnn_zoo] (e) bf16 card vs CPU: {out['bounds']}", flush=True)
+    print(f"[cnn_zoo] launches {total}; phase seconds "
+          f"{out['seconds']:.1f}", flush=True)
+    return total
+
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=12):
     rows = []
@@ -3633,8 +4182,12 @@ def _kernel_group(name: str) -> str:
     port's own kernels by their entry names; cuDNN's convolutions (their
     forward, data- and weight-gradient kernels, implicit GEMMs included)
     and the layout transposes it may put around them; batch norm;
-    copies; library GEMMs by cuBLAS's and CUTLASS's names; the rest
-    elementwise and reductions."""
+    pooling (PyTorch's max and avg pool kernels); cumsum (PyTorch's scan
+    kernel: LRN's window sums in the CNN zoo); the channel
+    concatenations of a graph's merges; copies; library GEMMs by
+    cuBLAS's and CUTLASS's names; the rest elementwise and reductions
+    (LRN's pow and divide among them, so `_lrn_ms` times the layer
+    apart)."""
     n = name.lower()
     for key, group in (("flash_fwd", "flash forward"),
                        ("flash_bwd_dq", "flash dQ"),
@@ -3642,7 +4195,10 @@ def _kernel_group(name: str) -> str:
                        ("ln_warp", "layernorm"), ("ln_block", "layernorm"),
                        ("adam_kernel", "fused adam"),
                        ("nchwtonhwc", "layout transposes"),
-                       ("nhwctonchw", "layout transposes")):
+                       ("nhwctonchw", "layout transposes"),
+                       ("max_pool", "pooling"), ("avg_pool", "pooling"),
+                       ("scan_innermost", "cumsum"),
+                       ("catarray", "merge copies")):
         if key in n:
             return group
     if "batch_norm" in n or "batchnorm" in n or "bn_" in n:
@@ -3720,8 +4276,10 @@ def profile_paths(device):
     and (7) `restore_model` of the LM's zip followed by one `fit` step
     at [8, 511], and (8) one ResNet-50 `fit` step at phase 10's batch
     128 of 224x224 images, fp32 and mixed_bf16, and (9) one char-RNN
-    TBPTT iteration at phase 11's [64, 100], fp32 and mixed_bf16. Per
-    path: host wall ms,
+    TBPTT iteration at phase 11's [64, 100], fp32 and mixed_bf16, and
+    (10) phase 12's LeNet (batch 128), GoogLeNet (batch 128, its LRN
+    timed apart) and VGG16 (batch 64) `fit` steps, fp32 and mixed_bf16.
+    Per path: host wall ms,
     summed device ms of the kernels seen (one stream, so kernels do not
     overlap), busy share = device / wall, launches, device ms by part
     (`_kernel_group`), and the kernels with the most device time."""
@@ -3838,12 +4396,72 @@ def profile_paths(device):
         out[f"char_rnn_iteration_{CHAR['B']}x{CHAR['T']}{tag}"] = _profiled(
             lambda: net.fit(ds, batch_size=CHAR["B"]))
         del net
+    # (10) phase 12's LeNet, GoogLeNet and VGG16, one `fit` step each,
+    # fp32 and mixed_bf16, GoogLeNet's LRN layers timed apart
+    out.update(profile_cnn_zoo(device))
     for k, v in out.items():
         groups = ", ".join(f"{g} {ms:.3f}" for g, ms in v["groups_ms"].items())
         print(f"[profile] {k}: wall {v['wall_ms']:.3f} ms, device "
               f"{v['device_ms']:.3f} ms, busy {v['busy_share']:.3f}, "
               f"launches {v['launches']}; device ms by part: {groups}",
-              v.get("phases", ""), flush=True)
+              v.get("phases", ""),
+              f"LRN forward+backward apart {v['lrn_ms']:.3f} ms"
+              if "lrn_ms" in v else "", flush=True)
+    return out
+
+
+def _lrn_ms(device, shapes, dtype):
+    """Device ms of one LRN forward and backward at each shape (CUDA
+    events, `timer`), summed: the LRN share of a step, which the kernel
+    names cannot tell apart from other elementwise work."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.layers import LocalResponseNormalization
+    lrn, total = LocalResponseNormalization(), 0.0
+    for shape in shapes:
+        x = torch.randn(shape, device=device, dtype=dtype,
+                        requires_grad=True)
+        g = torch.randn(shape, device=device, dtype=dtype)
+        total += timer(device, lambda: lrn(x).backward(g), iters=10)
+    return total
+
+
+def profile_cnn_zoo(device):
+    """Phase 12's timed steps under the profiler (`_profiled`), fp32 and
+    mixed_bf16: one LeNet `fit` step at batch 128 of the digits, one
+    GoogLeNet step at batch 128 of 224x224 images with `lrn_ms` (its two
+    stem LRN layers' forward and backward timed apart), one VGG16 step
+    at batch 64 (at VGG_LR)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.zoo import LeNet, PretrainedType
+    X, Y = digits_28x28()
+    X3, Y3 = (torch.from_numpy(a).to(device) for a in digit_batches(
+        X[N_HELD_OUT:], Y[N_HELD_OUT:], 128, 3, seed=14))
+    lenet = [DataSet(X3[i:i + 128], Y3[i:i + 128]) for i in (0, 128, 256)]
+    out = {}
+    for tag, policy, dt in (("", None, torch.float32),
+                            ("_mixed", MIXED, torch.bfloat16)):
+        net = _copy_to(LeNet().init_pretrained(PretrainedType.MNIST,
+                                               device=device),
+                       device, policy)
+        for ds in lenet[:2]:
+            net.fit(ds, batch_size=128)                           # warm
+        out[f"lenet_step_128x28{tag}"] = _profiled(
+            lambda: net.fit(lenet[2], batch_size=128))
+        for name, B, lr in (("GoogLeNet", 128, None), ("VGG16", 64, VGG_LR)):
+            x, y = resnet_images(B, 224, 1000, seed=43)
+            ds = DataSet(torch.from_numpy(x).to(device),
+                         torch.from_numpy(y).to(device))
+            net = _zoo_init(_zoo_model(name, {}), device, lr, policy)
+            for _ in range(2):
+                net.fit(ds, batch_size=B)                         # warm
+            p = _profiled(lambda: net.fit(ds, batch_size=B))
+            if name == "GoogLeNet":
+                p["lrn_ms"] = _lrn_ms(device, [(B, 56, 56, 64),
+                                               (B, 56, 56, 192)], dt)
+            out[f"{name.lower()}_step_{B}x224{tag}"] = p
+            del net
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3877,6 +4495,37 @@ def warmup_trial(device, steps=40, warmups=(5, 10, 20)):
                   f"{losses[-1]:.4f}, max {max(losses):.4f}; every 5th: "
                   f"{[round(x, 3) for x in losses[::5]]}", flush=True)
             del net
+    return out
+
+
+# --------------------------------------------- --zoo-lr-trial: VGG16's rate
+def zoo_lr_trial(device, steps=10, rates=(1e-2, 3e-3, 1e-3, 1e-4)):
+    """GoogLeNet at batch 128 and VGG16 at batch 64 (224x224, 1000
+    classes, phase 12's repeated batch), `steps` fp32 steps from the
+    zoo's weights under Nesterovs(lr, 0.9) for each rate: every loss and
+    whether it ended below where it began."""
+    import torch
+    from deeplearning4j_tpu_torch.common.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    out = {}
+    for name, B in (("GoogLeNet", 128), ("VGG16", 64)):
+        x, y = resnet_images(B, 224, 1000, seed=43)
+        ds = DataSet(torch.from_numpy(x).to(device),
+                     torch.from_numpy(y).to(device))
+        for lr in rates:
+            net = _zoo_model(name, {}).init(device=device)
+            for layer in net.layers:
+                layer.updater = Nesterovs(lr, 0.9)
+            losses = []
+            for _ in range(steps):
+                net.fit(ds, batch_size=B)
+                losses.append(net.score_value)
+            key = f"{name}/{lr:g}"
+            out[key] = dict(losses=losses, fell=bool(losses[-1] < losses[0]))
+            print(f"[zoo_lr_trial] {key}: {[round(v, 4) for v in losses]}",
+                  flush=True)
+            del net
+            torch.cuda.empty_cache()
     return out
 
 
@@ -3978,11 +4627,14 @@ def run(device, *, small=False, kernels_only=False):
                     small)
         for k in launches:
             launches[k] += (l11 or {}).get(k, 0)
+        l12 = phase("cnn_zoo", phase_cnn_zoo, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l12 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
-                         ("11", l11)) if l}
+                         ("11", l11), ("12", l12)) if l}
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -4025,6 +4677,9 @@ def main(argv):
         report["kernels"] = []
     elif "--warmup-trial" in argv:
         report, fails = {"warmup_trial": warmup_trial(device)}, Failures()
+        report["kernels"] = []
+    elif "--zoo-lr-trial" in argv:
+        report, fails = {"zoo_lr_trial": zoo_lr_trial(device)}, Failures()
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

@@ -388,6 +388,7 @@ class ComputationGraph(Container):
             h, mask = in_acts[0], in_masks[0]
             if node.preprocessor is not None:
                 h = node.preprocessor.pre_process(h, mask)
+                mask = node.preprocessor.process_mask(mask)
             if stop_at_loss and name in self.output_layer_names:
                 preouts[name] = (h, mask)
                 continue

@@ -17,6 +17,7 @@ from deeplearning4j_tpu_torch.nn.layers.feedforward import (
 from deeplearning4j_tpu_torch.nn.layers.normalization import (
     BatchNormalization,
     LayerNormalization,
+    LocalResponseNormalization,
     layer_norm_reference,
 )
 from deeplearning4j_tpu_torch.nn.layers.pooling import (
@@ -32,6 +33,7 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import (
     RnnOutputLayer,
     SimpleRnn,
 )
+from deeplearning4j_tpu_torch.nn.layers.training import CenterLossOutputLayer
 from deeplearning4j_tpu_torch.nn.layers.transformer import (
     PositionalEncodingLayer,
     TransformerEncoderBlock,
@@ -39,12 +41,12 @@ from deeplearning4j_tpu_torch.nn.layers.transformer import (
 )
 
 __all__ = ["ActivationLayer", "BaseRecurrentLayer", "BatchNormalization",
-           "ConvolutionLayer", "ConvolutionMode", "DenseLayer",
-           "DropoutLayer", "EmbeddingLayer", "GlobalPoolingLayer",
-           "GravesBidirectionalLSTM", "GravesLSTM", "LSTM", "LastTimeStep",
-           "Layer", "LayerNormalization", "MultiHeadAttention",
-           "OutputLayer", "PoolingMode", "PoolingType",
-           "PositionalEncodingLayer", "RnnOutputLayer", "SimpleRnn",
-           "SubsamplingLayer", "ZeroPaddingLayer",
-           "TransformerEncoderBlock", "layer_from_dict",
+           "CenterLossOutputLayer", "ConvolutionLayer", "ConvolutionMode",
+           "DenseLayer", "DropoutLayer", "EmbeddingLayer",
+           "GlobalPoolingLayer", "GravesBidirectionalLSTM", "GravesLSTM",
+           "LSTM", "LastTimeStep", "Layer", "LayerNormalization",
+           "LocalResponseNormalization", "MultiHeadAttention", "OutputLayer",
+           "PoolingMode", "PoolingType", "PositionalEncodingLayer",
+           "RnnOutputLayer", "SimpleRnn", "SubsamplingLayer",
+           "ZeroPaddingLayer", "TransformerEncoderBlock", "layer_from_dict",
            "layer_norm_reference", "stream_budget"]

@@ -100,13 +100,11 @@ NOT_PORTED = {
     "Subsampling1DLayer", "upsampling1d": "Upsampling1D", "upsampling2d":
     "Upsampling2D", "zeropadding1d": "ZeroPadding1DLayer",
     "space_to_depth": "SpaceToDepthLayer", "separable_convolution2d":
-    "SeparableConvolution2D", "lrn": "LocalResponseNormalization",
-    "pool_helper": "PoolHelperLayer", "reshape": "ReshapeLayer",
-    "permute": "PermuteLayer", "loss": "LossLayer", "frozen":
-    "FrozenLayer", "mixture_of_experts": "MixtureOfExperts", "vae":
-    "VariationalAutoencoder", "yolo2_output": "Yolo2OutputLayer",
-    "rbm": "RBM", "autoencoder": "AutoEncoder", "center_loss_output":
-    "CenterLossOutputLayer"}
+    "SeparableConvolution2D", "pool_helper": "PoolHelperLayer",
+    "reshape": "ReshapeLayer", "permute": "PermuteLayer", "loss":
+    "LossLayer", "frozen": "FrozenLayer", "mixture_of_experts":
+    "MixtureOfExperts", "vae": "VariationalAutoencoder", "yolo2_output":
+    "Yolo2OutputLayer", "rbm": "RBM", "autoencoder": "AutoEncoder"}
 
 
 def register_layer(cls):

@@ -1,6 +1,7 @@
-"""BatchNormalization and LayerNormalization (counterpart of
-`deeplearning4j_tpu/nn/layers/normalization.py`: `BatchNormalization`
-:28-91, `LayerNormalization` :121-176)."""
+"""BatchNormalization, LocalResponseNormalization and LayerNormalization
+(counterpart of `deeplearning4j_tpu/nn/layers/normalization.py`:
+`BatchNormalization` :28-91, `LocalResponseNormalization` :94-118,
+`LayerNormalization` :121-176)."""
 
 from __future__ import annotations
 
@@ -148,6 +149,30 @@ class BatchNormalization(Layer):
         if gamma is not None:
             y = y * gamma.to(x.dtype) + beta.to(x.dtype)
         return y
+
+
+@register_layer
+class LocalResponseNormalization(Layer):
+    """Across-channel LRN (AlexNet's, GoogLeNet's and FaceNet's) over the
+    last axis of NHWC: ``x / (k + alpha * win) ** beta``, `win` the sum
+    of x^2 over the `n` channels centred on each one (zeros past the
+    edges). JAX's own form, in x's dtype: the squares padded by n // 2
+    on each side, their cumulative sum (a leading zero prepended) and
+    the difference of two sums n apart. Under `mixed_bf16` both packages
+    take that cumsum in bf16, each with its own rounding order, so the
+    window carries a few bf16 ulps of the cumsum's scale, not of the
+    window's; no params, plain PyTorch ops (the JAX layer is plain
+    `jnp`)."""
+
+    layer_name = "lrn"
+    FIELDS = (("k", 2.0), ("n", 5), ("alpha", 1e-4), ("beta", 0.75))
+
+    def forward(self, x, *, train=False, rng=None, mask=None):
+        half = self.n // 2
+        csum = torch.cumsum(F.pad(x * x, (half, half)), dim=-1)
+        csum = F.pad(csum, (1, 0))
+        win = csum[..., self.n:] - csum[..., :-self.n]
+        return x / (self.k + self.alpha * win) ** self.beta
 
 
 @register_layer

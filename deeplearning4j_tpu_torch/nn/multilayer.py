@@ -33,9 +33,9 @@ returns the output dtype (fp32).
 Configuration (`nn/conf/builder.py`): a net is built from a
 `MultiLayerConfiguration` (the JAX constructor, :95) or from a layer
 list, and keeps the configuration as `.conf`, which
-`util/serializer.py` writes. Input preprocessors run before their
-layer, as in JAX; none is ported yet, so a configuration with one
-builds and its forward raises.
+`util/serializer.py` writes. The input preprocessor of layer i
+reshapes the activation and the mask (`process_mask`) before the layer,
+where JAX applies it, the output layer's in the loss included.
 
 Recurrent layers: `fit` takes truncated-BPTT steps when the
 configuration asks for them and the features are [B, T, F]
@@ -108,7 +108,7 @@ class MultiLayerNetwork(Container):
         pre = self.conf.input_preprocessors
         for i, layer in enumerate(self.layers[:upto]):
             if i in pre:
-                h = pre[i].pre_process(h, mask)
+                h, mask = self._pre_process(i, h, mask)
             if carries is not None and isinstance(layer, BaseRecurrentLayer):
                 h, new_carries[str(i)] = self._call_with_carry(
                     str(i), layer, h, carries.get(str(i)), train=train,
@@ -120,6 +120,12 @@ class MultiLayerNetwork(Container):
             if collect is not None:
                 collect.append(h)
         return h, new_carries, mask
+
+    def _pre_process(self, i, h, mask):
+        """Layer i's input preprocessor on the activation and on the
+        mask (the JAX `pre_process` then `process_mask`, :243-244)."""
+        pp = self.conf.input_preprocessors[i]
+        return pp.pre_process(h, mask), pp.process_mask(mask)
 
     @torch.no_grad()
     def _forward_core(self, x, carries: Optional[Dict[str, object]] = None):
@@ -177,6 +183,8 @@ class MultiLayerNetwork(Container):
             new_state=new_state)
         if carries_out is not None:
             carries_out.update(new_carries)
+        if n - 1 in self.conf.input_preprocessors:
+            h, mask = self._pre_process(n - 1, h, mask)
         loss = self._output_loss(
             str(n - 1), out, h, y, lmask if lmask is not None else mask,
             train=train, rng=rng)

@@ -57,8 +57,20 @@ class ZooModel:
     def conf(self):
         raise NotImplementedError
 
-    def init(self, device="cuda", dtype_policy=None):
-        raise NotImplementedError
+    def init(self, seed: Optional[int] = None, *, device="cuda",
+             dtype_policy=None):
+        """The model's net on `device` (a `ComputationGraph` for a graph
+        configuration, else a `MultiLayerNetwork`) with JAX's weights for
+        `seed` (the model's seed by default)."""
+        from deeplearning4j_tpu_torch.nn.graph import (
+            ComputationGraph, ComputationGraphConfiguration)
+        from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+        conf = self.conf()
+        cls = (ComputationGraph
+               if isinstance(conf, ComputationGraphConfiguration)
+               else MultiLayerNetwork)
+        return cls(conf, device=device, dtype_policy=dtype_policy).init(
+            self.seed if seed is None else seed)
 
     def pretrained_path(self, ptype: PretrainedType) -> Optional[Path]:
         name = self.packaged.get(PretrainedType(ptype))

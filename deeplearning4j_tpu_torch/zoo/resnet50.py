@@ -15,10 +15,7 @@ from deeplearning4j_tpu_torch.common.weights import WeightInit
 from deeplearning4j_tpu_torch.nn.conf.builder import NeuralNetConfiguration
 from deeplearning4j_tpu_torch.nn.conf.graph import ElementWiseVertex
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
-from deeplearning4j_tpu_torch.nn.graph import (
-    ComputationGraph,
-    ComputationGraphConfiguration,
-)
+from deeplearning4j_tpu_torch.nn.graph import ComputationGraphConfiguration
 from deeplearning4j_tpu_torch.nn.layers import (
     ActivationLayer,
     BatchNormalization,
@@ -91,8 +88,3 @@ class ResNet50(ZooModel):
                                           loss="mcxent"), "avgpool")
         g.set_outputs("output")
         return g.build()
-
-    def init(self, device="cuda", dtype_policy=None) -> ComputationGraph:
-        """The graph on `device` with weights drawn from the seed."""
-        return ComputationGraph(self.conf(), device=device,
-                                dtype_policy=dtype_policy).init(self.seed)

@@ -23,7 +23,6 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
     NeuralNetConfiguration,
 )
 from deeplearning4j_tpu_torch.nn.layers import GravesLSTM, RnnOutputLayer
-from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 from deeplearning4j_tpu_torch.zoo.base import (
     PretrainedType,
     ZooModel,
@@ -58,11 +57,6 @@ class TextGenerationLSTM(ZooModel):
                                self.tbptt_length)
                 .build())
 
-    def init(self, seed: Optional[int] = None, *, device="cuda",
-             dtype_policy=None) -> MultiLayerNetwork:
-        return MultiLayerNetwork(self.conf(), device=device,
-                                 dtype_policy=dtype_policy).init(
-            self.seed if seed is None else seed)
 
     @staticmethod
     def pretrained_charset() -> Optional[str]:

@@ -283,7 +283,8 @@ def test_global_pooling_over_nhwc_matches_jax(pooling):
         jl.get_output_type(JaxInputType.convolutional(H, W, 3)).to_dict()
 
 
-@pytest.mark.parametrize("name", ["convolution1d", "lrn", "upsampling2d",
+@pytest.mark.parametrize("name", ["convolution1d", "space_to_depth",
+                                  "upsampling2d",
                                   "separable_convolution2d",
                                   "zeropadding1d"])
 def test_unported_layers_are_refused_by_name(name):

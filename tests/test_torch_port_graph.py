@@ -193,14 +193,19 @@ def test_vertex_matches_jax(case):
 
 
 def test_preprocessor_vertex_round_trips_and_refuses_its_forward():
+    """The vertex round-trips and types as JAX's; its forward, refused
+    until the preprocessors were ported, now equals JAX's bit for bit
+    (the graph case: tests/test_torch_port_preprocessors.py)."""
     jv = jgraph.PreprocessorVertex(JaxCnnToFF(4, 2, 3))
     pv = pgraph.vertex_from_dict(jv.to_dict())
     assert pv.to_dict() == jv.to_dict()
     it = JaxInputType.convolutional(4, 2, 3)
     assert pv.get_output_type([InputType.from_dict(it.to_dict())]).to_dict() \
         == jv.get_output_type([it]).to_dict()
-    with pytest.raises(NotImplementedError, match="not ported"):
-        pv.forward([torch.zeros(1, 4, 2, 3)])
+    x = np.random.default_rng(2).standard_normal((2, 4, 2, 3)).astype(
+        np.float32)
+    assert np.array_equal(pv.forward([torch.from_numpy(x)]).numpy(),
+                          np.asarray(jv.forward([jnp.asarray(x)])))
 
 
 # ----------------------------------------------------------- configuration
@@ -484,6 +489,22 @@ def test_phase_10_small_mode_on_the_cpu():
     assert r["graph_bridge"]["round_trip_bit_equal"]
     assert r["graph_lm_float32"]["packed_runs"] == [[2, 3]]
     assert r["float32"]["steps"] == 2 and r["mixed_bf16"]["steps"] == 2
+
+
+def test_phase_12_small_mode_on_the_cpu():
+    """`chip_smoke.phase_cnn_zoo` at its CPU size: the packaged LeNet on
+    the digits (card and CPU both the CPU here) and its twins, GoogLeNet,
+    VGG16 and the five other CNNs at reduced input sizes, the bf16
+    bounds; every check passes and no kernel launches."""
+    report, fails = {}, chip_smoke.Failures()
+    launches = chip_smoke.phase_cnn_zoo(torch.device("cpu"), report, fails,
+                                        small=True)
+    assert not fails, list(fails)
+    assert all(n == 0 for n in launches.values())
+    r = report["cnn_zoo"]
+    assert r["lenet"]["accuracy_cpu"] == 290 / 297
+    assert set(r) >= {"GoogLeNet", "VGG16", "AlexNet", "SimpleCNN", "VGG19",
+                      "InceptionResNetV1", "FaceNetNN4Small2", "bounds"}
 
 
 # ------------------------------------------------------- evaluation, refusals

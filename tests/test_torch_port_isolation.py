@@ -48,7 +48,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "eval.regression", "nn.layers.pooling", "nn.container",
                 "nn.graph", "nn.conf.graph", "nn.layers.convolution",
                 "nn.layers.normalization", "zoo.base", "zoo.resnet50",
-                "nn.layers.recurrent", "zoo.textgenlstm"):
+                "nn.layers.recurrent", "zoo.textgenlstm",
+                "nn.layers.training", "zoo.lenet", "zoo.simplecnn",
+                "zoo.alexnet", "zoo.vgg", "zoo.googlenet",
+                "zoo.inceptionresnet", "zoo.facenet"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 

@@ -140,6 +140,25 @@ def test_dropout_retain_one_is_identity_and_views_take_their_own_index():
                        kd.dropout(view.contiguous(), pk, 0.5))
 
 
+@pytest.mark.parametrize("base", [0, 2 ** 31 - 8, 2 ** 32 - 8,
+                                  2 ** 33 + 2 ** 31 - 8])
+def test_int32_threefry_equals_the_generic_form(base):
+    """Tensor words under an int key hash in int32 (wrapping adds, masked
+    right shifts); the generic form (tensor keys, int64 with a 32-bit
+    mask) and the Python-int form are the reference, across the signed
+    and the 32-bit word boundaries."""
+    idx = torch.arange(base, base + 16, dtype=torch.int64)
+    for k0, k1 in ((0, 123), (0xFFFFFFFF, 0x80000001), (2 ** 31, 2 ** 31 - 1)):
+        got = prng.threefry2x32(k0, k1, idx >> 32, idx & prng.MASK)
+        want = prng.threefry2x32(torch.tensor(k0), torch.tensor(k1),
+                                 idx >> 32, idx & prng.MASK)
+        assert got[0].dtype == torch.int64
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        i = int(idx[5])
+        assert prng.threefry2x32(k0, k1, i >> 32, i & prng.MASK) == (
+            int(got[0][5]), int(got[1][5]))
+
+
 def test_cuda_tensors_go_to_the_kernel_or_raise():
     """The wrappers decide by device: a CUDA device builds and launches
     the kernel (without CUDA it raises); another device is refused.

@@ -537,10 +537,20 @@ def test_inert_fields_train_and_preprocessors_refuse_their_forward():
     net.fit(x, y, batch_size=B, shuffle=False)
     ref.fit(x, y, batch_size=B, shuffle=False)
     assert net.score_value == ref.score_value
+    # a preprocessor in the configuration round-trips; its forward, once
+    # refused, runs as JAX's (before the output layer: [B, T, D] folded
+    # to [B*T, D] rows)
     conf = lm_conf(P)
-    conf.input_preprocessors[2] = RnnToFeedForwardPreProcessor()
-    net = MultiLayerNetwork(conf, device="cpu")
+    conf.input_preprocessors[4] = RnnToFeedForwardPreProcessor()
+    net = MultiLayerNetwork(conf, device="cpu").init(1)
+    jconf = JaxConf.from_json(conf.to_json())
     assert MultiLayerConfiguration.from_json(conf.to_json()).to_dict() == \
-        conf.to_dict() == JaxConf.from_json(conf.to_json()).to_dict()
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        net.output(np.zeros((1, 4), np.int64))
+        conf.to_dict() == jconf.to_dict()
+    jnet = JaxNet(jconf).init()
+    jnet.params = {k: {n: jnp.asarray(a) for n, a in v.items()}
+                   for k, v in to_jax_params(net).items()}
+    ids = np.random.default_rng(3).integers(0, V, (2, 4))
+    got = net.output(ids).numpy()
+    assert got.shape == (8, V)
+    np.testing.assert_allclose(got, np.asarray(jnet.output(ids)),
+                               rtol=1e-5, atol=1e-6)
