@@ -9,6 +9,11 @@
                                           # with and without a warmup
     python3 chip_smoke.py --zoo-lr-trial  # GoogLeNet and VGG16: the
                                           # loss under four Nesterov rates
+    python3 chip_smoke.py --layers-rest   # build + phase 13 alone
+    python3 chip_smoke.py --profile-layers-rest  # phase 13's --profile
+                                          # rows alone
+    python3 chip_smoke.py --yolo-lr-trial # YOLOv2: the loss under four
+                                          # Nesterov rates
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -225,8 +230,39 @@ Phases, in order:
      (e) LRN (GoogLeNet's stem shapes) and CnnToFeedForward in bf16 card
      vs CPU (`lrn_bf16_bound`; bit-equal). It prints `[cnn_zoo]` lines
      and the phase's seconds;
+ 13. the remaining layer families (`phase_layers_rest`, fp32 with TF32
+     off unless an arm is mixed_bf16): (a) YOLOv2 at darknet's
+     `cfg/yolov2.cfg` widths (`yolo2_conf`: Darknet-19 with BatchNorm
+     and leaky 0.1, the passthrough through SpaceToDepthLayer(2) and a
+     merge, the five anchors, 425 = 5 x 85 outputs, Nesterovs(YOLO_LR,
+     0.9), l2 5e-4, per-layer gradient renormalization) on seeded
+     images and boxes (`yolo_labels`):
+     `init(seed)` card vs CPU within 1e-5, output() and the detections
+     at 0.5 (near-ties counted) at 416, 3 steps at batch 2 (step 0
+     within 1e-4, then the noisy-twin rule, running statistics too),
+     then 10 timed steps after 3 at 608 and batch 8, fp32 and
+     mixed_bf16; (b) the smoke LM with a MixtureOfExperts (8 experts,
+     top-2, hidden 1024) after each of its 4 blocks (`moe_lm_conf`):
+     output() card vs CPU, the selected experts (near-ties counted) and
+     the per-expert token fractions, 3 Adam steps (step 0's loss and
+     load-balance loss within 1e-4, then the noisy-twin rule against a
+     weight-noise twin), 10 timed steps at [16, 511] in both dtypes with
+     the flash and LayerNorm kernels launched; MultiHeadAttention(256 -> 512, 8 heads)
+     forward and backward card vs CPU, flash at head dim 64; (c) on the
+     digits at 28x28: dl4j-examples' VAE (784 -> [256, 256] -> 2,
+     Bernoulli, RmsProp(1e-3)) pretrained one epoch card vs CPU (an Sgd
+     twin's ELBO within 1e-4 each step, the RmsProp arm by a
+     weight-noise twin), 3 timed epochs and `reconstruction_probability`
+     of the 297 held-out digits; a DBN of RBMs 784-1000-500-250-30 (step
+     0's flipped samples counted, the free energy and params after one
+     epoch a layer by the noisy-twin rule) fine-tuned on the labels
+     (held-out accuracy above 0.5); a graph's AutoEncoder(784 -> 500)
+     node through `graph.pretrain`; (d) the other new layers forward and
+     backward card vs CPU in fp32 (1e-5) and bf16 (2 ulps of each row's
+     largest), masks included, and a FrozenLayer conv and BatchNorm
+     bit-equal after 3 `fit` steps. It prints `[layers_rest]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 12, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
+to 13, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
 TF32 off for matmuls and convolutions (PyTorch lets cuDNN run fp32
@@ -4150,6 +4186,992 @@ def phase_cnn_zoo(device, report, fails, small=False):
     return total
 
 
+# --------------------------------- phase 13: the remaining layer families
+# YOLOv2 at darknet's `cfg/yolov2.cfg` widths (Redmon & Farhadi,
+# YOLO9000, 2016), which DL4J's zoo YOLO2 follows: the Darknet-19 body as
+# (filters, kernel) convolutions, each without a bias and followed by
+# BatchNorm with leaky 0.1; "M" is a 2x2/2 max pool, "P" marks the map the
+# passthrough takes (38x38x512 at 608). Then the passthrough (a 1x1 conv to
+# 64, SpaceToDepthLayer(2), merged before the 1024-wide map), a 3x3 conv to
+# 1024 and a 1x1 conv to A x (5 + C) with a bias and no activation. The
+# SpaceToDepthLayer follows JAX's order, not darknet's `reorg`: darknet's
+# yolov2.weights would not load into this net unchanged.
+YOLO_BODY = ((32, 3), "M", (64, 3), "M", (128, 3), (64, 1), (128, 3), "M",
+             (256, 3), (128, 1), (256, 3), "M", (512, 3), (256, 1), (512, 3),
+             (256, 1), (512, 3), "P", "M", (1024, 3), (512, 1), (1024, 3),
+             (512, 1), (1024, 3), (1024, 3), (1024, 3))
+YOLO_ANCHORS = ((0.57273, 0.677385), (1.87446, 2.06253), (3.33843, 5.47434),
+                (7.88282, 3.52778), (9.77052, 9.16828))
+# the cfg's learning_rate, momentum and decay (DL4J has no plain momentum
+# SGD: Nesterovs), minibatch 8 (batch=64, subdivisions=8); the card-vs-CPU
+# steps run at 416 (grid 13: the same weights serve any multiple of 32).
+# The cfg ramps the rate up over its first 1000 batches (burn_in), which
+# DL4J has no counterpart for; DL4J's zoo YOLO2 renormalizes each layer's
+# gradient to L2 norm 1 instead (RenormalizeL2PerLayer, threshold 1),
+# and so does this net: without it the loss jumps to several times its
+# level within 13 steps at every rate from 3e-5 to 1e-3 and reaches NaN at
+# 1e-3 (`--yolo-lr-trial`, H100 80GB HBM3; at 1e-4, NaN in one of two
+# runs of this phase); with it the loss falls step by step at all four
+YOLO_LR, YOLO_MOMENTUM, YOLO_L2 = 1e-3, 0.9, 5e-4
+YOLO_GN = ("renormalize_l2_per_layer", 1.0)
+YOLO = dict(size=608, classes=80, width=1.0, B=8, warmup=3, steps=10,
+            check_size=416, B_check=2, n_check=3)
+YOLO_SMALL = dict(size=64, classes=4, width=1 / 16, B=2, warmup=1, steps=1,
+                  check_size=64, B_check=2, n_check=3)
+YOLO_INIT_RTOL = 1e-5     # init(seed) card vs CPU, of each tensor's largest
+YOLO_THRESHOLD = 0.5      # get_predicted_objects
+# mixed_bf16's step 0 against fp32's: the 425 detection channels reach the
+# fp32 loss rounded to bf16, and exp(tw), exp(th) and the sigmoids carry
+# that rounding into 1805 anchors an image (2.5% on an H100, where the
+# LM's 1e-2 band was set for a softmax over logits)
+YOLO_MIXED_STEP0_RTOL = MIXED_BAND
+PHASE13_NOISE, PHASE13_NOISE_FACTOR = 1e-7, 3.0   # the noisy-twin rule
+# the twin for YOLOv2's steps, the MoE LM (its routing flips at near-ties
+# after a step) and the VAE's RmsProp (which moves every near-zero
+# gradient by about 4.5 lr): a CPU twin with this relative noise on its
+# initial weights (token ids take no input noise); the VAE also has an
+# Sgd twin held step by step
+PHASE13_WEIGHT_NOISE = 1e-6
+VAE_SGD_LR = 1e-4
+# the MoE LM: the smoke LM (phase 3's) with a MixtureOfExperts after each
+# block: 8 experts, top-2 (Mixtral 8x7B's), hidden 1024, load balance 0.01,
+# phase 5's Adam(1e-3); card vs CPU at B_check (the CPU's share of the
+# phase's time), timed at [16, 511]
+MOE_LM = dict(LM, n_experts=8, top_k=2, hidden=1024, coef=0.01)
+MOE = dict(B=16, B_check=2, n_check=3, warmup=3, steps=10)
+MOE_SMALL = dict(B=2, B_check=2, n_check=2, warmup=1, steps=1)
+MOE_KERNELS = ("layer_norm", "residual_layer_norm", "flash_attention_fwd",
+               "flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# MultiHeadAttention with n_out != n_in: flash at head dim 512 / 8 = 64
+MHA_WIDE = dict(n_in=256, n_out=512, n_heads=8, B=8, T=512)
+# dl4j-examples' VaeMNIST2dPlots: 784 -> [256, 256] -> 2 -> [256, 256],
+# Bernoulli reconstruction, leaky relu, RmsProp(1e-3), l2 1e-4 (inert in
+# pretrain), batch 128; the deep belief net at Hinton & Salakhutdinov's
+# (Science 2006) encoder widths, binary RBMs, CD-1; a denoising
+# AutoEncoder(784 -> 500, corruption 0.3) node in a graph
+VAE = dict(enc=(256, 256), latent=2, dec=(256, 256), lr=1e-3, l2=1e-4,
+           B=128, timed_epochs=3)
+DBN_WIDTHS = (1000, 500, 250, 30)
+DBN_FIT_EPOCHS = 10
+AE = dict(n_out=500, corruption=0.3)
+PRETRAIN_RTOL = 1e-4      # the fp32 ELBO of each step, card vs CPU
+LAYER_ATOL = 1e-5         # (d) fp32, of each result's largest |value|
+LAYER_BF16_ULPS = 2       # (d) bf16, of each row's largest |value|
+
+
+def yolo2_conf(size, classes, width=1.0, seed=42, lr=YOLO_LR,
+               renormalize=True):
+    """The YOLOv2 graph (YOLO_BODY, the passthrough, the head and the
+    cfg's five anchors, lambda_coord 5, lambda_no_obj 0.5) over
+    size x size x 3 images, every width scaled by `width` (the tests'
+    and the rehearsal's small nets), Nesterovs(lr, 0.9), l2 YOLO_L2 and
+    YOLO_GN's per-layer gradient renormalization (`renormalize=False`,
+    the lr trial's other arm, leaves it out)."""
+    from deeplearning4j_tpu_torch.common.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.graph import MergeVertex
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, ConvolutionLayer, SpaceToDepthLayer,
+        SubsamplingLayer, Yolo2OutputLayer)
+    b = (NeuralNetConfiguration.builder().seed(seed)
+         .updater(Nesterovs(lr, YOLO_MOMENTUM)).l2(YOLO_L2)
+         .weight_init("relu"))
+    if renormalize:
+        b.gradient_normalization(*YOLO_GN)
+    g = (b.graph_builder().add_inputs("input")
+         .set_input_types(InputType.convolutional(size, size, 3)))
+
+    def conv_bn(name, prev, filters, k):
+        g.add_layer(name, ConvolutionLayer(
+            n_out=max(2, int(filters * width)), kernel_size=(k, k),
+            convolution_mode="same", has_bias=False), prev)
+        g.add_layer(name + "_bn", BatchNormalization(
+            activation="leakyrelu:0.1"), name)
+        return name + "_bn"
+
+    prev = passthrough = "input"
+    for i, item in enumerate(YOLO_BODY):
+        if item == "M":
+            g.add_layer(f"pool{i}", SubsamplingLayer(
+                pooling_type="max", kernel_size=(2, 2), stride=(2, 2)), prev)
+            prev = f"pool{i}"
+        elif item == "P":
+            passthrough = prev
+        else:
+            prev = conv_bn(f"conv{i}", prev, *item)
+    g.add_layer("reorg", SpaceToDepthLayer(block_size=2),
+                conv_bn("passthrough", passthrough, 64, 1))
+    g.add_vertex("route", MergeVertex(), "reorg", prev)
+    g.add_layer("detect", ConvolutionLayer(
+        n_out=len(YOLO_ANCHORS) * (5 + classes), kernel_size=(1, 1),
+        convolution_mode="same"), conv_bn("head", "route", 1024, 3))
+    g.add_layer("yolo", Yolo2OutputLayer(anchors=YOLO_ANCHORS,
+                                         lambda_coord=5.0,
+                                         lambda_no_obj=0.5), "detect")
+    return g.set_outputs("yolo").build()
+
+
+def yolo_labels(n, grid, classes, seed):
+    """[n, grid, grid, 4 + classes] YOLO labels: 1-6 boxes an image from
+    `default_rng(seed)`, centers uniform over the grid, sides uniform in
+    [0.3, max(0.6, grid / 2)] cells (never under 0.1 cell: sqrt(wh) is
+    steep there), each in its center's cell as (x1, y1, x2, y2) in grid
+    units with a one-hot class of `classes`."""
+    rng = np.random.default_rng(seed)
+    y = np.zeros((n, grid, grid, 4 + classes), np.float32)
+    for b in range(n):
+        for _ in range(int(rng.integers(1, 7))):
+            cx, cy = rng.uniform(0, grid, 2)
+            w, h = rng.uniform(0.3, max(0.6, grid / 2), 2)
+            row = y[b, int(cy), int(cx)]
+            row[:] = 0
+            row[:4] = (cx - w / 2, cy - h / 2, cx + w / 2, cy + h / 2)
+            row[4 + int(rng.integers(0, classes))] = 1.0
+    return y
+
+
+def _init_rel(a, b):
+    """The worst param of two nets, each relative to the tensor's
+    largest |value|."""
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    pa, pb = to_jax_params(a), to_jax_params(b)
+    return max(float(np.abs(pa[k][n] - w).max()
+                     / max(float(np.abs(w).max()), 1e-30))
+               for k, lv in pb.items() for n, w in lv.items())
+
+
+def _weight_noisy(net, seed):
+    """A CPU copy of `net` with PHASE13_WEIGHT_NOISE relative noise on
+    every param."""
+    import torch
+    twin = _copy_to(net, "cpu")
+    with torch.no_grad():
+        g = torch.Generator().manual_seed(seed)
+        for t in twin.parameters():
+            t.mul_(1 + PHASE13_WEIGHT_NOISE * torch.randn(t.shape,
+                                                          generator=g))
+    twin.params_changed()
+    return twin
+
+
+def _noisy_twin_checks(fails, what, card, cpu, twin, losses, extra=()):
+    """Step 0's loss card vs CPU within TRAIN_LOSS_RTOL; every later loss
+    and the whole param tree (and each (name, getter) of `extra`) within
+    PHASE13_NOISE_FACTOR x the CPU's distance to its noisy twin."""
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    lc, lp, lt = losses
+    step0 = abs(lc[0] - lp[0]) / max(abs(lp[0]), 1e-30)
+    fails.check(step0 <= TRAIN_LOSS_RTOL and all(np.isfinite(lc)),
+                f"{what} step 0 loss card vs CPU rel {step0} (tol "
+                f"{TRAIN_LOSS_RTOL}): card {lc}, CPU {lp}")
+    rows = {}
+    for name, get in (("params", to_jax_params),) + tuple(extra):
+        got, want, ref = get(card), get(cpu), get(twin)
+        rows[name] = (_tree_rel(got, want)[0], _tree_rel(ref, want)[0])
+    for i in range(1, len(lp)):
+        rows[f"loss_{i}"] = (abs(lc[i] - lp[i]), abs(lt[i] - lp[i]))
+    for name, (rel, self_rel) in rows.items():
+        tol = PHASE13_NOISE_FACTOR * self_rel + (
+            TRAIN_LOSS_RTOL * abs(lp[int(name[5:])])
+            if name.startswith("loss") else 0.0)
+        fails.check(rel <= tol, f"{what} card vs CPU {name}: {rel} over "
+                    f"{PHASE13_NOISE_FACTOR} x the CPU's distance to its "
+                    f"noisy twin {self_rel} (tol {tol})")
+    return dict(step0_rel_err=step0, loss_card=lc, loss_cpu=lp,
+                loss_cpu_noisy=lt,
+                distances={k: dict(card_vs_cpu=a, cpu_vs_noisy_cpu=b)
+                           for k, (a, b) in rows.items()})
+
+
+def _yolo_card_vs_cpu(device, fails, c):
+    """(a) YOLOv2 at `check_size`: `init(seed)` on the card and on the
+    CPU within YOLO_INIT_RTOL; output() of the card's weights on both
+    within OUTPUT_ATOL of the largest |value|, and the detections at
+    YOLO_THRESHOLD equal apart from near-ties (a confidence within the
+    largest card-vs-CPU confidence difference of the threshold); then
+    `n_check` steps at B_check from the card's weights on the card, the
+    CPU and a CPU twin with PHASE13_WEIGHT_NOISE on its weights
+    (BatchNorm at batch 2 is chaotic after step 0: `_noisy_twin_checks`,
+    running statistics included; cuDNN's fp32 sums over 3x3x1024 windows
+    sit further from the CPU's than 1e-7 noise on the images moves them:
+    4.89 against 0.54 in step 1's loss on an H100)."""
+    import torch
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_state
+    size, B, n = c["check_size"], c["B_check"], c["n_check"]
+    conf = yolo2_conf(size, c["classes"], c["width"])
+    t0 = time.perf_counter()
+    card = ComputationGraph(conf, device=device).init()
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    init_err = _init_rel(card, ComputationGraph(conf, device="cpu").init())
+    fails.check(init_err <= YOLO_INIT_RTOL, f"yolo init(seed) card vs CPU "
+                f"{init_err} of each tensor's largest (tol {YOLO_INIT_RTOL})")
+    cpu = _copy_to(card, "cpu")
+    x, _ = resnet_images(B * (n + 1), size, 1, seed=51)
+    grid = size // 32
+    y = yolo_labels(B * n, grid, c["classes"], seed=52)
+    o_card = card.output(x[B * n:]).cpu()
+    o_cpu = cpu.output(x[B * n:])
+    o_err = float((o_card - o_cpu).abs().max() / o_cpu.abs().max().clamp(
+        min=1.0))
+    fails.check(o_err <= OUTPUT_ATOL and tuple(o_card.shape) == (
+        B, grid, grid, len(YOLO_ANCHORS) * (5 + c["classes"])),
+        f"yolo output() card vs CPU {o_err} (tol {OUTPUT_ATOL}), shape "
+        f"{tuple(o_card.shape)}")
+    layer = cpu.conf.nodes["yolo"].layer
+    conf_c = o_card.reshape(B, grid, grid, len(YOLO_ANCHORS), -1)[..., 4]
+    conf_p = o_cpu.reshape(B, grid, grid, len(YOLO_ANCHORS), -1)[..., 4]
+    eps = float((conf_c - conf_p).abs().max())
+    keys_c = {tuple(k) for k in np.argwhere(conf_c.numpy() >= YOLO_THRESHOLD)}
+    keys_p = {tuple(k) for k in np.argwhere(conf_p.numpy() >= YOLO_THRESHOLD)}
+    apart = keys_c ^ keys_p
+    near = all(abs(float(conf_p[k]) - YOLO_THRESHOLD) <= eps for k in apart)
+    n_det = len(layer.get_predicted_objects(o_card, YOLO_THRESHOLD))
+    fails.check(near and n_det == len(keys_c), f"yolo detections card vs "
+                f"CPU differ beyond near-ties: {len(apart)} apart, eps {eps}")
+    nets, losses, secs = [card, cpu, _weight_noisy(card, 53)], [], []
+    for net in nets:
+        t0 = time.perf_counter()
+        losses.append(_fit_steps(net, x[:B * n], y, B))
+        secs.append(time.perf_counter() - t0)
+    r = _noisy_twin_checks(fails, "yolo", *nets, losses,
+                           extra=(("state", to_jax_state),))
+    r.update(size=size, B=B, steps=n, init_s=init_s,
+             init_max_rel_err=init_err, params=card.num_params(),
+             output_max_rel_err=o_err, detections_card=len(keys_c),
+             detections_cpu=len(keys_p), detections_apart=len(apart),
+             detection_eps=eps, card_s=secs[0], cpu_s=secs[1])
+    return r
+
+
+def _yolo_timed(device, fails, c, small):
+    """(a) YOLOv2 at `size` (608: grid 19), batch B of seeded images and
+    labels resident on the card, `warmup` then `steps` timed `fit` steps,
+    fp32 and mixed_bf16 from the same seed: ms/step, images/s, peak
+    memory; the loss must fall (not in the rehearsal) and mixed's step 0
+    lie within YOLO_MIXED_STEP0_RTOL of fp32's."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    conf = yolo2_conf(c["size"], c["classes"], c["width"])
+    x, _ = resnet_images(c["B"], c["size"], 1, seed=54)
+    y = yolo_labels(c["B"], c["size"] // 32, c["classes"], seed=55)
+    ds = DataSet(torch.from_numpy(x).to(device), torch.from_numpy(y).to(
+        device))
+    out = {}
+    for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
+        net = ComputationGraph(conf, device=device,
+                               dtype_policy=policy).init()
+        out[tag] = _timed_steps(device, net, [ds] * (c["warmup"]
+                                                     + c["steps"]),
+                                c["B"], c["warmup"])
+        if tag == "float32":
+            out["params"] = net.num_params()
+        del net
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        if not small:
+            _falls(fails, f"yolo {tag} timed", out[tag]["losses"])
+    f, m = out["float32"]["losses"][0], out["mixed_bf16"]["losses"][0]
+    out["mixed_step0_rel"] = step0 = abs(m - f) / abs(f)
+    fails.check(step0 <= YOLO_MIXED_STEP0_RTOL, f"yolo mixed_bf16 step 0 {m}"
+                f" vs fp32 {f}: rel {step0} (tol {YOLO_MIXED_STEP0_RTOL})")
+    return out
+
+
+def moe_lm_conf(cfg, seed=123):
+    """The MoE LM: Embedding, positional encoding, then n_layers x (a
+    causal TransformerEncoderBlock, a MixtureOfExperts), and the softmax
+    RnnOutputLayer; Adam(1e-3) and Xavier on every layer, as the zoo
+    LM's. The configuration is made from the layer list, every width
+    given: the list builder would put a RnnToFeedForward preprocessor
+    before each MixtureOfExperts (a feed-forward layer to it), which
+    takes [B, T, F] as it is."""
+    from deeplearning4j_tpu_torch.common.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        MultiLayerConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import (
+        EmbeddingLayer, MixtureOfExperts, PositionalEncodingLayer,
+        RnnOutputLayer, TransformerEncoderBlock)
+    V, d = cfg["vocab"], cfg["d_model"]
+    layers = [EmbeddingLayer(n_in=V, n_out=d, time_series_input=True),
+              PositionalEncodingLayer(n_out=d, max_len=cfg["max_len"])]
+    for _ in range(cfg["n_layers"]):
+        layers.append(TransformerEncoderBlock(
+            n_in=d, n_heads=cfg["n_heads"], ff_multiplier=cfg["ff"],
+            causal=True, cache_len=cfg["max_len"]))
+        layers.append(MixtureOfExperts(
+            n_in=d, n_out=d, n_experts=cfg["n_experts"],
+            hidden_size=cfg["hidden"], top_k=cfg["top_k"],
+            load_balance_coef=cfg["coef"]))
+    layers.append(RnnOutputLayer(n_in=d, n_out=V, activation="softmax",
+                                 loss="mcxent"))
+    for layer in layers:
+        layer.updater = Adam(1e-3)
+    return MultiLayerConfiguration(layers=layers, seed=seed)
+
+
+def _moe_positions(net):
+    return [i for i, layer in enumerate(net.layers)
+            if layer.layer_name == "mixture_of_experts"]
+
+
+def _moe_aux(net, x):
+    """The load-balance loss the next training step adds (every MoE
+    layer's, summed), from a training forward under that step's key."""
+    import torch
+    x = net._features(x)
+    st = {}
+    with torch.no_grad():
+        net._policy_call(lambda: net._forward(
+            x, upto=len(net.layers) - 1, train=True,
+            rng=net._step_key(net.iteration_count), new_state=st))
+    return float(net._pop_aux(st))
+
+
+def _moe_selected(net, x):
+    """Each MoE layer's selected experts [N, E] (bool, numpy) on x, from
+    its input in inference mode."""
+    import torch
+    acts = net.feed_forward(x)
+    out = []
+    with torch.no_grad():
+        for i in _moe_positions(net):
+            layer = net.layers[i]
+            h = acts[i - 1]
+            gates, _ = net._policy_call(lambda: layer.gate(h))
+            out.append((gates.reshape(-1, layer.n_experts) > 0).cpu().numpy())
+    return out
+
+
+def _moe_steps(nets, X, Y, B):
+    """`fit` of each net over X in B-row steps: the losses and the
+    load-balance losses (before each step) of each net."""
+    ls, aux = [[] for _ in nets], [[] for _ in nets]
+    for j, net in enumerate(nets):
+        for i in range(0, len(X), B):
+            aux[j].append(_moe_aux(net, X[i:i + B]))
+            ls[j] += _fit_steps(net, X[i:i + B], Y[i:i + B], B)
+    return ls, aux
+
+
+def _moe_card_vs_cpu(device, fails, cfg, c):
+    """(b) The MoE LM from `init(seed)` on the card and its copy on the
+    CPU: output() at [B_check, max_len] within OUTPUT_ATOL; the experts
+    each token selects, equal apart from near-ties (counted); the
+    per-expert token fractions; then `n_check` steps at [B_check,
+    max_len - 1] by the noisy-twin rule against a CPU twin with
+    PHASE13_WEIGHT_NOISE on its weights: step 0's loss and load-balance
+    loss within TRAIN_LOSS_RTOL, the later ones and the params within
+    PHASE13_NOISE_FACTOR x the twin's distance. After a step a token
+    whose top-2 is a near-tie can route to another expert on each side,
+    a jump in the loss no updater avoids (an Sgd(0.1) twin's
+    load-balance loss was 5% apart by step 2, Adam's 0.6%, on an
+    H100)."""
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    B, n = c["B_check"], c["n_check"]
+    card = MultiLayerNetwork(moe_lm_conf(cfg), device=device).init()
+    cpu = _copy_to(card, "cpu")
+    ids = np.random.default_rng(61).integers(0, cfg["vocab"],
+                                             (B, cfg["max_len"]))
+    o_card = card.output(ids).cpu()
+    o_err = float((o_card - cpu.output(ids)).abs().max())
+    fails.check(o_err <= OUTPUT_ATOL, f"moe LM output() card vs CPU {o_err} "
+                f"(tol {OUTPUT_ATOL})")
+    sel_c, sel_p = _moe_selected(card, ids), _moe_selected(cpu, ids)
+    apart = [int((a != b).any(axis=-1).sum()) for a, b in zip(sel_c, sel_p)]
+    fracs = [a.mean(axis=0).tolist() for a in sel_p]
+    frac_err = max(float(np.abs(a.mean(0) - b.mean(0)).max())
+                   for a, b in zip(sel_c, sel_p))
+    tokens = B * cfg["max_len"]
+    fails.check(frac_err <= max(apart) / tokens + 1e-12, f"moe expert "
+                f"fractions card vs CPU {frac_err} beyond the {apart} "
+                f"near-tie tokens of {tokens}")
+    X, Y = lm_corpus(cfg, B * n, seed=62)
+    twin = _weight_noisy(card, 64)
+    ls, aux = _moe_steps([card, cpu, twin], X, Y, B)
+    r = _noisy_twin_checks(fails, "moe LM", card, cpu, twin, ls)
+    for i in range(n):
+        d, self_d = abs(aux[0][i] - aux[1][i]), abs(aux[2][i] - aux[1][i])
+        tol = TRAIN_LOSS_RTOL * abs(aux[1][i]) + (
+            PHASE13_NOISE_FACTOR * self_d if i else 0.0)
+        fails.check(d <= tol, f"moe LM load-balance loss {i} card vs CPU "
+                    f"{d} (tol {tol}, twin {self_d})")
+    fails.check(not any(card.net_state.values()), "moe LM kept state")
+    r.update(B=B, steps=n, output_max_abs_err=o_err,
+             selection_apart_tokens=apart, tokens=tokens,
+             expert_fractions_cpu=fracs, fraction_max_err=frac_err,
+             aux_card=aux[0], aux_cpu=aux[1], aux_cpu_noisy=aux[2],
+             params=card.num_params())
+    return r
+
+
+def _moe_timed(device, fails, cfg, c, small):
+    """(b) `warmup` then `steps` timed `fit` steps of the MoE LM on one
+    repeated [B, max_len - 1] batch resident on the card, fp32 and
+    mixed_bf16: ms/step, tokens/s, peak memory, the phase-5 kernels'
+    launches; the loss must fall (not in the rehearsal)."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    X, Y = lm_corpus(cfg, c["B"], seed=63)
+    ds = DataSet(torch.from_numpy(X).long().to(device),
+                 torch.from_numpy(Y).to(device))
+    out = {}
+    for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
+        before = dict(K.LAUNCHES)
+        net = MultiLayerNetwork(moe_lm_conf(cfg), device=device,
+                                dtype_policy=policy).init()
+        r = _timed_steps(device, net, [ds] * (c["warmup"] + c["steps"]),
+                         c["B"], c["warmup"])
+        r["tokens_per_s"] = r["images_per_s"] * X.shape[1]
+        r["launches"] = {k: K.LAUNCHES[k] - before.get(k, 0)
+                         for k in K.LAUNCHES}
+        out[tag] = r
+        del net
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+            _launched(fails, f"moe LM {tag}", r["launches"], MOE_KERNELS)
+        if not small:
+            _falls(fails, f"moe LM {tag} timed", r["losses"])
+    return out
+
+
+def _mha_wide(device, fails, small):
+    """(b) MultiHeadAttention(n_in 256, n_out 512, 8 heads, causal) at
+    [8, 512]: the forward and the gradients of x and every param, card
+    vs CPU from one init, within OUTPUT_ATOL and GRAD_RTOL of each
+    result's largest |value| (bk's gradient, zero up to rounding, within
+    GRAD_RTOL of Wk's largest on both sides); flash runs at head dim
+    64."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.common import prng
+    from deeplearning4j_tpu_torch.nn.layers import MultiHeadAttention
+    c = dict(MHA_WIDE, B=2, T=64) if small else MHA_WIDE
+    layer = MultiHeadAttention(n_in=c["n_in"], n_out=c["n_out"],
+                               n_heads=c["n_heads"], causal=True)
+    layer.init_weights(prng.key(71))
+    x = torch.from_numpy(np.random.default_rng(72).standard_normal(
+        (c["B"], c["T"], c["n_in"]), dtype=np.float32))
+    r = torch.from_numpy(np.random.default_rng(73).standard_normal(
+        (c["B"], c["T"], c["n_out"]), dtype=np.float32))
+    res, before = [], dict(K.LAUNCHES)
+    for dev in (device, torch.device("cpu")):
+        lay = layer.clone().to(dev)
+        lay.load_state_dict(layer.state_dict())
+        xx = x.to(dev).detach().clone().requires_grad_(True)
+        params = lay.jax_param_map()
+        for t in params.values():
+            t.requires_grad_(True)
+        y = lay(xx)
+        (y * r.to(dev)).sum().backward()
+        res.append({"y": y.detach().cpu(), "x": xx.grad.cpu(),
+                    **{k: t.grad.cpu() for k, t in params.items()}})
+    errs = {k: float((res[0][k] - v).abs().max() / v.abs().max())
+            for k, v in res[1].items()}
+    # bk's gradient is zero up to rounding (softmax is shift-invariant
+    # along each query's keys): both sides must be noise next to Wk's
+    bk_noise = max(float(r_["bk"].abs().max()) for r_ in res) / float(
+        res[1]["Wk"].abs().max())
+    errs["bk"] = bk_noise
+    fails.check(errs["y"] <= OUTPUT_ATOL and all(
+        e <= GRAD_RTOL for k, e in errs.items() if k != "y"),
+        f"MultiHeadAttention n_out != n_in card vs CPU {errs} (tol "
+        f"{OUTPUT_ATOL}, {GRAD_RTOL}; bk: its largest |gradient| over Wk's)")
+    launches = {k: K.LAUNCHES[k] - before.get(k, 0) for k in K.LAUNCHES}
+    if device.type == "cuda":
+        _launched(fails, "MultiHeadAttention n_out != n_in", launches,
+                  ("flash_attention_fwd", "flash_attention_bwd_dq",
+                   "flash_attention_bwd_dkv"))
+    return dict(shape=[c["B"], c["T"], c["n_in"], c["n_out"]],
+                head_dim=layer.head_dim, max_rel_err=errs)
+
+
+def _digits_flat():
+    X, Y = digits_28x28()
+    X = X.reshape(len(X), -1)
+    return X[N_HELD_OUT:], Y[N_HELD_OUT:], X[:N_HELD_OUT], Y[:N_HELD_OUT]
+
+
+def vae_conf(seed=12345, updater=None):
+    """dl4j-examples' VaeMNIST2dPlots VAE as a one-layer net (RmsProp, or
+    `updater`)."""
+    from deeplearning4j_tpu_torch.common.updaters import RmsProp
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BernoulliReconstructionDistribution, VariationalAutoencoder)
+    return (NeuralNetConfiguration.builder().seed(seed)
+            .updater(updater or RmsProp(VAE["lr"])).weight_init("xavier")
+            .l2(VAE["l2"]).list()
+            .layer(VariationalAutoencoder(
+                n_out=VAE["latent"], encoder_layer_sizes=VAE["enc"],
+                decoder_layer_sizes=VAE["dec"],
+                reconstruction_distribution=(
+                    BernoulliReconstructionDistribution("sigmoid")),
+                pzx_activation="identity", activation="leakyrelu"))
+            .set_input_type(InputType.feed_forward(784)).build())
+
+
+def dbn_conf(seed=12345):
+    """The deep belief net: binary RBMs 784-1000-500-250-30 (CD-1), then a
+    softmax OutputLayer(10); Adam(1e-3) for `pretrain` and `fit`."""
+    from deeplearning4j_tpu_torch.common.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import RBM, OutputLayer
+    b = (NeuralNetConfiguration.builder().seed(seed).updater(Adam(1e-3))
+         .weight_init("xavier").list())
+    for w in DBN_WIDTHS:
+        b.layer(RBM(n_out=w, k=1))
+    return (b.layer(OutputLayer(n_out=10, activation="softmax",
+                                loss="mcxent"))
+            .set_input_type(InputType.feed_forward(784)).build())
+
+
+def ae_graph_conf(seed=12345):
+    """A graph with a denoising AutoEncoder node (784 -> 500, corruption
+    0.3) under a softmax output; Sgd(0.1)."""
+    from deeplearning4j_tpu_torch.common.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import AutoEncoder, OutputLayer
+    return (NeuralNetConfiguration.builder().seed(seed).updater(Sgd(0.1))
+            .weight_init("xavier").graph_builder().add_inputs("digits")
+            .set_input_types(InputType.feed_forward(784))
+            .add_layer("ae", AutoEncoder(n_out=AE["n_out"],
+                                         corruption_level=AE["corruption"]),
+                       "digits")
+            .add_layer("out", OutputLayer(n_out=10, activation="softmax",
+                                          loss="mcxent"), "ae")
+            .set_outputs("out").build())
+
+
+def _pretrain_losses(net):
+    return {k: [float(v) for v in ls] for k, ls in net.pretrain_losses.items()}
+
+
+def _vae_arm(device, fails, Xt, Xh, small):
+    """(c) The VAE, one epoch of `pretrain` at batch 128 from one init on
+    the card and on the CPU: an Sgd(VAE_SGD_LR) twin's negative ELBO of
+    every step within PRETRAIN_RTOL (relative); the example's RmsProp arm
+    (whose first steps move every param by about 4.5 lr whatever its
+    gradient, so rounding flips the near-zero ones) by the noisy-twin
+    rule against a CPU twin with PHASE13_WEIGHT_NOISE on its weights;
+    then `timed_epochs` more on the card (ms/step), and
+    `reconstruction_probability` of the held-out digits, the card's
+    layer on both devices under one key, within PRETRAIN_RTOL."""
+    import torch
+    from deeplearning4j_tpu_torch.common import prng
+    from deeplearning4j_tpu_torch.common.updaters import Sgd
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    B = VAE["B"]
+    card = MultiLayerNetwork(vae_conf(), device=device).init()
+    sgd = MultiLayerNetwork(vae_conf(updater=Sgd(VAE_SGD_LR)),
+                            device=device)
+    sgd.load_state_dict(card.state_dict())
+    s_nets = [sgd, _copy_to(sgd, "cpu")]
+    for net in s_nets:
+        net.pretrain(Xt, epochs=1, batch_size=B)
+    lc, lp = (_pretrain_losses(n)["0"] for n in s_nets)
+    e = max(abs(a - b) / abs(b) for a, b in zip(lc, lp))
+    fails.check(e <= PRETRAIN_RTOL and all(np.isfinite(lc)), f"vae Sgd twin "
+                f"ELBO card vs CPU rel {e} (tol {PRETRAIN_RTOL}): {lc} vs "
+                f"{lp}")
+    nets = [card, _copy_to(card, "cpu"), _weight_noisy(card, 77)]
+    for net in nets:
+        net.pretrain(Xt, epochs=1, batch_size=B)
+    r = _noisy_twin_checks(fails, "vae (RmsProp)", *nets,
+                           [_pretrain_losses(n)["0"] for n in nets])
+    n_ep = 1 if small else VAE["timed_epochs"]
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    card.pretrain(Xt, epochs=n_ep, batch_size=B)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    steps = n_ep * -(-len(Xt) // B)
+    timed = _pretrain_losses(card)["0"]
+    key = prng.key(74)
+    twin = _copy_to(card, "cpu")
+    rp_c = card.layers[0].reconstruction_probability(
+        torch.from_numpy(Xh).to(device), key).cpu()
+    rp_p = twin.layers[0].reconstruction_probability(torch.from_numpy(Xh),
+                                                     key)
+    rp_err = float(((rp_c - rp_p).abs() / rp_p.abs()).max())
+    fails.check(rp_err <= PRETRAIN_RTOL and bool(torch.isfinite(rp_c).all()),
+                f"vae reconstruction_probability card vs CPU rel {rp_err} "
+                f"(tol {PRETRAIN_RTOL})")
+    r.update(B=B, steps_check=len(lc), sgd_elbo_card=lc, sgd_elbo_cpu=lp,
+             sgd_elbo_max_rel_err=e, timed_epochs=n_ep, timed_steps=steps,
+             ms_per_step=wall / steps * 1e3, elbo_timed_first=timed[0],
+             elbo_timed_last=timed[-1], recon_logp_mean=float(rp_p.mean()),
+             recon_logp_max_rel_err=rp_err, params=card.num_params())
+    return r
+
+
+def _rbm_flips(card, cpu, X):
+    """Step 0 of the first RBM's CD-1, card vs CPU from one init and
+    under pretrain's first key (step 0 of layer 0): the hidden and
+    visible samples that differ (u within rounding of its mean), and the
+    loss of each."""
+    import torch
+    from deeplearning4j_tpu_torch.common import prng
+    key = prng.fold_in(prng.key(card.conf.seed + 2), 0)
+    out = []
+    for net in (card, cpu):
+        layer = net.layers[0]
+        x = torch.from_numpy(X).to(net.device)
+        with torch.no_grad():
+            h = layer.sample_h(prng.fold_in(key, 0), x)
+            v = layer.sample_v(prng.fold_in(key, 1), h)
+            loss = float(layer.pretrain_loss(x, key))
+        out.append((h.cpu(), v.cpu(), loss))
+    (hc, vc, lc), (hp, vp, lp) = out
+    return dict(hidden_flips=int((hc != hp).sum()), hidden=hc.numel(),
+                visible_flips=int((vc != vp).sum()), visible=vc.numel(),
+                loss_card=lc, loss_cpu=lp)
+
+
+def _free_energy(net, X):
+    import torch
+    with torch.no_grad():
+        return float(net.layers[0].free_energy(
+            torch.from_numpy(X).to(net.device)).mean())
+
+
+def _dbn_arm(device, fails, Xt, Yt, Xh, Yh, small):
+    """(c) The deep belief net: step 0's flips (card vs CPU) counted, and
+    step 0's loss held to TRAIN_LOSS_RTOL where none flipped; `pretrain`
+    one epoch a layer on the card, the CPU and the CPU with PHASE13_NOISE
+    on the digits, the first RBM's mean free energy of the held-out
+    digits and the param tree within PHASE13_NOISE_FACTOR x the CPU's
+    distance to its twin; then `fit` on the digit labels on the card and
+    the held-out accuracy (above chance)."""
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_params
+    B = VAE["B"]
+    card = MultiLayerNetwork(dbn_conf(), device=device).init()
+    cpu, twin = _copy_to(card, "cpu"), _copy_to(card, "cpu")
+    flips = _rbm_flips(card, cpu, Xt[:B])
+    if flips["hidden_flips"] == 0 and flips["visible_flips"] == 0:
+        e0 = abs(flips["loss_card"] - flips["loss_cpu"]) / abs(
+            flips["loss_cpu"])
+        fails.check(e0 <= TRAIN_LOSS_RTOL, f"dbn step 0 loss card vs CPU "
+                    f"with no flip: rel {e0} (tol {TRAIN_LOSS_RTOL})")
+    noisy = Xt * (1 + PHASE13_NOISE * np.random.default_rng(75)
+                  .standard_normal(Xt.shape, dtype=np.float32))
+    t0 = time.perf_counter()
+    card.pretrain(Xt, epochs=1, batch_size=B)
+    pre_s = time.perf_counter() - t0
+    cpu.pretrain(Xt, epochs=1, batch_size=B)
+    twin.pretrain(noisy, epochs=1, batch_size=B)
+    fe = [_free_energy(n, Xh) for n in (card, cpu, twin)]
+    d_fe, self_fe = abs(fe[0] - fe[1]), abs(fe[2] - fe[1])
+    d_p, self_p = (_tree_rel(to_jax_params(card), to_jax_params(cpu))[0],
+                   _tree_rel(to_jax_params(twin), to_jax_params(cpu))[0])
+    tol_fe = PHASE13_NOISE_FACTOR * self_fe + TRAIN_LOSS_RTOL * abs(fe[1])
+    fails.check(d_fe <= tol_fe and d_p <= PHASE13_NOISE_FACTOR * self_p,
+                f"dbn after pretrain card vs CPU: free energy {d_fe} (tol "
+                f"{tol_fe}), params {d_p} (CPU vs noisy twin {self_p})")
+    losses = {k: (v[0], v[-1]) for k, v in _pretrain_losses(card).items()}
+    t0 = time.perf_counter()
+    card.fit(Xt, Yt, epochs=2 if small else DBN_FIT_EPOCHS, batch_size=B)
+    fit_s = time.perf_counter() - t0
+    acc = card.evaluate(DataSet(Xh, Yh)).accuracy()
+    if not small:
+        fails.check(acc > 0.5, f"dbn held-out accuracy {acc} after fit")
+    return dict(B=B, flips_step0=flips, free_energy=fe,
+                free_energy_dist=d_fe, free_energy_self=self_fe,
+                params_rel=d_p, params_self=self_p,
+                pretrain_loss_first_last=losses, pretrain_s=pre_s,
+                fit_epochs=2 if small else DBN_FIT_EPOCHS, fit_s=fit_s,
+                held_out_accuracy=acc, params=card.num_params())
+
+
+def _ae_arm(device, fails, Xt):
+    """(c) The graph's AutoEncoder node pretrained one epoch through
+    `graph.pretrain` on the card, the CPU and the CPU with PHASE13_NOISE
+    on the digits (`_noisy_twin_checks` on the step losses and params)."""
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    B = VAE["B"]
+    card = ComputationGraph(ae_graph_conf(), device=device).init()
+    nets = [card, _copy_to(card, "cpu"), _copy_to(card, "cpu")]
+    noisy = Xt * (1 + PHASE13_NOISE * np.random.default_rng(76)
+                  .standard_normal(Xt.shape, dtype=np.float32))
+    for net, xx in zip(nets, (Xt, Xt, noisy)):
+        net.pretrain(xx, epochs=1, batch_size=B)
+    losses = [_pretrain_losses(n)["ae"] for n in nets]
+    r = _noisy_twin_checks(fails, "autoencoder graph pretrain", *nets,
+                           losses)
+    r["B"] = B
+    return r
+
+
+def _layer_cases():
+    """(d) The other new layers at moderate shapes: (name, layer, input
+    shape, mask length or None)."""
+    from deeplearning4j_tpu_torch.nn.layers import (
+        Convolution1DLayer, LossLayer, PermuteLayer, PoolHelperLayer,
+        ReshapeLayer, SeparableConvolution2D, Subsampling1DLayer,
+        Upsampling1D, Upsampling2D, ZeroPadding1DLayer)
+    return [
+        ("conv1d", Convolution1DLayer(n_in=64, n_out=128, kernel_size=5,
+                                      stride=2, padding=2,
+                                      activation="relu"), (8, 200, 64), 200),
+        ("subsampling1d", Subsampling1DLayer(kernel_size=3, stride=2,
+                                             padding=1), (8, 200, 64), 200),
+        ("upsampling1d", Upsampling1D(size=2), (8, 100, 64), 100),
+        ("upsampling2d", Upsampling2D(size=2), (8, 38, 38, 64), None),
+        ("zeropadding1d", ZeroPadding1DLayer(pad=(2, 3)), (8, 100, 64),
+         None),
+        ("separable_conv2d_dm2", SeparableConvolution2D(
+            n_in=32, n_out=64, kernel_size=(3, 3), depth_multiplier=2,
+            convolution_mode="same", activation="relu"),
+         (8, 56, 56, 32), None),
+        ("reshape", ReshapeLayer(target_shape=(100 * 64,)), (8, 100, 64),
+         None),
+        ("permute", PermuteLayer(dims=(3, 1, 2)), (8, 38, 38, 64), None),
+        ("pool_helper", PoolHelperLayer(), (8, 57, 57, 64), None),
+        ("loss_layer", LossLayer(activation="softmax"), (64, 100), None)]
+
+
+def _layer_pair(layer, device, x, dtype, mask=None):
+    """The layer's forward and the gradients of sum(y * r) in x and its
+    params on `device` in `dtype`, and its forward_mask of `mask`."""
+    import torch
+    lay = layer.clone().to(device).to(dtype)
+    lay.load_state_dict({k: v.to(dtype) for k, v in layer.state_dict().items()})
+    xx = x.to(device, dtype).detach().clone().requires_grad_(True)
+    params = lay.jax_param_map()
+    for t in params.values():
+        t.requires_grad_(True)
+    if layer.layer_name == "loss":
+        y = lay(xx)
+        labels = torch.eye(x.shape[-1])[torch.arange(x.shape[0])
+                                        % x.shape[-1]]
+        loss = lay.compute_loss(xx, labels.to(device, dtype))
+        loss.float().backward()
+    else:
+        y = lay(xx)
+        r = torch.from_numpy(np.random.default_rng(81).standard_normal(
+            tuple(y.shape), dtype=np.float32))
+        (y.float() * r.to(device)).sum().backward()
+    res = {"y": y.detach().float().cpu(), "x": xx.grad.float().cpu(),
+           **{k: t.grad.float().cpu() for k, t in params.items()}}
+    if mask is not None:
+        res["mask"] = lay.forward_mask(mask.to(device)).cpu()
+    return res
+
+
+def _layers_card_vs_cpu(device, fails):
+    """(d) Each layer of `_layer_cases`, forward and backward, card vs
+    CPU from one init: fp32 within LAYER_ATOL of each result's largest
+    |value|, bf16 within LAYER_BF16_ULPS bf16 ulps of each row's largest
+    |value| of the CPU's result, forward masks equal."""
+    import torch
+    from deeplearning4j_tpu_torch.common import prng
+    out = {}
+    for i, (name, layer, shape, T) in enumerate(_layer_cases()):
+        layer.init_weights(prng.key(90 + i))
+        x = torch.from_numpy(np.random.default_rng(91 + i).standard_normal(
+            shape, dtype=np.float32))
+        mask = None
+        if T is not None:
+            lens = np.random.default_rng(92).integers(T // 4, T + 1,
+                                                      shape[0])
+            mask = torch.from_numpy((np.arange(T)[None] < lens[:, None])
+                                    .astype(np.float32))
+        row = {}
+        for dt, tag in ((torch.float32, "float32"),
+                        (torch.bfloat16, "bfloat16")):
+            got = _layer_pair(layer, device, x, dt, mask)
+            want = _layer_pair(layer, torch.device("cpu"), x, dt, mask)
+            errs = {}
+            for k, w in want.items():
+                if k == "mask":
+                    errs[k] = float((got[k] != w).sum())
+                    continue
+                d = (got[k] - w).abs()
+                if dt == torch.float32:
+                    errs[k] = float(d.max() / w.abs().max().clamp(min=1e-30))
+                else:
+                    top = w.abs().reshape(-1, w.shape[-1]).amax(-1) \
+                        if w.ndim else w.abs().reshape(1)
+                    ulp = torch.exp2(torch.floor(torch.log2(
+                        top.clamp(min=2.0 ** -126))) - 7)
+                    errs[k] = float((d.reshape(-1, d.shape[-1] if d.ndim
+                                               else 1).amax(-1)
+                                     / ulp).max())
+            tol = LAYER_ATOL if dt == torch.float32 else LAYER_BF16_ULPS
+            fails.check(all(v <= tol for k, v in errs.items()
+                            if k != "mask") and errs.get("mask", 0) == 0,
+                        f"{name} {tag} card vs CPU {errs} (tol {tol}"
+                        f"{' ulps' if dt != torch.float32 else ''})")
+            row[tag] = errs
+        out[name] = row
+    return out
+
+
+def _frozen_in_training(device, fails):
+    """(d) A net with a trained conv before a FrozenLayer(conv) and a
+    FrozenLayer(BatchNormalization): after 3 `fit` steps on the card the
+    frozen params and running statistics are bit-equal to their start
+    and the trained conv moved."""
+    from deeplearning4j_tpu_torch.common.updaters import Nesterovs
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        BatchNormalization, ConvolutionLayer, FrozenLayer,
+        GlobalPoolingLayer, OutputLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.jax_params import (
+        to_jax_params, to_jax_state)
+    conf = (NeuralNetConfiguration.builder().seed(7)
+            .updater(Nesterovs(0.05, 0.9)).l2(1e-4).list()
+            .layer(ConvolutionLayer(n_out=32, kernel_size=(3, 3),
+                                    activation="relu"))
+            .layer(FrozenLayer(layer=ConvolutionLayer(
+                n_in=32, n_out=32, kernel_size=(3, 3))))
+            .layer(FrozenLayer(layer=BatchNormalization(n_out=32)))
+            .layer(GlobalPoolingLayer())
+            .layer(OutputLayer(n_out=10))
+            .set_input_type(InputType.convolutional(32, 32, 3)).build())
+    net = MultiLayerNetwork(conf, device=device).init()
+    p0, s0 = to_jax_params(net), to_jax_state(net)
+    x, y = resnet_images(3 * 16, 32, 10, seed=93)
+    for i in range(0, 48, 16):
+        net.fit(DataSet(x[i:i + 16], y[i:i + 16]), batch_size=16)
+    p1, s1 = to_jax_params(net), to_jax_state(net)
+    same = all(np.array_equal(p1[k][n], p0[k][n]) for k in ("1", "2")
+               for n in p0[k]) and all(
+        np.array_equal(s1[k][n], s0[k][n]) for k in s0 for n in s0[k])
+    moved = not np.array_equal(p1["0"]["W"], p0["0"]["W"])
+    fails.check(same and moved, f"FrozenLayer in training: frozen params "
+                f"and state bit-equal {same}, trained conv moved {moved}")
+    return dict(frozen_bit_equal=same, trained_moved=moved)
+
+
+def phase_layers_rest(device, report, fails, small=False):
+    """Phase 13 on `device` (fp32 with TF32 off unless an arm says
+    mixed_bf16): (a) YOLOv2, (b) the MoE LM and MultiHeadAttention with
+    n_out != n_in, (c) VAE, DBN and AutoEncoder pretraining on the
+    digits, (d) the other new layers card vs CPU. `small` (the CPU
+    rehearsal) shrinks the nets and keeps the checks. Returns the port's
+    kernel launches of the phase."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    yc = YOLO_SMALL if small else YOLO
+    mc = MOE_SMALL if small else MOE
+    cfg = (dict(MOE_LM, d_model=64, n_layers=2, max_len=64, hidden=128,
+                vocab=64) if small else MOE_LM)
+    out = {}
+    t0 = time.perf_counter()
+    K.reset_launches()
+    out["yolo"] = dict(check=_yolo_card_vs_cpu(device, fails, yc),
+                       **_yolo_timed(device, fails, yc, small))
+    out["moe_lm"] = dict(check=_moe_card_vs_cpu(device, fails, cfg, mc),
+                         **_moe_timed(device, fails, cfg, mc, small))
+    out["mha_n_out"] = _mha_wide(device, fails, small)
+    Xt, Yt, Xh, Yh = _digits_flat()
+    if small:
+        Xt, Yt = Xt[:256], Yt[:256]
+    out["vae"] = _vae_arm(device, fails, Xt, Xh, small)
+    out["dbn"] = _dbn_arm(device, fails, Xt, Yt, Xh, Yh, small)
+    out["autoencoder"] = _ae_arm(device, fails, Xt)
+    out["layers"] = _layers_card_vs_cpu(device, fails)
+    out["frozen"] = _frozen_in_training(device, fails)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    out["launches"] = total
+    out["seconds"] = time.perf_counter() - t0
+    report["layers_rest"] = out
+    _print_layers_rest(out)
+    return total
+
+
+def _print_layers_rest(out):
+    y, k = out["yolo"], out["yolo"]["check"]
+    print(f"[layers_rest] (a) YOLOv2 {k['size']}x{k['size']} "
+          f"({k['params']} params): init {k['init_s']:.2f} s, card vs CPU "
+          f"init {k['init_max_rel_err']:.3g}, output() "
+          f"{k['output_max_rel_err']:.3g}, detections card "
+          f"{k['detections_card']} CPU {k['detections_cpu']} apart "
+          f"{k['detections_apart']} (eps {k['detection_eps']:.3g}); "
+          f"{k['steps']} steps at batch {k['B']}: step 0 loss rel "
+          f"{k['step0_rel_err']:.3g}, distances {k['distances']}; mixed "
+          f"step 0 rel {y['mixed_step0_rel']:.3g}", flush=True)
+    for tag in ("float32", "mixed_bf16"):
+        t = y[tag]
+        print(f"[layers_rest] YOLOv2 {tag} batch {t['B']}, {t['steps']} "
+              f"steps after {t['warmup']}: {t['ms_per_step']:.2f} ms/step, "
+              f"{t['images_per_s']:.1f} images/s, peak {t['peak_mem_gb']} "
+              f"GB, loss {t['loss_first']:.4f} -> {t['loss_last']:.4f}",
+              flush=True)
+    m, k = out["moe_lm"], out["moe_lm"]["check"]
+    print(f"[layers_rest] (b) MoE LM ({k['params']} params) card vs CPU at "
+          f"batch {k['B']}: output() {k['output_max_abs_err']:.3g}, "
+          f"selection apart {k['selection_apart_tokens']} of {k['tokens']} "
+          f"tokens, fractions err {k['fraction_max_err']:.3g}; step 0 rel "
+          f"{k['step0_rel_err']:.3g}, distances {k['distances']}, aux card "
+          f"{k['aux_card']} CPU {k['aux_cpu']} noisy {k['aux_cpu_noisy']}; "
+          f"expert fractions (CPU) "
+          f"{[[round(f, 3) for f in fr] for fr in k['expert_fractions_cpu']]}",
+          flush=True)
+    for tag in ("float32", "mixed_bf16"):
+        t = m[tag]
+        print(f"[layers_rest] MoE LM {tag} batch {t['B']}: "
+              f"{t['ms_per_step']:.2f} ms/step, {t['tokens_per_s']:.1f} "
+              f"tokens/s, peak {t['peak_mem_gb']} GB, loss "
+              f"{t['loss_first']:.4f} -> {t['loss_last']:.4f}, launches "
+              f"{ {k: v for k, v in t['launches'].items() if v} }",
+              flush=True)
+    print(f"[layers_rest] (b) MultiHeadAttention n_out != n_in "
+          f"{out['mha_n_out']}", flush=True)
+    v = out["vae"]
+    print(f"[layers_rest] (c) VAE ({v['params']} params): Sgd twin ELBO card "
+          f"vs CPU rel {v['sgd_elbo_max_rel_err']:.3g} over "
+          f"{v['steps_check']} steps ({v['sgd_elbo_cpu'][0]:.3f} -> "
+          f"{v['sgd_elbo_cpu'][-1]:.3f}); RmsProp step 0 rel "
+          f"{v['step0_rel_err']:.3g}, distances {v['distances']}, ELBO "
+          f"{v['loss_cpu'][0]:.3f} -> {v['loss_cpu'][-1]:.3f}; "
+          f"{v['timed_epochs']} epochs {v['ms_per_step']:.3f} ms/step "
+          f"(ELBO {v['elbo_timed_first']:.3f} -> {v['elbo_timed_last']:.3f})"
+          f"; held-out log p(x) {v['recon_logp_mean']:.3f}, card vs CPU rel "
+          f"{v['recon_logp_max_rel_err']:.3g}", flush=True)
+    d = out["dbn"]
+    print(f"[layers_rest] (c) DBN ({d['params']} params): step-0 flips "
+          f"{d['flips_step0']}; after pretrain free energy "
+          f"{d['free_energy']} (card vs CPU {d['free_energy_dist']:.3g}, "
+          f"CPU vs noisy {d['free_energy_self']:.3g}), params "
+          f"{d['params_rel']:.3g} (noisy {d['params_self']:.3g}); pretrain "
+          f"{d['pretrain_s']:.2f} s; fit {d['fit_epochs']} epochs "
+          f"{d['fit_s']:.2f} s, held-out accuracy {d['held_out_accuracy']}",
+          flush=True)
+    a = out["autoencoder"]
+    print(f"[layers_rest] (c) AutoEncoder graph pretrain: step 0 rel "
+          f"{a['step0_rel_err']:.3g}, distances {a['distances']}",
+          flush=True)
+    print(f"[layers_rest] (d) layers card vs CPU {out['layers']}; frozen "
+          f"{out['frozen']}", flush=True)
+    print(f"[layers_rest] launches {out['launches']}; phase seconds "
+          f"{out['seconds']:.1f}", flush=True)
+
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=12):
     rows = []
@@ -4399,6 +5421,13 @@ def profile_paths(device):
     # (10) phase 12's LeNet, GoogLeNet and VGG16, one `fit` step each,
     # fp32 and mixed_bf16, GoogLeNet's LRN layers timed apart
     out.update(profile_cnn_zoo(device))
+    # (11) phase 13's YOLOv2 and MoE LM steps, their loss and MoE apart
+    out.update(profile_layers_rest(device))
+    _print_profile(out)
+    return out
+
+
+def _print_profile(out):
     for k, v in out.items():
         groups = ", ".join(f"{g} {ms:.3f}" for g, ms in v["groups_ms"].items())
         print(f"[profile] {k}: wall {v['wall_ms']:.3f} ms, device "
@@ -4406,8 +5435,11 @@ def profile_paths(device):
               f"launches {v['launches']}; device ms by part: {groups}",
               v.get("phases", ""),
               f"LRN forward+backward apart {v['lrn_ms']:.3f} ms"
-              if "lrn_ms" in v else "", flush=True)
-    return out
+              if "lrn_ms" in v else "",
+              f"loss forward+backward apart {v['loss_ms']:.3f} ms"
+              if "loss_ms" in v else "",
+              f"MoE layers forward+backward apart {v['moe_ms']:.3f} ms"
+              if "moe_ms" in v else "", flush=True)
 
 
 def _lrn_ms(device, shapes, dtype):
@@ -4462,6 +5494,62 @@ def profile_cnn_zoo(device):
             out[f"{name.lower()}_step_{B}x224{tag}"] = p
             del net
             torch.cuda.empty_cache()
+    return out
+
+
+def profile_layers_rest(device):
+    """Phase 13's timed steps under the profiler (`_profiled`), fp32 and
+    mixed_bf16: one YOLOv2 `fit` step at 608 and batch 8, with its loss
+    (the Yolo2 layer's compute_loss forward and backward) timed apart,
+    and one MoE LM step at [16, 511], with one MixtureOfExperts layer's
+    forward and backward timed apart (x 4 layers: "MoE apart"; its
+    einsums are cuBLAS GEMMs by name, as the blocks' are)."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    c, out = YOLO, {}
+    x, _ = resnet_images(c["B"], c["size"], 1, seed=54)
+    y = yolo_labels(c["B"], c["size"] // 32, c["classes"], seed=55)
+    yds = DataSet(torch.from_numpy(x).to(device), torch.from_numpy(y).to(
+        device))
+    X, Y = lm_corpus(MOE_LM, MOE["B"], seed=63)
+    mds = DataSet(torch.from_numpy(X).long().to(device),
+                  torch.from_numpy(Y).to(device))
+    grid = c["size"] // 32
+    for tag, policy, dt in (("", None, torch.float32),
+                            ("_mixed", MIXED, torch.bfloat16)):
+        net = ComputationGraph(yolo2_conf(c["size"], c["classes"]),
+                               device=device, dtype_policy=policy).init()
+        for _ in range(2):
+            net.fit(yds, batch_size=c["B"])                       # warm
+        p = _profiled(lambda: net.fit(yds, batch_size=c["B"]))
+        layer = net.conf.nodes["yolo"].layer
+        t = torch.randn((c["B"], grid, grid, len(YOLO_ANCHORS) * (
+            5 + c["classes"])), device=device, requires_grad=True)
+        p["loss_ms"] = timer(device, lambda: layer.compute_loss(
+            t, yds.labels).backward(), iters=10)
+        out[f"yolo2_step_{c['B']}x{c['size']}{tag}"] = p
+        del net
+        torch.cuda.empty_cache()
+        net = MultiLayerNetwork(moe_lm_conf(MOE_LM), device=device,
+                                dtype_policy=policy).init()
+        for _ in range(2):
+            net.fit(mds, batch_size=MOE["B"])                     # warm
+        p = _profiled(lambda: net.fit(mds, batch_size=MOE["B"]))
+        moe = net.layers[_moe_positions(net)[0]].clone().to(device)
+        moe.load_state_dict(net.layers[_moe_positions(net)[0]].state_dict())
+        moe.to(dt)
+        for q in moe.parameters():
+            q.requires_grad_(True)
+        h = torch.randn((MOE["B"], X.shape[1], MOE_LM["d_model"]),
+                        device=device, dtype=dt, requires_grad=True)
+        p["moe_ms"] = len(_moe_positions(net)) * timer(
+            device, lambda: moe(h, train=True, new_state={}).float().sum()
+            .backward(), iters=10)
+        out[f"moe_lm_step_{MOE['B']}x{X.shape[1]}{tag}"] = p
+        del net, moe
+        torch.cuda.empty_cache()
     return out
 
 
@@ -4524,6 +5612,39 @@ def zoo_lr_trial(device, steps=10, rates=(1e-2, 3e-3, 1e-3, 1e-4)):
             out[key] = dict(losses=losses, fell=bool(losses[-1] < losses[0]))
             print(f"[zoo_lr_trial] {key}: {[round(v, 4) for v in losses]}",
                   flush=True)
+            del net
+            torch.cuda.empty_cache()
+    return out
+
+
+def yolo_lr_trial(device, steps=13, rates=(1e-3, 3e-4, 1e-4, 3e-5)):
+    """YOLOv2 at phase 13's 608 and batch 8 on its repeated batch, `steps`
+    fp32 steps from `init(seed)` under Nesterovs(lr, 0.9) for each rate,
+    without and with YOLO_GN's per-layer renormalization: every loss and
+    whether it ended finite below where it began."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    c = YOLO
+    x, _ = resnet_images(c["B"], c["size"], 1, seed=54)
+    y = yolo_labels(c["B"], c["size"] // 32, c["classes"], seed=55)
+    ds = DataSet(torch.from_numpy(x).to(device), torch.from_numpy(y).to(
+        device))
+    out = {}
+    for renorm in (False, True):
+        for lr in rates:
+            net = ComputationGraph(yolo2_conf(
+                c["size"], c["classes"], lr=lr, renormalize=renorm),
+                device=device).init()
+            losses = []
+            for _ in range(steps):
+                net.fit(ds, batch_size=c["B"])
+                losses.append(net.score_value)
+            key = f"{'renormalized' if renorm else 'plain'}/{lr:g}"
+            out[key] = dict(losses=losses, fell=bool(
+                np.isfinite(losses[-1]) and losses[-1] < losses[0]))
+            print(f"[yolo_lr_trial] {key}: "
+                  f"{[round(v, 3) for v in losses]}", flush=True)
             del net
             torch.cuda.empty_cache()
     return out
@@ -4630,11 +5751,15 @@ def run(device, *, small=False, kernels_only=False):
         l12 = phase("cnn_zoo", phase_cnn_zoo, device, report, fails, small)
         for k in launches:
             launches[k] += (l12 or {}).get(k, 0)
+        l13 = phase("layers_rest", phase_layers_rest, device, report, fails,
+                    small)
+        for k in launches:
+            launches[k] += (l13 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
-                         ("11", l11), ("12", l12)) if l}
+                         ("11", l11), ("12", l12), ("13", l13)) if l}
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -4680,6 +5805,18 @@ def main(argv):
         report["kernels"] = []
     elif "--zoo-lr-trial" in argv:
         report, fails = {"zoo_lr_trial": zoo_lr_trial(device)}, Failures()
+        report["kernels"] = []
+    elif "--profile-layers-rest" in argv:
+        report, fails = {"profile": profile_layers_rest(device)}, Failures()
+        _print_profile(report["profile"])
+        report["kernels"] = []
+    elif "--yolo-lr-trial" in argv:
+        report, fails = {"yolo_lr_trial": yolo_lr_trial(device)}, Failures()
+        report["kernels"] = []
+    elif "--layers-rest" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_layers_rest(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

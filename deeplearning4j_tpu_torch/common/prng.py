@@ -150,9 +150,14 @@ def uniform(k: Key, shape, dtype=torch.float32, minval=0.0, maxval=1.0,
     return _uniform_from(bits(k, shape, device), dtype, minval, maxval)
 
 
-def bernoulli(k: Key, p: float, shape, device="cpu") -> torch.Tensor:
-    """`jax.random.bernoulli(k, p, shape)` for a Python float p: a bool
-    tensor, True where ``uniform < float32(p)``."""
+def bernoulli(k: Key, p, shape=None, device="cpu") -> torch.Tensor:
+    """`jax.random.bernoulli(k, p, shape)`: a bool tensor, True where
+    ``uniform < p``. A Python float p compares as float32 over `shape`;
+    a tensor p (RBM's per-unit means) draws its own shape in its own
+    dtype on its own device, as JAX's ``uniform(k, p.shape, p.dtype) <
+    p``."""
+    if isinstance(p, torch.Tensor):
+        return uniform(k, p.shape, p.dtype, device=p.device) < p
     return uniform(k, shape, torch.float32, device=device) < torch.tensor(
         p, dtype=torch.float32)
 

@@ -227,6 +227,9 @@ _FAMILIES = {
 
 
 def _expected_family(layer: Layer) -> str:
+    if layer.layer_name == "frozen" and getattr(layer, "layer",
+                                                 None) is not None:
+        return _expected_family(layer.layer)
     for family, names in _FAMILIES.items():
         if layer.layer_name in names:
             return family

@@ -89,7 +89,8 @@ def layer_signature(layer):
     whole configuration (`to_dict()`: updater, dropout, weight noise,
     constraints and all) and its params' names, shapes and dtypes."""
     pmap = layer.jax_param_map()
-    if not pmap or layer.state_map():
+    if (not pmap or layer.state_map()
+            or not getattr(layer, "stackable_params", True)):
         return None
     conf = json.dumps(layer.to_dict(), sort_keys=True, default=str)
     shapes = tuple(sorted((k, tuple(t.shape), str(t.dtype))
@@ -235,7 +236,8 @@ class Container(nn.Module):
         state in `new_state[key]`."""
         lrng = None if rng is None else prng.fold_in(rng, self.fold_ids[key])
         kw = {}
-        if new_state is not None and layer.state_map():
+        if new_state is not None and (layer.state_map()
+                                      or layer.emits_aux_loss):
             kw["new_state"] = new_state.setdefault(key, {})
         with self._weight_noise(layer, train, lrng):
             return layer(h, train=train, rng=lrng, mask=mask, **kw)
@@ -349,13 +351,24 @@ class Container(nn.Module):
                     {k: t.to(cd) for k, t in params.items()})
         return reg
 
+    @staticmethod
+    def _pop_aux(new_state):
+        """The sum of the auxiliary losses a training forward left in
+        `new_state` (MixtureOfExperts' load balance), popped so they
+        never persist (the JAX `_loss_fn`); 0.0 when there are none."""
+        aux = 0.0
+        for st in (new_state or {}).values():
+            if "aux_loss" in st:
+                aux = aux + st.pop("aux_loss")
+        return aux
+
     def _refusals(self) -> List[str]:
         """The configured fields that act in training and are not ported
         (`fit` and `score` would silently compute something else). Each
-        is inert at inference, so `output()` accepts them."""
+        is inert at inference, so `output()` accepts them. The `pretrain`
+        flag is inert in `fit`, as in JAX: layerwise pretraining is the
+        `pretrain()` method."""
         c, bad = self.conf, []
-        if getattr(c, "pretrain", False):
-            bad.append("pretrain")
         if c.optimization_algo != "sgd":
             bad.append(f"optimization_algo {c.optimization_algo}")
         if c.diagnostics is not None:
@@ -367,7 +380,7 @@ class Container(nn.Module):
         if bad:
             raise NotImplementedError(
                 f"not ported yet for training: {', '.join(bad)} (ROADMAP "
-                f"Queue 1 items 6 and 10)")
+                f"Queue 1 items 4 and 5)")
 
     # ------------------------------------------------------------ updates
     def _candidate_runs(self) -> List[List[int]]:
@@ -641,6 +654,69 @@ class Container(nn.Module):
         self._rnn_carries = {**carries, **new}
         self._rnn_stream_pos = getattr(self, "_rnn_stream_pos", 0) + t_new
         return out
+
+    # ----------------------------------------------------------- pretrain
+    def _pretrain_targets(self):
+        """[(layer key, layer)] of the layers `pretrain` trains, in the
+        order it trains them."""
+        raise NotImplementedError
+
+    def _pretrain_features(self, key, features) -> torch.Tensor:
+        """The input of layer `key` for a minibatch's features: the net
+        below it in inference mode, without autograd."""
+        raise NotImplementedError
+
+    def pretrain(self, data, *, epochs: int = 1, batch_size: int = 32):
+        """Greedy layerwise pretraining (the JAX `pretrain`): each layer
+        with a `pretrain_loss` (AutoEncoder, RBM, VariationalAutoencoder),
+        in order, takes `epochs` passes of `data` (arrays, a DataSet or
+        an iterator; labels unused) through the layers below it in
+        inference mode. Step `it` of the layer at fold index i draws under
+        ``fold_in(PRNGKey(seed + 2), it * 997 + i)``; the updater is the
+        layer's (`Sgd(1e-3)` when None) with a fresh state and `it`
+        counted from 0 for each layer. No l1/l2, gradient normalization,
+        constraints or dropout apply. Each step's loss stays on the
+        device in `pretrain_losses[key]`. Returns the net."""
+        iterator = as_iterator(data, batch_size=batch_size)
+        root = prng.key(self.conf.seed + 2)
+        self.pretrain_losses = {}
+        for key, layer in self._pretrain_targets():
+            fold = self.fold_ids[key]
+            updater = self.updater_of(layer)
+            params = layer.jax_param_map()
+            state = {n: updater.init_state(t) for n, t in params.items()}
+            it = 0
+            for _ in range(int(epochs)):
+                for ds in iterator:
+                    h = self._pretrain_features(key, ds.features)
+                    rng = prng.fold_in(root, it * 997 + fold)
+                    self.pretrain_losses.setdefault(key, []).append(
+                        self._pretrain_step(layer, params, state, updater,
+                                            h, rng, it))
+                    it += 1
+            self.params_changed()
+        return self
+
+    def _pretrain_step(self, layer, params, state, updater, h, rng,
+                       it: int):
+        """One update of `layer`'s params on `pretrain_loss(h, rng)`;
+        returns the loss."""
+        try:
+            for p in params.values():
+                p.requires_grad_(True)
+            loss = layer.pretrain_loss(h, rng)
+            loss.backward()
+            with torch.no_grad():
+                for n, p in params.items():
+                    g = p.grad if p.grad is not None else torch.zeros_like(p)
+                    upd, new = updater.apply(g, state[n], it)
+                    p.sub_(upd.to(p.dtype))
+                    state[n].update(new)
+            return loss.detach()
+        finally:
+            for p in params.values():
+                p.requires_grad_(False)
+                p.grad = None
 
     def _fit_iterator(self, iterator, epochs: int):
         """The fit loop (the JAX `fit`): one step per minibatch, with its

@@ -30,8 +30,11 @@ input when configured (the JAX `_fit_tbptt` :1024-1066), and
 `rnn_time_step` streams inference with every recurrent node's carry
 kept across calls (:1094-1150).
 
-Not ported, and refused by name: `pretrain`, `steps_per_execution >
-1`, the line-search solvers, diagnostics, `gradient_sharing` other than
+Layerwise pretraining (`pretrain`, `nn/container.py`) walks only the
+ancestors of each pretrained node (the JAX `pretrain` :1167-1252).
+
+Not ported, and refused by name: `steps_per_execution > 1`, the
+line-search solvers, diagnostics, `gradient_sharing` other than
 "dense" (in `fit` and `score`), and sequence parallelism inside a graph
 (when it is built).
 """
@@ -407,8 +410,9 @@ class ComputationGraph(Container):
     def _loss_fn(self, xs, ys, fmasks=None, lmasks=None, *, train=False,
                  rng=None, new_state=None, carries=None, carries_out=None):
         """The sum of every output layer's loss on the forward to it, plus
-        the l1/l2 penalty (the JAX `_loss_fn` without diagnostics or the
-        MoE aux loss); an output's label mask defaults to the mask that
+        the l1/l2 penalty and the training forward's auxiliary losses
+        (the JAX `_loss_fn` without diagnostics); an output's label mask
+        defaults to the mask that
         reached it. With `carries` (truncated BPTT) the recurrent nodes
         run from them and leave their new carries in `carries_out`."""
         if not self.output_layer_names:
@@ -430,7 +434,8 @@ class ComputationGraph(Container):
             total = total + self._output_loss(
                 name, self.conf.nodes[name].layer, h, ys[oi], lmask,
                 train=train, rng=rng)
-        return self.dtype.cast_output(total + self._regularization())
+        return self.dtype.cast_output(total + self._regularization()
+                                      + self._pop_aux(new_state))
 
     def _output_positions(self):
         return [self._position[n] for n in self.output_layer_names]
@@ -600,9 +605,47 @@ class ComputationGraph(Container):
                    for n in self.conf.nodes.values()
                    if n.layer is not None and inp in n.inputs)
 
-    def pretrain(self, data, *, epochs: int = 1, batch_size: int = 32):
-        raise NotImplementedError("ComputationGraph.pretrain is not ported "
-                                  "(ROADMAP Queue 1 item 6)")
+    # ----------------------------------------------------------- pretrain
+    def _pretrain_targets(self):
+        return [(n, self.conf.nodes[n].layer) for n in self.topo_order
+                if self.conf.nodes[n].kind == "layer"
+                and hasattr(self.conf.nodes[n].layer, "pretrain_loss")]
+
+    @torch.no_grad()
+    def _pretrain_features(self, key, features):
+        """The input of node `key` from the walk of its ancestors only,
+        in inference mode (the JAX `featurize`): the network inputs cast
+        to the compute dtype, then computed against the fp32 params as
+        JAX promotes them, and the node's own preprocessor last."""
+        node = self.conf.nodes[key]
+        target = node.inputs[0]
+        ancestors, todo = set(), [target]
+        while todo:
+            n = todo.pop()
+            if n not in ancestors:
+                ancestors.add(n)
+                todo.extend(self.conf.nodes[n].inputs)
+        pd = self.dtype.param_dtype
+        acts = {n: self.dtype.cast_compute(x).to(pd) for n, x in
+                zip(self.conf.network_inputs, self._features(features))}
+        for n in self.topo_order:
+            sub = self.conf.nodes[n]
+            if n not in ancestors or sub.kind == "input":
+                continue
+            ins = [acts[s] for s in sub.inputs]
+            if sub.kind == "vertex":
+                acts[n] = sub.vertex.forward(ins, masks=[None] * len(ins),
+                                             train=False)
+                continue
+            h = ins[0]
+            if sub.preprocessor is not None:
+                h = sub.preprocessor.pre_process(h, None)
+            acts[n] = self._call_layer(n, sub.layer, h, train=False,
+                                       rng=None, mask=None, new_state=None)
+        h = acts[target]
+        if node.preprocessor is not None:
+            h = node.preprocessor.pre_process(h, None)
+        return h
 
 
 def _as_list(m):

@@ -4,12 +4,13 @@
 `forward_with_paged_cache` :246, `forward_with_paged_cache_multi` :290,
 `_warn_sp_fallback` :106).
 
-Params "Wq", "Wk", "Wv", "Wo" ([d, d], used as ``x @ W``) and biases
-"bq".."bo" (the JAX layer's default `has_bias=True`; identity
-activation, applied after Wo as in JAX). Heads split the model dim as
-[B, T, H, Dh], the JAX layout. A padding mask or `attention_dropout` in
-training takes the plain masked softmax, as in JAX; `n_out` other than
-`n_in` is not ported.
+Params "Wq", "Wk", "Wv" ([n_in, d]), "Wo" ([d, d]), used as ``x @ W``,
+and biases "bq".."bo" [d] (the JAX layer's default `has_bias=True`;
+identity activation, applied after Wo as in JAX), where the model dim
+d is `n_out` (`n_in` when 0). Heads split d as [B, T, H, d / H], the
+JAX layout; flash attention runs at that head dim. A padding mask or
+`attention_dropout` in training takes the plain masked softmax, as in
+JAX.
 
 `sequence_parallel="ring"|"ulysses"` makes the full-sequence forward
 run ring or Ulysses attention over the mesh of an active
@@ -79,19 +80,17 @@ class MultiHeadAttention(Layer):
         self._build()
 
     def _build(self):
-        d, self.n_heads = int(self.n_in), int(self.n_heads)
-        self.n_in = d
-        if not d or getattr(self, "Wq", None) is not None:
+        self.n_in, self.n_out = int(self.n_in), int(self.n_out or 0)
+        self.n_heads = int(self.n_heads)
+        d = self.n_out or self.n_in
+        if not self.n_in or getattr(self, "Wq", None) is not None:
             return
-        if self.n_out not in (0, d):
-            raise NotImplementedError(
-                f"MultiHeadAttention n_out={self.n_out} != n_in={d} is not "
-                f"ported (ROADMAP Queue 1 item 5)")
         if d % self.n_heads:
             raise ValueError(f"model dim {d} must divide n_heads "
                              f"{self.n_heads}")
         for name in _NAMES:
-            setattr(self, name, new_param((d, d), "cpu"))
+            setattr(self, name, new_param(
+                (d if name == "Wo" else self.n_in, d), "cpu"))
             setattr(self, "b" + name[1:],
                     new_param((d,), "cpu") if self.has_bias else None)
         # 1/sqrt(Dh) rounded as the JAX layer computes it (in fp32)
@@ -111,7 +110,7 @@ class MultiHeadAttention(Layer):
 
     @property
     def head_dim(self):
-        return self.n_in // self.n_heads
+        return (self.n_out or self.n_in) // self.n_heads
 
     def quantizable_weights(self):
         return _NAMES

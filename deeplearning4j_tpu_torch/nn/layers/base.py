@@ -92,21 +92,6 @@ BASE_FIELDS = (
     ("name", None), ("remat_policy", None))
 
 
-# JAX layers whose configuration is known but whose port waits for a
-# later slice (ROADMAP Queue 1 item 9): a configuration naming one is
-# refused by name when it is built
-NOT_PORTED = {
-    "convolution1d": "Convolution1DLayer", "subsampling1d":
-    "Subsampling1DLayer", "upsampling1d": "Upsampling1D", "upsampling2d":
-    "Upsampling2D", "zeropadding1d": "ZeroPadding1DLayer",
-    "space_to_depth": "SpaceToDepthLayer", "separable_convolution2d":
-    "SeparableConvolution2D", "pool_helper": "PoolHelperLayer",
-    "reshape": "ReshapeLayer", "permute": "PermuteLayer", "loss":
-    "LossLayer", "frozen": "FrozenLayer", "mixture_of_experts":
-    "MixtureOfExperts", "vae": "VariationalAutoencoder", "yolo2_output":
-    "Yolo2OutputLayer", "rbm": "RBM", "autoencoder": "AutoEncoder"}
-
-
 def register_layer(cls):
     _LAYER_REGISTRY[cls.layer_name] = cls
     return cls
@@ -174,6 +159,9 @@ class Layer(nn.Module):
     FIELDS = ()
     # what `activation=None` becomes (the JAX layer's __post_init__)
     DEFAULT_ACTIVATION = None
+    # a forward that leaves an "aux_loss" in its `new_state` dict in
+    # training (MixtureOfExperts), which the container's loss pops
+    emits_aux_loss = False
 
     def __init__(self, **config):
         super().__init__()
@@ -340,12 +328,7 @@ def _copy_named(layer: Layer, targets: Dict[str, torch.Tensor],
 
 def layer_from_dict(d: dict) -> Layer:
     d = dict(d)
-    name = d.pop("layer_name")
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"{NOT_PORTED[name]} ({name!r}) is not ported yet (ROADMAP "
-            f"Queue 1 item 9)")
-    cls = _LAYER_REGISTRY[name]
+    cls = _LAYER_REGISTRY[d.pop("layer_name")]
     names = {f for f, _ in cls.config_fields()}
     return cls(**{k: _decode(v) for k, v in d.items() if k in names})
 

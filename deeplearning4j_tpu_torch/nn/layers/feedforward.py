@@ -1,7 +1,8 @@
 """Dense, output, dropout and embedding layers and the output-layer loss
 (counterpart of `deeplearning4j_tpu/nn/layers/feedforward.py`:
 `DenseLayer` :35, `BaseOutputLayerMixin` :83, `OutputLayer` :95,
-`ActivationLayer` :136, `DropoutLayer` :150, `EmbeddingLayer` :169). Param names and layouts
+`LossLayer` :109, `ActivationLayer` :136, `DropoutLayer` :150,
+`EmbeddingLayer` :169, `AutoEncoder` :240). Param names and layouts
 are the JAX package's: W is [n_in, n_out] and is used as ``x @ W``; `b`
 exists when `has_bias` and starts at `bias_init`. Dense-based layers
 (and the loss) apply their input dropout while training; the embedding
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.common.losses import get_loss
 from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
@@ -109,6 +111,27 @@ class OutputLayer(DenseLayer, BaseOutputLayerMixin):
 
 
 @register_layer
+class LossLayer(Layer, BaseOutputLayerMixin):
+    """A parameterless output layer: the activation (identity by default)
+    and the loss (mcxent by default) of the incoming array."""
+
+    layer_name = "loss"
+    FIELDS = (("loss", None),)
+    DEFAULT_ACTIVATION = "identity"
+
+    def __init__(self, **config):
+        super().__init__(**config)
+        self.loss = get_loss(self.loss if self.loss is not None
+                             else "mcxent")
+
+    def pre_output(self, x):
+        return x
+
+    def forward(self, x, *, train=False, rng=None, mask=None):
+        return self.activation(self.apply_input_dropout(x, train, rng))
+
+
+@register_layer
 class ActivationLayer(Layer):
     """The activation alone (identity by default), no params."""
 
@@ -189,3 +212,72 @@ class EmbeddingLayer(_WeightAndBias):
             z = F.embedding(idx, W)
         return self.activation(z + quant.weight(self, "b") if self.has_bias
                                else z)
+
+
+@register_layer
+class AutoEncoder(Layer):
+    """Denoising autoencoder with tied weights: W [n_in, n_out], hidden
+    bias b [n_out] (`bias_init`) and visible bias vb [n_in] (zeros).
+    `forward` encodes, ``act(x W + b)``; `pretrain_loss` reconstructs
+    the input, corrupted by a Bernoulli(1 - corruption_level) keep mask,
+    through ``W^T`` and vb under the layer's loss."""
+
+    layer_name = "autoencoder"
+    FIELDS = (("n_in", 0), ("n_out", 0), ("corruption_level", 0.3),
+              ("sparsity", 0.0), ("loss", "mse"))
+    DEFAULT_ACTIVATION = "sigmoid"
+
+    def __init__(self, n_in: int = 0, n_out: int = 0, **config):
+        super().__init__(n_in=n_in, n_out=n_out, **config)
+        self.loss = get_loss(self.loss)
+        self._build()
+
+    def _build(self):
+        self.n_in, self.n_out = int(self.n_in), int(self.n_out)
+        W = getattr(self, "W", None)
+        if not (self.n_in and self.n_out) or (
+                W is not None and tuple(W.shape) == (self.n_in, self.n_out)):
+            return
+        self.W = new_param((self.n_in, self.n_out), "cpu")
+        self.b = new_param((self.n_out,), "cpu")
+        self.vb = new_param((self.n_in,), "cpu")
+
+    def set_n_in(self, input_type, override=True):
+        if override or not self.n_in:
+            self.n_in = input_type.arity()
+        self._build()
+
+    def get_output_type(self, input_type):
+        return InputType.feed_forward(self.n_out)
+
+    def jax_param_map(self):
+        if getattr(self, "W", None) is None:
+            return {}
+        return {"W": self.W, "b": self.b, "vb": self.vb}
+
+    def init_weights(self, key):
+        init_weight_(self, self.W, key)
+        with torch.no_grad():
+            self.b.fill_(self.bias_init)
+            self.vb.zero_()
+
+    def encode(self, x):
+        return self.activation(x @ self.W + self.b)
+
+    def decode(self, h):
+        return self.activation(h @ self.W.T + self.vb)
+
+    def forward(self, x, *, train=False, rng=None, mask=None):
+        return self.encode(self.apply_input_dropout(x, train, rng))
+
+    def pretrain_loss(self, x, rng):
+        """The denoising reconstruction loss under the threefry key `rng`
+        (JAX `AutoEncoder.pretrain_loss` :288-298)."""
+        if self.corruption_level > 0 and rng is not None:
+            keep = prng.bernoulli(rng, 1.0 - self.corruption_level, x.shape,
+                                  x.device)
+            x_in = torch.where(keep, x, torch.zeros_like(x))
+        else:
+            x_in = x
+        recon_pre = self.encode(x_in) @ self.W.T + self.vb
+        return self.loss(x, recon_pre, self.activation)

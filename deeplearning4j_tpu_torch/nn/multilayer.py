@@ -42,9 +42,14 @@ configuration asks for them and the features are [B, T, F]
 (`nn/container.py` `_fit_tbptt`), and `rnn_time_step` streams inference
 with carries kept across calls (the JAX `rnn_time_step` :989-1024).
 
+Layerwise pretraining (`pretrain`, `nn/container.py`) trains each
+layer with a `pretrain_loss` on the features of the layers before it
+(the JAX `pretrain` :1075-1114); the configuration's `pretrain` flag is
+inert in `fit`, as in JAX.
+
 Not ported yet, and refused rather than ignored: steps_per_execution >
-1, `data_format`, and, in `fit` and `score` (`_check_trainable`),
-`pretrain`, a line-search `optimization_algo` and diagnostics.
+1, `data_format`, and, in `fit` and `score` (`_check_trainable`), a
+line-search `optimization_algo` and diagnostics.
 """
 
 from __future__ import annotations
@@ -166,8 +171,9 @@ class MultiLayerNetwork(Container):
     def _loss_fn(self, x, y, fmask=None, lmask=None, *, train=False,
                  rng=None, new_state=None, carries=None, carries_out=None):
         """The output layer's loss on the forward through the layers
-        before it, plus the l1/l2 penalty (the JAX `_loss_fn` without
-        diagnostics or the MoE aux loss). The label mask defaults to the
+        before it, plus the l1/l2 penalty and the auxiliary losses the
+        training forward left in `new_state` (the JAX `_loss_fn` without
+        diagnostics). The label mask defaults to the
         mask the layers carried; the output layer's key is
         `fold_in(rng, n - 1)`. With `carries` (truncated BPTT) the
         recurrent layers run from them and leave their new carries in
@@ -188,7 +194,8 @@ class MultiLayerNetwork(Container):
         loss = self._output_loss(
             str(n - 1), out, h, y, lmask if lmask is not None else mask,
             train=train, rng=rng)
-        return self.dtype.cast_output(loss) + self._regularization()
+        return self.dtype.cast_output(loss) + (self._regularization()
+                                               + self._pop_aux(new_state))
 
     # ------------------------------------------------------------ updates
     def _candidate_runs(self) -> List[List[int]]:
@@ -241,6 +248,20 @@ class MultiLayerNetwork(Container):
         h = self._stream(lambda c: self._forward(x, c)[:2], int(x.shape[0]),
                          t_new)
         return h[:, -1, :] if squeeze and h.ndim == 3 else h
+
+    # ----------------------------------------------------------- pretrain
+    def _pretrain_targets(self):
+        return [(str(i), layer) for i, layer in enumerate(self.layers)
+                if hasattr(layer, "pretrain_loss")]
+
+    @torch.no_grad()
+    def _pretrain_features(self, key, features):
+        """Layers [0, key) in inference mode under the policy; the
+        result in the param dtype (JAX promotes the compute-dtype
+        features against the layer's fp32 params)."""
+        x = self._inputs(features)
+        h = self._policy_call(lambda: self._forward(x, upto=int(key))[0])
+        return h.to(self.dtype.param_dtype)
 
     # ---------------------------------------------------------------- fit
     def _features(self, x) -> torch.Tensor:

@@ -288,8 +288,15 @@ def test_global_pooling_over_nhwc_matches_jax(pooling):
                                   "separable_convolution2d",
                                   "zeropadding1d"])
 def test_unported_layers_are_refused_by_name(name):
-    with pytest.raises(NotImplementedError, match="not ported"):
-        layer_from_dict({"layer_name": name})
+    """These layers were refused by name until they were ported; each
+    now builds from its name and writes its dict back (their parity
+    with JAX: tests/test_torch_port_layers_rest.py), and a name outside
+    the registry still raises."""
+    layer = layer_from_dict({"layer_name": name})
+    assert layer.layer_name == name
+    assert layer_from_dict(layer.to_dict()).to_dict() == layer.to_dict()
+    with pytest.raises(KeyError):
+        layer_from_dict({"layer_name": name + "_unknown"})
 
 
 # --------------------------------------- batch norm in a MultiLayerNetwork

@@ -507,6 +507,24 @@ def test_phase_12_small_mode_on_the_cpu():
                       "InceptionResNetV1", "FaceNetNN4Small2", "bounds"}
 
 
+def test_phase_13_small_mode_on_the_cpu():
+    """`chip_smoke.phase_layers_rest` at its CPU size: YOLOv2 at 1/16 of
+    its widths on 64x64 images, the MoE LM at d64, MultiHeadAttention
+    with n_out != n_in, VAE, DBN and AutoEncoder pretraining on a slice
+    of the digits, the other new layers and a frozen conv and BatchNorm
+    in training (card and CPU both the CPU here); every check passes and
+    no kernel launches."""
+    report, fails = {}, chip_smoke.Failures()
+    launches = chip_smoke.phase_layers_rest(torch.device("cpu"), report,
+                                            fails, small=True)
+    assert not fails, list(fails)
+    assert all(n == 0 for n in launches.values())
+    r = report["layers_rest"]
+    assert set(r) >= {"yolo", "moe_lm", "mha_n_out", "vae", "dbn",
+                      "autoencoder", "layers", "frozen"}
+    assert r["frozen"]["frozen_bit_equal"]
+
+
 # ------------------------------------------------------- evaluation, refusals
 def test_graph_evaluate_matches_jax():
     jnet = JaxGraph(_jax_dag()).init(7)
@@ -533,9 +551,10 @@ def test_graph_evaluate_matches_jax():
                                   "steps_per_execution", "rnn_time_step",
                                   "pretrain"])
 def test_unported_graph_features_are_refused_by_name(what):
-    """TBPTT and `rnn_time_step` are ported: on this feed-forward DAG
-    they do what JAX's graph does (a plain step on [B, F] features, a
-    one-step stream), from `init()`'s JAX weights; the rest is refused
+    """TBPTT, `rnn_time_step` and `pretrain` are ported: on this
+    feed-forward DAG they do what JAX's graph does (a plain step on
+    [B, F] features, a one-step stream, no layer to pretrain so the
+    params stay JAX's), from `init()`'s JAX weights; the rest is refused
     by name."""
     conf = _jax_dag()
     if what == "tbptt":
@@ -545,11 +564,15 @@ def test_unported_graph_features_are_refused_by_name(what):
     net = ComputationGraph(ComputationGraphConfiguration.from_json(
         conf.to_json()), device="cpu").init()
     x, y = _dag_data(9, 4)
-    if what in ("tbptt", "rnn_time_step"):
+    if what in ("tbptt", "rnn_time_step", "pretrain"):
         jnet = JaxGraph(conf).init()
         if what == "tbptt":
             jnet.fit(x, y, batch_size=4)
             net.fit(x, y, batch_size=4)
+            got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
+        elif what == "pretrain":
+            jnet.pretrain(x, batch_size=4)
+            net.pretrain(x, batch_size=4)
             got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
         else:
             got = net.rnn_time_step(x).numpy()
@@ -561,8 +584,6 @@ def test_unported_graph_features_are_refused_by_name(what):
             net.fit(x, y, steps_per_execution=2)
         elif what == "rnn_time_step":
             net.rnn_time_step(x)
-        elif what == "pretrain":
-            net.pretrain(x)
         else:
             net.fit(x, y, batch_size=4)
     assert net.output(x).shape == (4, 3)          # inference accepts them
