@@ -14,6 +14,9 @@
                                           # rows alone
     python3 chip_smoke.py --yolo-lr-trial # YOLOv2: the loss under four
                                           # Nesterov rates
+    python3 chip_smoke.py --runtime       # build + phase 14 alone
+    python3 chip_smoke.py --runtime-probe # phase 14's determinism probe
+                                          # and profiled spe 1 / spe 4
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -261,8 +264,43 @@ Phases, in order:
      backward card vs CPU in fp32 (1e-5) and bf16 (2 ulps of each row's
      largest), masks included, and a FrozenLayer conv and BatchNorm
      bit-equal after 3 `fit` steps. It prints `[layers_rest]` lines;
+ 14. the training runtime (`phase_runtime`, fp32 with TF32 off unless an
+     arm is mixed_bf16): (a) the long-context LM (phase 6's config) at
+     [8, 2048], Adam(LONG_LR), on 32 seeded windows shuffled by one
+     stream over 4 epochs (16 steps), in fp32 and mixed_bf16: one step's
+     gradients twice from one state, equal (else the leaves are named);
+     16 steps at steps_per_execution 4 bit-equal to 16 at 1 (ms/step of
+     both, timed in turns spe 1, 4, 4, 1); a run
+     with an AsyncCheckpointer (keep_last 2) through a CheckpointListener
+     every 4 steps and a PreemptionListener at step 10, then
+     `MultiLayerNetwork.resume` (the newest checkpoint, 8) trained to 16:
+     params, Adam's m and v and the counters bit-equal to the
+     uninterrupted run (write seconds and MB, resume seconds); the newest
+     checkpoint corrupted, the resume falls back to 4 and replays to the
+     same bits; remat none, full and dots_saveable for 3 steps each,
+     bit-equal, with their ms/step and peak memory (their launches,
+     recompute included, are reported apart and left out of the
+     phase's); (b) `beam_search` on phase 3's LM (head x8) at B 4, prompt
+     64, 32 tokens, beam 4 card vs CPU by margin (near-ties counted,
+     BEAM_ATOL), beam 1 against greedy `generate()`, ms a token step; on
+     the committed char-LM (sha256 checked) card vs CPU exactly with '.'
+     as eos, ranked raw and with the GNMT length penalty 0.6; (c) LeNet
+     at batch 128 on the digits under `line_gradient_descent`,
+     `conjugate_gradient` and `lbfgs`, 5 iterations over 3 batches:
+     iterations 0-1's losses card vs CPU within SOLVER_ATOL, the loss
+     falling, ms an iteration; (d) the packaged LeNet through
+     TransferLearning (conv stack frozen, the head re-drawn, Sgd(0.1))
+     on the digits standardized by NormalizerStandardize, an
+     EarlyStoppingTrainer (MaxEpochs 5, ScoreImprovement 2) scored by the
+     297 held-out digits' loss: best epoch equal card vs CPU and its
+     score within ES_ATOL, the held-out accuracy, a run stopped after 2
+     epochs and resumed with `fit(resume=True)` to the same result, and
+     the best model's zip with the normalizer restored on the card to
+     the same output; (e) NCHW `data_format` on LeNet and a two-input,
+     two-output graph fit over MultiDataSets, card vs CPU. It prints
+     `[runtime]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 13, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
+to 14, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
 TF32 off for matmuls and convolutions (PyTorch lets cuDNN run fp32
@@ -5172,6 +5210,637 @@ def _print_layers_rest(out):
           f"{out['seconds']:.1f}", flush=True)
 
 
+# ------------------------------------------------ phase 14: the runtime
+# (a) the long-context LM's runtime arm: 32 windows, batches of 8,
+# shuffled by one seeded stream, 4 epochs = 16 steps; checkpoints every
+# 4 steps, a kill at step 10
+RUNTIME = dict(B=8, windows=32, epochs=4, spe=4, every=4, kill_at=10,
+               remat_steps=3)
+RUNTIME_SMALL = dict(B=2, windows=8, epochs=4, spe=4, every=4, kill_at=10,
+                     remat_steps=2)
+RUNTIME_KERNELS = ("layer_norm", "residual_layer_norm", "flash_attention_fwd",
+                   "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                   "fused_adam")
+# (b) beam search on the smoke LM and the committed char-LM
+BEAM = dict(B=4, prompt=64, tokens=32, width=4, char_B=4, char_prompt=50,
+            char_tokens=64)
+BEAM_SMALL = dict(B=2, prompt=8, tokens=6, width=3, char_B=2,
+                  char_prompt=10, char_tokens=8)
+# a beam's summed log-probability card vs CPU (32 tokens, fp32, TF32
+# off): the beams of a row are equal, or the card's beams re-scored on
+# the CPU are within this of the CPU's (a near-tie, counted)
+BEAM_ATOL = 1e-3
+# the char-LM's beam scores card vs CPU: CHAR_LM_ATOL a token (a score
+# sums n_tokens log-probabilities)
+CHAR_LENGTH_PENALTY = 0.6
+# (c) the solvers on LeNet, (d) early stopping on the packaged LeNet
+SOLVER = dict(B=128, batches=3, iters=5)
+SOLVER_SMALL = dict(B=16, batches=2, iters=2)
+SOLVER_ATOL = 1e-5       # iteration 0's loss, card vs CPU
+ES = dict(B=128, max_epochs=5, patience=2, lr=0.1, interrupt_after=2)
+ES_SMALL = dict(B=64, max_epochs=3, patience=2, lr=0.1, interrupt_after=1)
+ES_ATOL = 1e-5           # the best held-out score, card vs CPU
+FORMAT_ATOL = 1e-5       # (e) outputs and losses card vs CPU
+
+
+def _sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _runtime_iter(X, Y, B):
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    return ArrayDataSetIterator(X, Y, batch_size=B, shuffle=True, seed=14)
+
+
+def _state_diff(a, b):
+    """The names of the params and Adam moments of two nets that are not
+    bit-equal, and whether the counters agree."""
+    import torch
+    bad = []
+    for (key, la), (_, lb) in zip(a.keyed(), b.keyed()):
+        for name, t in la.jax_param_map().items():
+            if not torch.equal(t, lb.jax_param_map()[name]):
+                bad.append(f"{key}/{name}")
+    for key, lst in a.updater_state.items():
+        for name, st in lst.items():
+            for slot, t in st.items():
+                if not torch.equal(t, b.updater_state[key][name][slot]):
+                    bad.append(f"{key}/{name}/{slot}")
+    same = (a.iteration_count == b.iteration_count
+            and a.epoch_count == b.epoch_count)
+    return bad, same
+
+
+def _lm_runtime_arm(device, fails, cfg, c, policy, params, small):
+    """(a) one dtype: 16 steps at spe 1 (the reference) and at spe 4, the
+    interrupted run with its checkpoints, the resume, the fallback past
+    a corrupted newest checkpoint, and the three remat policies. Returns
+    (numbers, remat launches)."""
+    import shutil
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch import fault
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    tag = policy or "float32"
+    X, Y = lm_corpus(cfg, c["windows"], seed=14)
+    E, B = c["epochs"], c["B"]
+    n_steps = E * c["windows"] // B
+
+    def build():
+        return build_lm(cfg, device, params, lr=LONG_LR,
+                        dtype_policy=policy)
+
+    def fit(net, spe=1, listeners=()):
+        it = _runtime_iter(X, Y, B)
+        for listener in listeners:
+            net.add_listener(listener)
+        _sync(device)
+        t0 = time.perf_counter()
+        net.fit(it, epochs=E, steps_per_execution=spe)
+        _sync(device)
+        return time.perf_counter() - t0
+
+    out = dict(steps=n_steps)
+    warm = build()
+    warm.fit(X[:B], Y[:B], batch_size=B, shuffle=False)
+    # every gradient of one step, twice from the same state: the leaves
+    # whose two results differ name a step that is not deterministic
+    xs, ys = warm._features(X[:B]), warm._labels(Y[:B])
+    grads = []
+    for _ in range(2):
+        _, g, _ = warm._loss_and_grads(lambda st: warm._loss_fn(
+            xs, ys, train=True, rng=warm._step_key(0), new_state=st))
+        grads.append({n: g[id(p)].clone()
+                      for n, p in warm.named_parameters()})
+    out["grad_rerun_differs"] = [n for n in grads[0]
+                                 if not torch.equal(grads[0][n],
+                                                    grads[1][n])]
+    fails.check(not out["grad_rerun_differs"], f"runtime {tag}: a step's "
+                f"gradients differ from run to run at "
+                f"{out['grad_rerun_differs'][:6]}")
+    del warm, grads, xs, ys
+    # spe 1 and spe 4 in turns (A B B A): the first of each is compared
+    ref = build()
+    spe1 = [fit(ref)]
+    grouped = build()
+    spe4 = [fit(grouped, spe=c["spe"])]
+    bad, same = _state_diff(ref, grouped)
+    out["spe4_bit_equal"] = not bad and same
+    fails.check(out["spe4_bit_equal"], f"runtime {tag}: spe {c['spe']} is "
+                f"not bit-equal to spe 1 ({bad[:4]}, counters {same})")
+    del grouped
+    spe4.append(fit(build(), spe=c["spe"]))
+    spe1.append(fit(build()))
+    out["spe1_ms_per_step"] = [t / n_steps * 1e3 for t in spe1]
+    out["spe4_ms_per_step"] = [t / n_steps * 1e3 for t in spe4]
+    tmp = tempfile.mkdtemp(prefix="runtime_ckpt_")
+    try:
+        net, it = build(), _runtime_iter(X, Y, B)
+        ck = fault.AsyncCheckpointer(tmp, keep_last=2)
+        net.add_listener(fault.CheckpointListener(ck, frequency=c["every"],
+                                                  iterator=it))
+        net.add_listener(fault.PreemptionListener(c["kill_at"]))
+        killed = False
+        try:
+            net.fit(it, epochs=E)
+        except fault.SimulatedPreemption:
+            killed = True
+        ck.wait()
+        out["checkpoints"] = ck.steps()
+        out["checkpoint_write_s"], nbytes = ck.last_write
+        out["checkpoint_mb"] = nbytes / 2 ** 20
+        fails.check(killed and out["checkpoints"] == [4, 8],
+                    f"runtime {tag}: killed {killed}, checkpoints "
+                    f"{out['checkpoints']} (want [4, 8])")
+        del net
+        t0 = time.perf_counter()
+        it2 = _runtime_iter(X, Y, B)
+        resumed = MultiLayerNetwork.resume(tmp, device=device, iterator=it2)
+        _sync(device)
+        out["resume_s"] = time.perf_counter() - t0
+        out["resumed_at"] = resumed.iteration_count
+        fails.check(resumed.dtype.to_dict() == ref.dtype.to_dict(),
+                    f"runtime {tag}: resumed under {resumed.dtype.to_dict()}")
+        resumed.fit(it2, epochs=E - resumed.epoch_count)
+        bad, same = _state_diff(ref, resumed)
+        out["resume_bit_equal"] = not bad and same
+        fails.check(out["resume_bit_equal"], f"runtime {tag}: the resumed "
+                    f"run is not bit-equal to the uninterrupted one "
+                    f"({bad[:4]}, counters {same})")
+        del resumed
+        fault.corrupt_checkpoint(tmp, mode="flip")
+        it3 = _runtime_iter(X, Y, B)
+        fallback = MultiLayerNetwork.resume(tmp, device=device, iterator=it3)
+        out["fallback_at"] = fallback.iteration_count
+        fallback.fit(it3, epochs=E - fallback.epoch_count)
+        bad, same = _state_diff(ref, fallback)
+        out["fallback_bit_equal"] = (out["fallback_at"] == 4 and not bad
+                                     and same)
+        fails.check(out["fallback_bit_equal"], f"runtime {tag}: after the "
+                    f"newest checkpoint was corrupted, resumed at "
+                    f"{out['fallback_at']} (want 4) and bit-equal "
+                    f"{not bad and same} ({bad[:4]})")
+        del fallback
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    del ref
+    # remat: 3 steps under each policy from the same params (the launches
+    # here count the recompute and are reported apart)
+    before = dict(K.LAUNCHES)
+    nets, out["remat"] = {}, {}
+    Xr, Yr = X[:B * c["remat_steps"]], Y[:B * c["remat_steps"]]
+    for rp in ("none", "full", "dots_saveable"):
+        net = build()
+        for layer in net.layers:
+            if type(layer).__name__ == "TransformerEncoderBlock":
+                layer.remat_policy = rp
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        _sync(device)
+        t0 = time.perf_counter()
+        net.fit(Xr, Yr, batch_size=B, shuffle=False)
+        _sync(device)
+        out["remat"][rp] = dict(
+            ms_per_step=(time.perf_counter() - t0) / c["remat_steps"] * 1e3,
+            peak_gb=(torch.cuda.max_memory_allocated() / 2 ** 30
+                     if device.type == "cuda" else None))
+        nets[rp] = net
+        if rp != "none":
+            bad, _ = _state_diff(nets["none"], net)
+            out["remat"][rp]["bit_equal"] = not bad
+            fails.check(not bad, f"runtime {tag}: remat {rp} is not "
+                        f"bit-equal to no remat ({bad[:4]})")
+            del nets[rp]
+    remat_launches = {k: K.LAUNCHES[k] - before.get(k, 0)
+                      for k in K.LAUNCHES}
+    for k, n in remat_launches.items():
+        K.LAUNCHES[k] -= n
+    return out, remat_launches
+
+
+def _beam_rescore(net, prompt, seqs):
+    """The summed log(clip(p, 1e-9)) of each of `seqs` [W, n] after
+    `prompt` under `net` (one full forward each)."""
+    import torch
+    scores = []
+    for seq in seqs:
+        x = np.concatenate([prompt, seq])[None].astype(np.int64)
+        with torch.no_grad():
+            p = net.output(x)[0].float().cpu().numpy()
+        rows = p[len(prompt) - 1:len(prompt) - 1 + len(seq)]
+        lp = np.log(np.clip(rows[np.arange(len(seq)), seq], 1e-9, None))
+        scores.append(float(lp.astype(np.float32).sum()))
+    return np.asarray(scores)
+
+
+def _beam_lm(device, fails, cfg, c):
+    """(b) the smoke LM (random weights, head x8): beams card vs CPU by
+    margin, beam_width 1 against greedy generate(), ms a token step."""
+    from deeplearning4j_tpu_torch.zoo.transformer import (
+        beam_search, generate)
+    params = random_lm_params(cfg, seed=141, head_scale=8.0)
+    card, cpu = (build_lm(cfg, d, params) for d in (device, "cpu"))
+    prompts = np.random.default_rng(142).integers(
+        0, cfg["vocab"], (c["B"], c["prompt"]))
+    beam_search(card, prompts[:1], 2, beam_width=c["width"], device=device)
+    _sync(device)
+    t0 = time.perf_counter()
+    ids, scores = beam_search(card, prompts, c["tokens"],
+                              beam_width=c["width"], device=device)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    want_ids, want_scores = beam_search(cpu, prompts, c["tokens"],
+                                        beam_width=c["width"], device="cpu")
+    near, ok = 0, True
+    for b in range(c["B"]):
+        if np.array_equal(ids[b], want_ids[b]):
+            err = float(np.abs(scores[b] - want_scores[b]).max())
+            ok &= fails.check(err <= BEAM_ATOL, f"beam row {b}: scores "
+                              f"card vs CPU {err} (tol {BEAM_ATOL})")
+            continue
+        got = np.sort(_beam_rescore(cpu, prompts[b], ids[b]))
+        gap = float(np.abs(got - np.sort(want_scores[b])).max())
+        near += 1
+        ok &= fails.check(gap <= BEAM_ATOL, f"beam row {b}: the card's "
+                          f"beams differ and re-score {gap} from the CPU's "
+                          f"(tol {BEAM_ATOL})")
+    one, _ = beam_search(card, prompts, c["tokens"], beam_width=1,
+                         device=device)
+    greedy = generate(card, prompts, c["tokens"], temperature=0.0)
+    fails.check(np.array_equal(one[:, 0], greedy),
+                "beam_width 1 is not greedy generate()'s stream")
+    steps = c["tokens"] * c["B"] * c["width"]
+    return dict(rows=c["B"], beams=c["width"], tokens=c["tokens"],
+                near_ties=near, seconds=secs,
+                ms_per_token_step=secs / c["tokens"] * 1e3,
+                beam_tokens_per_s=steps / secs)
+
+
+def _beam_char_lm(device, fails, c):
+    """(b) the committed char-LM (sha256 checked): beams card vs CPU
+    exactly (ids, scores within CHAR_BEAM_ATOL), with '.' as eos and the
+    GNMT length penalty's ranking, against the raw ranking too."""
+    from deeplearning4j_tpu_torch.zoo import (
+        PretrainedType, TextGenerationLSTM)
+    from deeplearning4j_tpu_torch.zoo.transformer import beam_search
+    model = TextGenerationLSTM()
+    card = model.init_pretrained(PretrainedType.TEXT, device=device)
+    cpu = model.init_pretrained(PretrainedType.TEXT, device="cpu")
+    charset = TextGenerationLSTM.pretrained_charset()
+    eos = charset.index(".") if "." in charset else 0
+    prompts = np.stack([char_ids(c["char_prompt"], offset=3000 + 700 * b)
+                        for b in range(c["char_B"])])
+    out = {}
+    for lp in (0.0, CHAR_LENGTH_PENALTY):
+        kw = dict(beam_width=4, eos_id=eos, length_penalty=lp)
+        _sync(device)
+        t0 = time.perf_counter()
+        ids, scores = beam_search(card, prompts, c["char_tokens"],
+                                  device=device, **kw)
+        _sync(device)
+        secs = time.perf_counter() - t0
+        wids, wscores = beam_search(cpu, prompts, c["char_tokens"],
+                                    device="cpu", **kw)
+        err = float(np.abs(scores - wscores).max())
+        same = bool(np.array_equal(ids, wids))
+        tol = CHAR_LM_ATOL * c["char_tokens"]
+        fails.check(same and err <= tol, f"char-LM beams (length_penalty "
+                    f"{lp}) card vs CPU: ids equal {same}, scores {err} "
+                    f"(tol {tol})")
+        hits = np.cumsum(ids == eos, axis=2) > 0
+        lengths = np.where(hits.any(2), hits.argmax(2) + 1,
+                           c["char_tokens"])
+        norm = scores / ((5.0 + lengths) / 6.0) ** lp
+        fails.check(np.all(np.diff(norm, axis=1) <= 1e-6),
+                    f"char-LM beams not ranked by the length-normalized "
+                    f"score (length_penalty {lp})")
+        best = "".join(charset[i] if i < len(charset) else "?"
+                       for i in ids[0, 0])
+        out[f"lp_{lp}"] = dict(max_abs_err=err, ids_equal=same,
+                               seconds=secs, eos_hits=int(hits.any(2).sum()),
+                               best=best)
+    return out
+
+
+def _digit_sets(small):
+    X, Y = digits_28x28()
+    Xh, Yh, Xt, Yt = (X[:N_HELD_OUT], Y[:N_HELD_OUT], X[N_HELD_OUT:],
+                      Y[N_HELD_OUT:])
+    if small:
+        Xh, Yh, Xt, Yt = Xh[:64], Yh[:64], Xt[:256], Yt[:256]
+    return Xh, Yh, Xt, Yt
+
+
+def _solver_arm(device, fails, c, small):
+    """(c) LeNet (bench.py:643-668) at batch c["B"] with each line-search
+    algorithm for `iters` iterations over `batches` batches: iteration
+    0's loss and the first iteration's, card vs CPU from the same
+    params; the loss falls; ms a solver iteration."""
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    _, _, Xt, Yt = _digit_sets(small)
+    B = c["B"]
+    out = {}
+    for algo in ("line_gradient_descent", "conjugate_gradient", "lbfgs"):
+        conf = LeNet().conf()
+        conf.optimization_algo, conf.max_iterations = algo, c["iters"]
+        card = MultiLayerNetwork(conf, device=device).init()
+        cpu = _copy_to(card, "cpu")
+        cpu.conf.max_iterations = 1
+        cpu.fit(Xt[:B], Yt[:B], batch_size=B, shuffle=False)
+        want = cpu._solver.scores
+        scores, iters = [], 0
+        _sync(device)
+        t0 = time.perf_counter()
+        for i in range(c["batches"]):
+            card.fit(Xt[i * B:(i + 1) * B], Yt[i * B:(i + 1) * B],
+                     batch_size=B, shuffle=False)
+            scores.append(list(card._solver.scores))
+            iters += len(card._solver.scores) - 1
+        _sync(device)
+        secs = time.perf_counter() - t0
+        err = max(abs(a - b) for a, b in zip(scores[0][:2], want[:2]))
+        fails.check(err <= SOLVER_ATOL, f"{algo}: iterations 0-1 loss card "
+                    f"vs CPU {err} (tol {SOLVER_ATOL})")
+        fails.check(all(s[-1] < s[0] for s in scores),
+                    f"{algo}: the loss did not fall within a batch "
+                    f"({[(s[0], s[-1]) for s in scores]})")
+        out[algo] = dict(iter0_err=err, scores=scores,
+                         ms_per_iteration=secs / max(iters, 1) * 1e3)
+    return out
+
+
+def _es_arm(device, fails, c, small):
+    """(d) the packaged LeNet through TransferLearning (conv stack frozen,
+    the head re-drawn by n_out_replace, Sgd fine-tune), the digits
+    standardized by NormalizerStandardize, EarlyStoppingTrainer with
+    MaxEpochs and ScoreImprovement scored on the held-out digits: card
+    against CPU, an interrupted run resumed, and the zip with the
+    normalizer restored on the card."""
+    import shutil
+    import tempfile
+    import torch
+    from deeplearning4j_tpu_torch.common.updaters import Sgd
+    from deeplearning4j_tpu_torch.datasets import (
+        ArrayDataSetIterator, DataSet)
+    from deeplearning4j_tpu_torch.datasets.normalizers import (
+        NormalizerStandardize)
+    from deeplearning4j_tpu_torch.earlystopping import (
+        DataSetLossCalculator, EarlyStoppingConfiguration,
+        EarlyStoppingTrainer, InMemoryModelSaver,
+        MaxEpochsTerminationCondition,
+        ScoreImprovementEpochTerminationCondition)
+    from deeplearning4j_tpu_torch.nn.layers.misc import FrozenLayer
+    from deeplearning4j_tpu_torch.transferlearning import (
+        FineTuneConfiguration, TransferLearning)
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    from deeplearning4j_tpu_torch.zoo import LeNet, PretrainedType
+    Xh, Yh, Xt, Yt = _digit_sets(small)
+    norm = NormalizerStandardize().fit(DataSet(Xt, Yt))
+    Xt, Xh = norm.transform(Xt), norm.transform(Xh)
+    base = LeNet().init_pretrained(PretrainedType.MNIST, device="cpu")
+
+    def tl(dev):
+        return (TransferLearning.Builder(base)
+                .fine_tune_configuration(FineTuneConfiguration(
+                    updater=Sgd(c["lr"])))
+                .set_feature_extractor(3).n_out_replace(5, 10)
+                .build(device=dev))
+
+    def conf(max_epochs):
+        return EarlyStoppingConfiguration(
+            score_calculator=DataSetLossCalculator(ArrayDataSetIterator(
+                Xh, Yh, batch_size=c["B"])),
+            model_saver=InMemoryModelSaver(),
+            epoch_termination_conditions=[
+                MaxEpochsTerminationCondition(max_epochs),
+                ScoreImprovementEpochTerminationCondition(c["patience"])])
+
+    def data():
+        return ArrayDataSetIterator(Xt, Yt, batch_size=c["B"], shuffle=True,
+                                    seed=15)
+
+    def run(dev, max_epochs=None, **kw):
+        net = tl(dev)
+        trainer = EarlyStoppingTrainer(
+            conf(max_epochs or c["max_epochs"]), net, data(), device=dev,
+            **{k: v for k, v in kw.items() if k == "checkpointer"})
+        return net, trainer.fit(**{k: v for k, v in kw.items()
+                                   if k == "resume"})
+
+    net = tl(device)
+    frozen = [type(l).__name__ for l in net.layers]
+    fails.check(frozen[:4] == ["FrozenLayer"] * 4, f"TL layers {frozen}")
+    _sync(device)
+    t0 = time.perf_counter()
+    _, res = run(device)
+    _sync(device)
+    secs = time.perf_counter() - t0
+    _, cres = run("cpu")
+    err = abs(res.best_model_score - cres.best_model_score)
+    fails.check(res.best_model_epoch == cres.best_model_epoch
+                and err <= ES_ATOL, f"early stopping card vs CPU: best "
+                f"epoch {res.best_model_epoch} vs {cres.best_model_epoch}, "
+                f"best score {err} apart (tol {ES_ATOL})")
+    acc = res.best_model.evaluate(DataSet(Xh, Yh)).accuracy()
+    tmp = tempfile.mkdtemp(prefix="runtime_es_")
+    try:
+        _, r1 = run(device, max_epochs=c["interrupt_after"],
+                    checkpointer=os.path.join(tmp, "ckpt"))
+        _, r2 = run(device, checkpointer=os.path.join(tmp, "ckpt"),
+                    resume=True)
+        fails.check(r2.best_model_epoch == res.best_model_epoch
+                    and r2.best_model_score == res.best_model_score
+                    and r2.total_epochs == res.total_epochs,
+                    f"early stopping resumed after {r1.total_epochs} "
+                    f"epochs: best epoch {r2.best_model_epoch}, score "
+                    f"{r2.best_model_score}, epochs {r2.total_epochs} vs "
+                    f"{res.best_model_epoch}, {res.best_model_score}, "
+                    f"{res.total_epochs}")
+        path = os.path.join(tmp, "best.zip")
+        ModelSerializer.write_model(res.best_model, path)
+        ModelSerializer.add_normalizer_to_model(path, norm)
+        back = ModelSerializer.restore_model(path, device=device)
+        bnorm = ModelSerializer.restore_normalizer_from_file(path)
+        Xr = bnorm.transform(_digit_sets(small)[0])
+        same = torch.equal(back.output(Xr), res.best_model.output(Xh))
+        fails.check(same and np.array_equal(Xr, Xh), "the zip with the "
+                    "normalizer did not restore the best model's output")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(best_epoch=res.best_model_epoch,
+                best_score=res.best_model_score, cpu_best_score=
+                cres.best_model_score, score_err=err,
+                total_epochs=res.total_epochs,
+                reason=res.termination_reason.value,
+                scores={str(k): v for k, v in res.score_vs_epoch.items()},
+                held_out_accuracy=acc, seconds=secs,
+                normalizer_mean=float(norm.mean.reshape(-1)[0]),
+                normalizer_std=float(norm.std.reshape(-1)[0]))
+
+
+def _format_arm(device, fails, small):
+    """(e) NCHW on LeNet and a two-input graph over a MultiDataSet, card
+    vs CPU."""
+    from deeplearning4j_tpu_torch.common.updaters import Sgd
+    from deeplearning4j_tpu_torch.datasets.multidataset import MultiDataSet
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.graph import MergeVertex
+    from deeplearning4j_tpu_torch.nn.graph import (
+        ComputationGraph, ComputationGraphConfiguration)
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    Xh, Yh, Xt, Yt = _digit_sets(small)
+    B = 32 if small else 128
+    x = np.transpose(Xt[:B], (0, 3, 1, 2)).copy()
+    card = LeNet(updater=Sgd(0.05)).init(device=device)
+    cpu = _copy_to(card, "cpu")
+    got = card.output(x, data_format="NCHW").cpu().numpy()
+    err = float(np.abs(got - cpu.output(x, data_format="NCHW").numpy()
+                       ).max())
+    native = float(np.abs(got - card.output(Xt[:B]).cpu().numpy()).max())
+    card.fit(x, Yt[:B], batch_size=B, data_format="NCHW", shuffle=False)
+    cpu.fit(x, Yt[:B], batch_size=B, data_format="NCHW", shuffle=False)
+    lerr = abs(card.score_value - cpu.score_value)
+    fails.check(err <= FORMAT_ATOL and native == 0.0 and lerr <= FORMAT_ATOL,
+                f"NCHW LeNet card vs CPU: output {err}, vs native {native},"
+                f" loss {lerr} (tol {FORMAT_ATOL})")
+    g = ComputationGraphConfiguration.graph_builder(
+        NeuralNetConfiguration.builder().seed(2).updater(Sgd(0.1)))
+    g.add_inputs("pixels", "mean_row")
+    g.add_vertex("merged", MergeVertex(), "pixels", "mean_row")
+    g.add_layer("hidden", DenseLayer(n_in=784 + 28, n_out=256,
+                                     activation="relu"), "merged")
+    g.add_layer("digit", OutputLayer(n_in=256, n_out=10,
+                                     activation="softmax", loss="mcxent"),
+                "hidden")
+    g.add_layer("ink", OutputLayer(n_in=256, n_out=1,
+                                   activation="identity", loss="mse"),
+                "hidden")
+    g.set_outputs("digit", "ink")
+    gconf = g.build()
+    flat = Xt.reshape(len(Xt), -1)
+    mds = [MultiDataSet(features=[flat[i:i + B], Xt[i:i + B].mean(2)[..., 0]],
+                        labels=[Yt[i:i + B], flat[i:i + B].mean(1,
+                                                              keepdims=True)])
+           for i in range(0, 3 * B, B)]
+    nets = [ComputationGraph(gconf, device=d).init() for d in (device,
+                                                                "cpu")]
+    for net in nets:
+        net.fit(mds)
+    gerr = max(float(np.abs(a.detach().cpu().numpy()
+                            - b.detach().numpy()).max())
+               for (_, a), (_, b) in zip(nets[0].param_table().items(),
+                                         nets[1].param_table().items()))
+    fails.check(gerr <= FORMAT_ATOL, f"two-input graph over MultiDataSet "
+                f"card vs CPU params {gerr} (tol {FORMAT_ATOL})")
+    return dict(nchw_output_err=err, nchw_loss_err=lerr,
+                graph_param_err=gerr, graph_steps=nets[0].iteration_count)
+
+
+def phase_runtime(device, report, fails, small=False):
+    """Phase 14 on `device` (fp32 with TF32 off unless an arm is
+    mixed_bf16): (a) the long-context LM's training runtime, (b)
+    beam_search, (c) the line-search solvers, (d) early stopping,
+    transfer learning and the normalizer, (e) NCHW and a MultiDataSet
+    graph. `small` (the CPU rehearsal) shrinks the nets and data and
+    keeps the checks. Returns the port's kernel launches of the phase,
+    remat's recompute launches left out (reported apart)."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    c = RUNTIME_SMALL if small else RUNTIME
+    cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
+           if small else LM_LONG)
+    bc = BEAM_SMALL if small else BEAM
+    beam_cfg = dict(LM, n_layers=2, max_len=128) if small else LM
+    out = dict(config=dict(cfg, B=c["B"], T=cfg["max_len"] - 1,
+                           lr=LONG_LR))
+    t0 = time.perf_counter()
+    # torch.utils.checkpoint's first call loads its machinery (about 7 s
+    # on the card's machine): once here, outside the timed remat steps
+    x = torch.zeros(2, device=device, requires_grad=True)
+    torch.utils.checkpoint.checkpoint(lambda a: (a * 2).sum(), x,
+                                      use_reentrant=False).backward()
+    out["checkpoint_first_call_s"] = time.perf_counter() - t0
+    K.reset_launches()
+    params = random_lm_params(cfg, seed=140, head_scale=1.0)
+    out["lm"], remat = {}, {}
+    for policy in (None, MIXED):
+        tag = policy or "float32"
+        out["lm"][tag], rl = _lm_runtime_arm(device, fails, cfg, c, policy,
+                                             params, small)
+        remat[tag] = {k: v for k, v in rl.items() if v}
+    out["remat_launches"] = remat
+    lm_launches = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    if device.type == "cuda":
+        for k in RUNTIME_KERNELS:
+            fails.check(lm_launches[k] > 0, f"runtime: kernel {k} did not "
+                        f"launch on the long-context LM")
+    out["beam_lm"] = _beam_lm(device, fails, beam_cfg, bc)
+    out["beam_char_lm"] = _beam_char_lm(device, fails, bc)
+    out["solvers"] = _solver_arm(device, fails,
+                                 SOLVER_SMALL if small else SOLVER, small)
+    out["early_stopping"] = _es_arm(device, fails,
+                                    ES_SMALL if small else ES, small)
+    out["formats"] = _format_arm(device, fails, small)
+    _sync(device)
+    total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    out["launches"], out["lm_launches"] = total, lm_launches
+    out["seconds"] = time.perf_counter() - t0
+    report["runtime"] = out
+    _print_runtime(out)
+    return total
+
+
+def _print_runtime(out):
+    for tag, a in out["lm"].items():
+        rm = " ".join(f"{k} {v['ms_per_step']:.1f} ms {v['peak_gb']} GB"
+                      f"{'' if k == 'none' else ' bit-equal ' + str(v['bit_equal'])}"
+                      for k, v in a["remat"].items())
+        print(f"[runtime] (a) LM {tag} [{out['config']['B']}, "
+              f"{out['config']['T']}]: grads rerun differ at "
+              f"{a['grad_rerun_differs'][:4]}; ms/step in turns spe1 "
+              f"{a['spe1_ms_per_step'][0]:.1f}, spe4 "
+              f"{a['spe4_ms_per_step'][0]:.1f}, spe4 "
+              f"{a['spe4_ms_per_step'][1]:.1f}, spe1 "
+              f"{a['spe1_ms_per_step'][1]:.1f} (bit-equal "
+              f"{a['spe4_bit_equal']}); checkpoints "
+              f"{a['checkpoints']} write {a['checkpoint_write_s']:.3f} s "
+              f"{a['checkpoint_mb']:.1f} MB; resume {a['resume_s']:.3f} s "
+              f"at {a['resumed_at']} bit-equal {a['resume_bit_equal']}; "
+              f"fallback at {a['fallback_at']} bit-equal "
+              f"{a['fallback_bit_equal']}; remat: {rm}", flush=True)
+    b = out["beam_lm"]
+    print(f"[runtime] (b) beam LM {b['rows']}x{b['beams']} beams "
+          f"{b['tokens']} tokens: {b['ms_per_token_step']:.2f} ms a token "
+          f"step, {b['beam_tokens_per_s']:.0f} beam tokens/s, near-ties "
+          f"{b['near_ties']}", flush=True)
+    for k, v in out["beam_char_lm"].items():
+        print(f"[runtime] (b) char-LM beams {k}: ids equal {v['ids_equal']}"
+              f", max err {v['max_abs_err']:.2e}, {v['seconds']:.3f} s, "
+              f"eos beams {v['eos_hits']}, best {v['best']!r}", flush=True)
+    for k, v in out["solvers"].items():
+        print(f"[runtime] (c) {k}: iter-0 err {v['iter0_err']:.2e}, "
+              f"{v['ms_per_iteration']:.1f} ms/iteration, losses "
+              f"{[(round(s[0], 4), round(s[-1], 4)) for s in v['scores']]}",
+              flush=True)
+    e = out["early_stopping"]
+    print(f"[runtime] (d) early stopping: best epoch {e['best_epoch']} "
+          f"score {e['best_score']:.6f} (CPU {e['cpu_best_score']:.6f}), "
+          f"{e['total_epochs']} epochs ({e['reason']}), held-out accuracy "
+          f"{e['held_out_accuracy']:.4f}, {e['seconds']:.1f} s", flush=True)
+    f = out["formats"]
+    print(f"[runtime] (e) NCHW output err {f['nchw_output_err']:.2e}, loss "
+          f"err {f['nchw_loss_err']:.2e}; MultiDataSet graph param err "
+          f"{f['graph_param_err']:.2e}; remat launches "
+          f"{out['remat_launches']}; phase {out['seconds']:.1f} s",
+          flush=True)
+
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=12):
     rows = []
@@ -5553,6 +6222,74 @@ def profile_layers_rest(device):
     return out
 
 
+# ------------------------------------- --runtime-probe: phase 14's whys
+def runtime_probe(device, steps=8):
+    """Two questions behind phase 14's numbers, on the long-context LM
+    at [8, 2048]: (1) which leaves of one fp32 step's gradients differ
+    when the step runs twice from one state, with the port's
+    fixed-order embedding gradient and with `F.embedding`'s own; (2)
+    spe 1 against spe 4 in turns (1, 4, 4, 1), `steps` steps each under
+    torch.profiler, fp32 and mixed_bf16: wall and device ms a step and
+    the host-to-device copies' ms a step."""
+    import torch
+    import torch.nn.functional as F
+    from torch.profiler import ProfilerActivity, profile
+    from deeplearning4j_tpu_torch.nn.layers import feedforward as ff
+    cfg = LM_LONG
+    params = random_lm_params(cfg, seed=140, head_scale=1.0)
+    X, Y = lm_corpus(cfg, 8 * steps, seed=14)
+    out = {"determinism": {}, "spe": {}}
+    net = build_lm(cfg, device, params, lr=LONG_LR)
+    xs, ys = net._features(X[:8]), net._labels(Y[:8])
+
+    def grads():
+        _, g, _ = net._loss_and_grads(lambda st: net._loss_fn(
+            xs, ys, train=True, rng=net._step_key(0), new_state=st))
+        return {n: g[id(p)].clone() for n, p in net.named_parameters()}
+    fixed = ff._FixedOrderEmbedding.apply
+    for arm, apply in (("fixed_order", fixed),
+                       ("f_embedding", lambda idx, w: F.embedding(idx, w))):
+        ff._FixedOrderEmbedding.apply = apply
+        try:
+            a, b = grads(), grads()
+        finally:
+            ff._FixedOrderEmbedding.apply = fixed
+        out["determinism"][arm] = {
+            n: float((a[n] - b[n]).abs().max()) for n in a
+            if not torch.equal(a[n], b[n])}
+    del net
+    for policy in (None, MIXED):
+        rows = []
+        for spe in (1, 4, 4, 1):
+            net = build_lm(cfg, device, params, lr=LONG_LR,
+                           dtype_policy=policy)
+            net.fit(X[:8], Y[:8], batch_size=8, shuffle=False)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                net.fit(_runtime_iter(X, Y, 8), steps_per_execution=spe)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            dev = sum(e.device_time_total for e in prof.key_averages()
+                      if "CUDA" in str(e.device_type))
+            h2d = sum(e.device_time_total for e in prof.key_averages()
+                      if "HtoD" in e.key)
+            rows.append(dict(spe=spe, wall_ms=wall / steps * 1e3,
+                             device_ms=dev / steps / 1e3,
+                             h2d_ms=h2d / steps / 1e3))
+            del net
+        out["spe"][policy or "float32"] = rows
+    for arm, bad in out["determinism"].items():
+        print(f"[runtime-probe] gradients run twice, {arm}: leaves that "
+              f"differ {bad}", flush=True)
+    for tag, rows in out["spe"].items():
+        print(f"[runtime-probe] {tag} profiled, in turns: " + "; ".join(
+            f"spe {r['spe']} wall {r['wall_ms']:.1f} device "
+            f"{r['device_ms']:.1f} h2d {r['h2d_ms']:.2f} ms/step"
+            for r in rows), flush=True)
+    return out
+
+
 # ---------------------------------------- --warmup-trial: long-context lr
 def warmup_trial(device, steps=40, warmups=(5, 10, 20)):
     """The long-context LM's local arm (phase 6's params and windows) at
@@ -5755,11 +6492,15 @@ def run(device, *, small=False, kernels_only=False):
                     small)
         for k in launches:
             launches[k] += (l13 or {}).get(k, 0)
+        l14 = phase("runtime", phase_runtime, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l14 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
-                         ("11", l11), ("12", l12), ("13", l13)) if l}
+                         ("11", l11), ("12", l12), ("13", l13),
+                         ("14", l14)) if l}
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -5817,6 +6558,14 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_layers_rest(device, report, fails)
+        report["kernels"] = []
+    elif "--runtime-probe" in argv:
+        report, fails = {"runtime_probe": runtime_probe(device)}, Failures()
+        report["kernels"] = []
+    elif "--runtime" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_runtime(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

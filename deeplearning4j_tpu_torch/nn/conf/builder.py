@@ -104,7 +104,7 @@ def _diagnostics(spec):
         return dict(spec)
     raise NotImplementedError(
         f"diagnostics spec {spec!r}: only the serde dict is carried; "
-        f"monitor/diagnostics is not ported (ROADMAP Queue 1 item 10)")
+        f"monitor/diagnostics is not ported (ROADMAP Queue 1 item 5)")
 
 
 @dataclasses.dataclass

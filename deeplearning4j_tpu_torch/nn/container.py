@@ -47,6 +47,7 @@ no cache reads the state.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
@@ -55,6 +56,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    create_selective_checkpoint_contexts,
+)
 
 from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.common.updaters import Adam, Sgd
@@ -80,6 +85,27 @@ WEIGHT_NOISE_FOLD = 0x5EED   # a layer key's weight-noise fold (JAX's)
 # packed run (elementwise, or none): the JAX `scan_stack.SAFE_PACK_GN`
 SAFE_PACK_GN = (GradientNormalization.NONE,
                 GradientNormalization.CLIP_ELEMENTWISE_ABSOLUTE_VALUE)
+
+
+# the ops whose results `remat_policy="dots_saveable"` keeps: JAX's
+# `checkpoint_policies.dots_saveable` keeps the dot_general results
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+            torch.ops.aten.bmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOT_OPS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def effective_remat_policy(layer) -> Optional[str]:
+    """The policy the containers apply to `layer` in training (the JAX
+    `scan_stack.effective_remat_policy`): its `remat_policy` ("none" is
+    None), else "full" for the transformer block's legacy `remat`."""
+    policy = getattr(layer, "remat_policy", None)
+    if policy not in (None, "none"):
+        return policy
+    return "full" if getattr(layer, "remat", False) else None
 
 
 def layer_signature(layer):
@@ -142,6 +168,7 @@ class Container(nn.Module):
         self.listeners = []
         self.score_value = float("nan")
         self.params_version = 0
+        self._solver = None      # the fit's line-search Solver, if any
         # {key: {param name: updater state}}, keyed like the JAX net's
         # `updater_state` (Adam: {"m", "v"}; Sgd: {})
         self.updater_state: Dict[str, Dict[str, Dict[str, torch.Tensor]]] = {
@@ -233,14 +260,44 @@ class Container(nn.Module):
     def _call_layer(self, key, layer, h, *, train, rng, mask, new_state):
         """`layer` on h with its key `fold_in(rng, fold id)` and weight
         noise; a stateful layer in training leaves its next running
-        state in `new_state[key]`."""
+        state in `new_state[key]`. In training a layer's remat policy
+        applies (`_remat`)."""
         lrng = None if rng is None else prng.fold_in(rng, self.fold_ids[key])
         kw = {}
         if new_state is not None and (layer.state_map()
                                       or layer.emits_aux_loss):
             kw["new_state"] = new_state.setdefault(key, {})
+        policy = effective_remat_policy(layer) if train else None
+        if policy is not None and torch.is_grad_enabled():
+            return self._remat(layer, policy, h, lrng, mask, kw)
         with self._weight_noise(layer, train, lrng):
             return layer(h, train=train, rng=lrng, mask=mask, **kw)
+
+    def _remat(self, layer, policy, h, lrng, mask, kw):
+        """The training call of `layer` under `torch.utils.checkpoint`
+        (the JAX `scan_stack.layer_forward` :99-110). "full" keeps only
+        the layer's input and recomputes the whole layer in the backward;
+        "dots_saveable" keeps the results of the matmul ops (`aten.mm`,
+        `addmm`, `bmm`) and recomputes everything else, the flash forward
+        included. The recompute sees the tensors of the forward: the
+        layer's params as they are now (a mixed step's bf16 copies, which
+        `functional_call` installs only for the forward) are passed in,
+        the weight noise is redrawn inside and the step key rides the
+        closure, so the numbers are those of the call without remat."""
+        params = dict(layer.named_parameters())
+
+        def body(x):
+            with self._weight_noise(layer, True, lrng):
+                return torch.func.functional_call(
+                    layer, params, (x,), dict(train=True, rng=lrng,
+                                              mask=mask, **kw),
+                    strict=False)
+        extra = {}
+        if policy == "dots_saveable":
+            extra["context_fn"] = functools.partial(
+                create_selective_checkpoint_contexts, _save_dots)
+        return torch.utils.checkpoint.checkpoint(
+            body, h, use_reentrant=False, **extra)
 
     def _call_with_carry(self, key, layer, h, carry, *, train, rng, mask):
         """A recurrent `layer` on h from `carry` (its fresh carry in h's
@@ -364,23 +421,18 @@ class Container(nn.Module):
 
     def _refusals(self) -> List[str]:
         """The configured fields that act in training and are not ported
-        (`fit` and `score` would silently compute something else). Each
-        is inert at inference, so `output()` accepts them. The `pretrain`
-        flag is inert in `fit`, as in JAX: layerwise pretraining is the
-        `pretrain()` method."""
-        c, bad = self.conf, []
-        if c.optimization_algo != "sgd":
-            bad.append(f"optimization_algo {c.optimization_algo}")
-        if c.diagnostics is not None:
-            bad.append("diagnostics")
-        return bad
+        (`fit` and `score` would silently compute something else): the
+        diagnostics, which wait for `monitor/`. Inert at inference, so
+        `output()` accepts them. The `pretrain` flag is inert in `fit`,
+        as in JAX: layerwise pretraining is the `pretrain()` method."""
+        return ["diagnostics"] if self.conf.diagnostics is not None else []
 
     def _check_trainable(self):
         bad = self._refusals()
         if bad:
             raise NotImplementedError(
                 f"not ported yet for training: {', '.join(bad)} (ROADMAP "
-                f"Queue 1 items 4 and 5)")
+                f"Queue 1 item 5)")
 
     # ------------------------------------------------------------ updates
     def _candidate_runs(self) -> List[List[int]]:
@@ -532,23 +584,33 @@ class Container(nn.Module):
         `fold_in(PRNGKey(seed + 1), iteration)`."""
         return prng.fold_in(prng.key(self.conf.seed + 1), iteration)
 
-    def _fit_step(self, x, y, fmask=None, lmask=None):
+    def _train_step(self, x, y, fmask, lmask, iteration: int):
         """forward + loss + backward + gradient normalization + update +
-        constraints + running state on one minibatch (truncated BPTT
-        when configured and the features carry a time axis)."""
-        rng = self._step_key(self.iteration_count)
+        constraints + running state on one minibatch at training step
+        `iteration` (truncated BPTT when configured and the features
+        carry a time axis). Returns the loss, a tensor on the device
+        (a float under truncated BPTT); the counters are the caller's."""
+        rng = self._step_key(iteration)
         T = self._tbptt_time(x)
         if T is not None:
-            self.score_value = self._fit_tbptt(x, y, fmask, lmask, rng, T)
+            return self._fit_tbptt(x, y, fmask, lmask, rng, T, iteration)
+        loss, grads, new_state = self._loss_and_grads(
+            lambda st: self._loss_fn(x, y, fmask, lmask, train=True,
+                                     rng=rng, new_state=st))
+        self._apply_updates(iteration, self._normalize_gradients(grads))
+        self._commit_state(new_state)
+        return loss
+
+    def _fit_step(self, x, y, fmask=None, lmask=None):
+        """One training step at `iteration_count` (a line-search solver's
+        `optimize` of the minibatch when one is configured), its score
+        read back; the fit loop moves the count on after the step's
+        listener calls, as JAX's does."""
+        if self._solver is not None:
+            self.score_value = self._solver.optimize(x, y, fmask, lmask)
         else:
-            loss, grads, new_state = self._loss_and_grads(
-                lambda st: self._loss_fn(x, y, fmask, lmask, train=True,
-                                         rng=rng, new_state=st))
-            self._apply_updates(self.iteration_count,
-                                self._normalize_gradients(grads))
-            self._commit_state(new_state)
-            self.score_value = float(loss)
-        self.iteration_count += 1
+            self.score_value = float(self._train_step(
+                x, y, fmask, lmask, self.iteration_count))
 
     # ------------------------------------------------------ truncated BPTT
     def _is_tbptt(self) -> bool:
@@ -580,7 +642,8 @@ class Container(nn.Module):
                                         self.device)
                 for k in self._recurrent_keys()}
 
-    def _fit_tbptt(self, x, y, fmask, lmask, rng, T: int) -> float:
+    def _fit_tbptt(self, x, y, fmask, lmask, rng, T: int,
+                   iteration: int) -> float:
         """Truncated BPTT (the JAX `_fit_tbptt`, MultiLayerNetwork
         :838-876 and ComputationGraph :1024-1066): the time axis in
         chunks of `tbptt_fwd_length`, each chunk one step (its key
@@ -608,8 +671,7 @@ class Container(nn.Module):
                 lambda st: self._loss_fn(xc, yc, fm, lm, train=True,
                                          rng=crng, new_state=st,
                                          carries=stopped, carries_out=out))
-            self._apply_updates(self.iteration_count,
-                                self._normalize_gradients(grads),
+            self._apply_updates(iteration, self._normalize_gradients(grads),
                                 packed=False)
             self._commit_state(new_state)
             carries = {**carries, **out}
@@ -718,65 +780,191 @@ class Container(nn.Module):
                 p.requires_grad_(False)
                 p.grad = None
 
-    def _fit_iterator(self, iterator, epochs: int):
-        """The fit loop (the JAX `fit`): one step per minibatch, with its
-        features and label masks; `iteration_count` is the updater's
-        step and the step key's fold. Listeners get `on_fit_start`,
-        `on_epoch_start`, `iteration_done` after each step (with the
-        step's iteration, before the count moves on), `on_epoch_end` and
-        `on_fit_end`."""
-        if self._is_tbptt() and self.conf.optimization_algo != "sgd":
+    def _set_solver(self):
+        """`_solver`: the `Solver` of a line-search `optimization_algo`,
+        made at the first fit and kept, as JAX keeps it (None for sgd);
+        refused with truncated BPTT, as in JAX
+        (`nn/multilayer.py:701-708`)."""
+        algo = self.conf.optimization_algo
+        if algo == "sgd":
+            self._solver = None
+            return
+        if self._is_tbptt():
             raise ValueError(
                 "optimization_algo=%r cannot be combined with truncated "
                 "BPTT: the line-search solvers optimize the full-sequence "
                 "loss and would ignore tbptt_fwd_length. Use SGD, or "
-                "standard backprop_type." % self.conf.optimization_algo)
+                "standard backprop_type." % algo)
+        if self._solver is None or self._solver.algorithm.value != algo:
+            from deeplearning4j_tpu_torch.optimize.solvers import Solver
+            self._solver = Solver(self, algo,
+                                  max_iterations=self.conf.max_iterations,
+                                  device=self.device)
+
+    def _batch(self, ds, data_format):
+        """(x, y, {"fmask", "lmask"}) of a minibatch on the device, the
+        features and labels converted from `data_format`."""
+        raise NotImplementedError
+
+    def _fit_iterator(self, iterator, epochs: int,
+                      steps_per_execution: int = 1, data_format=None):
+        """The fit loop (the JAX `fit`): one step per minibatch, with its
+        features and label masks; `iteration_count` is the updater's
+        step and the step key's fold. Listeners get `on_fit_start`,
+        `on_epoch_start`, `iteration_done` after each step (with the
+        step's iteration; the count moves on after the call, as in JAX),
+        `on_epoch_end` and `on_fit_end`. An iterator with `reset()` is
+        reset at each epoch's start, as JAX does.
+
+        `steps_per_execution` k > 1 groups k unmasked minibatches of one
+        shape: the k steps run back to back with the numbers of per-step
+        fit, their losses stay on the device and are read back once
+        after the group (JAX reads the stacked losses of its fused scan
+        once), then the k `iteration_done` calls follow, each with its
+        iteration and score; only the last carries `step_boundary=True`
+        (the earlier ones see the group's final params, as in JAX). A
+        masked batch, a change of shape, the epoch's ragged tail, a
+        line-search solver and truncated BPTT go per step, where JAX
+        falls back too."""
+        self._set_solver()
+        spe = max(1, int(steps_per_execution))
+        grouped = spe > 1 and self._solver is None and not self._is_tbptt()
         listeners = ComposedListeners(self.listeners)
+
+        def one(item, etl_ms):
+            x, y, masks, n, raw = item
+            self._fit_step(x, y, **masks)
+            listeners.iteration_done(
+                self, self.iteration_count, self.epoch_count,
+                self.score_value, batch_size=n, etl_ms=etl_ms, batch=raw)
+            self.iteration_count += 1
+
+        def flush(pending, etl_ms):
+            if len(pending) == 1:
+                one(pending[0], etl_ms)
+            elif pending:
+                it0 = self.iteration_count
+                losses = torch.stack([
+                    torch.as_tensor(self._train_step(x, y, None, None,
+                                                     it0 + j)).float()
+                    for j, (x, y, _, _, _) in enumerate(pending)]).cpu()
+                for j, (_, _, _, n, raw) in enumerate(pending):
+                    self.score_value = float(losses[j])
+                    listeners.iteration_done(
+                        self, self.iteration_count, self.epoch_count,
+                        self.score_value, batch_size=n,
+                        etl_ms=etl_ms if j == 0 else 0.0, batch=raw,
+                        step_boundary=j == len(pending) - 1)
+                    self.iteration_count += 1
+            pending.clear()
+
         listeners.on_fit_start(self)
         for _ in range(int(epochs)):
             listeners.on_epoch_start(self, self.epoch_count)
-            batches = iter(iterator)
+            if hasattr(iterator, "reset"):
+                iterator.reset()
+            batches, pending = iter(iterator), []
             while True:
                 t0 = time.perf_counter()
                 ds = next(batches, None)
                 if ds is None:
                     break
                 etl_ms = (time.perf_counter() - t0) * 1e3
-                if ds.labels is None:
-                    raise ValueError("fit needs labels")
-                masks = {k: self._mask(m) for k, m in (
-                    ("fmask", ds.features_mask), ("lmask", ds.labels_mask))
-                    if m is not None}
-                self._fit_step(self._features(ds.features),
-                               self._labels(ds.labels), **masks)
-                listeners.iteration_done(
-                    self, self.iteration_count - 1, self.epoch_count,
-                    self.score_value,
-                    batch_size=int(np.shape(ds.features)[0]),
-                    etl_ms=etl_ms, batch=(ds.features, ds.labels,
-                                          ds.features_mask, ds.labels_mask))
+                x, y, masks = self._batch(ds, data_format)
+                item = (x, y, masks, ds.num_examples(),
+                        (ds.features, ds.labels,
+                         getattr(ds, "features_mask", None),
+                         getattr(ds, "labels_mask", None)))
+                if not grouped or masks:
+                    flush(pending, 0.0)
+                    one(item, etl_ms)
+                    continue
+                if pending and _shapes(pending[0][:2]) != _shapes(item[:2]):
+                    flush(pending, 0.0)
+                pending.append(item)
+                if len(pending) == spe:
+                    flush(pending, etl_ms)
+            flush(pending, 0.0)
             listeners.on_epoch_end(self, self.epoch_count)
             self.epoch_count += 1
         listeners.on_fit_end(self)
         return self
 
-    @staticmethod
-    def _check_steps_per_execution(steps_per_execution):
-        if int(steps_per_execution) != 1:
-            raise NotImplementedError(
-                "steps_per_execution > 1 (fused multi-step) is not ported")
+    # ------------------------------------------------- params and state
+    def set_param_table(self, table: Dict[str, object]):
+        """Write {"<key>_<param>": array} into the params in place (the
+        JAX `set_param_table`; a key splits at its first "_")."""
+        params = dict(self.keyed())
+        with torch.no_grad():
+            for name, arr in table.items():
+                lk, pk = name.split("_", 1)
+                p = params[lk].jax_param_map()[pk]
+                src = torch.as_tensor(np.asarray(arr) if not isinstance(
+                    arr, torch.Tensor) else arr)
+                if tuple(src.shape) != tuple(p.shape):
+                    raise ValueError(f"{name}: shape {tuple(src.shape)} "
+                                     f"where the param is {tuple(p.shape)}")
+                p.copy_(src.to(p.device, p.dtype))
+        self.params_changed()
+        return self
+
+    def copy(self):
+        """A clone with its own tensors (the JAX `copy`): the same
+        configuration, dtype policy and device, the params, running
+        state and updater state copied, the counters and score kept.
+        Updates happen in place here, so a clone that shared a tensor
+        would move the original when it trains."""
+        clone = type(self)(type(self.conf).from_dict(self.conf.to_dict()),
+                           device=self.device, dtype_policy=self.dtype)
+        with torch.no_grad():
+            for (_, a), (_, b) in zip(self.keyed(), clone.keyed()):
+                for name, t in a.jax_param_map().items():
+                    b.jax_param_map()[name].copy_(t)
+                for name, t in a.state_map().items():
+                    b.state_map()[name].copy_(t)
+        clone.updater_state = {
+            lk: {pk: {sk: t.detach().clone() for sk, t in st.items()}
+                 for pk, st in lst.items()}
+            for lk, lst in self.updater_state.items()}
+        clone.iteration_count = self.iteration_count
+        clone.epoch_count = self.epoch_count
+        clone.score_value = self.score_value
+        clone.params_changed()
+        return clone
+
+    @classmethod
+    def resume(cls, directory, *, device="cuda", iterator=None):
+        """The net of the newest valid full-state checkpoint under
+        `directory` (`fault.resume`): params, updater state, running
+        state and counters restored under the recorded dtype policy, so
+        a follow-up `fit()` continues the interrupted run bit for bit
+        (the step key derives from the restored iteration count). A
+        corrupt newer checkpoint falls back to an older one with a
+        logged warning. `iterator` is moved to the stored cursor."""
+        from deeplearning4j_tpu_torch import fault
+        model, _ = fault.resume(directory, device=device, iterator=iterator)
+        if not isinstance(model, cls):
+            raise TypeError(
+                f"checkpoint under {directory} holds a "
+                f"{type(model).__name__}; use that container's resume()")
+        return model
 
     # --------------------------------------------------------- evaluation
-    def _eval_output(self, features, features_mask):
+    def _eval_output(self, features, features_mask, data_format=None):
         raise NotImplementedError
 
-    def _evaluate_with(self, evaluator, iterator):
+    def _evaluate_with(self, evaluator, iterator, data_format=None):
         """Accumulate `evaluator.eval(labels, output, mask=labels mask)`
         over the iterator (the JAX `_evaluate_with`): the output with the
-        features mask, batches of 128 from arrays."""
+        features mask (features from `data_format`), batches of 128 from
+        arrays."""
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
-        for ds in as_iterator(iterator, batch_size=128):
-            out = self._eval_output(ds.features, ds.features_mask)
+        iterator = as_iterator(iterator, batch_size=128)
+        if hasattr(iterator, "reset"):
+            iterator.reset()
+        for ds in iterator:
+            out = self._eval_output(ds.features, ds.features_mask,
+                                    data_format)
             kw = {}
             meta = getattr(ds, "example_metadata", None)
             if meta is not None and isinstance(evaluator, Evaluation):
@@ -785,29 +973,71 @@ class Container(nn.Module):
                            mask=ds.labels_mask, **kw)
         return evaluator
 
-    def evaluate(self, iterator, labels_list=None, top_n: int = 1):
+    def evaluate(self, iterator, labels_list=None, top_n: int = 1, *,
+                 data_format=None):
         """Classification metrics (the JAX `evaluate`)."""
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
         return self._evaluate_with(
-            Evaluation(labels_names=labels_list, top_n=top_n), iterator)
+            Evaluation(labels_names=labels_list, top_n=top_n), iterator,
+            data_format)
 
-    def evaluate_roc(self, iterator, threshold_steps: int = 0):
+    def evaluate_roc(self, iterator, threshold_steps: int = 0, *,
+                     data_format=None):
         """Binary ROC over the iterator (the JAX `evaluate_roc`)."""
         from deeplearning4j_tpu_torch.eval.roc import ROC
         return self._evaluate_with(ROC(threshold_steps=threshold_steps),
-                                   iterator)
+                                   iterator, data_format)
 
-    def evaluate_roc_multi_class(self, iterator, threshold_steps: int = 0):
+    def evaluate_roc_multi_class(self, iterator, threshold_steps: int = 0,
+                                 *, data_format=None):
         """One-vs-all ROC per class (the JAX
         `evaluate_roc_multi_class`)."""
         from deeplearning4j_tpu_torch.eval.roc import ROCMultiClass
         return self._evaluate_with(
-            ROCMultiClass(threshold_steps=threshold_steps), iterator)
+            ROCMultiClass(threshold_steps=threshold_steps), iterator,
+            data_format)
 
-    def evaluate_regression(self, iterator):
+    def evaluate_regression(self, iterator, *, data_format=None):
         from deeplearning4j_tpu_torch.eval.regression import (
             RegressionEvaluation)
-        return self._evaluate_with(RegressionEvaluation(), iterator)
+        return self._evaluate_with(RegressionEvaluation(), iterator,
+                                   data_format)
+
+
+def convert_features(x, data_format):
+    """Features from `data_format` into the native layout (the JAX
+    `_convert_features`): NCHW -> NHWC, NCW/NFT [B, F, T] -> [B, T, F];
+    None and "native" pass. Arrays stay arrays, tensors tensors."""
+    if data_format in (None, "native"):
+        return x
+    fmt = data_format.upper()
+    if fmt == "NCHW":
+        perm = (0, 2, 3, 1)
+    elif fmt in ("NCW", "NFT"):
+        perm = (0, 2, 1)
+    else:
+        raise ValueError(f"Unknown data_format {data_format}")
+    if isinstance(x, torch.Tensor):
+        return x.permute(*perm)
+    return np.transpose(np.asarray(x), perm)
+
+
+def convert_labels(y, data_format):
+    """Labels from `data_format` (the JAX `_convert_labels`): rank-3
+    NCW/NFT labels become [B, T, F]; everything else passes."""
+    if y is None or data_format in (None, "native"):
+        return y
+    if data_format.upper() in ("NCW", "NFT") and np.ndim(y) == 3:
+        return (y.permute(0, 2, 1) if isinstance(y, torch.Tensor)
+                else np.transpose(np.asarray(y), (0, 2, 1)))
+    return y
+
+
+def _shapes(tensors):
+    """The shapes of a minibatch's features and labels (each a tensor or
+    a list of them)."""
+    return [tuple(t.shape) for part in tensors
+            for t in (part if isinstance(part, (list, tuple)) else [part])]
 
 
 def _detach(tree):

@@ -33,10 +33,14 @@ kept across calls (:1094-1150).
 Layerwise pretraining (`pretrain`, `nn/container.py`) walks only the
 ancestors of each pretrained node (the JAX `pretrain` :1167-1252).
 
-Not ported, and refused by name: `steps_per_execution > 1`, the
-line-search solvers, diagnostics, `gradient_sharing` other than
-"dense" (in `fit` and `score`), and sequence parallelism inside a graph
-(when it is built).
+`fit` takes a `MultiDataSet` (or an iterator of them) for several
+inputs and outputs (the JAX `fit` :844-1017), groups minibatches under
+`steps_per_execution`, and runs the line-search solvers; `resume`,
+`copy` and `set_param_table` are the container's.
+
+Not ported, and refused by name: diagnostics, `gradient_sharing` other
+than "dense" (in `fit` and `score`), and sequence parallelism inside a
+graph (when it is built).
 """
 
 from __future__ import annotations
@@ -48,6 +52,10 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.datasets.iterator import as_iterator
+from deeplearning4j_tpu_torch.datasets.multidataset import (
+    MultiDataSet,
+    MultiDataSetIterator,
+)
 from deeplearning4j_tpu_torch.nd.dtype import as_policy
 from deeplearning4j_tpu_torch.nn.conf.builder import (
     CONFIG_FORMAT_VERSION,
@@ -502,14 +510,42 @@ class ComputationGraph(Container):
         return [Container._labels(self, a) for a in ys]
 
     # -------------------------------------------------------- entry points
+    def _batch(self, ds, data_format=None):
+        """A `DataSet` (one input, one output) or a `MultiDataSet` as the
+        step's lists of tensors; the masks (lists) only where one is
+        set."""
+        if isinstance(ds, MultiDataSet):
+            xs, ys = list(ds.features), list(ds.labels)
+            fms = list(ds.features_masks or [None] * len(xs))
+            lms = list(ds.labels_masks or [None] * len(ys))
+        else:
+            if ds.labels is None:
+                raise ValueError("fit needs labels")
+            xs, ys = [ds.features], [ds.labels]
+            fms, lms = [ds.features_mask], [ds.labels_mask]
+        masks = {}
+        if any(m is not None for m in fms):
+            masks["fmask"] = [self._mask(m) for m in fms]
+        if any(m is not None for m in lms):
+            masks["lmask"] = [self._mask(m) for m in lms]
+        return self._features(xs), self._labels(ys), masks
+
     def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
             steps_per_execution: int = 1):
         """Train (the JAX `fit`): `data` is an iterator of `DataSet`s, a
-        `DataSet` (or a list of them), or a feature array with `labels`,
-        in order (JAX's graph does not shuffle)."""
-        self._check_steps_per_execution(steps_per_execution)
-        return self._fit_iterator(
-            as_iterator(data, labels, batch_size=batch_size), epochs)
+        `DataSet` (or a list of them), a `MultiDataSet` (one batch), an
+        iterator or list of `MultiDataSet`s, or a feature array with
+        `labels`, in order (JAX's graph does not shuffle).
+        `steps_per_execution` groups minibatches (`nn/container.py`
+        `_fit_iterator`)."""
+        if isinstance(data, MultiDataSet):
+            data = MultiDataSetIterator([data])
+        elif (isinstance(data, (list, tuple)) and data
+              and isinstance(data[0], MultiDataSet)):
+            data = MultiDataSetIterator(list(data))
+        if not isinstance(data, MultiDataSetIterator):
+            data = as_iterator(data, labels, batch_size=batch_size)
+        return self._fit_iterator(data, epochs, steps_per_execution)
 
     @torch.no_grad()
     def output(self, *inputs, masks=None):
@@ -545,7 +581,7 @@ class ComputationGraph(Container):
         return float(self._policy_call(lambda: self._loss_fn(xs, ys),
                                        output_params=True))
 
-    def _eval_output(self, features, features_mask):
+    def _eval_output(self, features, features_mask, data_format=None):
         return self.output(features, masks=None if features_mask is None
                            else [features_mask])
 

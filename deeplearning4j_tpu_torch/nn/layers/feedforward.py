@@ -165,8 +165,10 @@ class EmbeddingLayer(_WeightAndBias):
     """Index -> vector lookup with a bias `b` (the JAX layer's). Ids stay
     integer end to end (a float round trip collapses ids above 2^24);
     `fit` converts float-carried ids on the host. The lookup is
-    `F.embedding`, whose gradient into W on CUDA sums by sorted index
-    (deterministic) rather than with atomics. Without
+    `F.embedding`; an fp32 W on the card takes `_FixedOrderEmbedding`,
+    whose gradient sums each row's contributions in one fixed order
+    (`F.embedding`'s own fp32 gradient there differs from run to run in
+    the last bits, which breaks a bit-exact resume). Without
     `time_series_input` (set by the builder from a recurrent input
     type) a [B, 1] column of ids is a batch of single ids, as in JAX."""
 
@@ -208,10 +210,40 @@ class EmbeddingLayer(_WeightAndBias):
         if isinstance(W, quant.QuantizedTensor):
             # gather the int8 rows, then scale (exact per column)
             z = W.q[idx].to(W.scale.dtype) * W.scale[0]
+        elif W.is_cuda and W.dtype == torch.float32:
+            z = _FixedOrderEmbedding.apply(idx, W)
         else:
             z = F.embedding(idx, W)
         return self.activation(z + quant.weight(self, "b") if self.has_bias
                                else z)
+
+
+class _FixedOrderEmbedding(torch.autograd.Function):
+    """`F.embedding(idx, W)` whose gradient into W is
+    ``index_put_(accumulate=True)`` under deterministic algorithms (a
+    stable sort by row, then each row summed in that order), so two runs
+    of a step give the same bits."""
+
+    @staticmethod
+    def forward(ctx, idx, W):
+        ctx.save_for_backward(idx)
+        ctx.rows = W.shape[0]
+        return F.embedding(idx, W)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        d = grad.shape[-1]
+        gw = torch.zeros((ctx.rows, d), dtype=grad.dtype, device=grad.device)
+        on = torch.are_deterministic_algorithms_enabled()
+        warn = torch.is_deterministic_algorithms_warn_only_enabled()
+        torch.use_deterministic_algorithms(True)
+        try:
+            gw.index_put_((idx.reshape(-1),), grad.reshape(-1, d),
+                          accumulate=True)
+        finally:
+            torch.use_deterministic_algorithms(on, warn_only=warn)
+        return None, gw
 
 
 @register_layer

@@ -106,8 +106,9 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
     JAX block does. `bias_init` leaves the block's biases at zero, as in
     JAX, whose block fills none of them with it. `dropout` drops the
     attention's and the FFN's outputs and `attention_dropout` the
-    softmax weights, while training; `remat` is carried (it changes
-    memory, not numbers)."""
+    softmax weights, while training; `remat` (the legacy flag) means
+    `remat_policy="full"` to the containers' training call (memory
+    changes, numbers do not)."""
 
     layer_name = "transformer_encoder"
     FIELDS = (("n_in", 0), ("n_heads", 8), ("ff_multiplier", 4),

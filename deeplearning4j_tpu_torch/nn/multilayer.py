@@ -47,9 +47,13 @@ layer with a `pretrain_loss` on the features of the layers before it
 (the JAX `pretrain` :1075-1114); the configuration's `pretrain` flag is
 inert in `fit`, as in JAX.
 
-Not ported yet, and refused rather than ignored: steps_per_execution >
-1, `data_format`, and, in `fit` and `score` (`_check_trainable`), a
-line-search `optimization_algo` and diagnostics.
+The training runtime (`nn/container.py`): `steps_per_execution`
+groups, `data_format` (NCHW, NCW/NFT) on `fit`, `output`,
+`feed_forward`, `evaluate*` and `rnn_time_step`, the line-search
+`optimization_algo`s (`optimize/solvers.py`), each layer's
+`remat_policy`, `copy`, `set_param_table` and `resume` (`fault/`).
+Diagnostics are refused in `fit` and `score` (`_check_trainable`): they
+wait for `monitor/`.
 """
 
 from __future__ import annotations
@@ -63,6 +67,8 @@ from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.container import (
     MIN_RUN,
     Container,
+    convert_features,
+    convert_labels,
     layer_signature,
 )
 from deeplearning4j_tpu_torch.nn.layers.feedforward import (
@@ -138,34 +144,39 @@ class MultiLayerNetwork(Container):
         serving. Returns (h, new_carries)."""
         return self._forward(x, carries)[:2]
 
-    def _inputs(self, x):
+    def _inputs(self, x, data_format=None):
+        x = convert_features(x, data_format)
         return (x.to(self.device) if isinstance(x, torch.Tensor)
                 else self._features(x))
 
     @torch.no_grad()
-    def output(self, x, mask=None):
+    def output(self, x, mask=None, *, data_format=None):
         """Forward pass to the final activation (the JAX `output`):
         token ids [B, T] -> [B, T, V] softmax for the LM, in the output
         dtype (fp32); `mask` [B, T] is the padding mask (1 where real).
         Arrays take `fit`'s feature path (float-carried ids are checked
-        and made int64); tensors pass as they are."""
-        x, mask = self._inputs(x), self._mask(mask)
+        and made int64); tensors pass as they are. `data_format` names
+        the features' layout (NCHW, NCW/NFT; None is native)."""
+        x, mask = self._inputs(x, data_format), self._mask(mask)
         return self.dtype.cast_output(
             self._policy_call(lambda: self._forward(x, mask=mask)[0]))
 
     @torch.no_grad()
-    def feed_forward(self, x, mask=None) -> List[torch.Tensor]:
+    def feed_forward(self, x, mask=None, *,
+                     data_format=None) -> List[torch.Tensor]:
         """Every layer's activation, in layer order (the JAX
         `feed_forward`: no dropout, in the compute dtype)."""
-        x, mask, acts = self._inputs(x), self._mask(mask), []
+        x, mask, acts = (self._inputs(x, data_format), self._mask(mask),
+                         [])
         self._policy_call(lambda: self._forward(x, mask=mask, collect=acts))
         return acts
 
     def _output_positions(self):
         return [len(self.layers) - 1]
 
-    def _eval_output(self, features, features_mask):
-        return self.output(features, mask=features_mask)
+    def _eval_output(self, features, features_mask, data_format=None):
+        return self.output(features, mask=features_mask,
+                           data_format=data_format)
 
     # --------------------------------------------------------------- loss
     def _loss_fn(self, x, y, fmask=None, lmask=None, *, train=False,
@@ -231,14 +242,14 @@ class MultiLayerNetwork(Container):
                 (lmask[:, s:s + L] if lmask.ndim >= 2 else lmask))
 
     # ------------------------------------------------------ rnn streaming
-    def rnn_time_step(self, x):
+    def rnn_time_step(self, x, *, data_format=None):
         """Streaming inference carrying every recurrent layer's state
         across calls (the JAX `rnn_time_step`): [B, F] is one step (the
         output loses its time axis), [B, T, F] a chunk; with an
         embedding over a recurrent input the features are [B, T] token
         ids. Returns the last layer's activation in the compute dtype.
         `rnn_clear_previous_state()` starts a new sequence."""
-        x = self._inputs(x)
+        x = self._inputs(x, data_format)
         ids_input = bool(getattr(self.layers[0], "time_series_input",
                                  False))
         squeeze = x.ndim == 2 and not ids_input
@@ -267,6 +278,16 @@ class MultiLayerNetwork(Container):
     def _features(self, x) -> torch.Tensor:
         return self._features_for(x, self.layers[0])
 
+    def _batch(self, ds, data_format):
+        if ds.labels is None:
+            raise ValueError("fit needs labels")
+        masks = {k: self._mask(m) for k, m in (
+            ("fmask", ds.features_mask),
+            ("lmask", convert_labels(ds.labels_mask, data_format)))
+            if m is not None}
+        return (self._features(convert_features(ds.features, data_format)),
+                self._labels(convert_labels(ds.labels, data_format)), masks)
+
     def fit(self, data, labels=None, *, epochs: int = 1, batch_size: int = 32,
             data_format=None, shuffle: bool = True,
             steps_per_execution: int = 1):
@@ -274,14 +295,14 @@ class MultiLayerNetwork(Container):
         `DataSet` (or a list of them), or a feature array with `labels`,
         shuffled each epoch by JAX's stream. Under `backprop_type`
         tbptt each [B, T, F] minibatch is one iteration of truncated-BPTT
-        chunks."""
-        self._check_steps_per_execution(steps_per_execution)
-        if data_format not in (None, "native"):
-            raise NotImplementedError(f"data_format {data_format!r} is not "
-                                      f"ported")
+        chunks; under a line-search `optimization_algo` each minibatch
+        is one `Solver.optimize`. `data_format` names the features'
+        layout (NCHW; NCW/NFT, labels too); `steps_per_execution` groups
+        minibatches (`nn/container.py` `_fit_iterator`)."""
         return self._fit_iterator(
             as_iterator(data, labels, batch_size=batch_size,
-                        shuffle=shuffle), epochs)
+                        shuffle=shuffle), epochs, steps_per_execution,
+            data_format)
 
     @torch.no_grad()
     def score(self, dataset=None) -> float:

@@ -20,8 +20,11 @@ containers. Arrays are written as `np.savez` stores them: fp32, C
 order, in the JAX layout (a convolution's W as HWIO), from the fp32
 master copy under a mixed policy.
 
-Normalizers in the zip (`add_normalizer_to_model` :202) wait for
-`datasets/normalizers` (ROADMAP Queue 1 item 10).
+A fitted normalizer (`datasets/normalizers`) travels inside the zip as
+the JAX package writes it (`add_normalizer_to_model` /
+`restore_normalizer_from_file` :195-220): `normalizer-meta.json` (its
+`state()` meta) and `normalizer.npz` (its arrays), appended to a written
+model zip.
 """
 
 from __future__ import annotations
@@ -222,6 +225,35 @@ class ModelSerializer:
         model.iteration_count = meta.get("iteration_count", 0)
         model.epoch_count = meta.get("epoch_count", 0)
         return model.to(dev)
+
+
+    # ------------------------------------------------------ normalizers
+    @staticmethod
+    def add_normalizer_to_model(path: Union[str, Path], normalizer):
+        """Append `normalizer`'s statistics to the model zip at `path`
+        (refused when it holds one already: write the model again to
+        replace it)."""
+        meta, arrays = normalizer.state()
+        with zipfile.ZipFile(path, "a", zipfile.ZIP_DEFLATED) as zf:
+            if "normalizer-meta.json" in zf.namelist():
+                raise ValueError(
+                    f"{path} already contains a normalizer; write the "
+                    f"model again to replace it")
+            zf.writestr("normalizer-meta.json", json.dumps(meta))
+            _save_npz(zf, "normalizer.npz",
+                      {k: np.asarray(v) for k, v in arrays.items()})
+
+    @staticmethod
+    def restore_normalizer_from_file(path: Union[str, Path]):
+        """The normalizer stored in the model zip at `path`, or None."""
+        from deeplearning4j_tpu_torch.datasets.normalizers import (
+            normalizer_from_meta)
+        with zipfile.ZipFile(path, "r") as zf:
+            if "normalizer-meta.json" not in zf.namelist():
+                return None
+            meta = json.loads(zf.read("normalizer-meta.json"))
+            arrays = _load_npz(zf, "normalizer.npz")
+        return normalizer_from_meta(meta, arrays)
 
 
 def _exact_pairs(tree: dict, flat: dict, section: str, path):

@@ -3,7 +3,7 @@
 `TransformerClassifier` :31, `TransformerLM` :76,
 `filter_logits` :133, `get_prefill` :157, `get_prefill_bucketed` :178,
 `paged_score_forward` :207, `rejection_sample_drafts` :252, `generate`
-:336).
+:336, `beam_search` :442-566).
 
 Sampling draws JAX's noise from JAX's keys (`common/prng.py`): a
 sampled token is `jax.random.categorical`'s ``argmax(filtered_logits +
@@ -122,8 +122,9 @@ class TransformerLM:
     `sequence_parallel="ring"|"ulysses"` goes to every block: inside
     `parallel.sequence_sharding(mesh)`, `fit` and `output()` run their
     attention sequence-parallel over the mesh. `remat` and
-    `remat_policy` are carried in the configuration (they change memory,
-    not numbers; the port does not rematerialize)."""
+    `remat_policy` go to every block: `fit` recomputes the blocks in the
+    backward as the policy says (`nn/container.py` `_remat`; memory
+    changes, numbers do not)."""
 
     def __init__(self, vocab_size: int, *, d_model: int = 128,
                  n_layers: int = 2, n_heads: int = 8, ff_multiplier: int = 4,
@@ -395,6 +396,123 @@ def generate(net: MultiLayerNetwork, prompt_ids, n_tokens: int, *,
             if t + 1 < n_tokens:
                 probs, carries = prefill(nxt[:, None], carries)
     return torch.stack(out, dim=1).cpu().numpy()
+
+
+# ------------------------------------------------------------ beam search
+def _token_input(net: MultiLayerNetwork, ids: torch.Tensor) -> torch.Tensor:
+    """The net's input for token ids [N, T]: the ids for an embedding,
+    else their one-hot rows over the first layer's `n_in` (a char-RNN
+    such as TextGenerationLSTM takes one-hot features)."""
+    if isinstance(net.layers[0], EmbeddingLayer):
+        return ids
+    return torch.nn.functional.one_hot(
+        ids, int(net.layers[0].n_in)).to(net.dtype.param_dtype)
+
+
+def _regather(tree, rows: torch.Tensor):
+    """Every tensor of a carries tree indexed by `rows` along its batch
+    axis (ints, such as a cache position, pass)."""
+    if isinstance(tree, torch.Tensor):
+        return tree.index_select(0, rows)
+    if isinstance(tree, dict):
+        return {k: _regather(v, rows) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_regather(v, rows) for v in tree)
+    return tree
+
+
+def _top_k_stable(x: torch.Tensor, k: int):
+    """`lax.top_k` along the last axis: the k largest, ties to the lower
+    index (a stable descending sort; `torch.topk` on the card promises
+    no order among ties)."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+@torch.no_grad()
+def beam_search(net: MultiLayerNetwork, prompt_ids, n_tokens: int, *,
+                beam_width: int = 4, eos_id: Optional[int] = None,
+                length_penalty: float = 0.0, device="cuda"):
+    """Beam-search decoding over the cached decode of `generate` (the
+    JAX `beam_search`): the beams ride the batch axis (B * beam_width
+    rows of KV caches, or of recurrent carries for a char-RNN), and each
+    step gathers every cache row by its surviving beam. Only beam 0 is
+    live at step 0 (the others start at -inf); a step scores
+    ``log(clip(p, 1e-9))`` and keeps the `beam_width` best of all beams'
+    extensions (ties to the lower flat index, as `lax.top_k`). With
+    `eos_id` a finished beam extends with eos at no cost.
+    `length_penalty` re-ranks the final beams on the host by score /
+    ((5 + len) / 6)^alpha (GNMT; len counts tokens up to and with eos);
+    the returned scores stay the raw sums. `prompt_ids` [B, T] ->
+    (ids [B, beam_width, n_tokens], log-probs [B, beam_width]), numpy,
+    best first. `device` is where the search runs; the net must live
+    there (the default is the card)."""
+    from deeplearning4j_tpu_torch.device import resolve_device
+    prompt_np = np.asarray(prompt_ids).astype(np.int64)
+    if prompt_np.ndim != 2 or prompt_np.shape[1] == 0:
+        raise ValueError(f"prompt_ids must be [B, T>0]; got "
+                         f"{prompt_np.shape}")
+    B, Tp = prompt_np.shape
+    W, n = int(beam_width), int(n_tokens)
+    if resolve_device(device) != net.device:
+        raise ValueError(f"the net lives on {net.device}; a beam search "
+                         f"on {device} cannot run it")
+    check_cache_budget(net, Tp, n)
+    if W < 1:
+        raise ValueError(f"beam_width must be >= 1; got {beam_width}")
+    V = int(net.layers[-1].n_out)
+    if eos_id is not None and not 0 <= int(eos_id) < V:
+        raise ValueError(f"eos_id must be in [0, vocab={V}); got {eos_id}")
+    check_ids(prompt_np, V)
+    dev = net.device
+
+    def step_logp(ids, carries):
+        h, carries = net._forward_core(_token_input(net, ids),
+                                       carries=carries)
+        p = net.dtype.cast_output(h[:, -1]).float()
+        return torch.log(p.clamp_min(1e-9)), carries
+
+    with quant.serving(net, None):
+        logp0, carries = step_logp(torch.as_tensor(prompt_np, device=dev),
+                                   net.init_carries(B))
+        rep = torch.arange(B, device=dev).repeat_interleave(W)
+        carries = _regather(carries, rep)
+        logp = logp0[:, None, :].expand(B, W, V)
+        scores = torch.full((B, W), float("-inf"), device=dev)
+        scores[:, 0] = 0.0
+        seqs = torch.zeros((B, W, n), dtype=torch.int64, device=dev)
+        fin = torch.zeros((B, W), dtype=torch.bool, device=dev)
+        only_eos = None
+        if eos_id is not None:
+            only_eos = torch.full((V,), float("-inf"), device=dev)
+            only_eos[int(eos_id)] = 0.0
+        base = (torch.arange(B, device=dev) * W)[:, None]
+        for t in range(n):
+            cand = scores[..., None] + logp                  # [B, W, V]
+            if only_eos is not None:
+                cand = torch.where(fin[..., None],
+                                   scores[..., None] + only_eos, cand)
+            scores, top_i = _top_k_stable(cand.reshape(B, W * V), W)
+            beam_idx, token = top_i // V, top_i % V
+            seqs = torch.gather(seqs, 1, beam_idx[..., None].expand(B, W, n))
+            seqs[:, :, t] = token
+            fin = torch.gather(fin, 1, beam_idx)
+            if only_eos is not None:
+                fin = fin | (token == int(eos_id))
+            if t + 1 < n:
+                carries = _regather(carries, (base + beam_idx).reshape(-1))
+                lp, carries = step_logp(token.reshape(B * W, 1), carries)
+                logp = lp.reshape(B, W, V)
+    seqs, scores = seqs.cpu().numpy(), scores.cpu().numpy()
+    if eos_id is not None:
+        hits = np.cumsum(seqs == eos_id, axis=2) > 0
+        lengths = np.where(hits.any(2), hits.argmax(2) + 1, n)
+    else:
+        lengths = np.full(scores.shape, n)
+    norm = ((5.0 + lengths.astype(np.float64)) / 6.0) ** length_penalty
+    order = np.argsort(-scores / norm, axis=1, kind="stable")
+    return (np.take_along_axis(seqs, order[..., None], axis=1),
+            np.take_along_axis(scores, order, axis=1))
 
 
 # ------------------------------------------------------ parity by margin

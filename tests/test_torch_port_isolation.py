@@ -51,7 +51,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "nn.layers.recurrent", "zoo.textgenlstm",
                 "nn.layers.training", "zoo.lenet", "zoo.simplecnn",
                 "zoo.alexnet", "zoo.vgg", "zoo.googlenet",
-                "zoo.inceptionresnet", "zoo.facenet"):
+                "zoo.inceptionresnet", "zoo.facenet",
+                "datasets.multidataset", "datasets.normalizers",
+                "optimize.solvers", "fault.checkpointer", "fault.listener",
+                "fault.resume", "fault.drill", "earlystopping.conditions",
+                "earlystopping.config", "earlystopping.savers",
+                "earlystopping.scorecalc", "earlystopping.trainer",
+                "transferlearning.transfer"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 

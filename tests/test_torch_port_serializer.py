@@ -484,8 +484,9 @@ def _refuse(net, field):
 # to JAX's `fit` below; and those `fit` still refuses
 PORTED = ["dropout", "idropout", "attention_dropout", "weight_noise",
           "constraints", "l1", "l2", "l1_bias", "l2_bias", "max_norm",
-          "gradient_normalization", "backprop_type", "pretrain"]
-REFUSED = ["optimization_algo", "diagnostics"]
+          "gradient_normalization", "backprop_type", "pretrain",
+          "optimization_algo"]
+REFUSED = ["diagnostics"]
 
 
 @pytest.mark.parametrize("field", PORTED + REFUSED)

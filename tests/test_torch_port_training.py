@@ -263,11 +263,23 @@ def test_sgd_layers_update_per_leaf():
 
 
 def test_fit_refuses_what_is_not_ported():
-    net = port_lm(to_numpy_params(jax_lm().params))
+    """`steps_per_execution` and `data_format` train now, as JAX's `fit`
+    does: two steps in one group against JAX's fused fit, then a
+    data_format JAX names (native, and NCW on [B, T] ids, which JAX
+    refuses as the port does)."""
+    jnet = jax_lm()
+    net = port_lm(to_numpy_params(jnet.params))
     x, y = corpus(7, n=4)
-    with pytest.raises(NotImplementedError):
-        net.fit(x, y, steps_per_execution=2)
-    with pytest.raises(NotImplementedError):
+    net.fit(x, y, batch_size=2, shuffle=False, steps_per_execution=2)
+    jnet.fit(x, y, batch_size=2, shuffle=False, steps_per_execution=2)
+    assert net.iteration_count == jnet.iteration_count == 2
+    np.testing.assert_allclose(net.score_value, jnet.score_value,
+                               rtol=LOSS_RTOL)
+    assert_params_close(jnet.params, net, 2)
+    net.fit(ArrayDataSetIterator(x, y), data_format="native")
+    with pytest.raises(ValueError):
+        jnet.fit(JaxIterator(x, y), data_format="NCW")
+    with pytest.raises(ValueError):
         net.fit(ArrayDataSetIterator(x, y), data_format="NCW")
     net.layers[0].l2 = 1e-4              # l2 trains now (its parity with
     net.fit(x, y)                        # JAX: test_torch_port_regularization)
