@@ -17,6 +17,9 @@
     python3 chip_smoke.py --runtime       # build + phase 14 alone
     python3 chip_smoke.py --runtime-probe # phase 14's determinism probe
                                           # and profiled spe 1 / spe 4
+    python3 chip_smoke.py --telemetry     # build + phase 15 alone
+    python3 chip_smoke.py --telemetry-probe  # phase 15's host-time
+                                          # breakdown of a diagnostics step
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -299,8 +302,38 @@ Phases, in order:
      the same output; (e) NCHW `data_format` on LeNet and a two-input,
      two-output graph fit over MultiDataSets, card vs CPU. It prints
      `[runtime]` lines;
+ 15. training telemetry and the rest of the data plane
+     (`phase_telemetry`, fp32 with TF32 off and mixed_bf16): (a) the
+     long-context LM at [8, 2047] (phase 14's config, Adam(LONG_LR)), 6
+     steps with diagnostics off and 6 under the `skip` watchdog with
+     activation statistics at report_frequency 1: params and Adam's m
+     and v bit-equal; the card's `_last_diagnostics` keys those of the
+     CPU port's same net; one more step's statistics within DIAG_RTOL of
+     the same statistics recomputed in float64 from that step's own
+     params, gradients and activations; (b) Adam's rate inf at
+     iteration 3 (a MapSchedule): `warn` bit-equal to the off run, NaN
+     positions included; `skip` leaves p, m and v bit-equal to step 2's,
+     counts one skip and one non-finite step, ends finite, and its 6
+     losses at [1, 127] are held card vs CPU (fp32: TRAIN_LOSS_RTOL);
+     `halt` raises NonFiniteGradientsError at iteration 3 naming layers;
+     (c) with monitoring on (fp32) the diagnostics' d2h copies: 3 at
+     report_frequency 2 over 6 steps, 2 for steps_per_execution 3; (d)
+     one `fit/forward_backward` and one `fit/update` span a step in the
+     Chrome trace (OUT_DIR/telemetry_trace.json) and the watchdog
+     counters and `training_*` families in the exposition; (e) ms/step,
+     device ms, launches and h2d ms a step (torch.profiler) with
+     diagnostics off, on and skip, monitoring on, and
+     DevicePrefetchIterator(depth=2) against the plain iterator (losses
+     and params bit-equal; fp32 in turns: off, on, skip, off and plain,
+     prefetch, prefetch, plain); (f) the packaged LeNet trained 3 steps
+     at batch 128 from a CSV of the committed digits through
+     RecordReaderDataSetIterator, bit-equal to the array iterator's run,
+     and EvaluationBinary and EvaluationCalibration of its held-out
+     outputs with the CPU's counts (or every moved prediction within
+     twice the output difference of an edge). It prints `[telemetry]`
+     lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 14, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
+to 15, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
 TF32 off for matmuls and convolutions (PyTorch lets cuDNN run fp32
@@ -526,10 +559,10 @@ def random_lm_params(cfg, seed: int, head_scale: float):
 
 
 def build_lm(cfg, device, params, sequence_parallel=None, lr=None,
-             dtype_policy=None):
+             dtype_policy=None, diagnostics=None):
     """The zoo TransformerLM with `params` loaded; `lr` (a rate or a
     schedule) replaces the learning rate of its Adam(1e-3) on every
-    layer; `dtype_policy` goes to `init`."""
+    layer; `dtype_policy` and `diagnostics` go to `init`."""
     from deeplearning4j_tpu_torch.common.updaters import Adam
     from deeplearning4j_tpu_torch.util.jax_params import from_jax_params
     from deeplearning4j_tpu_torch.zoo.transformer import TransformerLM
@@ -537,7 +570,8 @@ def build_lm(cfg, device, params, sequence_parallel=None, lr=None,
                         n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
                         ff_multiplier=cfg["ff"], max_len=cfg["max_len"],
                         sequence_parallel=sequence_parallel).init(
-                            device=device, dtype_policy=dtype_policy)
+                            device=device, dtype_policy=dtype_policy,
+                            diagnostics=diagnostics)
     if lr is not None:
         for layer in net.layers:
             layer.updater = Adam(lr)
@@ -5841,6 +5875,644 @@ def _print_runtime(out):
           flush=True)
 
 
+# ------------------------------------------ phase 15: telemetry and the data
+TELEMETRY = dict(B=8, steps=6, poison_at=3, rf=2, spe=3, timed=3,
+                 profiled=2, cpu_B=1, cpu_T=63, lenet_B=128, lenet_steps=3)
+TELEMETRY_SMALL = dict(B=2, steps=6, poison_at=3, rf=2, spe=3, timed=2,
+                       profiled=1, cpu_B=1, cpu_T=15, lenet_B=16,
+                       lenet_steps=2)
+TELEMETRY_KERNELS = RUNTIME_KERNELS
+# the card's statistics against the same statistics recomputed in float64
+# from the step's own tensors (params before and after, gradients,
+# activations): relative to each value (an activation mean relative to
+# its std)
+DIAG_RTOL = 1e-5
+
+
+def _tele_nets(cfg, device, params, policy):
+    """A factory of the long-context LM on `device` at `policy` with
+    Adam(`lr`) and `diagnostics` (a spec, or None: off), `params` loaded
+    (`build_lm` without its `init` draws, which the load overwrites)."""
+    from deeplearning4j_tpu_torch.common.updaters import Adam
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.jax_params import from_jax_params
+    from deeplearning4j_tpu_torch.zoo.transformer import TransformerLM
+    conf = TransformerLM(cfg["vocab"], d_model=cfg["d_model"],
+                         n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
+                         ff_multiplier=cfg["ff"],
+                         max_len=cfg["max_len"]).conf()
+
+    def build(diagnostics=None, lr=LONG_LR):
+        net = MultiLayerNetwork(conf, device=device, dtype_policy=policy,
+                                diagnostics=diagnostics)
+        for layer in net.layers:
+            layer.updater = Adam(lr)
+        return from_jax_params(net, params)
+    return build
+
+
+def _tensors_of(net):
+    """Clones of every param and Adam moment, keyed."""
+    out = {k: t.detach().clone() for k, t in net.param_table().items()}
+    for lk, lst in net.updater_state.items():
+        for pk, st in lst.items():
+            for sk, t in st.items():
+                out[f"{lk}_{pk}/{sk}"] = t.detach().clone()
+    return out
+
+
+def _same_bits(a, b, nan_equal=False):
+    """The keys of two `_tensors_of` whose tensors differ (NaN equal to
+    NaN when `nan_equal`)."""
+    import torch
+    bad = []
+    for k, u in a.items():
+        v = b[k]
+        same = (bool(torch.all((u == v) | (torch.isnan(u) & torch.isnan(v))))
+                if nan_equal else torch.equal(u, v))
+        if not same:
+            bad.append(k)
+    return bad
+
+
+def _flat_keys(d):
+    """A `_last_diagnostics` dict as its set of "<part>/<key>/<stat>"."""
+    keys = {f"finite/{k}" for k in d["finite"]}
+    for part in ("params", "activations"):
+        keys |= {f"{part}/{k}/{s}" for k, st in d[part].items() for s in st}
+    return keys
+
+
+def _diag_reference(net, X1, Y1):
+    """One more step of `net`, its statistics recomputed in float64 from
+    the step's own tensors: the params before and after it, its
+    gradients (the step is deterministic: a second backward from the same
+    state and key gives the same bits, phase 14's probe) and each layer's
+    output in that backward's forward. Returns the worst relative error
+    of the card's statistics, and its key."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+
+    def host(t):
+        return t.detach().double().cpu()
+    it = net.iteration_count
+    old = {k: host(t) for k, t in net.param_table().items()}
+    acts, hooks = {}, []
+    for key, layer in list(net.keyed())[:-1]:
+        hooks.append(layer.register_forward_hook(
+            lambda m, i, o, key=key: acts.__setitem__(key, host(o))))
+    xs, ys = net._features(X1), net._labels(Y1)
+    try:
+        _, grads, _ = net._loss_and_grads(lambda st: net._loss_fn(
+            xs, ys, train=True, rng=net._step_key(it), new_state=st))
+    finally:
+        for h in hooks:
+            h.remove()
+    grads = net._normalize_gradients(grads)
+    g = {f"{k}_{n}": host(grads[id(p)]) for k, layer in net.keyed()
+         for n, p in layer.jax_param_map().items()}
+    net.fit(DataSet(X1, Y1), batch_size=len(X1))
+    new = {k: host(t) for k, t in net.param_table().items()}
+    got = net._last_diagnostics
+    worst = (0.0, "")
+
+    def held(key, v, want, scale=None):
+        nonlocal worst
+        den = abs(want) if scale is None else scale
+        err = abs(v - want) / den if den > 0 else abs(v - want)
+        if err > worst[0]:
+            worst = (err, key)
+    for k, p in new.items():
+        upd = old[k] - p
+        w = {"param_mm": p.abs().mean(), "param_l2": p.norm(),
+             "upd_mm": upd.abs().mean(), "upd_l2": upd.norm(),
+             "grad_mm": g[k].abs().mean(), "grad_l2": g[k].norm()}
+        w["ratio"] = w["upd_mm"] / (w["param_mm"] + 1e-12)
+        for s, v in w.items():
+            held(f"{k}.{s}", got["params"][k][s], float(v))
+    for k, h in acts.items():
+        std, mean = torch.std_mean(h, correction=0)
+        st = got["activations"][k]
+        held(f"{k}.mean", st["mean"], float(mean), scale=float(std))
+        held(f"{k}.std", st["std"], float(std))
+        held(f"{k}.dead", st["dead"], float((h == 0).double().mean()),
+             scale=1.0)
+    return worst
+
+
+def _tele_parity(fails, build, cpu_build, X, Y, c, tag):
+    """(a) diagnostics off against skip with activation statistics at
+    report_frequency 1: params and moments bit-equal after the steps,
+    the card's key set the CPU port's, the values within DIAG_RTOL of
+    float64 recomputed from a further step's own tensors."""
+    from deeplearning4j_tpu_torch.monitor import DiagnosticsConfig
+    B, n = c["B"], c["steps"]
+    spec = DiagnosticsConfig(watchdog="skip", activation_stats=True)
+    off = build()
+    l_off = _fit_steps(off, X[:B * n], Y[:B * n], B)
+    t_off = _tensors_of(off)
+    del off
+    on = build(spec)
+    l_on = _fit_steps(on, X[:B * n], Y[:B * n], B)
+    bad = _same_bits(t_off, _tensors_of(on))
+    out = dict(bit_equal=not bad and l_on == l_off, losses=l_on)
+    fails.check(out["bit_equal"], f"telemetry {tag} (a): skip is not "
+                f"bit-equal to off ({bad[:4]}; losses {l_off} / {l_on})")
+    cpu = cpu_build(spec)
+    cpu.fit(X[:1, :c["cpu_T"]], Y[:1, :c["cpu_T"]], batch_size=1)
+    want, got = _flat_keys(cpu._last_diagnostics), _flat_keys(
+        on._last_diagnostics)
+    out["keys"] = len(got)
+    fails.check(got == want, f"telemetry {tag} (a): the card's keys differ "
+                f"from the CPU port's ({sorted(got ^ want)[:4]})")
+    err, key = _diag_reference(on, X[B * n:B * (n + 1)],
+                               Y[B * n:B * (n + 1)])
+    out["stats_max_rel_err"], out["stats_worst_key"] = err, key
+    fails.check(err <= DIAG_RTOL, f"telemetry {tag} (a): statistic {key} "
+                f"{err} from its float64 recomputation (tol {DIAG_RTOL})")
+    return out
+
+
+def _tele_poison(fails, build, cpu_build, X, Y, c, tag):
+    """(b) Adam's rate inf at iteration `poison_at`: warn keeps the off
+    run's trajectory, NaN positions included; skip leaves p, m and v
+    bit-equal to the step before, counts 1 skip and 1 non-finite step and
+    ends finite, its losses held to the CPU port's same run at
+    [cpu_B, cpu_T]; halt raises at the iteration with layer keys."""
+    import torch
+    from deeplearning4j_tpu_torch.common.schedules import MapSchedule
+    from deeplearning4j_tpu_torch.monitor import NonFiniteGradientsError
+    B, n, at = c["B"], c["steps"], c["poison_at"]
+    lr = MapSchedule({0: LONG_LR, at: float("inf"), at + 1: LONG_LR})
+    Xs, Ys = X[:B * n], Y[:B * n]
+    out = {}
+    off = build(lr=lr)
+    _fit_steps(off, Xs, Ys, B)
+    t_off = _tensors_of(off)
+    del off
+    warn = build("warn", lr=lr)
+    _fit_steps(warn, Xs, Ys, B)
+    bad = _same_bits(t_off, _tensors_of(warn), nan_equal=True)
+    out["warn_equal_off"] = not bad and warn._diag.nonfinite_total >= 1
+    fails.check(out["warn_equal_off"], f"telemetry {tag} (b): warn moved "
+                f"the trajectory ({bad[:4]}) or saw no non-finite step")
+    del warn, t_off
+    skip = build("skip", lr=lr)
+    losses = _fit_steps(skip, Xs[:B * at], Ys[:B * at], B)
+    before = _tensors_of(skip)
+    losses += _fit_steps(skip, Xs[B * at:B * (at + 1)],
+                         Ys[B * at:B * (at + 1)], B)
+    bad = _same_bits(before, _tensors_of(skip))
+    losses += _fit_steps(skip, Xs[B * (at + 1):], Ys[B * (at + 1):], B)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in _tensors_of(skip).values())
+    out.update(skip_unchanged=not bad, skipped=skip._diag.skipped_total,
+               nonfinite=skip._diag.nonfinite_total, finite=finite,
+               skip_losses=losses)
+    fails.check(not bad and out["skipped"] == out["nonfinite"] == 1
+                and finite, f"telemetry {tag} (b): skip changed {bad[:4]}, "
+                f"skipped {out['skipped']} nonfinite {out['nonfinite']}, "
+                f"finite {finite}")
+    del skip
+    # the same skip run at [cpu_B, cpu_T], card against the CPU port
+    cb, ct = c["cpu_B"], c["cpu_T"]
+    Xc, Yc = X[:cb * n, :ct], Y[:cb * n, :ct]
+    small = [_fit_steps(b("skip", lr=lr), Xc, Yc, cb)
+             for b in (build, cpu_build)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(*small))
+    out.update(cpu_losses=small[1], card_small_losses=small[0],
+               cpu_loss_max_rel_err=rel)
+    tol = TRAIN_LOSS_RTOL if tag == "float32" else MIXED_STEP0_RTOL
+    fails.check(rel <= tol, f"telemetry {tag} (b): skip losses card vs "
+                f"CPU rel {rel} (tol {tol})")
+    halt = build("halt", lr=lr)
+    try:
+        _fit_steps(halt, Xs, Ys, B)
+        out["halt"] = None
+    except NonFiniteGradientsError as e:
+        out["halt"] = dict(iteration=e.iteration, layers=len(e.layer_keys))
+    fails.check(out["halt"] is not None and out["halt"]["iteration"] == at
+                and out["halt"]["layers"] > 0,
+                f"telemetry {tag} (b): halt raised {out['halt']}")
+    return out
+
+
+def _tele_transfers(fails, build, X, Y, c):
+    """(c) the d2h reads (report_frequency `rf` over `steps` steps; spe
+    `spe`) and (d) the spans and the exposition, with monitoring on; the
+    Chrome trace is written to OUT_DIR/telemetry_trace.json."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.monitor import DiagnosticsConfig
+    B, n = c["B"], c["steps"]
+    reg = monitor.registry()
+
+    def d2h():
+        return reg.counter("jax_transfers_total", direction="d2h").value
+    monitor.tracer().clear()
+    os.makedirs(OUT_DIR, exist_ok=True)
+    net = build(DiagnosticsConfig(report_frequency=c["rf"]))
+    before = d2h()
+    _fit_steps(net, X[:B * n], Y[:B * n], B)
+    out = dict(d2h_cadence=d2h() - before)
+    trace = json.loads(monitor.tracer().export_chrome_trace(
+        os.path.join(OUT_DIR, "telemetry_trace.json")))
+    spans = {}
+    for ev in trace["traceEvents"]:
+        spans[ev["name"]] = spans.get(ev["name"], 0) + 1
+    out["spans"] = spans
+    del net
+    net = build(True)
+    before = d2h()
+    net.fit(X[:B * n], Y[:B * n], batch_size=B, shuffle=False,
+            steps_per_execution=c["spe"])
+    out["d2h_spe"] = d2h() - before
+    text = reg.exposition()
+    need = ("watchdog_nonfinite_total ", "watchdog_skipped_total ",
+            "training_grad_l2{", "training_update_ratio{",
+            "training_activation_std{", "training_iterations_total{")
+    out["exposition_missing"] = [f for f in need if f not in text]
+    want_cad = -(-n // c["rf"])
+    fails.check(out["d2h_cadence"] == want_cad and out["d2h_spe"] ==
+                n // c["spe"], f"telemetry (c): d2h {out['d2h_cadence']} "
+                f"(want {want_cad}), spe {out['d2h_spe']} (want "
+                f"{n // c['spe']})")
+    fails.check(spans.get("fit/forward_backward") == n
+                and spans.get("fit/update") == n,
+                f"telemetry (d): spans {spans} (want {n} of each)")
+    fails.check(not out["exposition_missing"], f"telemetry (d): exposition "
+                f"lacks {out['exposition_missing']}")
+    return out
+
+
+def _tele_timed(device, net, X, Y, B, k, p, it=None):
+    """ms/step of `k` steps after one warm step, then `p` profiled steps
+    (none when `p` is 0): device ms, launches and host-to-device copy ms
+    per step. `it(X, Y)` makes the iterator (default: one `fit` per B-row
+    DataSet)."""
+    import torch
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresListener)
+
+    def steps(a, b):
+        if it is None:
+            return _fit_steps(net, X[a * B:b * B], Y[a * B:b * B], B)
+        scores = CollectScoresListener()
+        net.set_listeners(scores)
+        net.fit(it(X[a * B:b * B], Y[a * B:b * B]))
+        return [s for _, s in scores.scores]
+    losses = steps(0, 1)
+    _sync(device)
+    t0 = time.perf_counter()
+    losses += steps(1, 1 + k)
+    _sync(device)
+    out = dict(ms_per_step=(time.perf_counter() - t0) / k * 1e3)
+    if p and device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            losses += steps(1 + k, 1 + k + p)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        s = _profile_summary(prof, wall)
+        h2d = sum(ev.self_device_time_total for ev in prof.key_averages()
+                  if "HtoD" in ev.key) / 1e3
+        out.update(device_ms_per_step=s["device_ms"] / p,
+                   launches_per_step=s["launches"] / p,
+                   h2d_ms_per_step=h2d / p,
+                   busy_share=s["busy_share"])
+    elif p:
+        losses += steps(1 + k, 1 + k + p)
+    out["losses"] = losses
+    return out
+
+
+def _tele_times(device, fails, build, X, Y, c, tag):
+    """(e) the overheads: diagnostics off, on (statistics, no watchdog)
+    and skip (fp32: off again last); fp32 also monitoring on (diagnostics
+    off) and DevicePrefetchIterator(depth=2) against the plain iterator
+    (losses and params bit-equal)."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
+                                                   DevicePrefetchIterator)
+    from deeplearning4j_tpu_torch.monitor.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.monitor.tracer import Tracer
+    B, k, p = c["B"], c["timed"], c["profiled"]
+    out = {}
+    arms = [("diag_off", None, p), ("diag_on", True, p),
+            ("diag_skip", "skip", p)]
+    if tag == "float32":
+        arms.append(("diag_off_again", None, 0))
+    for name, spec, prof in arms:
+        out[name] = _tele_timed(device, build(spec), X, Y, B, k, prof)
+    if tag != "float32":
+        return out
+    monitor.enable(registry=MetricsRegistry(), tracer=Tracer())
+    try:
+        # host float math only: timed, not profiled
+        out["monitor_on"] = _tele_timed(device, build(), X, Y, B, k, 0)
+    finally:
+        monitor.disable()
+
+    def plain(x, y):
+        return ArrayDataSetIterator(x, y, batch_size=B)
+
+    def prefetch(x, y):
+        return DevicePrefetchIterator(plain(x, y), depth=2, device=device)
+    nets = {}
+    for name, it, prof in (("plain_iterator", plain, p),
+                           ("prefetch_depth2", prefetch, p),
+                           ("prefetch_depth2_again", prefetch, 0),
+                           ("plain_iterator_again", plain, 0)):
+        nets[name] = net = build()
+        out[name] = _tele_timed(device, net, X, Y, B, k, prof, it=it)
+    bad = _same_bits(_tensors_of(nets["plain_iterator_again"]),
+                     _tensors_of(nets["prefetch_depth2_again"]))
+    out["prefetch_bit_equal"] = (
+        not bad and out["plain_iterator_again"]["losses"]
+        == out["prefetch_depth2_again"]["losses"])
+    fails.check(out["prefetch_bit_equal"], f"telemetry (e): the prefetched "
+                f"run is not bit-equal to the plain one ({bad[:4]})")
+    return out
+
+
+def _counts_or_ties(ev_card, ev_cpu, p_card, p_cpu, edges, fields):
+    """Whether two evaluators' count fields are equal, else whether every
+    prediction that changed bin or side sits within twice the largest
+    card-vs-CPU difference of an edge (a near-tie, counted)."""
+    same = all(np.array_equal(getattr(ev_card, f), getattr(ev_cpu, f))
+               for f in fields)
+    eps = 2 * float(np.abs(p_card - p_cpu).max())
+    moved = np.searchsorted(edges, p_card) != np.searchsorted(edges, p_cpu)
+    near = np.min(np.abs(p_cpu[..., None] - np.asarray(edges)), axis=-1)
+    return same, int(moved.sum()), bool(np.all(near[moved] <= eps))
+
+
+def _tele_data(device, fails, c):
+    """(f) the packaged LeNet fed by RecordReaderDataSetIterator over a
+    CSV of the committed digits, against the array iterator over the
+    same rows (losses and params bit-equal); EvaluationBinary and
+    EvaluationCalibration of the card's held-out outputs against the
+    CPU's."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.datasets import (
+        ArrayDataSetIterator, CSVRecordReader, RecordReaderDataSetIterator)
+    from deeplearning4j_tpu_torch.eval import (EvaluationBinary,
+                                               EvaluationCalibration)
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresListener)
+    from deeplearning4j_tpu_torch.datasets import DataSet, DataSetIterator
+    from deeplearning4j_tpu_torch.zoo import LeNet, PretrainedType
+
+    class Nhwc(DataSetIterator):
+        """The record iterator's flat [B, 784] rows as LeNet's
+        [B, 28, 28, 1]."""
+
+        def __init__(self, base):
+            self.base = base
+
+        def reset(self):
+            self.base.reset()
+
+        def __iter__(self):
+            for ds in self.base:
+                yield DataSet(ds.features.reshape(-1, 28, 28, 1), ds.labels)
+    X, Y = digits_28x28()
+    B, n = c["lenet_B"], c["lenet_steps"]
+    Xt, Yt = X[N_HELD_OUT:N_HELD_OUT + B * n], Y[N_HELD_OUT:
+                                                 N_HELD_OUT + B * n]
+    tmp = tempfile.mkdtemp(prefix="telemetry_csv_")
+    try:
+        path = os.path.join(tmp, "digits.csv")
+        rows = np.concatenate([Xt.reshape(len(Xt), -1),
+                               Yt.argmax(-1)[:, None]], axis=1)
+        np.savetxt(path, rows, fmt="%.9g", delimiter=",")
+        t0 = time.perf_counter()
+        it = Nhwc(RecordReaderDataSetIterator(CSVRecordReader(path), B,
+                                               label_index=784,
+                                               num_classes=10))
+        arrays = ArrayDataSetIterator(Xt, Yt, batch_size=B)
+        out = dict(batches_equal=all(
+            np.array_equal(a.features, b.features)
+            and np.array_equal(a.labels, b.labels)
+            for a, b in zip(it, arrays)))
+        out["read_s"] = time.perf_counter() - t0
+        # cuDNN's default backward algorithms are not deterministic: two
+        # runs on equal batches are bit-equal only with deterministic ones
+        det = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        nets, losses = [], []
+        try:
+            for data in (it, arrays):
+                net = LeNet().init_pretrained(PretrainedType.MNIST,
+                                              device=device)
+                scores = CollectScoresListener()
+                net.set_listeners(scores)
+                net.fit(data)
+                nets.append(net)
+                losses.append([s for _, s in scores.scores])
+        finally:
+            torch.backends.cudnn.deterministic = det
+        out.update(seconds=time.perf_counter() - t0, losses=losses[0])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    bad = _same_bits(_tensors_of(nets[0]), _tensors_of(nets[1]))
+    out["records_bit_equal"] = not bad and losses[0] == losses[1]
+    fails.check(out["batches_equal"] and out["records_bit_equal"],
+                f"telemetry (f): the record iterator's batches equal "
+                f"{out['batches_equal']}, its run bit-equal to the array "
+                f"iterator's {out['records_bit_equal']} ({bad[:4]}; "
+                f"{losses})")
+    Xh, Yh = X[:N_HELD_OUT], Y[:N_HELD_OUT]
+    p_card = nets[0].output(Xh).cpu().numpy()
+    p_cpu = _copy_to(nets[0], "cpu").output(Xh).numpy()
+    evs = {}
+    for side, p in (("card", p_card), ("cpu", p_cpu)):
+        b, cal = EvaluationBinary(), EvaluationCalibration()
+        b.eval(Yh, p)
+        cal.eval(Yh, p)
+        evs[side] = (b, cal)
+    same_b, moved_b, ties_b = _counts_or_ties(
+        evs["card"][0], evs["cpu"][0], p_card, p_cpu, [0.5],
+        ("_tp", "_fp", "_tn", "_fn"))
+    same_c, moved_c, ties_c = _counts_or_ties(
+        evs["card"][1], evs["cpu"][1], p_card, p_cpu,
+        [i / 10 for i in range(1, 10)],
+        ("_bin_counts", "_bin_pos", "_prob_hist"))
+    out.update(binary_counts_equal=same_b, binary_moved=moved_b,
+               calibration_counts_equal=same_c, calibration_moved=moved_c,
+               output_max_abs_err=float(np.abs(p_card - p_cpu).max()),
+               binary_f1_class0=evs["card"][0].f1(0),
+               ece_class0=evs["card"][1].expected_calibration_error(0))
+    fails.check((same_b or ties_b) and (same_c or ties_c),
+                f"telemetry (f): evaluation counts card vs CPU: binary "
+                f"{same_b} ({moved_b} moved), calibration {same_c} "
+                f"({moved_c} moved), not all near an edge")
+    return out
+
+
+def phase_telemetry(device, report, fails, small=False):
+    """Phase 15 on `device` (fp32 with TF32 off, and mixed_bf16): the
+    long-context LM's diagnostics, watchdog, transfers, spans and
+    overheads, and the data plane and evaluators on LeNet. `small` (the
+    CPU rehearsal) shrinks the net and data and keeps the checks.
+    Returns the phase's kernel launches."""
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.monitor.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.monitor.tracer import Tracer
+    c = TELEMETRY_SMALL if small else TELEMETRY
+    cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
+           if small else LM_LONG)
+    out = dict(config=dict(cfg, B=c["B"], T=cfg["max_len"] - 1,
+                           lr=LONG_LR, steps=c["steps"]))
+    t0 = time.perf_counter()
+    K.reset_launches()
+    params = random_lm_params(cfg, seed=150, head_scale=1.0)
+    n_rows = c["B"] * (2 + c["timed"] + c["profiled"] + c["steps"])
+    X, Y = lm_corpus(cfg, n_rows, seed=15)
+    out["lm"] = {}
+    for policy in (None, MIXED):
+        tag = policy or "float32"
+        build = _tele_nets(cfg, device, params, policy)
+        cpu_build = _tele_nets(cfg, "cpu", params, policy)
+        r = out["lm"][tag] = {}
+        t1 = time.perf_counter()
+        r["parity"] = _tele_parity(fails, build, cpu_build, X, Y, c, tag)
+        if tag == "float32":
+            monitor.enable(registry=MetricsRegistry(), tracer=Tracer())
+        try:
+            r["poison"] = _tele_poison(fails, build, cpu_build, X, Y, c,
+                                       tag)
+            if tag == "float32":
+                r["transfers"] = _tele_transfers(fails, build, X, Y, c)
+        finally:
+            monitor.disable()
+        r["times"] = _tele_times(device, fails, build, X, Y, c, tag)
+        r["seconds"] = time.perf_counter() - t1
+    lm_launches = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    if device.type == "cuda":
+        for k in TELEMETRY_KERNELS:
+            fails.check(lm_launches[k] > 0, f"telemetry: kernel {k} did not "
+                        f"launch on the long-context LM")
+    out["data"] = _tele_data(device, fails, c)
+    _sync(device)
+    total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    out["launches"], out["lm_launches"] = total, lm_launches
+    out["seconds"] = time.perf_counter() - t0
+    report["telemetry"] = out
+    _print_telemetry(out)
+    return total
+
+
+def _print_telemetry(out):
+    for tag, r in out["lm"].items():
+        a, b = r["parity"], r["poison"]
+        print(f"[telemetry] (a) LM {tag} [{out['config']['B']}, "
+              f"{out['config']['T']}]: skip vs off bit-equal "
+              f"{a['bit_equal']}; {a['keys']} keys as the CPU's; stats vs "
+              f"float64 worst {a['stats_max_rel_err']:.2e} "
+              f"({a['stats_worst_key']})", flush=True)
+        print(f"[telemetry] (b) LM {tag} lr inf at 3: warn = off "
+              f"{b['warn_equal_off']}; skip unchanged {b['skip_unchanged']}"
+              f" skipped {b['skipped']} nonfinite {b['nonfinite']} finite "
+              f"{b['finite']}; card vs CPU skip losses rel "
+              f"{b['cpu_loss_max_rel_err']:.2e}; halt {b['halt']}",
+              flush=True)
+        if "transfers" in r:
+            t = r["transfers"]
+            print(f"[telemetry] (c) d2h rf 2: {t['d2h_cadence']}, spe 3: "
+                  f"{t['d2h_spe']}; (d) spans {t['spans']}; exposition "
+                  f"missing {t['exposition_missing']}", flush=True)
+        times = " | ".join(
+            f"{k} {v['ms_per_step']:.2f} ms/step"
+            + (f", device {v['device_ms_per_step']:.2f} ms, "
+               f"{v['launches_per_step']:.0f} launches, h2d "
+               f"{v['h2d_ms_per_step']:.3f} ms"
+               if "device_ms_per_step" in v else "")
+            for k, v in r["times"].items() if isinstance(v, dict))
+        print(f"[telemetry] (e) LM {tag}: {times}; prefetch bit-equal "
+              f"{r['times'].get('prefetch_bit_equal')}; {r['seconds']:.1f} s",
+              flush=True)
+    d = out["data"]
+    print(f"[telemetry] (f) LeNet from CSV records: batches equal "
+          f"{d['batches_equal']}, run bit-equal {d['records_bit_equal']} "
+          f"({d['seconds']:.2f} s); binary counts "
+          f"equal {d['binary_counts_equal']} (moved {d['binary_moved']}), "
+          f"calibration {d['calibration_counts_equal']} (moved "
+          f"{d['calibration_moved']}); output err "
+          f"{d['output_max_abs_err']:.2e}; phase {out['seconds']:.1f} s",
+          flush=True)
+
+
+
+def telemetry_probe(device, repeats=5):
+    """Where a diagnostics step's host time goes (`--telemetry-probe`):
+    the long-context LM at [8, 2047] with diagnostics on, fp32 and
+    mixed, one `_update` replayed part by part with a host clock mark
+    after each (no synchronize between marks, so each part reads what
+    the host spends on it, a part that waits for the card included):
+    the forward and backward enqueued, the snapshot, the update
+    (`_apply_updates`), `collect_and_gate`, the wait in `float(loss)`
+    and the readback (`process`). Medians over `repeats` steps after
+    one warm step."""
+    import torch
+    from deeplearning4j_tpu_torch.monitor.diagnostics import (
+        collect_and_gate, snapshot)
+    cfg = LM_LONG
+    params = random_lm_params(cfg, seed=150, head_scale=1.0)
+    X, Y = lm_corpus(cfg, 8, seed=15)
+    parts = ("forward_backward_enqueued", "snapshot", "update",
+             "collect_and_gate", "wait_for_card", "process")
+    out = {}
+    for policy in (None, MIXED):
+        net = _tele_nets(cfg, device, params, policy)(True)
+        xs, ys = net._features(X), net._labels(Y)
+        rows = []
+        for _ in range(repeats + 1):
+            it = net.iteration_count
+            torch.cuda.synchronize()
+            marks = [time.perf_counter()]
+            acts = net._act_stats()
+            loss, grads, new_state = net._loss_and_grads(
+                lambda st: net._loss_fn(xs, ys, train=True,
+                                        rng=net._step_key(it),
+                                        new_state=st, acts=acts))
+            grads = net._normalize_gradients(grads)
+            marks.append(time.perf_counter())
+            tree = {k: layer.jax_param_map() for k, layer in net.keyed()
+                    if layer.jax_param_map()}
+            copies = iter(snapshot([t for lp in tree.values()
+                                    for t in lp.values()]))
+            old = {k: {n: next(copies) for n in lp} for k, lp in tree.items()}
+            marks.append(time.perf_counter())
+            net._apply_updates(it, grads)
+            marks.append(time.perf_counter())
+            g = {k: {n: grads[id(p)] for n, p in lp.items()}
+                 for k, lp in tree.items()}
+            dv, st = collect_and_gate(
+                net._diag, "fit", params=tree, params_old=old, updates=[],
+                updates_old=[], state_new=new_state,
+                state_old=net.net_state, grads=g, loss=loss, acts=acts)
+            net._commit_state(st)
+            marks.append(time.perf_counter())
+            float(loss)
+            marks.append(time.perf_counter())
+            net._diag.process(net, dv, "fit", it)
+            marks.append(time.perf_counter())
+            net.iteration_count += 1
+            rows.append(np.diff(marks) * 1e3)
+        med = np.median(rows[1:], axis=0)
+        out[policy or "float32"] = dict(zip(parts, map(float, med)))
+        print(f"[telemetry-probe] {policy or 'float32'} host ms: "
+              + ", ".join(f"{k} {v:.2f}" for k, v in zip(parts, med)),
+              flush=True)
+        del net
+    return out
+
 # ------------------------------------------------- --profile: time breakdown
 def _profile_summary(prof, wall_ms, top=12):
     rows = []
@@ -6495,12 +7167,16 @@ def run(device, *, small=False, kernels_only=False):
         l14 = phase("runtime", phase_runtime, device, report, fails, small)
         for k in launches:
             launches[k] += (l14 or {}).get(k, 0)
+        l15 = phase("telemetry", phase_telemetry, device, report, fails,
+                    small)
+        for k in launches:
+            launches[k] += (l15 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
                          ("11", l11), ("12", l12), ("13", l13),
-                         ("14", l14)) if l}
+                         ("14", l14), ("15", l15)) if l}
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -6566,6 +7242,14 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_runtime(device, report, fails)
+        report["kernels"] = []
+    elif "--telemetry-probe" in argv:
+        report = {"telemetry_probe": telemetry_probe(device)}
+        fails, report["kernels"] = Failures(), []
+    elif "--telemetry" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_telemetry(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

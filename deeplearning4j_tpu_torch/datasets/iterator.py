@@ -1,8 +1,9 @@
 """Minibatch iteration for `fit` and `evaluate` (counterpart of
 `deeplearning4j_tpu/datasets/iterator.py`: `ListDataSetIterator` :62,
-`ArrayDataSetIterator` :82, `as_iterator` :418; `DataSet` from
-`datasets/dataset.py` :20-80). The asynchronous, sampling and
-streaming iterators are a later slice.
+`ArrayDataSetIterator` :82, `AsyncDataSetIterator` :166,
+`as_iterator` :418). `DataSet` lives in `datasets/dataset.py` and is
+re-exported here. The sampling and streaming iterators are a later
+slice.
 
 Batches come in order, the partial tail batch included, each with its
 slice of the features and label masks. With `shuffle=True` every pass
@@ -24,36 +25,13 @@ refuses `seek`.
 
 from __future__ import annotations
 
-import dataclasses
+import queue
+import threading
 from typing import List, Optional
 
 import numpy as np
 
-
-def _cut(a, sel):
-    return None if a is None else a[sel]
-
-
-@dataclasses.dataclass
-class DataSet:
-    features: np.ndarray
-    labels: Optional[np.ndarray] = None
-    features_mask: Optional[np.ndarray] = None
-    labels_mask: Optional[np.ndarray] = None
-    # per-example record metadata (a list of num_examples), or None
-    example_metadata: Optional[list] = None
-
-    def num_examples(self) -> int:
-        return int(np.shape(self.features)[0])
-
-    def batch_by(self, batch_size: int) -> List["DataSet"]:
-        md = self.example_metadata
-        return [DataSet(self.features[i:i + batch_size],
-                        _cut(self.labels, slice(i, i + batch_size)),
-                        _cut(self.features_mask, slice(i, i + batch_size)),
-                        _cut(self.labels_mask, slice(i, i + batch_size)),
-                        None if md is None else md[i:i + batch_size])
-                for i in range(0, self.num_examples(), batch_size)]
+from deeplearning4j_tpu_torch.datasets.dataset import DataSet, _cut
 
 
 class DataSetIterator:
@@ -73,6 +51,9 @@ class DataSetIterator:
         raise NotImplementedError(
             f"{type(self).__name__} does not implement the "
             f"cursor()/seek() position contract")
+
+    def batch_size(self) -> Optional[int]:
+        return None
 
 
 class ListDataSetIterator(DataSetIterator):
@@ -129,6 +110,9 @@ class ArrayDataSetIterator(DataSetIterator):
                           _cut(self.features_mask, sel),
                           _cut(self.labels_mask, sel))
 
+    def batch_size(self) -> int:
+        return self._batch
+
     def cursor(self) -> dict:
         return {"epoch": max(0, self._epochs_started - 1),
                 "batch": int(self._yielded), "seed": self._seed,
@@ -151,6 +135,95 @@ class ArrayDataSetIterator(DataSetIterator):
         self._epochs_started = epoch
         self._skip = int(cursor["batch"])
         self._yielded = 0
+
+
+class AsyncDataSetIterator(DataSetIterator):
+    """Background-thread prefetch over `base` (the JAX
+    `AsyncDataSetIterator`, reference `AsyncDataSetIterator.java`): a
+    worker thread fills a bounded queue of `prefetch` batches so the
+    base's batch assembly overlaps the consumer's steps.
+
+    A consumer that stops early (`break`, `close()`) does not strand the
+    worker: the generator's `finally` sets the stop event, drains the
+    queue so a pending put completes, and joins the thread. An exception
+    in the base is raised in the consumer. The cursor counts the batches
+    the CONSUMER has taken, not those prefetched."""
+
+    _SENTINEL = object()
+
+    def __init__(self, base: DataSetIterator, prefetch: int = 4):
+        self.base = base
+        self.prefetch = prefetch
+        self._consumed = 0
+        self._seek_offset = 0
+
+    def __iter__(self):
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        err: list = []
+
+        def put(item):
+            # bounded put that gives up once the consumer has gone
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.05)
+                    return
+                except queue.Full:
+                    continue
+
+        def worker():
+            try:
+                for ds in self.base:
+                    put(ds)
+                    if stop.is_set():
+                        return
+            except Exception as e:  # noqa: BLE001 — raised in the consumer
+                err.append(e)
+            finally:
+                put(self._SENTINEL)
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        self._consumed, self._seek_offset = self._seek_offset, 0
+        try:
+            while True:
+                item = q.get()
+                if item is self._SENTINEL:
+                    if err:
+                        raise err[0]
+                    return
+                # counted before the yield, as the base counts
+                self._consumed += 1
+                yield item
+        finally:
+            stop.set()
+            while True:
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5)
+
+    def reset(self):
+        self.base.reset()
+
+    def cursor(self):
+        """The base's cursor with the batch index the consumer reached
+        (prefetched batches it never took are replayed after a
+        restore)."""
+        cur = self.base.cursor()
+        if cur is None:
+            return None
+        cur = dict(cur)
+        cur["batch"] = int(self._consumed)
+        return cur
+
+    def seek(self, cursor: dict):
+        self.base.seek(cursor)
+        self._seek_offset = int(cursor.get("batch", 0))
+
+    def batch_size(self):
+        return self.base.batch_size()
 
 
 def as_iterator(data, labels=None, batch_size: int = 32, **kw):

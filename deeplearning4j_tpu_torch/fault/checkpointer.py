@@ -24,8 +24,13 @@ The layout is the JAX package's, so each package resumes what the
 other wrote. A snapshot that arrives while the writer is busy replaces
 the pending one (latest wins: the backlog never grows). A writer error
 is raised again on the training thread at the next `save()` or
-`wait()`. The multi-process barrier manifests and the registry gauges
-are not ported (ROADMAP Queue 1 item 7 and item 5).
+`wait()`. The multi-process barrier manifests are not ported (ROADMAP
+Queue 1 item 7).
+
+Health metrics on the monitor registry, while it is enabled (the JAX
+names): ``checkpoint_write_seconds`` (timer), ``checkpoint_bytes_total``,
+``checkpoint_total``, ``checkpoint_failures_total`` (counters),
+``checkpoint_last_step`` and ``checkpoint_last_age_seconds`` (gauges).
 """
 
 from __future__ import annotations
@@ -132,6 +137,7 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self._last_error: Optional[BaseException] = None
         self._last_commit_ts: Optional[float] = None
+        self._age_gauge_bound = False
         # (seconds, bytes) of the last committed write
         self.last_write: Optional[tuple] = None
 
@@ -210,6 +216,7 @@ class AsyncCheckpointer:
             except BaseException as e:  # surfaced on next save()/wait()
                 log.warning("async checkpoint write for step %d failed: %s",
                             step, e)
+                self._record_failure()
                 self._last_error = e
             finally:
                 with self._lock:
@@ -248,6 +255,38 @@ class AsyncCheckpointer:
         self._gc()
         self._last_commit_ts = time.time()
         self.last_write = (time.perf_counter() - t0, nbytes)
+        self._record_write(self.last_write[0], nbytes, step)
+
+    # ------------------------------------------------------------- metrics
+    def _record_write(self, seconds: float, nbytes: int, step: int):
+        from deeplearning4j_tpu_torch import monitor
+        if not monitor.is_enabled():
+            return
+        reg = monitor.registry()
+        reg.timer("checkpoint_write_seconds",
+                  help="durable full-state checkpoint write latency"
+                  ).observe(seconds)
+        reg.counter("checkpoint_bytes_total",
+                    help="bytes written by the fault checkpointer"
+                    ).inc(float(nbytes))
+        reg.counter("checkpoint_total",
+                    help="committed checkpoints").inc()
+        reg.gauge("checkpoint_last_step",
+                  help="step of the newest committed checkpoint").set(step)
+        if not self._age_gauge_bound:
+            reg.gauge("checkpoint_last_age_seconds",
+                      help="seconds since the newest committed checkpoint"
+                      ).set_function(
+                lambda: (time.time() - self._last_commit_ts)
+                if self._last_commit_ts else float("nan"))
+            self._age_gauge_bound = True
+
+    def _record_failure(self):
+        from deeplearning4j_tpu_torch import monitor
+        if monitor.is_enabled():
+            monitor.registry().counter(
+                "checkpoint_failures_total",
+                help="checkpoint writes that failed").inc()
 
     # ----------------------------------------------------------- retention
     def _retained(self, steps: List[int]) -> set:

@@ -5,7 +5,8 @@ Committed checkpoints are tried newest first; the first that verifies
 wins, and each corrupt newer one is skipped with a logged warning. The
 model is built from the stored configuration under the recorded dtype
 policy when none is passed, on `device`, and the iterator moves to the
-stored cursor.
+stored cursor. A restore bumps ``restore_total`` and sets
+``restore_last_step`` on the monitor registry while it is enabled.
 """
 
 from __future__ import annotations
@@ -63,6 +64,14 @@ def resume(directory, model=None, *, iterator=None,
     if model is None:
         model = fstate.build_model(meta, device=device)
     fstate.restore_training_state(model, state, iterator=iterator)
+    from deeplearning4j_tpu_torch import monitor
+    if monitor.is_enabled():
+        monitor.registry().counter(
+            "restore_total",
+            help="successful training-state restores").inc()
+        monitor.registry().gauge(
+            "restore_last_step",
+            help="step of the last restored checkpoint").set(step)
     log.info("resumed training state from step %d under %s", step,
              directory)
     return model, meta

@@ -133,7 +133,10 @@ def capture_training_state(model, *, iterator=None, normalizer=None,
         # the ACTIVE policy (an argument or the environment may have
         # chosen it): the resumed net must run the same program
         "dtype_policy": model.dtype.to_dict(),
-        "diagnostics": None,
+        # the ACTIVE diagnostics config (an argument or the environment
+        # may have chosen it): under `skip` it bears on the trajectory
+        "diagnostics": (None if model.diagnostics is None
+                        else model.diagnostics.to_dict()),
         "iteration_count": int(model.iteration_count if step is None
                                else step),
         "epoch_count": int(model.epoch_count if epoch is None else epoch),
@@ -155,25 +158,24 @@ def capture_training_state(model, *, iterator=None, normalizer=None,
 # ------------------------------------------------------------------ restore
 def build_model(meta: Dict[str, Any], *, device="cuda"):
     """An uninitialized container from a checkpoint's meta, under the
-    recorded dtype policy (`DL4J_DTYPE_POLICY` still wins, as in JAX)."""
+    recorded dtype policy and diagnostics config (`DL4J_DTYPE_POLICY` and
+    `DL4J_DIAGNOSTICS` still win, as in JAX)."""
+    from deeplearning4j_tpu_torch.monitor.diagnostics import as_diagnostics
     from deeplearning4j_tpu_torch.nd.dtype import as_policy
-    if meta.get("diagnostics") is not None:
-        raise NotImplementedError(
-            "the checkpoint was trained with diagnostics, which are not "
-            "ported (ROADMAP Queue 1 item 5)")
     policy = as_policy(meta.get("dtype_policy"))
+    diagnostics = as_diagnostics(meta.get("diagnostics"))
     if meta["model_type"] == "ComputationGraph":
         from deeplearning4j_tpu_torch.nn.graph import (
             ComputationGraph, ComputationGraphConfiguration)
         return ComputationGraph(
             ComputationGraphConfiguration.from_dict(meta["configuration"]),
-            device=device, dtype_policy=policy)
+            device=device, dtype_policy=policy, diagnostics=diagnostics)
     from deeplearning4j_tpu_torch.nn.conf.builder import (
         MultiLayerConfiguration)
     from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
     return MultiLayerNetwork(
         MultiLayerConfiguration.from_dict(meta["configuration"]),
-        device=device, dtype_policy=policy)
+        device=device, dtype_policy=policy, diagnostics=diagnostics)
 
 
 def _pairs(tree: Dict, src: Dict, section: str):

@@ -45,6 +45,13 @@ def count_launch(name: str, dtype: torch.dtype, n: int = 1):
     LAUNCHES_BY_DTYPE[key] = LAUNCHES_BY_DTYPE.get(key, 0) + n
 
 
+def acc32(t: torch.Tensor) -> torch.Tensor:
+    """`t` in the plain versions' accumulation dtype: float32 for the
+    kernels' dtypes (float32, bfloat16), a float64 tensor as it is (the
+    gradient checker runs the plain versions in float64 on the CPU)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 # dtype codes shared with csrc/*.cu
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 

@@ -11,6 +11,10 @@ at once.
 
 Nothing here runs at import time, and nothing builds unless a kernel is
 launched on a CUDA tensor: a CPU-only machine never calls `nvcc`.
+
+Each finished build is reported to the build listeners
+(`add_build_listener`: `fn(name, seconds)`), which is how
+`monitor.KernelBuildCollector` counts the port's compiles.
 """
 
 from __future__ import annotations
@@ -21,8 +25,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, List
+from typing import Callable, Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -31,6 +36,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+_build_listeners: List[Callable[[str, float], None]] = []
+
+
+def add_build_listener(fn: Callable[[str, float], None]):
+    """Call `fn(source name, seconds)` after each successful build."""
+    if fn not in _build_listeners:
+        _build_listeners.append(fn)
+
+
+def remove_build_listener(fn: Callable[[str, float], None]):
+    if fn in _build_listeners:
+        _build_listeners.remove(fn)
 
 
 def nvcc_path() -> str:
@@ -62,9 +79,11 @@ def _start(name: str, out: Path) -> subprocess.Popen:
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC),
            "-o", str(tmp), str(CSRC / f"{name}.cu")]
+    t0 = time.perf_counter()
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
-    proc.tmp, proc.out, proc.cmd = tmp, out, cmd
+    proc.tmp, proc.out, proc.cmd, proc.t0 = tmp, out, cmd, t0
+    proc.name = name
     return proc
 
 
@@ -74,6 +93,9 @@ def _finish(proc: subprocess.Popen):
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(proc.cmd)}\n{log}")
     os.replace(proc.tmp, proc.out)      # atomic: readers never see a partial .so
+    seconds = time.perf_counter() - proc.t0
+    for fn in list(_build_listeners):
+        fn(proc.name, seconds)
 
 
 def build_all(names=None) -> Dict[str, Path]:

@@ -62,8 +62,8 @@ def flash_attention_plain(q, k, v, causal: bool = False):
     Materialises the [Tq, Tk] scores — the same function, not the same
     memory behaviour."""
     Tq, Tk, D = q.shape[1], k.shape[1], q.shape[-1]
-    qf = q.float() * _scale(D)
-    s = torch.einsum("bqhd,bkhd->bhqk", qf, k.float())
+    qf = K.acc32(q) * _scale(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", qf, K.acc32(k))
     if causal:
         qpos = torch.arange(Tq, device=q.device)[:, None]
         kpos = torch.arange(Tk, device=q.device)[None, :]
@@ -71,7 +71,7 @@ def flash_attention_plain(q, k, v, causal: bool = False):
     m = s.max(dim=-1, keepdim=True).values
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(1e-20)
-    o = torch.einsum("bhqk,bkhd->bqhd", p, v.float()) / l.permute(0, 2, 1, 3)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, K.acc32(v)) / l.permute(0, 2, 1, 3)
     lse = (m + torch.log(l))[..., 0]
     return o.to(q.dtype), lse
 
@@ -81,7 +81,7 @@ def flash_attention_carry_plain(q, k, v, m, l, acc, diag: bool):
     materialises the chunk's [Tq, Tk] scores. Updates m, l, acc in place
     and returns them."""
     Tq, Tk, D = q.shape[1], k.shape[1], q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float() * _scale(D), k.float())
+    s = torch.einsum("bqhd,bkhd->bhqk", K.acc32(q) * _scale(D), K.acc32(k))
     if diag:
         qpos = torch.arange(Tq, device=q.device)[:, None]
         kpos = torch.arange(Tk, device=q.device)[None, :]
@@ -91,7 +91,7 @@ def flash_attention_carry_plain(q, k, v, m, l, acc, diag: bool):
     corr = torch.exp(m - m_new)
     l.mul_(corr).add_(p.sum(dim=-1))
     acc.mul_(corr[..., None]).add_(
-        torch.einsum("bhqk,bkhd->bhqd", p, v.float()))
+        torch.einsum("bhqk,bkhd->bhqd", p, K.acc32(v)))
     m.copy_(m_new)
     return m, l, acc
 
@@ -225,14 +225,14 @@ def flash_attention_carry(q, k, v, m, l, acc, *, diag: bool):
 def attention_delta(do, o):
     """Δ [B, H, T] = Σ_d dO·O in fp32 — the per-row term both backward
     kernels read (the JAX `attention_delta`)."""
-    return torch.einsum("bthd,bthd->bht", do.float(), o.float())
+    return torch.einsum("bthd,bthd->bht", K.acc32(do), K.acc32(o))
 
 
 def _probs(q, k, lse, causal):
     """p = exp(s − lse) [B, H, Tq, Tk] with s = (q·k)·scale under the
     kernels' masks (-1e30) — recomputed from lse, as the kernels do."""
     Tq, Tk, D = q.shape[1], k.shape[1], q.shape[-1]
-    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * _scale(D)
+    s = torch.einsum("bqhd,bkhd->bhqk", K.acc32(q), K.acc32(k)) * _scale(D)
     if causal:
         qpos = torch.arange(Tq, device=q.device)[:, None]
         kpos = torch.arange(Tk, device=q.device)[None, :]
@@ -242,7 +242,7 @@ def _probs(q, k, lse, causal):
 
 def _dscores(q, k, v, do, lse, delta, causal):
     p = _probs(q, k, lse, causal)
-    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    dp = torch.einsum("bqhd,bkhd->bhqk", K.acc32(do), K.acc32(v))
     return p, p * (dp - delta[..., None])
 
 
@@ -251,7 +251,7 @@ def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta,
     """Plain version of the dQ kernel: dQ = scale·Σ_k dS·K, [B, Tq, H, D]
     in q's dtype."""
     _, ds = _dscores(q, k, v, do, lse, delta, causal)
-    dq = torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * _scale(q.shape[-1])
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds, K.acc32(k)) * _scale(q.shape[-1])
     return dq.to(q.dtype)
 
 
@@ -260,8 +260,8 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
     """Plain version of the dK/dV kernel: (dK = scale·Σ_q dSᵀ·Q,
     dV = Σ_q Pᵀ·dO), [B, Tk, H, D] each in k's dtype."""
     p, ds = _dscores(q, k, v, do, lse, delta, causal)
-    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
-    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * _scale(q.shape[-1])
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, K.acc32(do))
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, K.acc32(q)) * _scale(q.shape[-1])
     return dk.to(k.dtype), dv.to(v.dtype)
 
 

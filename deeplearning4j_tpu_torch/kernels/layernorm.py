@@ -48,7 +48,7 @@ def _stats(x32: torch.Tensor, eps: float):
 def layer_norm_plain(x, gamma, beta, eps: float = 1e-5):
     """Plain PyTorch version of the kernel: (y, mean [R, 1], rstd [R, 1])."""
     D = x.shape[-1]
-    x32 = x.reshape(-1, D).float()
+    x32 = K.acc32(x.reshape(-1, D))
     mean, rstd = _stats(x32, eps)
     norm = ((x32 - mean) * rstd).to(x.dtype)
     y = norm * gamma + beta
@@ -141,8 +141,8 @@ def ln_bwd_math(gy, gamma, x32, mean, rstd, out_dtype):
     with ĝ = gy·gamma, dγ = Σ gy·x̂ and dβ = Σ gy, reduced in fp32.
     gy/x32 are [R, D]."""
     xhat = (x32 - mean) * rstd
-    gy32 = gy.float()
-    g32 = gy32 * gamma.float()
+    gy32 = K.acc32(gy)
+    g32 = gy32 * K.acc32(gamma)
     gmean = g32.mean(dim=-1, keepdim=True)
     gxmean = (g32 * xhat).mean(dim=-1, keepdim=True)
     dx = (rstd * (g32 - gmean - xhat * gxmean)).to(out_dtype)
@@ -164,7 +164,7 @@ class _LayerNormFn(torch.autograd.Function):
         x, gamma, mean, rstd = ctx.saved_tensors
         D = x.shape[-1]
         dx, dgamma, dbeta = ln_bwd_math(gy.reshape(-1, D), gamma,
-                                        x.reshape(-1, D).float(), mean,
+                                        K.acc32(x.reshape(-1, D)), mean,
                                         rstd, x.dtype)
         return (dx.reshape(x.shape), dgamma.to(gamma.dtype),
                 dbeta.to(gamma.dtype), None)
@@ -185,7 +185,7 @@ class _ResidualLayerNormFn(torch.autograd.Function):
         s, gamma, mean, rstd = ctx.saved_tensors
         D = s.shape[-1]
         dln, dgamma, dbeta = ln_bwd_math(gy.reshape(-1, D), gamma,
-                                         s.reshape(-1, D).float(), mean,
+                                         K.acc32(s.reshape(-1, D)), mean,
                                          rstd, s.dtype)
         ds = gs + dln.reshape(s.shape)
         return (ds, ds, dgamma.to(gamma.dtype), dbeta.to(gamma.dtype),

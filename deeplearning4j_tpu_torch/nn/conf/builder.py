@@ -12,11 +12,9 @@ network. Global defaults reach a layer when the layer still carries its
 default for the field (`apply_global_defaults`), so the port's layer
 defaults are the JAX layers'.
 
-The configuration carries every field, ported or not. Those the port
-does not run yet (gradient normalization, TBPTT, `max_norm`,
-`pretrain`, the line-search solvers, diagnostics) are inert at
-inference and refused by the containers' `fit` (`nn/container.py`).
-`diagnostics` travels as the JAX package's serde dict.
+The configuration carries every field. `diagnostics` holds a
+`monitor.DiagnosticsConfig` (or None) and travels as the JAX package's
+serde dict.
 """
 
 from __future__ import annotations
@@ -28,6 +26,7 @@ from typing import Any, Dict, List, Optional
 
 from deeplearning4j_tpu_torch.common.updaters import Sgd, Updater, get_updater
 from deeplearning4j_tpu_torch.common.weights import WeightInit
+from deeplearning4j_tpu_torch.monitor.diagnostics import as_diagnostics
 from deeplearning4j_tpu_torch.nd.dtype import as_policy
 from deeplearning4j_tpu_torch.nn.conf.inputs import (
     InputType,
@@ -94,17 +93,11 @@ def _policy_from_serde(d):
     return None if d is None else as_policy(d)
 
 
-def _diagnostics(spec):
-    """The diagnostics field as its serde dict (None: off). The port
-    carries the JAX package's dict as it is; other specs (True, "on", a
-    watchdog name) need `monitor/diagnostics`, which is not ported."""
-    if spec is None or spec is False:
-        return None
-    if isinstance(spec, dict):
-        return dict(spec)
-    raise NotImplementedError(
-        f"diagnostics spec {spec!r}: only the serde dict is carried; "
-        f"monitor/diagnostics is not ported (ROADMAP Queue 1 item 5)")
+def _diagnostics_to_dict(spec):
+    """Serde form of a diagnostics field value (a DiagnosticsConfig, a
+    spec name or an already-serialized dict); None when off."""
+    cfg = as_diagnostics(spec)
+    return None if cfg is None else cfg.to_dict()
 
 
 @dataclasses.dataclass
@@ -158,7 +151,7 @@ class MultiLayerConfiguration:
             "gradient_sharing_threshold": self.gradient_sharing_threshold,
             "dtype_policy": (None if self.dtype_policy is None
                              else _policy_to_dict(self.dtype_policy)),
-            "diagnostics": _diagnostics(self.diagnostics),
+            "diagnostics": _diagnostics_to_dict(self.diagnostics),
         }
 
     def to_json(self, **kw):
@@ -191,7 +184,7 @@ class MultiLayerConfiguration:
             gradient_sharing_threshold=d.get("gradient_sharing_threshold",
                                              1e-3),
             dtype_policy=_policy_from_serde(d.get("dtype_policy")),
-            diagnostics=_diagnostics(d.get("diagnostics")),
+            diagnostics=as_diagnostics(d.get("diagnostics")),
         )
 
     @staticmethod
@@ -339,7 +332,7 @@ class ListBuilder:
         return self
 
     def diagnostics(self, spec) -> "ListBuilder":
-        self._diagnostics = _diagnostics(spec)
+        self._diagnostics = as_diagnostics(spec)
         return self
 
     def build(self) -> MultiLayerConfiguration:
@@ -493,7 +486,7 @@ class NeuralNetConfiguration:
         return self
 
     def diagnostics(self, spec):
-        self.diagnostics_value = _diagnostics(spec)
+        self.diagnostics_value = as_diagnostics(spec)
         return self
 
     def constrain_max_norm(self, v: float):

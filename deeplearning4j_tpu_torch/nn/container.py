@@ -37,6 +37,26 @@ upcasts each gradient. The output layers' params are the copies
 rounded to bf16 and upcast again, so the loss is fp32. Buffers (the
 running state) stay fp32.
 
+Diagnostics (`monitor/diagnostics.py`, the JAX `self._diag`): with a
+config resolved from `DL4J_DIAGNOSTICS`, the constructor's
+`diagnostics=` or the configuration's field, each step snapshots the
+params before the update (and, under the ``skip`` watchdog, the updater
+state tensors), collects its per-layer statistics and finite flags on
+the device after it (`_update`), and under ``skip`` puts back the old
+params, updater state and running state with a device-side select when
+the step was not finite. The activation statistics come from each
+layer's output in the forward (`_act_stats`), outside any remat
+recompute. The statistics never feed back into the step. `fit` reads
+them at the report cadence, one copy per step or per
+`steps_per_execution` group, hands them to `iteration_done` as
+`diagnostics=` and keeps the newest in `_last_diagnostics`.
+
+Telemetry (`monitor/`): `fit` attaches `monitor.extra_listeners()` and
+runs each step in a `fit/forward_backward` span (the step and its score
+readback, which waits for the card) and a `fit/update` span (the
+diagnostics readback and the listeners), with the iterator's time in a
+`fit/etl` span; all are no-ops while monitoring is off.
+
 Params version: `params_version` counts the writes of the params
 (`_apply_updates`, `init`, `to`, `load_state_dict`, and through
 `params_changed()` the carriers). Caches keyed on it (the serving
@@ -61,11 +81,19 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
+from deeplearning4j_tpu_torch import monitor
 from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.common.updaters import Adam, Sgd
 from deeplearning4j_tpu_torch.datasets.iterator import as_iterator
 from deeplearning4j_tpu_torch.device import resolve_device
 from deeplearning4j_tpu_torch.kernels.fused_adam import adam_update_packed
+from deeplearning4j_tpu_torch.monitor.diagnostics import (
+    Diagnostics,
+    collect_and_gate,
+    process_if_due,
+    resolve_diagnostics,
+    snapshot,
+)
 from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nd.dtype import DataTypePolicy, resolve_policy
 from deeplearning4j_tpu_torch.nn.conf.builder import (
@@ -151,7 +179,8 @@ class Container(nn.Module):
     and `fold_ids` through `_setup` and supplies the forward, the loss,
     the candidate runs and the feature conversion."""
 
-    def _setup(self, conf, layers, keys, fold_ids, device, dtype_policy):
+    def _setup(self, conf, layers, keys, fold_ids, device, dtype_policy,
+               diagnostics=None):
         for layer in layers:
             layer._in_net = True
         self.conf = conf
@@ -161,6 +190,12 @@ class Container(nn.Module):
         # DL4J_DTYPE_POLICY env > explicit arg > conf.dtype_policy >
         # process default
         self.dtype = check_policy(resolve_policy(dtype_policy, conf))
+        # DL4J_DIAGNOSTICS env > explicit arg > conf.diagnostics > off
+        self.diagnostics = resolve_diagnostics(diagnostics, conf)
+        self._diag = (Diagnostics(self.diagnostics)
+                      if self.diagnostics is not None else None)
+        self._last_diagnostics = None
+        self._step_dv = None     # the last step's packed stats (device)
         self.device = resolve_device(device)
         nn.Module.to(self, self.device)
         self.iteration_count = 0
@@ -331,11 +366,18 @@ class Container(nn.Module):
 
     def _features_for(self, x, first) -> torch.Tensor:
         """Features on the net's device for the layer `first` that takes
-        them. Token ids for an embedding may arrive float-carried (the
-        JAX fit takes `X.astype(np.float32)`): they are checked to be
-        whole and in range, then made int64 on the host."""
+        them (`_host_features`, then the copy); a tensor is moved as it
+        is."""
         if isinstance(x, torch.Tensor):
             return x.to(self.device)
+        return self._host_features(x, first).to(self.device)
+
+    def _host_features(self, x, first) -> torch.Tensor:
+        """Host features for the layer `first` that takes them, as a CPU
+        tensor. Token ids for an embedding may arrive float-carried (the
+        JAX fit takes `X.astype(np.float32)`): they are checked here, on
+        the host, to be whole and in range (an id out of range would
+        index past the table on the card), then made int64."""
         x = np.asarray(x)
         if isinstance(first, EmbeddingLayer):
             if x.dtype.kind == "f" and not np.array_equal(x, np.round(x)):
@@ -343,9 +385,31 @@ class Container(nn.Module):
             if x.size and (x.min() < 0 or x.max() >= first.n_in):
                 raise ValueError(f"token ids must be in [0, {first.n_in}); "
                                  f"got [{x.min()}, {x.max()}]")
-            return torch.as_tensor(x.astype(np.int64), device=self.device)
-        return torch.as_tensor(x, dtype=self.dtype.param_dtype,
-                               device=self.device)
+            return torch.from_numpy(x.astype(np.int64))
+        return torch.as_tensor(x, dtype=self.dtype.param_dtype)
+
+    def _input_consumer(self):
+        """The layer that takes a one-input minibatch's features."""
+        raise NotImplementedError
+
+    def host_batch(self, ds):
+        """A `DataSet` minibatch converted on the host as `fit` converts
+        it (token ids checked and made int64, features in the param
+        dtype, labels in the output dtype, masks fp32), as CPU tensors:
+        what `datasets.DevicePrefetchIterator` stages once `fit` binds it
+        to the net."""
+        from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+
+        def f32(a):
+            return None if a is None else torch.as_tensor(
+                np.asarray(a), dtype=torch.float32)
+        return DataSet(self._host_features(ds.features,
+                                           self._input_consumer()),
+                       None if ds.labels is None else torch.as_tensor(
+                           np.asarray(ds.labels),
+                           dtype=self.dtype.output_dtype),
+                       f32(ds.features_mask), f32(ds.labels_mask),
+                       ds.example_metadata)
 
     def _labels(self, y) -> torch.Tensor:
         if isinstance(y, torch.Tensor):
@@ -421,18 +485,16 @@ class Container(nn.Module):
 
     def _refusals(self) -> List[str]:
         """The configured fields that act in training and are not ported
-        (`fit` and `score` would silently compute something else): the
-        diagnostics, which wait for `monitor/`. Inert at inference, so
-        `output()` accepts them. The `pretrain` flag is inert in `fit`,
-        as in JAX: layerwise pretraining is the `pretrain()` method."""
-        return ["diagnostics"] if self.conf.diagnostics is not None else []
+        (`fit` and `score` would silently compute something else); none
+        in the base. The `pretrain` flag is inert in `fit`, as in JAX:
+        layerwise pretraining is the `pretrain()` method."""
+        return []
 
     def _check_trainable(self):
         bad = self._refusals()
         if bad:
             raise NotImplementedError(
-                f"not ported yet for training: {', '.join(bad)} (ROADMAP "
-                f"Queue 1 item 5)")
+                f"not ported yet for training: {', '.join(bad)}")
 
     # ------------------------------------------------------------ updates
     def _candidate_runs(self) -> List[List[int]]:
@@ -589,17 +651,70 @@ class Container(nn.Module):
         constraints + running state on one minibatch at training step
         `iteration` (truncated BPTT when configured and the features
         carry a time axis). Returns the loss, a tensor on the device
-        (a float under truncated BPTT); the counters are the caller's."""
+        (a float under truncated BPTT); the counters are the caller's.
+        With diagnostics on, the step's packed stats are left in
+        `_step_dv` (on the device, unread)."""
         rng = self._step_key(iteration)
         T = self._tbptt_time(x)
         if T is not None:
             return self._fit_tbptt(x, y, fmask, lmask, rng, T, iteration)
+        acts = self._act_stats()
         loss, grads, new_state = self._loss_and_grads(
             lambda st: self._loss_fn(x, y, fmask, lmask, train=True,
-                                     rng=rng, new_state=st))
-        self._apply_updates(iteration, self._normalize_gradients(grads))
-        self._commit_state(new_state)
+                                     rng=rng, new_state=st, acts=acts))
+        self._step_dv = self._update(iteration,
+                                     self._normalize_gradients(grads),
+                                     new_state, loss, acts)
         return loss
+
+    def _act_stats(self) -> Optional[dict]:
+        """The dict a training forward fills with each layer's
+        activation statistics ({layer key: [3]}), or None when the
+        diagnostics do not take them."""
+        d = self.diagnostics
+        return {} if d is not None and d.activation_stats else None
+
+    def _update(self, iteration: int, grads, new_state, loss, acts,
+                packed: bool = True):
+        """The step's update (`_apply_updates`) and running-state commit;
+        with diagnostics on, around them the snapshot, the stats and the
+        ``skip`` gate (`monitor.diagnostics.collect_and_gate`). Returns
+        the packed stats vector, or None with diagnostics off."""
+        # the call forms the step used before diagnostics (a truncated-BPTT
+        # chunk names `packed`)
+        apply = (functools.partial(self._apply_updates, iteration, grads)
+                 if packed else functools.partial(
+                     self._apply_updates, iteration, grads, packed=False))
+        if self._diag is None:
+            apply()
+            self._commit_state(new_state)
+            return None
+        with torch.no_grad():
+            params = {key: layer.jax_param_map()
+                      for key, layer in self.keyed() if layer.jax_param_map()}
+            copies = iter(snapshot([t for lp in params.values()
+                                    for t in lp.values()]))
+            old = {key: {name: next(copies) for name in lp}
+                   for key, lp in params.items()}
+            skip = self.diagnostics.watchdog == "skip"
+            slots = ([(lk, pk, sk) for lk, lst in self.updater_state.items()
+                      for pk, st in lst.items() for sk, t in st.items()
+                      if isinstance(t, torch.Tensor)] if skip else [])
+            upd_old = snapshot([self.updater_state[lk][pk][sk]
+                                for lk, pk, sk in slots])
+        apply()
+        cd = self.dtype.compute_dtype
+        gtree = {key: {name: (grads.get(id(p)) if grads.get(id(p)) is not None
+                              else torch.zeros_like(p, dtype=cd))
+                       for name, p in lp.items()}
+                 for key, lp in params.items()}
+        dv, new_state = collect_and_gate(
+            self._diag, "fit", params=params, params_old=old,
+            updates=[self.updater_state[lk][pk][sk] for lk, pk, sk in slots],
+            updates_old=upd_old, state_new=new_state,
+            state_old=self.net_state, grads=gtree, loss=loss, acts=acts)
+        self._commit_state(new_state)
+        return dv
 
     def _fit_step(self, x, y, fmask=None, lmask=None):
         """One training step at `iteration_count` (a line-search solver's
@@ -666,14 +781,16 @@ class Container(nn.Module):
             xc, yc, fm, lm = self._chunk(x, y, fmask, lmask, s, L)
             crng = prng.fold_in(rng, s)
             stopped = _detach(carries)
-            out = {}
+            out, acts = {}, self._act_stats()
             loss, grads, new_state = self._loss_and_grads(
                 lambda st: self._loss_fn(xc, yc, fm, lm, train=True,
                                          rng=crng, new_state=st,
-                                         carries=stopped, carries_out=out))
-            self._apply_updates(iteration, self._normalize_gradients(grads),
-                                packed=False)
-            self._commit_state(new_state)
+                                         carries=stopped, carries_out=out,
+                                         acts=acts))
+            # the diagnostics report the LAST chunk; skip gates each one
+            self._step_dv = self._update(
+                iteration, self._normalize_gradients(grads), new_state,
+                loss, acts, packed=False)
             carries = {**carries, **out}
             total += float(loss)
             n += 1
@@ -825,39 +942,70 @@ class Container(nn.Module):
         (the earlier ones see the group's final params, as in JAX). A
         masked batch, a change of shape, the epoch's ragged tail, a
         line-search solver and truncated BPTT go per step, where JAX
-        falls back too."""
+        falls back too.
+
+        With diagnostics on, each step's (or group's) statistics are read
+        at the report cadence (`process_if_due`) and passed as
+        `diagnostics=` (None off cadence). An iterator with `bind_model`
+        (`DevicePrefetchIterator`) is bound to the net first, so it
+        stages batches converted as the net converts them."""
         self._set_solver()
         spe = max(1, int(steps_per_execution))
         grouped = spe > 1 and self._solver is None and not self._is_tbptt()
-        listeners = ComposedListeners(self.listeners)
+        listeners = ComposedListeners(self.listeners
+                                      + monitor.extra_listeners())
+        bind = getattr(iterator, "bind_model", None)
+        if bind is not None:
+            bind(self)
 
         def one(item, etl_ms):
             x, y, masks, n, raw = item
-            self._fit_step(x, y, **masks)
-            listeners.iteration_done(
-                self, self.iteration_count, self.epoch_count,
-                self.score_value, batch_size=n, etl_ms=etl_ms, batch=raw)
+            it = self.iteration_count
+            self._step_dv = None
+            with monitor.span("fit/forward_backward", iteration=it):
+                self._fit_step(x, y, **masks)
+            with monitor.span("fit/update", iteration=it):
+                # ONE batched device->host copy at cadence; the
+                # watchdog's warn/halt/count actions live there
+                rows = process_if_due(self, self._step_dv, "fit", it)
+                dstats = rows[-1] if rows else None
+                listeners.iteration_done(
+                    self, it, self.epoch_count, self.score_value,
+                    batch_size=n, etl_ms=etl_ms, batch=raw,
+                    diagnostics=dstats)
             self.iteration_count += 1
 
         def flush(pending, etl_ms):
             if len(pending) == 1:
                 one(pending[0], etl_ms)
             elif pending:
-                it0 = self.iteration_count
-                losses = torch.stack([
-                    torch.as_tensor(self._train_step(x, y, None, None,
-                                                     it0 + j)).float()
-                    for j, (x, y, _, _, _) in enumerate(pending)]).cpu()
-                for j, (_, _, _, n, raw) in enumerate(pending):
-                    self.score_value = float(losses[j])
-                    listeners.iteration_done(
-                        self, self.iteration_count, self.epoch_count,
-                        self.score_value, batch_size=n,
-                        etl_ms=etl_ms if j == 0 else 0.0, batch=raw,
-                        step_boundary=j == len(pending) - 1)
-                    self.iteration_count += 1
+                it0, k = self.iteration_count, len(pending)
+                with monitor.span("fit/forward_backward", iteration=it0,
+                                  fused_steps=k):
+                    losses, dvs = [], []
+                    for j, (x, y, _, _, _) in enumerate(pending):
+                        self._step_dv = None
+                        losses.append(torch.as_tensor(self._train_step(
+                            x, y, None, None, it0 + j)).float())
+                        dvs.append(self._step_dv)
+                    losses = torch.stack(losses).cpu()
+                with monitor.span("fit/update", fused_steps=k):
+                    # the group's stacked stats in ONE copy
+                    rows = process_if_due(self, dvs, "fit", it0, k)
+                    for j, (_, _, _, n, raw) in enumerate(pending):
+                        self.score_value = float(losses[j])
+                        dstats = (rows[j] if rows is not None
+                                  and self._diag.due(self.iteration_count)
+                                  else None)
+                        listeners.iteration_done(
+                            self, self.iteration_count, self.epoch_count,
+                            self.score_value, batch_size=n,
+                            etl_ms=etl_ms if j == 0 else 0.0, batch=raw,
+                            step_boundary=j == k - 1, diagnostics=dstats)
+                        self.iteration_count += 1
             pending.clear()
 
+        mon_on = monitor.is_enabled()
         listeners.on_fit_start(self)
         for _ in range(int(epochs)):
             listeners.on_epoch_start(self, self.epoch_count)
@@ -869,7 +1017,11 @@ class Container(nn.Module):
                 ds = next(batches, None)
                 if ds is None:
                     break
-                etl_ms = (time.perf_counter() - t0) * 1e3
+                t1 = time.perf_counter()
+                etl_ms = (t1 - t0) * 1e3
+                if mon_on:
+                    monitor.tracer().complete_between(
+                        "fit/etl", t0, t1, iteration=self.iteration_count)
                 x, y, masks = self._batch(ds, data_format)
                 item = (x, y, masks, ds.num_examples(),
                         (ds.features, ds.labels,
@@ -915,7 +1067,8 @@ class Container(nn.Module):
         Updates happen in place here, so a clone that shared a tensor
         would move the original when it trains."""
         clone = type(self)(type(self.conf).from_dict(self.conf.to_dict()),
-                           device=self.device, dtype_policy=self.dtype)
+                           device=self.device, dtype_policy=self.dtype,
+                           diagnostics=self.diagnostics)
         with torch.no_grad():
             for (_, a), (_, b) in zip(self.keyed(), clone.keyed()):
                 for name, t in a.jax_param_map().items():

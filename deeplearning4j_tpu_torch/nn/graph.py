@@ -38,9 +38,14 @@ inputs and outputs (the JAX `fit` :844-1017), groups minibatches under
 `steps_per_execution`, and runs the line-search solvers; `resume`,
 `copy` and `set_param_table` are the container's.
 
-Not ported, and refused by name: diagnostics, `gradient_sharing` other
-than "dense" (in `fit` and `score`), and sequence parallelism inside a
-graph (when it is built).
+Diagnostics (`monitor/`, `nn/container.py`): the constructor's
+`diagnostics=` or the configuration's field; the activation statistics
+are taken from every layer node's output but the output layers', as
+the JAX `_forward_all` takes them.
+
+Not ported, and refused by name: `gradient_sharing` other than "dense"
+(in `fit` and `score`), and sequence parallelism inside a graph (when
+it is built).
 """
 
 from __future__ import annotations
@@ -52,6 +57,10 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.datasets.iterator import as_iterator
+from deeplearning4j_tpu_torch.monitor.diagnostics import (
+    activation_stats,
+    as_diagnostics,
+)
 from deeplearning4j_tpu_torch.datasets.multidataset import (
     MultiDataSet,
     MultiDataSetIterator,
@@ -62,7 +71,7 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
     BackpropType,
     GradientNormalization,
     NeuralNetConfiguration,
-    _diagnostics,
+    _diagnostics_to_dict,
     check_format_version,
     infer_preprocessor,
 )
@@ -169,7 +178,7 @@ class ComputationGraphConfiguration:
             "gradient_sharing_threshold": self.gradient_sharing_threshold,
             "dtype_policy": (None if self.dtype_policy is None
                              else as_policy(self.dtype_policy).to_dict()),
-            "diagnostics": _diagnostics(self.diagnostics),
+            "diagnostics": _diagnostics_to_dict(self.diagnostics),
             "input_types": {k: v.to_dict()
                             for k, v in self.input_types.items()},
             "nodes": [
@@ -209,7 +218,7 @@ class ComputationGraphConfiguration:
             "gradient_sharing_threshold", 1e-3)
         if d.get("dtype_policy") is not None:
             conf.dtype_policy = as_policy(d["dtype_policy"])
-        conf.diagnostics = _diagnostics(d.get("diagnostics"))
+        conf.diagnostics = as_diagnostics(d.get("diagnostics"))
         conf.input_types = {k: InputType.from_dict(v)
                             for k, v in d.get("input_types", {}).items()}
         for nd in d["nodes"]:
@@ -292,7 +301,7 @@ class GraphBuilder:
         return self
 
     def diagnostics(self, spec) -> "GraphBuilder":
-        self._conf.diagnostics = _diagnostics(spec)
+        self._conf.diagnostics = as_diagnostics(spec)
         return self
 
     def build(self) -> ComputationGraphConfiguration:
@@ -334,7 +343,7 @@ class GraphBuilder:
 
 class ComputationGraph(Container):
     def __init__(self, conf: ComputationGraphConfiguration, *,
-                 device="cuda", dtype_policy=None):
+                 device="cuda", dtype_policy=None, diagnostics=None):
         """A graph from its configuration (its layers become the graph's,
         as in JAX; a conf whose layers already belong to a net is copied
         first). Params are zeros (norm gains ones) until `init` draws
@@ -354,7 +363,7 @@ class ComputationGraph(Container):
         names = [n for n in order if conf.nodes[n].kind == "layer"]
         self._setup(conf, [conf.nodes[n].layer for n in names], names,
                     {n: i for i, n in enumerate(order)}, device,
-                    dtype_policy)
+                    dtype_policy, diagnostics)
         self.topo_order = order
         self.output_layer_names = [
             n for n in conf.network_outputs
@@ -370,12 +379,15 @@ class ComputationGraph(Container):
 
     # ----------------------------------------------------------- forward
     def _forward_all(self, xs, *, train=False, rng=None, masks=None,
-                     stop_at_loss=False, new_state=None, carries=None):
+                     stop_at_loss=False, new_state=None, carries=None,
+                     acts=None):
         """Walk the topological order. Returns (activations by node,
         {output layer: (its input, its mask)} when `stop_at_loss`, masks
         by node). With `carries` (a dict by node name, written in place)
         the recurrent nodes run from their carries and leave the new
-        ones there."""
+        ones there; `acts` collects each layer node's activation
+        statistics (the diagnostics')."""
+        stats = acts
         masks = list(masks) if masks else [None] * len(xs)
         acts, mask_map, preouts = {}, {}, {}
         for i, name in enumerate(self.conf.network_inputs):
@@ -413,13 +425,17 @@ class ComputationGraph(Container):
                                               train=train, rng=rng,
                                               mask=mask, new_state=new_state)
             mask_map[name] = node.layer.forward_mask(mask)
+            if stats is not None:
+                stats[name] = activation_stats(acts[name])
         return acts, preouts, mask_map
 
     def _loss_fn(self, xs, ys, fmasks=None, lmasks=None, *, train=False,
-                 rng=None, new_state=None, carries=None, carries_out=None):
+                 rng=None, new_state=None, carries=None, carries_out=None,
+                 acts=None):
         """The sum of every output layer's loss on the forward to it, plus
         the l1/l2 penalty and the training forward's auxiliary losses
-        (the JAX `_loss_fn` without diagnostics); an output's label mask
+        (the JAX `_loss_fn`; `acts` collects the activation statistics);
+        an output's label mask
         defaults to the mask that
         reached it. With `carries` (truncated BPTT) the recurrent nodes
         run from them and leave their new carries in `carries_out`."""
@@ -432,7 +448,7 @@ class ComputationGraph(Container):
         c = None if carries is None else dict(carries)
         _, preouts, _ = self._forward_all(
             xs, train=train, rng=rng, masks=fmasks, stop_at_loss=True,
-            new_state=new_state, carries=c)
+            new_state=new_state, carries=c, acts=acts)
         if carries_out is not None and c is not None:
             carries_out.update(c)
         total = 0.0
@@ -504,6 +520,9 @@ class ComputationGraph(Container):
                              f" inputs; got {len(xs)}")
         return [self._features_for(a, self._id_consumer[name])
                 for a, name in zip(xs, self.conf.network_inputs)]
+
+    def _input_consumer(self):
+        return self._id_consumer[self.conf.network_inputs[0]]
 
     def _labels(self, y) -> List[torch.Tensor]:
         ys = list(y) if isinstance(y, (list, tuple)) else [y]

@@ -52,8 +52,13 @@ groups, `data_format` (NCHW, NCW/NFT) on `fit`, `output`,
 `feed_forward`, `evaluate*` and `rnn_time_step`, the line-search
 `optimization_algo`s (`optimize/solvers.py`), each layer's
 `remat_policy`, `copy`, `set_param_table` and `resume` (`fault/`).
-Diagnostics are refused in `fit` and `score` (`_check_trainable`): they
-wait for `monitor/`.
+
+Diagnostics and telemetry (`monitor/`, `nn/container.py`): the
+constructor's `diagnostics=` (or the configuration's field, or
+`DL4J_DIAGNOSTICS`) turns on the per-layer statistics and the
+non-finite watchdog; the activation statistics are taken in `_forward`
+from each layer's output before the output layer, as the JAX
+`_forward_core` takes them (:267-271).
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ from typing import Dict, List, Optional
 import torch
 
 from deeplearning4j_tpu_torch.datasets.iterator import as_iterator
+from deeplearning4j_tpu_torch.monitor.diagnostics import activation_stats
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.container import (
     MIN_RUN,
@@ -79,13 +85,16 @@ from deeplearning4j_tpu_torch.nn.layers.recurrent import BaseRecurrentLayer
 
 
 class MultiLayerNetwork(Container):
-    def __init__(self, conf_or_layers, *, device="cuda", dtype_policy=None):
+    def __init__(self, conf_or_layers, *, device="cuda", dtype_policy=None,
+                 diagnostics=None):
         """A net from a `MultiLayerConfiguration` (its layers become the
         net's, as in JAX, and the conf stays as `.conf`) or from a list
         of layer modules (a `.conf` is made from them, so the net can be
         written). A conf whose layers already belong to a net is copied
         first, so two nets never share params. Params are zeros (norm
-        gains ones) until `init` draws them or a loader fills them."""
+        gains ones) until `init` draws them or a loader fills them.
+        `diagnostics` (a `DiagnosticsConfig`, True, a watchdog name or
+        the serde dict) beats the configuration's field."""
         super().__init__()
         if isinstance(conf_or_layers, MultiLayerConfiguration):
             conf = conf_or_layers
@@ -95,13 +104,15 @@ class MultiLayerNetwork(Container):
             conf = MultiLayerConfiguration(layers=list(conf_or_layers))
         n = len(conf.layers)
         self._setup(conf, conf.layers, [str(i) for i in range(n)],
-                    {str(i): i for i in range(n)}, device, dtype_policy)
+                    {str(i): i for i in range(n)}, device, dtype_policy,
+                    diagnostics)
 
     # ----------------------------------------------------------- forward
     def _forward(self, x, carries: Optional[Dict[str, object]] = None,
                  upto: Optional[int] = None, *, train: bool = False,
                  rng=None, mask=None, collect: Optional[list] = None,
-                 new_state: Optional[dict] = None):
+                 new_state: Optional[dict] = None,
+                 acts: Optional[dict] = None):
         """The forward through layers [0, upto). Without carries: each
         layer's full-sequence `forward` with its key `fold_in(rng, i)`
         (None without `rng`) and the mask the layers before it carried.
@@ -110,7 +121,9 @@ class MultiLayerNetwork(Container):
         (their fresh carry when absent), with their keys and weight noise
         in training. `collect` gets each layer's output appended;
         `new_state` the running state of the stateful layers in
-        training. Returns (h, new_carries, mask)."""
+        training; `acts` each layer's activation statistics
+        ({"<i>": [mean, std, dead]}, the diagnostics'). Returns
+        (h, new_carries, mask)."""
         if not isinstance(self.layers[0], EmbeddingLayer):
             # token ids pass uncast: a bf16 round corrupts ids above 256
             x = self.dtype.cast_compute(x)
@@ -130,6 +143,8 @@ class MultiLayerNetwork(Container):
             mask = layer.forward_mask(mask)
             if collect is not None:
                 collect.append(h)
+            if acts is not None:
+                acts[str(i)] = activation_stats(h)
         return h, new_carries, mask
 
     def _pre_process(self, i, h, mask):
@@ -180,15 +195,17 @@ class MultiLayerNetwork(Container):
 
     # --------------------------------------------------------------- loss
     def _loss_fn(self, x, y, fmask=None, lmask=None, *, train=False,
-                 rng=None, new_state=None, carries=None, carries_out=None):
+                 rng=None, new_state=None, carries=None, carries_out=None,
+                 acts=None):
         """The output layer's loss on the forward through the layers
         before it, plus the l1/l2 penalty and the auxiliary losses the
-        training forward left in `new_state` (the JAX `_loss_fn` without
-        diagnostics). The label mask defaults to the
+        training forward left in `new_state` (the JAX `_loss_fn`). The
+        label mask defaults to the
         mask the layers carried; the output layer's key is
         `fold_in(rng, n - 1)`. With `carries` (truncated BPTT) the
         recurrent layers run from them and leave their new carries in
-        `carries_out`."""
+        `carries_out`; `acts` collects the activation statistics of the
+        layers before the output layer."""
         out = self.layers[-1]
         if not isinstance(out, BaseOutputLayerMixin):
             raise ValueError(f"the last layer ({type(out).__name__}) has no "
@@ -197,7 +214,7 @@ class MultiLayerNetwork(Container):
         n = len(self.layers)
         h, new_carries, mask = self._forward(
             x, carries, upto=n - 1, train=train, rng=rng, mask=fmask,
-            new_state=new_state)
+            new_state=new_state, acts=acts)
         if carries_out is not None:
             carries_out.update(new_carries)
         if n - 1 in self.conf.input_preprocessors:
@@ -277,6 +294,9 @@ class MultiLayerNetwork(Container):
     # ---------------------------------------------------------------- fit
     def _features(self, x) -> torch.Tensor:
         return self._features_for(x, self.layers[0])
+
+    def _input_consumer(self):
+        return self.layers[0]
 
     def _batch(self, ds, data_format):
         if ds.labels is None:

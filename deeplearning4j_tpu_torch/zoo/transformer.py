@@ -162,15 +162,17 @@ class TransformerLM:
         return self.conf().layers
 
     def init(self, seed: Optional[int] = None, *, device="cuda",
-             dtype_policy=None) -> MultiLayerNetwork:
+             dtype_policy=None, diagnostics=None) -> MultiLayerNetwork:
         """The JAX model's net: Xavier-normal weights drawn from JAX's
         threefry keys for `seed` (default: the model's seed), on
         `device`. `dtype_policy` (a
         `nd.dtype.DataTypePolicy`, a preset name such as "mixed_bf16", or
-        None) goes to the container, where ``DL4J_DTYPE_POLICY``
-        overrides it."""
+        None) and `diagnostics` (`monitor.DiagnosticsConfig` or a spec)
+        go to the container, where ``DL4J_DTYPE_POLICY`` and
+        ``DL4J_DIAGNOSTICS`` override them."""
         return MultiLayerNetwork(self.conf(), device=device,
-                                 dtype_policy=dtype_policy).init(
+                                 dtype_policy=dtype_policy,
+                                 diagnostics=diagnostics).init(
             self.seed if seed is None else seed)
 
 

@@ -57,7 +57,12 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "fault.resume", "fault.drill", "earlystopping.conditions",
                 "earlystopping.config", "earlystopping.savers",
                 "earlystopping.scorecalc", "earlystopping.trainer",
-                "transferlearning.transfer"):
+                "transferlearning.transfer", "monitor", "monitor.registry",
+                "monitor.tracer", "monitor.flightrec", "monitor.collectors",
+                "monitor.listener", "monitor.diagnostics",
+                "datasets.dataset", "datasets.records",
+                "datasets.parallel", "datasets.fetchers", "eval.binary",
+                "eval.calibration", "eval.tools", "gradientcheck"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
 

@@ -480,33 +480,31 @@ def _refuse(net, field):
     setters[field]()
 
 
-# the fields this file once refused in `fit` that train now, each held
-# to JAX's `fit` below; and those `fit` still refuses
+# the fields this file once refused in `fit`; each trains now, held to
+# JAX's `fit` below
 PORTED = ["dropout", "idropout", "attention_dropout", "weight_noise",
           "constraints", "l1", "l2", "l1_bias", "l2_bias", "max_norm",
           "gradient_normalization", "backprop_type", "pretrain",
-          "optimization_algo"]
-REFUSED = ["diagnostics"]
+          "optimization_algo", "diagnostics"]
 
 
-@pytest.mark.parametrize("field", PORTED + REFUSED)
+@pytest.mark.parametrize("field", PORTED)
 def test_unported_fields_refused_in_fit_accepted_by_output(field):
-    """Every field is inert in `output()`. A field of REFUSED is refused
-    in `fit`; a field of PORTED trains (the test keeps the name it had
-    when all of them were refused): two steps of the port net and of
-    the JAX net built from the port's configuration JSON, from the same
-    params, within this file's training tolerances."""
+    """Every field is inert in `output()` and trains (the test keeps the
+    name it had when all of them were refused): two steps of the port
+    net and of the JAX net built from the port's configuration JSON,
+    from the same params, within this file's training tolerances. The
+    diagnostics act from the constructor, so that net is built anew from
+    its configuration (the same seed draws the same params)."""
     ref = TransformerLM(**SMALL).init(device="cpu")
     net = TransformerLM(**SMALL).init(device="cpu")
     _refuse(net, field)
+    if field == "diagnostics":
+        net = MultiLayerNetwork(net.conf, device="cpu").init()
+        assert net.diagnostics.watchdog == "warn"
     ids = np.random.default_rng(8).integers(0, V, (2, 12))
     assert torch.equal(net.output(ids), ref.output(ids))
     x, y = windows(9, 2 * B)
-    if field in REFUSED:
-        with pytest.raises(NotImplementedError, match="not ported"):
-            net.fit(x, y, batch_size=B)
-        assert net.iteration_count == 0
-        return
     jnet = JaxNet(JaxConf.from_json(net.conf.to_json())).init()
     jnet.params = {k: {n: jnp.asarray(a) for n, a in v.items()}
                    for k, v in to_jax_params(net).items()}
@@ -516,6 +514,9 @@ def test_unported_fields_refused_in_fit_accepted_by_output(field):
         net.fit(x[i:i + B], y[i:i + B], batch_size=B, shuffle=False)
         losses.append((net.score_value, jnet.score_value))
     np.testing.assert_allclose(*zip(*losses), rtol=LOSS_RTOL)
+    if field == "diagnostics":
+        assert net._last_diagnostics["params"].keys() == \
+            jnet._last_diagnostics["params"].keys()
     got = to_jax_params(net)
     for lk, lp in to_numpy_params(jnet.params).items():
         for name, w in lp.items():
