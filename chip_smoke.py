@@ -330,8 +330,9 @@ Phases, in order:
      RecordReaderDataSetIterator, bit-equal to the array iterator's run,
      and EvaluationBinary and EvaluationCalibration of its held-out
      outputs with the CPU's counts (or every moved prediction within
-     twice the output difference of an edge). It prints `[telemetry]`
-     lines;
+     twice the output difference of an edge); (g) the float64 gradient
+     check of a conv net at the checker's default device, the card, and
+     on the CPU. It prints `[telemetry]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
 to 15, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
@@ -6354,6 +6355,42 @@ def _tele_data(device, fails, c):
     return out
 
 
+def _tele_gradcheck(device, fails):
+    """(g) the gradient checker at its default device (the card): a
+    float64 twin of a conv, pooling and softmax net checked there through
+    cuDNN and cuBLAS in float64, the same check on the CPU beside it."""
+    from deeplearning4j_tpu_torch.gradientcheck import check_model_gradients
+    from deeplearning4j_tpu_torch.nn.conf.builder import NeuralNetConfiguration
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import (
+        ConvolutionLayer, OutputLayer, SubsamplingLayer)
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    conf = (NeuralNetConfiguration.builder().seed(42).list()
+            .layer(ConvolutionLayer(n_out=3, kernel_size=(2, 2),
+                                    stride=(1, 1), activation="tanh"))
+            .layer(SubsamplingLayer(kernel_size=(2, 2), stride=(2, 2)))
+            .layer(OutputLayer(n_out=2, activation="softmax", loss="mcxent"))
+            .set_input_type(InputType.convolutional(6, 6, 2))
+            .build())
+    x = np.random.default_rng(0).standard_normal((3, 6, 6, 2))
+    y = np.eye(2)[np.random.default_rng(1).integers(0, 2, 3)]
+    t0 = time.perf_counter()
+    net = MultiLayerNetwork(conf, device=device).init()
+    if device.type == "cuda":
+        ok, worst, bad = check_model_gradients(net, x, y)
+    else:
+        ok, worst, bad = check_model_gradients(net, x, y, device="cpu")
+    seconds = time.perf_counter() - t0
+    cok, cworst, _ = check_model_gradients(_copy_to(net, "cpu"), x, y,
+                                           device="cpu")
+    out = dict(ok=ok, max_rel_err=worst, cpu_ok=cok, cpu_max_rel_err=cworst,
+               seconds=seconds)
+    fails.check(ok and cok, f"telemetry (g): gradient check on "
+                f"{device.type} {ok} (worst {worst:.2e}, {bad[:3]}), on the "
+                f"CPU {cok} (worst {cworst:.2e})")
+    return out
+
+
 def phase_telemetry(device, report, fails, small=False):
     """Phase 15 on `device` (fp32 with TF32 off, and mixed_bf16): the
     long-context LM's diagnostics, watchdog, transfers, spans and
@@ -6399,6 +6436,7 @@ def phase_telemetry(device, report, fails, small=False):
             fails.check(lm_launches[k] > 0, f"telemetry: kernel {k} did not "
                         f"launch on the long-context LM")
     out["data"] = _tele_data(device, fails, c)
+    out["gradcheck"] = _tele_gradcheck(device, fails)
     _sync(device)
     total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
     out["launches"], out["lm_launches"] = total, lm_launches
@@ -6446,69 +6484,66 @@ def _print_telemetry(out):
           f"{d['calibration_moved']}); output err "
           f"{d['output_max_abs_err']:.2e}; phase {out['seconds']:.1f} s",
           flush=True)
+    g = out["gradcheck"]
+    print(f"[telemetry] (g) float64 gradient check at the default device: "
+          f"{g['ok']}, worst rel {g['max_rel_err']:.2e} ({g['seconds']:.2f}"
+          f" s); on the CPU {g['cpu_ok']}, {g['cpu_max_rel_err']:.2e}",
+          flush=True)
 
 
 
 def telemetry_probe(device, repeats=5):
     """Where a diagnostics step's host time goes (`--telemetry-probe`):
     the long-context LM at [8, 2047] with diagnostics on, fp32 and
-    mixed, one `_update` replayed part by part with a host clock mark
-    after each (no synchronize between marks, so each part reads what
-    the host spends on it, a part that waits for the card included):
-    the forward and backward enqueued, the snapshot, the update
-    (`_apply_updates`), `collect_and_gate`, the wait in `float(loss)`
-    and the readback (`process`). Medians over `repeats` steps after
-    one warm step."""
+    mixed, `fit` over one warm step and `repeats` more with monitoring
+    on, each part of a step read from the spans the step records (no
+    synchronize between them, so a part that waits for the card reads
+    the wait): the forward and backward enqueued (`fit/forward_backward`
+    less the parts inside it), `fit/snapshot`, `fit/apply_updates`,
+    `fit/collect_and_gate`, `fit/read_loss` (the wait in `float(loss)`)
+    and `fit/update` (the readback, `process`, and the monitor's
+    listener). Medians over the steps after the warm one."""
     import torch
-    from deeplearning4j_tpu_torch.monitor.diagnostics import (
-        collect_and_gate, snapshot)
-    cfg = LM_LONG
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.monitor import (
+        DiagnosticsConfig, MetricsRegistry, Tracer)
+    cfg, B = LM_LONG, 8
     params = random_lm_params(cfg, seed=150, head_scale=1.0)
-    X, Y = lm_corpus(cfg, 8, seed=15)
-    parts = ("forward_backward_enqueued", "snapshot", "update",
-             "collect_and_gate", "wait_for_card", "process")
+    X, Y = lm_corpus(cfg, B * (repeats + 1), seed=15)
+    inner = ("fit/snapshot", "fit/apply_updates", "fit/collect_and_gate",
+             "fit/read_loss")
     out = {}
     for policy in (None, MIXED):
-        net = _tele_nets(cfg, device, params, policy)(True)
-        xs, ys = net._features(X), net._labels(Y)
-        rows = []
-        for _ in range(repeats + 1):
-            it = net.iteration_count
+        net = _tele_nets(cfg, device, params, policy)(
+            DiagnosticsConfig(report_frequency=1))
+        tracer = Tracer()
+        monitor.enable(registry=MetricsRegistry(), tracer=tracer)
+        try:
             torch.cuda.synchronize()
-            marks = [time.perf_counter()]
-            acts = net._act_stats()
-            loss, grads, new_state = net._loss_and_grads(
-                lambda st: net._loss_fn(xs, ys, train=True,
-                                        rng=net._step_key(it),
-                                        new_state=st, acts=acts))
-            grads = net._normalize_gradients(grads)
-            marks.append(time.perf_counter())
-            tree = {k: layer.jax_param_map() for k, layer in net.keyed()
-                    if layer.jax_param_map()}
-            copies = iter(snapshot([t for lp in tree.values()
-                                    for t in lp.values()]))
-            old = {k: {n: next(copies) for n in lp} for k, lp in tree.items()}
-            marks.append(time.perf_counter())
-            net._apply_updates(it, grads)
-            marks.append(time.perf_counter())
-            g = {k: {n: grads[id(p)] for n, p in lp.items()}
-                 for k, lp in tree.items()}
-            dv, st = collect_and_gate(
-                net._diag, "fit", params=tree, params_old=old, updates=[],
-                updates_old=[], state_new=new_state,
-                state_old=net.net_state, grads=g, loss=loss, acts=acts)
-            net._commit_state(st)
-            marks.append(time.perf_counter())
-            float(loss)
-            marks.append(time.perf_counter())
-            net._diag.process(net, dv, "fit", it)
-            marks.append(time.perf_counter())
-            net.iteration_count += 1
-            rows.append(np.diff(marks) * 1e3)
-        med = np.median(rows[1:], axis=0)
-        out[policy or "float32"] = dict(zip(parts, map(float, med)))
+            net.fit(X, Y, batch_size=B, shuffle=False)
+            torch.cuda.synchronize()
+        finally:
+            monitor.disable()
+        ms = {}
+        for ev in tracer.events():
+            if ev["ph"] == "X":
+                ms.setdefault(ev["name"], []).append(ev["dur"] / 1e3)
+        steps = repeats + 1
+        bad = {k: len(ms.get(k, [])) for k in inner + (
+            "fit/forward_backward", "fit/update")
+            if len(ms.get(k, [])) != steps}
+        if bad:
+            raise RuntimeError(f"telemetry probe: span counts {bad}, "
+                               f"want {steps} each")
+        fb = np.array(ms["fit/forward_backward"]) - sum(
+            np.array(ms[k]) for k in inner)
+        rows = {"forward_backward_enqueued": fb,
+                **{k.split("/", 1)[1]: np.array(ms[k]) for k in inner},
+                "process": np.array(ms["fit/update"])}
+        med = {k: float(np.median(v[1:])) for k, v in rows.items()}
+        out[policy or "float32"] = med
         print(f"[telemetry-probe] {policy or 'float32'} host ms: "
-              + ", ".join(f"{k} {v:.2f}" for k, v in zip(parts, med)),
+              + ", ".join(f"{k} {v:.2f}" for k, v in med.items()),
               flush=True)
         del net
     return out

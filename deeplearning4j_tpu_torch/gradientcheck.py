@@ -8,13 +8,15 @@ autograd gradient with a maximum relative error. A wrong forward gives
 a gradient that is consistent but wrong; a non-differentiable or
 unstable forward shows up as a mismatch.
 
-Why this is the one entry point of the port whose default device is the
-CPU: the check is a float64 oracle, and the hand-written kernels run
-float32 and bfloat16 only (on a CUDA tensor a kernel wrapper launches or
-raises, and a float64 tensor raises). On the CPU every wrapper takes its
-plain PyTorch version, which computes in the inputs' dtype, so the net
-runs its whole forward in float64 there, as the JAX checker runs under
-`enable_x64` on the CPU.
+Like every entry point of the port it runs on the card unless the
+caller asks for the CPU. The check is a float64 oracle: on the card a
+float64 net runs its dense and convolution layers through cuBLAS and
+cuDNN in float64, but the hand-written kernels run float32 and bfloat16
+only, and their wrappers raise on a float64 CUDA tensor. So a net that
+reaches LayerNorm or flash attention is checked with `device="cpu"`:
+there every wrapper takes its plain PyTorch version, which computes in
+the inputs' dtype, as the JAX checker runs under `enable_x64` on the
+CPU.
 
 Sampling is JAX's: the param tree is walked in JAX's flatten order
 (sorted keys), and each tensor draws up to `max_params_per_array`
@@ -56,7 +58,7 @@ def check_gradients_fn(loss_fn: Callable[[Dict], torch.Tensor], params: Dict,
                        epsilon: float = 1e-6, max_rel_error: float = 1e-5,
                        min_abs_error: float = 1e-8,
                        max_params_per_array: int = 64, seed: int = 0,
-                       verbose: bool = False, device="cpu"):
+                       verbose: bool = False, device="cuda"):
     """Check the autograd gradients of `loss_fn(params)` (a scalar; params
     a tree of nested dicts of arrays or tensors) against central finite
     differences in float64 on `device`. Returns (ok, max_rel_err,
@@ -149,7 +151,7 @@ def _params(twin):
 def check_model_gradients(model, features, labels, epsilon: float = 1e-6,
                           max_rel_error: float = 1e-4,
                           max_params_per_array: int = 32, features_mask=None,
-                          labels_mask=None, seed: int = 0, device="cpu"):
+                          labels_mask=None, seed: int = 0, device="cuda"):
     """Gradient-check a MultiLayerNetwork on one minibatch (reference
     `GradientCheckUtil.checkGradients(mln, ...)`), in float64 on a copy
     of the net; the net itself is untouched. Dropout must be off."""
@@ -167,7 +169,7 @@ def check_model_gradients(model, features, labels, epsilon: float = 1e-6,
 def check_graph_gradients(model, inputs, labels, epsilon: float = 1e-6,
                           max_rel_error: float = 1e-4,
                           max_params_per_array: int = 32, seed: int = 0,
-                          device="cpu"):
+                          device="cuda"):
     """Gradient-check a ComputationGraph on one minibatch (reference
     `GradientCheckUtil.checkGradients(graph, ...)`), as
     `check_model_gradients`."""

@@ -12,9 +12,8 @@ at once.
 Nothing here runs at import time, and nothing builds unless a kernel is
 launched on a CUDA tensor: a CPU-only machine never calls `nvcc`.
 
-Each finished build is reported to the build listeners
-(`add_build_listener`: `fn(name, seconds)`), which is how
-`monitor.KernelBuildCollector` counts the port's compiles.
+`BUILDS` and `BUILD_SECONDS` count the finished builds and their
+seconds since import; `monitor.KernelBuildCollector` reads them.
 """
 
 from __future__ import annotations
@@ -27,7 +26,7 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Callable, Dict, List
+from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -36,18 +35,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
-_build_listeners: List[Callable[[str, float], None]] = []
-
-
-def add_build_listener(fn: Callable[[str, float], None]):
-    """Call `fn(source name, seconds)` after each successful build."""
-    if fn not in _build_listeners:
-        _build_listeners.append(fn)
-
-
-def remove_build_listener(fn: Callable[[str, float], None]):
-    if fn in _build_listeners:
-        _build_listeners.remove(fn)
+BUILDS = 0
+BUILD_SECONDS = 0.0
 
 
 def nvcc_path() -> str:
@@ -83,7 +72,6 @@ def _start(name: str, out: Path) -> subprocess.Popen:
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp, proc.out, proc.cmd, proc.t0 = tmp, out, cmd, t0
-    proc.name = name
     return proc
 
 
@@ -93,9 +81,9 @@ def _finish(proc: subprocess.Popen):
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
                            f"{' '.join(proc.cmd)}\n{log}")
     os.replace(proc.tmp, proc.out)      # atomic: readers never see a partial .so
-    seconds = time.perf_counter() - proc.t0
-    for fn in list(_build_listeners):
-        fn(proc.name, seconds)
+    global BUILDS, BUILD_SECONDS
+    BUILDS += 1
+    BUILD_SECONDS += time.perf_counter() - proc.t0
 
 
 def build_all(names=None) -> Dict[str, Path]:

@@ -5,8 +5,9 @@ Three windows into the runtime that host-side spans cannot see:
 
 - `KernelBuildCollector`: the port's only compile step is the `nvcc`
   build of its hand-written kernels (`kernels/build.py`), the place the
-  JAX package's `JitCompileCollector` counts XLA compiles. Each build is
-  counted under the JAX family names, `jax_compiles_total` and
+  JAX package's `JitCompileCollector` counts XLA compiles. Its
+  `collect()` (call it where a fresh reading matters, as for the memory
+  gauges) counts the builds under the JAX family names, `jax_compiles_total` and
   `jax_compile_seconds_total{stage="nvcc_build"}`, so a dashboard reads
   the same families from either package.
 - `DeviceMemoryCollector`: per-card allocator gauges from
@@ -32,41 +33,50 @@ from deeplearning4j_tpu_torch.monitor.registry import MetricsRegistry
 class KernelBuildCollector:
     """Counts kernel builds and their seconds (the compile families).
 
-    `kernels/build.py` reports each finished `nvcc` build to every
-    installed collector; `uninstall()` stops the counting."""
+    `collect()` moves the builds that `kernels/build.py` finished since
+    the last collect (and after `install()`) into the counters; the
+    readers below collect first. `uninstall()` stops the counting."""
 
     STAGE = "nvcc_build"
 
     def __init__(self, registry: MetricsRegistry):
         self.registry = registry
         self._active = False
+        self._seen = (0, 0.0)
 
     def install(self) -> "KernelBuildCollector":
         from deeplearning4j_tpu_torch.kernels import build
+        if not self._active:
+            self._seen = (build.BUILDS, build.BUILD_SECONDS)
         self._active = True
-        build.add_build_listener(self._on_build)
         return self
 
     def uninstall(self):
-        from deeplearning4j_tpu_torch.kernels import build
+        self.collect()
         self._active = False
-        build.remove_build_listener(self._on_build)
 
-    def _on_build(self, name: str, seconds: float):
+    def collect(self):
         if not self._active:
             return
-        self.registry.counter(
-            "jax_compile_seconds_total",
-            help="cumulative jit compile time by stage",
-            stage=self.STAGE).inc(seconds)
-        self.registry.counter(
-            "jax_compiles_total",
-            help="number of XLA backend compilations").inc()
+        from deeplearning4j_tpu_torch.kernels import build
+        builds, seconds = build.BUILDS, build.BUILD_SECONDS
+        n, s = builds - self._seen[0], seconds - self._seen[1]
+        self._seen = (builds, seconds)
+        if n:
+            self.registry.counter(
+                "jax_compile_seconds_total",
+                help="cumulative jit compile time by stage",
+                stage=self.STAGE).inc(s)
+            self.registry.counter(
+                "jax_compiles_total",
+                help="number of XLA backend compilations").inc(n)
 
     def compile_count(self) -> float:
+        self.collect()
         return self.registry.counter("jax_compiles_total").value
 
     def compile_seconds(self) -> float:
+        self.collect()
         fam = self.registry._families.get("jax_compile_seconds_total")
         return 0.0 if fam is None else sum(c.value for c in
                                            fam.children.values())

@@ -678,18 +678,15 @@ class Container(nn.Module):
                 packed: bool = True):
         """The step's update (`_apply_updates`) and running-state commit;
         with diagnostics on, around them the snapshot, the stats and the
-        ``skip`` gate (`monitor.diagnostics.collect_and_gate`). Returns
-        the packed stats vector, or None with diagnostics off."""
-        # the call forms the step used before diagnostics (a truncated-BPTT
-        # chunk names `packed`)
-        apply = (functools.partial(self._apply_updates, iteration, grads)
-                 if packed else functools.partial(
-                     self._apply_updates, iteration, grads, packed=False))
+        ``skip`` gate (`monitor.diagnostics.collect_and_gate`), each in
+        a span (`fit/snapshot`, `fit/apply_updates`,
+        `fit/collect_and_gate`). Returns the packed stats vector, or None
+        with diagnostics off."""
         if self._diag is None:
-            apply()
+            self._apply_updates(iteration, grads, packed=packed)
             self._commit_state(new_state)
             return None
-        with torch.no_grad():
+        with monitor.span("fit/snapshot"), torch.no_grad():
             params = {key: layer.jax_param_map()
                       for key, layer in self.keyed() if layer.jax_param_map()}
             copies = iter(snapshot([t for lp in params.values()
@@ -702,18 +699,22 @@ class Container(nn.Module):
                       if isinstance(t, torch.Tensor)] if skip else [])
             upd_old = snapshot([self.updater_state[lk][pk][sk]
                                 for lk, pk, sk in slots])
-        apply()
-        cd = self.dtype.compute_dtype
-        gtree = {key: {name: (grads.get(id(p)) if grads.get(id(p)) is not None
-                              else torch.zeros_like(p, dtype=cd))
-                       for name, p in lp.items()}
-                 for key, lp in params.items()}
-        dv, new_state = collect_and_gate(
-            self._diag, "fit", params=params, params_old=old,
-            updates=[self.updater_state[lk][pk][sk] for lk, pk, sk in slots],
-            updates_old=upd_old, state_new=new_state,
-            state_old=self.net_state, grads=gtree, loss=loss, acts=acts)
-        self._commit_state(new_state)
+        with monitor.span("fit/apply_updates"):
+            self._apply_updates(iteration, grads, packed=packed)
+        with monitor.span("fit/collect_and_gate"):
+            cd = self.dtype.compute_dtype
+            gtree = {key: {name: (grads.get(id(p))
+                                  if grads.get(id(p)) is not None
+                                  else torch.zeros_like(p, dtype=cd))
+                           for name, p in lp.items()}
+                     for key, lp in params.items()}
+            dv, new_state = collect_and_gate(
+                self._diag, "fit", params=params, params_old=old,
+                updates=[self.updater_state[lk][pk][sk]
+                         for lk, pk, sk in slots],
+                updates_old=upd_old, state_new=new_state,
+                state_old=self.net_state, grads=gtree, loss=loss, acts=acts)
+            self._commit_state(new_state)
         return dv
 
     def _fit_step(self, x, y, fmask=None, lmask=None):
@@ -724,8 +725,9 @@ class Container(nn.Module):
         if self._solver is not None:
             self.score_value = self._solver.optimize(x, y, fmask, lmask)
         else:
-            self.score_value = float(self._train_step(
-                x, y, fmask, lmask, self.iteration_count))
+            loss = self._train_step(x, y, fmask, lmask, self.iteration_count)
+            with monitor.span("fit/read_loss"):
+                self.score_value = float(loss)
 
     # ------------------------------------------------------ truncated BPTT
     def _is_tbptt(self) -> bool:

@@ -100,7 +100,8 @@ def test_model_check_agrees_with_jax(make):
     conf, x, y, kw = make()
     net = MultiLayerNetwork(conf, device="cpu").init()
     before = {k: t.clone() for k, t in net.param_table().items()}
-    ok, worst, failures = pgc.check_model_gradients(net, x, y, **kw)
+    ok, worst, failures = pgc.check_model_gradients(net, x, y, device="cpu",
+                                                    **kw)
     assert ok, (worst, failures[:3])
     assert worst < 1e-5
     assert all(torch.equal(t, before[k])
@@ -131,7 +132,7 @@ def test_graph_check_agrees_with_jax():
     rng = np.random.default_rng(2)
     x, y = rng.standard_normal((5, 4)), rng.standard_normal((5, 3))
     ok, worst, failures = pgc.check_graph_gradients(
-        ComputationGraph(conf, device="cpu").init(), x, y)
+        ComputationGraph(conf, device="cpu").init(), x, y, device="cpu")
     jok, _, _ = jgc.check_graph_gradients(
         JaxGraph(JaxGraphConf.from_json(conf.to_json())).init(), x, y)
     assert ok and jok, (worst, failures[:3])
@@ -154,7 +155,7 @@ def test_a_wrong_gradient_fails_in_both():
             return g * 2 * a ** 2
 
     ok, _, failures = pgc.check_gradients_fn(lambda p: Wrong.apply(p["w"]),
-                                             {"w": w})
+                                             {"w": w}, device="cpu")
     import jax
 
     @jax.custom_vjp
@@ -168,3 +169,13 @@ def test_a_wrong_gradient_fails_in_both():
             lambda p: cube_sum(p["w"]), {"w": jnp.asarray(w)})
     assert not ok and not jok
     assert [f[1] for f in failures] == [f[1] for f in jfailures]
+
+
+@pytest.mark.parametrize("fn", ["check_gradients_fn", "check_model_gradients",
+                                "check_graph_gradients"])
+def test_the_checker_runs_on_the_card_unless_asked(fn):
+    """Like every entry point of the port, the checker's default device
+    is the card; the CPU is the caller's choice."""
+    import inspect
+    assert inspect.signature(
+        getattr(pgc, fn)).parameters["device"].default == "cuda"

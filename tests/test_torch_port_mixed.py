@@ -205,9 +205,9 @@ def test_grads_are_bf16_and_master_and_state_stay_fp32(jax_params):
     x, y = corpus(1)
     seen, orig = [], net._apply_updates
 
-    def spy(step, grads=None):
+    def spy(step, grads=None, **kw):
         seen.append({g.dtype for g in grads.values()})
-        return orig(step, grads)
+        return orig(step, grads, **kw)
     net._apply_updates = spy
     before = {n: p.detach().clone() for n, p in net.named_parameters()}
     fit_steps(net, x[:2 * B], y[:2 * B])
