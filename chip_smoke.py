@@ -20,6 +20,7 @@
     python3 chip_smoke.py --telemetry     # build + phase 15 alone
     python3 chip_smoke.py --telemetry-probe  # phase 15's host-time
                                           # breakdown of a diagnostics step
+    python3 chip_smoke.py --serving-plane # build + phase 16 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -333,8 +334,34 @@ Phases, in order:
      twice the output difference of an edge); (g) the float64 gradient
      check of a conv net at the checker's default device, the card, and
      on the CPU. It prints `[telemetry]` lines;
+ 16. the serving request plane (`phase_serving_plane`) on phase 3's LM
+     config at full width (seeded params, head x4), 8 slots, block_len
+     16: (a) a burst of 12 greedy and 4 sampled requests (prompts 16-64,
+     32 tokens) run by the scheduler's loop body in this thread, once
+     with monitoring off and once on: the streams token for token, the
+     device-to-host reads (`HostReads`) and the dispatches equal, every
+     request's trace sealed with its queued, prefill and decode phases,
+     the serving families in the exposition; (b) on the threaded server
+     with monitoring on, the goodput classes sum to the dispatched
+     positions and the registry mirror equals the ledger, for a warmed
+     run, a speculative (k 4) run and a run through `drain()`; (c) a
+     burst of 24 against `slo_ttft_s` 0 (below any projected TTFT): some
+     shed with ShedError, as many in `serving_shed_total`, in
+     `slo_requests_bad_total` and as `shed` events with a reason on their
+     traces; (d) 8 prompts handed from a PrefillWorker's engine to a
+     DecodeWorker's through DLFP bytes continue bit-equal to the
+     colocated streams, fp32 and mixed_bf16 (bf16 on the wire), with
+     export + encode and decode + adopt ms and the frame's MB; (e)
+     `decode_cost_report` and `xprof.roofline` at the H100's peaks: the
+     predicted ms of a decode dispatch beside the measured one (8 slots);
+     (f) tokens/s of the threaded server over 32 dispatches with 8 slots
+     (8 requests, prompt 128, 33 tokens), monitoring off and on in turns
+     off, on, on, off, twice, and the same requests driven in this thread
+     the same way: the median host ms of a decode dispatch's scheduler
+     iteration, off and on. It prints `[serving_plane]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 15, each > 0; the counts of each phase on a `[launches]` line), the card's name and power limit, and last
+to 16, each > 0; the counts of each phase on a `[launches]` line), the
+card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
 TF32 off for matmuls and convolutions (PyTorch lets cuDNN run fp32
@@ -2296,9 +2323,9 @@ def phase_serving_features(device, report, fails, cfg, small=False):
                     > 0 and not f32,
                     f"serving_features mixed: launches by dtype "
                     f"{row['launches_by_dtype']}")
-    fp32_pool = 2 * eng.pool.nbytes
+    pool_bytes = eng.pool.device_bytes()
     row.update(eps=eps, near_ties=ties, probs_max_err_vs_fp32=err,
-               pool_bytes=eng.pool.nbytes, pool_bytes_fp32=fp32_pool,
+               pool_bytes=pool_bytes, pool_bytes_fp32=2 * pool_bytes,
                pool_dtype=str(eng.pool.kv[0][0].dtype),
                speedup_vs_vanilla=row["tokens_per_s"]
                / van_row["tokens_per_s"])
@@ -5628,7 +5655,6 @@ def _es_arm(device, fails, c, small):
         EarlyStoppingTrainer, InMemoryModelSaver,
         MaxEpochsTerminationCondition,
         ScoreImprovementEpochTerminationCondition)
-    from deeplearning4j_tpu_torch.nn.layers.misc import FrozenLayer
     from deeplearning4j_tpu_torch.transferlearning import (
         FineTuneConfiguration, TransferLearning)
     from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
@@ -5667,8 +5693,9 @@ def _es_arm(device, fails, c, small):
                                    if k == "resume"})
 
     net = tl(device)
-    frozen = [type(l).__name__ for l in net.layers]
-    fails.check(frozen[:4] == ["FrozenLayer"] * 4, f"TL layers {frozen}")
+    frozen = [getattr(l.updater, "name", None) for l in net.layers]
+    fails.check(frozen[:4] == ["noop"] * 4 and "noop" not in frozen[4:],
+                f"TL updaters {frozen}")
     _sync(device)
     t0 = time.perf_counter()
     _, res = run(device)
@@ -7095,6 +7122,522 @@ def yolo_lr_trial(device, steps=13, rates=(1e-3, 3e-4, 1e-4, 3e-5)):
 
 
 # ------------------------------------------------------------------- driver
+# ---------------------------------------------- phase 16: the request plane
+SERVING_PLANE = dict(cfg=None, n_slots=8, block_len=16, greedy=12, sampled=4,
+                     n_tok=32, lens=(16, 64), warm_len=64, burst=24,
+                     burst_tok=64, handoff=8, handoff_tok=32,
+                     timed_prompt=128, dispatches=32, repeats=2,
+                     cost_dispatches=32)
+SERVING_PLANE_SMALL = dict(cfg=dict(LM, d_model=64, n_heads=4, n_layers=2,
+                                    max_len=128),
+                           n_slots=4, block_len=16, greedy=4, sampled=2,
+                           n_tok=8, lens=(3, 24), warm_len=24, burst=8,
+                           burst_tok=16, handoff=3, handoff_tok=8,
+                           timed_prompt=16, dispatches=6, repeats=1,
+                           cost_dispatches=4)
+
+
+class HostReads:
+    """Counts the device-to-host reads the serving path makes
+    (`Tensor.cpu`, `.item`, `.tolist`) while entered: reads of CUDA
+    tensors on the card, every such call on the CPU (where they stand
+    for the copies). The methods are wrapped on `torch.Tensor` for the
+    window and restored after it."""
+
+    NAMES = ("cpu", "item", "tolist")
+
+    def __init__(self, device):
+        self.cuda = device.type == "cuda"
+        self.n = 0
+
+    def __enter__(self):
+        import torch
+        self._saved = {}
+        for name in self.NAMES:
+            own = name in torch.Tensor.__dict__
+            orig = getattr(torch.Tensor, name)
+            self._saved[name] = (own, orig)
+
+            def counted(t, *a, _orig=orig, **k):
+                if not self.cuda or t.is_cuda:
+                    self.n += 1
+                return _orig(t, *a, **k)
+            setattr(torch.Tensor, name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        for name, (own, orig) in self._saved.items():
+            if own:
+                setattr(torch.Tensor, name, orig)
+            else:
+                delattr(torch.Tensor, name)
+        return False
+
+
+def drive_server(srv, reqs, n_tok, times=None):
+    """Submit `reqs` ([(prompt, generate_async kwargs)]) to a built,
+    unstarted server and run its scheduler's loop body
+    (`_schedule_once`) in this thread until every stream ends: every
+    request is queued before the first admission, so two runs see the
+    same waves. `times`, a list, gets each iteration's host seconds.
+    Returns the streams; the server is stopped after."""
+    srv._running = True
+    try:
+        streams = [srv.generate_async(p, n_tok, **a) for p, a in reqs]
+        for _ in range(100_000):
+            if all(s._fut.done() for s in streams):
+                break
+            t0 = time.perf_counter()
+            srv._schedule_once(srv.engine)
+            if times is not None:
+                times.append(time.perf_counter() - t0)
+    finally:
+        srv._running = False
+        srv.stop()
+    return streams
+
+
+def _plane_server(net, c, warm=True, **kw):
+    from deeplearning4j_tpu_torch.serving import GenerationServer
+    max_len = net.layers[1].max_len
+    bl = c["block_len"]
+    srv = GenerationServer(net, n_slots=c["n_slots"], block_len=bl,
+                           n_blocks=c["n_slots"] * (max_len // bl) + 1,
+                           device=net.device, **kw)
+    if warm:
+        srv.warmup(c["warm_len"], 4)
+    return srv
+
+
+class _Monitored:
+    """Monitoring on (a fresh registry and tracer) for the block, then
+    off with the global sinks back."""
+
+    def __enter__(self):
+        from deeplearning4j_tpu_torch import monitor
+        from deeplearning4j_tpu_torch.monitor.registry import MetricsRegistry
+        from deeplearning4j_tpu_torch.monitor.tracer import Tracer
+        self.reg = monitor.enable(registry=MetricsRegistry(), tracer=Tracer())
+        self.tracer = monitor.tracer()
+        return self
+
+    def __exit__(self, *exc):
+        from deeplearning4j_tpu_torch import monitor
+        monitor.disable()
+        monitor._STATE.registry = monitor.GLOBAL_REGISTRY
+        monitor._STATE.tracer = monitor.GLOBAL_TRACER
+        return False
+
+
+def _plane_sync(fails, net, c, reqs):
+    """(a) One burst of greedy and sampled requests, monitoring off and
+    on, driven in this thread: the streams token for token and the
+    device-to-host reads (per decode dispatch too) equal."""
+    runs = {}
+    for tag in ("off", "on"):
+        mon = _Monitored() if tag == "on" else None
+        if mon is not None:
+            mon.__enter__()
+        try:
+            srv = _plane_server(net, c)
+            steps = [0]
+            step = srv.engine.step
+
+            def counted_step(**kw):
+                steps[0] += 1
+                return step(**kw)
+            srv.engine.step = counted_step
+            with HostReads(net.device) as reads:
+                streams = drive_server(srv, reqs, c["n_tok"])
+            runs[tag] = dict(
+                tokens=[s.result(0).tolist() for s in streams],
+                reads=reads.n, dispatches=steps[0],
+                traces=[s.trace for s in streams],
+                exposition=(mon.reg.exposition() if mon else None),
+                goodput=srv.engine.goodput.snapshot())
+        finally:
+            if mon is not None:
+                mon.__exit__()
+    off, on = runs["off"], runs["on"]
+    equal = off["tokens"] == on["tokens"]
+    fails.check(equal, "serving_plane (a): monitoring on changed a stream")
+    fails.check(off["reads"] == on["reads"]
+                and off["dispatches"] == on["dispatches"],
+                f"serving_plane (a): device-to-host reads off "
+                f"{off['reads']} / on {on['reads']} over "
+                f"{off['dispatches']} / {on['dispatches']} dispatches")
+    traced = [t for t in on["traces"] if t is not None]
+    fails.check(len(traced) == len(reqs)
+                and all(t.finished and t.status == "ok"
+                        and {p["name"] for p in t.phases}
+                        >= {"queued", "prefill", "decode"} for t in traced),
+                "serving_plane (a): a request's trace is missing a phase")
+    fails.check(all(t is None for t in off["traces"]),
+                "serving_plane (a): a trace was minted with monitoring off")
+    expo = on["exposition"]
+    fams = ("serving_requests_total", "serving_tokens_total",
+            "serving_ttft_seconds", "serving_goodput_fraction",
+            "serving_tokens_useful_total", "serving_step_seconds")
+    fails.check(all(f in expo for f in fams),
+                "serving_plane (a): a serving family is missing from the "
+                "exposition")
+    return dict(streams_equal=equal, reads_off=off["reads"],
+                reads_on=on["reads"], dispatches=off["dispatches"],
+                reads_per_dispatch=off["reads"] / max(1, off["dispatches"]),
+                goodput=on["goodput"])
+
+
+def _conserved(fails, eng, what, reg=None):
+    from deeplearning4j_tpu_torch.monitor.goodput import (
+        GOODPUT_COUNTER_FAMILIES)
+    snap = eng.goodput.snapshot()
+    ok = eng.goodput.conserved() and snap["dispatched_total"] > 0
+    mirrored = True
+    if reg is not None:
+        mirrored = all(reg.counter(fam).value == snap[cls]
+                       for cls, fam in GOODPUT_COUNTER_FAMILIES.items())
+    fails.check(ok and mirrored, f"serving_plane (b) {what}: goodput "
+                f"{snap} (conserved {ok}, mirrored {mirrored})")
+    return snap
+
+
+def _plane_goodput(fails, net, c, reqs):
+    """(b) The goodput classes sum to the dispatched positions: a warmed
+    run, a speculative run and a run through `drain()`, on the threaded
+    server with monitoring on (the registry mirror equals the ledger)."""
+    out = {}
+    for what, kw in (("warmed", {}), ("speculative", dict(speculative=4))):
+        with _Monitored() as mon:
+            srv = _plane_server(net, c, **kw).start()
+            try:
+                for s in [srv.generate_async(p, c["n_tok"], **a)
+                          for p, a in reqs]:
+                    s.result(timeout=600)
+            finally:
+                srv.stop()
+            snap = _conserved(fails, srv.engine, what, mon.reg)
+        fails.check(snap["warmup"] > 0 and snap["useful"] > 0
+                    and 0 < snap["goodput_fraction"] < 1,
+                    f"serving_plane (b) {what}: {snap}")
+        out[what] = dict(snap,
+                         spec_dispatches=srv.engine.spec_dispatches_total)
+    fails.check(out["speculative"]["spec_dispatches"] > 0,
+                "serving_plane (b): the speculative run drafted nothing")
+    with _Monitored() as mon:
+        srv = _plane_server(net, c).start()
+        try:
+            streams = [srv.generate_async(p, c["n_tok"], **a)
+                       for p, a in reqs]
+            drained = srv.drain(timeout=600)
+        finally:
+            srv.stop()
+        snap = _conserved(fails, srv.engine, "drain", mon.reg)
+    fails.check(drained and all(len(s.result(0)) == c["n_tok"]
+                                for s in streams) and snap["drain"] > 0,
+                f"serving_plane (b) drain: drained {drained}, {snap}")
+    out["drain"] = snap
+    return out
+
+
+def _plane_shed(fails, net, c, V):
+    """(c) A burst against an `slo_ttft_s` below the projected TTFT: some
+    requests shed with ShedError, the same number in
+    `serving_shed_total`, in the SLO's bad counter and as a `shed` event
+    with its reason on each shed request's trace."""
+    from deeplearning4j_tpu_torch.monitor import SLOObjective
+    from deeplearning4j_tpu_torch.serving import ShedError
+    rng = np.random.default_rng(161)
+    with _Monitored() as mon:
+        srv = _plane_server(net, c, slo_ttft_s=0.0, name="plane",
+                            slo=SLOObjective(ttft_s=600.0)).start()
+        try:
+            # one request first, so the scheduler has a tokens-a-second
+            # estimate to project the burst's delay with
+            srv.generate_async(rng.integers(0, V, 16), 8).result(timeout=600)
+            streams = [srv.generate_async(rng.integers(0, V, 32),
+                                          c["burst_tok"])
+                       for _ in range(c["burst"])]
+            shed, served = [], 0
+            for s in streams:
+                try:
+                    s.result(timeout=600)
+                    served += 1
+                except ShedError:
+                    shed.append(s)
+        finally:
+            srv.stop()
+        reg = mon.reg
+        n_counter = reg.counter("serving_shed_total",
+                                server="plane").value
+        n_bad = reg.counter("slo_requests_bad_total", model="plane").value
+        n_good = reg.counter("slo_requests_good_total", model="plane").value
+    reasons = [[e["args"].get("reason") for e in s.trace.events
+                if e["name"] == "shed"] for s in shed]
+    fails.check(len(shed) > 0 and n_counter == len(shed)
+                and n_bad == len(shed) and n_good == served + 1
+                and all(r and r[0] for r in reasons)
+                and all(s.trace.status == "shed" for s in shed),
+                f"serving_plane (c): shed {len(shed)}, serving_shed_total "
+                f"{n_counter}, slo bad {n_bad}, good {n_good} of "
+                f"{served + 1} served, reasons {reasons[:2]}")
+    return dict(burst=c["burst"], shed=len(shed), served=served,
+                serving_shed_total=n_counter, slo_bad=n_bad,
+                slo_good=n_good, reason=reasons[0][0] if reasons else None)
+
+
+def _plane_handoff(fails, net, c, V, tag):
+    """(d) Every slot handed from a prefill engine to a decode engine
+    through DLFP bytes continues bit-equal to the colocated stream (the
+    same engine configuration admitting each prompt in a wave of its
+    own and decoding them together); the export + encode and decode +
+    adopt times, and the frames' MB."""
+    from deeplearning4j_tpu_torch.serving import (
+        DecodeWorker, PagedDecodeEngine, PrefillWorker, wire)
+    rng = np.random.default_rng(162)
+    lo, hi = c["lens"]
+    prompts = [rng.integers(0, V, int(n))
+               for n in rng.integers(lo, hi + 1, c["handoff"])]
+    n_tok, dev = c["handoff_tok"], net.device
+    max_len = net.layers[1].max_len
+    kw = dict(n_slots=c["n_slots"], block_len=c["block_len"],
+              n_blocks=c["n_slots"] * (max_len // c["block_len"]) + 1,
+              device=dev)
+    colo = PagedDecodeEngine(net, **kw)
+    firsts, slots = [], []
+    for p in prompts:
+        slot, first, _ = colo.admit(p, n_tok)
+        firsts.append(first)
+        slots.append(slot)
+    rest = {s: [] for s in slots}
+    while colo.active.any():
+        for s, toks in colo.step()[0].items():
+            rest[s].extend(toks)
+    want = [[f] + rest[s] for f, s in zip(firsts, slots)]
+    pre, dec = PrefillWorker(net, **kw), DecodeWorker(net, **kw)
+    export_ms, adopt_ms, mb = [], [], []
+    got_first, adopted = [], []
+    for i, p in enumerate(prompts):
+        slot, first, _ = pre.engine.admit(p, n_tok, request_id=f"h{i}")
+        _sync(dev)
+        t0 = time.perf_counter()
+        header, kv = pre.engine.export_handoff(slot)
+        frame = wire.encode_handoff(header, kv)
+        export_ms.append((time.perf_counter() - t0) * 1e3)
+        pre.engine.evict(slot)
+        mb.append(len(frame) / 2 ** 20)
+        t0 = time.perf_counter()
+        adopted.append(dec.adopt(frame))
+        _sync(dev)
+        adopt_ms.append((time.perf_counter() - t0) * 1e3)
+        got_first.append(first)
+    rest = dec.decode_to_completion(adopted)
+    got = [[f] + rest[s] for f, s in zip(got_first, adopted)]
+    bad = [i for i, (a, b) in enumerate(zip(want, got)) if a != b]
+    fails.check(not bad and all(len(g) == n_tok for g in got),
+                f"serving_plane (d) {tag}: handed-off streams {bad} differ "
+                f"from the colocated ones")
+    return dict(slots=len(prompts), tokens=n_tok, streams_bit_equal=not bad,
+                prompt_lens=[len(p) for p in prompts],
+                frame_mb=mb, frame_mb_mean=float(np.mean(mb)),
+                export_encode_ms=export_ms, decode_adopt_ms=adopt_ms,
+                export_encode_ms_median=float(np.median(export_ms)),
+                decode_adopt_ms_median=float(np.median(adopt_ms)),
+                dtype=str(pre.engine.pool.kv[0][0].dtype))
+
+
+def _plane_cost(fails, net, c, V):
+    """(e) `decode_cost_report` and the roofline at the H100's peaks:
+    the predicted ms of one decode dispatch beside the measured one (8
+    active slots, the mean over `cost_dispatches` timed dispatches,
+    synchronized)."""
+    from deeplearning4j_tpu_torch.monitor import xprof
+    from deeplearning4j_tpu_torch.serving import PagedDecodeEngine
+    rng = np.random.default_rng(163)
+    max_len = net.layers[1].max_len
+    S, dev = c["n_slots"], net.device
+    eng = PagedDecodeEngine(net, n_slots=S, block_len=c["block_len"],
+                            n_blocks=S * (max_len // c["block_len"]) + 1,
+                            device=dev)
+    n = c["cost_dispatches"]
+    reqs = [dict(prompt_ids=rng.integers(0, V, c["timed_prompt"]),
+                 n_tokens=2 * n + 4) for _ in range(S)]
+    eng.admit_many(reqs)
+    for _ in range(3):
+        eng.step()                                    # warm
+    rep = eng.decode_cost_report()
+    _sync(dev)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    _sync(dev)
+    measured = (time.perf_counter() - t0) / n * 1e3
+    dtype = "bfloat16" if net.dtype.is_mixed else "float32"
+    roof = xprof.roofline(rep["decode_flops_per_dispatch"],
+                          rep["decode_bytes_per_step"]
+                          * rep["steps_per_dispatch"], dtype=dtype)
+    with _Monitored() as mon:
+        xprof.publish_cost_report(dict(
+            model="smoke_lm_decode", roofline=roof,
+            per_op=dict(total_flops_per_step=rep["decode_flops_per_step"],
+                        total_bytes_per_step=rep["decode_bytes_per_step"])))
+        gauge = mon.reg.gauge("aot_cost_predicted_step_seconds",
+                              model="smoke_lm_decode").value
+    predicted = roof["predicted_step_seconds"] * 1e3
+    fails.check(rep["decode_flops_per_step"] > 0 and measured > 0
+                and gauge == roof["predicted_step_seconds"],
+                f"serving_plane (e): cost report {rep}, measured "
+                f"{measured} ms, gauge {gauge}")
+    return dict(report=rep, roofline=roof, predicted_ms=predicted, measured_ms=measured,
+                measured_over_predicted=measured / predicted)
+
+
+def _plane_rate(fails, net, c, V):
+    """(f) tokens/s of the threaded server over `dispatches` decode
+    dispatches with every slot busy (n_slots requests of prompt
+    `timed_prompt` and 1 + dispatches tokens), monitoring off and on in
+    turns off, on, on, off, `repeats` times each; the median of each.
+    Then monitoring's host cost a dispatch: the same requests driven in
+    this thread (`drive_server`, the same waves on and off), the median
+    host ms of the decode-only scheduler iterations of each arm."""
+    rng = np.random.default_rng(164)
+    prompts = [rng.integers(0, V, c["timed_prompt"])
+               for _ in range(c["n_slots"])]
+    n_tok = c["dispatches"] + 1
+    rates = {"off": [], "on": []}
+    host = {"off": [], "on": []}
+    for threaded in (True, False):
+        for _ in range(c["repeats"]):
+            for tag in ("off", "on", "on", "off"):
+                mon = _Monitored() if tag == "on" else None
+                if mon is not None:
+                    mon.__enter__()
+                try:
+                    srv = _plane_server(net, c, warm=False).warmup(
+                        c["timed_prompt"], 4)
+                    if threaded:
+                        srv.start()
+                        try:
+                            t0 = time.perf_counter()
+                            toks = sum(len(s.result(timeout=600)) for s in
+                                       [srv.generate_async(p, n_tok)
+                                        for p in prompts])
+                            wall = time.perf_counter() - t0
+                        finally:
+                            srv.stop()
+                        rates[tag].append(toks / wall)
+                    else:
+                        times = []
+                        drive_server(srv, [(p, {}) for p in prompts], n_tok,
+                                     times)
+                        # the first iteration admits the wave
+                        host[tag].extend(t * 1e3 for t in times[1:])
+                finally:
+                    if mon is not None:
+                        mon.__exit__()
+    off, on = (float(np.median(rates[k])) for k in ("off", "on"))
+    ms_off, ms_on = (float(np.median(host[k])) for k in ("off", "on"))
+    fails.check(off > 0 and on > 0 and ms_off > 0 and ms_on > 0,
+                f"serving_plane (f): {rates}, {host}")
+    return dict(tokens_per_s_off=off, tokens_per_s_on=on,
+                on_over_off=on / off, all=rates,
+                dispatch_ms_off=ms_off, dispatch_ms_on=ms_on,
+                dispatch_ms_quartiles={
+                    k: [float(q) for q in np.percentile(v, (25, 75))]
+                    for k, v in host.items()},
+                dispatches_timed=len(host["off"]),
+                requests=c["n_slots"], n_tokens=n_tok)
+
+
+def phase_serving_plane(device, report, fails, small=False):
+    """Phase 16 on `device`: the serving request plane on the smoke LM
+    at full width (phase 3's config, seeded params, head x4), 8 slots:
+    (a) monitoring off and on bit-equal with the same host reads, (b)
+    goodput conserved in a warmed, a speculative and a draining run,
+    (c) SLO shedding counted alike in three places, (d) handoffs over
+    DLFP bytes bit-equal to the colocated streams (fp32 and mixed_bf16),
+    (e) the decode cost report and roofline against the measured
+    dispatch, (f) tokens/s monitoring off and on. `small` (the CPU
+    rehearsal) shrinks the net and the traffic. Returns the phase's
+    kernel launches."""
+    from deeplearning4j_tpu_torch import kernels as K
+    c = SERVING_PLANE_SMALL if small else SERVING_PLANE
+    cfg = c["cfg"] or LM
+    t0 = time.perf_counter()
+    params = random_lm_params(cfg, seed=1616, head_scale=4.0)
+    net = build_lm(cfg, device, params)
+    V = cfg["vocab"]
+    rng = np.random.default_rng(160)
+    lo, hi = c["lens"]
+    prompts = [rng.integers(0, V, int(n)) for n in
+               rng.integers(lo, hi + 1, c["greedy"] + c["sampled"])]
+    reqs = [(p, {}) for p in prompts[:c["greedy"]]]
+    reqs += [(p, dict(temperature=0.8, top_p=0.9, rng=1600 + i))
+             for i, p in enumerate(prompts[c["greedy"]:])]
+    out = dict(config=dict(cfg, n_slots=c["n_slots"],
+                           block_len=c["block_len"]))
+    K.reset_launches()
+    out["sync"] = _plane_sync(fails, net, c, reqs)
+    out["goodput"] = _plane_goodput(fails, net, c, reqs)
+    out["shed"] = _plane_shed(fails, net, c, V)
+    out["handoff"] = {"float32": _plane_handoff(fails, net, c, V,
+                                                "float32")}
+    mixed = build_lm(cfg, device, params, dtype_policy=MIXED)
+    out["handoff"][MIXED] = _plane_handoff(fails, mixed, c, V, MIXED)
+    del mixed
+    out["cost"] = _plane_cost(fails, net, c, V)
+    out["rate"] = _plane_rate(fails, net, c, V)
+    _sync(device)
+    launches = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    if device.type == "cuda":
+        # the serving path's kernels: LayerNorm in every layer, the
+        # per-row-key words for the sampled requests (prefill attends
+        # through the KV-cache path, as in JAX, not flash)
+        for k in ("layer_norm", "threefry_rows"):
+            fails.check(launches[k] > 0, f"serving_plane: kernel {k} "
+                                         f"never launched")
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["seconds"] = time.perf_counter() - t0
+    report["serving_plane"] = out
+    a, b, d = out["sync"], out["goodput"], out["handoff"]
+    e, f, s = out["cost"], out["rate"], out["shed"]
+    print(f"[serving_plane] (a) monitoring off/on streams equal "
+          f"{a['streams_equal']}, host reads {a['reads_off']} / "
+          f"{a['reads_on']} over {a['dispatches']} dispatches "
+          f"({a['reads_per_dispatch']:.3f} a dispatch)", flush=True)
+    for what, snap in b.items():
+        print(f"[serving_plane] (b) goodput {what}: {snap}", flush=True)
+    print(f"[serving_plane] (c) shed {s['shed']} of {s['burst']}: "
+          f"serving_shed_total {s['serving_shed_total']}, slo bad "
+          f"{s['slo_bad']}, good {s['slo_good']}; reason {s['reason']!r}",
+          flush=True)
+    for tag, h in d.items():
+        print(f"[serving_plane] (d) handoff {tag}: {h['slots']} slots "
+              f"bit-equal {h['streams_bit_equal']}, frame "
+              f"{h['frame_mb_mean']:.4f} MB, export+encode "
+              f"{h['export_encode_ms_median']:.3f} ms, decode+adopt "
+              f"{h['decode_adopt_ms_median']:.3f} ms (medians)", flush=True)
+    r = e["report"]
+    print(f"[serving_plane] (e) decode dispatch: {r['weight_bytes']} weight "
+          f"B ({r['matmul_weight_bytes']} matmul), "
+          f"{r['decode_bytes_per_step']} B and {r['decode_flops_per_step']} "
+          f"FLOP a step ({r['decode_matmul_flops_per_step']} matmul, "
+          f"{r['decode_attention_flops_per_step']} attention); roofline "
+          f"{e['predicted_ms']:.5f} ms ({e['roofline']['bound']}-bound) "
+          f"against {e['measured_ms']:.4f} ms measured "
+          f"({e['measured_over_predicted']:.1f}x)", flush=True)
+    print(f"[serving_plane] (f) {f['requests']} x {f['n_tokens']} tokens: "
+          f"{f['tokens_per_s_off']:.1f} tok/s monitoring off, "
+          f"{f['tokens_per_s_on']:.1f} on ({f['on_over_off']:.4f}x); "
+          f"all {f['all']}; a driven dispatch {f['dispatch_ms_off']:.4f} "
+          f"host ms off, {f['dispatch_ms_on']:.4f} on (median of "
+          f"{f['dispatches_timed']}; quartiles "
+          f"{f['dispatch_ms_quartiles']})", flush=True)
+    print(f"[serving_plane] {out['seconds']:.1f} s, launches "
+          f"{out['launches']}", flush=True)
+    return launches
+
+
 KERNEL_META = {
     "layer_norm": ("deeplearning4j_tpu_torch/kernels/csrc/layernorm.cu",
                    "deeplearning4j_tpu/kernels/layernorm.py:55"),
@@ -7206,12 +7749,16 @@ def run(device, *, small=False, kernels_only=False):
                     small)
         for k in launches:
             launches[k] += (l15 or {}).get(k, 0)
+        l16 = phase("serving_plane", phase_serving_plane, device, report,
+                    fails, small)
+        for k in launches:
+            launches[k] += (l16 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
                          ("11", l11), ("12", l12), ("13", l13),
-                         ("14", l14), ("15", l15)) if l}
+                         ("14", l14), ("15", l15), ("16", l16)) if l}
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -7285,6 +7832,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_telemetry(device, report, fails)
+        report["kernels"] = []
+    elif "--serving-plane" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_serving_plane(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

@@ -9,8 +9,13 @@ from deeplearning4j_tpu_torch.datasets.fetchers import (
 from deeplearning4j_tpu_torch.datasets.iterator import (
     ArrayDataSetIterator,
     AsyncDataSetIterator,
+    BenchmarkDataSetIterator,
     DataSetIterator,
+    EarlyTerminationDataSetIterator,
     ListDataSetIterator,
+    MultipleEpochsIterator,
+    SamplingDataSetIterator,
+    TimedDataSetIterator,
     as_iterator,
 )
 from deeplearning4j_tpu_torch.datasets.parallel import (
@@ -30,7 +35,9 @@ from deeplearning4j_tpu_torch.datasets.records import (
 )
 
 __all__ = ["ArrayDataSetIterator", "AsyncDataSetIterator",
-           "BaseParallelDataSetIterator", "CSVRecordReader",
+           "BaseParallelDataSetIterator", "BenchmarkDataSetIterator",
+           "EarlyTerminationDataSetIterator", "MultipleEpochsIterator",
+           "SamplingDataSetIterator", "TimedDataSetIterator", "CSVRecordReader",
            "CSVSequenceRecordReader", "Cifar10DataSetIterator",
            "CollectionRecordReader", "DataSet", "DataSetIterator",
            "DevicePrefetchIterator", "EmnistDataSetIterator",

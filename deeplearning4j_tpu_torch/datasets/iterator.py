@@ -1,9 +1,10 @@
 """Minibatch iteration for `fit` and `evaluate` (counterpart of
 `deeplearning4j_tpu/datasets/iterator.py`: `ListDataSetIterator` :62,
-`ArrayDataSetIterator` :82, `AsyncDataSetIterator` :166,
-`as_iterator` :418). `DataSet` lives in `datasets/dataset.py` and is
-re-exported here. The sampling and streaming iterators are a later
-slice.
+`ArrayDataSetIterator` :82, `AsyncDataSetIterator` :166, the wrappers
+`MultipleEpochsIterator` :288, `EarlyTerminationDataSetIterator` :302,
+`SamplingDataSetIterator` :320, `BenchmarkDataSetIterator` :346 and
+`TimedDataSetIterator` :369, `as_iterator` :418). `DataSet` lives in
+`datasets/dataset.py` and is re-exported here.
 
 Batches come in order, the partial tail batch included, each with its
 slice of the features and label masks. With `shuffle=True` every pass
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import queue
 import threading
+import time
 from typing import List, Optional
 
 import numpy as np
@@ -53,6 +55,12 @@ class DataSetIterator:
             f"cursor()/seek() position contract")
 
     def batch_size(self) -> Optional[int]:
+        return None
+
+    def total_outcomes(self) -> Optional[int]:
+        return None
+
+    def input_columns(self) -> Optional[int]:
         return None
 
 
@@ -112,6 +120,9 @@ class ArrayDataSetIterator(DataSetIterator):
 
     def batch_size(self) -> int:
         return self._batch
+
+    def total_outcomes(self):
+        return None if self.labels is None else self.labels.shape[-1]
 
     def cursor(self) -> dict:
         return {"epoch": max(0, self._epochs_started - 1),
@@ -225,6 +236,133 @@ class AsyncDataSetIterator(DataSetIterator):
     def batch_size(self):
         return self.base.batch_size()
 
+
+
+class MultipleEpochsIterator(DataSetIterator):
+    """Replays the base iterator `epochs` times, resetting it before
+    each pass."""
+
+    def __init__(self, epochs: int, base: DataSetIterator):
+        self.epochs = epochs
+        self.base = base
+
+    def __iter__(self):
+        for _ in range(self.epochs):
+            self.base.reset()
+            yield from self.base
+
+
+class EarlyTerminationDataSetIterator(DataSetIterator):
+    """The base iterator's first `max_batches` minibatches."""
+
+    def __init__(self, base: DataSetIterator, max_batches: int):
+        self.base = base
+        self.max_batches = max_batches
+
+    def __iter__(self):
+        for i, ds in enumerate(self.base):
+            if i >= self.max_batches:
+                return
+            yield ds
+
+    def reset(self):
+        self.base.reset()
+
+
+class SamplingDataSetIterator(DataSetIterator):
+    """`total_batches` minibatches of `batch_size` examples drawn with
+    replacement from one DataSet by `np.random.default_rng(seed)`, the
+    JAX iterator's draws."""
+
+    def __init__(self, dataset: DataSet, batch_size: int,
+                 total_batches: int, seed: int = 123):
+        self.dataset = dataset
+        self._batch = batch_size
+        self.total_batches = total_batches
+        self._rng = np.random.default_rng(seed)
+
+    def __iter__(self):
+        n = self.dataset.num_examples()
+        for _ in range(self.total_batches):
+            sel = self._rng.integers(0, n, size=self._batch)
+            d = self.dataset
+            yield DataSet(np.asarray(d.features)[sel], _cut(d.labels, sel),
+                          _cut(d.features_mask, sel),
+                          _cut(d.labels_mask, sel))
+
+    def batch_size(self):
+        return self._batch
+
+
+class BenchmarkDataSetIterator(DataSetIterator):
+    """One synthetic batch (standard-normal features, one-hot labels or
+    standard-normal labels of `label_shape`) yielded `total_batches`
+    times, to time compute without ETL; the JAX iterator's numbers for
+    the same seed."""
+
+    def __init__(self, feature_shape, num_classes: int, total_batches: int,
+                 seed: int = 42, label_shape=None):
+        rng = np.random.default_rng(seed)
+        self.features = rng.standard_normal(feature_shape).astype(
+            np.float32)
+        batch = feature_shape[0]
+        if label_shape is not None:
+            self.labels = rng.standard_normal(label_shape).astype(
+                np.float32)
+        else:
+            idx = rng.integers(0, num_classes, size=batch)
+            self.labels = np.eye(num_classes, dtype=np.float32)[idx]
+        self.total_batches = total_batches
+
+    def __iter__(self):
+        for _ in range(self.total_batches):
+            yield DataSet(self.features, self.labels)
+
+    def batch_size(self):
+        return self.features.shape[0]
+
+
+class TimedDataSetIterator(DataSetIterator):
+    """Times each batch's assembly in the base iterator (`last_etl_ms`,
+    `total_etl_ms`, `batches`); the position contract and the widths
+    pass through."""
+
+    def __init__(self, base: DataSetIterator):
+        self.base = base
+        self.last_etl_ms = 0.0
+        self.total_etl_ms = 0.0
+        self.batches = 0
+
+    def __iter__(self):
+        it = iter(self.base)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                ds = next(it)
+            except StopIteration:
+                return
+            self.last_etl_ms = (time.perf_counter() - t0) * 1e3
+            self.total_etl_ms += self.last_etl_ms
+            self.batches += 1
+            yield ds
+
+    def reset(self):
+        self.base.reset()
+
+    def cursor(self):
+        return self.base.cursor()
+
+    def seek(self, cursor):
+        self.base.seek(cursor)
+
+    def batch_size(self):
+        return self.base.batch_size()
+
+    def total_outcomes(self):
+        return self.base.total_outcomes()
+
+    def input_columns(self):
+        return self.base.input_columns()
 
 def as_iterator(data, labels=None, batch_size: int = 32, **kw):
     """Coerce `fit()`-style inputs into an iterable of `DataSet`s: an

@@ -19,8 +19,10 @@ Overhead contract: with monitoring off (the default) the fit loop pays
 one attribute check per span and `span()` hands out one shared no-op;
 on, it adds host-side float math and no device synchronize.
 
-The serving-side modules of the JAX package's `monitor/` (xprof,
-reqtrace, goodput, slo, alerts, federate) are not ported yet.
+The serving side: `reqtrace` (per-request traces), `goodput` (the
+token-position ledger), `slo` (objectives and burn rate) and `xprof`
+(the roofline at the H100's peaks, cost reports, `torch.profiler`
+capture). `alerts` and `federate` come with the fleet planes.
 """
 
 from __future__ import annotations
@@ -28,7 +30,14 @@ from __future__ import annotations
 import threading
 from typing import List, Optional
 
-from deeplearning4j_tpu_torch.monitor import diagnostics
+from deeplearning4j_tpu_torch.monitor import (
+    diagnostics,
+    flightrec,
+    goodput,
+    reqtrace,
+    slo,
+    xprof,
+)
 from deeplearning4j_tpu_torch.monitor.collectors import (
     DeviceMemoryCollector,
     KernelBuildCollector,
@@ -45,6 +54,11 @@ from deeplearning4j_tpu_torch.monitor.flightrec import (
     FlightRecorder,
     flight_recorder,
 )
+from deeplearning4j_tpu_torch.monitor.goodput import (
+    GOODPUT_CLASSES,
+    GoodputLedger,
+    ttft_decomposition,
+)
 from deeplearning4j_tpu_torch.monitor.listener import (
     MonitorListener,
     bind_master_stats,
@@ -57,11 +71,23 @@ from deeplearning4j_tpu_torch.monitor.registry import (
     MetricsRegistry,
     Timer,
 )
+from deeplearning4j_tpu_torch.monitor.reqtrace import (
+    RequestTrace,
+    clear_exemplar_sink,
+    mint_trace_id,
+    set_exemplar_sink,
+)
+from deeplearning4j_tpu_torch.monitor.slo import SLOObjective, SLOTracker
 from deeplearning4j_tpu_torch.monitor.tracer import (
     GLOBAL_TRACER,
     NOOP_SPAN,
     Span,
     Tracer,
+)
+from deeplearning4j_tpu_torch.monitor.xprof import (
+    ProfilerCapture,
+    publish_cost_report,
+    roofline,
 )
 
 __all__ = [
@@ -72,7 +98,12 @@ __all__ = [
     "extra_listeners", "compile_collector", "memory_collector",
     "resolve_cached_metrics", "diagnostics", "Diagnostics",
     "DiagnosticsConfig", "NonFiniteGradientsError", "resolve_diagnostics",
-    "FlightRecorder", "flight_recorder", "GLOBAL_FLIGHT_RECORDER",
+    "flightrec", "FlightRecorder", "flight_recorder",
+    "GLOBAL_FLIGHT_RECORDER", "xprof", "ProfilerCapture", "roofline",
+    "publish_cost_report", "reqtrace", "RequestTrace", "mint_trace_id",
+    "set_exemplar_sink", "clear_exemplar_sink", "slo", "SLOObjective",
+    "SLOTracker", "goodput", "GoodputLedger", "GOODPUT_CLASSES",
+    "ttft_decomposition",
 ]
 
 

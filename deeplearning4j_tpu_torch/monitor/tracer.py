@@ -153,6 +153,19 @@ class Tracer:
                 "args": args,
             })
 
+    def set_thread_name(self, tid: int, name: str):
+        """Label a track (a Chrome 'M' thread_name event): how a
+        request's synthetic track shows its trace id as the lane name."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._note_drop()
+            self._events.append({
+                "name": "thread_name", "ph": "M",
+                "pid": self._pid, "tid": int(tid),
+                "args": {"name": name},
+            })
+
     # ------------------------------------------------------------ queries
     def events(self) -> List[Dict]:
         with self._lock:

@@ -100,6 +100,7 @@ from deeplearning4j_tpu_torch.nn.conf.builder import (
     BackpropType,
     GradientNormalization,
 )
+from deeplearning4j_tpu_torch.nn.layers.base import layer_from_dict
 from deeplearning4j_tpu_torch.nn.layers.feedforward import EmbeddingLayer
 from deeplearning4j_tpu_torch.optimize.gradients import (
     apply_gradient_normalization,
@@ -174,6 +175,43 @@ def check_policy(policy: DataTypePolicy) -> DataTypePolicy:
     return policy
 
 
+
+_WIDTH_FIELDS = ("n_in", "n_out")
+
+
+def _param_shapes(layer) -> Dict[str, tuple]:
+    """{JAX param name: shape} of `layer`, with every dimension that
+    follows an unresolved width (`n_in` / `n_out` still 0 or None) at 0,
+    the shape JAX's `init_params` gives such a layer. The dimensions
+    are found by building the layer's configuration with the width at
+    1 and at 2 and keeping those that move."""
+    shapes = {k: tuple(t.shape) for k, t in layer.jax_param_map().items()}
+    d = layer.to_dict()
+    unset = [f for f in _WIDTH_FIELDS if f in d and not d[f]]
+    if shapes or not unset:
+        return shapes
+    probes = []
+    for v in (1, 2):
+        probe = layer_from_dict({**d, **{f: v for f in unset}})
+        probes.append({k: tuple(t.shape)
+                       for k, t in probe.jax_param_map().items()})
+    return {k: tuple(0 if a != b else a for a, b in zip(s1, probes[1][k]))
+            for k, s1 in probes[0].items()}
+
+
+def validate_param_widths(keyed_layers):
+    """JAX's `validate_param_widths` (`nn/multilayer.py`): an unresolved
+    n_in would give zero-width weights, so `init()` fails at once with
+    the same message."""
+    for key, layer in keyed_layers:
+        for pn, shape in _param_shapes(layer).items():
+            if 0 in shape:
+                raise ValueError(
+                    f"layer {key} param {pn} has shape {shape} — "
+                    f"input width unresolved; set n_in on the layer or "
+                    f"set_input_type() on the builder")
+
+
 class Container(nn.Module):
     """The shared base; a subclass sets up `conf`, `layers`, `layer_keys`
     and `fold_ids` through `_setup` and supplies the forward, the loss,
@@ -226,7 +264,10 @@ class Container(nn.Module):
         `key` under ``fold_in(PRNGKey(seed), fold_ids[key])`` (its
         position in a list, its node's in the graph's topological order;
         `seed` defaults to `conf.seed`), and reset the running state. The
-        draws are made on the net's device."""
+        draws are made on the net's device. A layer whose input width
+        is unresolved raises JAX's `ValueError` first
+        (`validate_param_widths`)."""
+        validate_param_widths(self.keyed())
         root = prng.key(self.conf.seed if seed is None else int(seed))
         for key, layer in self.keyed():
             layer.init_weights(prng.fold_in(root, self.fold_ids[key]))

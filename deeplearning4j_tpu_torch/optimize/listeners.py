@@ -1,5 +1,6 @@
 """Training listeners (counterpart of
-`deeplearning4j_tpu/optimize/listeners.py` :19-200): the callbacks `fit`
+`deeplearning4j_tpu/optimize/listeners.py` :19-220, with
+`SleepyTrainingListener` :205): the callbacks `fit`
 makes, and the listeners the reference ships with them. `fit` calls
 `on_fit_start`, then per epoch `on_epoch_start`, `iteration_done` after
 every step (with that step's iteration, the epoch, the score and
@@ -320,3 +321,22 @@ class ComposedListeners(TrainingListener):
     def on_fit_end(self, *a, **k):
         for l in self.listeners:
             l.on_fit_end(*a, **k)
+
+
+class SleepyTrainingListener(TrainingListener):
+    """Sleeps `timer_iteration_ms` after every step and `timer_epoch_ms`
+    after every epoch: a debugging aid for schedulers and timeouts, not
+    for production."""
+
+    def __init__(self, timer_iteration_ms: float = 0.0,
+                 timer_epoch_ms: float = 0.0):
+        self.timer_iteration_ms = timer_iteration_ms
+        self.timer_epoch_ms = timer_epoch_ms
+
+    def iteration_done(self, model, iteration, epoch, score, **info):
+        if self.timer_iteration_ms > 0:
+            time.sleep(self.timer_iteration_ms / 1e3)
+
+    def on_epoch_end(self, model, epoch):
+        if self.timer_epoch_ms > 0:
+            time.sleep(self.timer_epoch_ms / 1e3)

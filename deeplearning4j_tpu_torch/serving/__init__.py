@@ -1,5 +1,13 @@
-"""Serving tier: paged KV pool, continuous-batching engine and server."""
+"""Serving tier (counterpart of `deeplearning4j_tpu/serving/`): the
+paged KV pool, the continuous-batching engine and server, the request
+plane's wire frames and the disaggregated prefill/decode workers. The
+fleet planes (registry, fleet, router, replicas) are not ported yet."""
 
+from deeplearning4j_tpu_torch.serving.disagg import (
+    DecodeWorker,
+    PrefillWorker,
+    run_disaggregated,
+)
 from deeplearning4j_tpu_torch.serving.engine import (
     PagedDecodeEngine,
     bucket_len,
@@ -18,9 +26,11 @@ from deeplearning4j_tpu_torch.serving.server import (
     ShedError,
     TokenStream,
 )
+from deeplearning4j_tpu_torch.serving.wire import WireFormatError
 
-__all__ = ["GARBAGE_BLOCK", "BlockAllocator", "GenerationServer",
-           "PagedDecodeEngine", "PagedKVPool", "RadixPrefixCache",
-           "ServerDrainingError",
-           "ServerStoppedError", "ShedError", "TokenStream", "blocks_needed",
-           "bucket_len"]
+__all__ = ["GARBAGE_BLOCK", "BlockAllocator", "DecodeWorker",
+           "GenerationServer", "PagedDecodeEngine", "PagedKVPool",
+           "PrefillWorker", "RadixPrefixCache", "ServerDrainingError",
+           "ServerStoppedError", "ShedError", "TokenStream",
+           "WireFormatError", "blocks_needed", "bucket_len",
+           "run_disaggregated"]

@@ -52,8 +52,21 @@ key is JAX's (`rng` a [2] uint32 key, an int seed meaning
 `PRNGKey(seed)`, None the zero key), every slot's Gumbel noise comes
 from one launch of the per-row-key threefry kernel, and a stream does
 not depend on what else is in flight, across preemption included.
-The handoff export/adopt, the goodput ledger and the SLO, trace and
-metrics mirrors are later slices.
+
+Goodput: every dispatch site classifies the token-positions it launched
+into `self.goodput` (`monitor.goodput.GoodputLedger`: useful,
+spec_rejected, pad_waste, preempt_discard; warmup and drain by mode)
+from host values the engine already holds, so the ledger adds no device
+copy. `admit_info` says per slot of the last wave whether it rode a
+prefix or forked a block (what a request trace records).
+
+Handoff: `export_handoff(slot)` gathers a live slot's K/V blocks by
+value (shared and copy-on-write blocks included) with its host state;
+`adopt_handoff(header, kv)` scatters them into private blocks of
+another engine, whose next `step()` continues the stream bit for bit
+(`serving.disagg`, the DLFP frame of `serving.wire`).
+`decode_cost_report()` gives the weight bytes the decode reads and the
+FLOPs of one dispatch, counted by `torch.utils.flop_counter`.
 """
 
 from __future__ import annotations
@@ -65,6 +78,7 @@ import torch
 
 from deeplearning4j_tpu_torch.common import prng
 from deeplearning4j_tpu_torch.device import resolve_device
+from deeplearning4j_tpu_torch.monitor.goodput import GoodputLedger
 from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.layers import (
     BaseRecurrentLayer,
@@ -106,11 +120,15 @@ def _request_fields(r: dict):
 class Slot:
     """Host mirror of one serving slot's in-flight sequence."""
 
-    __slots__ = ("request_id", "blocks", "emitted", "emit_base", "history")
+    __slots__ = ("request_id", "blocks", "prompt_len", "n_tokens",
+                 "emitted", "emit_base", "history")
 
-    def __init__(self, request_id, blocks, emit_base=0, history=None):
+    def __init__(self, request_id, blocks, prompt_len, n_tokens,
+                 emit_base=0, history=None):
         self.request_id = request_id
         self.blocks = blocks
+        self.prompt_len = prompt_len
+        self.n_tokens = n_tokens
         self.emitted = 0
         # tokens emitted in EARLIER admissions of a requeued continuation
         self.emit_base = emit_base
@@ -278,7 +296,11 @@ class PagedDecodeEngine:
         self.prefix_hits_total = 0
         self.prefix_tokens_saved_total = 0
         self.prefix_forks_total = 0
+        # every dispatch site classifies its token-positions here
+        self.goodput = GoodputLedger()
         self._preempted: List[dict] = []
+        # per slot of the last admission wave: grants, prefix hit, fork
+        self.admit_info: Dict[int, dict] = {}
 
     # ------------------------------------------------------------ queries
     @property
@@ -493,6 +515,9 @@ class PagedDecodeEngine:
                                    probs=probs[0])
         self.prefix_pinned_blocks += nb
         self.block_grants_total += nb
+        # prefilled once so later admissions need not: the P real
+        # positions are useful, the bucket's padding is waste
+        self.goodput.account(useful=P, pad_waste=Pb - P)
         return key
 
     def release_prefix(self, key: tuple):
@@ -504,6 +529,18 @@ class PagedDecodeEngine:
         self.prefix_pinned_blocks -= len(entry["blocks"])
 
     # ---------------------------------------------------------- admission
+    def admit(self, prompt_ids, n_tokens: int, *, request_id=None,
+              temperature: float = 0.0, top_p: Optional[float] = None,
+              rng=None):
+        """One request as a wave of one: (slot, first token, done), or
+        None when the slots or blocks cannot take it now."""
+        out = self.admit_many([dict(prompt_ids=prompt_ids,
+                                    n_tokens=n_tokens,
+                                    request_id=request_id,
+                                    temperature=temperature,
+                                    top_p=top_p, rng=rng)])
+        return out[0] if out else None
+
     def admit_many(self, requests: List[dict]):
         """Admission wave over a FIFO prefix of `requests` (stops at slot
         or block capacity). Each dict: prompt_ids, n_tokens, and
@@ -513,6 +550,7 @@ class PagedDecodeEngine:
         [(slot, first_token, done), ...] for the admitted prefix."""
         if not requests:
             return []
+        self.admit_info = {}
         wave = []
         try:
             for r in requests:
@@ -656,6 +694,8 @@ class PagedDecodeEngine:
             keys[j], emit0[j], temps[j], top_ps[j] = _request_fields(w["r"])
         self._scatter_carries(carries, rows, k2)
         firsts = self._sample(probs, keys, emit0, temps, top_ps).cpu().numpy()
+        self._account_prefill([(w["prompt"], w["r"]) for w in wave],
+                              k2 * Pb)
         for j, w in enumerate(wave):
             self._finish_admission(w, int(firsts[j]), keys[j], results)
 
@@ -702,6 +742,9 @@ class PagedDecodeEngine:
                                   top_ps).cpu().numpy()
             for w in ext:
                 firsts[w["slot"]] = int(chosen[w["slot"]])
+            # the shared prefix was accounted at its registration
+            self._account_prefill([(w["suffix"], w["r"]) for w in ext],
+                                  S * K)
         exact = [w for w in wave if w["suffix"].shape[0] == 0]
         if exact:
             n = len(exact)
@@ -722,13 +765,25 @@ class PagedDecodeEngine:
             self._finish_admission(w, firsts[w["slot"]], key_of[w["slot"]],
                                    results)
 
+    def _account_prefill(self, rows, positions: int):
+        """Goodput of a prefill dispatch over `positions` token-positions
+        for `rows` ([(ids prefilled, request dict)]): a fresh request's
+        ids are useful, a requeued continuation's (emit_start > 0) were
+        prefilled once already, and the rest is padding."""
+        redone = sum(len(ids) for ids, r in rows
+                     if int(r.get("emit_start") or 0))
+        fresh = sum(len(ids) for ids, _ in rows) - redone
+        self.goodput.account(useful=fresh, preempt_discard=redone,
+                             pad_waste=positions - fresh - redone)
+
     def _finish_admission(self, w, first, key, results):
         """Slot bookkeeping of both admission paths."""
         slot, prompt, blocks = w["slot"], w["prompt"], w["blocks"]
         n_tokens, r = w["n_tokens"], w["r"]
         _, emit0, temp, top_p = _request_fields(r)
         done = n_tokens == 1
-        s = Slot(r.get("request_id"), blocks, emit_base=emit0,
+        s = Slot(r.get("request_id"), blocks, len(prompt), n_tokens,
+                 emit_base=emit0,
                  history=([int(t) for t in prompt] + [first]
                           if self.spec_k else None))
         s.emitted = 1
@@ -745,6 +800,12 @@ class PagedDecodeEngine:
         self.active[slot] = not done
         self.block_grants_total += w["grants"]
         entry = w["entry"]
+        self.admit_info[slot] = {
+            "grants": int(w["grants"]),
+            "prefix_hit": entry is not None,
+            "tokens_saved": int(entry["len"]) if entry is not None else 0,
+            "cow_fork": w.get("fork") is not None,
+        }
         if entry is not None:
             self.prefix_hits_total += 1
             self.prefix_tokens_saved_total += entry["len"]
@@ -923,6 +984,11 @@ class PagedDecodeEngine:
         valids = np.arange(J)[:, None] < self.remaining[None, :]
         taken = valids.sum(axis=0)
         act = self.active.copy()
+        # J * S positions: tokens emitted on live lanes are useful, idle
+        # lanes and the tail past a lane's budget are waste
+        n_useful = int(np.where(act, taken, 0).sum())
+        self.goodput.account(useful=n_useful,
+                             pad_waste=J * self.n_slots - n_useful)
         last = np.clip(taken - 1, 0, None)
         self.last_token = np.where(act & (taken > 0),
                                    toks[last, np.arange(self.n_slots)],
@@ -997,6 +1063,11 @@ class PagedDecodeEngine:
                 drafts.append(tok)
                 pos = pos + 1
         self.spec_draft_dispatches_total += 1
+        # the drafter's real lanes are speculation overhead (the verify
+        # score emits), the masked lanes padding
+        real = sum(d - 1 for _, d in trunc_slots)
+        self.goodput.account(spec_rejected=real,
+                             pad_waste=(K - 1) * S - real)
         return torch.stack(drafts).cpu().numpy()
 
     def _spec_step(self, proposers: Optional[tuple] = None
@@ -1074,6 +1145,9 @@ class PagedDecodeEngine:
                                   np.where(self.active, self.temp, 0.0),
                                   self.top_p).cpu().numpy()
         self.spec_dispatches_total += 1
+        # S * K positions: emitted tokens are useful, valid draft lanes
+        # the target rejected are spec_rejected, the rest padding
+        gp_useful = gp_rejected = 0
         emitted: Dict[int, List[int]] = {}
         finished = []
         for s in np.flatnonzero(self.active):
@@ -1101,6 +1175,8 @@ class PagedDecodeEngine:
                     self.spec_proposed_by[prop] += v - 1
                     self.spec_accepted_by[prop] += len(toks) - 1
             n = len(toks)
+            gp_useful += n
+            gp_rejected += v - n
             self.spec_emitted_total += n
             self.pos[s] += n
             self.emit_idx[s] += n
@@ -1113,6 +1189,8 @@ class PagedDecodeEngine:
             if self.remaining[s] <= 0:
                 finished.append(s)
                 self._release(s)
+        self.goodput.account(useful=gp_useful, spec_rejected=gp_rejected,
+                             pad_waste=S * K - gp_useful - gp_rejected)
         return emitted, finished
 
     # ------------------------------------------------------------- evict
@@ -1129,3 +1207,160 @@ class PagedDecodeEngine:
         self.active[slot] = False
         self.remaining[slot] = 0
         self.block_tables[slot] = GARBAGE_BLOCK
+
+    # ------------------------------------------------------ cost report
+    @torch.no_grad()
+    def decode_cost_report(self) -> dict:
+        """What one greedy decode dispatch reads and computes: the
+        weight bytes of the serving tree (all of it, and the matmul
+        weights apart, as JAX's report counts them), the bytes a decode
+        step moves (the weights plus every layer's K and V page view),
+        and the FLOPs of one dispatch of `steps_per_dispatch` steps over
+        every slot, counted by `torch.utils.flop_counter.FlopCounterMode`
+        on the real decode walk (split into the weight matmuls and the
+        attention over the pages). The walk runs on the garbage block,
+        so no slot's pages or host state change."""
+        from torch.utils.flop_counter import FlopCounterMode
+        S, J, dev = self.n_slots, self.steps_per_dispatch, self.device
+        params = self._params.params
+        mm_keys = quant.quantized_weight_keys(self.net)
+        mm_bytes = quant.weight_bytes(
+            {lk: {pk: params[lk][pk] for pk in pks}
+             for lk, pks in mm_keys.items()})
+        bt = torch.full((S, self.max_blocks), GARBAGE_BLOCK,
+                        dtype=torch.int64, device=dev)
+        tok = torch.as_tensor(self.last_token, device=dev)
+        pos = torch.as_tensor(self.pos, device=dev)
+        with FlopCounterMode(display=False) as counter, self._weights():
+            for _ in range(J):
+                tok = torch.argmax(self._walk(self._plan, tok, pos, bt),
+                                   dim=-1)
+                pos = pos + 1
+        # the weight matmuls are mm / addmm, the attention over the
+        # pages bmm (its einsums)
+        attn = sum(int(n) for op, n in
+                   counter.get_flop_counts().get("Global", {}).items()
+                   if "bmm" in str(op))
+        # every layer gathers each slot's whole page view, K and V
+        kv_bytes = 2 * sum(S * self.max_total_tokens * k[0, 0].numel()
+                           * k.element_size() for k, _ in self.pool.kv)
+        weight_bytes = quant.weight_bytes(params)
+        return {
+            "quantize": self.quantize,
+            "weight_bytes": weight_bytes,
+            "matmul_weight_bytes": mm_bytes,
+            "decode_bytes_per_step": weight_bytes + kv_bytes,
+            "decode_kv_bytes_per_step": kv_bytes,
+            "decode_flops_per_dispatch": int(counter.get_total_flops()),
+            "decode_flops_per_step": int(counter.get_total_flops()) // J,
+            "decode_attention_flops_per_step": attn // J,
+            "decode_matmul_flops_per_step": (
+                int(counter.get_total_flops()) - attn) // J,
+            "n_slots": S,
+            "steps_per_dispatch": J,
+        }
+
+    # ----------------------------------------------------------- handoff
+    @torch.no_grad()
+    def export_handoff(self, slot: int) -> Tuple[dict, torch.Tensor]:
+        """One live slot for a prefill-to-decode handoff: its host state
+        as a header, and its granted K/V blocks gathered by value from
+        every layer's pool and stacked ``[n_layers, 2, n_blocks,
+        block_len, heads, head_dim]`` in the pool's dtype, on the host
+        (shared and copy-on-write blocks are copied, so the adopting
+        pool gets private blocks). `serving.wire.encode_handoff` puts
+        both on the wire. This engine is left as it was: the caller
+        evicts the slot once the handoff has landed."""
+        s = self.slots[slot]
+        if s is None:
+            raise ValueError(f"slot {slot} is not in use")
+        if not self.active[slot]:
+            raise ValueError(
+                f"slot {slot} already finished — nothing to hand off")
+        idx = torch.as_tensor(s.blocks, dtype=torch.int64,
+                              device=self.device)
+        kv = torch.stack([torch.stack([k.index_select(0, idx),
+                                       v.index_select(0, idx)])
+                          for k, v in self.pool.kv]).cpu()
+        header = {
+            "request_id": s.request_id,
+            "prompt_len": int(s.prompt_len),
+            "n_tokens": int(s.n_tokens),
+            "pos": int(self.pos[slot]),
+            "remaining": int(self.remaining[slot]),
+            "emitted": int(s.emitted),
+            "emit_base": int(s.emit_base),
+            "emit_idx": int(self.emit_idx[slot]),
+            "last_token": int(self.last_token[slot]),
+            "history": [int(t) for t in s.history],
+            "keys": [int(x) for x in self.keys[slot]],
+            "temperature": float(self.temp[slot]),
+            "top_p": float(self.top_p[slot]),
+            "block_len": int(self.block_len),
+            "n_layers": len(self.pool.kv),
+        }
+        return header, kv
+
+    @torch.no_grad()
+    def adopt_handoff(self, header: dict, kv) -> int:
+        """Adopt a handed-off slot (a numpy array or a tensor as
+        `export_handoff` gives it, from either package): allocate
+        private blocks, write the K/V into them and rebuild the slot's
+        host state, so the next `step()` continues the stream as the
+        exporting engine would have. Raises ValueError on a shape or
+        dtype mismatch (a cast would break bit parity) and RuntimeError
+        when no slot or blocks are free; either way nothing changes."""
+        kv = torch.as_tensor(kv)
+        L = len(self.pool.kv)
+        k0 = self.pool.kv[0][0]
+        if kv.ndim != 6 or kv.shape[0] != L or kv.shape[1] != 2:
+            raise ValueError(
+                f"handoff K/V shape {tuple(kv.shape)} does not match this "
+                f"pool's {L} layers")
+        if int(header["block_len"]) != self.block_len:
+            raise ValueError(
+                f"handoff block_len {header['block_len']} != engine "
+                f"block_len {self.block_len}")
+        if tuple(kv.shape[3:]) != tuple(k0.shape[1:]):
+            raise ValueError(
+                f"handoff block shape {tuple(kv.shape[3:])} != pool block "
+                f"shape {tuple(k0.shape[1:])}")
+        if kv.dtype != k0.dtype:
+            raise ValueError(
+                f"handoff dtype {kv.dtype} != pool compute dtype "
+                f"{k0.dtype} — a silent cast would break bit-parity")
+        slot = next((i for i, s in enumerate(self.slots) if s is None),
+                    None)
+        if slot is None:
+            raise RuntimeError("no free slot to adopt the handoff")
+        n_blocks = int(kv.shape[2])
+        blocks = self._alloc_admit(n_blocks)
+        if blocks is None:
+            raise RuntimeError(
+                f"pool cannot grant {n_blocks} blocks for the handoff "
+                f"({self.pool.free_blocks} free)")
+        bidx = torch.as_tensor(blocks, dtype=torch.int64, device=self.device)
+        kv = kv.to(self.device)
+        for l, (k, v) in enumerate(self.pool.kv):
+            k[bidx] = kv[l, 0]
+            v[bidx] = kv[l, 1]
+        s = Slot(header.get("request_id"), blocks,
+                 int(header["prompt_len"]), int(header["n_tokens"]),
+                 emit_base=int(header.get("emit_base") or 0),
+                 history=[int(t) for t in (header.get("history") or [])])
+        s.emitted = int(header["emitted"])
+        self.slots[slot] = s
+        self.block_tables[slot] = GARBAGE_BLOCK
+        self.block_tables[slot, :len(blocks)] = blocks
+        self.pos[slot] = int(header["pos"])
+        self.remaining[slot] = int(header["remaining"])
+        self.emit_idx[slot] = int(
+            header.get("emit_idx", s.emit_base + s.emitted))
+        self.last_token[slot] = int(header["last_token"])
+        self.keys[slot] = np.asarray(header.get("keys") or [0, 0], np.int64)
+        self.temp[slot] = float(header.get("temperature") or 0.0)
+        tp = header.get("top_p")
+        self.top_p[slot] = 1.0 if tp is None else float(tp)
+        self.active[slot] = int(header["remaining"]) > 0
+        self.block_grants_total += n_blocks
+        return slot

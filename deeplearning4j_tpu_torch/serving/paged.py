@@ -311,6 +311,9 @@ class PagedKVPool:
         return self.allocator.free_blocks
 
     @property
-    def nbytes(self) -> int:
+    def used_blocks(self) -> int:
+        return self.allocator.used_blocks
+
+    def device_bytes(self) -> int:
         """Device bytes of every layer's K and V pool."""
         return sum(t.numel() * t.element_size() for kv in self.kv for t in kv)

@@ -12,11 +12,11 @@ that is not frozen. `build(device=)` makes the new net, draws it with
 the configuration's seed as JAX's `init()` does, and copies every
 surviving param (and running state) whose layer and shape are kept.
 
-A frozen layer is wrapped in the port's `FrozenLayer`: its updater is
-NoOp, its params take no gradient and it runs in inference mode. JAX's
-builder gives a frozen layer a NoOp updater instead; for layers without
-dropout or running statistics (LeNet's) the two train the same
-numbers, and the outputs are the same for any layer.
+A frozen layer keeps its type and gets a NoOp updater, as in JAX's
+builder: its params do not move, but it still trains in training mode,
+so a frozen BatchNormalization normalizes with the batch statistics and
+updates its running mean and variance, and a frozen layer's dropout
+still applies.
 
 `TransferLearningHelper(net, frozen_upto)` featurizes data once through
 the frozen prefix and trains the tail on the features, writing the
@@ -31,11 +31,14 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.common.updaters import Updater, get_updater
+from deeplearning4j_tpu_torch.common.updaters import (
+    NoOp,
+    Updater,
+    get_updater,
+)
 from deeplearning4j_tpu_torch.datasets.iterator import DataSet
 from deeplearning4j_tpu_torch.nn.conf.builder import MultiLayerConfiguration
 from deeplearning4j_tpu_torch.nn.layers.base import Layer, layer_from_dict
-from deeplearning4j_tpu_torch.nn.layers.misc import FrozenLayer
 from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
 
 
@@ -71,8 +74,7 @@ def _with(layer: Layer, **fields) -> Layer:
 @torch.no_grad()
 def _copy_layer(src: Layer, dst: Layer):
     """Copy `src`'s params and running state into `dst` where the names
-    and shapes match (a FrozenLayer reads and writes its inner
-    layer's)."""
+    and shapes match."""
     for kind in ("jax_param_map", "state_map"):
         want = getattr(dst, kind)()
         for name, t in getattr(src, kind)().items():
@@ -141,7 +143,8 @@ class TransferLearning:
             reinit.update(range(base, len(layers)))
             for i, l in enumerate(layers):
                 if i <= self._frozen_upto:
-                    layers[i] = FrozenLayer(layer=l)
+                    l.updater = NoOp()
+                    layers[i] = layer_from_dict(l.to_dict())
                 elif self._fine_tune is not None:
                     layers[i] = self._fine_tune.apply(l)
             old = old_net.conf

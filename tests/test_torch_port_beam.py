@@ -8,6 +8,8 @@ beams, against a plain beam search over full-sequence `output()` calls;
 and the eager validation.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -14,6 +14,8 @@ and the fp32 path (`F.batch_norm`) within FP32_RTOL of the largest |y|
 gamma/beta, as the container's mixed step hands them over.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

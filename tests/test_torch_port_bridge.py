@@ -13,6 +13,8 @@ that writes them, and the port against the fixtures, on the CPU.
   tokens and next `fit` step (`check_jax_fixture`).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import importlib.util
 import io
 import json

@@ -23,6 +23,8 @@ T = 512 by `chip_smoke.py` phase 2, PERF.md), so the card's reading, not
 this file, is what holds the kernels to 1e-4.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import functools
 
 import numpy as np

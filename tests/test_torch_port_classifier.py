@@ -24,6 +24,8 @@ sequence come from class c's band of the vocabulary).
   iterations and epochs as JAX's fit loop makes them.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

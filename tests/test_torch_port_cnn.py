@@ -15,6 +15,8 @@ normalizes, the port's `F.batch_norm` keeps them fp32 and rounds once),
 and its running statistics, fp32 on both sides, to ATOL.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -21,6 +21,8 @@ of the row's largest cumsum in the window, 4 ulps of the row's largest
 input gradient.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import os
 
 import jax

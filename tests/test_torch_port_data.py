@@ -5,6 +5,8 @@ parallel iterators' and the fetchers' arrays are equal; the
 `DevicePrefetchIterator` path of `fit` trains bit-equal to the plain
 iterator and checks token ids on the host before any copy."""
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import gzip
 import struct
 

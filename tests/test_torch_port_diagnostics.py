@@ -16,6 +16,8 @@ package's (`deeplearning4j_tpu/monitor/diagnostics.py`), on the CPU.
   a checkpoint trained with diagnostics resumes.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 
 import numpy as np

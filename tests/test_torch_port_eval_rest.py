@@ -3,6 +3,8 @@ rendering (`deeplearning4j_tpu_torch/eval/{binary,calibration,tools}.py`)
 against the JAX package's on the same seeded predictions: the same
 counts, metrics, JSON and HTML."""
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 
 import numpy as np

@@ -11,6 +11,8 @@ Nets are tiny MLPs built from one JAX configuration: the port's
 `init(seed)` draws JAX's weights, so both packages start equal.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import logging
 
 import numpy as np

@@ -27,6 +27,8 @@ which rounds toward zero inside a tile; `chip_smoke.py` phase 2 reads
 the kernel's error on the card.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import functools
 
 import numpy as np

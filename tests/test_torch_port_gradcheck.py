@@ -5,6 +5,8 @@ same nets (the port's configuration JSON, the same seeded params) pass
 in both, a wrong gradient fails in both, and the checker never touches
 the net it checks."""
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

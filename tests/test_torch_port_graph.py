@@ -25,10 +25,13 @@
 - Graph zips: the port's restores in the JAX package; the JAX-written
   fixture (tests/fixtures/bridge/resnet_small.zip, by
   tests/fixtures/make_graph_fixtures.py) regenerates equal to the
-  committed one; phase 10 of `chip_smoke.py` in its small mode.
+  committed one. Phase 10 of `chip_smoke.py` in its small mode is
+  rehearsed in `tests/test_torch_port_phase10.py`.
 - `evaluate`, `evaluate_roc_multi_class` equal JAX's; the unported
   graph features are refused by name.
 """
+
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
 
 import importlib.util
 import io
@@ -42,7 +45,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from deeplearning4j_tpu.common.updaters import Adam as JaxAdam
 from deeplearning4j_tpu.datasets.dataset import DataSet as JaxDataSet
 from deeplearning4j_tpu.nn.conf import graph as jgraph
@@ -473,56 +475,6 @@ def test_regenerated_graph_fixture_matches_the_committed_one(tmp_path):
             np.testing.assert_allclose(g2[k], g[k], rtol=GOLDEN_TOL,
                                        atol=GOLDEN_TOL, err_msg=k)
     assert os.path.getsize(os.path.join(here, "resnet_small.zip")) < 2 ** 20
-
-
-def test_phase_10_small_mode_on_the_cpu():
-    """`chip_smoke.phase_resnet` at its CPU size: ResNet-50 at 64x64 card
-    (here: the CPU) against the CPU, the timed arms, the JAX graph zip
-    against its golden and a round trip, the LM as a graph against the
-    layer list; every check passes and no kernel launches."""
-    report, fails = {}, chip_smoke.Failures()
-    launches = chip_smoke.phase_resnet(torch.device("cpu"), report, fails,
-                                       small=True)
-    assert not fails, list(fails)
-    assert all(n == 0 for n in launches.values())
-    r = report["resnet"]
-    assert r["graph_bridge"]["round_trip_bit_equal"]
-    assert r["graph_lm_float32"]["packed_runs"] == [[2, 3]]
-    assert r["float32"]["steps"] == 2 and r["mixed_bf16"]["steps"] == 2
-
-
-def test_phase_12_small_mode_on_the_cpu():
-    """`chip_smoke.phase_cnn_zoo` at its CPU size: the packaged LeNet on
-    the digits (card and CPU both the CPU here) and its twins, GoogLeNet,
-    VGG16 and the five other CNNs at reduced input sizes, the bf16
-    bounds; every check passes and no kernel launches."""
-    report, fails = {}, chip_smoke.Failures()
-    launches = chip_smoke.phase_cnn_zoo(torch.device("cpu"), report, fails,
-                                        small=True)
-    assert not fails, list(fails)
-    assert all(n == 0 for n in launches.values())
-    r = report["cnn_zoo"]
-    assert r["lenet"]["accuracy_cpu"] == 290 / 297
-    assert set(r) >= {"GoogLeNet", "VGG16", "AlexNet", "SimpleCNN", "VGG19",
-                      "InceptionResNetV1", "FaceNetNN4Small2", "bounds"}
-
-
-def test_phase_13_small_mode_on_the_cpu():
-    """`chip_smoke.phase_layers_rest` at its CPU size: YOLOv2 at 1/16 of
-    its widths on 64x64 images, the MoE LM at d64, MultiHeadAttention
-    with n_out != n_in, VAE, DBN and AutoEncoder pretraining on a slice
-    of the digits, the other new layers and a frozen conv and BatchNorm
-    in training (card and CPU both the CPU here); every check passes and
-    no kernel launches."""
-    report, fails = {}, chip_smoke.Failures()
-    launches = chip_smoke.phase_layers_rest(torch.device("cpu"), report,
-                                            fails, small=True)
-    assert not fails, list(fails)
-    assert all(n == 0 for n in launches.values())
-    r = report["layers_rest"]
-    assert set(r) >= {"yolo", "moe_lm", "mha_n_out", "vae", "dbn",
-                      "autoencoder", "layers", "frozen"}
-    assert r["frozen"]["frozen_bit_equal"]
 
 
 # ------------------------------------------------------- evaluation, refusals

@@ -1,6 +1,12 @@
 """The port stands alone: importing `deeplearning4j_tpu_torch` and every
-module in it loads neither `jax` nor any `deeplearning4j_tpu` module.
-Checked in a fresh interpreter (this test process has JAX loaded)."""
+module in it loads neither `jax`, `ml_dtypes` nor any
+`deeplearning4j_tpu` module, and leaves torch's thread count alone.
+Checked in a fresh interpreter (this test process has JAX loaded).
+`chip_smoke.py` imports none of them either. The test processes
+themselves cap torch's threads under pytest-xdist
+(`tests/torch_port_threads.py`)."""
+
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
 
 import os
 import subprocess
@@ -10,6 +16,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
 import importlib, json, pkgutil, sys
+import torch
+threads = torch.get_num_threads()
 import deeplearning4j_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__,
                                                pkg.__name__ + ".")]
@@ -17,9 +25,11 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
+             or m == "ml_dtypes" or m.startswith("ml_dtypes.")
              or m == "deeplearning4j_tpu"
              or m.startswith("deeplearning4j_tpu."))
-print(json.dumps({"modules": names, "bad": bad}))
+print(json.dumps({"modules": names, "bad": bad,
+                  "threads": [threads, torch.get_num_threads()]}))
 """
 
 
@@ -62,23 +72,46 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "monitor.listener", "monitor.diagnostics",
                 "datasets.dataset", "datasets.records",
                 "datasets.parallel", "datasets.fetchers", "eval.binary",
-                "eval.calibration", "eval.tools", "gradientcheck"):
+                "eval.calibration", "eval.tools", "gradientcheck",
+                "streaming", "streaming.ndarray", "serving.wire",
+                "serving.disagg", "monitor.reqtrace", "monitor.goodput",
+                "monitor.slo", "monitor.xprof", "nn.conf.memory"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
+    assert res["threads"][0] == res["threads"][1]
 
 
 def test_port_sources_never_name_jax():
-    """No source file of the port imports jax or the JAX package (the
-    runtime probe above only sees modules actually imported)."""
+    """No source file of the port, and not `chip_smoke.py`, imports jax,
+    ml_dtypes or the JAX package (the runtime probe above only sees
+    modules actually imported)."""
     import re
-    pat = re.compile(r"^\s*(import|from)\s+(jax|deeplearning4j_tpu)\b",
-                     re.M)
+    pat = re.compile(
+        r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|deeplearning4j_tpu)\b",
+        re.M)
     root = os.path.join(REPO, "deeplearning4j_tpu_torch")
-    hits = []
+    paths = [os.path.join(REPO, "chip_smoke.py")]
     for d, _, files in os.walk(root):
-        for f in files:
-            if f.endswith(".py"):
-                with open(os.path.join(d, f)) as fh:
-                    if pat.search(fh.read()):
-                        hits.append(f)
-    assert hits == []
+        paths += [os.path.join(d, f) for f in files if f.endswith(".py")]
+    hits = []
+    for path in paths:
+        with open(path) as fh:
+            if pat.search(fh.read()):
+                hits.append(os.path.relpath(path, REPO))
+    assert len(paths) > 100 and hits == []
+
+
+def test_xdist_workers_share_the_cores():
+    """Under pytest-xdist a worker runs torch on its share of the cores
+    (six workers on eight: one thread each); a plain run keeps torch's
+    default."""
+    import torch
+    import torch_port_threads
+    want = torch_port_threads.worker_threads()
+    if want is None:
+        assert "PYTEST_XDIST_WORKER" not in os.environ \
+            or int(os.environ.get("PYTEST_XDIST_WORKER_COUNT", "1")) < 2
+    else:
+        assert torch.get_num_threads() == want
+        assert want == max(1, len(os.sched_getaffinity(0)) // int(
+            os.environ["PYTEST_XDIST_WORKER_COUNT"]))

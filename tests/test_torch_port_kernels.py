@@ -11,6 +11,8 @@ statistics differs); flash atol 2e-5 on o and lse (fp32 online softmax
 against the plain whole-row softmax, different summation order).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -17,6 +17,8 @@ counted. Everything runs on the CPU, through the kernels' plain
 versions.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

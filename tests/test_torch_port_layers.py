@@ -8,6 +8,8 @@ activations (matmul and reduction order differ between XLA:CPU and
 PyTorch), 1e-6 on softmax outputs; greedy token streams exactly equal.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

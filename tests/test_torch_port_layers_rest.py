@@ -19,6 +19,8 @@ each JAX result (both sides round each product sum once to bf16);
 place).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 
 import jax

@@ -17,6 +17,8 @@ block 3's attn_Wq, where the same run under SGD agrees within 1.8e-6).
 rounding; see `tests/test_torch_port_training.py`).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

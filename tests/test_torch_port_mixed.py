@@ -22,6 +22,8 @@ mixed run and of the port's own fp32 run (the JAX package's documented
 band, `tests/test_dtype_policy.py:170-186`, `docs/PRECISION.md`).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -23,6 +23,8 @@ Net: the JAX zoo LM at d32 / 2 blocks built under `mixed_bf16`, its
 output head scaled by 2 in the params both sides load.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 import zipfile
 
@@ -192,7 +194,7 @@ def test_pool_is_bf16_and_half_the_fp32_bytes(jnet, net):
     assert all(t.dtype == torch.bfloat16 for kv in mixed.pool.kv
                for t in kv)
     assert all(t.dtype == torch.float32 for kv in fp32.pool.kv for t in kv)
-    assert 2 * mixed.pool.nbytes == fp32.pool.nbytes
+    assert 2 * mixed.pool.device_bytes() == fp32.pool.device_bytes()
     carries = net.init_carries(1)
     assert carries["2"][0].dtype == torch.bfloat16
 

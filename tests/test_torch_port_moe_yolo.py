@@ -18,6 +18,8 @@ step-0 update sits 4.5e-5 from JAX's, relative to the update, where a
 1e-4-2e-4 of itself, a 1e-7-noise twin's to 5e-6.)
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

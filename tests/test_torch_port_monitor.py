@@ -6,6 +6,8 @@ JAX's; `fit` with monitoring on runs its spans and feeds the registry;
 the collectors, the listeners' gauges and the checkpoint counters land
 under JAX's family names."""
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 
 import numpy as np

@@ -22,6 +22,8 @@ Tolerances:
   1e-4, each `attn_bk` by the rule's step bound.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

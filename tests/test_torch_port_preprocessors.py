@@ -13,6 +13,8 @@ the small nets within ATOL = 1e-5 of JAX's, relative to the largest
 |value| of the reference (XLA:CPU and PyTorch sum in another order).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -15,6 +15,8 @@ uniform sits within rounding of its mean; each RBM case counts the
 flipped samples of its chain and expects none at these seeds.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -9,6 +9,8 @@ of `jax.random.bernoulli` dropout, the backward, and the device rule
 (a CUDA tensor launches the kernel; there is no fallback).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

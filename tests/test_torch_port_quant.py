@@ -19,6 +19,8 @@ Net: the JAX zoo LM at d32 / 2 blocks, its output head scaled by 8 in
 the params both sides load, so greedy logits are decisive.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

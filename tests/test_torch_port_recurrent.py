@@ -16,6 +16,8 @@ within MIXED_LOSS_RTOL); `rnn_time_step` within ATOL of
 Small widths throughout; everything on the CPU.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import json
 import zipfile
 

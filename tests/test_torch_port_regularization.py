@@ -25,6 +25,8 @@ One `mixed_bf16` case per family is held to the mixed band of
 JAX's mixed run, every step within 5% of its initial loss.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

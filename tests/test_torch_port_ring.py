@@ -17,6 +17,8 @@ suite's own, `tests/test_parallel_advanced.py`); training as in
 relative Frobenius 1e-4, `attn_bk` by Adam's step bound).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import logging
 import threading
 

@@ -13,6 +13,8 @@ Adam steps of tiny nets, where the two packages' fp32 sums differ in
 their last bits).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -19,6 +19,8 @@ total-variation defect of a few percent over the ~6 surviving tokens
 drives the statistic far past the threshold.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -20,6 +20,8 @@ blocks, 2 heads of 32, ff x4, max_len 64).
   yet, is refused.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import io
 import json
 import os

@@ -12,6 +12,8 @@ in-vocab, exact length, determinism under a fixed seed, and equality
 with the port's sampled `generate()` for the same seed.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import threading
 import time
 
@@ -382,8 +384,15 @@ class TestServer:
         assert threading.active_count() < 50
 
     def test_server_rejects_unported_options(self, net):
-        with pytest.raises(TypeError):
-            GenerationServer(net, device="cpu", slo_ttft_s=1.0)
+        """The constructor takes the JAX server's SLO, name and metrics
+        arguments; the two it leaves out are refused: `dispatch_floor_s`
+        (a CPU load-test emulation of a slower device) and
+        `idle_wait_s` (a constant here)."""
+        GenerationServer(net, device="cpu", slo_ttft_s=1.0, name="a",
+                         max_queue=4).stop()
+        for kw in (dict(dispatch_floor_s=0.01), dict(idle_wait_s=0.01)):
+            with pytest.raises(TypeError):
+                GenerationServer(net, device="cpu", **kw)
 
 
 def test_engine_refuses_net_on_other_device(net):

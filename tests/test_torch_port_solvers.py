@@ -11,6 +11,8 @@ later scores and the final params within 1e-4 relative (the line
 search's Armijo test branches on those floats).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

@@ -29,6 +29,8 @@ Net: the JAX zoo LM at d32 / 2 blocks / vocab 31, its output head
 scaled by 8 in the params both sides load (decisive greedy logits).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -275,7 +277,7 @@ def test_ngram_proposals_equal_jax(jnet, net, max_draft):
     hists += [[9, 4, 5, 4, 5, 4, 5], [1, 7, 8, 9, 2, 7, 8, 5, 6, 7, 8],
               [3, 7, 8, 4, 1, 3, 7, 8, 9, 3, 7, 8], [1, 2, 3, 4, 5]]
     for h in hists:
-        eng.slots[0] = Slot(None, [], history=list(h))
+        eng.slots[0] = Slot(None, [], 0, 0, history=list(h))
         jeng.slots[0] = JaxSlot(None, [], 0, 0, history=list(h))
         assert eng._propose(0, max_draft) == jeng._propose(0, max_draft), h
 

@@ -18,6 +18,8 @@ Adam turns that noise into steps of up to lr (1-b1)/sqrt(1-b2) each
 bound per step.
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch

@@ -14,6 +14,8 @@ XLA:CPU and PyTorch may round the float32 power 1 - b^t differently in
 the last bit).
 """
 
+import torch_port_threads  # noqa: F401  (caps torch's threads under xdist)
+
 import numpy as np
 import pytest
 import torch
