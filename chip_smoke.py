@@ -21,6 +21,7 @@
     python3 chip_smoke.py --telemetry-probe  # phase 15's host-time
                                           # breakdown of a diagnostics step
     python3 chip_smoke.py --serving-plane # build + phase 16 alone
+    python3 chip_smoke.py --parallel      # build + phase 17 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -359,8 +360,39 @@ Phases, in order:
      off, on, on, off, twice, and the same requests driven in this thread
      the same way: the median host ms of a decode dispatch's scheduler
      iteration, off and on. It prints `[serving_plane]` lines;
+ 17. data-parallel training (`phase_parallel`, fp32 with TF32 off unless
+     an arm is mixed_bf16) of the long-context LM (phase 6's config,
+     Adam(LONG_LR)) at the global batch [8, 2048] on a 4-way data axis
+     that repeats the card (`make_mesh(MeshSpec.of(data=4),
+     devices=[card] * 4)`: one [2, 2048] shard a replica, run one after
+     the other, so no speed-up is claimed): (a) `ParallelTrainer` sync
+     dense, bucketed and single-barrier, 3 steps against the single
+     card's `fit` of the same batches (step 0's loss within 1e-5
+     relative, every param within twice Adam's step bound), and the
+     bucketed arm under mixed_bf16 (step 0 within 1e-2); (b) threshold
+     with a tau per bucket keyed by layer, its losses within JAX's band
+     (0.35 x the initial loss) of (a)'s dense, the error-feedback
+     identity enc·tau + res_new = update + res_old checked per bucket
+     and replica; (c) averaging every 2 steps, the replicas' params
+     bit-equal after each round and apart before it; (d) dense_rs
+     bit-equal to (a)'s bucketed dense in params and Adam state, and
+     threshold_rs learning; (e) at a cut depth (full width), a threshold
+     and an averaging run checkpointed at step 2, killed at 3, resumed
+     by a new trainer and trained to 4, bit-equal to the uninterrupted
+     run, and the threshold checkpoint resumed on 2 replicas with the
+     residual's sum kept; (f) ParallelInference on phase 3's LM: 16
+     threads each ask for one [1, 512] row, coalesced, within
+     OUTPUT_ATOL of `output()` of the [16, 512] batch; (g) the packaged
+     LeNet on the digits, on the card and on a CPU twin: an
+     EarlyStoppingParallelTrainer and both training masters with stats,
+     phase counts equal to the CPU's. For each mode (and the single
+     card): ms/step, device ms and launches a step (torch.profiler),
+     the host ms of the exchange and update (the step less its
+     replicas' forward-backward), the training state the mode keeps
+     and the step's peak memory above it. It prints
+     `[parallel]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 16, each > 0; the counts of each phase on a `[launches]` line), the
+to 17, each > 0; the counts of each phase on a `[launches]` line), the
 card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
@@ -7638,6 +7670,671 @@ def phase_serving_plane(device, report, fails, small=False):
     return launches
 
 
+# ------------------------------------------------------------ phase 17
+# phase 17's configuration: the long-context LM (phase 6's), global
+# batch [8, 2048] on a 4-way data axis that repeats the card; `ckpt`
+# runs (e)'s kill-and-resume at a cut depth (full width) so its
+# checkpoints stay small; `inf` is (f)'s ParallelInference load; `es`
+# sizes (g)'s LeNet runs on the digits
+PARALLEL = dict(cfg=None, B=8, steps=3, timed=1, ckpt_layers=1,
+                inf_rows=16, es_train=256, es_batch=128, es_epochs=2)
+PARALLEL_SMALL = dict(cfg=dict(LM_LONG, vocab=64, d_model=64, n_layers=2,
+                               max_len=64),
+                      B=8, steps=3, timed=1, ckpt_layers=1, inf_rows=8,
+                      es_train=64, es_batch=16, es_epochs=2)
+PARALLEL_KERNELS = ("layer_norm", "residual_layer_norm",
+                    "flash_attention_fwd", "flash_attention_bwd_dq",
+                    "flash_attention_bwd_dkv", "fused_adam")
+PAR_N = 4                # replicas on the data axis
+
+
+def _par_mesh(device, n=PAR_N):
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, make_mesh
+    return make_mesh(MeshSpec.of(data=n), devices=[device] * n)
+
+
+def _par_batches(X, Y, B):
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    return [DataSet(X[i:i + B], Y[i:i + B]) for i in range(0, len(X), B)]
+
+
+def _par_fit(trainer, batches):
+    """`trainer.fit` over `batches` (one step each) with the loss of
+    every step read back (a listener makes the fit read it)."""
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresListener)
+    scores = CollectScoresListener()
+    net = trainer.model
+    net.set_listeners(scores)
+    try:
+        trainer.fit(list(batches))
+    finally:
+        net.set_listeners()
+    return [s for _, s in scores.scores]
+
+
+def _par_leaf_max(a, b):
+    """The largest |a - b| over every param of two nets."""
+    ta, tb = a.param_table(), b.param_table()
+    return max(float((ta[k].float() - tb[k].float()).abs().max())
+               for k in ta)
+
+
+def _par_bits_equal(a, b):
+    """Params and updater state bit for bit (names of the leaves that
+    are not)."""
+    import torch
+    bad = [k for k, v in a.param_table().items()
+           if not torch.equal(v, b.param_table()[k])]
+    for lk, lst in a.updater_state.items():
+        for pk, st in lst.items():
+            for sk, v in st.items():
+                if not torch.equal(v, b.updater_state[lk][pk][sk]):
+                    bad.append(f"{lk}/{pk}/{sk}")
+    return bad
+
+
+def _par_state_gb(nets, trainer=None):
+    """GB of the training state a mode keeps on the device: each
+    distinct net's params, updater state and running state, and a
+    trainer's replica stacks (residuals, the other replicas' updater
+    states, the rs shards)."""
+    seen, total = set(), 0
+
+    def add(tree):
+        nonlocal total
+        if isinstance(tree, dict):
+            for v in tree.values():
+                add(v)
+        elif id(tree) not in seen:
+            seen.add(id(tree))
+            total += tree.numel() * tree.element_size()
+    for net in nets:
+        add({k: layer.jax_param_map() for k, layer in net.keyed()})
+        add(net.updater_state)
+        add(net.net_state)
+    if trainer is not None:
+        for tree in ((trainer._res_r or [])
+                     + (getattr(trainer, "_upd_r", None) or [])[1:]
+                     + (getattr(trainer, "_rs_state", None) or [])):
+            add(tree)
+    return total / 1e9
+
+
+def _par_timed(device, trainer, batches, profile):
+    """ms/step of `batches` through `trainer.fit` (no loss read between
+    steps), the host ms of the replicas' passes inside them (the rest of
+    the step is the exchange and the update), the training state the
+    mode keeps (`_par_state_gb`) and the steps' peak memory above what
+    was allocated before them, and with
+    `profile` one more step under torch.profiler: device ms and kernel
+    launches a step."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import trainer as ptrainer
+    pass_s = [0.0]
+    real = ptrainer.ParallelTrainer._replica_pass
+
+    def timed_pass(self, *a, **k):
+        t0 = time.perf_counter()
+        try:
+            return real(self, *a, **k)
+        finally:
+            pass_s[0] += time.perf_counter() - t0
+
+    _sync(device)
+    base = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    ptrainer.ParallelTrainer._replica_pass = timed_pass
+    try:
+        t0 = time.perf_counter()
+        trainer.fit(list(batches[:-1]))
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finally:
+        ptrainer.ParallelTrainer._replica_pass = real
+    k = len(batches) - 1
+    out = dict(ms_per_step=wall / k * 1e3,
+               exchange_update_host_ms_per_step=(wall - pass_s[0]) / k * 1e3
+               if pass_s[0] else None,
+               state_gb=_par_state_gb(set(trainer._nets()), trainer),
+               step_gb=((torch.cuda.max_memory_allocated() - base) / 1e9
+                        if device.type == "cuda" else None))
+    if profile and device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        # kernel events only: CPU-op recording would slow the step
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.fit(list(batches[-1:]))
+            torch.cuda.synchronize()
+            w = (time.perf_counter() - t0) * 1e3
+        s = _profile_summary(prof, w)
+        out.update(device_ms_per_step=s["device_ms"],
+                   launches_per_step=s["launches"],
+                   busy_share=s["busy_share"])
+    else:
+        trainer.fit(list(batches[-1:]))
+    return out
+
+
+def _par_single_timed(device, net, batches, profile):
+    """The single-card `fit` beside the modes: the same measurements."""
+    import torch
+    _sync(device)
+    base = 0
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    for ds in batches[:-1]:
+        net.fit(ds)
+    _sync(device)
+    k = len(batches) - 1
+    out = dict(ms_per_step=(time.perf_counter() - t0) / k * 1e3,
+               state_gb=_par_state_gb([net]),
+               step_gb=((torch.cuda.max_memory_allocated() - base) / 1e9
+                        if device.type == "cuda" else None))
+    if profile and device.type == "cuda":
+        from torch.profiler import ProfilerActivity, profile as prof_ctx
+        # kernel events only: CPU-op recording would slow the step
+        with prof_ctx(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            net.fit(batches[-1])
+            torch.cuda.synchronize()
+            w = (time.perf_counter() - t0) * 1e3
+        s = _profile_summary(prof, w)
+        out.update(device_ms_per_step=s["device_ms"],
+                   launches_per_step=s["launches"],
+                   busy_share=s["busy_share"])
+    else:
+        net.fit(batches[-1])
+    return out
+
+
+def _par_ef_probe(fails, out):
+    """Wrap `gradient_sharing.threshold_exchange` for a step: per bucket
+    and replica, (update + old residual - new residual) / τ must be an
+    integer in {-1, 0, 1} (the sent sign) and the mean of the sent
+    values the shared update: enc·τ + res_new = update + res_old.
+    Returns the restore function."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import gradient_sharing as gs
+    real = gs.threshold_exchange
+    worst = {"int": 0.0, "mean": 0.0, "buckets": 0, "sent": 0}
+
+    def probe(deltas, residuals, tau, cfg, *, device):
+        old = [{lk: {pk: t.clone() for pk, t in lr.items()}
+                for lk, lr in r.items()} for r in residuals]
+        dhat, res, new_tau, sp = real(deltas, residuals, tau, cfg,
+                                      device=device)
+        t = float(tau)
+        for lk, ld in dhat.items():
+            for pk, d in ld.items():
+                sent = [(deltas[r][lk][pk] + old[r][lk][pk]
+                         - res[r][lk][pk]).to(device)
+                        for r in range(len(deltas))]
+                enc = [s / t for s in sent]
+                worst["int"] = max(worst["int"], max(
+                    float((e - e.round()).abs().max()) for e in enc))
+                ok = all(float(e.round().abs().max()) <= 1 for e in enc)
+                if not ok:
+                    worst["int"] = float("inf")
+                worst["sent"] += int(sum(int((e.round() != 0).sum())
+                                         for e in enc))
+                mean = torch.stack(sent).mean(0)
+                worst["mean"] = max(worst["mean"], float(
+                    (mean - d).abs().max()) / t)
+        worst["buckets"] += 1
+        return dhat, res, new_tau, sp
+
+    gs.threshold_exchange = probe
+
+    def restore():
+        gs.threshold_exchange = real
+        out["ef_identity"] = dict(worst)
+        # fp32 rounding of u + r - r': a few ulps of |u| over τ
+        fails.check(worst["buckets"] > 0 and worst["sent"] > 0
+                    and worst["int"] <= 1e-2 and worst["mean"] <= 1e-2,
+                    f"parallel (b): error-feedback identity off: {worst}")
+    return restore
+
+
+def _par_resume(device, fails, cfg, c, params, X, Y, kw, tag):
+    """(e) one kind: an uninterrupted run of 4 steps against a run
+    checkpointed at step 2 and killed at 3, resumed by a new trainer and
+    trained to 4: params and updater state bit-equal. Returns the
+    checkpoint directory's meta and seconds."""
+    import shutil
+    import tempfile
+    from deeplearning4j_tpu_torch import fault
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    B = c["B"]
+    batches = _par_batches(X[:4 * B], Y[:4 * B], B)
+    mesh = _par_mesh(device)
+    ref = build_lm(cfg, device, params, lr=LONG_LR)
+    ParallelTrainer(ref, mesh, **kw).fit(ListDataSetIterator(batches))
+    d = tempfile.mkdtemp(prefix=f"par_{tag}_", dir=OUT_DIR)
+    try:
+        net = build_lm(cfg, device, params, lr=LONG_LR)
+        it = ListDataSetIterator(batches)
+        ck = fault.AsyncCheckpointer(d)
+        net.set_listeners(fault.CheckpointListener(ck, frequency=2,
+                                                   iterator=None),
+                          fault.PreemptionListener(
+                              3, wait_for_checkpointer=ck))
+        t0 = time.perf_counter()
+        try:
+            ParallelTrainer(net, mesh, **kw).fit(it)
+        except fault.SimulatedPreemption:
+            pass
+        ck.wait()
+        write_s = time.perf_counter() - t0
+        meta = fault.checkpoint_meta(d)
+        back = build_lm(cfg, device, params, lr=LONG_LR)
+        t = ParallelTrainer(back, mesh, **kw)
+        t0 = time.perf_counter()
+        t.resume(d)
+        resume_s = time.perf_counter() - t0
+        fails.check(back.iteration_count == 2,
+                    f"parallel (e) {tag}: resumed at "
+                    f"{back.iteration_count}, not 2")
+        t.fit(ListDataSetIterator(batches[2:]))
+        bad = _par_bits_equal(ref, back)
+        fails.check(not bad, f"parallel (e) {tag}: resumed run not "
+                             f"bit-equal: {bad[:6]}")
+        out = dict(kind=meta.get("trainer", {}).get("kind"),
+                   bit_equal=not bad, write_s=write_s, resume_s=resume_s)
+        if tag == "threshold":
+            out["elastic"] = _par_elastic(device, fails, cfg, params, d)
+        return out
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def _par_elastic(device, fails, cfg, params, d):
+    """(e) elastic: the 4-replica threshold checkpoint resumed on a
+    2-replica mesh keeps Σ residual (the float64 sum rounded to
+    float32)."""
+    from deeplearning4j_tpu_torch import fault
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    state, _ = fault.load_latest_valid(d)
+    old = state["arrays"]["trainer"]["residual_r"]
+    net = build_lm(cfg, device, params, lr=LONG_LR)
+    t = ParallelTrainer(net, _par_mesh(device, 2),
+                        gradient_sharing="threshold")
+    t.resume(d)
+    t._threshold_state(True)
+    new = t.threshold_residual()
+    bad = [f"{lk}/{pk}" for lk in old for pk in old[lk]
+           if not np.array_equal(
+               new[lk][pk].sum(axis=0),
+               old[lk][pk].sum(axis=0, dtype=np.float64).astype(np.float32))
+           or new[lk][pk].shape[0] != 2]
+    fails.check(not bad, f"parallel (e) elastic 4 -> 2: residual sum not "
+                         f"kept: {bad[:6]}")
+    return dict(sum_kept=not bad, leaves=sum(len(v) for v in old.values()))
+
+
+def _par_inference(device, fails, c):
+    """(f) ParallelInference on the smoke LM at full width: one [1, 512]
+    request from each of 16 threads, coalesced, against `output()` of
+    the [16, 512] batch."""
+    import threading
+    import torch
+    from deeplearning4j_tpu_torch.parallel import ParallelInference
+    cfg = c["cfg"] or LM
+    small_cfg = dict(LM, d_model=64, n_heads=4, n_layers=2, max_len=64) \
+        if c["cfg"] else LM
+    n = c["inf_rows"]
+    net = build_lm(small_cfg, device,
+                   random_lm_params(small_cfg, seed=1707, head_scale=4.0))
+    rng = np.random.default_rng(171)
+    X = rng.integers(0, small_cfg["vocab"],
+                     (n, small_cfg["max_len"])).astype(np.float32)
+    want = net.output(X).float().cpu().numpy()
+    pi = ParallelInference(net, _par_mesh(device), batch_limit=64,
+                           queue_limit_ms=500.0).start()
+    futs, barrier = [None] * n, threading.Barrier(n)
+    try:
+        def call(i):
+            barrier.wait()
+            futs[i] = pi.output_async(X[i:i + 1])
+        th = [threading.Thread(target=call, args=(i,)) for i in range(n)]
+        t0 = time.perf_counter()
+        for t in th:
+            t.start()
+        for t in th:
+            t.join()
+        got = np.concatenate([f.result(timeout=120) for f in futs])
+        wall = time.perf_counter() - t0
+    finally:
+        pi.shutdown()
+    err = float(np.abs(got - want).max())
+    fails.check(err <= OUTPUT_ATOL, f"parallel (f): ParallelInference "
+                                    f"output {err:.3g} from output()")
+    hist = list(pi.batch_size_history)
+    fails.check(sum(hist) == n and max(hist) > 1,
+                f"parallel (f): {n} callers not coalesced: {hist}")
+    del torch, cfg
+    return dict(rows=n, T=small_cfg["max_len"], max_abs_err=err,
+                batches=hist, seconds=wall)
+
+
+def _par_lenet(device, fails, c, small):
+    """(g) the packaged LeNet on the digits, on the card and on a CPU
+    twin: an EarlyStoppingParallelTrainer (MaxEpochs, held-out loss)
+    and both training masters with stats; the phase counts must equal
+    the CPU's."""
+    from deeplearning4j_tpu_torch.datasets import (ArrayDataSetIterator,
+                                                   DataSet)
+    from deeplearning4j_tpu_torch.earlystopping import (
+        EarlyStoppingConfiguration, EarlyStoppingParallelTrainer)
+    from deeplearning4j_tpu_torch.earlystopping import conditions as ec
+    from deeplearning4j_tpu_torch.earlystopping.scorecalc import (
+        DataSetLossCalculator)
+    from deeplearning4j_tpu_torch.parallel import (
+        ParameterAveragingTrainingMaster, SharedTrainingMaster)
+    from deeplearning4j_tpu_torch.zoo import LeNet, PretrainedType
+    X, Y = digits_28x28()
+    Xh, Yh = X[:N_HELD_OUT], Y[:N_HELD_OUT]
+    Xt, Yt = X[N_HELD_OUT:N_HELD_OUT + c["es_train"]], \
+        Y[N_HELD_OUT:N_HELD_OUT + c["es_train"]]
+    bs = c["es_batch"]
+    out = {}
+    for where in ("card", "cpu"):
+        dev = device if where == "card" else _cpu()
+        mesh = _par_mesh(dev)
+        net = LeNet().init_pretrained(PretrainedType.MNIST, device=dev)
+        conf = EarlyStoppingConfiguration(
+            score_calculator=DataSetLossCalculator(
+                ArrayDataSetIterator(Xh, Yh, batch_size=bs)),
+            epoch_termination_conditions=[
+                ec.MaxEpochsTerminationCondition(c["es_epochs"])])
+        es = EarlyStoppingParallelTrainer(
+            conf, net, ArrayDataSetIterator(Xt, Yt, batch_size=bs,
+                                            shuffle=False),
+            mesh, batch_size=bs).fit()
+        pa = ParameterAveragingTrainingMaster(
+            batch_size_per_worker=bs // PAR_N, averaging_frequency=2,
+            mesh=mesh, collect_training_stats=True)
+        pa.execute_training(net, (Xt, Yt), epochs=1)
+        sh = SharedTrainingMaster(batch_size_per_worker=bs // PAR_N,
+                                  mesh=mesh, collect_training_stats=True)
+        sh.execute_training(net, (Xt, Yt), epochs=1)
+        acc = net.evaluate(DataSet(Xh, Yh)).accuracy()
+        out[where] = dict(
+            es_best_epoch=es.best_model_epoch,
+            es_scores={str(k): float(v) for k, v in es.score_vs_epoch.items()},
+            averaging_phases=pa.get_training_stats().phase_counts(),
+            averaging_rounds=pa.get_training_stats().round_count,
+            averaging_ms=pa.get_training_stats().phase_totals_ms(),
+            shared_phases=sh.get_training_stats().phase_counts(),
+            shared_ms=sh.get_training_stats().phase_totals_ms(),
+            held_out_accuracy=acc)
+    a, b = out["card"], out["cpu"]
+    for k in ("averaging_phases", "averaging_rounds", "shared_phases"):
+        fails.check(a[k] == b[k], f"parallel (g): {k} card {a[k]} != CPU "
+                                  f"{b[k]}")
+    fails.check(all(np.isfinite(v) for v in a["es_scores"].values()),
+                f"parallel (g): early-stopping scores {a['es_scores']}")
+    if not small:
+        fails.check(a["held_out_accuracy"] >= LENET_MIN_ACCURACY,
+                    f"parallel (g): held-out accuracy "
+                    f"{a['held_out_accuracy']:.4f}")
+    return out
+
+
+def _cpu():
+    import torch
+    return torch.device("cpu")
+
+
+def phase_parallel(device, report, fails, small=False):
+    """Phase 17 on `device`: data-parallel training of the long-context
+    LM on a 4-way data axis that repeats the card (see the module
+    docstring, 17 (a)-(g)). `small` (the CPU rehearsal) shrinks the LM
+    and the digits. Returns the phase's kernel launches."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresListener)
+    from deeplearning4j_tpu_torch.parallel import ParallelTrainer
+    c = PARALLEL_SMALL if small else PARALLEL
+    cfg = c["cfg"] or LM_LONG
+    B, n, k = c["B"], c["steps"], c["timed"]
+    t_start = time.perf_counter()
+    params = random_lm_params(cfg, seed=1717, head_scale=1.0)
+    T = cfg["max_len"]
+    X, Y = lm_corpus(cfg, B * (n + k + 1), seed=17, T=T)
+    check = _par_batches(X[:n * B], Y[:n * B], B)
+    timed = _par_batches(X[n * B:], Y[n * B:], B)
+    mesh = _par_mesh(device)
+    prof = device.type == "cuda"
+    out = dict(config=dict(cfg, global_batch=[B, T], replicas=PAR_N,
+                           rows_per_replica=B // PAR_N, lr=LONG_LR))
+    K.reset_launches()
+
+    bases = {}
+
+    def lm(policy=None):
+        """A fresh net from the seeded params (a copy of one built net a
+        policy: `copy` is cheaper than `init` plus the params' load)."""
+        if policy not in bases:
+            bases[policy] = build_lm(cfg, device, params, lr=LONG_LR,
+                                     dtype_policy=policy)
+        return bases[policy].copy()
+
+    # ---- (a) sync dense against the single card
+    single = lm()
+    scores = CollectScoresListener()
+    single.set_listeners(scores)
+    for ds in check:
+        single.fit(ds)
+    single.set_listeners()
+    l_single = [s for _, s in scores.scores]
+    runs, losses = {}, {}
+    bound = adam_step_max(LONG_LR, n)
+    for name, kw in (("dense_bucketed", dict(gradient_sharing="dense")),
+                     ("dense_single_barrier",
+                      dict(gradient_sharing="dense", bucketed=False))):
+        net = lm()
+        tr = ParallelTrainer(net, mesh, **kw)
+        losses[name] = _par_fit(tr, check)
+        rel0 = abs(losses[name][0] - l_single[0]) / abs(l_single[0])
+        worst = _par_leaf_max(net, single)
+        runs[name] = (net, tr)
+        fails.check(rel0 <= TRAIN_LOSS_RTOL / 10,
+                    f"parallel (a) {name}: step 0 loss {losses[name][0]} vs "
+                    f"single card {l_single[0]} (rel {rel0:.3g})")
+        fails.check(worst <= 2 * n * bound,
+                    f"parallel (a) {name}: params {worst:.3g} from the "
+                    f"single card's after {n} steps (Adam bound "
+                    f"{2 * n * bound:.3g})")
+        out[name] = dict(losses=losses[name], step0_rel=rel0,
+                         params_max_abs=worst)
+    out["single_card"] = dict(losses=l_single)
+    parts = {"a_checks": time.perf_counter() - t_start}
+    # the single card and the same step through the trainer, in turns
+    times = {"single_card": _par_single_timed(device, single, timed, prof),
+             "dense_single_barrier": _par_timed(
+                 device, runs["dense_single_barrier"][1], timed, prof)}
+    del single
+    # the mixed arm of the dense exchange
+    mixed_single = lm(MIXED)
+    l_ms = _fit_steps(mixed_single, X[:B], Y[:B], B)
+    del mixed_single
+    mnet = lm(MIXED)
+    mtr = ParallelTrainer(mnet, mesh, gradient_sharing="dense")
+    l_mixed = _par_fit(mtr, check)
+    rel_m = abs(l_mixed[0] - l_ms[0]) / abs(l_ms[0])
+    fails.check(rel_m <= MIXED_STEP0_RTOL,
+                f"parallel (a) mixed_bf16: step 0 {l_mixed[0]} vs single "
+                f"{l_ms[0]} (rel {rel_m:.3g})")
+    out["dense_mixed"] = dict(losses=l_mixed, step0_rel=rel_m,
+                              single_step0=l_ms[0])
+    times["dense_mixed"] = _par_timed(device, mtr, timed, prof)
+    del mnet, mtr
+
+    # ---- (b) threshold, bucketed; tau starts at the learning rate (the
+    # scale of the updates it encodes: at the configuration's default
+    # 1e-3, ten times Adam's steps at LONG_LR, nothing would be sent in
+    # these steps and the identity would hold trivially)
+    from deeplearning4j_tpu_torch.parallel import ThresholdConfig
+    tnet = lm()
+    ttr = ParallelTrainer(tnet, mesh, gradient_sharing="threshold",
+                          threshold_config=ThresholdConfig(
+                              initial_threshold=LONG_LR))
+    restore = _par_ef_probe(fails, out)
+    try:
+        l_thr = _par_fit(ttr, check)
+    finally:
+        restore()
+    init = l_single[0]
+    band = max(abs(a - b) for a, b in zip(l_thr,
+                                          losses["dense_bucketed"]))
+    fails.check(band <= 0.35 * init,
+                f"parallel (b): threshold {l_thr} outside JAX's band of "
+                f"dense {losses['dense_bucketed']} (0.35 x {init:.4f})")
+    tau = ttr._thr_tau
+    fails.check(isinstance(tau, dict)
+                and set(tau) == set(tnet.updater_state),
+                "parallel (b): tau is not a tree keyed by layer")
+    out["threshold"] = dict(losses=l_thr, band=band, band_limit=0.35 * init,
+                            tau={k: float(v) for k, v in tau.items()})
+
+    # ---- (d) dense_rs against (a)'s bucketed dense, bit for bit
+    rnet = lm()
+    rtr = ParallelTrainer(rnet, mesh, gradient_sharing="dense_rs")
+    l_rs = _par_fit(rtr, check)
+    bad = _par_bits_equal(runs["dense_bucketed"][0], rnet)
+    fails.check(not bad, f"parallel (d): dense_rs not bit-equal to dense: "
+                         f"{bad[:6]}")
+    sharded = sum(v for lp in rtr._rs_plan().values() for v in lp.values())
+    trs = lm()
+    trs_tr = ParallelTrainer(trs, mesh, gradient_sharing="threshold_rs")
+    l_trs = _par_fit(trs_tr, check + timed[:1])
+    fails.check(l_trs[-1] < l_trs[0],
+                f"parallel (d): threshold_rs did not learn: {l_trs}")
+    out["dense_rs"] = dict(losses=l_rs, bit_equal=not bad,
+                           sharded_leaves=sharded)
+    out["threshold_rs"] = dict(losses=l_trs)
+    times["dense_rs"] = _par_timed(device, rtr, timed, prof)
+    times["threshold_rs"] = _par_timed(device, trs_tr, timed, prof)
+    del rnet, rtr, trs, trs_tr
+
+    # ---- timings of (a) and (b)
+    times["dense_bucketed"] = _par_timed(
+        device, runs["dense_bucketed"][1], timed, prof)
+    runs.clear()
+    times["threshold"] = _par_timed(device, ttr, timed, prof)
+    del tnet, ttr
+
+    # ---- (c) averaging every 2 steps: replicas equal after a round only
+    anet = lm()
+    atr = ParallelTrainer(anet, mesh, mode="averaging", averaging_frequency=2)
+    seen = []
+
+    class Probe(CollectScoresListener):
+        def iteration_done(self, model, iteration, epoch, score, **kw):
+            super().iteration_done(model, iteration, epoch, score, **kw)
+            nets = atr._nets()
+            a = nets[0].param_table()
+            same = all(torch.equal(a[key], r.param_table()[key])
+                       for r in nets[1:] for key in a)
+            seen.append((iteration, same))
+
+    probe = Probe()
+    anet.set_listeners(probe)
+    atr.fit(check + timed[:1])
+    anet.set_listeners()
+    want = [(i, (i + 1) % 2 == 0) for i, _ in seen]
+    fails.check(seen == want and len(seen) == n + 1,
+                f"parallel (c): replicas equal after rounds only: {seen}")
+    out["averaging"] = dict(losses=[s for _, s in probe.scores],
+                            equal_after_step=seen)
+    times["averaging"] = _par_timed(device, atr, timed, prof)
+    del anet, atr
+    _sync(device)
+    launches = {key: K.LAUNCHES.get(key, 0) for key in KERNEL_META}
+    if device.type == "cuda":
+        for key in PARALLEL_KERNELS:
+            fails.check(launches[key] > 0,
+                        f"parallel: kernel {key} never launched")
+
+    parts["a_to_d"] = time.perf_counter() - t_start - sum(parts.values())
+    # ---- (e) checkpoint and resume at the cut depth
+    ccfg = dict(cfg, n_layers=c["ckpt_layers"])
+    cparams = random_lm_params(ccfg, seed=1718, head_scale=1.0)
+    out["resume"] = {
+        tag: _par_resume(device, fails, ccfg, c, cparams, X, Y, kw, tag)
+        for tag, kw in (("threshold", dict(gradient_sharing="threshold")),
+                        ("averaging", dict(mode="averaging",
+                                           averaging_frequency=3)))}
+    parts["e"] = time.perf_counter() - t_start - sum(parts.values())
+    # ---- (f) and (g)
+    out["inference"] = _par_inference(device, fails, c)
+    parts["f"] = time.perf_counter() - t_start - sum(parts.values())
+    out["lenet"] = _par_lenet(device, fails, c, small)
+    parts["g"] = time.perf_counter() - t_start - sum(parts.values())
+    out["part_seconds"] = parts
+    out["times"] = times
+    out["launches"] = {key: v for key, v in launches.items() if v}
+    out["seconds"] = time.perf_counter() - t_start
+    report["parallel"] = out
+    _print_parallel(out)
+    return launches
+
+
+def _print_parallel(out):
+    def f(v, p=2):
+        return "n/a" if v is None else f"{v:.{p}f}"
+    for name in ("dense_bucketed", "dense_single_barrier"):
+        a = out[name]
+        print(f"[parallel] (a) {name}: losses {a['losses']}, step 0 rel "
+              f"{a['step0_rel']:.3g}, params {a['params_max_abs']:.3g} from "
+              f"the single card", flush=True)
+    m = out["dense_mixed"]
+    print(f"[parallel] (a) dense mixed_bf16: losses {m['losses']}, step 0 "
+          f"rel {m['step0_rel']:.3g}", flush=True)
+    b = out["threshold"]
+    print(f"[parallel] (b) threshold: losses {b['losses']}, band "
+          f"{b['band']:.4g} of {b['band_limit']:.4g}, EF identity "
+          f"{out.get('ef_identity')}, tau {len(b['tau'])} layers", flush=True)
+    print(f"[parallel] (c) averaging: equal after step "
+          f"{out['averaging']['equal_after_step']}", flush=True)
+    print(f"[parallel] (d) dense_rs bit-equal {out['dense_rs']['bit_equal']}"
+          f" ({out['dense_rs']['sharded_leaves']} sharded leaves); "
+          f"threshold_rs losses {out['threshold_rs']['losses']}", flush=True)
+    for tag, r in out["resume"].items():
+        print(f"[parallel] (e) {tag}: kind {r['kind']}, bit-equal "
+              f"{r['bit_equal']}, write {r['write_s']:.2f} s, resume "
+              f"{r['resume_s']:.2f} s"
+              + (f", elastic 4 -> 2 {r['elastic']}" if "elastic" in r
+                 else ""), flush=True)
+    i = out["inference"]
+    print(f"[parallel] (f) ParallelInference {i['rows']} callers x "
+          f"[1, {i['T']}]: batches {i['batches']}, max abs err "
+          f"{i['max_abs_err']:.3g}, {i['seconds']:.3f} s", flush=True)
+    for where, g in out["lenet"].items():
+        print(f"[parallel] (g) LeNet {where}: ES best epoch "
+              f"{g['es_best_epoch']} {g['es_scores']}, averaging phases "
+              f"{g['averaging_phases']} ({g['averaging_rounds']} rounds), "
+              f"shared {g['shared_phases']}, held-out accuracy "
+              f"{g['held_out_accuracy']:.4f}", flush=True)
+    for name, t in out["times"].items():
+        print(f"[parallel] {name}: {f(t['ms_per_step'])} ms/step, device "
+              f"{f(t.get('device_ms_per_step'))} ms, launches "
+              f"{t.get('launches_per_step', 'n/a')} a step, exchange+update "
+              f"host {f(t.get('exchange_update_host_ms_per_step'))} ms, "
+              f"state {f(t['state_gb'], 3)} GB, step peak above it "
+              f"{f(t.get('step_gb'), 3)} GB", flush=True)
+    print(f"[parallel] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 1) for k, v in out['part_seconds'].items()} }), "
+          f"launches {out['launches']}", flush=True)
+
+
 KERNEL_META = {
     "layer_norm": ("deeplearning4j_tpu_torch/kernels/csrc/layernorm.cu",
                    "deeplearning4j_tpu/kernels/layernorm.py:55"),
@@ -7753,12 +8450,16 @@ def run(device, *, small=False, kernels_only=False):
                     fails, small)
         for k in launches:
             launches[k] += (l16 or {}).get(k, 0)
+        l17 = phase("parallel", phase_parallel, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l17 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
                          ("11", l11), ("12", l12), ("13", l13),
-                         ("14", l14), ("15", l15), ("16", l16)) if l}
+                         ("14", l14), ("15", l15), ("16", l16),
+                         ("17", l17)) if l}
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -7837,6 +8538,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_serving_plane(device, report, fails)
+        report["kernels"] = []
+    elif "--parallel" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_parallel(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

@@ -180,18 +180,22 @@ class _FileListIterator(DataSetIterator):
 class DevicePrefetchIterator(DataSetIterator):
     """Keeps `depth` batches of `base` in flight to `device` (see the
     module docstring for the staging). On a CPU device the batches are
-    converted and handed over with no copy. `sharding=` (batches landed
-    pre-sharded for a data-parallel trainer) waits for the parallel
-    trainers and raises."""
+    converted and handed over with no copy. `sharding=` (a
+    `parallel.placement.DataSharding`, or a mesh for its "data" axis)
+    lands each replica's row block of features and labels on that
+    replica's device (`ReplicaBatch`), as a data-parallel trainer takes
+    them."""
 
     def __init__(self, base: DataSetIterator, depth: int = 2,
                  sharding=None, device="cuda"):
-        if sharding is not None:
-            raise NotImplementedError(
-                "DevicePrefetchIterator(sharding=) needs the parallel "
-                "trainers (parallel/trainer.py), not ported yet (ROADMAP "
-                "Queue 1 item 7)")
         from deeplearning4j_tpu_torch.device import resolve_device
+        if sharding is not None:
+            from deeplearning4j_tpu_torch.parallel.placement import (
+                DataSharding)
+            if not isinstance(sharding, DataSharding):
+                sharding = DataSharding(sharding)
+            device = sharding.devices[0]
+        self.sharding = sharding
         self.base = base
         self.depth = max(1, depth)
         self.device = resolve_device(device)
@@ -200,9 +204,11 @@ class DevicePrefetchIterator(DataSetIterator):
 
     def bind_model(self, model):
         """Stage batches as `model` converts them (`model.host_batch`), on
-        the model's device; `fit` calls this."""
+        the model's device (the replicas' devices when sharded); `fit`
+        calls this."""
         self._prepare = model.host_batch
-        self.device = model.device
+        if self.sharding is None:
+            self.device = model.device
 
     def _host(self, ds: DataSet) -> DataSet:
         if self._prepare is not None:
@@ -217,6 +223,13 @@ class DevicePrefetchIterator(DataSetIterator):
         """Start the batch's copies; returns (card DataSet, event, card
         tensors), or (host DataSet, None, []) on a CPU device."""
         host = self._host(ds)
+        if self.sharding is not None:
+            from deeplearning4j_tpu_torch.parallel.placement import (
+                shard_rows)
+            return (DataSet(shard_rows(host.features, self.sharding),
+                            None if host.labels is None
+                            else shard_rows(host.labels, self.sharding),
+                            None, None, host.example_metadata), None, [])
         if self.device.type != "cuda":
             return host, None, []
         from deeplearning4j_tpu_torch import monitor

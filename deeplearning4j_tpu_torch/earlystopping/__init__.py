@@ -1,7 +1,8 @@
 """Early stopping (counterpart of `deeplearning4j_tpu/earlystopping/`):
 configuration, termination conditions, score calculators, model savers
-and the trainer. `EarlyStoppingParallelTrainer` waits for the parallel
-trainer (ROADMAP Queue 1)."""
+and the trainers: `EarlyStoppingTrainer` (and its graph alias) and
+`EarlyStoppingParallelTrainer`, whose epochs run through a
+`ParallelTrainer` on a mesh."""
 
 from deeplearning4j_tpu_torch.earlystopping.conditions import (
     EpochTerminationCondition,
@@ -27,5 +28,6 @@ from deeplearning4j_tpu_torch.earlystopping.scorecalc import (
 )
 from deeplearning4j_tpu_torch.earlystopping.trainer import (
     EarlyStoppingGraphTrainer,
+    EarlyStoppingParallelTrainer,
     EarlyStoppingTrainer,
 )

@@ -57,13 +57,13 @@ class EarlyStoppingTrainer:
     def _capture_best(self):
         """Host copies of the current (new best) model's arrays."""
         from deeplearning4j_tpu_torch.fault import state as fs
-        return fs.model_arrays(self.model)
+        return fs.model_arrays(self._net)
 
     def _save_checkpoint(self, epoch, best_score, best_epoch,
                          score_vs_epoch, best_arrays):
         from deeplearning4j_tpu_torch.fault import capture_training_state
         state = capture_training_state(
-            self.model,
+            self._net,
             iterator=(self.train_data
                       if hasattr(self.train_data, "cursor") else None),
             extra_meta={"earlystopping": {
@@ -82,12 +82,18 @@ class EarlyStoppingTrainer:
             state["arrays"]["es_best"] = best_arrays
         self.checkpointer.save(state, int(self.model.iteration_count))
 
+    @property
+    def _net(self):
+        """The container itself (a parallel trainer wraps it)."""
+        return getattr(self.model, "_model", self.model)
+
     def _model_from_arrays(self, arrays):
         from deeplearning4j_tpu_torch.fault import state as fs
-        m = fs.build_model({"model_type": type(self.model).__name__,
-                            "configuration": self.model.conf.to_dict(),
-                            "dtype_policy": self.model.dtype.to_dict()},
-                           device=self.model.device)
+        net = self._net
+        m = fs.build_model({"model_type": type(net).__name__,
+                            "configuration": net.conf.to_dict(),
+                            "dtype_policy": net.dtype.to_dict()},
+                           device=net.device)
         fs.load_arrays(m, arrays)
         return m
 
@@ -118,7 +124,7 @@ class EarlyStoppingTrainer:
             except FileNotFoundError:
                 state = None      # nothing saved yet: cold start
             if state is not None:
-                restore_training_state(self.model, state)
+                restore_training_state(self._net, state)
                 es = state["meta"].get("earlystopping") or {}
                 if es.get("best_score") is not None:
                     best_score = float(es["best_score"])
@@ -185,7 +191,7 @@ class EarlyStoppingTrainer:
             # arrays (a resumed run's best may predate this process)
             best_model = self._model_from_arrays(best_arrays)
         else:
-            best_model = self.model
+            best_model = self._net
         self.model.listeners = [l for l in self.model.listeners if l is not guard]
         return EarlyStoppingResult(
             termination_reason=reason,
@@ -200,3 +206,48 @@ class EarlyStoppingTrainer:
 
 # graph models use the same trainer
 EarlyStoppingGraphTrainer = EarlyStoppingTrainer
+
+
+class EarlyStoppingParallelTrainer(EarlyStoppingTrainer):
+    """Early stopping over data-parallel training (the JAX
+    `EarlyStoppingParallelTrainer`): each epoch runs through a
+    `ParallelTrainer` on `mesh` instead of the container's `fit`;
+    scoring, saving and termination are the base trainer's."""
+
+    def __init__(self, config, model, train_data, mesh=None, *,
+                 mode: str = "sync", averaging_frequency: int = 5,
+                 batch_size: int = 32, checkpointer=None):
+        super().__init__(config, model, train_data, checkpointer,
+                         device=model.device)
+        from deeplearning4j_tpu_torch.parallel.trainer import ParallelTrainer
+        self._trainer = ParallelTrainer(
+            model, mesh, mode=mode, averaging_frequency=averaging_frequency)
+        self._batch_size = batch_size
+        self.model = _ParallelFitAdapter(model, self._trainer, batch_size)
+
+
+class _ParallelFitAdapter:
+    """The wrapped container, with `fit` going through the
+    ParallelTrainer (so the base trainer's loop is unchanged)."""
+
+    def __init__(self, model, trainer, batch_size):
+        self._model = model
+        self._trainer = trainer
+        self._batch_size = batch_size
+
+    def fit(self, data, epochs=1, **kw):
+        self._trainer.fit(data, epochs=epochs,
+                          batch_size=kw.get("batch_size", self._batch_size))
+        return self._model
+
+    def __getattr__(self, name):
+        return getattr(self._model, name)
+
+    @property
+    def listeners(self):
+        return self._model.listeners
+
+    @listeners.setter
+    def listeners(self, v):
+        self._model.listeners = v
+

@@ -25,7 +25,7 @@ other wrote. A snapshot that arrives while the writer is busy replaces
 the pending one (latest wins: the backlog never grows). A writer error
 is raised again on the training thread at the next `save()` or
 `wait()`. The multi-process barrier manifests are not ported (ROADMAP
-Queue 1 item 7).
+Queue 1 item 3, with the multi-process trainers).
 
 Health metrics on the monitor registry, while it is enabled (the JAX
 names): ``checkpoint_write_seconds`` (timer), ``checkpoint_bytes_total``,

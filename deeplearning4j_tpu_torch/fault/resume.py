@@ -53,17 +53,20 @@ def load_latest_valid(directory, *, max_step: Optional[int] = None
         f"verification ({len(tried)} candidates tried) — {detail}")
 
 
-def resume(directory, model=None, *, iterator=None,
+def resume(directory, model=None, *, trainer=None, iterator=None,
            max_step: Optional[int] = None, device="cuda"):
     """Restore the newest valid checkpoint; returns ``(model, meta)``.
     `model=None` builds the container from the stored configuration on
-    `device`; `iterator` is moved to the stored cursor, so no consumed
-    batch replays."""
+    `device`; a `trainer` (ParallelTrainer) gets its residual, τ and
+    per-replica stacks back, re-sharded to its replica count;
+    `iterator` is moved to the stored cursor, so no consumed batch
+    replays."""
     state, step = load_latest_valid(directory, max_step=max_step)
     meta = state["meta"]
     if model is None:
         model = fstate.build_model(meta, device=device)
-    fstate.restore_training_state(model, state, iterator=iterator)
+    fstate.restore_training_state(model, state, trainer=trainer,
+                                  iterator=iterator)
     from deeplearning4j_tpu_torch import monitor
     if monitor.is_enabled():
         monitor.registry().counter(

@@ -15,6 +15,14 @@ either package writes resumes in the other.
 Trees flatten to npz keys joined with U+001F, and each array carries the
 crc32 of its C-order bytes, as the model zip's do.
 
+Inside a `ParallelTrainer.fit` the model publishes
+`_live_state_provider` and the capture reads through it: the live
+trees plus the trainer's per-replica stacks (`trainer_arrays`, under
+``arrays["trainer"]``) and `trainer_meta` (``meta["trainer"]``), JAX's
+layout. `restore_training_state(..., trainer=)` hands them back to the
+trainer, which re-shards a stack written at another replica count
+(`reshard_replica_stack`).
+
 Capture copies every tensor to fresh host memory before it returns: the
 port updates params and Adam's moments in place (fused Adam writes p, m
 and v), so a snapshot that queued views of the live tensors for the
@@ -50,8 +58,8 @@ def host_copy(t) -> np.ndarray:
     """A C-order host array that shares no memory with `t` (a tensor on
     any device, or an array)."""
     if isinstance(t, torch.Tensor):
-        return np.ascontiguousarray(
-            t.detach().to("cpu", copy=True).numpy())
+        # np.array keeps a 0-d tensor 0-d (ascontiguousarray would not)
+        return np.array(t.detach().to("cpu", copy=True).numpy(), order="C")
     return np.array(t, order="C", copy=True)
 
 
@@ -125,7 +133,16 @@ def capture_training_state(model, *, iterator=None, normalizer=None,
     `epoch` override the model's counters (a listener fires before the
     fit loop moves them on); `iterator` adds its `cursor()`,
     `normalizer` its statistics."""
-    arrays: Dict[str, Any] = model_arrays(model)
+    provider = getattr(model, "_live_state_provider", None)
+    if provider is not None:
+        src = provider()
+        arrays: Dict[str, Any] = {
+            "params": _host_tree(src["params"]),
+            "net_state": _host_tree(src.get("net_state")),
+            "updater_state": _host_tree(src.get("updater_state"))}
+    else:
+        src = {}
+        arrays = model_arrays(model)
     meta: Dict[str, Any] = {
         "format_version": STATE_FORMAT_VERSION,
         "model_type": type(model).__name__,
@@ -142,6 +159,10 @@ def capture_training_state(model, *, iterator=None, normalizer=None,
         "epoch_count": int(model.epoch_count if epoch is None else epoch),
         "score": float(getattr(model, "score_value", float("nan"))),
     }
+    if src.get("trainer_arrays"):
+        arrays["trainer"] = _host_tree(src["trainer_arrays"])
+    if src.get("trainer_meta"):
+        meta["trainer"] = dict(src["trainer_meta"])
     if iterator is not None:
         cur = getattr(iterator, "cursor", lambda: None)()
         if cur is not None:
@@ -216,9 +237,11 @@ def load_arrays(model, arrays: Dict[str, Any]):
     model.params_changed()
 
 
-def restore_training_state(model, state: Dict[str, Any], *, iterator=None):
-    """Load a captured or loaded state into `model` (and move `iterator`
-    to its cursor). Returns `model`. The counters come back, so the step
+def restore_training_state(model, state: Dict[str, Any], *, trainer=None,
+                           iterator=None):
+    """Load a captured or loaded state into `model` (a `trainer`'s
+    residual, τ and per-replica stacks into it, and move `iterator` to
+    its cursor). Returns `model`. The counters come back, so the step
     keys and the updater's step continue where the run stopped, and
     `params_version` moves on, so caches keyed on it rebuild."""
     arrays, meta = state["arrays"], state["meta"]
@@ -227,6 +250,9 @@ def restore_training_state(model, state: Dict[str, Any], *, iterator=None):
     model.epoch_count = int(meta.get("epoch_count", 0))
     if "score" in meta:
         model.score_value = float(meta["score"])
+    if trainer is not None and hasattr(trainer, "_restore_fault_state"):
+        trainer._restore_fault_state(arrays.get("trainer") or {},
+                                     meta.get("trainer") or {})
     if iterator is not None and meta.get("iterator") is not None:
         try:
             iterator.seek(meta["iterator"])
@@ -247,3 +273,53 @@ def restore_normalizer(state: Dict[str, Any]):
     from deeplearning4j_tpu_torch.datasets.normalizers import (
         normalizer_from_meta)
     return normalizer_from_meta(meta, state["arrays"].get("normalizer", {}))
+
+
+# ------------------------------------------------------- elastic resharding
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def reshard_replica_stack(tree, new_n: int, *, kind: str = "state"):
+    """A per-replica stacked tree (leading replica axis) at another
+    replica count (the JAX `reshard_replica_stack`). kind="residual":
+    the error-feedback residual is un-sent mass, so its SUM over
+    replicas is kept: each new replica gets sum/new_n (summed in
+    float64). kind="state": every new replica starts from the replica
+    mean of float leaves and replica 0's value of the others."""
+    def one(a):
+        a = np.asarray(a)
+        if a.ndim == 0:
+            return a
+        old_n = a.shape[0]
+        if old_n == new_n:
+            return a
+        if kind == "residual":
+            total = a.sum(axis=0, dtype=np.float64)
+            return np.broadcast_to(
+                (total / new_n).astype(a.dtype), (new_n,) + a.shape[1:]
+            ).copy()
+        if np.issubdtype(a.dtype, np.floating):
+            m = a.mean(axis=0)
+        else:
+            m = a[0]
+        return np.broadcast_to(m, (new_n,) + a.shape[1:]).copy()
+
+    return _tree_map(one, tree)
+
+
+def stacked_replica_count(tree) -> Optional[int]:
+    """The leading replica extent of a per-replica stacked tree (None for
+    an empty one)."""
+    def leaves(t):
+        if isinstance(t, dict):
+            for v in t.values():
+                yield from leaves(v)
+        else:
+            yield t
+    for leaf in leaves(tree):
+        return int(np.shape(leaf)[0])
+    return None
+

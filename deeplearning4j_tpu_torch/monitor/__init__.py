@@ -62,6 +62,7 @@ from deeplearning4j_tpu_torch.monitor.goodput import (
 from deeplearning4j_tpu_torch.monitor.listener import (
     MonitorListener,
     bind_master_stats,
+    record_master_event,
 )
 from deeplearning4j_tpu_torch.monitor.registry import (
     GLOBAL_REGISTRY,
@@ -95,6 +96,7 @@ __all__ = [
     "Tracer", "Span", "MonitorListener", "KernelBuildCollector",
     "DeviceMemoryCollector", "enable", "disable", "is_enabled", "enabled",
     "registry", "tracer", "span", "record_transfer", "bind_master_stats",
+    "attach_master_stats", "record_master_event",
     "extra_listeners", "compile_collector", "memory_collector",
     "resolve_cached_metrics", "diagnostics", "Diagnostics",
     "DiagnosticsConfig", "NonFiniteGradientsError", "resolve_diagnostics",
@@ -228,3 +230,25 @@ def extra_listeners() -> List:
     enabled, `[]` when not."""
     l = _STATE.listener
     return [l] if (_STATE.enabled and l is not None) else []
+
+
+def attach_master_stats(stats):
+    """Route a `TrainingMasterStats`' phase events onto the active
+    registry and tracer (nothing when monitoring is off; once per stats
+    object, though the trainers call this at every fit). The sinks are
+    resolved when an event lands, so a later `enable(registry=...)`
+    redirects an already-bound stats object and `disable()` mutes it.
+    Returns `stats`."""
+    if (_STATE.enabled and stats is not None
+            and not getattr(stats, "_monitor_bound", False)):
+        t0_perf = getattr(stats, "_t0", None)
+
+        def on_event(ev):
+            if _STATE.enabled:
+                record_master_event(ev, _STATE.registry, _STATE.tracer,
+                                    t0_perf)
+
+        stats.add_listener(on_event)
+        stats._monitor_bound = True
+    return stats
+

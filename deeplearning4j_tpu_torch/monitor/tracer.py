@@ -120,6 +120,22 @@ class Tracer:
                 "args": span.args,
             })
 
+    def add_complete_event(self, name: str, start_s: float, duration_s: float,
+                           **args):
+        """Record a span timed outside the tracer (a TrainingMasterStats
+        phase event): `start_s` in seconds since an epoch the caller
+        keeps consistent."""
+        if not self.enabled:
+            return
+        with self._lock:
+            self._note_drop()
+            self._events.append({
+                "name": name, "ph": "X",
+                "ts": start_s * 1e6, "dur": duration_s * 1e6,
+                "pid": self._pid, "tid": threading.get_ident(),
+                "args": args,
+            })
+
     def complete_between(self, name: str, t0_perf: float, t1_perf: float,
                          tid: Optional[int] = None, **args):
         """Record a span from two `time.perf_counter()` readings (same

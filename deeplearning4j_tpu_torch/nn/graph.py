@@ -43,9 +43,10 @@ Diagnostics (`monitor/`, `nn/container.py`): the constructor's
 are taken from every layer node's output but the output layers', as
 the JAX `_forward_all` takes them.
 
-Not ported, and refused by name: `gradient_sharing` other than "dense"
-(in `fit` and `score`), and sequence parallelism inside a graph (when
-it is built).
+`gradient_sharing` is read by the parallel trainers only
+(`parallel/trainer.py`); the graph's own `fit` ignores it, as JAX's
+does. Not ported, and refused by name: sequence parallelism inside a
+graph (when it is built).
 """
 
 from __future__ import annotations
@@ -463,12 +464,6 @@ class ComputationGraph(Container):
 
     def _output_positions(self):
         return [self._position[n] for n in self.output_layer_names]
-
-    def _refusals(self):
-        bad = super()._refusals()
-        if self.conf.gradient_sharing != "dense":
-            bad.append(f"gradient_sharing {self.conf.gradient_sharing}")
-        return bad
 
     # ------------------------------------------------------------ updates
     def _candidate_runs(self) -> List[List[int]]:

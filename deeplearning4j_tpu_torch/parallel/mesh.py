@@ -1,5 +1,5 @@
 """Device meshes (counterpart of `deeplearning4j_tpu/parallel/mesh.py`:
-`MeshSpec` :29 and `make_mesh` :61).
+`MeshSpec` :29, `make_mesh` :61 and `device_mesh` :75).
 
 A port mesh is a named grid of `torch.device`s: `Mesh(devices,
 axis_names)` with `devices` an object ndarray of the grid's shape, and
@@ -15,6 +15,11 @@ devices=["cuda:0"] * 4)` runs a 4-way ring on one card, each ring
 position a shard on the same device and each "send" a no-op — the
 counterpart of the 8 virtual CPU devices the JAX tests run their meshes
 on. On distinct cards a send is a peer copy.
+
+`device_mesh(n)` is the one-axis data-parallel mesh the parallel
+trainers default to: every CUDA device (or the first `n`), raising
+without CUDA as every entry point does; tests pass CPU devices to
+`make_mesh` explicitly.
 
 `shard`, `gather` and `on_device` put an array's shards on the devices
 of a mesh axis and back; ring and Ulysses attention share them.
@@ -35,6 +40,12 @@ class MeshSpec:
     """Serializable mesh description: ordered {axis_name: size}."""
 
     axes: tuple  # of (name, size)
+
+    @staticmethod
+    def data_parallel(n: Optional[int] = None) -> "MeshSpec":
+        """One "data" axis over `n` devices (default: every CUDA
+        device)."""
+        return MeshSpec((("data", int(n or torch.cuda.device_count())),))
 
     @staticmethod
     def of(**axes: int) -> "MeshSpec":
@@ -85,10 +96,13 @@ def _device(d) -> torch.device:
     return dev
 
 
-def make_mesh(spec: MeshSpec | Dict[str, int],
+def make_mesh(spec: MeshSpec | Dict[str, int] | None = None,
               devices: Optional[Sequence] = None) -> Mesh:
-    """A mesh of `spec`'s shape over `devices` (default: every CUDA
-    device, in order), row-major, the first `spec.size()` used."""
+    """A mesh of `spec`'s shape (default: one data axis over every CUDA
+    device) over `devices` (default: every CUDA device, in order),
+    row-major, the first `spec.size()` used."""
+    if spec is None:
+        spec = MeshSpec.data_parallel()
     if isinstance(spec, dict):
         spec = MeshSpec(tuple(spec.items()))
     if devices is None:
@@ -101,6 +115,20 @@ def make_mesh(spec: MeshSpec | Dict[str, int],
     grid = np.empty(n, dtype=object)
     grid[:] = devices[:n]
     return Mesh(grid.reshape(spec.shape()), spec.names())
+
+
+def device_mesh(n_data: Optional[int] = None) -> Mesh:
+    """A one-axis data-parallel mesh over every CUDA device (or the first
+    `n_data`); raises without CUDA."""
+    from deeplearning4j_tpu_torch.device import resolve_device
+    resolve_device("cuda")
+    return make_mesh(MeshSpec.data_parallel(n_data))
+
+
+def data_devices(mesh: Mesh, axis: str = "data"):
+    """The devices of the data axis, replica order (the other axes at
+    index 0)."""
+    return list(mesh.axis_devices(axis))
 
 
 # ------------------------------------------------ shards on mesh devices

@@ -229,8 +229,21 @@ def test_prefetch_fit_is_bit_equal_and_checks_ids_on_the_host():
         net.fit(DevicePrefetchIterator(ArrayDataSetIterator(bad, y,
                                                             batch_size=2),
                                        device="cpu"))
-    with pytest.raises(NotImplementedError, match="parallel trainers"):
-        DevicePrefetchIterator(pre, sharding=object())
+    # sharding= (a mesh's data axis) lands each replica's row block on
+    # its device, converted as the net converts
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, make_mesh
+    from deeplearning4j_tpu_torch.parallel.placement import ReplicaBatch
+    sh = DevicePrefetchIterator(ArrayDataSetIterator(x, y, batch_size=4),
+                                sharding=make_mesh(MeshSpec.of(data=2),
+                                                   devices=["cpu"] * 2))
+    sh.bind_model(net)
+    ds = next(iter(sh))
+    assert isinstance(ds.features, ReplicaBatch)
+    assert ds.num_examples() == 4
+    assert [tuple(t.shape) for t in ds.features.shards] == [(2, 15)] * 2
+    assert ds.features.shards[0].dtype == torch.int64
+    assert torch.equal(torch.cat(ds.labels.shards),
+                       torch.as_tensor(y[:4]))
 
 
 def _idx_gz(path, arr):

@@ -503,10 +503,12 @@ def test_graph_evaluate_matches_jax():
                                   "steps_per_execution", "rnn_time_step",
                                   "pretrain"])
 def test_unported_graph_features_are_refused_by_name(what):
-    """TBPTT, `steps_per_execution`, `rnn_time_step` and `pretrain` are
-    ported: on this feed-forward DAG they do what JAX's graph does (a
-    plain step on [B, F] features, two steps in one group, a one-step
-    stream, no layer to pretrain so the params stay JAX's), from
+    """TBPTT, `steps_per_execution`, `rnn_time_step`, `pretrain` and a
+    configured `gradient_sharing` are ported: on this feed-forward DAG
+    they do what JAX's graph does (a plain step on [B, F] features, two
+    steps in one group, a one-step stream, no layer to pretrain so the
+    params stay JAX's, and a "threshold" graph's own `fit` trains as a
+    dense one, since only the parallel trainers read the field), from
     `init()`'s JAX weights; the rest is refused by name."""
     conf = _jax_dag()
     if what == "tbptt":
@@ -516,27 +518,21 @@ def test_unported_graph_features_are_refused_by_name(what):
     net = ComputationGraph(ComputationGraphConfiguration.from_json(
         conf.to_json()), device="cpu").init()
     x, y = _dag_data(9, 4)
-    if what in ("tbptt", "rnn_time_step", "pretrain",
-                "steps_per_execution"):
-        jnet = JaxGraph(conf).init()
-        if what == "tbptt":
-            jnet.fit(x, y, batch_size=4)
-            net.fit(x, y, batch_size=4)
-            got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
-        elif what == "steps_per_execution":
-            jnet.fit(x, y, batch_size=2, steps_per_execution=2)
-            net.fit(x, y, batch_size=2, steps_per_execution=2)
-            assert net.iteration_count == jnet.iteration_count == 2
-            got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
-        elif what == "pretrain":
-            jnet.pretrain(x, batch_size=4)
-            net.pretrain(x, batch_size=4)
-            got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
-        else:
-            got = net.rnn_time_step(x).numpy()
-            want = np.asarray(jnet.rnn_time_step(x))
-        np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
-        return
-    with pytest.raises(NotImplementedError, match="not ported"):
+    jnet = JaxGraph(conf).init()
+    if what in ("tbptt", "gradient_sharing"):
+        jnet.fit(x, y, batch_size=4)
         net.fit(x, y, batch_size=4)
-    assert net.output(x).shape == (4, 3)          # inference accepts them
+        got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
+    elif what == "steps_per_execution":
+        jnet.fit(x, y, batch_size=2, steps_per_execution=2)
+        net.fit(x, y, batch_size=2, steps_per_execution=2)
+        assert net.iteration_count == jnet.iteration_count == 2
+        got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
+    elif what == "pretrain":
+        jnet.pretrain(x, batch_size=4)
+        net.pretrain(x, batch_size=4)
+        got, want = net.output(x).numpy(), np.asarray(jnet.output(x))
+    else:
+        got = net.rnn_time_step(x).numpy()
+        want = np.asarray(jnet.rnn_time_step(x))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

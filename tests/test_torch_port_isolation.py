@@ -75,7 +75,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "eval.calibration", "eval.tools", "gradientcheck",
                 "streaming", "streaming.ndarray", "serving.wire",
                 "serving.disagg", "monitor.reqtrace", "monitor.goodput",
-                "monitor.slo", "monitor.xprof", "nn.conf.memory"):
+                "monitor.slo", "monitor.xprof", "nn.conf.memory",
+                "parallel.gradient_sharing", "parallel.collectives",
+                "parallel.placement", "parallel.trainer", "parallel.stats",
+                "parallel.master", "parallel.inference"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
     assert res["threads"][0] == res["threads"][1]

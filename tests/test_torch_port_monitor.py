@@ -183,8 +183,13 @@ def test_collectors(mon, monkeypatch):
     assert coll.compile_count() == 1
     assert monitor.memory_collector().collect() is (
         torch.cuda.is_available())
-    with pytest.raises(NotImplementedError, match="parallel"):
-        monitor.bind_master_stats(object(), mon)
+    # the parallel trainers' phase events land on the registry
+    from deeplearning4j_tpu_torch.parallel import TrainingMasterStats
+    stats = monitor.bind_master_stats(TrainingMasterStats(), mon)
+    stats.record("sync_step", 0.002, iteration=0)
+    assert mon.counter("parallel_phase_total",
+                       phase="sync_step").value == 1
+    assert "parallel_phase_seconds" in mon.exposition()
 
 
 def test_listeners(mon, tmp_path):
