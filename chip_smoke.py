@@ -159,7 +159,8 @@ Phases, in order:
      on its input, `DropConnect(0.95)` and attention dropout 0.9 on the
      blocks): 3 steps at [2, 511] card against CPU; no packed run, so no
      fused-Adam launch, and no flash launch (the masked softmax carries
-     the attention dropout); (c) the long-context LM under `mixed_bf16`:
+     the attention dropout); (c) the long-context LM (at 4 of its 8
+     layers, full width: `LM_LONG_CUT`) under `mixed_bf16`:
      `Dropout(0.9)`, 10 timed steps beside the undropped twin; ring and
      Ulysses (4-way mesh on the card) against local mixed over 3 steps
      (step 0 within 1e-2, every step within 5% of the initial loss) and
@@ -270,8 +271,9 @@ Phases, in order:
      largest), masks included, and a FrozenLayer conv and BatchNorm
      bit-equal after 3 `fit` steps. It prints `[layers_rest]` lines;
  14. the training runtime (`phase_runtime`, fp32 with TF32 off unless an
-     arm is mixed_bf16): (a) the long-context LM (phase 6's config) at
-     [8, 2048], Adam(LONG_LR), on 32 seeded windows shuffled by one
+     arm is mixed_bf16): (a) the long-context LM (phase 6's config at 4
+     of its 8 layers, full width: `LM_LONG_CUT`) at [8, 2048],
+     Adam(LONG_LR), on 32 seeded windows shuffled by one
      stream over 4 epochs (16 steps), in fp32 and mixed_bf16: one step's
      gradients twice from one state, equal (else the leaves are named);
      16 steps at steps_per_execution 4 bit-equal to 16 at 1 (ms/step of
@@ -306,7 +308,8 @@ Phases, in order:
      `[runtime]` lines;
  15. training telemetry and the rest of the data plane
      (`phase_telemetry`, fp32 with TF32 off and mixed_bf16): (a) the
-     long-context LM at [8, 2047] (phase 14's config, Adam(LONG_LR)), 6
+     long-context LM at [8, 2047] (phase 14's config: 4 layers since PR
+     18, Adam(LONG_LR)), 6
      steps with diagnostics off and 6 under the `skip` watchdog with
      activation statistics at report_frequency 1: params and Adam's m
      and v bit-equal; the card's `_last_diagnostics` keys those of the
@@ -391,8 +394,40 @@ Phases, in order:
      replicas' forward-backward), the training state the mode keeps
      and the step's peak memory above it. It prints
      `[parallel]` lines;
+ 18. multi-process training (`phase_multiprocess`, `--multiprocess`,
+     fp32 with TF32 off, Adam(LONG_LR) unless a part says otherwise) of
+     phase 17's LM, params and batches, every trainer's per-step losses
+     held to its reference at 1e-4 and its params, where they are
+     compared, at PARAM_MOTION_RTOL of the single card's motion: (a) 2
+     processes (`initialize_multihost`) with 2 replicas each on the
+     global 4-replica mesh, the global batch [8, 2048], over gloo staged
+     through the host on one card (NCCL, one process per card, where
+     there are two or more), dense bucketed and single barrier against
+     the single card's `fit`, threshold against the one-process
+     4-replica threshold run, 3 steps each; ms/step, the exchange's host
+     ms and bytes across processes a step, the backend; (b) the bucketed
+     run checkpointed behind the barrier manifests at step 2, stopped at
+     3, resumed in 2 processes and trained to 4, bit-equal to the
+     uninterrupted run (write and resume seconds); (c)
+     `ShardedParallelTrainer` on model=2 x data=2 over the repeated card
+     and across the 2 processes with the model axis outermost, against
+     the single card's `fit`, with the params and slots a process holds
+     whole and between steps (`held_bytes`; one process holds them once,
+     each of two less than whole) and `torch.cuda.memory_allocated`;
+     phase 13's MoE LM under `moe_param_specs` on expert=4, 2 steps, its
+     losses the single card's; a `ShardedCheckpoint` round trip,
+     `output()` equal; (d) `PipelineParallelTrainer` on pipe=4 (2 blocks
+     a stage, 4 microbatches): one Sgd(0.05) step within JAX's rtol 2e-4
+     / atol 1e-6 of the single card's, 3 Adam steps against the single
+     card's, pipe=2 x data=2's SGD step, ms/step and the bubble share;
+     (e) a graph LM with the ring on seq=4 (the carry kernel) against the
+     local graph, and threshold with `skip` diagnostics bit-equal to
+     diagnostics off. Each part's launches are counted apart, the
+     references outside every part, and each part must launch its
+     kernels (`MP_KERNELS`). It prints `[multiprocess]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 17, each > 0; the counts of each phase on a `[launches]` line), the
+to 18, each > 0; the counts of each phase, and of each part of phase
+18, on a `[launches]` line), the
 card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
@@ -498,6 +533,10 @@ LM = dict(vocab=512, d_model=256, n_layers=4, n_heads=8, ff=4, max_len=512)
 LM_LONG = dict(vocab=512, d_model=512, n_layers=8, n_heads=8, ff=4,
                max_len=2048)
 SEQ_P = 4
+# the long-context LM at half depth, full width: phases 9 (c), 14 and 15
+# run it since phase 18 joined the script, to keep the whole run under
+# 600 s (phases 6, 17 and 18 keep all 8 layers)
+LM_LONG_CUT = dict(LM_LONG, n_layers=4)
 # Adam's rate for the long-context training: at the zoo's 1e-3 this LM
 # (pre-LN blocks, no final LayerNorm) diverges in its first 10 steps, on
 # the ring and locally alike (measured 12.24 -> 36.70 at [8, 2048] on an
@@ -2887,7 +2926,7 @@ def phase_regularized(device, report, fails, small=False):
     on_card = device.type == "cuda"
     cfg = dict(LM, n_layers=2, max_len=64) if small else LM
     long_cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
-                if small else LM_LONG)
+                if small else LM_LONG_CUT)
     cls_cfg = dict(CLS, n_layers=2, max_len=64, vocab=64) if small else CLS
     out, total = {}, {}
 
@@ -3237,10 +3276,11 @@ def _graph_fixture(device, fails, tmp):
                 round_trip_bit_equal=equal, zip_bytes=os.path.getsize(path))
 
 
-def graph_lm(cfg, device, params, dtype_policy=None):
+def graph_lm(cfg, device, params, dtype_policy=None, sequence_parallel=None):
     """The smoke LM's layer list built with `graph_builder` as a chain of
     layer nodes named by the layer's index (so its trees are keyed as the
-    MultiLayerNetwork's), with `params` loaded."""
+    MultiLayerNetwork's), with `params` loaded; `sequence_parallel` goes
+    to its attention layers."""
     from deeplearning4j_tpu_torch.nn.conf.builder import (
         NeuralNetConfiguration)
     from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
@@ -3249,7 +3289,8 @@ def graph_lm(cfg, device, params, dtype_policy=None):
     conf = TransformerLM(cfg["vocab"], d_model=cfg["d_model"],
                          n_layers=cfg["n_layers"], n_heads=cfg["n_heads"],
                          ff_multiplier=cfg["ff"],
-                         max_len=cfg["max_len"]).conf()
+                         max_len=cfg["max_len"],
+                         sequence_parallel=sequence_parallel).conf()
     g = NeuralNetConfiguration.builder().seed(conf.seed).graph_builder()
     g.add_inputs("ids")
     prev = "ids"
@@ -5848,7 +5889,7 @@ def phase_runtime(device, report, fails, small=False):
     from deeplearning4j_tpu_torch import kernels as K
     c = RUNTIME_SMALL if small else RUNTIME
     cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
-           if small else LM_LONG)
+           if small else LM_LONG_CUT)
     bc = BEAM_SMALL if small else BEAM
     beam_cfg = dict(LM, n_layers=2, max_len=128) if small else LM
     out = dict(config=dict(cfg, B=c["B"], T=cfg["max_len"] - 1,
@@ -6462,7 +6503,7 @@ def phase_telemetry(device, report, fails, small=False):
     from deeplearning4j_tpu_torch.monitor.tracer import Tracer
     c = TELEMETRY_SMALL if small else TELEMETRY
     cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
-           if small else LM_LONG)
+           if small else LM_LONG_CUT)
     out = dict(config=dict(cfg, B=c["B"], T=cfg["max_len"] - 1,
                            lr=LONG_LR, steps=c["steps"]))
     t0 = time.perf_counter()
@@ -7863,11 +7904,11 @@ def _par_ef_probe(fails, out):
     real = gs.threshold_exchange
     worst = {"int": 0.0, "mean": 0.0, "buckets": 0, "sent": 0}
 
-    def probe(deltas, residuals, tau, cfg, *, device):
+    def probe(deltas, residuals, tau, cfg, *, device, **kw):
         old = [{lk: {pk: t.clone() for pk, t in lr.items()}
                 for lk, lr in r.items()} for r in residuals]
         dhat, res, new_tau, sp = real(deltas, residuals, tau, cfg,
-                                      device=device)
+                                      device=device, **kw)
         t = float(tau)
         for lk, ld in dhat.items():
             for pk, d in ld.items():
@@ -8335,6 +8376,696 @@ def _print_parallel(out):
           f"launches {out['launches']}", flush=True)
 
 
+# --------------------------------------------------------------- phase 18
+MP = dict(cfg=None, B=8, steps=3, procs=2, moe_B=4, moe_steps=2,
+          graph_B=2, timeout=420)
+MP_SMALL = dict(cfg=dict(LM_LONG, vocab=64, d_model=64, n_layers=4,
+                         max_len=64),
+                B=8, steps=3, procs=2, moe_B=2, moe_steps=2, graph_B=2,
+                timeout=240)
+MP_PARAMS_SEED, MP_DATA_SEED = 1717, 17     # phase 17's params and data
+# the kernels each part of phase 18 launches on the card, counted from
+# just before the part's trainer runs to just after (the references run
+# outside the parts): (a), (b) and (c)'s two-process run in the workers,
+# the rest in this process. The SGD steps of (d) launch no fused Adam,
+# nor does the threshold exchange of (e) (each replica applies Adam per
+# leaf, as in phase 17); the graph ring's attention is the carry kernel
+# and its backward
+MP_KERNELS = {
+    "a": PARALLEL_KERNELS, "b": PARALLEL_KERNELS,
+    "c_two_process": PARALLEL_KERNELS, "c": PARALLEL_KERNELS,
+    "c_moe": MOE_KERNELS + ("fused_adam",),
+    "d_sgd": tuple(k for k in PARALLEL_KERNELS if k != "fused_adam"),
+    "d": PARALLEL_KERNELS,
+    "e_ring": ("layer_norm", "residual_layer_norm", "flash_attention_carry",
+               "flash_attention_bwd_dq", "flash_attention_bwd_dkv"),
+    "e_diag": tuple(k for k in PARALLEL_KERNELS if k != "fused_adam")}
+# JAX's pipeline parity tests take one Sgd(0.05) step and hold the params
+# at rtol 2e-4, atol 1e-6 (tests/test_parallel_advanced.py:716-733)
+PP_SGD_LR = 0.05
+# a trainer held to the single card after a few Adam steps: each param's
+# difference from the single card's relative to how far the single card
+# moved it from the initial params (Frobenius; attn_bk, whose gradient
+# is rounding noise, by Adam's step bound as above). A trainer that
+# skips one of three steps is off by about 1/3, one that never updates
+# by 1
+PARAM_MOTION_RTOL = 1e-2
+
+
+def _host_table(net):
+    """A host copy of every param (never a view of a CPU net's own)."""
+    return {k: v.detach().float().cpu().numpy().copy()
+            for k, v in net.param_table().items()}
+
+
+def param_motion_diff(got, want, init):
+    """((worst |got - want| / |want - init|, its name), largest
+    |got - want| of an attn_bk) over {name: array} param tables."""
+    worst, worst_bk = (0.0, ""), 0.0
+    for k, w in want.items():
+        diff = got[k] - w
+        if k.endswith("_attn_bk"):
+            worst_bk = max(worst_bk, float(np.abs(diff).max()))
+            continue
+        moved = float(np.linalg.norm(w - init[k]))
+        rel = (float(np.linalg.norm(diff)) / moved if moved
+               else (0.0 if not diff.any() else float("inf")))
+        worst = max(worst, (rel, k))
+    return worst, worst_bk
+
+
+class _PartLaunches:
+    """Phase 18's launches by part: `start(part)` zeroes the counts just
+    before a part's trainer runs and `stop()` adds them to the part's
+    just after; what runs between parts counts nowhere."""
+
+    def __init__(self):
+        self.by_part = {}
+        self._part = None
+
+    def start(self, part):
+        from deeplearning4j_tpu_torch import kernels as K
+        K.reset_launches()
+        self._part = part
+
+    def stop(self):
+        from deeplearning4j_tpu_torch import kernels as K
+        self.add(self._part, K.LAUNCHES)
+        self._part = None
+
+    def add(self, part, counts):
+        mine = self.by_part.setdefault(part, {})
+        for k, v in counts.items():
+            if v:
+                mine[k] = mine.get(k, 0) + v
+
+
+def _sharded_fit(tr, dev, fit):
+    """`fit()` of the ShardedParallelTrainer `tr`, with its memory: the
+    bytes of params and updater slots this process holds whole before
+    the fit and at most between its steps (`held_bytes`, from the live
+    tensors), and on the card `torch.cuda.memory_allocated` before the
+    fit, at most between its steps, and at the fit's peak."""
+    import torch
+    whole = tr.held_bytes()
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        before = torch.cuda.memory_allocated(dev)
+    r = fit()
+    mem = dict(held_whole=whole, held_between_steps=max(
+        s["held"] for s in tr.between_steps))
+    if cuda:
+        mem.update(allocated_before=before,
+                   allocated_between_steps=max(
+                       s["allocated"] for s in tr.between_steps),
+                   allocated_peak=torch.cuda.max_memory_allocated(dev))
+    return r, mem
+
+
+def _mp_setup(c):
+    cfg = c["cfg"] or LM_LONG
+    params = random_lm_params(cfg, seed=MP_PARAMS_SEED, head_scale=1.0)
+    X, Y = lm_corpus(cfg, c["B"] * (c["steps"] + 1), seed=MP_DATA_SEED,
+                     T=cfg["max_len"])
+    return cfg, params, X, Y, _par_batches(X, Y, c["B"])
+
+
+def _mp_modes():
+    from deeplearning4j_tpu_torch.parallel import ThresholdConfig
+    return (("dense_bucketed", dict(gradient_sharing="dense")),
+            ("dense_single_barrier", dict(gradient_sharing="dense",
+                                          bucketed=False)),
+            ("threshold", dict(gradient_sharing="threshold",
+                               threshold_config=ThresholdConfig(
+                                   initial_threshold=LONG_LR))))
+
+
+def _mp_worker(argv):
+    """One process of phase 18's multi-process runs (`--mp-worker rank n
+    coordinator args-json`): (a) the three data-parallel modes on the
+    global 4-replica mesh, (b) a barrier checkpoint at step 2, stopped at
+    3, resumed to 4, (c) the sharded trainer with the model axis
+    outermost, each part's launches apart. Prints one `MP_RESULT {json}`
+    line."""
+    import shutil
+
+    import torch
+    torch.set_num_threads(1)
+    rank, n, coord = int(argv[0]), int(argv[1]), argv[2]
+    args = json.loads(argv[3])
+    c = MP_SMALL if args["small"] else MP
+    from deeplearning4j_tpu_torch import fault
+    from deeplearning4j_tpu_torch.datasets import ListDataSetIterator
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, ParallelTrainer, ShardedParallelTrainer, make_mesh,
+        multihost)
+    if args["device"] == "cpu":
+        dev = torch.device("cpu")
+    else:
+        dev = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(dev)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    multihost.initialize_multihost(coord, n, rank, devices=[dev, dev],
+                                   backend=args["backend"],
+                                   initialization_timeout=c["timeout"])
+    out = {"rank": rank, "backend": multihost.backend()}
+    try:
+        cfg, params, _, _, batches = _mp_setup(c)
+        steps = c["steps"]
+        mesh = make_mesh(MeshSpec.of(data=2 * n))
+        rec = _PartLaunches()
+        rec.start("a")
+        runs = {}
+        for name, kw in _mp_modes():
+            net = build_lm(cfg, dev, params, lr=LONG_LR)
+            tr = ParallelTrainer(net, mesh, **kw)
+            use = batches if name == "dense_bucketed" else batches[:steps]
+            losses, step_ms, st = _mp_fit_timed(tr, use, dev)
+            runs[name] = net
+            out[name] = dict(losses=losses, **st,
+                             first_step_ms=step_ms[0],
+                             ms_per_step=float(np.mean(step_ms[1:])))
+            if name != "dense_bucketed":
+                del net, tr
+        rec.stop()
+        # (b) the barrier checkpoint of the bucketed dense run
+        d = args["ckpt_dir"]
+        rec.start("b")
+        net = build_lm(cfg, dev, params, lr=LONG_LR)
+        ck = fault.AsyncCheckpointer(d)
+        net.set_listeners(fault.CheckpointListener(ck, frequency=2),
+                          fault.PreemptionListener(
+                              3, wait_for_checkpointer=ck))
+        t0 = time.perf_counter()
+        try:
+            ParallelTrainer(net, mesh, gradient_sharing="dense").fit(
+                ListDataSetIterator(batches))
+        except fault.SimulatedPreemption:
+            pass
+        ck.wait()
+        write_s = time.perf_counter() - t0
+        torch.distributed.barrier()
+        del net
+        back = build_lm(cfg, dev, params, lr=LONG_LR)
+        t = ParallelTrainer(back, mesh, gradient_sharing="dense")
+        t0 = time.perf_counter()
+        t.resume(d)
+        resume_s = time.perf_counter() - t0
+        at = back.iteration_count
+        t.fit(ListDataSetIterator(batches[2:]))
+        rec.stop()
+        bad = _par_bits_equal(runs["dense_bucketed"], back)
+        out["b"] = dict(resumed_at=at, bit_equal=not bad, bad=bad[:6],
+                        write_s=write_s, resume_s=resume_s)
+        del back, t, runs
+        torch.distributed.barrier()
+        if rank == 0:
+            shutil.rmtree(d, ignore_errors=True)
+        # (c) the sharded trainer, the model axis across the processes
+        net = build_lm(cfg, dev, params, lr=LONG_LR)
+        init = _host_table(net)
+        tr = ShardedParallelTrainer(net, make_mesh(MeshSpec.of(
+            model=2, data=n)))
+        rec.start("c_two_process")
+        (l_tp, step_ms, st), mem = _sharded_fit(
+            tr, dev, lambda: _mp_fit_timed(tr, batches[:steps], dev))
+        rec.stop()
+        worst, worst_bk = param_motion_diff(
+            _host_table(net), dict(np.load(args["ref_path"])), init)
+        out["c"] = dict(losses=l_tp, param_motion=worst,
+                        attn_bk_max_abs=worst_bk, **st,
+                        first_step_ms=step_ms[0],
+                        ms_per_step=float(np.mean(step_ms[1:])),
+                        memory=mem)
+        out["launches_by_part"] = rec.by_part
+    finally:
+        multihost.shutdown_multihost()
+    print("MP_RESULT " + json.dumps(out), flush=True)
+
+
+def _mp_fit_timed(trainer, batches, dev):
+    """`trainer.fit` over `batches` one step each: the losses, each
+    step's ms (host clock to the loss's read-back, which waits for the
+    card), and the cross-process exchange's host ms, payload bytes and
+    calls a step (`collectives.CrossProcess.stats`)."""
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresListener)
+    stamps = []
+
+    class Stamp(CollectScoresListener):
+        def iteration_done(self, model, iteration, epoch, score, **kw):
+            super().iteration_done(model, iteration, epoch, score, **kw)
+            stamps.append(time.perf_counter())
+
+    probe = Stamp()
+    net = trainer.model
+    net.set_listeners(probe)
+    xp = getattr(trainer, "_xp", None)
+    before = dict(xp.stats) if xp is not None else {}
+    _sync(dev)
+    t0 = time.perf_counter()
+    try:
+        trainer.fit(list(batches))
+    finally:
+        net.set_listeners()
+    n = len(batches)
+    after = dict(xp.stats) if xp is not None else {}
+    step_ms = list(np.diff([t0] + stamps) * 1e3)
+    st = {f"{k}_per_step": (after.get(k, 0) - before.get(k, 0)) / n
+          for k in ("bytes", "calls")}
+    st["exchange_host_ms_per_step"] = (after.get("seconds", 0.0)
+                                       - before.get("seconds", 0.0)) / n * 1e3
+    return [s for _, s in probe.scores], step_ms, st
+
+
+def _mp_spawn(c, device, backend, ckpt_dir, ref_path, small):
+    """Phase 18's 2-process run: the workers' results, rank order;
+    raises when one fails (its siblings killed) or the time runs out."""
+    import socket
+
+    from deeplearning4j_tpu_torch.parallel.multihost_smoke import _wait_all
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    coord = f"127.0.0.1:{s.getsockname()[1]}"
+    s.close()
+    args = json.dumps(dict(small=small, device=device.type, backend=backend,
+                           ckpt_dir=ckpt_dir, ref_path=ref_path))
+    env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
+               PYTHONPATH=HERE + (os.pathsep + os.environ["PYTHONPATH"]
+                                  if os.environ.get("PYTHONPATH") else ""))
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"), "--mp-worker",
+         str(r), str(c["procs"]), coord, args],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=HERE) for r in range(c["procs"])]
+    results, timed_out = _wait_all(procs, c["timeout"])
+    outs = []
+    for rc, out, err in results:
+        if rc != 0:
+            raise RuntimeError(f"multiprocess worker rc={rc}"
+                               f"{' (timed out)' if timed_out else ''}: "
+                               f"{err[-2000:]}")
+        line = [ln for ln in out.splitlines() if ln.startswith("MP_RESULT ")]
+        outs.append(json.loads(line[-1][len("MP_RESULT "):]))
+    return outs
+
+
+def _sgd_lm(cfg, device, params, lr):
+    """The LM with Sgd(lr) on every layer (and no Adam state)."""
+    from deeplearning4j_tpu_torch.common.updaters import Sgd
+    net = build_lm(cfg, device, params)
+    for layer in net.layers:
+        layer.updater = Sgd(lr)
+    net.updater_state = {k: {n: {} for n in lp}
+                         for k, lp in net.updater_state.items()}
+    return net
+
+
+def _held(fails, what, losses, l_single, motion, steps):
+    """A trainer's per-step losses held to the single card's at
+    TRAIN_LOSS_RTOL, and its params (`motion`, `param_motion_diff`'s
+    result) at PARAM_MOTION_RTOL, attn_bk by Adam's step bound. Returns
+    the numbers for the report."""
+    (worst, at), bk = motion
+    rel = max(abs(a - b) / abs(b) for a, b in zip(losses, l_single))
+    bk_tol = 2 * steps * adam_step_max(LONG_LR, steps)
+    fails.check(len(losses) == len(l_single) and rel <= TRAIN_LOSS_RTOL,
+                f"multiprocess {what}: losses {losses} vs the single "
+                f"card's {l_single} (rel {rel:.3g})")
+    fails.check(worst <= PARAM_MOTION_RTOL and bk <= bk_tol,
+                f"multiprocess {what}: params {worst:.3g} of the single "
+                f"card's motion at {at} (tol {PARAM_MOTION_RTOL}), attn_bk "
+                f"{bk:.3g} (tol {bk_tol:.3g})")
+    return dict(loss_rel=rel, param_motion=worst, param_motion_at=at,
+                attn_bk_max_abs=bk, attn_bk_tol=bk_tol)
+
+
+def _mp_pipeline(device, fails, cfg, params, batches, l_single, want, init,
+                 steps, out, rec):
+    """(d): pipe=4 and pipe=2 x data=2 against the single card: one
+    Sgd(PP_SGD_LR) step at JAX's rtol 2e-4 / atol 1e-6, and pipe=4's
+    `steps` Adam steps held by `_held`; ms/step and the bubble share."""
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, PipelineParallelTrainer, make_mesh)
+    B = len(batches[0].features)
+    ref = _sgd_lm(cfg, device, params, PP_SGD_LR)
+    ref.fit(batches[0])
+    sgd_want = {k: v.detach().float().cpu()
+                for k, v in ref.param_table().items()}
+    del ref
+
+    def sgd_err(net):
+        worst = 0.0
+        for k, v in net.param_table().items():
+            g, w = v.detach().float().cpu(), sgd_want[k]
+            worst = max(worst, float(((g - w).abs() - 2e-4 * w.abs())
+                                     .max()))
+        return worst
+    r = {}
+    for tag, spec, kw in (("pipe4", dict(pipe=4), dict(microbatches=4)),
+                          ("pipe2_data2", dict(data=2, pipe=2),
+                           dict(microbatches=2, data_axis="data"))):
+        net = _sgd_lm(cfg, device, params, PP_SGD_LR)
+        tr = PipelineParallelTrainer(net, make_mesh(MeshSpec.of(**spec),
+                                     devices=[device] * 4), **kw)
+        _sync(device)
+        rec.start("d_sgd")
+        t0 = time.perf_counter()
+        tr.fit(batches[0].features, batches[0].labels, batch_size=B)
+        _sync(device)
+        sgd_ms = (time.perf_counter() - t0) * 1e3
+        rec.stop()
+        err = sgd_err(net)
+        fails.check(err <= 1e-6, f"multiprocess (d) {tag}: Sgd({PP_SGD_LR}) "
+                    f"step {err:.3g} past JAX's rtol 2e-4 / atol 1e-6 of "
+                    f"the single card")
+        r[tag] = dict(sgd_excess=err, sgd_step_ms=sgd_ms,
+                      bubble_share=tr.bubble_share(),
+                      stages=tr.n_stages, microbatches=tr.microbatches)
+        del net, tr
+    net = build_lm(cfg, device, params, lr=LONG_LR)
+    tr = PipelineParallelTrainer(net, make_mesh(MeshSpec.of(pipe=4),
+                                                devices=[device] * 4),
+                                 microbatches=4)
+    _sync(device)
+    rec.start("d")
+    t0 = time.perf_counter()
+    losses = _par_fit(tr, batches[:steps])
+    _sync(device)
+    wall = time.perf_counter() - t0
+    rec.stop()
+    held = _held(fails, "(d) pipe4 Adam", losses, l_single,
+                 param_motion_diff(_host_table(net), want, init), steps)
+    r["pipe4"].update(adam_losses=losses, ms_per_step=wall / steps * 1e3,
+                      **{f"adam_{k}": v for k, v in held.items()})
+    out["d"] = r
+
+
+def _mp_graph_and_diag(device, fails, cfg, params, batches, c, out, rec):
+    """(e): the graph LM with a ring over seq=4 against the local graph
+    (output and one step), and threshold with diagnostics on against
+    off, bit-equal while `skip` never fires."""
+    import torch
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, ParallelTrainer, ThresholdConfig, make_mesh,
+        sequence_sharding)
+    B = c["graph_B"]
+    x, y = batches[0].features[:B], batches[0].labels[:B]
+    local = graph_lm(cfg, device, params)
+    ring = graph_lm(cfg, device, params, sequence_parallel="ring")
+    for net in (local, ring):
+        for layer in net.layers:
+            layer.updater.learning_rate = LONG_LR
+    o_local = local.output(x)
+    local.fit(x, y, batch_size=B)
+    mesh = make_mesh(MeshSpec.of(seq=SEQ_P), devices=[device] * SEQ_P)
+    rec.start("e_ring")
+    with sequence_sharding(mesh, axis="seq"):
+        o_ring = ring.output(x)
+        ring.fit(x, y, batch_size=B)
+    _sync(device)
+    rec.stop()
+    o_local = o_local[0] if isinstance(o_local, list) else o_local
+    o_ring = o_ring[0] if isinstance(o_ring, list) else o_ring
+    err = float((o_ring.float() - o_local.float()).abs().max())
+    rel = abs(ring.score_value - local.score_value) / abs(local.score_value)
+    fails.check(err <= OUTPUT_ATOL, f"multiprocess (e) graph ring output "
+                f"{err:.3g} from the local graph (tol {OUTPUT_ATOL})")
+    fails.check(rel <= TRAIN_LOSS_RTOL, f"multiprocess (e) graph ring "
+                f"step loss rel {rel:.3g}")
+    del local, ring
+    trees = []
+    rec.start("e_diag")
+    for diag in (None, "skip"):
+        net = build_lm(cfg, device, params, lr=LONG_LR, diagnostics=diag)
+        tr = ParallelTrainer(net, _par_mesh(device),
+                             gradient_sharing="threshold",
+                             threshold_config=ThresholdConfig(
+                                 initial_threshold=LONG_LR))
+        _par_fit(tr, batches[:c["steps"]])
+        snap = {k: v.clone() for k, v in net.param_table().items()}
+        for r_, tree in enumerate(tr._res_r):
+            for lk, lp in tree.items():
+                for pk, t in lp.items():
+                    snap[f"res{r_}/{lk}/{pk}"] = t.clone()
+        for lk, lst in net.updater_state.items():
+            for pk, st in lst.items():
+                for sk, t in st.items():
+                    snap[f"upd/{lk}/{pk}/{sk}"] = t.clone()
+        trees.append((snap, net._diag.skipped_total if diag else 0,
+                      net._last_diagnostics))
+        del net, tr
+    _sync(device)
+    rec.stop()
+    bad = [k for k in trees[0][0]
+           if not torch.equal(trees[0][0][k], trees[1][0][k])]
+    fails.check(not bad and trees[1][1] == 0 and trees[1][2] is not None,
+                f"multiprocess (e) threshold with diagnostics (skip) not "
+                f"bit-equal to off: {bad[:6]}, skipped {trees[1][1]}")
+    out["e"] = dict(graph_ring_output_err=err, graph_ring_loss_rel=rel,
+                    diag_bit_equal=not bad, diag_skipped=trees[1][1],
+                    diag_rows=sorted((trees[1][2] or {}).keys()))
+
+
+def _mp_moe_and_checkpoint(device, fails, c, tr, net, ids, out, rec):
+    """(c) continued: the MoE LM under moe_param_specs on expert=4
+    against the single card, and a ShardedCheckpoint round trip of the
+    sharded trainer's state."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, ShardedParallelTrainer, make_mesh, moe_param_specs)
+    from deeplearning4j_tpu_torch.util.sharded_checkpoint import (
+        ShardedCheckpoint)
+    mcfg = dict(MOE_LM, vocab=64, d_model=64, n_layers=2, max_len=64,
+                hidden=128) if device.type == "cpu" else MOE_LM
+    B, n = c["moe_B"], c["moe_steps"]
+    X, Y = lm_corpus(mcfg, B * n, seed=62)
+    single = MultiLayerNetwork(moe_lm_conf(mcfg), device=device).init()
+    sharded = single.copy()
+    l_single = _fit_steps(single, X, Y, B)
+    mt = ShardedParallelTrainer(sharded, make_mesh(
+        MeshSpec.of(data=1, expert=4), devices=[device] * 4),
+        param_specs=moe_param_specs(sharded, "expert"))
+    rec.start("c_moe")
+    l_sh, mem = _sharded_fit(mt, device,
+                             lambda: _par_fit(mt, _par_batches(X, Y, B)))
+    rec.stop()
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_sh, l_single))
+    fails.check(rel <= TRAIN_LOSS_RTOL, f"multiprocess (c) MoE on expert=4: "
+                f"losses {l_sh} vs the single card's {l_single}")
+    experts = sum(1 for lp in mt.param_specs.values() for sp in lp.values()
+                  if "expert" in (sp or ()))
+    out["c"]["moe"] = dict(losses=l_sh, single=l_single, rel=rel,
+                           expert_sharded_leaves=experts, memory=mem)
+    del single, sharded, mt
+    d = tempfile.mkdtemp(prefix="sharded_", dir=OUT_DIR)
+    try:
+        want = net.output(ids)
+        t0 = time.perf_counter()
+        ShardedCheckpoint.save(os.path.join(d, "ck"), net, trainer=tr)
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        back = ShardedCheckpoint.restore(os.path.join(d, "ck"),
+                                         device=device)
+        restore_s = time.perf_counter() - t0
+        same = torch.equal(back.output(ids), want)
+        fails.check(same, "multiprocess (c) ShardedCheckpoint round trip: "
+                    "output() changed")
+        out["c"]["checkpoint"] = dict(output_equal=same, save_s=save_s,
+                                      restore_s=restore_s)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def phase_multiprocess(device, report, fails, small=False):
+    """Phase 18 on `device` (see the module docstring, 18 (a)-(e)):
+    multi-process data parallelism, barrier checkpoints, the sharded and
+    pipelined trainers and the two repairs, on the long-context LM.
+    `small` (the CPU rehearsal) shrinks the LM. Returns the phase's
+    kernel launches, the sum of its parts' (the workers' included);
+    each part's are in the report's `launches_by_part`."""
+    import shutil
+    import tempfile
+
+    import torch
+    from deeplearning4j_tpu_torch.parallel import (
+        MeshSpec, ParallelTrainer, ShardedParallelTrainer, make_mesh)
+    c = MP_SMALL if small else MP
+    t_start = time.perf_counter()
+    cfg, params, X, Y, batches = _mp_setup(c)
+    steps, B = c["steps"], c["B"]
+    backend = ("nccl" if device.type == "cuda"
+               and torch.cuda.device_count() >= 2 else "gloo")
+    out = dict(config=dict(cfg, global_batch=[c["B"], cfg["max_len"]],
+                           processes=c["procs"], replicas_per_process=2,
+                           lr=LONG_LR, backend=backend))
+    parts, rec = {}, _PartLaunches()
+    # the references, outside every part: the single card's fit ((a)'s
+    # dense modes, (c) and (d)) and (a)'s threshold in one process on
+    # phase 17's 4-replica mesh
+    single = build_lm(cfg, device, params, lr=LONG_LR)
+    init = _host_table(single)
+    l_single = _fit_steps(single, X[:steps * B], Y[:steps * B], B)
+    want = _host_table(single)
+    del single
+    l_thr = _par_fit(ParallelTrainer(
+        build_lm(cfg, device, params, lr=LONG_LR), _par_mesh(device),
+        **dict(_mp_modes())["threshold"]), batches[:steps])
+    d = tempfile.mkdtemp(prefix="mp_", dir=OUT_DIR)
+    try:
+        ref_path = os.path.join(d, "single.npz")
+        np.savez(ref_path, **want)
+        parts["refs"] = time.perf_counter() - t_start
+        # ---- (a)-(c) in 2 processes
+        t0 = time.perf_counter()
+        workers = _mp_spawn(c, device, backend, os.path.join(d, "ckpt"),
+                            ref_path, small)
+        parts["workers"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    w0 = workers[0]
+    a = {}
+    for name, _ in _mp_modes():
+        ref = l_thr if name == "threshold" else l_single
+        got = w0[name]["losses"][:steps]
+        err = max(abs(g - w) / abs(w) for g, w in zip(got, ref))
+        same = all(w[name]["losses"] == w0[name]["losses"] for w in workers)
+        fails.check(err <= TRAIN_LOSS_RTOL and same, f"multiprocess (a) "
+                    f"{name}: 2-process losses {got} vs one process's {ref} "
+                    f"(rel {err:.3g})")
+        a[name] = dict(w0[name], one_process=ref, err=err)
+    out["a"] = a
+    out["backend"] = w0["backend"]
+    b = w0["b"]
+    fails.check(all(w["b"]["bit_equal"] and w["b"]["resumed_at"] == 2
+                    for w in workers),
+                f"multiprocess (b) barrier checkpoint resume: {b}")
+    out["b"] = b
+    cw = w0["c"]
+    cw.update(_held(fails, "(c) 2-process sharded", cw["losses"], l_single,
+                    (cw["param_motion"], cw["attn_bk_max_abs"]), steps))
+    # each process keeps its half of the sharded leaves between steps
+    fails.check(all(w["c"]["memory"]["held_between_steps"]
+                    < w["c"]["memory"]["held_whole"] for w in workers),
+                f"multiprocess (c) 2-process sharded: a process holds "
+                f"{cw['memory']} bytes between steps, not less than whole")
+    for w in workers:
+        for part, counts in w["launches_by_part"].items():
+            rec.add(part, counts)
+    # ---- (c) the sharded trainer in this process
+    t0 = time.perf_counter()
+    net = build_lm(cfg, device, params, lr=LONG_LR)
+    tr = ShardedParallelTrainer(net, make_mesh(MeshSpec.of(model=2, data=2),
+                                               devices=[device] * 4))
+    rec.start("c")
+    tt = time.perf_counter()
+    l_tp, mem = _sharded_fit(tr, device,
+                             lambda: _par_fit(tr, batches[:steps]))
+    _sync(device)
+    tp_ms = (time.perf_counter() - tt) / steps * 1e3
+    rec.stop()
+    held = _held(fails, "(c) sharded", l_tp, l_single,
+                 param_motion_diff(_host_table(net), want, init), steps)
+    # one process holds every shard: the whole model, nothing twice
+    fails.check(mem["held_between_steps"] == mem["held_whole"],
+                f"multiprocess (c) sharded: {mem['held_between_steps']} "
+                f"bytes held between steps, {mem['held_whole']} whole")
+    out["c"] = dict(losses=l_tp, single=l_single, ms_per_step=tp_ms,
+                    memory=mem, two_process=cw, **held)
+    _mp_moe_and_checkpoint(device, fails, c, tr, net,
+                           batches[0].features[:1], out, rec)
+    del net, tr
+    parts["c"] = time.perf_counter() - t0
+    # ---- (d) the pipeline
+    t0 = time.perf_counter()
+    _mp_pipeline(device, fails, cfg, params, batches, l_single, want, init,
+                 steps, out, rec)
+    parts["d"] = time.perf_counter() - t0
+    # ---- (e) the repairs
+    t0 = time.perf_counter()
+    _mp_graph_and_diag(device, fails, cfg, params, batches, c, out, rec)
+    parts["e"] = time.perf_counter() - t0
+    launches = {k: sum(p.get(k, 0) for p in rec.by_part.values())
+                for k in KERNEL_META}
+    if device.type == "cuda":
+        for part, kernels in MP_KERNELS.items():
+            _launched(fails, f"multiprocess part {part}",
+                      rec.by_part.get(part, {}), kernels)
+    out["part_seconds"] = parts
+    out["launches_by_part"] = rec.by_part
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["seconds"] = time.perf_counter() - t_start
+    report["multiprocess"] = out
+    _print_multiprocess(out)
+    return launches
+
+
+def _mb(n):
+    return "n/a" if n is None else f"{n / 1e6:.1f}"
+
+
+def _print_multiprocess(out):
+    print(f"[multiprocess] backend {out['backend']} "
+          f"({out['config']['processes']} processes x "
+          f"{out['config']['replicas_per_process']} replicas)", flush=True)
+    for name, r in out["a"].items():
+        print(f"[multiprocess] (a) {name}: losses {r['losses']} vs one "
+              f"process {r['one_process']} (rel {r['err']:.3g}); "
+              f"{r['ms_per_step']:.1f} ms/step after a first step of "
+              f"{r['first_step_ms']:.1f}, exchange host "
+              f"{r['exchange_host_ms_per_step']:.1f} ms, "
+              f"{r['bytes_per_step'] / 1e6:.1f} MB across processes a "
+              f"step", flush=True)
+    b = out["b"]
+    print(f"[multiprocess] (b) barrier checkpoint: resumed at "
+          f"{b['resumed_at']}, bit-equal {b['bit_equal']}, write "
+          f"{b['write_s']:.2f} s, resume {b['resume_s']:.2f} s", flush=True)
+    for tag, r in (("model=2 x data=2, 1 process", out["c"]),
+                   ("model=2 across 2 processes", out["c"]["two_process"])):
+        m = r["memory"]
+        print(f"[multiprocess] (c) sharded {tag}: loss rel "
+              f"{r['loss_rel']:.3g}, params {r['param_motion']:.3g} of the "
+              f"single card's motion, attn_bk {r['attn_bk_max_abs']:.3g}; "
+              f"{r['ms_per_step']:.1f} ms/step; a process holds "
+              f"{_mb(m['held_whole'])} MB of params and slots whole, "
+              f"{_mb(m['held_between_steps'])} MB between steps; allocated "
+              f"{_mb(m.get('allocated_before'))} MB before the fit, "
+              f"{_mb(m.get('allocated_between_steps'))} MB between steps, "
+              f"peak {_mb(m.get('allocated_peak'))} MB"
+              + (f"; {r['bytes_per_step'] / 1e6:.1f} MB across processes "
+                 f"a step in {r['calls_per_step']:.1f} calls"
+                 if "bytes_per_step" in r else ""), flush=True)
+    m, k = out["c"]["moe"], out["c"]["checkpoint"]
+    print(f"[multiprocess] (c) MoE expert=4: losses {m['losses']} vs "
+          f"{m['single']} (rel {m['rel']:.3g}), held "
+          f"{_mb(m['memory']['held_whole'])} MB whole, "
+          f"{_mb(m['memory']['held_between_steps'])} MB between steps; "
+          f"ShardedCheckpoint output equal {k['output_equal']}, save "
+          f"{k['save_s']:.2f} s, restore {k['restore_s']:.2f} s", flush=True)
+    for tag, r in out["d"].items():
+        print(f"[multiprocess] (d) {tag}: Sgd({PP_SGD_LR}) step excess "
+              f"{r['sgd_excess']:.3g}, bubble {r['bubble_share']:.3f}"
+              + (f", Adam loss rel {r['adam_loss_rel']:.3g}, params "
+                 f"{r['adam_param_motion']:.3g} of the single card's "
+                 f"motion, {r['ms_per_step']:.1f} ms/step"
+                 if "ms_per_step" in r else ""), flush=True)
+    e = out["e"]
+    print(f"[multiprocess] (e) graph ring output err "
+          f"{e['graph_ring_output_err']:.3g}, loss rel "
+          f"{e['graph_ring_loss_rel']:.3g}; threshold diagnostics skip "
+          f"bit-equal {e['diag_bit_equal']}", flush=True)
+    print(f"[multiprocess] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 1) for k, v in out['part_seconds'].items()} }), "
+          f"launches by part {out['launches_by_part']}", flush=True)
+
+
 KERNEL_META = {
     "layer_norm": ("deeplearning4j_tpu_torch/kernels/csrc/layernorm.cu",
                    "deeplearning4j_tpu/kernels/layernorm.py:55"),
@@ -8453,13 +9184,20 @@ def run(device, *, small=False, kernels_only=False):
         l17 = phase("parallel", phase_parallel, device, report, fails, small)
         for k in launches:
             launches[k] += (l17 or {}).get(k, 0)
+        l18 = phase("multiprocess", phase_multiprocess, device, report,
+                    fails, small)
+        for k in launches:
+            launches[k] += (l18 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
                          ("11", l11), ("12", l12), ("13", l13),
                          ("14", l14), ("15", l15), ("16", l16),
-                         ("17", l17)) if l}
+                         ("17", l17), ("18", l18)) if l}
+        for part, counts in report.get("multiprocess", {}).get(
+                "launches_by_part", {}).items():
+            report["launches_by_phase"][f"18 {part}"] = counts
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -8481,6 +9219,12 @@ def run(device, *, small=False, kernels_only=False):
 
 def main(argv):
     import torch
+    if argv[:1] == ["--mp-worker"]:
+        # one process of phase 18's multi-process runs (spawned by
+        # `_mp_spawn`, on the card or, in the CPU rehearsal, the CPU)
+        sys.path.insert(0, HERE)
+        _mp_worker(argv[1:])
+        return 0
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this test "
               "needs a CUDA card", file=sys.stderr)
@@ -8543,6 +9287,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_parallel(device, report, fails)
+        report["kernels"] = []
+    elif "--multiprocess" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_multiprocess(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

@@ -1,7 +1,8 @@
 """The preemption-tolerant training runtime (counterpart of
-`deeplearning4j_tpu/fault/`, one process): `AsyncCheckpointer`
+`deeplearning4j_tpu/fault/`): `AsyncCheckpointer`
 (atomic, checksummed, asynchronous full-state checkpoints with
-retention), `capture_training_state` / `restore_training_state` (the
+retention, committed behind a barrier of per-process manifests when
+several processes train), `capture_training_state` / `restore_training_state` (the
 state schema), `CheckpointListener` (the fit loop's wiring), `resume`
 (the exact restart with fallback past corrupt checkpoints, a
 ParallelTrainer's residual, τ and per-replica stacks included, re-sharded

@@ -1,5 +1,5 @@
 """Async, atomic full-state checkpointer (counterpart of
-`deeplearning4j_tpu/fault/checkpointer.py`, single-process).
+`deeplearning4j_tpu/fault/checkpointer.py`).
 
 Write protocol (a preemption cannot tear a checkpoint):
 
@@ -24,8 +24,18 @@ The layout is the JAX package's, so each package resumes what the
 other wrote. A snapshot that arrives while the writer is busy replaces
 the pending one (latest wins: the backlog never grows). A writer error
 is raised again on the training thread at the next `save()` or
-`wait()`. The multi-process barrier manifests are not ported (ROADMAP
-Queue 1 item 3, with the multi-process trainers).
+`wait()`.
+
+Several processes (`parallel/multihost.py`, JAX's barrier manifests,
+`fault/checkpointer.py:240-345`): every process holds the complete
+state (the data-parallel trainers gather their per-replica stacks), so
+process 0 writes the one shard and every process writes
+``manifest-<p>.json`` into the shared tmp dir. Process 0 waits for the
+RANK SET {0, ..., P-1}, not a file count (stale higher-rank manifests
+of an aborted wider world neither satisfy nor pollute the barrier),
+merges ``MANIFEST.json`` with the process count and commits; a
+concurrent committer of the same step is tolerated, and a barrier that
+does not fill within `merge_timeout_s` raises `CheckpointCorruptError`.
 
 Health metrics on the monitor registry, while it is enabled (the JAX
 names): ``checkpoint_write_seconds`` (timer), ``checkpoint_bytes_total``,
@@ -119,7 +129,8 @@ def load_checkpoint(directory, step: int) -> Dict[str, Any]:
 
 class AsyncCheckpointer:
     def __init__(self, directory, *, keep_last: int = 3,
-                 keep_every: Optional[int] = None, async_write: bool = True):
+                 keep_every: Optional[int] = None, async_write: bool = True,
+                 merge_timeout_s: float = 120.0):
         self.directory = Path(directory)
         self.directory.mkdir(parents=True, exist_ok=True)
         if keep_last < 1:
@@ -129,6 +140,7 @@ class AsyncCheckpointer:
         self.keep_last = keep_last
         self.keep_every = keep_every
         self.async_write = async_write
+        self.merge_timeout_s = merge_timeout_s
         self._lock = threading.Lock()
         self._pending: Optional[tuple] = None      # (step, state) latest-wins
         self._wake = threading.Condition(self._lock)
@@ -225,37 +237,109 @@ class AsyncCheckpointer:
 
     # -------------------------------------------------------------- write
     def _write(self, step: int, state: Dict[str, Any]):
+        from deeplearning4j_tpu_torch.parallel.multihost import (
+            process_count, process_index)
         t0 = time.perf_counter()
+        proc, nprocs = process_index(), process_count()
         tmp = self.directory / f"{_TMP_PREFIX}{_ckpt_dirname(step)}"
         final = self.directory / _ckpt_dirname(step)
-        if tmp.exists():
+        if nprocs == 1 and tmp.exists():
             shutil.rmtree(tmp)
-        tmp.mkdir(parents=True)
-        flat = fstate.flatten_arrays(state["arrays"])
-        checksums = fstate.checksum_flat(flat)
-        shard_name = "shard-00000.npz"
-        spath = tmp / shard_name
-        with open(spath, "wb") as f:
-            np.savez(f, **flat)
-            f.flush()
-            os.fsync(f.fileno())
-        nbytes = spath.stat().st_size
-        pmanifest = {"process": 0, "shard": shard_name,
+        # several processes share the tmp dir: nobody clears it
+        tmp.mkdir(parents=True, exist_ok=True)
+        nbytes = 0
+        if proc == 0:
+            flat = fstate.flatten_arrays(state["arrays"])
+            checksums = fstate.checksum_flat(flat)
+            shard_name = "shard-00000.npz"
+            spath = tmp / shard_name
+            with open(spath, "wb") as f:
+                np.savez(f, **flat)
+                f.flush()
+                os.fsync(f.fileno())
+            nbytes = spath.stat().st_size
+        else:
+            shard_name, checksums = None, {}
+        pmanifest = {"process": proc, "shard": shard_name,
                      "checksums": checksums, "meta": state["meta"]}
-        _write_json(tmp / "manifest-00000.json", pmanifest)
-        _write_json(tmp / MANIFEST_NAME, {
-            "format_version": fstate.STATE_FORMAT_VERSION,
-            "step": step, "process_count": 1, "shards": [shard_name],
-            "checksums": checksums, "meta": state["meta"]})
-        _fsync_dir(tmp)
-        if final.exists():
-            shutil.rmtree(final)
-        os.rename(tmp, final)
-        _fsync_dir(self.directory)
+        _write_json(tmp / f"manifest-{proc:05d}.json", pmanifest)
+        if proc != 0:
+            return          # done once its manifest is durable
+        self._merge_and_commit(step, tmp, final, nprocs)
         self._gc()
         self._last_commit_ts = time.time()
         self.last_write = (time.perf_counter() - t0, nbytes)
         self._record_write(self.last_write[0], nbytes, step)
+
+    def _merge_and_commit(self, step: int, tmp: Path, final: Path,
+                          nprocs: int):
+        """Process 0: wait for the manifests of ranks 0..nprocs-1 (a rank
+        set: other files are ignored), merge them into MANIFEST.json and
+        commit. A manifest caught mid-write, or a tmp dir a concurrent
+        committer of the same step renamed away, counts as not arrived."""
+        want = set(range(nprocs))
+        deadline = time.time() + self.merge_timeout_s
+        while True:
+            have = {}
+            for mp in sorted(tmp.glob("manifest-*.json")):
+                try:
+                    rank = int(mp.name[len("manifest-"):-len(".json")])
+                except ValueError:
+                    continue
+                if rank not in want:
+                    continue
+                try:
+                    with open(mp) as f:
+                        have[rank] = json.load(f)
+                except (OSError, json.JSONDecodeError):
+                    continue
+            if set(have) == want:
+                break
+            if not tmp.exists() and final.exists():
+                return          # a concurrent committer's commit stands
+            if time.time() > deadline:
+                raise CheckpointCorruptError(
+                    f"checkpoint step {step}: only ranks "
+                    f"{sorted(have)} of {nprocs} arrived within "
+                    f"{self.merge_timeout_s}s")
+            time.sleep(0.05)
+        merged: Dict[str, Any] = {
+            "format_version": fstate.STATE_FORMAT_VERSION,
+            "step": step, "process_count": nprocs,
+            "shards": [], "checksums": {}, "meta": None}
+        for _, pm in sorted(have.items()):
+            if pm.get("shard"):
+                merged["shards"].append(pm["shard"])
+                merged["checksums"].update(pm["checksums"])
+            if pm["process"] == 0:
+                merged["meta"] = pm["meta"]
+        _write_json(tmp / MANIFEST_NAME, merged)
+        _fsync_dir(tmp)
+        self._replace_commit(step, tmp, final)
+        _fsync_dir(self.directory)
+
+    def _replace_commit(self, step: int, tmp: Path, final: Path):
+        """Rename tmp into place, replacing a commit of the same step;
+        a concurrent committer that wins the race leaves its (equivalent)
+        commit standing."""
+        if final.exists():
+            trash = final.parent / (f"{_TMP_PREFIX}trash-{os.getpid()}-"
+                                    f"{final.name}")
+            try:
+                os.rename(final, trash)
+            except FileNotFoundError:
+                pass        # the other committer replaced it first
+            shutil.rmtree(trash, ignore_errors=True)
+        try:
+            os.rename(tmp, final)
+        except OSError as e:
+            if final.exists():
+                log.warning("checkpoint step %d: concurrent commit won "
+                            "the replace race (%s); dropping this "
+                            "attempt's tmp", step, e)
+                shutil.rmtree(tmp, ignore_errors=True)
+            else:
+                raise
 
     # ------------------------------------------------------------- metrics
     def _record_write(self, seconds: float, nbytes: int, step: int):

@@ -1,7 +1,7 @@
 """Fault-runtime exception types (counterpart of
 `deeplearning4j_tpu/fault/errors.py`): the checkpoint error and the
-drill's preemption signal. The elastic signals belong to the
-multi-process runtime, which is not ported."""
+drill's preemption signal. The elastic signals belong to
+`parallel/elastic.py`, which is not ported."""
 
 from __future__ import annotations
 

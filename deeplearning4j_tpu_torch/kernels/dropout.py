@@ -164,10 +164,42 @@ class _DropoutFn(torch.autograd.Function):
         return dropout_fwd(g, ctx.key, ctx.p), None, None, None
 
 
+class _DropoutRowsFn(torch.autograd.Function):
+    """Dropout of rows of a larger batch: the mask's words from the flat
+    offset on (`threefry_bits`, the kernel on the card), kept for the
+    backward."""
+
+    @staticmethod
+    def forward(ctx, x, k0, k1, p, offset):
+        w = threefry_bits((k0, k1), x.numel(), x.device, offset)
+        u = (((w >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+             - 1.0).reshape(x.shape)
+        keep = u < torch.tensor(p, dtype=torch.float32, device=x.device)
+        p_dt = torch.tensor(p, dtype=x.dtype, device=x.device)
+        ctx.save_for_backward(keep)
+        ctx.p_dt = p_dt
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        return torch.where(keep, x / p_dt, zero)
+
+    @staticmethod
+    def backward(ctx, g):
+        keep, = ctx.saved_tensors
+        zero = torch.zeros((), dtype=g.dtype, device=g.device)
+        return torch.where(keep, g / ctx.p_dt.to(g.dtype), zero), \
+            None, None, None, None
+
+
 def dropout(x: torch.Tensor, key, p: float) -> torch.Tensor:
     """Inverted dropout with RETAIN probability `p` under the threefry
     `key` (JAX's ``where(bernoulli(key, p, x.shape), x / p, 0)``);
-    p >= 1 returns x."""
+    p >= 1 returns x. Inside `common.global_batch.global_rows`, x is
+    rows of the global batch and takes those rows of the global mask."""
     if p >= 1.0:
         return x
+    from deeplearning4j_tpu_torch.common.global_batch import (
+        row_offset_elements)
+    off = row_offset_elements(x)
+    if off is not None:
+        return _DropoutRowsFn.apply(x, int(key[0]), int(key[1]), float(p),
+                                    off)
     return _DropoutFn.apply(x, int(key[0]), int(key[1]), float(p))

@@ -267,14 +267,19 @@ class Diagnostics:
 
     @torch.no_grad()
     def collect(self, name: str, *, params_new, params_old, loss,
-                grads=None, acts=None):
+                grads=None, acts=None, extra_finite=None, xp=None):
         """The packed stat vector of ONE step, on the step's device.
 
         params_new, params_old: {layer key: {param name: tensor}} after
         and before the update (the old ones a snapshot). grads: the same
         keys, the gradients the updater consumed (any float dtype), or
         None. acts: {layer key: [3] activation stats}. loss: the step's
-        loss tensor.
+        loss tensor. extra_finite: more trees of the same keys (the
+        exchanges' error-feedback residuals, one a replica) whose
+        non-finite values count against their layers' finite flags.
+        xp: a `parallel.collectives.CrossProcess` that sums the
+        non-finite counts across processes (JAX's psum over the data
+        axis), so every process gates the same way.
 
         Returns (vector, ok): ok is the step-global is-finite flag, a
         0-d bool tensor on the device (the ``skip`` gate's input)."""
@@ -307,10 +312,18 @@ class Diagnostics:
             probe = probe + _stacked(torch._foreach_norm(
                 torch._foreach_mul(G, 0.0), 1, dtype=f32))
         leaf_bad = torch.isnan(probe).float()
+        for tree in extra_finite or ():
+            E = [tree[lk][pn] for lk, pn in keys]
+            leaf_bad = leaf_bad + torch.isnan(_stacked(torch._foreach_norm(
+                torch._foreach_mul(E, 0.0), 1, dtype=f32))).float()
         layer_bad = torch.zeros(len(layers), device=dev).index_add_(
             0, layer_of, leaf_bad)
         loss_bad = (~torch.isfinite(torch.as_tensor(loss, device=dev)
                                     .float())).float().sum()
+        if xp is not None:
+            both = torch.cat([layer_bad, loss_bad.reshape(1)])
+            xp.all_reduce_([both])
+            layer_bad, loss_bad = both[:-1], both[-1]
         total_bad = layer_bad.sum() + loss_bad
 
         layout: List[Tuple[str, int]] = []

@@ -716,13 +716,13 @@ class Container(nn.Module):
         return {} if d is not None and d.activation_stats else None
 
     def _update(self, iteration: int, grads, new_state, loss, acts,
-                packed: bool = True):
+                packed: bool = True, name: str = "fit"):
         """The step's update (`_apply_updates`) and running-state commit;
         with diagnostics on, around them the snapshot, the stats and the
         ``skip`` gate (`monitor.diagnostics.collect_and_gate`), each in
         a span (`fit/snapshot`, `fit/apply_updates`,
-        `fit/collect_and_gate`). Returns the packed stats vector, or None
-        with diagnostics off."""
+        `fit/collect_and_gate`; `name` is the stats' step family).
+        Returns the packed stats vector, or None with diagnostics off."""
         if self._diag is None:
             self._apply_updates(iteration, grads, packed=packed)
             self._commit_state(new_state)
@@ -750,7 +750,7 @@ class Container(nn.Module):
                            for name, p in lp.items()}
                      for key, lp in params.items()}
             dv, new_state = collect_and_gate(
-                self._diag, "fit", params=params, params_old=old,
+                self._diag, name, params=params, params_old=old,
                 updates=[self.updater_state[lk][pk][sk]
                          for lk, pk, sk in slots],
                 updates_old=upd_old, state_new=new_state,

@@ -45,8 +45,10 @@ the JAX `_forward_all` takes them.
 
 `gradient_sharing` is read by the parallel trainers only
 (`parallel/trainer.py`); the graph's own `fit` ignores it, as JAX's
-does. Not ported, and refused by name: sequence parallelism inside a
-graph (when it is built).
+does. Sequence parallelism runs inside a graph as in a list: an
+attention node with `sequence_parallel` set reads the ambient
+`parallel.sequence_sharding` (mesh, axis) at every forward, and the
+graph keeps no plan that depends on it.
 """
 
 from __future__ import annotations
@@ -353,13 +355,6 @@ class ComputationGraph(Container):
         if any(getattr(n.layer, "_in_net", False)
                for n in conf.nodes.values()):
             conf = ComputationGraphConfiguration.from_dict(conf.to_dict())
-        sp = [n for n, node in conf.nodes.items()
-              if getattr(node.layer, "sequence_parallel", None)]
-        if sp:
-            raise NotImplementedError(
-                f"sequence parallelism inside a ComputationGraph (nodes "
-                f"{sp}) is not ported; build the model as a "
-                f"MultiLayerNetwork")
         order = conf.topo_order or conf.topological_sort()
         names = [n for n in order if conf.nodes[n].kind == "layer"]
         self._setup(conf, [conf.nodes[n].layer for n in names], names,

@@ -8,6 +8,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from deeplearning4j_tpu_torch.common import global_batch
 from deeplearning4j_tpu_torch.kernels.layernorm import layer_norm
 from deeplearning4j_tpu_torch.nd import quant
 from deeplearning4j_tpu_torch.nn.conf.inputs import InputTypeConvolutional
@@ -104,7 +105,10 @@ class BatchNormalization(Layer):
             gamma = quant.weight(self, "gamma")
             beta = quant.weight(self, "beta")
         stats = {}
-        if x.dtype == torch.float32:
+        rows = global_batch.current() if train else None
+        if rows is not None and rows.xp is not None:
+            y = self._normalize_global(x, gamma, beta, dims, rows, stats)
+        elif x.dtype == torch.float32:
             y = self._normalize_library(x, train, gamma, beta)
         else:
             y = self._normalize_rounded(x, train, gamma, beta, dims, stats)
@@ -130,6 +134,18 @@ class BatchNormalization(Layer):
                          None if train else self.var, gamma, beta,
                          training=train, eps=float(self.eps))
         return y.movedim(1, -1) if x.ndim > 2 else y
+
+    def _normalize_global(self, x, gamma, beta, dims, rows, stats):
+        """Training on rows of a global batch that other processes
+        share (`common.global_batch`): the global batch's fp32
+        statistics, then JAX's normalization in x's dtype."""
+        mean, var = global_batch.mean_var(x, dims, rows)
+        stats.update(mean=mean.detach(), var=var.detach())
+        inv = 1.0 / torch.sqrt(var + self.eps)
+        y = (x - mean.to(x.dtype)) * inv.to(x.dtype)
+        if gamma is not None:
+            y = y * gamma.to(x.dtype) + beta.to(x.dtype)
+        return y
 
     def _normalize_rounded(self, x, train, gamma, beta, dims, stats=None):
         """JAX's normalization in x's dtype: the fp32 statistics (a

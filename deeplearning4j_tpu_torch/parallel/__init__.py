@@ -5,12 +5,24 @@ exchanges and parameter averaging; the two `TrainingMaster`s and their
 `TrainingMasterStats`), batched serving (`ParallelInference`), and
 sequence parallelism (the ambient `sequence_sharding` context, ring
 attention on the carry-mode CUDA kernel, Ulysses all-to-all
-attention). One process drives every replica; the multi-process
-pieces (tensor, pipeline, multihost, elastic) are not ported yet."""
+attention), tensor / FSDP / expert sharding (`ShardedParallelTrainer`
+and the spec functions), GPipe pipeline parallelism
+(`PipelineParallelTrainer`), and several processes over
+`torch.distributed` (`initialize_multihost`: meshes span the processes'
+devices and the trainers' collectives cross them). Elastic membership
+(`parallel/elastic.py`) is not ported yet."""
 
 from deeplearning4j_tpu_torch.parallel.context import (
     current_sequence_mesh,
     sequence_sharding,
+)
+from deeplearning4j_tpu_torch.parallel.multihost import (
+    initialize_multihost,
+    is_main_process,
+    multihost_active,
+    process_count,
+    process_index,
+    shutdown_multihost,
 )
 from deeplearning4j_tpu_torch.parallel.mesh import (
     MeshSpec,
@@ -33,7 +45,12 @@ _LAZY = {"ThresholdConfig": "gradient_sharing",
          "ParallelInference": "inference",
          "ParameterAveragingTrainingMaster": "master",
          "SharedTrainingMaster": "master", "TrainingMaster": "master",
-         "TrainingMasterStats": "stats", "ParallelTrainer": "trainer"}
+         "TrainingMasterStats": "stats", "ParallelTrainer": "trainer",
+         "ShardedParallelTrainer": "tensor", "fsdp_param_specs": "tensor",
+         "moe_param_specs": "tensor", "tp_param_specs": "tensor",
+         "pipeline_apply": "pipeline", "pipeline_forward": "pipeline",
+         "PipelineParallelTrainer": "pipeline_container",
+         "find_homogeneous_run": "pipeline_container"}
 
 
 def __getattr__(name):
@@ -45,9 +62,14 @@ def __getattr__(name):
 
 
 __all__ = ["MeshSpec", "ParallelInference", "ParallelTrainer",
-           "ParameterAveragingTrainingMaster", "SharedTrainingMaster",
+           "ParameterAveragingTrainingMaster", "PipelineParallelTrainer",
+           "ShardedParallelTrainer", "SharedTrainingMaster",
            "ThresholdConfig", "TrainingMaster", "TrainingMasterStats",
-           "current_sequence_mesh", "device_mesh", "make_mesh",
-           "reference_attention", "ring_attention",
+           "current_sequence_mesh", "device_mesh", "find_homogeneous_run",
+           "fsdp_param_specs", "initialize_multihost", "is_main_process",
+           "make_mesh", "moe_param_specs", "multihost_active",
+           "pipeline_apply", "pipeline_forward", "process_count",
+           "process_index", "reference_attention", "ring_attention",
            "sequence_parallel_attention", "sequence_sharding",
+           "shutdown_multihost", "tp_param_specs",
            "ulysses_parallel_attention"]

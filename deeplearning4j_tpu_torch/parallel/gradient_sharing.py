@@ -40,7 +40,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from deeplearning4j_tpu_torch.parallel.collectives import mean
+from deeplearning4j_tpu_torch.parallel.collectives import reduce_sum
 
 MODES = ("dense", "threshold", "dense_rs", "threshold_rs")
 RS_MODES = ("dense_rs", "threshold_rs")
@@ -430,15 +430,20 @@ def record_threshold_stats(tau: float, sparsity: float, *,
 def threshold_exchange(deltas: List[Dict[str, Dict[str, torch.Tensor]]],
                        residuals: List[Dict[str, Dict[str, torch.Tensor]]],
                        tau: torch.Tensor, cfg: ThresholdConfig, *,
-                       device) -> tuple:
+                       device, xp=None, n_total: Optional[int] = None
+                       ) -> tuple:
     """The whole compressed exchange of one bucket over the replicas:
     each replica encodes its update plus residual at τ, the integer
     wire tensors sum in replica order, the sum decodes to the shared
     update on `device`, and τ adapts from the mean encoded fraction.
     `deltas[r]`/`residuals[r]` are replica r's {layer: {param: tensor}}.
     Returns (shared update tree, new residuals, new τ, sparsity); the
-    residual trees are updated in place and returned."""
-    n = len(deltas)
+    residual trees are updated in place and returned. Across processes
+    `deltas` are this process's replicas, `n_total` all of them, and
+    `xp` (`collectives.CrossProcess`) sums the wire tensors and the sent
+    counts across the processes after this process's replica-order
+    sum."""
+    n = int(n_total or len(deltas))
     wdtype = wire_dtype(n)
     summed: Dict[str, Dict[str, torch.Tensor]] = {}
     sent_r = []
@@ -455,9 +460,14 @@ def threshold_exchange(deltas: List[Dict[str, Dict[str, torch.Tensor]]],
                 sent = sent + s.to(device)
         sent_r.append(sent)
     like = deltas[0]
+    sent = reduce_sum(sent_r, device)
+    if xp is not None:
+        xp.all_reduce_([t for ld in summed.values() for t in ld.values()]
+                       + [sent])
     dhat = {lk: {pk: s.to(like[lk][pk].dtype)
                  * decode_scale(tau, n, like[lk][pk].dtype)
                  for pk, s in ld.items()} for lk, ld in summed.items()}
-    sparsity = mean(sent_r, device) / torch.tensor(
-        tree_elements(like), dtype=torch.float32, device=device)
+    sparsity = sent.div_(torch.tensor(n, dtype=sent.dtype, device=device)) \
+        / torch.tensor(tree_elements(like), dtype=torch.float32,
+                       device=device)
     return dhat, residuals, adapt_threshold(tau, sparsity, cfg), sparsity

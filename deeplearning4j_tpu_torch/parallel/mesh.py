@@ -16,6 +16,12 @@ position a shard on the same device and each "send" a no-op — the
 counterpart of the 8 virtual CPU devices the JAX tests run their meshes
 on. On distinct cards a send is a peer copy.
 
+After `parallel.multihost.initialize_multihost`, `make_mesh(spec)`
+spans every process's devices, process-major as `jax.devices()` is:
+`mesh.ranks` holds the rank that owns each entry (None in one process,
+where every entry is local), and a process drives only its own entries
+(`mesh.is_local`).
+
 `device_mesh(n)` is the one-axis data-parallel mesh the parallel
 trainers default to: every CUDA device (or the first `n`), raising
 without CUDA as every entry point does; tests pass CPU devices to
@@ -71,10 +77,21 @@ class MeshSpec:
 class Mesh:
     """A named grid of devices (the JAX `Mesh` surface the port needs)."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Sequence[str]):
+    def __init__(self, devices: np.ndarray, axis_names: Sequence[str],
+                 ranks: Optional[np.ndarray] = None):
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, devices.shape))
+        # the owning rank of each entry (multi-process meshes only)
+        self.ranks = ranks
+
+    def is_local(self, index) -> bool:
+        """Whether this process drives the entry at grid `index`."""
+        if self.ranks is None:
+            return True
+        from deeplearning4j_tpu_torch.parallel.multihost import (
+            process_index)
+        return int(self.ranks[index]) == process_index()
 
     def axis_devices(self, axis: str):
         """The devices along `axis`, the other axes at index 0: the ring
@@ -84,6 +101,14 @@ class Mesh:
                              f"{self.axis_names}")
         grid = np.moveaxis(self.devices, self.axis_names.index(axis), 0)
         return tuple(grid.reshape(grid.shape[0], -1)[:, 0])
+
+    def axis_ranks(self, axis: str):
+        """The owning ranks of `axis_devices(axis)` (all None in one
+        process)."""
+        if self.ranks is None:
+            return (None,) * int(self.shape[axis])
+        grid = np.moveaxis(self.ranks, self.axis_names.index(axis), 0)
+        return tuple(int(r) for r in grid.reshape(grid.shape[0], -1)[:, 0])
 
     def __repr__(self):
         return f"Mesh({self.shape}, {list(self.devices.flat)})"
@@ -100,11 +125,27 @@ def make_mesh(spec: MeshSpec | Dict[str, int] | None = None,
               devices: Optional[Sequence] = None) -> Mesh:
     """A mesh of `spec`'s shape (default: one data axis over every CUDA
     device) over `devices` (default: every CUDA device, in order),
-    row-major, the first `spec.size()` used."""
-    if spec is None:
-        spec = MeshSpec.data_parallel()
+    row-major, the first `spec.size()` used. Under a multi-process world
+    the default devices are every process's, process-major, each entry
+    owned by its process."""
+    from deeplearning4j_tpu_torch.parallel import multihost
     if isinstance(spec, dict):
         spec = MeshSpec(tuple(spec.items()))
+    if devices is None and multihost.multihost_active():
+        glob = multihost.global_devices()
+        if spec is None:
+            spec = MeshSpec((("data", len(glob)),))
+        n = spec.size()
+        if len(glob) < n:
+            raise ValueError(f"Mesh {spec} needs {n} devices, have "
+                             f"{len(glob)}")
+        grid = np.empty(n, dtype=object)
+        grid[:] = [d for _, d in glob[:n]]
+        ranks = np.array([r for r, _ in glob[:n]], dtype=np.int64)
+        return Mesh(grid.reshape(spec.shape()), spec.names(),
+                    ranks.reshape(spec.shape()))
+    if spec is None:
+        spec = MeshSpec.data_parallel()
     if devices is None:
         devices = [torch.device("cuda", i)
                    for i in range(torch.cuda.device_count())]

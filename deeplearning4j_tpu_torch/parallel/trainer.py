@@ -42,8 +42,26 @@ updater states and residual, averaging's trees) ride checkpoints in
 JAX's layout (`_live_state_provider`, `_restore_fault_state`), so each
 package resumes what the other wrote, elastically across replica
 counts. With `stats` every timed phase synchronizes the card.
-Diagnostics run in the dense modes (the container's `_update`); the
-other modes refuse them by name.
+
+Diagnostics: the dense modes run the container's `_update` ("fit"
+rows); threshold, threshold_rs and dense_rs run JAX's `_exchange_diag`
+("exchange" rows: the post-exchange update and param statistics, the
+error-feedback residual folded into the finite flags, and under the
+``skip`` watchdog the whole step's params, updater state, residual, τ
+and running state kept behind a device-side flag, no host sync);
+averaging collects none, as JAX's local-SGD step does not.
+
+Several processes (`parallel/multihost.py`): on a mesh that spans
+processes each process drives the replicas it owns (`mesh.ranks`), and
+every process passes the global batch, as JAX's global-view `fit`
+does. Each reduction sums this process's replicas in replica order,
+then across the processes on the data axis's group
+(`collectives.CrossProcess`); the sharded rs leaves are gathered back
+across processes after the shard updates, and the per-replica stacks a
+checkpoint or `threshold_residual()` needs are gathered whole. The
+single-barrier step runs each process's rows under
+`common.global_batch.global_rows`, so dropout takes the global mask's
+rows and BatchNorm the global batch's statistics.
 """
 
 from __future__ import annotations
@@ -56,11 +74,15 @@ import numpy as np
 import torch
 
 from deeplearning4j_tpu_torch import monitor
-from deeplearning4j_tpu_torch.common import prng
+from deeplearning4j_tpu_torch.common import global_batch, prng
 from deeplearning4j_tpu_torch.common.updaters import Adam
 from deeplearning4j_tpu_torch.datasets.iterator import as_iterator
 from deeplearning4j_tpu_torch.kernels.fused_adam import adam_update_packed
-from deeplearning4j_tpu_torch.monitor.diagnostics import process_if_due
+from deeplearning4j_tpu_torch.monitor.diagnostics import (
+    keep_finite_,
+    process_if_due,
+    snapshot,
+)
 from deeplearning4j_tpu_torch.optimize.gradients import (
     apply_gradient_normalization,
 )
@@ -121,6 +143,26 @@ def _copy_into(dst, src):
             dst.copy_(src.to(dst.device, dst.dtype))
 
 
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [t for v in tree.values() for t in _leaves(v)]
+    return [tree]
+
+
+def _require_single_process(what="mesh evaluate()"):
+    """JAX's guard (`parallel/trainer.py:54-64`): the host readback needs
+    every replica's output in this process."""
+    from deeplearning4j_tpu_torch.parallel.multihost import process_count
+    if process_count() > 1:
+        raise NotImplementedError(
+            f"{what} reads results back to one host and needs fully-"
+            f"addressable arrays; under multi-process execution score "
+            f"each process's local data shard on the host "
+            f"(evaluator.eval(y, model.output(x)) per process) and "
+            f"combine the evaluators with merge() — they all serialize "
+            f"via to_json for the transport")
+
+
 def _mesh_evaluate(iterator, merged, n_div, forward):
     """JAX's `_mesh_evaluate`: every batch through the replicas' forward,
     a ragged tail zero-padded to the data-axis multiple and the padded
@@ -135,6 +177,33 @@ def _mesh_evaluate(iterator, merged, n_div, forward):
         out = forward(x)[:n]
         merged.eval(np.asarray(ds.labels), out)
     return merged
+
+
+def global_pass(model, x, y, rng, acts, offset, total, xp):
+    """The container's forward and backward on this process's rows
+    [offset, offset + len(x)) of a global batch of `total` rows: in one
+    process (`xp` None) the container's own pass; across processes each
+    runs its rows under `global_batch.global_rows` (the global dropout
+    mask's rows, the global BatchNorm statistics), and the loss and the
+    gradients are summed across the processes weighted by their rows,
+    so every process holds the global batch's. Returns (loss,
+    {id(param): gradient}, running state)."""
+    def run():
+        return model._loss_and_grads(
+            lambda st: model._loss_fn(x, y, train=True, rng=rng,
+                                      new_state=st, acts=acts))
+    if xp is None:
+        return run()
+    with global_batch.global_rows(offset, total, xp):
+        loss, grads, new_state = run()
+    rows = (x[0] if isinstance(x, (list, tuple)) else x).shape[0]
+    w = rows / total
+    loss = loss.float() * w
+    gl = [g for g in grads.values() if g is not None]
+    for g in gl:
+        g.mul_(w)
+    xp.all_reduce_(gl + [loss])
+    return loss, grads, new_state
 
 
 class ParallelTrainer:
@@ -154,7 +223,18 @@ class ParallelTrainer:
         self.average_updater_state = average_updater_state
         self.data_axis = data_axis
         self.n_workers = int(self.mesh.shape[data_axis])
-        self.devices = data_devices(self.mesh, data_axis)
+        # the replicas this process drives (all of them in one process):
+        # their global indices and devices; `_xp` is the data axis's
+        # cross-process step (None in one process)
+        ranks = self.mesh.axis_ranks(data_axis)
+        from deeplearning4j_tpu_torch.parallel.multihost import (
+            process_index)
+        me = process_index()
+        self._rid = [r for r, rk in enumerate(ranks)
+                     if rk is None or rk == me]
+        everyone = data_devices(self.mesh, data_axis)
+        self.devices = [everyone[r] for r in self._rid]
+        self._xp = coll.make_axis_groups(self.mesh, data_axis)
         self.gradient_sharing = gs.resolve_mode(gradient_sharing, model.conf)
         if self.gradient_sharing != "dense" and mode != "sync":
             want = self.gradient_sharing
@@ -188,10 +268,16 @@ class ParallelTrainer:
                                      model.conf))
         self._res_r = None        # per-replica residual trees (device)
         self._thr_tau = None      # {layer: f32} per bucket, or one scalar
+        self._tau = None          # the step's τ on the device
         self._resume_upd_r = None  # host stacks from a checkpoint
         self._resume_res = None
         self._resume_avg = None
         self._replica_nets = None
+        # the step key's seed offset and the trainer's name in
+        # checkpoints and metrics (ShardedParallelTrainer's threshold
+        # exchange runs through this trainer under its own)
+        self._rng_offset = 3
+        self._trainer_name = "parallel"
         from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
         self._is_graph = isinstance(model, ComputationGraph)
         self._multi_io_graph = self._is_graph and (
@@ -247,21 +333,28 @@ class ParallelTrainer:
                 for n, p in layer.jax_param_map().items() if k in tree}
 
     def _replica_batches(self, ds):
-        """[(x_r, y_r)] for the replicas, each on its replica's device
-        (a graph's as one-element lists)."""
+        """[(r, x_r, y_r)] for this process's replicas (r the global
+        replica index), each on its replica's device (a graph's as
+        one-element lists)."""
         n = self.n_workers
         if isinstance(ds.features, ReplicaBatch):
             od = self.model.dtype.output_dtype
             wrap = (lambda t: [t]) if self._is_graph else (lambda t: t)
-            return [(wrap(x), wrap(y.to(od))) for x, y in
-                    zip(ds.features.shards, ds.labels.shards)]
+            return [(r, wrap(x), wrap(y.to(od))) for r, x, y in
+                    zip(self._rid, ds.features.shards, ds.labels.shards)]
         x, y, _ = self.model._batch(ds, None)
         b = ds.num_examples() // n
-        return [(_to(_rows(x, slice(r * b, (r + 1) * b)), d),
+        return [(r, _to(_rows(x, slice(r * b, (r + 1) * b)), d),
                  _to(_rows(y, slice(r * b, (r + 1) * b)), d))
-                for r, d in enumerate(self.devices)]
+                for r, d in zip(self._rid, self.devices)]
 
     def _global_batch(self, ds):
+        if self._xp is not None:
+            # this process's rows of the global batch
+            x, y, _ = self.model._batch(ds, None)
+            b = ds.num_examples() // self.n_workers
+            sl = slice(self._rid[0] * b, (self._rid[-1] + 1) * b)
+            return _rows(x, sl), _rows(y, sl)
         if isinstance(ds.features, ReplicaBatch):
             dev = self.model.device
             parts = self._replica_batches(ds)
@@ -280,19 +373,53 @@ class ParallelTrainer:
                                     new_state=st))
         return loss, net._layer_tree(grads), new_state
 
+    # ------------------------------------------------ replica reductions
+    def _cross(self, tensors):
+        """Sum `tensors` across the data axis's processes, in place (a
+        no-op in one process)."""
+        if self._xp is not None and tensors:
+            self._xp.all_reduce_(tensors)
+        return tensors
+
+    def _div(self, t):
+        return t.div_(torch.tensor(self.n_workers, dtype=t.dtype,
+                                   device=t.device))
+
     def _pmean_state(self, states):
-        """The replicas' running states: float leaves meaned, the rest
-        replica 0's (JAX's `_pmean_state`)."""
+        """The replicas' running states: float leaves meaned (this
+        process's replicas in replica order, then across processes), the
+        rest this process's first replica's (JAX's `_pmean_state`)."""
         dev = self.model.device
         out = {}
         for k, st in states[0].items():
-            out[k] = {n: (coll.mean([s[k][n] for s in states], dev)
+            out[k] = {n: (coll.reduce_sum([s[k][n] for s in states], dev)
                           if t.is_floating_point() else t)
                       for n, t in st.items()}
+        fl = [t for st in out.values() for t in st.values()
+              if t.is_floating_point()]
+        for t in self._cross(fl):
+            self._div(t)
         return out
 
     def _loss_mean(self, losses):
-        return coll.mean([l.float() for l in losses], self.model.device)
+        acc = coll.reduce_sum([l.float() for l in losses], self.model.device)
+        self._cross([acc])
+        return self._div(acc)
+
+    def _full_stack(self, trees):
+        """Every replica's tree as one host stack (leading replica axis):
+        this process's, then, across processes, every process's in rank
+        order (checkpoint cadence only)."""
+        mine = _stack_host(trees)
+        if self._xp is None:
+            return mine
+        parts = self._xp.all_gather_object(mine)
+
+        def cat(ps):
+            if isinstance(ps[0], dict):
+                return {k: cat([p[k] for p in ps]) for k in ps[0]}
+            return np.concatenate(ps, axis=0)
+        return cat(parts)
 
     def _updater_state_floats(self) -> bool:
         return all(t.is_floating_point()
@@ -306,23 +433,80 @@ class ParallelTrainer:
                 data_axis=self.data_axis)
         return self._rs_plan_cache
 
-    def _refuse_diagnostics(self, what):
-        if self.model._diag is not None:
-            raise NotImplementedError(
-                f"diagnostics inside ParallelTrainer's {what} exchange are "
-                "not ported; the dense modes run them (the container's "
-                "update)")
+    # ------------------------------------------------ exchange diagnostics
+    def _diag_begin(self, upd_trees):
+        """Before an exchange step with diagnostics on: the params'
+        snapshot and, under ``skip``, the updater state, residual and τ
+        the step is about to replace."""
+        model = self.model
+        if model._diag is None:
+            return None
+        params = self._params()
+        flat = snapshot(_leaves(params))
+        it = iter(flat)
+        old = {lk: {pn: next(it) for pn in lp} for lk, lp in params.items()}
+        kept = None
+        if model._diag.config.watchdog == "skip":
+            tau = self._tau
+            kept = dict(
+                upd=snapshot([t for u in upd_trees for t in _leaves(u)]),
+                res=snapshot([t for r in (self._res_r or [])
+                              for t in _leaves(r)]),
+                tau=({k: v.clone() for k, v in tau.items()}
+                     if isinstance(tau, dict) else
+                     (tau.clone() if isinstance(tau, torch.Tensor)
+                      else None)))
+        return dict(old=old, kept=kept, upd_trees=upd_trees)
+
+    @torch.no_grad()
+    def _diag_end(self, ctx, loss, state_new, residual=True):
+        """JAX's `_exchange_diag` (`parallel/gradient_sharing.py:378`):
+        the post-exchange update and param statistics, the residual
+        folded into the finite flags (summed over the replicas and the
+        processes, as JAX's psum), and under ``skip`` the whole step
+        undone behind the device-side flag: params, updater state,
+        residual, τ and running state. Returns (vector, state to
+        commit)."""
+        if ctx is None:
+            return None, state_new
+        model = self.model
+        params = self._params()
+        res = self._res_r if residual else None
+        dv, ok = model._diag.collect(
+            "exchange", params_new=params, params_old=ctx["old"], loss=loss,
+            extra_finite=res, xp=self._xp)
+        kept = ctx["kept"]
+        if kept is not None:
+            keep_finite_(ok, _leaves(params), _leaves(ctx["old"]))
+            keep_finite_(ok, [t for u in ctx["upd_trees"]
+                              for t in _leaves(u)], kept["upd"])
+            if res:
+                keep_finite_(ok, [t for r in res for t in _leaves(r)],
+                             kept["res"])
+            if isinstance(self._tau, dict):
+                self._tau = {k: torch.where(ok, v, kept["tau"][k])
+                             for k, v in self._tau.items()}
+            elif kept["tau"] is not None:
+                self._tau = torch.where(ok, self._tau, kept["tau"])
+            live = model.net_state
+            state_new = {k: {n: (torch.where(ok, t, live[k][n])
+                                 if n in live.get(k, {}) else t)
+                             for n, t in st.items()}
+                         for k, st in state_new.items()}
+        return dv, state_new
 
     # ---------------------------------------------------------- sync steps
     def _step_global(self, it, ds, rng):
         """The single-barrier dense step: the container's step on the
-        global batch (JAX's GSPMD program over the global batch)."""
+        global batch (JAX's GSPMD program over the global batch); across
+        processes each runs its rows of it (`global_pass`)."""
         model = self.model
         x, y = self._global_batch(ds)
         acts = model._act_stats()
-        loss, grads, new_state = model._loss_and_grads(
-            lambda st: model._loss_fn(x, y, train=True, rng=rng,
-                                      new_state=st, acts=acts))
+        b = ds.num_examples() // self.n_workers
+        loss, grads, new_state = global_pass(
+            model, x, y, rng, acts, self._rid[0] * b, ds.num_examples(),
+            self._xp)
         dv = model._update(it, model._normalize_gradients(grads), new_state,
                            loss, acts)
         self._push_params()
@@ -330,12 +514,13 @@ class ParallelTrainer:
 
     def _reduced_grads(self, ds, rng):
         """Every replica's pass, the gradients meaned in replica order
-        (their dtype), the running states and losses meaned."""
+        (their dtype; across processes after this process's sum), the
+        running states and losses meaned."""
         dev = self.model.device
         nets = self._nets()
         acc, states, losses = None, [], []
-        for r, (x, y) in enumerate(self._replica_batches(ds)):
-            loss, g, st = self._replica_pass(nets[r], x, y,
+        for j, (r, x, y) in enumerate(self._replica_batches(ds)):
+            loss, g, st = self._replica_pass(nets[j], x, y,
                                              prng.fold_in(rng, r))
             losses.append(loss)
             states.append(st)
@@ -345,9 +530,8 @@ class ParallelTrainer:
                 for k, lg in g.items():
                     for n, t in lg.items():
                         acc[k][n].add_(t.to(dev))
-        nw = self.n_workers
-        grads = _map(lambda t: t.div_(torch.tensor(nw, dtype=t.dtype,
-                                                   device=t.device)), acc)
+        self._cross(_leaves(acc))
+        grads = _map(self._div, acc)
         return grads, self._pmean_state(states), self._loss_mean(losses)
 
     def _step_dense(self, it, ds, rng):
@@ -358,33 +542,39 @@ class ParallelTrainer:
         self._push_params()
         return loss, dv, None
 
+    def _rs_upd_trees(self):
+        return list(self._rs_state) + [self.model.updater_state]
+
     def _step_dense_rs(self, it, ds, rng):
         """dense_rs: the dense reduction, then each replica's shard
         update (`_rs_update`), the shards written back into the params
-        (the all-gather)."""
+        (the all-gather, across processes too)."""
         model = self.model
         grads, state, loss = self._reduced_grads(ds, rng)
         by_id = model._normalize_gradients(self._by_id(grads))
+        ctx = self._diag_begin(self._rs_upd_trees())
         with torch.no_grad():
             self._rs_update(it, by_id)
             model._apply_constraints()
+        dv, state = self._diag_end(ctx, loss, state, residual=False)
         model.params_changed()
         model._commit_state(state)
         self._push_params()
-        return loss, None, None
+        return loss, dv, None
 
     @torch.no_grad()
     def _rs_update(self, it, by_id):
         """The container's update groups (`_apply_updates`: fused Adam
         over a packed run, per leaf otherwise) run replica by replica on
         each sharded leaf's last-axis block with that replica's state
-        shard, and once on every replicated leaf with the full state."""
+        shard, and once on every replicated leaf with the full state;
+        then the blocks other processes updated are gathered in."""
         model, n, plan = self.model, self.n_workers, self._rs_plan()
         cd = model.dtype.compute_dtype
         for group in model._update_groups():
             updater = model.updater_of(model.layers[group[0]])
             fused = type(updater) is Adam and len(group) > 1
-            for r in range(n):
+            for j, r in enumerate(self._rid):
                 ps, gs_, states, back = [], [], [], []
                 for i in group:
                     key = model.layer_keys[i]
@@ -397,9 +587,9 @@ class ParallelTrainer:
                             tmp = p[..., sl].contiguous()
                             ps.append(tmp)
                             gs_.append(g[..., sl].contiguous())
-                            states.append(self._rs_state[r][key][name])
+                            states.append(self._rs_state[j][key][name])
                             back.append((p, sl, tmp))
-                        elif r == 0:
+                        elif j == 0:
                             ps.append(p)
                             gs_.append(g)
                             states.append(model.updater_state[key][name])
@@ -416,14 +606,62 @@ class ParallelTrainer:
                         st.update(new)
                 for p, sl, tmp in back:
                     p[..., sl].copy_(tmp)
+        self._gather_rs_params()
+
+    def _local_blocks(self):
+        """This process's replicas as (first, stop) global indices."""
+        L = len(self._rid)
+        if self._xp is not None and L * self._xp.size != self.n_workers:
+            raise NotImplementedError(
+                "the rs modes across processes need the same replica count "
+                "in every process")
+        return self._rid[0], self._rid[0] + L
+
+    @torch.no_grad()
+    def _gather_rs_params(self):
+        """Across processes, the all-gather of the rs shards: every
+        sharded leaf's blocks, this process's replicas' from here and
+        the others' from their processes."""
+        if self._xp is None:
+            return
+        plan = self._rs_plan()
+        leaves = [p for lk, lp in self._params().items()
+                  for pn, p in lp.items() if plan[lk][pn]]
+        self._gather_last_axis(leaves)
+
+    def _gather_last_axis(self, leaves):
+        """Fill each leaf's blocks of the other processes (its last axis
+        split n ways, this process holding `_local_blocks`) from theirs,
+        one all-gather a dtype."""
+        n = self.n_workers
+        lo, hi = self._local_blocks()
+        L = hi - lo
+        by_dtype = {}
+        for p in leaves:
+            by_dtype.setdefault(p.dtype, []).append(p)
+        for ps in by_dtype.values():
+            mine = torch.cat([p[..., lo * (p.shape[-1] // n):
+                                hi * (p.shape[-1] // n)].reshape(-1)
+                              for p in ps])
+            outs = self._xp.all_gather(mine)
+            for q, flat in enumerate(outs):
+                if q == self._xp.index:
+                    continue
+                off = 0
+                for p in ps:
+                    s = p.shape[-1] // n
+                    blk = p[..., q * L * s:(q + 1) * L * s]
+                    k = blk.numel()
+                    blk.copy_(flat[off:off + k].view(blk.shape))
+                    off += k
 
     def _shard_rs_state(self):
         """Replica r's state shard of every sharded leaf (its last-axis
-        block, its own tensor); replicated leaves keep the model's
-        state."""
+        block, its own tensor), for this process's replicas; replicated
+        leaves keep the model's state."""
         plan, n = self._rs_plan(), self.n_workers
         out = []
-        for r, d in enumerate(self.devices):
+        for r, d in zip(self._rid, self.devices):
             tree = {}
             for lk, lst in self.model.updater_state.items():
                 tree[lk] = {}
@@ -436,22 +674,31 @@ class ParallelTrainer:
             out.append(tree)
         self._rs_state = out
 
+    @torch.no_grad()
     def _rs_full_state(self):
         """The full per-layer updater tree (the checkpoint and model view
-        of sharded state): shards concatenated along the last axis,
-        replicated leaves as they are."""
-        plan, dev = self._rs_plan(), self.model.device
-        full = {}
+        of sharded state): shards concatenated along the last axis
+        (across processes too), replicated leaves as they are."""
+        plan, dev, n = self._rs_plan(), self.model.device, self.n_workers
+        lo, hi = self._local_blocks()
+        full, whole = {}, []
         for lk, lst in self.model.updater_state.items():
             full[lk] = {}
             for pk, slots in lst.items():
-                if plan[lk][pk]:
-                    full[lk][pk] = {s: coll.all_gather(
-                        [self._rs_state[r][lk][pk][s]
-                         for r in range(self.n_workers)], dev)
-                        for s in slots}
-                else:
+                if not plan[lk][pk]:
                     full[lk][pk] = dict(slots)
+                    continue
+                full[lk][pk] = {}
+                for s, t in slots.items():
+                    w = t.shape[-1] // n
+                    out = torch.zeros(t.shape, dtype=t.dtype, device=dev)
+                    out[..., lo * w:hi * w].copy_(coll.all_gather(
+                        [self._rs_state[j][lk][pk][s]
+                         for j in range(len(self._rid))], dev))
+                    full[lk][pk][s] = out
+                    whole.append(out)
+        if self._xp is not None:
+            self._gather_last_axis(whole)
         return full
 
     def _buckets(self, per_bucket: bool):
@@ -462,23 +709,25 @@ class ParallelTrainer:
     def _step_threshold(self, it, ds, rng, per_bucket):
         """threshold: each replica's gradients, gradient normalization and
         own updater give its update; the update plus its residual is
-        encoded per bucket, the wire tensors summed, the shared update
-        decoded and applied; τ adapts per bucket."""
+        encoded per bucket, the wire tensors summed (across processes
+        too), the shared update decoded and applied; τ adapts per
+        bucket."""
         model, cfg = self.model, self.threshold_config
         c = model.conf
         dev = model.device
         nets = self._nets()
         params = self._params()
         layers = dict(model.keyed())
+        ctx = self._diag_begin(self._upd_r)
         losses, states, deltas = [], [], []
-        for r, (x, y) in enumerate(self._replica_batches(ds)):
-            loss, g, st = self._replica_pass(nets[r], x, y,
+        for j, (r, x, y) in enumerate(self._replica_batches(ds)):
+            loss, g, st = self._replica_pass(nets[j], x, y,
                                              prng.fold_in(rng, r))
             losses.append(loss)
             states.append(st)
             g = apply_gradient_normalization(
                 g, c.gradient_normalization, c.gradient_normalization_threshold)
-            u = self._upd_r[r]
+            u = self._upd_r[j]
             d = {}
             for lk, lg in g.items():
                 updater = model.updater_of(layers[lk])
@@ -496,7 +745,8 @@ class ParallelTrainer:
                 dhat, _, new_tau, sp = gs.threshold_exchange(
                     [{lk: d[lk] for lk in members} for d in deltas],
                     [{lk: res[lk] for lk in members} for res in self._res_r],
-                    tau, cfg, device=dev)
+                    tau, cfg, device=dev, xp=self._xp,
+                    n_total=self.n_workers)
                 for lk, ld in dhat.items():
                     for pk, v in ld.items():
                         params[lk][pk].sub_(v)
@@ -508,12 +758,14 @@ class ParallelTrainer:
                 sp_weighted = sp_weighted + sp * gs.tree_elements(
                     {lk: params[lk] for lk in members})
             model._apply_constraints()
+        loss = self._loss_mean(losses)
+        dv, state = self._diag_end(ctx, loss, self._pmean_state(states))
         model.params_changed()
-        model._commit_state(self._pmean_state(states))
+        model._commit_state(state)
         self._push_params()
         sparsity = sp_weighted / torch.tensor(
             gs.tree_elements(params), dtype=torch.float32, device=dev)
-        return self._loss_mean(losses), None, sparsity
+        return loss, dv, sparsity
 
     def _step_threshold_rs(self, it, ds, rng):
         """threshold_rs: each replica's RAW gradient plus residual encoded
@@ -530,15 +782,16 @@ class ParallelTrainer:
         params = self._params()
         layers = dict(model.keyed())
         buckets = self._buckets(True)
+        ctx = self._diag_begin(self._rs_upd_trees())
         summed = {lk: {pk: None for pk in lp} for lk, lp in params.items()}
         sent = {b: [] for b, _ in buckets}
         losses, states = [], []
-        for r, (x, y) in enumerate(self._replica_batches(ds)):
-            loss, g, st = self._replica_pass(nets[r], x, y,
+        for j, (r, x, y) in enumerate(self._replica_batches(ds)):
+            loss, g, st = self._replica_pass(nets[j], x, y,
                                              prng.fold_in(rng, r))
             losses.append(loss)
             states.append(st)
-            res = self._res_r[r]
+            res = self._res_r[j]
             for bkey, members in buckets:
                 tau = self._tau[members[0]]
                 s_b = torch.zeros((), dtype=torch.float32, device=dev)
@@ -553,6 +806,8 @@ class ParallelTrainer:
                         summed[lk][pk] = e if prev is None else prev.add_(e)
                         s_b = s_b + s.to(dev)
                 sent[bkey].append(s_b)
+        sent = {b: coll.reduce_sum(v, dev) for b, v in sent.items()}
+        self._cross(_leaves(summed) + list(sent.values()))
         gn, gn_t = c.gradient_normalization, c.gradient_normalization_threshold
         with torch.no_grad():
             for bkey, members in buckets:
@@ -563,12 +818,12 @@ class ParallelTrainer:
                         scale = gs.decode_scale(tau, n, torch.float32)
                         wire = summed[lk][pk]
                         if plan[lk][pk]:
-                            for r in range(n):
+                            for j, r in enumerate(self._rid):
                                 sl = coll.shard_slice(n, r, p.shape[-1])
                                 gsh = gs.elementwise_gn(
                                     wire[..., sl].to(torch.float32) * scale,
                                     gn, gn_t)
-                                st = self._rs_state[r][lk][pk]
+                                st = self._rs_state[j][lk][pk]
                                 d, su = updater.apply(gsh, st, it)
                                 st.update(su)
                                 p[..., sl].copy_(p[..., sl] - d.to(p.dtype))
@@ -580,19 +835,22 @@ class ParallelTrainer:
                             st.update(su)
                             p.sub_(d.to(p.dtype))
                 elems = gs.tree_elements({lk: params[lk] for lk in members})
-                sp = coll.mean(sent[bkey], dev) / torch.tensor(
+                sp = self._div(sent[bkey]) / torch.tensor(
                     elems, dtype=torch.float32, device=dev)
                 new_tau = gs.adapt_threshold(tau, sp, cfg)
                 for lk in members:
                     self._tau[lk] = new_tau
                 sent[bkey] = sp * elems
+            self._gather_rs_params()
             model._apply_constraints()
+        loss = self._loss_mean(losses)
+        dv, state = self._diag_end(ctx, loss, self._pmean_state(states))
         model.params_changed()
-        model._commit_state(self._pmean_state(states))
+        model._commit_state(state)
         self._push_params()
         sparsity = sum(sent.values()) / torch.tensor(
             gs.tree_elements(params), dtype=torch.float32, device=dev)
-        return self._loss_mean(losses), None, sparsity
+        return loss, dv, sparsity
 
     # --------------------------------------------------- threshold state
     def _threshold_state(self, per_bucket: bool):
@@ -603,7 +861,7 @@ class ParallelTrainer:
         if self._resume_res is not None:
             stack, self._resume_res = self._resume_res, None
             self._res_r = [_unstack(stack, r, d)
-                           for r, d in enumerate(self.devices)]
+                           for r, d in zip(self._rid, self.devices)]
         if self._res_r is None:
             self._res_r = [gs.zeros_residual(params, d)
                            for d in self.devices]
@@ -619,22 +877,23 @@ class ParallelTrainer:
 
     def threshold_residual(self):
         """Host view of the per-replica residual ({layer: {name: [N,
-        ...]}}), or None before the first threshold step."""
+        ...]}}, every replica's, across processes too), or None before
+        the first threshold step."""
         if self._res_r is None:
             return None
-        return _stack_host(self._res_r)
+        return self._full_stack(self._res_r)
 
     def _place_upd_r(self):
-        """threshold: replica 0's updater state IS the model's; the
-        others start as copies of it (JAX replicates the model's view
-        at every fit) or from a resumed stack."""
+        """threshold: this process's first replica's updater state IS
+        the model's; the others start as copies of it (JAX replicates
+        the model's view at every fit) or from a resumed stack."""
         model = self.model
         if self._resume_upd_r is not None:
             stack, self._resume_upd_r = self._resume_upd_r, None
-            _copy_into(model.updater_state, _unstack(stack, 0,
+            _copy_into(model.updater_state, _unstack(stack, self._rid[0],
                                                      model.device))
             rest = [_unstack(stack, r, d)
-                    for r, d in enumerate(self.devices) if r]
+                    for r, d in zip(self._rid[1:], self.devices[1:])]
         else:
             rest = [_map(lambda t, d=d: t.to(d, copy=True),
                          model.updater_state)
@@ -645,8 +904,8 @@ class ParallelTrainer:
     def _avg_step(self, it, ds, rng):
         nets = self._nets()
         losses = []
-        for r, (x, y) in enumerate(self._replica_batches(ds)):
-            net = nets[r]
+        for j, (r, x, y) in enumerate(self._replica_batches(ds)):
+            net = nets[j]
             loss, grads, st = net._loss_and_grads(
                 lambda s, net=net, x=x, y=y, r=r: net._loss_fn(
                     x, y, train=True, rng=prng.fold_in(rng, r),
@@ -655,14 +914,25 @@ class ParallelTrainer:
             losses.append(loss)
         return losses
 
+    def _avg_score(self, losses) -> float:
+        """Averaging's reported score: the mean of every replica's local
+        loss (across processes too)."""
+        if self._xp is None:
+            return float(torch.stack([l.float().cpu()
+                                      for l in losses]).mean())
+        return float(self._loss_mean(losses))
+
     @torch.no_grad()
     def _average(self):
         """Every replica's params and running state (and updater state
-        when `average_updater_state`) replaced by the replica mean."""
+        when `average_updater_state`) replaced by the replica mean (this
+        process's replicas summed in replica order, then across
+        processes)."""
         nets = self._nets()
         dev = self.model.device
         whats = ["params", "net_state"] + (
             ["updater_state"] if self.average_updater_state else [])
+        groups = []
         for what in whats:
             trees = [self._tree_of(n, what) for n in nets]
 
@@ -670,13 +940,14 @@ class ParallelTrainer:
                 if isinstance(ts[0], dict):
                     for k in ts[0]:
                         walk([t[k] for t in ts])
-                    return
-                if not ts[0].is_floating_point():
-                    return
-                m = coll.mean(ts, dev)
-                for t in ts:
-                    t.copy_(m.to(t.device))
+                elif ts[0].is_floating_point():
+                    groups.append(ts)
             walk(trees)
+        sums = self._cross([coll.reduce_sum(ts, dev) for ts in groups])
+        for ts, m in zip(groups, sums):
+            self._div(m)
+            for t in ts:
+                t.copy_(m.to(t.device))
         for n in nets:
             n.params_changed()
 
@@ -684,7 +955,7 @@ class ParallelTrainer:
         """Averaging: every replica but the model from the model's trees
         (a cold start) or from resumed stacks."""
         nets = self._nets()
-        for r, net in enumerate(nets):
+        for r, net in zip(self._rid, nets):
             for what in ("params", "net_state", "updater_state"):
                 if stacks is not None and stacks.get(what):
                     _copy_into(self._tree_of(net, what),
@@ -746,6 +1017,7 @@ class ParallelTrainer:
         replicas' forwards (a ragged tail zero-padded to the axis
         multiple, the padding sliced off), into one Evaluation."""
         from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+        _require_single_process()
         iterator = as_iterator(data, labels, batch_size=batch_size)
         if hasattr(iterator, "reset"):
             iterator.reset()
@@ -855,7 +1127,7 @@ class ParallelTrainer:
         monitor.attach_master_stats(self.stats)
         listeners = ComposedListeners(model.listeners
                                       + monitor.extra_listeners())
-        rng_root = prng.key(model.conf.seed + 3)
+        rng_root = prng.key(model.conf.seed + self._rng_offset)
         n_div = self.n_workers
         batch_stats = {"trained": 0, "dropped": 0}
 
@@ -896,8 +1168,7 @@ class ParallelTrainer:
             smode, smode)
         has_thr = mode in ("threshold", "threshold_rs")
         rs = mode in gs.RS_MODES
-        if smode not in ("global", "dense"):
-            self._refuse_diagnostics(mode)
+        diag_name = "fit" if smode in ("global", "dense") else "exchange"
 
         def place():
             self._push_params()
@@ -931,7 +1202,7 @@ class ParallelTrainer:
         dense_b = gs.exchange_wire_bytes(
             params, "dense", grad_dtype=model.dtype.compute_dtype)
         last = {"loss": None, "sp": None}
-        meta = {"kind": _KIND[mode], "trainer": "parallel",
+        meta = {"kind": _KIND[mode], "trainer": self._trainer_name,
                 "n_workers": self.n_workers}
         if smode in ("dense", "threshold", "dense_rs", "threshold_rs"):
             meta["bucketed"] = True
@@ -944,10 +1215,10 @@ class ParallelTrainer:
                    "updater_state": updater_view(),
                    "trainer_meta": dict(meta)}
             if has_thr:
-                arrays = {"residual_r": _stack_host(self._res_r),
+                arrays = {"residual_r": self._full_stack(self._res_r),
                           "tau": self._tau}
                 if mode == "threshold":
-                    arrays["upd_r"] = _stack_host(self._upd_r)
+                    arrays["upd_r"] = self._full_stack(self._upd_r)
                 src["trainer_arrays"] = arrays
             return src
 
@@ -962,13 +1233,13 @@ class ParallelTrainer:
             t0 = time.perf_counter()
             loss, dv, sp = one(ds, it)
             last["loss"], last["sp"] = loss, sp
-            gs.record_exchange(mode, wire_b, dense_b, 1, trainer="parallel")
+            gs.record_exchange(mode, wire_b, dense_b, 1, trainer=self._trainer_name)
             if eager_loss:
                 model.score_value = float(loss)
                 if has_thr:
                     gs.record_threshold_stats(tau_now(), float(sp),
-                                              trainer="parallel")
-            rows = process_if_due(model, dv, "fit", it)
+                                              trainer=self._trainer_name)
+            rows = process_if_due(model, dv, diag_name, it)
             if self.stats is not None:
                 self._sync()
                 self.stats.record("sync_step", time.perf_counter() - t0,
@@ -995,12 +1266,12 @@ class ParallelTrainer:
                 sps.append(sp)
             last["loss"], last["sp"] = losses[-1], sps[-1]
             gs.record_exchange(mode, wire_b, dense_b, len(pending),
-                               trainer="parallel")
+                               trainer=self._trainer_name)
             lv = torch.stack(losses).cpu().numpy() if eager_loss else None
             if eager_loss and has_thr:
                 gs.record_threshold_stats(tau_now(), float(sps[-1]),
-                                          trainer="parallel")
-            rows = (process_if_due(model, dvs, "fit", it0, len(pending))
+                                          trainer=self._trainer_name)
+            rows = (process_if_due(model, dvs, diag_name, it0, len(pending))
                     if any(d is not None for d in dvs) else None)
             if self.stats is not None:
                 self._sync()
@@ -1031,7 +1302,7 @@ class ParallelTrainer:
             model.score_value = float(last["loss"])
         if has_thr and last["sp"] is not None:
             gs.record_threshold_stats(tau_now(), float(last["sp"]),
-                                      trainer="parallel")
+                                      trainer=self._trainer_name)
         if has_thr:
             self._thr_tau = self._tau
         if rs:
@@ -1041,7 +1312,6 @@ class ParallelTrainer:
     def _fit_averaging(self, iterator, listeners, rng_root, epochs,
                        steps_per_execution, divisible, check_trained):
         model = self.model
-        self._refuse_diagnostics("averaging")
         spe = max(1, int(steps_per_execution))
         if self.stats is not None:
             spe = 1
@@ -1071,12 +1341,14 @@ class ParallelTrainer:
                     "net_state": r0.net_state,
                     "updater_state": r0.updater_state,
                     "trainer_arrays": {
-                        "params_r": _stack_host(
+                        "params_r": self._full_stack(
                             [self._tree_of(n, "params") for n in nets]),
-                        "upd_r": _stack_host([n.updater_state for n in nets]),
-                        "state_r": _stack_host([n.net_state for n in nets])},
+                        "upd_r": self._full_stack(
+                            [n.updater_state for n in nets]),
+                        "state_r": self._full_stack(
+                            [n.net_state for n in nets])},
                     "trainer_meta": {"kind": "averaging",
-                                     "trainer": "parallel",
+                                     "trainer": self._trainer_name,
                                      "since_avg": int(cadence["since"]),
                                      "n_workers": self.n_workers}}
 
@@ -1103,8 +1375,7 @@ class ParallelTrainer:
             losses = local(ds, it)
             last["losses"] = losses
             if eager_loss:
-                model.score_value = float(torch.stack(
-                    [l.float().cpu() for l in losses]).mean())
+                model.score_value = self._avg_score(losses)
             listeners.iteration_done(
                 model, it, model.epoch_count,
                 model.score_value if eager_loss else float("nan"),
@@ -1119,13 +1390,11 @@ class ParallelTrainer:
             all_losses = []
             for j, ds in enumerate(pending):
                 losses = local(ds, it0 + j)
-                all_losses.append(torch.stack([l.float().cpu()
-                                               for l in losses]))
+                all_losses.append(losses)
             last["losses"] = losses
-            lv = torch.stack(all_losses).numpy() if eager_loss else None
             for j, d in enumerate(pending):
                 if eager_loss:
-                    model.score_value = float(lv[j].mean())
+                    model.score_value = self._avg_score(all_losses[j])
                 listeners.iteration_done(
                     model, model.iteration_count, model.epoch_count,
                     model.score_value if eager_loss else float("nan"),
@@ -1143,8 +1412,7 @@ class ParallelTrainer:
             self._average()
             cadence["since"] = 0
         if last["losses"] is not None and not eager_loss:
-            model.score_value = float(torch.stack(
-                [l.float().cpu() for l in last["losses"]]).mean())
+            model.score_value = self._avg_score(last["losses"])
         check_trained()
         nets = self._nets()
         if nets[0] is not model:

@@ -78,7 +78,11 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "monitor.slo", "monitor.xprof", "nn.conf.memory",
                 "parallel.gradient_sharing", "parallel.collectives",
                 "parallel.placement", "parallel.trainer", "parallel.stats",
-                "parallel.master", "parallel.inference"):
+                "parallel.master", "parallel.inference",
+                "parallel.multihost", "parallel.multihost_smoke",
+                "parallel.tensor", "parallel.pipeline",
+                "parallel.pipeline_container", "util.sharded_checkpoint",
+                "common.global_batch"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
     assert res["threads"][0] == res["threads"][1]
