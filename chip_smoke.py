@@ -22,6 +22,8 @@
                                           # breakdown of a diagnostics step
     python3 chip_smoke.py --serving-plane # build + phase 16 alone
     python3 chip_smoke.py --parallel      # build + phase 17 alone
+    python3 chip_smoke.py --multiprocess  # build + phase 18 alone
+    python3 chip_smoke.py --elastic       # build + phase 19 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -124,7 +126,8 @@ Phases, in order:
      tokens equal to JAX's, and one more step from JAX's Adam state
      within GOLDEN_LOSS_ATOL in loss and GOLDEN_SUM_RTOL in each leaf's
      sum and sum of squares;
-  8. serving features on phase 3's LM and params (8 slots, block_len
+  8. serving features on phase 3's LM at half depth (`LM_CUT`), its
+     params seeded (8 slots, block_len
      16), each arm beside its vanilla fp32 run in the same call for
      tok/s, greedy streams held by margin (`zoo.transformer.
      stream_agreement`: equal, or first apart at a near-tie of the
@@ -149,7 +152,8 @@ Phases, in order:
      distinct suffixes, registered (streams against private ones, blocks
      saved, forks) and through the radix cache (hits, evictions);
   9. regularized training, each arm beside its twin: (a) phase 3's LM
-     with `Dropout(0.9)` on the blocks, l2 1e-4 and elementwise gradient
+     at half depth (`LM_CUT`; (b) and (d) too) with `Dropout(0.9)` on
+     the blocks, l2 1e-4 and elementwise gradient
      clipping at 1.0, fp32 and `mixed_bf16`: 3 steps at [8, 511] card
      against CPU from the same params and threefry keys (phase 5's
      gates), then 20 timed steps at [16, 511] beside the undropped twin;
@@ -159,8 +163,8 @@ Phases, in order:
      on its input, `DropConnect(0.95)` and attention dropout 0.9 on the
      blocks): 3 steps at [2, 511] card against CPU; no packed run, so no
      fused-Adam launch, and no flash launch (the masked softmax carries
-     the attention dropout); (c) the long-context LM (at 4 of its 8
-     layers, full width: `LM_LONG_CUT`) under `mixed_bf16`:
+     the attention dropout); (c) the long-context LM (at 2 of its 8
+     layers, full width: `LM_LONG_QUARTER`) under `mixed_bf16`:
      `Dropout(0.9)`, 10 timed steps beside the undropped twin; ring and
      Ulysses (4-way mesh on the card) against local mixed over 3 steps
      (step 0 within 1e-2, every step within 5% of the initial loss) and
@@ -271,8 +275,8 @@ Phases, in order:
      largest), masks included, and a FrozenLayer conv and BatchNorm
      bit-equal after 3 `fit` steps. It prints `[layers_rest]` lines;
  14. the training runtime (`phase_runtime`, fp32 with TF32 off unless an
-     arm is mixed_bf16): (a) the long-context LM (phase 6's config at 4
-     of its 8 layers, full width: `LM_LONG_CUT`) at [8, 2048],
+     arm is mixed_bf16): (a) the long-context LM (phase 6's config at 2
+     of its 8 layers, full width: `LM_LONG_QUARTER`) at [8, 2048],
      Adam(LONG_LR), on 32 seeded windows shuffled by one
      stream over 4 epochs (16 steps), in fp32 and mixed_bf16: one step's
      gradients twice from one state, equal (else the leaves are named);
@@ -308,8 +312,8 @@ Phases, in order:
      `[runtime]` lines;
  15. training telemetry and the rest of the data plane
      (`phase_telemetry`, fp32 with TF32 off and mixed_bf16): (a) the
-     long-context LM at [8, 2047] (phase 14's config: 4 layers since PR
-     18, Adam(LONG_LR)), 6
+     long-context LM at [8, 2047] (phase 14's config: 2 layers since
+     phase 19 joined the script, Adam(LONG_LR)), 6
      steps with diagnostics off and 6 under the `skip` watchdog with
      activation statistics at report_frequency 1: params and Adam's m
      and v bit-equal; the card's `_last_diagnostics` keys those of the
@@ -339,7 +343,8 @@ Phases, in order:
      check of a conv net at the checker's default device, the card, and
      on the CPU. It prints `[telemetry]` lines;
  16. the serving request plane (`phase_serving_plane`) on phase 3's LM
-     config at full width (seeded params, head x4), 8 slots, block_len
+     config at full width and half depth (`LM_CUT`) (seeded params,
+     head x4), 8 slots, block_len
      16: (a) a burst of 12 greedy and 4 sampled requests (prompts 16-64,
      32 tokens) run by the scheduler's loop body in this thread, once
      with monitoring off and once on: the streams token for token, the
@@ -364,11 +369,12 @@ Phases, in order:
      the same way: the median host ms of a decode dispatch's scheduler
      iteration, off and on. It prints `[serving_plane]` lines;
  17. data-parallel training (`phase_parallel`, fp32 with TF32 off unless
-     an arm is mixed_bf16) of the long-context LM (phase 6's config,
-     Adam(LONG_LR)) at the global batch [8, 2048] on a 4-way data axis
-     that repeats the card (`make_mesh(MeshSpec.of(data=4),
-     devices=[card] * 4)`: one [2, 2048] shard a replica, run one after
-     the other, so no speed-up is claimed): (a) `ParallelTrainer` sync
+     an arm is mixed_bf16) of the long-context LM (phase 6's config at
+     `LM_LONG_QUARTER`'s depth, Adam(LONG_LR)) at the global batch [8, 2048]
+     on a 4-way data axis that repeats the card
+     (`make_mesh(MeshSpec.of(data=4), devices=[card] * 4)`: one
+     [2, 2048] shard a replica, run one after the other, so no speed-up
+     is claimed): (a) `ParallelTrainer` sync
      dense, bucketed and single-barrier, 3 steps against the single
      card's `fit` of the same batches (step 0's loss within 1e-5
      relative, every param within twice Adam's step bound), and the
@@ -425,10 +431,46 @@ Phases, in order:
      diagnostics off. Each part's launches are counted apart, the
      references outside every part, and each part must launch its
      kernels (`MP_KERNELS`). It prints `[multiprocess]` lines;
+ 19. elastic training (`phase_elastic`, `--elastic`, fp32 with TF32 off,
+     Adam(LONG_LR)) of the long-context LM at `LM_LONG_CUT`'s depth,
+     global batch [8, 2048], 10 steps: (a) the survive-the-kill drill
+     (`parallel/elastic_smoke.py`): a coordinator here and 2 worker
+     processes over gloo on the one card (NCCL, one process per card,
+     where there are two or more), one replica each, threshold mode;
+     rank 1 SIGKILLs itself after step 3, the survivor gets the broken
+     world back through `on_fatal="raise"`, tears it down (bounded),
+     waits for the coordinator's next generation and re-forms alone in
+     its own process from the step-2 checkpoint; the
+     killed worker is relaunched once the
+     survivor passes step 5, the shrunk world drains at step 6 and grows
+     back to 2 until step 10. Held against two runs made here, outside
+     every part: the scheduled run (`elastic_smoke.scheduled_reference`:
+     the same schedule in this process, an `ElasticTrainer` over 2 -> 1
+     -> 2 replicas of the card with a scripted membership and the same
+     checkpoints), every worker's every step within 1e-4 of its loss
+     in the same generation and the final params within
+     PARAM_MOTION_RTOL of its motion; the uninterrupted 2-replica run,
+     every step within JAX's drift band (0.25 x the initial loss). And:
+     3 generations of widths 2, 1, 2, the residual restored at each
+     resume, no step lost beyond the last checkpoint, the final params
+     equal across workers; it prints the recovery split of the shrink
+     and the regrow (detection, settle, re-init, resume), ms/step a
+     generation, the drain check's host ms a step and the checkpoint's
+     write and resume seconds; (b) an `ElasticTrainer` with its runtime
+     seams stubbed over [card] x 4 -> x 2 -> x 4 (one join, one leave,
+     scripted steps), dense sync, held to an uninterrupted 4-replica fit
+     at TRAIN_LOSS_RTOL step by step and at PARAM_MOTION_RTOL of its
+     motion; (c) during (a) the coordinator's status runs through
+     `ingest_elastic_status` into a `MetricsAggregator` and an
+     `AlertEngine` with `default_rule_pack(elastic_min_processes=2)`:
+     elastic-shrink fires and resolves, the killed worker's federated
+     series go stale and return, and `elastic_drains_total` and
+     `elastic_resume_total` read as the runs did. Each part must launch
+     its kernels (`ELASTIC_KERNELS`). It prints `[elastic]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 18, each > 0; the counts of each phase, and of each part of phase
-18, on a `[launches]` line), the
-card's name and power limit, and last
+to 19, each > 0; the counts of each phase, and of each part of phases
+18 and 19, on a `[launches]` line), each phase's seconds on a
+`[phases]` line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
 TF32 off for matmuls and convolutions (PyTorch lets cuDNN run fp32
@@ -533,10 +575,19 @@ LM = dict(vocab=512, d_model=256, n_layers=4, n_heads=8, ff=4, max_len=512)
 LM_LONG = dict(vocab=512, d_model=512, n_layers=8, n_heads=8, ff=4,
                max_len=2048)
 SEQ_P = 4
-# the long-context LM at half depth, full width: phases 9 (c), 14 and 15
-# run it since phase 18 joined the script, to keep the whole run under
-# 600 s (phases 6, 17 and 18 keep all 8 layers)
+# the long-context LM at half depth, full width: phase 19 runs it, and
+# phase 18 since phase 19 joined the script (phase 6 keeps all 8
+# layers); phases 9 (c), 14, 15 and 17, whose CPU twins and references
+# carry host time, run it at a quarter (2 layers; 4 before phase 19 and
+# its scheduled reference joined the script), to keep the whole run
+# under 600 s
 LM_LONG_CUT = dict(LM_LONG, n_layers=4)
+LM_LONG_QUARTER = dict(LM_LONG, n_layers=2)
+# the smoke LM at half depth, full width: phases 8, 9 (a, b, d) and 16,
+# whose CPU twins and host-bound serving loops take the most host time,
+# run it since phase 19 joined the script (phases 3-5 and 7 keep its 4
+# layers)
+LM_CUT = dict(LM, n_layers=2)
 # Adam's rate for the long-context training: at the zoo's 1e-3 this LM
 # (pre-LN blocks, no final LayerNorm) diverges in its first 10 steps, on
 # the ring and locally alike (measured 12.24 -> 36.70 at [8, 2048] on an
@@ -2924,10 +2975,11 @@ def phase_regularized(device, report, fails, small=False):
     (a)-(d) (each beside its twin in this call). Returns the launch
     counts of the arms' card runs."""
     on_card = device.type == "cuda"
-    cfg = dict(LM, n_layers=2, max_len=64) if small else LM
+    cfg = dict(LM, n_layers=2, max_len=64) if small else LM_CUT
     long_cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
-                if small else LM_LONG_CUT)
-    cls_cfg = dict(CLS, n_layers=2, max_len=64, vocab=64) if small else CLS
+                if small else LM_LONG_QUARTER)
+    cls_cfg = (dict(CLS, n_layers=2, max_len=64, vocab=64) if small
+               else dict(CLS, n_layers=LM_CUT["n_layers"]))
     out, total = {}, {}
 
     def add(launches):
@@ -5889,7 +5941,7 @@ def phase_runtime(device, report, fails, small=False):
     from deeplearning4j_tpu_torch import kernels as K
     c = RUNTIME_SMALL if small else RUNTIME
     cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
-           if small else LM_LONG_CUT)
+           if small else LM_LONG_QUARTER)
     bc = BEAM_SMALL if small else BEAM
     beam_cfg = dict(LM, n_layers=2, max_len=128) if small else LM
     out = dict(config=dict(cfg, B=c["B"], T=cfg["max_len"] - 1,
@@ -6503,7 +6555,7 @@ def phase_telemetry(device, report, fails, small=False):
     from deeplearning4j_tpu_torch.monitor.tracer import Tracer
     c = TELEMETRY_SMALL if small else TELEMETRY
     cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2, max_len=64)
-           if small else LM_LONG_CUT)
+           if small else LM_LONG_QUARTER)
     out = dict(config=dict(cfg, B=c["B"], T=cfg["max_len"] - 1,
                            lr=LONG_LR, steps=c["steps"]))
     t0 = time.perf_counter()
@@ -7635,7 +7687,7 @@ def phase_serving_plane(device, report, fails, small=False):
     kernel launches."""
     from deeplearning4j_tpu_torch import kernels as K
     c = SERVING_PLANE_SMALL if small else SERVING_PLANE
-    cfg = c["cfg"] or LM
+    cfg = c["cfg"] or LM_CUT
     t0 = time.perf_counter()
     params = random_lm_params(cfg, seed=1616, head_scale=4.0)
     net = build_lm(cfg, device, params)
@@ -8143,7 +8195,7 @@ def phase_parallel(device, report, fails, small=False):
         CollectScoresListener)
     from deeplearning4j_tpu_torch.parallel import ParallelTrainer
     c = PARALLEL_SMALL if small else PARALLEL
-    cfg = c["cfg"] or LM_LONG
+    cfg = c["cfg"] or LM_LONG_QUARTER
     B, n, k = c["B"], c["steps"], c["timed"]
     t_start = time.perf_counter()
     params = random_lm_params(cfg, seed=1717, head_scale=1.0)
@@ -8485,7 +8537,7 @@ def _sharded_fit(tr, dev, fit):
 
 
 def _mp_setup(c):
-    cfg = c["cfg"] or LM_LONG
+    cfg = c["cfg"] or LM_LONG_CUT
     params = random_lm_params(cfg, seed=MP_PARAMS_SEED, head_scale=1.0)
     X, Y = lm_corpus(cfg, c["B"] * (c["steps"] + 1), seed=MP_DATA_SEED,
                      T=cfg["max_len"])
@@ -9066,6 +9118,320 @@ def _print_multiprocess(out):
           f"launches by part {out['launches_by_part']}", flush=True)
 
 
+# ------------------------------------------------------------ phase 19
+# phase 19's LM, steps and (b)'s scripted join and leave; the drill's
+# scenario and control-plane timings are `parallel/elastic_smoke.py`'s
+ELASTIC = dict(cfg=None, B=8, batches=10, join_at=3, leave_at=6)
+# the CPU rehearsal's victim registers again within a few seconds, so
+# the shrunk world lasts less than the default pack's 5 s hysteresis:
+# the rehearsal's elastic-shrink rule fires after 1 s
+ELASTIC_SMALL = dict(ELASTIC, cfg=dict(LM_LONG, vocab=64, d_model=64,
+                                       n_layers=2, max_len=64),
+                     for_s=1.0)
+# the kernels each part of phase 19 launches on the card: (a)'s workers
+# train in threshold mode, whose replicas apply Adam per leaf (phase 17),
+# (b) in dense sync, through fused Adam
+ELASTIC_KERNELS = {"a": tuple(k for k in PARALLEL_KERNELS
+                              if k != "fused_adam"),
+                   "b": PARALLEL_KERNELS}
+ELASTIC_PARAMS_SEED, ELASTIC_DATA_SEED = 1919, 19
+
+
+def _elastic_cfg(small):
+    return (ELASTIC_SMALL if small else ELASTIC)["cfg"] or LM_LONG_CUT
+
+
+def elastic_lm(device, small=False):
+    """Phase 19's LM (the long-context config at `LM_LONG_CUT`'s depth,
+    seeded params, Adam(LONG_LR)), built on `device`: the model builder
+    the elastic drill's workers import."""
+    cfg = _elastic_cfg(small)
+    return build_lm(cfg, device, random_lm_params(
+        cfg, seed=ELASTIC_PARAMS_SEED, head_scale=1.0), lr=LONG_LR)
+
+
+def elastic_data(small=False):
+    """Phase 19's windows: `batches` global batches of [B, max_len]."""
+    c = ELASTIC_SMALL if small else ELASTIC
+    cfg = _elastic_cfg(small)
+    return lm_corpus(cfg, c["B"] * c["batches"], seed=ELASTIC_DATA_SEED,
+                     T=cfg["max_len"])
+
+
+def _elastic_spec(device, small):
+    c = ELASTIC_SMALL if small else ELASTIC
+    spec = dict(
+        device=device.type, model="chip_smoke:elastic_lm",
+        model_kwargs=dict(small=small), data="chip_smoke:elastic_data",
+        data_kwargs=dict(small=small), batch=c["B"],
+        trainer_kwargs=dict(threshold_config=dict(initial_threshold=LONG_LR)),
+        pythonpath=HERE)
+    if "for_s" in c:
+        spec["for_s"] = c["for_s"]
+    return spec
+
+
+def _elastic_inprocess(device, fails, c, small, rec, ckpt_dir):
+    """(b): an ElasticTrainer whose runtime seams are stubbed, its mesh
+    following the plan ([card] * 4 alone, [card] * 2 with a second
+    member), over one join and one leave (a listener waits at the scripted
+    steps until the trainer's client sees the new generation), dense sync;
+    held step by step to an uninterrupted 4-replica fit."""
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.datasets import ArrayDataSetIterator
+    from deeplearning4j_tpu_torch.optimize.listeners import (
+        CollectScoresListener, TrainingListener)
+    from deeplearning4j_tpu_torch.parallel import elastic as el
+    from deeplearning4j_tpu_torch.parallel import MeshSpec, ParallelTrainer
+    from deeplearning4j_tpu_torch.parallel import make_mesh
+
+    X, Y = elastic_data(small)
+
+    def make_iter():
+        return ArrayDataSetIterator(X, Y, batch_size=c["B"], shuffle=True,
+                                    seed=11)
+
+    ref = elastic_lm(device, small)
+    init = _host_table(ref)
+    scores = CollectScoresListener()
+    ref.set_listeners(scores)
+    t0 = time.perf_counter()
+    ParallelTrainer(ref, _par_mesh(device)).fit(make_iter(), epochs=1,
+                                                batch_size=c["B"])
+    _sync(device)
+    ref_s = time.perf_counter() - t0
+    l_ref = [v for _, v in scores.scores]
+    want = _host_table(ref)
+    del ref
+
+    class InProcess(el.ElasticTrainer):
+        def _init_runtime(self, plan):
+            pass
+
+        def _teardown_runtime(self):
+            pass
+
+        def _mesh(self, plan):
+            n = PAR_N if plan["num_processes"] == 1 else PAR_N // 2
+            return make_mesh(MeshSpec.of(data=n), devices=[device] * n)
+
+    reg = monitor.enable(monitor.MetricsRegistry(), jit_compile=False,
+                         device_memory=False)
+    co = el.ElasticCoordinator(settle_s=0.05, grace_s=60.0, tick_s=0.01,
+                               min_members=1).start()
+    losses, stamps = {}, []
+    try:
+        et = InProcess(lambda: elastic_lm(device, small), config=el.
+                       ElasticConfig(control_address=co.address, token="w0",
+                                     heartbeat_interval_s=0.02),
+                       ckpt_dir=ckpt_dir, ckpt_frequency=10 ** 6,
+                       keep_last=2)
+        fake = el.ElasticClient(co.address, "zz-joiner",
+                                heartbeat_interval_s=0.02)
+
+        class Script(TrainingListener):
+            def iteration_done(self, model, iteration, epoch, score, **kw):
+                losses[iteration] = float(score)
+                stamps.append(time.perf_counter())
+                step, gen = iteration + 1, et.client.generation()
+                if step == c["join_at"]:
+                    fake.register()
+                    fake.start_heartbeats()
+                elif step == c["leave_at"]:
+                    fake.stop()
+                    fake.leave("shrink")
+                else:
+                    return
+                deadline = time.time() + 60
+                while et.client.generation() == gen:
+                    if time.time() > deadline:
+                        raise RuntimeError(f"no generation after step "
+                                           f"{step}")
+                    time.sleep(0.005)
+
+        rec.start("b")
+        t0 = time.perf_counter()
+        model = et.fit(make_iter, epochs=1, batch_size=c["B"],
+                       extra_listeners=lambda gen: [Script()])
+        _sync(device)
+        run_s = time.perf_counter() - t0
+        rec.stop()
+        snap = reg.snapshot()
+    finally:
+        co.stop()
+        monitor.disable()
+    got = [losses.get(i) for i in range(len(l_ref))]
+    rel = max(abs(a - b) / abs(b) if a is not None else float("inf")
+              for a, b in zip(got, l_ref))
+    (motion, at), bk = param_motion_diff(_host_table(model), want, init)
+    hist = et.history
+    fails.check(rel <= TRAIN_LOSS_RTOL,
+                f"elastic (b): losses {got} vs the uninterrupted fit's "
+                f"{l_ref} (rel {rel:.3g})")
+    fails.check(motion <= PARAM_MOTION_RTOL,
+                f"elastic (b): params {motion:.3g} of the uninterrupted "
+                f"fit's motion at {at} (tol {PARAM_MOTION_RTOL})")
+    fails.check([h["n_workers"] for h in hist] == [PAR_N, PAR_N // 2, PAR_N]
+                and [h["step"] for h in hist]
+                == [0, c["join_at"], c["leave_at"]]
+                and all(h["resumed"] for h in hist[1:]),
+                f"elastic (b): generations {hist}")
+
+    def value(name):
+        vals = snap.get(name, {}).get("values", [])
+        return vals[0]["value"] if vals else None
+    read = dict(elastic_generation=value("elastic_generation"),
+                elastic_drains_total=value("elastic_drains_total"),
+                elastic_resume_total=value("elastic_resume_total"))
+    fails.check(read == dict(elastic_generation=float(hist[-1]["generation"]),
+                             elastic_drains_total=2.0,
+                             elastic_resume_total=2.0),
+                f"elastic (b): the registry reads {read}, the run drained "
+                f"twice and resumed twice into generation "
+                f"{hist[-1]['generation']}")
+    gaps = np.diff(stamps) * 1e3
+    return dict(losses=got, reference=l_ref, loss_rel=rel,
+                param_motion=motion, attn_bk_max_abs=bk, history=hist,
+                metrics=read, reference_s=ref_s, run_s=run_s,
+                ms_per_step_median=float(np.median(gaps)) if len(gaps) else
+                None)
+
+
+def phase_elastic(device, report, fails, small=False):
+    """Phase 19 on `device` (see the module docstring, 19 (a)-(c)): the
+    elastic runtime on the long-context LM. `small` (the CPU rehearsal)
+    shrinks the LM. Returns the phase's kernel launches, the sum of its
+    parts' ((a)'s workers' included); each part's are in the report's
+    `launches_by_part`."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.parallel import elastic_smoke
+    c = ELASTIC_SMALL if small else ELASTIC
+    t_start = time.perf_counter()
+    cfg = _elastic_cfg(small)
+    spec = _elastic_spec(device, small)
+    es = elastic_smoke
+    out = dict(config=dict(cfg, global_batch=[c["B"], cfg["max_len"]],
+                           steps=c["batches"], processes=es.N_WORKERS,
+                           lr=LONG_LR, backend="gloo" if device.type == "cpu"
+                           or _cuda_count() < 2 else "nccl",
+                           kill_at=es.KILL_AT, grow_after=es.GROW_AFTER,
+                           grace_s=es.GRACE_S, settle_s=es.SETTLE_S))
+    rec, parts = _PartLaunches(), {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="elastic_", dir=OUT_DIR)
+    try:
+        # ---- (a) and (c): the drill; its references outside every part
+        t0 = time.perf_counter()
+        refs = elastic_smoke.references(dict(elastic_smoke.DEFAULTS, **spec),
+                                        os.path.join(d, "refs"))
+        parts["a_reference"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        try:
+            a = elastic_smoke.run_drill(work_dir=os.path.join(d, "drill"),
+                                        refs=refs, **spec)
+        except elastic_smoke.DrillFailed as e:
+            fails.append(f"elastic (a): {str(e)[:3000]}")
+            a = e.report
+        except RuntimeError as e:
+            fails.append(f"elastic (a): {str(e)[:3000]}")
+            a = None
+        parts["a"] = time.perf_counter() - t0
+        if a is not None:
+            rec.add("a", a.pop("launches"))
+            out["a"] = a
+        # ---- (b): drain, join and leave in dense sync, in this process
+        t0 = time.perf_counter()
+        out["b"] = _elastic_inprocess(device, fails, c, small, rec,
+                                      os.path.join(d, "inproc"))
+        parts["b"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    launches = {k: sum(p.get(k, 0) for p in rec.by_part.values())
+                for k in KERNEL_META}
+    if device.type == "cuda":
+        for part, kernels in ELASTIC_KERNELS.items():
+            _launched(fails, f"elastic part {part}", rec.by_part.get(part, {}),
+                      kernels)
+    out["part_seconds"] = parts
+    out["launches_by_part"] = rec.by_part
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["seconds"] = time.perf_counter() - t_start
+    report["elastic"] = out
+    _print_elastic(out)
+    return launches
+
+
+def _cuda_count():
+    import torch
+    return torch.cuda.device_count()
+
+
+def _fmt_s(x):
+    return "n/a" if x is None else f"{x:.2f}"
+
+
+def _print_elastic_steps(tl):
+    by_gen = tl["ms_per_step"].items()
+    print(f"[elastic] (a) ms/step by generation "
+          f"{ {g: _fmt_s(v['ms_per_step']) for g, v in by_gen} }"
+          f", first step s "
+          f"{ {g: _fmt_s(v['first_step_s']) for g, v in by_gen} }"
+          f"; drain check {tl['drain_check_host_ms']:.3f} host ms a "
+          f"step; {tl['ckpt_writes']} checkpoint writes of "
+          f"{_fmt_s(tl['ckpt_mb'])} MB, {_fmt_s(tl['ckpt_write_s'])} s "
+          f"each; resume s {[round(x, 3) for x in tl['resume_s']]}",
+          flush=True)
+
+
+def _print_elastic(out):
+    a = out.get("a")
+    if a is not None:
+        print(f"[elastic] (a) {a['n_workers']} workers, generations "
+              f"{a['generations']} of widths {a['widths']}; against the "
+              f"scheduled run: losses rel {a['schedule_loss_rel']:.3g}, "
+              f"params {a['param_motion']:.3g} of its motion (at "
+              f"{a['param_motion_at']}); against the uninterrupted run: "
+              f"loss drift {a['max_loss_drift']:.4g} (band "
+              f"{0.25 * a['initial_loss']:.4g}; the scheduled run's own "
+              f"{a['schedule_drift']:.4g}), final params off by "
+              f"{a['final_param_diff']:.3g}; steps lost "
+              f"{a['steps_lost']}", flush=True)
+        tl = a["timeline"]
+        for what in ("shrink", "regrow"):
+            t = tl.get(what)
+            if t is None:
+                continue
+            rs = t["resume_split"]
+            print(f"[elastic] (a) {what}: {t['total_s']:.2f} s to the "
+                  f"survivor's first step (detection "
+                  f"{t['detection_s']:.2f}, settle {t['settle_s']:.2f}, "
+                  f"re-init {t['reinit_s']:.2f}, resume "
+                  f"{t['resume_s']:.2f}: build {rs['build_s']:.2f}, "
+                  f"restore {rs['restore_s']:.2f}, first step "
+                  f"{rs['first_step_s']:.2f})", flush=True)
+        if tl:
+            _print_elastic_steps(tl)
+        t = a["telemetry"]
+        print(f"[elastic] (c) elastic-shrink {t['elastic_shrink']}, "
+              f"worker-vanished {t['worker_vanished']}, w1 export age max "
+              f"{t['export_age_max_s'].get('w1', 0):.1f} s, drains "
+              f"{t['elastic_drains_total']}, resumes "
+              f"{t['elastic_resume_total']}, reconfigurations "
+              f"{t['elastic_reconfigurations_total']}", flush=True)
+    b = out["b"]
+    print(f"[elastic] (b) dense sync over a join and a leave: loss rel "
+          f"{b['loss_rel']:.3g}, params {b['param_motion']:.3g} of the "
+          f"uninterrupted fit's motion, widths "
+          f"{[h['n_workers'] for h in b['history']]}, metrics "
+          f"{b['metrics']}, median {_fmt_s(b['ms_per_step_median'])} ms "
+          f"between steps", flush=True)
+    print(f"[elastic] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 1) for k, v in out['part_seconds'].items()} }), "
+          f"launches by part {out['launches_by_part']}", flush=True)
+
+
 KERNEL_META = {
     "layer_norm": ("deeplearning4j_tpu_torch/kernels/csrc/layernorm.cu",
                    "deeplearning4j_tpu/kernels/layernorm.py:55"),
@@ -9107,14 +9473,18 @@ def run(device, *, small=False, kernels_only=False):
     import torch
     report, fails = {"device": str(device)}, Failures()
     timings, launches = {}, {k: 0 for k in KERNEL_META}
+    seconds = report["phase_seconds"] = {}
 
     def phase(name, fn, *a):
+        t0 = time.perf_counter()
         try:
             return fn(*a)
         except Exception:  # noqa: BLE001 — record, fail the run, go on
             traceback.print_exc()
             fails.append(f"phase {name} raised")
             return None
+        finally:
+            seconds[name] = round(time.perf_counter() - t0, 2)
 
     if device.type == "cuda":
         phase("build", phase_build, report, fails)
@@ -9149,7 +9519,7 @@ def run(device, *, small=False, kernels_only=False):
         for k in launches:
             launches[k] += (l7 or {}).get(k, 0)
         l8 = phase("serving_features", phase_serving_features, device,
-                   report, fails, cfg, small)
+                   report, fails, cfg if small else LM_CUT, small)
         for k in launches:
             launches[k] += (l8 or {}).get(k, 0)
         l9 = phase("regularized", phase_regularized, device, report, fails,
@@ -9188,16 +9558,22 @@ def run(device, *, small=False, kernels_only=False):
                     fails, small)
         for k in launches:
             launches[k] += (l18 or {}).get(k, 0)
+        l19 = phase("elastic", phase_elastic, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l19 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
                          ("11", l11), ("12", l12), ("13", l13),
                          ("14", l14), ("15", l15), ("16", l16),
-                         ("17", l17), ("18", l18)) if l}
+                         ("17", l17), ("18", l18), ("19", l19)) if l}
         for part, counts in report.get("multiprocess", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"18 {part}"] = counts
+        for part, counts in report.get("elastic", {}).get(
+                "launches_by_part", {}).items():
+            report["launches_by_phase"][f"19 ({part})"] = counts
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -9293,6 +9669,11 @@ def main(argv):
         phase_build(report, fails)
         phase_multiprocess(device, report, fails)
         report["kernels"] = []
+    elif "--elastic" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_elastic(device, report, fails)
+        report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -9305,6 +9686,9 @@ def main(argv):
         json.dump(report, f, indent=1, default=str)
     print(json.dumps({"checks": report.get("kernel_checks", [])}))
     print(json.dumps({"kernels": report["kernels"]}))
+    if report.get("phase_seconds"):
+        print(f"[phases] seconds {json.dumps(report['phase_seconds'])}, "
+              f"total {report['seconds']:.1f}")
     print(report["nvidia_smi"])
     if fails:
         print(f"chip_smoke: {len(fails)} check(s) failed: {list(fails)}",

@@ -24,6 +24,8 @@ from deeplearning4j_tpu_torch.fault.drill import (
 )
 from deeplearning4j_tpu_torch.fault.errors import (
     CheckpointCorruptError,
+    ElasticMembershipError,
+    ElasticReconfiguration,
     SimulatedPreemption,
 )
 from deeplearning4j_tpu_torch.fault.listener import CheckpointListener
@@ -38,6 +40,7 @@ from deeplearning4j_tpu_torch.fault.state import (
 
 __all__ = [
     "AsyncCheckpointer", "CheckpointListener", "CheckpointCorruptError",
+    "ElasticMembershipError", "ElasticReconfiguration",
     "SimulatedPreemption", "PreemptionListener", "capture_training_state",
     "restore_training_state", "restore_normalizer", "resume",
     "load_latest_valid", "list_checkpoints", "load_checkpoint",

@@ -1,7 +1,7 @@
 """Fault-runtime exception types (counterpart of
-`deeplearning4j_tpu/fault/errors.py`): the checkpoint error and the
-drill's preemption signal. The elastic signals belong to
-`parallel/elastic.py`, which is not ported."""
+`deeplearning4j_tpu/fault/errors.py`): the checkpoint error, the elastic
+runtime's two signals (`parallel/elastic.py`) and the drill's preemption
+signal. Dependency-free, so every layer can raise and catch them."""
 
 from __future__ import annotations
 
@@ -11,6 +11,29 @@ class CheckpointCorruptError(RuntimeError):
     truncated container, corrupt deflate stream). Raised instead of the
     raw numpy/zip traceback so callers can fall back to an earlier
     checkpoint."""
+
+
+class ElasticMembershipError(RuntimeError):
+    """The elastic membership control plane is unreachable or rejected
+    a request after bounded retries (`parallel/elastic.py`). Distinct
+    from training failures, so a caller decides whether to keep training
+    on the last known topology or abort."""
+
+
+class ElasticReconfiguration(Exception):
+    """Control flow of the elastic runtime, not an error: the membership
+    generation changed and every process agreed (the in-band drain
+    check) to leave the fit at the same step boundary, after a drain
+    checkpoint committed. Raised by the drain listener inside `fit`;
+    `ElasticTrainer` catches it, tears the process group down and
+    re-forms the mesh for the new generation."""
+
+    def __init__(self, generation: int, step: int = -1):
+        super().__init__(
+            f"elastic reconfiguration to generation {generation} "
+            f"(drained at step {step})")
+        self.generation = generation
+        self.step = step
 
 
 class SimulatedPreemption(BaseException):

@@ -22,7 +22,9 @@ on, it adds host-side float math and no device synchronize.
 The serving side: `reqtrace` (per-request traces), `goodput` (the
 token-position ledger), `slo` (objectives and burn rate) and `xprof`
 (the roofline at the H100's peaks, cost reports, `torch.profiler`
-capture). `alerts` and `federate` come with the fleet planes.
+capture). The fleet side: `federate` (worker snapshots merged into one
+exposition, the publisher and collector, the elastic heartbeat hook)
+and `alerts` (the rule engine and its default pack).
 """
 
 from __future__ import annotations
@@ -31,12 +33,19 @@ import threading
 from typing import List, Optional
 
 from deeplearning4j_tpu_torch.monitor import (
+    alerts,
     diagnostics,
+    federate,
     flightrec,
     goodput,
     reqtrace,
     slo,
     xprof,
+)
+from deeplearning4j_tpu_torch.monitor.alerts import (
+    AlertEngine,
+    AlertRule,
+    default_rule_pack,
 )
 from deeplearning4j_tpu_torch.monitor.collectors import (
     DeviceMemoryCollector,
@@ -48,6 +57,12 @@ from deeplearning4j_tpu_torch.monitor.diagnostics import (
     DiagnosticsConfig,
     NonFiniteGradientsError,
     resolve_diagnostics,
+)
+from deeplearning4j_tpu_torch.monitor.federate import (
+    FederationCollector,
+    FederationPublisher,
+    MetricsAggregator,
+    export_snapshot,
 )
 from deeplearning4j_tpu_torch.monitor.flightrec import (
     GLOBAL_FLIGHT_RECORDER,
@@ -105,7 +120,9 @@ __all__ = [
     "publish_cost_report", "reqtrace", "RequestTrace", "mint_trace_id",
     "set_exemplar_sink", "clear_exemplar_sink", "slo", "SLOObjective",
     "SLOTracker", "goodput", "GoodputLedger", "GOODPUT_CLASSES",
-    "ttft_decomposition",
+    "ttft_decomposition", "federate", "MetricsAggregator",
+    "FederationPublisher", "FederationCollector", "export_snapshot",
+    "alerts", "AlertEngine", "AlertRule", "default_rule_pack",
 ]
 
 

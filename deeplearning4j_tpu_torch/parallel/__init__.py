@@ -7,10 +7,11 @@ sequence parallelism (the ambient `sequence_sharding` context, ring
 attention on the carry-mode CUDA kernel, Ulysses all-to-all
 attention), tensor / FSDP / expert sharding (`ShardedParallelTrainer`
 and the spec functions), GPipe pipeline parallelism
-(`PipelineParallelTrainer`), and several processes over
+(`PipelineParallelTrainer`), several processes over
 `torch.distributed` (`initialize_multihost`: meshes span the processes'
-devices and the trainers' collectives cross them). Elastic membership
-(`parallel/elastic.py`) is not ported yet."""
+devices and the trainers' collectives cross them), and elastic
+membership (`ElasticCoordinator`, `ElasticClient`, `ElasticTrainer`,
+`elastic_fit`: a world that shrinks and grows between generations)."""
 
 from deeplearning4j_tpu_torch.parallel.context import (
     current_sequence_mesh,
@@ -50,7 +51,10 @@ _LAZY = {"ThresholdConfig": "gradient_sharing",
          "moe_param_specs": "tensor", "tp_param_specs": "tensor",
          "pipeline_apply": "pipeline", "pipeline_forward": "pipeline",
          "PipelineParallelTrainer": "pipeline_container",
-         "find_homogeneous_run": "pipeline_container"}
+         "find_homogeneous_run": "pipeline_container",
+         "ElasticConfig": "elastic", "ElasticCoordinator": "elastic",
+         "ElasticClient": "elastic", "ElasticTrainer": "elastic",
+         "elastic_fit": "elastic"}
 
 
 def __getattr__(name):
@@ -61,11 +65,14 @@ def __getattr__(name):
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
-__all__ = ["MeshSpec", "ParallelInference", "ParallelTrainer",
+__all__ = ["ElasticClient", "ElasticConfig", "ElasticCoordinator",
+           "ElasticTrainer", "MeshSpec", "ParallelInference",
+           "ParallelTrainer",
            "ParameterAveragingTrainingMaster", "PipelineParallelTrainer",
            "ShardedParallelTrainer", "SharedTrainingMaster",
            "ThresholdConfig", "TrainingMaster", "TrainingMasterStats",
-           "current_sequence_mesh", "device_mesh", "find_homogeneous_run",
+           "current_sequence_mesh", "device_mesh", "elastic_fit",
+           "find_homogeneous_run",
            "fsdp_param_specs", "initialize_multihost", "is_main_process",
            "make_mesh", "moe_param_specs", "multihost_active",
            "pipeline_apply", "pipeline_forward", "process_count",

@@ -24,8 +24,9 @@ where every entry is local), and a process drives only its own entries
 
 `device_mesh(n)` is the one-axis data-parallel mesh the parallel
 trainers default to: every CUDA device (or the first `n`), raising
-without CUDA as every entry point does; tests pass CPU devices to
-`make_mesh` explicitly.
+without CUDA as every entry point does, and under a multi-process world
+every process's devices, as JAX's spans `jax.devices()`; tests pass CPU
+devices to `make_mesh` explicitly.
 
 `shard`, `gather` and `on_device` put an array's shards on the devices
 of a mesh axis and back; ring and Ulysses attention share them.
@@ -49,9 +50,15 @@ class MeshSpec:
 
     @staticmethod
     def data_parallel(n: Optional[int] = None) -> "MeshSpec":
-        """One "data" axis over `n` devices (default: every CUDA
-        device)."""
-        return MeshSpec((("data", int(n or torch.cuda.device_count())),))
+        """One "data" axis over `n` devices (default: every device, as
+        `len(jax.devices())`: every process's under a multi-process
+        world, else every CUDA device)."""
+        if not n:
+            from deeplearning4j_tpu_torch.parallel import multihost
+            n = (len(multihost.global_devices())
+                 if multihost.multihost_active()
+                 else torch.cuda.device_count())
+        return MeshSpec((("data", int(n)),))
 
     @staticmethod
     def of(**axes: int) -> "MeshSpec":
@@ -159,10 +166,14 @@ def make_mesh(spec: MeshSpec | Dict[str, int] | None = None,
 
 
 def device_mesh(n_data: Optional[int] = None) -> Mesh:
-    """A one-axis data-parallel mesh over every CUDA device (or the first
-    `n_data`); raises without CUDA."""
-    from deeplearning4j_tpu_torch.device import resolve_device
-    resolve_device("cuda")
+    """A one-axis data-parallel mesh over every device (or the first
+    `n_data`): under a multi-process world every process's devices (the
+    ones `initialize_multihost` was given, CPU ones included), else every
+    CUDA device, raising without CUDA."""
+    from deeplearning4j_tpu_torch.parallel import multihost
+    if not multihost.multihost_active():
+        from deeplearning4j_tpu_torch.device import resolve_device
+        resolve_device("cuda")
     return make_mesh(MeshSpec.data_parallel(n_data))
 
 

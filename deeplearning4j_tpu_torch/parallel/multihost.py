@@ -23,8 +23,11 @@ retry after ``backoff_s * 2**k``, any other error raises at once, and a
 half-initialised group is torn down between attempts. The call is
 idempotent while the world is up; `shutdown_multihost` destroys the
 group, clears the latch and every cache that pins the world (the axis
-sub-groups and the global device list), so a following call may bring
-up a different world.
+sub-groups, their staging buffers and the global device list), so a
+following call may bring up a different world of another size, with
+this process at another rank (the elastic runtime, `parallel/elastic.py`,
+does so at every generation). The destroy is bounded: a group wedged by
+a dead peer cannot hang the caller (`TEARDOWN_TIMEOUT_S`).
 """
 
 from __future__ import annotations
@@ -46,6 +49,9 @@ _TRANSIENT_MARKERS = ("DEADLINE_EXCEEDED", "UNAVAILABLE", "timed out",
                       "connection attempt", "Socket closed",
                       "Address already in use", "Connection reset",
                       "DistNetworkError")
+
+# how long `shutdown_multihost` waits for `destroy_process_group`
+TEARDOWN_TIMEOUT_S = 30.0
 
 # the live world: {"backend", "devices": [(rank, torch.device)], "local":
 # [torch.device]}; None while no world is up
@@ -97,20 +103,37 @@ def _resolve_backend(backend: Optional[str], devices) -> str:
     return backend
 
 
+def _peer_timeout(heartbeat_interval_s, max_missing_heartbeats
+                  ) -> Optional[datetime.timedelta]:
+    """The heartbeat knobs' product (a peer silent for that long is
+    declared dead), or None when neither is given."""
+    if heartbeat_interval_s is None and max_missing_heartbeats is None:
+        return None
+    hb = float(heartbeat_interval_s if heartbeat_interval_s is not None
+               else 10.0)
+    miss = int(max_missing_heartbeats if max_missing_heartbeats
+               is not None else 10)
+    return datetime.timedelta(seconds=max(1.0, hb) * max(1, miss))
+
+
 def _timeout(initialization_timeout, heartbeat_interval_s,
              max_missing_heartbeats) -> datetime.timedelta:
-    """The process group's timeout: `initialization_timeout` when given,
-    else the heartbeat knobs' product (a peer silent for that long is
-    declared dead), else torch's default of 30 minutes."""
+    """The rendezvous' timeout: `initialization_timeout` when given, else
+    the heartbeat knobs' product, else torch's default of 30 minutes."""
     if initialization_timeout is not None:
         return datetime.timedelta(seconds=float(initialization_timeout))
-    if heartbeat_interval_s is not None or max_missing_heartbeats is not None:
-        hb = float(heartbeat_interval_s if heartbeat_interval_s is not None
-                   else 10.0)
-        miss = int(max_missing_heartbeats if max_missing_heartbeats
-                   is not None else 10)
-        return datetime.timedelta(seconds=max(1.0, hb) * max(1, miss))
-    return datetime.timedelta(minutes=30)
+    peer = _peer_timeout(heartbeat_interval_s, max_missing_heartbeats)
+    return peer if peer is not None else datetime.timedelta(minutes=30)
+
+
+def _set_peer_timeout(timeout: datetime.timedelta):
+    """Set the live default group's collective timeout (the group was
+    created with the rendezvous' timeout). torch's setter is private: a
+    torch without it fails here, not with a slow timeout later."""
+    import torch.distributed as dist
+    from torch.distributed.distributed_c10d import _set_pg_timeout
+    if dist.is_initialized():
+        _set_pg_timeout(timeout)
 
 
 def _raw_initialize(coordinator_address, num_processes, process_id, *,
@@ -135,6 +158,22 @@ def _reset_distributed_state():
     except Exception as e:  # noqa: BLE001 — peers may already be gone
         log.warning("process-group reset during retry raised %s "
                     "(continuing)", e)
+    _reset_group_names()
+
+
+def _reset_group_names():
+    """Restart torch's count of unnamed process groups once no group is
+    left. The default group's rendezvous keys carry that count, and a
+    failed `init_process_group` advances it without a group to destroy
+    (`destroy_process_group` resets it only when there is one): a process
+    that failed one rendezvous would then publish its address under other
+    keys than a fresh peer's at the next, and both would wait out the
+    timeout."""
+    import torch.distributed as dist
+    if not dist.is_available() or dist.is_initialized():
+        return
+    from torch.distributed import distributed_c10d
+    distributed_c10d._world.group_count = 0
 
 
 def _gather_devices(local: Sequence[torch.device]
@@ -168,10 +207,11 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     cards); `backend` defaults to NCCL for CUDA devices and gloo for CPU
     devices, and ``backend="gloo"`` with CUDA devices must be named.
 
-    The heartbeat knobs map onto the process group's `timeout`: a
+    The heartbeat knobs map onto the process group's timeout: a
     collective waits at most ``heartbeat_interval_s *
-    max_missing_heartbeats`` seconds for a peer (`initialization_timeout`
-    wins when given). Connection setup retries `max_attempts` times with
+    max_missing_heartbeats`` seconds for a peer. `initialization_timeout`
+    bounds the rendezvous (and, without the heartbeat knobs, the
+    collectives too). Connection setup retries `max_attempts` times with
     ``backoff_s * 2**k`` sleeps on transient errors; other errors raise
     at once."""
     global _WORLD
@@ -191,6 +231,11 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
         try:
             _raw_initialize(coordinator_address, num_processes, process_id,
                             backend=be, timeout=timeout)
+            peer = _peer_timeout(heartbeat_interval_s,
+                                 max_missing_heartbeats)
+            if (initialization_timeout is not None and peer is not None
+                    and peer != timeout):
+                _set_peer_timeout(peer)
             _WORLD = {"backend": be, "local": list(local),
                       "devices": _gather_devices(local)}
             initialize_multihost._done = True
@@ -224,13 +269,13 @@ def shutdown_multihost() -> None:
     topology: destroy the process group, clear the latch, the global
     device list and every cache that pins the world (the axis
     sub-groups). No-op when no world is up."""
-    global _WORLD
     if not multihost_active():
         return
+    wedged = None
     try:
-        import torch.distributed as dist
-        if dist.is_initialized():
-            dist.destroy_process_group()
+        _destroy_bounded(TEARDOWN_TIMEOUT_S)
+    except TimeoutError as e:
+        wedged = e
     except Exception as e:  # noqa: BLE001 — a dead peer can fail it;
         # the local teardown below must still run
         log.warning("destroy_process_group raised %s (continuing with "
@@ -238,6 +283,38 @@ def shutdown_multihost() -> None:
     finally:
         initialize_multihost._done = False
         _clear_topology_caches()
+        _reset_group_names()
+    if wedged is not None:
+        raise RuntimeError(
+            f"{wedged}; the distributed runtime is wedged and this process "
+            f"cannot bring up another world") from wedged
+
+
+def _destroy_bounded(timeout_s: float):
+    """`destroy_process_group` on a helper thread, waited for at most
+    `timeout_s` (TimeoutError past it, the thread left behind)."""
+    import threading
+
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return
+    done, err = threading.Event(), []
+
+    def run():
+        try:
+            dist.destroy_process_group()
+        except Exception as e:  # noqa: BLE001 — raised in the caller
+            err.append(e)
+        finally:
+            done.set()
+
+    threading.Thread(target=run, name="destroy-process-group",
+                     daemon=True).start()
+    if not done.wait(timeout_s):
+        raise TimeoutError(f"destroy_process_group did not return within "
+                           f"{timeout_s:.0f} s")
+    if err:
+        raise err[0]
 
 
 def _clear_topology_caches():

@@ -5,8 +5,10 @@
 `SCENARIOS[scenario](args)` and prints its result as one JSON line; the
 parent returns [result of rank 0, ..., rank n-1]. Each worker runs
 with one intra-op thread and a wall timeout; a worker that fails kills
-its siblings. The same scenario functions run in one process (on a
-mesh of the same shape) as the reference.
+its siblings. `spawn_results` returns every rank's exit code and result
+instead, for a scenario in which a worker dies by design. The same
+scenario functions run in one process (on a mesh of the same shape) as
+the reference.
 """
 
 from __future__ import annotations
@@ -190,8 +192,59 @@ def scenario_checkpoint(args, devices=None):
                 restored_output=np.asarray(restored.output(x)).tolist())
 
 
+def scenario_elastic_world(args, devices=None):
+    """The elastic runtime's world seams in 2 processes: `device_mesh()`
+    spans both processes' CPU devices, the drain check ORs the flags
+    across them; then rank 1 SIGKILLs itself and rank 0 classifies the
+    broken collective, tears the world down (bounded) and brings up a
+    world of its own at another port, with another mesh."""
+    import signal
+
+    import torch
+    import torch.distributed as dist
+
+    from deeplearning4j_tpu_torch.parallel import collectives, multihost
+    from deeplearning4j_tpu_torch.parallel.elastic import (
+        distributed_failure, make_drain_check)
+    from deeplearning4j_tpu_torch.parallel.mesh import MeshSpec, device_mesh
+    rank = multihost.process_index()
+    mesh = device_mesh()
+    check = make_drain_check(mesh)
+    out = dict(mesh=dict(mesh.shape), spec=MeshSpec.data_parallel().shape(),
+               mesh_ranks=[int(r) for r in mesh.ranks.flat],
+               drain=[check(rank == 0), check(False), check(True)],
+               drain_calls=check.stats["calls"])
+    t = torch.ones(2)
+    dist.all_reduce(t)
+    if rank == 1:
+        os.kill(os.getpid(), signal.SIGKILL)
+    time.sleep(0.5)
+    try:
+        dist.all_reduce(t)
+        out["error"] = None
+    except Exception as e:  # noqa: BLE001 — the case under test
+        out["error"] = f"{type(e).__name__}: {str(e)[:200]}"
+        out["fatal"] = distributed_failure(e)
+    t0 = time.perf_counter()
+    multihost.shutdown_multihost()
+    out["teardown_s"] = time.perf_counter() - t0
+    out["groups_left"] = len(collectives._GROUPS)
+    out["active_after_teardown"] = multihost.multihost_active()
+    multihost.initialize_multihost(args["second"], 1, 0,
+                                   devices=["cpu"] * 3,
+                                   initialization_timeout=60)
+    t = torch.ones(2)
+    dist.all_reduce(t)
+    m2 = device_mesh()
+    out.update(second_world=dist.get_world_size(), second_sum=t.tolist(),
+               second_mesh=dict(m2.shape),
+               second_drain=make_drain_check(m2)(True))
+    return out
+
+
 SCENARIOS = {"trainers": scenario_trainers,
-             "checkpoint": scenario_checkpoint}
+             "checkpoint": scenario_checkpoint,
+             "elastic_world": scenario_elastic_world}
 
 
 def single(scenario, **args):
@@ -209,27 +262,54 @@ def _free_port() -> int:
     return port
 
 
-def spawn(scenario, n=2, **args):
-    """[rank r's result] of `scenario` in n processes."""
+def _start(scenario, n, args):
     coord = f"127.0.0.1:{_free_port()}"
     env = dict(os.environ, OMP_NUM_THREADS="1", MKL_NUM_THREADS="1",
                PYTHONPATH=ROOT + (os.pathsep + os.environ["PYTHONPATH"]
                                   if os.environ.get("PYTHONPATH") else ""))
-    procs = [subprocess.Popen(
+    return [subprocess.Popen(
         [sys.executable, os.path.abspath(__file__), scenario, str(r),
          str(n), coord, json.dumps(args)],
         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
         env=env, cwd=ROOT) for r in range(n)]
+
+
+def _result(out):
+    line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
+    return json.loads(line[-1][len("RESULT "):]) if line else None
+
+
+def spawn(scenario, n=2, **args):
+    """[rank r's result] of `scenario` in n processes; a worker that
+    fails kills its siblings."""
     from deeplearning4j_tpu_torch.parallel.multihost_smoke import _wait_all
-    results, timed_out = _wait_all(procs, TIMEOUT)
+    results, timed_out = _wait_all(_start(scenario, n, args), TIMEOUT)
     outs = []
     for rc, out, err in results:
         if rc != 0:
             raise RuntimeError(f"worker failed rc={rc}"
                                f"{' (timed out)' if timed_out else ''}: "
                                f"{err[-3000:]}")
-        line = [ln for ln in out.splitlines() if ln.startswith("RESULT ")]
-        outs.append(json.loads(line[-1][len("RESULT "):]))
+        outs.append(_result(out))
+    return outs
+
+
+def spawn_results(scenario, n=2, **args):
+    """[(rc, result or None, stderr) of rank r] of `scenario` in n
+    processes, where a worker may die by design (its siblings run on,
+    all within the wall timeout)."""
+    procs = _start(scenario, n, args)
+    deadline = time.time() + TIMEOUT
+    outs = []
+    for p in procs:
+        try:
+            out, err = p.communicate(timeout=max(1.0, deadline - time.time()))
+        except subprocess.TimeoutExpired:
+            for q in procs:
+                q.kill()
+            out, err = p.communicate()
+            err += "\n(timed out)"
+        outs.append((p.returncode, _result(out), err))
     return outs
 
 
