@@ -24,6 +24,7 @@
     python3 chip_smoke.py --parallel      # build + phase 17 alone
     python3 chip_smoke.py --multiprocess  # build + phase 18 alone
     python3 chip_smoke.py --elastic       # build + phase 19 alone
+    python3 chip_smoke.py --fleet         # build + phase 20 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -254,8 +255,9 @@ Phases, in order:
      at 0.5 (near-ties counted) at 416, 3 steps at batch 2 (step 0
      within 1e-4, then the noisy-twin rule, running statistics too),
      then 10 timed steps after 3 at 608 and batch 8, fp32 and
-     mixed_bf16; (b) the smoke LM with a MixtureOfExperts (8 experts,
-     top-2, hidden 1024) after each of its 4 blocks (`moe_lm_conf`):
+     mixed_bf16; (b) the smoke LM at 2 of its 4 blocks, full width
+     (`MOE_LM_CUT`), with a MixtureOfExperts (8 experts, top-2, hidden
+     1024) after each block (`moe_lm_conf`):
      output() card vs CPU, the selected experts (near-ties counted) and
      the per-expert token fractions, 3 Adam steps (step 0's loss and
      load-balance loss within 1e-4, then the noisy-twin rule against a
@@ -467,9 +469,43 @@ Phases, in order:
      series go stale and return, and `elastic_drains_total` and
      `elastic_resume_total` read as the runs did. Each part must launch
      its kernels (`ELASTIC_KERNELS`). It prints `[elastic]` lines;
+ 20. the serving fleet (`phase_fleet`, `--fleet`, fp32 with TF32 off) on
+     phase 3's LM (`LM`, seeded params, head x4; 8 slots of block_len 16,
+     a pool for 8 full-budget streams): (a) `fit` at [8, 511], Adam(1e-3),
+     6 steps with `registry.publish_listener("lm", frequency=3)`, which
+     publishes v1 and v2; each zip restored on the CPU equals the card's
+     params at its step bit for bit; (b) a `FleetServer` deploys v1 with
+     its warmup grid behind a `FleetRouter`; a burst of 16 greedy and 4
+     sampled requests (prompts 16-64, 64 tokens), `swap("lm")` to v2 in a
+     background thread once the burst's first token is out, then 8
+     requests past the pointer flip: no stream dropped, each tagged with
+     the version that served it and held to that version's unswapped
+     single-server streams of the same requests (greedy by
+     `stream_agreement` at `_wide_vs_single`'s margin, sampled by phase
+     8's `sampled_margin`, near-ties counted); v1's pin released and
+     retention (keep_last 1) collects it; the swap's seconds and TTFT
+     p50/p99 before the swap and past the flip; (c) a flood of twice the
+     greedy prompts and the sampled ones: `FleetAutoscaler.check()`
+     scales lm from 8 to 16 slots under queue pressure, no stream
+     dropped, the decision record printed; (d) an `ElasticCoordinator`,
+     a `ReplicaWorker` on the card and a `spawn_replica(...,
+     device="cuda")` process that resolves v2 from the registry, a
+     `ReplicaSet` and the router balancing 12 greedy and the 4 sampled
+     requests; the process is SIGKILLed once its first reply chunk is
+     in: every stream finishes, held to the reference, some migrated,
+     the set converges to the survivor and a later request lands there
+     (spawn-to-ready and kill-to-converged seconds, migrations; the
+     process's own launches are not counted); (e) a `ServingRoute` over
+     `LocalQueueTransport` restores v2's zip on the card at its first
+     message and answers `output()` of [4, 128] through the router's
+     output backend, within OUTPUT_ATOL of the CPU's `output()` of the
+     zip. The references run outside every part; each part must launch
+     its kernels (`FLEET_KERNELS`). The registry root lives under
+     `chiprun_out/` and is deleted at the phase's end. It prints
+     `[fleet]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 19, each > 0; the counts of each phase, and of each part of phases
-18 and 19, on a `[launches]` line), each phase's seconds on a
+to 20, each > 0; the counts of each phase, and of each part of phases
+18 to 20, on a `[launches]` line), each phase's seconds on a
 `[phases]` line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
@@ -4463,6 +4499,10 @@ VAE_SGD_LR = 1e-4
 # phase 5's Adam(1e-3); card vs CPU at B_check (the CPU's share of the
 # phase's time), timed at [16, 511]
 MOE_LM = dict(LM, n_experts=8, top_k=2, hidden=1024, coef=0.01)
+# phase 13 runs it at 2 of its 4 blocks, full width, since phase 20 joined
+# the script (the CPU twin's steps carry host time; phase 18 and
+# `--profile-layers-rest` keep 4)
+MOE_LM_CUT = dict(MOE_LM, n_layers=2)
 MOE = dict(B=16, B_check=2, n_check=3, warmup=3, steps=10)
 MOE_SMALL = dict(B=2, B_check=2, n_check=2, warmup=1, steps=1)
 MOE_KERNELS = ("layer_norm", "residual_layer_norm", "flash_attention_fwd",
@@ -5302,7 +5342,7 @@ def phase_layers_rest(device, report, fails, small=False):
     yc = YOLO_SMALL if small else YOLO
     mc = MOE_SMALL if small else MOE
     cfg = (dict(MOE_LM, d_model=64, n_layers=2, max_len=64, hidden=128,
-                vocab=64) if small else MOE_LM)
+                vocab=64) if small else MOE_LM_CUT)
     out = {}
     t0 = time.perf_counter()
     K.reset_launches()
@@ -9432,6 +9472,517 @@ def _print_elastic(out):
           f"launches by part {out['launches_by_part']}", flush=True)
 
 
+# ------------------------------------------------------------ phase 20
+# phase 20's configuration: the smoke LM at full width and phase 3's
+# depth (`LM`), seeded params (head x4); (a) fits `fit_steps` steps of
+# [fit_B, max_len - 1] publishing every `publish_every`; the servers
+# have `n_slots` slots of block_len 16 and a pool for that many
+# full-budget streams; (b) bursts `greedy` + `sampled` requests of
+# `n_tok` tokens (prompts `lens`, warmup grid up to `warm_len`) and
+# sends `after` more past the flip; (c) floods twice the greedy prompts
+# and the sampled ones against `queue_high`; (d) floods `flood_greedy`
+# greedy and the sampled requests across two replicas; (e) routes
+# [route_B, route_T] token ids
+FLEET = dict(cfg=None, fit_B=8, fit_steps=6, publish_every=3, n_slots=8,
+             greedy=16, sampled=4, n_tok=64, lens=(16, 64), warm_len=64,
+             after=8, queue_high=8, flood_greedy=12, route_B=4,
+             route_T=128, ready_timeout_s=300.0)
+FLEET_SMALL = dict(FLEET, cfg=dict(LM, d_model=64, n_heads=4, n_layers=2,
+                                   max_len=128),
+                   fit_B=2, n_slots=4, greedy=8, sampled=2, n_tok=32,
+                   lens=(3, 24), warm_len=24, after=4, queue_high=2,
+                   flood_greedy=8, route_B=2, route_T=32,
+                   ready_timeout_s=120.0)
+FLEET_BL = 16
+# the kernels each part of phase 20 launches on the card: (a) trains
+# (flash forward and backward, both LayerNorms, fused Adam); (b)-(d)
+# serve greedy and sampled requests (LayerNorm, the per-row-key words;
+# prefill attends through the KV-cache path, not flash); (e) runs
+# `output()` (flash forward)
+_SERVE_KERNELS = ("layer_norm", "threefry_rows")
+FLEET_KERNELS = {"a": ("layer_norm", "residual_layer_norm",
+                       "flash_attention_fwd", "flash_attention_bwd_dq",
+                       "flash_attention_bwd_dkv", "fused_adam"),
+                 "b": _SERVE_KERNELS, "c": _SERVE_KERNELS,
+                 "d": _SERVE_KERNELS, "e": ("flash_attention_fwd",)}
+FLEET_PARAMS_SEED, FLEET_DATA_SEED, FLEET_PROMPT_SEED = 2020, 20, 200
+
+
+def _fleet_requests(cfg, c):
+    """(b)'s burst: [(prompt, generate kwargs)], the greedy requests
+    first, then the sampled ones (temperature 0.8, top_p 0.9, a [2]
+    uint32 key each: the wire to a replica carries keys, not seeds)."""
+    rng = np.random.default_rng(FLEET_PROMPT_SEED)
+    lo, hi = c["lens"]
+    n = c["greedy"] + c["sampled"]
+    prompts = [rng.integers(0, cfg["vocab"], int(k))
+               for k in rng.integers(lo, hi + 1, n)]
+    reqs = [(p, {}) for p in prompts[:c["greedy"]]]
+    reqs += [(p, dict(temperature=0.8, top_p=0.9,
+                      rng=np.asarray([20, 2000 + i], np.uint32)))
+             for i, p in enumerate(prompts[c["greedy"]:])]
+    return reqs
+
+
+def _fleet_server_kw(cfg, c):
+    return dict(n_slots=c["n_slots"], block_len=FLEET_BL,
+                n_blocks=c["n_slots"] * (cfg["max_len"] // FLEET_BL) + 1)
+
+
+def _fleet_publish(device, fails, cfg, c, root, rec):
+    """(a): `fit` with a publish listener every `publish_every` steps;
+    each published zip, restored on the CPU, must equal the card's
+    params at its step bit for bit."""
+    import torch
+
+    from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    net = build_lm(cfg, device, random_lm_params(
+        cfg, seed=FLEET_PARAMS_SEED, head_scale=4.0))
+    X, Y = lm_corpus(cfg, c["fit_B"] * c["fit_steps"], seed=FLEET_DATA_SEED)
+    reg = ModelRegistry(root)
+    snaps = {}
+
+    class Snapshot(TrainingListener):
+        def iteration_done(self, model, iteration, epoch, score, **info):
+            if (iteration + 1) % c["publish_every"] == 0:
+                snaps[iteration + 1] = {
+                    k: t.detach().cpu().clone()
+                    for k, t in model.param_table().items()}
+
+    pub = reg.publish_listener("lm", frequency=c["publish_every"])
+    net.add_listener(Snapshot())
+    net.add_listener(pub)
+    rec.start("a")
+    t0 = time.perf_counter()
+    net.fit(X, Y, batch_size=c["fit_B"], shuffle=False)
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    rec.stop()
+    want_steps = list(range(c["publish_every"], c["fit_steps"] + 1,
+                            c["publish_every"]))
+    fails.check(pub.published_steps == want_steps
+                and pub.published_versions == [1, 2],
+                f"fleet (a): published steps {pub.published_steps} "
+                f"versions {pub.published_versions}, want {want_steps} "
+                f"and [1, 2]")
+    equal = {}
+    for v, step in zip(pub.published_versions, pub.published_steps):
+        cpu, rv = reg.resolve("lm", v, device="cpu")
+        got = cpu.param_table()
+        equal[v] = (rv == v and got.keys() == snaps[step].keys()
+                    and all(torch.equal(got[k], snaps[step][k])
+                            for k in got))
+    fails.check(all(equal.values()) and len(equal) == 2,
+                f"fleet (a): published zips against the card's params at "
+                f"their steps: {equal}")
+    return dict(steps=c["fit_steps"], published_steps=pub.published_steps,
+                versions=pub.published_versions, bit_equal=equal,
+                fit_s=fit_s, zip_mb=os.path.getsize(reg.path("lm", 2)) / 1e6)
+
+
+def _fleet_refs(cfg, c, nets, reqs):
+    """Each version's single-server streams of the burst (an unswapped
+    server of the fleet's configuration, outside every part), the
+    greedy margin of each version's net (`_wide_vs_single`) and a CPU
+    twin for the sampled margin."""
+    kw = _fleet_server_kw(cfg, c)
+    refs, eps, cpus = {}, {}, {}
+    greedy = [p for p, a in reqs if not a]
+    for v, net in nets.items():
+        refs[v] = _serve(net, reqs, c["n_tok"], FLEET_BL,
+                         n_slots=kw["n_slots"])[0]
+        eps[v] = _wide_vs_single(net, greedy[:c["n_slots"]])
+        cpus[v] = cpu_twin(net)
+    return refs, eps, cpus
+
+
+def _fleet_hold(fails, what, cfg, nets, cpus, eps, reqs, refs, streams):
+    """`streams`: [(request index, version, tokens)]. Each is held to its
+    version's reference: greedy by `stream_agreement` at that version's
+    margin, sampled by phase 8's rule (`sampled_margin`), near-ties
+    counted."""
+    bad, ties, equal = [], 0, 0
+    for v in sorted({ver for _, ver, _ in streams}):
+        mine = [(i, t) for i, ver, t in streams if ver == v]
+        equal += sum(list(t) == list(refs[v][i]) for i, t in mine)
+        g = [(i, t) for i, t in mine if not reqs[i][1]]
+        s = [(i, t) for i, t in mine if reqs[i][1]]
+        if g:
+            b, n = _agreement(nets[v], [reqs[i][0] for i, _ in g],
+                              [refs[v][i] for i, _ in g],
+                              [list(t) for _, t in g], eps[v])
+            bad += [(v, g[j][0]) for j in b]
+            ties += n
+        if s:
+            keys = [reqs[i][1]["rng"] for i, _ in s]
+            b, n, _ = sampled_margin(
+                cpus[v], nets[v], [reqs[i][0] for i, _ in s],
+                [refs[v][i] for i, _ in s], [list(t) for _, t in s],
+                lambda j, n_, keys=keys: engine_noise(keys[j], n_,
+                                                      cfg["vocab"]),
+                0.8, 0.9)
+            bad += [(v, s[j][0]) for j in b]
+            ties += n
+    fails.check(not bad, f"fleet {what}: streams apart from their "
+                         f"version's single-server reference beyond a "
+                         f"near-tie: {bad}")
+    return dict(streams=len(streams), equal=equal, near_ties=ties,
+                apart=bad)
+
+
+def _results(streams, timeout=600):
+    """(tokens or None, error or None) of each stream: a failed stream
+    is counted as dropped by the caller's check."""
+    out = []
+    for s in streams:
+        try:
+            out.append((list(np.asarray(s.result(timeout))), None))
+        except Exception as e:  # noqa: BLE001 — counted as dropped
+            out.append((None, repr(e)))
+    return out
+
+
+def _pct(xs):
+    if not xs:
+        return None
+    return [float(np.percentile(xs, 50)), float(np.percentile(xs, 99))]
+
+
+def _wait(cond, timeout, what, every=0.001):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{what} within {timeout} s")
+        time.sleep(every)
+
+
+def _fleet_swap(fails, cfg, c, fleet, router, reqs, held, rec):
+    """(b): deploy v1 warmed behind the router, burst, swap to v2 in a
+    background thread once the burst's first token is out, then the
+    `after` requests past the flip."""
+    import threading
+    n_tok = c["n_tok"]
+    rec.start("b")
+    t0 = time.perf_counter()
+    fleet.deploy("lm", version=1, warmup_prompt_len=c["warm_len"],
+                 warmup_tokens=4, **_fleet_server_kw(cfg, c))
+    deploy_s = time.perf_counter() - t0
+    burst = [router.submit("lm", p, n_tok, **a) for p, a in reqs]
+    _wait(lambda: any(s.tokens for s in burst), 120,
+          "the burst's first token")
+    box = {}
+
+    def swap():
+        t = time.perf_counter()
+        try:
+            box["version"] = fleet.swap("lm", version=2)
+        finally:
+            box["seconds"] = time.perf_counter() - t
+            box["t_end"] = time.monotonic()
+
+    th = threading.Thread(target=swap, name="fleet-swap", daemon=True)
+    t_swap = time.monotonic()
+    th.start()
+    try:
+        _wait(lambda: fleet.version("lm") == 2 or not th.is_alive(), 600,
+              "the swap's pointer flip")
+        t_flip = time.monotonic()
+        after = [router.submit("lm", reqs[i][0], n_tok)
+                 for i in range(c["after"])]
+        t_after = time.monotonic()
+    finally:
+        th.join(timeout=600)
+    got = _results(burst + after)
+    rec.stop()
+    fails.check(box.get("version") == 2,
+                f"fleet (b): swap returned {box.get('version')}")
+    dropped = [i for i, (t, e) in enumerate(got) if e is not None
+               or len(t) != n_tok]
+    fails.check(not dropped, f"fleet (b): dropped or short streams "
+                             f"{dropped}: {[got[i][1] for i in dropped]}")
+    tags = [s.version for s in burst + after]
+    fails.check(set(tags) <= {1, 2} and all(s.version == 2 for s in after),
+                f"fleet (b): version tags {tags}")
+    idx = list(range(len(reqs))) + list(range(c["after"]))
+    hold = held([(i, s.version, t) for i, s, (t, _) in
+                 zip(idx, burst + after, got) if t is not None], "(b)")
+    ttft_before = [s.t_first - s.t_submit for s in burst]
+    ttft_after = [s.t_first - s.t_submit for s in after]
+    return dict(deploy_s=deploy_s, swap_s=box.get("seconds"),
+                flip_after_s=t_flip - t_swap,
+                after_submitted_before_swap_end=t_after < box.get(
+                    "t_end", float("inf")),
+                streams=len(got), dropped=len(dropped),
+                v1_streams=tags.count(1), v2_streams=tags.count(2),
+                ttft_before_p50_p99_s=_pct(ttft_before),
+                ttft_after_flip_p50_p99_s=_pct(ttft_after), hold=hold)
+
+
+def _fleet_scale(fails, cfg, c, fleet, router, reqs, held, rec):
+    """(c): a flood past `queue_high`; `FleetAutoscaler.check()` scales
+    lm to twice its slots (and blocks) with the swap machinery."""
+    from deeplearning4j_tpu_torch.serving import FleetAutoscaler
+    kw = _fleet_server_kw(cfg, c)
+    scaler = FleetAutoscaler(fleet, queue_depth_high=c["queue_high"],
+                             factor=2, max_slots=2 * kw["n_slots"],
+                             max_blocks=2 * kw["n_blocks"])
+    idx = list(range(c["greedy"])) * 2 + list(
+        range(c["greedy"], c["greedy"] + c["sampled"]))
+    rec.start("c")
+    t0 = time.perf_counter()
+    flood = [router.submit("lm", reqs[i][0], c["n_tok"], **reqs[i][1])
+             for i in idx]
+    made = scaler.check()
+    scale_s = time.perf_counter() - t0
+    got = _results(flood)
+    rec.stop()
+    n_slots = fleet.server("lm").engine.n_slots
+    fails.check(len(made) == 1 and made[0]["after"]["n_slots"]
+                == 2 * kw["n_slots"] and n_slots == 2 * kw["n_slots"],
+                f"fleet (c): decisions {made}, slots now {n_slots}")
+    dropped = [i for i, (t, e) in enumerate(got) if e is not None
+               or len(t) != c["n_tok"]]
+    fails.check(not dropped, f"fleet (c): dropped or short streams "
+                             f"{dropped}")
+    fails.check(all(s.version == 2 for s in flood),
+                f"fleet (c): version tags {[s.version for s in flood]}")
+    hold = held([(i, 2, t) for i, (t, _) in zip(idx, got)
+                 if t is not None], "(c)")
+    rec_ = dict(made[0]) if made else {}
+    return dict(decision=rec_, scale_s=scale_s, streams=len(flood),
+                dropped=len(dropped), hold=hold)
+
+
+def _fleet_replicas(device, fails, cfg, c, root, net, reqs, held, rec):
+    """(d): an in-process ReplicaWorker on `device` and a spawned replica
+    process resolving lm v2 from the registry, both behind a coordinator;
+    the router balances a flood over them and the process is SIGKILLed
+    once its first reply chunk is in."""
+    from deeplearning4j_tpu_torch.parallel.elastic import ElasticCoordinator
+    from deeplearning4j_tpu_torch.serving import (
+        FleetRouter, ReplicaSet, ReplicaWorker, spawn_replica)
+    kw = _fleet_server_kw(cfg, c)
+    n_tok = c["n_tok"]
+    idx = list(range(c["flood_greedy"])) + list(
+        range(c["greedy"], c["greedy"] + c["sampled"]))
+    coord = ElasticCoordinator(settle_s=0.05, grace_s=1.0,
+                               tick_s=0.05).start()
+    worker = proc = rset = None
+    try:
+        worker = ReplicaWorker(net, model="lm", version=2,
+                               coordinator=coord.address,
+                               heartbeat_interval_s=0.05, device=device,
+                               **kw).start()
+        t0 = time.perf_counter()
+        proc = spawn_replica(root, "lm", coordinator=coord.address,
+                             version="2", ready_timeout_s=c[
+                                 "ready_timeout_s"], device=device.type,
+                             **kw)
+        spawn_s = time.perf_counter() - t0
+        rset = ReplicaSet(coord.address, "lm", refresh_s=0.05)
+        router = FleetRouter()
+        router.attach_replicas("lm", rset)
+
+        def backends():
+            rset.refresh(force=True)
+            return sorted(t for t, _, _ in rset.backends())
+
+        _wait(lambda: len(backends()) == 2, 60, "two replicas",
+              every=0.05)
+        rec.start("d")
+        flood = [router.submit("lm", reqs[i][0], n_tok, **reqs[i][1])
+                 for i in idx]
+        on_proc = [s for s in flood if s.replica == proc.token]
+        fails.check(bool(on_proc), "fleet (d): no stream went to the "
+                                   "spawned replica")
+        _wait(lambda: any(s.tokens for s in on_proc), 300,
+              "the spawned replica's first reply chunk")
+        t_kill = time.perf_counter()
+        proc.kill()
+        got = _results(flood)
+        _wait(lambda: backends() == [worker.token]
+              and set(rset._meta) == {worker.token}, 60,
+              "the replica set's convergence to the survivor", every=0.05)
+        converged_s = time.perf_counter() - t_kill
+        later = router.submit("lm", reqs[0][0], n_tok)
+        later_t = _results([later])[0]
+        rec.stop()
+    finally:
+        if rset is not None:
+            rset.close()
+        if proc is not None:
+            proc.stop()
+        if worker is not None:
+            worker.stop()
+        coord.stop()
+    dropped = [i for i, (t, e) in enumerate(got) if e is not None
+               or len(t) != n_tok]
+    fails.check(not dropped, f"fleet (d): dropped or short streams "
+                             f"{dropped}: {[got[i][1] for i in dropped]}")
+    migrations = sum(s.migrations for s in flood)
+    fails.check(migrations > 0, "fleet (d): no stream migrated")
+    fails.check(later.replica == worker.token and later_t[1] is None,
+                f"fleet (d): the later request went to {later.replica} "
+                f"({later_t[1]})")
+    hold = held([(i, 2, t) for i, (t, _) in zip(idx + [0], got + [later_t])
+                 if t is not None], "(d)")
+    return dict(spawn_to_ready_s=spawn_s, kill_to_converged_s=converged_s,
+                streams=len(flood), on_spawned=len(on_proc),
+                migrations=migrations, dropped=len(dropped), hold=hold)
+
+
+def _fleet_route(device, fails, cfg, c, path, router, rec):
+    """(e): a ServingRoute over an in-process transport restores lm v2's
+    zip on `device` at its first message and answers `output()` through
+    the router's output backend, within OUTPUT_ATOL of the CPU's
+    `output()` of the same zip."""
+    from deeplearning4j_tpu_torch.streaming import (
+        LocalQueueTransport, NDArrayConsumer, NDArrayPublisher, ServingRoute)
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    rng = np.random.default_rng(21)
+    xs = [rng.integers(0, cfg["vocab"], (c["route_B"], c["route_T"]))
+          for _ in range(2)]
+    tr = LocalQueueTransport()
+    pub = NDArrayPublisher(tr, "fleet.in")
+    for x in xs:
+        pub.publish(x)
+    route = ServingRoute(tr, "fleet.in", "fleet.out", model_uri=str(path),
+                         router=router, model_name="lm-route",
+                         device=device)
+    rec.start("e")
+    t0 = time.perf_counter()
+    served = route.run(max_messages=len(xs), timeout=5.0)
+    _sync(device)
+    route_s = time.perf_counter() - t0
+    rec.stop()
+    con = NDArrayConsumer(tr, "fleet.out")
+    outs = [np.asarray(con.consume(timeout=5)) for _ in range(served)]
+    cpu = ModelSerializer.restore_model(path, device="cpu")
+    errs = [float(np.abs(o - cpu.output(x).numpy()).max())
+            for o, x in zip(outs, xs)]
+    fails.check(served == len(xs) and max(errs) <= OUTPUT_ATOL,
+                f"fleet (e): {served} of {len(xs)} replies, output() card "
+                f"vs CPU max abs err {errs} (tol {OUTPUT_ATOL})")
+    return dict(served=served, shape=list(outs[0].shape),
+                max_abs_err=max(errs), seconds=route_s)
+
+
+def phase_fleet(device, report, fails, small=False):
+    """Phase 20 on `device` (see the module docstring, 20 (a)-(e)): the
+    serving fleet on the smoke LM. `small` (the CPU rehearsal) shrinks
+    the LM and the traffic, and spawns the replica on the CPU. Returns
+    the phase's kernel launches, the sum of its parts'; each part's are
+    in the report's `launches_by_part`."""
+    import shutil
+    import tempfile
+
+    from deeplearning4j_tpu_torch.serving import (
+        FleetRouter, FleetServer, ModelRegistry)
+    c = FLEET_SMALL if small else FLEET
+    cfg = c["cfg"] or LM
+    t_start = time.perf_counter()
+    out = dict(config=dict(cfg, **_fleet_server_kw(cfg, c),
+                           fit=[c["fit_B"], cfg["max_len"] - 1],
+                           burst=[c["greedy"], c["sampled"], c["n_tok"]]))
+    rec, parts = _PartLaunches(), {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="fleet_registry_", dir=OUT_DIR)
+    fleet = None
+    try:
+        t0 = time.perf_counter()
+        out["a"] = _fleet_publish(device, fails, cfg, c, root, rec)
+        parts["a"] = time.perf_counter() - t0
+        # the references, outside every part: each version's net on the
+        # card, restored from its zip as the fleet restores it
+        t0 = time.perf_counter()
+        reg = ModelRegistry(root)
+        nets = {v: reg.resolve("lm", v, device=device)[0] for v in (1, 2)}
+        reqs = _fleet_requests(cfg, c)
+        refs, eps, cpus = _fleet_refs(cfg, c, nets, reqs)
+        parts["references"] = time.perf_counter() - t0
+
+        def held(streams, what):
+            return _fleet_hold(fails, what, cfg, nets, cpus, eps, reqs,
+                               refs, streams)
+
+        # retention keeps one version: the swap's unpin collects v1
+        fleet = FleetServer(ModelRegistry(root, keep_last=1), device=device)
+        router = FleetRouter(fleet)
+        t0 = time.perf_counter()
+        out["b"] = _fleet_swap(fails, cfg, c, fleet, router, reqs, held,
+                               rec)
+        freg = fleet.registry
+        out["b"]["pinned"] = sorted(freg.pinned())
+        out["b"]["versions_left"] = freg.versions("lm")
+        fails.check(freg.pinned() == {("lm", 2)}
+                    and freg.versions("lm") == [2],
+                    f"fleet (b): pins {freg.pinned()}, versions left "
+                    f"{freg.versions('lm')}: v1's pin must be released and "
+                    f"retention must collect it")
+        parts["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["c"] = _fleet_scale(fails, cfg, c, fleet, router, reqs, held,
+                                rec)
+        parts["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["d"] = _fleet_replicas(device, fails, cfg, c, root, nets[2],
+                                   reqs, held, rec)
+        parts["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["e"] = _fleet_route(device, fails, cfg, c,
+                                freg.path("lm", 2), router, rec)
+        parts["e"] = time.perf_counter() - t0
+    finally:
+        if fleet is not None:
+            fleet.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: sum(p.get(k, 0) for p in rec.by_part.values())
+                for k in KERNEL_META}
+    if device.type == "cuda":
+        for part, kernels in FLEET_KERNELS.items():
+            _launched(fails, f"fleet part {part}", rec.by_part.get(part, {}),
+                      kernels)
+    out["part_seconds"] = parts
+    out["launches_by_part"] = rec.by_part
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["seconds"] = time.perf_counter() - t_start
+    report["fleet"] = out
+    _print_fleet(out)
+    return launches
+
+
+def _print_fleet(out):
+    a, b, cc, d, e = (out[k] for k in "abcde")
+    print(f"[fleet] (a) {a['steps']} fit steps in {a['fit_s']:.2f} s, "
+          f"published v{a['versions']} at steps {a['published_steps']}, "
+          f"zips ({a['zip_mb']:.2f} MB) bit-equal to the card's params "
+          f"{a['bit_equal']}", flush=True)
+    print(f"[fleet] (b) deploy {b['deploy_s']:.2f} s, swap "
+          f"{_fmt_s(b['swap_s'])} s (flip {b['flip_after_s']:.2f} s in), "
+          f"{b['streams']} streams ({b['v1_streams']} v1, {b['v2_streams']} "
+          f"v2), dropped {b['dropped']}; TTFT p50/p99 s before the swap "
+          f"{b['ttft_before_p50_p99_s']}, after the flip "
+          f"{b['ttft_after_flip_p50_p99_s']} (submitted inside the swap: "
+          f"{b['after_submitted_before_swap_end']}); held {b['hold']}; "
+          f"pins {b['pinned']}, versions left {b['versions_left']}",
+          flush=True)
+    print(f"[fleet] (c) decision {cc['decision']}; {cc['streams']} streams, "
+          f"dropped {cc['dropped']}, {cc['scale_s']:.2f} s to the scaled "
+          f"server; held {cc['hold']}", flush=True)
+    print(f"[fleet] (d) spawn-to-ready {d['spawn_to_ready_s']:.2f} s, "
+          f"kill-to-converged {d['kill_to_converged_s']:.2f} s, "
+          f"{d['streams']} streams ({d['on_spawned']} on the spawned "
+          f"replica), {d['migrations']} migrations, dropped {d['dropped']}; "
+          f"held {d['hold']}", flush=True)
+    print(f"[fleet] (e) route: {e['served']} replies of {e['shape']}, "
+          f"max abs err {e['max_abs_err']:.3g} against the CPU, "
+          f"{e['seconds']:.2f} s", flush=True)
+    print(f"[fleet] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 1) for k, v in out['part_seconds'].items()} }), "
+          f"launches by part {out['launches_by_part']}", flush=True)
+
+
 KERNEL_META = {
     "layer_norm": ("deeplearning4j_tpu_torch/kernels/csrc/layernorm.cu",
                    "deeplearning4j_tpu/kernels/layernorm.py:55"),
@@ -9561,19 +10112,26 @@ def run(device, *, small=False, kernels_only=False):
         l19 = phase("elastic", phase_elastic, device, report, fails, small)
         for k in launches:
             launches[k] += (l19 or {}).get(k, 0)
+        l20 = phase("fleet", phase_fleet, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l20 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
                          ("7", l7), ("8", l8), ("9", l9), ("10", l10),
                          ("11", l11), ("12", l12), ("13", l13),
                          ("14", l14), ("15", l15), ("16", l16),
-                         ("17", l17), ("18", l18), ("19", l19)) if l}
+                         ("17", l17), ("18", l18), ("19", l19),
+                         ("20", l20)) if l}
         for part, counts in report.get("multiprocess", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"18 {part}"] = counts
         for part, counts in report.get("elastic", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"19 ({part})"] = counts
+        for part, counts in report.get("fleet", {}).get(
+                "launches_by_part", {}).items():
+            report["launches_by_phase"][f"20 ({part})"] = counts
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -9673,6 +10231,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_elastic(device, report, fails)
+        report["kernels"] = []
+    elif "--fleet" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_fleet(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

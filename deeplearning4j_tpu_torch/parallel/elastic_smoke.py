@@ -614,6 +614,12 @@ def _run(spec, work_dir, refs):
             for t in live - members:
                 events["member_gone"].setdefault(t, []).append(now)
             live = members
+            if status.get("completed") and "first_done" not in events:
+                # a completion is its leave, which the coordinator turns
+                # into the next generation `SETTLE_S` later; the process
+                # may take longer than that to exit
+                events["first_done"] = now
+                events["generation_at_done"] = gen
             agg.ingest_registry(reg, "coordinator")
             ingest_elastic_status(status, agg)
             for w, age in agg.export_ages(now).items():
