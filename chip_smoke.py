@@ -25,6 +25,7 @@
     python3 chip_smoke.py --multiprocess  # build + phase 18 alone
     python3 chip_smoke.py --elastic       # build + phase 19 alone
     python3 chip_smoke.py --fleet         # build + phase 20 alone
+    python3 chip_smoke.py --tenancy       # build + phase 21 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -434,7 +435,7 @@ Phases, in order:
      references outside every part, and each part must launch its
      kernels (`MP_KERNELS`). It prints `[multiprocess]` lines;
  19. elastic training (`phase_elastic`, `--elastic`, fp32 with TF32 off,
-     Adam(LONG_LR)) of the long-context LM at `LM_LONG_CUT`'s depth,
+     Adam(LONG_LR)) of the long-context LM at `LM_LONG_QUARTER`'s depth,
      global batch [8, 2048], 10 steps: (a) the survive-the-kill drill
      (`parallel/elastic_smoke.py`): a coordinator here and 2 worker
      processes over gloo on the one card (NCCL, one process per card,
@@ -474,8 +475,10 @@ Phases, in order:
      a pool for 8 full-budget streams): (a) `fit` at [8, 511], Adam(1e-3),
      6 steps with `registry.publish_listener("lm", frequency=3)`, which
      publishes v1 and v2; each zip restored on the CPU equals the card's
-     params at its step bit for bit; (b) a `FleetServer` deploys v1 with
-     its warmup grid behind a `FleetRouter`; a burst of 16 greedy and 4
+     params at its step bit for bit; (b) a `FleetServer` deploys v1
+     behind a `FleetRouter` with `warmup_prompt_len` the burst's length
+     range, so it and every successor the swap and the resize build run
+     the warmup grid over the burst's buckets only; a burst of 16 greedy and 4
      sampled requests (prompts 16-64, 64 tokens), `swap("lm")` to v2 in a
      background thread once the burst's first token is out, then 8
      requests past the pointer flip: no stream dropped, each tagged with
@@ -503,9 +506,51 @@ Phases, in order:
      its kernels (`FLEET_KERNELS`). The registry root lives under
      `chiprun_out/` and is deleted at the phase's end. It prints
      `[fleet]` lines;
+ 21. multi-tenant LoRA serving and online training (`phase_tenancy`,
+     `--tenancy`, fp32 with TF32 off) on phase 3's LM (`LM`, seeded
+     params, head unscaled), trained 10 steps at [8, 511] on the base
+     task (the ids one place ahead in a seeded period-64 token cycle, as
+     `scripts/tenant_loadtest.py`'s base) and published as v1: (a)
+     tenants A and B, then (b) C, each attach a frozen rank-4 (alpha 8)
+     adapter to the one training net and run an `OnlineTrainer` over a
+     `StreamingDataSetIterator` on its own `LocalLogTransport` topic of
+     `lm_example` records [2, 511] (A and B learn the cycle shifted by 2
+     and 3, C fine-tunes the base task), batch 8, Adam(1e-3), with an
+     `AdapterPublishListener` every 3 steps and a `CheckpointListener`
+     (the cursor) every 3: A and B 6 steps; C's stream turns to shuffled
+     labels after 3 clean steps for 3 and then runs clean for 9, under a
+     loss-band `DriftGate` (band 0.02) on 8 held-out clean records that
+     must trip, refuse at least one publish and let a later one
+     through. Every adapter zip restored on the CPU equals the
+     card's factors at its step bit for bit and is under 5% of the base
+     zip; the base is bit-identical after all three; the factors update
+     in one fused-Adam launch a step. (c) A's run again on v1 from the
+     registry, stopped after step 4 with its newest checkpoint at 3;
+     `OnlineTrainer.resume` rebuilds the net (the adapter attached again)
+     and seeks a fresh stream to the cursor: the resumed losses and final
+     factors equal (a)'s uninterrupted run bit for bit. (d) a
+     `TenantFleet` over v1 deploys A, B and C at adapter v1 (8 slots,
+     block_len 16, each, and each swap's successor, warmed by
+     `TenantFleet`'s own step on the burst's buckets only) behind a
+     `FleetRouter`; 8 greedy requests a tenant (prompts 16-64, 32
+     tokens), each tenant swapped to adapter v2 once its first token is
+     out, 4 more past its flip: no stream dropped, each tagged (tenant,
+     version) and held to that composition's single-server stream by
+     `stream_agreement` at `_wide_vs_single`'s margin (near-ties
+     counted); `attach_adapter` + `generate` equals the composed tree's
+     `generate`, and each tenant's v2 stream leaves the base's;
+     `shared_base_copies()` is 1; `torch.cuda.memory_allocated` (with
+     the idle servers' cuBLAS workspaces freed: each scheduler thread's
+     cuBLAS handle takes one from the same allocator; the growth with
+     them is printed too) grows per added tenant by at most its KV pool,
+     its factors and half a base copy; the swap seconds and TTFT p50/p99 per tenant are
+     printed. The references run outside every part; each part must
+     launch its kernels (`TENANCY_KERNELS`). The registry root lives
+     under `chiprun_out/` and is deleted at the phase's end. It prints
+     `[tenancy]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 20, each > 0; the counts of each phase, and of each part of phases
-18 to 20, on a `[launches]` line), each phase's seconds on a
+to 21, each > 0; the counts of each phase, and of each part of phases
+18 to 21, on a `[launches]` line), each phase's seconds on a
 `[phases]` line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
@@ -611,12 +656,13 @@ LM = dict(vocab=512, d_model=256, n_layers=4, n_heads=8, ff=4, max_len=512)
 LM_LONG = dict(vocab=512, d_model=512, n_layers=8, n_heads=8, ff=4,
                max_len=2048)
 SEQ_P = 4
-# the long-context LM at half depth, full width: phase 19 runs it, and
-# phase 18 since phase 19 joined the script (phase 6 keeps all 8
-# layers); phases 9 (c), 14, 15 and 17, whose CPU twins and references
-# carry host time, run it at a quarter (2 layers; 4 before phase 19 and
-# its scheduled reference joined the script), to keep the whole run
-# under 600 s
+# the long-context LM at half depth, full width: phase 18 runs it since
+# phase 19 joined the script (its pipe=4 needs 4 blocks; phase 6 keeps
+# all 8 layers); phases 9 (c), 14, 15, 17 and 19, whose CPU twins,
+# references and processes carry host time, run it at a quarter (2
+# layers; 4 before phase 19 and its scheduled reference joined the
+# script, and phase 19 itself until phase 21 did), to keep the whole
+# run under 600 s
 LM_LONG_CUT = dict(LM_LONG, n_layers=4)
 LM_LONG_QUARTER = dict(LM_LONG, n_layers=2)
 # the smoke LM at half depth, full width: phases 8, 9 (a, b, d) and 16,
@@ -2323,10 +2369,11 @@ SPEC_K = 4
 
 
 def _serve(net, reqs, n_tok, warm_len, **kw):
-    """One warmed server over `reqs` ([(prompt, {generate_async
-    kwargs})]): (token lists, wall seconds, launches by kernel and by
-    dtype of the run, the engine). The launch counts start at 0 just
-    before the requests are submitted."""
+    """One server over `reqs` ([(prompt, {generate_async kwargs})]),
+    warmed by `GenerationServer.warmup(warm_len)` (a length or a
+    (shortest, longest) range; None: not warmed): (token lists, wall
+    seconds, launches by kernel and by dtype of the run, the engine). The
+    launch counts start at 0 just before the requests are submitted."""
     import torch
     from deeplearning4j_tpu_torch import kernels as K
     from deeplearning4j_tpu_torch.serving import GenerationServer
@@ -2339,7 +2386,8 @@ def _serve(net, reqs, n_tok, warm_len, **kw):
                            device=net.device, **kw)
     for p in prefixes:
         srv.register_prefix(p)
-    srv.warmup(warm_len, 4)
+    if warm_len is not None:
+        srv.warmup(warm_len, 4)
     K.reset_launches()
     srv.start()
     try:
@@ -2436,7 +2484,8 @@ def phase_serving_features(device, report, fails, cfg, small=False):
     lens = lens[:n_req]
     greedy = [(p, {}) for p in prompts]
     rng = np.random.default_rng(808)
-    warm = int(max(lens))
+    # each server warms on the traffic's length buckets only
+    warm = (int(min(lens)), int(max(lens)))
     rows, launches = {}, {}
 
     def add(counts):
@@ -2583,7 +2632,8 @@ def phase_serving_features(device, report, fails, cfg, small=False):
     pre_prompts = [np.concatenate([prefix, rng.integers(0, V, n)])
                    for n in sfx]
     pre_reqs = [(p, {}) for p in pre_prompts]
-    pwarm = int(max(len(p) for p in pre_prompts))
+    pwarm = (int(min(len(p) for p in pre_prompts)),
+             int(max(len(p) for p in pre_prompts)))
     private, p_row, _ = serve(net, pre_reqs, "vanilla_prefix",
                               warm_len=pwarm)
     for name, kw in (("prefix_registered", dict(prefixes=[prefix])),
@@ -9178,11 +9228,11 @@ ELASTIC_PARAMS_SEED, ELASTIC_DATA_SEED = 1919, 19
 
 
 def _elastic_cfg(small):
-    return (ELASTIC_SMALL if small else ELASTIC)["cfg"] or LM_LONG_CUT
+    return (ELASTIC_SMALL if small else ELASTIC)["cfg"] or LM_LONG_QUARTER
 
 
 def elastic_lm(device, small=False):
-    """Phase 19's LM (the long-context config at `LM_LONG_CUT`'s depth,
+    """Phase 19's LM (the long-context config at `LM_LONG_QUARTER`'s depth,
     seeded params, Adam(LONG_LR)), built on `device`: the model builder
     the elastic drill's workers import."""
     cfg = _elastic_cfg(small)
@@ -9478,19 +9528,19 @@ def _print_elastic(out):
 # [fit_B, max_len - 1] publishing every `publish_every`; the servers
 # have `n_slots` slots of block_len 16 and a pool for that many
 # full-budget streams; (b) bursts `greedy` + `sampled` requests of
-# `n_tok` tokens (prompts `lens`, warmup grid up to `warm_len`) and
-# sends `after` more past the flip; (c) floods twice the greedy prompts
+# `n_tok` tokens (prompts `lens`, warmed on their buckets) and sends
+# `after` more past the flip; (c) floods twice the greedy prompts
 # and the sampled ones against `queue_high`; (d) floods `flood_greedy`
 # greedy and the sampled requests across two replicas; (e) routes
 # [route_B, route_T] token ids
 FLEET = dict(cfg=None, fit_B=8, fit_steps=6, publish_every=3, n_slots=8,
-             greedy=16, sampled=4, n_tok=64, lens=(16, 64), warm_len=64,
-             after=8, queue_high=8, flood_greedy=12, route_B=4,
-             route_T=128, ready_timeout_s=300.0)
+             greedy=16, sampled=4, n_tok=64, lens=(16, 64), after=8,
+             queue_high=8, flood_greedy=12, route_B=4, route_T=128,
+             ready_timeout_s=300.0)
 FLEET_SMALL = dict(FLEET, cfg=dict(LM, d_model=64, n_heads=4, n_layers=2,
                                    max_len=128),
                    fit_B=2, n_slots=4, greedy=8, sampled=2, n_tok=32,
-                   lens=(3, 24), warm_len=24, after=4, queue_high=2,
+                   lens=(3, 24), after=4, queue_high=2,
                    flood_greedy=8, route_B=2, route_T=32,
                    ready_timeout_s=120.0)
 FLEET_BL = 16
@@ -9590,7 +9640,7 @@ def _fleet_refs(cfg, c, nets, reqs):
     refs, eps, cpus = {}, {}, {}
     greedy = [p for p, a in reqs if not a]
     for v, net in nets.items():
-        refs[v] = _serve(net, reqs, c["n_tok"], FLEET_BL,
+        refs[v] = _serve(net, reqs, c["n_tok"], None,
                          n_slots=kw["n_slots"])[0]
         eps[v] = _wide_vs_single(net, greedy[:c["n_slots"]])
         cpus[v] = cpu_twin(net)
@@ -9658,15 +9708,16 @@ def _wait(cond, timeout, what, every=0.001):
 
 
 def _fleet_swap(fails, cfg, c, fleet, router, reqs, held, rec):
-    """(b): deploy v1 warmed behind the router, burst, swap to v2 in a
-    background thread once the burst's first token is out, then the
-    `after` requests past the flip."""
+    """(b): deploy v1 behind the router, warmed (it and every successor)
+    on the burst's buckets, burst, swap to v2 in a background thread
+    once the burst's first token is out, then the `after` requests past
+    the flip."""
     import threading
     n_tok = c["n_tok"]
     rec.start("b")
     t0 = time.perf_counter()
-    fleet.deploy("lm", version=1, warmup_prompt_len=c["warm_len"],
-                 warmup_tokens=4, **_fleet_server_kw(cfg, c))
+    fleet.deploy("lm", version=1, warmup_prompt_len=c["lens"],
+                 **_fleet_server_kw(cfg, c))
     deploy_s = time.perf_counter() - t0
     burst = [router.submit("lm", p, n_tok, **a) for p, a in reqs]
     _wait(lambda: any(s.tokens for s in burst), 120,
@@ -9983,6 +10034,584 @@ def _print_fleet(out):
           f"launches by part {out['launches_by_part']}", flush=True)
 
 
+# the base trains `pretrain` steps on the base task (shift 1, as
+# `scripts/tenant_loadtest.py`'s base does) before it is published; its
+# head is unscaled, so the held-out loss starts near uniform's. A and B
+# learn shifts 2 and 3; C fine-tunes the base task, whose held-out loss
+# its shuffled labels (uniform over the vocabulary) can push up: a model
+# worse than uniform on its task would improve on any labels, and no
+# drift gate could see the drift
+TENANCY = dict(cfg=None, B=8, steps=6, publish_every=3, ckpt_every=3,
+               rank=4, alpha=8.0, lr=1e-3, pretrain=10, head=1.0,
+               shifts=(2, 3, 1), drift=(3, 3, 9), heldout=8, band=0.02,
+               resume_at=3,
+               kill_after=4, n_slots=8, burst=8, after=4, n_tok=32,
+               lens=(16, 64), equal_n=2, equal_len=16)
+TENANCY_SMALL = dict(TENANCY, cfg=dict(LM, d_model=64, n_heads=4,
+                                       n_layers=2, max_len=128),
+                     B=2, rank=2, head=4.0, heldout=2, n_slots=4, burst=4,
+                     after=2,
+                     n_tok=16, lens=(3, 24), equal_len=8)
+TENANTS = ("A", "B", "C")
+# the kernels each part of phase 21 launches on the card: (a)-(c) train
+# adapters (flash forward and backward, both LayerNorms, the factors'
+# fused Adam); (d) serves greedy requests (LayerNorm; prefill attends
+# through the KV-cache path, not flash)
+_ADAPTER_TRAIN_KERNELS = ("layer_norm", "residual_layer_norm",
+                          "flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv", "fused_adam")
+TENANCY_KERNELS = {"a": _ADAPTER_TRAIN_KERNELS,
+                   "b": _ADAPTER_TRAIN_KERNELS,
+                   "c": _ADAPTER_TRAIN_KERNELS,
+                   "d": ("layer_norm",)}
+TENANCY_PARAMS_SEED, TENANCY_CYCLE_SEED, TENANCY_PROMPT_SEED = 2121, 21, 210
+HALF_BASE = 0.5    # (d): a tenant may add at most half a base copy
+
+
+def tenant_records(cfg, n, shift, seed, shuffled=False, period=64):
+    """n records [2, T] (T = max_len - 1) of a task: windows of one
+    seeded period-`period` token cycle (`lm_corpus`'s) at seeded starts,
+    row 0 the input ids, row 1 the ids `shift` places ahead in the cycle
+    (each tenant learns its own shift, as `scripts/tenant_loadtest.py`'s
+    do); `shuffled` replaces row 1 by seeded random ids over the
+    vocabulary (the drift)."""
+    V, T = cfg["vocab"], cfg["max_len"] - 1
+    cycle = np.random.default_rng(TENANCY_CYCLE_SEED).choice(
+        V, period, replace=False)
+    rng = np.random.default_rng(seed)
+    idx = (rng.integers(0, period, n)[:, None] + np.arange(T)) % period
+    y = (rng.integers(0, V, (n, T)) if shuffled
+         else cycle[(idx + shift) % period])
+    return np.stack([cycle[idx], y], axis=1).astype(np.int32)
+
+
+def _tenant_stream(cfg, transport, topic, records, B):
+    import functools
+
+    from deeplearning4j_tpu_torch.online import (
+        StreamingDataSetIterator, lm_example)
+    from deeplearning4j_tpu_torch.streaming import serialize_ndarray
+    for r in records:
+        transport.send(topic, serialize_ndarray(r))
+    return StreamingDataSetIterator(
+        transport, topic, batch_size=B,
+        record_to_example=functools.partial(lm_example,
+                                            vocab_size=cfg["vocab"]),
+        watermark_timeout_s=5.0, poll_s=0.02)
+
+
+def _tenant_records_of(cfg, c, i):
+    """Tenant i's stream: `steps` clean batches, and for the last tenant
+    (C) the drift segment: `drift` = (clean, shuffled, clean) batches."""
+    shift, B = c["shifts"][i], c["B"]
+    if i < len(TENANTS) - 1:
+        return tenant_records(cfg, c["steps"] * B, shift, 100 + i)
+    n0, n1, n2 = (k * B for k in c["drift"])
+    return np.concatenate([
+        tenant_records(cfg, n0, shift, 100 + i),
+        tenant_records(cfg, n1, shift, 200 + i, shuffled=True),
+        tenant_records(cfg, n2, shift, 300 + i)])
+
+
+def _steps_listener():
+    """A training listener keeping each step's loss and a copy of the
+    attached adapter's factors (on the card), by global step."""
+    from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+    from deeplearning4j_tpu_torch.tenancy import lora
+
+    class Steps(TrainingListener):
+        def __init__(self):
+            self.losses, self.factors = {}, {}
+
+        def iteration_done(self, model, iteration, epoch, score, **info):
+            self.losses[iteration] = float(score)
+            self.factors[iteration + 1] = lora.extract_adapter(model)
+
+    return Steps()
+
+
+def _tenant_train(device, fails, cfg, c, i, net, reg, transport, root,
+                  rec, part):
+    """One tenant's online adapter training on the shared base `net`
+    (parts (a) and (b)): a fresh rank-`rank` adapter attached frozen, an
+    OnlineTrainer over the tenant's stream with an AdapterPublishListener
+    every `publish_every` steps and a CheckpointListener every
+    `ckpt_every` (with the cursor); the last tenant's run has a
+    loss-band DriftGate on held-out clean records gating the publishes.
+    Returns the run's record; the adapter is stripped after."""
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.datasets.dataset import DataSet
+    from deeplearning4j_tpu_torch.online import (
+        DriftGate, OnlineTrainer, lm_example)
+    from deeplearning4j_tpu_torch.tenancy import lora
+    t, B = TENANTS[i], c["B"]
+    records = _tenant_records_of(cfg, c, i)
+    steps = len(records) // B
+    gate = None
+    if t == TENANTS[-1]:
+        held = tenant_records(cfg, c["heldout"], c["shifts"][i], 400 + i)
+        xy = [lm_example(r, vocab_size=cfg["vocab"]) for r in held]
+        gate = DriftGate(DataSet(np.stack([a for a, _ in xy]),
+                                 np.stack([b for _, b in xy])),
+                         frequency=1, band=c["band"], metric="loss",
+                         tag=f"tenant-{t}", printer=lambda s: None)
+    listener = reg.adapter_publish_listener(
+        "lm", t, base_version=1, rank=c["rank"], alpha=c["alpha"],
+        frequency=c["publish_every"],
+        gate=None if gate is None else gate.allow_publish)
+    lora.attach_adapter(net, lora.init_adapter(net, rank=c["rank"],
+                                               seed=100 + i),
+                        rank=c["rank"], alpha=c["alpha"], frozen=True)
+    seen = _steps_listener()
+    it = _tenant_stream(cfg, transport, f"tenant-{t}", records, B)
+    trainer = OnlineTrainer(
+        net, it, checkpoint_dir=os.path.join(root, f"ckpt-{t}"),
+        checkpoint_frequency=c["ckpt_every"], drift_gate=gate,
+        listeners=[seen, listener])
+    start = net.iteration_count
+    rec.start(part)
+    t0 = time.perf_counter()
+    summary = trainer.run(max_steps=steps)
+    _sync(device)
+    fit_s = time.perf_counter() - t0
+    fused = K.LAUNCHES["fused_adam"]
+    rec.stop()
+    lora.strip_adapter(net)
+    out = dict(tenant=t, steps=summary["iterations"], fit_s=fit_s,
+               start_iteration=start,
+               losses=[seen.losses[k] for k in sorted(seen.losses)],
+               versions=list(listener.published_versions),
+               published_steps=list(listener.published_steps),
+               gated_skips=listener.gated_skips,
+               cursor=summary.get("cursor"))
+    # the zips restored on the CPU against the card's factors at their
+    # publish steps, bit for bit
+    equal, nbytes = {}, {}
+    for v, step in zip(listener.published_versions,
+                       listener.published_steps):
+        back, meta, _ = reg.resolve_adapter("lm", t, v)
+        card = seen.factors[step]
+        equal[v] = (meta["step"] == step and back.keys() == card.keys()
+                    and all(back[lk].keys() == card[lk].keys()
+                            and all(_equal_on_cpu(back[lk][pk][s],
+                                                card[lk][pk][s])
+                                    for pk in card[lk] for s in "BA")
+                            for lk in card))
+        nbytes[v] = os.path.getsize(reg.adapter_path("lm", t, v))
+    out.update(bit_equal=equal, zip_bytes=nbytes,
+               factor_bytes=lora.adapter_bytes(seen.factors[start + steps]),
+               final=seen.factors[start + steps])
+    fails.check(out["steps"] == steps and all(equal.values())
+                and len(equal) >= 2,
+                f"tenancy ({part}) {t}: {out['steps']} of {steps} steps, "
+                f"publishes {listener.published_versions} at "
+                f"{listener.published_steps}, zips against the card's "
+                f"factors {equal}")
+    if device.type == "cuda":
+        # the factors' update is one fused-Adam launch a step (50 leaves
+        # at rank 4 on the 4-block LM, one launch of up to 96)
+        fails.check(fused == steps, f"tenancy ({part}) {t}: {fused} "
+                                    f"fused-Adam launches in {steps} steps")
+    out["fused_adam_launches"] = fused
+    if gate is not None:
+        out["gate"] = dict(trips=gate.trips, paused=gate.paused,
+                           best=gate.best_score,
+                           history=[(int(i_), float(s), bool(p))
+                                    for i_, s, p in gate.history])
+    return out
+
+
+def _equal_on_cpu(a, b):
+    """Two tensors bit for bit, wherever each lives."""
+    import torch
+    return bool(torch.equal(a.detach().cpu(), b.detach().cpu()))
+
+
+def _tenancy_resume(device, fails, cfg, c, reg, root, ref, rec):
+    """(c): tenant A's run again on a fresh copy of the base (v1 from
+    the registry), checkpointed every `ckpt_every` steps and stopped
+    after `kill_after` (past its last checkpoint, as a kill leaves it);
+    `OnlineTrainer.resume` builds the net from the newest checkpoint
+    (the adapter attached again) and seeks a fresh stream to its cursor;
+    the resumed steps' losses and the final factors must equal (a)'s
+    uninterrupted run bit for bit."""
+    from deeplearning4j_tpu_torch.online import OnlineTrainer
+    from deeplearning4j_tpu_torch.streaming import LocalLogTransport
+    from deeplearning4j_tpu_torch.tenancy import lora
+    B, steps = c["B"], c["steps"]
+    records = _tenant_records_of(cfg, c, 0)
+    ckpt = os.path.join(root, "ckpt-resume")
+    net, _ = reg.resolve("lm", 1, device=device)
+    lora.attach_adapter(net, lora.init_adapter(net, rank=c["rank"],
+                                               seed=100),
+                        rank=c["rank"], alpha=c["alpha"], frozen=True)
+    rec.start("c")
+    t0 = time.perf_counter()
+    OnlineTrainer(net, _tenant_stream(cfg, LocalLogTransport(), "A",
+                                      records, B),
+                  checkpoint_dir=ckpt, checkpoint_frequency=c["ckpt_every"],
+                  checkpoint_at_fit_end=False).run(max_steps=c["kill_after"])
+    del net                       # the kill: only the checkpoint survives
+    it = _tenant_stream(cfg, LocalLogTransport(), "A", records, B)
+    t1 = time.perf_counter()
+    tr = OnlineTrainer.resume(ckpt, it, device=device)
+    resume_s = time.perf_counter() - t1
+    at, cursor = tr.net.iteration_count, dict(it.cursor())
+    seen = _steps_listener()
+    tr.extra_listeners.append(seen)
+    tr.run(max_steps=steps - at)
+    _sync(device)
+    total_s = time.perf_counter() - t0
+    rec.stop()
+    got = [seen.losses[k] for k in sorted(seen.losses)]
+    want = ref["losses"][at:]
+    final = lora.extract_adapter(tr.net)
+    same = all(_equal_on_cpu(final[lk][pk][s], ref["final"][lk][pk][s])
+               for lk in ref["final"] for pk in ref["final"][lk]
+               for s in "BA")
+    fails.check(at == c["resume_at"] and cursor["batch"] == at
+                and got == want and same
+                and tr.net.iteration_count == steps,
+                f"tenancy (c): resumed at {at} (cursor {cursor}), losses "
+                f"{got} against {want}, factors bit-equal {same}")
+    return dict(resumed_at=at, cursor=cursor, losses=got, want=want,
+                factors_bit_equal=same, resume_s=resume_s,
+                seconds=total_s)
+
+
+def _tenancy_requests(cfg, c):
+    rng = np.random.default_rng(TENANCY_PROMPT_SEED)
+    lo, hi = c["lens"]
+    return [(rng.integers(0, cfg["vocab"], int(k)), {})
+            for k in rng.integers(lo, hi + 1, c["burst"])]
+
+
+def _tenancy_refs(cfg, c, base, reg, reqs):
+    """Outside every part: each (tenant, adapter version)'s composed view
+    of the training base (bit-identical to the fleet's base, checked in
+    (a)), its single-server streams of the burst and its greedy margin;
+    the same streams by `attach_adapter` + `generate` against the
+    composed view's `generate`; the base's own stream."""
+    from deeplearning4j_tpu_torch.nd import quant
+    from deeplearning4j_tpu_torch.tenancy import lora
+    from deeplearning4j_tpu_torch.tenancy.fleet import _TenantNetView
+    from deeplearning4j_tpu_torch.zoo.transformer import generate
+    views, refs, eps, composed_eq, differs = {}, {}, {}, {}, {}
+    greedy = [p for p, _ in reqs]
+    L = min(c["equal_len"], *(len(p) for p in greedy[:c["equal_n"]]))
+    short = np.stack([p[:L] for p in greedy[:c["equal_n"]]])
+    base_stream = generate(base, short, c["n_tok"], temperature=0)
+    for t in TENANTS:
+        for v in (1, 2):
+            ad, meta, _ = reg.resolve_adapter("lm", t, v)
+            tree = lora.compose_serving_tree(
+                base, quant.serving_params(base, None), ad,
+                rank=int(meta["rank"]), alpha=float(meta["alpha"]))
+            view = _TenantNetView(base, lambda _m, tree=tree: tree)
+            views[(t, v)] = view
+            refs[(t, v)] = _serve(view, reqs, c["n_tok"], None,
+                                  n_slots=c["n_slots"])[0]
+            eps[(t, v)] = _wide_vs_single(view, greedy[:c["n_slots"]])
+        via_view = generate(views[(t, 2)], short, c["n_tok"], temperature=0)
+        ad, meta, _ = reg.resolve_adapter("lm", t, 2)
+        lora.attach_adapter(base, ad, rank=int(meta["rank"]),
+                            alpha=float(meta["alpha"]))
+        via_attach = generate(base, short, c["n_tok"], temperature=0)
+        lora.strip_adapter(base)
+        composed_eq[t] = bool(np.array_equal(via_view, via_attach))
+        diff = np.flatnonzero((via_view != base_stream).any(axis=0))
+        differs[t] = None if not diff.size else int(diff[0])
+    return views, refs, eps, composed_eq, differs
+
+
+def _pool_bytes(server):
+    return sum(k.numel() * k.element_size() + v.numel() * v.element_size()
+               for k, v in server.engine.pool.kv)
+
+
+def _tenancy_fleet(device, fails, cfg, c, reg, base_zip, views, refs, eps,
+                   reqs, rec):
+    """(d): a TenantFleet over lm v1 deploys A, B and C at adapter v1
+    (8 slots, block_len 16, each and each successor warmed on the
+    burst's buckets only)
+    behind a FleetRouter; a burst of `burst` greedy requests a tenant;
+    each tenant swaps to adapter v2 in its own thread once its first
+    token is out, then `after` more requests past its flip. Every stream
+    is held to its (tenant, version)'s single-server reference; one base
+    copy; memory per added tenant."""
+    import threading
+
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import FleetRouter
+    from deeplearning4j_tpu_torch.tenancy import TenantFleet, lora
+    kw = _fleet_server_kw(cfg, c)
+    on_card = device.type == "cuda"
+
+    def allocated():
+        """(tensor bytes, with cuBLAS's workspaces) on the card: each
+        server's scheduler thread gets its own cuBLAS handle, whose
+        workspace (32 MiB on this card) comes from the same allocator,
+        so the tensors are counted with the (idle) servers' workspaces
+        freed."""
+        if not on_card:
+            return None, None
+        torch.cuda.synchronize()
+        raw = torch.cuda.memory_allocated(device)
+        clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+        if clear is not None:
+            clear()
+        return torch.cuda.memory_allocated(device), raw
+
+    fleet = TenantFleet(reg, "lm", device=device)
+    rec.start("d")
+    try:
+        router = FleetRouter(fleet)
+        mem, deploy_s, pool = [allocated()], {}, {}
+        for t in TENANTS:
+            t0 = time.perf_counter()
+            fleet.deploy(t, version=1, warmup_prompt_len=c["lens"], **kw)
+            pool[t] = _pool_bytes(fleet.server(t))
+            deploy_s[t] = time.perf_counter() - t0
+            mem.append(allocated())
+        copies = fleet.shared_base_copies()
+        burst = {t: [router.submit(t, p, c["n_tok"]) for p, _ in reqs]
+                 for t in TENANTS}
+        box, threads, flips = {}, {}, {}
+
+        def swap(t):
+            t0 = time.perf_counter()
+            try:
+                box[t] = fleet.swap(t, version=2)
+            finally:
+                box[f"{t}_s"] = time.perf_counter() - t0
+
+        for t in TENANTS:
+            _wait(lambda t=t: any(s.tokens for s in burst[t]), 120,
+                  f"tenant {t}'s first token")
+            threads[t] = threading.Thread(target=swap, args=(t,),
+                                          name=f"swap-{t}", daemon=True)
+            flips[t] = time.monotonic()
+            threads[t].start()
+        after = {}
+        for t in TENANTS:
+            _wait(lambda t=t: fleet.version(t) == 2
+                  or not threads[t].is_alive(), 600, f"{t}'s flip")
+            flips[t] = time.monotonic() - flips[t]
+            after[t] = [router.submit(t, reqs[i][0], c["n_tok"])
+                        for i in range(c["after"])]
+        for th in threads.values():
+            th.join(timeout=600)
+        got = {t: _results(burst[t] + after[t]) for t in TENANTS}
+        copies_after = fleet.shared_base_copies()
+        rec.stop()
+    finally:
+        fleet.stop()
+    out = dict(deploy_s=deploy_s, shared_base_copies=[copies, copies_after],
+               memory_allocated=[m for m, _ in mem],
+               memory_with_workspaces=[r for _, r in mem], per_tenant={})
+    streams = []
+    for t in TENANTS:
+        both = burst[t] + after[t]
+        dropped = [i for i, (tok, e) in enumerate(got[t]) if e is not None
+                   or len(tok) != c["n_tok"]]
+        tags = [s.version for s in both]
+        idx = list(range(len(reqs))) + list(range(c["after"]))
+        streams += [(i, (t, s.version), tok) for i, s, (tok, _) in
+                    zip(idx, both, got[t]) if tok is not None]
+        fails.check(box.get(t) == 2 and not dropped
+                    and set(tags) <= {1, 2}
+                    and all(s.version == 2 for s in after[t]),
+                    f"tenancy (d) {t}: swap {box.get(t)}, dropped {dropped}, "
+                    f"tags {tags}")
+        out["per_tenant"][t] = dict(
+            swap_s=box.get(f"{t}_s"), flip_after_s=flips[t],
+            streams=len(both), dropped=len(dropped),
+            v1_streams=tags.count(1), v2_streams=tags.count(2),
+            ttft_p50_p99_s=_pct([s.t_first - s.t_submit for s in both]),
+            ttft_after_flip_p50_p99_s=_pct([s.t_first - s.t_submit
+                                            for s in after[t]]))
+    out["hold"] = _fleet_hold(fails, "(d)", cfg, views, {}, eps, reqs, refs,
+                              streams)
+    fails.check(copies == copies_after == 1,
+                f"tenancy (d): shared_base_copies {copies}, "
+                f"{copies_after} after the swaps")
+    out["pool_bytes"] = pool
+    if on_card:
+        factors = lora.adapter_bytes(reg.resolve_adapter("lm", "A", 1)[0])
+        grow = [b[0] - a[0] for a, b in zip(mem, mem[1:])]
+        # the tenant's tensors and its thread's cuBLAS workspace (the
+        # reading before was taken with every workspace freed)
+        out["growth_with_workspaces"] = [b[1] - a[0]
+                                         for a, b in zip(mem, mem[1:])]
+        limit = [pool[t] + factors + HALF_BASE * base_zip for t in TENANTS]
+        out.update(memory_growth=grow, memory_limit=limit)
+        fails.check(all(g <= m for g, m in zip(grow, limit)),
+                    f"tenancy (d): memory per added tenant {grow} bytes, "
+                    f"limits {limit} (pool {pool}, factors {factors}, "
+                    f"half a base {HALF_BASE * base_zip:.0f})")
+    return out
+
+
+def phase_tenancy(device, report, fails, small=False):
+    """Phase 21 on `device` (see the module docstring, 21 (a)-(d)):
+    multi-tenant LoRA serving and online training on the smoke LM.
+    `small` (the CPU rehearsal) shrinks the LM and the traffic. Returns
+    the phase's kernel launches, the sum of its parts'; each part's are
+    in the report's `launches_by_part`."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.serving import ModelRegistry
+    from deeplearning4j_tpu_torch.streaming import LocalLogTransport
+    c = TENANCY_SMALL if small else TENANCY
+    cfg = c["cfg"] or LM
+    t_start = time.perf_counter()
+    out = dict(config=dict(cfg, **_fleet_server_kw(cfg, c), rank=c["rank"],
+                           alpha=c["alpha"], fit=[c["B"], cfg["max_len"] - 1],
+                           burst=[c["burst"], c["after"], c["n_tok"]]))
+    rec, parts = _PartLaunches(), {}
+    os.makedirs(OUT_DIR, exist_ok=True)
+    root = tempfile.mkdtemp(prefix="tenancy_registry_", dir=OUT_DIR)
+    try:
+        from deeplearning4j_tpu_torch.online import lm_example
+        base = build_lm(cfg, device, random_lm_params(
+            cfg, seed=TENANCY_PARAMS_SEED, head_scale=c["head"]), lr=c["lr"])
+        t0 = time.perf_counter()
+        xy = [lm_example(r, vocab_size=cfg["vocab"]) for r in
+              tenant_records(cfg, c["pretrain"] * c["B"], 1, 7)]
+        base.fit(np.stack([x for x, _ in xy]), np.stack([y for _, y in xy]),
+                 batch_size=c["B"], shuffle=False)
+        base.iteration_count = base.epoch_count = 0
+        parts["pretrain"] = time.perf_counter() - t0
+        out["pretrain_loss"] = float(base.score_value)
+        reg = ModelRegistry(os.path.join(root, "registry"), keep_last=8)
+        assert reg.publish("lm", base) == 1
+        base_zip = os.path.getsize(reg.path("lm", 1))
+        before = {k: v.detach().clone()
+                  for k, v in base.param_table().items()}
+        transport = LocalLogTransport()
+        runs = {}
+        for i, t in enumerate(TENANTS):
+            part = "b" if t == TENANTS[-1] else "a"
+            t0 = time.perf_counter()
+            runs[t] = _tenant_train(device, fails, cfg, c, i, base, reg,
+                                    transport, root, rec, part)
+            parts[part] = parts.get(part, 0.0) + time.perf_counter() - t0
+        after = base.param_table()
+        same = all(torch.equal(before[k], after[k]) for k in before)
+        fractions = {t: max(r["zip_bytes"].values()) / base_zip
+                     for t, r in runs.items()}
+        fails.check(same, "tenancy (a): the base's params moved while the "
+                          "tenants trained their adapters")
+        fails.check(all(f < 0.05 for f in fractions.values()),
+                    f"tenancy (a): adapter zip / base zip {fractions}")
+        g = runs[TENANTS[-1]]
+        gated = g["gated_skips"]
+        tripped = [i for i, _, p in g["gate"]["history"] if p]
+        published_after_trip = [s for s in g["published_steps"]
+                                if tripped and s > tripped[0] + 1]
+        fails.check(g["gate"]["trips"] >= 1 and gated >= 1
+                    and bool(published_after_trip)
+                    and not g["gate"]["paused"],
+                    f"tenancy (b): drift gate trips {g['gate']['trips']}, "
+                    f"gated publishes {gated}, published at "
+                    f"{g['published_steps']}, paused at the end "
+                    f"{g['gate']['paused']}, history {g['gate']['history']}")
+        out["a"] = {t: {k: v for k, v in r.items() if k != "final"}
+                    for t, r in runs.items()}
+        out["a"]["base_bit_identical"] = same
+        out["a"]["zip_fraction"] = fractions
+        out["a"]["base_zip_bytes"] = base_zip
+        t0 = time.perf_counter()
+        out["c"] = _tenancy_resume(device, fails, cfg, c, reg, root,
+                                   runs[TENANTS[0]], rec)
+        parts["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        reqs = _tenancy_requests(cfg, c)
+        views, refs, eps, composed_eq, differs = _tenancy_refs(
+            cfg, c, base, reg, reqs)
+        parts["references"] = time.perf_counter() - t0
+        fails.check(all(composed_eq.values()),
+                    f"tenancy (d): attach_adapter + generate against the "
+                    f"composed tree's generate {composed_eq}")
+        fails.check(all(d is not None for d in differs.values()),
+                    f"tenancy (d): first token where each tenant's v2 "
+                    f"stream leaves the base's {differs}")
+        del base
+        t0 = time.perf_counter()
+        out["d"] = _tenancy_fleet(device, fails, cfg, c, reg, base_zip,
+                                  views, refs, eps, reqs, rec)
+        out["d"].update(attach_equals_compose=composed_eq,
+                        v2_leaves_base_at=differs)
+        parts["d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    launches = {k: sum(p.get(k, 0) for p in rec.by_part.values())
+                for k in KERNEL_META}
+    if device.type == "cuda":
+        for part, kernels in TENANCY_KERNELS.items():
+            _launched(fails, f"tenancy part {part}",
+                      rec.by_part.get(part, {}), kernels)
+    out["part_seconds"] = parts
+    out["launches_by_part"] = rec.by_part
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["seconds"] = time.perf_counter() - t_start
+    report["tenancy"] = out
+    _print_tenancy(out)
+    return launches
+
+
+def _print_tenancy(out):
+    a, cc, d = out["a"], out["c"], out["d"]
+    for t in TENANTS:
+        r = a[t]
+        gate = r.get("gate")
+        print(f"[tenancy] {'(b)' if gate else '(a)'} tenant {t}: "
+              f"{r['steps']} steps in {r['fit_s']:.2f} s, losses "
+              f"{[round(x, 4) for x in r['losses']]}, adapter v"
+              f"{r['versions']} at steps {r['published_steps']} "
+              f"(zips {r['zip_bytes']} bytes, {a['zip_fraction'][t]:.4f} "
+              f"of the base zip, bit-equal to the card {r['bit_equal']}), "
+              f"gated {r['gated_skips']}, fused-Adam launches "
+              f"{r['fused_adam_launches']}", flush=True)
+        if gate:
+            print(f"[tenancy] (b) drift gate: trips {gate['trips']}, best "
+                  f"{gate['best']:.4f}, history (iteration, loss, paused) "
+                  f"{[(i, round(s, 4), p) for i, s, p in gate['history']]}",
+                  flush=True)
+    print(f"[tenancy] (a) base bit-identical after every tenant trained: "
+          f"{a['base_bit_identical']} (base zip {a['base_zip_bytes']} "
+          f"bytes)", flush=True)
+    print(f"[tenancy] (c) resumed at step {cc['resumed_at']} (cursor "
+          f"{cc['cursor']}) in {cc['resume_s']:.2f} s: losses {cc['losses']}"
+          f" against {cc['want']}, factors bit-equal "
+          f"{cc['factors_bit_equal']}; {cc['seconds']:.2f} s", flush=True)
+    print(f"[tenancy] (d) deploy s {_round(d['deploy_s'])}, "
+          f"shared_base_copies {d['shared_base_copies']}, memory_allocated "
+          f"{d['memory_allocated']} (growth {d.get('memory_growth')}, limit "
+          f"{d.get('memory_limit')}; with cuBLAS's workspaces "
+          f"{d.get('growth_with_workspaces')}); attach+generate == composed "
+          f"{d['attach_equals_compose']}, v2 leaves the base's stream at "
+          f"{d['v2_leaves_base_at']}", flush=True)
+    for t, r in d["per_tenant"].items():
+        print(f"[tenancy] (d) tenant {t}: swap {_fmt_s(r['swap_s'])} s "
+              f"(flip {r['flip_after_s']:.3f} s in), {r['streams']} streams "
+              f"({r['v1_streams']} v1, {r['v2_streams']} v2), dropped "
+              f"{r['dropped']}; TTFT p50/p99 s {r['ttft_p50_p99_s']}, past "
+              f"the flip {r['ttft_after_flip_p50_p99_s']}", flush=True)
+    print(f"[tenancy] (d) held {d['hold']}", flush=True)
+    print(f"[tenancy] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 1) for k, v in out['part_seconds'].items()} }), "
+          f"launches by part {out['launches_by_part']}", flush=True)
+
+
+def _round(d):
+    return {k: round(v, 3) for k, v in d.items()}
+
+
 KERNEL_META = {
     "layer_norm": ("deeplearning4j_tpu_torch/kernels/csrc/layernorm.cu",
                    "deeplearning4j_tpu/kernels/layernorm.py:55"),
@@ -10115,6 +10744,9 @@ def run(device, *, small=False, kernels_only=False):
         l20 = phase("fleet", phase_fleet, device, report, fails, small)
         for k in launches:
             launches[k] += (l20 or {}).get(k, 0)
+        l21 = phase("tenancy", phase_tenancy, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l21 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
@@ -10122,7 +10754,7 @@ def run(device, *, small=False, kernels_only=False):
                          ("11", l11), ("12", l12), ("13", l13),
                          ("14", l14), ("15", l15), ("16", l16),
                          ("17", l17), ("18", l18), ("19", l19),
-                         ("20", l20)) if l}
+                         ("20", l20), ("21", l21)) if l}
         for part, counts in report.get("multiprocess", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"18 {part}"] = counts
@@ -10132,6 +10764,9 @@ def run(device, *, small=False, kernels_only=False):
         for part, counts in report.get("fleet", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"20 ({part})"] = counts
+        for part, counts in report.get("tenancy", {}).get(
+                "launches_by_part", {}).items():
+            report["launches_by_phase"][f"21 ({part})"] = counts
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -10236,6 +10871,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_fleet(device, report, fails)
+        report["kernels"] = []
+    elif "--tenancy" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_tenancy(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

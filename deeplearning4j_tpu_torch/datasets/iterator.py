@@ -155,10 +155,13 @@ class AsyncDataSetIterator(DataSetIterator):
     base's batch assembly overlaps the consumer's steps.
 
     A consumer that stops early (`break`, `close()`) does not strand the
-    worker: the generator's `finally` sets the stop event, drains the
-    queue so a pending put completes, and joins the thread. An exception
-    in the base is raised in the consumer. The cursor counts the batches
-    the CONSUMER has taken, not those prefetched."""
+    worker: the generator's `finally` sets the stop event, calls the
+    base's `abandon()` when it has one (an unbounded stream's worker may
+    be blocked inside the base's watermark wait, where the stop event is
+    invisible: `online/iterator.py`), drains the queue so a pending put
+    completes, and joins the thread. An exception in the base is raised
+    in the consumer. The cursor counts the batches the CONSUMER has
+    taken, not those prefetched."""
 
     _SENTINEL = object()
 
@@ -208,6 +211,9 @@ class AsyncDataSetIterator(DataSetIterator):
                 yield item
         finally:
             stop.set()
+            abandon = getattr(self.base, "abandon", None)
+            if abandon is not None:
+                abandon()
             while True:
                 try:
                     q.get_nowait()

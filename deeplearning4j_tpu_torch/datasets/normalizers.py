@@ -39,6 +39,13 @@ def register_normalizer(cls):
 def normalizer_from_meta(meta: dict, arrays: dict) -> "Normalizer":
     cls = _REGISTRY.get(meta.get("kind"))
     if cls is None:
+        # the online normalizers register on import of their module: a
+        # checkpoint an OnlineTrainer wrote restores through plain
+        # `fault.resume()` without the caller importing online/ first
+        import importlib
+        importlib.import_module("deeplearning4j_tpu_torch.online.normalizer")
+        cls = _REGISTRY.get(meta.get("kind"))
+    if cls is None:
         raise ValueError(f"Unknown normalizer kind: {meta.get('kind')!r}")
     return cls._from_state(meta, arrays)
 

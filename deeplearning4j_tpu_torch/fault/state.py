@@ -114,12 +114,17 @@ def _host_tree(tree) -> Dict:
 
 def model_arrays(model) -> Dict[str, Dict]:
     """Host copies of the model's params ({key: {JAX name: array}}),
-    running state and updater state."""
+    running state and updater state, and of an attached LoRA adapter's
+    factors ({key: {JAX name: {"B", "A"}}}, `tenancy/lora.py`) under
+    "adapter"."""
     params = {key: layer.jax_param_map() for key, layer in model.keyed()
               if layer.jax_param_map()}
-    return {"params": _host_tree(params),
-            "net_state": _host_tree(model.net_state),
-            "updater_state": _host_tree(model.updater_state)}
+    out = {"params": _host_tree(params),
+           "net_state": _host_tree(model.net_state),
+           "updater_state": _host_tree(model.updater_state)}
+    if model.adapted:
+        out["adapter"] = _host_tree(model.adapter_factors())
+    return out
 
 
 # ------------------------------------------------------------------ capture
@@ -159,6 +164,11 @@ def capture_training_state(model, *, iterator=None, normalizer=None,
         "epoch_count": int(model.epoch_count if epoch is None else epoch),
         "score": float(getattr(model, "score_value", float("nan"))),
     }
+    if "adapter" in arrays:
+        # the adapter's rank, alpha and frozen flag, so a resume into a
+        # net built from the configuration can attach it again
+        from deeplearning4j_tpu_torch.tenancy import lora
+        meta["adapter"] = lora.adapter_config(model)
     if src.get("trainer_arrays"):
         arrays["trainer"] = _host_tree(src["trainer_arrays"])
     if src.get("trainer_meta"):
@@ -222,14 +232,16 @@ def _pairs(tree: Dict, src: Dict, section: str):
 
 
 def load_arrays(model, arrays: Dict[str, Any]):
-    """Copy a checkpoint's params, running state and updater state into
-    `model`'s tensors in place."""
+    """Copy a checkpoint's params, running state, updater state and
+    adapter factors into `model`'s tensors in place."""
     params = {key: layer.jax_param_map() for key, layer in model.keyed()}
     pairs = (_pairs(params, arrays.get("params") or {}, "params")
              + _pairs(model.net_state, arrays.get("net_state") or {},
                       "net_state")
              + _pairs(model.updater_state, arrays.get("updater_state") or {},
-                      "updater_state"))
+                      "updater_state")
+             + _pairs(model.adapter_factors(), arrays.get("adapter") or {},
+                      "adapter"))
     with torch.no_grad():
         for _, t, arr in pairs:
             t.copy_(torch.from_numpy(np.ascontiguousarray(arr)).to(
@@ -243,8 +255,13 @@ def restore_training_state(model, state: Dict[str, Any], *, trainer=None,
     residual, τ and per-replica stacks into it, and move `iterator` to
     its cursor). Returns `model`. The counters come back, so the step
     keys and the updater's step continue where the run stopped, and
-    `params_version` moves on, so caches keyed on it rebuild."""
+    `params_version` moves on, so caches keyed on it rebuild. A state
+    that carries an adapter attaches it to a `model` without one."""
     arrays, meta = state["arrays"], state["meta"]
+    if meta.get("adapter"):
+        if not model.adapted:
+            from deeplearning4j_tpu_torch.tenancy import lora
+            lora.attach_adapter(model, arrays["adapter"], **meta["adapter"])
     load_arrays(model, arrays)
     model.iteration_count = int(meta.get("iteration_count", 0))
     model.epoch_count = int(meta.get("epoch_count", 0))

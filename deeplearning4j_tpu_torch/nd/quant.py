@@ -1,8 +1,8 @@
 """Int8 weight-only serving and the serving-weights seam (counterpart of
 `deeplearning4j_tpu/nd/quant.py`: `QuantizedTensor` :56, `quantize`
-:97, `dequantize` :119, `matmul` :143, `quantized_weight_keys` :160,
-`quantize_net_params` :172, `serving_params` :190, `weight_bytes`
-:211).
+:97, `dequantize` :119, `register_matmul_extension` :133, `matmul`
+:143, `quantized_weight_keys` :160, `quantize_net_params` :172,
+`serving_params` :190, `weight_bytes` :211).
 
 Scheme, as in JAX: per-output-channel symmetric int8,
 ``scale[c] = max|W[:, c]| / 127`` (fp32, keepdims; an all-zero channel
@@ -26,6 +26,16 @@ JAX's `cast_params` tree-map gives). Nothing is installed for an fp32
 net without quantization, so that path reads the attributes unchanged.
 Because the tree is per context, a server thread decoding int8 and
 another thread calling `output()` never see each other's weights.
+
+Weight wrappers. Other weight types (the LoRA adapter node of
+`tenancy/lora.py`) register their own matmul with
+`register_matmul_extension`, as in JAX, so every layer seam composes
+them (an int8 base under an fp adapter recurses through `matmul`). A
+module may also carry a wrapper of one of its weights (`wrap_weight`,
+what `tenancy.lora.attach_adapter` installs): `weight` then hands the
+layer the wrapper around whatever it would have read (the attribute,
+the installed compute copy or int8 tree, the weight noise), unless that
+is already an extension type (a composed serving tree's own node).
 
 The tree is cached on the net under its params version
 (`MultiLayerNetwork.params_version`, which every write of the params
@@ -98,24 +108,76 @@ def dequantize(t: QuantizedTensor, dtype=torch.float32) -> torch.Tensor:
     return (t.q.float() * t.scale.float()).to(dtype)
 
 
+# weight-wrapper extension point: [(class, fn(x, w))], dispatched after
+# `QuantizedTensor`; plain tensors never reach the loop
+_MATMUL_EXTENSIONS: list = []
+_WRAPPERS = "_weight_wrappers"   # a module's {attribute: wrap(module, w)}
+
+
+def register_matmul_extension(cls, fn):
+    """Register `fn(x, w)` for weights of type `cls` in the `matmul`
+    seam. The last registration of a class wins (idempotent under module
+    reload)."""
+    global _MATMUL_EXTENSIONS
+    _MATMUL_EXTENSIONS = [(c, f) for c, f in _MATMUL_EXTENSIONS
+                          if c is not cls]
+    _MATMUL_EXTENSIONS.append((cls, fn))
+
+
+def is_extension(w) -> bool:
+    """True when `w` is of a registered weight-wrapper type."""
+    return any(isinstance(w, c) for c, _ in _MATMUL_EXTENSIONS)
+
+
 def matmul(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w``, dequantizing after the contraction when `w` is a
-    `QuantizedTensor` (the seam every quantizable layer matmul takes)."""
+    `QuantizedTensor`, through its registered matmul when `w` is an
+    extension type (the seam every quantizable layer matmul takes)."""
     if isinstance(w, QuantizedTensor):
         return torch.matmul(x, w.q.to(x.dtype)) * w.scale.to(x.dtype)
+    for cls, fn in _MATMUL_EXTENSIONS:
+        if isinstance(w, cls):
+            return fn(x, w)
     return torch.matmul(x, w)
 
 
 # ------------------------------------------------------------ the seam
 def weight(module, name: str):
     """`module`'s weight `name` as the installed serving tree holds it
-    (a compute-dtype copy or a `QuantizedTensor`), else the attribute."""
+    (a compute-dtype copy, a `QuantizedTensor` or an extension node),
+    else the attribute; inside the module's wrapper of `name`, when it
+    has one."""
+    t = None
     tree = _INSTALLED.get()
     if tree is not None:
         t = tree.get((id(module), name))
-        if t is not None:
-            return t
-    return getattr(module, name)
+    if t is None:
+        t = getattr(module, name)
+    wrappers = module.__dict__.get(_WRAPPERS)
+    if wrappers:
+        wrap = wrappers.get(name)
+        if wrap is not None and not is_extension(t):
+            return wrap(module, t)
+    return t
+
+
+def wrap_weight(module, name: str, wrap):
+    """Make `weight(module, name)` return ``wrap(module, w)`` around the
+    weight `w` it reads."""
+    module.__dict__.setdefault(_WRAPPERS, {})[name] = wrap
+
+
+def unwrap_weight(module, name: str):
+    """Drop `module`'s wrapper of `name`."""
+    wrappers = module.__dict__.get(_WRAPPERS) or {}
+    wrappers.pop(name, None)
+    if not wrappers:
+        module.__dict__.pop(_WRAPPERS, None)
+
+
+def wrapper_of(module, name: str):
+    """`module`'s wrapper of `name`, or None."""
+    return (module.__dict__.get(_WRAPPERS) or {}).get(name)
 
 
 @contextlib.contextmanager
@@ -210,10 +272,14 @@ def serving_params(net, quantize_mode: Optional[str]) -> ServingTree:
     """The serving tree of `net` for `quantize_mode` (None or "int8"),
     built once per params version and mode and cached on the net (one
     compute-dtype copy and one quantization pass per version, shared by
-    prefill, decode, the score and the drafter)."""
+    prefill, decode, the score and the drafter). An object whose class
+    defines `serving_params` (a tenant's view of a shared base,
+    `tenancy/fleet.py`) supplies its own tree."""
     if quantize_mode is not None and quantize_mode not in MODES:
         raise ValueError(f"unknown quantization mode {quantize_mode!r}; "
                          f"supported: 'int8'")
+    if getattr(type(net), "serving_params", None) is not None:
+        return net.serving_params(quantize_mode)
     cache = net.__dict__.get("_serving_params_cache")
     if cache is None or cache["version"] != net.params_version:
         cache = net.__dict__["_serving_params_cache"] = {
@@ -232,11 +298,12 @@ def serving(net, quantize_mode: Optional[str]):
 
 def weight_bytes(params_tree) -> int:
     """Bytes of every weight leaf of a JAX-keyed params tree (a
-    `QuantizedTensor` counts q + scale)."""
+    `QuantizedTensor` counts q + scale, an extension node its own
+    `nbytes`: a LoRA node its base and factors)."""
     total = 0
     for lparams in params_tree.values():
         for t in lparams.values():
-            if isinstance(t, QuantizedTensor):
+            if isinstance(t, QuantizedTensor) or is_extension(t):
                 total += t.nbytes
             else:
                 total += int(np.prod(t.shape)) * t.element_size()

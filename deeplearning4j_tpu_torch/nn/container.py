@@ -241,6 +241,10 @@ class Container(nn.Module):
         self.listeners = []
         self.score_value = float("nan")
         self.params_version = 0
+        # {(key, param name): (module, attribute, wrapper)} of the
+        # weights that carry an attached LoRA adapter, kept by
+        # `tenancy.lora.attach_adapter`/`strip_adapter`
+        self.adapted: Dict[tuple, tuple] = {}
         self._solver = None      # the fit's line-search Solver, if any
         # {key: {param name: updater state}}, keyed like the JAX net's
         # `updater_state` (Adam: {"m", "v"}; Sgd: {})
@@ -251,6 +255,15 @@ class Container(nn.Module):
 
     def keyed(self):
         return zip(self.layer_keys, self.layers)
+
+    def adapter_factors(self) -> Dict[str, Dict[str, Dict[str, torch.Tensor]]]:
+        """{key: {param name: {"B", "A"}}}: the attached adapter's factor
+        params themselves ({} without an adapter)."""
+        out: dict = {}
+        for (key, name), (module, _, wrap) in self.adapted.items():
+            B, A = wrap.factors(module)
+            out.setdefault(key, {})[name] = {"B": B, "A": A}
+        return out
 
     @property
     def net_state(self) -> Dict[str, Dict[str, torch.Tensor]]:
@@ -290,10 +303,8 @@ class Container(nn.Module):
         self.device = resolve_device(device)
         nn.Module.to(self, self.device)
         self.params_changed()
-        self.updater_state = {
-            lk: {pk: {sk: t.to(self.device) for sk, t in st.items()}
-                 for pk, st in lst.items()}
-            for lk, lst in self.updater_state.items()}
+        self.updater_state = _map_state(lambda t: t.to(self.device),
+                                        self.updater_state)
         return self
 
     def set_listeners(self, *listeners):
@@ -603,30 +614,75 @@ class Container(nn.Module):
         are upcast to the param dtype. Then each layer's constraints and
         `max_norm`, written into the params in place. A truncated-BPTT
         chunk updates unpacked (`packed=False`), as JAX's TBPTT step
-        does."""
+        does.
+
+        With a LoRA adapter attached (`tenancy/lora.py`) a frozen one
+        freezes the whole base: no base leaf moves, none of their slots
+        change. The factors move through their layer's updater
+        (`_update_factors`); an unfrozen adapted weight moves from its
+        ``"base"`` slot."""
         cd = self.dtype.compute_dtype
-        for group in self._update_groups(packed):
+
+        def grad_of(p):
+            g = p.grad if grads is None else grads.get(id(p))
+            return torch.zeros_like(p, dtype=cd) if g is None else g
+
+        adapted = self.adapted
+        frozen = any(w.frozen for _, _, w in adapted.values())
+        for group in ([] if frozen else self._update_groups(packed)):
             updater = self.updater_of(self.layers[group[0]])
             ps, gs, states = [], [], []
             for i in group:
                 key = self.layer_keys[i]
                 for name, p in self.layers[i].jax_param_map().items():
-                    g = p.grad if grads is None else grads.get(id(p))
+                    st = self.updater_state[key][name]
                     ps.append(p)
-                    gs.append(torch.zeros_like(p, dtype=cd) if g is None
-                              else g)
-                    states.append(self.updater_state[key][name])
+                    gs.append(grad_of(p))
+                    states.append(st["base"] if (key, name) in adapted
+                                  else st)
             if type(updater) is Adam and len(group) > 1:
                 adam_update_packed(updater, ps, gs,
                                    [s["m"] for s in states],
                                    [s["v"] for s in states], step)
                 continue
-            for p, g, st in zip(ps, gs, states):
-                upd, new = updater.apply(g.to(p.dtype), st, step)
-                p.sub_(upd.to(p.dtype))
-                st.update(new)
-        self._apply_constraints()
+            _per_leaf(updater, zip(ps, gs, states), step)
+        if adapted:
+            self._update_factors(step, grad_of)
+        if not frozen:
+            self._apply_constraints()
         self.params_changed()
+
+    def _update_factors(self, step: int, grad_of):
+        """The adapter factors' update: the factors of the weights whose
+        layers share one Adam configuration go through ONE
+        `adam_update_packed` call (one launch on the card for up to 96
+        leaves; bit-equal to JAX's per-leaf `Adam.apply`), any other
+        updater per leaf."""
+        layers = dict(self.keyed())
+        by_updater: Dict[int, tuple] = {}
+        for (key, name), (module, _, wrap) in self.adapted.items():
+            updater = self.updater_of(layers[key])
+            st = self.updater_state[key][name]
+            leaves = by_updater.setdefault(id(updater), (updater, []))[1]
+            for p, s in zip(wrap.factors(module), (st["B"], st["A"])):
+                leaves.append((p, grad_of(p), s))
+        adam: List[tuple] = []     # equal Adam configurations merged
+        for updater, leaves in by_updater.values():
+            if type(updater) is not Adam:
+                _per_leaf(updater, leaves, step)
+                continue
+            run = next((r for u, r in adam if u == updater), None)
+            if run is None:
+                adam.append((updater, leaves))
+            else:
+                run += leaves
+        for updater, leaves in adam:
+            adam_update_packed(
+                updater, [p for p, _, _ in leaves],
+                [g if g.stride() == p.stride() else g.contiguous()
+                 for p, g, _ in leaves],
+                [s["m"] for _, _, s in leaves],
+                [s["v"] for _, _, s in leaves], step)
 
     def _apply_constraints(self):
         """Each layer's constraints, then the global `max_norm`, on the
@@ -1118,10 +1174,12 @@ class Container(nn.Module):
                     b.jax_param_map()[name].copy_(t)
                 for name, t in a.state_map().items():
                     b.state_map()[name].copy_(t)
-        clone.updater_state = {
-            lk: {pk: {sk: t.detach().clone() for sk, t in st.items()}
-                 for pk, st in lst.items()}
-            for lk, lst in self.updater_state.items()}
+        if self.adapted:
+            from deeplearning4j_tpu_torch.tenancy import lora
+            lora.attach_adapter(clone, lora.extract_adapter(self),
+                                **lora.adapter_config(self))
+        clone.updater_state = _map_state(lambda t: t.detach().clone(),
+                                         self.updater_state)
         clone.iteration_count = self.iteration_count
         clone.epoch_count = self.epoch_count
         clone.score_value = self.score_value
@@ -1234,6 +1292,23 @@ def _shapes(tensors):
     a list of them)."""
     return [tuple(t.shape) for part in tensors
             for t in (part if isinstance(part, (list, tuple)) else [part])]
+
+
+def _per_leaf(updater, leaves, step: int):
+    """`updater`'s rule on each (param, gradient, slot) of `leaves`, in
+    place; the gradient is upcast to the param's dtype."""
+    for p, g, st in leaves:
+        upd, new = updater.apply(g.to(p.dtype), st, step)
+        p.sub_(upd.to(p.dtype))
+        st.update(new)
+
+
+def _map_state(fn, tree):
+    """`fn` over every tensor of an updater-state tree (an adapted
+    weight's slot nests {"B": ..., "A": ...})."""
+    if isinstance(tree, dict):
+        return {k: _map_state(fn, v) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _detach(tree):

@@ -115,6 +115,9 @@ class MultiHeadAttention(Layer):
     def quantizable_weights(self):
         return _NAMES
 
+    def adapter_weights(self):
+        return _NAMES
+
     def jax_param_map(self):
         m = {}
         for name in _NAMES:

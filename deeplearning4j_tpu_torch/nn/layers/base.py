@@ -289,6 +289,14 @@ class Layer(nn.Module):
         norm gains stay floating."""
         return ()
 
+    def adapter_weights(self):
+        """JAX keys of the params that may carry a LoRA low-rank delta
+        (`tenancy.lora`): 2-D matmul weights read through
+        `nd.quant.matmul`, where a `LoRAWeight` composes at the seam.
+        None by default; embedding tables stay out (their gather has no
+        matmul seam)."""
+        return ()
+
     def init_weights(self, key):
         """Draw this layer's params under the threefry `key`, as the JAX
         layer's `init_params(key)` (none by default)."""

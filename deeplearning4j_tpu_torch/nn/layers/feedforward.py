@@ -75,6 +75,10 @@ class DenseLayer(_WeightAndBias):
     def quantizable_weights(self):
         return ("W",)
 
+    def adapter_weights(self):
+        # Dense, Output and RnnOutput: the head matmul's seam
+        return ("W",)
+
     def pre_output(self, x):
         z = quant.matmul(x, quant.weight(self, "W"))
         return z + quant.weight(self, "b") if self.has_bias else z

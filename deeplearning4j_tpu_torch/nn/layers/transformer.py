@@ -167,6 +167,10 @@ class TransformerEncoderBlock(BaseRecurrentLayer):
         return ("attn_Wq", "attn_Wk", "attn_Wv", "attn_Wo", "ff_W1",
                 "ff_W2")
 
+    def adapter_weights(self):
+        return ("attn_Wq", "attn_Wk", "attn_Wv", "attn_Wo", "ff_W1",
+                "ff_W2")
+
     def init_weights(self, key):
         """The JAX block's `init_params`: the attention under
         `fold_in(key, 0)`, ff_W1 and ff_W2 under folds 11 and 12; the

@@ -30,6 +30,7 @@ from deeplearning4j_tpu_torch.serving.server import (
     TokenStream,
 )
 from deeplearning4j_tpu_torch.serving.registry import (
+    AdapterPublishListener,
     ModelRegistry,
     RegistryPublishListener,
     VersionConflictError,
@@ -55,7 +56,7 @@ from deeplearning4j_tpu_torch.serving.router import (
 )
 from deeplearning4j_tpu_torch.serving.wire import WireFormatError
 
-__all__ = ["GARBAGE_BLOCK", "BlockAllocator", "DecodeWorker",
+__all__ = ["AdapterPublishListener", "GARBAGE_BLOCK", "BlockAllocator", "DecodeWorker",
            "FleetAutoscaler", "FleetClient", "FleetRouter", "FleetServer",
            "GenerationServer", "MigratingStream", "ModelRegistry",
            "PagedDecodeEngine", "PagedKVPool", "PrefillWorker",

@@ -216,7 +216,7 @@ class FleetServer:
         self.registry.unpin(name, version)
 
     def _build_server(self, name: str, version, server_kw: dict,
-                      warm_len: Optional[int], warm_tokens: int):
+                      warm_len, warm_tokens: int):
         """Resolve + warm + start one server. The target version is
         PINNED BEFORE resolve: retention GC on a concurrent publish
         must never collect the zip of a version being (or about to be)
@@ -266,10 +266,11 @@ class FleetServer:
             for ids in prefixes:
                 server.register_prefix(ids)
             if warm_len is not None:
-                # the FULL (width x bucket x variant) grid, so the
-                # first live waves on the successor pay no first-call
-                # cost (kernel builds, allocator growth) in their TTFT
-                server.warmup(int(warm_len), warm_tokens)
+                # the (width x bucket x variant) grid over the
+                # deployment's buckets, so the first live waves on the
+                # successor pay no first-call cost (kernel builds,
+                # allocator growth) in their TTFT
+                server.warmup(warm_len, warm_tokens)
             server.start()
             return server, v
         except Exception:
@@ -278,12 +279,15 @@ class FleetServer:
             raise
 
     def deploy(self, name: str, version="latest", *,
-               warmup_prompt_len: Optional[int] = None,
+               warmup_prompt_len=None,
                warmup_tokens: int = 2, **server_kw) -> int:
         """Resolve `name`@`version` from the registry, warm a server
         (skipped when `warmup_prompt_len` is None — tests), start it,
         and pin the served version against retention GC. Returns the
-        version deployed. Re-deploying a live name is a `swap()`."""
+        version deployed. Re-deploying a live name is a `swap()`.
+        `warmup_prompt_len` is a length or a ``(shortest, longest)``
+        pair (`GenerationServer.warmup`); every successor a `swap()` or
+        `scale()` builds is warmed with it too, before its flip."""
         # check-and-RESERVE under the lock: two concurrent deploys of
         # one name both passing an unlocked has() check would each
         # build a warmed server and the overwritten one would leak

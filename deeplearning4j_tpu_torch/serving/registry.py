@@ -32,9 +32,17 @@ Contracts:
   TrainingListener that publishes at step boundaries only, as
   `fault/listener.py`'s CheckpointListener checkpoints.
 
-The per-tenant adapter store of the JAX registry (`publish_adapter`,
-`resolve_adapter`, the adapter pins and `adapter_publish_listener`)
-comes with the port of `tenancy/lora.py`.
+The adapter store (JAX `serving/registry.py:400-611`, and
+`AdapterPublishListener` :793-835): per-tenant LoRA adapter deltas
+(`tenancy/lora.py`), the multi-tenant fleet's publish unit, one level
+down with a version sequence per tenant:
+
+    <root>/<name>/adapters/<tenant>/v<version>.zip
+
+under the same contracts (one-winner link claim, newest-first resolve
+with corrupt-artifact fallback, retention that never collects a pinned
+adapter, pins riding `.pin-v<v>.<pid>` markers in the tenant's
+directory). The artifact is the adapter zip both packages read.
 """
 
 from __future__ import annotations
@@ -91,6 +99,7 @@ class ModelRegistry:
         self.keep_every = keep_every
         self._lock = threading.Lock()
         self._pinned: Set[Tuple[str, int]] = set()
+        self._adapter_pinned: Set[Tuple[str, str, int]] = set()
         self._metrics_cache = None
 
     # ------------------------------------------------------------- layout
@@ -176,7 +185,8 @@ class ModelRegistry:
             if normalizer is not None:
                 ModelSerializer.add_normalizer_to_model(tmp, normalizer)
             if version is not None:
-                committed = self._claim(tmp, name, int(version))
+                committed = self._claim(tmp, self.path(name, int(version)),
+                                        int(version))
                 if committed is None:
                     raise VersionConflictError(
                         f"{name} v{version} already exists — a concurrent "
@@ -185,7 +195,7 @@ class ModelRegistry:
             else:
                 while True:
                     nxt = (self.latest(name) or 0) + 1
-                    committed = self._claim(tmp, name, nxt)
+                    committed = self._claim(tmp, self.path(name, nxt), nxt)
                     if committed is not None:
                         break
         finally:
@@ -203,11 +213,12 @@ class ModelRegistry:
                  self.path(name, committed))
         return committed
 
-    def _claim(self, tmp: Path, name: str, version: int) -> Optional[int]:
-        """Claim `version` by hard-linking the finished tmp zip to the
+    @staticmethod
+    def _claim(tmp: Path, final: Path, version: int) -> Optional[int]:
+        """Claim `version` by hard-linking the finished tmp zip to its
         final path: `os.link` is atomic and fails with EEXIST when the
-        version is already taken — the one-winner primitive."""
-        final = self.path(name, version)
+        version is already taken — the one-winner primitive (models and
+        adapters alike)."""
         try:
             os.link(tmp, final)
             return version
@@ -273,8 +284,24 @@ class ModelRegistry:
             f"({len(tried)} candidates tried) — {detail}")
 
     # ---------------------------------------------------------- retention
-    def _pin_marker(self, name: str, version: int) -> Path:
-        return self.model_dir(name) / f".pin-v{int(version)}.{os.getpid()}"
+    @staticmethod
+    def _pin_marker(d: Path, version: int) -> Path:
+        """This process's pin marker of `version` in store directory `d`
+        (a model's, or a tenant's adapter directory)."""
+        return d / f".pin-v{int(version)}.{os.getpid()}"
+
+    def _mark(self, d: Path, version: int):
+        d.mkdir(parents=True, exist_ok=True)
+        try:
+            self._pin_marker(d, version).touch()
+        except OSError:
+            pass
+
+    def _unmark(self, d: Path, version: int):
+        try:
+            self._pin_marker(d, version).unlink()
+        except OSError:
+            pass   # marker already gone (or never written)
 
     def pin(self, name: str, version: int):
         """Protect `(name, version)` from retention GC — the
@@ -289,20 +316,12 @@ class ModelRegistry:
         still alive and sweeps stale ones from dead processes."""
         with self._lock:
             self._pinned.add((name, int(version)))
-        d = self.model_dir(name)
-        d.mkdir(parents=True, exist_ok=True)
-        try:
-            self._pin_marker(name, version).touch()
-        except OSError:
-            pass
+        self._mark(self.model_dir(name), version)
 
     def unpin(self, name: str, version: int):
         with self._lock:
             self._pinned.discard((name, int(version)))
-        try:
-            self._pin_marker(name, version).unlink()
-        except OSError:
-            pass   # marker already gone (or never written)
+        self._unmark(self.model_dir(name), version)
         # a version that outlived its pin only because it was pinned
         # gets collected at the next publish; sweep now so undeploys
         # don't leave strays until then
@@ -324,12 +343,11 @@ class ModelRegistry:
         except OSError:   # e.g. EPERM: alive under another uid
             return True
 
-    def _marker_pins(self, name: str) -> Set[int]:
-        """Versions pinned by ANY live process (marker files); stale
-        markers from dead pids are swept here."""
+    def _marker_pins(self, d: Path) -> Set[int]:
+        """Versions in store directory `d` pinned by ANY live process
+        (marker files); stale markers from dead pids are swept here."""
         import re
         keep: Set[int] = set()
-        d = self.model_dir(name)
         if not d.exists():
             return keep
         for p in d.glob(".pin-v*.*"):
@@ -346,35 +364,42 @@ class ModelRegistry:
                     pass
         return keep
 
-    def _retained(self, name: str, vs: List[int]) -> Set[int]:
+    def _collect(self, d: Path, vs: List[int], pinned: Set[int],
+                 path_of, label: str, m) -> None:
+        """Retention over one store directory `d` holding versions `vs`:
+        keep the newest `keep_last`, every `keep_every`-th, this
+        process's `pinned` and every live process's markers; unlink the
+        rest (`path_of(v)`)."""
         keep = set(vs[-self.keep_last:])
         if self.keep_every:
             keep.update(v for v in vs if v % self.keep_every == 0)
-        with self._lock:
-            keep.update(v for n, v in self._pinned if n == name)
-        keep.update(self._marker_pins(name))
-        return keep
-
-    def _gc(self, name: str, m=None):
-        vs = self.versions(name)
-        keep = self._retained(name, vs)
+        keep.update(pinned)
+        keep.update(self._marker_pins(d))
         dropped = 0
         for v in vs:
             if v in keep:
                 continue
             try:
-                self.path(name, v).unlink()
+                path_of(v).unlink()
                 dropped += 1
-                log.info("retention GC dropped %s v%d", name, v)
+                log.info("retention GC dropped %s v%d", label, v)
             except OSError:
                 pass
+        if dropped and m is not None:
+            m["gc"].inc(dropped)
+
+    def _gc(self, name: str, m=None):
+        with self._lock:
+            pinned = {v for n, v in self._pinned if n == name}
+        d = self.model_dir(name)
+        self._collect(d, self.versions(name), pinned,
+                      lambda v: self.path(name, v), name, m)
         # stale publish tmp orphans (a killed publisher's leftovers).
         # AGE-GATED: a fresh tmp is very likely a CONCURRENT publisher
         # mid-write — unlinking it between its write_model and its
         # link-claim would turn the loser's VersionConflictError into
         # a FileNotFoundError and break the one-winner contract
         import time as _time
-        d = self.model_dir(name)
         cutoff = _time.time() - 3600.0
         for p in d.glob(".publish-*.tmp.zip"):
             try:
@@ -382,8 +407,161 @@ class ModelRegistry:
                     p.unlink()
             except OSError:
                 pass
-        if dropped and m is not None:
-            m["gc"].inc(dropped)
+
+    # ----------------------------------------------------- adapter store
+    def adapter_dir(self, name: str, tenant: str) -> Path:
+        if not tenant or "/" in tenant or tenant.startswith("."):
+            raise ValueError(f"invalid tenant name {tenant!r}")
+        return self.model_dir(name) / "adapters" / tenant
+
+    def adapter_path(self, name: str, tenant: str, version: int) -> Path:
+        return self.adapter_dir(name, tenant) / f"v{int(version)}.zip"
+
+    def tenants(self, name: str) -> List[str]:
+        d = self.model_dir(name) / "adapters"
+        if not d.exists():
+            return []
+        return sorted(t.name for t in d.iterdir()
+                      if t.is_dir() and not t.name.startswith(".")
+                      and self.adapter_versions(name, t.name))
+
+    def adapter_versions(self, name: str, tenant: str) -> List[int]:
+        d = self.adapter_dir(name, tenant)
+        if not d.exists():
+            return []
+        return sorted(v for v in (_version_of(p) for p in d.iterdir())
+                      if v is not None)
+
+    def latest_adapter(self, name: str, tenant: str) -> Optional[int]:
+        vs = self.adapter_versions(name, tenant)
+        return vs[-1] if vs else None
+
+    def publish_adapter(self, name: str, tenant: str, adapter: dict, *,
+                        base_version: int, rank: int, alpha: float,
+                        version: Optional[int] = None,
+                        extra_meta: Optional[dict] = None) -> int:
+        """Publish a tenant's adapter tree against `base_version` of
+        `name`: the artifact is the delta alone, never a model zip.
+        Returns the adapter version committed; `rank`, `alpha` and
+        `base_version` ride meta.json, so `resolve_adapter` composes
+        without side-channel state."""
+        from deeplearning4j_tpu_torch.tenancy import lora
+        d = self.adapter_dir(name, tenant)
+        d.mkdir(parents=True, exist_ok=True)
+        tmp = d / f".publish-{os.getpid()}-{uuid.uuid4().hex[:8]}.tmp.zip"
+        meta = dict(extra_meta or {})
+        meta.update(model=name, tenant=tenant,
+                    base_version=int(base_version), rank=int(rank),
+                    alpha=float(alpha))
+        try:
+            lora.save_adapter(tmp, adapter, meta=meta)
+            if version is not None:
+                committed = self._claim(tmp, self.adapter_path(
+                    name, tenant, int(version)), int(version))
+                if committed is None:
+                    raise VersionConflictError(
+                        f"{name}/{tenant} adapter v{version} already "
+                        f"exists — a concurrent publish won the claim")
+            else:
+                while True:
+                    nxt = (self.latest_adapter(name, tenant) or 0) + 1
+                    committed = self._claim(
+                        tmp, self.adapter_path(name, tenant, nxt), nxt)
+                    if committed is not None:
+                        break
+        finally:
+            if tmp.exists():
+                tmp.unlink()
+        self._fsync_dir(d)
+        if monitor.is_enabled():
+            monitor.registry().counter(
+                "registry_adapter_published_total",
+                help="tenant adapter versions published",
+                model=name, tenant=tenant).inc()
+        self._gc_adapters(name, tenant)
+        GLOBAL_FLIGHT_RECORDER.record("publish_adapter", model=name,
+                                      tenant=tenant, version=committed,
+                                      base_version=int(base_version))
+        log.info("published adapter %s/%s v%d (base v%d) -> %s",
+                 name, tenant, committed, base_version,
+                 self.adapter_path(name, tenant, committed))
+        return committed
+
+    def resolve_adapter(self, name: str, tenant: str,
+                        version: Union[int, str] = "latest"):
+        """-> (adapter tree of CPU tensors, meta, version). `"latest"`
+        walks newest-first with corrupt-artifact fallback (the model
+        store's semantics); an explicit version fails hard on damage."""
+        from deeplearning4j_tpu_torch.tenancy import lora
+        vs = self.adapter_versions(name, tenant)
+        if not vs:
+            raise FileNotFoundError(
+                f"no published adapters for {name!r} tenant {tenant!r} "
+                f"under {self.root} (known tenants: {self.tenants(name)})")
+        if version != "latest":
+            v = int(version)
+            if v not in vs:
+                raise FileNotFoundError(
+                    f"{name}/{tenant} adapter v{v} is not in the "
+                    f"registry (have {vs})")
+            adapter, meta = lora.load_adapter(
+                self.adapter_path(name, tenant, v))
+            return adapter, meta, v
+        m = self._metrics()
+        tried = []
+        for v in reversed(vs):
+            try:
+                adapter, meta = lora.load_adapter(
+                    self.adapter_path(name, tenant, v))
+                return adapter, meta, v
+            except (ValueError, KeyError, OSError) as e:
+                log.warning("%s/%s adapter v%d is corrupt (%s); "
+                            "falling back", name, tenant, v, e)
+                if m is not None:
+                    m["fallback"].inc()
+                tried.append((v, e))
+        detail = "; ".join(f"v{v}: {e}" for v, e in tried)
+        raise CheckpointCorruptError(
+            f"every published adapter of {name!r}/{tenant!r} failed "
+            f"verification ({len(tried)} candidates tried) — {detail}")
+
+    def pin_adapter(self, name: str, tenant: str, version: int):
+        """Protect a served adapter version from retention GC (the
+        TenantFleet pins what each tenant decodes with), in memory and
+        by an on-disk marker, as `pin` does."""
+        with self._lock:
+            self._adapter_pinned.add((name, tenant, int(version)))
+        self._mark(self.adapter_dir(name, tenant), version)
+
+    def unpin_adapter(self, name: str, tenant: str, version: int):
+        with self._lock:
+            self._adapter_pinned.discard((name, tenant, int(version)))
+        self._unmark(self.adapter_dir(name, tenant), version)
+        self._gc_adapters(name, tenant)
+
+    def _gc_adapters(self, name: str, tenant: str):
+        with self._lock:
+            pinned = {v for n, t, v in self._adapter_pinned
+                      if n == name and t == tenant}
+        self._collect(self.adapter_dir(name, tenant),
+                      self.adapter_versions(name, tenant), pinned,
+                      lambda v: self.adapter_path(name, tenant, v),
+                      f"adapter {name}/{tenant}", self._metrics())
+
+    def adapter_publish_listener(self, name: str, tenant: str, *,
+                                 base_version: int, rank: int,
+                                 alpha: float, frequency: int = 100,
+                                 every_s: Optional[float] = None,
+                                 publish_at_fit_end: bool = True,
+                                 gate=None):
+        """The adapter-delta twin of `publish_listener`: every cadence
+        boundary ships `tenancy.lora.extract_adapter(net)` through
+        `publish_adapter`, with the same step-boundary discipline and
+        drift-gate semantics."""
+        return AdapterPublishListener(
+            self, name, tenant, base_version=base_version, rank=rank,
+            alpha=alpha, frequency=frequency, every_s=every_s,
+            publish_at_fit_end=publish_at_fit_end, gate=gate)
 
     # -------------------------------------------------- publish listener
     def publish_listener(self, name: str, *, frequency: int = 100,
@@ -563,3 +741,46 @@ class RegistryPublishListener(TrainingListener):
                 and not self._gated(int(model.iteration_count),
                                     windowed=False):
             self._publish(model, int(model.iteration_count))
+
+
+class AdapterPublishListener(RegistryPublishListener):
+    """RegistryPublishListener whose publish unit is the tenant's adapter
+    delta (`tenancy.lora.extract_adapter`) against a pinned base version:
+    the cadence, gate and step-boundary semantics are inherited; only
+    what ships changes."""
+
+    def __init__(self, registry: ModelRegistry, name: str, tenant: str,
+                 *, base_version: int, rank: int, alpha: float,
+                 frequency: int = 100, every_s: Optional[float] = None,
+                 publish_at_fit_end: bool = True, gate=None):
+        super().__init__(registry, name, frequency=frequency,
+                         every_s=every_s,
+                         publish_at_fit_end=publish_at_fit_end, gate=gate)
+        self.tenant = tenant
+        self.base_version = int(base_version)
+        self.rank = int(rank)
+        self.alpha = float(alpha)
+
+    def _publish(self, model, step: int):
+        from deeplearning4j_tpu_torch.tenancy import lora
+        adapter = lora.extract_adapter(model)
+        if not adapter:
+            raise ValueError(
+                f"model for {self.name}/{self.tenant} carries no attached "
+                f"adapter — lora.attach_adapter() before fit")
+        v = self.registry.publish_adapter(
+            self.name, self.tenant, adapter,
+            base_version=self.base_version, rank=self.rank,
+            alpha=self.alpha, extra_meta={"step": step})
+        self.published_versions.append(v)
+        self.published_steps.append(step)
+        self._last_published_step = step
+        if self.every_s is not None:
+            import time
+            self._last_published_time = time.monotonic()
+        if monitor.is_enabled():
+            monitor.registry().counter(
+                "online_adapter_publishes_total",
+                help="adapter deltas published into the serving registry "
+                     "from a tenant's training loop",
+                model=self.name, tenant=self.tenant).inc()

@@ -314,7 +314,7 @@ class GenerationServer:
             "batched forwards use ParallelInference")
 
     # ------------------------------------------------------------ warmup
-    def warmup(self, prompt_len: int, n_tokens: int = 2):
+    def warmup(self, prompt_len, n_tokens: int = 2):
         """Drive, before `start()`, the JAX server's warmup grid: an
         admission wave of every power-of-two width up to the slot count
         at every power-of-two length bucket up to the prompt's, greedy
@@ -322,11 +322,21 @@ class GenerationServer:
         and the truncated drafter once; so the kernels are built and the
         device libraries initialised before the first request. All of
         it goes to the goodput ledger's `warmup` class, and the engine's
-        traffic counters restart at 0."""
+        traffic counters restart at 0.
+
+        `prompt_len` may also be a ``(shortest, longest)`` pair of the
+        traffic's prompt lengths: the grid then covers only the buckets
+        from the shortest's to the longest's, the only ones that traffic
+        pads to (the port builds no program per bucket, so the smaller
+        buckets warm nothing it will use)."""
         if self._running:
             raise RuntimeError("warmup() must run before start()")
         eng = self.engine
         n_tokens = max(2, int(n_tokens))
+        if isinstance(prompt_len, (tuple, list)):
+            shortest, prompt_len = (int(n) for n in prompt_len)
+        else:
+            shortest = 1
         eng.check_budget(int(prompt_len), n_tokens)
         widths, w = [], 1
         while w < eng.n_slots:
@@ -340,6 +350,8 @@ class GenerationServer:
             b *= 2
         if buckets[-1] != top_bucket:
             buckets.append(top_bucket)
+        low = bucket_len(shortest, eng.max_total_tokens)
+        buckets = [b for b in buckets if b >= low]
         # the zero prompts must neither ride nor seed the prefix caches
         saved = eng._prefixes, eng._radix
         eng._prefixes, eng._radix = {}, None

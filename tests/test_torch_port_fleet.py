@@ -148,6 +148,55 @@ class TestHotSwap:
             np.testing.assert_array_equal(g, refs[s.version][i])
         np.testing.assert_array_equal(np.stack(got_post), refs[2][:6])
 
+    def test_successors_warm_over_the_deployed_length_range(
+            self, tmp_path, net_v1, net_v2, prompts, refs, monkeypatch):
+        """`warmup_prompt_len=(shortest, longest)` warms the deployment
+        and the successor each swap() and scale() builds, before its
+        flip, over the buckets from the shortest's to the longest's
+        only (prompts 3-6: buckets 4 and 8 at widths 1 and 2, greedy
+        and sampled)."""
+        warmed = {}
+        real = GenerationServer.warmup
+
+        def spy(self, prompt_len, n_tokens=2):
+            eng, waves = self.engine, warmed.setdefault(id(self), [])
+            admit = eng.admit_many
+
+            def record(reqs):
+                waves.append((len(reqs), len(reqs[0]["prompt_ids"])))
+                return admit(reqs)
+
+            eng.admit_many = record
+            try:
+                return real(self, prompt_len, n_tokens)
+            finally:
+                del eng.admit_many
+
+        monkeypatch.setattr(GenerationServer, "warmup", spy)
+        reg = _registry(tmp_path, net_v1)
+        fleet = FleetServer(reg, device="cpu")
+        router = FleetRouter(fleet)
+        try:
+            fleet.deploy("lm", n_slots=2, n_blocks=16, block_len=BL,
+                         warmup_prompt_len=(3, 6))
+            first = id(fleet.server("lm"))
+            reg.publish("lm", net_v2)
+            fleet.swap("lm")
+            swapped = id(fleet.server("lm"))
+            fleet.scale("lm", n_slots=4, n_blocks=32)
+            scaled = id(fleet.server("lm"))
+            got = router.submit("lm", prompts[0], N_TOK).result(timeout=120)
+        finally:
+            fleet.stop()
+        assert list(warmed) == [first, swapped, scaled]
+        grid = sorted((w, b) for w in (1, 2) for b in (4, 8)
+                      for _ in range(2))
+        assert sorted(warmed[first]) == grid
+        assert sorted(warmed[swapped]) == grid
+        assert sorted(warmed[scaled]) == sorted(
+            (w, b) for w in (1, 2, 4) for b in (4, 8) for _ in range(2))
+        np.testing.assert_array_equal(got, refs[2][0])
+
     def test_swap_pins_served_and_unpins_old(self, tmp_path, net_v1,
                                              net_v2):
         reg = _registry(tmp_path, net_v1, keep_last=1)

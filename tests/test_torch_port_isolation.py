@@ -82,7 +82,9 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "parallel.multihost", "parallel.multihost_smoke",
                 "parallel.tensor", "parallel.pipeline",
                 "parallel.pipeline_container", "util.sharded_checkpoint",
-                "common.global_batch"):
+                "common.global_batch", "tenancy", "tenancy.lora",
+                "tenancy.fleet", "online", "online.iterator",
+                "online.normalizer", "online.trainer"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
     assert res["threads"][0] == res["threads"][1]
