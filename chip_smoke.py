@@ -26,6 +26,8 @@
     python3 chip_smoke.py --elastic       # build + phase 19 alone
     python3 chip_smoke.py --fleet         # build + phase 20 alone
     python3 chip_smoke.py --tenancy       # build + phase 21 alone
+    python3 chip_smoke.py --embeddings    # phase 22 alone (no kernel, no
+                                          # build)
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -348,8 +350,9 @@ Phases, in order:
  16. the serving request plane (`phase_serving_plane`) on phase 3's LM
      config at full width and half depth (`LM_CUT`) (seeded params,
      head x4), 8 slots, block_len
-     16: (a) a burst of 12 greedy and 4 sampled requests (prompts 16-64,
-     32 tokens) run by the scheduler's loop body in this thread, once
+     16, each server warmed on its traffic's length buckets only (16-64;
+     (f): 128): (a) a burst of 12 greedy and 4 sampled requests (prompts
+     16-64, 32 tokens) run by the scheduler's loop body in this thread, once
      with monitoring off and once on: the streams token for token, the
      device-to-host reads (`HostReads`) and the dispatches equal, every
      request's trace sealed with its queued, prefill and decode phases,
@@ -548,8 +551,35 @@ Phases, in order:
      launch its kernels (`TENANCY_KERNELS`). The registry root lives
      under `chiprun_out/` and is deleted at the phase's end. It prints
      `[tenancy]` lines;
+ 22. embeddings (`phase_embeddings`, `--embeddings`, fp32): the
+     SequenceVectors engine and the graph library of
+     `deeplearning4j_tpu_torch/{nlp,graph}/`, each card run held against
+     the port's CPU path from the same seed: (a) the word2vec bench
+     config (`deeplearning4j_tpu/bench.py:801-845`: a zipf corpus of 400
+     x 250 tokens over 5000 words from `default_rng(3)`, skip-gram with
+     negative sampling, layer 128, window 5, negative 5, batch 4096, 32
+     batches a fused group, one epoch): the first group's syn0 and
+     syn1neg within GROUP_RTOL of the CPU's, the whole fit within
+     SCATTER_ORDER_FACTOR x the CPU's distance to a twin that scatters
+     each batch in another order, the top-10 `words_nearest` of the 50
+     most frequent words overlapping the CPU's by NEAREST_OVERLAP;
+     words/s of a second fit from fresh tables (as the bench times it)
+     beside the CPU's, `etl_stats`, and one group's kernel launches
+     (torch.profiler); (b) the 100k-word vocab (`bench.py:847-877`:
+     800 x 500 tokens, batch 8192, 16 a group): the first group against
+     the CPU's (which stops there), words/s and the peak of
+     `torch.cuda.memory_allocated`; (c) CBOW + NS, skip-gram + HS and
+     CBOW + HS on `tests/test_nlp.py`'s topic corpus, card against CPU
+     within EMBED_RTOL, in-topic similarity above cross-topic on the
+     card; (d) ParagraphVectors DM and DBOW with `infer_vector`, GloVe,
+     DeepWalk and Node2Vec on a two-community graph, card against CPU
+     within EMBED_RTOL, each with its test's structure check; (e) the
+     packaged `word2vec_docs.bin` read in place through the sha256
+     check, on the card its `words_nearest` equal to the CPU's, written
+     and read back bit-equal in the binary and text formats (text: to
+     its printed decimals). It prints `[embeddings]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 21, each > 0; the counts of each phase, and of each part of phases
+to 21, each > 0; phase 22 runs none of these kernels; the counts of each phase, and of each part of phases
 18 to 21, on a `[launches]` line), each phase's seconds on a
 `[phases]` line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
@@ -907,9 +937,13 @@ def _sass_rows(lib, instances, prefix):
     """One row per instance of a library's kernels (`instances` finds
     them by their mangled names): its tensor-core instructions (HMMA for
     mma.sync, HGMMA for wgmma) and its registers, stack and local memory
-    (where spills go)."""
-    counts = mma_counts(_cuobjdump("-sass", lib))
-    usage = res_usage(_cuobjdump("-res-usage", lib))
+    (where spills go). The two cuobjdump listings run at once."""
+    from concurrent.futures import ThreadPoolExecutor
+    with ThreadPoolExecutor(2) as pool:
+        sass, res = pool.map(lambda f: _cuobjdump(f, lib),
+                             ("-sass", "-res-usage"))
+    counts = mma_counts(sass)
+    usage = res_usage(res)
     rows = []
     for (kind, dt, D, causal), fn in sorted(instances(counts).items()):
         use = usage.get(fn, {})
@@ -920,21 +954,27 @@ def _sass_rows(lib, instances, prefix):
 
 
 def phase_build(report, fails):
+    from concurrent.futures import ThreadPoolExecutor
+
     from deeplearning4j_tpu_torch.kernels import build
     t0 = time.perf_counter()
     paths = build.build_all()
     report["build_s"] = time.perf_counter() - t0
     print(f"[build] {sorted(paths)} in {report['build_s']:.2f} s", flush=True)
+    # both libraries' listings at once (four cuobjdump processes)
+    todo = (("bwd_sass", "flash_attention_bwd", _bwd_instances,
+             "flash_attention_bwd_", ("dq", "dkv")),
+            ("fwd_sass", "flash_attention", _fwd_instances,
+             "flash_attention_", ("fwd", "carry")))
+    with ThreadPoolExecutor(2) as pool:
+        listed = list(pool.map(lambda t: _sass_rows(paths[t[1]], t[2],
+                                                    t[3]), todo))
     # the flash kernels must run on the tensor cores: every bf16 and fp32
     # instance (D 32/64/128, causal or not) of the backward's two kernels
     # and of the forward's two modes has HMMA (mma.sync) or HGMMA (wgmma)
     # in its SASS; registers, stack and local memory are reported beside
-    for key, lib, instances, prefix, kinds in (
-            ("bwd_sass", "flash_attention_bwd", _bwd_instances,
-             "flash_attention_bwd_", ("dq", "dkv")),
-            ("fwd_sass", "flash_attention", _fwd_instances,
-             "flash_attention_", ("fwd", "carry"))):
-        rows = report[key] = _sass_rows(paths[lib], instances, prefix)
+    for (key, _, _, prefix, kinds), rows in zip(todo, listed):
+        report[key] = rows
         for kind in kinds:
             for dt in ("float32", "bfloat16"):
                 mine = [r for r in rows
@@ -7339,14 +7379,14 @@ def yolo_lr_trial(device, steps=13, rates=(1e-3, 3e-4, 1e-4, 3e-5)):
 # ------------------------------------------------------------------- driver
 # ---------------------------------------------- phase 16: the request plane
 SERVING_PLANE = dict(cfg=None, n_slots=8, block_len=16, greedy=12, sampled=4,
-                     n_tok=32, lens=(16, 64), warm_len=64, burst=24,
+                     n_tok=32, lens=(16, 64), burst=24,
                      burst_tok=64, handoff=8, handoff_tok=32,
                      timed_prompt=128, dispatches=32, repeats=2,
                      cost_dispatches=32)
 SERVING_PLANE_SMALL = dict(cfg=dict(LM, d_model=64, n_heads=4, n_layers=2,
                                     max_len=128),
                            n_slots=4, block_len=16, greedy=4, sampled=2,
-                           n_tok=8, lens=(3, 24), warm_len=24, burst=8,
+                           n_tok=8, lens=(3, 24), burst=8,
                            burst_tok=16, handoff=3, handoff_tok=8,
                            timed_prompt=16, dispatches=6, repeats=1,
                            cost_dispatches=4)
@@ -7420,8 +7460,8 @@ def _plane_server(net, c, warm=True, **kw):
     srv = GenerationServer(net, n_slots=c["n_slots"], block_len=bl,
                            n_blocks=c["n_slots"] * (max_len // bl) + 1,
                            device=net.device, **kw)
-    if warm:
-        srv.warmup(c["warm_len"], 4)
+    if warm:   # the traffic's length buckets only
+        srv.warmup(c["lens"], 4)
     return srv
 
 
@@ -7728,8 +7768,10 @@ def _plane_rate(fails, net, c, V):
                 if mon is not None:
                     mon.__enter__()
                 try:
+                    # every prompt here is timed_prompt long: warm its
+                    # bucket only (the grid below it serves nothing here)
                     srv = _plane_server(net, c, warm=False).warmup(
-                        c["timed_prompt"], 4)
+                        (c["timed_prompt"], c["timed_prompt"]), 4)
                     if threaded:
                         srv.start()
                         try:
@@ -10608,6 +10650,508 @@ def _print_tenancy(out):
           f"launches by part {out['launches_by_part']}", flush=True)
 
 
+# ------------------------------------------------------------ phase 22
+# (a) the word2vec bench config (deeplearning4j_tpu/bench.py:801-845):
+# a zipf corpus of 400 sentences x 250 tokens over 5000 words from
+# default_rng(3); layer 128, window 5, negative 5, batch 4096, 32
+# batches a fused group, one epoch
+W2V = dict(vocab=5000, n_sent=400, sent_len=250, seed=3, sampler="choice",
+           layer=128, window=5, negative=5, B=4096, k=32, top=50, top_n=10)
+W2V_SMALL = dict(W2V, vocab=500, n_sent=40, sent_len=100, layer=32, B=256,
+                 k=4, top=20)
+# (b) the 100k-word vocab (bench.py:847-877): 800 x 500 tokens drawn by
+# inverse CDF from default_rng(7), batch 8192, 16 batches a group
+W2V_LARGE = dict(vocab=100_000, n_sent=800, sent_len=500, seed=7,
+                 sampler="cdf", layer=128, window=5, negative=5, B=8192,
+                 k=16)
+W2V_LARGE_SMALL = dict(W2V_LARGE, vocab=5000, n_sent=40, sent_len=100,
+                       layer=32, B=512, k=4)
+GROUP_RTOL = 1e-5          # (a), (b): the first fused group's tables, card
+#                            against CPU, of each table's largest |value|
+SCATTER_ORDER_FACTOR = 4.0  # (a): the whole fit's card-CPU distance, at
+#                            most this multiple of the CPU's distance to
+#                            a twin that scatters each batch in another
+#                            order (ROADMAP Hazards, ill-conditioned
+#                            parity): atomics reorder the card's adds
+NEAREST_OVERLAP = 0.9      # (a): top-10 words_nearest, card against CPU
+EMBED_RTOL = 1e-3          # (c), (d): test-size fits, card against CPU,
+#                            of each table's largest |value| (3-15 epochs
+#                            at lr 0.05-0.25 amplify float32 rounding)
+# (c), (d): tests/test_nlp.py's and tests/test_graph_lib.py's sizes
+EMBED_MODES = ("cbow", "hs", "cbow_hs")
+TOPIC_W2V = dict(layer_size=24, window_size=4, min_word_frequency=2,
+                 learning_rate=0.05, epochs=3, batch_size=512, seed=7)
+GRAPH_EMBED = dict(vector_size=16, window_size=4, walk_length=20,
+                   walks_per_vertex=6, epochs=15, learning_rate=0.25,
+                   batch_size=128, seed=11)
+PACKAGED_QUERIES = 50      # (e): words_nearest of the first 50 words
+
+
+def topic_corpus(n=400, seed=0):
+    """Two-topic corpus (tests/test_nlp.py's `synthetic_corpus`): weather
+    words co-occur, finance words co-occur, stop words sprinkled."""
+    rng = np.random.default_rng(seed)
+    weather = ["rain", "snow", "storm", "cloud", "wind", "sun"]
+    finance = ["bank", "money", "stock", "market", "trade", "price"]
+    shared = ["the", "a", "and", "of", "in"]
+    sentences = []
+    for _ in range(n):
+        topic = weather if rng.random() < 0.5 else finance
+        words = [topic[rng.integers(len(topic))] for _ in range(8)]
+        for i in sorted(rng.integers(0, len(words), 2))[::-1]:
+            words.insert(i, shared[rng.integers(len(shared))])
+        sentences.append(" ".join(words))
+    return sentences
+
+
+def two_communities(graph_mod, n_per=8):
+    """Two 8-cliques joined by one bridge edge, and each vertex's side."""
+    g = graph_mod.Graph(2 * n_per)
+    for base in (0, n_per):
+        for i in range(n_per):
+            for j in range(i + 1, n_per):
+                g.add_edge(base + i, base + j, directed=False)
+    g.add_edge(n_per - 1, n_per, directed=False)
+    return g, [0] * n_per + [1] * n_per
+
+
+def zipf_corpus(c):
+    """The bench's corpus: (a) `rng.choice` with zipf probabilities,
+    (b) inverse-CDF draws (`rng.choice` with p is O(V) a draw)."""
+    rng = np.random.default_rng(c["seed"])
+    probs = 1.0 / np.arange(1, c["vocab"] + 1)
+    if c["sampler"] == "choice":
+        probs /= probs.sum()
+        return [[f"w{t}" for t in rng.choice(c["vocab"], c["sent_len"],
+                                               p=probs)]
+                for _ in range(c["n_sent"])]
+    cdf = np.cumsum(probs / probs.sum())
+    return [[f"w{t}" for t in np.searchsorted(cdf, rng.random(c["sent_len"]))]
+            for _ in range(c["n_sent"])]
+
+
+def _w2v_bench_model(c, device, vocab):
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    m = Word2Vec(layer_size=c["layer"], window_size=c["window"],
+                 negative_sample=c["negative"], min_word_frequency=1,
+                 epochs=1, batch_size=c["B"], device=device)
+    m.conf.steps_per_flush = c["k"]
+    m.vocab = vocab
+    return m
+
+
+class _StopFit(Exception):
+    pass
+
+
+class _FirstGroup:
+    """Wraps a model's fused-group flush: after the first group, copies
+    syn0 and syn1neg to the host (and, with `stop`, ends the fit)."""
+
+    def __init__(self, model, stop=False):
+        self.tables = None
+        flush = model._flush_sg_neg_multi
+
+        def first(c, x, lrs):
+            loss = flush(c, x, lrs)
+            if self.tables is None:
+                self.tables = tuple(t.cpu().numpy().copy()
+                                    for t in (model.syn0, model.syn1neg))
+                if stop:
+                    raise _StopFit()
+            return loss
+
+        model._flush_sg_neg_multi = first
+
+
+class _ScatterOrderTwin:
+    """Inside the context every skip-gram/neg step of the port feeds its
+    batch's rows in a seeded random order: the same pairs, negatives and
+    row counts, only the scatters' (and the loss sum's) order differs."""
+
+    def __init__(self, seed):
+        self.rng = np.random.default_rng(seed)
+
+    def __enter__(self):
+        import torch
+        from deeplearning4j_tpu_torch.nlp import sequencevectors as sv
+        self.sv, self.step = sv, sv._sg_neg_math
+
+        def permuted(syn0, syn1neg, c, x, n, lr, trainable_from):
+            p = torch.as_tensor(self.rng.permutation(c.shape[0]),
+                                device=c.device)
+            return self.step(syn0, syn1neg, c[p], x[p], n[p], lr,
+                             trainable_from)
+
+        sv._sg_neg_math = permuted
+        return self
+
+    def __exit__(self, *exc):
+        self.sv._sg_neg_math = self.step
+
+
+def _rel_dist(a, b):
+    """max |a - b| over max |b|."""
+    return float(np.abs(np.asarray(a) - np.asarray(b)).max()
+                 / max(float(np.abs(np.asarray(b)).max()), 1e-30))
+
+
+def _timed_w2v_fit(device, model, seqs):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.fit(seqs)     # returns numpy tables: the fit's work is done
+    return time.perf_counter() - t0
+
+
+def _group_launches(device, model, seqs, total_words):
+    """Kernel launches, device ms and busy share of one fused group
+    (profiled on the card; None elsewhere)."""
+    if device.type != "cuda":
+        return None
+    k = model.conf.steps_per_flush
+    kind, c, x, lrs = next(iter(model._pair_work_items(
+        seqs, None, total_words, k)))
+    model._tables_to_device()
+    model._trainable_from = 0
+    try:
+        prof = _profiled(lambda: model._flush_sg_neg_multi(c, x, lrs))
+    finally:
+        model._tables_to_host()
+    return dict(kind=kind, batches=k, launches=prof["launches"],
+                per_batch=prof["launches"] / k, device_ms=prof["device_ms"],
+                wall_ms=prof["wall_ms"], busy_share=prof["busy_share"],
+                groups_ms=prof["groups_ms"])
+
+
+def _w2v_bench(device, fails, c, tag):
+    """(a): the bench config, card against CPU: the first fused group,
+    the whole fit by the scatter-order twin, words_nearest; words/s of
+    a warm fit on both. (b) (`tag` "b"): the first group only on the
+    CPU, words/s and peak memory on the card."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import VocabConstructor
+    cpu = torch.device("cpu")
+    out = dict(config={k: v for k, v in c.items()})
+    t0 = time.perf_counter()
+    seqs = zipf_corpus(c)
+    vocab = VocabConstructor(min_word_frequency=1).build(seqs)
+    words = sum(len(s) for s in seqs)
+    out.update(words=words, vocab_words=vocab.num_words(),
+               corpus_s=time.perf_counter() - t0)
+    # each model's tables drawn before its timed fit (the draws `fit`
+    # would make first), so a time covers the fit's own work
+    card = _w2v_bench_model(c, device, vocab)
+    card._init_tables()
+    first_card = _FirstGroup(card)
+    out["cold_fit_s"] = _timed_w2v_fit(device, card, seqs)
+    out["table_bytes"] = int(card.syn0.nbytes + card.syn1neg.nbytes)
+    cpu_m = _w2v_bench_model(c, cpu, vocab)
+    cpu_m._init_tables()
+    first_cpu = _FirstGroup(cpu_m, stop=(tag == "b"))
+    try:
+        out["cpu_fit_s"] = _timed_w2v_fit(cpu, cpu_m, seqs)
+        out["cpu_words_per_s"] = words / out["cpu_fit_s"]
+    except _StopFit:
+        out["cpu_fit_s"] = None
+    group = [_rel_dist(a, b) for a, b in zip(first_card.tables,
+                                             first_cpu.tables)]
+    out["first_group_rel"] = group
+    fails.check(max(group) <= GROUP_RTOL,
+                f"embeddings ({tag}): the first fused group's syn0/syn1neg "
+                f"card against CPU {group} > {GROUP_RTOL} of the tables' "
+                f"largest |value|")
+    if tag == "a":
+        with _ScatterOrderTwin(seed=1):
+            twin = _w2v_bench_model(c, cpu, vocab).fit(seqs)
+        d_card = max(_rel_dist(card.syn0, cpu_m.syn0),
+                     _rel_dist(card.syn1neg, cpu_m.syn1neg))
+        d_twin = max(_rel_dist(twin.syn0, cpu_m.syn0),
+                     _rel_dist(twin.syn1neg, cpu_m.syn1neg))
+        out.update(fit_rel_card=d_card, fit_rel_twin=d_twin)
+        fails.check(d_card <= SCATTER_ORDER_FACTOR * d_twin,
+                    f"embeddings (a): the whole fit, card against CPU "
+                    f"{d_card:.3e} > {SCATTER_ORDER_FACTOR} x the CPU's "
+                    f"scatter-order twin {d_twin:.3e}")
+        words_top = [vocab.word_at_index(i) for i in range(c["top"])]
+        share = float(np.mean([
+            len(set(card.words_nearest(w, c["top_n"]))
+                & set(cpu_m.words_nearest(w, c["top_n"]))) / c["top_n"]
+            for w in words_top]))
+        out["nearest_overlap"] = share
+        fails.check(share >= NEAREST_OVERLAP,
+                    f"embeddings (a): top-{c['top_n']} words_nearest of the "
+                    f"{c['top']} most frequent words, card against CPU, "
+                    f"overlap {share:.3f} < {NEAREST_OVERLAP}")
+    out["cold_loss"] = card.last_loss
+    card._init_tables()          # fresh tables: the timed fit, as bench's
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    out["warm_fit_s"] = _timed_w2v_fit(device, card, seqs)
+    out["words_per_s"] = words / out["warm_fit_s"]
+    out["etl"] = dict(card.etl_stats or {})
+    out["loss"] = card.last_loss
+    fails.check(np.isfinite(card.syn0).all() and np.isfinite(card.last_loss),
+                f"embeddings ({tag}): non-finite tables or loss after the "
+                f"warm fit")
+    if device.type == "cuda":
+        out["peak_allocated"] = int(torch.cuda.max_memory_allocated(device))
+        out["allocated_before"] = int(base)
+    out["group"] = _group_launches(device, card, seqs, words)
+    return out
+
+
+def _w2v_modes(device, fails):
+    """(c): CBOW + NS, skip-gram + HS and CBOW + HS on the topic corpus,
+    card against CPU; in-topic similarity beats cross-topic on the
+    card."""
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    corpus = topic_corpus(400)
+    out = {}
+    for mode in EMBED_MODES:
+        hs = mode in ("hs", "cbow_hs")
+        kw = dict(TOPIC_W2V, negative_sample=0 if hs else 5,
+                  use_hierarchic_softmax=hs,
+                  cbow=mode in ("cbow", "cbow_hs"))
+        t0 = time.perf_counter()
+        card = Word2Vec(sentence_iterator=corpus, device=device, **kw).fit()
+        t1 = time.perf_counter()
+        cpu_m = Word2Vec(sentence_iterator=corpus, device=torch.device("cpu"),
+                         **kw).fit()
+        out_table = "syn1" if hs else "syn1neg"
+        rel = [_rel_dist(card.syn0, cpu_m.syn0),
+               _rel_dist(getattr(card, out_table), getattr(cpu_m, out_table))]
+        in_topic = card.similarity("rain", "snow")
+        cross = card.similarity("rain", "money")
+        out[mode] = dict(rel=rel, in_topic=in_topic, cross=cross,
+                         card_s=t1 - t0, cpu_s=time.perf_counter() - t1)
+        fails.check(max(rel) <= EMBED_RTOL,
+                    f"embeddings (c) {mode}: syn0/{out_table} card against "
+                    f"CPU {rel} > {EMBED_RTOL}")
+        fails.check(in_topic > cross, f"embeddings (c) {mode}: in-topic "
+                                      f"{in_topic:.4f} <= cross {cross:.4f}")
+    return out
+
+
+def _embed_rest(device, fails):
+    """(d): ParagraphVectors DM and DBOW with `infer_vector`, GloVe,
+    DeepWalk and Node2Vec on the two-community graph, card against
+    CPU."""
+    import torch
+
+    from deeplearning4j_tpu_torch import graph as G
+    from deeplearning4j_tpu_torch.nlp import (
+        Glove, LabelledDocument, ParagraphVectors)
+    cpu = torch.device("cpu")
+    out = {}
+
+    def held(name, card, cpu_m, tables, extra=()):
+        rel = [_rel_dist(getattr(card, t), getattr(cpu_m, t))
+               for t in tables] + list(extra)
+        out.setdefault(name, {})["rel"] = rel
+        fails.check(max(rel) <= EMBED_RTOL,
+                    f"embeddings (d) {name}: {tables} card against CPU "
+                    f"{rel} > {EMBED_RTOL}")
+
+    def cos(a, b):
+        return float(np.dot(a, b) / (np.linalg.norm(a) * np.linalg.norm(b)
+                                     + 1e-9))
+
+    corpus = topic_corpus(200)
+    docs = [LabelledDocument(s, [f"DOC_{i}"]) for i, s in enumerate(corpus)]
+    weather = [i for i, s in enumerate(corpus)
+               if "rain" in s and "bank" not in s]
+    finance = [i for i, s in enumerate(corpus)
+               if "bank" in s and "rain" not in s]
+    # tests/test_nlp.py's TestParagraphVectors: DBOW and DM at 3 epochs
+    # (doc vectors), DBOW at 2 for infer_vector
+    for name, dm, epochs in (("pv_dbow", False, 3), ("pv_dm", True, 3),
+                             ("pv_infer", False, 2)):
+        t0 = time.perf_counter()
+        pair = [ParagraphVectors(documents=docs, layer_size=16,
+                                 epochs=epochs, min_word_frequency=2, dm=dm,
+                                 seed=3, device=d).fit() for d in (device, cpu)]
+        card = pair[0]
+        if name != "pv_infer":
+            held(name, *pair, ("syn0", "syn1neg"))
+            same = card.similarity_doc(f"DOC_{weather[0]}",
+                                       f"DOC_{weather[1]}")
+            diff = card.similarity_doc(f"DOC_{weather[0]}",
+                                       f"DOC_{finance[0]}")
+            out[name].update(same_doc=same, cross_doc=diff)
+            fails.check(same > diff, f"embeddings (d) {name}: same-topic "
+                                     f"doc similarity {same:.4f} <= "
+                                     f"{diff:.4f}")
+        else:
+            inferred = [m.infer_vector("rain snow storm wind") for m in pair]
+            held(name, *pair, ("syn0", "syn1neg"), [_rel_dist(*inferred)])
+            rain = cos(inferred[0], card.get_word_vector("rain"))
+            bank = cos(inferred[0], card.get_word_vector("bank"))
+            out[name].update(infer_rain=rain, infer_bank=bank)
+            fails.check(rain > bank, f"embeddings (d) {name}: the inferred "
+                                     f"weather doc nearer bank {bank:.4f} "
+                                     f"than rain {rain:.4f}")
+        out[name]["seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    seqs = [s.split() for s in topic_corpus(300)]
+    pair = [Glove(layer_size=16, window=4, min_word_frequency=2, epochs=20,
+                  learning_rate=0.05, seed=5, device=d).fit(seqs)
+            for d in (device, cpu)]
+    held("glove", *pair, ("syn0",))
+    g_in, g_cross = (pair[0].similarity("rain", "snow"),
+                     pair[0].similarity("rain", "money"))
+    out["glove"].update(in_topic=g_in, cross=g_cross,
+                        seconds=time.perf_counter() - t0)
+    fails.check(g_in > g_cross, f"embeddings (d) glove: in-topic {g_in:.4f}"
+                                f" <= cross {g_cross:.4f}")
+    kw = GRAPH_EMBED
+    for name in ("deepwalk", "node2vec"):
+        t0 = time.perf_counter()
+        pair = []
+        for d in (device, cpu):
+            g, labels = two_communities(G)
+            m = (G.Node2Vec(p=1.0, q=4.0, device=d, **kw)
+                 if name == "node2vec" else G.DeepWalk(device=d, **kw))
+            m.fit_graph(g)
+            pair.append(m)
+        held(name, *pair, ("syn0", "syn1" if name == "deepwalk"
+                           else "syn1neg"))
+        vecs = np.stack([pair[0].get_vertex_vector(v)
+                         for v in range(len(labels))])
+        vecs = vecs / np.linalg.norm(vecs, axis=1, keepdims=True)
+        sims, lab = vecs @ vecs.T, np.array(labels)
+        iu = np.triu_indices(len(labels), 1)
+        same_side = (lab[:, None] == lab[None, :])[iu]
+        score = float(sims[iu][same_side].mean()
+                      - sims[iu][~same_side].mean())
+        out[name].update(community_score=score,
+                         seconds=time.perf_counter() - t0)
+    # tests/test_graph_lib.py's bar: Node2Vec separates the communities,
+    # at least as well as DeepWalk (less 0.05)
+    n2v, dw = (out[n]["community_score"] for n in ("node2vec", "deepwalk"))
+    fails.check(n2v > 0.5 and n2v >= dw - 0.05,
+                f"embeddings (d): same- minus cross-community cosine, "
+                f"Node2Vec {n2v:.4f}, DeepWalk {dw:.4f}")
+    return out
+
+
+def _packaged_vectors(device, fails):
+    """(e): the packaged vectors read in place through the sha256 check,
+    moved to the card: words_nearest equal to the CPU's; the binary and
+    text formats written and read back bit-equal (text: to its six
+    printed decimals)."""
+    import tempfile
+
+    import torch
+
+    from deeplearning4j_tpu_torch.nlp import WordVectorSerializer
+    from deeplearning4j_tpu_torch.nlp.word2vec import load_packaged_word2vec
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    card = load_packaged_word2vec(device=device)
+    host = load_packaged_word2vec(device=cpu)
+    words = card.vocab.words()
+    queries = words[:PACKAGED_QUERIES]
+    unequal = [w for w in queries
+               if card.words_nearest(w, 10) != host.words_nearest(w, 10)]
+    out = dict(words=len(words), vector_length=card.conf.vector_length,
+               queries=len(queries), nearest_unequal=unequal)
+    fails.check(card.device == device and not unequal,
+                f"embeddings (e): packaged vectors' words_nearest on "
+                f"{card.device} differ from the CPU's for {unequal}")
+    os.makedirs(OUT_DIR, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
+        fb, ft = os.path.join(tmp, "v.bin"), os.path.join(tmp, "v.txt")
+        WordVectorSerializer.write_binary(card, fb)
+        WordVectorSerializer.write_text(card, ft)
+        rb = WordVectorSerializer.read_binary(fb, device=cpu)
+        rt = WordVectorSerializer.read_text(ft, device=cpu)
+        printed = np.array([[float(f"{v:.6f}") for v in row]
+                            for row in card.syn0], np.float32)
+        out["binary_bytes"] = os.path.getsize(fb)
+        out["text_bytes"] = os.path.getsize(ft)
+    out["binary_bit_equal"] = bool(rb.vocab.words() == words
+                                   and np.array_equal(rb.syn0, card.syn0))
+    out["text_bit_equal"] = bool(rt.vocab.words() == words
+                                 and np.array_equal(rt.syn0, printed))
+    fails.check(out["binary_bit_equal"] and out["text_bit_equal"],
+                f"embeddings (e): read back binary bit-equal "
+                f"{out['binary_bit_equal']}, text bit-equal "
+                f"{out['text_bit_equal']}")
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def phase_embeddings(device, report, fails, small=False):
+    """Phase 22 on `device` (see the module docstring, 22 (a)-(e)): the
+    embedding engine and the graph library, card against the port's CPU
+    path. `small` (the CPU rehearsal) shrinks (a)'s and (b)'s corpora;
+    (c)-(e) run at their tests' sizes either way. Launches no
+    hand-written kernel: returns {}."""
+    t_start = time.perf_counter()
+    out, parts = {}, {}
+    for part, fn, args in (
+            ("a", _w2v_bench, (W2V_SMALL if small else W2V, "a")),
+            ("b", _w2v_bench, (W2V_LARGE_SMALL if small else W2V_LARGE,
+                               "b")),
+            ("c", _w2v_modes, ()),
+            ("d", _embed_rest, ()),
+            ("e", _packaged_vectors, ())):
+        t0 = time.perf_counter()
+        out[part] = fn(device, fails, *args)
+        parts[part] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_start
+    report["embeddings"] = out
+    _print_embeddings(out)
+    return {}
+
+
+def _print_embeddings(out):
+    for tag in ("a", "b"):
+        r = out[tag]
+        cfg = r["config"]
+        g = r["group"] or {}
+        print(f"[embeddings] ({tag}) {r['words']} words, vocab "
+              f"{r['vocab_words']}, layer {cfg['layer']}, batch {cfg['B']} "
+              f"x {cfg['k']} a group: words/s {r['words_per_s']:.1f} (warm "
+              f"fit {r['warm_fit_s']:.3f} s; cold {r['cold_fit_s']:.3f} s; "
+              f"CPU {_fmt_s(r.get('cpu_words_per_s'))} words/s), loss "
+              f"{r['loss']:.4f}, etl {r['etl']}, tables {r['table_bytes']} bytes, peak allocated "
+              f"{r.get('peak_allocated')}", flush=True)
+        print(f"[embeddings] ({tag}) first group card vs CPU "
+              f"{[f'{x:.2e}' for x in r['first_group_rel']]}; a group: "
+              f"{g.get('launches')} launches ({g.get('per_batch')} a batch),"
+              f" device ms {g.get('device_ms')}, wall ms {g.get('wall_ms')},"
+              f" busy {g.get('busy_share')}", flush=True)
+    a = out["a"]
+    print(f"[embeddings] (a) whole fit card vs CPU {a['fit_rel_card']:.3e}, "
+          f"scatter-order twin {a['fit_rel_twin']:.3e}; words_nearest "
+          f"overlap {a['nearest_overlap']:.3f}", flush=True)
+    for mode, r in out["c"].items():
+        print(f"[embeddings] (c) {mode}: card vs CPU {r['rel']}, in-topic "
+              f"{r['in_topic']:.4f} > cross {r['cross']:.4f}", flush=True)
+    for name, r in out["d"].items():
+        print(f"[embeddings] (d) {name}: card vs CPU "
+              f"{[f'{x:.2e}' for x in r['rel']]}, "
+              f"{ {k: round(v, 4) for k, v in r.items() if k != 'rel'} }",
+              flush=True)
+    e = out["e"]
+    print(f"[embeddings] (e) packaged {e['words']} x {e['vector_length']}: "
+          f"words_nearest of {e['queries']} equal on the card (unequal "
+          f"{e['nearest_unequal']}), binary {e['binary_bytes']} bytes "
+          f"bit-equal {e['binary_bit_equal']}, text {e['text_bytes']} "
+          f"bytes bit-equal {e['text_bit_equal']}", flush=True)
+    print(f"[embeddings] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 2) for k, v in out['part_seconds'].items()} })",
+          flush=True)
+
+
 def _round(d):
     return {k: round(v, 3) for k, v in d.items()}
 
@@ -10747,6 +11291,9 @@ def run(device, *, small=False, kernels_only=False):
         l21 = phase("tenancy", phase_tenancy, device, report, fails, small)
         for k in launches:
             launches[k] += (l21 or {}).get(k, 0)
+        # phase 22 launches no hand-written kernel (its steps are torch
+        # ops, as JAX's are XLA's)
+        phase("embeddings", phase_embeddings, device, report, fails, small)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
@@ -10876,6 +11423,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_tenancy(device, report, fails)
+        report["kernels"] = []
+    elif "--embeddings" in argv:
+        # phase 22 alone: it runs no hand-written kernel, so no build
+        report, fails = {}, Failures()
+        phase_embeddings(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

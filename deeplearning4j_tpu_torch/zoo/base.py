@@ -45,6 +45,18 @@ def packaged_weight_entry(name: str) -> Optional[dict]:
     return manifest.get(name)
 
 
+def packaged_weight(name: str):
+    """(path, sha256) of an artifact in the JAX package's zoo/weights/,
+    or (None, None) when it is absent. A file WITHOUT a manifest entry
+    (or one without a sha256) is treated as not packaged, as the JAX
+    `packaged_weight` treats it: a path with no checksum would let a
+    reader skip the integrity check."""
+    entry = packaged_weight_entry(name)
+    if entry is None or not entry.get("sha256"):
+        return None, None
+    return WEIGHTS_DIR / name, entry["sha256"]
+
+
 class ZooModel:
     # {PretrainedType: file name in the JAX package's zoo/weights/}
     packaged: dict = {}

@@ -84,7 +84,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "parallel.pipeline_container", "util.sharded_checkpoint",
                 "common.global_batch", "tenancy", "tenancy.lora",
                 "tenancy.fleet", "online", "online.iterator",
-                "online.normalizer", "online.trainer"):
+                "online.normalizer", "online.trainer", "nlp",
+                "nlp.tokenization", "nlp.stopwords", "nlp.sentenceiterator",
+                "nlp.documentiterator", "nlp.vocab", "nlp.sequencevectors",
+                "nlp.word2vec", "nlp.serializer", "nlp.paragraphvectors",
+                "nlp.glove", "nlp.bagofwords", "nlp.invertedindex",
+                "nlp.iterator", "graph", "graph.graph", "graph.loader",
+                "graph.walkers", "graph.deepwalk", "graph.node2vec"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
     assert res["threads"][0] == res["threads"][1]
