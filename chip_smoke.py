@@ -28,6 +28,7 @@
     python3 chip_smoke.py --tenancy       # build + phase 21 alone
     python3 chip_smoke.py --embeddings    # phase 22 alone (no kernel, no
                                           # build)
+    python3 chip_smoke.py --clustering    # build + phase 23 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -68,7 +69,14 @@ Phases, in order:
      chain of the two) and ragged (Tq 300, Tk 200, D 32 and 128); no
      one PyTorch call computes it, so it has no yardstick. The forward
      (with its backward) and a chain of two carry folds also run on
-     q, k, v views that start off 16-byte alignment;
+     q, k, v views that start off 16-byte alignment. The Viterbi scan
+     kernel (`csrc/viterbi.cu`) must equal its plain version, path and
+     score bit for bit, at S = 2, 77, 512 and 1100 (more states than a
+     block's threads), T = 1, a ragged T and tables full of ties with
+     -inf transitions, and at phase 23 (c)'s two decodes, where it is
+     timed (20 and 10 launches; the plain version's T steps take
+     seconds, so its one call is timed by the host clock); no PyTorch
+     call computes a decode, so it has no yardstick;
   3. scoring: `TransformerLM(vocab 512, d_model 256, 4 layers, 8 heads,
      ff x4, max_len 512)` with random weights from a numpy seed loaded
      through `from_jax_params`, `output()` at B=16, T=512 on the card,
@@ -578,8 +586,38 @@ Phases, in order:
      check, on the card its `words_nearest` equal to the CPU's, written
      and read back bit-equal in the binary and text formats (text: to
      its printed decimals). It prints `[embeddings]` lines;
+ 23. clustering (`phase_clustering`, `--clustering`, fp32): the
+     analysis libraries of `deeplearning4j_tpu_torch/{clustering,plot,
+     util}/` and the segmenters of `nlp/`, each card run held against
+     the port's CPU path from the same seed, on phase 22 (a)'s trained
+     vectors (4829 words x 128; trained here when phase 22 did not
+     run): (a) k-means, K 32, 100 iterations at most: the k-means++
+     init equal, assignments equal off counted near-ties, centroids and
+     cost within KMEANS_RTOL, iteration counts equal; ms and launches
+     an iteration; (b) exact t-SNE: (i) the packaged
+     `word2vec_docs.bin` (1032 x 64, through the sha256 check), each of
+     the first TSNE_STEPS steps from the CPU's state within
+     TSNE_STEP_RTOL (gains that flip counted), the free runs within it
+     for TSNE_EXACT_STEPS steps and within TSNE_TWIN_FACTOR x the CPU's
+     one-ulp twin at TSNE_STEPS (the map is chaotic there); (ii) the
+     4829 vectors at JAX's defaults (perplexity 30, lr 200, 500 steps)
+     on the card alone: the KL finite and lower at the end than past
+     early exaggeration, each word's 10 nearest in the map overlapping
+     its 10 nearest in 128-D (cosine) at 10x chance or more; ms,
+     launches, device ms and busy share a step, P's host seconds, peak
+     allocated; (c) Viterbi through the kernel: the noisy labels of a
+     seeded metastable chain (T 65,536, S 77: the text LSTM's charset)
+     and `viterbi_decode` at [8192, 512] (the smoke LM's vocab), path
+     and score bit-equal to the plain version on the CPU, one launch a
+     decode; (d) Word2Vec through the CJK, Japanese, Korean and
+     annotation tokenizer factories on their tests' corpora, card
+     against CPU within EMBED_RTOL, each with its test's structure
+     check; (e) `NearestNeighborsServer` over the vectors: /knn and
+     /knnnew for 8 queries equal to a brute force on the card. It
+     prints `[clustering]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 21, each > 0; phase 22 runs none of these kernels; the counts of each phase, and of each part of phases
+to 21 and 23, each > 0; phase 22 runs none of these kernels, phase 23
+only the Viterbi kernel; the counts of each phase, and of each part of phases
 18 to 21, on a `[launches]` line), each phase's seconds on a
 `[phases]` line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
@@ -1141,6 +1179,7 @@ def phase_kernels(device, report, fails, small=False):
                                 "lm_block_run", timed=True))
     timings.update(_dropout_checks(device, checks, fails, flush, rnd,
                                    small))
+    timings.update(_viterbi_checks(device, checks, fails, flush, small))
     _adam_checks(device, checks, fails, flush, rnd,
                  dict(LM_LONG, d_model=32) if small else LM_LONG,
                  "long_block_run", timed=False)
@@ -1499,6 +1538,131 @@ def _dropout_checks(device, checks, fails, flush, rnd, small):
 
 
 # ------------------------------------------------------- phase 3: scoring
+def viterbi_chain(T, S, seed, stay=0.98, flip=0.01):
+    """Observations of a seeded metastable chain over S labels: the
+    hidden label stays with probability `stay`, else hops uniformly, and
+    each observation is a uniform draw instead with probability `flip`
+    (phase 23 (c)'s noisy labels)."""
+    rng = np.random.default_rng(seed)
+    hops = np.flatnonzero(rng.random(T) >= stay)
+    hidden = np.empty(T, np.int64)
+    starts = np.concatenate([[0], hops, [T]])
+    labels = rng.integers(0, S, len(starts) - 1)
+    for a, b, lab in zip(starts[:-1], starts[1:], labels):
+        hidden[a:b] = lab
+    noisy = rng.random(T) < flip
+    return np.where(noisy, rng.integers(0, S, T), hidden)
+
+
+def viterbi_tables(T, S, seed):
+    """Seeded row-normalised float32 log tables: emissions [T, S] (rows
+    of softmax(2 z)), transitions [S, S] (rows of softmax(z)) and a
+    prior [S]."""
+    import torch
+    g = torch.Generator().manual_seed(seed)
+    em = torch.log_softmax(2 * torch.randn((T, S), generator=g), dim=1)
+    tr = torch.log_softmax(torch.randn((S, S), generator=g), dim=1)
+    pr = torch.log_softmax(torch.randn(S, generator=g), dim=0)
+    return em, tr, pr
+
+
+def viterbi_bound(T, S):
+    """The decode's least time: 2 (T - 1) S^2 fp32 adds and compares
+    (plus an add a state a step), and its inputs read and path and
+    score written once."""
+    nbytes = 4 * (T * S + S * S + S + T + 1)
+    ops = 2.0 * (T - 1) * S * S + (T - 1) * S + S
+    return bound(nbytes, ops, "float32")
+
+
+def _viterbi_checks(device, checks, fails, flush, small):
+    """The Viterbi scan kernel against its plain version on the same
+    inputs, path and score bit for bit: S = 2, 77 (the text LSTM's
+    charset), 512 (the smoke LM's vocab) and 1100 (more states than a
+    block has threads), T = 1, a ragged T, tables full of ties with
+    -inf transitions; timed at phase 23 (c)'s two shapes, the plain
+    version once (its T steps are T launch rounds)."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.kernels import viterbi as kv
+    t_start = time.perf_counter()
+    cases = [("S2", 1000, 2), ("S77", 1000, 77), ("S512", 300, 512),
+             ("S1100", 100, 1100), ("T1", 1, 77), ("ragged", 777, 77),
+             ("ties", 500, 77)]
+    if small:
+        cases = [(c, min(T, 40), min(S, 33)) for c, T, S in cases]
+    timings = {}
+    for case, T, S in cases:
+        em, tr, pr = viterbi_tables(T, S, seed=T + S)
+        if case == "ties":
+            # integer tables tie at every step; a banded chain with -inf
+            # outside the band, and one state nothing reaches
+            em = -torch.randint(0, 3, (T, S), generator=torch.Generator()
+                                .manual_seed(3)).float()
+            band = (torch.arange(S)[:, None] - torch.arange(S)[None, :]
+                    ).abs() > 2
+            tr = torch.zeros(S, S).masked_fill(band, float("-inf"))
+            tr[:, S // 2] = float("-inf")
+            pr = torch.zeros(S)
+        em, tr, pr = (t.to(device) for t in (em, tr, pr))
+        n0 = K.LAUNCHES["viterbi"]
+        score, path = kv.viterbi(em, tr, pr)
+        launched = K.LAUNCHES["viterbi"] - n0
+        score0, path0 = kv.viterbi_plain(em, tr, pr)
+        err = abs(score.item() - score0.item()) if torch.isfinite(
+            score0) else 0.0
+        equal = bool(torch.equal(path, path0) and torch.equal(score, score0))
+        ok = fails.check(equal and launched == (device.type == "cuda"),
+                         f"viterbi {case} [T {T}, S {S}]: path and score "
+                         f"bit-equal {equal} (score {score.item()} vs "
+                         f"{score0.item()}), launches {launched}")
+        checks.append(dict(kernel="viterbi", case=case, dtype="float32",
+                           shape=[T, S], max_abs_err=err, tol=0.0, ok=ok))
+    # phase 23 (c)'s two decodes: the noisy-label chain through the
+    # Viterbi class's tables, and viterbi_decode at the smoke LM's vocab
+    from deeplearning4j_tpu_torch.util import Viterbi
+    shapes = [("noisy_labels",) + VITERBI_CHAIN_SHAPE,
+              ("lm_vocab",) + VITERBI_LM_SHAPE]
+    if small:
+        shapes = [(c, 300, min(S, 33)) for c, _, S in shapes]
+    for case, T, S in shapes:
+        if case == "noisy_labels":
+            v = Viterbi(S, device="cpu")
+            obs = viterbi_chain(T, S, seed=23)
+            em = torch.from_numpy(v._log_emit[:, obs].T).float()
+            tr = torch.from_numpy(v._log_trans).float()
+            pr = torch.from_numpy(v._log_prior).float()
+        else:
+            em, tr, pr = viterbi_tables(T, S, seed=2323)
+        em, tr, pr = (t.to(device) for t in (em, tr, pr))
+        score, path = kv.viterbi(em, tr, pr)
+        _sync(device)
+        t0 = time.perf_counter()
+        score0, path0 = kv.viterbi_plain(em, tr, pr)
+        _sync(device)
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        equal = bool(torch.equal(path, path0) and torch.equal(score, score0))
+        ok = fails.check(equal, f"viterbi {case} [T {T}, S {S}]: path and "
+                                f"score bit-equal {equal}")
+        checks.append(dict(kernel="viterbi", case=case, dtype="float32",
+                           shape=[T, S], max_abs_err=0.0 if equal else None,
+                           tol=0.0, ok=ok))
+        key = ("viterbi", "float32") if case == "noisy_labels" else (
+            "viterbi", "float32", case)
+        timings[key] = dict(
+            shape=[T, S], max_abs_err=abs(score.item() - score0.item()),
+            ms=timer(device, lambda: kv.viterbi(em, tr, pr),
+                     iters=20 if case == "noisy_labels" else 10, warmup=1,
+                     flush=flush),
+            # the plain version's T steps take seconds: the host clock
+            # around its one call above, to a synchronize
+            plain_ms=plain_ms,
+            library_ms=None, bound=viterbi_bound(T, S))
+    print(f"[kernels] viterbi checks and timings "
+          f"{time.perf_counter() - t_start:.2f} s", flush=True)
+    return timings
+
+
 def phase_scoring(device, report, fails, cfg, B, T):
     import torch
     from deeplearning4j_tpu_torch import kernels as K
@@ -3058,16 +3222,23 @@ def _reg_arm_d(device, fails, cfg, B_check, n_check, B, n_steps, n_eval,
                         losses=losses, launches=launches,
                         peak_mem_gb=(torch.cuda.max_memory_allocated()
                                      / 2 ** 30 if on_card else None))
-    # evaluation: the trained net on the card and its copy on the CPU
+    # evaluation: the trained net on the card through `evaluate()` and
+    # `evaluate_roc_multi_class()`, against the same evaluators over its
+    # copy's one `output()` on the CPU (each CPU forward over the held-out
+    # set takes seconds; the evaluators read nothing but the outputs)
+    from deeplearning4j_tpu_torch.eval.evaluation import Evaluation
+    from deeplearning4j_tpu_torch.eval.roc import ROCMultiClass
     Xe, Me, Ye = classifier_data(cfg, n_eval, seed=23)
     ds = DataSet(Xe, Ye, features_mask=Me)
     twin = from_jax_params(build_classifier(cfg, "cpu"), to_jax_params(net))
     t0 = time.perf_counter()
     e_card, r_card = net.evaluate(ds), net.evaluate_roc_multi_class(ds)
     eval_s = time.perf_counter() - t0
-    e_cpu, r_cpu = twin.evaluate(ds), twin.evaluate_roc_multi_class(ds)
     p_card = net.output(Xe, mask=Me).cpu().numpy()
     p_cpu = twin.output(Xe, mask=Me).numpy()
+    e_cpu, r_cpu = Evaluation(), ROCMultiClass()
+    e_cpu.eval(Ye, p_cpu)
+    r_cpu.eval(Ye, p_cpu)
     top2 = np.sort(p_cpu, -1)[:, -2:]
     margin = top2[:, 1] - top2[:, 0]
     apart = np.flatnonzero(p_card.argmax(-1) != p_cpu.argmax(-1))
@@ -10825,11 +10996,12 @@ def _group_launches(device, model, seqs, total_words):
                 groups_ms=prof["groups_ms"])
 
 
-def _w2v_bench(device, fails, c, tag):
+def _w2v_bench(device, fails, c, tag, keep=None):
     """(a): the bench config, card against CPU: the first fused group,
     the whole fit by the scatter-order twin, words_nearest; words/s of
     a warm fit on both. (b) (`tag` "b"): the first group only on the
-    CPU, words/s and peak memory on the card."""
+    CPU, words/s and peak memory on the card. The warm fit's vectors go
+    to `keep["vectors"]` when `keep` is a dict."""
     import torch
 
     from deeplearning4j_tpu_torch.nlp import VocabConstructor
@@ -10891,6 +11063,8 @@ def _w2v_bench(device, fails, c, tag):
         torch.cuda.reset_peak_memory_stats(device)
         base = torch.cuda.memory_allocated(device)
     out["warm_fit_s"] = _timed_w2v_fit(device, card, seqs)
+    if keep is not None:   # phase 23 clusters, maps and serves them
+        keep["vectors"] = np.array(card.syn0, np.float32)
     out["words_per_s"] = words / out["warm_fit_s"]
     out["etl"] = dict(card.etl_stats or {})
     out["loss"] = card.last_loss
@@ -11087,16 +11261,17 @@ def _packaged_vectors(device, fails):
     return out
 
 
-def phase_embeddings(device, report, fails, small=False):
+def phase_embeddings(device, report, fails, small=False, keep=None):
     """Phase 22 on `device` (see the module docstring, 22 (a)-(e)): the
     embedding engine and the graph library, card against the port's CPU
     path. `small` (the CPU rehearsal) shrinks (a)'s and (b)'s corpora;
-    (c)-(e) run at their tests' sizes either way. Launches no
+    (c)-(e) run at their tests' sizes either way; (a)'s trained vectors
+    go to `keep["vectors"]` when `keep` is a dict. Launches no
     hand-written kernel: returns {}."""
     t_start = time.perf_counter()
     out, parts = {}, {}
     for part, fn, args in (
-            ("a", _w2v_bench, (W2V_SMALL if small else W2V, "a")),
+            ("a", _w2v_bench, (W2V_SMALL if small else W2V, "a", keep)),
             ("b", _w2v_bench, (W2V_LARGE_SMALL if small else W2V_LARGE,
                                "b")),
             ("c", _w2v_modes, ()),
@@ -11152,6 +11327,540 @@ def _print_embeddings(out):
           flush=True)
 
 
+# ----------------- phase 23: k-means, t-SNE, Viterbi, segmenters, kNN server
+# (a), (b) (ii), (e): phase 22 (a)'s trained bench-config vectors (4829
+# words x 128), handed over by `run` when phase 22 ran first, else
+# trained once by `_bench_vectors`
+KMEANS = dict(k=32, max_iterations=100, seed=0)
+KMEANS_SMALL = dict(k=8, max_iterations=100, seed=0)
+KMEANS_RTOL = 1e-5        # (a) centroids (of their largest |value|) and
+#                           cost, card against CPU
+KMEANS_PROFILE_STEPS = 5
+KMEANS_TIE_RTOL = 1e-5    # (a) an assignment may differ only where its
+#                           two squared distances differ by at most this
+#                           share of |x|^2 + max |c|^2 (float32's
+#                           x2 - 2 x.c + c2 cancels that much)
+TSNE_STEPS = 20           # (b) (i): steps held card against CPU
+TSNE_STEP_RTOL = 1e-4     # (b) (i): one step from the CPU's state, and
+#                           the free runs' first TSNE_EXACT_STEPS, of
+#                           the map's largest |value|
+TSNE_EXACT_STEPS = 5
+TSNE_TWIN_FACTOR = 10.0   # (b) (i): the free runs at step TSNE_STEPS,
+#                           against the CPU's distance to a twin whose
+#                           y0 moved by one float32 ulp (ROADMAP Hazards,
+#                           ill-conditioned parity: the map is chaotic)
+TSNE_KL_RTOL = 1e-5       # (b) (i): each step's KL, card against CPU
+TSNE_BENCH_SMALL = dict(n_iter=100)
+TSNE_NEIGHBOURS = 10      # (b) (ii): a word's nearest in the map and in
+TSNE_CHANCE_FACTOR = 10.0  # 128-D (cosine) overlap by 10x chance
+TSNE_PROFILE_STEPS = 5
+VITERBI_CHAIN_SHAPE = (65536, 77)   # (c) T, S: the text LSTM's charset
+VITERBI_LM_SHAPE = (8192, 512)      # (c) T, S: the smoke LM's vocab
+SERVER_QUERIES = 8        # (e)
+SERVER_K = 10
+# (d) the corpora and fits of tests/test_nlp_{cjk,japanese,korean,
+# annotation}.py
+CJK_LEXICON = {
+    "猫": 50, "狗": 50, "兔子": 30, "动物": 40, "宠物": 30,
+    "吃": 60, "喜欢": 60, "鱼": 40, "肉": 40, "米饭": 30, "苹果": 30,
+    "银行": 40, "股票": 40, "市场": 40, "价格": 30, "经济": 30,
+    "上涨": 20, "下跌": 20, "投资": 25,
+    "我": 80, "的": 100, "在": 60, "和": 60, "了": 60, "很": 40,
+    "今天": 30, "可爱": 25, "跑": 20, "玩": 25, "公园": 20,
+}
+CJK_CORPUS = (["我的猫喜欢吃鱼", "狗在公园跑和玩", "兔子很可爱", "猫和狗很可爱",
+               "我喜欢我的狗", "宠物猫吃鱼和肉", "兔子吃苹果", "狗喜欢吃肉",
+               "可爱的猫在玩", "动物喜欢在公园玩", "股票价格上涨了",
+               "银行和市场的经济", "投资股票的价格", "市场价格下跌了",
+               "经济和银行的投资", "今天股票上涨", "银行投资市场",
+               "价格在市场上涨"] * 6)
+JA_CORPUS = ([
+    "猫は魚を食べる", "犬は肉を食べる", "兎はりんごを食べる",
+    "猫は公園で遊んだ", "犬は公園で遊んだ", "兎は庭で遊んだ",
+    "猫は可愛い動物です", "犬は可愛い動物です", "兎は可愛い動物です",
+    "猫は水を飲んだ", "犬は水を飲んだ", "猫は家で走った", "犬は家で走った",
+    "銀行は株に投資する", "会社は株に投資する", "銀行は経済に投資する",
+    "会社は経済に投資する", "株価が今日上がった", "価格が今日上がった",
+    "株価が市場で下がった", "価格が市場で下がった", "銀行はお金を買った",
+    "会社はお金を買った", "株価が市場で上がった", "価格が今日下がった"]
+    * 6)
+KO_CORPUS = ["고양이가 물고기를 먹었다", "고양이는 공원에서 놀았다",
+             "고양이를 친구가 보았다"] * 4
+ANNOTATION_CORPUS = ["the cat chased the mouse", "the dog chased the cat",
+                     "banks move markets", "markets follow banks"] * 6
+
+
+def _bench_vectors(device, small):
+    """Phase 22 (a)'s vectors when phase 22 did not run: the bench
+    config (W2V, or W2V_SMALL) trained once on `device`."""
+    from deeplearning4j_tpu_torch.nlp import VocabConstructor
+    c = W2V_SMALL if small else W2V
+    seqs = zipf_corpus(c)
+    vocab = VocabConstructor(min_word_frequency=1).build(seqs)
+    m = _w2v_bench_model(c, device, vocab)
+    m.fit(seqs)
+    return np.array(m.syn0, np.float32)
+
+
+def _kmeans(device, fails, vectors, c):
+    """(a) k-means on the vectors, card against CPU: the init equal,
+    assignments equal off counted near-ties, centroids and cost within
+    KMEANS_RTOL, the iteration counts equal; ms and launches an
+    iteration."""
+    import torch
+    from deeplearning4j_tpu_torch.clustering import KMeansClustering
+    from deeplearning4j_tpu_torch.clustering import kmeans as km
+    cpu = torch.device("cpu")
+    t0 = time.perf_counter()
+    init = km.kmeans_pp_init(vectors, c["k"], c["seed"])
+    init_s = time.perf_counter() - t0
+    seen = []
+    step = km._lloyd_step
+
+    def first_centroids(points, centroids):
+        # the centroids the first Lloyd step gets, and when it starts
+        seen.append((centroids.cpu().numpy(), time.perf_counter()))
+        km._lloyd_step = step
+        return step(points, centroids)
+
+    km._lloyd_step = first_centroids
+    try:
+        card = KMeansClustering(**c, device=device).apply_to(vectors)
+        _sync(device)
+        loop_s = time.perf_counter() - seen[0][1]
+    finally:
+        km._lloyd_step = step
+    host = KMeansClustering(**c, device=cpu).apply_to(vectors)
+    init_equal = bool(np.array_equal(seen[0][0], init))
+    apart = np.flatnonzero(card.assignments != host.assignments)
+    x = vectors.astype(np.float64)
+    cen = host.centroids.astype(np.float64)
+    x2, c2 = (x * x).sum(1), (cen * cen).sum(1)
+    d2 = x2[:, None] - 2 * x @ cen.T + c2[None, :]
+    scale = x2 + c2.max()
+    ties = [int(i) for i in apart
+            if abs(d2[i, card.assignments[i]] - d2[i, host.assignments[i]])
+            <= KMEANS_TIE_RTOL * scale[i]]
+    cen_rel = _rel_dist(card.centroids, host.centroids)
+    cost_rel = abs(card.cost - host.cost) / abs(host.cost)
+    fails.check(init_equal, "clustering (a): the k-means++ init on the card "
+                            "differs from numpy's")
+    fails.check(len(ties) == len(apart),
+                f"clustering (a): assignments differ at {apart.tolist()}, "
+                f"near-ties among them {ties}")
+    fails.check(cen_rel <= KMEANS_RTOL and cost_rel <= KMEANS_RTOL
+                and card.iterations == host.iterations,
+                f"clustering (a): centroids rel {cen_rel:.3e}, cost rel "
+                f"{cost_rel:.3e} (tol {KMEANS_RTOL}), iterations "
+                f"{card.iterations} vs {host.iterations}")
+    out = dict(points=list(vectors.shape), k=c["k"],
+               iterations=card.iterations, iterations_cpu=host.iterations,
+               cost=card.cost, cost_rel=cost_rel, centroids_rel=cen_rel,
+               assignments_apart=apart.tolist(), near_ties=ties,
+               init_s=init_s, loop_s=loop_s,
+               ms_per_iteration=loop_s / card.iterations * 1e3,
+               clusters=int(len(np.unique(card.assignments))))
+    if device.type == "cuda":
+        pts = torch.from_numpy(vectors).to(device)
+        cen_d = torch.from_numpy(card.centroids).to(device)
+
+        def steps():      # as apply_to runs them: the cost read each step
+            for _ in range(KMEANS_PROFILE_STEPS):
+                float(km._lloyd_step(pts, cen_d)[2])
+
+        prof = _profiled(steps)
+        out.update(
+            launches_per_iteration=prof["launches"] / KMEANS_PROFILE_STEPS,
+            device_ms_per_iteration=prof["device_ms"] / KMEANS_PROFILE_STEPS,
+            busy_share=prof["busy_share"])
+    return out
+
+
+def _tsne_packaged(device, fails):
+    """(b) (i) exact t-SNE of the packaged vectors at the defaults,
+    card against CPU over the first TSNE_STEPS steps: each step from the
+    CPU's state (y, velocity, gains) within TSNE_STEP_RTOL and its KL
+    within TSNE_KL_RTOL, gains that flip counted; the free runs within
+    TSNE_STEP_RTOL for TSNE_EXACT_STEPS steps and, at TSNE_STEPS, within
+    TSNE_TWIN_FACTOR x the CPU's distance to its one-ulp twin."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp.word2vec import load_packaged_word2vec
+    from deeplearning4j_tpu_torch.plot import Tsne
+    from deeplearning4j_tpu_torch.plot.tsne import _tsne_step
+    cpu = torch.device("cpu")
+    x = np.asarray(load_packaged_word2vec(device=cpu).syn0, np.float64)
+    card, host = Tsne(device=device), Tsne(device=cpu)
+    t0 = time.perf_counter()
+    p = host.input_affinities(x)
+    p_s = time.perf_counter() - t0
+    y0 = host.initial_map(len(x)).astype(np.float32)
+    exag_end = min(100, host.n_iter // 4)
+    pc = torch.from_numpy(p).float()
+    pcs = (pc * host.early_exaggeration, pc)
+    pds = tuple(t.to(device) for t in pcs)
+    y = torch.from_numpy(y0.copy())
+    v, g = torch.zeros_like(y), torch.ones_like(y)
+    step_rel, kl_rel, flips, host_at = [], [], 0, {}
+    for it in range(TSNE_STEPS):
+        e = 0 if it < exag_end else 1
+        yd, vd, gd = (t.to(device, copy=True) for t in (y, v, g))
+        kl_d = _tsne_step(pds[e], yd, vd, gd, host.momentum,
+                          host.learning_rate)
+        kl_c = _tsne_step(pcs[e], y, v, g, host.momentum, host.learning_rate)
+        step_rel.append(float((yd.cpu() - y).abs().max() / y.abs().max()))
+        kl_rel.append(abs(float(kl_d) - float(kl_c)) / abs(float(kl_c)))
+        flips += int((gd.cpu() != g).sum())
+        if it + 1 in (TSNE_EXACT_STEPS, TSNE_STEPS):
+            host_at[it + 1] = y.numpy().copy()
+    twin0 = np.nextafter(y0, np.float32(np.inf))
+    free, twin = {}, {}
+    for n in (TSNE_EXACT_STEPS, TSNE_STEPS):
+        scale = np.abs(host_at[n]).max()
+        free[n] = float(np.abs(card.descend(p, y0, n)[0] - host_at[n]).max()
+                        / scale)
+        twin[n] = float(np.abs(host.descend(p, twin0, n)[0]
+                               - host_at[n]).max() / scale)
+    fails.check(max(step_rel) <= TSNE_STEP_RTOL and max(kl_rel)
+                <= TSNE_KL_RTOL,
+                f"clustering (b) (i): a t-SNE step card against CPU from "
+                f"the same state {max(step_rel):.3e} of max|y| (tol "
+                f"{TSNE_STEP_RTOL}), KL rel {max(kl_rel):.3e} (tol "
+                f"{TSNE_KL_RTOL}); gains flipped {flips}")
+    n1, n2 = TSNE_EXACT_STEPS, TSNE_STEPS
+    fails.check(free[n1] <= TSNE_STEP_RTOL
+                and free[n2] <= max(TSNE_STEP_RTOL,
+                                    TSNE_TWIN_FACTOR * twin[n2]),
+                f"clustering (b) (i): free runs card against CPU at step "
+                f"{n1} {free[n1]:.3e} (tol {TSNE_STEP_RTOL}), at step {n2} "
+                f"{free[n2]:.3e} (one-ulp twin {twin[n2]:.3e}, factor "
+                f"{TSNE_TWIN_FACTOR})")
+    return dict(points=list(x.shape), p_s=p_s, steps=TSNE_STEPS,
+                step_rel_max=max(step_rel), kl_rel_max=max(kl_rel),
+                gains_flipped=flips, free_rel=free, twin_rel=twin)
+
+
+def _neighbour_overlap(device, x, y, k):
+    """Mean share of each point's k nearest in the map `y` (euclidean)
+    among its k nearest in `x` (cosine), on `device`."""
+    import torch
+    xt = torch.from_numpy(x).to(device, torch.float32)
+    xt = xt / xt.norm(dim=1, keepdim=True).clamp_min(1e-12)
+    sim = xt @ xt.T
+    sim.fill_diagonal_(float("-inf"))
+    near_x = sim.topk(k, dim=1).indices
+    yt = torch.from_numpy(y).to(device, torch.float32)
+    d = torch.cdist(yt, yt)
+    d.fill_diagonal_(float("inf"))
+    near_y = d.topk(k, dim=1, largest=False).indices
+    hits = (near_x[:, :, None] == near_y[:, None, :]).any(-1).sum()
+    return float(hits) / (k * len(x))
+
+
+def _tsne_bench(device, fails, vectors, small):
+    """(b) (ii) exact t-SNE of the vectors at the JAX defaults on the
+    card alone: the KL finite and lower at the end than at the first
+    step past early exaggeration; neighbours in the map overlap those in
+    128-D (cosine) by TSNE_CHANCE_FACTOR x chance; ms, launches, device
+    ms and busy share a step; P's host seconds; peak memory."""
+    import torch
+    from deeplearning4j_tpu_torch.plot import Tsne
+    from deeplearning4j_tpu_torch.plot.tsne import _tsne_step
+    ts = Tsne(device=device, **(TSNE_BENCH_SMALL if small else {}))
+    x = vectors.astype(np.float64)
+    t0 = time.perf_counter()
+    p = ts.input_affinities(x)
+    p_s = time.perf_counter() - t0
+    exag_end = min(100, ts.n_iter // 4)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+        base = torch.cuda.memory_allocated(device)
+    _sync(device)
+    t0 = time.perf_counter()
+    y, kl_end, kls = ts.descend(p, ts.initial_map(len(x)), ts.n_iter,
+                                kl_steps=(exag_end - 1, exag_end))
+    wall = time.perf_counter() - t0
+    out = dict(points=list(x.shape), n_iter=ts.n_iter, p_s=p_s,
+               ms_per_step=wall / ts.n_iter * 1e3, kl_end=kl_end,
+               kl_last_exaggerated=kls[exag_end - 1],
+               kl_first_plain=kls[exag_end])
+    chance = TSNE_NEIGHBOURS / (len(x) - 1)
+    out["overlap"] = _neighbour_overlap(device, x, y, TSNE_NEIGHBOURS)
+    out["overlap_chance"] = chance
+    fails.check(np.isfinite(y).all() and np.isfinite(kl_end)
+                and kl_end < kls[exag_end],
+                f"clustering (b) (ii): KL {kl_end} at the end against "
+                f"{kls[exag_end]} at the first step past exaggeration "
+                f"(finite map {bool(np.isfinite(y).all())})")
+    fails.check(out["overlap"] >= TSNE_CHANCE_FACTOR * chance,
+                f"clustering (b) (ii): {TSNE_NEIGHBOURS}-neighbour overlap "
+                f"{out['overlap']:.4f} < {TSNE_CHANCE_FACTOR} x chance "
+                f"{chance:.5f}")
+    if device.type == "cuda":
+        out["peak_allocated"] = int(torch.cuda.max_memory_allocated(device))
+        out["allocated_before"] = int(base)
+        pd = torch.from_numpy(p).to(device, torch.float32)
+        yd = torch.from_numpy(y).to(device)
+        vd, gd = torch.zeros_like(yd), torch.ones_like(yd)
+
+        def steps():
+            for _ in range(TSNE_PROFILE_STEPS):
+                kl = _tsne_step(pd, yd, vd, gd, ts.final_momentum,
+                                ts.learning_rate)
+            return kl.item()
+
+        prof = _profiled(steps)
+        out.update(launches_per_step=prof["launches"] / TSNE_PROFILE_STEPS,
+                   device_ms_per_step=prof["device_ms"] / TSNE_PROFILE_STEPS,
+                   busy_share=prof["busy_share"])
+    return out
+
+
+def _viterbi_decodes(device, fails, small):
+    """(c) the two decodes through the kernel on the card against the
+    plain version on the CPU, path and score bit for bit: the noisy
+    labels of a metastable chain (`Viterbi`) and `viterbi_decode` at the
+    smoke LM's vocab (default prior). Returns (report, launches)."""
+    import torch
+    from deeplearning4j_tpu_torch import kernels as K
+    from deeplearning4j_tpu_torch.util import Viterbi, viterbi_decode
+    cpu = torch.device("cpu")
+    (T1, S1), (T2, S2) = ((VITERBI_CHAIN_SHAPE, VITERBI_LM_SHAPE)
+                          if not small else ((2000, 77), (300, 64)))
+    obs = viterbi_chain(T1, S1, seed=23)
+    em, tr, _ = viterbi_tables(T2, S2, seed=2323)
+    out, launches = {}, 0
+    for case, card_fn, host_fn, shape in (
+            ("noisy_labels",
+             lambda: Viterbi(S1, device=device).decode(obs),
+             lambda: Viterbi(S1, device=cpu).decode(obs), [T1, S1]),
+            ("lm_vocab",
+             lambda: viterbi_decode(em, tr, device=device),
+             lambda: viterbi_decode(em, tr, device=cpu), [T2, S2])):
+        n0 = K.LAUNCHES["viterbi"]
+        _sync(device)
+        t0 = time.perf_counter()
+        s_card, p_card = card_fn()
+        card_s = time.perf_counter() - t0
+        n = K.LAUNCHES["viterbi"] - n0
+        launches += n
+        t0 = time.perf_counter()
+        s_cpu, p_cpu = host_fn()
+        cpu_s = time.perf_counter() - t0
+        equal = bool(np.array_equal(p_card, p_cpu)
+                     and np.float32(s_card) == np.float32(s_cpu))
+        fails.check(equal and n == (device.type == "cuda"),
+                    f"clustering (c) {case} {shape}: path and score card "
+                    f"against CPU bit-equal {equal} ({s_card} vs {s_cpu}), "
+                    f"launches {n}")
+        out[case] = dict(shape=shape, score=s_card, bit_equal=equal,
+                         launches=n, decode_s=card_s, cpu_s=cpu_s,
+                         changed=(int((p_card != obs).sum())
+                                  if case == "noisy_labels" else None))
+    return out, launches
+
+
+def _segmenter_fits(device, fails):
+    """(d) Word2Vec through the CJK, Japanese, Korean and annotation
+    tokenizer factories on their tests' corpora, card against CPU within
+    EMBED_RTOL, each with its test's structure check on the card."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp import Word2Vec
+    from deeplearning4j_tpu_torch.nlp.annotation import (
+        AnnotationTokenizerFactory)
+    from deeplearning4j_tpu_torch.nlp.cjk import CJKTokenizerFactory
+    from deeplearning4j_tpu_torch.nlp.japanese import (
+        CONTENT_POS as JA_CONTENT, JapaneseTokenizerFactory)
+    from deeplearning4j_tpu_torch.nlp.korean import (
+        CONTENT_POS as KO_CONTENT, KoreanTokenizerFactory)
+    runs = {
+        "cjk": (CJK_CORPUS, lambda: CJKTokenizerFactory(CJK_LEXICON),
+                dict(layer_size=24, window_size=3, min_word_frequency=2,
+                     negative_sample=5, learning_rate=0.05, epochs=4,
+                     batch_size=512, seed=11)),
+        "japanese": (JA_CORPUS,
+                     lambda: JapaneseTokenizerFactory(pos_keep=JA_CONTENT),
+                     dict(layer_size=24, window_size=3, min_word_frequency=2,
+                          negative_sample=5, learning_rate=0.05, epochs=16,
+                          batch_size=128, seed=7)),
+        "korean": (KO_CORPUS,
+                   lambda: KoreanTokenizerFactory(pos_keep=KO_CONTENT),
+                   dict(layer_size=8, window_size=2, min_word_frequency=2,
+                        epochs=1, batch_size=64, seed=0)),
+        "annotation": (ANNOTATION_CORPUS, AnnotationTokenizerFactory,
+                       dict(layer_size=8, window_size=2, min_word_frequency=2,
+                            epochs=1, batch_size=64, seed=0)),
+    }
+    out = {}
+    for name, (corpus, factory, kw) in runs.items():
+        t0 = time.perf_counter()
+        card, host = (Word2Vec(sentence_iterator=corpus,
+                               tokenizer_factory=factory(), device=d,
+                               **kw).fit()
+                      for d in (device, torch.device("cpu")))
+        rel = [_rel_dist(card.syn0, host.syn0),
+               _rel_dist(card.syn1neg, host.syn1neg)]
+        structure = _segmenter_structure(name, card)
+        out[name] = dict(rel=rel, words=card.vocab.num_words(),
+                         structure=structure,
+                         seconds=time.perf_counter() - t0)
+        fails.check(max(rel) <= EMBED_RTOL and all(structure.values()),
+                    f"clustering (d) {name}: syn0/syn1neg card against CPU "
+                    f"{rel} (tol {EMBED_RTOL}), structure {structure}")
+    return out
+
+
+def _segmenter_structure(name, w):
+    """The structure check of each segmenter test's Word2Vec fit."""
+    if name == "cjk":
+        finance = {"股票", "市场", "价格", "经济", "投资", "上涨", "下跌"}
+        return dict(
+            vocab=w.has_word("股票") and w.has_word("猫")
+            and not w.has_word("我的猫喜欢吃鱼"),
+            topic=w.similarity("猫", "狗") > w.similarity("猫", "股票"),
+            nearest=len(finance & set(w.words_nearest("银行", top_n=5))) >= 2)
+    if name == "japanese":
+        finance = {"会社", "株価", "市場", "価格", "株", "投資", "経済",
+                   "お金"}
+        return dict(
+            vocab=w.has_word("株価") and w.has_word("猫")
+            and not w.has_word("猫は魚を食べる") and not w.has_word("は")
+            and not w.has_word("を"),
+            frames=w.similarity("銀行", "会社") > w.similarity("銀行", "猫")
+            and w.similarity("猫", "犬") > w.similarity("猫", "株価"),
+            nearest=len(finance & set(w.words_nearest("銀行", top_n=6))) >= 2)
+    if name == "korean":
+        return dict(vocab=w.has_word("고양이") and not w.has_word("고양이가")
+                    and not w.has_word("고양이는"))
+    return dict(vocab=w.has_word("cat") and w.has_word("markets"))
+
+
+def _nn_server(device, fails, vectors):
+    """(e) `NearestNeighborsServer` over the vectors: /knn of stored
+    points and /knnnew of moved ones (base64 float32 bodies) for
+    SERVER_QUERIES queries, each equal to a brute force on `device`
+    (float64 distances, as the VP-tree's)."""
+    import torch
+    from deeplearning4j_tpu_torch.clustering.server import (
+        NearestNeighborsClient, NearestNeighborsServer)
+    t0 = time.perf_counter()
+    server = NearestNeighborsServer(vectors).start()
+    build_s = time.perf_counter() - t0
+    pts = torch.from_numpy(vectors).to(device, torch.float64)
+    rng = np.random.default_rng(29)
+    queries = rng.choice(len(vectors), SERVER_QUERIES, replace=False)
+    wrong, dist_err, times = [], 0.0, []
+    try:
+        client = NearestNeighborsClient(f"http://127.0.0.1:{server.port}")
+        for i in queries.tolist():
+            for route in ("knn", "knnnew"):
+                q = (vectors[i] if route == "knn"
+                     else vectors[i] + np.float32(1e-3))
+                t1 = time.perf_counter()
+                res = (client.knn(i, SERVER_K) if route == "knn"
+                       else client.knn_new(q, SERVER_K))["results"]
+                times.append(time.perf_counter() - t1)
+                qd = torch.from_numpy(q.astype(np.float32)).to(
+                    device, torch.float64)
+                d = ((pts - qd) ** 2).sum(1).sqrt()
+                want_d, want = torch.sort(d, stable=True)
+                want = want[:SERVER_K].cpu().tolist()
+                got = [r["index"] for r in res]
+                if got != want:
+                    wrong.append((route, i, got, want))
+                dist_err = max(dist_err, max(
+                    abs(r["distance"] - float(w)) / max(float(w), 1e-30)
+                    for r, w in zip(res, want_d[:SERVER_K].cpu())))
+    finally:
+        server.stop()
+    fails.check(not wrong and dist_err <= 1e-9,
+                f"clustering (e): kNN server against the brute force on "
+                f"the card: unequal {wrong}, distance rel err {dist_err}")
+    return dict(points=list(vectors.shape), queries=len(queries) * 2,
+                k=SERVER_K, unequal=len(wrong), distance_rel_err=dist_err,
+                tree_build_s=build_s, request_ms_median=float(
+                    np.median(times) * 1e3))
+
+
+def phase_clustering(device, report, fails, small=False, vectors=None):
+    """Phase 23 on `device` (see the module docstring, 23 (a)-(e)):
+    k-means, t-SNE, Viterbi, the segmenters and the kNN server, card
+    against the port's CPU path. `small` (the CPU rehearsal) shrinks
+    (a)-(c)'s sizes; (d) runs at its tests' sizes either way. Returns
+    {"viterbi": launches} of (c)'s card decodes. `vectors` are phase 22
+    (a)'s, trained here when None."""
+    t_start = time.perf_counter()
+    out, parts = {}, {}
+    source = "phase 22 (a)"
+    if vectors is None:
+        vectors, source = _bench_vectors(device, small), "trained here"
+    out["vectors"] = dict(shape=list(vectors.shape), source=source)
+    launches = 0
+    for part, fn, args in (
+            ("a", _kmeans, (vectors, KMEANS_SMALL if small else KMEANS)),
+            ("b_i", _tsne_packaged, ()),
+            ("b_ii", _tsne_bench, (vectors, small)),
+            ("c", _viterbi_decodes, (small,)),
+            ("d", _segmenter_fits, ()),
+            ("e", _nn_server, (vectors,))):
+        t0 = time.perf_counter()
+        res = fn(device, fails, *args)
+        if part == "c":
+            res, launches = res
+        out[part] = res
+        parts[part] = time.perf_counter() - t0
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_start
+    report["clustering"] = out
+    _print_clustering(out)
+    return {"viterbi": launches}
+
+
+def _print_clustering(out):
+    a = out["a"]
+    print(f"[clustering] vectors {out['vectors']}; (a) k-means K {a['k']} "
+          f"on {a['points']}: {a['iterations']} iterations (CPU "
+          f"{a['iterations_cpu']}), {a['ms_per_iteration']:.3f} ms an "
+          f"iteration, launches an iteration "
+          f"{a.get('launches_per_iteration')}, device ms "
+          f"{a.get('device_ms_per_iteration')}, busy {a.get('busy_share')};"
+          f" cost {a['cost']:.6g} rel {a['cost_rel']:.2e}, centroids rel "
+          f"{a['centroids_rel']:.2e}, apart {a['assignments_apart']} "
+          f"(near-ties {a['near_ties']})", flush=True)
+    b = out["b_i"]
+    print(f"[clustering] (b) (i) t-SNE {b['points']}: {b['steps']} steps "
+          f"from the CPU's state {b['step_rel_max']:.2e} of max|y|, KL rel "
+          f"{b['kl_rel_max']:.2e}, gains flipped {b['gains_flipped']}; free "
+          f"runs {b['free_rel']} (one-ulp twin {b['twin_rel']}); P "
+          f"{b['p_s']:.2f} s", flush=True)
+    b = out["b_ii"]
+    print(f"[clustering] (b) (ii) t-SNE {b['points']} x {b['n_iter']} "
+          f"steps: {b['ms_per_step']:.3f} ms a step, launches a step "
+          f"{b.get('launches_per_step')}, device ms "
+          f"{b.get('device_ms_per_step')}, busy {b.get('busy_share')}; KL "
+          f"{b['kl_first_plain']:.4f} -> {b['kl_end']:.4f}; "
+          f"{TSNE_NEIGHBOURS}-neighbour overlap {b['overlap']:.4f} (chance "
+          f"{b['overlap_chance']:.5f}); P {b['p_s']:.2f} s; peak allocated "
+          f"{b.get('peak_allocated')}", flush=True)
+    for case, r in out["c"].items():
+        print(f"[clustering] (c) viterbi {case} {r['shape']}: "
+              f"{r['decode_s'] * 1e3:.3f} ms a decode, {r['launches']} "
+              f"launch(es), bit-equal to the CPU {r['bit_equal']} (CPU "
+              f"{r['cpu_s']:.2f} s); labels changed {r['changed']}",
+              flush=True)
+    for name, r in out["d"].items():
+        print(f"[clustering] (d) {name}: {r['words']} words, card vs CPU "
+              f"{[f'{x:.2e}' for x in r['rel']]}, {r['structure']}",
+              flush=True)
+    e = out["e"]
+    print(f"[clustering] (e) kNN server {e['points']}: {e['queries']} "
+          f"queries, unequal {e['unequal']}, distance rel err "
+          f"{e['distance_rel_err']:.1e}, tree {e['tree_build_s']:.2f} s, "
+          f"{e['request_ms_median']:.2f} ms a request", flush=True)
+    print(f"[clustering] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 2) for k, v in out['part_seconds'].items()} })",
+          flush=True)
+
+
 def _round(d):
     return {k: round(v, 3) for k, v in d.items()}
 
@@ -11189,6 +11898,10 @@ KERNEL_META = {
                       "deeplearning4j_tpu/serving/engine.py:525 "
                       "(vmap(jax.random.categorical)'s bits, an XLA "
                       "fusion)"),
+    # no Pallas kernel: a lax.scan and a reverse scan, one XLA program
+    "viterbi": ("deeplearning4j_tpu_torch/kernels/csrc/viterbi.cu",
+                "deeplearning4j_tpu/util/viterbi.py:27 (_viterbi_core: "
+                "lax.scan forward and reverse, an XLA program)"),
 }
 
 
@@ -11293,7 +12006,13 @@ def run(device, *, small=False, kernels_only=False):
             launches[k] += (l21 or {}).get(k, 0)
         # phase 22 launches no hand-written kernel (its steps are torch
         # ops, as JAX's are XLA's)
-        phase("embeddings", phase_embeddings, device, report, fails, small)
+        kept = {}
+        phase("embeddings", phase_embeddings, device, report, fails, small,
+              kept)
+        l23 = phase("clustering", phase_clustering, device, report, fails,
+                    small, kept.get("vectors"))
+        for k in launches:
+            launches[k] += (l23 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
@@ -11301,7 +12020,7 @@ def run(device, *, small=False, kernels_only=False):
                          ("11", l11), ("12", l12), ("13", l13),
                          ("14", l14), ("15", l15), ("16", l16),
                          ("17", l17), ("18", l18), ("19", l19),
-                         ("20", l20), ("21", l21)) if l}
+                         ("20", l20), ("21", l21), ("23", l23)) if l}
         for part, counts in report.get("multiprocess", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"18 {part}"] = counts
@@ -11428,6 +12147,11 @@ def main(argv):
         # phase 22 alone: it runs no hand-written kernel, so no build
         report, fails = {}, Failures()
         phase_embeddings(device, report, fails)
+        report["kernels"] = []
+    elif "--clustering" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_clustering(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

@@ -26,7 +26,7 @@ LAUNCHES = {"layer_norm": 0, "residual_layer_norm": 0,
             "flash_attention_fwd": 0, "flash_attention_carry": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "fused_adam": 0, "dropout": 0, "threefry_bits": 0,
-            "threefry_rows": 0}
+            "threefry_rows": 0, "viterbi": 0}
 
 
 LAUNCHES_BY_DTYPE = {}

@@ -90,7 +90,13 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "nlp.word2vec", "nlp.serializer", "nlp.paragraphvectors",
                 "nlp.glove", "nlp.bagofwords", "nlp.invertedindex",
                 "nlp.iterator", "graph", "graph.graph", "graph.loader",
-                "graph.walkers", "graph.deepwalk", "graph.node2vec"):
+                "graph.walkers", "graph.deepwalk", "graph.node2vec",
+                "util", "util.viterbi", "util.diskqueue", "kernels.viterbi",
+                "clustering", "clustering.kmeans", "clustering.vptree",
+                "clustering.kdtree", "clustering.quadtree",
+                "clustering.sptree", "clustering.server", "plot",
+                "plot.tsne", "nlp.cjk", "nlp.japanese", "nlp.korean",
+                "nlp.annotation"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
     assert res["threads"][0] == res["threads"][1]

@@ -142,6 +142,19 @@ def test_dropout_retain_one_is_identity_and_views_take_their_own_index():
                        kd.dropout(view.contiguous(), pk, 0.5))
 
 
+@pytest.mark.parametrize("n,offset", [(2 * kd.CPU_CHUNK + 5, 0),
+                                      (kd.CPU_CHUNK + 3, 2 ** 32 - 1000)])
+def test_plain_words_in_passes_equal_one_pass(n, offset):
+    """The CPU's plain words run in passes of CPU_CHUNK words: the same
+    words as one pass over the whole range, across pass and 32-bit word
+    boundaries."""
+    pk = prng.fold_in(prng.key(9), 4)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64)
+    y0, y1 = prng.threefry2x32(pk[0], pk[1], idx >> 32, idx & prng.MASK)
+    assert torch.equal(kd.threefry_bits_plain(pk, n, "cpu", offset), y0 ^ y1)
+    assert kd.threefry_bits_plain(pk, 0, "cpu").shape == (0,)
+
+
 @pytest.mark.parametrize("base", [0, 2 ** 31 - 8, 2 ** 32 - 8,
                                   2 ** 33 + 2 ** 31 - 8])
 def test_int32_threefry_equals_the_generic_form(base):
