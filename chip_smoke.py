@@ -29,6 +29,7 @@
     python3 chip_smoke.py --embeddings    # phase 22 alone (no kernel, no
                                           # build)
     python3 chip_smoke.py --clustering    # build + phase 23 alone
+    python3 chip_smoke.py --import-io     # build + phase 24 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -615,9 +616,51 @@ Phases, in order:
      check; (e) `NearestNeighborsServer` over the vectors: /knn and
      /knnnew for 8 queries equal to a brute force on the card. It
      prints `[clustering]` lines;
+ 24. Keras import and the IO layer (`phase_import_io`, `--import-io`,
+     fp32 with TF32 off): the libhdf5 soname the port's HDF5 shim links
+     against (probed up front, `modelimport.hdf5.libhdf5()`) and g++'s
+     version are printed first. (a) Where a libhdf5 links: the five
+     Keras-written fixtures of tests/fixtures/keras (sequential CNN,
+     LSTM, functional, BatchNorm + SeparableConv2D, and the Keras 3
+     weights-only file by name) imported on the card, each output held
+     to Keras's own predictions at JAX's tolerance (KERAS_RTOL,
+     KERAS_ATOL), and the compiled real_bn.h5 fitted KERAS_FIT_STEPS
+     steps with its SGD, losses card against the port's CPU run within
+     KERAS_FIT_ATOL; on a host without libhdf5, skipped with the reason;
+     (b) the keras-applications ResNet-50 (resnet50_keras_arch.json:
+     ZeroPadding, 53 biased convs, 53 BatchNorms with epsilon 1.001e-5,
+     the 1000-way `predictions` Dense) at full width: seeded weights
+     (moving statistics away from 0/1) written in the weights-only
+     layout, imported through `ResNet50().init_pretrained(IMAGENET)`
+     (its `pretrained_path` and `pretrained_checksum` serving the file),
+     `output()` at [32, 224, 224, 3] held to the port's CPU import of the
+     same file on the first 2 images within IMPORT_TOL of max|y| (pooled
+     features too) with top-1 equal; file write, read, import seconds
+     and output() ms; then the same weights as a compiled Keras 2 model
+     (Adam(1e-4), categorical cross-entropy) through
+     `import_keras_model_and_weights`, its Dense an mcxent OutputLayer,
+     fitted 3 steps at batch 16 card against CPU (step 0 within
+     TRAIN_LOSS_RTOL, later steps, params and running statistics by
+     phase 10's noisy-twin rule), fused Adam launched every step. On a
+     host without libhdf5 the files are `NpzArchive` twins (same names,
+     an .npz behind them) and the architecture comes through
+     `import_keras_configuration` / `config_from_dict`, the weights
+     through the port's `_copy_weights`; (c) the CSV shim built with g++
+     (`native_available()` asserted): a seeded 250,000 x 17 CSV (16
+     float32 features at %.9g and a label in 0-9) parsed bit for bit
+     (MB/s, rows/s), a file of quotes, comments, blank lines, ragged rows
+     and non-numeric fields equal to the numpy path, and the first 65,536
+     rows through `load_csv_dataset` into a `NetworkEstimator` (MLP
+     16-256-256-10, Adam, batch 1024, one epoch) on the card: its first
+     loss within ESTIMATOR_ATOL of the CPU estimator's, then `predict`
+     and `score` on the held-out rows; (d) `ModelGuesser` on the card:
+     the estimator's net as a port zip and its configuration JSON (and
+     real_cnn.h5 where libhdf5 links) equal in class and outputs, bit for
+     bit, to the direct loads, a weights-only .h5 refused; (e) S3 runs in
+     the CPU tests only. It prints `[import]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 21 and 23, each > 0; phase 22 runs none of these kernels, phase 23
-only the Viterbi kernel; the counts of each phase, and of each part of phases
+to 21, 23 and 24, each > 0; phase 22 runs none of these kernels, phase
+23 only the Viterbi kernel, phase 24 only fused Adam; the counts of each phase, and of each part of phases
 18 to 21, on a `[launches]` line), each phase's seconds on a
 `[phases]` line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
@@ -629,6 +672,7 @@ convolutions in TF32 by default) and leaves
 
 from __future__ import annotations
 
+import io
 import json
 import os
 import re
@@ -11861,6 +11905,692 @@ def _print_clustering(out):
           flush=True)
 
 
+# ------------------------------------------------------------- phase 24
+KERAS_FIXTURES = os.path.join(HERE, "tests", "fixtures", "keras")
+RESNET_KERAS_ARCH = os.path.join(HERE, "deeplearning4j_tpu", "zoo", "weights",
+                                 "resnet50_keras_arch.json")
+# (a): JAX's tolerance against Keras's own predictions
+# (tests/test_keras_real_golden.py:42-66), and real_bn's SGD fit, card
+# against the port's CPU run
+KERAS_RTOL, KERAS_ATOL = 1e-4, 1e-5
+KERAS_FIT_ATOL = 1e-5
+KERAS_FIT_STEPS = 2
+REAL_FIXTURES = (("real_cnn", "cnn"), ("real_lstm", "lstm"),
+                 ("real_func", "func"), ("real_bn", "bn"))
+# (b): the imported keras-applications ResNet-50, card against the
+# port's CPU import of the same file (of max|y|), at full width
+IMPORT_B, IMPORT_REF_IMAGES, IMPORT_TOL = 32, 2, 1e-4
+IMPORT_FT = dict(B=16, steps=3, lr=1e-4)
+IMPORT_SMALL_SIZE = 32        # the CPU rehearsal's input (the arch's is 224)
+# (c): a real tabular set's size (UCI covertype: 581,012 x 55)
+CSV = dict(rows=250_000, features=16, classes=10, train=65_536, batch=1024)
+CSV_SMALL = dict(CSV, rows=4096, train=2048, batch=64)
+ESTIMATOR_ATOL = 1e-5
+ESTIMATOR_MIN_SCORE = 0.5     # held-out accuracy (chance is 0.1)
+# (c): a small file with every quirk the parser handles
+CSV_QUIRKS = ('# a comment line\n"a","b",c\n1,2,3\n\n"4.5",x,6\r\n'
+              '# another\n7,8\n9,"1,0",11,12\n  13 , 14 ,15\n'
+              '\t16\t,"17" ,12abc\n')
+
+
+class NpzArchive:
+    """`Hdf5Archive`'s reads and writes over an .npz, for a host without
+    libhdf5: groups, string attributes and float32 datasets at the same
+    paths, so the same layout writer and the port's own weight copy
+    (`KerasModelImport._copy_weights`) run over it unchanged."""
+
+    def __init__(self, path, mode: str = "r"):
+        self.path, self.mode = str(path), mode
+        self._arrays, self._groups = {}, {"/"}
+        self._attrs = {}
+        if mode == "r":
+            with np.load(self.path) as z:
+                self._arrays = {k: z[k] for k in z.files}
+            meta = json.loads(bytes(self._arrays.pop("__meta__")).decode())
+            self._attrs, self._groups = meta["attrs"], set(meta["groups"])
+
+    def close(self):
+        if self.mode == "w":
+            meta = json.dumps({"attrs": self._attrs,
+                               "groups": sorted(self._groups)}).encode()
+            with open(self.path, "wb") as f:
+                np.savez(f, __meta__=np.frombuffer(meta, np.uint8),
+                         **self._arrays)
+            self.mode = "closed"
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        self.close()
+
+    @staticmethod
+    def _key(path):
+        return "/" + path.strip("/")
+
+    def exists(self, path):
+        return self._key(path) in self._groups or \
+            self._key(path) in self._arrays
+
+    def read_attr_string(self, attr, obj_path="/"):
+        return self._attrs.get(f"{self._key(obj_path)}@{attr}")
+
+    def read_attr_strings(self, attr, obj_path="/"):
+        s = self.read_attr_string(attr, obj_path)
+        return [] if not s else s.split("\n")
+
+    def read_dataset(self, path):
+        return self._arrays[self._key(path)]
+
+    def create_group(self, path):
+        self._groups.add(self._key(path))
+
+    def write_attr_string(self, attr, value, obj_path="/"):
+        self._attrs[f"{self._key(obj_path)}@{attr}"] = value
+
+    def write_attr_strings(self, attr, values, obj_path="/"):
+        self.write_attr_string(attr, "\n".join(values), obj_path)
+
+    def write_dataset(self, path, data):
+        self._arrays[self._key(path)] = np.ascontiguousarray(data,
+                                                             np.float32)
+
+
+def write_keras_weights(ar, layer_weights, root="/"):
+    """The keras weights layout (tests/keras_fixture_util.py:21-40 and
+    tests/test_keras_golden.py:245-256) through an archive opened for
+    writing: `layer_names` on `root`, each layer's `weight_names`, and
+    its datasets at `{root}/{lname}/{lname}/{w}:0`. Returns the bytes
+    of float32 data written."""
+    root = root.rstrip("/")
+    if root:
+        ar.create_group(root)
+    ar.write_attr_strings("layer_names", [n for n, _ in layer_weights],
+                          root or "/")
+    nbytes = 0
+    for lname, weights in layer_weights:
+        ar.create_group(f"{root}/{lname}")
+        ar.write_attr_strings("weight_names",
+                              [f"{lname}/{w}:0" for w, _ in weights],
+                              f"{root}/{lname}")
+        if weights:
+            ar.create_group(f"{root}/{lname}/{lname}")
+        for w, arr in weights:
+            ar.write_dataset(f"{root}/{lname}/{lname}/{w}:0", arr)
+            nbytes += arr.nbytes
+    return nbytes
+
+
+def keras_resnet_arch(size=None):
+    """The keras-applications ResNet-50 architecture (`model.to_json()`,
+    committed beside the JAX package's zoo weights), its input cut to
+    `size` x `size` when given."""
+    with open(RESNET_KERAS_ARCH) as f:
+        arch = json.load(f)
+    if size is not None:
+        arch["config"]["layers"][0]["config"]["batch_shape"] = [
+            None, size, size, 3]
+    return arch
+
+
+def keras_resnet_weights(arch, seed=0):
+    """[(keras layer name, [(weight name, array)])] for every layer of
+    `arch` in its order, seeded: He-scaled conv kernels and biases, the
+    BatchNorms' gamma, beta and moving statistics away from 1/0 (the
+    moving variance in [1, 1.5)), and the 1000-way `predictions` Dense."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    conf = KerasModelImport.config_from_dict(arch)
+    rng = np.random.default_rng(seed)
+    out = []
+    for lc in arch["config"]["layers"]:
+        name, cls = lc["name"], lc["class_name"]
+        node = conf.nodes.get(name)
+        shapes = ({k: tuple(t.shape) for k, t in
+                   node.layer.jax_param_map().items()}
+                  if node is not None and node.layer is not None else {})
+        if cls in ("Conv2D", "Dense"):
+            w = shapes["W"]
+            fan_in = int(np.prod(w[:-1]))
+            gain = 2.0 if cls == "Conv2D" else 1.0
+            out.append((name, [
+                ("kernel", rng.standard_normal(w, dtype=np.float32)
+                 * np.float32(np.sqrt(gain / fan_in))),
+                ("bias", 0.1 * rng.standard_normal(w[-1:],
+                                                   dtype=np.float32))]))
+        elif cls == "BatchNormalization":
+            c = shapes["gamma"]
+            out.append((name, [
+                ("gamma", 1 + 0.1 * rng.standard_normal(c, dtype=np.float32)),
+                ("beta", 0.1 * rng.standard_normal(c, dtype=np.float32)),
+                ("moving_mean", 0.1 * rng.standard_normal(c,
+                                                          dtype=np.float32)),
+                ("moving_variance", 1 + 0.5 * rng.random(c,
+                                                         dtype=np.float32))]))
+        else:
+            out.append((name, []))
+    return out
+
+
+def _keras_training_config(lr):
+    """A compiled model's `training_config`: Adam(lr) and categorical
+    cross-entropy, as Keras 2 writes it."""
+    return {"loss": "categorical_crossentropy", "metrics": [],
+            "optimizer_config": {"class_name": "Adam", "config": {
+                "learning_rate": lr, "beta_1": 0.9, "beta_2": 0.999,
+                "epsilon": 1e-7, "amsgrad": False}}}
+
+
+def _losses_listener():
+    from deeplearning4j_tpu_torch.optimize.listeners import TrainingListener
+
+    class Losses(TrainingListener):
+        def __init__(self):
+            self.losses = []
+
+        def iteration_done(self, model, iteration, epoch, score, **info):
+            self.losses.append(float(score))
+    return Losses()
+
+
+def _host(t):
+    return t.detach().cpu().numpy()
+
+
+def _keras_real(device, fails, hdf5):
+    """(a) The five Keras-written fixtures on `device`, against Keras's
+    own predictions; real_bn's SGD fit, card against the CPU."""
+    if hdf5 is None:
+        return dict(skipped="no libhdf5 on this host: the real .h5 "
+                    "fixtures cannot be read (the CPU tests hold them)")
+    import torch
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    preds = np.load(os.path.join(KERAS_FIXTURES, "predictions.npz"))
+    out = {}
+    for fname, key in REAL_FIXTURES:
+        net = KerasModelImport.import_keras_model_and_weights(
+            os.path.join(KERAS_FIXTURES, f"{fname}.h5"), device=device)
+        got = net.output(preds[f"{key}_x"])
+        got = _host(got[0] if isinstance(got, (list, tuple)) else got)
+        err = float(np.abs(got - preds[f"{key}_y"]).max())
+        fails.check(np.allclose(got, preds[f"{key}_y"], rtol=KERAS_RTOL,
+                                atol=KERAS_ATOL),
+                    f"import (a) {fname} against Keras's predictions: max "
+                    f"err {err} (rtol {KERAS_RTOL}, atol {KERAS_ATOL})")
+        out[fname] = err
+    # the weights-only Keras 3 file, by name into a zeroed import
+    net = KerasModelImport.import_keras_model_and_weights(
+        os.path.join(KERAS_FIXTURES, "real_cnn.h5"), device=device)
+    with torch.no_grad():
+        for t in net.parameters():
+            t.zero_()
+    KerasModelImport.load_weights_into(
+        net, os.path.join(KERAS_FIXTURES, "real_cnn.weights.h5"))
+    got = _host(net.output(preds["cnn_x"]))
+    err = float(np.abs(got - preds["cnn_y"]).max())
+    fails.check(np.allclose(got, preds["cnn_y"], rtol=KERAS_RTOL,
+                            atol=KERAS_ATOL),
+                f"import (a) real_cnn.weights.h5 by name: max err {err}")
+    out["real_cnn.weights"] = err
+    # the compiled real_bn fitted with its own SGD, card against CPU
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((8, 6, 6, 2)).astype(np.float32)
+    y = np.eye(3, dtype=np.float32)[rng.integers(0, 3, 8)]
+    losses = []
+    for dev in (device, "cpu"):
+        net = KerasModelImport.import_keras_model_and_weights(
+            os.path.join(KERAS_FIXTURES, "real_bn.h5"), device=dev)
+        rec = _losses_listener()
+        net.set_listeners(rec)
+        for _ in range(KERAS_FIT_STEPS):
+            net.fit(x, y, shuffle=False)
+        losses.append(rec.losses)
+    diff = float(np.abs(np.subtract(*losses)).max())
+    fails.check(diff <= KERAS_FIT_ATOL and np.all(np.isfinite(losses)),
+                f"import (a) real_bn fit card vs CPU: losses {losses}, "
+                f"max diff {diff} (tol {KERAS_FIT_ATOL})")
+    out["real_bn_fit"] = dict(card=losses[0], cpu=losses[1], diff=diff)
+    return out
+
+
+def _resnet_zoo(path, arch_name):
+    """A ResNet50 zoo model serving `path` (its sha256) for IMAGENET,
+    with `arch_name` (a name in the zoo's weights directory, or an
+    absolute path) as its Keras architecture."""
+    import hashlib
+    from pathlib import Path
+    from deeplearning4j_tpu_torch.zoo import ResNet50
+    from deeplearning4j_tpu_torch.zoo.base import PretrainedType
+    digest = hashlib.sha256(Path(path).read_bytes()).hexdigest()
+
+    class Served(ResNet50):
+        keras_architecture = {PretrainedType.IMAGENET: arch_name}
+
+        def pretrained_path(self, ptype):
+            return Path(path)
+
+        def pretrained_checksum(self, ptype):
+            return digest
+    return Served()
+
+
+def _import_resnet(device, arch, hdf5, path, zoo=None, training_config=None):
+    """The imported network on `device`. Where libhdf5 links: the zoo's
+    `init_pretrained` (a weights-only file) or `import_keras_model_and_
+    weights` (a compiled one). Else the architecture through
+    `import_keras_configuration` (`arch` None: the committed file) or
+    `config_from_dict`, and the archive twin's weights through the port's
+    own `_copy_weights`."""
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.nn.graph import ComputationGraph
+    from deeplearning4j_tpu_torch.zoo.base import PretrainedType
+    if hdf5 is not None:
+        if zoo is not None:
+            return zoo.init_pretrained(PretrainedType.IMAGENET, device=device)
+        return KerasModelImport.import_keras_model_and_weights(
+            path, device=device)
+    conf = (KerasModelImport.import_keras_configuration(RESNET_KERAS_ARCH)
+            if arch is None else
+            KerasModelImport.config_from_dict(arch, training_config))
+    net = ComputationGraph(conf, device=device).init()
+    with NpzArchive(path) as twin:
+        root = KerasModelImport._weights_root(twin)
+        names = [(n, n) for n in twin.read_attr_strings("layer_names", root)
+                 if n in conf.nodes]
+        KerasModelImport._copy_weights(net, twin, names)
+    return net
+
+
+def _keras_resnet(device, fails, hdf5, small, tmp):
+    """(b) The keras-applications ResNet-50 at full width: seeded weights
+    written weights-only, imported through the zoo, `output()` at batch
+    32 held to the CPU import; then the same weights as a compiled Keras
+    model (Adam, categorical cross-entropy) imported and fitted."""
+    import torch
+    from deeplearning4j_tpu_torch.datasets import DataSet
+    from deeplearning4j_tpu_torch.modelimport import Hdf5Archive
+    from deeplearning4j_tpu_torch.util.jax_params import to_jax_state
+    import deeplearning4j_tpu_torch.kernels as K
+    size = IMPORT_SMALL_SIZE if small else 224
+    arch = keras_resnet_arch(size if small else None)
+    Archive = Hdf5Archive if hdf5 is not None else NpzArchive
+    ext = ".h5" if hdf5 is not None else ".npz"
+    weights = keras_resnet_weights(arch)
+    out = dict(route=("h5: init_pretrained + import_keras_model_and_weights"
+                      if hdf5 is not None else
+                      "npz twin: import_keras_configuration + "
+                      "_copy_weights"),
+               size=size, tensors=sum(len(w) for _, w in weights),
+               floats=int(sum(a.size for _, w in weights for _, a in w)))
+    # (i) weights-only, through the zoo
+    path = os.path.join(tmp, f"resnet50_weights{ext}")
+    t0 = time.perf_counter()
+    with Archive(path, "w") as ar:
+        nbytes = write_keras_weights(ar, weights)
+        ar.write_attr_string("backend", "tensorflow")
+    out["write_s"] = time.perf_counter() - t0
+    out["file_mb"] = os.path.getsize(path) / 1e6
+    out["data_mb"] = nbytes / 1e6
+    t0 = time.perf_counter()
+    with Archive(path) as ar:
+        for lname in ar.read_attr_strings("layer_names"):
+            for wn in ar.read_attr_strings("weight_names", f"/{lname}"):
+                ar.read_dataset(f"/{lname}/{wn}")
+    out["read_s"] = time.perf_counter() - t0
+    arch_name = "resnet50_keras_arch.json"
+    if small:   # an absolute name: the zoo joins it to nothing
+        arch_name = os.path.join(tmp, "resnet50_small_arch.json")
+        with open(arch_name, "w") as f:
+            json.dump(arch, f)
+    zoo = _resnet_zoo(path, arch_name)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    net = _import_resnet(device, arch if small else None, hdf5, path, zoo)
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+    out["import_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = _import_resnet("cpu", arch if small else None, hdf5, path, zoo)
+    out["cpu_import_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(24)
+    B = 4 if small else IMPORT_B
+    x = rng.standard_normal((B, size, size, 3), dtype=np.float32)
+    y = net.output(x)
+    n = IMPORT_REF_IMAGES
+    want = _host(ref.output(x[:n]))
+    got = _host(y)
+    rel = float(np.abs(got[:n] - want).max() / np.abs(want).max())
+    feat = _host(net.feed_forward(x[:n])["avg_pool"])
+    feat_ref = _host(ref.feed_forward(x[:n])["avg_pool"])
+    feat_rel = float(np.abs(feat - feat_ref).max() / np.abs(feat_ref).max())
+    top1 = bool(np.array_equal(got[:n].argmax(-1), want.argmax(-1)))
+    fails.check(rel <= IMPORT_TOL and feat_rel <= IMPORT_TOL and top1
+                and got.shape == (B, 1000) and np.isfinite(got).all(),
+                f"import (b) ResNet-50 output card vs CPU: {rel} of max|y| "
+                f"(pooled features {feat_rel}, tol {IMPORT_TOL}), top-1 "
+                f"equal {top1}, shape {got.shape}")
+    state = to_jax_state(net)["conv1_bn"]
+    moved = bool(np.abs(state["var"] - 1).max() > 0.01
+                 and np.abs(state["mean"]).max() > 0.01)
+    fails.check(moved, "import (b) conv1_bn's running state is not the "
+                "file's moving statistics")
+    out.update(output_rel=rel, features_rel=feat_rel, top1_equal=top1,
+               max_prob=float(got.max()), eps=float(
+                   net.conf.nodes["conv1_bn"].layer.eps),
+               output_ms=timer(device, lambda: net.output(x), iters=5,
+                               warmup=1))
+    del net, ref
+    # (ii) the same weights as a compiled Keras 2 model, fine-tuned
+    tc = _keras_training_config(IMPORT_FT["lr"])
+    path = os.path.join(tmp, f"resnet50_compiled{ext}")
+    with Archive(path, "w") as ar:
+        ar.write_attr_string("model_config", json.dumps(arch))
+        ar.write_attr_string("training_config", json.dumps(tc))
+        ar.write_attr_string("keras_version", "2.2.4")
+        ar.write_attr_string("backend", "tensorflow")
+        write_keras_weights(ar, weights, "/model_weights")
+    B, steps = (2, 2) if small else (IMPORT_FT["B"], IMPORT_FT["steps"])
+    X, Y = resnet_images(B * steps, size, 1000, seed=25)
+    noisy = X * (1 + RESNET_NOISE * np.random.default_rng(9)
+                 .standard_normal(X.shape, dtype=np.float32))
+    nets = [_import_resnet(dev, keras_resnet_arch(size if small else None),
+                           hdf5, path, training_config=tc)
+            for dev in (device, "cpu")]
+    # the noisy twin: a copy of the CPU import (the noise is on its images)
+    nets.append(_copy_to(nets[1], "cpu"))
+    losses, secs = [], []
+    for fine, XX in zip(nets, (X, X, noisy)):
+        rec = _losses_listener()
+        fine.set_listeners(rec)
+        n0 = K.LAUNCHES["fused_adam"]
+        t0 = time.perf_counter()
+        for i in range(0, B * steps, B):
+            fine.fit(DataSet(XX[i:i + B], Y[i:i + B]), batch_size=B)
+        if getattr(fine.device, "type", "") == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not losses:
+            out["fused_adam_per_step"] = (K.LAUNCHES["fused_adam"]
+                                          - n0) / steps
+        losses.append(rec.losses)
+    out["output_layer"] = type(
+        nets[0].conf.nodes["predictions"].layer).__name__
+    fails.check(out["output_layer"] == "OutputLayer",
+                f"import (b) the compiled Dense became "
+                f"{out['output_layer']}, not an OutputLayer")
+    out["fine_tune"] = dict(B=B, steps=steps, card_s=secs[0],
+                            cpu_s=secs[1], **_noisy_twin_checks(
+                                fails, "import (b) ResNet-50 fine-tune",
+                                *nets, losses,
+                                extra=(("state", to_jax_state),)))
+    # fused Adam updates packed runs only (JAX `graph.py:633-656`): the
+    # imported graph has none, so its Adam runs per leaf, as JAX's does
+    runs = nets[0]._packed_runs()
+    out["packed_runs"] = len(runs)
+    want = len(runs) if device.type == "cuda" else 0
+    fails.check(out["fused_adam_per_step"] == want,
+                f"import (b) fused Adam launched "
+                f"{out['fused_adam_per_step']} times a fine-tune step, "
+                f"the graph's packed runs {len(runs)}")
+    return out
+
+
+def _csv_estimator(device, fails, small, tmp):
+    """(c) The CSV shim at a real tabular set's size, then its first rows
+    into a NetworkEstimator on `device` against the CPU estimator."""
+    import torch
+    from deeplearning4j_tpu_torch.common.updaters import Adam
+    from deeplearning4j_tpu_torch.datasets import native_csv
+    from deeplearning4j_tpu_torch.ml import NetworkEstimator
+    from deeplearning4j_tpu_torch.nn.conf.builder import (
+        NeuralNetConfiguration)
+    from deeplearning4j_tpu_torch.nn.conf.inputs import InputType
+    from deeplearning4j_tpu_torch.nn.layers import DenseLayer, OutputLayer
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    import deeplearning4j_tpu_torch.kernels as K
+    c = CSV_SMALL if small else CSV
+    out = {}
+    t0 = time.perf_counter()
+    native = native_csv.native_available()
+    out["build_s"] = time.perf_counter() - t0
+    out["native"] = native
+    fails.check(native, "import (c) the CSV shim did not build with g++")
+    rng = np.random.default_rng(31)
+    feats = rng.standard_normal((c["rows"], c["features"]),
+                                dtype=np.float32)
+    proj = rng.standard_normal((c["features"], c["classes"]),
+                               dtype=np.float32)
+    labels = (feats @ proj).argmax(-1).astype(np.float32)
+    src = np.concatenate([feats, labels[:, None]], axis=1)
+    path = os.path.join(tmp, "table.csv")
+    t0 = time.perf_counter()
+    buf = io.StringIO()
+    np.savetxt(buf, src, fmt="%.9g", delimiter=",")
+    text = buf.getvalue()
+    with open(path, "w") as f:
+        f.write(text)
+    out["write_s"] = time.perf_counter() - t0
+    out["mb"] = os.path.getsize(path) / 1e6
+    t0 = time.perf_counter()
+    m = native_csv.load_csv_matrix(path)
+    out["parse_s"] = time.perf_counter() - t0
+    out["mb_per_s"] = out["mb"] / out["parse_s"]
+    out["rows_per_s"] = c["rows"] / out["parse_s"]
+    out["bit_equal"] = bool(m.shape == src.shape
+                            and np.array_equal(m.view(np.uint32),
+                                               src.view(np.uint32)))
+    fails.check(out["bit_equal"], f"import (c) the parsed {m.shape} CSV "
+                f"is not the source {src.shape} bit for bit")
+    quirks = os.path.join(tmp, "quirks.csv")
+    with open(quirks, "w") as f:
+        f.write(CSV_QUIRKS)
+    got = native_csv.load_csv_matrix(quirks, skip_header=1)
+    want = native_csv._numpy_fallback(quirks, ",", 1)
+    out["quirks_equal"] = bool(got.shape == want.shape and np.array_equal(
+        got, want, equal_nan=True))
+    fails.check(out["quirks_equal"], f"import (c) quirks file: shim {got} "
+                f"against the numpy path {want}")
+    head = os.path.join(tmp, "table_head.csv")
+    end = -1
+    for _ in range(c["train"]):
+        end = text.index("\n", end + 1)
+    with open(head, "w") as f:
+        f.write(text[:end + 1])
+    train = native_csv.load_csv_dataset(head, num_classes=c["classes"])
+    held_x, held_y = feats[c["train"]:], labels[c["train"]:].astype(int)
+
+    def conf():
+        return (NeuralNetConfiguration.builder().seed(7)
+                .updater(Adam(1e-3)).list()
+                .layer(DenseLayer(n_out=256, activation="relu"))
+                .layer(DenseLayer(n_out=256, activation="relu"))
+                .layer(OutputLayer(n_out=c["classes"], activation="softmax",
+                                   loss="mcxent"))
+                .set_input_type(InputType.feed_forward(c["features"]))
+                .build())
+
+    ests, firsts, secs = [], [], []
+    n0 = K.LAUNCHES["fused_adam"]
+    for dev in (device, torch.device("cpu")):
+        rec = _losses_listener()
+
+        def factory(dev=dev, rec=rec):
+            return MultiLayerNetwork(conf(), device=dev).set_listeners(rec)
+        est = NetworkEstimator(factory, epochs=1, batch_size=c["batch"],
+                               num_classes=c["classes"], device=dev)
+        t0 = time.perf_counter()
+        est.fit(train.features, train.labels.argmax(-1))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        if not ests:
+            out["fused_adam"] = K.LAUNCHES["fused_adam"] - n0
+            out["steps"] = len(rec.losses)
+        ests.append(est)
+        firsts.append(rec.losses[0])
+    diff = abs(firsts[0] - firsts[1])
+    fails.check(diff <= ESTIMATOR_ATOL,
+                f"import (c) estimator first loss card {firsts[0]} vs CPU "
+                f"{firsts[1]} (tol {ESTIMATOR_ATOL})")
+    hx, hy = held_x, held_y
+    pred = ests[0].predict(hx)
+    agree = float((pred == ests[1].predict(hx)).mean())
+    score = ests[0].score(hx, hy)
+    fails.check(score >= ESTIMATOR_MIN_SCORE and pred.shape == hy.shape,
+                f"import (c) estimator held-out accuracy {score} (min "
+                f"{ESTIMATOR_MIN_SCORE})")
+    out.update(first_loss=firsts, first_loss_diff=diff, epoch_s=secs[0],
+               cpu_epoch_s=secs[1], score=score, cpu_score=ests[1].score(
+                   hx, hy), predict_agreement=agree, train=c["train"],
+               held=int(len(hy)))
+    return out, ests[0]
+
+
+def _guesser(device, fails, hdf5, est, tmp):
+    """(d) ModelGuesser on `device` against the direct loads, bit for
+    bit: a full Keras model (where libhdf5 links), the estimator's net as
+    a port zip, and its configuration JSON; a weights-only .h5 refused."""
+    import torch
+    from deeplearning4j_tpu_torch.modelimport import KerasModelImport
+    from deeplearning4j_tpu_torch.nn.multilayer import MultiLayerNetwork
+    from deeplearning4j_tpu_torch.util.guesser import ModelGuesser
+    from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
+    out = {}
+    x = np.random.default_rng(41).standard_normal(
+        (64, est.model_.layers[0].n_in), dtype=np.float32)
+
+    def same(name, guessed, direct, xx):
+        a, b = guessed.output(xx), direct.output(xx)
+        ok = (type(guessed) is type(direct)
+              and guessed.device == direct.device and torch.equal(a, b))
+        fails.check(ok, f"import (d) guess of {name}: "
+                    f"{type(guessed).__name__} on {guessed.device} against "
+                    f"{type(direct).__name__} on {direct.device}, equal "
+                    f"{torch.equal(a, b)}")
+        out[name] = ok
+
+    zpath = os.path.join(tmp, "estimator.zip")
+    ModelSerializer.write_model(est.model_, zpath)
+    same("zip", ModelGuesser.load_model_guess(zpath, device=device),
+         ModelSerializer.restore_model(zpath, device=device), x)
+    cpath = os.path.join(tmp, "estimator_conf.json")
+    with open(cpath, "w") as f:
+        f.write(est.model_.conf.to_json())
+    same("config_json", ModelGuesser.load_model_guess(cpath, device=device),
+         MultiLayerNetwork(ModelGuesser.load_config_guess(cpath),
+                           device=device).init(), x)
+    if hdf5 is None:
+        out["h5"] = ("skipped: no libhdf5 on this host (the CPU tests "
+                     "hold the .h5 guesses)")
+        return out
+    preds = np.load(os.path.join(KERAS_FIXTURES, "predictions.npz"))
+    h5 = os.path.join(KERAS_FIXTURES, "real_cnn.h5")
+    same("keras_h5", ModelGuesser.load_model_guess(h5, device=device),
+         KerasModelImport.import_keras_model_and_weights(h5, device=device),
+         preds["cnn_x"])
+    try:
+        ModelGuesser.load_model_guess(
+            os.path.join(KERAS_FIXTURES, "real_cnn.weights.h5"),
+            device=device)
+        refused = False
+    except ValueError:
+        refused = True
+    fails.check(refused, "import (d) a weights-only .h5 was not refused")
+    out["weights_only_refused"] = refused
+    return out
+
+
+def phase_import_io(device, report, fails, small=False, hdf5="probe"):
+    """Phase 24 on `device` (see the module docstring, 24 (a)-(e)):
+    Keras import and the IO layer. `hdf5` is the libhdf5 soname to use
+    ("probe": `modelimport.hdf5.libhdf5()`; None: this host has none,
+    the route a host without it takes). Returns {"fused_adam":
+    launches}."""
+    import shutil
+    import tempfile
+    import deeplearning4j_tpu_torch.kernels as K
+    from deeplearning4j_tpu_torch.modelimport import hdf5 as H5
+    t_start = time.perf_counter()
+    if hdf5 == "probe":
+        hdf5 = H5.libhdf5()
+    gxx = subprocess.run(["g++", "--version"], capture_output=True,
+                         text=True).stdout.splitlines()
+    out = dict(libhdf5=hdf5, gxx=gxx[0] if gxx else None)
+    print(f"[import] libhdf5: {hdf5 or 'none of ' + ', '.join(H5.SONAMES)}"
+          f" on this host; g++: {out['gxx']}", flush=True)
+    parts = {}
+    n0 = K.LAUNCHES["fused_adam"]
+    os.makedirs(OUT_DIR, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="import_io_", dir=OUT_DIR)
+    try:
+        for part, fn, args in (
+                ("a", _keras_real, (hdf5,)),
+                ("b", _keras_resnet, (hdf5, small, tmp)),
+                ("c", _csv_estimator, (small, tmp))):
+            t0 = time.perf_counter()
+            out[part] = fn(device, fails, *args)
+            parts[part] = time.perf_counter() - t0
+        out["c"], est = out["c"]
+        t0 = time.perf_counter()
+        out["d"] = _guesser(device, fails, hdf5, est, tmp)
+        parts["d"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["e"] = "S3: CPU tests only (no boto3 and no network here)"
+    launches = K.LAUNCHES["fused_adam"] - n0
+    out["launches"] = {"fused_adam": launches}
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_start
+    report["import_io"] = out
+    _print_import_io(out)
+    return {"fused_adam": launches}
+
+
+def _print_import_io(out):
+    a = out["a"]
+    if "skipped" in a:
+        print(f"[import] (a) real Keras fixtures skipped: {a['skipped']}",
+              flush=True)
+    else:
+        print(f"[import] (a) real Keras fixtures, max err against Keras's "
+              f"predictions: { {k: v for k, v in a.items() if k != 'real_bn_fit'} }"
+              f"; real_bn SGD fit card vs CPU {a['real_bn_fit']['diff']:.2e}"
+              f" (losses {a['real_bn_fit']['card']})", flush=True)
+    b = out["b"]
+    ft = b["fine_tune"]
+    print(f"[import] (b) ResNet-50 {b['size']}x{b['size']} via {b['route']}:"
+          f" {b['tensors']} tensors, {b['floats']} floats, file "
+          f"{b['file_mb']:.1f} MB; write {b['write_s']:.3f} s, read "
+          f"{b['read_s']:.3f} s ({b['data_mb'] / b['read_s']:.1f} MB/s), "
+          f"import {b['import_s']:.3f} s (CPU {b['cpu_import_s']:.3f} s), "
+          f"output() at batch {IMPORT_B} {b['output_ms']:.3f} ms; card vs "
+          f"CPU {b['output_rel']:.2e} of max|y| (pooled {b['features_rel']:.2e}"
+          f"), top-1 equal {b['top1_equal']} (max prob {b['max_prob']:.4f}), "
+          f"eps {b['eps']}", flush=True)
+    print(f"[import] (b) compiled fine-tune ({b['output_layer']}) {ft['steps']}"
+          f" steps at batch {ft['B']}: losses card {ft['loss_card']}, CPU "
+          f"{ft['loss_cpu']}; step 0 rel {ft['step0_rel_err']:.2e}; fused "
+          f"Adam {b.get('fused_adam_per_step')} a step (packed runs "
+          f"{b['packed_runs']}); card {ft['card_s']:.2f}"
+          f" s, CPU {ft['cpu_s']:.2f} s", flush=True)
+    c = out["c"]
+    print(f"[import] (c) CSV {c['mb']:.1f} MB (write {c['write_s']:.2f} s, "
+          f"shim {c['native']}, built in {c['build_s']:.2f} s): parse "
+          f"{c['parse_s']:.3f} s, {c['mb_per_s']:.1f} MB/s, "
+          f"{c['rows_per_s']:.0f} rows/s, bit-equal {c['bit_equal']}, "
+          f"quirks {c['quirks_equal']}; estimator {c['train']} rows x 1 "
+          f"epoch ({c['steps']} steps, fused Adam {c['fused_adam']}): "
+          f"{c['epoch_s']:.3f} s (CPU {c['cpu_epoch_s']:.3f} s), first loss "
+          f"diff {c['first_loss_diff']:.2e}, held-out accuracy "
+          f"{c['score']:.4f} (CPU {c['cpu_score']:.4f}, predictions agree "
+          f"{c['predict_agreement']:.4f})", flush=True)
+    print(f"[import] (d) ModelGuesser: {out['d']}; (e) {out['e']}",
+          flush=True)
+    print(f"[import] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 2) for k, v in out['part_seconds'].items()} })",
+          flush=True)
+
+
 def _round(d):
     return {k: round(v, 3) for k, v in d.items()}
 
@@ -12013,6 +12743,10 @@ def run(device, *, small=False, kernels_only=False):
                     small, kept.get("vectors"))
         for k in launches:
             launches[k] += (l23 or {}).get(k, 0)
+        l24 = phase("import_io", phase_import_io, device, report, fails,
+                    small)
+        for k in launches:
+            launches[k] += (l24 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
@@ -12020,7 +12754,8 @@ def run(device, *, small=False, kernels_only=False):
                          ("11", l11), ("12", l12), ("13", l13),
                          ("14", l14), ("15", l15), ("16", l16),
                          ("17", l17), ("18", l18), ("19", l19),
-                         ("20", l20), ("21", l21), ("23", l23)) if l}
+                         ("20", l20), ("21", l21), ("23", l23),
+                         ("24", l24)) if l}
         for part, counts in report.get("multiprocess", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"18 {part}"] = counts
@@ -12152,6 +12887,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_clustering(device, report, fails)
+        report["kernels"] = []
+    elif "--import-io" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_import_io(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

@@ -7,9 +7,15 @@ The port downloads nothing. A packaged checkpoint is a file the JAX
 package ships in `deeplearning4j_tpu/zoo/weights/`, read in place as a
 data file (no module of that package is imported): `MANIFEST.json`
 maps its name to its sha256 (and, for the char-LM, its charset), the
-hash is checked before anything is read, and the zip is restored
-through the port's own `util/serializer.py`. A type without a packaged
-file, or a Keras h5 payload, is refused by name.
+hash is checked before anything is read. The payload is routed by its
+magic bytes, as JAX's `init_pretrained` routes it (:118-137): a Keras
+`.h5` goes through the port's `modelimport` (a full model through
+`import_keras_model_and_weights`; a weights-only file through the
+model's `keras_architecture` JSON when it has one, else onto `init()`
+by `load_weights_into`), anything else is a model zip restored through
+`util/serializer.py`. `pretrained_path` and `pretrained_checksum` are
+the seam a caller overrides to serve its own file; a type without a
+packaged file is refused by name.
 """
 
 from __future__ import annotations
@@ -60,6 +66,11 @@ def packaged_weight(name: str):
 class ZooModel:
     # {PretrainedType: file name in the JAX package's zoo/weights/}
     packaged: dict = {}
+    # {PretrainedType: architecture JSON in WEIGHTS_DIR} for weights-only
+    # keras-applications payloads whose graph is not this model's own
+    # builder's (keras ResNet-50's explicit ZeroPadding and biased
+    # convs): the weights are copied by Keras layer name through it
+    keras_architecture: dict = {}
 
     def __init__(self, num_classes: int = 1000, seed: int = 123, **kwargs):
         self.num_classes = num_classes
@@ -95,10 +106,11 @@ class ZooModel:
 
     def init_pretrained(self, ptype: PretrainedType = PretrainedType.IMAGENET,
                         *, device="cuda"):
-        """The packaged checkpoint of `ptype` restored on `device`: its
-        sha256 (md5 for a 32-digit hash) checked against the manifest
-        first, an IOError on a mismatch, then `ModelSerializer.
-        restore_model` of the zip in place."""
+        """The checkpoint of `ptype` (`pretrained_path`) restored on
+        `device`: its sha256 (md5 for a 32-digit hash) checked against
+        `pretrained_checksum` first, an IOError on a mismatch, then routed
+        by the file's magic bytes: a Keras HDF5 file through the
+        importer, anything else through `ModelSerializer.restore_model`."""
         from deeplearning4j_tpu_torch.device import resolve_device
         ptype = PretrainedType(ptype)
         path, expected = self.pretrained_path(ptype), None
@@ -109,18 +121,36 @@ class ZooModel:
                 f"{type(self).__name__}.init_pretrained: no weights for "
                 f"{ptype.value} — no packaged checkpoint with a manifest "
                 f"checksum in the JAX package's zoo/weights/, and the port "
-                f"downloads nothing (restore a model zip with "
+                f"downloads nothing (serve a file through pretrained_path "
+                f"and pretrained_checksum, restore a model zip with "
                 f"util/serializer.py, or load a JAX net's params with "
                 f"util/jax_params.py)")
         device = resolve_device(device)
+        path = Path(path)
         algo = hashlib.md5 if len(expected) == 32 else hashlib.sha256
         got = algo(path.read_bytes()).hexdigest()
         if got != expected:
             raise IOError(f"Checksum mismatch for {path}: {got} != "
                           f"{expected}")
-        if path.suffix != ".zip":
-            raise NotImplementedError(
-                f"{path.name}: only ModelSerializer zips restore in the "
-                f"port (the Keras importer is not ported)")
+        from deeplearning4j_tpu_torch.modelimport.hdf5 import HDF5_MAGIC
+        with open(path, "rb") as f:
+            magic = f.read(4)
+        if magic == HDF5_MAGIC[:4]:      # JAX routes on these 4 bytes
+            return self._import_keras(ptype, path, device)
         from deeplearning4j_tpu_torch.util.serializer import ModelSerializer
         return ModelSerializer.restore_model(path, device=device)
+
+    def _import_keras(self, ptype, path, device):
+        from deeplearning4j_tpu_torch.modelimport import (
+            Hdf5Archive, KerasModelImport)
+        with Hdf5Archive(path) as h5:
+            full_model = h5.read_attr_string("model_config") is not None
+        if full_model:
+            return KerasModelImport.import_keras_model_and_weights(
+                path, device=device)
+        arch_name = self.keras_architecture.get(ptype)
+        if arch_name:
+            return KerasModelImport.import_architecture_and_weights(
+                WEIGHTS_DIR / arch_name, path, device=device)
+        return KerasModelImport.load_weights_into(self.init(device=device),
+                                                  path)

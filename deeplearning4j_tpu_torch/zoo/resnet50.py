@@ -6,6 +6,13 @@ stride on its first 1x1), `ElementWiseVertex("add")` then relu, global
 average pooling and a softmax/mcxent output, as a ComputationGraph
 trained by Nesterovs(0.1, 0.9) with `WeightInit.RELU` and l2 1e-4.
 `conf()` equals the JAX model's as a dict.
+
+`init_pretrained(IMAGENET)` takes the keras-applications weights-only
+file through `resnet50_keras_arch.json` (JAX `zoo/resnet50.py:104-105`):
+keras's ResNet-50 (explicit ZeroPadding, biased convs) is not this
+builder's graph, so the committed `model.to_json()` routes the import.
+The port downloads nothing: a caller serves the file through
+`pretrained_path` and `pretrained_checksum`.
 """
 
 from __future__ import annotations
@@ -26,11 +33,13 @@ from deeplearning4j_tpu_torch.nn.layers import (
     PoolingType,
     SubsamplingLayer,
 )
-from deeplearning4j_tpu_torch.zoo.base import ZooModel
+from deeplearning4j_tpu_torch.zoo.base import PretrainedType, ZooModel
 
 
 class ResNet50(ZooModel):
     STAGES = [(3, 64), (4, 128), (6, 256), (3, 512)]
+    keras_architecture = {PretrainedType.IMAGENET:
+                          "resnet50_keras_arch.json"}
 
     def __init__(self, num_classes: int = 1000, seed: int = 123,
                  height: int = 224, width: int = 224, channels: int = 3):

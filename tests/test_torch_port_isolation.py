@@ -1,5 +1,5 @@
 """The port stands alone: importing `deeplearning4j_tpu_torch` and every
-module in it loads neither `jax`, `ml_dtypes` nor any
+module in it loads neither `jax`, `ml_dtypes`, `h5py`, `keras` nor any
 `deeplearning4j_tpu` module, and leaves torch's thread count alone.
 Checked in a fresh interpreter (this test process has JAX loaded).
 `chip_smoke.py` imports none of them either. The test processes
@@ -26,6 +26,8 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m.startswith("jaxlib")
              or m == "ml_dtypes" or m.startswith("ml_dtypes.")
+             or m == "h5py" or m.startswith("h5py.")
+             or m == "keras" or m.startswith("keras.")
              or m == "deeplearning4j_tpu"
              or m.startswith("deeplearning4j_tpu."))
 print(json.dumps({"modules": names, "bad": bad,
@@ -96,7 +98,10 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "clustering.kdtree", "clustering.quadtree",
                 "clustering.sptree", "clustering.server", "plot",
                 "plot.tsne", "nlp.cjk", "nlp.japanese", "nlp.korean",
-                "nlp.annotation"):
+                "nlp.annotation", "util.native_build", "modelimport",
+                "modelimport.hdf5", "modelimport.keras",
+                "datasets.native_csv", "util.guesser", "ml", "ml.estimator",
+                "aws", "aws.s3"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
     assert res["threads"][0] == res["threads"][1]
@@ -104,12 +109,12 @@ def test_port_imports_no_jax_and_no_jax_package():
 
 def test_port_sources_never_name_jax():
     """No source file of the port, and not `chip_smoke.py`, imports jax,
-    ml_dtypes or the JAX package (the runtime probe above only sees
-    modules actually imported)."""
+    ml_dtypes, h5py, keras or the JAX package (the runtime probe above
+    only sees modules actually imported)."""
     import re
     pat = re.compile(
-        r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|deeplearning4j_tpu)\b",
-        re.M)
+        r"^\s*(import|from)\s+(jax|jaxlib|ml_dtypes|h5py|keras|"
+        r"deeplearning4j_tpu)\b", re.M)
     root = os.path.join(REPO, "deeplearning4j_tpu_torch")
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for d, _, files in os.walk(root):
