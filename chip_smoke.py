@@ -30,6 +30,7 @@
                                           # build)
     python3 chip_smoke.py --clustering    # build + phase 23 alone
     python3 chip_smoke.py --import-io     # build + phase 24 alone
+    python3 chip_smoke.py --ui            # build + phase 25 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -658,9 +659,45 @@ Phases, in order:
      real_cnn.h5 where libhdf5 links) equal in class and outputs, bit for
      bit, to the direct loads, a weights-only .h5 refused; (e) S3 runs in
      the CPU tests only. It prints `[import]` lines;
+ 25. the training UI (`phase_ui`, `--ui`, fp32 with TF32 off):
+     `deeplearning4j_tpu_torch/ui/` watching the smoke LM at full width.
+     (a) 8 steps of `fit` at [16, 511] on the card with diagnostics on
+     and a `StatsListener(collect_histograms=True)` into a
+     `FileStatsStorage` under `build/`: step 0's report has the keys of
+     the port's CPU run of the same step, its param magnitudes within
+     UI_PARAM_RTOL, its update magnitudes and update:param ratios within
+     UI_UPDATE_RTOL, its gradient magnitudes within GRAD_RTOL, its host
+     histograms bin
+     for bin but for values within UI_HIST_EDGE_RTOL of an edge; every
+     report finite, every histogram summing to its leaf's size; the
+     sqlite file reopened decodes to the same reports (the gradient
+     magnitudes within GRAD_RTOL; param and update magnitudes wider, as
+     Adam's first step moves an element whose gradient is near its eps
+     by up to lr; the key biases by Adam's step bound); (b) fit ms/step
+     and hand-written launches a step with no listener, a StatsListener
+     into memory, and into the file with host histograms (diagnostics on
+     in all three), and each mode's report bytes; (c) a `UIServer` on
+     that file with the phase's registry and an `AlertEngine` of the
+     default rule pack: every route 200 (the session on the pages that
+     list sessions), `/api/reports` the 8 iterations, `/api/components`
+     decoding through `component_from_json`, the training families on
+     `/metrics`, no report of another device on `/profile` (run from the
+     repository root, whose `PROFILE_aot/` holds the JAX package's TPU
+     tables), and a child process posting the file's reports through a
+     `RemoteUIStatsStorageRouter` to a second server's `/remote`, equal;
+     (d) LeNet on phase 12's digits, 2 steps at batch 128 with a
+     `ConvolutionalIterationListener`: the last step's grids within
+     UI_GRAY_ATOL of the CPU's for the same params, its PNGs (written
+     with the standard library) decoding to them, `/activations` serving
+     them; (e) 4 greedy requests of 16 tokens through a monitored
+     `GenerationServer` on the phase's LM, `/serving`'s requests and
+     tokens equal to the server's results; phase 23's t-SNE map (under
+     `--ui` alone: 10 exact steps on the packaged 1032 x 64 vectors)
+     posted and drawn on `/tsne`. It prints `[ui]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 21, 23 and 24, each > 0; phase 22 runs none of these kernels, phase
-23 only the Viterbi kernel, phase 24 only fused Adam; the counts of each phase, and of each part of phases
+to 21 and 23 to 25, each > 0; phase 22 runs none of these kernels, phase
+23 only the Viterbi kernel, phase 24 only fused Adam, phase 25 the smoke
+LM's six; the counts of each phase, and of each part of phases
 18 to 21, on a `[launches]` line), each phase's seconds on a
 `[phases]` line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
@@ -11605,7 +11642,8 @@ def _tsne_bench(device, fails, vectors, small):
     card alone: the KL finite and lower at the end than at the first
     step past early exaggeration; neighbours in the map overlap those in
     128-D (cosine) by TSNE_CHANCE_FACTOR x chance; ms, launches, device
-    ms and busy share a step; P's host seconds; peak memory."""
+    ms and busy share a step; P's host seconds; peak memory. Returns
+    (out, the map)."""
     import torch
     from deeplearning4j_tpu_torch.plot import Tsne
     from deeplearning4j_tpu_torch.plot.tsne import _tsne_step
@@ -11656,7 +11694,7 @@ def _tsne_bench(device, fails, vectors, small):
         out.update(launches_per_step=prof["launches"] / TSNE_PROFILE_STEPS,
                    device_ms_per_step=prof["device_ms"] / TSNE_PROFILE_STEPS,
                    busy_share=prof["busy_share"])
-    return out
+    return out, y
 
 
 def _viterbi_decodes(device, fails, small):
@@ -11825,13 +11863,15 @@ def _nn_server(device, fails, vectors):
                     np.median(times) * 1e3))
 
 
-def phase_clustering(device, report, fails, small=False, vectors=None):
+def phase_clustering(device, report, fails, small=False, vectors=None,
+                     keep=None):
     """Phase 23 on `device` (see the module docstring, 23 (a)-(e)):
     k-means, t-SNE, Viterbi, the segmenters and the kNN server, card
     against the port's CPU path. `small` (the CPU rehearsal) shrinks
     (a)-(c)'s sizes; (d) runs at its tests' sizes either way. Returns
     {"viterbi": launches} of (c)'s card decodes. `vectors` are phase 22
-    (a)'s, trained here when None."""
+    (a)'s, trained here when None; (b) (ii)'s map goes into
+    `keep["tsne"]` as (coords, source) when `keep` is given."""
     t_start = time.perf_counter()
     out, parts = {}, {}
     source = "phase 22 (a)"
@@ -11850,6 +11890,10 @@ def phase_clustering(device, report, fails, small=False, vectors=None):
         res = fn(device, fails, *args)
         if part == "c":
             res, launches = res
+        elif part == "b_ii":
+            res, tsne_map = res
+            if keep is not None:
+                keep["tsne"] = (tsne_map, f"phase 23 (b) (ii), {source}")
         out[part] = res
         parts[part] = time.perf_counter() - t0
     out["part_seconds"] = parts
@@ -12591,6 +12635,569 @@ def _print_import_io(out):
           flush=True)
 
 
+# ------------------------------------------------------------------ phase 25
+UI = dict(cfg=None, B=16, steps=8, timed=4, lenet_B=128,
+          lenet_steps=2, n_slots=4, block_len=16, requests=4, prompt=16,
+          tokens=16, tsne_steps=10)
+UI_SMALL = dict(UI, cfg=dict(LM, d_model=64, n_heads=4, n_layers=2,
+                             max_len=32),
+                B=2, timed=2, lenet_B=16, tokens=4, prompt=4)
+# (a) step 0's report card vs CPU, relative: the gradient magnitudes at
+# GRAD_RTOL; param and update magnitudes and update:param ratios wider.
+# Adam's first step is lr g / (|g| + eps): an element whose gradient is
+# near eps moves by up to lr with the card's last-bit differences in g,
+# so a leaf's mean |update| and mean |param| move with the few such
+# elements (measured on an H100 80GB HBM3 at 700 W: 1.9e-4 and 5.3e-6
+# at 4_attn_Wq and 4_attn_Wo, gradients 4.2e-6). They are held at
+# TRAIN_PARAM_RTOL and a tenth of it. The key biases (`*_attn_bk`) train on noise
+# (TRAIN_PARAM_RTOL's note): their magnitudes are held to Adam's step
+# bound, their gradients and histograms are not compared
+UI_PARAM_RTOL = TRAIN_PARAM_RTOL / 10
+UI_UPDATE_RTOL = TRAIN_PARAM_RTOL
+UI_HIST_EDGE_RTOL = 1e-5  # (a) a param this near a bin edge (of the range)
+                          # may fall in either neighbour, card vs CPU
+UI_GRAY_ATOL = 1         # (d) activation grids, card vs CPU, gray levels
+UI_KERNELS = ("layer_norm", "residual_layer_norm", "flash_attention_fwd",
+              "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+              "fused_adam")
+UI_SESSION = "smoke_lm"
+UI_ROUTES = ("/", "/train", "/train/overview", "/train/model",
+             "/train/system", "/tsne", "/activations", "/profile",
+             "/serving", "/events", "/alerts", "/metrics", "/api/sessions",
+             "/api/profile", "/events?format=json", "/alerts?format=json",
+             "/train/overview?lang=ja")
+# the pages that list the storage's sessions
+UI_SESSION_PAGES = ("/", "/train", "/train/overview", "/train/model",
+                    "/train/system", "/api/sessions",
+                    "/train/overview?lang=ja")
+
+# a child process (argv: the repo root) imports the port, then reads
+# "<sqlite path>\t<session>\t<URL>" from its stdin and posts every report
+# of the session to that UIServer's /remote; started at the phase's
+# start, so its interpreter and torch load while the card trains
+_UI_REMOTE_CHILD = r"""
+import sys
+sys.path.insert(0, sys.argv[1])
+from deeplearning4j_tpu_torch.ui import (FileStatsStorage,
+                                         RemoteUIStatsStorageRouter)
+db, session, url = sys.stdin.readline().rstrip("\n").split("\t")
+router = RemoteUIStatsStorageRouter(url)
+for report in FileStatsStorage(db).get_reports(session):
+    router.put_report(report)
+"""
+
+
+class _TeeStorage:
+    """A StatsStorage that keeps each report object it is given and
+    passes it on to `inner`."""
+
+    def __init__(self, inner):
+        self.inner, self.reports = inner, []
+
+    def put_report(self, report):
+        self.reports.append(report)
+        self.inner.put_report(report)
+
+
+def png_pixels(png: bytes) -> np.ndarray:
+    """The [H, W] uint8 pixels of an 8-bit grayscale PNG whose scanlines
+    are unfiltered (the form `ui.convolutional.png_gray` writes)."""
+    import struct
+    import zlib
+    if png[:8] != b"\x89PNG\r\n\x1a\n":
+        raise ValueError("not a PNG")
+    pos, idat, w = 8, b"", None
+    while pos < len(png):
+        (n,) = struct.unpack(">I", png[pos:pos + 4])
+        kind, data = png[pos + 4:pos + 8], png[pos + 8:pos + 8 + n]
+        pos += 12 + n
+        if kind == b"IHDR":
+            w, h, depth, color = struct.unpack(">IIBB", data[:10])
+            if (depth, color) != (8, 0):
+                raise ValueError(f"not 8-bit grayscale: {depth}, {color}")
+        elif kind == b"IDAT":
+            idat += data
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, w + 1)
+    if rows[:, 0].any():
+        raise ValueError("a filtered scanline")
+    return rows[:, 1:].copy()
+
+
+def _ui_finite(r) -> bool:
+    vals = [r.score, r.memory_rss_mb]
+    for table in (r.param_mean_magnitudes, r.update_mean_magnitudes,
+                  r.gradient_mean_magnitudes, r.update_ratios):
+        vals += list(table.values())
+    for st in r.activation_stats.values():
+        vals += list(st)
+    for edges, _ in r.param_histograms.values():
+        vals += list(edges)
+    return bool(np.isfinite(vals).all())
+
+
+def _ui_edge_ties(arr, edges, rtol):
+    """Values within rtol (of the range) of an inner edge."""
+    inner = np.asarray(edges[1:-1]).reshape(1, -1)
+    scale = max(abs(edges[0]), abs(edges[-1]))
+    d = np.abs(np.asarray(arr, np.float64).reshape(-1, 1) - inner)
+    return int(np.sum(d.min(axis=1) <= rtol * scale))
+
+
+def _ui_reports(device, fails, cfg, c, params, X, Y, db, reg):
+    """(a) 8 steps of the smoke LM on the card with diagnostics, a
+    StatsListener with host histograms into a FileStatsStorage; step 0's
+    report against the port's CPU run of the same step; every report
+    finite, every histogram summing to its leaf's size; the file
+    reopened. Returns (out, the card net)."""
+    import torch
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage,
+                                             InMemoryStatsStorage,
+                                             StatsListener)
+    from deeplearning4j_tpu_torch.ui.stats import param_tree
+    B, n = c["B"], c["steps"]
+    tee = _TeeStorage(FileStatsStorage(db))
+    net = build_lm(cfg, device, params, diagnostics=True)
+    net.set_listeners(StatsListener(tee, session_id=UI_SESSION,
+                                    collect_histograms=True))
+    t0 = time.perf_counter()
+    net.fit(X[:n * B], Y[:n * B], epochs=1, batch_size=B, shuffle=False)
+    _sync(device)
+    card_s = time.perf_counter() - t0
+    reps = tee.reports
+    # the monitor's count of the card run's steps (the CPU's step after
+    # it counts too)
+    iters = (reg.counter("training_iterations_total", model="default").value
+             if reg is not None else None)
+    cpu = build_lm(cfg, "cpu", params, diagnostics=True)
+    mem = InMemoryStatsStorage()
+    cpu.set_listeners(StatsListener(mem, session_id=UI_SESSION,
+                                    collect_histograms=True))
+    t0 = time.perf_counter()
+    cpu.fit(X[:B], Y[:B], epochs=1, batch_size=B, shuffle=False)
+    cpu_s = time.perf_counter() - t0
+    want, got = mem.get_reports(UI_SESSION)[0], reps[0]
+    sizes = {f"{lk}_{pk}": t.numel() for lk, lp in param_tree(net).items()
+             for pk, t in lp.items()}
+    out = dict(steps=len(reps), card_s=card_s, cpu_s=cpu_s,
+               iterations=[r.iteration for r in reps], leaves=len(sizes))
+    keys_equal = all(
+        list(getattr(got, f)) == list(getattr(want, f))
+        for f in ("param_mean_magnitudes", "update_mean_magnitudes",
+                  "gradient_mean_magnitudes", "update_ratios",
+                  "activation_stats", "param_histograms"))
+    fails.check(keys_equal and set(got.param_mean_magnitudes) == set(sizes)
+                and len(got.activation_stats) > 0,
+                f"ui (a): step 0's keys differ from the CPU's: "
+                f"{sorted(got.param_mean_magnitudes)} against "
+                f"{sorted(want.param_mean_magnitudes)}")
+    rel = {}
+    for f, tol in (("param_mean_magnitudes", UI_PARAM_RTOL),
+                   ("update_mean_magnitudes", UI_UPDATE_RTOL),
+                   ("update_ratios", UI_UPDATE_RTOL),
+                   ("gradient_mean_magnitudes", GRAD_RTOL)):
+        g, w = getattr(got, f), getattr(want, f)
+        worst = max((abs(g[k] - w[k]) / max(abs(w[k]), 1e-30), k)
+                    for k in w if not k.endswith("_attn_bk"))
+        rel[f] = worst[0]
+        fails.check(worst[0] <= tol, f"ui (a): step 0 {f} card vs CPU "
+                    f"{worst[0]:.3e} at {worst[1]} > {tol}")
+    out["step0_rel"] = rel
+    # the key biases: each element moves at most one Adam step on each
+    # side, so their mean |p| and mean |update| differ by at most that
+    bk = [k for k in want.param_mean_magnitudes if k.endswith("_attn_bk")]
+    bk_abs = max([abs(got.param_mean_magnitudes[k]
+                      - want.param_mean_magnitudes[k]) for k in bk]
+                 + [abs(got.update_mean_magnitudes[k]
+                        - want.update_mean_magnitudes[k]) for k in bk]
+                 + [0.0])
+    out["step0_attn_bk_abs"] = bk_abs
+    fails.check(bk_abs <= 2 * adam_step_max(),
+                f"ui (a): step 0 attn_bk magnitudes card vs CPU {bk_abs} > "
+                f"{2 * adam_step_max()}")
+    out["score_card_cpu"] = [got.score, want.score]
+    # host histograms: step 0 bin for bin but for near-edge ties (counted
+    # on the CPU's params), later reports by their count sums
+    cpu_host = {f"{lk}_{pk}": t.detach().numpy()
+                for lk, lp in param_tree(cpu).items()
+                for pk, t in lp.items()}
+    moved = ties = 0
+    for k, (edges, counts) in got.param_histograms.items():
+        if k.endswith("_attn_bk"):
+            continue
+        wedges, wcounts = want.param_histograms[k]
+        fails.check(np.allclose(edges, wedges, rtol=1e-6,
+                                atol=1e-7 * max(abs(wedges[0]),
+                                                abs(wedges[-1]))),
+                    f"ui (a): step 0 histogram edges of {k} differ")
+        m = int(np.abs(np.subtract(counts, wcounts)).sum())
+        if m:
+            moved += m
+            ties += _ui_edge_ties(cpu_host[k], wedges, UI_HIST_EDGE_RTOL)
+    out["step0_hist_moved"], out["step0_hist_edge_ties"] = moved, ties
+    fails.check(moved <= 2 * ties, f"ui (a): step 0 histograms moved "
+                f"{moved} counts with {ties} near-edge values")
+    sums_ok = all(sum(cnt) == sizes[k] for r in reps
+                  for k, (_, cnt) in r.param_histograms.items())
+    finite = all(_ui_finite(r) for r in reps)
+    fails.check(sums_ok and finite and out["iterations"] == list(range(n)),
+                f"ui (a): reports {out['iterations']}, finite {finite}, "
+                f"histograms sum to their leaves {sums_ok}")
+    back = FileStatsStorage(db).get_reports(UI_SESSION)
+    out["reopened_equal"] = [r.encode() for r in back] == \
+        [r.encode() for r in reps]
+    fails.check(out["reopened_equal"], "ui (a): the reopened stats file "
+                "decodes to other reports")
+    out["report_bytes"] = len(reps[-1].encode())
+    out["last"] = dict(score=reps[-1].score,
+                       mean_ratio=float(np.mean(list(
+                           reps[-1].update_ratios.values()))))
+    out["training_iterations_total"] = iters
+    return out, net
+
+
+def _ui_costs(device, fails, net, X, Y, c, db):
+    """(b) ms/step and hand-written launches a step of the card net's
+    `fit` with no listener, with a StatsListener into memory, and into
+    the sqlite file with host histograms (diagnostics stay on in all
+    three), in turns off, memory, file, file, memory, off."""
+    import deeplearning4j_tpu_torch.kernels as K
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage,
+                                             InMemoryStatsStorage,
+                                             StatsListener)
+    B, k = c["B"], c["timed"]
+    stores = {"memory": InMemoryStatsStorage(), "file": FileStatsStorage(db)}
+
+    def listeners(mode):
+        if mode == "off":
+            return []
+        return [StatsListener(stores[mode], session_id=f"ui_cost_{mode}",
+                              collect_histograms=mode == "file")]
+
+    times = {m: [] for m in ("off", "memory", "file")}
+    launches = {}
+    for mode in ("off", "memory", "file", "file", "memory", "off"):
+        net.set_listeners(*listeners(mode))
+        net.fit(X[:B], Y[:B], epochs=1, batch_size=B, shuffle=False)
+        _sync(device)
+        before = dict(K.LAUNCHES)
+        t0 = time.perf_counter()
+        net.fit(X[B:(1 + k) * B], Y[B:(1 + k) * B], epochs=1,
+                batch_size=B, shuffle=False)
+        _sync(device)
+        times[mode].append((time.perf_counter() - t0) / k * 1e3)
+        launches[mode] = {n: (K.LAUNCHES.get(n, 0) - before.get(n, 0)) / k
+                          for n in UI_KERNELS}
+    net.set_listeners()
+    out = {m: dict(ms_per_step=float(np.median(t)), runs=t,
+                   launches_per_step=launches[m]) for m, t in times.items()}
+    out["report_bytes"] = {
+        m: len(stores[m].get_reports(f"ui_cost_{m}")[-1].encode())
+        for m in stores}
+    fails.check(all(np.isfinite(v["ms_per_step"]) for v in
+                    (out["off"], out["memory"], out["file"]))
+                and launches["off"] == launches["memory"] == launches["file"],
+                f"ui (b): launches a step differ between modes: {launches}")
+    return out
+
+
+def _ui_get(base, path):
+    import urllib.request
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(base + path, timeout=60) as r:
+        body, code = r.read(), r.status
+    return code, body, (time.perf_counter() - t0) * 1e3
+
+
+def _ui_dashboard(device, fails, base, db, c, child):
+    """(c) every route 200 (the session on each page that lists
+    sessions), the API's reports and components, the training families
+    on /metrics, no other device's report on /profile, and the reports
+    posted from a child process to a second server's /remote."""
+    import torch
+    from deeplearning4j_tpu_torch.ui import (FileStatsStorage, UIServer,
+                                             component_from_json)
+    out, pages = {}, {}
+    for path in UI_ROUTES + (f"/api/reports/{UI_SESSION}",
+                             f"/api/components/{UI_SESSION}"):
+        code, body, ms = _ui_get(base, path)
+        pages[path] = dict(code=code, bytes=len(body), ms=ms)
+        fails.check(code == 200, f"ui (c): GET {path} gave {code}")
+        if path in UI_SESSION_PAGES:
+            fails.check(UI_SESSION in body.decode(),
+                        f"ui (c): {path} does not list {UI_SESSION}")
+    out["pages"] = pages
+    api = json.loads(_ui_get(base, f"/api/reports/{UI_SESSION}")[1])
+    out["api_iterations"] = [r["iteration"] for r in api]
+    fails.check(out["api_iterations"] == list(range(c["steps"])),
+                f"ui (c): /api/reports gave {out['api_iterations']}")
+    chart = component_from_json(
+        _ui_get(base, f"/api/components/{UI_SESSION}")[1].decode())
+    fails.check(len(chart.series) == 1 and len(chart.series[0][1]) ==
+                c["steps"], "ui (c): /api/components did not decode to "
+                "the score chart")
+    metrics = _ui_get(base, "/metrics")[1].decode()
+    fams = ("training_iterations_total", "training_score",
+            "training_update_ratio", "training_grad_l2")
+    out["metrics_families"] = {f: f in metrics for f in fams}
+    fails.check(all(out["metrics_families"].values()),
+                f"ui (c): /metrics lacks {out['metrics_families']}")
+    prof = _ui_get(base, "/profile")[1].decode()
+    reports = json.loads(_ui_get(base, "/api/profile")[1])
+    kind = (torch.cuda.get_device_name(0) if device.type == "cuda"
+            else "cpu")
+    foreign = [m for m, r in reports.items()
+               if str((r.get("roofline") or {}).get(
+                   "device_kind", kind)) != kind]
+    out["profile"] = dict(reports=sorted(reports), foreign=foreign,
+                          tpu_on_page="tpu" in prof.lower())
+    fails.check(not foreign and not out["profile"]["tpu_on_page"],
+                f"ui (c): /profile shows another device's report "
+                f"{out['profile']}")
+    second = UIServer().start()
+    try:
+        t0 = time.perf_counter()
+        _, err = child.communicate(
+            f"{db}\t{UI_SESSION}\thttp://127.0.0.1:{second.port}\n",
+            timeout=300)
+        out["remote_s"] = time.perf_counter() - t0
+        posted = second.storage.get_reports(UI_SESSION)
+    finally:
+        second.stop()
+    want = FileStatsStorage(db).get_reports(UI_SESSION)
+    out["remote_equal"] = (child.returncode == 0 and
+                           [r.encode() for r in posted] ==
+                           [r.encode() for r in want])
+    fails.check(out["remote_equal"], f"ui (c): the reports posted to "
+                f"/remote differ (child rc {child.returncode}: "
+                f"{err[-2000:]})")
+    return out
+
+
+def _ui_activations(device, fails, server, base, c, tmp):
+    """(d) LeNet on phase 12's digits, 2 steps on the card with a
+    ConvolutionalIterationListener into `tmp` and the server: the last
+    step's grids against the CPU's for the same params and example, the
+    PNGs decoding to them, /activations serving them."""
+    from deeplearning4j_tpu_torch.ui import ConvolutionalIterationListener
+    from deeplearning4j_tpu_torch.ui.convolutional import activations_to_grid
+    from deeplearning4j_tpu_torch.zoo import LeNet
+    B, n = c["lenet_B"], c["lenet_steps"]
+    X, Y = digits_28x28()
+    net = LeNet().init(device=device)
+    net.set_listeners(ConvolutionalIterationListener(
+        output_dir=tmp, frequency=1, ui_server=server))
+    t0 = time.perf_counter()
+    net.fit(X[:n * B], Y[:n * B], epochs=1, batch_size=B, shuffle=False)
+    _sync(device)
+    out = dict(fit_s=time.perf_counter() - t0)
+    x0 = X[(n - 1) * B:(n - 1) * B + 1]      # the last batch's first digit
+
+    def grids(model):
+        return {f"layer{li}": activations_to_grid(
+                    a[0].float().cpu().numpy())
+                for li, a in enumerate(model.feed_forward(x0))
+                if a.ndim == 4}
+    card, cpu = grids(net), grids(_copy_to(net, "cpu"))
+    names = sorted(server._activations)
+    out["grids"] = {k: list(v.shape) for k, v in card.items()}
+    diff = max(int(np.abs(card[k].astype(np.int16) - cpu[k]).max())
+               for k in card)
+    out["max_gray_diff"] = diff
+    png_ok = all(np.array_equal(png_pixels(server._activations[k]), card[k])
+                 and np.array_equal(png_pixels(open(os.path.join(
+                     tmp, f"iter{n - 1:06d}_{k}.png"), "rb").read()),
+                     card[k]) for k in card)
+    html = _ui_get(base, "/activations")[1].decode()
+    served = all(k in html and _ui_get(base, f"/activations/img/{k}")[1]
+                 == server._activations[k] for k in card)
+    out.update(png_equal=png_ok, served=served, names=names,
+               files=len(os.listdir(tmp)))
+    fails.check(names == sorted(card) and len(card) >= 2
+                and diff <= UI_GRAY_ATOL and png_ok and served
+                and out["files"] == n * len(card),
+                f"ui (d): grids {names} against {sorted(card)}, card vs "
+                f"CPU {diff} gray levels, PNGs {png_ok}, served {served}, "
+                f"files {out['files']}")
+    return out
+
+
+def _ui_serving(device, fails, server, base, net, cfg, c, tsne):
+    """(e) 4 greedy requests through a monitored GenerationServer: the
+    /serving rows against the server's own results; the t-SNE map
+    posted and rendered."""
+    from deeplearning4j_tpu_torch.serving import GenerationServer
+    rng = np.random.default_rng(251)
+    prompts = [rng.integers(0, cfg["vocab"], c["prompt"])
+               for _ in range(c["requests"])]
+    srv = GenerationServer(net, n_slots=c["n_slots"], n_blocks=16 *
+                           c["n_slots"], block_len=c["block_len"],
+                           device=device).start()
+    try:
+        t0 = time.perf_counter()
+        streams = [srv.generate_async(p, c["tokens"]) for p in prompts]
+        results = [s.result(timeout=300) for s in streams]
+        serve_s = time.perf_counter() - t0
+    finally:
+        srv.stop()
+    html = _ui_get(base, "/serving")[1].decode()
+
+    def row(name):
+        m = re.search(rf"<tr><td>{re.escape(name)}</td><td>(\d+)</td>", html)
+        return int(m.group(1)) if m else None
+    out = dict(requests=row("requests admitted"),
+               tokens=row("tokens emitted"), serve_s=serve_s,
+               own=dict(requests=len(results),
+                        tokens=sum(len(r) for r in results)))
+    fails.check(out["requests"] == out["own"]["requests"] == c["requests"]
+                and out["tokens"] == out["own"]["tokens"]
+                == c["requests"] * c["tokens"],
+                f"ui (e): /serving shows {out['requests']} requests and "
+                f"{out['tokens']} tokens, the server {out['own']}")
+    coords, source = tsne
+    server.post_tsne(source, coords)
+    page = _ui_get(base, "/tsne")[1].decode()
+    out["tsne"] = dict(source=source, points=len(coords),
+                       circles=page.count("<circle"))
+    fails.check(out["tsne"]["circles"] == len(coords) > 0,
+                f"ui (e): /tsne drew {out['tsne']['circles']} of "
+                f"{len(coords)} points")
+    return out
+
+
+def _ui_tsne_map(device, c):
+    """A few exact t-SNE steps on the packaged word2vec vectors (1032 x
+    64), when phase 23 has not made its map."""
+    import torch
+    from deeplearning4j_tpu_torch.nlp.word2vec import load_packaged_word2vec
+    from deeplearning4j_tpu_torch.plot import Tsne
+    x = np.asarray(load_packaged_word2vec(device=torch.device("cpu")).syn0,
+                   np.float64)
+    ts = Tsne(device=device)
+    y, _, _ = ts.descend(ts.input_affinities(x), ts.initial_map(len(x)),
+                         c["tsne_steps"])
+    return y, f"packaged word2vec, {c['tsne_steps']} exact steps"
+
+
+def phase_ui(device, report, fails, small=False, tsne=None):
+    """Phase 25 on `device` (see the module docstring, 25 (a)-(e)): the
+    training UI watching the smoke LM train. `tsne` is phase 23's map
+    (coords, source); made here from the packaged vectors when None.
+    Returns the phase's kernel launches."""
+    import shutil
+    import tempfile
+    import deeplearning4j_tpu_torch.kernels as K
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.monitor import AlertEngine, default_rule_pack
+    from deeplearning4j_tpu_torch.monitor.registry import MetricsRegistry
+    from deeplearning4j_tpu_torch.monitor.tracer import Tracer
+    from deeplearning4j_tpu_torch.ui import FileStatsStorage, UIServer
+    c = UI_SMALL if small else UI
+    cfg = c["cfg"] or LM
+    t_start = time.perf_counter()
+    out = dict(config=dict(cfg, B=c["B"], T=cfg["max_len"] - 1,
+                           steps=c["steps"]))
+    parts = {}
+    root = os.path.join(HERE, "build")
+    os.makedirs(root, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="ui_", dir=root)
+    db = os.path.join(tmp, "stats.db")
+    params = random_lm_params(cfg, seed=250, head_scale=1.0)
+    X, Y = lm_corpus(cfg, c["B"] * c["steps"], seed=25)
+    reg, tracer = MetricsRegistry(), Tracer()
+    server = None
+    child = subprocess.Popen([sys.executable, "-c", _UI_REMOTE_CHILD, HERE],
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE, text=True)
+    K.reset_launches()
+    try:
+        t0 = time.perf_counter()
+        monitor.enable(registry=reg, tracer=tracer, jit_compile=False)
+        try:
+            out["a"], net = _ui_reports(device, fails, cfg, c, params, X, Y,
+                                        db, reg)
+        finally:
+            monitor.disable()
+        parts["a"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["b"] = _ui_costs(device, fails, net, X, Y, c, db)
+        parts["b"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = AlertEngine(reg, default_rule_pack(), registry=reg)
+        eng.evaluate()
+        server = UIServer(registry=reg).attach(
+            FileStatsStorage(db)).attach_alerts(eng).start()
+        base = f"http://127.0.0.1:{server.port}"
+        out["c"] = _ui_dashboard(device, fails, base, db, c, child)
+        parts["c"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        out["d"] = _ui_activations(device, fails, server, base, c,
+                                   os.path.join(tmp, "grids"))
+        parts["d"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        if tsne is None:
+            tsne = _ui_tsne_map(device, c)
+        monitor.enable(registry=reg, tracer=tracer, jit_compile=False)
+        try:
+            out["e"] = _ui_serving(device, fails, server, base, net, cfg, c,
+                                   tsne)
+        finally:
+            monitor.disable()
+            monitor._STATE.registry = monitor.GLOBAL_REGISTRY
+            monitor._STATE.tracer = monitor.GLOBAL_TRACER
+        parts["e"] = time.perf_counter() - t0
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+        if server is not None:
+            server.stop()
+        shutil.rmtree(tmp, ignore_errors=True)
+    launches = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    if device.type == "cuda":
+        _launched(fails, "ui", launches, UI_KERNELS)
+    out["launches"] = {k: v for k, v in launches.items() if v}
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_start
+    report["ui"] = out
+    _print_ui(out)
+    return launches
+
+
+def _print_ui(out):
+    a, b, c, d, e = (out[k] for k in "abcde")
+    print(f"[ui] (a) {a['steps']} steps of {out['config']['B']}x"
+          f"{out['config']['T']} with diagnostics and a StatsListener into "
+          f"sqlite: card {a['card_s']:.2f} s, the CPU's step 0 "
+          f"{a['cpu_s']:.2f} s; step 0 card vs CPU "
+          f"{ {k: f'{v:.2e}' for k, v in a['step0_rel'].items()} } "
+          f"(attn_bk {a['step0_attn_bk_abs']:.2e} abs), "
+          f"histograms moved {a['step0_hist_moved']} counts "
+          f"({a['step0_hist_edge_ties']} near-edge values); "
+          f"{a['leaves']} leaves, report {a['report_bytes']} bytes, "
+          f"reopened equal {a['reopened_equal']}", flush=True)
+    print(f"[ui] (b) fit ms/step: no listener {b['off']['ms_per_step']:.3f},"
+          f" in-memory {b['memory']['ms_per_step']:.3f}, sqlite + host "
+          f"histograms {b['file']['ms_per_step']:.3f} (runs "
+          f"{ {m: [round(t, 3) for t in b[m]['runs']] for m in ('off', 'memory', 'file')} }"
+          f"); launches a step {b['off']['launches_per_step']}; report "
+          f"bytes {b['report_bytes']}", flush=True)
+    slow = max(c["pages"].items(), key=lambda kv: kv[1]["ms"])
+    print(f"[ui] (c) {len(c['pages'])} routes 200; page ms median "
+          f"{np.median([p['ms'] for p in c['pages'].values()]):.2f}, "
+          f"slowest {slow[0]} {slow[1]['ms']:.2f} ({slow[1]['bytes']} "
+          f"bytes); /profile {c['profile']}; /remote from a child "
+          f"{c['remote_s']:.2f} s, equal {c['remote_equal']}", flush=True)
+    print(f"[ui] (d) LeNet grids {d['grids']}: card vs CPU "
+          f"{d['max_gray_diff']} gray levels, PNGs equal {d['png_equal']},"
+          f" served {d['served']}; fit {d['fit_s']:.2f} s", flush=True)
+    print(f"[ui] (e) /serving {e['requests']} requests, {e['tokens']} "
+          f"tokens (server {e['own']}), {e['serve_s']:.2f} s; /tsne "
+          f"{e['tsne']}", flush=True)
+    print(f"[ui] {out['seconds']:.1f} s (parts "
+          f"{ {k: round(v, 2) for k, v in out['part_seconds'].items()} }); "
+          f"launches {out['launches']}", flush=True)
+
+
 def _round(d):
     return {k: round(v, 3) for k, v in d.items()}
 
@@ -12740,13 +13347,17 @@ def run(device, *, small=False, kernels_only=False):
         phase("embeddings", phase_embeddings, device, report, fails, small,
               kept)
         l23 = phase("clustering", phase_clustering, device, report, fails,
-                    small, kept.get("vectors"))
+                    small, kept.get("vectors"), kept)
         for k in launches:
             launches[k] += (l23 or {}).get(k, 0)
         l24 = phase("import_io", phase_import_io, device, report, fails,
                     small)
         for k in launches:
             launches[k] += (l24 or {}).get(k, 0)
+        l25 = phase("ui", phase_ui, device, report, fails, small,
+                    kept.get("tsne"))
+        for k in launches:
+            launches[k] += (l25 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
@@ -12755,7 +13366,7 @@ def run(device, *, small=False, kernels_only=False):
                          ("14", l14), ("15", l15), ("16", l16),
                          ("17", l17), ("18", l18), ("19", l19),
                          ("20", l20), ("21", l21), ("23", l23),
-                         ("24", l24)) if l}
+                         ("24", l24), ("25", l25)) if l}
         for part, counts in report.get("multiprocess", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"18 {part}"] = counts
@@ -12892,6 +13503,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_import_io(device, report, fails)
+        report["kernels"] = []
+    elif "--ui" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_ui(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

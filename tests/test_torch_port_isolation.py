@@ -1,5 +1,6 @@
 """The port stands alone: importing `deeplearning4j_tpu_torch` and every
-module in it loads neither `jax`, `ml_dtypes`, `h5py`, `keras` nor any
+module in it loads neither `jax`, `ml_dtypes`, `h5py`, `keras`, PIL
+(the UI writes its PNGs with the standard library) nor any
 `deeplearning4j_tpu` module, and leaves torch's thread count alone.
 Checked in a fresh interpreter (this test process has JAX loaded).
 `chip_smoke.py` imports none of them either. The test processes
@@ -28,6 +29,7 @@ bad = sorted(m for m in sys.modules
              or m == "ml_dtypes" or m.startswith("ml_dtypes.")
              or m == "h5py" or m.startswith("h5py.")
              or m == "keras" or m.startswith("keras.")
+             or m == "PIL" or m.startswith("PIL.")
              or m == "deeplearning4j_tpu"
              or m.startswith("deeplearning4j_tpu."))
 print(json.dumps({"modules": names, "bad": bad,
@@ -101,7 +103,8 @@ def test_port_imports_no_jax_and_no_jax_package():
                 "nlp.annotation", "util.native_build", "modelimport",
                 "modelimport.hdf5", "modelimport.keras",
                 "datasets.native_csv", "util.guesser", "ml", "ml.estimator",
-                "aws", "aws.s3"):
+                "aws", "aws.s3", "ui", "ui.i18n", "ui.components",
+                "ui.stats", "ui.storage", "ui.convolutional", "ui.server"):
         assert f"deeplearning4j_tpu_torch.{mod}" in res["modules"]
     assert res["bad"] == []
     assert res["threads"][0] == res["threads"][1]
