@@ -31,6 +31,7 @@
     python3 chip_smoke.py --clustering    # build + phase 23 alone
     python3 chip_smoke.py --import-io     # build + phase 24 alone
     python3 chip_smoke.py --ui            # build + phase 25 alone
+    python3 chip_smoke.py --drivers       # build + phase 26 alone
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
@@ -694,11 +695,35 @@ Phases, in order:
      tokens equal to the server's results; phase 23's t-SNE map (under
      `--ui` alone: 10 exact steps on the packaged 1032 x 64 vectors)
      posted and drawn on `/tsne`. It prints `[ui]` lines;
+ 26. the repository's drivers on the port (`phase_drivers`, `--drivers`,
+     fp32 with TF32 off), as a user runs them: (a) `scripts.serve_loadtest
+     .main` in process at the smoke LM's widths (vocab 512, d256, 4
+     layers, 8 heads), 8 slots, blocks of 16, 16-token prompts, 32
+     tokens, 32 streams (four full waves; JAX's default is 128), with
+     `--skip-fleet --skip-replicated --skip-spec` (phases 20 and 8 run
+     those paths): every hard assert of its phases 1-3 (greedy parity
+     against whole-batch `generate()`, near-ties recorded by margin;
+     continuous beats sequential; p99 TTFT bounded; the int8 decode's
+     weight-byte reduction >= 3.5x; incremental admission >= 2x
+     upfront; mixed prompt lengths; the overload sheds); (b)
+     `python -m deeplearning4j_tpu_torch.scripts.fault_drill --smoke
+     --with-corruption --device cuda` as a subprocess started beside
+     (a): a real SIGTERM at step 15, the newest checkpoint bit-flipped,
+     the resumed lineage bit-identical to the uninterrupted one, and
+     the seconds from the kill to its first resumed step; (c)
+     `scripts.online_loop.main(["--smoke"])` and
+     `scripts.tenant_loadtest.main(["--smoke"])` in process at JAX's
+     drill widths, every hard assert, zero dropped streams; (d) each of
+     the 12
+     `deeplearning4j_tpu_torch.examples` on the card, its steps cut
+     through its module constants (`DRIVER_EXAMPLE_CUTS`). Each driver
+     writes its ledger under `OUT_DIR/drivers/`. It prints
+     `[drivers]` lines;
 and prints the `{"kernels": [...]}` line (launch counts from phases 3
-to 21 and 23 to 25, each > 0; phase 22 runs none of these kernels, phase
-23 only the Viterbi kernel, phase 24 only fused Adam, phase 25 the smoke
-LM's six; the counts of each phase, and of each part of phases
-18 to 21, on a `[launches]` line), each phase's seconds on a
+to 21 and 23 to 26, each > 0; phase 22 runs none of these kernels, phase
+23 only the Viterbi kernel, phase 24 only fused Adam, phases 25 and 26
+the smoke LM's six; the counts of each phase, and of each part of phases
+18 to 21 and 26, on a `[launches]` line), each phase's seconds on a
 `[phases]` line, the card's name and power limit, and last
 `{"ok": true, "device": {...}}`. Any failed check exits nonzero without
 the last line. Without CUDA it exits 2 and prints no result. It turns
@@ -1149,6 +1174,11 @@ def phase_kernels(device, report, fails, small=False):
                 if not small else
                 [("main", 2, 70, 2, 32), ("ring_chunk", 2, 32, 2, 64),
                  ("long", 1, 160, 2, 64), ("misaligned", 1, 40, 2, 32)])
+    # head dims below 32, zero-padded by the wrappers: phase
+    # 26's online drill (d32 / 4 heads), tenant drill and
+    # transformer_text (d48 / 4), transformer_generate (d64 / 4)
+    fl_cases += [("padded_d8", 16, 7, 4, 8), ("padded_d12", 16, 7, 4, 12),
+                 ("padded_d16", 4, 31, 4, 16)]
     bwd_ragged = ([("ragged_tq_tk", 2, 300, 200, 4, 64),
                    ("ragged_tq_tk", 2, 200, 300, 2, 128)]
                   if not small else [("ragged_tq_tk", 1, 40, 24, 2, 32)])
@@ -1431,6 +1461,11 @@ def _carry_checks(device, checks, fails, flush, rnd, dt_name, dt, small):
         qr = rnd((Bq, Tq, Hq, Dq), dt)
         kr, vr = (rnd((Bq, Tk, Hq, Dq), dt) for _ in range(2))
         check("ragged", qr, [(kr, vr, False)], seeded(Bq, Tq, Hq, Dq))
+    # the long_context example's ring chunk [4, 32, 8, 4]: head dim 4,
+    # zero-padded to 32 by the wrapper
+    qp, kp, vp, kp2, vp2 = (rnd((4, 32, 8, 4), dt) for _ in range(5))
+    check("padded_d4", qp, [(kp, vp, True), (kp2, vp2, False)],
+          fresh(4, 32, 8, 4))
     # q, k, v as views off 16-byte alignment: a diag fold, then a visible
     Bq, Tq, _, Hq, Dq = ragged[0]
     qm, km, vm, km2, vm2 = (off_alignment(rnd((Bq, Tq, Hq, Dq), dt))
@@ -13198,6 +13233,266 @@ def _print_ui(out):
           f"launches {out['launches']}", flush=True)
 
 
+# ------------------------------------------------------------- phase 26
+# (a) the serving load test at the smoke LM's widths (LM): only the
+# traffic is cut (32 streams, JAX's default is 128); (c) the online and
+# tenant drills at their own (JAX's) drill widths; (d) the examples with
+# the steps cut through their module constants (DRIVER_EXAMPLE_CUTS)
+DRIVERS = dict(
+    serving=["--vocab", str(LM["vocab"]), "--d-model", str(LM["d_model"]),
+             "--n-layers", str(LM["n_layers"]), "--n-heads",
+             str(LM["n_heads"]), "--n-slots", "8", "--block-len", "16",
+             "--prompt-len", "16", "--n-tokens", "32", "--streams", "32",
+             "--min-weight-reduction", "3.5"],
+    online=[], tenant=[])
+DRIVERS_SMALL = dict(
+    serving=["--vocab", "101", "--d-model", "16", "--n-layers", "2",
+             "--n-heads", "4", "--n-slots", "4", "--block-len", "4",
+             "--prompt-len", "4", "--n-tokens", "8", "--streams", "16",
+             "--steps-per-dispatch", "4", "--min-weight-reduction", "2.5"],
+    online=[], tenant=["--traffic-inflight", "3"])
+# the parts of the serving load test phase 26 skips: the fleet and the
+# replicas run in phase 20, speculation, the shared prefix and radix in
+# phase 8 (each mode also ran once alone: PERF.md)
+DRIVER_SKIPS = ["--skip-fleet", "--skip-replicated", "--skip-spec"]
+# (module constant, value) cuts of each example in phase 26: steps only
+DRIVER_EXAMPLE_CUTS = {
+    "char_lstm": dict(EPOCHS=4, SAMPLE_CHARS=40),
+    "chinese_word2vec": {},
+    "word2vec_basic": {},
+    "distributed_training": dict(EPOCHS=5),
+    "keras_import_pretrained": {},
+    "long_context": {},
+    "mnist_cnn": dict(N_TRAIN=2048, N_TEST=1000, EPOCHS=1),
+    "object_detection": dict(EPOCHS=20),
+    "training_diagnostics": {},
+    "transfer_and_serve": dict(BASE_EPOCHS=10),
+    "transformer_generate": dict(EPOCHS=1),
+    "transformer_text": dict(EPOCHS=4),
+}
+DRIVER_EXAMPLE_CUTS_SMALL = {
+    "char_lstm": dict(EPOCHS=1, SAMPLE_CHARS=10),
+    "chinese_word2vec": dict(EPOCHS=1),
+    "word2vec_basic": dict(EPOCHS=1),
+    "distributed_training": dict(EPOCHS=2),
+    "keras_import_pretrained": dict(FINETUNE_EPOCHS=1, N_EVAL=64),
+    "long_context": dict(EPOCHS=1),
+    "mnist_cnn": dict(N_TRAIN=256, N_TEST=256, EPOCHS=1),
+    "object_detection": dict(EPOCHS=2, N_TRAIN=32),
+    "training_diagnostics": dict(EPOCHS=1),
+    "transfer_and_serve": dict(BASE_EPOCHS=2, TUNE_EPOCHS=1),
+    "transformer_generate": dict(EPOCHS=1, SAMPLE_TOKENS=4, BEAM_TOKENS=4),
+    "transformer_text": dict(EPOCHS=1, N_EXAMPLES=128),
+}
+DRIVER_KERNELS = ("layer_norm", "residual_layer_norm", "flash_attention_fwd",
+                  "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+                  "fused_adam")
+
+
+def phase_drivers(device, report, fails, small=False):
+    """Phase 26 on `device` (see the module docstring, 26 (a)-(d)): the
+    repository's drivers and examples on the port. The fault drill (b)
+    runs as a subprocess beside (a), as a user runs it. Returns the
+    phase's kernel launches (in this process: (a), (c), (d))."""
+    import importlib
+    import deeplearning4j_tpu_torch.kernels as K
+    from deeplearning4j_tpu_torch import monitor
+    from deeplearning4j_tpu_torch.scripts import (
+        online_loop, serve_loadtest, tenant_loadtest)
+    c = DRIVERS_SMALL if small else DRIVERS
+    cuts = DRIVER_EXAMPLE_CUTS_SMALL if small else DRIVER_EXAMPLE_CUTS
+    dev = str(device)
+    t_start = time.perf_counter()
+    out, parts, by_part = {}, {}, {}
+    ledgers = os.path.join(OUT_DIR, "drivers")
+    os.makedirs(ledgers, exist_ok=True)
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [HERE] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                  if p])
+    drill = subprocess.Popen(
+        [sys.executable, "-m", "deeplearning4j_tpu_torch.scripts.fault_drill",
+         "--smoke", "--with-corruption", "--device", dev],
+        cwd=HERE, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True)
+    t_drill = time.perf_counter()
+    total = {k: 0 for k in KERNEL_META}
+
+    def part(name, fn):
+        K.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            return fn()
+        finally:
+            parts[name] = time.perf_counter() - t0
+            by_part[name] = {k: v for k, v in K.LAUNCHES.items() if v}
+            for k in total:
+                total[k] += K.LAUNCHES.get(k, 0)
+            monitor.disable()
+
+    try:
+        # (a) the serving load test, in process, at the smoke LM's width
+        path = os.path.join(ledgers, "serving.json")
+        rc = part("a", lambda: serve_loadtest.main(
+            c["serving"] + DRIVER_SKIPS + ["--device", dev, "--out", path]))
+        fails.check(rc == 0, f"drivers (a) serve_loadtest exited {rc}")
+        out["a"] = _drivers_serving(fails, path, small)
+
+        # (c) the online and tenant drills, in process
+        path = os.path.join(ledgers, "online.json")
+        rc = part("c_online", lambda: online_loop.main(
+            ["--smoke", "--device", dev, "--out", path] + c["online"]))
+        fails.check(rc == 0, f"drivers (c) online_loop exited {rc}")
+        with open(path) as f:
+            v = json.load(f)
+        out["c_online"] = dict(
+            publishes=v["train"]["published_versions"],
+            swaps=v["serving"]["swaps"], dropped=v["serving"]["dropped"],
+            trips=v["train"]["drift_trips"],
+            gated=v["train"]["publishes_gated"],
+            streams=v["serving"]["streams_total"],
+            parity=v["serving"]["parity"], platform=v["platform"])
+        fails.check(out["c_online"]["dropped"] == 0,
+                    f"drivers (c) online dropped "
+                    f"{out['c_online']['dropped']} streams")
+        path = os.path.join(ledgers, "tenancy.json")
+        rc = part("c_tenant", lambda: tenant_loadtest.main(
+            ["--smoke", "--device", dev, "--out", path] + c["tenant"]))
+        fails.check(rc == 0, f"drivers (c) tenant_loadtest exited {rc}")
+        out["c_tenant"] = _drivers_tenant(fails, path)
+
+        # (d) the examples on the device, steps cut by module constants
+        out["d"] = {}
+        for name, cut in cuts.items():
+            mod = importlib.import_module(
+                f"deeplearning4j_tpu_torch.examples.{name}")
+            saved = {k: getattr(mod, k) for k in cut}
+            for k, v in cut.items():
+                setattr(mod, k, v)
+            try:
+                part(f"d_{name}", lambda: mod.main(["--device", dev]))
+                out["d"][name] = dict(ok=True, cut=cut,
+                                      seconds=parts[f"d_{name}"])
+            except Exception as e:  # noqa: BLE001 — recorded, fails below
+                traceback.print_exc()
+                out["d"][name] = dict(ok=False, cut=cut, error=repr(e))
+                fails.append(f"drivers (d) example {name} raised {e!r}")
+            finally:
+                for k, v in saved.items():
+                    setattr(mod, k, v)
+
+        # (b) the fault drill's process, started with (a)
+        stdout, stderr = drill.communicate(timeout=600)
+        parts["b"] = time.perf_counter() - t_drill
+        out["b"] = _drivers_drill(fails, drill.returncode, stdout, stderr)
+    finally:
+        if drill.poll() is None:
+            drill.kill()
+            drill.wait()
+    if device.type == "cuda":
+        _launched(fails, "drivers", total, DRIVER_KERNELS)
+    out["launches"] = {k: v for k, v in total.items() if v}
+    out["launches_by_part"] = by_part
+    out["part_seconds"] = parts
+    out["seconds"] = time.perf_counter() - t_start
+    report["drivers"] = out
+    _print_drivers(out)
+    return total
+
+
+def _drivers_serving(fails, path, small):
+    """(a)'s ledger: JAX's blocks, every phase's numbers."""
+    with open(path) as f:
+        rec = json.load(f)
+    s = rec["extras"]["serving"]
+    q = rec["extras"]["serving_mixed_quantized"]
+    fails.check(q["weight_bytes_reduction"] >= (2.5 if small else 3.5),
+                f"drivers (a) int8 weight-byte reduction "
+                f"{q['weight_bytes_reduction']}")
+    fails.check(s["overload_shed"] >= 1, "drivers (a) overload shed nothing")
+    return dict(platform=rec["platform"], tok_s=s["tokens_per_sec"],
+                seq_tok_s=s["sequential_tokens_per_sec"],
+                speedup=s["speedup_vs_sequential"],
+                ttft_p50_ms=s["p50_ttft_ms"], ttft_p99_ms=s["p99_ttft_ms"],
+                int8_tok_s=q["tokens_per_sec"],
+                int8_ttft_p99_ms=q["p99_ttft_ms"],
+                reduction=q["weight_bytes_reduction"],
+                mm_reduction=q["matmul_weight_bytes_reduction"],
+                shed=s["overload_shed"], served=s["overload_served"],
+                parity=s["greedy_parity"],
+                q_parity=q["greedy_parity_vs_quantized_generate"],
+                near_ties=rec.get("near_ties"),
+                admitted=(q["admitted_incremental"], q["admitted_upfront"]),
+                goodput=rec["extras"]["goodput"]["goodput_fraction"])
+
+
+def _drivers_tenant(fails, path):
+    """(c)'s tenant ledger: publishes, swaps, drops, the gate."""
+    with open(path) as f:
+        t = json.load(f)["extras"]["serving_tenancy"]
+    fails.check(t["dropped"] == 0,
+                f"drivers (c) tenant dropped {t['dropped']} streams")
+    return dict(publishes=t["online_adapter_publishes"], swaps=t["swaps"],
+                dropped=t["dropped"], trips=t["drift"]["trips"],
+                gated=t["drift"]["publishes_gated"],
+                base_copies=t["shared_base_copies"], parity=t["parity"],
+                light_share=t["fair_share"]["light_share"])
+
+
+def _drivers_drill(fails, rc, stdout, stderr):
+    """(b): the drill's exit code and its last line's verdict."""
+    last = next((ln for ln in reversed(stdout.strip().splitlines())
+                 if ln.startswith("{")), "{}")
+    rep = json.loads(last).get("fault_drill", {})
+    fails.check(rc == 0 and rep.get("ok") is True,
+                f"drivers (b) fault drill rc {rc}: {rep.get('error')} "
+                f"{stderr[-1500:]}")
+    return dict(rc=rc, ok=rep.get("ok"), restarts=rep.get("restarts"),
+                kill_to_resume_s=rep.get("kill_to_resume_s"),
+                committed_at_kill=rep.get("committed_at_kill"),
+                reference_s=rep.get("reference_s"),
+                platform=rep.get("device"))
+
+
+def _print_drivers(out):
+    a, b = out.get("a", {}), out.get("b", {})
+    if a:
+        print(f"[drivers] (a) serve_loadtest on {a['platform']}: continuous "
+              f"{a['tok_s']} tok/s, sequential {a['seq_tok_s']} "
+              f"({a['speedup']}x), TTFT p50 {a['ttft_p50_ms']} ms p99 "
+              f"{a['ttft_p99_ms']} ms; int8 {a['int8_tok_s']} tok/s, "
+              f"weight bytes {a['reduction']}x (matmul "
+              f"{a['mm_reduction']}x); shed {a['shed']}/"
+              f"{a['shed'] + a['served']}; parity {a['parity']} / "
+              f"{a['q_parity']}; admits {a['admitted']}; goodput "
+              f"{a['goodput']}; {out['part_seconds']['a']:.2f} s",
+              flush=True)
+    if b:
+        ktr = b.get("kill_to_resume_s")
+        print(f"[drivers] (b) fault_drill --smoke --with-corruption: rc "
+              f"{b['rc']}, bit-identical {b['ok']}, restarts "
+              f"{b['restarts']}, kill to first resumed step "
+              f"{ktr if ktr is None else round(ktr, 3)} s, committed at "
+              f"the kill {b['committed_at_kill']}; "
+              f"{out['part_seconds']['b']:.2f} s (its process beside (a), "
+              f"(c), (d))",
+              flush=True)
+    for k in ("c_online", "c_tenant"):
+        if k in out:
+            v = out[k]
+            print(f"[drivers] ({k}) publishes {v['publishes']}, swaps "
+                  f"{v['swaps']}, dropped {v['dropped']}, gate trips "
+                  f"{v['trips']} (gated {v['gated']}), parity "
+                  f"{v['parity']}; {out['part_seconds'][k]:.2f} s",
+                  flush=True)
+    if "d" in out:
+        print(f"[drivers] (d) examples "
+              f"{ {n: round(r['seconds'], 2) if r['ok'] else 'FAIL' for n, r in out['d'].items()} }"
+              f" s", flush=True)
+    print(f"[drivers] {out['seconds']:.1f} s; launches {out['launches']}",
+          flush=True)
+
+
 def _round(d):
     return {k: round(v, 3) for k, v in d.items()}
 
@@ -13358,6 +13653,9 @@ def run(device, *, small=False, kernels_only=False):
                     kept.get("tsne"))
         for k in launches:
             launches[k] += (l25 or {}).get(k, 0)
+        l26 = phase("drivers", phase_drivers, device, report, fails, small)
+        for k in launches:
+            launches[k] += (l26 or {}).get(k, 0)
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
@@ -13366,7 +13664,7 @@ def run(device, *, small=False, kernels_only=False):
                          ("14", l14), ("15", l15), ("16", l16),
                          ("17", l17), ("18", l18), ("19", l19),
                          ("20", l20), ("21", l21), ("23", l23),
-                         ("24", l24), ("25", l25)) if l}
+                         ("24", l24), ("25", l25), ("26", l26)) if l}
         for part, counts in report.get("multiprocess", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"18 {part}"] = counts
@@ -13379,6 +13677,10 @@ def run(device, *, small=False, kernels_only=False):
         for part, counts in report.get("tenancy", {}).get(
                 "launches_by_part", {}).items():
             report["launches_by_phase"][f"21 ({part})"] = counts
+        for part, counts in report.get("drivers", {}).get(
+                "launches_by_part", {}).items():
+            if counts:
+                report["launches_by_phase"][f"26 ({part})"] = counts
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
         for k, n in launches.items():
@@ -13508,6 +13810,11 @@ def main(argv):
         report, fails = {}, Failures()
         phase_build(report, fails)
         phase_ui(device, report, fails)
+        report["kernels"] = []
+    elif "--drivers" in argv:
+        report, fails = {}, Failures()
+        phase_build(report, fails)
+        phase_drivers(device, report, fails)
         report["kernels"] = []
     else:
         report, fails = run(device, kernels_only="--kernels-only" in argv)

@@ -24,7 +24,12 @@ strides and stages rows with 16-byte copies, so the head dim must be
 contiguous and every row 16-byte aligned. `_kernel_layout` copies a
 tensor only when it is not (a strided head dim, a view that starts off
 alignment); the projections of the attention layer and the ring's
-sequence shards pass through as they are.
+sequence shards pass through as they are. The kernels are built for
+head dims 32, 64 and 128; a smaller head dim (the Pallas kernel takes
+any) is zero-padded to the next of them on its way in (`_pad_head`) and
+the outputs cut back, with the scale of the real head dim: a zero
+column adds nothing to q·k, and its columns of o, dq, dk, dv come out
+zero, so the kernel computes the same function.
 
 Semantics (the Pallas kernel's): q, k, v [B, T, H, D]; scores
 `(q * 1/sqrt(D)) k^T` in fp32; causal mask `k_pos <= q_pos` and the
@@ -48,6 +53,22 @@ from deeplearning4j_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+
+
+def _kernel_dim(D: int) -> int:
+    """The smallest head dim the kernels are built for that holds D."""
+    for d in HEAD_DIMS:
+        if D <= d:
+            return d
+    raise ValueError(f"head dim {D} above the kernels' {HEAD_DIMS[-1]}")
+
+
+def _pad_head(t, Dk: int):
+    """`t` [..., D] zero-padded to [..., Dk] (itself when D == Dk)."""
+    D = t.shape[-1]
+    if D == Dk:
+        return t
+    return torch.nn.functional.pad(t, (0, Dk - D))
 
 
 def _scale(D: int) -> float:
@@ -157,7 +178,9 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
     plain version."""
     if not K.on_cuda(q, k, v):
         return flash_attention_plain(q, k, v, causal)
-    q, k, v = (_kernel_layout(t) for t in (q, k, v))
+    D0 = q.shape[-1]
+    Dk = _kernel_dim(D0)
+    q, k, v = (_kernel_layout(_pad_head(t, Dk)) for t in (q, k, v))
     _check(q, k, v)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
@@ -169,10 +192,10 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
         v.stride(0), v.stride(1), v.stride(2))
     status = _lib()(K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k),
                     K.ptr(v), K.ptr(o), K.ptr(lse), B, Tq, Tk, H, D,
-                    strides, _scale(D), K.stream_of(q))
+                    strides, _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_fwd", status)
     K.count_launch("flash_attention_fwd", q.dtype)
-    return o, lse
+    return o[..., :D0], lse
 
 
 def _check_carry(q, k, v, m, l, acc, diag):
@@ -202,11 +225,14 @@ def flash_attention_carry(q, k, v, m, l, acc, *, diag: bool):
     _check_carry(q, k, v, m, l, acc, diag)
     if not K.on_cuda(q, k, v, m, l, acc):
         return flash_attention_carry_plain(q, k, v, m, l, acc, diag)
-    q, k, v = (_kernel_layout(t) for t in (q, k, v))
+    D0 = q.shape[-1]
+    Dk = _kernel_dim(D0)
+    q, k, v = (_kernel_layout(_pad_head(t, Dk)) for t in (q, k, v))
     _check(q, k, v)
     for name, t in (("m", m), ("l", l), ("acc", acc)):
         if not t.is_contiguous():
             raise ValueError(f"carry state {name} must be contiguous")
+    acc_k = _pad_head(acc, Dk).contiguous()
     B, Tq, H, D = q.shape
     strides = (ctypes.c_longlong * 9)(
         q.stride(0), q.stride(1), q.stride(2),
@@ -214,10 +240,12 @@ def flash_attention_carry(q, k, v, m, l, acc, *, diag: bool):
         v.stride(0), v.stride(1), v.stride(2))
     status = _lib("dl4j_flash_attention_carry")(
         K.dtype_code(q), int(bool(diag)), K.ptr(q), K.ptr(k), K.ptr(v),
-        K.ptr(m), K.ptr(l), K.ptr(acc), B, Tq, k.shape[1], H, D, strides,
-        _scale(D), K.stream_of(q))
+        K.ptr(m), K.ptr(l), K.ptr(acc_k), B, Tq, k.shape[1], H, D, strides,
+        _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_carry", status)
     K.count_launch("flash_attention_carry", q.dtype)
+    if acc_k is not acc:
+        acc.copy_(acc_k[..., :D0])
     return m, l, acc
 
 
@@ -287,17 +315,19 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     take the plain version."""
     if not K.on_cuda(q, k, v, do, lse, delta):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
-    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
+    D0 = q.shape[-1]
+    Dk = _kernel_dim(D0)
+    q, k, v, do = (_kernel_layout(_pad_head(t, Dk)) for t in (q, k, v, do))
     _check_bwd(q, k, v, do, lse, delta)
     B, Tq, H, D = q.shape
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     status = _bwd_lib("dl4j_flash_attention_bwd_dq")(
         K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k), K.ptr(v),
         K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dq), B, Tq, k.shape[1],
-        H, D, _bwd_strides(q, k, v, do), _scale(D), K.stream_of(q))
+        H, D, _bwd_strides(q, k, v, do), _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_bwd_dq", status)
     K.count_launch("flash_attention_bwd_dq", q.dtype)
-    return dq
+    return dq[..., :D0]
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
@@ -305,7 +335,9 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     tensors take the plain version."""
     if not K.on_cuda(q, k, v, do, lse, delta):
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
-    q, k, v, do = (_kernel_layout(t) for t in (q, k, v, do))
+    D0 = q.shape[-1]
+    Dk = _kernel_dim(D0)
+    q, k, v, do = (_kernel_layout(_pad_head(t, Dk)) for t in (q, k, v, do))
     _check_bwd(q, k, v, do, lse, delta)
     B, Tq, H, D = q.shape
     Tk = k.shape[1]
@@ -314,10 +346,10 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     status = _bwd_lib("dl4j_flash_attention_bwd_dkv")(
         K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k), K.ptr(v),
         K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dk), K.ptr(dv), B, Tq,
-        Tk, H, D, _bwd_strides(q, k, v, do), _scale(D), K.stream_of(q))
+        Tk, H, D, _bwd_strides(q, k, v, do), _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_bwd_dkv", status)
     K.count_launch("flash_attention_bwd_dkv", q.dtype)
-    return dk, dv
+    return dk[..., :D0], dv[..., :D0]
 
 
 class _FlashAttentionFn(torch.autograd.Function):

@@ -728,7 +728,12 @@ class ElasticTrainer:
     `devices` are this process's mesh devices and `backend` the process
     group's (`initialize_multihost`'s arguments): by default one CUDA
     card (the rank modulo the visible cards) and NCCL; pass CPU devices
-    to train on the CPU over gloo."""
+    to train on the CPU over gloo.
+
+    `async_checkpoint=False` writes each generation's checkpoints inline
+    on the training thread. The default writer thread is latest-wins: a
+    snapshot still queued when a newer one arrives is dropped, so which
+    steps land on disk depends on timing."""
 
     def __init__(self, build_model: Callable[[], object], *,
                  config: ElasticConfig, ckpt_dir, ckpt_frequency: int = 5,
@@ -736,7 +741,8 @@ class ElasticTrainer:
                  gradient_sharing: Optional[str] = None,
                  trainer_kwargs: Optional[dict] = None,
                  devices: Optional[Sequence] = None,
-                 backend: Optional[str] = None):
+                 backend: Optional[str] = None,
+                 async_checkpoint: bool = True):
         self.build_model = build_model
         self.config = config
         self.ckpt_dir = ckpt_dir
@@ -747,6 +753,7 @@ class ElasticTrainer:
         self.trainer_kwargs = dict(trainer_kwargs or {})
         self.devices = None if devices is None else list(devices)
         self.backend = backend
+        self.async_checkpoint = bool(async_checkpoint)
         self.client = ElasticClient(
             config.control_address, config.token,
             heartbeat_interval_s=config.heartbeat_interval_s,
@@ -895,7 +902,8 @@ class ElasticTrainer:
                  gen, trainer.n_workers, resumed, model.iteration_count)
 
         ck = fault.AsyncCheckpointer(self.ckpt_dir,
-                                     keep_last=self.keep_last)
+                                     keep_last=self.keep_last,
+                                     async_write=self.async_checkpoint)
         ckl = fault.CheckpointListener(ck, frequency=self.ckpt_frequency,
                                        iterator=iterator)
         drain = _DrainListener(self.client, gen,
@@ -952,7 +960,8 @@ def elastic_fit(build_model, iterator_factory, *, config: ElasticConfig,
                 ckpt_frequency: int = 5, steps_per_execution: int = 1,
                 extra_listeners=None, trainer_kwargs=None,
                 keep_last: int = 5, devices: Optional[Sequence] = None,
-                backend: Optional[str] = None):
+                backend: Optional[str] = None,
+                async_checkpoint: bool = True):
     """One-call elastic training: build the trainer, join the membership,
     survive reconfigurations; returns (the trained model, the
     `ElasticTrainer`). See `ElasticTrainer`."""
@@ -960,7 +969,7 @@ def elastic_fit(build_model, iterator_factory, *, config: ElasticConfig,
                         ckpt_frequency=ckpt_frequency, keep_last=keep_last,
                         mode=mode, gradient_sharing=gradient_sharing,
                         trainer_kwargs=trainer_kwargs, devices=devices,
-                        backend=backend)
+                        backend=backend, async_checkpoint=async_checkpoint)
     model = et.fit(iterator_factory, epochs=epochs, batch_size=batch_size,
                    steps_per_execution=steps_per_execution,
                    extra_listeners=extra_listeners)

@@ -830,10 +830,34 @@ def test_elastic_fit_in_one_process_on_the_cpu(coordinator, tmp_path):
             coordinator.address, "solo", heartbeat_interval_s=0.05),
         ckpt_dir=str(tmp_path), epochs=1, batch_size=24,
         gradient_sharing="threshold", ckpt_frequency=4, devices=["cpu"],
-        extra_listeners=lambda gen: [got])
+        extra_listeners=lambda gen: [got], async_checkpoint=False)
     assert et.history == [{"generation": 1, "n_workers": 1, "resumed": False,
                            "residual_restored": False, "step": 0}]
     assert [s for _, s in got.scores] == [s for _, s in scores.scores]
     assert model.iteration_count == 10 and not multihost.multihost_active()
     assert fault.list_checkpoints(tmp_path) == [4, 8]
     assert "solo" in coordinator.status()["completed"]
+
+
+def test_async_checkpointer_drops_a_queued_snapshot(tmp_path, caplog):
+    """The default writer is latest-wins: a snapshot still queued when a
+    newer one arrives is dropped with a warning. The writer thread is
+    held on an event until both saves are in."""
+    ck = fault.AsyncCheckpointer(tmp_path)
+    gate = threading.Event()
+    work = ck._worker
+
+    def held_worker():
+        assert gate.wait(10.0)
+        work()
+    ck._worker = held_worker
+    state = {"arrays": {"w": np.arange(3, dtype=np.float32)},
+             "meta": {"step": 0}}
+    with caplog.at_level("WARNING", logger=fault.checkpointer.log.name):
+        ck.save(state, 4)
+        ck.save(state, 8)
+        gate.set()
+        ck.close()
+    assert fault.list_checkpoints(tmp_path) == [8]
+    assert any("dropping queued snapshot for step 4 in favor of step 8"
+               in r.getMessage() for r in caplog.records)

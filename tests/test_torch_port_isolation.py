@@ -144,3 +144,50 @@ def test_xdist_workers_share_the_cores():
         assert torch.get_num_threads() == want
         assert want == max(1, len(os.sched_getaffinity(0)) // int(
             os.environ["PYTEST_XDIST_WORKER_COUNT"]))
+
+
+_DRIVERS_PROBE = r"""
+import importlib, json, pkgutil, sys
+import deeplearning4j_tpu_torch.examples as ex
+import deeplearning4j_tpu_torch.scripts as sc
+names = [m.name for pkg in (sc, ex)
+         for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for n in names:
+    importlib.import_module(n)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "sklearn", "PIL",
+                                    "deeplearning4j_tpu"))
+print(json.dumps({"modules": names, "bad": bad}))
+"""
+
+
+def test_drivers_and_examples_stand_alone():
+    """The port's drivers (`scripts/`) and examples (`examples/`) import
+    neither jax nor the JAX package, nor scikit-learn or PIL (the card's
+    machine has neither), in a fresh interpreter and in their sources."""
+    import json
+    import re
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = REPO
+    out = subprocess.run([sys.executable, "-c", _DRIVERS_PROBE], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    want = {f"deeplearning4j_tpu_torch.scripts.{n}" for n in (
+        "fault_drill", "serve_loadtest", "online_loop", "tenant_loadtest")}
+    assert want <= set(res["modules"])
+    assert sum(m.startswith("deeplearning4j_tpu_torch.examples.")
+               for m in res["modules"]) == 12
+    assert res["bad"] == []
+    pat = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|sklearn|PIL|"
+                     r"deeplearning4j_tpu)\b", re.M)
+    hits = []
+    for sub in ("scripts", "examples"):
+        root = os.path.join(REPO, "deeplearning4j_tpu_torch", sub)
+        for f in sorted(os.listdir(root)):
+            if f.endswith(".py"):
+                with open(os.path.join(root, f)) as fh:
+                    if pat.search(fh.read()):
+                        hits.append(f"{sub}/{f}")
+    assert hits == []

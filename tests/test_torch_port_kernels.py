@@ -326,3 +326,45 @@ def test_cuda_flash_kernel_matches_plain(D, dtype, atol):
         o0, lse0 = flash_attention_plain(q, k, v, causal)
         torch.testing.assert_close(o.float(), o0.float(), atol=atol, rtol=0)
         torch.testing.assert_close(lse, lse0, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("D, Dk", [(1, 32), (4, 32), (8, 32), (12, 32),
+                                   (32, 32), (33, 64), (64, 64), (96, 128),
+                                   (128, 128)])
+def test_small_head_dims_pad_to_a_kernel_dim(D, Dk):
+    """A head dim the kernels are not built for is zero-padded to the
+    next one (the Pallas kernel takes any head dim); above 128 raises."""
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    assert fa._kernel_dim(D) == Dk
+    t = torch.randn(2, 3, 4, D)
+    p = fa._pad_head(t, Dk)
+    assert p.shape == (2, 3, 4, Dk) and torch.equal(p[..., :D], t)
+    assert not p[..., D:].any()
+    assert fa._pad_head(t, D) is t
+    with pytest.raises(ValueError, match="above"):
+        fa._kernel_dim(129)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("D", [4, 8, 12, 16])
+def test_cuda_flash_pads_small_head_dims(D):
+    """Forward and both backward kernels at a padded head dim against
+    the plain versions at the real one (fp32)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    q, k, v, do = (torch.from_numpy(a).to("cuda") for a in
+                   (*_qkv(2, 37, 4, D, 5), _qkv(2, 37, 4, D, 6)[0]))
+    for causal in (True, False):
+        o, lse = fa.flash_attention_fwd(q, k, v, causal)
+        o0, lse0 = fa.flash_attention_plain(q, k, v, causal)
+        torch.testing.assert_close(o, o0, atol=2e-5, rtol=0)
+        torch.testing.assert_close(lse, lse0, atol=1e-4, rtol=0)
+        delta = fa.attention_delta(do, o0)
+        bwd = (q, k, v, do, lse0, delta, causal)
+        torch.testing.assert_close(fa.flash_attention_bwd_dq(*bwd),
+                                   fa.flash_attention_bwd_dq_plain(*bwd),
+                                   atol=2e-5, rtol=0)
+        for a, b in zip(fa.flash_attention_bwd_dkv(*bwd),
+                        fa.flash_attention_bwd_dkv_plain(*bwd)):
+            torch.testing.assert_close(a, b, atol=2e-5, rtol=0)
