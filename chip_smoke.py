@@ -35,11 +35,14 @@
 
 Phases, in order:
   1. build every kernel of `deeplearning4j_tpu_torch/kernels/csrc/` with
-     nvcc (one process per source, all at once) and print the seconds;
-     check with `cuobjdump -sass` that every instance of the flash
-     kernels (the backward's dQ and dK/dV and the forward's finalize and
-     carry modes; fp32 and bf16, D 32/64/128, causal or not) runs
-     tensor-core instructions (HMMA or HGMMA), and print each one's
+     nvcc (one process per source, all at once) and print the seconds,
+     in all and by library; check with `cuobjdump -sass` that every
+     instance of the flash kernels (the backward's dQ and dK/dV and the
+     forward's finalize and carry modes; fp32 and bf16, D 32/64/128,
+     causal or not) runs on the tensor cores: HGMMA (wgmma) in each bf16
+     instance of the Hopper forward and dK/dV (`csrc/*_sm90.cu`), HMMA
+     (mma.sync) in the fp32 ones and in dQ, and no bf16 forward or dK/dV
+     left in the mma.sync libraries (`FLASH_LIBS`); print each one's
      registers, stack and local memory (`cuobjdump -res-usage`);
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 and bf16, at the main path's shapes and at ragged ones, and
@@ -72,7 +75,9 @@ Phases, in order:
      chain of the two) and ragged (Tq 300, Tk 200, D 32 and 128); no
      one PyTorch call computes it, so it has no yardstick. The forward
      (with its backward) and a chain of two carry folds also run on
-     q, k, v views that start off 16-byte alignment. The Viterbi scan
+     q, k, v views that start off 16-byte alignment. In bf16 a second
+     launch of the forward and of dK/dV (the Hopper kernels) on the
+     same inputs must be bit-equal to the first. The Viterbi scan
      kernel (`csrc/viterbi.cu`) must equal its plain version, path and
      score bit for bit, at S = 2, 77, 512 and 1100 (more states than a
      block's threads), T = 1, a ragged T and tables full of ties with
@@ -1009,6 +1014,11 @@ _BWD_KERNEL = re.compile(
 # a forward kernel's: dtype, D, causal (diag in carry mode), carry
 _FWD_KERNEL = re.compile(
     r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])ELb([01])E")
+# the bf16 Hopper kernels' (wgmma, TMA; bf16 only): the forward's D,
+# causal (diag in carry mode) and carry, and dK/dV's D and causal
+_FWD_SM90_KERNEL = re.compile(
+    r"flash_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])E")
+_DKV_SM90_KERNEL = re.compile(r"flash_bwd_dkv_sm90_kernelILi(\d+)ELb([01])E")
 # `cuobjdump -sass`: a function's heading; `cuobjdump -res-usage`: a
 # function's heading and, on the next line, its "KEY:value" resources
 _SASS_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)", re.M)
@@ -1041,6 +1051,31 @@ def _fwd_instances(names):
             out[("carry" if carry == "1" else "fwd",
                  "float32" if dt == "f" else "bfloat16", int(D),
                  causal == "1")] = fn
+    return out
+
+
+def _fwd_sm90_instances(names):
+    """{(mode, "bfloat16", D, causal): mangled name} of the Hopper
+    forward's instances among `names` (as `_fwd_instances`)."""
+    out = {}
+    for fn in names:
+        m = _FWD_SM90_KERNEL.search(fn)
+        if m:
+            D, causal, carry = m.groups()
+            out[("carry" if carry == "1" else "fwd", "bfloat16", int(D),
+                 causal == "1")] = fn
+    return out
+
+
+def _bwd_sm90_instances(names):
+    """{("dkv", "bfloat16", D, causal): mangled name} of the Hopper
+    dK/dV kernel's instances among `names`."""
+    out = {}
+    for fn in names:
+        m = _DKV_SM90_KERNEL.search(fn)
+        if m:
+            D, causal = m.groups()
+            out[("dkv", "bfloat16", int(D), causal == "1")] = fn
     return out
 
 
@@ -1097,6 +1132,63 @@ def _sass_rows(lib, instances, prefix):
     return rows
 
 
+# phase 1's flash libraries: (report key, library, instance finder,
+# counter prefix, {(kind, dtype): the tensor-core instruction every one
+# of its 6 instances (D 32/64/128, causal or not) must have}). The bf16
+# forward (both modes) and dK/dV are the Hopper kernels (HGMMA: wgmma);
+# fp32 and dQ stay mma.sync (HMMA), and the mma.sync libraries hold no
+# bf16 forward or dK/dV instance any more.
+FLASH_LIBS = (
+    ("bwd_sass", "flash_attention_bwd", _bwd_instances,
+     "flash_attention_bwd_", {("dq", "float32"): "HMMA",
+                              ("dq", "bfloat16"): "HMMA",
+                              ("dkv", "float32"): "HMMA",
+                              ("dkv", "bfloat16"): None}),
+    ("fwd_sass", "flash_attention", _fwd_instances, "flash_attention_",
+     {("fwd", "float32"): "HMMA", ("carry", "float32"): "HMMA",
+      ("fwd", "bfloat16"): None, ("carry", "bfloat16"): None}),
+    ("bwd_sm90_sass", "flash_attention_bwd_sm90", _bwd_sm90_instances,
+     "flash_attention_bwd_", {("dkv", "bfloat16"): "HGMMA"}),
+    ("fwd_sm90_sass", "flash_attention_sm90", _fwd_sm90_instances,
+     "flash_attention_", {("fwd", "bfloat16"): "HGMMA",
+                          ("carry", "bfloat16"): "HGMMA"}))
+
+
+def flash_sass_checks(rows, prefix, want):
+    """(ok, message) for each (kind, dtype) of `want` over one library's
+    `_sass_rows`: 6 instances, each with its tensor-core instruction
+    (`want[...]`), or none at all where `want[...]` is None."""
+    out = []
+    for (kind, dt), op in want.items():
+        mine = [r for r in rows
+                if r["kernel"] == prefix + kind and r["dtype"] == dt]
+        got = [(r["D"], r["causal"], r["HMMA"], r["HGMMA"]) for r in mine]
+        if op is None:
+            out.append((not mine, f"SASS of {prefix}{kind} {dt}: want no "
+                        f"instance in this library, got {got}"))
+        else:
+            out.append((len(mine) == 6 and all(r[op] > 0 for r in mine),
+                        f"SASS of {prefix}{kind} {dt}: want {op} in all 6 "
+                        f"instances (D 32/64/128, causal or not), got {got}"))
+    return out
+
+
+# ptxas's note that it issues a kernel's wgmma products one by one (C75xx
+# "wgmma.mma_async instructions are serialized due to ...", e.g. C7512
+# for want of registers), and the kernel it names
+_WGMMA_SERIALISED = re.compile(
+    r"\((C\d+)\)[^\n]*wgmma\.mma_async instructions are serialized"
+    r"(?:[^\n]*function '([^']+)')?")
+
+
+def wgmma_serialised(log: str):
+    """[(code, mangled kernel name or "")] of every kernel that ptxas
+    reports, in an nvcc log (`-Xptxas -v`), as having its wgmma products
+    serialised."""
+    return [(m.group(1), m.group(2) or "")
+            for m in _WGMMA_SERIALISED.finditer(log)]
+
+
 def phase_build(report, fails):
     from concurrent.futures import ThreadPoolExecutor
 
@@ -1104,35 +1196,44 @@ def phase_build(report, fails):
     t0 = time.perf_counter()
     paths = build.build_all()
     report["build_s"] = time.perf_counter() - t0
+    report["build_s_by_library"] = dict(build.SECONDS)
     print(f"[build] {sorted(paths)} in {report['build_s']:.2f} s", flush=True)
-    # both libraries' listings at once (four cuobjdump processes)
-    todo = (("bwd_sass", "flash_attention_bwd", _bwd_instances,
-             "flash_attention_bwd_", ("dq", "dkv")),
-            ("fwd_sass", "flash_attention", _fwd_instances,
-             "flash_attention_", ("fwd", "carry")))
-    with ThreadPoolExecutor(2) as pool:
+    for name, sec in sorted(build.SECONDS.items()):
+        print(f"[build] {name}: {sec:.2f} s", flush=True)
+    # no Hopper instance may have its products serialised by ptxas (a
+    # library built by an earlier run has no log here: said, not checked)
+    for _, lib, _, _, want in FLASH_LIBS:
+        if "HGMMA" not in want.values():
+            continue
+        if lib not in build.LOGS:
+            print(f"[build] {lib}: built before this run, ptxas's "
+                  f"warnings not seen", flush=True)
+            continue
+        log = build.LOGS[lib]
+        bad = wgmma_serialised(log)
+        report.setdefault("wgmma_serialised", {})[lib] = bad
+        fails.check(not bad, f"ptxas serialises the wgmma products of "
+                    f"{lib}: {bad}")
+        print(f"[build] {lib}: ptxas compiled "
+              f"{log.count('Compiling entry function')} kernels, wgmma "
+              f"serialised in {len(bad)} {bad}", flush=True)
+    # the flash libraries' listings at once (two cuobjdump processes each)
+    with ThreadPoolExecutor(len(FLASH_LIBS)) as pool:
         listed = list(pool.map(lambda t: _sass_rows(paths[t[1]], t[2],
-                                                    t[3]), todo))
-    # the flash kernels must run on the tensor cores: every bf16 and fp32
-    # instance (D 32/64/128, causal or not) of the backward's two kernels
-    # and of the forward's two modes has HMMA (mma.sync) or HGMMA (wgmma)
-    # in its SASS; registers, stack and local memory are reported beside
-    for (key, _, _, prefix, kinds), rows in zip(todo, listed):
+                                                    t[3]), FLASH_LIBS))
+    # the flash kernels must run on the tensor cores: every instance (D
+    # 32/64/128, causal or not) of each kind and dtype has the
+    # instruction FLASH_LIBS names in its SASS; registers, stack and
+    # local memory are reported beside
+    for (key, _, _, prefix, want), rows in zip(FLASH_LIBS, listed):
         report[key] = rows
-        for kind in kinds:
-            for dt in ("float32", "bfloat16"):
-                mine = [r for r in rows
-                        if r["kernel"] == prefix + kind and r["dtype"] == dt]
-                fails.check(len(mine) == 6 and all(
-                    r["HMMA"] + r["HGMMA"] > 0 for r in mine),
-                    f"SASS of {prefix}{kind} {dt}: want HMMA/HGMMA in all "
-                    f"6 instances (D 32/64/128, causal or not), got "
-                    f"{[(r['D'], r['causal'], r['HMMA'], r['HGMMA']) for r in mine]}")
+        for ok, msg in flash_sass_checks(rows, prefix, want):
+            fails.check(ok, msg)
         for r in rows:
             print(f"[build] {r['kernel']} {r['dtype']} D={r['D']} causal="
                   f"{r['causal']}: HMMA {r['HMMA']}, HGMMA {r['HGMMA']}, "
                   f"registers {r['registers']}, stack {r['stack']} B, local "
-                  f"{r['local']} B", flush=True)
+                  f"{r['local']} B ({key})", flush=True)
 
 
 # ---------------------------------------------------- phase 2: kernel checks
@@ -1264,6 +1365,8 @@ def phase_kernels(device, report, fails, small=False):
                 delta = fa.attention_delta(do, o)
                 bwd = (q, k, v, do, lse, delta, causal)
                 bwd_errs = _bwd_checks(bwd, case, dt_name, checks, fails)
+                if dt_name == "bfloat16":
+                    _repeat_checks(bwd, o, lse, case, checks, fails)
                 if case == "ring_chunk":     # diag and visible chunks
                     timings.update(_bwd_timings(
                         device, flush, bwd, bwd_errs, dt_name,
@@ -1366,6 +1469,29 @@ def _bwd_checks(bwd, case, dt_name, checks, fails):
                            tol=tol, ok=ok))
         errs[name] = e_b
     return errs
+
+
+def _repeat_checks(bwd, o, lse, case, checks, fails):
+    """The bf16 Hopper kernels are deterministic (no atomics; each output
+    row has one writer): a second launch of the forward and of dK/dV on
+    the same inputs is bit-equal to the first (`o`, `lse` and a fresh
+    dK/dV launch)."""
+    import torch
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    q, k, v, causal = bwd[0], bwd[1], bwd[2], bwd[-1]
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
+    dk, dv = fa.flash_attention_bwd_dkv(*bwd)
+    dk2, dv2 = fa.flash_attention_bwd_dkv(*bwd)
+    for name, same in (
+            ("flash_attention_fwd", torch.equal(o, o2)
+             and torch.equal(lse, lse2)),
+            ("flash_attention_bwd_dkv", torch.equal(dk, dk2)
+             and torch.equal(dv, dv2))):
+        ok = fails.check(same, f"{name} {case} bfloat16 causal={causal}: "
+                         f"two launches on the same inputs differ")
+        checks.append(dict(kernel=name, case=case, dtype="bfloat16",
+                           causal=causal, shape=list(q.shape),
+                           check="bit-equal repeat", ok=ok))
 
 
 def _bwd_timings(device, flush, bwd, errs, dt_name, tag):
@@ -1789,7 +1915,7 @@ def phase_scoring(device, report, fails, cfg, B, T):
     out = net.output(ids)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     ms = timer(device, lambda: net.output(ids), iters=5, warmup=1)
     ref = build_lm(cfg, "cpu", params).output(ids)
     err = (out.cpu() - ref).abs().max().item()
@@ -1949,7 +2075,7 @@ def phase_serving(device, report, fails, net, n_greedy, n_sampled, n_tok,
         srv.stop()
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     n_total = sum(len(r) for r in results)
     ttft = sorted((s.t_first - s.t_submit) * 1e3 for s in streams)
     mismatched = []
@@ -2043,7 +2169,7 @@ def _timed_fit(net, X, Y, B, ctx=None):
         t0 = time.perf_counter()
         losses = _fit_steps(net, X[B:], Y[B:], B)
         wall = time.perf_counter() - t0
-        launches = dict(K.LAUNCHES)
+        launches = launch_counts()
         by_dtype = dict(sorted(K.LAUNCHES_BY_DTYPE.items()))
     n = len(losses)
     return dict(steps=n, wall_s=wall, ms_per_step=wall / n * 1e3,
@@ -2167,8 +2293,7 @@ def phase_training(device, report, fails, cfg, B_check, n_check, B, n_steps):
           f"{mixed['loss_last']:.4f} (fp32 {losses[-1]:.4f}, gap "
           f"{gap:.4f}), launches by dtype {mixed['launches_by_dtype']}",
           flush=True)
-    return {k: timed["launches"][k] + mixed["launches"][k]
-            for k in timed["launches"]}
+    return sum_counts(timed["launches"], mixed["launches"])
 
 
 # ----------------------------------------- phase 6: sequence-parallel training
@@ -2249,7 +2374,7 @@ def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
         with sequence_sharding(mesh):
             got = net.output(ids)
         sync()
-        launches = dict(K.LAUNCHES)
+        launches = launch_counts()
         want = net.output(ids)                # no context: the local path
         errs[sp] = (got - want).abs().max().item()
         fails.check(tuple(got.shape) == (B, T, cfg["vocab"])
@@ -2361,9 +2486,8 @@ def phase_sequence_parallel(device, report, fails, cfg, B, n_check, n_steps):
           f"{mx['loss_last']:.4f} (fp32 local {lo['loss_first']:.4f} -> "
           f"{lo['loss_last']:.4f}), launches by dtype "
           f"{mx['launches_by_dtype']}", flush=True)
-    return {k: sum(out[a]["launches"][k] for a in ("ring", "local",
-                                                    "local_mixed"))
-            for k in ring_launches}
+    return sum_counts(*(out[a]["launches"]
+                        for a in ("ring", "local", "local_mixed")))
 
 
 # ---------------------------------------------------------- phase 7: bridge
@@ -2520,7 +2644,7 @@ def check_jax_fixture(device, fails):
             batch_size=len(g["step_x"]), shuffle=False)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     loss_err = abs(net.score_value - float(g["loss"]))
     bk_step = 2 * adam_step_max()          # each side's step at most one
     worst, worst_bk = (0.0, ""), (0.0, "")
@@ -2596,8 +2720,7 @@ def phase_bridge(device, report, fails, small=False):
     launches = {k: 0 for k in KERNEL_META}
 
     def add(counts):
-        for k in launches:
-            launches[k] += counts.get(k, 0)
+        launches.update(sum_counts(launches, counts))
     rows = {}
     os.makedirs(OUT_DIR, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=OUT_DIR) as tmp:
@@ -2622,7 +2745,7 @@ def phase_bridge(device, report, fails, small=False):
                                        X[B * n:], Y[B * n:], B, cfg))
         if device.type == "cuda":
             torch.cuda.synchronize()
-        add(K.LAUNCHES)
+        add(launch_counts())
         rows["fp32"] = row
         del src, dst
         # (c) mixed_bf16
@@ -2637,7 +2760,7 @@ def phase_bridge(device, report, fails, small=False):
         if device.type == "cuda":
             torch.cuda.synchronize()
         by_dtype = dict(sorted(K.LAUNCHES_BY_DTYPE.items()))
-        add(K.LAUNCHES)
+        add(launch_counts())
         fails.check(_master_is_fp32(src) and _master_is_fp32(dst),
                     "bridge mixed: params or Adam state left fp32")
         if device.type == "cuda":
@@ -2719,7 +2842,7 @@ def _serve(net, reqs, n_tok, warm_len, **kw):
         srv.stop()
     if net.device.type == "cuda":
         torch.cuda.synchronize()
-    return (out, wall, dict(K.LAUNCHES),
+    return (out, wall, launch_counts(),
             dict(sorted(K.LAUNCHES_BY_DTYPE.items())), srv.engine)
 
 
@@ -3085,6 +3208,24 @@ def _card_vs_cpu(fails, what, card, cpu, l_card, l_cpu, n_check, mixed):
                 attn_bk_max_abs=worst_bk)
 
 
+def launch_counts():
+    """The launch counters since their last reset, read where a phase
+    reads its main path's launches: each kernel's count (`K.LAUNCHES`)
+    and, under "<kernel>/<dtype>", the same launches by the dtype of the
+    instance (`K.LAUNCHES_BY_DTYPE`, reset with it)."""
+    from deeplearning4j_tpu_torch import kernels as K
+    return {**K.LAUNCHES, **K.LAUNCHES_BY_DTYPE}
+
+
+def sum_counts(*counts):
+    """Launch counts summed key by key (None counts nothing)."""
+    out = {}
+    for c in counts:
+        for k, n in (c or {}).items():
+            out[k] = out.get(k, 0) + n
+    return out
+
+
 def _launched(fails, what, launches, kernels, absent=()):
     """Every kernel of `kernels` launched, none of `absent`."""
     fails.check(all(launches.get(k, 0) > 0 for k in kernels)
@@ -3135,8 +3276,7 @@ def _reg_arm_a(device, fails, cfg, B_check, n_check, B, n_steps, on_card):
         if policy is not None:
             out["mixed_final_loss_gap_vs_fp32"] = _mixed_checks(
                 fails, "regularized LM", t, out["fp32_timed"], net, on_card)
-        launches = {k: launches.get(k, 0) + n
-                    for k, n in t["launches"].items()}
+        launches = sum_counts(launches, t["launches"])
         del net
     return out, launches
 
@@ -3156,7 +3296,7 @@ def _reg_arm_b(device, fails, cfg, B_check, n_check, on_card):
     t0 = time.perf_counter()
     l_card = _fit_steps(card, X, Y, B_check)
     card_ms = (time.perf_counter() - t0) / n_check * 1e3
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     l_cpu = _fit_steps(cpu, X, Y, B_check)
     out = _card_vs_cpu(fails, "per-leaf arm", card, cpu, l_card, l_cpu,
                        n_check, False)
@@ -3198,8 +3338,7 @@ def _reg_arm_c(device, fails, cfg, B, n_check, n_steps, on_card):
                         and not any(k.endswith("/float32") for k in got),
                         f"long-context mixed dropout launches {got}: want "
                         f"{want} and no fp32 instance")
-        launches = {k: launches.get(k, 0) + n
-                    for k, n in t["launches"].items()}
+        launches = sum_counts(launches, t["launches"])
         del net
     mesh = make_mesh(MeshSpec.of(seq=SEQ_P), devices=[device] * SEQ_P)
     X, Y = lm_corpus(cfg, B * n_check, seed=15, T=T)
@@ -3216,7 +3355,7 @@ def _reg_arm_c(device, fails, cfg, B, n_check, n_steps, on_card):
         with sequence_sharding(mesh):
             got_out = net.output(ids)
             l_sp = _fit_steps(net, X, Y, B)
-        sp_launches = dict(K.LAUNCHES)
+        sp_launches = launch_counts()
         by_dtype = dict(sorted(K.LAUNCHES_BY_DTYPE.items()))
         err = (got_out - want_out).abs().max().item()
         step0 = abs(l_sp[0] - l_local[0]) / l_local[0]
@@ -3239,8 +3378,7 @@ def _reg_arm_c(device, fails, cfg, B, n_check, n_steps, on_card):
         out[sp] = dict(output_max_abs_err_vs_local=err, losses=l_sp,
                        step0_rel_err=step0, largest_loss_gap=gap,
                        launches_by_dtype=by_dtype)
-        launches = {k: launches.get(k, 0) + n
-                    for k, n in sp_launches.items()}
+        launches = sum_counts(launches, sp_launches)
         del net
     return out, launches
 
@@ -3323,7 +3461,7 @@ def _reg_arm_d(device, fails, cfg, B_check, n_check, B, n_steps, n_eval,
     t0 = time.perf_counter()
     losses = _ds_steps(net, Xt[B:], Mt[B:], Yt[B:], B)
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     _falls(fails, "classifier", losses, min(CLS_LOSS_WINDOW,
                                             len(losses) // 2 or 1))
     if on_card:
@@ -3615,7 +3753,7 @@ def _resnet_timed(device, size, classes, B, steps, warmup, policy=None):
                  torch.from_numpy(y).to(device))
     K.reset_launches()
     out = _timed_steps(device, net, [ds] * (warmup + steps), B, warmup)
-    out.update(size=size, launches=dict(K.LAUNCHES))
+    out.update(size=size, launches=launch_counts())
     out["output_ms"] = timer(device, lambda: net.output(ds.features),
                              iters=5, warmup=2)
     out["output_images_per_s"] = B / out["output_ms"] * 1e3
@@ -3793,7 +3931,7 @@ def _graph_lm_arm(device, fails, cfg, B, n, policy):
             torch.cuda.synchronize()
         return losses
     l_graph = steps(net)
-    launches, by_dtype = dict(K.LAUNCHES), dict(K.LAUNCHES_BY_DTYPE)
+    launches, by_dtype = launch_counts(), dict(K.LAUNCHES_BY_DTYPE)
     l_mln = steps(mln)
     tol = MIXED_STEP0_RTOL if policy else TRAIN_LOSS_RTOL
     loss_err = max(abs(a - b) / abs(b)
@@ -3840,8 +3978,7 @@ def phase_resnet(device, report, fails, small=False):
     total = {k: 0 for k in KERNEL_META}
 
     def add(counts):
-        for k in total:
-            total[k] += counts.get(k, 0)
+        total.update(sum_counts(total, counts))
     out = {}
     t0 = time.perf_counter()
     out["check"] = _resnet_card_vs_cpu(device, fails, size, classes,
@@ -3880,7 +4017,7 @@ def phase_resnet(device, report, fails, small=False):
         out["graph_bridge"] = _graph_fixture(device, fails, tmp)
         if device.type == "cuda":
             torch.cuda.synchronize()
-        add(K.LAUNCHES)
+        add(launch_counts())
     for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
         out[f"graph_lm_{tag}"] = r = _graph_lm_arm(
             device, fails, lm_cfg, 2 if small else 8, 3, policy)
@@ -4086,7 +4223,7 @@ def _char_timed(device, fails, c, policy, small):
     if on_card:
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = launch_counts()
     prof = (_profiled(lambda: net.fit(ds, batch_size=c["B"]))
             if on_card else None)
     _falls(fails, f"recurrent {policy or 'float32'} timed", losses)
@@ -4237,16 +4374,14 @@ def phase_recurrent(device, report, fails, small=False):
     for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
         K.reset_launches()
         out[tag] = _char_timed(device, fails, c, policy, small)
-        for k in total:
-            total[k] += K.LAUNCHES.get(k, 0)
+        total = sum_counts(total, launch_counts())
     f, m = out["float32"], out["mixed_bf16"]
     K.reset_launches()
     out["char_lm"] = _char_lm(device, fails, small)
     out["small_nets"] = _small_recurrent_card_vs_cpu(device, fails)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    for k in total:
-        total[k] += K.LAUNCHES.get(k, 0)
+    total = sum_counts(total, launch_counts())
     out["launches"] = total
     out["seconds"] = time.perf_counter() - t0
     report["recurrent"] = out
@@ -4763,7 +4898,7 @@ def phase_cnn_zoo(device, report, fails, small=False):
     out["bounds"] = _zoo_bounds(device, fails)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    total = launch_counts()
     out["launches"] = total
     out["seconds"] = time.perf_counter() - t0
     report["cnn_zoo"] = out
@@ -5266,14 +5401,14 @@ def _moe_timed(device, fails, cfg, c, small):
                  torch.from_numpy(Y).to(device))
     out = {}
     for tag, policy in (("float32", None), ("mixed_bf16", MIXED)):
-        before = dict(K.LAUNCHES)
+        before = launch_counts()
         net = MultiLayerNetwork(moe_lm_conf(cfg), device=device,
                                 dtype_policy=policy).init()
         r = _timed_steps(device, net, [ds] * (c["warmup"] + c["steps"]),
                          c["B"], c["warmup"])
         r["tokens_per_s"] = r["images_per_s"] * X.shape[1]
-        r["launches"] = {k: K.LAUNCHES[k] - before.get(k, 0)
-                         for k in K.LAUNCHES}
+        r["launches"] = {k: n - before.get(k, 0)
+                         for k, n in launch_counts().items()}
         out[tag] = r
         del net
         if device.type == "cuda":
@@ -5303,7 +5438,7 @@ def _mha_wide(device, fails, small):
         (c["B"], c["T"], c["n_in"]), dtype=np.float32))
     r = torch.from_numpy(np.random.default_rng(73).standard_normal(
         (c["B"], c["T"], c["n_out"]), dtype=np.float32))
-    res, before = [], dict(K.LAUNCHES)
+    res, before = [], launch_counts()
     for dev in (device, torch.device("cpu")):
         lay = layer.clone().to(dev)
         lay.load_state_dict(layer.state_dict())
@@ -5326,7 +5461,8 @@ def _mha_wide(device, fails, small):
         e <= GRAD_RTOL for k, e in errs.items() if k != "y"),
         f"MultiHeadAttention n_out != n_in card vs CPU {errs} (tol "
         f"{OUTPUT_ATOL}, {GRAD_RTOL}; bk: its largest |gradient| over Wk's)")
-    launches = {k: K.LAUNCHES[k] - before.get(k, 0) for k in K.LAUNCHES}
+    launches = {k: n - before.get(k, 0)
+                for k, n in launch_counts().items()}
     if device.type == "cuda":
         _launched(fails, "MultiHeadAttention n_out != n_in", launches,
                   ("flash_attention_fwd", "flash_attention_bwd_dq",
@@ -5738,7 +5874,7 @@ def phase_layers_rest(device, report, fails, small=False):
     out["frozen"] = _frozen_in_training(device, fails)
     if device.type == "cuda":
         torch.cuda.synchronize()
-    total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    total = launch_counts()
     out["launches"] = total
     out["seconds"] = time.perf_counter() - t0
     report["layers_rest"] = out
@@ -5993,7 +6129,7 @@ def _lm_runtime_arm(device, fails, cfg, c, policy, params, small):
     del ref
     # remat: 3 steps under each policy from the same params (the launches
     # here count the recompute and are reported apart)
-    before = dict(K.LAUNCHES)
+    before = launch_counts()
     nets, out["remat"] = {}, {}
     Xr, Yr = X[:B * c["remat_steps"]], Y[:B * c["remat_steps"]]
     for rp in ("none", "full", "dots_saveable"):
@@ -6018,10 +6154,10 @@ def _lm_runtime_arm(device, fails, cfg, c, policy, params, small):
             fails.check(not bad, f"runtime {tag}: remat {rp} is not "
                         f"bit-equal to no remat ({bad[:4]})")
             del nets[rp]
-    remat_launches = {k: K.LAUNCHES[k] - before.get(k, 0)
-                      for k in K.LAUNCHES}
+    remat_launches = {k: n - before.get(k, 0)
+                      for k, n in launch_counts().items()}
     for k, n in remat_launches.items():
-        K.LAUNCHES[k] -= n
+        (K.LAUNCHES_BY_DTYPE if "/" in k else K.LAUNCHES)[k] -= n
     return out, remat_launches
 
 
@@ -6379,7 +6515,7 @@ def phase_runtime(device, report, fails, small=False):
                                              params, small)
         remat[tag] = {k: v for k, v in rl.items() if v}
     out["remat_launches"] = remat
-    lm_launches = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    lm_launches = launch_counts()
     if device.type == "cuda":
         for k in RUNTIME_KERNELS:
             fails.check(lm_launches[k] > 0, f"runtime: kernel {k} did not "
@@ -6392,7 +6528,7 @@ def phase_runtime(device, report, fails, small=False):
                                     ES_SMALL if small else ES, small)
     out["formats"] = _format_arm(device, fails, small)
     _sync(device)
-    total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    total = launch_counts()
     out["launches"], out["lm_launches"] = total, lm_launches
     out["seconds"] = time.perf_counter() - t0
     report["runtime"] = out
@@ -6999,7 +7135,7 @@ def phase_telemetry(device, report, fails, small=False):
             monitor.disable()
         r["times"] = _tele_times(device, fails, build, X, Y, c, tag)
         r["seconds"] = time.perf_counter() - t1
-    lm_launches = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    lm_launches = launch_counts()
     if device.type == "cuda":
         for k in TELEMETRY_KERNELS:
             fails.check(lm_launches[k] > 0, f"telemetry: kernel {k} did not "
@@ -7007,7 +7143,7 @@ def phase_telemetry(device, report, fails, small=False):
     out["data"] = _tele_data(device, fails, c)
     out["gradcheck"] = _tele_gradcheck(device, fails)
     _sync(device)
-    total = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    total = launch_counts()
     out["launches"], out["lm_launches"] = total, lm_launches
     out["seconds"] = time.perf_counter() - t0
     report["telemetry"] = out
@@ -8132,7 +8268,7 @@ def phase_serving_plane(device, report, fails, small=False):
     out["cost"] = _plane_cost(fails, net, c, V)
     out["rate"] = _plane_rate(fails, net, c, V)
     _sync(device)
-    launches = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    launches = launch_counts()
     if device.type == "cuda":
         # the serving path's kernels: LayerNorm in every layer, the
         # per-row-key words for the sampled requests (prefill attends
@@ -8769,7 +8905,7 @@ def phase_parallel(device, report, fails, small=False):
     times["averaging"] = _par_timed(device, atr, timed, prof)
     del anet, atr
     _sync(device)
-    launches = {key: K.LAUNCHES.get(key, 0) for key in KERNEL_META}
+    launches = launch_counts()
     if device.type == "cuda":
         for key in PARALLEL_KERNELS:
             fails.check(launches[key] > 0,
@@ -8921,7 +9057,7 @@ class _PartLaunches:
 
     def stop(self):
         from deeplearning4j_tpu_torch import kernels as K
-        self.add(self._part, K.LAUNCHES)
+        self.add(self._part, launch_counts())
         self._part = None
 
     def add(self, part, counts):
@@ -9463,8 +9599,8 @@ def phase_multiprocess(device, report, fails, small=False):
     t0 = time.perf_counter()
     _mp_graph_and_diag(device, fails, cfg, params, batches, c, out, rec)
     parts["e"] = time.perf_counter() - t0
-    launches = {k: sum(p.get(k, 0) for p in rec.by_part.values())
-                for k in KERNEL_META}
+    launches = sum_counts({k: 0 for k in KERNEL_META},
+                          *rec.by_part.values())
     if device.type == "cuda":
         for part, kernels in MP_KERNELS.items():
             _launched(fails, f"multiprocess part {part}",
@@ -9767,8 +9903,8 @@ def phase_elastic(device, report, fails, small=False):
         parts["b"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(d, ignore_errors=True)
-    launches = {k: sum(p.get(k, 0) for p in rec.by_part.values())
-                for k in KERNEL_META}
+    launches = sum_counts({k: 0 for k in KERNEL_META},
+                          *rec.by_part.values())
     if device.type == "cuda":
         for part, kernels in ELASTIC_KERNELS.items():
             _launched(fails, f"elastic part {part}", rec.by_part.get(part, {}),
@@ -10317,8 +10453,8 @@ def phase_fleet(device, report, fails, small=False):
         if fleet is not None:
             fleet.stop()
         shutil.rmtree(root, ignore_errors=True)
-    launches = {k: sum(p.get(k, 0) for p in rec.by_part.values())
-                for k in KERNEL_META}
+    launches = sum_counts({k: 0 for k in KERNEL_META},
+                          *rec.by_part.values())
     if device.type == "cuda":
         for part, kernels in FLEET_KERNELS.items():
             _launched(fails, f"fleet part {part}", rec.by_part.get(part, {}),
@@ -10878,8 +11014,8 @@ def phase_tenancy(device, report, fails, small=False):
         parts["d"] = time.perf_counter() - t0
     finally:
         shutil.rmtree(root, ignore_errors=True)
-    launches = {k: sum(p.get(k, 0) for p in rec.by_part.values())
-                for k in KERNEL_META}
+    launches = sum_counts({k: 0 for k in KERNEL_META},
+                          *rec.by_part.values())
     if device.type == "cuda":
         for part, kernels in TENANCY_KERNELS.items():
             _launched(fails, f"tenancy part {part}",
@@ -12914,7 +13050,7 @@ def _ui_costs(device, fails, net, X, Y, c, db):
         net.set_listeners(*listeners(mode))
         net.fit(X[:B], Y[:B], epochs=1, batch_size=B, shuffle=False)
         _sync(device)
-        before = dict(K.LAUNCHES)
+        before = launch_counts()
         t0 = time.perf_counter()
         net.fit(X[B:(1 + k) * B], Y[B:(1 + k) * B], epochs=1,
                 batch_size=B, shuffle=False)
@@ -13187,7 +13323,7 @@ def phase_ui(device, report, fails, small=False, tsne=None):
         if server is not None:
             server.stop()
         shutil.rmtree(tmp, ignore_errors=True)
-    launches = {k: K.LAUNCHES.get(k, 0) for k in KERNEL_META}
+    launches = launch_counts()
     if device.type == "cuda":
         _launched(fails, "ui", launches, UI_KERNELS)
     out["launches"] = {k: v for k, v in launches.items() if v}
@@ -13325,9 +13461,9 @@ def phase_drivers(device, report, fails, small=False):
             return fn()
         finally:
             parts[name] = time.perf_counter() - t0
-            by_part[name] = {k: v for k, v in K.LAUNCHES.items() if v}
-            for k in total:
-                total[k] += K.LAUNCHES.get(k, 0)
+            counts = launch_counts()
+            by_part[name] = {k: v for k, v in counts.items() if v}
+            total.update(sum_counts(total, counts))
             monitor.disable()
 
     try:
@@ -13537,6 +13673,17 @@ KERNEL_META = {
 }
 
 
+# the counters whose bf16 instances are the Hopper kernels (wgmma, TMA,
+# warp-specialised), and their sources
+SM90_KERNELS = {
+    "flash_attention_fwd":
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
+    "flash_attention_carry":
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
+    "flash_attention_bwd_dkv":
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd_sm90.cu"}
+
+
 def run(device, *, small=False, kernels_only=False):
     """All phases on `device`; returns (report, failures)."""
     import torch
@@ -13566,76 +13713,57 @@ def run(device, *, small=False, kernels_only=False):
         res = phase("scoring", phase_scoring, device, report, fails, cfg, B, T)
         if res is not None:
             net, l3 = res
-            for k in launches:
-                launches[k] += l3.get(k, 0)
+            launches = sum_counts(launches, l3)
             l4 = phase("serving", phase_serving, device, report, fails, net,
                        6 if small else 24, 2 if small else 4,
                        8 if small else 64, (3, 60) if small else (16, 300))
-            for k in launches:
-                launches[k] += (l4 or {}).get(k, 0)
+            launches = sum_counts(launches, l4)
         l5 = phase("training", phase_training, device, report, fails, cfg,
                    *((2, 2, 2, 4) if small else (8, 3, 16, 20)))
-        for k in launches:
-            launches[k] += (l5 or {}).get(k, 0)
+        launches = sum_counts(launches, l5)
         long_cfg = (dict(LM_LONG, vocab=64, d_model=64, n_layers=2,
                          max_len=64) if small else LM_LONG)
         l6 = phase("sequence_parallel", phase_sequence_parallel, device,
                    report, fails, long_cfg,
                    *((2, 2, 3) if small else (8, 3, 10)))
-        for k in launches:
-            launches[k] += (l6 or {}).get(k, 0)
+        launches = sum_counts(launches, l6)
         l7 = phase("bridge", phase_bridge, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l7 or {}).get(k, 0)
+        launches = sum_counts(launches, l7)
         l8 = phase("serving_features", phase_serving_features, device,
                    report, fails, cfg if small else LM_CUT, small)
-        for k in launches:
-            launches[k] += (l8 or {}).get(k, 0)
+        launches = sum_counts(launches, l8)
         l9 = phase("regularized", phase_regularized, device, report, fails,
                    small)
-        for k in launches:
-            launches[k] += (l9 or {}).get(k, 0)
+        launches = sum_counts(launches, l9)
         l10 = phase("resnet", phase_resnet, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l10 or {}).get(k, 0)
+        launches = sum_counts(launches, l10)
         l11 = phase("recurrent", phase_recurrent, device, report, fails,
                     small)
-        for k in launches:
-            launches[k] += (l11 or {}).get(k, 0)
+        launches = sum_counts(launches, l11)
         l12 = phase("cnn_zoo", phase_cnn_zoo, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l12 or {}).get(k, 0)
+        launches = sum_counts(launches, l12)
         l13 = phase("layers_rest", phase_layers_rest, device, report, fails,
                     small)
-        for k in launches:
-            launches[k] += (l13 or {}).get(k, 0)
+        launches = sum_counts(launches, l13)
         l14 = phase("runtime", phase_runtime, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l14 or {}).get(k, 0)
+        launches = sum_counts(launches, l14)
         l15 = phase("telemetry", phase_telemetry, device, report, fails,
                     small)
-        for k in launches:
-            launches[k] += (l15 or {}).get(k, 0)
+        launches = sum_counts(launches, l15)
         l16 = phase("serving_plane", phase_serving_plane, device, report,
                     fails, small)
-        for k in launches:
-            launches[k] += (l16 or {}).get(k, 0)
+        launches = sum_counts(launches, l16)
         l17 = phase("parallel", phase_parallel, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l17 or {}).get(k, 0)
+        launches = sum_counts(launches, l17)
         l18 = phase("multiprocess", phase_multiprocess, device, report,
                     fails, small)
-        for k in launches:
-            launches[k] += (l18 or {}).get(k, 0)
+        launches = sum_counts(launches, l18)
         l19 = phase("elastic", phase_elastic, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l19 or {}).get(k, 0)
+        launches = sum_counts(launches, l19)
         l20 = phase("fleet", phase_fleet, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l20 or {}).get(k, 0)
+        launches = sum_counts(launches, l20)
         l21 = phase("tenancy", phase_tenancy, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l21 or {}).get(k, 0)
+        launches = sum_counts(launches, l21)
         # phase 22 launches no hand-written kernel (its steps are torch
         # ops, as JAX's are XLA's)
         kept = {}
@@ -13643,19 +13771,30 @@ def run(device, *, small=False, kernels_only=False):
               kept)
         l23 = phase("clustering", phase_clustering, device, report, fails,
                     small, kept.get("vectors"), kept)
-        for k in launches:
-            launches[k] += (l23 or {}).get(k, 0)
+        launches = sum_counts(launches, l23)
         l24 = phase("import_io", phase_import_io, device, report, fails,
                     small)
-        for k in launches:
-            launches[k] += (l24 or {}).get(k, 0)
+        launches = sum_counts(launches, l24)
         l25 = phase("ui", phase_ui, device, report, fails, small,
                     kept.get("tsne"))
-        for k in launches:
-            launches[k] += (l25 or {}).get(k, 0)
+        launches = sum_counts(launches, l25)
         l26 = phase("drivers", phase_drivers, device, report, fails, small)
-        for k in launches:
-            launches[k] += (l26 or {}).get(k, 0)
+        launches = sum_counts(launches, l26)
+        # the phases' main-path launches by dtype, each read where the
+        # phase read its launches; they must add up to the launches
+        report["launches_by_dtype"] = {
+            k: n for k, n in sorted(launches.items()) if "/" in k}
+        print(f"[launches] phases 3-26 by dtype: "
+              f"{report['launches_by_dtype']}", flush=True)
+        for name in SM90_KERNELS:
+            split = {k: n for k, n in launches.items()
+                     if k.startswith(f"{name}/")}
+            fails.check(sum(split.values()) == launches[name],
+                        f"{name}: launches by dtype {split} do not add up "
+                        f"to its {launches[name]} launches")
+            fails.check(split.get(f"{name}/bfloat16", 0) > 0,
+                        f"the Hopper kernel of {name} (bf16) never launched "
+                        f"on the main path")
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
@@ -13683,18 +13822,32 @@ def run(device, *, small=False, kernels_only=False):
                 report["launches_by_phase"][f"26 ({part})"] = counts
         print(f"[launches] by phase: {report['launches_by_phase']}",
               flush=True)
-        for k, n in launches.items():
-            fails.check(n > 0, f"kernel {k} never launched on the main path")
+        for k in KERNEL_META:
+            fails.check(launches[k] > 0,
+                        f"kernel {k} never launched on the main path")
     kernels = []
-    for name, (src, replaces) in KERNEL_META.items():
-        t = timings.get((name, "float32"), {})
+    by_dtype = report.get("launches_by_dtype", {})
+
+    def row(name, src, replaces, n, dt):
+        t = timings.get((name, dt), {})
         b = t.get("bound", (None, None))
-        kernels.append(dict(name=name, route="cuda", source=src,
-                            replaces=replaces, launches=launches[name],
-                            max_abs_err=t.get("max_abs_err"),
-                            ms=t.get("ms"), plain_ms=t.get("plain_ms"),
-                            bound_ms=b[0], bound_by=b[1],
-                            library_ms=t.get("library_ms")))
+        return dict(name=name, route="cuda", source=src, replaces=replaces,
+                    launches=n, max_abs_err=t.get("max_abs_err"),
+                    ms=t.get("ms"), plain_ms=t.get("plain_ms"),
+                    bound_ms=b[0], bound_by=b[1],
+                    library_ms=t.get("library_ms"))
+    for name, (src, replaces) in KERNEL_META.items():
+        if name not in SM90_KERNELS:
+            kernels.append(row(name, src, replaces, launches[name],
+                               "float32"))
+            continue
+        # two kernels under one counter: the fp32 mma.sync instances and
+        # the bf16 Hopper kernel, each with its own launches and times
+        kernels.append(row(name, src, replaces,
+                           by_dtype.get(f"{name}/float32", 0), "float32"))
+        r = row(name, SM90_KERNELS[name], replaces + " (bf16)",
+                by_dtype.get(f"{name}/bfloat16", 0), "bfloat16")
+        kernels.append(dict(r, name=f"{name}_sm90"))
     report["kernels"] = kernels
     report["failures"] = list(fails)
     return report, fails

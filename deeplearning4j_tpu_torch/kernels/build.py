@@ -14,6 +14,9 @@ launched on a CUDA tensor: a CPU-only machine never calls `nvcc`.
 
 `BUILDS` and `BUILD_SECONDS` count the finished builds and their
 seconds since import; `monitor.KernelBuildCollector` reads them.
+`SECONDS` holds each library's last build time, by source name, and
+`LOGS` its nvcc output (ptxas's report of each kernel's registers and
+its performance warnings, `-Xptxas -v`).
 """
 
 from __future__ import annotations
@@ -31,12 +34,15 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 BUILDS = 0
 BUILD_SECONDS = 0.0
+SECONDS: Dict[str, float] = {}
+LOGS: Dict[str, str] = {}
 
 
 def nvcc_path() -> str:
@@ -72,18 +78,26 @@ def _start(name: str, out: Path) -> subprocess.Popen:
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp, proc.out, proc.cmd, proc.t0 = tmp, out, cmd, t0
+    proc.name = name
     return proc
 
 
+def _collect(proc: subprocess.Popen):
+    proc.log, _ = proc.communicate()
+    proc.seconds = time.perf_counter() - proc.t0
+
+
 def _finish(proc: subprocess.Popen):
-    log, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}): "
-                           f"{' '.join(proc.cmd)}\n{log}")
+                           f"{' '.join(proc.cmd)}\n{proc.log}")
     os.replace(proc.tmp, proc.out)      # atomic: readers never see a partial .so
     global BUILDS, BUILD_SECONDS
+    seconds = proc.seconds
     BUILDS += 1
-    BUILD_SECONDS += time.perf_counter() - proc.t0
+    BUILD_SECONDS += seconds
+    SECONDS[proc.name] = seconds
+    LOGS[proc.name] = proc.log
 
 
 def build_all(names=None) -> Dict[str, Path]:
@@ -93,6 +107,13 @@ def build_all(names=None) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {n: _lib_path(n) for n in names}
     procs = [_start(n, p) for n, p in paths.items() if not p.exists()]
+    # a reader thread a process, so each one's seconds end when it does
+    readers = [threading.Thread(target=_collect, args=(proc,))
+               for proc in procs]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
     errors = []
     for proc in procs:
         try:

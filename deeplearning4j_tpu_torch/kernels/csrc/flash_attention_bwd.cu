@@ -1,10 +1,13 @@
-// Flash-attention backward for Hopper (sm_90a) on the tensor cores: the
-// dQ kernel and the dK/dV kernel.
+// Flash-attention backward on the tensor cores with mma.sync: the dQ
+// kernel (fp32 and bf16) and the fp32 dK/dV kernel. The bf16 dK/dV is
+// the Hopper kernel of csrc/flash_attention_bwd_sm90.cu (wgmma, TMA,
+// warp-specialised).
 //
 // Replaces the Pallas TPU kernels `_flash_bwd_dq_kernel`
 // (deeplearning4j_tpu/kernels/flash_attention.py:265, driven by
-// `_bwd_dq_chunk` -> pallas_call :396) and `_flash_bwd_dkv_kernel`
-// (:307, driven by `_bwd_dkv_chunk` -> pallas_call :434).
+// `_bwd_dq_chunk` -> pallas_call :396) and, for fp32 inputs,
+// `_flash_bwd_dkv_kernel` (:307, driven by `_bwd_dkv_chunk` ->
+// pallas_call :434).
 //
 // Both recompute the probabilities from the forward's lse instead of
 // storing the [T, T] matrix:
@@ -28,8 +31,9 @@
 // another writes: no atomics, and results do not depend on scheduling.
 //   dQ: one block per (batch, head, 64-row q tile). Q and dO stay in
 //       shared memory; the block streams K/V tiles of BN rows.
-//   dK/dV: one block per (batch, head, 64-row k tile). K and V stay in
-//       shared memory; the block streams Q/dO/lse/delta tiles of BN rows.
+//   dK/dV (fp32): one block per (batch, head, 64-row k tile). K and V
+//       stay in shared memory; the block streams Q/dO/lse/delta tiles of
+//       BN rows.
 // BN is 64, or 32 at D = 128 so the accumulators fit in registers. 4
 // warps a block; each owns 16 rows of the block's tile and computes, for
 // each streamed tile, its 16 x BN strip of S and dP (first products,
@@ -38,11 +42,12 @@
 // accumulators (dQ; or dK and dV), A = dS or P, B = the streamed tile
 // again. Every product stays inside one warp, and P and dS never touch
 // shared memory:
-//   bf16: mma.sync m16n8k16 (fp32 accumulators). The accumulator layout
-//     of two neighbouring 8-column tiles of S/dP is the A layout of one
-//     16-deep step of the second product, so P and dS are rounded to bf16
-//     and packed in registers. Fragments come through ldmatrix (.trans
-//     for the second products' B, which is [k][n] in shared memory).
+//   bf16 (dQ): mma.sync m16n8k16 (fp32 accumulators). The accumulator
+//     layout of two neighbouring 8-column tiles of S/dP is the A layout
+//     of one 16-deep step of the second product, so dS is rounded to
+//     bf16 and packed in registers. Fragments come through ldmatrix
+//     (.trans for the second product's B, which is [k][n] in shared
+//     memory).
 //   fp32: 3xTF32 on mma.sync m16n8k8: each operand x = hi + lo, both
 //     cvt.rna TF32, and a . b = lo.hi + hi.lo + hi.hi in fp32. A thread
 //     holds accumulator columns 2t, 2t+1 of an 8-column tile but the A
@@ -51,7 +56,7 @@
 //     2t+1 as k = t+4) and read B's rows 2t, 2t+1 to match, so no shuffle
 //     and no shared memory is needed.
 //   The staging and these warp products (`WarpMma`) live in
-//   csrc/flash_tiles.cuh, shared with the forward.
+//   csrc/flash_tiles.cuh, shared with the fp32 forward.
 // Staging: every tile lands through cp.async (16 bytes a thread, zero
 // fill past the ragged edge) in dynamic shared memory in the input dtype;
 // the streamed tiles sit in a two-stage ring, the next one loading while
@@ -67,11 +72,10 @@
 // of their time to that tail (PERF.md).
 // Registers a thread (sm_90a, `cuobjdump -res-usage` of the built
 // library, as chip_smoke.py phase 1 prints them): fp32 dK/dV 166-168
-// (D 32) and 244-255 (D 64, 128),
-// fp32 dQ 154-223, bf16 dK/dV 136-241, bf16 dQ 107-166; no instance has
-// a stack frame or local memory, so nothing spills. Shared memory a block:
-// (2 * 64 + 4 * BN) * pitch * sizeof(T), 104 KB for fp32 at D = 64, so
-// two blocks (8 warps) an SM in fp32 at D = 64.
+// (D 32) and 244-255 (D 64, 128), fp32 dQ 154-223, bf16 dQ 107-166; no
+// instance has a stack frame or local memory, so nothing spills. Shared
+// memory a block: (2 * 64 + 4 * BN) * pitch * sizeof(T), 104 KB for fp32
+// at D = 64, so two blocks (8 warps) an SM in fp32 at D = 64.
 //
 // Rounding against the plain version (fp32 einsums of the same inputs):
 // fp32 products are 3xTF32, within about 1e-6 of fp32 each, not bit-equal
@@ -79,11 +83,11 @@
 // accumulation toward zero, so the long sums of the second products go
 // through fresh per-tile partials added in fp32 (`WarpMma<float>::xb`);
 // the results are within 1.4e-5 of the plain version at T = 512 (values
-// up to 8), under the 1e-4 tolerance. In bf16, S and dP are exact
-// products summed in fp32, but P and dS are rounded to bf16 before the
-// second products, as FlashAttention-2 does: within 1 bf16 ulp of the
-// plain version's result. exp is ex2.approx of a log2e-scaled argument.
-// Sums run in another order than the plain einsums.
+// up to 8), under the 1e-4 tolerance. In bf16 (dQ), S and dP are exact
+// products summed in fp32, but dS is rounded to bf16 before the second
+// product, as FlashAttention-2 does: within 1 bf16 ulp of the plain
+// version's result. exp is ex2.approx of a log2e-scaled argument. Sums
+// run in another order than the plain einsums.
 
 #include "flash_tiles.cuh"
 
@@ -333,10 +337,15 @@ enum Which { kDQ, kDKV };
 
 template <Which W, typename T, int D, bool C>
 int launch(const BwdArgs& a, int B, cudaStream_t stream) {
-  auto kern = W == kDQ ? flash_bwd_dq_kernel<T, D, C>
-                       : flash_bwd_dkv_kernel<T, D, C>;
-  const size_t smem =
-      W == kDQ ? dq_smem_bytes<T, D>() : dkv_smem_bytes<T, D>();
+  void (*kern)(BwdArgs);
+  size_t smem;
+  if constexpr (W == kDQ) {
+    kern = flash_bwd_dq_kernel<T, D, C>;
+    smem = dq_smem_bytes<T, D>();
+  } else {
+    kern = flash_bwd_dkv_kernel<T, D, C>;
+    smem = dkv_smem_bytes<T, D>();
+  }
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -378,7 +387,9 @@ int run(int dtype, int causal, const BwdArgs& a, int B, int D, void* stream) {
   if (!aligned16(a, dtype == kF32 ? 4 : 2))
     return (int)cudaErrorMisalignedAddress;
   if (dtype == kF32) return by_d<W, float>(D, causal, a, B, s);
-  return by_d<W, __nv_bfloat16>(D, causal, a, B, s);
+  // bf16 dK/dV is the Hopper kernel of csrc/flash_attention_bwd_sm90.cu
+  if constexpr (W == kDQ) return by_d<W, __nv_bfloat16>(D, causal, a, B, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 BwdArgs make_args(const void* q, const void* k, const void* v,
@@ -397,7 +408,9 @@ BwdArgs make_args(const void* q, const void* k, const void* v,
 }  // namespace
 }  // namespace dl4j
 
-// q/dout [B, Tq, H, D] and k/v [B, Tk, H, D] in `dtype`, addressed
+// q/dout [B, Tq, H, D] and k/v [B, Tk, H, D] in `dtype` (dK/dV: fp32
+// only; bf16 is refused, its kernel is dl4j_flash_attention_bwd_dkv_sm90),
+// addressed
 // through their batch/time/head strides (in elements, D contiguous, every
 // row 16-byte aligned): strides = {q: b, t, h, k: b, t, h, v: b, t, h,
 // dout: b, t, h}. lse and delta are contiguous [B, H, Tq] fp32. dq is a

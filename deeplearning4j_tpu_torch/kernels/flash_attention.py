@@ -4,32 +4,38 @@ around them.
 
 Counterpart of `deeplearning4j_tpu/kernels/flash_attention.py`
 `flash_attention` (a `jax.custom_vjp`): the forward `_flash_fwd_kernel`
-:87 in finalize mode (`csrc/flash_attention.cu`), and the backward
-`_flash_bwd_dq_kernel` :265 and `_flash_bwd_dkv_kernel` :307
-(`csrc/flash_attention_bwd.cu`). All three run on the tensor cores
-(`mma.sync`: bf16, and 3xTF32 for fp32) on the tiles of
-`csrc/flash_tiles.cuh`; each source's note gives its bound and its
-design. `_FlashAttentionFn` is the custom_vjp: the forward kernel saves
-(q, k, v, o, lse), the backward launches the dQ and the dK/dV kernels.
-Unlike the JAX package, the backward takes the kernels at every
-sequence length (its `_PALLAS_BWD_MIN_T` crossover to XLA was measured
-on a TPU). `flash_attention_carry` runs the forward kernel in carry mode
-(the JAX `flash_attention_carry` :245): it folds one K/V chunk into a
-running (m, l, acc) state, the step of the ring attention in
-`parallel/ring.py`; in bf16 it carries P as a bf16 hi + lo pair, so the
-fp32 state keeps fp32's accuracy.
+:87 in finalize mode, and the backward `_flash_bwd_dq_kernel` :265 and
+`_flash_bwd_dkv_kernel` :307. Two designs share the work by dtype:
+- bf16: the forward (both modes) and dK/dV are Hopper kernels —
+  warp-specialised, TMA-fed, on `wgmma` (`csrc/flash_attention_sm90.cu`,
+  `csrc/flash_attention_bwd_sm90.cu`, building blocks in
+  `csrc/hopper.cuh`);
+- fp32 (3xTF32), and dQ in both dtypes: `mma.sync` on the tiles of
+  `csrc/flash_tiles.cuh` (`csrc/flash_attention.cu`,
+  `csrc/flash_attention_bwd.cu`).
+Each source's note gives its bound and its design. `_FlashAttentionFn`
+is the custom_vjp: the forward kernel saves (q, k, v, o, lse), the
+backward launches the dQ and the dK/dV kernels. Unlike the JAX package,
+the backward takes the kernels at every sequence length (its
+`_PALLAS_BWD_MIN_T` crossover to XLA was measured on a TPU).
+`flash_attention_carry` runs the forward kernel in carry mode (the JAX
+`flash_attention_carry` :245): it folds one K/V chunk into a running
+(m, l, acc) state, the step of the ring attention in `parallel/ring.py`;
+in bf16 it carries P as a bf16 hi + lo pair, so the fp32 state keeps
+fp32's accuracy.
 
 Layout: every kernel reads q, k, v (and dO) through their [B, T, H, D]
-strides and stages rows with 16-byte copies, so the head dim must be
+strides, the `mma.sync` kernels with 16-byte copies and the Hopper
+kernels through TMA maps (`_tma_layout`), so the head dim must be
 contiguous and every row 16-byte aligned. `_kernel_layout` copies a
 tensor only when it is not (a strided head dim, a view that starts off
-alignment); the projections of the attention layer and the ring's
-sequence shards pass through as they are. The kernels are built for
-head dims 32, 64 and 128; a smaller head dim (the Pallas kernel takes
-any) is zero-padded to the next of them on its way in (`_pad_head`) and
-the outputs cut back, with the scale of the real head dim: a zero
-column adds nothing to q·k, and its columns of o, dq, dk, dv come out
-zero, so the kernel computes the same function.
+alignment, a zero stride); the projections of the attention layer and
+the ring's sequence shards pass through as they are. The kernels are
+built for head dims 32, 64 and 128; a smaller head dim (the Pallas
+kernel takes any) is zero-padded to the next of them on its way in
+(`_pad_head`) and the outputs cut back, with the scale of the real head
+dim: a zero column adds nothing to q·k, and its columns of o, dq, dk, dv
+come out zero, so the kernel computes the same function.
 
 Semantics (the Pallas kernel's): q, k, v [B, T, H, D]; scores
 `(q * 1/sqrt(D)) k^T` in fp32; causal mask `k_pos <= q_pos` and the
@@ -53,6 +59,18 @@ from deeplearning4j_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+# rows of the tiles the bf16 Hopper kernels load by TMA, by head dim:
+# the forward's q tile and streamed K/V tiles (kQRows, kv_rows<D, CARRY>()
+# of csrc/flash_attention_sm90.cu), and the dK/dV kernel's K/V tile and
+# streamed q/dO tiles (kKRows, q_rows<D>() of
+# csrc/flash_attention_bwd_sm90.cu); the streamed tiles are halved at
+# D = 128, and in carry mode (P as hi + lo), where the registers would
+# not hold two in flight
+FWD_Q_ROWS = 128
+FWD_KV_ROWS = {32: 128, 64: 128, 128: 64}
+CARRY_KV_ROWS = 64
+DKV_KV_ROWS = 128
+DKV_Q_ROWS = {32: 64, 64: 64, 128: 32}
 
 
 def _kernel_dim(D: int) -> int:
@@ -118,19 +136,20 @@ def flash_attention_carry_plain(q, k, v, m, l, acc, diag: bool):
 
 
 # --------------------------------------------------------------- the kernel
-def _lib(name: str = "dl4j_flash_attention_fwd"):
-    fn = getattr(build.load("flash_attention"), name)
+def _lib(name: str = "dl4j_flash_attention_fwd",
+         lib: str = "flash_attention"):
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        outs = [P, P] if name.endswith("_fwd") else [P, P, P]
+        outs = [P, P, P] if "_carry" in name else [P, P]
         fn.argtypes = [I, I, P, P, P, *outs, I, I, I, I, I,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P]
         fn.restype = ctypes.c_int
     return fn
 
 
-def _bwd_lib(name: str):
-    fn = getattr(build.load("flash_attention_bwd"), name)
+def _bwd_lib(name: str, lib: str = "flash_attention_bwd"):
+    fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
         outs = [P] if name.endswith("_dq") else [P, P]
@@ -163,14 +182,67 @@ def _check(q, k, v):
 
 def _kernel_layout(t):
     # the kernels read every tensor through its strides but stage
-    # rows with 16-byte copies: D contiguous and every row 16-byte aligned.
-    # Autograd may hand over a gradient whose head dim is strided, and a
-    # view may start off alignment; only then is a copy made
+    # rows with 16-byte copies or TMA boxes: D contiguous and every row
+    # 16-byte aligned, and (for a TMA map) no zero stride. Autograd may
+    # hand over a gradient whose head dim is strided, and a view may
+    # start off alignment or broadcast; only then is a copy made
     es = t.element_size()
     if (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
-            and all(s * es % 16 == 0 for s in t.stride()[:-1])):
+            and all(s * es % 16 == 0 and s != 0 for s in t.stride()[:-1])):
         return t
     return t.clone(memory_format=torch.contiguous_format)
+
+
+def _tma_layout(t, rows: int):
+    """The TMA tensor map of the [B, T, H, D] tensor `t` as the bf16
+    Hopper kernels load it in tiles of `rows` rows: 12 numbers, dims
+    {D, H, T, B}, byte strides {h, t, b}, box {columns, 1, rows, 1} and
+    the swizzle in bytes (`encode_tma` in csrc/hopper.cuh). A box is 32
+    columns at D = 32 (64-byte rows, 64B swizzle) and 64 otherwise
+    (128-byte rows, 128B swizzle; D = 128 loads as two boxes). None where
+    a map cannot describe t as the kernels read it: a head dim that is
+    not 32, 64 or 128 or not contiguous, a base or a stride off 16
+    bytes, a zero stride, a stride of 2^40 bytes or more, more than 256
+    rows a box."""
+    B, T, H, D = t.shape
+    es = t.element_size()
+    strides = [t.stride(2) * es, t.stride(1) * es, t.stride(0) * es]
+    if (D not in HEAD_DIMS or t.stride(3) != 1 or t.data_ptr() % 16
+            or not 0 < rows <= 256
+            or any(s % 16 or not 0 < s < 2 ** 40 for s in strides)):
+        return None
+    cols = 32 if D == 32 else 64
+    return [D, H, T, B, *strides, cols, 1, rows, 1, cols * es]
+
+
+def _tma_maps(*pairs):
+    """The maps of (tensor, rows) pairs, flat, for a `_sm90` entry."""
+    out = []
+    for t, rows in pairs:
+        layout = _tma_layout(t, rows)
+        if layout is None:
+            raise ValueError(f"no TMA map describes a {t.dtype} "
+                             f"{tuple(t.shape)} with strides {t.stride()}")
+        out += layout
+    return (ctypes.c_longlong * len(out))(*out)
+
+
+def _strides(*tensors):
+    return (ctypes.c_longlong * (3 * len(tensors)))(
+        *(t.stride(i) for t in tensors for i in range(3)))
+
+
+def _fwd_entry(q, k, v, mode: str):
+    """The forward's C entry for q's dtype and its layout argument: the
+    Hopper kernel and its TMA maps for bf16, the mma.sync kernel and the
+    {b, t, h} strides for fp32."""
+    if q.dtype == torch.bfloat16:
+        rows = (CARRY_KV_ROWS if mode == "carry"
+                else FWD_KV_ROWS[q.shape[-1]])
+        return (_lib(f"dl4j_flash_attention_{mode}_sm90",
+                     "flash_attention_sm90"),
+                _tma_maps((q, FWD_Q_ROWS), (k, rows), (v, rows)))
+    return _lib(f"dl4j_flash_attention_{mode}"), _strides(q, k, v)
 
 
 def flash_attention_fwd(q, k, v, causal: bool = False):
@@ -186,13 +258,10 @@ def flash_attention_fwd(q, k, v, causal: bool = False):
     Tk = k.shape[1]
     o = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Tq), dtype=torch.float32, device=q.device)
-    strides = (ctypes.c_longlong * 9)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2))
-    status = _lib()(K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k),
-                    K.ptr(v), K.ptr(o), K.ptr(lse), B, Tq, Tk, H, D,
-                    strides, _scale(D0), K.stream_of(q))
+    fn, layout = _fwd_entry(q, k, v, "fwd")
+    status = fn(K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k),
+                K.ptr(v), K.ptr(o), K.ptr(lse), B, Tq, Tk, H, D, layout,
+                _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_fwd", status)
     K.count_launch("flash_attention_fwd", q.dtype)
     return o[..., :D0], lse
@@ -234,13 +303,10 @@ def flash_attention_carry(q, k, v, m, l, acc, *, diag: bool):
             raise ValueError(f"carry state {name} must be contiguous")
     acc_k = _pad_head(acc, Dk).contiguous()
     B, Tq, H, D = q.shape
-    strides = (ctypes.c_longlong * 9)(
-        q.stride(0), q.stride(1), q.stride(2),
-        k.stride(0), k.stride(1), k.stride(2),
-        v.stride(0), v.stride(1), v.stride(2))
-    status = _lib("dl4j_flash_attention_carry")(
+    fn, layout = _fwd_entry(q, k, v, "carry")
+    status = fn(
         K.dtype_code(q), int(bool(diag)), K.ptr(q), K.ptr(k), K.ptr(v),
-        K.ptr(m), K.ptr(l), K.ptr(acc_k), B, Tq, k.shape[1], H, D, strides,
+        K.ptr(m), K.ptr(l), K.ptr(acc_k), B, Tq, k.shape[1], H, D, layout,
         _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_carry", status)
     K.count_launch("flash_attention_carry", q.dtype)
@@ -305,11 +371,6 @@ def _check_bwd(q, k, v, do, lse, delta):
                              f"[{B}, {H}, {Tq}] on q's device")
 
 
-def _bwd_strides(q, k, v, do):
-    return (ctypes.c_longlong * 12)(*(t.stride(i) for t in (q, k, v, do)
-                                      for i in range(3)))
-
-
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     """dQ [B, Tq, H, D]. CUDA tensors launch the kernel; CPU tensors
     take the plain version."""
@@ -324,7 +385,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     status = _bwd_lib("dl4j_flash_attention_bwd_dq")(
         K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k), K.ptr(v),
         K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dq), B, Tq, k.shape[1],
-        H, D, _bwd_strides(q, k, v, do), _scale(D0), K.stream_of(q))
+        H, D, _strides(q, k, v, do), _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_bwd_dq", status)
     K.count_launch("flash_attention_bwd_dq", q.dtype)
     return dq[..., :D0]
@@ -343,10 +404,19 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal: bool = False):
     Tk = k.shape[1]
     dk = torch.empty((B, Tk, H, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, Tk, H, D), dtype=v.dtype, device=v.device)
-    status = _bwd_lib("dl4j_flash_attention_bwd_dkv")(
+    if q.dtype == torch.bfloat16:
+        fn = _bwd_lib("dl4j_flash_attention_bwd_dkv_sm90",
+                      "flash_attention_bwd_sm90")
+        rows = DKV_Q_ROWS[D]
+        layout = _tma_maps((q, rows), (k, DKV_KV_ROWS), (v, DKV_KV_ROWS),
+                           (do, rows))
+    else:
+        fn = _bwd_lib("dl4j_flash_attention_bwd_dkv")
+        layout = _strides(q, k, v, do)
+    status = fn(
         K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k), K.ptr(v),
         K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dk), K.ptr(dv), B, Tq,
-        Tk, H, D, _bwd_strides(q, k, v, do), _scale(D0), K.stream_of(q))
+        Tk, H, D, layout, _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_bwd_dkv", status)
     K.count_launch("flash_attention_bwd_dkv", q.dtype)
     return dk[..., :D0], dv[..., :D0]
@@ -375,5 +445,5 @@ class _FlashAttentionFn(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal: bool = False):
     """[B, T, H, D] x3 -> [B, T, H, D] (the JAX `flash_attention`; block
-    sizes are the kernels' own 64x64 tiles), differentiable."""
+    sizes are the kernels' own tiles), differentiable."""
     return _FlashAttentionFn.apply(q, k, v, causal)

@@ -51,7 +51,8 @@ Dense problem of JAX's drill by default), and returns a report with the
 losses, the generations, the recovery timeline of the shrink and the
 regrow, ms/step a generation, the drain check's host ms a step, the
 checkpoint's write and resume seconds, the kernel launches of every
-worker's lives and the federated telemetry the caller's `AlertEngine`
+worker's lives (by kernel and, under "<kernel>/<dtype>", by dtype) and
+the federated telemetry the caller's `AlertEngine`
 saw. On CUDA devices one card runs every worker over gloo (NCCL refuses
 two ranks on one card); with two or more cards each worker takes its
 rank's card over NCCL, and a survivor then waits out `PEER_TIMEOUT_S`
@@ -267,8 +268,9 @@ def _child_main(spec, token, control, ckpt_dir, out, kill_at):
                                   self.generation, float(score)])
             life["device"] = str(model.device)
             life["history"] = list(et.history)
-            life["launches"] = {k: v for k, v in kernels.LAUNCHES.items()
-                                if v}
+            life["launches"] = {
+                k: v for k, v in {**kernels.LAUNCHES,
+                                  **kernels.LAUNCHES_BY_DTYPE}.items() if v}
             for lst in model.listeners:
                 if isinstance(lst, _DrainListener):
                     life["drain"][str(self.generation)] = dict(

@@ -16,6 +16,15 @@ T = 128) at the port's fp32 tolerance, against an fp64 reference for why
 three passes are needed, and against the port's plain versions at the
 2-ulp bf16 bound that `chip_smoke.py` holds the kernels to on the card.
 
+The bf16 dK/dV is the Hopper kernel (`csrc/flash_attention_bwd_sm90.cu`):
+it computes the transposed scores Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ a 64-query
+tile at a time (32 at D = 128), Pᵀ and dSᵀ rounded to bf16, and chains dV += Pᵀ·dO and
+dK += dSᵀ·Q across the tiles in fp32. That walk is emulated at D 32, 64
+and 128 over a ragged 200-row sequence (each tile's product summed
+exactly, added to the running sums in fp32) and held at the 2-ulp bound
+against the JAX package's bf16 flash backward and the port's plain
+version.
+
 What this does not emulate is the tensor cores' own fp32 accumulation,
 which rounds toward zero: it is the larger part of the kernels' fp32
 error on the card (about 1e-6 emulated here against 1.4e-5 measured at
@@ -46,13 +55,17 @@ from deeplearning4j_tpu_torch.kernels.flash_attention import (
 )
 
 FLASH_ATOL = 1e-4     # the port's fp32 flash backward tolerance
+LOG2E = np.float32(np.log2(np.e))
 CASES = [(causal, D) for causal in (True, False) for D in (32, 64)]
+SM90_Q_TILE = {32: 64, 64: 64, 128: 32}   # the Hopper dK/dV's q tile
+SM90_T = 200          # four of its q tiles, the last ragged
+SM90_CASES = [(causal, D) for causal in (True, False) for D in (32, 64, 128)]
 
 
-def _inputs(D, seed=70, dtype=torch.float32):
-    """q, k, v, dO [1, 128, 2, D] from a numpy seed, in `dtype`."""
+def _inputs(D, seed=70, dtype=torch.float32, T=128):
+    """q, k, v, dO [1, T, 2, D] from a numpy seed, in `dtype`."""
     rng = np.random.default_rng(seed + D)
-    return [torch.from_numpy(rng.standard_normal((1, 128, 2, D)).astype(
+    return [torch.from_numpy(rng.standard_normal((1, T, 2, D)).astype(
         np.float32)).to(dtype) for _ in range(4)]
 
 
@@ -100,6 +113,37 @@ def _emulate(q, k, v, do, lse, delta, causal, mode):
     return [t.permute(0, 2, 1, 3) for t in (dq, dk, dv)]
 
 
+def _emulate_sm90_dkv(q, k, v, do, lse, delta, causal):
+    """(dk, dv) [B, Tk, H, D] fp32 as the Hopper kernel rounds them: the
+    transposed scores of each 64-query tile (32 at D = 128; keys as
+    rows), Pᵀ = 2^(Sᵀ·scale·log2e − lse·log2e), Pᵀ and dSᵀ
+    rounded to bf16, each tile's second products summed exactly and
+    added to the running dK, dV in fp32; dK scaled at the end."""
+    Q, K, V, dO = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))
+    Tq, Tk, D = Q.shape[2], K.shape[2], Q.shape[3]
+    kpos = torch.arange(Tk)[:, None]
+    dk = torch.zeros(K.shape)
+    dv = torch.zeros(V.shape)
+    bq = SM90_Q_TILE[D]
+    for q0 in range(0, Tq, bq):
+        Qt, dOt = Q[:, :, q0:q0 + bq], dO[:, :, q0:q0 + bq]
+        lse_t, dlt_t = lse[:, :, q0:q0 + bq], delta[:, :, q0:q0 + bq]
+        st = _mm_bf16(K, Qt.transpose(-1, -2))                  # Sᵀ, raw
+        if causal:
+            qpos = torch.arange(q0, q0 + Qt.shape[2])[None, :]
+            st = torch.where(kpos <= qpos, st, torch.full_like(st, -1e30))
+        # 2^(s·scale·log2e − lse·log2e), the argument rounded once (FFMA)
+        lse2 = (lse_t * LOG2E).float()
+        pt = torch.exp2(st.double() * float(np.float32(_scale(D)) * LOG2E)
+                        - lse2[..., None, :].double()).float()
+        dst = pt * (_mm_bf16(V, dOt.transpose(-1, -2))            # dPᵀ
+                    - dlt_t[..., None, :])
+        pt, dst = pt.bfloat16().float(), dst.bfloat16().float()
+        dv = dv + _mm_bf16(pt, dOt)
+        dk = dk + _mm_bf16(dst, Qt)
+    return [t.permute(0, 2, 1, 3) for t in (dk * _scale(D), dv)]
+
+
 def _saved(q, k, v, do, causal):
     """lse from the port's forward and delta = rowsum(dO∘O), as
     `_FlashAttentionFn` hands them to the kernels."""
@@ -130,6 +174,20 @@ def _jax_grads(causal, D):
         return vjp(do)
     args = (jnp.asarray(t.numpy()) for t in _inputs(D))
     return [np.array(g) for g in jax.jit(grads)(*args)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_grads_bf16(causal, D):
+    """dk, dv of the JAX flash attention on the bf16 inputs of the Hopper
+    kernel's walk (interpret mode)."""
+    def grads(q, k, v, do):
+        _, vjp = jax.vjp(lambda *a: jax_flash(*a, causal, 64, 64, True),
+                         q, k, v)
+        return vjp(do)
+    args = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+            for t in _inputs(D, dtype=torch.bfloat16, T=SM90_T))
+    return [np.array(g.astype(jnp.float32))
+            for g in jax.jit(grads)(*args)[1:]]
 
 
 def _max_err(got, want):
@@ -178,3 +236,20 @@ def test_bf16_rounded_p_and_ds_within_two_ulp_of_plain(causal, D):
     # grouped as chip_smoke checks them: dq alone, dk and dv together
     for got, ref in (((dq,), (dq0,)), ((dk, dv), (dk0, dv0))):
         assert _max_err(got, ref) <= _two_ulp(ref)
+
+
+@pytest.mark.parametrize("causal,D", SM90_CASES)
+def test_sm90_dkv_walk_within_two_ulp_of_jax_and_plain(causal, D):
+    """The Hopper dK/dV's walk (transposed scores, 64-query tiles, 32 at
+    D = 128, P and
+    dS rounded to bf16, fp32 running sums) at the 2-ulp bf16 bound
+    chip_smoke holds the kernel to, against the plain version and the
+    JAX package's bf16 backward."""
+    q, k, v, do = _inputs(D, dtype=torch.bfloat16, T=SM90_T)
+    lse, delta = _saved(q, k, v, do, causal)
+    dk, dv = (t.bfloat16() for t in _emulate_sm90_dkv(q, k, v, do, lse,
+                                                      delta, causal))
+    plain = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
+    jax_dk, jax_dv = (torch.from_numpy(g) for g in _jax_grads_bf16(causal, D))
+    for ref in (plain, (jax_dk, jax_dv)):
+        assert _max_err((dk, dv), ref) <= _two_ulp(ref)

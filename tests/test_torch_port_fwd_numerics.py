@@ -22,6 +22,17 @@ are needed, and against the port's plain versions at the bf16 bounds
 that `chip_smoke.py` holds the kernel to on the card. The bf16 carry
 shows why P is split: a single bf16 P misses the carry bound.
 
+The bf16 instances are the Hopper kernel
+(`csrc/flash_attention_sm90.cu`): the same fold over 128-key tiles (64
+at D = 128; the q tile's height, 128 rows in two 64-row warpgroups,
+changes no row's numbers), the row max on the raw scores and each exp's
+argument rounded once (an FFMA), each tile's P·V summed from zero in
+fresh accumulators and added to acc·corr by one FFMA, P rounded to bf16
+(finalize) or split into bf16 hi + lo (carry). Its walk is emulated at
+D 32, 64 and 128 over a ragged 300-key sequence and held against the
+JAX package (bf16 inputs, interpret mode) and the port's plain versions
+at the same bounds.
+
 What this does not emulate is the tensor cores' own fp32 accumulation,
 which rounds toward zero inside a tile; `chip_smoke.py` phase 2 reads
 the kernel's error on the card.
@@ -46,6 +57,7 @@ from deeplearning4j_tpu_torch.kernels.flash_attention import (
     NEG_INF,
     _kernel_layout,
     _scale,
+    _tma_layout,
     flash_attention_carry_plain,
     flash_attention_plain,
 )
@@ -57,18 +69,22 @@ CARRY_RTOL = 2e-5                 # of each state tensor's own scale
 BF16_O_ATOL = 2 ** -5             # chip_smoke's FLASH_TOL["bfloat16"]
 BN = 64                           # the kernel's key tile at D 32 and 64
 T = 100                           # two key tiles, the second ragged
+SM90_BN = {32: 128, 64: 128, 128: 64}   # the Hopper kernel's key tile
+SM90_CARRY_BN = 64                # ... in carry mode, at every D
+SM90_T = 300                      # three or more key tiles, the last ragged
+SM90_CASES = [(causal, D) for causal in (True, False) for D in (32, 64, 128)]
 LOG2E = np.float32(np.log2(np.e))
 CASES = [(causal, D) for causal in (True, False) for D in (32, 64)]
 
 
-def _inputs(D, seed=90, dtype=torch.float32):
+def _inputs(D, seed=90, dtype=torch.float32, T=T):
     """q, k, v [1, T, 2, D] from a numpy seed, in `dtype`."""
     rng = np.random.default_rng(seed + D)
     return [torch.from_numpy(rng.standard_normal((1, T, 2, D)).astype(
         np.float32)).to(dtype) for _ in range(3)]
 
 
-def _state(D, seed=91):
+def _state(D, seed=91, T=T):
     """A seeded carry state (m, l [1, 2, T], acc [1, 2, T, D]), as
     chip_smoke seeds its visible folds."""
     rng = np.random.default_rng(seed + D)
@@ -120,10 +136,13 @@ MODES = {
 }
 
 
-def _emulate(q, k, v, mode, causal, state=None):
+def _emulate(q, k, v, mode, causal, state=None, bn=BN, fused=False):
     """The kernel's fold of k, v into the online-softmax state, tile by
-    tile. Without `state`: (o [B, Tq, H, D] fp32, lse [B, H, Tq]), as in
-    finalize mode; with `state` (m, l, acc): the folded (m, l, acc)."""
+    tile (`bn` keys a tile). Without `state`: (o [B, Tq, H, D] fp32,
+    lse [B, H, Tq]), as in finalize mode; with `state` (m, l, acc): the
+    folded (m, l, acc). `fused`: the Hopper kernel's arithmetic, the row
+    max on the raw scores, P = 2^(s·scale·log2e − m) with the argument
+    rounded once (an FFMA), acc = acc·corr + part rounded once."""
     mm_s, round_p, mm_pv = MODES[mode]
     Q, K, V = (t.float().permute(0, 2, 1, 3) for t in (q, k, v))
     Tq, Tk, D = Q.shape[2], K.shape[2], Q.shape[3]
@@ -134,18 +153,29 @@ def _emulate(q, k, v, mode, causal, state=None):
     else:
         m2, l, acc = state[0] * LOG2E, state[1].clone(), state[2].clone()
     qpos = torch.arange(Tq)[:, None]
-    for k0 in range(0, Tk, BN):
-        Kt, Vt = K[:, :, k0:k0 + BN], V[:, :, k0:k0 + BN]
-        x = mm_s(Q, Kt.transpose(-1, -2)) * sl2
+    for k0 in range(0, Tk, bn):
+        Kt, Vt = K[:, :, k0:k0 + bn], V[:, :, k0:k0 + bn]
+        x = mm_s(Q, Kt.transpose(-1, -2))
+        if not fused:
+            x = x * sl2
         kpos = torch.arange(k0, k0 + Kt.shape[2])[None, :]
         if causal:
             x = torch.where(kpos <= qpos, x, torch.full_like(x, NEG_INF))
-        m_new = torch.maximum(m2, x.max(-1).values)
+        if fused:
+            m_new = torch.maximum(m2, x.max(-1).values * sl2)
+            p = torch.exp2(x.double() * float(sl2)
+                           - m_new[..., None].double()).float()
+        else:
+            m_new = torch.maximum(m2, x.max(-1).values)
+            p = torch.exp2(x - m_new[..., None])
         corr = torch.exp2(m2 - m_new)
-        p = torch.exp2(x - m_new[..., None])
         l = l * corr + p.sum(-1)
         part = mm_pv(round_p(p) if round_p else p, Vt)
-        acc = acc * corr[..., None] + part
+        if fused:
+            acc = (acc.double() * corr[..., None].double()
+                   + part.double()).float()
+        else:
+            acc = acc * corr[..., None] + part
         m2 = m_new
     if state is not None:
         return m2 / LOG2E, l, acc
@@ -180,6 +210,29 @@ def _jax_fold(diag, D):
                                         block_k=64, interpret=True))
     args = [jnp.asarray(t.numpy()) for t in _inputs(D) + _state(D)]
     return [np.array(a) for a in fold(*args)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_forward_bf16(causal, D):
+    """(o, lse) of the JAX forward on the bf16 inputs of the Hopper
+    kernel's walk (interpret mode)."""
+    fwd = jax.jit(lambda q, k, v: _flash_forward(
+        q, k, v, block_q=64, block_k=64, causal=causal, interpret=True))
+    args = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+            for t in _inputs(D, dtype=torch.bfloat16, T=SM90_T))
+    return [np.array(a.astype(jnp.float32)) for a in fwd(*args)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_fold_bf16(diag, D):
+    """The JAX carry fold of bf16 k, v into the seeded fp32 state
+    (interpret), on the Hopper kernel's walk's inputs."""
+    fold = jax.jit(lambda *a: jax_carry(*a, diag=diag, block_q=64,
+                                        block_k=64, interpret=True))
+    qkv = [jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
+           for t in _inputs(D, dtype=torch.bfloat16, T=SM90_T)]
+    state = [jnp.asarray(t.numpy()) for t in _state(D, T=SM90_T)]
+    return [np.array(a) for a in fold(*qkv, *state)]
 
 
 def _carry_errs(got, want):
@@ -240,14 +293,53 @@ def test_bf16_carry_needs_p_as_hi_plus_lo(diag, D):
     assert _carry_errs(single, want)[2] > 5 * CARRY_RTOL
 
 
+@pytest.mark.parametrize("causal,D", SM90_CASES)
+def test_sm90_bf16_finalize_walk_within_flash_tol_of_jax_and_plain(causal,
+                                                                   D):
+    """The Hopper forward's walk (128-key tiles, 64 at D = 128, P rounded
+    to bf16, each
+    tile's P·V from zero) at the bf16 bounds chip_smoke holds the kernel
+    to, against the plain version and the JAX package."""
+    q, k, v = _inputs(D, dtype=torch.bfloat16, T=SM90_T)
+    o, lse = _emulate(q, k, v, "bf16", causal, bn=SM90_BN[D], fused=True)
+    o = o.bfloat16().float()
+    o0, lse0 = flash_attention_plain(q, k, v, causal)
+    o_jax, lse_jax = _jax_forward_bf16(causal, D)
+    for o_want, lse_want in ((o0.float(), lse0), (torch.from_numpy(o_jax),
+                                                  torch.from_numpy(lse_jax))):
+        assert float((o - o_want).abs().max()) <= BF16_O_ATOL
+        assert float((lse - lse_want).abs().max()) <= LSE_ATOL
+
+
+@pytest.mark.parametrize("diag,D", SM90_CASES)
+def test_sm90_bf16_carry_walk_within_carry_bound_of_jax_and_plain(diag, D):
+    """The Hopper carry's walk (64-key tiles, P as bf16 hi + lo, the
+    small terms' product first into the same fresh per-tile sum) holds
+    the fp32 state to 2e-5 of its scale against the plain version and
+    the JAX fold; a single bf16 P on the same walk does not."""
+    q, k, v = _inputs(D, dtype=torch.bfloat16, T=SM90_T)
+    state = _state(D, T=SM90_T)
+    split = _emulate(q, k, v, "bf16_split", diag, state=state,
+                     bn=SM90_CARRY_BN, fused=True)
+    single = _emulate(q, k, v, "bf16", diag, state=state, bn=SM90_CARRY_BN,
+                      fused=True)
+    want = flash_attention_carry_plain(q, k, v, *_state(D, T=SM90_T), diag)
+    assert max(_carry_errs(split, want)) <= CARRY_RTOL
+    assert max(_carry_errs(split, _jax_fold_bf16(diag, D))) <= CARRY_RTOL
+    assert _carry_errs(single, want)[2] > 5 * CARRY_RTOL
+
+
 def test_attention_projections_and_ring_shards_reach_the_kernels_as_is():
     """The attention layer's q/k/v projections and the ring's sequence
     shards of them are already in the kernels' layout: `_kernel_layout`
-    returns them without a copy."""
+    returns them without a copy, and a TMA map describes each as the
+    Hopper kernels load it."""
     mha = MultiHeadAttention(64, 2, causal=True)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (2, 32, 64)).astype(np.float32))
     for t in mha._qkv(x):
         assert _kernel_layout(t) is t
+        assert _tma_layout(t, 128) is not None
         for c in shard(t, ["cpu"] * 4):
             assert _kernel_layout(c) is c
+            assert _tma_layout(c, 64) is not None
