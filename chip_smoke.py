@@ -5,6 +5,8 @@
     python3 chip_smoke.py --profile       # torch.profiler breakdown only
                                           # (with a restore + a fit step,
                                           # and ResNet-50 fit steps)
+    python3 chip_smoke.py --dq-tiles-trial  # the dQ kernel's block
+                                          # shapes, built and timed A B..B A
     python3 chip_smoke.py --warmup-trial  # long-context LM: Adam(1e-3)
                                           # with and without a warmup
     python3 chip_smoke.py --zoo-lr-trial  # GoogLeNet and VGG16: the
@@ -39,11 +41,14 @@ Phases, in order:
      in all and by library; check with `cuobjdump -sass` that every
      instance of the flash kernels (the backward's dQ and dK/dV and the
      forward's finalize and carry modes; fp32 and bf16, D 32/64/128,
-     causal or not) runs on the tensor cores: HGMMA (wgmma) in each bf16
-     instance of the Hopper forward and dK/dV (`csrc/*_sm90.cu`), HMMA
-     (mma.sync) in the fp32 ones and in dQ, and no bf16 forward or dK/dV
-     left in the mma.sync libraries (`FLASH_LIBS`); print each one's
-     registers, stack and local memory (`cuobjdump -res-usage`);
+     causal or not) runs on the tensor cores: HGMMA (wgmma) in each
+     instance of the Hopper kernels (`csrc/*_sm90.cu`: the bf16 forward
+     and dK/dV, the dQ in bf16 and in fp32), HMMA (mma.sync) in the fp32
+     forward and dK/dV, and no bf16 forward or dK/dV and no dQ left in
+     the mma.sync libraries (`FLASH_LIBS`); fail on any ptxas note that
+     it serialised a Hopper kernel's wgmma products; print each
+     instance's registers, stack and local memory (`cuobjdump
+     -res-usage`);
   2. hold each kernel against its plain PyTorch version on the card, in
      fp32 and bf16, at the main path's shapes and at ragged ones, and
      time kernel, plain version and the one-call PyTorch yardstick
@@ -75,9 +80,11 @@ Phases, in order:
      chain of the two) and ragged (Tq 300, Tk 200, D 32 and 128); no
      one PyTorch call computes it, so it has no yardstick. The forward
      (with its backward) and a chain of two carry folds also run on
-     q, k, v views that start off 16-byte alignment. In bf16 a second
-     launch of the forward and of dK/dV (the Hopper kernels) on the
-     same inputs must be bit-equal to the first. The Viterbi scan
+     q, k, v views that start off 16-byte alignment. A second launch
+     of each Hopper kernel (in bf16 the forward, dK/dV and dQ; in fp32
+     the dQ) on the same inputs must be bit-equal to the first. The
+     `--dq-tiles-trial` flag builds the dQ with the other block shapes
+     of `DQ_TILES_TRIAL` and times them beside the kept one. The Viterbi scan
      kernel (`csrc/viterbi.cu`) must equal its plain version, path and
      score bit for bit, at S = 2, 77, 512 and 1100 (more states than a
      block's threads), T = 1, a ragged T and tables full of ties with
@@ -1014,11 +1021,14 @@ _BWD_KERNEL = re.compile(
 # a forward kernel's: dtype, D, causal (diag in carry mode), carry
 _FWD_KERNEL = re.compile(
     r"flash_fwd_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])ELb([01])E")
-# the bf16 Hopper kernels' (wgmma, TMA; bf16 only): the forward's D,
-# causal (diag in carry mode) and carry, and dK/dV's D and causal
+# the Hopper kernels' (wgmma, TMA): the bf16 forward's D, causal (diag
+# in carry mode) and carry, the bf16 dK/dV's D and causal, and the dQ's
+# dtype, D and causal
 _FWD_SM90_KERNEL = re.compile(
     r"flash_fwd_sm90_kernelILi(\d+)ELb([01])ELb([01])E")
 _DKV_SM90_KERNEL = re.compile(r"flash_bwd_dkv_sm90_kernelILi(\d+)ELb([01])E")
+_DQ_SM90_KERNEL = re.compile(
+    r"flash_bwd_dq_sm90_kernelI(f|13__nv_bfloat16)Li(\d+)ELb([01])E")
 # `cuobjdump -sass`: a function's heading; `cuobjdump -res-usage`: a
 # function's heading and, on the next line, its "KEY:value" resources
 _SASS_FUNCTION = re.compile(r"^\s*Function\s*:\s*(\S+)", re.M)
@@ -1068,14 +1078,20 @@ def _fwd_sm90_instances(names):
 
 
 def _bwd_sm90_instances(names):
-    """{("dkv", "bfloat16", D, causal): mangled name} of the Hopper
-    dK/dV kernel's instances among `names`."""
+    """{(kind, dtype, D, causal): mangled name} of the Hopper backward
+    kernels' instances among `names`: the bf16 dK/dV ("dkv") and the dQ
+    in both dtypes ("dq")."""
     out = {}
     for fn in names:
         m = _DKV_SM90_KERNEL.search(fn)
         if m:
             D, causal = m.groups()
             out[("dkv", "bfloat16", int(D), causal == "1")] = fn
+        m = _DQ_SM90_KERNEL.search(fn)
+        if m:
+            dt, D, causal = m.groups()
+            out[("dq", "float32" if dt == "f" else "bfloat16", int(D),
+                 causal == "1")] = fn
     return out
 
 
@@ -1135,20 +1151,23 @@ def _sass_rows(lib, instances, prefix):
 # phase 1's flash libraries: (report key, library, instance finder,
 # counter prefix, {(kind, dtype): the tensor-core instruction every one
 # of its 6 instances (D 32/64/128, causal or not) must have}). The bf16
-# forward (both modes) and dK/dV are the Hopper kernels (HGMMA: wgmma);
-# fp32 and dQ stay mma.sync (HMMA), and the mma.sync libraries hold no
-# bf16 forward or dK/dV instance any more.
+# forward (both modes), the bf16 dK/dV and the dQ in both dtypes are
+# the Hopper kernels (HGMMA: wgmma); the fp32 forward and dK/dV stay
+# mma.sync (HMMA), and the mma.sync libraries hold no bf16 forward or
+# dK/dV and no dQ instance any more.
 FLASH_LIBS = (
     ("bwd_sass", "flash_attention_bwd", _bwd_instances,
-     "flash_attention_bwd_", {("dq", "float32"): "HMMA",
-                              ("dq", "bfloat16"): "HMMA",
+     "flash_attention_bwd_", {("dq", "float32"): None,
+                              ("dq", "bfloat16"): None,
                               ("dkv", "float32"): "HMMA",
                               ("dkv", "bfloat16"): None}),
     ("fwd_sass", "flash_attention", _fwd_instances, "flash_attention_",
      {("fwd", "float32"): "HMMA", ("carry", "float32"): "HMMA",
       ("fwd", "bfloat16"): None, ("carry", "bfloat16"): None}),
     ("bwd_sm90_sass", "flash_attention_bwd_sm90", _bwd_sm90_instances,
-     "flash_attention_bwd_", {("dkv", "bfloat16"): "HGMMA"}),
+     "flash_attention_bwd_", {("dkv", "bfloat16"): "HGMMA",
+                              ("dq", "bfloat16"): "HGMMA",
+                              ("dq", "float32"): "HGMMA"}),
     ("fwd_sm90_sass", "flash_attention_sm90", _fwd_sm90_instances,
      "flash_attention_", {("fwd", "bfloat16"): "HGMMA",
                           ("carry", "bfloat16"): "HGMMA"}))
@@ -1365,8 +1384,7 @@ def phase_kernels(device, report, fails, small=False):
                 delta = fa.attention_delta(do, o)
                 bwd = (q, k, v, do, lse, delta, causal)
                 bwd_errs = _bwd_checks(bwd, case, dt_name, checks, fails)
-                if dt_name == "bfloat16":
-                    _repeat_checks(bwd, o, lse, case, checks, fails)
+                _repeat_checks(bwd, o, lse, case, dt_name, checks, fails)
                 if case == "ring_chunk":     # diag and visible chunks
                     timings.update(_bwd_timings(
                         device, flush, bwd, bwd_errs, dt_name,
@@ -1471,25 +1489,28 @@ def _bwd_checks(bwd, case, dt_name, checks, fails):
     return errs
 
 
-def _repeat_checks(bwd, o, lse, case, checks, fails):
-    """The bf16 Hopper kernels are deterministic (no atomics; each output
-    row has one writer): a second launch of the forward and of dK/dV on
-    the same inputs is bit-equal to the first (`o`, `lse` and a fresh
-    dK/dV launch)."""
+def _repeat_checks(bwd, o, lse, case, dt_name, checks, fails):
+    """The Hopper kernels are deterministic (no atomics; each output row
+    has one writer): a second launch on the same inputs is bit-equal to
+    the first. bf16: the forward (`o`, `lse`), dK/dV and dQ; fp32: dQ
+    (its forward and dK/dV are the mma.sync kernels)."""
     import torch
     from deeplearning4j_tpu_torch.kernels import flash_attention as fa
     q, k, v, causal = bwd[0], bwd[1], bwd[2], bwd[-1]
-    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
-    dk, dv = fa.flash_attention_bwd_dkv(*bwd)
-    dk2, dv2 = fa.flash_attention_bwd_dkv(*bwd)
-    for name, same in (
-            ("flash_attention_fwd", torch.equal(o, o2)
-             and torch.equal(lse, lse2)),
-            ("flash_attention_bwd_dkv", torch.equal(dk, dk2)
-             and torch.equal(dv, dv2))):
-        ok = fails.check(same, f"{name} {case} bfloat16 causal={causal}: "
+    dq, dq2 = fa.flash_attention_bwd_dq(*bwd), fa.flash_attention_bwd_dq(*bwd)
+    pairs = [("flash_attention_bwd_dq", torch.equal(dq, dq2))]
+    if dt_name == "bfloat16":
+        o2, lse2 = fa.flash_attention_fwd(q, k, v, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(*bwd)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(*bwd)
+        pairs += [("flash_attention_fwd", torch.equal(o, o2)
+                   and torch.equal(lse, lse2)),
+                  ("flash_attention_bwd_dkv", torch.equal(dk, dk2)
+                   and torch.equal(dv, dv2))]
+    for name, same in pairs:
+        ok = fails.check(same, f"{name} {case} {dt_name} causal={causal}: "
                          f"two launches on the same inputs differ")
-        checks.append(dict(kernel=name, case=case, dtype="bfloat16",
+        checks.append(dict(kernel=name, case=case, dtype=dt_name,
                            causal=causal, shape=list(q.shape),
                            check="bit-equal repeat", ok=ok))
 
@@ -1529,6 +1550,142 @@ def _bwd_timings(device, flush, bwd, errs, dt_name, tag):
                            flush=flush),
             library_ms=lib_bwd,
             bound=bound(nbytes, flops, FLASH_RATE[dt_name]))
+    return out
+
+
+# the dQ kernel's block shapes tried on the card (--dq-tiles-trial):
+# name -> (replacements in DqTiles of csrc/flash_attention_bwd_sm90.cu,
+# the q rows a block where they differ from DQ_Q_ROWS, by dtype and head
+# dim); "kept" is the source as it is. One 64-row consumer warpgroup a
+# block, two blocks an SM (bf16), two consumers at fp32 D = 32, and the
+# fp32 lo halves of Q and dO in registers at D = 64 are what the source
+# keeps.
+_DQ_NC = "static constexpr int NC = F32 && D == 32 ? 2 : 1;"
+_DQ_MIN = "static constexpr int MIN_BLOCKS = F32 ? 1 : 2;"
+_DQ_REGS = "static constexpr int CONSUMER_REGS = F32 ? 0 : 232;"
+DQ_TILES_TRIAL = {
+    "kept": ({}, {}),
+    # bf16: a 128-row block of two consumers, one block an SM
+    "bf16_128_rows": ({_DQ_NC: "static constexpr int NC = F32 && D == 32 "
+                               "? 2 : F32 ? 1 : 2;",
+                       _DQ_MIN: "static constexpr int MIN_BLOCKS = 1;",
+                       _DQ_REGS: "static constexpr int CONSUMER_REGS = F32 "
+                                 "? 0 : 240;"},
+                      {"bfloat16": {32: 128, 64: 128, 128: 128}}),
+    # bf16: a 192-row block of three consumers (two at D = 128)
+    "bf16_192_rows": ({_DQ_NC: "static constexpr int NC = F32 && D == 32 "
+                               "? 2 : F32 ? 1 : D == 128 ? 2 : 3;",
+                       _DQ_MIN: "static constexpr int MIN_BLOCKS = 1;",
+                       _DQ_REGS: "static constexpr int CONSUMER_REGS = F32 "
+                                 "? 0 : D == 128 ? 240 : 160;"},
+                      {"bfloat16": {32: 192, 64: 192, 128: 128}}),
+    # fp32: one consumer at D = 32 too
+    "fp32_d32_64_rows": ({_DQ_NC: "static constexpr int NC = 1;"},
+                         {"float32": {32: 64}}),
+    # fp32: Q's and dO's tf32 lo halves read from shared memory at D = 64
+    # too (SS products only)
+    "fp32_d64_lo_smem": ({"static constexpr bool LO_REGS = F32 && D == 64;":
+                          "static constexpr bool LO_REGS = false;"}, {}),
+}
+
+
+def dq_tiles_trial(device):
+    """--dq-tiles-trial: the dQ kernel built with each block shape of
+    DQ_TILES_TRIAL (its DqTiles constants edited in a copy of the
+    sources under build/probe/, nvcc with the library's flags, all at
+    once), each held to its plain version at ragged shapes (D 32, 64,
+    128, causal or not), then timed at the main path's shapes in both
+    dtypes, the variants in turn and back (A B .. B A) in one process.
+    Returns {variant: {"serialised", "ms": {dtype: [ms a shape]}}}."""
+    import ctypes
+    import shutil
+    import torch
+    from deeplearning4j_tpu_torch.kernels import build
+    from deeplearning4j_tpu_torch.kernels import flash_attention as fa
+    root = os.path.join(HERE, "build", "probe")
+    shutil.rmtree(root, ignore_errors=True)
+    procs = {}
+    for name, (edits, _) in DQ_TILES_TRIAL.items():
+        d = os.path.join(root, name)
+        os.makedirs(d)
+        for f in build.CSRC.iterdir():
+            if f.suffix in (".cu", ".cuh"):
+                shutil.copy(f, d)
+        path = os.path.join(d, "flash_attention_bwd_sm90.cu")
+        with open(path) as f:
+            src = f.read()
+        for old, new in edits.items():
+            if old not in src:
+                raise RuntimeError(f"{name}: DqTiles has no '{old}'")
+            src = src.replace(old, new)
+        with open(path, "w") as f:
+            f.write(src)
+        procs[name] = subprocess.Popen(
+            [build.nvcc_path(), *build.NVCC_FLAGS, "-I", d, "-o",
+             os.path.join(root, f"{name}.so"), path],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    out, libs = {}, {}
+    for name, proc in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode:
+            raise RuntimeError(f"nvcc, {name}:\n{log[-3000:]}")
+        out[name] = dict(serialised=wgmma_serialised(log), ms={})
+        libs[name] = ctypes.CDLL(os.path.join(root, f"{name}.so"))
+    kept_q = {dt: dict(rows) for dt, rows in fa.DQ_Q_ROWS.items()}
+    dts = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+    def use(name):
+        build._libs["flash_attention_bwd_sm90"] = libs[name]
+        for dt, rows in kept_q.items():
+            fa.DQ_Q_ROWS[dt] = dict(rows)
+        for dt, rows in DQ_TILES_TRIAL[name][1].items():
+            fa.DQ_Q_ROWS[dts[dt]].update(rows)
+
+    gen = torch.Generator().manual_seed(0)
+    flush = torch.empty(64 * 2 ** 20 // 4, device=device)
+
+    def inputs(dt, B, Tq, Tk, H, D, causal):
+        q, do = (torch.randn((B, Tq, H, D), generator=gen).to(device, dt)
+                 for _ in range(2))
+        k, v = (torch.randn((B, Tk, H, D), generator=gen).to(device, dt)
+                for _ in range(2))
+        o, lse = fa.flash_attention_plain(q, k, v, causal)
+        return q, k, v, do, lse, fa.attention_delta(do, o), causal
+
+    shapes = [(8, 2048, 8, 64, True), (8, 512, 8, 64, False),
+              (8, 512, 8, 64, True), (16, 512, 8, 32, True)]
+    timed = {(n, sh): inputs(dts[n], sh[0], sh[1], sh[1], *sh[2:])
+             for n in dts for sh in shapes}
+    checked = [inputs(dts[n], 2, 300, 260, 3, D, c) for n in dts
+               for D in (32, 64, 128) for c in (True, False)]
+    try:
+        for name in libs:
+            use(name)
+            errs = []
+            for bwd in checked:
+                dq0 = fa.flash_attention_bwd_dq_plain(*bwd)
+                e = (fa.flash_attention_bwd_dq(*bwd).float()
+                     - dq0.float()).abs().max().item()
+                tol = bwd_tol(str(bwd[0].dtype)[6:],
+                              dq0.float().abs().max().item())
+                errs.append(e / tol)
+            out[name]["worst_err_over_tol"] = max(errs)
+        for name in list(libs) + list(libs)[::-1]:
+            use(name)
+            for n in dts:
+                ms = [timer(device, lambda: fa.flash_attention_bwd_dq(
+                    *timed[(n, sh)]), flush=flush) for sh in shapes]
+                out[name]["ms"].setdefault(n, []).append(ms)
+                print(f"[dq-tiles] {name} {n} {shapes}: "
+                      f"{[round(x, 4) for x in ms]} ms", flush=True)
+    finally:
+        build._libs.pop("flash_attention_bwd_sm90", None)
+        for dt, rows in kept_q.items():
+            fa.DQ_Q_ROWS[dt] = rows
+    for name, r in out.items():
+        print(f"[dq-tiles] {name}: serialised {r['serialised']}, worst "
+              f"error {r['worst_err_over_tol']:.3f} of its tolerance",
+              flush=True)
     return out
 
 
@@ -13646,7 +13803,7 @@ KERNEL_META = {
         "deeplearning4j_tpu_torch/kernels/csrc/flash_attention.cu",
         "deeplearning4j_tpu/kernels/flash_attention.py:87 (carry mode)"),
     "flash_attention_bwd_dq": (
-        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
         "deeplearning4j_tpu/kernels/flash_attention.py:265"),
     "flash_attention_bwd_dkv": (
         "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd.cu",
@@ -13674,14 +13831,18 @@ KERNEL_META = {
 
 
 # the counters whose bf16 instances are the Hopper kernels (wgmma, TMA,
-# warp-specialised), and their sources
+# warp-specialised), and their sources; the dQ's fp32 instances are
+# Hopper kernels too (3xTF32 on tf32 wgmma: SM90_BOTH)
 SM90_KERNELS = {
     "flash_attention_fwd":
         "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
     "flash_attention_carry":
         "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_sm90.cu",
+    "flash_attention_bwd_dq":
+        "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd_sm90.cu",
     "flash_attention_bwd_dkv":
         "deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd_sm90.cu"}
+SM90_BOTH = ("flash_attention_bwd_dq",)
 
 
 def run(device, *, small=False, kernels_only=False):
@@ -13792,9 +13953,11 @@ def run(device, *, small=False, kernels_only=False):
             fails.check(sum(split.values()) == launches[name],
                         f"{name}: launches by dtype {split} do not add up "
                         f"to its {launches[name]} launches")
-            fails.check(split.get(f"{name}/bfloat16", 0) > 0,
-                        f"the Hopper kernel of {name} (bf16) never launched "
-                        f"on the main path")
+            for dt in (("bfloat16", "float32") if name in SM90_BOTH
+                       else ("bfloat16",)):
+                fails.check(split.get(f"{name}/{dt}", 0) > 0,
+                            f"the Hopper kernel of {name} ({dt}) never "
+                            f"launched on the main path")
         report["launches_by_phase"] = {
             n: {k: v for k, v in l.items() if v}
             for n, l in (("3", l3), ("4", l4), ("5", l5), ("6", l6),
@@ -13841,10 +14004,14 @@ def run(device, *, small=False, kernels_only=False):
             kernels.append(row(name, src, replaces, launches[name],
                                "float32"))
             continue
-        # two kernels under one counter: the fp32 mma.sync instances and
-        # the bf16 Hopper kernel, each with its own launches and times
-        kernels.append(row(name, src, replaces,
-                           by_dtype.get(f"{name}/float32", 0), "float32"))
+        # two instances under one counter, each with its own launches
+        # and times: the fp32 mma.sync kernel (or, for SM90_BOTH, the
+        # fp32 Hopper kernel) and the bf16 Hopper kernel
+        r = row(name, src, replaces + (" (fp32)" if name in SM90_BOTH
+                                       else ""),
+                by_dtype.get(f"{name}/float32", 0), "float32")
+        kernels.append(dict(r, name=f"{name}_sm90") if name in SM90_BOTH
+                       else r)
         r = row(name, SM90_KERNELS[name], replaces + " (bf16)",
                 by_dtype.get(f"{name}/bfloat16", 0), "bfloat16")
         kernels.append(dict(r, name=f"{name}_sm90"))
@@ -13880,6 +14047,13 @@ def main(argv):
     if "--profile" in argv:
         report, fails = {"profile": profile_paths(device)}, Failures()
         report["kernels"] = []
+    elif "--dq-tiles-trial" in argv:
+        report = {"dq_tiles_trial": dq_tiles_trial(device)}
+        fails, report["kernels"] = Failures(), []
+        fails.check(all(r["worst_err_over_tol"] <= 1 and not r["serialised"]
+                        for r in report["dq_tiles_trial"].values()),
+                    "a dQ block shape disagrees with the plain version or "
+                    "has its products serialised")
     elif "--warmup-trial" in argv:
         report, fails = {"warmup_trial": warmup_trial(device)}, Failures()
         report["kernels"] = []

@@ -27,8 +27,8 @@
 // is 2.2 GFLOP against 34 MB: the operations bound it (13 us at
 // 165 TFLOP/s, the 3xTF32 rate: 495 / 3).
 //
-// Design: the dQ kernel of csrc/flash_attention_bwd.cu without dP, on the
-// same tiles (csrc/flash_tiles.cuh). One block per (64-row q tile, head,
+// Design: on the tiles of the fp32 dK/dV (csrc/flash_tiles.cuh, shared
+// with csrc/flash_attention_bwd.cu). One block per (64-row q tile, head,
 // batch), 4 warps, each owning 16 q rows; the TPU's sequential k grid
 // dimension becomes the loop inside the block, and causal tiles wholly
 // above the diagonal are skipped. The Q tile is staged once; K/V tiles of

@@ -1,5 +1,5 @@
-// The tiles the flash kernels share (csrc/flash_attention.cu, the
-// forward; csrc/flash_attention_bwd.cu, the backward): 4 warps a block,
+// The tiles the fp32 mma.sync flash kernels share (csrc/flash_attention.cu,
+// the forward; csrc/flash_attention_bwd.cu, dK/dV): 4 warps a block,
 // each owning 16 rows of the block's 64-row tile; [rows][D] tiles staged
 // through cp.async with 16-byte padded rows; and one warp's tensor-core
 // products on them. The fragment layouts are in mma.cuh.
@@ -77,56 +77,6 @@ __device__ __forceinline__ void store2<__nv_bfloat16>(__nv_bfloat16* p,
 //        accumulator layout abt leaves it in)
 template <typename T>
 struct WarpMma;
-
-template <>
-struct WarpMma<__nv_bfloat16> {
-  using T = __nv_bfloat16;
-
-  template <int D, int N, int P>
-  static __device__ __forceinline__ void abt(float (&acc)[N / 8][4],
-                                             const T* A, const T* B,
-                                             int lane) {
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      uint32_t a[4];
-      ldmatrix_x4(a, A + (lane & 15) * P + kk * 16 + (lane >> 4) * 8);
-#pragma unroll
-      for (int np = 0; np < N / 16; ++np) {
-        // matrices (n 0-7, k 0-7), (n 0-7, k 8-15), (n 8-15, k 0-7),
-        // (n 8-15, k 8-15) of this 16 x 16 block of B
-        uint32_t b[4];
-        ldmatrix_x4(b, B + (np * 16 + (lane & 7) + (lane >> 4) * 8) * P +
-                           kk * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(acc[2 * np], a, b[0], b[1]);
-        mma_bf16(acc[2 * np + 1], a, b[2], b[3]);
-      }
-    }
-  }
-
-  template <int D, int N, int P>
-  static __device__ __forceinline__ void xb(float (&acc)[D / 8][4],
-                                            const float (&x)[N / 8][4],
-                                            const T* B, int lane) {
-#pragma unroll
-    for (int kk = 0; kk < N / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(x[2 * kk][0], x[2 * kk][1]),
-                             pack_bf16(x[2 * kk][2], x[2 * kk][3]),
-                             pack_bf16(x[2 * kk + 1][0], x[2 * kk + 1][1]),
-                             pack_bf16(x[2 * kk + 1][2], x[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < D / 16; ++dp) {
-        // transposed matrices (k 0-7, n 0-7), (k 8-15, n 0-7),
-        // (k 0-7, n 8-15), (k 8-15, n 8-15) of B [k][n]
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, B + (kk * 16 + (lane & 7) +
-                                  ((lane >> 3) & 1) * 8) * P +
-                                 dp * 16 + (lane >> 4) * 8);
-        mma_bf16(acc[2 * dp], a, b[0], b[1]);
-        mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
-  }
-};
 
 template <>
 struct WarpMma<float> {

@@ -1,30 +1,40 @@
-// Hopper (sm_90a) building blocks of the bf16 flash kernels
-// (csrc/flash_attention_sm90.cu, csrc/flash_attention_bwd_sm90.cu):
-// mbarriers, TMA tile loads, warpgroup products (wgmma) with their
-// shared-memory descriptors, register hand-over between warpgroups
-// (setmaxnreg), the walk of a persistent grid, and the host-side encoding of a TMA tensor map.
+// Hopper (sm_90a) building blocks of the flash kernels on wgmma
+// (csrc/flash_attention_sm90.cu: the bf16 forward in both modes;
+// csrc/flash_attention_bwd_sm90.cu: the bf16 dK/dV and the dQ in bf16
+// and in fp32 as 3xTF32): mbarriers, TMA tile loads, warpgroup products
+// (wgmma, bf16 and tf32) with their shared-memory descriptors, register
+// hand-over between warpgroups (setmaxnreg), the walk of a persistent
+// grid, and the host-side encoding of a TMA tensor map.
 //
-// Tiles. Every operand is a bf16 [B, T, H, D] tensor read through a
-// rank-4 TMA map {D, H, T, B} (byte strides of h, t, b; worked out by
-// `_tma_layout` in kernels/flash_attention.py). A tile of `rows` rows
-// lands as NB boxes of [rows][DB] (DB = 32 columns at D = 32, else 64;
-// NB = D / DB), each box row DB * 2 bytes, swizzled by the TMA with the
-// pattern of that width (64B at D = 32, 128B otherwise): the 16-byte
-// chunk c of row r sits at chunk c ^ (r % 8) (128B) or c ^ ((r / 2) % 4)
-// (64B). Every tile starts on a 1024-byte boundary, so the pattern is
-// the same whether a tile is read from its first row or from row 64.
+// Tiles. Every operand is a [B, T, H, D] tensor of E-byte elements
+// (bf16: E = 2; fp32: E = 4) read through a rank-4 TMA map {D, H, T, B}
+// (byte strides of h, t, b; worked out by `_tma_layout` in
+// kernels/flash_attention.py). A tile of `rows` rows lands as NB boxes
+// of [rows][DB] (Box<D, E>: a box row is 128 bytes, DB = 128 / E
+// columns, but 64 bytes for bf16 at D = 32; NB = D / DB), swizzled by
+// the TMA with the pattern of the box row's width: the 16-byte chunk c
+// of row r sits at chunk c ^ (r % 8) (128B) or c ^ ((r / 2) % 4) (64B).
+// So bf16 D = 128 loads as two boxes, fp32 D = 64 as two and D = 128 as
+// four. Every tile starts on a 1024-byte boundary, so the pattern is the
+// same whether a tile is read from its first row or from row 64.
 //
 // The same swizzled [rows][DB] boxes serve both operand majors of
 // wgmma (PTX ISA "Matrix descriptor"; CUTLASS's canonical GMMA
-// layouts):
+// layouts). A k step is 32 bytes of the contraction: k16 in bf16, k8 in
+// tf32.
 //   K-major (the contraction runs along D: S = Q K^T, and its
-//     transposes in the backward): 8-row core groups SBO = 8 * DB * 2
-//     bytes apart, LBO unused (16); the k16 step kk starts at box
-//     kk / KPB, byte (kk % KPB) * 32 of the row (KPB = DB / 16).
-//   MN-major (the contraction runs along the rows: P V, dS^T Q, P^T dO):
-//     the k16 step kk starts at row 16 kk of box j (N = DB columns a
-//     product, one swizzle atom wide, so LBO is never read); its two
-//     8-row groups SBO = 8 * DB * 2 bytes apart.
+//     transposes in the backward): 8-row core groups SBO = 8 * SW
+//     bytes apart (SW = the box row's bytes), LBO unused (16); k step
+//     kk starts at box kk / KPB, byte (kk % KPB) * 32 of the row
+//     (KPB = SW / 32).
+//   MN-major (the contraction runs along the rows: P V, dS^T Q, P^T dO,
+//     dS K; bf16 only): the k16 step kk starts at row 16 kk of box j
+//     (N = DB columns a product, one swizzle atom wide, so LBO is never
+//     read); its two 8-row groups SBO = 8 * SW bytes apart.
+// tf32 wgmma reads both shared-memory operands K-major only (the
+// transpose bits are for 16-bit types): an operand whose contraction
+// runs along its rows must be transposed into another tile first (the
+// fp32 dQ's K^T, csrc/flash_attention_bwd_sm90.cu).
 // A descriptor whose swizzle, SBO or start does not match the TMA's
 // layout gives wrong numbers, not an error.
 //
@@ -32,9 +42,12 @@
 // g and 16 w + g + 8 (g = lane / 4), and in d[j][0..3] the columns
 // 8 j + 2 t, +1 (t = lane % 4) of those two rows: the layout of
 // mma.sync's m16n8 C fragment, N / 8 times. The A fragment of an RS
-// wgmma (m64k16 bf16, from registers) is mma.sync's m16n8k16 A
-// fragment a warp: so two neighbouring 8-column tiles of an
-// accumulator, rounded to bf16 and packed, are one k16 step of A.
+// wgmma is mma.sync's A fragment a warp: bf16 m16n8k16 (two
+// neighbouring 8-column tiles of an accumulator, rounded to bf16 and
+// packed, are one k16 step of A), tf32 m16n8k8 (a0 (g, t), a1 (g + 8,
+// t), a2 (g, t + 4), a3 (g + 8, t + 4): one 8-column tile of an
+// accumulator is one k8 step if its columns 2t, 2t + 1 enter as k = t,
+// t + 4, and B's k rows are stored in that order).
 #pragma once
 
 #include <cuda.h>
@@ -49,16 +62,17 @@ namespace sm90 {
 
 constexpr int kWG = 128;  // threads a warpgroup
 
-// The boxes of a tile at head dim D
-template <int D>
+// The boxes of a tile at head dim D of E-byte elements
+template <int D, int E = 2>
 struct Box {
   static_assert(D == 32 || D == 64 || D == 128, "head dims 32, 64, 128");
-  static constexpr int DB = D == 32 ? 32 : 64;  // columns a box
-  static constexpr int NB = D / DB;             // boxes a row
-  static constexpr int SW = DB * 2;             // bytes a box row = swizzle
-  static constexpr int KPB = DB / 16;           // k16 steps a box
+  static_assert(E == 2 || E == 4, "bf16 or fp32");
+  static constexpr int DB = E == 2 && D == 32 ? 32 : 128 / E;  // columns a box
+  static constexpr int NB = D / DB;                            // boxes a row
+  static constexpr int SW = DB * E;     // bytes a box row = swizzle
+  static constexpr int KPB = SW / 32;   // 32-byte k steps a box
   __host__ __device__ static constexpr int bytes(int rows) {
-    return rows * D * 2;
+    return rows * D * E;
   }
 };
 
@@ -104,6 +118,12 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   } while (!done);
 }
 
+// orders this thread's shared-memory writes before later reads of them
+// by the async proxy (wgmma's operand reads, TMA)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------------ TMA
 // the box at coordinates {c0, c1, c2, c3} of `map` into dst; completes
 // its bytes on `bar`
@@ -125,17 +145,17 @@ __device__ __forceinline__ void prefetch_tma(const CUtensorMap* map) {
                : "memory");
 }
 
-// rows [t0, t0 + rows) of head h, batch b into a tile of Box<D>'s
-// boxes; rows past T land as zeros (and still count their bytes)
-template <int D>
-__device__ __forceinline__ void tma_load_rows(__nv_bfloat16* tile,
-                                              const CUtensorMap* map,
+// rows [t0, t0 + rows) of head h, batch b into a tile of Box<D, E>'s
+// boxes (E = sizeof(T)); rows past T land as zeros (and still count
+// their bytes)
+template <int D, typename T>
+__device__ __forceinline__ void tma_load_rows(T* tile, const CUtensorMap* map,
                                               uint64_t* bar, int rows, int h,
                                               int t0, int b) {
+  using L = Box<D, sizeof(T)>;
 #pragma unroll
-  for (int j = 0; j < Box<D>::NB; ++j)
-    tma_load_4d(tile + j * rows * Box<D>::DB, map, bar, j * Box<D>::DB, h, t0,
-                b);
+  for (int j = 0; j < L::NB; ++j)
+    tma_load_4d(tile + j * rows * L::DB, map, bar, j * L::DB, h, t0, b);
 }
 
 // ---------------------------------------------------------- warpgroups
@@ -191,33 +211,33 @@ __device__ __forceinline__ uint64_t make_desc(const void* p, uint32_t lbo,
          (uint64_t)((sbo >> 4) & 0x3FFF) << 32 | layout << 62;
 }
 
-// The descriptor of a tile of Box<D>'s boxes at `tile`: 8-row core
-// groups SBO = 8 * DB * 2 bytes apart, LBO unused (16; a product's N is
+// The descriptor of a tile of Box<D, E>'s boxes at `tile`: 8-row core
+// groups SBO = 8 * SW bytes apart, LBO unused (16; a product's N is
 // one swizzle atom wide), the box's swizzle. The same bits serve both
-// majors; desc_k and desc_mn add a k16 step's start offset to them (the
+// majors; desc_k and desc_mn add a k step's start offset to them (the
 // start field holds the address / 16, below 256 KB: no carry out).
-template <int D>
-__device__ __forceinline__ uint64_t tile_desc(const __nv_bfloat16* tile) {
-  using L = Box<D>;
+template <int D, int E = 2>
+__device__ __forceinline__ uint64_t tile_desc(const void* tile) {
+  using L = Box<D, E>;
   return make_desc(tile, 16, 8 * L::SW, L::SW);
 }
 
-// K-major operand: k16 step kk of rows [r0, r0 + 64 or N) of a tile of
+// K-major operand: k step kk of rows [r0, r0 + 64 or N) of a tile of
 // `rows` rows (box kk / KPB, byte (kk % KPB) * 32 of the row)
-template <int D>
+template <int D, int E = 2>
 __device__ __forceinline__ uint64_t desc_k(uint64_t tile, int rows, int r0,
                                            int kk) {
-  using L = Box<D>;
+  using L = Box<D, E>;
   return tile + (uint64_t)((((kk / L::KPB) * rows + r0) * L::SW +
                             (kk % L::KPB) * 32) >> 4);
 }
 
-// MN-major operand: k16 step kk (rows 16 kk..16 kk + 15) of box j (the
-// columns j * DB..) of a tile of `rows` rows
-template <int D>
+// MN-major operand (bf16): k16 step kk (rows 16 kk..16 kk + 15) of box
+// j (the columns j * DB..) of a tile of `rows` rows
+template <int D, int E = 2>
 __device__ __forceinline__ uint64_t desc_mn(uint64_t tile, int rows, int j,
                                             int kk) {
-  using L = Box<D>;
+  using L = Box<D, E>;
   return tile + (uint64_t)((j * rows * L::SW + kk * 16 * L::SW) >> 4);
 }
 
@@ -363,6 +383,116 @@ __device__ __forceinline__ void wgmma_rs<128>(float (&d)[16][4],
 }
 
 
+// d[N/8][4] (+)= A . B over one k8 step, fp32 accumulators, tf32
+// operands (the low 13 bits of each 32-bit operand are not read: round
+// them first, cvt.rna); scale_d = 0 ignores d's old value.
+//   wgmma_ss_tf32: A (m64 x k8) and B (N x k8) both K-major in shared
+//     memory (descriptors).
+//   wgmma_rs_tf32: A from registers (the m16n8k8 tf32 A fragment a
+//     warp), B (N x k8) K-major in shared memory.
+// Asynchronous, as the bf16 products.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_tf32(float (&d)[N / 8][4],
+                                              uint64_t a, uint64_t b,
+                                              int scale_d);
+template <int N>
+__device__ __forceinline__ void wgmma_rs_tf32(float (&d)[N / 8][4],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<16>(float (&d)[2][4], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss_tf32<32>(float (&d)[4][4], uint64_t a,
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<32>(float (&d)[4][4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<64>(float (&d)[8][4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_tf32<128>(float (&d)[16][4],
+                                                 const uint32_t (&a)[4],
+                                                 uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+
 // ----------------------------------------------------- persistent grids
 // The block's r-th work item when gridDim.x blocks walk n items in
 // rounds: round r takes items r G.. r G + G - 1 (G = gridDim.x), in
@@ -389,7 +519,8 @@ inline int sm_count() {
 
 // A tensor map from the 12 numbers a wrapper worked out for one operand
 // (`_tma_layout`): dims {D, H, T, B}, byte strides {h, t, b}, box
-// {columns, 1, rows, 1} and the swizzle in bytes. Returns a cudaError_t.
+// {columns, 1, rows, 1} and the swizzle in bytes, of `elem_bytes`-byte
+// elements (2: bf16, 4: fp32). Returns a cudaError_t.
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   cuuint32_t, void*, const cuuint64_t*,
                                   const cuuint64_t*, const cuuint32_t*,
@@ -398,7 +529,7 @@ typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType,
                                   CUtensorMapFloatOOBfill);
 
 inline int encode_tma(CUtensorMap* map, const void* base,
-                      const long long* L) {
+                      const long long* L, int elem_bytes = 2) {
   // the driver's entry point, found once (no -lcuda at link time)
   static EncodeTiledFn encode = nullptr;
   if (encode == nullptr) {
@@ -423,6 +554,7 @@ inline int encode_tma(CUtensorMap* map, const void* base,
     box[i] = (cuuint32_t)L[7 + i];
   }
   for (int i = 0; i < 3; ++i) strides[i] = (cuuint64_t)L[4 + i];
+  if (elem_bytes != 2 && elem_bytes != 4) return (int)cudaErrorInvalidValue;
   CUtensorMapSwizzle sw;
   switch (L[11]) {
     case 128: sw = CU_TENSOR_MAP_SWIZZLE_128B; break;
@@ -430,17 +562,21 @@ inline int encode_tma(CUtensorMap* map, const void* base,
     default: return (int)cudaErrorInvalidValue;
   }
   const CUresult r = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims,
+      map,
+      elem_bytes == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+      4, const_cast<void*>(base), dims,
       strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
 // The layout an operand's map must have for a kernel built for head dim
-// D that loads tiles of `rows` rows from a [B, T, H, D] tensor
-template <int D>
+// D and E-byte elements that loads tiles of `rows` rows from a
+// [B, T, H, D] tensor
+template <int D, int E = 2>
 inline bool layout_is(const long long* L, int B, int T, int H, int rows) {
-  using Bx = Box<D>;
+  using Bx = Box<D, E>;
   return L[0] == D && L[1] == H && L[2] == T && L[3] == B &&
          L[7] == Bx::DB && L[8] == 1 && L[9] == rows && L[10] == 1 &&
          L[11] == Bx::SW;

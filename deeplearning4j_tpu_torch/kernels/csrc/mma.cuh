@@ -1,8 +1,9 @@
 // Tensor-core and asynchronous-copy helpers for sm_90a (inline PTX):
-// cp.async with zero fill, ldmatrix, mma.sync for bf16 (m16n8k16) and
-// TF32 (m16n8k8), the hi + lo TF32 split of an fp32 value that 3xTF32
-// products are built from (CUTLASS's OpMultiplyAddFastF32), the same
-// split into two bf16 values, and ex2.
+// cp.async with zero fill, mma.sync for TF32 (m16n8k8), the hi + lo TF32
+// split of an fp32 value that 3xTF32 products are built from (CUTLASS's
+// OpMultiplyAddFastF32), the same split into two bf16 values, bf16
+// packing and ex2. The bf16 fragment layouts below are those of the
+// Hopper kernels' register operands (csrc/hopper.cuh).
 //
 // Fragment layouts (PTX ISA, "Matrix fragments for mma.m16n8k16 /
 // m16n8k8"), with g = lane / 4 and t = lane % 4:
@@ -49,35 +50,6 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// four 8x8 b16 matrices; lane l gives the address of row l % 8 of matrix
-// l / 8, and r[i] holds matrix i's (row l / 4, cols 2(l % 4), +1)
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// the same, transposed: r[i] holds matrix i's (rows 2(l % 4), +1; col l / 4)
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  const void* p) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(smem_addr(p)));
-}
-
-// c += a . b, bf16 operands, fp32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // c += a . b, TF32 operands, fp32 accumulators

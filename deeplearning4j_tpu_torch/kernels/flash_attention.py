@@ -5,14 +5,15 @@ around them.
 Counterpart of `deeplearning4j_tpu/kernels/flash_attention.py`
 `flash_attention` (a `jax.custom_vjp`): the forward `_flash_fwd_kernel`
 :87 in finalize mode, and the backward `_flash_bwd_dq_kernel` :265 and
-`_flash_bwd_dkv_kernel` :307. Two designs share the work by dtype:
-- bf16: the forward (both modes) and dK/dV are Hopper kernels —
-  warp-specialised, TMA-fed, on `wgmma` (`csrc/flash_attention_sm90.cu`,
-  `csrc/flash_attention_bwd_sm90.cu`, building blocks in
-  `csrc/hopper.cuh`);
-- fp32 (3xTF32), and dQ in both dtypes: `mma.sync` on the tiles of
-  `csrc/flash_tiles.cuh` (`csrc/flash_attention.cu`,
-  `csrc/flash_attention_bwd.cu`).
+`_flash_bwd_dkv_kernel` :307. Two designs share the work:
+- Hopper kernels — warp-specialised, TMA-fed, on `wgmma`, building
+  blocks in `csrc/hopper.cuh`: the bf16 forward (both modes,
+  `csrc/flash_attention_sm90.cu`), the bf16 dK/dV and the dQ in both
+  dtypes (`csrc/flash_attention_bwd_sm90.cu`; fp32 as 3xTF32 on tf32
+  `wgmma`);
+- `mma.sync` on the tiles of `csrc/flash_tiles.cuh`: the fp32 forward
+  (both modes, 3xTF32, `csrc/flash_attention.cu`) and the fp32 dK/dV
+  (`csrc/flash_attention_bwd.cu`).
 Each source's note gives its bound and its design. `_FlashAttentionFn`
 is the custom_vjp: the forward kernel saves (q, k, v, o, lse), the
 backward launches the dQ and the dK/dV kernels. Unlike the JAX package,
@@ -59,10 +60,10 @@ from deeplearning4j_tpu_torch.kernels import build
 
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
-# rows of the tiles the bf16 Hopper kernels load by TMA, by head dim:
-# the forward's q tile and streamed K/V tiles (kQRows, kv_rows<D, CARRY>()
-# of csrc/flash_attention_sm90.cu), and the dK/dV kernel's K/V tile and
-# streamed q/dO tiles (kKRows, q_rows<D>() of
+# rows of the tiles the Hopper kernels load by TMA, by head dim: the
+# bf16 forward's q tile and streamed K/V tiles (kQRows, kv_rows<D,
+# CARRY>() of csrc/flash_attention_sm90.cu), and the bf16 dK/dV kernel's
+# K/V tile and streamed q/dO tiles (kKRows, q_rows<D>() of
 # csrc/flash_attention_bwd_sm90.cu); the streamed tiles are halved at
 # D = 128, and in carry mode (P as hi + lo), where the registers would
 # not hold two in flight
@@ -71,6 +72,16 @@ FWD_KV_ROWS = {32: 128, 64: 128, 128: 64}
 CARRY_KV_ROWS = 64
 DKV_KV_ROWS = 128
 DKV_Q_ROWS = {32: 64, 64: 64, 128: 32}
+# the dQ kernel's (DqTiles<T, D> of csrc/flash_attention_bwd_sm90.cu), by
+# dtype and head dim: its resident q/dO tile (a consumer warpgroup of 64
+# rows; two in fp32 at D = 32) and its streamed K/V tiles, halved at
+# D = 128 where the registers hold two tiles' scores in flight; fp32
+# stages six tiles a step (K, V, their tf32 lo halves, K^T's hi and lo),
+# so its tiles shrink with D to fit the shared memory
+DQ_Q_ROWS = {torch.bfloat16: {32: 64, 64: 64, 128: 64},
+             torch.float32: {32: 128, 64: 64, 128: 64}}
+DQ_KV_ROWS = {torch.bfloat16: {32: 64, 64: 64, 128: 32},
+              torch.float32: {32: 32, 64: 32, 128: 16}}
 
 
 def _kernel_dim(D: int) -> int:
@@ -152,7 +163,7 @@ def _bwd_lib(name: str, lib: str = "flash_attention_bwd"):
     fn = getattr(build.load(lib), name)
     if fn.argtypes is None:
         P, I = ctypes.c_void_p, ctypes.c_int
-        outs = [P] if name.endswith("_dq") else [P, P]
+        outs = [P] if "_bwd_dq" in name else [P, P]
         fn.argtypes = [I, I, P, P, P, P, P, P, *outs, I, I, I, I, I,
                        ctypes.POINTER(ctypes.c_longlong), ctypes.c_float, P]
         fn.restype = ctypes.c_int
@@ -194,24 +205,26 @@ def _kernel_layout(t):
 
 
 def _tma_layout(t, rows: int):
-    """The TMA tensor map of the [B, T, H, D] tensor `t` as the bf16
-    Hopper kernels load it in tiles of `rows` rows: 12 numbers, dims
+    """The TMA tensor map of the [B, T, H, D] tensor `t` as the Hopper
+    kernels load it in tiles of `rows` rows: 12 numbers, dims
     {D, H, T, B}, byte strides {h, t, b}, box {columns, 1, rows, 1} and
-    the swizzle in bytes (`encode_tma` in csrc/hopper.cuh). A box is 32
-    columns at D = 32 (64-byte rows, 64B swizzle) and 64 otherwise
-    (128-byte rows, 128B swizzle; D = 128 loads as two boxes). None where
-    a map cannot describe t as the kernels read it: a head dim that is
-    not 32, 64 or 128 or not contiguous, a base or a stride off 16
-    bytes, a zero stride, a stride of 2^40 bytes or more, more than 256
-    rows a box."""
+    the swizzle in bytes (`encode_tma` in csrc/hopper.cuh; the entry's
+    dtype code gives the element size). A box row is 128 bytes (128B
+    swizzle): 64 bf16 or 32 fp32 columns, so bf16 D = 128 loads as two
+    boxes, fp32 D = 64 as two and D = 128 as four; bf16 at D = 32 takes
+    64-byte rows (64B swizzle). None where a map cannot describe t as
+    the kernels read it: an element size other than 2 or 4 bytes, a
+    head dim that is not 32, 64 or 128 or not contiguous, a base or a
+    stride off 16 bytes, a zero stride, a stride of 2^40 bytes or more,
+    more than 256 rows a box."""
     B, T, H, D = t.shape
     es = t.element_size()
     strides = [t.stride(2) * es, t.stride(1) * es, t.stride(0) * es]
-    if (D not in HEAD_DIMS or t.stride(3) != 1 or t.data_ptr() % 16
-            or not 0 < rows <= 256
+    if (es not in (2, 4) or D not in HEAD_DIMS or t.stride(3) != 1
+            or t.data_ptr() % 16 or not 0 < rows <= 256
             or any(s % 16 or not 0 < s < 2 ** 40 for s in strides)):
         return None
-    cols = 32 if D == 32 else 64
+    cols = 32 if D == 32 and es == 2 else 128 // es
     return [D, H, T, B, *strides, cols, 1, rows, 1, cols * es]
 
 
@@ -372,8 +385,8 @@ def _check_bwd(q, k, v, do, lse, delta):
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
-    """dQ [B, Tq, H, D]. CUDA tensors launch the kernel; CPU tensors
-    take the plain version."""
+    """dQ [B, Tq, H, D]. CUDA tensors launch the kernel (the Hopper dQ,
+    bf16 and fp32); CPU tensors take the plain version."""
     if not K.on_cuda(q, k, v, do, lse, delta):
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
     D0 = q.shape[-1]
@@ -382,10 +395,14 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal: bool = False):
     _check_bwd(q, k, v, do, lse, delta)
     B, Tq, H, D = q.shape
     dq = torch.empty((B, Tq, H, D), dtype=q.dtype, device=q.device)
-    status = _bwd_lib("dl4j_flash_attention_bwd_dq")(
+    q_rows, kv_rows = DQ_Q_ROWS[q.dtype][D], DQ_KV_ROWS[q.dtype][D]
+    layout = _tma_maps((q, q_rows), (k, kv_rows), (v, kv_rows),
+                       (do, q_rows))
+    status = _bwd_lib("dl4j_flash_attention_bwd_dq_sm90",
+                      "flash_attention_bwd_sm90")(
         K.dtype_code(q), int(bool(causal)), K.ptr(q), K.ptr(k), K.ptr(v),
         K.ptr(do), K.ptr(lse), K.ptr(delta), K.ptr(dq), B, Tq, k.shape[1],
-        H, D, _strides(q, k, v, do), _scale(D0), K.stream_of(q))
+        H, D, layout, _scale(D0), K.stream_of(q))
     K.check_status("flash_attention_bwd_dq", status)
     K.count_launch("flash_attention_bwd_dq", q.dtype)
     return dq[..., :D0]

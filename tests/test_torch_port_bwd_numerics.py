@@ -1,5 +1,6 @@
 """The rounding of the tensor-core flash backward kernels, emulated on the
-CPU (`deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd.cu`).
+CPU (`deeplearning4j_tpu_torch/kernels/csrc/flash_attention_bwd.cu`,
+`csrc/flash_attention_bwd_sm90.cu`).
 
 The CUDA kernels run only on the card; what they do to the numbers can
 be replayed here in plain torch. Each product of the kernels is emulated
@@ -24,6 +25,19 @@ and 128 over a ragged 200-row sequence (each tile's product summed
 exactly, added to the running sums in fp32) and held at the 2-ulp bound
 against the JAX package's bf16 flash backward and the port's plain
 version.
+
+The dQ is the Hopper kernel in both dtypes (`csrc/flash_attention_bwd_sm90.cu`,
+`DqTiles`): it streams K/V tiles past resident q rows (64 keys a tile in
+bf16, 32 at D = 128; 32 in fp32, 16 at D = 128), computes S and dP a
+tile at a time,
+P = 2^(S·scale·log2e − lse·log2e) and dS, and adds each tile's dS·K to
+the running dQ in fp32. In bf16, dS is rounded to bf16 before that
+product; in fp32 every product is 3xTF32 (the same hi + lo split,
+cvt.rna, of Q, dO, K and V as they land, of dS, and of K as its
+transposed copy K^T, keys in a permuted order that the sum does not
+see). That walk is emulated at D 32, 64 and 128 over ragged 200-row
+sequences and held at the 2-ulp bound (bf16) and at 1e-4 (fp32) against
+the JAX package's flash backward and the port's plain version.
 
 What this does not emulate is the tensor cores' own fp32 accumulation,
 which rounds toward zero: it is the larger part of the kernels' fp32
@@ -58,6 +72,9 @@ FLASH_ATOL = 1e-4     # the port's fp32 flash backward tolerance
 LOG2E = np.float32(np.log2(np.e))
 CASES = [(causal, D) for causal in (True, False) for D in (32, 64)]
 SM90_Q_TILE = {32: 64, 64: 64, 128: 32}   # the Hopper dK/dV's q tile
+# the Hopper dQ's streamed k tile, by dtype and head dim (DQ_KV_ROWS)
+SM90_DQ_K_TILE = {"bf16": {32: 64, 64: 64, 128: 32},
+                  "3xtf32": {32: 32, 64: 32, 128: 16}}
 SM90_T = 200          # four of its q tiles, the last ragged
 SM90_CASES = [(causal, D) for causal in (True, False) for D in (32, 64, 128)]
 
@@ -144,6 +161,35 @@ def _emulate_sm90_dkv(q, k, v, do, lse, delta, causal):
     return [t.permute(0, 2, 1, 3) for t in (dk * _scale(D), dv)]
 
 
+def _emulate_sm90_dq(q, k, v, do, lse, delta, causal, mode):
+    """dq [B, Tq, H, D] fp32 as the Hopper dQ kernel rounds it, mode
+    "bf16" or "3xtf32": for each streamed k tile (SM90_DQ_K_TILE) S and
+    dP (exact bf16 products, or 3xTF32), the causal and Tk masks, P =
+    2^(S·scale·log2e − lse·log2e), dS = P (dP − Δ) (rounded to bf16 in
+    bf16), the tile's dS·K summed exactly (bf16) or as 3xTF32, and added
+    to the running dq in fp32; scaled at the end."""
+    mm = _mm_bf16 if mode == "bf16" else _mm_3xtf32
+    Q, K, V, dO = (t.float().permute(0, 2, 1, 3) for t in (q, k, v, do))
+    Tq, Tk, D = Q.shape[2], K.shape[2], Q.shape[3]
+    qpos = torch.arange(Tq)[:, None]
+    lse2 = (lse * LOG2E).float()
+    sl2 = float(np.float32(_scale(D)) * LOG2E)
+    dq = torch.zeros(Q.shape)
+    bk = SM90_DQ_K_TILE[mode][D]
+    for k0 in range(0, Tk, bk):
+        Kt, Vt = K[:, :, k0:k0 + bk], V[:, :, k0:k0 + bk]
+        s = mm(Q, Kt.transpose(-1, -2))
+        if causal:
+            kpos = torch.arange(k0, k0 + Kt.shape[2])[None, :]
+            s = torch.where(kpos <= qpos, s, torch.full_like(s, -1e30))
+        p = torch.exp2(s.double() * sl2 - lse2[..., None].double()).float()
+        ds = p * (mm(dO, Vt.transpose(-1, -2)) - delta[..., None])
+        if mode == "bf16":
+            ds = ds.bfloat16().float()
+        dq = dq + mm(ds, Kt)
+    return (dq * _scale(D)).permute(0, 2, 1, 3)
+
+
 def _saved(q, k, v, do, causal):
     """lse from the port's forward and delta = rowsum(dO∘O), as
     `_FlashAttentionFn` hands them to the kernels."""
@@ -178,8 +224,8 @@ def _jax_grads(causal, D):
 
 @functools.lru_cache(maxsize=None)
 def _jax_grads_bf16(causal, D):
-    """dk, dv of the JAX flash attention on the bf16 inputs of the Hopper
-    kernel's walk (interpret mode)."""
+    """dq, dk, dv of the JAX flash attention on the bf16 inputs of the
+    Hopper kernels' walks (interpret mode)."""
     def grads(q, k, v, do):
         _, vjp = jax.vjp(lambda *a: jax_flash(*a, causal, 64, 64, True),
                          q, k, v)
@@ -187,7 +233,19 @@ def _jax_grads_bf16(causal, D):
     args = (jnp.asarray(t.float().numpy()).astype(jnp.bfloat16)
             for t in _inputs(D, dtype=torch.bfloat16, T=SM90_T))
     return [np.array(g.astype(jnp.float32))
-            for g in jax.jit(grads)(*args)[1:]]
+            for g in jax.jit(grads)(*args)]
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_dq_f32(causal, D):
+    """dq of the JAX flash attention on the fp32 inputs of the Hopper
+    dQ's walk (interpret mode)."""
+    def grads(q, k, v, do):
+        _, vjp = jax.vjp(lambda *a: jax_flash(*a, causal, 64, 64, True),
+                         q, k, v)
+        return vjp(do)[0]
+    args = (jnp.asarray(t.numpy()) for t in _inputs(D, T=SM90_T))
+    return np.array(jax.jit(grads)(*args))
 
 
 def _max_err(got, want):
@@ -250,6 +308,37 @@ def test_sm90_dkv_walk_within_two_ulp_of_jax_and_plain(causal, D):
     dk, dv = (t.bfloat16() for t in _emulate_sm90_dkv(q, k, v, do, lse,
                                                       delta, causal))
     plain = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal)
-    jax_dk, jax_dv = (torch.from_numpy(g) for g in _jax_grads_bf16(causal, D))
+    jax_dk, jax_dv = (torch.from_numpy(g)
+                      for g in _jax_grads_bf16(causal, D)[1:])
     for ref in (plain, (jax_dk, jax_dv)):
         assert _max_err((dk, dv), ref) <= _two_ulp(ref)
+
+
+@pytest.mark.parametrize("causal,D", SM90_CASES)
+def test_sm90_dq_walk_within_two_ulp_of_jax_and_plain(causal, D):
+    """The Hopper dQ's bf16 walk (64-key tiles, 32 at D = 128; dS rounded
+    to bf16, an fp32 running sum) at the 2-ulp bf16 bound chip_smoke holds the kernel
+    to, against the plain version and the JAX package's bf16 backward."""
+    q, k, v, do = _inputs(D, dtype=torch.bfloat16, T=SM90_T)
+    lse, delta = _saved(q, k, v, do, causal)
+    dq = _emulate_sm90_dq(q, k, v, do, lse, delta, causal, "bf16").bfloat16()
+    plain = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    jax_dq = torch.from_numpy(_jax_grads_bf16(causal, D)[0])
+    for ref in (plain, jax_dq):
+        assert _max_err((dq,), (ref,)) <= _two_ulp((ref,))
+
+
+@pytest.mark.parametrize("causal,D", SM90_CASES)
+def test_sm90_dq_3xtf32_walk_within_fp32_tolerance_of_jax_and_plain(causal,
+                                                                    D):
+    """The Hopper dQ's fp32 walk (32-key tiles, 16 at D = 128; every
+    product 3xTF32 on the cvt.rna hi + lo split of `_mm_3xtf32`; each
+    tile's dS·K added in fp32) within the port's fp32 backward tolerance
+    of the plain version and of the JAX package's fp32 backward."""
+    q, k, v, do = _inputs(D, T=SM90_T)
+    lse, delta = _saved(q, k, v, do, causal)
+    dq = _emulate_sm90_dq(q, k, v, do, lse, delta, causal, "3xtf32")
+    plain = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal)
+    for ref in (plain, torch.from_numpy(_jax_dq_f32(causal, D))):
+        np.testing.assert_allclose(dq.numpy(), ref.numpy(), atol=FLASH_ATOL,
+                                   rtol=0)
